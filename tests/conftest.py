@@ -20,6 +20,12 @@ if str(_SRC) not in sys.path:
 from repro.core import DrimGeometry  # noqa: E402
 
 
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "cuda: runs a CUDA kernel of src/repro_torch on the card; "
+        "skips where torch.cuda.is_available() is False")
+
+
 def pytest_addoption(parser):
     parser.addoption(
         "--fast", action="store_true", default=False,
