@@ -4,12 +4,15 @@
     python3 chip_smoke.py
 
 Phases, each fatal on failure:
-  1. build   -- compile the three CUDA kernels from `src/repro_torch/csrc/`
+  1. build   -- compile the four CUDA kernels from `src/repro_torch/csrc/`
                 (one nvcc per source, all started together);
   2. kernels -- hold each kernel against its plain torch version on the
-                card at the main path's shapes plus a ragged shape, with
-                exact equality, and time kernel, plain version and (for
-                the GEMM) one PyTorch call computing the same function;
+                card at the main paths' shapes plus a ragged shape (exact
+                equality for the integer kernels; flash attention at the
+                reference test's tolerances), and time kernel, plain
+                version and, where one exists, one PyTorch call computing
+                the same function (float32 matmul for the GEMM, SDPA for
+                flash attention);
   3. path    -- one drim-bnn FFN BitLinear pair at full width (768 -> 3072
                 -> 768) on M = 512 activation rows, weights from a seeded
                 numpy generator, each projection served by the native
@@ -17,8 +20,20 @@ Phases, each fatal on failure:
                 route (AAP interpreter kernel on the DRIM-R fleet); the
                 int32 dots of both routes must equal the plain reference
                 computed on the CPU, and the float outputs must agree;
-  4. counts  -- every kernel's launch counter, zeroed just before phase 3,
-                must be above 0 after it.
+  4. serve   -- the drim-bnn LM at full width and depth (12 layers,
+                seeded weights) through `repro_torch.launch.serve`: batch
+                4, a 256-token prompt (flash prefill), 8 greedy tokens, on
+                the native dense route, the native packed route (with its
+                bit-exactness check) and the DRIM packed route ("cuda"
+                engine); the token ids must be identical across the three.
+                Then `run_continuous` with prompts of 256 and 200 tokens
+                (the second takes the dense-scores attention) into 2
+                slots, native packed and DRIM packed, with identical
+                tokens per request; and a float32 smoke-config prefill on
+                the card held to the same prefill on the CPU;
+  5. counts  -- the launch counters are zeroed just before phases 3 and 4
+                and read just after each: phase 3 must launch the three
+                BNN kernels, phase 4 all four.
 
 Prints the kernels' JSON line, the card's name and power limit, and last
 `{"ok": true, "device": {...}}`.  Exits nonzero without a CUDA card.
@@ -46,6 +61,14 @@ M_ROWS = 512                      # activation rows: a 512-token prefill
 # two operations, so a quarter of it.
 HBM_BYTES_S = 3.35e12
 INT32_OPS_S = 67e12 / 4
+BF16_FLOPS_S = 989e12             # dense tensor-core bf16 peak
+
+# flash attention: out at the reference test's tolerances
+# (tests/test_flash_attention.py), lse at 1e-4
+FLASH_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
+LSE_TOL = 1e-4
+SERVE = ["--arch", "drim-bnn", "--batch", "4", "--prompt-len", "256",
+         "--gen", "8", "--seed", str(SEED), "--temperature", "0"]
 
 
 def cuda_ms(fn, iters: int) -> float:
@@ -103,16 +126,31 @@ def check_equal(what: str, got, want) -> int:
     return err
 
 
-def bound(bytes_moved: float, ops: float):
+def bound(bytes_moved: float, ops: float, ops_s: float = INT32_OPS_S):
     by_bytes = bytes_moved / HBM_BYTES_S * 1e3
-    by_ops = ops / INT32_OPS_S * 1e3
+    by_ops = ops / ops_s * 1e3
     return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops, "operations")
+
+
+def check_close(what: str, got, want, tol: float) -> float:
+    """|got - want| <= tol + tol * |want| everywhere (numpy's
+    assert_allclose with rtol = atol = tol); returns the max abs error."""
+    got, want = got.to(torch.float32), want.to(torch.float32)
+    if got.shape != want.shape:
+        raise AssertionError(f"{what}: shape {tuple(got.shape)} != "
+                             f"{tuple(want.shape)}")
+    diff = (got - want).abs()
+    if not bool((diff <= tol + tol * want.abs()).all()):
+        raise AssertionError(f"{what}: kernel differs from its plain "
+                             f"version (max abs diff {float(diff.max())})")
+    return float(diff.max())
 
 
 def phase_build():
     from repro_torch.kernels import _build
     t0 = time.time()
-    reports = _build.build(["pack_signs", "xnor_gemm", "aap_interp"])
+    reports = _build.build(["pack_signs", "xnor_gemm", "aap_interp",
+                            "flash_attn_fwd"])
     secs = time.time() - t0
     for name, text in sorted(reports.items()):
         for line in text.splitlines():
@@ -250,7 +288,96 @@ def phase_kernels(rng):
                 bound_by=b_by, library_ms=None,
                 shape=f"{len(prog)} AAPs over [{waves},{n_in},{ncols}] "
                       f"int32, {n_state} state rows")
+
+    records["flash_attn_fwd"] = phase_flash(rng)
     return records
+
+
+def phase_flash(rng):
+    """Flash attention forward against its plain version; returns the
+    record of the drim-bnn prefill shape."""
+    from repro_torch.kernels import flash_attention as fa
+    dev = torch.device("cuda")
+    cases = [  # b, h, hkv, sq, sk, d, bq, bk, causal, dtype
+        (4, 12, 4, 2048, 2048, 64, 128, 128, True, torch.bfloat16),
+        (4, 12, 4, 256, 256, 64, 128, 128, True, torch.bfloat16),
+        (1, 4, 1, 64, 192, 128, 64, 64, True, torch.float32),
+        (1, 2, 2, 256, 256, 32, 128, 64, False, torch.float32)]
+    record = None
+    for b, h, hkv, sq, sk, d, bq, bk, causal, dt in cases:
+        q, k, v = (torch.from_numpy(rng.standard_normal(
+            shape, dtype=np.float32)).to(dev, dt)
+            for shape in ((b, h, sq, d), (b, hkv, sk, d), (b, hkv, sk, d)))
+        n_rep = h // hkv
+
+        def kernel():
+            return fa.flash_fwd(q, k, v, causal=causal, n_rep=n_rep, bq=bq,
+                                bk=bk)
+
+        def plain():
+            return fa.flash_attention_plain(q, k, v, causal, n_rep)
+
+        out, lse = kernel()
+        want, want_lse = plain()
+        label = f"flash {list(q.shape)} {dt} causal={causal}"
+        err = check_close(label + " out", out, want, FLASH_TOL[dt])
+        lse_err = check_close(label + " lse", lse, want_lse, LSE_TOL)
+        ms = graph_ms(kernel, 20)
+        call_ms = cuda_ms(kernel, 50)
+        plain_ms = cuda_ms(plain, 3)
+        library_ms = lib_err = None
+        if causal and sq == sk:
+            # One PyTorch call computing the same function, a yardstick
+            # the port never calls.
+            def library():
+                return torch.nn.functional.scaled_dot_product_attention(
+                    q, k, v, is_causal=True, enable_gqa=True)
+            lib_err = float((library().float() - want.float()).abs().max())
+            library_ms = graph_ms(library, 20)
+        nbytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size() \
+            + lse.numel() * 4
+        flops = 4 * b * h * sq * sk * d * (0.5 if causal else 1.0)
+        b_ms, b_by = bound(nbytes, flops, BF16_FLOPS_S)
+        print("detail " + json.dumps({
+            "kernel": "flash_attn_fwd", "q": list(q.shape),
+            "kv": list(k.shape), "dtype": str(dt), "causal": causal,
+            "max_abs_err": err, "lse_max_abs_err": lse_err, "ms": ms,
+            "call_ms": call_ms, "plain_ms": plain_ms,
+            "library_ms": library_ms, "library_max_abs_err": lib_err,
+            "bound_ms": b_ms, "bound_by": b_by}))
+        if record is None:
+            record = dict(
+                max_abs_err=err, ms=ms, call_ms=call_ms, plain_ms=plain_ms,
+                bound_ms=b_ms, bound_by=b_by, library_ms=library_ms,
+                shape=f"q {list(q.shape)} k/v {list(k.shape)} bfloat16, "
+                      "causal")
+        del q, k, v, out, lse, want, want_lse
+    return record
+
+
+def check_ste_product(rng):
+    """The dense STE product on the card at a decode shape (M=4, K=3072,
+    the down projection): the port's float32 product rounded once must
+    equal the exact dot; also reports whether a plain bfloat16 matmul of
+    the same ±1 operands (the formulation before the float32 repair)
+    happens to round the same way on this card."""
+    from repro_torch.models import layers
+    dev = torch.device("cuda")
+    x = torch.from_numpy(rng.standard_normal((4, 3072), dtype=np.float32))
+    w = torch.from_numpy(rng.standard_normal((3072, 768), dtype=np.float32))
+    x, w = x.to(dev, torch.bfloat16), w.to(dev, torch.bfloat16)
+    sx = torch.where(x >= 0, 1.0, -1.0)
+    sw = torch.where(w >= 0, 1.0, -1.0)
+    exact = (sx.double() @ sw.double()).to(torch.bfloat16)
+    alpha = w.abs().mean(0)
+    got = layers.bitlinear({"bkernel": w}, x)
+    if not torch.equal(got, exact * alpha):
+        raise AssertionError("dense STE product is not the exact dot")
+    bf16 = sx.to(torch.bfloat16) @ sw.to(torch.bfloat16)
+    print("detail " + json.dumps({
+        "check": "bfloat16 ±1 product, M=4 K=3072 N=768",
+        "float32_route_exact": True,
+        "bfloat16_matmul_differs": int((bf16 != exact).sum())}))
 
 
 def phase_path(rng):
@@ -304,27 +431,118 @@ def phase_path(rng):
         x, x_cpu = y_native, y_native.cpu()
 
 
+def serve_line(leg: str, stats) -> None:
+    keys = ("prefill_s", "compile_s", "decode_tok_per_s", "decode_p50_ms",
+            "decode_p99_ms", "n_waves", "wall_s", "tok_per_s")
+    print("serve " + json.dumps({"leg": leg, **{k: stats[k] for k in keys
+                                                if k in stats}}))
+
+
+def phase_serve():
+    """The drim-bnn LM served at full width and depth through the serving
+    entry points, three routes with identical tokens; then the continuous
+    batcher on two routes; then a small-input reference check."""
+    from repro_torch.launch import serve
+    legs = {"gpu dense": ["--engine", "gpu"],
+            "gpu packed": ["--engine", "gpu", "--packed"],
+            "cuda packed": ["--engine", "cuda", "--packed"]}
+    cfg = serve.build_cfg(serve.parse_args(SERVE))
+    gens = {}
+    for leg, extra in legs.items():
+        gen, stats = serve.run_serve(serve.parse_args(SERVE + extra))
+        if gen.shape != (4, 8) or gen.min() < 0 or gen.max() >= cfg.vocab_size:
+            raise AssertionError(f"{leg}: bad token ids {gen.tolist()}")
+        gens[leg] = gen
+        serve_line(leg, stats)
+    first = gens["gpu dense"]
+    for leg, gen in gens.items():
+        if not np.array_equal(gen, first):
+            raise AssertionError(f"{leg} tokens {gen.tolist()} differ from "
+                                 f"gpu dense {first.tolist()}")
+    print("serve " + json.dumps({"tokens_identical": True,
+                                 "tokens": first.tolist()}))
+
+    prompts = [np.random.default_rng([SEED, 2]).integers(0, cfg.vocab_size, n)
+               for n in (256, 200)]
+    results = {}
+    for leg in ("gpu packed", "cuda packed"):
+        args = serve.parse_args(SERVE + legs[leg] + ["--batch", "2",
+                                                     "--continuous", "2"])
+        res, stats = serve.run_continuous(args, prompts=prompts)
+        serve_line("continuous " + leg, stats)
+        results[leg] = res
+    for r in range(2):
+        a, b = results["gpu packed"][r], results["cuda packed"][r]
+        if len(a) != 8 or not np.array_equal(a, b):
+            raise AssertionError(f"continuous request {r}: {a.tolist()} vs "
+                                 f"{b.tolist()}")
+    print("serve " + json.dumps({"continuous_tokens_identical": True,
+                                 "tokens": {r: v.tolist() for r, v in
+                                            results["gpu packed"].items()}}))
+    check_prefill_reference()
+
+
+def check_prefill_reference():
+    """The float32 smoke config's prefill logits on the card (flash
+    attention at S=128) against the same prefill on the CPU (dense
+    scores), same seeded weights and tokens, within 1e-3."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.kernels import flash_attention
+    from repro_torch.models import init_params, prefill
+    cfg = get_smoke_config("drim-bnn").replace(dtype="float32",
+                                                param_dtype="float32")
+    toks = torch.from_numpy(np.random.default_rng([SEED, 3]).integers(
+        0, cfg.vocab_size, (2, 128)))
+    before = flash_attention.flash_fwd.launches
+    logits = {}
+    for dev in ("cuda", "cpu"):
+        params = init_params(SEED, cfg, device=dev)
+        lg, _ = prefill(params, cfg, {"tokens": toks.to(dev)})
+        logits[dev] = lg.cpu()
+    if flash_attention.flash_fwd.launches != before + cfg.n_layers:
+        raise AssertionError("the card's prefill did not run the flash "
+                             "kernel in every layer")
+    err = float((logits["cuda"] - logits["cpu"]).abs().max())
+    if not (torch.isfinite(logits["cuda"]).all() and err <= 1e-3):
+        raise AssertionError(f"card prefill differs from the CPU's by {err}")
+    print("serve " + json.dumps({"prefill_vs_cpu_max_abs_err": err}))
+
+
+def read_counts(wrappers, names, phase: str):
+    launches = {name: fn.launches for name, fn in wrappers.items()}
+    idle = [n for n in names if launches[n] <= 0]
+    if idle:
+        raise AssertionError(f"{phase} never launched {idle}")
+    print("counts " + json.dumps({"phase": phase, **launches}))
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
-    from repro_torch.kernels import aap_interpreter, packbits, xnor_popcount
+    from repro_torch.kernels import (aap_interpreter, flash_attention,
+                                     packbits, xnor_popcount)
 
     torch.backends.cuda.matmul.allow_tf32 = False
     rng = np.random.default_rng(SEED)
     phase_build()
     records = phase_kernels(rng)
+    check_ste_product(rng)
 
     wrappers = {"pack_signs": packbits.pack_signs,
                 "xnor_gemm": xnor_popcount.xnor_gemm_packed,
-                "aap_interp": aap_interpreter.aap_interp}
+                "aap_interp": aap_interpreter.aap_interp,
+                "flash_attn_fwd": flash_attention.flash_fwd}
     for fn in wrappers.values():
         fn.launches = 0
     phase_path(rng)
-    launches = {name: fn.launches for name, fn in wrappers.items()}
-    idle = [name for name, n in launches.items() if n <= 0]
-    if idle:
-        raise AssertionError(f"main path never launched {idle}")
+    path_launches = read_counts(wrappers, ("pack_signs", "xnor_gemm",
+                                           "aap_interp"), "path")
+    for fn in wrappers.values():
+        fn.launches = 0
+    phase_serve()
+    launches = read_counts(wrappers, tuple(wrappers), "serve")
 
     meta = {
         "pack_signs": ("src/repro_torch/csrc/pack_signs.cu",
@@ -335,6 +553,9 @@ def main() -> int:
         "aap_interp": ("src/repro_torch/csrc/aap_interp.cu",
                        "src/repro/kernels/aap_interpreter.py:64 "
                        "_interp_kernel"),
+        "flash_attn_fwd": ("src/repro_torch/csrc/flash_attn_fwd.cu",
+                           "src/repro/kernels/flash_attention.py:48 "
+                           "_fwd_kernel"),
     }
     kernels = []
     for name, (source, replaces) in meta.items():
@@ -342,6 +563,7 @@ def main() -> int:
         kernels.append({
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": launches[name],
+            "path_launches": path_launches[name],
             "max_abs_err": r["max_abs_err"], "max_abs_diff": r["max_abs_err"],
             "ms": r["ms"], "kernel_ms": r["ms"], "call_ms": r["call_ms"],
             "plain_ms": r["plain_ms"],

@@ -75,3 +75,30 @@ def xnor_gemm_dense_ref(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     sa = torch.where(a >= 0, 1.0, -1.0).to(torch.float32)
     sb = torch.where(b >= 0, 1.0, -1.0).to(torch.float32)
     return (sa @ sb.T).to(torch.int32)
+
+
+# --- flash_attention.py oracle ------------------------------------------------
+
+def sdpa_ref(q, k, v, causal: bool = True, n_rep: int = 1, *,
+             with_lse: bool = False):
+    """Dense scaled-dot-product attention oracle (float32 math).
+
+    q [B,H,Sq,D]; k, v [B,Hkv,Sk,D]; GQA repeat via n_rep; the causal mask
+    compares absolute indices (query i keeps keys j <= i).  Returns out in
+    q's dtype, and with `with_lse` also the row log-sum-exp [B,H,Sq] of
+    the masked scores in float32."""
+    d = q.shape[-1]
+    if n_rep > 1:
+        k = k.repeat_interleave(n_rep, dim=1)
+        v = v.repeat_interleave(n_rep, dim=1)
+    s = torch.einsum("bhqd,bhkd->bhqk", q.to(torch.float32),
+                     k.to(torch.float32)) / (d ** 0.5)
+    if causal:
+        sq, sk = q.shape[2], k.shape[2]
+        mask = (torch.arange(sq, device=q.device)[:, None]
+                >= torch.arange(sk, device=q.device)[None, :])
+        s = torch.where(mask, s, torch.tensor(-1e30, device=q.device))
+    w = torch.softmax(s, dim=-1)
+    out = torch.einsum("bhqk,bhkd->bhqd", w,
+                       v.to(torch.float32)).to(q.dtype)
+    return (out, torch.logsumexp(s, dim=-1)) if with_lse else out

@@ -1,0 +1,245 @@
+"""Continuous-batching request scheduler: concurrent decode requests
+packed into shared waves over a fixed KV-cache slot pool (port of
+`repro.launch.batching`).
+
+  * an arriving request is PREFILLED at batch 1, its cache spliced into a
+    free slot (`insert_request` ZEROES the slot first -- decode cache
+    writes are additive one-hot updates, so a reused slot must never keep
+    a previous tenant's K/V), and its first token comes from the prefill
+    logits;
+  * every wave runs ONE shared decode step over all slots -- a late
+    arrival joins the NEXT wave instead of launching its own decode
+    stream;
+  * positions advance per request; a finished request frees its slot at
+    the wave boundary and the slot is re-admitted from the pending queue
+    on the very next wave.
+
+The decode function comes from `make_decode_fn`, which `launch.serve`
+uses for its static loop too: the native route for the "gpu" engine, the
+DRIM fleet under `layers.serving_engine` for a registry engine.
+"""
+from __future__ import annotations
+
+import collections
+import dataclasses
+from typing import Any, Callable, Deque, Dict, List, Optional
+
+import numpy as np
+import torch
+
+from repro_torch.device import resolve_device
+from repro_torch.models import decode_step, empty_caches, prefill
+from repro_torch.models.layers import serving_engine
+from repro_torch.tree import tree_map_with_path
+
+NATIVE_ENGINE = "gpu"
+
+
+def fold_in(seed: int, i: int) -> int:
+    """A sampling seed derived from (seed, i), as `jax.random.fold_in`
+    derives a key."""
+    return int(np.random.SeedSequence([seed, i]).generate_state(1)[0])
+
+
+def sample_tokens(logits: torch.Tensor, temperature: float,
+                  key: int) -> torch.Tensor:
+    """logits [B, 1, V] -> next tokens [B, 1] (int64): greedy at
+    temperature 0, else drawn from softmax(logits / temperature) with a
+    CPU generator seeded by `key`."""
+    lg = logits[:, -1, :]
+    if temperature > 0:
+        probs = torch.softmax(lg.to(torch.float32) / temperature, -1).cpu()
+        gen = torch.Generator().manual_seed(key)
+        nxt = torch.multinomial(probs, 1, generator=gen)[:, 0].to(lg.device)
+    else:
+        nxt = lg.argmax(-1)
+    return nxt[:, None]
+
+
+def make_decode_fn(cfg, temperature: float = 0.0,
+                   engine: Optional[str] = None) -> Callable:
+    """(params, tok [B,1], caches, pos [B], key) -> (next_tok [B,1], caches).
+
+    engine None or "gpu": the native route (the packed-kernel or dense
+    BitLinear GEMMs on the params' device).  A registry engine ("resident",
+    "cuda"): the same decode step inside `serving_engine`, so BitLinear
+    GEMMs run on the simulated DRIM fleet."""
+    drim = engine if engine not in (None, NATIVE_ENGINE) else None
+    if drim is not None:
+        from repro_torch.pim.compiler import get_engine
+        get_engine(drim)                   # fail fast on unknown names
+
+    def dec(p, tok, caches, pos, key):
+        with serving_engine(drim):
+            lg, caches = decode_step(p, cfg, tok, caches, pos)
+        return sample_tokens(lg, temperature, key), caches
+    return dec
+
+
+def insert_request(caches, pre_caches, slot: int):
+    """Splice one request's batch-1 prefill caches into `slot` of the
+    batched decode caches, ZEROING the slot's previous contents first.
+
+    Caches are stacked [L, batch, ...] trees (layer axis 0, batch axis 1);
+    any leaf that cannot insert raises a shape-mismatch error naming the
+    cache path."""
+    def ins(path, full, one):
+        if (full.dim() != one.dim() or full.dim() < 2 or one.shape[1] != 1
+                or any(o > f for o, f in zip(one.shape, full.shape))):
+            raise ValueError(
+                f"cache insert mismatch at {path}: prefill leaf "
+                f"{tuple(one.shape)} cannot insert into {tuple(full.shape)} "
+                "(expected stacked [L, batch, ...] caches, batch axis 1, "
+                "and a batch-1 prefill)")
+        out = full.clone()
+        out[:, slot] = 0
+        out[(slice(None), slot) + tuple(slice(0, n) for n in one.shape[2:])] \
+            = one[:, 0].to(full.dtype)
+        return out
+
+    return tree_map_with_path(ins, caches, pre_caches)
+
+
+@dataclasses.dataclass
+class Request:
+    """One decode request: prompt tokens plus generation budget."""
+
+    rid: int
+    prompt: np.ndarray
+    max_new_tokens: int
+    arrival_wave: int
+
+
+class WaveBatcher:
+    """Fixed slot pool + shared decode waves + per-request accounting.
+
+    `submit()` enqueues a request (arrival_wave defaults to "now");
+    `run_wave()` admits eligible pending requests into free slots
+    (prefill + zeroed-slot insert), then runs ONE decode step over all
+    slots; `run()` loops until every request finished.  The `wave_log`
+    records admissions, decoded request ids, per-request positions and
+    occupancy per wave.  The pool lives on `device` (None: the card).
+    """
+
+    def __init__(self, cfg, params, *, n_slots: int, ctx_len: int,
+                 temperature: float = 0.0, seed: int = 0,
+                 engine: Optional[str] = None, device=None) -> None:
+        self.device = resolve_device(device)
+        self.cfg = cfg
+        self.params = params
+        self.n_slots = n_slots
+        self.ctx_len = ctx_len
+        self.temperature = temperature
+        self._keys = np.random.default_rng(seed)
+        self._decode = make_decode_fn(cfg, temperature, engine)
+        self.caches = empty_caches(cfg, n_slots, ctx_len, device=self.device)
+        self.wave = 0
+        self.wave_log: List[Dict[str, Any]] = []
+        self.results: Dict[int, List[int]] = {}
+        self._pending: Deque[Request] = collections.deque()
+        self._next_rid = 0
+        # per-slot state; rid -1 marks a free slot
+        self._slot_rid = [-1] * n_slots
+        self._slot_pos = np.zeros(n_slots, np.int64)
+        self._slot_last = np.zeros(n_slots, np.int64)
+        self._slot_remaining = [0] * n_slots
+
+    def _key(self) -> int:
+        return int(self._keys.integers(0, 2**62))
+
+    # -- request intake ----------------------------------------------------
+    def submit(self, prompt, max_new_tokens: int,
+               arrival_wave: Optional[int] = None) -> int:
+        """Enqueue a request; returns its rid.  It joins the first wave
+        >= arrival_wave (default: the next wave to run) with a free slot
+        -- never a private decode stream."""
+        if max_new_tokens < 1:
+            raise ValueError("max_new_tokens must be >= 1")
+        prompt = np.asarray(prompt, np.int64).reshape(-1)
+        if len(prompt) + max_new_tokens - 1 > self.ctx_len:
+            raise ValueError(
+                f"request needs {len(prompt) + max_new_tokens - 1} cache "
+                f"positions, ctx_len is {self.ctx_len}")
+        rid = self._next_rid
+        self._next_rid += 1
+        self._pending.append(Request(
+            rid=rid, prompt=prompt, max_new_tokens=int(max_new_tokens),
+            arrival_wave=self.wave if arrival_wave is None
+            else int(arrival_wave)))
+        self.results[rid] = []
+        return rid
+
+    @property
+    def done(self) -> bool:
+        return not self._pending and all(r < 0 for r in self._slot_rid)
+
+    # -- wave loop ---------------------------------------------------------
+    def _admit(self, req: Request, slot: int) -> None:
+        toks = torch.as_tensor(req.prompt, device=self.device)[None, :]
+        logits, pre = prefill(self.params, self.cfg, {"tokens": toks})
+        self.caches = insert_request(self.caches, pre, slot)
+        first = int(sample_tokens(logits, self.temperature, self._key())[0])
+        self.results[req.rid].append(first)
+        if req.max_new_tokens == 1:
+            return                       # done at admission, slot stays free
+        self._slot_rid[slot] = req.rid
+        self._slot_pos[slot] = len(req.prompt)
+        self._slot_last[slot] = first
+        self._slot_remaining[slot] = req.max_new_tokens - 1
+
+    def _admit_pending(self) -> List[int]:
+        admitted: List[int] = []
+        still: Deque[Request] = collections.deque()
+        while self._pending:
+            req = self._pending.popleft()
+            free = next((s for s in range(self.n_slots)
+                         if self._slot_rid[s] < 0), None)
+            if req.arrival_wave > self.wave or free is None:
+                still.append(req)
+                continue
+            self._admit(req, free)
+            admitted.append(req.rid)
+        self._pending = still
+        return admitted
+
+    def run_wave(self) -> Dict[str, Any]:
+        """Admit eligible arrivals, then one shared decode step over all
+        slots; returns (and logs) the wave record."""
+        admitted = self._admit_pending()
+        active = [s for s in range(self.n_slots) if self._slot_rid[s] >= 0]
+        record = {
+            "wave": self.wave,
+            "admitted": admitted,
+            "decoded": [self._slot_rid[s] for s in active],
+            "positions": {self._slot_rid[s]: int(self._slot_pos[s])
+                          for s in active},
+            "n_active": len(active),
+        }
+        if active:
+            tok = torch.as_tensor(self._slot_last, device=self.device)[:, None]
+            pos = torch.as_tensor(self._slot_pos, device=self.device)
+            nxt, self.caches = self._decode(self.params, tok, self.caches,
+                                            pos, self._key())
+            nxt = nxt.reshape(-1).cpu().numpy()
+            for s in active:
+                rid = self._slot_rid[s]
+                self.results[rid].append(int(nxt[s]))
+                self._slot_last[s] = nxt[s]
+                self._slot_pos[s] += 1
+                self._slot_remaining[s] -= 1
+                if self._slot_remaining[s] == 0:
+                    self._slot_rid[s] = -1          # freed for next wave
+        self.wave += 1
+        self.wave_log.append(record)
+        return record
+
+    def run(self, max_waves: int = 100_000) -> Dict[int, np.ndarray]:
+        """Drive waves until every submitted request completed; returns
+        {rid: generated token ids} (first token from prefill logits)."""
+        while not self.done:
+            if self.wave >= max_waves:
+                raise RuntimeError(
+                    f"batcher did not drain in {max_waves} waves")
+            self.run_wave()
+        return {rid: np.asarray(toks, np.int64)
+                for rid, toks in self.results.items()}

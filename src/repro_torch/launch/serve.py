@@ -1,0 +1,301 @@
+"""Batched serving driver: prefill once, decode N tokens, report tok/s
+(port of `repro.launch.serve`).
+
+  * static-shape KV caches sized to --ctx;
+  * greedy or temperature sampling;
+  * --engine {gpu,resident,cuda}: how BitLinear decode matmuls execute.
+    "gpu" is the native route on the card (the packed XNOR-popcount
+    kernel under --packed, else the dense STE product), the counterpart
+    of the reference's "tpu"; a registry engine routes every decode GEMM
+    through the drim.jit carry-save pipeline on the simulated fleet
+    ("cuda": the AAP interpreter kernel).  Prefill always runs the native
+    route, and its attention runs the flash kernel where it applies;
+  * --packed: BitLinear weights bit-packed (32x smaller weight reads),
+    with a bit-exactness check against the dense STE path at temperature
+    0;
+  * --continuous N: N staggered requests through the continuous-batching
+    wave scheduler (`launch.batching.WaveBatcher`);
+  * --device: where to serve (default: the card; "cpu" runs the plain
+    torch versions of the kernels).
+
+Timing: the first decode step runs UNTIMED as warm-up and is reported as
+`compile_s` (first launches: kernel builds, DRIM lowerings), so
+`decode_tok_per_s` and the p50/p99 step latencies are steady-state.
+
+Not ported yet (ROADMAP Queue 1 item 6): the reference's --microbench,
+--resilient, --telemetry/--trace-out, --mesh and --n-queues.
+
+CPU-scale example:
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch drim-bnn \\
+      --smoke-config --device cpu --engine resident --prompt-len 128 --gen 4
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import time
+from typing import Any, Dict, List, Tuple
+
+import numpy as np
+import torch
+
+from repro_torch.configs import get_config, get_smoke_config
+from repro_torch.device import resolve_device
+from repro_torch.launch.batching import (NATIVE_ENGINE, WaveBatcher, fold_in,
+                                         make_decode_fn)
+from repro_torch.models import decode_step, empty_caches, init_params, prefill
+from repro_torch.models.layers import pack_bitlinear
+from repro_torch.tree import tree_map_with_path
+
+# config-geometry override flags -> ModelConfig fields (0 = keep)
+_CFG_OVERRIDES = (("layers", "n_layers"), ("d_model", "d_model"),
+                  ("d_ff", "d_ff"), ("heads", "n_heads"),
+                  ("kv_heads", "n_kv_heads"), ("d_head", "d_head"),
+                  ("vocab", "vocab_size"))
+
+
+def parse_args(argv=None) -> argparse.Namespace:
+    from repro_torch.pim.compiler import engines
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--arch", default="drim-bnn")
+    ap.add_argument("--smoke-config", action="store_true")
+    ap.add_argument("--batch", type=int, default=4)
+    ap.add_argument("--prompt-len", type=int, default=32)
+    ap.add_argument("--gen", type=int, default=16)
+    ap.add_argument("--ctx", type=int, default=0,
+                    help="cache length (default prompt+gen)")
+    ap.add_argument("--temperature", type=float, default=0.0)
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--engine", default=NATIVE_ENGINE,
+                    choices=(NATIVE_ENGINE,) + engines(),
+                    help="BitLinear decode matmul backend: 'gpu' = the "
+                    "native route; registry engines route decode GEMMs "
+                    "through the drim.jit compile->lower->run pipeline")
+    ap.add_argument("--packed", action="store_true",
+                    help="serve from bit-packed BitLinear weights")
+    ap.add_argument("--continuous", type=int, default=0, metavar="N",
+                    help="run N requests through the continuous-batching "
+                    "wave scheduler instead of one static batch")
+    ap.add_argument("--arrive-every", type=int, default=1,
+                    help="waves between request arrivals in --continuous "
+                    "mode (0 = all arrive at wave 0)")
+    ap.add_argument("--device", default=None,
+                    help="cuda (the default) or cpu")
+    for flag, _field in _CFG_OVERRIDES:
+        ap.add_argument(f"--{flag.replace('_', '-')}", type=int,
+                        default=0, help=argparse.SUPPRESS)
+    return ap.parse_args(argv)
+
+
+def build_cfg(args):
+    cfg = (get_smoke_config(args.arch) if args.smoke_config
+           else get_config(args.arch))
+    over = {field: getattr(args, flag) for flag, field in _CFG_OVERRIDES
+            if getattr(args, flag)}
+    if over:
+        cfg = cfg.replace(**over)
+    return cfg.replace(param_dtype="bfloat16")
+
+
+def splice_caches(caches, pre_caches):
+    """Right-size prefill caches into the ctx-length decode caches.
+
+    Every leaf must either match exactly or fit inside the decode cache at
+    the same rank; anything else raises, naming the offending cache path.
+    """
+    def splice(path, full, pre):
+        if full.shape == pre.shape:
+            return pre.to(full.dtype)
+        if full.dim() == pre.dim() and all(
+                p <= f for p, f in zip(pre.shape, full.shape)):
+            out = full.clone()
+            out[tuple(slice(0, n) for n in pre.shape)] = pre.to(full.dtype)
+            return out
+        raise ValueError(
+            f"cache splice mismatch at {path}: prefill leaf "
+            f"{tuple(pre.shape)} cannot splice into decode cache "
+            f"{tuple(full.shape)}")
+
+    return tree_map_with_path(splice, caches, pre_caches)
+
+
+def pack_model_params(params):
+    """The offline --packed conversion: every BitLinear param dict (marker:
+    'bkernel') in the tree becomes its bit-packed serving form; works on
+    scan-stacked [L, d_in, d_out] leaves."""
+    def walk(p):
+        if isinstance(p, dict):
+            if "bkernel" in p:
+                return pack_bitlinear(p)
+            return {k: walk(v) for k, v in p.items()}
+        return p
+    return walk(params)
+
+
+def _assert_packed_bit_exact(cfg, dense_params, packed_params, tok, caches,
+                             pos) -> None:
+    """--packed at temperature 0 must reproduce the dense STE path
+    bitwise: the packed XNOR-popcount dot and the STE product both give
+    the same exact integer, rounded once, so logits -- and served tokens
+    -- must match."""
+    lg_dense = decode_step(dense_params, cfg, tok, caches, pos)[0]
+    lg_packed = decode_step(packed_params, cfg, tok, caches, pos)[0]
+    ids_dense = lg_dense[:, -1, :].argmax(-1)
+    ids_packed = lg_packed[:, -1, :].argmax(-1)
+    if not torch.equal(ids_dense, ids_packed):
+        raise RuntimeError(
+            "--packed decode diverged from the dense STE path at "
+            f"temperature 0: token ids {ids_packed.tolist()} vs "
+            f"{ids_dense.tolist()}")
+    np.testing.assert_allclose(lg_packed.cpu().numpy(),
+                               lg_dense.cpu().numpy(), rtol=1e-5, atol=1e-5,
+                               err_msg="--packed logits drifted from the "
+                               "dense STE path")
+
+
+def _percentiles_ms(step_times: List[float]) -> Tuple[float, float]:
+    if not step_times:
+        return 0.0, 0.0
+    arr = np.asarray(step_times) * 1e3
+    return float(np.percentile(arr, 50)), float(np.percentile(arr, 99))
+
+
+def _sync(dev: torch.device) -> None:
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def _prompts(args, cfg, n: int) -> np.ndarray:
+    """Seeded prompt tokens [n, prompt_len], a stream apart from the
+    weights'."""
+    return np.random.default_rng([args.seed, 1]).integers(
+        0, cfg.vocab_size, (n, args.prompt_len))
+
+
+def _setup(args, cfg, dev, params=None, tokens=None) -> Dict[str, Any]:
+    """Params + prompt batch + prefill + spliced ctx caches."""
+    ctx_len = args.ctx or (args.prompt_len + args.gen)
+    if params is None:
+        params = init_params(args.seed, cfg, device=dev)
+    if tokens is None:
+        tokens = _prompts(args, cfg, args.batch)
+    tokens = torch.as_tensor(np.array(tokens), device=dev).long()
+    dense_params = params
+    if args.packed:
+        params = pack_model_params(params)
+
+    t0 = time.perf_counter()
+    logits, pre_caches = prefill(params, cfg, {"tokens": tokens})
+    _sync(dev)
+    t_prefill = time.perf_counter() - t0
+
+    caches = splice_caches(empty_caches(cfg, tokens.shape[0], ctx_len,
+                                        device=dev), pre_caches)
+    return dict(ctx_len=ctx_len, params=params, dense_params=dense_params,
+                logits=logits, caches=caches, prefill_s=t_prefill)
+
+
+def run_serve(args, *, params=None, tokens=None
+              ) -> Tuple[np.ndarray, Dict[str, Any]]:
+    """The static-batch serving loop; returns (generated ids [B, gen],
+    stats dict).  `params` (the port's tree, dense) and `tokens`
+    ([B, prompt_len]) replace the seeded weights and prompts."""
+    dev = resolve_device(args.device)
+    cfg = build_cfg(args)
+    st = _setup(args, cfg, dev, params, tokens)
+    params, caches = st["params"], st["caches"]
+    batch, prompt_len = st["logits"].shape[0], args.prompt_len
+    dec = make_decode_fn(cfg, args.temperature, args.engine)
+
+    tok = st["logits"][:, -1, :].argmax(-1)[:, None]
+    pos0 = torch.full((batch,), prompt_len, dtype=torch.long, device=dev)
+
+    if args.packed and args.temperature == 0:
+        _assert_packed_bit_exact(cfg, st["dense_params"], params, tok,
+                                 caches, pos0)
+
+    # Untimed warm-up on the first step's exact shapes: first launches
+    # (kernel builds, DRIM kernel traces and lowerings) land here.
+    t0 = time.perf_counter()
+    dec(params, tok, caches, pos0, fold_in(args.seed, 100))
+    _sync(dev)
+    compile_s = time.perf_counter() - t0
+
+    out = [tok.cpu().numpy()]
+    step_times: List[float] = []
+    for i in range(args.gen - 1):
+        pos = torch.full((batch,), prompt_len + i, dtype=torch.long,
+                         device=dev)
+        t1 = time.perf_counter()
+        tok, caches = dec(params, tok, caches, pos,
+                          fold_in(args.seed, 100 + i))
+        _sync(dev)
+        step_times.append(time.perf_counter() - t1)
+        out.append(tok.cpu().numpy())
+
+    gen = np.concatenate(out, 1)
+    p50, p99 = _percentiles_ms(step_times)
+    stats = {
+        "arch": cfg.arch, "engine": args.engine, "device": str(dev),
+        "packed": bool(args.packed), "batch": batch, "gen": args.gen,
+        "prefill_s": st["prefill_s"], "compile_s": compile_s,
+        "decode_tok_per_s": batch * (args.gen - 1)
+        / max(sum(step_times), 1e-9),
+        "decode_p50_ms": p50, "decode_p99_ms": p99,
+        "sample_ids": gen[0, :8].tolist(),
+    }
+    return gen, stats
+
+
+def run_continuous(args, *, params=None, prompts=None
+                   ) -> Tuple[Dict[int, np.ndarray], Dict[str, Any]]:
+    """Staggered requests through the wave batcher; arrivals join the next
+    shared wave, positions and slots tracked per request.  `prompts` (a
+    list of 1-D token arrays, any lengths) replaces the --continuous
+    seeded prompts; `params` (dense) the seeded weights."""
+    dev = resolve_device(args.device)
+    cfg = build_cfg(args)
+    ctx_len = args.ctx or (args.prompt_len + args.gen)
+    if params is None:
+        params = init_params(args.seed, cfg, device=dev)
+    if args.packed:
+        params = pack_model_params(params)
+    batcher = WaveBatcher(cfg, params, n_slots=args.batch, ctx_len=ctx_len,
+                          temperature=args.temperature, seed=args.seed,
+                          engine=args.engine, device=dev)
+    if prompts is None:
+        prompts = list(_prompts(args, cfg, args.continuous))
+    for r, prompt in enumerate(prompts):
+        batcher.submit(prompt, args.gen, arrival_wave=r * args.arrive_every)
+    t0 = time.perf_counter()
+    results = batcher.run()
+    _sync(dev)
+    wall = time.perf_counter() - t0
+    total_toks = sum(len(v) for v in results.values())
+    occupancy = (float(np.mean([w["n_active"] for w in batcher.wave_log]))
+                 if batcher.wave_log else 0.0)
+    stats = {
+        "arch": cfg.arch, "engine": args.engine, "device": str(dev),
+        "packed": bool(args.packed), "n_requests": len(prompts),
+        "n_slots": args.batch, "n_waves": batcher.wave,
+        "total_tokens": total_toks, "wall_s": wall,
+        "tok_per_s": total_toks / max(wall, 1e-9),
+        "mean_active_slots": occupancy,
+        "request_tokens": {int(r): v.tolist()[:8]
+                           for r, v in results.items()},
+    }
+    return results, stats
+
+
+def main(argv=None):
+    args = parse_args(argv)
+    if args.continuous:
+        gen, stats = run_continuous(args)
+    else:
+        gen, stats = run_serve(args)
+    print(json.dumps(stats))
+    return gen
+
+
+if __name__ == "__main__":
+    main()

@@ -1,1 +1,4 @@
-"""Layers the port serves."""
+"""The dense LM the port serves: layers, GQA attention, blocks, trunk."""
+from repro_torch.models.transformer import (decode_step, decode_step_eager,
+                                            empty_caches, init_params,
+                                            lm_from_jax, prefill)

@@ -1,0 +1,48 @@
+"""Decoder blocks with pre-norm residuals (port of the dense family of
+`repro.models.blocks`).
+
+A block is (init, apply_full, apply_decode): apply_full runs prefill over
+the full sequence and returns its cache, apply_decode consumes the cache
+for one-token serving.  The reference's `_sp` (a sequence-parallel
+sharding constraint on the residual stream) is the identity on one card
+and has no counterpart; its MoE, SSM and cross-attention blocks come with
+those families (ROADMAP Queue 1 item 12), and so does the MoE auxiliary
+loss the reference's blocks return beside the cache.
+"""
+from __future__ import annotations
+
+from typing import Dict, Tuple
+
+import torch
+
+from repro_torch.models import attention as attn
+from repro_torch.models.layers import Params, mlp, mlp_init, rmsnorm, \
+    rmsnorm_init
+
+
+def dense_block_init(gen: torch.Generator, cfg, *, dtype=torch.float32
+                     ) -> Params:
+    bl = cfg.bitlinear in ("ffn", "all")
+    return {"attn_norm": rmsnorm_init(cfg.d_model),
+            "attn": attn.gqa_init(gen, cfg, dtype=dtype),
+            "mlp_norm": rmsnorm_init(cfg.d_model),
+            "mlp": mlp_init(gen, cfg.d_model, cfg.d_ff, dtype=dtype,
+                            bitlinear_on=bl)}
+
+
+def dense_block(p: Params, cfg, x, positions, *, window: int = 0
+                ) -> Tuple[torch.Tensor, Dict]:
+    a, cache = attn.gqa_attend(p["attn"], cfg, rmsnorm(p["attn_norm"], x),
+                               positions, window)
+    x = x + a
+    x = x + mlp(p["mlp"], rmsnorm(p["mlp_norm"], x))
+    return x, cache
+
+
+def dense_block_decode(p: Params, cfg, x, cache, pos, *, window: int = 0
+                       ) -> Tuple[torch.Tensor, Dict]:
+    a, cache = attn.gqa_decode(p["attn"], cfg, rmsnorm(p["attn_norm"], x),
+                               cache, pos, window)
+    x = x + a
+    x = x + mlp(p["mlp"], rmsnorm(p["mlp_norm"], x))
+    return x, cache

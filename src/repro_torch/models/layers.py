@@ -1,22 +1,31 @@
-"""BitLinear, the paper's technique as a layer (port of the BitLinear part
-of `repro.models.layers`).
+"""Foundational layers: norms, dense, rotary, the SwiGLU MLP, and
+BitLinear (port of `repro.models.layers`).
 
-Weights are sign-binarized with a per-output-channel scale alpha =
-mean|w| (XNOR-Net).  Training uses a straight-through estimator over the
-dense shadow weights (`bitlinear`); serving runs from bit-packed weights
-through the XNOR-popcount kernel (`bitlinear_packed`), or -- inside a
-`serving_engine(...)` scope -- through the DRIM fleet simulation
-(`pim.bnn.serve_bnn_matmul`).  The JAX layout is kept: shadow weights
-are [d_in, d_out], packed weights [d_out, ceil(d_in/32)].
+Functional like the reference: every layer is init(generator, ...) ->
+params and apply(params, x), with params plain dicts of tensors (scan-
+stacked [L, ...] in the model trunk).  Initial values come from a seeded
+`torch.Generator` with the reference's distributions, not its numbers.
+The reference's sharding helpers (`ambient_mesh`, `constrain`) have no
+counterpart: the port runs on one card, where they are the identity.
 
-Every route computes the exact integer dot first, then `.to(x.dtype)`,
-then `* alpha.to(x.dtype)`, then the bias, in the reference's order, so
-the routes agree bit for bit.
+BitLinear is the paper's technique as a layer: weights are sign-binarized
+with a per-output-channel scale alpha = mean|w| (XNOR-Net).  Training uses
+a straight-through estimator over the dense shadow weights (`bitlinear`);
+serving runs from bit-packed weights through the XNOR-popcount kernel
+(`bitlinear_packed`), or -- inside a `serving_engine(...)` scope --
+through the DRIM fleet simulation (`pim.bnn.serve_bnn_matmul`).  The JAX
+layout is kept: shadow weights are [d_in, d_out], packed weights
+[d_out, ceil(d_in/32)].
+
+Every route computes the exact integer dot first, rounds it once to the
+activation dtype, then multiplies by `alpha.to(x.dtype)` and adds the
+bias, in the reference's order, so the routes agree bit for bit.
 """
 from __future__ import annotations
 
 import contextlib
 import contextvars
+import math
 from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
@@ -26,6 +35,7 @@ from torch import nn
 from repro_torch.core.subarray import as_words
 from repro_torch.device import resolve_device
 from repro_torch.kernels import ops as kops
+from repro_torch.tree import tree_slice, tree_stack
 
 Params = Dict[str, Any]
 
@@ -70,6 +80,49 @@ def _drim_gemm(x: torch.Tensor, wb_bits: torch.Tensor) -> torch.Tensor:
     return dot.reshape(*lead, wb_bits.shape[0])
 
 
+def _he(gen: torch.Generator, shape, dtype) -> torch.Tensor:
+    return (torch.randn(shape, generator=gen) / math.sqrt(shape[0])).to(dtype)
+
+
+# --- norms -------------------------------------------------------------------
+
+def rmsnorm_init(d: int) -> Params:
+    return {"scale": torch.ones(d, dtype=torch.float32)}
+
+
+def rmsnorm(params: Params, x: torch.Tensor, eps: float = 1e-6
+            ) -> torch.Tensor:
+    dt = x.dtype
+    x = x.to(torch.float32)
+    x = x * torch.rsqrt((x * x).mean(-1, keepdim=True) + eps)
+    return (x * params["scale"].to(torch.float32)).to(dt)
+
+
+# --- dense / BitLinear -------------------------------------------------------
+
+def dense_init(gen: torch.Generator, d_in: int, d_out: int, *,
+               bias: bool = False, dtype=torch.float32) -> Params:
+    p = {"kernel": _he(gen, (d_in, d_out), dtype)}
+    if bias:
+        p["bias"] = torch.zeros(d_out, dtype=dtype)
+    return p
+
+
+def dense(params: Params, x: torch.Tensor) -> torch.Tensor:
+    y = x @ params["kernel"].to(x.dtype)
+    if "bias" in params:
+        y = y + params["bias"].to(x.dtype)
+    return y
+
+
+def bitlinear_init(gen: torch.Generator, d_in: int, d_out: int, *,
+                   bias: bool = False, dtype=torch.float32) -> Params:
+    # "bkernel" (vs "kernel") marks the layer as binarized.
+    p = dense_init(gen, d_in, d_out, bias=bias, dtype=dtype)
+    p["bkernel"] = p.pop("kernel")
+    return p
+
+
 def _ste_sign(w: torch.Tensor) -> torch.Tensor:
     """sign(w) with straight-through gradient."""
     s = torch.where(w >= 0, 1.0, -1.0).to(w.dtype)
@@ -86,9 +139,14 @@ def bitlinear(params: Params, x: torch.Tensor) -> torch.Tensor:
         wb_bits = kops.sign_bits(w).T                  # [d_out, d_in]
         y = _drim_gemm(x, wb_bits).to(x.dtype) * alpha
     else:
-        wb = _ste_sign(w).to(x.dtype)
-        xb = _ste_sign(x.to(torch.float32)).to(x.dtype)
-        y = (xb @ wb) * alpha
+        # The ±1 dot in float32 (every partial sum an integer below 2**24,
+        # so exact whatever the summation order), rounded once to x.dtype
+        # as the integer routes round it.  A bfloat16 product could
+        # reduce split-K partial sums in bfloat16 on the card and round
+        # the same integer differently.
+        wb = _ste_sign(w).to(torch.float32)
+        xb = _ste_sign(x.to(torch.float32))
+        y = (xb @ wb).to(x.dtype) * alpha
     if "bias" in params:
         y = y + params["bias"].to(x.dtype)
     return y
@@ -96,8 +154,15 @@ def bitlinear(params: Params, x: torch.Tensor) -> torch.Tensor:
 
 def pack_bitlinear(params: Params) -> Params:
     """Dense shadow weights -> packed serving weights: w_packed [d_out,
-    ceil(d_in/32)] int32 sign words, alpha [d_out], k_bits = d_in."""
-    w = params["bkernel"].detach()                    # [d_in, d_out]
+    ceil(d_in/32)] int32 sign words, alpha [d_out], k_bits = d_in.
+
+    Scan-stacked leaves ([L, d_in, d_out]) pack layer by layer, so each
+    layer's alpha is the very reduction `bitlinear` computes on that
+    layer's slice, bit for bit."""
+    w = params["bkernel"].detach()                    # [..., d_in, d_out]
+    if w.dim() > 2:
+        return tree_stack([pack_bitlinear(tree_slice(params, i))
+                           for i in range(w.shape[0])])
     out = {
         "w_packed": kops.pack_signs(w.T.contiguous()),
         "alpha": w.abs().mean(0),
@@ -123,6 +188,61 @@ def bitlinear_packed(packed: Params, x: torch.Tensor,
     if "bias" in packed:
         y = y + packed["bias"].to(x.dtype)
     return y
+
+
+def linear_init(gen: torch.Generator, d_in: int, d_out: int, *,
+                bias: bool = False, dtype=torch.float32,
+                bitlinear_on: bool = False) -> Params:
+    return (bitlinear_init if bitlinear_on else dense_init)(
+        gen, d_in, d_out, bias=bias, dtype=dtype)
+
+
+def linear(params: Params, x: torch.Tensor) -> torch.Tensor:
+    if "bkernel" in params:
+        return bitlinear(params, x)
+    if "w_packed" in params:
+        # the activation's feature dim is the reduction width
+        return bitlinear_packed(params, x, x.shape[-1])
+    return dense(params, x)
+
+
+# --- rotary embeddings -------------------------------------------------------
+
+def rope_frequencies(d_head: int, theta: float, device=None) -> torch.Tensor:
+    return 1.0 / (theta ** (torch.arange(0, d_head, 2, dtype=torch.float32,
+                                         device=device) / d_head))
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor,
+               theta: float) -> torch.Tensor:
+    """x: [..., S, H, d_head]; positions [..., S] (int)."""
+    freqs = rope_frequencies(x.shape[-1], theta, x.device)      # [d/2]
+    angles = positions[..., None].to(torch.float32) * freqs    # [..., S, d/2]
+    cos = torch.cos(angles)[..., None, :]                      # [..., S, 1, d/2]
+    sin = torch.sin(angles)[..., None, :]
+    x1, x2 = x.to(torch.float32).chunk(2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], -1)
+    return out.to(x.dtype)
+
+
+# --- gated MLP (SwiGLU) ------------------------------------------------------
+
+def mlp_init(gen: torch.Generator, d_model: int, d_ff: int, *,
+             dtype=torch.float32, bitlinear_on: bool = False) -> Params:
+    return {
+        "gate": linear_init(gen, d_model, d_ff, dtype=dtype,
+                            bitlinear_on=bitlinear_on),
+        "up": linear_init(gen, d_model, d_ff, dtype=dtype,
+                          bitlinear_on=bitlinear_on),
+        "down": linear_init(gen, d_ff, d_model, dtype=dtype,
+                            bitlinear_on=bitlinear_on),
+    }
+
+
+def mlp(params: Params, x: torch.Tensor) -> torch.Tensor:
+    return linear(params["down"],
+                  torch.nn.functional.silu(linear(params["gate"], x))
+                  * linear(params["up"], x))
 
 
 class BitLinear(nn.Module):

@@ -1,0 +1,42 @@
+"""Nested-dict parameter and cache trees: the few pytree operations the
+port needs (the reference uses `jax.tree` and `jax.tree_util`).
+
+Dicts are inner nodes; everything else is a leaf.  Paths are written as
+`jax.tree_util.keystr` writes them, e.g. "['layers']['attn']['wq']".
+"""
+from __future__ import annotations
+
+from typing import Any, Callable, Sequence
+
+import torch
+
+
+def tree_map(fn: Callable, tree, *rest):
+    """fn over the leaves of `tree` and the matching leaves of `rest`."""
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, v, *(r[k] for r in rest))
+                for k, v in tree.items()}
+    return fn(tree, *rest)
+
+
+def tree_map_with_path(fn: Callable, tree, *rest, path: str = ""):
+    """fn(path, leaf, *matching leaves) over the leaves of `tree`."""
+    if isinstance(tree, dict):
+        return {k: tree_map_with_path(fn, v, *(r[k] for r in rest),
+                                      path=f"{path}[{k!r}]")
+                for k, v in tree.items()}
+    return fn(path, tree, *rest)
+
+
+def tree_slice(tree, i: int):
+    """Entry i of every stacked tensor leaf; other leaves as they are."""
+    return tree_map(lambda a: a[i] if isinstance(a, torch.Tensor) else a,
+                    tree)
+
+
+def tree_stack(trees: Sequence[Any]):
+    """Stack matching tensor leaves along a new axis 0 (the inverse of
+    `tree_slice`); other leaves are taken from the first tree."""
+    return tree_map(lambda *leaves: (torch.stack(leaves)
+                                     if isinstance(leaves[0], torch.Tensor)
+                                     else leaves[0]), *trees)
