@@ -8,8 +8,9 @@ Phases, each fatal on failure:
                 (one nvcc per source, all started together);
   2. kernels -- hold each kernel against its plain torch version on the
                 card at the main paths' shapes plus a ragged shape (exact
-                equality for the integer kernels; flash attention at the
-                reference test's tolerances), and time kernel, plain
+                equality for the integer kernels; flash attention's float32
+                output at the reference test's 2e-5, its bfloat16 output
+                within about one bfloat16 ulp), and time kernel, plain
                 version and, where one exists, one PyTorch call computing
                 the same function (float32 matmul for the GEMM, SDPA for
                 flash attention);
@@ -29,11 +30,14 @@ Phases, each fatal on failure:
                 Then `run_continuous` with prompts of 256 and 200 tokens
                 (the second takes the dense-scores attention) into 2
                 slots, native packed and DRIM packed, with identical
-                tokens per request; and a float32 smoke-config prefill on
-                the card held to the same prefill on the CPU;
-  5. counts  -- the launch counters are zeroed just before phases 3 and 4
-                and read just after each: phase 3 must launch the three
-                BNN kernels, phase 4 all four.
+                tokens per request;
+  5. counts  -- the launch counters are zeroed just before phase 3 and
+                before each of phase 4's five legs, and read just after
+                each: phase 3 must launch the three BNN kernels, and each
+                serving leg exactly the launches its route implies
+                (`expected_launches`);
+  6. check   -- a float32 smoke-config prefill on the card held to the
+                same prefill on the CPU (after the counts are read).
 
 Prints the kernels' JSON line, the card's name and power limit, and last
 `{"ok": true, "device": {...}}`.  Exits nonzero without a CUDA card.
@@ -63,9 +67,12 @@ HBM_BYTES_S = 3.35e12
 INT32_OPS_S = 67e12 / 4
 BF16_FLOPS_S = 989e12             # dense tensor-core bf16 peak
 
-# flash attention: out at the reference test's tolerances
-# (tests/test_flash_attention.py), lse at 1e-4
-FLASH_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
+# flash attention, (atol, rtol) of out against the plain version: float32
+# at the reference test's 2e-5 (tests/test_flash_attention.py); bfloat16
+# at one bfloat16 ulp (at most 2**-7 of the value, 4e-3 near zero), since
+# kernel and plain version each round a float32 result to bfloat16 once.
+# lse at 1e-4.
+FLASH_TOL = {torch.float32: (2e-5, 2e-5), torch.bfloat16: (4e-3, 2 ** -7)}
 LSE_TOL = 1e-4
 SERVE = ["--arch", "drim-bnn", "--batch", "4", "--prompt-len", "256",
          "--gen", "8", "--seed", str(SEED), "--temperature", "0"]
@@ -132,15 +139,17 @@ def bound(bytes_moved: float, ops: float, ops_s: float = INT32_OPS_S):
     return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops, "operations")
 
 
-def check_close(what: str, got, want, tol: float) -> float:
-    """|got - want| <= tol + tol * |want| everywhere (numpy's
-    assert_allclose with rtol = atol = tol); returns the max abs error."""
+def check_close(what: str, got, want, atol: float,
+                rtol: float | None = None) -> float:
+    """|got - want| <= atol + rtol * |want| everywhere (numpy's
+    assert_allclose; rtol defaults to atol); returns the max abs error."""
+    rtol = atol if rtol is None else rtol
     got, want = got.to(torch.float32), want.to(torch.float32)
     if got.shape != want.shape:
         raise AssertionError(f"{what}: shape {tuple(got.shape)} != "
                              f"{tuple(want.shape)}")
     diff = (got - want).abs()
-    if not bool((diff <= tol + tol * want.abs()).all()):
+    if not bool((diff <= atol + rtol * want.abs()).all()):
         raise AssertionError(f"{what}: kernel differs from its plain "
                              f"version (max abs diff {float(diff.max())})")
     return float(diff.max())
@@ -320,7 +329,7 @@ def phase_flash(rng):
         out, lse = kernel()
         want, want_lse = plain()
         label = f"flash {list(q.shape)} {dt} causal={causal}"
-        err = check_close(label + " out", out, want, FLASH_TOL[dt])
+        err = check_close(label + " out", out, want, *FLASH_TOL[dt])
         lse_err = check_close(label + " lse", lse, want_lse, LSE_TOL)
         ms = graph_ms(kernel, 20)
         call_ms = cuda_ms(kernel, 50)
@@ -438,19 +447,65 @@ def serve_line(leg: str, stats) -> None:
                                                 if k in stats}}))
 
 
-def phase_serve():
+def expected_launches(cfg, *, packed: bool, native_fwd: int,
+                      drim_steps: int, aligned: int):
+    """The launches a serving leg must make: flash once per layer per
+    prefill whose length is a multiple of 128 (`aligned` of them); on a
+    packed route the packer once per BitLinear weight matrix (the offline
+    packing) and, like the GEMM, once per BitLinear per native forward
+    (`native_fwd`: each prefill, the bit-exactness check's packed step,
+    each native decode step); the interpreter once per K chunk per
+    BitLinear per DRIM decode step."""
+    from repro_torch.pim.bnn import k_chunks
+    n_bl = 3 * cfg.n_layers                      # gate, up, down per layer
+    chunks = cfg.n_layers * sum(len(k_chunks(k)) for k in
+                                (cfg.d_model, cfg.d_model, cfg.d_ff))
+    gemm = n_bl * native_fwd if packed else 0
+    return {"pack_signs": gemm + n_bl if packed else 0, "xnor_gemm": gemm,
+            "aap_interp": chunks * drim_steps,
+            "flash_attn_fwd": cfg.n_layers * aligned}
+
+
+def counted(wrappers, leg: str, run, want_of):
+    """Zero every launch counter, `run()`, read the counters and hold them
+    to `want_of(result)`; returns (result, counts)."""
+    for fn in wrappers.values():
+        fn.launches = 0
+    result = run()
+    got = {name: fn.launches for name, fn in wrappers.items()}
+    print("counts " + json.dumps({"phase": leg, **got}))
+    want = want_of(result)
+    if got != want:
+        raise AssertionError(f"{leg}: launches {got}, expected {want}")
+    return result, got
+
+
+def phase_serve(wrappers):
     """The drim-bnn LM served at full width and depth through the serving
     entry points, three routes with identical tokens; then the continuous
-    batcher on two routes; then a small-input reference check."""
+    batcher on two routes.  Each leg's launches are counted on their own;
+    returns them by leg."""
     from repro_torch.launch import serve
     legs = {"gpu dense": ["--engine", "gpu"],
             "gpu packed": ["--engine", "gpu", "--packed"],
             "cuda packed": ["--engine", "cuda", "--packed"]}
     cfg = serve.build_cfg(serve.parse_args(SERVE))
-    gens = {}
+    n_gen = 8
+    # native forwards of a static leg: the prefill, then on the native
+    # packed route the bit-exactness check's packed step and every decode
+    # step (the warm-up included); the DRIM route decodes on the fleet
+    native = {"gpu dense": 0, "gpu packed": 2 + n_gen, "cuda packed": 2}
+    gens, counts = {}, {}
     for leg, extra in legs.items():
-        gen, stats = serve.run_serve(serve.parse_args(SERVE + extra))
-        if gen.shape != (4, 8) or gen.min() < 0 or gen.max() >= cfg.vocab_size:
+        args = serve.parse_args(SERVE + extra)
+        (gen, stats), counts[leg] = counted(
+            wrappers, leg, lambda: serve.run_serve(args),
+            lambda _, leg=leg, args=args: expected_launches(
+                cfg, packed=args.packed, native_fwd=native[leg],
+                drim_steps=n_gen if args.engine == "cuda" else 0,
+                aligned=1))
+        if gen.shape != (4, n_gen) or gen.min() < 0 \
+                or gen.max() >= cfg.vocab_size:
             raise AssertionError(f"{leg}: bad token ids {gen.tolist()}")
         gens[leg] = gen
         serve_line(leg, stats)
@@ -468,18 +523,27 @@ def phase_serve():
     for leg in ("gpu packed", "cuda packed"):
         args = serve.parse_args(SERVE + legs[leg] + ["--batch", "2",
                                                      "--continuous", "2"])
-        res, stats = serve.run_continuous(args, prompts=prompts)
+        drim = args.engine == "cuda"
+        # one prefill per request, only the 256-token one aligned; one
+        # decode step per wave
+        (res, stats), counts["continuous " + leg] = counted(
+            wrappers, "continuous " + leg,
+            lambda: serve.run_continuous(args, prompts=prompts),
+            lambda out, drim=drim: expected_launches(
+                cfg, packed=True,
+                native_fwd=2 + (0 if drim else out[1]["n_waves"]),
+                drim_steps=out[1]["n_waves"] if drim else 0, aligned=1))
         serve_line("continuous " + leg, stats)
         results[leg] = res
     for r in range(2):
         a, b = results["gpu packed"][r], results["cuda packed"][r]
-        if len(a) != 8 or not np.array_equal(a, b):
+        if len(a) != n_gen or not np.array_equal(a, b):
             raise AssertionError(f"continuous request {r}: {a.tolist()} vs "
                                  f"{b.tolist()}")
     print("serve " + json.dumps({"continuous_tokens_identical": True,
                                  "tokens": {r: v.tolist() for r, v in
                                             results["gpu packed"].items()}}))
-    check_prefill_reference()
+    return counts
 
 
 def check_prefill_reference():
@@ -539,10 +603,13 @@ def main() -> int:
     phase_path(rng)
     path_launches = read_counts(wrappers, ("pack_signs", "xnor_gemm",
                                            "aap_interp"), "path")
-    for fn in wrappers.values():
-        fn.launches = 0
-    phase_serve()
-    launches = read_counts(wrappers, tuple(wrappers), "serve")
+    by_leg = phase_serve(wrappers)
+    launches = {name: sum(c[name] for c in by_leg.values())
+                for name in wrappers}
+    idle = [name for name, n in launches.items() if n <= 0]
+    if idle:
+        raise AssertionError(f"serving never launched {idle}")
+    check_prefill_reference()
 
     meta = {
         "pack_signs": ("src/repro_torch/csrc/pack_signs.cu",
@@ -563,6 +630,7 @@ def main() -> int:
         kernels.append({
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": launches[name],
+            "launches_by_leg": {leg: c[name] for leg, c in by_leg.items()},
             "path_launches": path_launches[name],
             "max_abs_err": r["max_abs_err"], "max_abs_diff": r["max_abs_err"],
             "ms": r["ms"], "kernel_ms": r["ms"], "call_ms": r["call_ms"],

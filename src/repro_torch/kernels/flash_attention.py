@@ -5,7 +5,10 @@ Layout as in the reference: q [B, H, Sq, D]; k, v [B, Hkv, Sk, D] with
 H = Hkv * n_rep (query head h reads kv head h // n_rep, never a
 materialised repeat).  Returns out [B, H, Sq, D] in q's dtype and the
 per-row log-sum-exp [B, H, Sq] in float32.  `Sq % bq == 0` and
-`Sk % bk == 0` are required, as in the reference (pad upstream).
+`Sk % bk == 0` are required, as in the reference (pad upstream).  Here
+`bq` and `bk` only validate that alignment: they are the reference's
+tile sizes, but the kernel always tiles 64 queries by 64 keys and masks
+ragged ends itself, whatever they are.
 
 Kernel: `csrc/flash_attn_fwd.cu`, replacing the TPU kernel
 `src/repro/kernels/flash_attention.py:_fwd_kernel`.  One block owns one
@@ -82,7 +85,8 @@ def _check(q, k, v, n_rep: int, bq: int, bk: int) -> None:
 def flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
               causal: bool = True, n_rep: int = 1, bq: int = DEFAULT_BQ,
               bk: int = DEFAULT_BK) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(out [B, H, Sq, D] in q's dtype, lse [B, H, Sq] float32)."""
+    """(out [B, H, Sq, D] in q's dtype, lse [B, H, Sq] float32).  `bq`
+    and `bk` are checked to divide Sq and Sk and set no tile size."""
     _check(q, k, v, n_rep, bq, bk)
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, causal, n_rep)
