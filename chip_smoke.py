@@ -4,7 +4,7 @@
     python3 chip_smoke.py
 
 Phases, each fatal on failure:
-  1. build   -- compile the four CUDA kernels from `src/repro_torch/csrc/`
+  1. build   -- compile the five CUDA kernels from `src/repro_torch/csrc/`
                 (one nvcc per source, all started together);
   2. kernels -- hold each kernel against its plain torch version on the
                 card at the main paths' shapes plus a ragged shape (exact
@@ -13,7 +13,10 @@ Phases, each fatal on failure:
                 within about one bfloat16 ulp), and time kernel, plain
                 version and, where one exists, one PyTorch call computing
                 the same function (float32 matmul for the GEMM, SDPA for
-                flash attention);
+                flash attention); the fault-injecting interpreter at the
+                TMR-hardened K=128 stream over 4 DRIM-R waves and at a
+                ragged shape with stuck rows, protected ops and a bank
+                offset;
   3. path    -- one drim-bnn FFN BitLinear pair at full width (768 -> 3072
                 -> 768) on M = 512 activation rows, weights from a seeded
                 numpy generator, each projection served by the native
@@ -31,12 +34,22 @@ Phases, each fatal on failure:
                 (the second takes the dense-scores attention) into 2
                 slots, native packed and DRIM packed, with identical
                 tokens per request;
-  5. counts  -- the launch counters are zeroed just before phase 3 and
-                before each of phase 4's five legs, and read just after
-                each: phase 3 must launch the three BNN kernels, and each
-                serving leg exactly the launches its route implies
-                (`expected_launches`);
-  6. check   -- a float32 smoke-config prefill on the card held to the
+  5. faults  -- Table-3 fault injection (the +-15% corner of the paper)
+                on the carry-save K=128 serving dot at full width: DRIM-R,
+                4 waves, 262,144 words per input plane, bare and hardened
+                ("ecc", "tmr", "tmr+ecc"), on the "cuda", "resident" and
+                (bare and "tmr") "baseline" engines, which must agree bit
+                for bit, ECC verdicts included; against the clean numpy
+                oracle the bare run must be corrupted, ECC must flag it
+                and TMR must leave fewer bits wrong than bare; a
+                fault-free TMR run must be exact;
+  6. counts  -- the launch counters are zeroed just before phase 3, before
+                each of phase 4's five legs and before phase 5, and read
+                just after each: phase 3 must launch the three BNN kernels,
+                each serving leg exactly the launches its route implies
+                (`expected_launches`), phase 5 the faulted interpreter once
+                per faulted "cuda" run and the fault-free one once;
+  7. check   -- a float32 smoke-config prefill on the card held to the
                 same prefill on the CPU (after the counts are read).
 
 Prints the kernels' JSON line, the card's name and power limit, and last
@@ -76,6 +89,10 @@ FLASH_TOL = {torch.float32: (2e-5, 2e-5), torch.bfloat16: (4e-3, 2 ** -7)}
 LSE_TOL = 1e-4
 SERVE = ["--arch", "drim-bnn", "--batch", "4", "--prompt-len", "256",
          "--gen", "8", "--seed", str(SEED), "--temperature", "0"]
+# integer operations of one armed DRA/TRA's hash per column: i * golden,
+# the XOR with the slot hash, mix32 (3 xor-shifts, 2 multiplies) and the
+# compare; the rare failing draw's bit position is not counted
+HASH_OPS = 11
 
 
 def cuda_ms(fn, iters: int) -> float:
@@ -159,7 +176,7 @@ def phase_build():
     from repro_torch.kernels import _build
     t0 = time.time()
     reports = _build.build(["pack_signs", "xnor_gemm", "aap_interp",
-                            "flash_attn_fwd"])
+                            "aap_interp_faulted", "flash_attn_fwd"])
     secs = time.time() - t0
     for name, text in sorted(reports.items()):
         for line in text.splitlines():
@@ -298,8 +315,107 @@ def phase_kernels(rng):
                 shape=f"{len(prog)} AAPs over [{waves},{n_in},{ncols}] "
                       f"int32, {n_state} state rows")
 
+    records["aap_interp_faulted"] = phase_faulted_kernel(rng)
     records["flash_attn_fwd"] = phase_flash(rng)
     return records
+
+
+def faulted_operands(prog, n_rows, readback, waves, n_in, geom4, faults,
+                     bank_geom, rng):
+    """The fault-injecting interpreter's operands on the card, as the
+    "cuda" engine builds them, over random tiles."""
+    from repro_torch.core import dcc_state_rows, encode_kernel_stream, \
+        kstream_slot
+    from repro_torch.kernels import aap_interpreter
+    dev = torch.device("cuda")
+    c, b, s, w = geom4
+    stream = torch.from_numpy(encode_kernel_stream(prog, n_rows=n_rows)).to(dev)
+    thresh = torch.from_numpy(aap_interpreter._op_thresholds(
+        prog, faults).view(np.int32)).to(dev)
+    meta = aap_interpreter.column_meta(c, b, s, w, seed=faults.seed,
+                                       bank_lo=bank_geom[0],
+                                       banks_total=bank_geom[1], device=dev)
+    slots = torch.tensor([kstream_slot(r, n_rows) for r in readback],
+                         dtype=torch.int32, device=dev)
+    stuck = torch.tensor(faults.stuck_rows, dtype=torch.int32,
+                         device=dev).reshape(-1, 2)
+    tiles = torch.from_numpy(rng.integers(
+        -2**31, 2**31, (waves, n_in, c * b * s * w), dtype=np.int32)).to(dev)
+    return (stream, thresh, meta, tiles, slots, dcc_state_rows(n_rows), stuck,
+            32 * w)
+
+
+def phase_faulted_kernel(rng):
+    """The fault-injecting interpreter against its plain version: the
+    TMR-hardened K=128 stream at the Table-3 corner over the faults
+    phase's 4 DRIM-R waves, and a ragged soup with two stuck rows (one an
+    operand row), protected ops and a bank offset.  Returns the record of
+    the first."""
+    from repro_torch.core import AAP, DRIM_R, FaultModel
+    from repro_torch.kernels import aap_interpreter
+    from repro_torch.launch import faults as payload
+    from repro_torch.pim import compile as drim_compile
+    from repro_torch.pim.bnn import bnn_dot_graph_carrysave
+    graph, _ = bnn_dot_graph_carrysave(payload.K_BITS)
+    tmr = drim_compile(graph, geom=DRIM_R).lower("cuda", harden="tmr")
+    fp = tmr.fp
+    corner = tmr._resolve_faults(FaultModel.from_corner(
+        payload.CORNER, source="paper", seed=payload.SEED))
+    geom4 = (DRIM_R.chips, DRIM_R.banks, DRIM_R.subarrays_per_bank,
+             DRIM_R.row_bits // 32)
+    n_rows = 20
+    arity = {0: 2, 1: 3, 2: 3, 3: 4}
+    soup = tuple(AAP(op, tuple(int(rng.integers(0, n_rows + 4))
+                               for _ in range(arity[op])))
+                 for op in (int(rng.integers(0, 4)) for _ in range(300)))
+    ragged = FaultModel(p_dra=0.3, p_tra=0.4, seed=5,
+                        stuck_rows=((2, 1), (17, 0)),
+                        protected_ops=tuple(range(0, 300, 7)))
+    cases = [("tmr K=128", fp.program, fp.readback_rows, fp.template_rows,
+              payload.WAVES, len(fp.loaded_inputs), geom4, corner, (0, None)),
+             ("ragged soup", soup, tuple(range(n_rows + 4)), n_rows, 3, 6,
+              (1, 3, 37, 9), ragged, (2, 8))]
+    record = None
+    for label, prog, readback, n_rows_t, waves, n_in, g4, faults, bank in cases:
+        args = faulted_operands(prog, n_rows_t, readback, waves, n_in, g4,
+                                faults, bank, rng)
+        got = aap_interpreter.aap_interp_faulted(*args)
+        err = check_equal(f"aap_interp_faulted {label}", got,
+                          aap_interpreter.aap_interp_faulted_plain(*args))
+        ms = graph_ms(lambda: aap_interpreter.aap_interp_faulted(*args), 5)
+        call_ms = cuda_ms(lambda: aap_interpreter.aap_interp_faulted(*args),
+                          10)
+        # the plain replay reads the stream to the host: timed eagerly
+        plain_ms = cuda_ms(lambda: aap_interpreter.aap_interp_faulted_plain(
+            *args), 1)
+        stream, thresh, meta, tiles = args[:4]
+        armed = int((thresh != 0).sum())
+        cols = tiles.shape[2]
+        nbytes = 4 * (tiles.numel() + got.numel() + stream.numel()
+                      + thresh.numel() + meta.numel())
+        b_ms, b_by = bound(nbytes, waves * cols * (len(prog) + HASH_OPS * armed))
+        flips = int((got != aap_interpreter.aap_interp(
+            stream, tiles, args[4], args[5])).sum())
+        if flips == 0:
+            raise AssertionError(f"aap_interp_faulted {label}: no word "
+                                 "differs from the fault-free kernel's")
+        print("detail " + json.dumps({
+            "kernel": "aap_interp_faulted", "case": label,
+            "n_ins": len(prog), "armed": armed, "n_in": n_in,
+            "n_state": args[5], "waves": waves, "cols": cols,
+            "block_cols": aap_interpreter.block_cols(args[5]),
+            "stuck_rows": list(faults.stuck_rows),
+            "words_differing_from_fault_free": flips,
+            "ms": ms, "call_ms": call_ms, "plain_ms": plain_ms,
+            "bound_ms": b_ms, "bound_by": b_by}))
+        if record is None:
+            record = dict(
+                max_abs_err=err, ms=ms, call_ms=call_ms, plain_ms=plain_ms,
+                bound_ms=b_ms, bound_by=b_by, library_ms=None,
+                shape=f"{len(prog)} AAPs ({armed} armed) over [{waves},{n_in},"
+                      f"{cols}] int32, {args[5]} state rows")
+        del args, got
+    return record
 
 
 def phase_flash(rng):
@@ -462,7 +578,7 @@ def expected_launches(cfg, *, packed: bool, native_fwd: int,
                                 (cfg.d_model, cfg.d_model, cfg.d_ff))
     gemm = n_bl * native_fwd if packed else 0
     return {"pack_signs": gemm + n_bl if packed else 0, "xnor_gemm": gemm,
-            "aap_interp": chunks * drim_steps,
+            "aap_interp": chunks * drim_steps, "aap_interp_faulted": 0,
             "flash_attn_fwd": cfg.n_layers * aligned}
 
 
@@ -546,6 +662,91 @@ def phase_serve(wrappers):
     return counts
 
 
+def phase_faults(wrappers):
+    """Table-3 fault injection on the K=128 serving dot at full width on
+    DRIM-R, every harden scheme, engines held bit-identical; returns the
+    phase's launch counts."""
+    from repro_torch.core import DRIM_R, FaultModel
+    from repro_torch.launch import faults as payload
+    from repro_torch.pim import compile as drim_compile, graph_ref_results
+    from repro_torch.pim.bnn import bnn_dot_graph_carrysave
+    dev = torch.device("cuda")
+    graph, _ = bnn_dot_graph_carrysave(payload.K_BITS)
+    n_words = payload.WAVES * DRIM_R.n_subarrays * DRIM_R.row_bits // 32
+    feeds = payload.fault_feeds(graph, n_words)
+    t0 = time.perf_counter()
+    oracle = graph_ref_results(graph, feeds)
+    oracle_s = time.perf_counter() - t0
+    on_card = {n: torch.from_numpy(a.view(np.int32)).to(dev)
+               for n, a in feeds.items()}
+    corner = FaultModel.from_corner(payload.CORNER, source="paper",
+                                    seed=payload.SEED)
+
+    def run(engine, scheme, faults):
+        low = drim_compile(graph, geom=DRIM_R).lower(engine, harden=scheme,
+                                                     faults=faults)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = low.run(on_card, device=dev)
+        torch.cuda.synchronize()
+        return low, out, time.perf_counter() - t
+
+    def body():
+        lines = {}
+        for scheme in payload.SCHEMES:
+            engines = ("cuda", "resident") + (
+                ("baseline",) if scheme in (None, "tmr") else ())
+            runs = {eng: run(eng, scheme, corner) for eng in engines}
+            low, first, _ = runs["cuda"]
+            if set(first) != set(oracle) or any(
+                    t.shape != (n_words,) for t in first.values()):
+                raise AssertionError(f"faults {scheme}: outputs "
+                                     f"{sorted(first)} of the wrong shape")
+            for eng, (other, out, _) in runs.items():
+                if set(out) != set(first) or not all(
+                        torch.equal(out[k], first[k]) for k in first):
+                    raise AssertionError(f"faults {scheme}: engine {eng} "
+                                         "differs from cuda")
+                if other.last_ecc != low.last_ecc:
+                    raise AssertionError(f"faults {scheme}: {eng} ECC "
+                                         f"{other.last_ecc} != "
+                                         f"{low.last_ecc}")
+            line = {"scheme": scheme or "none", "aaps_per_tile": low.aaps,
+                    "corrupted_bits": payload.corrupted_bits(first, oracle),
+                    "ecc_mismatch_bits": (low.last_ecc.mismatch_bits
+                                          if low.last_ecc else None),
+                    "engines_identical": True,
+                    "engine_s": {eng: r[2] for eng, r in runs.items()}}
+            print("faults " + json.dumps(line))
+            lines[scheme] = line
+            del runs, first, low
+        _, clean, secs = run("cuda", "tmr", None)
+        if payload.corrupted_bits(clean, oracle) != 0:
+            raise AssertionError("the fault-free tmr run differs from the "
+                                 "oracle")
+        print("faults " + json.dumps({"scheme": "tmr", "faults": None,
+                                      "corrupted_bits": 0,
+                                      "engine_s": {"cuda": secs},
+                                      "oracle_cpu_s": oracle_s}))
+        return lines
+
+    lines, counts = counted(
+        wrappers, "faults", body,
+        lambda _: {"pack_signs": 0, "xnor_gemm": 0, "aap_interp": 1,
+                   "aap_interp_faulted": len(payload.SCHEMES),
+                   "flash_attn_fwd": 0})
+    bare = lines[None]["corrupted_bits"]
+    if bare <= 0:
+        raise AssertionError("the bare run at the Table-3 corner corrupted "
+                             "nothing")
+    if lines["ecc"]["ecc_mismatch_bits"] <= 0:
+        raise AssertionError("ECC flagged no mismatch at the corner")
+    if lines["tmr"]["corrupted_bits"] >= bare:
+        raise AssertionError(f"TMR left {lines['tmr']['corrupted_bits']} "
+                             f"bits wrong, bare {bare}")
+    return counts
+
+
 def check_prefill_reference():
     """The float32 smoke config's prefill logits on the card (flash
     attention at S=128) against the same prefill on the CPU (dense
@@ -597,6 +798,7 @@ def main() -> int:
     wrappers = {"pack_signs": packbits.pack_signs,
                 "xnor_gemm": xnor_popcount.xnor_gemm_packed,
                 "aap_interp": aap_interpreter.aap_interp,
+                "aap_interp_faulted": aap_interpreter.aap_interp_faulted,
                 "flash_attn_fwd": flash_attention.flash_fwd}
     for fn in wrappers.values():
         fn.launches = 0
@@ -604,11 +806,12 @@ def main() -> int:
     path_launches = read_counts(wrappers, ("pack_signs", "xnor_gemm",
                                            "aap_interp"), "path")
     by_leg = phase_serve(wrappers)
+    by_leg["faults"] = phase_faults(wrappers)
     launches = {name: sum(c[name] for c in by_leg.values())
                 for name in wrappers}
     idle = [name for name, n in launches.items() if n <= 0]
     if idle:
-        raise AssertionError(f"serving never launched {idle}")
+        raise AssertionError(f"the main paths never launched {idle}")
     check_prefill_reference()
 
     meta = {
@@ -620,6 +823,9 @@ def main() -> int:
         "aap_interp": ("src/repro_torch/csrc/aap_interp.cu",
                        "src/repro/kernels/aap_interpreter.py:64 "
                        "_interp_kernel"),
+        "aap_interp_faulted": ("src/repro_torch/csrc/aap_interp_faulted.cu",
+                               "src/repro/kernels/aap_interpreter.py:106 "
+                               "_interp_kernel_faulted"),
         "flash_attn_fwd": ("src/repro_torch/csrc/flash_attn_fwd.cu",
                            "src/repro/kernels/flash_attention.py:48 "
                            "_fwd_kernel"),

@@ -1,5 +1,5 @@
-"""DRIM AAP instruction set, Table-2 microprograms and the unrolled
-interpreter (port of `repro.core.isa`, fault-free).
+"""DRIM AAP instruction set, Table-2 microprograms and the interpreters
+(port of `repro.core.isa`).
 
 Four AAP (ACTIVATE-ACTIVATE-PRECHARGE) instruction types:
 
@@ -9,6 +9,12 @@ Four AAP (ACTIVATE-ACTIVATE-PRECHARGE) instruction types:
   type-4  AAP(src1, src2, src3, des) TRA  -> MAJ3
 
 Every instruction costs one AAP cycle whatever its type (paper §3.2).
+
+Two interpreters, held bit-identical by the tests, fault injection
+included: `run_program` steps an encoded [n, 5] stream over a full
+(batched) `SubArray` state, the reference's `lax.scan` as a Python loop;
+`run_program_unrolled` replays the program over per-row tensors and
+touches only the rows it names.
 """
 from __future__ import annotations
 
@@ -19,7 +25,9 @@ from typing import Dict, List, Sequence, Tuple
 import numpy as np
 import torch
 
-from .subarray import SubArray
+from .faults import as_u32, fault_mask, mix32
+from .subarray import (WORD_BITS, SubArray, _dra_bl, _tra_bl, _write_all,
+                       aap_copy, aap_copy2, aap_dra, aap_tra)
 
 OP_COPY, OP_COPY2, OP_DRA, OP_TRA = 0, 1, 2, 3
 _ARITY = {OP_COPY: 2, OP_COPY2: 3, OP_DRA: 3, OP_TRA: 4}
@@ -104,12 +112,95 @@ def encode_kernel_stream(program: Sequence[AAP], *,
 
 
 # ---------------------------------------------------------------------------
-# Interpreter
+# Interpreters
 # ---------------------------------------------------------------------------
+
+def _step(sa: SubArray, ins: Sequence[int]) -> SubArray:
+    """One encoded instruction [op, a0, a1, a2, a3], in place."""
+    op, a = ins[0], ins[1:]
+    if op == OP_COPY:
+        return aap_copy(sa, a[0], a[1])
+    if op == OP_COPY2:
+        return aap_copy2(sa, a[0], a[1], a[2])
+    if op == OP_DRA:
+        return aap_dra(sa, a[0], a[1], a[2])
+    return aap_tra(sa, a[0], a[1], a[2], a[3])
+
+
+def _step_flipped(sa: SubArray, ins: Sequence[int],
+                  mask: torch.Tensor) -> SubArray:
+    """A DRA or TRA whose charge-shared BL value carries an injected flip:
+    every word-line the AAP touches sees the same wrong level."""
+    op, a = ins[0], ins[1:]
+    if op == OP_DRA:
+        return _write_all(sa, a[:3], _dra_bl(sa, a[0], a[1]) ^ mask)
+    return _write_all(sa, a[:4], _tra_bl(sa, a[0], a[1], a[2]) ^ mask)
+
+
+def _force_stuck(sa: SubArray, stuck) -> SubArray:
+    """Pin stuck-at word-lines to their constant (normal rows only), in
+    place."""
+    for wl, v in stuck:
+        sa.data[..., wl, :] = -1 if v else 0
+    return sa
+
+
+def run_program(sa: SubArray, encoded, *, faults=None, slot_id=None,
+                copy: bool = True) -> SubArray:
+    """Step an encoded [n, 5] command stream over `sa` (the reference's
+    `lax.scan`, here a Python loop over the host copy of the stream).
+    `sa` may batch slots in leading dimensions.  It is copied once and
+    the copy is updated in place, so the caller's state is untouched;
+    `copy=False` updates `sa` itself.
+
+    With a `FaultModel`, every DRA/TRA draws a counter-based flip mask
+    from (seed, op index, slot_id) before its write-back, identical to
+    the flips the unrolled and kernel interpreters draw for the same
+    slot.  `slot_id` (default 0) broadcasts against the leading
+    dimensions of `sa`.
+    """
+    program = (encoded.tolist() if isinstance(encoded, torch.Tensor)
+               else [list(ins) for ins in encoded])
+    state = (SubArray(data=sa.data.clone(), dcc=sa.dcc.clone()) if copy
+             else sa)
+    if faults is not None:
+        faults = faults.wave_model()
+    if faults is None:
+        for ins in program:
+            _step(state, ins)
+        return state
+
+    dev = state.data.device
+    slot_h = mix32(as_u32(0 if slot_id is None else slot_id, dev)
+                   ^ faults.seed)[..., None]
+    word_ids = torch.arange(state.words, dtype=torch.int64, device=dev)
+    n_pos = state.words * WORD_BITS
+    prot = set(faults.protected_ops)
+    thresholds = {OP_DRA: faults.dra_thresh, OP_TRA: faults.tra_thresh}
+    stuck = tuple((wl, v) for wl, v in faults.stuck_rows
+                  if wl < state.n_rows)
+    _force_stuck(state, stuck)
+    for i, ins in enumerate(program):
+        t = 0 if i in prot else thresholds.get(ins[0], 0)
+        if t:
+            _step_flipped(state, ins,
+                          fault_mask(t, i, slot_h, word_ids, n_pos))
+        else:
+            _step(state, ins)
+        _force_stuck(state, stuck)
+    return state
+
+
+def run_program_py(sa: SubArray, program: Sequence[AAP]) -> SubArray:
+    """Eager interpreter over `AAP` records; updates `sa` in place."""
+    for ins in program:
+        _step(sa, (ins.op,) + tuple(ins.args))
+    return sa
+
 
 def run_program_unrolled(program: Sequence[AAP], rows: Dict[int, torch.Tensor],
                          dcc: Dict[int, torch.Tensor], *, n_rows: int,
-                         zeros: torch.Tensor):
+                         zeros: torch.Tensor, faults=None, slot_hash=None):
     """Replay a program over per-row int32 tensors (the "resident" engine).
 
     rows: {word_line: [..., words]} data + x rows present so far; dcc:
@@ -117,6 +208,11 @@ def run_program_unrolled(program: Sequence[AAP], rows: Dict[int, torch.Tensor],
     reads as `zeros` (a fresh sub-array).  Addresses >= n_rows are the
     dcc1..dcc4 word-lines.  Only the rows an instruction names are
     touched.  Mutates and returns (rows, dcc).
+
+    faults / slot_hash: an optional `FaultModel` plus the precomputed
+    `mix32(slot_id ^ seed)` (int64, broadcastable against the row word
+    axis).  Op indices are known here, so protected ops and zero
+    thresholds cost nothing.
     """
     def read(wl: int) -> torch.Tensor:
         if wl < n_rows:
@@ -132,7 +228,33 @@ def run_program_unrolled(program: Sequence[AAP], rows: Dict[int, torch.Tensor],
             off = wl - n_rows
             dcc[off // 2] = ~bl if off % 2 else bl
 
-    for ins in program:
+    if faults is not None:
+        faults = faults.wave_model()
+    flip = None
+    stuck = ()
+    if faults is not None:
+        words = zeros.shape[-1]
+        n_pos = words * WORD_BITS
+        word_ids = torch.arange(words, dtype=torch.int64,
+                                device=zeros.device)
+        slot_h = (slot_hash if slot_hash is not None
+                  else mix32(faults.seed))
+        prot = set(faults.protected_ops)
+        thresholds = {OP_DRA: faults.dra_thresh, OP_TRA: faults.tra_thresh}
+        stuck = tuple((wl, v) for wl, v in faults.stuck_rows
+                      if wl < n_rows)
+        ones = ~zeros
+
+        def flip(i: int, op: int, bl: torch.Tensor) -> torch.Tensor:
+            t = thresholds[op]
+            if t == 0 or i in prot:
+                return bl
+            return bl ^ fault_mask(t, i, slot_h, word_ids, n_pos)
+
+        for wl, v in stuck:
+            rows[wl] = ones if v else zeros
+
+    for i, ins in enumerate(program):
         a = ins.args
         if ins.op == OP_COPY:
             write(a[1], read(a[0]))
@@ -146,8 +268,12 @@ def run_program_unrolled(program: Sequence[AAP], rows: Dict[int, torch.Tensor],
             else:
                 x, y, z = read(a[0]), read(a[1]), read(a[2])
                 bl = (x & y) | (x & z) | (y & z)
+            if flip is not None:
+                bl = flip(i, ins.op, bl)
             for wl in a:            # sources end at the BL level (Fig. 6)
                 write(wl, bl)
+        for wl, v in stuck:
+            rows[wl] = ones if v else zeros
     return rows, dcc
 
 

@@ -3,12 +3,13 @@
 
   * static-shape KV caches sized to --ctx;
   * greedy or temperature sampling;
-  * --engine {gpu,resident,cuda}: how BitLinear decode matmuls execute.
-    "gpu" is the native route on the card (the packed XNOR-popcount
-    kernel under --packed, else the dense STE product), the counterpart
-    of the reference's "tpu"; a registry engine routes every decode GEMM
-    through the drim.jit carry-save pipeline on the simulated fleet
-    ("cuda": the AAP interpreter kernel).  Prefill always runs the native
+  * --engine {gpu,resident,baseline,cuda}: how BitLinear decode matmuls
+    execute.  "gpu" is the native route on the card (the packed
+    XNOR-popcount kernel under --packed, else the dense STE product), the
+    counterpart of the reference's "tpu"; a registry engine routes every
+    decode GEMM through the drim.jit carry-save pipeline on the simulated
+    fleet ("cuda": the AAP interpreter kernel; "baseline": the slow
+    full-state interpreter).  Prefill always runs the native
     route, and its attention runs the flash kernel where it applies;
   * --packed: BitLinear weights bit-packed (32x smaller weight reads),
     with a bit-exactness check against the dense STE path at temperature

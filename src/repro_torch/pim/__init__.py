@@ -1,7 +1,8 @@
 """Scheduler, fused graphs, the `jit` front end, the compile -> lower ->
-run pipeline and the BNN dot product."""
-from repro_torch.pim.compiler import (ENGINE_REGISTRY, Compiled, Lowered,
-                                      compile, engines, get_engine,
+run pipeline, fault-tolerance hardening and the BNN dot product."""
+from repro_torch.core.faults import FaultModel
+from repro_torch.pim.compiler import (ENGINE_REGISTRY, Compiled, EccReport,
+                                      Lowered, compile, engines, get_engine,
                                       lower_cached)
 from repro_torch.pim.frontend import (BitTensor, TraceError, TracedProgram,
                                       csa_reduce, full_add, jit, maj,
@@ -9,6 +10,8 @@ from repro_torch.pim.frontend import (BitTensor, TraceError, TracedProgram,
 from repro_torch.pim.graph import (BulkGraph, FusedProgram, FusedSchedule,
                                    ValueRef, compile_graph, graph_ref_results,
                                    plan_graph_schedule)
-from repro_torch.pim.scheduler import (OP_ARITY, RESULT_ROWS, Schedule,
-                                       expected_results, plan_schedule,
-                                       random_operands)
+from repro_torch.pim.harden import ECC_OUTPUT, HARDEN_SCHEMES, harden_graph
+from repro_torch.pim.scheduler import (ENGINES, OP_ARITY, RESULT_ROWS,
+                                       Schedule, expected_results,
+                                       plan_schedule, random_operands,
+                                       run_waves, stage_rows, wave_fn)

@@ -6,13 +6,20 @@
     out = low.run(..., device=...)      # measured low.schedule
     low.cost(n_bits)                    # closed-form schedule
 
-`lower()` runs a registered pass pipeline -- canonicalize -> fuse ->
-encode (`PASS_PIPELINE`) -- and engines live in one `EngineRegistry`:
-"resident" (plain torch, the default) and "cuda" (the AAP interpreter
-kernel; its plain replay on CPU tensors).  The reference's hardening,
-MIMD partitioning, fault injection, fleet meshes and static verifier are
-later slices of the port: their arguments raise NotImplementedError
-naming the ROADMAP item, and are never silently ignored.
+`lower()` runs a registered pass pipeline -- canonicalize -> harden ->
+fuse -> encode (`PASS_PIPELINE`) -- and engines live in one
+`EngineRegistry`: "resident" (plain torch, the default), "baseline" (the
+full device state stepped by the encoded-stream interpreter) and "cuda"
+(the AAP interpreter kernels; their plain replays on CPU tensors).
+
+Fault injection and hardening are ported: `lower(harden="tmr" | "ecc" |
+"tmr+ecc")` rewrites the graph before fusing (`pim.harden`), `lower(faults=
+FaultModel(...))` sets a default fault model and `run(..., faults=...)`
+overrides it per run; an ``ecc`` run leaves its parity verdict on
+`Lowered.last_ecc`.  The reference's MIMD partitioning, fleet meshes and
+static verifier are later slices: their arguments raise
+NotImplementedError naming the ROADMAP item, and are never silently
+ignored.
 """
 from __future__ import annotations
 
@@ -23,7 +30,7 @@ from typing import Any, Callable, Dict, Optional, Tuple
 import numpy as np
 import torch
 
-from repro_torch.core import AAP, DRIM_R, DrimGeometry
+from repro_torch.core import AAP, DRIM_R, DrimGeometry, FaultModel
 from repro_torch.core.subarray import N_XROWS, WORD_BITS, as_words
 from repro_torch.device import resolve_device
 from repro_torch.pim.frontend import JittedFunction, TracedProgram, jit
@@ -37,8 +44,6 @@ from repro_torch.pim.scheduler import (N_DATA_ROWS, OP_ARITY, RESULT_ROWS,
 # Lowering arguments of the reference that later slices port, with the
 # ROADMAP Queue-1 item that brings each.
 _NOT_PORTED = {
-    "harden": "Queue 1 item 7 (core/faults.py + pim/harden.py)",
-    "faults": "Queue 1 item 7 (core/faults.py + pim/harden.py)",
     "partition": "Queue 1 item 9 (partition_graph + pim/queue.py)",
     "n_queues": "Queue 1 item 9 (the queued engine)",
     "mesh": "Queue 1 item 9 (pim/mesh.py fleet meshes)",
@@ -63,8 +68,8 @@ def _reject_not_ported(**given) -> None:
 @dataclasses.dataclass(frozen=True)
 class Engine:
     """One execution backend.  `dispatch(arrays, program, result_rows,
-    n_rows=, geom=) -> (outs, tiles, waves)` stages the payload and runs
-    one uniform program over it."""
+    n_rows=, geom=, faults=) -> (outs, tiles, waves)` stages the payload
+    and runs one uniform program over it."""
 
     name: str
     description: str
@@ -106,10 +111,11 @@ def engines() -> Tuple[str, ...]:
 
 
 def _simd_dispatch(engine_name: str) -> Callable:
-    def dispatch(arrays, program, result_rows, *, n_rows, geom):
+    def dispatch(arrays, program, result_rows, *, n_rows, geom,
+                 faults=None):
         staged, tiles, waves = stage_rows(arrays, geom=geom)
         outs = run_waves(staged, program, result_rows, n_rows=n_rows,
-                         engine=engine_name)
+                         engine=engine_name, faults=faults)
         return outs, tiles, waves
     return dispatch
 
@@ -118,6 +124,11 @@ ENGINE_REGISTRY.register(Engine(
     "resident", "plain torch: the program unrolled over per-row tensors "
     "spanning every wave, only the named rows touched",
     dispatch=_simd_dispatch("resident")))
+ENGINE_REGISTRY.register(Engine(
+    "baseline", "the reference's first wave loop: per wave a fresh full "
+    "device state, the encoded stream stepped over it one instruction at "
+    "a time",
+    dispatch=_simd_dispatch("baseline")))
 ENGINE_REGISTRY.register(Engine(
     "cuda", "AAP interpreter kernel: the encoded stream as data, replayed "
     "by one thread per word column over shared-memory row state (its "
@@ -146,23 +157,33 @@ class Compiled:
 
     def lower(self, engine: Optional[str] = None, *, mesh=None,
               n_queues: Optional[int] = None, partition=None,
-              harden: Optional[str] = None, faults=None,
+              harden: Optional[str] = None,
+              faults: Optional[FaultModel] = None,
               verify: Optional[bool] = None) -> "Lowered":
         """Run the pass pipeline and bind an engine ("resident" by
-        default).  `mesh`, `n_queues`, `partition`, `harden`, `faults` and
-        `verify=True` belong to later slices and raise
-        NotImplementedError."""
+        default).
+
+        harden: None | "tmr" | "ecc" | "tmr+ecc" -- rewrite the graph for
+        fault tolerance before fusing (`pim.harden.harden_graph`); the
+        extra AAPs are real program text, so `cost()` prices them.
+        faults: the default `core.FaultModel` of every `run()` of this
+        lowering (a per-run `run(..., faults=...)` overrides it).
+
+        `mesh`, `n_queues`, `partition` and `verify=True` belong to later
+        slices and raise NotImplementedError."""
         _reject_not_ported(mesh=mesh, n_queues=n_queues,
-                           partition=partition, harden=harden,
-                           faults=faults, verify=verify)
-        st = _LoweringState(compiled=self, engine_name=engine)
+                           partition=partition, verify=verify)
+        st = _LoweringState(compiled=self, engine_name=engine,
+                            harden=harden, faults=faults)
         for p in PASS_PIPELINE:
             p.fn(st)
         return Lowered(
             kind=st.kind, engine=st.engine, geom=self.geom,
             row_budget=self.row_budget, op=self.op, graph=st.graph,
             traced=self.traced, fp=st.fp, program=st.program,
-            result_rows=st.result_rows, n_rows=st.n_rows, aaps=st.aaps)
+            result_rows=st.result_rows, n_rows=st.n_rows, aaps=st.aaps,
+            harden=st.harden, default_faults=st.faults,
+            protected_nodes=st.protected_nodes)
 
 
 def compile(src, *, geom: Optional[DrimGeometry] = None,
@@ -201,9 +222,12 @@ class _LoweringState:
 
     compiled: Compiled
     engine_name: Optional[str]
+    harden: Optional[str] = None
+    faults: Optional[FaultModel] = None
     kind: str = ""
     engine: Optional[Engine] = None
-    graph: Optional[BulkGraph] = None
+    graph: Optional[BulkGraph] = None     # working graph (post-harden)
+    protected_nodes: frozenset = frozenset()
     fp: Optional[FusedProgram] = None
     program: Tuple[AAP, ...] = ()
     result_rows: Tuple[int, ...] = ()
@@ -217,8 +241,23 @@ def _pass_canonicalize(st: _LoweringState) -> None:
     if c.kind == "op" and c.op not in OP_ARITY:
         raise ValueError(f"unknown bulk op {c.op!r}")
     st.engine = ENGINE_REGISTRY.get(st.engine_name or "resident")
+    if st.harden is not None and c.kind != "graph":
+        raise ValueError("harden= needs a graph source; a single "
+                         "Table-2 op has no redundancy to compile in")
+    if st.faults is not None and not isinstance(st.faults, FaultModel):
+        raise TypeError("faults= expects a core.FaultModel")
     st.graph = c.graph
     st.kind = c.kind
+
+
+def _pass_harden(st: _LoweringState) -> None:
+    """Optionally rewrite the graph for fault tolerance (TMR voting
+    and/or parity ECC) before fusion, so the redundancy is ordinary
+    program text every engine executes and every cost model prices."""
+    if st.harden is None:
+        return
+    from repro_torch.pim.harden import harden_graph
+    st.graph, st.protected_nodes = harden_graph(st.graph, st.harden)
 
 
 def _pass_fuse(st: _LoweringState) -> None:
@@ -253,6 +292,7 @@ class Pass:
 
 PASS_PIPELINE: Tuple[Pass, ...] = (
     Pass("canonicalize", _pass_canonicalize),
+    Pass("harden", _pass_harden),
     Pass("fuse", _pass_fuse),
     Pass("encode", _pass_encode),
 )
@@ -262,6 +302,28 @@ PASS_PIPELINE: Tuple[Pass, ...] = (
 # Lowered: run / cost
 # ---------------------------------------------------------------------------
 
+@dataclasses.dataclass(frozen=True)
+class EccReport:
+    """Host-side parity verdict of one `harden="ecc"` run: the primary
+    outputs xor-reduced against the device parity row."""
+
+    mismatch_bits: int                 # popcount of the parity diff
+    words: int                         # parity row width compared
+
+    @property
+    def corrupted(self) -> bool:
+        return self.mismatch_bits > 0
+
+
+def _popcount(words: torch.Tensor) -> int:
+    """Set bits of an int32 word tensor, on its device."""
+    x = words.to(torch.int64) & 0xFFFFFFFF
+    x = x - ((x >> 1) & 0x55555555)
+    x = (x & 0x33333333) + ((x >> 2) & 0x33333333)
+    x = (x + (x >> 4)) & 0x0F0F0F0F
+    return int((((x * 0x01010101) & 0xFFFFFFFF) >> 24).sum())
+
+
 class Lowered:
     """A program bound to an engine and a geometry.
 
@@ -270,7 +332,9 @@ class Lowered:
     form without touching the simulator."""
 
     def __init__(self, *, kind, engine, geom, row_budget, op, graph, traced,
-                 fp, program, result_rows, n_rows, aaps) -> None:
+                 fp, program, result_rows, n_rows, aaps, harden=None,
+                 default_faults=None,
+                 protected_nodes=frozenset()) -> None:
         self.kind = kind
         self.engine = engine
         self.geom = geom
@@ -283,9 +347,44 @@ class Lowered:
         self.result_rows = result_rows
         self.n_rows = n_rows
         self.aaps = aaps
+        self.harden = harden
+        self.default_faults = default_faults
+        self.protected_nodes = frozenset(protected_nodes)
         self.schedule = None          # measured by the last run()
+        self.last_ecc = None          # EccReport of the last ecc run()
 
-    def run(self, *args, n_bits: Optional[int] = None, device=None):
+    def _resolve_faults(self, faults):
+        """Per-run faults override the lowering default; hardened
+        lowerings add their protected op spans (voter/parity AAPs run on
+        guard-banded sense amplifiers and never flip)."""
+        if faults is None:
+            faults = self.default_faults
+        if faults is None:
+            return None
+        if not isinstance(faults, FaultModel):
+            raise TypeError("faults= expects a core.FaultModel")
+        if not faults.active:
+            return None
+        if self.protected_nodes and self.fp is not None:
+            spans = {i: (lo, hi) for i, lo, hi in self.fp.node_spans}
+            ops = [k for i in self.protected_nodes
+                   for k in range(*spans[i])]
+            faults = faults.with_protected(ops)
+        return faults
+
+    def _check_ecc(self, results):
+        """Host side of the parity scheme: xor-reduce the primary outputs
+        and diff against the device parity row."""
+        parity = results.pop("__ecc__")
+        expect = torch.zeros_like(parity)
+        for arr in results.values():
+            expect = expect ^ arr
+        self.last_ecc = EccReport(mismatch_bits=_popcount(parity ^ expect),
+                                  words=int(parity.numel()))
+        return results
+
+    def run(self, *args, n_bits: Optional[int] = None, device=None,
+            faults: Optional[FaultModel] = None):
         """Execute on `device` (None: the CUDA card; there is no fallback).
 
         Op sources take positional word arrays (one per operand) and
@@ -294,10 +393,15 @@ class Lowered:
         arrays in the traced argument order, and return outputs shaped
         like the traced function's own return value (a dict for
         hand-built graphs).  Inputs may be numpy arrays or tensors of
-        32-bit words; they are moved to `device`."""
+        32-bit words; they are moved to `device`.
+
+        faults: a `core.FaultModel` for THIS run only (overrides the
+        lowering-time default).  With `harden="ecc"` lowerings the
+        detection evidence of each run lands on `self.last_ecc`."""
         dev = resolve_device(device)
+        faults = self._resolve_faults(faults)
         if self.kind == "op":
-            return self._run_op(args, n_bits, dev)
+            return self._run_op(args, n_bits, dev, faults)
         if self.traced is not None and not (
                 len(args) == 1 and isinstance(args[0], dict)):
             feeds = self.traced.feeds_for(args)
@@ -312,12 +416,14 @@ class Lowered:
         else:
             raise ValueError("graph lowering expects a feeds dict (or "
                              "positional planes for traced programs)")
-        outs = self._run_graph(feeds, n_bits, dev)
+        outs = self._run_graph(feeds, n_bits, dev, faults)
+        if self.harden is not None and "ecc" in self.harden:
+            outs = self._check_ecc(dict(outs))
         if self.traced is not None:
             return self.traced.restructure(outs)
         return outs
 
-    def _run_op(self, operands, n_bits, dev):
+    def _run_op(self, operands, n_bits, dev, faults=None):
         arity = OP_ARITY[self.op]
         if len(operands) != arity:
             raise ValueError(f"{self.op} takes {arity} operands, got "
@@ -332,7 +438,7 @@ class Lowered:
             raise ValueError("n_bits out of range for the given operands")
         outs, tiles, waves = self.engine.dispatch(
             ops, self.program, self.result_rows, n_rows=self.n_rows,
-            geom=self.geom)
+            geom=self.geom, faults=faults)
         results = tuple(outs[:, i].reshape(-1)[:n_words]
                         for i in range(len(self.result_rows)))
         self.schedule = self._op_schedule(n_bits, tiles, waves)
@@ -373,7 +479,7 @@ class Lowered:
                 f"({(n_words - 1) * WORD_BITS}, {n_words * WORD_BITS}]")
         return n_bits
 
-    def _run_graph(self, feeds, n_bits, dev):
+    def _run_graph(self, feeds, n_bits, dev, faults=None):
         arrays, n_words = self._check_feeds(feeds, dev)
         n_bits = self._resolve_n_bits(n_bits, n_words)
         fp, geom = self.fp, self.geom
@@ -383,7 +489,8 @@ class Lowered:
         if fp.device_outputs:
             outs, tiles, waves = self.engine.dispatch(
                 [arrays[n] for n in fp.loaded_inputs], fp.program,
-                fp.readback_rows, n_rows=fp.template_rows, geom=geom)
+                fp.readback_rows, n_rows=fp.template_rows, geom=geom,
+                faults=faults)
             col = {row: i for i, row in enumerate(fp.readback_rows)}
             for name, row in fp.device_outputs:
                 results[name] = outs[:, col[row]].reshape(-1)[:n_words]
@@ -430,6 +537,8 @@ def clear_lower_cache() -> None:
 def lower_cached(src, *, key: Optional[Tuple] = None,
                  geom: Optional[DrimGeometry] = None,
                  engine: Optional[str] = None,
+                 harden: Optional[str] = None,
+                 faults: Optional[FaultModel] = None,
                  row_budget: Optional[int] = DEFAULT_ROW_BUDGET,
                  **later_slices) -> Lowered:
     """`compile(src).lower(...)` memoized for the life of the process.
@@ -445,12 +554,12 @@ def lower_cached(src, *, key: Optional[Tuple] = None,
         raise TypeError(
             "lower_cached needs a hashable src or an explicit key= "
             "identifying the program") from None
-    full_key = (ident, geom, engine, row_budget)
+    full_key = (ident, geom, engine, harden, faults, row_budget)
     low = _LOWER_CACHE.get(full_key)
     if low is None:
         LOWER_CACHE_STATS["misses"] += 1
         low = compile(src, geom=geom, row_budget=row_budget).lower(
-            engine=engine)
+            engine=engine, harden=harden, faults=faults)
         _LOWER_CACHE[full_key] = low
     else:
         LOWER_CACHE_STATS["hits"] += 1

@@ -1,19 +1,28 @@
 """Bulk-op scheduler: tile word operands onto the simulated DRIM fleet and
 replay an AAP stream wave by wave (port of `repro.pim.scheduler`,
-fault-free and unsharded).
+unsharded).
 
 Operands are tiled into `row_bits`-wide rows, assigned to (chip, bank,
 subarray) slots, and every active sub-array runs the same program in
-lock-step.  Two wave engines share the staging and the cost model:
+lock-step.  Three wave engines share the staging and the cost model:
 
   * "resident" (default): plain torch.  `isa.run_program_unrolled`
     replays the stream over per-row tensors that span every wave at once,
     touching only the rows the program names; readback gathers only the
     result rows.
+  * "baseline": the reference's first wave loop -- per wave a fresh full
+    device state (`core.device`), the encoded [n, 5] stream stepped over
+    it by `isa.run_program`, `device_read_rows` readback.  Slow, and kept
+    as the engine the other two are held against.
   * "cuda": the stream stays data.  `isa.encode_kernel_stream` lowers it
     once and the AAP interpreter kernel (`kernels.aap_interpreter`)
     replays it over every word column of every wave in one launch; on CPU
     tensors the kernel's plain replay runs instead.
+
+With a `core.faults.FaultModel` every engine draws the same flips for the
+same (seed, op index, global slot): the slot hash has no wave index, so
+every wave draws the same flips, and the all-waves-at-once bodies
+broadcast it over the wave axis.
 
 Cost accounting is measured from the executed stream: `aaps_per_tile` is
 the program length, latency is `waves x aaps_per_tile x t_AAP`.
@@ -40,8 +49,11 @@ from repro_torch.core import (AAP, DRIM_R, DrimGeometry, encode,
                               microprogram_copy, microprogram_maj3,
                               microprogram_not, microprogram_xnor2,
                               microprogram_xor2, run_program_unrolled)
+from repro_torch.core.device import (_device_run_program, device_load_rows,
+                                     device_read_rows, make_device)
 from repro_torch.core.energy import E_AAP_NJ_PER_KB
-from repro_torch.core.subarray import WORD_BITS, as_words
+from repro_torch.core.faults import mix32, slot_ids_grid
+from repro_torch.core.subarray import N_XROWS, WORD_BITS, as_words
 
 # Per-slot row layout: operands at word-lines [0, arity), results at the
 # word-lines listed here.  8 data rows are plenty for every Table-2 op.
@@ -60,7 +72,7 @@ REF_OP: Dict[str, str | None] = {
     "maj3": "maj3", "add": "fa",
 }
 
-ENGINES = ("resident", "cuda")
+ENGINES = ("resident", "baseline", "cuda")
 
 
 def random_operands(op: str, n_words: int, seed: int = 0) -> List[np.ndarray]:
@@ -225,18 +237,50 @@ def plan_schedule(op: str, n_bits: int, *,
 
 
 def wave_fn(engine: str, program: Tuple[AAP, ...],
-            result_rows: Tuple[int, ...], n_rows: int):
+            result_rows: Tuple[int, ...], n_rows: int, faults=None,
+            bank_geom=None):
     """The wave function of one engine for one program.
 
     Returns `run(staged)` mapping a staged payload [waves, n_rows_in,
     chips, banks, subarrays, row_words] to the readback block [waves,
     len(result_rows), ...].  Torch runs eagerly, so unlike the reference's
-    per-wave body under `lax.map` this covers the wave axis at once:
-    waves are independent (each starts from a fresh sub-array).
+    per-wave body under `lax.map` the resident and cuda bodies cover the
+    wave axis at once: waves are independent (each starts from a fresh
+    sub-array).  The baseline body loops over the waves, a fresh device
+    state each.
+
+    faults: an optional `FaultModel` (its `wave_model()` is what runs; an
+    inactive model is the fault-free path).  `bank_geom` = (bank_lo,
+    banks_total) anchors a payload that holds a slice of the banks at its
+    physical bank offset, so it draws the full fleet's flips.
     """
+    if faults is not None:
+        faults = faults.wave_model()
+    if faults is None:
+        bank_geom = None
+    bank_lo, banks_total = bank_geom if bank_geom is not None else (0, None)
     if engine == "cuda":
         from repro_torch.kernels.aap_interpreter import cuda_wave_fn
-        return cuda_wave_fn(tuple(program), tuple(result_rows), n_rows)
+        return cuda_wave_fn(tuple(program), tuple(result_rows), n_rows,
+                            faults=faults, bank_geom=bank_geom)
+    if engine == "baseline":
+        encoded = encode(program)
+
+        def run_baseline(staged: torch.Tensor) -> torch.Tensor:
+            _, _, c, b, s, w = staged.shape
+            outs = []
+            for tiles in staged:
+                dev = make_device(chips=c, banks=b, subarrays=s,
+                                  n_data=n_rows - N_XROWS, row_bits=w * 32,
+                                  device=staged.device)
+                dev = device_load_rows(dev, 0, tiles.movedim(0, 3))
+                out = _device_run_program(dev, encoded, faults,
+                                          bank_lo=bank_lo,
+                                          banks_total=banks_total,
+                                          donate=True)
+                outs.append(device_read_rows(out, result_rows))
+            return torch.stack(outs)
+        return run_baseline
     if engine != "resident":
         raise ValueError(f"unknown wave engine {engine!r} "
                          f"(registered: {', '.join(ENGINES)})")
@@ -244,25 +288,36 @@ def wave_fn(engine: str, program: Tuple[AAP, ...],
     def run(staged: torch.Tensor) -> torch.Tensor:
         zeros = torch.zeros_like(staged[:, 0])
         rows = {wl: staged[:, wl] for wl in range(staged.shape[1])}
+        slot_hash = None
+        if faults is not None:
+            _, _, c, b, s, _ = staged.shape
+            grid = slot_ids_grid(c, b, s, bank_lo=bank_lo,
+                                 banks_total=banks_total,
+                                 device=staged.device)
+            slot_hash = mix32(grid ^ faults.seed)[..., None]
         rows, _ = run_program_unrolled(program, rows, {}, n_rows=n_rows,
-                                       zeros=zeros)
+                                       zeros=zeros, faults=faults,
+                                       slot_hash=slot_hash)
         return torch.stack([rows.get(r, zeros) for r in result_rows], dim=1)
     return run
 
 
 def run_waves(staged: torch.Tensor, program: Sequence[AAP],
               result_rows: Tuple[int, ...], *, n_rows: int,
-              engine: str = "resident") -> torch.Tensor:
+              engine: str = "resident", faults=None,
+              bank_geom=None) -> torch.Tensor:
     """Execute every wave of a staged payload.
 
     staged: [waves, n_rows_in, chips, banks, subarrays, row_words] int32;
     wave w holds its tile block in word-lines [0, n_rows_in).  `program`
     addresses were resolved against a template with `n_rows` normal rows
-    (addresses >= n_rows are DCC word-lines).
+    (addresses >= n_rows are DCC word-lines).  `faults` and `bank_geom`
+    as in `wave_fn`.
 
     Returns [waves, len(result_rows), chips, banks, subarrays, row_words].
     """
-    return wave_fn(engine, tuple(program), tuple(result_rows), n_rows)(staged)
+    return wave_fn(engine, tuple(program), tuple(result_rows), n_rows,
+                   faults, bank_geom)(staged)
 
 
 def stage_rows(arrays: Sequence[torch.Tensor], *, geom: DrimGeometry,

@@ -126,8 +126,8 @@ def test_wrappers_refuse_what_their_kernels_do_not_take(monkeypatch):
 
 
 @pytest.mark.parametrize("kwargs", [
-    {"harden": "tmr"}, {"partition": True}, {"faults": object()},
-    {"mesh": object()}, {"verify": True}, {"n_queues": 2}])
+    {"partition": True}, {"mesh": object()}, {"verify": True},
+    {"n_queues": 2}])
 def test_later_slice_arguments_raise(kwargs):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         compiler.compile("xnor2").lower(**kwargs)
@@ -136,8 +136,8 @@ def test_later_slice_arguments_raise(kwargs):
 
 
 def test_only_the_ported_engines_are_registered():
-    assert compiler.engines() == ("resident", "cuda")
-    for name in ("pallas", "baseline", "queued", "tpu", "gpu"):
+    assert compiler.engines() == ("resident", "baseline", "cuda")
+    for name in ("pallas", "queued", "tpu", "gpu"):
         with pytest.raises(ValueError, match="unknown engine"):
             compiler.compile("xnor2").lower(engine=name)
     with pytest.raises(ValueError, match="unknown engine"):

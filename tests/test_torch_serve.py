@@ -154,11 +154,12 @@ def test_temperature_sampling_is_seeded():
 
 
 def test_engines_are_gpu_and_the_registry():
-    for engine in ("tpu", "pallas", "queued", "baseline"):
+    for engine in ("tpu", "pallas", "queued"):
         with pytest.raises(SystemExit):
             serve.parse_args(TINY + ["--engine", engine])
     assert serve.parse_args(TINY).engine == "gpu"
-    assert serve.parse_args(TINY + ["--engine", "cuda"]).engine == "cuda"
+    for engine in ("cuda", "baseline"):
+        assert serve.parse_args(TINY + ["--engine", engine]).engine == engine
 
 
 def test_entry_points_default_to_the_card(monkeypatch):
