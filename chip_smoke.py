@@ -89,10 +89,12 @@ FLASH_TOL = {torch.float32: (2e-5, 2e-5), torch.bfloat16: (4e-3, 2 ** -7)}
 LSE_TOL = 1e-4
 SERVE = ["--arch", "drim-bnn", "--batch", "4", "--prompt-len", "256",
          "--gen", "8", "--seed", str(SEED), "--temperature", "0"]
-# integer operations of one armed DRA/TRA's hash per column: i * golden,
-# the XOR with the slot hash, mix32 (3 xor-shifts, 2 multiplies) and the
-# compare; the rare failing draw's bit position is not counted
-HASH_OPS = 11
+# integer operations of one armed DRA/TRA's draw: the XOR of the slot
+# hash with i * golden (one scalar per instruction), mix32 (3 xor-shifts,
+# 2 multiplies) and the compare.  A draw belongs to a (sub-array, op)
+# pair: the words of a row and the waves share it.  The rare failing
+# draw's bit position and its one flipped word are not counted.
+HASH_OPS = 10
 
 
 def cuda_ms(fn, iters: int) -> float:
@@ -393,7 +395,9 @@ def phase_faulted_kernel(rng):
         cols = tiles.shape[2]
         nbytes = 4 * (tiles.numel() + got.numel() + stream.numel()
                       + thresh.numel() + meta.numel())
-        b_ms, b_by = bound(nbytes, waves * cols * (len(prog) + HASH_OPS * armed))
+        n_sub = cols // g4[3]           # sub-arrays: one draw each
+        b_ms, b_by = bound(nbytes, waves * cols * len(prog)
+                           + n_sub * HASH_OPS * armed)
         flips = int((got != aap_interpreter.aap_interp(
             stream, tiles, args[4], args[5])).sum())
         if flips == 0:
@@ -744,6 +748,13 @@ def phase_faults(wrappers):
     if lines["tmr"]["corrupted_bits"] >= bare:
         raise AssertionError(f"TMR left {lines['tmr']['corrupted_bits']} "
                              f"bits wrong, bare {bare}")
+    for scheme, want in payload.EXPECTED.items():
+        got = (lines[scheme]["corrupted_bits"],
+               lines[scheme]["ecc_mismatch_bits"])
+        if got != want:
+            raise AssertionError(f"faults {scheme}: (corrupted, ECC "
+                                 f"mismatch) bits {got}, expected {want} "
+                                 "(launch.faults.EXPECTED)")
     return counts
 
 

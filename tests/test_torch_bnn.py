@@ -27,6 +27,17 @@ from repro_torch.models import layers
 from repro_torch.pim import bnn
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """One intra-op thread: the suite runs in parallel workers, and their
+    thread pools contending for the cores made the full-width engine
+    routes run a hundred times slower than alone."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def oracle(a_bits, b_bits):
     k = a_bits.shape[1]
     return np.asarray(xnor_gemm_ref(

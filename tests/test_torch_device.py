@@ -36,6 +36,17 @@ MICROPROGRAMS = {
 }
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """One intra-op thread: the suite runs in parallel workers, and their
+    thread pools contending for the cores made the full-width engine
+    routes run a hundred times slower than alone."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def u32(t: torch.Tensor) -> np.ndarray:
     return t.cpu().numpy().view(np.uint32)
 

@@ -19,6 +19,7 @@ that the `cuda` tests also run where JAX is not installed:
         tests/test_torch_faults.py
 """
 import dataclasses
+import json
 import types
 
 import numpy as np
@@ -386,29 +387,36 @@ def test_empty_program_honours_stuck_rows(jref):
     assert (want[1] == 0xFFFFFFFF).all()
 
 
-@pytest.mark.parametrize("scheme", [None, "ecc", "tmr", "tmr+ecc"])
-def test_bank_slices_equal_the_whole_fleet(geoms, scheme):
-    """`launch.faults.run_bank_slices` (one bank at a time, each anchored
-    at its bank) gives the words and the ECC report of one `run` over the
-    whole fleet: the CPU rehearsal of the card's faults phase."""
-    from repro_torch.launch.faults import corrupted_bits, fault_feeds, \
-        run_bank_slices
+def test_faults_cli_counts_the_flips_of_every_scheme(geoms, monkeypatch,
+                                                   capsys):
+    """`python -m repro_torch.launch.faults` at the small geometry and K=4:
+    one line per scheme whose corrupted bits and ECC mismatch bits are
+    those of the "cuda" engine's run against the clean oracle."""
+    from repro_torch.launch import faults as cli
+    from repro_torch.pim.graph import graph_ref_results
     geom, _ = geoms
+    monkeypatch.setattr(cli, "DRIM_R", geom)
+    monkeypatch.setattr(cli, "K_BITS", 4)
+    monkeypatch.setattr(cli, "CORNER", 0.30)
+    assert cli.main(["--device", "cpu"]) == 0
+    lines = [json.loads(line) for line in
+             capsys.readouterr().out.splitlines()]
+    assert [line["scheme"] for line in lines] == ["none", "ecc", "tmr",
+                                                  "tmr+ecc"]
     graph, _ = bnn_dot_graph_carrysave(4)
-    feeds = fault_feeds(graph, 2 * geom.n_subarrays * geom.row_bits // 32)
-    hot = FaultModel(**HOT)
-    whole = tcompile(graph, geom=geom).lower("cuda", harden=scheme)
-    want = whole.run(feeds, device="cpu", faults=hot)
-    sliced = tcompile(graph, geom=geom).lower("resident", harden=scheme)
-    got = run_bank_slices(sliced, feeds, hot, "cpu")
-    assert set(got) == set(want)
-    for name in want:
-        assert torch.equal(got[name], want[name]), name
-    assert sliced.last_ecc == whole.last_ecc
-    assert corrupted_bits(got, {k: u32(v) for k, v in want.items()}) == 0
-    with pytest.raises(ValueError, match="whole waves"):
-        run_bank_slices(sliced, {k: v[:-1] for k, v in feeds.items()}, hot,
-                        "cpu")
+    feeds = cli.fault_feeds(graph, lines[0]["words"])
+    oracle = graph_ref_results(graph, feeds)
+    corner = FaultModel.from_corner(0.30, source="paper", seed=cli.SEED)
+    for scheme, line in zip(cli.SCHEMES, lines):
+        low = tcompile(graph, geom=geom).lower("cuda", harden=scheme)
+        outs = low.run(feeds, device="cpu", faults=corner)
+        assert line["aaps_per_tile"] == low.aaps
+        assert line["corrupted_bits"] == cli.corrupted_bits(outs, oracle)
+        assert line["ecc_mismatch_bits"] == (
+            None if low.last_ecc is None else low.last_ecc.mismatch_bits)
+    assert lines[0]["corrupted_bits"] > 0
+    assert lines[1]["ecc_mismatch_bits"] > 0
+    assert set(cli.EXPECTED) == set(cli.SCHEMES)
 
 
 def test_op_thresholds_match_reference(jref):

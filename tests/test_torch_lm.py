@@ -39,6 +39,17 @@ CACHE_TOL = {"float32": dict(rtol=2 ** -7, atol=1e-4), "bfloat16": BF16}
 B, S, CTX = 2, 16, 24
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """One intra-op thread: the suite runs in parallel workers, and their
+    thread pools contending for the cores made the full-width engine
+    routes run a hundred times slower than alone."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.fixture(scope="module")
 def jref():
     import jax

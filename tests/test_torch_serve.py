@@ -39,6 +39,17 @@ TINY = ["--arch", "drim-bnn", "--smoke-config", "--layers", "2",
 CPU = ["--device", "cpu"]
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """One intra-op thread: the suite runs in parallel workers, and their
+    thread pools contending for the cores made the full-width engine
+    routes run a hundred times slower than alone."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.fixture(scope="module")
 def jref():
     import jax
@@ -138,7 +149,9 @@ def test_cli_serves_on_the_cpu_without_jax():
     out = subprocess.run([sys.executable, "-c", code], check=True,
                          capture_output=True, text=True, timeout=300,
                          env={"PYTHONPATH": str(ROOT / "src"),
-                              "PATH": "/usr/bin:/bin"})
+                              "PATH": "/usr/bin:/bin",
+                              # as `one_torch_thread`, for the child
+                              "OMP_NUM_THREADS": "1"})
     stats_line, modules = out.stdout.strip().splitlines()[-2:]
     assert modules == "[]"
     assert len(__import__("json").loads(stats_line)["sample_ids"]) == 5
