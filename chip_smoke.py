@@ -4,7 +4,7 @@
     python3 chip_smoke.py
 
 Phases, each fatal on failure:
-  1. build   -- compile the five CUDA kernels from `src/repro_torch/csrc/`
+  1. build   -- compile the eight CUDA sources of `src/repro_torch/csrc/`
                 (one nvcc per source, all started together);
   2. kernels -- hold each kernel against its plain torch version on the
                 card at the main paths' shapes plus a ragged shape (exact
@@ -16,7 +16,13 @@ Phases, each fatal on failure:
                 flash attention); the fault-injecting interpreter at the
                 TMR-hardened K=128 stream over 4 DRIM-R waves and at a
                 ragged shape with stuck rows, protected ops and a bank
-                offset;
+                offset; the bulk bit-wise kernels (not, the binary and
+                the ternary ops), the bit-plane adder and the sign
+                unpacker exactly, at the bulk phase's shapes and at ragged
+                ones (a length no block divides, a start one word off
+                16-byte alignment, empty tensors, 1 and 33 planes), the
+                unpacker on the drim-bnn FFN weights packed by the pack
+                kernel, in float32, bfloat16 and int8;
   3. path    -- one drim-bnn FFN BitLinear pair at full width (768 -> 3072
                 -> 768) on M = 512 activation rows, weights from a seeded
                 numpy generator, each projection served by the native
@@ -43,13 +49,29 @@ Phases, each fatal on failure:
                 oracle the bare run must be corrupted, ECC must flag it
                 and TMR must leave fewer bits wrong than bare; a
                 fault-free TMR run must be exact;
-  6. counts  -- the launch counters are zeroed just before phase 3, before
-                each of phase 4's five legs and before phase 5, and read
-                just after each: phase 3 must launch the three BNN kernels,
-                each serving leg exactly the launches its route implies
-                (`expected_launches`), phase 5 the faulted interpreter once
-                per faulted "cuda" run and the fault-free one once;
-  7. check   -- a float32 smoke-config prefill on the card held to the
+  6. bulk    -- the paper's Fig. 8 ops on the card at its largest vector,
+                2**29 bits (64 MiB planes from a seeded generator):
+                not, xnor2 and add through `compile(op).lower("gpu")`
+                (the native comparator, one bulk bit-wise kernel per op)
+                and through `lower("cuda")` (the DRIM-R fleet's AAP
+                interpreter over 256 waves), both exact against the plain
+                version; the 32-bit word add as the bit-plane adder over
+                [32, 2**19] planes; the carry-save K=32 serving dot at
+                full DRIM-R width on "gpu" and "cuda" and the numpy
+                oracle; the FFN weights packed and unpacked.  Then each
+                op's kernel time, its Gbit/s beside the DRIM-R model and
+                the paper's GPU model, and the op-averaged DRIM-R / H100
+                ratio beside the paper's 8.4 ("bulk" lines);
+  7. counts  -- the launch counters are zeroed just before phase 3, before
+                each of phase 4's five legs, before phase 5 and before
+                phase 6, and read just after each: phase 3 must launch the
+                three BNN kernels, each serving leg exactly the launches
+                its route implies (`expected_launches`), phase 5 the
+                faulted interpreter once per faulted "cuda" run and the
+                fault-free one once, phase 6 one bulk kernel per "gpu" op
+                run and per non-copy graph node (by kind), the
+                interpreter once per "cuda" run and never on "gpu";
+  8. check   -- a float32 smoke-config prefill on the card held to the
                 same prefill on the CPU (after the counts are read).
 
 Prints the kernels' JSON line, the card's name and power limit, and last
@@ -96,6 +118,17 @@ SERVE = ["--arch", "drim-bnn", "--batch", "4", "--prompt-len", "256",
 # draw's bit position and its one flipped word are not counted.
 HASH_OPS = 10
 
+# The bulk phase: Fig. 8's largest vector (benchmarks/fig8_throughput.py
+# sweeps 2**27..2**29 bits), 2**24 words, 64 MiB a plane: above the 50 MB
+# L2, so every call streams from device memory.
+BULK_BITS = 1 << 29
+BULK_WORDS = BULK_BITS // 32
+ADD_PLANES = (32, BULK_WORDS // 32)      # a 32-bit word add of 2**24 lanes
+FIG8_OPS = ("not", "xnor2", "add")
+# integer operations per word of each bulk bit-wise op (for its bound)
+BITWISE_OPS = {"not": 1, "xnor": 2, "xor": 1, "and": 1, "or": 1, "nand": 2,
+               "nor": 2, "maj3": 5, "min3": 6, "fa": 7}
+
 
 def cuda_ms(fn, iters: int) -> float:
     """Mean time per call of `fn`, called eagerly `iters` times after a
@@ -141,6 +174,8 @@ def graph_ms(fn, iters: int, replays: int = 5) -> float:
 def max_abs_err(got, want) -> int:
     if got.shape != want.shape:
         raise AssertionError(f"shape {tuple(got.shape)} != {tuple(want.shape)}")
+    if got.numel() == 0:
+        return 0
     return int((got.to(torch.int64) - want.to(torch.int64)).abs().max())
 
 
@@ -177,14 +212,18 @@ def check_close(what: str, got, want, atol: float,
 def phase_build():
     from repro_torch.kernels import _build
     t0 = time.time()
-    reports = _build.build(["pack_signs", "xnor_gemm", "aap_interp",
-                            "aap_interp_faulted", "flash_attn_fwd"])
+    sources = ["pack_signs", "xnor_gemm", "aap_interp", "aap_interp_faulted",
+               "flash_attn_fwd", "bitwise", "bitplane_add", "unpack_signs"]
+    reports = _build.build(sources)
+    missing = [n for n in sources if not _build._lib_path(n).exists()]
+    if missing:
+        raise AssertionError(f"no library built for {missing}")
     secs = time.time() - t0
     for name, text in sorted(reports.items()):
         for line in text.splitlines():
             if "Used" in line:
                 print(f"ptxas {name}: {line.split('info    :')[-1].strip()}")
-    print(f"build: {secs:.2f} s")
+    print(f"build: {len(sources)} sources, {secs:.2f} s")
 
 
 def phase_kernels(rng):
@@ -319,6 +358,7 @@ def phase_kernels(rng):
 
     records["aap_interp_faulted"] = phase_faulted_kernel(rng)
     records["flash_attn_fwd"] = phase_flash(rng)
+    records.update(phase_bulk_kernels(rng))
     return records
 
 
@@ -484,6 +524,287 @@ def phase_flash(rng):
     return record
 
 
+def card_words(rng, n: int, offset: int = 0) -> torch.Tensor:
+    """n random int32 words on the card, starting `offset` words into
+    their own buffer (offset 1 puts the start 4 bytes off 16-byte
+    alignment)."""
+    return torch.from_numpy(rng.integers(-2**31, 2**31, n + offset,
+                                         dtype=np.int32)).cuda()[offset:]
+
+
+def as_tuple(x):
+    return x if isinstance(x, tuple) else (x,)
+
+
+def bitwise_kernel(op: str):
+    """(counter name, arity, words moved per operand word) of the bulk
+    kernel that runs bit-wise `op`."""
+    from repro_torch.kernels.bitwise import BINARY_OPS, TERNARY_OPS
+    if op in TERNARY_OPS:
+        return "bitwise_ternary", 3, 5 if op == "fa" else 4
+    if op in BINARY_OPS:
+        return "bitwise_binary", 2, 3
+    return "bitwise_not", 1, 2
+
+
+def phase_bulk_kernels(rng):
+    """The bulk bit-wise kernels, the bit-plane adder and the sign
+    unpacker against their plain versions, exactly, at the bulk phase's
+    shapes and at ragged ones; returns their records (not, xor, fa at
+    2**24 words; the adder at [32, 2**19]; the unpacker at the up
+    projection's packed weights [3072, 24] to bfloat16)."""
+    from repro_torch.kernels import bitserial_add, packbits
+    from repro_torch.kernels.bitwise import (BINARY_OPS, TERNARY_OPS,
+                                             UNARY_OPS, bitwise,
+                                             bitwise_plain)
+    records = {}
+    # -- bitwise: every op at the bulk length, a ragged length, a
+    # misaligned start and empty -----------------------------------------
+    bulk = [card_words(rng, BULK_WORDS) for _ in range(3)]
+    cases = [("bulk", bulk),
+             ("ragged", [card_words(rng, 1000003) for _ in range(3)]),
+             ("offset 1", [card_words(rng, 1000003, 1) for _ in range(3)]),
+             ("offset 1, 2 words", [card_words(rng, 2, 1)
+                                    for _ in range(3)]),
+             ("empty", [card_words(rng, 0) for _ in range(3)])]
+    arity = {op: bitwise_kernel(op)[1]
+             for op in UNARY_OPS + BINARY_OPS + TERNARY_OPS}
+    errs = {}
+    for label, operands in cases:
+        for op, k in arity.items():
+            args = operands[:k]
+            got, want = (as_tuple(bitwise(op, *args)),
+                         as_tuple(bitwise_plain(op, *args)))
+            for g, w in zip(got, want):
+                errs[op] = max(errs.get(op, 0), check_equal(
+                    f"bitwise {op} {label}", g, w))
+    print("detail " + json.dumps({
+        "kernel": "bitwise", "cases": [c[0] for c in cases],
+        "ops": list(arity), "exact": True}))
+    library = {"not": torch.bitwise_not, "xor": torch.bitwise_xor}
+    for name, op in (("bitwise_not", "not"), ("bitwise_binary", "xor"),
+                     ("bitwise_binary", "xnor"), ("bitwise_ternary", "fa")):
+        args = bulk[:arity[op]]
+        ms = graph_ms(lambda: bitwise(op, *args), 50)
+        call_ms = cuda_ms(lambda: bitwise(op, *args), 200)
+        plain_ms = graph_ms(lambda: bitwise_plain(op, *args), 20)
+        library_ms = None
+        if op in library:
+            if not torch.equal(library[op](*args), bitwise(op, *args)):
+                raise AssertionError(f"torch yardstick for {op} disagrees")
+            library_ms = graph_ms(lambda: library[op](*args), 50)
+        b_ms, b_by = bound(bitwise_kernel(op)[2] * 4 * BULK_WORDS,
+                           BITWISE_OPS[op] * BULK_WORDS)
+        rec = dict(max_abs_err=errs[op], ms=ms, call_ms=call_ms,
+                   plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                   library_ms=library_ms,
+                   shape=f"{op}: {arity[op]} x [{BULK_WORDS}] int32 -> "
+                         f"{2 if op == 'fa' else 1} x [{BULK_WORDS}]")
+        print("detail " + json.dumps({"kernel": name, "op": op, **rec}))
+        if op != "xnor":
+            records[name] = rec
+    del bulk, cases
+
+    # -- bit-plane adder --------------------------------------------------
+    add_cases = [("bulk", ADD_PLANES, 0), ("1 plane", (1, 1001), 0),
+                 ("33 planes", (33, 1001), 0),
+                 ("33 planes, offset 1", (33, 1000), 1),
+                 ("empty", (8, 0), 0)]
+    for label, (nbits, w), offset in add_cases:
+        a, b = (card_words(rng, nbits * w, offset).view(nbits, w)
+                for _ in range(2))
+        s, c = bitserial_add.bitplane_add(a, b)
+        want_s, want_c = bitserial_add.bitplane_add_plain(a, b)
+        err = max(check_equal(f"bitplane_add {label} sum", s, want_s),
+                  check_equal(f"bitplane_add {label} carry", c, want_c))
+        if label != "bulk":
+            continue
+        ms = graph_ms(lambda: bitserial_add.bitplane_add(a, b), 50)
+        call_ms = cuda_ms(lambda: bitserial_add.bitplane_add(a, b), 200)
+        plain_ms = graph_ms(lambda: bitserial_add.bitplane_add_plain(a, b),
+                            5)
+        b_ms, b_by = bound(4 * (3 * nbits + 1) * w, 7 * nbits * w)
+        records["bitplane_add"] = dict(
+            max_abs_err=err, ms=ms, call_ms=call_ms, plain_ms=plain_ms,
+            bound_ms=b_ms, bound_by=b_by, library_ms=None,
+            shape=f"2 x [{nbits},{w}] int32 -> [{nbits},{w}] + [{w}]")
+        print("detail " + json.dumps({"kernel": "bitplane_add",
+                                      **records["bitplane_add"]}))
+    print("detail " + json.dumps({"kernel": "bitplane_add", "exact": True,
+                                  "cases": [c[0] for c in add_cases]}))
+
+    # -- sign unpacker: the drim-bnn up projection's weights [d_ff, d_model]
+    # packed by the pack kernel, then ragged and empty ----------------------
+    w_up = torch.from_numpy(rng.standard_normal((3072, 768),
+                                                dtype=np.float32)).cuda()
+    packed = packbits.pack_signs(w_up)
+    unpack_cases = [("ffn weights", packed),
+                    ("offset 1", card_words(rng, 130 * 33, 1).view(130, 33)),
+                    ("empty", card_words(rng, 0).view(0, 4))]
+    for label, p in unpack_cases:
+        for dt in (torch.float32, torch.bfloat16, torch.int8):
+            got = packbits.unpack_signs(p, dt)
+            err = check_equal(f"unpack_signs {label} {dt}", got,
+                              packbits.unpack_signs_plain(p, dt))
+            if label != "ffn weights":
+                continue
+            if not torch.equal(got.to(torch.float32),
+                               torch.where(w_up >= 0, 1.0, -1.0)):
+                raise AssertionError("unpack(pack(w)) is not sign(w)")
+            ms = graph_ms(lambda: packbits.unpack_signs(p, dt), 50)
+            call_ms = cuda_ms(lambda: packbits.unpack_signs(p, dt), 200)
+            plain_ms = graph_ms(lambda: packbits.unpack_signs_plain(p, dt),
+                                20)
+            n = p.numel()
+            b_ms, b_by = bound(n * (4 + 32 * got.element_size()), 64 * n)
+            rec = dict(max_abs_err=err, ms=ms, call_ms=call_ms,
+                       plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                       library_ms=None,
+                       shape=f"[{p.shape[0]},{p.shape[1]}] int32 -> "
+                             f"[{p.shape[0]},{32 * p.shape[1]}] {dt}")
+            print("detail " + json.dumps({"kernel": "unpack_signs",
+                                          "dtype": str(dt), **rec}))
+            if dt == torch.bfloat16:
+                records["unpack_signs"] = rec
+    return records
+
+
+def phase_bulk(wrappers):
+    """Fig. 8 on the card: the paper's three ops at 2**29 bits on the
+    native "gpu" comparator and on the DRIM-R fleet ("cuda"), the 32-bit
+    word add, the carry-save serving dot at full width on both engines,
+    and the FFN weights packed and unpacked, counted; then the times
+    ("bulk" lines).  Returns the phase's launch counts."""
+    from repro_torch.core import (DRIM_R, PAPER_CLAIMS, all_platforms,
+                                  drim_throughput_bits)
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.bitserial_add import bitplane_add_plain
+    from repro_torch.kernels.bitwise import bitwise_plain
+    from repro_torch.pim import compile as drim_compile, graph_ref_results
+    from repro_torch.pim.bnn import bnn_dot_graph_carrysave
+    from repro_torch.pim.compiler import NATIVE_OP
+    from repro_torch.pim.scheduler import OP_ARITY
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(SEED)
+    planes = [card_words(rng, BULK_WORDS) for _ in range(3)]
+    graph, _ = bnn_dot_graph_carrysave(32)
+    g_words = DRIM_R.n_subarrays * DRIM_R.row_bits // 32    # one wave
+    g_feeds = {n: (np.zeros(g_words, np.uint32) if n == "zero" else
+                   rng.integers(0, 1 << 32, g_words, dtype=np.uint32))
+               for n in graph.input_names}
+    w_up = torch.from_numpy(rng.standard_normal(
+        (3072, 768), dtype=np.float32)).to(dev, torch.bfloat16)
+    waves = BULK_BITS // DRIM_R.parallel_bits
+    lowered = {op: drim_compile(op).lower("gpu") for op in FIG8_OPS}
+    drim_s = {}
+
+    def body():
+        for op in FIG8_OPS:
+            args = planes[:OP_ARITY[op]]
+            low = lowered[op]
+            got = low.run(*args, n_bits=BULK_BITS, device=dev)
+            if low.schedule != low.cost(BULK_BITS):
+                raise AssertionError(f"{op}: gpu schedule != cost")
+            want = as_tuple(bitwise_plain(NATIVE_OP[op], *args))
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            drim = drim_compile(op).lower("cuda").run(*args, device=dev)
+            torch.cuda.synchronize()
+            drim_s[op] = time.perf_counter() - t
+            if low.schedule.n_bits != BULK_BITS or len(got) != len(want):
+                raise AssertionError(f"{op}: bad result arity or n_bits")
+            for g, w, d in zip(got, want, drim):
+                check_equal(f"bulk {op} gpu vs plain", g, w)
+                check_equal(f"bulk {op} gpu vs cuda (DRIM-R)", g, d)
+            del got, want, drim
+        a, b = (t.view(*ADD_PLANES) for t in planes[:2])
+        s, c = ops.bitplane_add(a, b)
+        want_s, want_c = bitplane_add_plain(a, b)
+        check_equal("bulk 32-bit add sum", s, want_s)
+        check_equal("bulk 32-bit add carry", c, want_c)
+        del s, c, want_s, want_c
+        on_card = {n: torch.from_numpy(v.view(np.int32)).to(dev)
+                   for n, v in g_feeds.items()}
+        native = drim_compile(graph).lower("gpu").run(on_card, device=dev)
+        fleet = drim_compile(graph).lower("cuda").run(on_card, device=dev)
+        oracle = graph_ref_results(graph, g_feeds)
+        if set(native) != set(oracle) or set(fleet) != set(oracle):
+            raise AssertionError("carry-save K=32: output names differ")
+        for name, want in oracle.items():
+            w = torch.from_numpy(want.view(np.int32))
+            check_equal(f"carry-save {name} gpu vs cuda", native[name],
+                        fleet[name])
+            check_equal(f"carry-save {name} gpu vs oracle",
+                        native[name].cpu(), w)
+        signs = ops.unpack_signs(ops.pack_signs(w_up), torch.bfloat16)
+        if not torch.equal(signs, torch.where(w_up >= 0, 1.0, -1.0)
+                           .to(torch.bfloat16)):
+            raise AssertionError("unpack(pack(w_up)) is not sign(w_up)")
+
+    def expected(_):
+        """One bulk kernel per "gpu" op run and per non-copy graph node,
+        by kind; the interpreter once per "cuda" run; the adder, packer
+        and unpacker once each."""
+        nodes = [NATIVE_OP[op] for op, _, _ in graph.nodes if op != "copy"]
+        per = {"bitwise_not": 0, "bitwise_binary": 0, "bitwise_ternary": 0}
+        for op in [NATIVE_OP[op] for op in FIG8_OPS] + nodes:
+            per[bitwise_kernel(op)[0]] += 1
+        per.update(aap_interp=len(FIG8_OPS) + 1, bitplane_add=1,
+                   pack_signs=1, unpack_signs=1)
+        return per
+
+    _, counts = counted(wrappers, "bulk", body, expected)
+    print("bulk " + json.dumps({
+        "exact": True, "n_bits": BULK_BITS, "drim_r_waves": waves,
+        "carry_save_k32_words": g_words,
+        "carry_save_k32_nodes": len(graph.nodes),
+        "drim_r_cuda_run_s": drim_s}))
+
+    # -- times (not counted) ---------------------------------------------------
+    plats = all_platforms()
+    h100, model_gpu, drim_r = {}, {}, {}
+    for op in FIG8_OPS:
+        args = planes[:OP_ARITY[op]]
+        native = NATIVE_OP[op]
+        kernel_ms = graph_ms(lambda: ops.bitwise(native, *args), 50)
+        run_ms = cuda_ms(lambda: lowered[op].run(*args, device=dev), 50)
+        line = {"op": op, "kernel": bitwise_kernel(native)[0],
+                "bitwise_op": native, "kernel_ms": kernel_ms,
+                "gpu_engine_run_ms": run_ms}
+        moved = bitwise_kernel(native)[2] * 4 * BULK_WORDS
+        if op == "add":
+            # Fig. 8's GPU adds words (3 bits moved per output bit); the
+            # full adder above is one bit-slice of DRIM's bit-serial add
+            line.update(fa_gbit_s=BULK_BITS / (kernel_ms * 1e-3) / 1e9,
+                        fa_hbm_share=moved / (kernel_ms * 1e-3)
+                        / HBM_BYTES_S)
+            a, b = (t.view(*ADD_PLANES) for t in planes[:2])
+            kernel_ms = graph_ms(lambda: ops.bitplane_add(a, b), 50)
+            moved = 4 * (3 * ADD_PLANES[0] + 1) * ADD_PLANES[1]
+            line.update(word_add=f"bitplane_add {list(ADD_PLANES)}",
+                        word_add_ms=kernel_ms)
+        h100[op] = BULK_BITS / (kernel_ms * 1e-3) / 1e9
+        drim_r[op] = drim_throughput_bits(DRIM_R, op) / 1e9
+        model_gpu[op] = plats["GPU"].throughput_bits(op) / 1e9
+        line.update(h100_gbit_s=h100[op],
+                    hbm_share=moved / (kernel_ms * 1e-3) / HBM_BYTES_S,
+                    drim_r_model_gbit_s=drim_r[op],
+                    paper_gpu_model_gbit_s=model_gpu[op],
+                    drim_over_h100=drim_r[op] / h100[op],
+                    drim_over_paper_gpu=drim_r[op] / model_gpu[op])
+        print("bulk " + json.dumps(line))
+
+    def avg(rows):
+        return float(np.mean([rows[op] for op in FIG8_OPS]))
+
+    print("bulk " + json.dumps({
+        "summary": "DRIM-R over GPU, op-averaged (fig8_throughput.ratios)",
+        "drim_over_h100": avg(drim_r) / avg(h100),
+        "drim_over_paper_gpu_model": avg(drim_r) / avg(model_gpu),
+        "paper_claim": PAPER_CLAIMS[("DRIM-R", "GPU")]}))
+    return counts
+
+
 def check_ste_product(rng):
     """The dense STE product on the card at a decode shape (M=4, K=3072,
     the down projection): the port's float32 product rounded once must
@@ -588,13 +909,17 @@ def expected_launches(cfg, *, packed: bool, native_fwd: int,
 
 def counted(wrappers, leg: str, run, want_of):
     """Zero every launch counter, `run()`, read the counters and hold them
-    to `want_of(result)`; returns (result, counts)."""
+    to `want_of(result)` (a counter it does not name must stay 0);
+    returns (result, counts)."""
     for fn in wrappers.values():
         fn.launches = 0
     result = run()
     got = {name: fn.launches for name, fn in wrappers.items()}
     print("counts " + json.dumps({"phase": leg, **got}))
-    want = want_of(result)
+    named = want_of(result)
+    if not set(named) <= set(wrappers):
+        raise AssertionError(f"{leg}: no counter for {set(named) - set(wrappers)}")
+    want = {name: named.get(name, 0) for name in wrappers}
     if got != want:
         raise AssertionError(f"{leg}: launches {got}, expected {want}")
     return result, got
@@ -797,8 +1122,10 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
-    from repro_torch.kernels import (aap_interpreter, flash_attention,
-                                     packbits, xnor_popcount)
+    from repro_torch.kernels import (aap_interpreter, bitserial_add,
+                                     flash_attention, packbits, xnor_popcount)
+    from repro_torch.kernels.bitwise import (binary_kernel, not_kernel,
+                                             ternary_kernel)
 
     torch.backends.cuda.matmul.allow_tf32 = False
     rng = np.random.default_rng(SEED)
@@ -810,7 +1137,11 @@ def main() -> int:
                 "xnor_gemm": xnor_popcount.xnor_gemm_packed,
                 "aap_interp": aap_interpreter.aap_interp,
                 "aap_interp_faulted": aap_interpreter.aap_interp_faulted,
-                "flash_attn_fwd": flash_attention.flash_fwd}
+                "flash_attn_fwd": flash_attention.flash_fwd,
+                "bitwise_not": not_kernel, "bitwise_binary": binary_kernel,
+                "bitwise_ternary": ternary_kernel,
+                "bitplane_add": bitserial_add.bitplane_add,
+                "unpack_signs": packbits.unpack_signs}
     for fn in wrappers.values():
         fn.launches = 0
     phase_path(rng)
@@ -818,6 +1149,7 @@ def main() -> int:
                                            "aap_interp"), "path")
     by_leg = phase_serve(wrappers)
     by_leg["faults"] = phase_faults(wrappers)
+    by_leg["bulk"] = phase_bulk(wrappers)
     launches = {name: sum(c[name] for c in by_leg.values())
                 for name in wrappers}
     idle = [name for name, n in launches.items() if n <= 0]
@@ -840,6 +1172,17 @@ def main() -> int:
         "flash_attn_fwd": ("src/repro_torch/csrc/flash_attn_fwd.cu",
                            "src/repro/kernels/flash_attention.py:48 "
                            "_fwd_kernel"),
+        "bitwise_not": ("src/repro_torch/csrc/bitwise.cu",
+                        "src/repro/kernels/bitwise.py:64 _not_kernel"),
+        "bitwise_binary": ("src/repro_torch/csrc/bitwise.cu",
+                           "src/repro/kernels/bitwise.py:32 _binary_kernel"),
+        "bitwise_ternary": ("src/repro_torch/csrc/bitwise.cu",
+                            "src/repro/kernels/bitwise.py:50 "
+                            "_ternary_kernel"),
+        "bitplane_add": ("src/repro_torch/csrc/bitplane_add.cu",
+                         "src/repro/kernels/bitserial_add.py:24 _add_kernel"),
+        "unpack_signs": ("src/repro_torch/csrc/unpack_signs.cu",
+                         "src/repro/kernels/packbits.py:34 _unpack_kernel"),
     }
     kernels = []
     for name, (source, replaces) in meta.items():

@@ -1,5 +1,5 @@
-"""Sub-array, AAP instruction set, device stack, fault model, geometry and
-energy constants."""
+"""Sub-array, AAP instruction set, device stack, fault model, geometry,
+timing, energy constants and the paper's platform models."""
 from .analog import PAPER_TABLE3
 from .device import (DrimDevice, device_broadcast_rows, device_load_rows,
                      device_read_row, device_read_row_window,
@@ -18,4 +18,8 @@ from .isa import (AAP, AAP_COUNTS, KSTREAM_COLS, OP_COPY, OP_COPY2, OP_DRA,
 from .subarray import (N_DCC_WL, N_XROWS, WORD_BITS, SubArray, aap_copy,
                        aap_copy2, aap_dra, aap_tra, activate_read, load_rows,
                        make_subarray, pack_bits, row_words, unpack_bits)
-from .timing import DRIM_R, DRIM_S, T_AAP_S, DrimGeometry, ddr_rows_s
+from .platforms import (CONTEXT_CLAIMS, PAPER_CLAIMS, PIM_CYCLES, Platform,
+                        all_platforms)
+from .timing import (CMD_SLOTS_PER_AAP, DRIM_R, DRIM_S, T_AAP_S, T_CMD_S,
+                     DrimGeometry, area_report, ddr_rows_s,
+                     drim_latency_s, drim_throughput_bits)

@@ -77,6 +77,24 @@ def xnor_gemm_dense_ref(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return (sa @ sb.T).to(torch.int32)
 
 
+# --- bitserial_add.py oracle ------------------------------------------------
+
+def bitplane_add_ref(a_planes: torch.Tensor, b_planes: torch.Tensor):
+    """Ripple-carry add of bit-plane-packed integers (DRIM adder oracle).
+
+    a_planes, b_planes: [nbits, W] int32 packed bit-planes (LSB first).
+    Returns (sum_planes [nbits, W], carry_out [W])."""
+    carry = torch.zeros(a_planes.shape[1:], dtype=a_planes.dtype,
+                        device=a_planes.device)
+    sums = []
+    for a, b in zip(a_planes, b_planes):
+        sums.append(a ^ b ^ carry)
+        carry = (a & b) | (a & carry) | (b & carry)
+    if not sums:
+        return torch.empty_like(a_planes), carry
+    return torch.stack(sums), carry
+
+
 # --- flash_attention.py oracle ------------------------------------------------
 
 def sdpa_ref(q, k, v, causal: bool = True, n_rep: int = 1, *,

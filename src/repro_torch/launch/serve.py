@@ -3,10 +3,10 @@
 
   * static-shape KV caches sized to --ctx;
   * greedy or temperature sampling;
-  * --engine {gpu,resident,baseline,cuda}: how BitLinear decode matmuls
-    execute.  "gpu" is the native route on the card (the packed
-    XNOR-popcount kernel under --packed, else the dense STE product), the
-    counterpart of the reference's "tpu"; a registry engine routes every
+  * --engine {resident,baseline,cuda,gpu}: how BitLinear decode matmuls
+    execute.  "gpu", the registry's comparator (the reference's "tpu"), is
+    the native route on the card (the packed XNOR-popcount kernel under
+    --packed, else the dense STE product); a DRIM engine routes every
     decode GEMM through the drim.jit carry-save pipeline on the simulated
     fleet ("cuda": the AAP interpreter kernel; "baseline": the slow
     full-state interpreter).  Prefill always runs the native
@@ -67,11 +67,11 @@ def parse_args(argv=None) -> argparse.Namespace:
                     help="cache length (default prompt+gen)")
     ap.add_argument("--temperature", type=float, default=0.0)
     ap.add_argument("--seed", type=int, default=0)
-    ap.add_argument("--engine", default=NATIVE_ENGINE,
-                    choices=(NATIVE_ENGINE,) + engines(),
-                    help="BitLinear decode matmul backend: 'gpu' = the "
-                    "native route; registry engines route decode GEMMs "
-                    "through the drim.jit compile->lower->run pipeline")
+    ap.add_argument("--engine", default=NATIVE_ENGINE, choices=engines(),
+                    help="BitLinear decode matmul backend: 'gpu' (the "
+                    "registry's comparator) = the native route; the DRIM "
+                    "engines route decode GEMMs through the drim.jit "
+                    "compile->lower->run pipeline")
     ap.add_argument("--packed", action="store_true",
                     help="serve from bit-packed BitLinear weights")
     ap.add_argument("--continuous", type=int, default=0, metavar="N",

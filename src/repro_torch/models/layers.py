@@ -49,12 +49,14 @@ _SERVING: contextvars.ContextVar[Optional[Tuple[str, Any]]] = \
 def serving_engine(engine: Optional[str] = None, *, geom=None):
     """Route BitLinear matmuls through the DRIM pipeline for the scope.
 
-    `engine` is a `pim.compiler.ENGINE_REGISTRY` name ("resident",
-    "cuda"); None keeps the native packed-kernel path.  The fleet runs on
-    the activations' device."""
+    `engine` is a `pim.compiler.ENGINE_REGISTRY` name: None or the
+    comparator "gpu" keeps the native packed-kernel path; "resident",
+    "baseline" and "cuda" run the sign GEMMs on the DRIM fleet.  The fleet
+    runs on the activations' device."""
     if engine is not None:
         from repro_torch.pim.compiler import get_engine
-        get_engine(engine)                  # fail fast on unknown names
+        if not get_engine(engine).device:   # fail fast on unknown names
+            engine = None                   # "gpu" == the native path
     token = _SERVING.set((engine, geom) if engine is not None else None)
     try:
         yield

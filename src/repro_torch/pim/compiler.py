@@ -9,8 +9,11 @@
 `lower()` runs a registered pass pipeline -- canonicalize -> harden ->
 fuse -> encode (`PASS_PIPELINE`) -- and engines live in one
 `EngineRegistry`: "resident" (plain torch, the default), "baseline" (the
-full device state stepped by the encoded-stream interpreter) and "cuda"
-(the AAP interpreter kernels; their plain replays on CPU tensors).
+full device state stepped by the encoded-stream interpreter), "cuda"
+(the AAP interpreter kernels; their plain replays on CPU tensors), and
+the comparator "gpu" (the reference's "tpu"): no fleet, the op or graph
+evaluated natively by the bulk bit-wise kernels, one `ops.bitwise` call
+per node, and priced by the card's roofline (`pim.offload.gpu_cost`).
 
 Fault injection and hardening are ported: `lower(harden="tmr" | "ecc" |
 "tmr+ecc")` rewrites the graph before fusing (`pim.harden`), `lower(faults=
@@ -19,7 +22,7 @@ overrides it per run; an ``ecc`` run leaves its parity verdict on
 `Lowered.last_ecc`.  The reference's MIMD partitioning, fleet meshes and
 static verifier are later slices: their arguments raise
 NotImplementedError naming the ROADMAP item, and are never silently
-ignored.
+ignored; so is `Lowered.verdict`, which needs the queued engine.
 """
 from __future__ import annotations
 
@@ -33,10 +36,12 @@ import torch
 from repro_torch.core import AAP, DRIM_R, DrimGeometry, FaultModel
 from repro_torch.core.subarray import N_XROWS, WORD_BITS, as_words
 from repro_torch.device import resolve_device
+from repro_torch.kernels import ops as kops
 from repro_torch.pim.frontend import JittedFunction, TracedProgram, jit
 from repro_torch.pim.graph import (DEFAULT_ROW_BUDGET, BulkGraph,
                                    FusedProgram, _make_fused_schedule,
                                    compile_graph)
+from repro_torch.pim.offload import gpu_cost
 from repro_torch.pim.scheduler import (N_DATA_ROWS, OP_ARITY, RESULT_ROWS,
                                        Schedule, _ceil_div, encoded_program,
                                        run_waves, stage_rows)
@@ -48,6 +53,8 @@ _NOT_PORTED = {
     "n_queues": "Queue 1 item 9 (the queued engine)",
     "mesh": "Queue 1 item 9 (pim/mesh.py fleet meshes)",
     "verify": "Queue 1 item 10 (pim/verify.py)",
+    "verdict": "Queue 1 item 10 (offload.Verdict and build_verdict, after "
+               "the queued engine of item 9)",
 }
 
 
@@ -67,13 +74,17 @@ def _reject_not_ported(**given) -> None:
 
 @dataclasses.dataclass(frozen=True)
 class Engine:
-    """One execution backend.  `dispatch(arrays, program, result_rows,
-    n_rows=, geom=, faults=) -> (outs, tiles, waves)` stages the payload
-    and runs one uniform program over it."""
+    """One execution backend.  A device engine's `dispatch(arrays,
+    program, result_rows, n_rows=, geom=, faults=) -> (outs, tiles,
+    waves)` stages the payload on the simulated fleet and runs one uniform
+    program over it.  A comparator (`device=False`) has no fleet: the
+    pipeline evaluates the op or graph natively and prices it with
+    `pim.offload.gpu_cost`."""
 
     name: str
     description: str
-    dispatch: Callable
+    dispatch: Optional[Callable] = None
+    device: bool = True
 
 
 class EngineRegistry:
@@ -134,6 +145,39 @@ ENGINE_REGISTRY.register(Engine(
     "by one thread per word column over shared-memory row state (its "
     "plain replay on CPU tensors)",
     dispatch=_simd_dispatch("cuda")))
+ENGINE_REGISTRY.register(Engine(
+    "gpu", "native comparator: the op or graph evaluated on the run's "
+    "device by the bulk bit-wise kernels, one ops.bitwise call per node "
+    "(their plain versions on CPU tensors), priced by the H100 roofline",
+    device=False))
+
+# The bulk bit-wise op that evaluates each Table-2 node on the comparator
+# ("copy" is an alias and launches nothing).
+NATIVE_OP = {"not": "not", "xnor2": "xnor", "xor2": "xor", "maj3": "maj3",
+              "add": "fa"}
+
+
+def _native_node(op: str, operands):
+    """One Table-2 node on the comparator: a tuple of result tensors,
+    aligned with RESULT_ROWS[op]."""
+    if op == "copy":
+        return (operands[0],)
+    out = kops.bitwise(NATIVE_OP[op], *operands)
+    return out if isinstance(out, tuple) else (out,)
+
+
+def _native_graph(graph: BulkGraph, arrays: Dict[str, torch.Tensor]
+                  ) -> Dict[str, torch.Tensor]:
+    """Evaluate a graph node by node with the native kernels: the
+    comparator's counterpart of `graph.graph_ref_results`, on the arrays'
+    device."""
+    vals = {vid: arrays[name]
+            for name, vid in zip(graph.input_names, graph.input_vids)}
+    for op, opnds, res in graph.nodes:
+        outs = _native_node(op, [vals[v] for v in opnds])
+        for v, r in zip(res, outs):
+            vals[v] = r
+    return {name: vals[vid] for name, vid in graph.outputs.items()}
 
 
 # ---------------------------------------------------------------------------
@@ -356,10 +400,11 @@ class Lowered:
     def _resolve_faults(self, faults):
         """Per-run faults override the lowering default; hardened
         lowerings add their protected op spans (voter/parity AAPs run on
-        guard-banded sense amplifiers and never flip)."""
+        guard-banded sense amplifiers and never flip); the comparator
+        ignores faults (the clean native answer is the fallback)."""
         if faults is None:
             faults = self.default_faults
-        if faults is None:
+        if faults is None or not self.engine.device:
             return None
         if not isinstance(faults, FaultModel):
             raise TypeError("faults= expects a core.FaultModel")
@@ -436,6 +481,9 @@ class Lowered:
             n_bits = n_words * WORD_BITS
         if not 0 < n_bits <= n_words * WORD_BITS:
             raise ValueError("n_bits out of range for the given operands")
+        if not self.engine.device:
+            self.schedule = self.cost(n_bits)
+            return _native_node(self.op, ops)
         outs, tiles, waves = self.engine.dispatch(
             ops, self.program, self.result_rows, n_rows=self.n_rows,
             geom=self.geom, faults=faults)
@@ -482,6 +530,9 @@ class Lowered:
     def _run_graph(self, feeds, n_bits, dev, faults=None):
         arrays, n_words = self._check_feeds(feeds, dev)
         n_bits = self._resolve_n_bits(n_bits, n_words)
+        if not self.engine.device:
+            self.schedule = self.cost(n_bits)
+            return _native_graph(self.graph, arrays)
         fp, geom = self.fp, self.geom
         tiles = _ceil_div(n_bits, geom.row_bits)
         waves = _ceil_div(tiles, geom.n_subarrays)
@@ -502,12 +553,20 @@ class Lowered:
         to what `run()` measures on the same payload."""
         if n_bits <= 0:
             raise ValueError("n_bits must be positive")
+        if not self.engine.device:
+            return gpu_cost(self, n_bits)
         geom = self.geom
         tiles = _ceil_div(n_bits, geom.row_bits)
         waves = _ceil_div(tiles, geom.n_subarrays)
         if self.kind == "op":
             return self._op_schedule(n_bits, tiles, waves)
         return _make_fused_schedule(self.fp, n_bits, tiles, waves, geom)
+
+    def verdict(self, n_bits: int, *, simulate: bool = False):
+        """The DRIM-vs-GPU placement verdict: not ported yet."""
+        raise NotImplementedError(
+            "Lowered.verdict is not ported to repro_torch yet: ROADMAP "
+            + _NOT_PORTED["verdict"])
 
     def __repr__(self) -> str:
         src = self.op if self.kind == "op" else (

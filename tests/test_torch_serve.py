@@ -25,7 +25,7 @@ import torch
 
 from repro_torch import models
 from repro_torch.launch import batching, serve
-from repro_torch.models import transformer
+from repro_torch.models import layers, transformer
 from repro_torch.tree import tree_map
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
@@ -167,12 +167,16 @@ def test_temperature_sampling_is_seeded():
 
 
 def test_engines_are_gpu_and_the_registry():
+    """--engine takes the registry's names; "gpu" (now the registered
+    comparator) stays the default and is the native route."""
     for engine in ("tpu", "pallas", "queued"):
         with pytest.raises(SystemExit):
             serve.parse_args(TINY + ["--engine", engine])
     assert serve.parse_args(TINY).engine == "gpu"
-    for engine in ("cuda", "baseline"):
+    for engine in ("cuda", "baseline", "gpu"):
         assert serve.parse_args(TINY + ["--engine", engine]).engine == engine
+    with layers.serving_engine("gpu"):
+        assert layers.serving_engine_name() is None
 
 
 def test_entry_points_default_to_the_card(monkeypatch):
