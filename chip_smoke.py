@@ -4,7 +4,7 @@
     python3 chip_smoke.py
 
 Phases, each fatal on failure:
-  1. build   -- compile the eight CUDA sources of `src/repro_torch/csrc/`
+  1. build   -- compile the nine CUDA sources of `src/repro_torch/csrc/`
                 (one nvcc per source, all started together);
   2. kernels -- hold each kernel against its plain torch version on the
                 card at the main paths' shapes plus a ragged shape (exact
@@ -22,7 +22,11 @@ Phases, each fatal on failure:
                 ones (a length no block divides, a start one word off
                 16-byte alignment, empty tensors, 1 and 33 planes), the
                 unpacker on the drim-bnn FFN weights packed by the pack
-                kernel, in float32, bfloat16 and int8;
+                kernel, in float32, bfloat16 and int8; the flash
+                backward kernels (dkv, dq) at the training shape and the
+                forward's other cases (float32 at the reference test's
+                2e-4, bfloat16 within about one bfloat16 ulp), with SDPA's
+                backward as their yardstick;
   3. path    -- one drim-bnn FFN BitLinear pair at full width (768 -> 3072
                 -> 768) on M = 512 activation rows, weights from a seeded
                 numpy generator, each projection served by the native
@@ -62,28 +66,49 @@ Phases, each fatal on failure:
                 op's kernel time, its Gbit/s beside the DRIM-R model and
                 the paper's GPU model, and the op-averaged DRIM-R / H100
                 ratio beside the paper's 8.4 ("bulk" lines);
-  7. counts  -- the launch counters are zeroed just before phase 3, before
-                each of phase 4's five legs, before phase 5 and before
-                phase 6, and read just after each: phase 3 must launch the
-                three BNN kernels, each serving leg exactly the launches
-                its route implies (`expected_launches`), phase 5 the
-                faulted interpreter once per faulted "cuda" run and the
-                fault-free one once, phase 6 one bulk kernel per "gpu" op
-                run and per non-copy graph node (by kind), the
-                interpreter once per "cuda" run and never on "gpu";
-  8. check   -- a float32 smoke-config prefill on the card held to the
-                same prefill on the CPU (after the counts are read).
+  7. train   -- the drim-bnn LM trained at full width and depth through
+                `repro_torch.launch.train.main` (examples/train_bnn_lm.py's
+                batch 8, seq 256, AdamW 3e-4; 20 steps, seeded weights,
+                deterministic algorithms): finite losses, the last below
+                the first, s/step and tokens/s ("train" lines); then the
+                step-10 checkpoint restored into a fresh state and trained
+                10 more steps must equal the straight run's step-20 state
+                bit for bit;
+  8. counts  -- the launch counters are zeroed just before phase 3, before
+                each of phase 4's five legs, before phase 5, phase 6 and
+                each of phase 7's two legs, and read just after each:
+                phase 3 must launch the three BNN kernels, each serving
+                leg exactly the launches its route implies
+                (`expected_launches`), phase 5 the faulted interpreter
+                once per faulted "cuda" run and the fault-free one once,
+                phase 6 one bulk kernel per "gpu" op run and per non-copy
+                graph node (by kind), the interpreter once per "cuda" run
+                and never on "gpu", phase 7 per step the flash forward
+                twice per layer (remat) and each backward kernel once per
+                layer; a counter a leg does not name must stay 0;
+  9. check   -- a float32 smoke-config prefill, and the same config's
+                first train step (loss and gradients), on the card held to
+                the same on the CPU (after the counts are read).
 
 Prints the kernels' JSON line, the card's name and power limit, and last
 `{"ok": true, "device": {...}}`.  Exits nonzero without a CUDA card.
 """
 from __future__ import annotations
 
+import contextlib
+import io
 import json
+import os
 import pathlib
 import subprocess
 import sys
+import tempfile
 import time
+
+# cuBLAS picks its reduction order per call unless its workspace is fixed
+# before CUDA starts; the train phase's restart check needs that order to
+# repeat (torch.use_deterministic_algorithms requires this setting).
+os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
 
 import numpy as np
 import torch
@@ -109,6 +134,24 @@ BF16_FLOPS_S = 989e12             # dense tensor-core bf16 peak
 # lse at 1e-4.
 FLASH_TOL = {torch.float32: (2e-5, 2e-5), torch.bfloat16: (4e-3, 2 ** -7)}
 LSE_TOL = 1e-4
+# flash backward, (atol, rtol) of dq, dk, dv against the plain backward:
+# float32 at the reference test's 2e-4 (tests/test_flash_attention.py:
+# test_flash_backward); bfloat16 at one bfloat16 ulp, as FLASH_TOL, since
+# kernel and plain version each round a float32 sum to bfloat16 once.
+BWD_TOL = {torch.float32: (2e-4, 2e-4), torch.bfloat16: (4e-3, 2 ** -7)}
+# The train phase: examples/train_bnn_lm.py's run (batch 8, seq 256,
+# AdamW at 3e-4) at full width and depth, cut to TRAIN_STEPS steps, with a
+# checkpoint at RESTART_AT for the restart check.
+TRAIN_STEPS, RESTART_AT = 20, 10
+PROFILE_STEPS = 3               # steps traced after the restart check
+TRAIN = ["--arch", "drim-bnn", "--steps", str(TRAIN_STEPS), "--batch", "8",
+         "--seq", "256", "--lr", "3e-4", "--log-every", "1",
+         "--ckpt-every", str(RESTART_AT), "--seed", str(SEED)]
+# The card's float32 smoke-config train step against the CPU's: both sum
+# float32 in other orders (about 1e-6 relative, as the CPU tests measure
+# against the reference); the gradient's bound leaves room for an STE
+# sign flip of an activation within float32 noise of 0.
+TRAIN_LOSS_RTOL, TRAIN_GRAD_RTOL = 1e-5, 1e-3
 SERVE = ["--arch", "drim-bnn", "--batch", "4", "--prompt-len", "256",
          "--gen", "8", "--seed", str(SEED), "--temperature", "0"]
 # integer operations of one armed DRA/TRA's draw: the XOR of the slot
@@ -213,7 +256,8 @@ def phase_build():
     from repro_torch.kernels import _build
     t0 = time.time()
     sources = ["pack_signs", "xnor_gemm", "aap_interp", "aap_interp_faulted",
-               "flash_attn_fwd", "bitwise", "bitplane_add", "unpack_signs"]
+               "flash_attn_fwd", "flash_attn_bwd", "bitwise", "bitplane_add",
+               "unpack_signs"]
     reports = _build.build(sources)
     missing = [n for n in sources if not _build._lib_path(n).exists()]
     if missing:
@@ -358,6 +402,7 @@ def phase_kernels(rng):
 
     records["aap_interp_faulted"] = phase_faulted_kernel(rng)
     records["flash_attn_fwd"] = phase_flash(rng)
+    records.update(phase_flash_bwd(rng))
     records.update(phase_bulk_kernels(rng))
     return records
 
@@ -522,6 +567,101 @@ def phase_flash(rng):
                       "causal")
         del q, k, v, out, lse, want, want_lse
     return record
+
+
+def phase_flash_bwd(rng):
+    """The flash backward kernels (dkv, dq) against the plain backward on
+    the same q, k, v, do and the forward kernel's out and lse; returns
+    their records at the training shape (q [8,12,256,64], bf16, causal).
+    `library_ms` is SDPA's backward, `torch.autograd.grad` over one
+    retained graph, timed eagerly (the autograd engine runs the backward
+    on the forward's stream, so it cannot be captured alone)."""
+    from repro_torch.kernels import flash_attention as fa
+    dev = torch.device("cuda")
+    cases = [  # b, h, hkv, sq, sk, d, causal, dtype
+        (8, 12, 4, 256, 256, 64, True, torch.bfloat16),
+        (4, 12, 4, 2048, 2048, 64, True, torch.bfloat16),
+        (1, 4, 1, 64, 192, 128, True, torch.float32),
+        (1, 2, 2, 256, 256, 32, False, torch.float32)]
+    records = {}
+    for b, h, hkv, sq, sk, d, causal, dt in cases:
+        q, k, v, do = (torch.from_numpy(rng.standard_normal(
+            shape, dtype=np.float32)).to(dev, dt) for shape in
+            ((b, h, sq, d), (b, hkv, sk, d), (b, hkv, sk, d), (b, h, sq, d)))
+        n_rep = h // hkv
+        out, lse = fa.flash_fwd(q, k, v, causal=causal, n_rep=n_rep, bq=64,
+                                bk=64)
+        delta = fa._delta(out, do)
+
+        def dkv():
+            return fa.flash_bwd_dkv(q, k, v, do, lse, delta, causal=causal,
+                                    n_rep=n_rep)
+
+        def dq():
+            return fa.flash_bwd_dq(q, k, v, do, lse, delta, causal=causal,
+                                   n_rep=n_rep)
+
+        def plain():
+            return fa.flash_attention_bwd_plain(q, k, v, out, lse, do,
+                                                causal, n_rep)
+
+        want_q, want_k, want_v = plain()
+        label = f"flash bwd {list(q.shape)} {dt} causal={causal}"
+        got_k, got_v = dkv()
+        got_q = dq()
+        errs = {"dk": check_close(label + " dk", got_k, want_k,
+                                  *BWD_TOL[dt]),
+                "dv": check_close(label + " dv", got_v, want_v,
+                                  *BWD_TOL[dt]),
+                "dq": check_close(label + " dq", got_q, want_q,
+                                  *BWD_TOL[dt])}
+        if causal and sk > sq:
+            # keys past the last query: no query sees them
+            hidden = torch.cat([got_k[:, :, sq:], got_v[:, :, sq:]])
+            if bool(hidden.any()):
+                raise AssertionError(f"{label}: dk/dv of keys no query sees "
+                                     "are not exactly 0")
+        plain_ms = cuda_ms(plain, 3)
+        library_ms = lib_err = None
+        if causal and sq == sk:
+            # One PyTorch call computing the same gradients, a yardstick
+            # the port never calls.
+            lq, lk, lv = (t.detach().clone().requires_grad_()
+                          for t in (q, k, v))
+            lo = torch.nn.functional.scaled_dot_product_attention(
+                lq, lk, lv, is_causal=True, enable_gqa=True)
+
+            def library():
+                return torch.autograd.grad(lo, (lq, lk, lv), do,
+                                           retain_graph=True)
+            lib_err = max(float((g.float() - w.float()).abs().max())
+                          for g, w in zip(library(), (want_q, want_k,
+                                                      want_v)))
+            library_ms = cuda_ms(library, 20)
+        half = 0.5 if causal else 1.0
+        esize = q.element_size()
+        for name, fn, n_prod, outs in (("flash_bwd_dkv", dkv, 4,
+                                        k.numel() + v.numel()),
+                                       ("flash_bwd_dq", dq, 3, q.numel())):
+            ms = graph_ms(fn, 20)
+            call_ms = cuda_ms(fn, 50)
+            nbytes = (2 * q.numel() + k.numel() + v.numel() + outs) * esize \
+                + 2 * lse.numel() * 4
+            flops = 2 * n_prod * b * h * sq * sk * d * half
+            b_ms, b_by = bound(nbytes, flops, BF16_FLOPS_S)
+            err = max(errs[g] for g in (("dk", "dv") if name ==
+                                         "flash_bwd_dkv" else ("dq",)))
+            rec = dict(max_abs_err=err, ms=ms, call_ms=call_ms,
+                       plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                       library_ms=library_ms,
+                       shape=f"q {list(q.shape)} k/v {list(k.shape)} "
+                             f"{str(dt).split('.')[-1]}, causal={causal}")
+            print("detail " + json.dumps({
+                "kernel": name, "causal": causal, "dtype": str(dt),
+                "library_max_abs_err": lib_err, **rec}))
+            records.setdefault(name, rec)
+        del q, k, v, do, out, lse, delta, want_q, want_k, want_v
+    return records
 
 
 def card_words(rng, n: int, offset: int = 0) -> torch.Tensor:
@@ -1109,6 +1249,200 @@ def check_prefill_reference():
     print("serve " + json.dumps({"prefill_vs_cpu_max_abs_err": err}))
 
 
+def flat_leaves(tree):
+    """(path, leaf) of a nested-dict tree, in sorted key order."""
+    if not isinstance(tree, dict):
+        return [("", tree)]
+    return [(f"{k}/{p}".rstrip("/"), leaf) for k in sorted(tree)
+            for p, leaf in flat_leaves(tree[k])]
+
+
+def phase_train(wrappers):
+    """The drim-bnn LM trained at full width and depth through the
+    trainer's CLI entry point (`launch.train.main`): batch 8, seq 256,
+    AdamW at 3e-4, TRAIN_STEPS steps with checkpoints every RESTART_AT,
+    under deterministic algorithms.  Then the restart check: the step-
+    RESTART_AT checkpoint restored into a fresh state and trained to the
+    end must give the very parameters and optimizer state the straight
+    run saved.  Returns the launch counts of both legs."""
+    from repro_torch.checkpoint.checkpoint import Checkpointer
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.launch import train
+    dev = torch.device("cuda")
+    counts = {}
+    torch.cuda.reset_peak_memory_stats()
+    torch.use_deterministic_algorithms(True)
+    # Deterministic mode also fills every new tensor with NaN, a check for
+    # reads of uninitialized memory that costs a kernel per allocation and
+    # does not change which results repeat: off, so s/step is the step's.
+    fill = torch.utils.deterministic.fill_uninitialized_memory
+    torch.utils.deterministic.fill_uninitialized_memory = False
+    try:
+        with tempfile.TemporaryDirectory(prefix="drim_train_") as ckpt_dir:
+            argv = TRAIN + ["--ckpt-dir", ckpt_dir]
+            args = train.parse_args(argv)
+            cfg, step_fn, init_state = train.build(args)
+            per_step = {"flash_attn_fwd": (2 if cfg.remat else 1)
+                        * cfg.n_layers, "flash_bwd_dkv": cfg.n_layers,
+                        "flash_bwd_dq": cfg.n_layers}
+
+            def run():
+                text = io.StringIO()
+                with contextlib.redirect_stdout(text):
+                    final = train.main(argv)
+                return final, [json.loads(line) for line in
+                               text.getvalue().splitlines()]
+            (final, lines), counts["train"] = counted(
+                wrappers, "train", run,
+                lambda _: {k: n * TRAIN_STEPS for k, n in per_step.items()})
+            steps = [line for line in lines if "step" in line]
+            losses = [line["loss"] for line in steps]
+            if len(steps) != TRAIN_STEPS or not np.all(np.isfinite(losses)) \
+                    or not np.isfinite(final):
+                raise AssertionError(f"train: bad losses {losses} {final}")
+            if not final < losses[0]:
+                raise AssertionError(f"train: the loss did not fall "
+                                     f"({losses[0]} -> {final})")
+            # s/step after the first (warm-up) step; each logged step
+            # ends with its metrics on the host
+            s_step = (steps[-1]["wall_s"] - steps[0]["wall_s"]) \
+                / (TRAIN_STEPS - 1)
+            tokens = args.batch * args.seq
+            print("train " + json.dumps({
+                "arch": args.arch, "layers": cfg.n_layers,
+                "d_model": cfg.d_model, "bitlinear": cfg.bitlinear,
+                "remat": cfg.remat, "batch": args.batch, "seq": args.seq,
+                "steps": TRAIN_STEPS, "first_step_s": steps[0]["wall_s"],
+                "s_per_step": s_step, "tokens_per_s": tokens / s_step,
+                "first_loss": losses[0], "last_loss": final,
+                "losses": losses,
+                "grad_norm": [line["grad_norm"] for line in steps],
+                "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}))
+
+            def restart():
+                ck = Checkpointer(ckpt_dir)
+                fresh = init_state(SEED + 1, device=dev)
+                state = ck.restore(RESTART_AT, fresh, device=dev)
+                data = SyntheticLM(cfg.vocab_size, args.seq, args.batch,
+                                   seed=args.seed)
+                for step in range(RESTART_AT, TRAIN_STEPS):
+                    state, _ = step_fn(state, train.batch_at(
+                        data, cfg, step, args.seed, dev))
+                torch.cuda.synchronize()
+                return state, ck.restore(TRAIN_STEPS, fresh, device=dev)
+            (resumed, straight), counts["train restart"] = counted(
+                wrappers, "train restart", restart,
+                lambda _: {k: n * (TRAIN_STEPS - RESTART_AT)
+                           for k, n in per_step.items()})
+            differ = [p for (p, a), (_, b) in zip(flat_leaves(resumed),
+                                                  flat_leaves(straight))
+                      if not torch.equal(a, b)]
+            if differ:
+                raise AssertionError(f"restart: {len(differ)} leaves differ "
+                                     f"from the straight run, e.g. "
+                                     f"{differ[:3]}")
+            print("train " + json.dumps({
+                "restart": f"{RESTART_AT} + checkpoint + "
+                           f"{TRAIN_STEPS - RESTART_AT} steps",
+                "leaves": len(flat_leaves(straight)),
+                "bit_identical_to_straight_run": True,
+                "deterministic_algorithms": True}))
+            data = SyntheticLM(cfg.vocab_size, args.seq, args.batch,
+                               seed=args.seed)
+            profile_train_steps(step_fn, resumed, [
+                train.batch_at(data, cfg, TRAIN_STEPS + i, args.seed, dev)
+                for i in range(PROFILE_STEPS)])
+    finally:
+        torch.use_deterministic_algorithms(False)
+        torch.utils.deterministic.fill_uninitialized_memory = fill
+    return counts
+
+
+def profile_train_steps(step_fn, state, batches) -> None:
+    """Where a training step's time goes: PROFILE_STEPS steps under
+    `torch.profiler`, the device time of each kernel summed by kind (the
+    flash kernels, GEMMs, the rest), the kernel launches per step, and the
+    device's idle share of the host-clock wall time ("train" line)."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for batch in batches:
+            state, _ = step_fn(state, batch)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    n = len(batches)
+    kernels = [(e.key, e.self_device_time_total / 1e3 / n, e.count / n)
+               for e in prof.key_averages()
+               if e.self_device_time_total > 0 and e.device_type.name ==
+               "CUDA"]
+    busy = sum(ms for _, ms, _ in kernels)
+
+    def kind(name: str) -> str:
+        low = name.lower()
+        if "flash" in low and ("bwd" in low or "fwd" in low):
+            return "flash kernels (port)"
+        if "gemm" in low or "xmma" in low or "cutlass" in low:
+            return "gemm (cuBLAS)"
+        return "other"
+    by_kind = {}
+    for name, ms, _ in kernels:
+        by_kind[kind(name)] = by_kind.get(kind(name), 0.0) + ms
+    top = sorted(kernels, key=lambda k: -k[1])[:10]
+    print("train " + json.dumps({
+        "profile_steps": n, "wall_ms_per_step": wall * 1e3 / n,
+        "device_busy_ms_per_step": busy,
+        "device_idle_share": (1 - busy / (wall * 1e3 / n)) if busy else None,
+        "device_launches_per_step": sum(c for _, _, c in kernels),
+        "device_ms_per_step_by_kind": by_kind,
+        "top_kernels_ms_per_step": [[name[:80], ms, cnt]
+                                    for name, ms, cnt in top]}))
+
+
+def check_train_reference():
+    """The float32 smoke config's first-step loss and gradients on the
+    card (flash forward and backward kernels at S=128) against the same
+    step on the CPU (dense scores), same seeded weights and batch: the
+    loss within TRAIN_LOSS_RTOL, the whole gradient within
+    TRAIN_GRAD_RTOL in relative L2."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.kernels import flash_attention
+    from repro_torch.models import init_params, train_loss
+    from repro_torch.tree import tree_map
+    cfg = get_smoke_config("drim-bnn").replace(dtype="float32",
+                                                param_dtype="float32")
+    toks = torch.from_numpy(np.random.default_rng([SEED, 4]).integers(
+        0, cfg.vocab_size, (2, 129)))
+    batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+    before = flash_attention.flash_bwd_dq.launches
+    got = {}
+    for dev in ("cuda", "cpu"):
+        params = tree_map(lambda t: t.requires_grad_(True),
+                          init_params(SEED, cfg, device=dev))
+        loss, _ = train_loss(params, cfg, {k: v.to(dev)
+                                           for k, v in batch.items()})
+        grads = torch.autograd.grad(loss, [t for _, t in
+                                           flat_leaves(params)])
+        got[dev] = (float(loss.detach()), [g.cpu() for g in grads])
+    if flash_attention.flash_bwd_dq.launches != before + cfg.n_layers:
+        raise AssertionError("the card's step did not run the flash "
+                             "backward in every layer")
+    (l_card, g_card), (l_cpu, g_cpu) = got["cuda"], got["cpu"]
+    num = sum(float(((a - b) ** 2).sum()) for a, b in zip(g_card, g_cpu))
+    den = sum(float((b ** 2).sum()) for b in g_cpu)
+    rel = (num / den) ** 0.5
+    worst = max(float((a - b).norm() / b.norm().clamp_min(1e-30))
+                for a, b in zip(g_card, g_cpu))
+    line = {"loss_card": l_card, "loss_cpu": l_cpu,
+            "grad_rel_l2": rel, "worst_leaf_rel_l2": worst}
+    print("train " + json.dumps(line))
+    if not (np.isfinite(l_card) and abs(l_card - l_cpu)
+            <= TRAIN_LOSS_RTOL * abs(l_cpu) and rel <= TRAIN_GRAD_RTOL):
+        raise AssertionError(f"card train step differs from the CPU's: "
+                             f"{line}")
+
+
 def read_counts(wrappers, names, phase: str):
     launches = {name: fn.launches for name, fn in wrappers.items()}
     idle = [n for n in names if launches[n] <= 0]
@@ -1138,6 +1472,8 @@ def main() -> int:
                 "aap_interp": aap_interpreter.aap_interp,
                 "aap_interp_faulted": aap_interpreter.aap_interp_faulted,
                 "flash_attn_fwd": flash_attention.flash_fwd,
+                "flash_bwd_dkv": flash_attention.flash_bwd_dkv,
+                "flash_bwd_dq": flash_attention.flash_bwd_dq,
                 "bitwise_not": not_kernel, "bitwise_binary": binary_kernel,
                 "bitwise_ternary": ternary_kernel,
                 "bitplane_add": bitserial_add.bitplane_add,
@@ -1150,12 +1486,14 @@ def main() -> int:
     by_leg = phase_serve(wrappers)
     by_leg["faults"] = phase_faults(wrappers)
     by_leg["bulk"] = phase_bulk(wrappers)
+    by_leg.update(phase_train(wrappers))
     launches = {name: sum(c[name] for c in by_leg.values())
                 for name in wrappers}
     idle = [name for name, n in launches.items() if n <= 0]
     if idle:
         raise AssertionError(f"the main paths never launched {idle}")
     check_prefill_reference()
+    check_train_reference()
 
     meta = {
         "pack_signs": ("src/repro_torch/csrc/pack_signs.cu",
@@ -1172,6 +1510,12 @@ def main() -> int:
         "flash_attn_fwd": ("src/repro_torch/csrc/flash_attn_fwd.cu",
                            "src/repro/kernels/flash_attention.py:48 "
                            "_fwd_kernel"),
+        "flash_bwd_dkv": ("src/repro_torch/csrc/flash_attn_bwd.cu",
+                          "src/repro/kernels/flash_attention.py:127 "
+                          "_bwd_dkv_kernel"),
+        "flash_bwd_dq": ("src/repro_torch/csrc/flash_attn_bwd.cu",
+                         "src/repro/kernels/flash_attention.py:169 "
+                         "_bwd_dq_kernel"),
         "bitwise_not": ("src/repro_torch/csrc/bitwise.cu",
                         "src/repro/kernels/bitwise.py:64 _not_kernel"),
         "bitwise_binary": ("src/repro_torch/csrc/bitwise.cu",

@@ -41,6 +41,9 @@ class ModelConfig:
     # numerics
     dtype: str = "bfloat16"
     param_dtype: str = "float32"
+    # training: recompute each layer's forward during the backward
+    # (`torch.utils.checkpoint`) instead of keeping its activations
+    remat: bool = True
 
     @property
     def activation_dtype(self) -> torch.dtype:

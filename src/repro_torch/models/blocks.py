@@ -6,8 +6,10 @@ the full sequence and returns its cache, apply_decode consumes the cache
 for one-token serving.  The reference's `_sp` (a sequence-parallel
 sharding constraint on the residual stream) is the identity on one card
 and has no counterpart; its MoE, SSM and cross-attention blocks come with
-those families (ROADMAP Queue 1 item 12), and so does the MoE auxiliary
-loss the reference's blocks return beside the cache.
+those families (ROADMAP Queue 1 item 12).  The reference's blocks return
+an auxiliary loss beside the cache, which only its MoE block sets; the
+dense block returns none, so the dense trunk's auxiliary loss is
+`ZERO_AUX`.
 """
 from __future__ import annotations
 
@@ -18,6 +20,9 @@ import torch
 from repro_torch.models import attention as attn
 from repro_torch.models.layers import Params, mlp, mlp_init, rmsnorm, \
     rmsnorm_init
+
+# the auxiliary losses a block may add to the training loss (MoE routing)
+ZERO_AUX = {"load_balance": 0.0, "router_z": 0.0}
 
 
 def dense_block_init(gen: torch.Generator, cfg, *, dtype=torch.float32

@@ -3,6 +3,7 @@
 Public interface (functions of (params, cfg, ...)):
 
   init_params(seed, cfg, device=)              -> params
+  train_loss(params, cfg, batch)               -> (loss, metrics)
   prefill(params, cfg, batch)                  -> (logits_last, caches)
   decode_step(params, cfg, tokens, caches, pos) -> (logits, caches)
   empty_caches(cfg, batch, s_max, device=)     -> caches
@@ -12,9 +13,12 @@ Layers are stacked ([L, ...] leaves, as the reference stacks them for
 `lax.scan`) and driven by a Python loop over layers.  Nothing is traced,
 so one decode loop serves every route: `decode_step_eager`, the
 reference's untraced twin of its scanned `decode_step` for the DRIM
-engines, is the same function here.  The reference's other families
-(MoE, SSM, hybrid, audio, vlm) and `train_loss` come later (ROADMAP
-Queue 1 item 12).
+engines, is the same function here.  For training, `cfg.remat` wraps
+each layer in `torch.utils.checkpoint` (the reference wraps its scan
+body in `jax.checkpoint`): the backward runs each layer's forward again,
+so a step runs the flash forward kernel twice per layer.  The
+reference's other families (MoE, SSM, hybrid, audio, vlm) come later
+(ROADMAP Queue 1 item 12).
 """
 from __future__ import annotations
 
@@ -22,12 +26,15 @@ from typing import Any, Dict, Tuple
 
 import numpy as np
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.device import resolve_device
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import blocks as B
 from repro_torch.models.layers import Params, rmsnorm, rmsnorm_init
-from repro_torch.tree import tree_map, tree_slice, tree_stack
+from repro_torch.tree import tree_map, tree_slice, tree_stack, tree_unstack
+
+LB_COEF, Z_COEF = 0.01, 1e-3
 
 
 def _dense_only(cfg) -> None:
@@ -112,7 +119,11 @@ def _logits(p, cfg, x: torch.Tensor) -> torch.Tensor:
     return logits
 
 
-# --- full-sequence forward (prefill) -------------------------------------------
+# --- full-sequence forward (train / prefill) ---------------------------------
+
+def _layer(layer_p, cfg, x, positions):
+    return B.dense_block(layer_p, cfg, x, positions)[0]
+
 
 def _forward_full(p, cfg, batch: Dict[str, Any], *, with_cache: bool):
     tokens = batch["tokens"]
@@ -120,22 +131,50 @@ def _forward_full(p, cfg, batch: Dict[str, Any], *, with_cache: bool):
     positions = torch.arange(s, device=tokens.device)[None, :] \
         .expand(bsz, s)
     x = _embed(p, cfg, tokens)
+    aux = {k: torch.tensor(v, device=x.device)
+           for k, v in B.ZERO_AUX.items()}
+    remat = cfg.remat and not with_cache and torch.is_grad_enabled()
     caches = []
-    for i in range(cfg.n_layers):
-        x, cache = B.dense_block(tree_slice(p["layers"], i), cfg, x,
-                                 positions)
-        caches.append(cache)
-    return x, (tree_stack(caches) if with_cache else None)
+    for layer_p in tree_unstack(p["layers"], cfg.n_layers):
+        if remat:
+            x = checkpoint(_layer, layer_p, cfg, x, positions,
+                           use_reentrant=False)
+        else:
+            x, cache = B.dense_block(layer_p, cfg, x, positions)
+            caches.append(cache)
+    return x, aux, (tree_stack(caches) if with_cache else None)
 
+
+# --- train loss --------------------------------------------------------------
+
+def train_loss(params, cfg, batch: Dict[str, Any]
+               ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """batch {"tokens", "labels": [B, S]} -> (loss, metrics): the mean
+    cross-entropy over labels >= 0 plus the auxiliary losses, with the
+    reference's metrics (ce, aux_lb, aux_z, ntokens)."""
+    x, aux, _ = _forward_full(params, cfg, batch, with_cache=False)
+    logits = _logits(params, cfg, x)                       # [B,S,V] f32
+    labels = batch["labels"].long()
+    mask = (labels >= 0).to(torch.float32)
+    safe = labels.clamp_min(0)
+    lse = torch.logsumexp(logits, dim=-1)
+    ll = logits.gather(-1, safe[..., None])[..., 0]
+    ce = ((lse - ll) * mask).sum() / mask.sum().clamp_min(1.0)
+    loss = ce + LB_COEF * aux["load_balance"] + Z_COEF * aux["router_z"]
+    return loss, {"ce": ce, "aux_lb": aux["load_balance"],
+                  "aux_z": aux["router_z"], "ntokens": mask.sum()}
+
+
+# --- prefill -----------------------------------------------------------------
 
 def prefill(params, cfg, batch: Dict[str, Any]) -> Tuple[torch.Tensor, Any]:
     """batch {"tokens": [B, S]} -> (logits of the last position [B, 1, V]
     float32, caches stacked [L, B, S, Hkv, Dh])."""
-    x, caches = _forward_full(params, cfg, batch, with_cache=True)
+    x, _, caches = _forward_full(params, cfg, batch, with_cache=True)
     return _logits(params, cfg, x[:, -1:, :]), caches
 
 
-# --- decode --------------------------------------------------------------------
+# --- decode ------------------------------------------------------------------
 
 def decode_step(params, cfg, tokens: torch.Tensor, caches, pos: torch.Tensor
                 ) -> Tuple[torch.Tensor, Any]:
@@ -154,7 +193,7 @@ def decode_step(params, cfg, tokens: torch.Tensor, caches, pos: torch.Tensor
 decode_step_eager = decode_step
 
 
-# --- cache constructors ---------------------------------------------------------
+# --- cache constructors ------------------------------------------------------
 
 def empty_caches(cfg, batch: int, s_max: int, dtype=torch.bfloat16,
                  device=None):

@@ -34,9 +34,29 @@ def tree_slice(tree, i: int):
                     tree)
 
 
+def tree_unstack(tree, n: int) -> list:
+    """The n entries of every stacked tensor leaf as n trees (the inverse
+    of `tree_stack`).  One `unbind` per leaf, so autograd stacks the
+    entries' gradients once, where n `tree_slice` calls would each
+    scatter a gradient into a zeroed full-size tensor and sum n of
+    them."""
+    parts = tree_map(lambda a: (a.unbind(0) if isinstance(a, torch.Tensor)
+                                else (a,) * n), tree)
+    return [tree_map(lambda part, i=i: part[i], parts) for i in range(n)]
+
+
 def tree_stack(trees: Sequence[Any]):
     """Stack matching tensor leaves along a new axis 0 (the inverse of
     `tree_slice`); other leaves are taken from the first tree."""
     return tree_map(lambda *leaves: (torch.stack(leaves)
                                      if isinstance(leaves[0], torch.Tensor)
                                      else leaves[0]), *trees)
+
+
+def tree_leaves(tree) -> list:
+    """The leaves in the order `jax.tree.leaves` gives them (dict keys
+    sorted), so that sums over a tree add in the reference's order."""
+    if isinstance(tree, dict):
+        return [leaf for key in sorted(tree)
+                for leaf in tree_leaves(tree[key])]
+    return [tree]

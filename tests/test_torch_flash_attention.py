@@ -164,7 +164,10 @@ def test_kernel_refuses_what_it_does_not_take(cuda):
                        cuda)
     with pytest.raises(ValueError, match="head widths"):
         fa.flash_fwd(q, k, v, n_rep=2)
+    # inputs that require a gradient take the kernel path too, through
+    # the autograd Function (its backward is tests/test_torch_flash_backward)
     q, k, v = to_torch(make_qkv(1, 2, 1, 128, 128, 64, "float32"), "float32",
                        cuda)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        fa.flash_fwd(q.requires_grad_(), k, v, n_rep=2)
+    before = fa.flash_fwd.launches
+    out = fa.flash_attention(q.requires_grad_(), k, v, True, 2)
+    assert out.requires_grad and fa.flash_fwd.launches == before + 1

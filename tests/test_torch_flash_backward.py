@@ -1,0 +1,242 @@
+"""The port's flash attention backward held against the JAX reference:
+`jax.grad` through the reference's `flash_attention` (its Pallas backward
+in interpret mode) and through its `sdpa_ref` oracle, at
+`tests/test_flash_attention.py::test_flash_backward`'s shape and
+tolerance (rtol = atol = 2e-4).  On the CPU the autograd Function and the
+kernel wrappers run the plain backward; the tests marked `cuda` hold the
+two CUDA kernels (dkv, dq) against it on the card and skip without one.
+The reference is imported by the `jref` fixture, so the `cuda` tests also
+run where JAX is not installed:
+
+    PYTHONPATH=src python -m pytest -q --noconftest -m cuda \
+        tests/test_torch_flash_backward.py
+"""
+import importlib
+import types
+
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.kernels import flash_attention as fa
+from repro_torch.kernels.ref import sdpa_ref
+
+TOL = 2e-4
+# b, h, hkv, sq, sk, d (the reference test's shape), bq = bk = 64
+SHAPE = (1, 4, 2, 128, 128, 32)
+# kernel cases on the card: the training shape, the forward's others
+CARD_CASES = [
+    (8, 12, 4, 256, 256, 64, True, "bfloat16"),
+    (1, 4, 1, 64, 192, 128, True, "float32"),
+    (1, 2, 2, 256, 256, 32, False, "float32"),
+    (2, 4, 2, 128, 256, 64, True, "float32"),
+    (1, 4, 2, 96, 160, 16, True, "float32"),
+    (1, 4, 2, 96, 160, 16, False, "bfloat16"),
+]
+# bfloat16 gradients: kernel and plain version each round a float32 sum
+# once, so they may differ by one bfloat16 ulp (2**-7 of the value, 4e-3
+# near zero)
+CARD_TOL = {"float32": dict(rtol=TOL, atol=TOL),
+            "bfloat16": dict(rtol=2 ** -7, atol=4e-3)}
+
+
+@pytest.fixture(scope="module")
+def jref():
+    import jax
+    import jax.numpy as jnp
+
+    from repro.kernels import ref
+    # the package re-exports the function under the module's name
+    jfa = importlib.import_module("repro.kernels.flash_attention")
+    return types.SimpleNamespace(jax=jax, jnp=jnp, fa=jfa, ref=ref)
+
+
+@pytest.fixture
+def cuda():
+    """The card, decided when the test runs; skips without one."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    return torch.device("cuda")
+
+
+def make(b, h, hkv, sq, sk, d, dtype="float32", seed=0, device="cpu"):
+    """Seeded q, k, v, do, rounded to `dtype` once."""
+    rng = np.random.default_rng(seed)
+    dt = getattr(torch, dtype)
+    return [torch.from_numpy(rng.standard_normal(s, dtype=np.float32))
+            .to(device, dt)
+            for s in ((b, h, sq, d), (b, hkv, sk, d), (b, hkv, sk, d),
+                      (b, h, sq, d))]
+
+
+def grads_of_square_sum(fn, q, k, v):
+    q, k, v = (t.detach().clone().requires_grad_() for t in (q, k, v))
+    return torch.autograd.grad((fn(q, k, v) ** 2).sum(), (q, k, v))
+
+
+@pytest.mark.parametrize("causal", [True, False])
+def test_plain_backward_equals_pallas_and_sdpa_ref(jref, causal):
+    b, h, hkv, sq, sk, d = SHAPE
+    n_rep = h // hkv
+    q, k, v, _ = make(*SHAPE)
+    jq, jk, jv = (jref.jnp.asarray(t.numpy()) for t in (q, k, v))
+
+    def f_kernel(q, k, v):
+        return (jref.fa.flash_attention(q, k, v, causal, n_rep, 64, 64,
+                                        True) ** 2).sum()
+
+    def f_ref(q, k, v):
+        return (jref.ref.sdpa_ref(q, k, v, causal=causal, n_rep=n_rep)
+                ** 2).sum()
+
+    want_kernel = jref.jax.grad(f_kernel, argnums=(0, 1, 2))(jq, jk, jv)
+    want_ref = jref.jax.grad(f_ref, argnums=(0, 1, 2))(jq, jk, jv)
+    out, lse = fa.flash_fwd(q, k, v, causal=causal, n_rep=n_rep, bq=64,
+                            bk=64)
+    got = fa.flash_attention_bwd_plain(q, k, v, out, lse, 2 * out, causal,
+                                       n_rep)
+    for want in (want_kernel, want_ref):
+        for g, w, name in zip(got, want, "qkv"):
+            np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=TOL,
+                                       atol=TOL, err_msg=f"d{name}")
+
+
+@pytest.mark.parametrize("causal", [True, False])
+def test_function_gradients_equal_the_plain_backward(causal):
+    b, h, hkv, sq, sk, d = SHAPE
+    q, k, v, do = make(*SHAPE, seed=1)
+    n_rep = h // hkv
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    out = fa.flash_attention(*leaves, causal, n_rep, 64, 64)
+    got = torch.autograd.grad(out, leaves, do)
+    out2, lse = fa.flash_fwd(q, k, v, causal=causal, n_rep=n_rep, bq=64,
+                             bk=64)
+    assert torch.equal(out.detach(), out2)
+    want = fa.flash_attention_bwd_plain(q, k, v, out2, lse, do, causal,
+                                        n_rep)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    # and the dense oracle's autograd agrees
+    dense = grads_of_square_sum(
+        lambda q, k, v: sdpa_ref(q, k, v, causal=causal, n_rep=n_rep),
+        q, k, v)
+    flash = grads_of_square_sum(
+        lambda q, k, v: fa.flash_attention(q, k, v, causal, n_rep, 64, 64),
+        q, k, v)
+    for g, w in zip(flash, dense):
+        torch.testing.assert_close(g, w, rtol=TOL, atol=TOL)
+
+
+def test_function_takes_a_strided_output_gradient():
+    """gqa_attend transposes the output after the call, so the gradient
+    reaching the backward is a strided view."""
+    q, k, v, do = make(1, 4, 2, 64, 64, 16, seed=2)
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    out = fa.flash_attention(*leaves, True, 2, 64, 64)
+    strided = do.transpose(1, 2).contiguous().transpose(1, 2)
+    assert not strided.is_contiguous()
+    got = torch.autograd.grad(out, leaves, strided)
+    want = torch.autograd.grad(
+        fa.flash_attention(*leaves, True, 2, 64, 64), leaves, do)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+
+
+def test_wrappers_on_cpu_run_the_plain_backward(monkeypatch):
+    monkeypatch.setattr(fa, "_bwd_lib", lambda: pytest.fail("kernel on CPU"))
+    q, k, v, do = make(1, 4, 1, 64, 192, 16, seed=3)
+    out, lse = fa.flash_fwd(q, k, v, causal=True, n_rep=4, bq=64, bk=64)
+    delta = fa._delta(out, do)
+    before = (fa.flash_bwd_dkv.launches, fa.flash_bwd_dq.launches)
+    dk, dv = fa.flash_bwd_dkv(q, k, v, do, lse, delta, causal=True, n_rep=4)
+    dq = fa.flash_bwd_dq(q, k, v, do, lse, delta, causal=True, n_rep=4)
+    assert (fa.flash_bwd_dkv.launches, fa.flash_bwd_dq.launches) == before
+    want = fa.flash_attention_bwd_plain(q, k, v, out, lse, do, True, 4)
+    for g, w in zip((dq, dk, dv), want):
+        assert torch.equal(g, w)
+    # keys past the last query: no query sees them, their gradient is 0
+    assert not dk[:, :, 64:].any() and not dv[:, :, 64:].any()
+    assert torch.equal(torch.stack(fa.flash_bwd(q, k, v, out, lse, do,
+                                                causal=True, n_rep=4)[1:]),
+                       torch.stack(want[1:]))
+
+
+def test_backward_contract():
+    q, k, v, do = make(1, 4, 2, 64, 64, 16)
+    out, lse = fa.flash_fwd(q, k, v, causal=True, n_rep=2, bq=64, bk=64)
+    delta = fa._delta(out, do)
+    with pytest.raises(ValueError, match="does not match q"):
+        fa.flash_bwd_dq(q, k, v, do[:, :, :32], lse, delta, n_rep=2)
+    with pytest.raises(ValueError, match="does not match q"):
+        fa.flash_bwd_dkv(q, k, v, do.to(torch.bfloat16), lse, delta, n_rep=2)
+    with pytest.raises(ValueError, match="lse must be float32"):
+        fa.flash_bwd_dq(q, k, v, do, lse.double(), delta, n_rep=2)
+    with pytest.raises(ValueError, match="delta must be float32"):
+        fa.flash_bwd_dkv(q, k, v, do, lse, delta[..., :8], n_rep=2)
+    with pytest.raises(ValueError, match="do must be contiguous"):
+        fa.flash_bwd_dq(q, k, v, do.transpose(2, 3).contiguous()
+                        .transpose(2, 3), lse, delta, n_rep=2)
+    with pytest.raises(ValueError, match="kv heads"):
+        fa.flash_bwd_dkv(q, k, v, do, lse, delta, n_rep=4)
+    with pytest.raises(ValueError):
+        fa.flash_bwd_dq(*(t.to("meta") for t in (q, k, v, do, lse, delta)),
+                        n_rep=2)
+
+
+# ---------------------------------------------------------------------------
+# on the card
+# ---------------------------------------------------------------------------
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,h,hkv,sq,sk,d,causal,dtype", CARD_CASES)
+def test_kernels_equal_plain_on_the_card(cuda, b, h, hkv, sq, sk, d, causal,
+                                         dtype):
+    q, k, v, do = make(b, h, hkv, sq, sk, d, dtype, device=cuda)
+    n_rep = h // hkv
+    out, lse = fa.flash_fwd(q, k, v, causal=causal, n_rep=n_rep, bq=16,
+                            bk=16)
+    before = (fa.flash_bwd_dkv.launches, fa.flash_bwd_dq.launches)
+    got = fa.flash_bwd(q, k, v, out, lse, do, causal=causal, n_rep=n_rep)
+    torch.cuda.synchronize()
+    assert (fa.flash_bwd_dkv.launches, fa.flash_bwd_dq.launches) == \
+        (before[0] + 1, before[1] + 1)
+    want = fa.flash_attention_bwd_plain(q, k, v, out, lse, do, causal, n_rep)
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and g.shape == w.shape
+        torch.testing.assert_close(g.float(), w.float(), **CARD_TOL[dtype])
+    if causal and sk > sq:
+        assert not got[1][:, :, sq:].any() and not got[2][:, :, sq:].any()
+
+
+@pytest.mark.cuda
+def test_autograd_through_the_kernels_on_the_card(cuda):
+    q, k, v, do = make(2, 4, 2, 128, 128, 32, device=cuda)
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    out = fa.flash_attention(*leaves, True, 2)
+    got = torch.autograd.grad(out, leaves, do.transpose(1, 2).contiguous()
+                              .transpose(1, 2))
+    want = torch.autograd.grad(sdpa_ref(*leaves, causal=True, n_rep=2),
+                               leaves, do)
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, rtol=TOL, atol=TOL)
+
+
+@pytest.mark.cuda
+def test_kernels_refuse_what_they_do_not_take(cuda):
+    q, k, v, do = make(1, 2, 1, 128, 128, 48, device=cuda)
+    out, lse = fa.flash_attention_plain(q, k, v, True, 2)
+    delta = fa._delta(out, do)
+    with pytest.raises(ValueError, match="head widths"):
+        fa.flash_bwd_dkv(q, k, v, do, lse, delta, n_rep=2)
+    with pytest.raises(ValueError, match="head widths"):
+        fa.flash_bwd_dq(q, k, v, do, lse, delta, n_rep=2)
+    q, k, v, do = make(1, 2, 1, 128, 128, 64, device=cuda)
+    out, lse = fa.flash_fwd(q, k, v, n_rep=2)
+    delta = fa._delta(out, do)
+    with pytest.raises(TypeError):
+        fa.flash_bwd_dq(q.half(), k.half(), v.half(), do.half(), lse, delta,
+                        n_rep=2)
+    with pytest.raises(ValueError, match="contiguous"):
+        fa.flash_bwd_dkv(q, k.transpose(2, 3), v, do, lse, delta, n_rep=2)
+    with pytest.raises(ValueError, match="lies on"):
+        fa.flash_bwd_dq(q, k, v, do, lse.cpu(), delta, n_rep=2)
