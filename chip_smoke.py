@@ -5,7 +5,11 @@
 
 Phases, each fatal on failure:
   1. build   -- compile the nine CUDA sources of `src/repro_torch/csrc/`
-                (one nvcc per source, all started together);
+                (one nvcc per source, all started together), print
+                ptxas's registers and spills per kernel, and count each
+                flash kernel's tensor-core instructions (HMMA) in its
+                SASS: the bfloat16 forward and dkv kernels must have
+                some, the float32 ones and dq none ("sass" lines);
   2. kernels -- hold each kernel against its plain torch version on the
                 card at the main paths' shapes plus a ragged shape (exact
                 equality for the integer kernels; flash attention's float32
@@ -26,7 +30,9 @@ Phases, each fatal on failure:
                 backward kernels (dkv, dq) at the training shape and the
                 forward's other cases (float32 at the reference test's
                 2e-4, bfloat16 within about one bfloat16 ulp), with SDPA's
-                backward as their yardstick;
+                backward as their yardstick; forward and backward also at
+                the training shape and the bfloat16 tensor-core kernels'
+                edges (FLASH_BF16_EDGES), a "detail" line each;
   3. path    -- one drim-bnn FFN BitLinear pair at full width (768 -> 3072
                 -> 768) on M = 512 activation rows, weights from a seeded
                 numpy generator, each projection served by the native
@@ -139,6 +145,14 @@ LSE_TOL = 1e-4
 # test_flash_backward); bfloat16 at one bfloat16 ulp, as FLASH_TOL, since
 # kernel and plain version each round a float32 sum to bfloat16 once.
 BWD_TOL = {torch.float32: (2e-4, 2e-4), torch.bfloat16: (4e-3, 2 ** -7)}
+# bfloat16 flash cases beyond the main paths' shapes, for the tensor-core
+# kernels' edges (b, h, hkv, sq, sk, d, bq, bk, causal, dtype): Sq != Sk
+# at D = 128 causal, D = 32 non-causal, D = 16, n_rep 1, 3 and 4.
+FLASH_BF16_EDGES = [
+    (1, 4, 1, 64, 192, 128, 64, 64, True, torch.bfloat16),
+    (1, 2, 2, 256, 256, 32, 128, 64, False, torch.bfloat16),
+    (2, 6, 2, 128, 128, 16, 64, 64, True, torch.bfloat16),
+    (2, 4, 4, 192, 320, 64, 64, 64, False, torch.bfloat16)]
 # The train phase: examples/train_bnn_lm.py's run (batch 8, seq 256,
 # AdamW at 3e-4) at full width and depth, cut to TRAIN_STEPS steps, with a
 # checkpoint at RESTART_AT for the restart check.
@@ -264,10 +278,42 @@ def phase_build():
         raise AssertionError(f"no library built for {missing}")
     secs = time.time() - t0
     for name, text in sorted(reports.items()):
+        entry = spill = ""
         for line in text.splitlines():
-            if "Used" in line:
-                print(f"ptxas {name}: {line.split('info    :')[-1].strip()}")
+            if "Compiling entry function" in line:
+                entry = line.split("'")[1]
+            elif "spill stores" in line:
+                spill = line.strip()
+            elif "Used" in line:
+                print(f"ptxas {name} {entry}: "
+                      f"{line.split('info    :')[-1].strip()}; {spill}")
     print(f"build: {len(sources)} sources, {secs:.2f} s")
+    check_tensor_cores(_build)
+
+
+def check_tensor_cores(_build):
+    """Count the tensor-core instructions (HMMA) of each flash kernel in
+    the built libraries' SASS ("sass" lines): the bfloat16 forward and
+    dkv kernels must have some, every other one (float32, dq) none."""
+    import shutil
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    for name in ("flash_attn_fwd", "flash_attn_bwd"):
+        sass = subprocess.run([tool, "-sass", str(_build._lib_path(name))],
+                              capture_output=True, text=True,
+                              check=True).stdout
+        counts = {}
+        fn = None
+        for line in sass.splitlines():
+            if "Function :" in line:
+                fn = line.split("Function :")[-1].strip()
+                counts[fn] = 0
+            elif fn is not None and "HMMA" in line:
+                counts[fn] += 1
+        for fn, n in sorted(counts.items()):
+            print("sass " + json.dumps({"source": name, "function": fn,
+                                        "hmma": n}))
+            if ("bf16_kernel" in fn) != (n > 0):
+                raise AssertionError(f"{name} {fn}: {n} HMMA instructions")
 
 
 def phase_kernels(rng):
@@ -516,7 +562,10 @@ def phase_flash(rng):
         (4, 12, 4, 2048, 2048, 64, 128, 128, True, torch.bfloat16),
         (4, 12, 4, 256, 256, 64, 128, 128, True, torch.bfloat16),
         (1, 4, 1, 64, 192, 128, 64, 64, True, torch.float32),
-        (1, 2, 2, 256, 256, 32, 128, 64, False, torch.float32)]
+        (1, 2, 2, 256, 256, 32, 128, 64, False, torch.float32),
+        # the training step's shape, then the tensor-core kernel's edges
+        (8, 12, 4, 256, 256, 64, 128, 128, True, torch.bfloat16),
+        *FLASH_BF16_EDGES]
     record = None
     for b, h, hkv, sq, sk, d, bq, bk, causal, dt in cases:
         q, k, v = (torch.from_numpy(rng.standard_normal(
@@ -582,7 +631,8 @@ def phase_flash_bwd(rng):
         (8, 12, 4, 256, 256, 64, True, torch.bfloat16),
         (4, 12, 4, 2048, 2048, 64, True, torch.bfloat16),
         (1, 4, 1, 64, 192, 128, True, torch.float32),
-        (1, 2, 2, 256, 256, 32, False, torch.float32)]
+        (1, 2, 2, 256, 256, 32, False, torch.float32),
+        *(c[:6] + c[8:] for c in FLASH_BF16_EDGES)]
     records = {}
     for b, h, hkv, sq, sk, d, causal, dt in cases:
         q, k, v, do = (torch.from_numpy(rng.standard_normal(

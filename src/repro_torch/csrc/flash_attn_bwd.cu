@@ -11,33 +11,60 @@
 // contiguous; lse, delta [B, H, Sq] float32.  dq in q's type, dk and dv in
 // k's type, each rounded once from a float32 sum.
 //
-// Replaces src/repro/kernels/flash_attention.py:_bwd_dkv_kernel and
-// _bwd_dq_kernel and computes what they compute: float32 math on widened
-// operands, scale 1/sqrt(D), the causal mask on absolute indices (query i
-// sees keys j <= i), also when Sq != Sk.  On the TPU the (rep, Sq-block)
-// sweep of dkv and the Sk sweep of dq are the grids' sequential innermost
-// axes, with the sums in VMEM scratch.  Here each output tile has one
-// owner block that loops over the sweep itself and keeps its sums in
-// registers: no atomics, so the backward is deterministic.
+// Replaces src/repro/kernels/flash_attention.py:_bwd_dkv_kernel (dkv) and
+// _bwd_dq_kernel (dq) and computes what they compute: scale 1/sqrt(D),
+// p = exp(s * scale - lse), the causal mask on absolute indices (query i
+// sees keys j <= i), also when Sq != Sk, the n_rep query heads of a kv
+// head summed without a materialised repeat (h / n_rep).  On the TPU the
+// (rep, Sq-block) sweep of dkv and the Sk sweep of dq are the grids'
+// sequential innermost axes, with the sums in VMEM scratch.  Here each
+// output tile has one owner block that loops over the sweep itself and
+// keeps its sums in registers: no atomics, so the sums run in a fixed
+// order and the backward is deterministic.  Query tiles the causal mask
+// hides from a key tile are skipped: their p is exactly 0, so skipping is
+// exact, and a key no query sees gets dk = dv = 0.
 //
-// Design (the forward kernel's): 256 threads as 16 x 16 (ty, tx), 64 x 64
-// tiles, every operand widened to float32 in shared memory, rows padded by
-// one float so column walks spread over the 32 banks.  The work is float32
-// multiply-adds on the CUDA cores (4 products of 64 x 64 x D per tile pair
-// for dkv, 3 for dq), so operations bound it, not device memory.
+// dkv in bfloat16 (flash_bwd_dkv_bf16_kernel): the products run on the
+// tensor cores (mma.sync m16n8k16, bf16 operands, float32 sums), so their
+// rate bounds it.  One block per (b, kv head, 64-key tile), 4 warps, each
+// owning 16 key rows of dk and dv as float32 register sums.  k and v are
+// copied once (16-byte cp.async) into XOR-swizzled shared tiles; q, do, lse
+// and delta of each (query head, query tile) step stream through a two-stage
+// cp.async ring, the next step's copy in flight during this step's products.
+// Query tiles are 64 wide (32 at D = 128, where the 2 x 16 x 128 float32
+// sums per warp take 128 registers a lane).  Per step: s^T = k q^T and dp^T
+// = v do^T by mma (k, v as A fragments by ldmatrix, q, do as B), then p^T =
+// exp(s^T * scale - lse) (as exp2f, mma_bf16.cuh) and ds^T = p^T (dp^T -
+// delta) * scale in registers with the float32 kernel's mask rules, tested
+// only on tiles that cross the diagonal or a ragged end; their C fragments
+// are reused as the A fragments of dv += p^T do and dk += ds^T q, with do
+// and q read by ldmatrix.trans.  p and ds are split into bf16 hi + lo halves
+// (two mma per product): rounded once to bf16 they put dv and dk up to 2.7
+// and 1.4 bf16 ulps from the float32 plain version
+// (tests/test_torch_flash_backward.py emulates both), split they stay within
+// one.  ptxas (sm_90a) at D = 16 / 32 / 64 / 128: 126 / 156 / 223 / 255
+// registers, no spills below D = 128 and 12 bytes of spill (a 16-byte stack
+// frame) at D = 128; dynamic shared memory 2 x 64 x D x 2 bytes for k, v
+// plus two stages of q, do (and lse, delta): 49 KB at D = 64, 64.5 KB at D =
+// 128.
+//
+// dq in both types, and dkv in float32 (flash_bwd_dq_kernel,
+// flash_bwd_dkv_kernel): float32 math on the CUDA cores, kept so that the
+// float32 checks (2e-4) hold without TF32.  256 threads as 16 x 16 (ty,
+// tx), 64 x 64 tiles, every operand widened to float32 in shared memory,
+// rows padded by one float so column walks spread over the 32 banks.
 //   dkv: one block per (b, kv head, 64-key tile).  A thread owns 4 key rows
 //        (ty + 16 a) and D/16 columns (tx + 16 c) of dk and dv, and the
 //        transposed score tile's entries (key ty + 16 a, query tx + 16 b).
 //   dq:  one block per (b, h, 64-query tile); a thread owns 4 query rows
 //        and 4 keys of the score tile, and the same rows' D/16 columns of
 //        dq.
-// Tiles the causal mask covers entirely are skipped: their p is exactly 0,
-// so skipping is exact, and a key no query sees gets dk = dv = 0.
-// Tensor cores (wgmma) and TMA loads are a later change.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include "mma_bf16.cuh"
 
 namespace {
 
@@ -388,13 +415,257 @@ int launch_dq(const Args& a) {
   return static_cast<int>(cudaGetLastError());
 }
 
+// instantiates only the kernel asked for (bf16 dkv has its own dispatch)
+template <typename T, bool kDkv, int D>
+int launch(const Args& a) {
+  if constexpr (kDkv) return launch_dkv<T, D>(a);
+  else return launch_dq<T, D>(a);
+}
+
 template <typename T, bool kDkv>
 int dispatch(const Args& a, int d) {
   switch (d) {
-    case 16: return kDkv ? launch_dkv<T, 16>(a) : launch_dq<T, 16>(a);
-    case 32: return kDkv ? launch_dkv<T, 32>(a) : launch_dq<T, 32>(a);
-    case 64: return kDkv ? launch_dkv<T, 64>(a) : launch_dq<T, 64>(a);
-    case 128: return kDkv ? launch_dkv<T, 128>(a) : launch_dq<T, 128>(a);
+    case 16: return launch<T, kDkv, 16>(a);
+    case 32: return launch<T, kDkv, 32>(a);
+    case 64: return launch<T, kDkv, 64>(a);
+    case 128: return launch<T, kDkv, 128>(a);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+
+// ---- dkv in bfloat16: tensor cores ------------------------------------------
+
+constexpr int kTcThreads = 128;   // 4 warps x 16 key rows
+
+// queries per streamed tile: 32 at D = 128 keeps the float32 dk and dv
+// sums (2 x D per lane) and the score tiles within 255 registers
+template <int D>
+__host__ __device__ constexpr int dkv_q_tile() { return D == 128 ? 32 : 64; }
+
+template <int D>
+constexpr size_t dkv_bf16_smem_bytes() {
+  return 2 * static_cast<size_t>(kTile) * D * sizeof(__nv_bfloat16)  // k, v
+         + 2 * 2 * static_cast<size_t>(dkv_q_tile<D>()) * D *
+               sizeof(__nv_bfloat16)                     // 2 stages of q, do
+         + 2 * 2 * static_cast<size_t>(dkv_q_tile<D>()) * sizeof(float);
+                                                 // 2 stages of lse, delta
+}
+
+// acc [16 x D] += a b over the 16-query step kk: a from the C fragments
+// of a [16 x kNq*8] float32 tile, split into bf16 hi + lo, and b the
+// step's 16 rows of a swizzled [queries][D] shared tile (ldmatrix.trans)
+template <int D, int kNq>
+__device__ __forceinline__ void second_product(float (&acc)[D / 8][4],
+                                               const float (&c)[kNq][4],
+                                               int kk,
+                                               const __nv_bfloat16* tile,
+                                               int lane) {
+  using namespace mma_bf16;
+  uint32_t hi[4], lo[4];
+#pragma unroll
+  for (int x = 0; x < 4; ++x) {
+    const int j = 2 * kk + (x >> 1), e = 2 * (x & 1);
+    split_bf16(c[j][e], c[j][e + 1], hi[x], lo[x]);
+  }
+#pragma unroll
+  for (int np = 0; np < D / 16; ++np) {
+    uint32_t b[4];
+    ldsm_x4_t(frag_a_addr<D>(tile, kk * 16, np * 16, lane), b);
+    mma(acc[2 * np], hi, b[0], b[1]);
+    mma(acc[2 * np], lo, b[0], b[1]);
+    mma(acc[2 * np + 1], hi, b[2], b[3]);
+    mma(acc[2 * np + 1], lo, b[2], b[3]);
+  }
+}
+
+template <int D>
+__global__ void __launch_bounds__(kTcThreads)
+flash_bwd_dkv_bf16_kernel(const __nv_bfloat16* __restrict__ q,
+                          const __nv_bfloat16* __restrict__ k,
+                          const __nv_bfloat16* __restrict__ v,
+                          const __nv_bfloat16* __restrict__ dout,
+                          const float* __restrict__ lse,
+                          const float* __restrict__ delta,
+                          __nv_bfloat16* __restrict__ dk,
+                          __nv_bfloat16* __restrict__ dv, int n_heads,
+                          int n_rep, int sq, int sk, int causal, float scale) {
+  using namespace mma_bf16;
+  constexpr int kQT = dkv_q_tile<D>();
+  constexpr int kNq = kQT / 8;      // 8-query n-tiles of the score tile
+  constexpr int kNd = D / 8;        // 8-wide column tiles of dk, dv
+  extern __shared__ uint4 tc_smem[];
+  __nv_bfloat16* ks = reinterpret_cast<__nv_bfloat16*>(tc_smem);
+  __nv_bfloat16* vs = ks + kTile * D;
+  __nv_bfloat16* qs = vs + kTile * D;         // [2][kQT][D]
+  __nv_bfloat16* dos = qs + 2 * kQT * D;      // [2][kQT][D]
+  float* lse_s = reinterpret_cast<float*>(dos + 2 * kQT * D);   // [2][kQT]
+  float* delta_s = lse_s + 2 * kQT;                             // [2][kQT]
+
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  const int t4 = lane % 4;
+  const int n_kv = n_heads / n_rep;
+  const int bg = blockIdx.y;              // b * n_kv + g
+  const int b = bg / n_kv;
+  const int g = bg % n_kv;
+  const int k0 = blockIdx.x * kTile;
+  const int kr = k0 + warp * 16 + lane / 4;   // key of c[0..1]; +8: c[2..3]
+  const size_t kv_base = static_cast<size_t>(bg) * sk * D;
+
+  const int n_qt = (sq + kQT - 1) / kQT;
+  // causal: query tiles whose last query precedes k0 see none of these keys
+  const int t0 = causal ? min(k0 / kQT, n_qt) : 0;
+  const int per_head = n_qt - t0;
+  const int n_it = n_rep * per_head;      // (query head, query tile) pairs
+
+  // copies of step `it` (head r = it / per_head, its query tile
+  // t0 + it % per_head) into ring stage it & 1
+  auto issue = [&](int it) {
+    const int h = g * n_rep + it / per_head;
+    const int q0 = (t0 + it % per_head) * kQT;
+    const size_t row0 = (static_cast<size_t>(b) * n_heads + h) * sq;
+    const int st = (it & 1) * kQT;
+    load_tile_async<D, kQT, kTcThreads>(qs + st * D, q + row0 * D, q0, sq);
+    load_tile_async<D, kQT, kTcThreads>(dos + st * D, dout + row0 * D, q0,
+                                        sq);
+    if (threadIdx.x < 2 * kQT) {
+      const int i = threadIdx.x % kQT;
+      const bool in = q0 + i < sq;
+      const float* src = (threadIdx.x < kQT ? lse : delta) + row0 +
+                         (in ? q0 + i : 0);
+      float* dst = (threadIdx.x < kQT ? lse_s : delta_s) + st + i;
+      cp_async4(smem_addr(dst), src, in ? 4 : 0);
+    }
+  };
+
+  load_tile_async<D, kTile, kTcThreads>(ks, k + kv_base, k0, sk);
+  load_tile_async<D, kTile, kTcThreads>(vs, v + kv_base, k0, sk);
+  if (n_it > 0) issue(0);
+  cp_async_commit();
+
+  float acc_k[kNd][4], acc_v[kNd][4];
+#pragma unroll
+  for (int n = 0; n < kNd; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc_k[n][e] = acc_v[n][e] = 0.f;
+
+  for (int it = 0; it < n_it; ++it) {
+    if (it + 1 < n_it) {
+      issue(it + 1);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    const int st = (it & 1) * kQT;
+    const int q0 = (t0 + it % per_head) * kQT;
+    const __nv_bfloat16* qt = qs + st * D;
+    const __nv_bfloat16* dot = dos + st * D;
+    const float* lt = lse_s + st;
+    const float* dlt = delta_s + st;
+
+    // s^T = k q^T and dp^T = v do^T: 16 keys x kQT queries per warp
+    float s[kNq][4], dp[kNq][4];
+#pragma unroll
+    for (int j = 0; j < kNq; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {
+      uint32_t ka[4], va[4];
+      ldsm_x4(frag_a_addr<D>(ks, warp * 16, kk * 16, lane), ka);
+      ldsm_x4(frag_a_addr<D>(vs, warp * 16, kk * 16, lane), va);
+#pragma unroll
+      for (int np = 0; np < kNq / 2; ++np) {
+        uint32_t bq[4], bd[4];
+        ldsm_x4(frag_bt_addr<D>(qt, np * 16, kk * 16, lane), bq);
+        ldsm_x4(frag_bt_addr<D>(dot, np * 16, kk * 16, lane), bd);
+        mma(s[2 * np], ka, bq[0], bq[1]);
+        mma(s[2 * np + 1], ka, bq[2], bq[3]);
+        mma(dp[2 * np], va, bd[0], bd[1]);
+        mma(dp[2 * np + 1], va, bd[2], bd[3]);
+      }
+    }
+
+    // p^T and ds^T in place, with the float32 kernel's mask rules, tested
+    // only where the tile crosses the diagonal or a ragged end
+    const bool edge = (causal && q0 < k0 + kTile - 1) || q0 + kQT > sq ||
+                      k0 + kTile > sk;
+#pragma unroll
+    for (int j = 0; j < kNq; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int kj = kr + 8 * (e >> 1);
+        const int il = 8 * j + 2 * t4 + (e & 1);
+        const int qi = q0 + il;
+        const bool live =
+            !edge || (qi < sq && kj < sk && !(causal && qi < kj));
+        const float p =
+            live ? exp2f((s[j][e] * scale - lt[il]) * kLog2e) : 0.f;
+        s[j][e] = p;
+        dp[j][e] = p * (dp[j][e] - dlt[il]) * scale;
+      }
+
+    // dv += p^T do and dk += ds^T q: the C fragments of query tiles 2kk,
+    // 2kk + 1 are the A fragment of the 16-query step kk, split into bf16
+    // hi + lo halves (two products per step); do and q by ldmatrix.trans
+#pragma unroll
+    for (int kk = 0; kk < kNq / 2; ++kk) {
+      second_product<D>(acc_v, s, kk, dot, lane);
+      second_product<D>(acc_k, dp, kk, qt, lane);
+    }
+    __syncthreads();   // the next iteration refills this stage
+  }
+  cp_async_wait<0>();
+
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int kj = kr + 8 * r;
+    if (kj >= sk) continue;
+    const size_t row = kv_base + static_cast<size_t>(kj) * D;
+#pragma unroll
+    for (int n = 0; n < kNd; ++n) {
+      store_bf16x2(dk + row + 8 * n + 2 * t4, acc_k[n][2 * r],
+                   acc_k[n][2 * r + 1]);
+      store_bf16x2(dv + row + 8 * n + 2 * t4, acc_v[n][2 * r],
+                   acc_v[n][2 * r + 1]);
+    }
+  }
+}
+
+template <int D>
+int launch_dkv_bf16(const Args& a) {
+  constexpr size_t smem = dkv_bf16_smem_bytes<D>();
+  static bool attr_set = false;
+  if (int err = allow_smem(flash_bwd_dkv_bf16_kernel<D>, smem, &attr_set))
+    return err;
+  const dim3 grid((a.sk + kTile - 1) / kTile,
+                  a.batch * (a.n_heads / a.n_rep));
+  flash_bwd_dkv_bf16_kernel<D><<<grid, kTcThreads, smem, a.stream>>>(
+      static_cast<const __nv_bfloat16*>(a.q),
+      static_cast<const __nv_bfloat16*>(a.k),
+      static_cast<const __nv_bfloat16*>(a.v),
+      static_cast<const __nv_bfloat16*>(a.dout),
+      static_cast<const float*>(a.lse), static_cast<const float*>(a.delta),
+      static_cast<__nv_bfloat16*>(a.dk), static_cast<__nv_bfloat16*>(a.dv),
+      a.n_heads, a.n_rep, a.sq, a.sk, a.causal,
+      1.0f / sqrtf(static_cast<float>(D)));
+  return static_cast<int>(cudaGetLastError());
+}
+
+int dispatch_dkv_bf16(const Args& a, int d) {
+  // cp.async copies 16-byte chunks of q, k, v and do
+  if ((reinterpret_cast<uintptr_t>(a.q) | reinterpret_cast<uintptr_t>(a.k) |
+       reinterpret_cast<uintptr_t>(a.v) |
+       reinterpret_cast<uintptr_t>(a.dout)) & 15)
+    return static_cast<int>(cudaErrorMisalignedAddress);
+  switch (d) {
+    case 16: return launch_dkv_bf16<16>(a);
+    case 32: return launch_dkv_bf16<32>(a);
+    case 64: return launch_dkv_bf16<64>(a);
+    case 128: return launch_dkv_bf16<128>(a);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
@@ -411,8 +682,7 @@ extern "C" int flash_attn_bwd_dkv(const void* q, const void* k, const void* v,
                                   void* stream) {
   const Args a{q, k, v, dout, lse, delta, nullptr, dk, dv, batch, n_heads,
                n_rep, sq, sk, causal, static_cast<cudaStream_t>(stream)};
-  return is_bf16 ? dispatch<__nv_bfloat16, true>(a, d)
-                 : dispatch<float, true>(a, d);
+  return is_bf16 ? dispatch_dkv_bf16(a, d) : dispatch<float, true>(a, d);
 }
 
 extern "C" int flash_attn_bwd_dq(const void* q, const void* k, const void* v,

@@ -3,8 +3,9 @@
 Each `csrc/<name>.cu` exposes a plain C interface (no PyTorch headers, so
 a build takes seconds).  It is compiled for `sm_90a` into
 `build/kernels/lib<name>-<hash>.so` under the repository root at first
-use; the hash of the source names the library, so an edited source is
-rebuilt and a stale library is never loaded.  Every C entry point
+use; the hash of the source and of the shared headers (`csrc/*.cuh`)
+names the library, so an edited source is rebuilt and a stale library is
+never loaded.  Every C entry point
 returns its `cudaGetLastError()`; `check` raises on a nonzero code.
 
 Nothing here runs at import time: the CPU tests import every module.
@@ -40,8 +41,10 @@ def _nvcc() -> str:
 
 
 def _lib_path(name: str) -> pathlib.Path:
-    digest = hashlib.sha256((CSRC / f"{name}.cu").read_bytes()).hexdigest()
-    return BUILD_DIR / f"lib{name}-{digest[:16]}.so"
+    digest = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):     # shared by some sources
+        digest.update(header.read_bytes())
+    return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:16]}.so"
 
 
 def build(names: Iterable[str]) -> Dict[str, str]:

@@ -3,9 +3,12 @@ Pallas `_flash_fwd` in interpret mode and the `sdpa_ref` oracle, at the
 reference test's five CASES and its tolerances (2e-5 for float32, 2e-2
 for bfloat16, `tests/test_flash_attention.py`).  The lse is held at 1e-4.
 On the CPU the wrapper runs its plain version; the tests marked `cuda`
-hold the CUDA kernel against that plain version on the card and skip
-without one.  The reference is imported by the `jref` fixture, so the
-`cuda` tests also run where JAX is not installed:
+hold the CUDA kernel against that plain version on the card (bfloat16
+within one bfloat16 ulp) and skip without one.  The bfloat16 kernel runs
+on the tensor cores and rounds p to bfloat16 before p v; a CPU test
+emulates that rounding and holds it to the same bound.  The reference is
+imported by the `jref` fixture, so the `cuda` tests also run where JAX is
+not installed:
 
     PYTHONPATH=src python -m pytest -q --noconftest -m cuda \
         tests/test_torch_flash_attention.py
@@ -29,6 +32,26 @@ CASES = [
 ]
 TOL = {"float32": 2e-5, "bfloat16": 2e-2}
 LSE_TOL = 1e-4
+# kernel against the plain version on the card: float32 at the reference
+# test's 2e-5; bfloat16 at one bfloat16 ulp (2**-7 of the value, 4e-3 near
+# zero), since each rounds a float32 result to bfloat16 once
+CARD_TOL = {"float32": dict(rtol=2e-5, atol=2e-5),
+            "bfloat16": dict(rtol=2 ** -7, atol=4e-3)}
+# the bfloat16 tensor-core kernel's edges (b, h, hkv, sq, sk, d, bq, bk,
+# causal): every head width, Sq != Sk both ways, ragged tiles, non-causal,
+# n_rep 1, 2, 3 and 4
+BF16_CARD_CASES = [
+    (2, 4, 2, 128, 128, 16, 64, 64, True),
+    (2, 4, 2, 128, 128, 32, 64, 64, True),
+    (2, 4, 2, 128, 128, 64, 64, 64, True),
+    (2, 4, 2, 128, 128, 128, 64, 64, True),
+    (1, 4, 1, 64, 192, 128, 64, 64, True),
+    (2, 3, 1, 192, 64, 64, 64, 64, True),
+    (1, 4, 2, 96, 160, 16, 32, 32, True),
+    (1, 2, 2, 256, 256, 32, 128, 64, False),
+    (1, 6, 2, 128, 320, 64, 64, 64, False),
+    (2, 4, 4, 128, 128, 64, 64, 64, True),
+]
 
 
 @pytest.fixture(scope="module")
@@ -153,8 +176,71 @@ def test_kernel_equals_plain_on_the_card(cuda, b, h, hkv, sq, sk, d, bq, bk,
     torch.cuda.synchronize()
     assert fa.flash_fwd.launches == before + 1
     want, want_lse = fa.flash_attention_plain(q, k, v, causal, h // hkv)
-    tol = TOL[dtype]
-    torch.testing.assert_close(out.float(), want.float(), rtol=tol, atol=tol)
+    torch.testing.assert_close(out.float(), want.float(), **CARD_TOL[dtype])
+    torch.testing.assert_close(lse, want_lse, rtol=LSE_TOL, atol=LSE_TOL)
+
+
+def emulate_bf16_kernel(q, k, v, causal, n_rep, tile=64):
+    """The bfloat16 kernel's numerics in plain torch: float32 scores of
+    bfloat16 inputs, the online softmax over 64-key tiles, l summed from
+    the float32 p, p rounded to bfloat16 before p v (float32 sums), and
+    out rounded to bfloat16 once."""
+    b, h, sq, d = q.shape
+    sk = k.shape[2]
+    qf = q.float()
+    kf, vf = (t.float().repeat_interleave(n_rep, 1) for t in (k, v))
+    m = torch.full((b, h, sq, 1), fa.NEG_INF)
+    l = torch.zeros(b, h, sq, 1)
+    acc = torch.zeros(b, h, sq, d)
+    rows = torch.arange(sq)[:, None]
+    for k0 in range(0, sk, tile):
+        s = qf @ kf[:, :, k0:k0 + tile].transpose(-1, -2) / d ** 0.5
+        if causal:
+            s = s.masked_fill(rows < torch.arange(k0, min(k0 + tile, sk)),
+                              fa.NEG_INF)
+        m_new = torch.maximum(m, s.amax(-1, keepdim=True))
+        p = torch.exp(s - m_new)
+        alpha = torch.exp(m - m_new)
+        l = l * alpha + p.sum(-1, keepdim=True)
+        p16 = p.to(torch.bfloat16).float()
+        acc = acc * alpha + p16 @ vf[:, :, k0:k0 + tile]
+        m = m_new
+    l = l.clamp_min(1e-30)
+    return (acc / l).to(q.dtype), (m + torch.log(l))[..., 0]
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+@pytest.mark.parametrize("b,h,hkv,sq,sk,d,causal", [
+    (2, 4, 2, 128, 128, 64, True),
+    (1, 4, 1, 64, 192, 128, True),
+    (2, 6, 2, 128, 128, 16, True),
+    (1, 3, 3, 128, 192, 32, False)])
+def test_bf16_rounding_of_p_stays_within_one_ulp(b, h, hkv, sq, sk, d,
+                                                 causal, seed):
+    """One rounding of p to bfloat16 before p v (the tensor-core kernel's
+    numerics, emulated) keeps out within one bfloat16 ulp of the float32
+    plain version, so the kernel needs no hi/lo split of p."""
+    q, k, v = to_torch(make_qkv(b, h, hkv, sq, sk, d, "bfloat16", seed),
+                       "bfloat16")
+    out, lse = emulate_bf16_kernel(q, k, v, causal, h // hkv)
+    want, want_lse = fa.flash_attention_plain(q, k, v, causal, h // hkv)
+    torch.testing.assert_close(out.float(), want.float(),
+                               **CARD_TOL["bfloat16"])
+    torch.testing.assert_close(lse, want_lse, rtol=LSE_TOL, atol=LSE_TOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("seed", [0, 1, 2])
+@pytest.mark.parametrize("b,h,hkv,sq,sk,d,bq,bk,causal", BF16_CARD_CASES)
+def test_bf16_tensor_core_kernel_on_the_card(cuda, b, h, hkv, sq, sk, d, bq,
+                                             bk, causal, seed):
+    q, k, v = to_torch(make_qkv(b, h, hkv, sq, sk, d, "bfloat16", seed),
+                       "bfloat16", cuda)
+    out, lse = fa.flash_fwd(q, k, v, causal=causal, n_rep=h // hkv, bq=bq,
+                            bk=bk)
+    want, want_lse = fa.flash_attention_plain(q, k, v, causal, h // hkv)
+    torch.testing.assert_close(out.float(), want.float(),
+                               **CARD_TOL["bfloat16"])
     torch.testing.assert_close(lse, want_lse, rtol=LSE_TOL, atol=LSE_TOL)
 
 

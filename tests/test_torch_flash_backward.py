@@ -5,6 +5,9 @@ in interpret mode) and through its `sdpa_ref` oracle, at
 tolerance (rtol = atol = 2e-4).  On the CPU the autograd Function and the
 kernel wrappers run the plain backward; the tests marked `cuda` hold the
 two CUDA kernels (dkv, dq) against it on the card and skip without one.
+The bfloat16 dkv kernel runs on the tensor cores with p and ds split into
+bfloat16 hi + lo halves; CPU tests emulate its numerics and show why the
+split is needed to stay within one bfloat16 ulp.
 The reference is imported by the `jref` fixture, so the `cuda` tests also
 run where JAX is not installed:
 
@@ -38,6 +41,21 @@ CARD_CASES = [
 # near zero)
 CARD_TOL = {"float32": dict(rtol=TOL, atol=TOL),
             "bfloat16": dict(rtol=2 ** -7, atol=4e-3)}
+# the bfloat16 tensor-core dkv kernel's edges (b, h, hkv, sq, sk, d,
+# causal): every head width, Sq != Sk both ways, ragged tiles, non-causal,
+# n_rep 1, 2, 3 and 4
+BF16_CARD_CASES = [
+    (2, 4, 2, 128, 128, 16, True),
+    (2, 4, 2, 128, 128, 32, True),
+    (2, 4, 2, 128, 128, 64, True),
+    (2, 4, 2, 128, 128, 128, True),
+    (1, 4, 1, 64, 192, 128, True),
+    (2, 3, 1, 192, 64, 64, True),
+    (1, 4, 2, 96, 160, 16, True),
+    (1, 2, 2, 256, 256, 32, False),
+    (1, 6, 2, 128, 320, 64, False),
+    (2, 4, 4, 128, 128, 64, True),
+]
 
 
 @pytest.fixture(scope="module")
@@ -67,6 +85,84 @@ def make(b, h, hkv, sq, sk, d, dtype="float32", seed=0, device="cpu"):
             .to(device, dt)
             for s in ((b, h, sq, d), (b, hkv, sk, d), (b, hkv, sk, d),
                       (b, h, sq, d))]
+
+
+def emulate_bf16_dkv(q, k, v, do, lse, delta, causal, n_rep, split=True):
+    """The bfloat16 dkv kernel's numerics in plain torch: float32 scores
+    of bfloat16 inputs, p = exp(s * scale - lse) and ds = p (dp - delta)
+    scale in float32, then dv = p^T do and dk = ds^T q with p and ds as
+    bfloat16 operands (hi + lo halves when `split`, else one rounding) and
+    float32 sums, each gradient rounded to bfloat16 once."""
+    def bf16(t):
+        return t.to(torch.bfloat16).float()
+
+    def operand(t):
+        return bf16(t) + bf16(t - bf16(t)) if split else bf16(t)
+
+    b, h, sq, d = q.shape
+    hkv, sk = k.shape[1], k.shape[2]
+    qf, dof = q.float(), do.float()
+    kf, vf = (t.float().repeat_interleave(n_rep, 1) for t in (k, v))
+    s = qf @ kf.transpose(-1, -2) / d ** 0.5
+    live = torch.ones(sq, sk, dtype=torch.bool)
+    if causal:
+        live = torch.arange(sq)[:, None] >= torch.arange(sk)
+    p = torch.where(live, torch.exp(s - lse[..., None]), 0.0)
+    ds = p * (dof @ vf.transpose(-1, -2) - delta[..., None]) / d ** 0.5
+    dv = operand(p).transpose(-1, -2) @ dof
+    dk = operand(ds).transpose(-1, -2) @ qf
+
+    def fold(t):
+        return t.reshape(b, hkv, n_rep, sk, d).sum(2).to(k.dtype)
+    return fold(dk), fold(dv)
+
+
+def ulps_off(got, want):
+    """The worst |got - want| over the one-bfloat16-ulp bound (<= 1
+    passes CARD_TOL["bfloat16"])."""
+    tol = CARD_TOL["bfloat16"]
+    got, want = got.float(), want.float()
+    return float(((got - want).abs()
+                  / (tol["atol"] + tol["rtol"] * want.abs())).max())
+
+
+def bf16_grads(b, h, hkv, sq, sk, d, causal, seed, split):
+    """(emulated dk, dv), (plain dk, dv) for seeded bfloat16 inputs."""
+    q, k, v, do = make(b, h, hkv, sq, sk, d, "bfloat16", seed)
+    n_rep = h // hkv
+    out, lse = fa.flash_attention_plain(q, k, v, causal, n_rep)
+    _, dk, dv = fa.flash_attention_bwd_plain(q, k, v, out, lse, do, causal,
+                                             n_rep)
+    got = emulate_bf16_dkv(q, k, v, do, lse, fa._delta(out, do), causal,
+                           n_rep, split)
+    return got, (dk, dv)
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+@pytest.mark.parametrize("b,h,hkv,sq,sk,d,causal", [
+    (2, 4, 2, 128, 128, 64, True),
+    (1, 4, 1, 64, 192, 128, True),
+    (2, 6, 2, 128, 128, 16, True),
+    (1, 3, 3, 128, 192, 32, False)])
+def test_bf16_split_of_p_and_ds_stays_within_one_ulp(b, h, hkv, sq, sk, d,
+                                                     causal, seed):
+    """p and ds as bfloat16 hi + lo halves (the tensor-core dkv kernel's
+    numerics, emulated) keep dk and dv within one bfloat16 ulp of the
+    float32 plain backward."""
+    got, want = bf16_grads(b, h, hkv, sq, sk, d, causal, seed, split=True)
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g.float(), w.float(),
+                                   **CARD_TOL["bfloat16"])
+
+
+def test_bf16_single_rounding_of_p_and_ds_breaks_one_ulp():
+    """Why the dkv kernel splits: rounded to bfloat16 once, p and ds put
+    dv and dk more than one bfloat16 ulp from the plain backward (GQA sums
+    over 4 heads at D = 128, Sq != Sk)."""
+    worst = [max(ulps_off(g, w) for g, w in zip(*bf16_grads(
+        1, 4, 1, 64, 192, 128, True, seed, split=False)))
+        for seed in range(3)]
+    assert max(worst) > 1.0, worst
 
 
 def grads_of_square_sum(fn, q, k, v):
@@ -240,3 +336,27 @@ def test_kernels_refuse_what_they_do_not_take(cuda):
         fa.flash_bwd_dkv(q, k.transpose(2, 3), v, do, lse, delta, n_rep=2)
     with pytest.raises(ValueError, match="lies on"):
         fa.flash_bwd_dq(q, k, v, do, lse.cpu(), delta, n_rep=2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("seed", [0, 1, 2])
+@pytest.mark.parametrize("b,h,hkv,sq,sk,d,causal", BF16_CARD_CASES)
+def test_bf16_tensor_core_dkv_on_the_card(cuda, b, h, hkv, sq, sk, d, causal,
+                                          seed):
+    q, k, v, do = make(b, h, hkv, sq, sk, d, "bfloat16", seed, device=cuda)
+    n_rep = h // hkv
+    out, lse = fa.flash_fwd(q, k, v, causal=causal, n_rep=n_rep, bq=16,
+                            bk=16)
+    before = (fa.flash_bwd_dkv.launches, fa.flash_bwd_dq.launches)
+    got = fa.flash_bwd(q, k, v, out, lse, do, causal=causal, n_rep=n_rep)
+    torch.cuda.synchronize()
+    assert (fa.flash_bwd_dkv.launches, fa.flash_bwd_dq.launches) == \
+        (before[0] + 1, before[1] + 1)
+    want = fa.flash_attention_bwd_plain(q, k, v, out, lse, do, causal,
+                                        n_rep)
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and g.shape == w.shape
+        torch.testing.assert_close(g.float(), w.float(),
+                                   **CARD_TOL["bfloat16"])
+    if causal and sk > sq:
+        assert not got[1][:, :, sq:].any() and not got[2][:, :, sq:].any()
