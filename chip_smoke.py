@@ -8,8 +8,8 @@ Phases, each fatal on failure:
                 (one nvcc per source, all started together), print
                 ptxas's registers and spills per kernel, and count each
                 flash kernel's tensor-core instructions (HMMA) in its
-                SASS: the bfloat16 forward and dkv kernels must have
-                some, the float32 ones and dq none ("sass" lines);
+                SASS: the bfloat16 forward, dkv and dq kernels must
+                have some, the float32 ones none ("sass" lines);
   2. kernels -- hold each kernel against its plain torch version on the
                 card at the main paths' shapes plus a ragged shape (exact
                 equality for the integer kernels; flash attention's float32
@@ -17,7 +17,14 @@ Phases, each fatal on failure:
                 within about one bfloat16 ulp), and time kernel, plain
                 version and, where one exists, one PyTorch call computing
                 the same function (float32 matmul for the GEMM, SDPA for
-                flash attention); the fault-injecting interpreter at the
+                flash attention); the AAP interpreter on its packed stream
+                at the serving decode shape (K=128, one full DRIM-R wave),
+                the bulk phase's K=32 dot (one wave), the TMR stream
+                fault-free over 4 waves and a ragged soup,
+                against the plain replay and its plain twin ("detail"
+                lines with slots, words_per_thread, block_cols and
+                smem_bound_ms);
+                the fault-injecting interpreter at the
                 TMR-hardened K=128 stream over 4 DRIM-R waves and at a
                 ragged shape with stuck rows, protected ops and a bank
                 offset; the bulk bit-wise kernels (not, the binary and
@@ -228,6 +235,23 @@ def graph_ms(fn, iters: int, replays: int = 5) -> float:
     return start.elapsed_time(stop) / (iters * replays)
 
 
+def profiled_device_ms(fn, iters: int) -> float:
+    """Device time per call of the kernels `fn` launches: `iters` calls
+    after a warm-up under `torch.profiler`, each kernel's device time
+    summed, so the host's per-call cost drops out."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    return sum(e.self_device_time_total for e in prof.key_averages()
+               if e.self_device_time_total > 0
+               and e.device_type.name == "CUDA") / 1e3 / iters
+
+
 def max_abs_err(got, want) -> int:
     if got.shape != want.shape:
         raise AssertionError(f"shape {tuple(got.shape)} != {tuple(want.shape)}")
@@ -266,6 +290,15 @@ def check_close(what: str, got, want, atol: float,
     return float(diff.max())
 
 
+def sm_clock_mhz() -> float:
+    """The card's maximum SM clock, as nvidia-smi reads it."""
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        check=True)
+    return float(smi.stdout.strip().splitlines()[0])
+
+
 def phase_build():
     from repro_torch.kernels import _build
     t0 = time.time()
@@ -293,8 +326,8 @@ def phase_build():
 
 def check_tensor_cores(_build):
     """Count the tensor-core instructions (HMMA) of each flash kernel in
-    the built libraries' SASS ("sass" lines): the bfloat16 forward and
-    dkv kernels must have some, every other one (float32, dq) none."""
+    the built libraries' SASS ("sass" lines): the bfloat16 forward, dkv
+    and dq kernels must have some, the float32 ones none."""
     import shutil
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     for name in ("flash_attn_fwd", "flash_attn_bwd"):
@@ -323,7 +356,8 @@ def phase_kernels(rng):
                                   encode_kernel_stream, kstream_slot)
     from repro_torch.kernels import aap_interpreter, packbits, xnor_popcount
     from repro_torch.kernels.ref import unpack_signs_ref
-    from repro_torch.pim.bnn import serving_lowering
+    from repro_torch.pim import compile as drim_compile
+    from repro_torch.pim.bnn import bnn_dot_graph_carrysave, serving_lowering
     dev = torch.device("cuda")
     d_model, d_ff = 768, 3072
     records = {}
@@ -399,8 +433,20 @@ def phase_kernels(rng):
     low = serving_lowering(128, engine="cuda", geom=DRIM_R)
     fp = low.fp
     cols = DRIM_R.n_subarrays * DRIM_R.row_bits // 32
+    # the decode shape the serving legs launch (K=128, one full DRIM-R
+    # wave), the bulk phase's carry-save K=32 dot (one wave), the TMR
+    # stream as the faults phase runs it fault-free (4 waves), and a
+    # ragged soup
+    graph, _ = bnn_dot_graph_carrysave(128)
+    tmr = drim_compile(graph, geom=DRIM_R).lower("cuda", harden="tmr").fp
+    k32 = drim_compile(bnn_dot_graph_carrysave(32)[0],
+                       geom=DRIM_R).lower("cuda").fp
     cases = [("serving K=128", fp.program, fp.readback_rows,
-              fp.template_rows, 1, len(fp.loaded_inputs), cols)]
+              fp.template_rows, 1, len(fp.loaded_inputs), cols),
+             ("K=32 dot", k32.program, k32.readback_rows, k32.template_rows,
+              1, len(k32.loaded_inputs), cols),
+             ("tmr K=128 fault-free", tmr.program, tmr.readback_rows,
+              tmr.template_rows, 4, len(tmr.loaded_inputs), cols)]
     # ragged: a random soup over every word-line, DCC aliases included,
     # 3 waves of a column count that no block width divides
     n_rows = 20
@@ -410,41 +456,66 @@ def phase_kernels(rng):
                  for op in (int(rng.integers(0, 4)) for _ in range(300)))
     cases.append(("ragged soup", soup, tuple(range(n_rows + 4)), n_rows, 3,
                   6, 1000))
+    sm_clock_hz = sm_clock_mhz() * 1e6
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
     for label, prog, readback, n_rows_t, waves, n_in, ncols in cases:
-        stream = torch.from_numpy(
-            encode_kernel_stream(prog, n_rows=n_rows_t)).to(dev)
-        slots = torch.tensor([kstream_slot(r, n_rows_t) for r in readback],
-                             dtype=torch.int32, device=dev)
+        stream_np = encode_kernel_stream(prog, n_rows=n_rows_t)
+        stream = torch.from_numpy(stream_np).to(dev)
+        slot_list = [kstream_slot(r, n_rows_t) for r in readback]
+        slots = torch.tensor(slot_list, dtype=torch.int32, device=dev)
         n_state = dcc_state_rows(n_rows_t)
+        packed = aap_interpreter.pack_stream(stream_np, slot_list, n_state,
+                                             n_in)
         tiles = torch.from_numpy(rng.integers(
             -2**31, 2**31, (waves, n_in, ncols), dtype=np.int32)).to(dev)
-        got = aap_interpreter.aap_interp(stream, tiles, slots, n_state)
+
+        def run():
+            return aap_interpreter.aap_interp(stream, tiles, slots, n_state,
+                                              packed=packed)
+        got = run()
         err = check_equal(f"aap_interp {label}", got,
                           aap_interpreter.aap_interp_plain(
                               stream, tiles, slots, n_state))
-        ms = graph_ms(lambda: aap_interpreter.aap_interp(
-            stream, tiles, slots, n_state), 10)
-        call_ms = cuda_ms(lambda: aap_interpreter.aap_interp(
-            stream, tiles, slots, n_state), 50)
+        check_equal(f"aap_interp {label} (plain twin)", got,
+                    aap_interpreter.aap_interp_packed_plain(packed, tiles))
+        ms = graph_ms(run, 10)
+        call_ms = cuda_ms(run, 50)
         # The plain replay reads the stream to the host (`tolist`), which
         # a CUDA graph cannot capture: timed eagerly.
         plain_ms = cuda_ms(lambda: aap_interpreter.aap_interp_plain(
             stream, tiles, slots, n_state), 2)
-        nbytes = tiles.numel() * 4 + got.numel() * 4 + stream.numel() * 4
+        nbytes = tiles.numel() * 4 + got.numel() * 4 + \
+            packed.words.nbytes + packed.loads.nbytes
         b_ms, b_by = bound(nbytes, len(prog) * waves * ncols)
+        w, threads, _ = aap_interpreter.launch_geometry(
+            packed.n_slots, ncols, waves, sms,
+            aap_interpreter.words_choices(ncols, tiles.data_ptr()))
+        # shared-memory traffic: per instruction its three reads and the
+        # writes that are read later (not to the sink, slot 1), per staged
+        # row its copy, per output its read, 4 bytes a word column, over
+        # the SMs' 128 bytes a clock
+        fields = packed.words[:packed.n_ins].view(np.uint32)
+        writes = np.stack([fields[:, 1] >> 16, fields[:, 2] & 0xFFFF,
+                           fields[:, 2] >> 16, fields[:, 3] & 0xFFFF])
+        accesses = 3 * packed.n_ins + int((writes != 1).sum()) + \
+            len(packed.loads) - 4 + int((packed.out_map[:, 0] >= 0).sum())
+        smem_ms = accesses * 4 * waves * ncols / (sms * 128 * sm_clock_hz) * 1e3
         print("detail " + json.dumps({
             "kernel": "aap_interp", "case": label, "n_ins": len(prog),
-            "n_in": n_in, "n_state": n_state, "waves": waves,
-            "cols": ncols, "block_cols": aap_interpreter.block_cols(n_state),
-            "ms": ms, "call_ms": call_ms, "plain_ms": plain_ms,
-            "bound_ms": b_ms}))
+            "n_in": n_in, "n_state": n_state, "slots": packed.n_slots,
+            "peak_live": packed.peak_live, "waves": waves, "cols": ncols,
+            "words_per_thread": w, "block_threads": threads,
+            "block_cols": threads * w, "ms": ms, "call_ms": call_ms,
+            "plain_ms": plain_ms, "bound_ms": b_ms,
+            "smem_bound_ms": smem_ms, "sm_clock_mhz": sm_clock_hz / 1e6}))
         if label.startswith("serving"):
             records["aap_interp"] = dict(
                 max_abs_err=err, ms=ms, call_ms=call_ms, plain_ms=plain_ms,
                 bound_ms=b_ms,
                 bound_by=b_by, library_ms=None,
                 shape=f"{len(prog)} AAPs over [{waves},{n_in},{ncols}] "
-                      f"int32, {n_state} state rows")
+                      f"int32, {packed.n_slots} slots of {n_state} state "
+                      f"rows")
 
     records["aap_interp_faulted"] = phase_faulted_kernel(rng)
     records["flash_attn_fwd"] = phase_flash(rng)
@@ -624,7 +695,9 @@ def phase_flash_bwd(rng):
     their records at the training shape (q [8,12,256,64], bf16, causal).
     `library_ms` is SDPA's backward, `torch.autograd.grad` over one
     retained graph, timed eagerly (the autograd engine runs the backward
-    on the forward's stream, so it cannot be captured alone)."""
+    on the forward's stream, so it cannot be captured alone), and
+    `library_device_ms` the device time of the kernels it launches, summed
+    under `torch.profiler`, free of the host's speed."""
     from repro_torch.kernels import flash_attention as fa
     dev = torch.device("cuda")
     cases = [  # b, h, hkv, sq, sk, d, causal, dtype
@@ -672,7 +745,7 @@ def phase_flash_bwd(rng):
                 raise AssertionError(f"{label}: dk/dv of keys no query sees "
                                      "are not exactly 0")
         plain_ms = cuda_ms(plain, 3)
-        library_ms = lib_err = None
+        library_ms = library_device_ms = lib_err = None
         if causal and sq == sk:
             # One PyTorch call computing the same gradients, a yardstick
             # the port never calls.
@@ -688,6 +761,7 @@ def phase_flash_bwd(rng):
                           for g, w in zip(library(), (want_q, want_k,
                                                       want_v)))
             library_ms = cuda_ms(library, 20)
+            library_device_ms = profiled_device_ms(library, 20)
         half = 0.5 if causal else 1.0
         esize = q.element_size()
         for name, fn, n_prod, outs in (("flash_bwd_dkv", dkv, 4,
@@ -704,6 +778,7 @@ def phase_flash_bwd(rng):
             rec = dict(max_abs_err=err, ms=ms, call_ms=call_ms,
                        plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
                        library_ms=library_ms,
+                       library_device_ms=library_device_ms,
                        shape=f"q {list(q.shape)} k/v {list(k.shape)} "
                              f"{str(dt).split('.')[-1]}, causal={causal}")
             print("detail " + json.dumps({
@@ -1590,7 +1665,9 @@ def main() -> int:
             "ms": r["ms"], "kernel_ms": r["ms"], "call_ms": r["call_ms"],
             "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
-            "library_ms": r["library_ms"], "shape": r["shape"]})
+            "library_ms": r["library_ms"],
+            "library_device_ms": r.get("library_device_ms"),
+            "shape": r["shape"]})
     print(json.dumps({"kernels": kernels}))
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",

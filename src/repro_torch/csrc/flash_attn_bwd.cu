@@ -48,9 +48,25 @@
 // plus two stages of q, do (and lse, delta): 49 KB at D = 64, 64.5 KB at D =
 // 128.
 //
-// dq in both types, and dkv in float32 (flash_bwd_dq_kernel,
-// flash_bwd_dkv_kernel): float32 math on the CUDA cores, kept so that the
-// float32 checks (2e-4) hold without TF32.  256 threads as 16 x 16 (ty,
+// dq in bfloat16 (flash_bwd_dq_bf16_kernel): dkv's design mirrored.  One
+// block per (b, h, 64-query tile), 4 warps, each owning 16 query rows of
+// dq as float32 register sums.  q and do are copied once into swizzled
+// shared tiles and read as A fragments; k and v of kv head h / n_rep
+// stream through a two-stage cp.async ring, the next key tile's copy in
+// flight during this tile's products.  s = q k^T and dp = do v^T by mma
+// (k, v as B fragments), then p = exp2f(s * scale * log2e - lse * log2e)
+// and ds = p (dp - delta) * scale in registers, with the same edge-only
+// mask tests; key tiles the causal mask hides are skipped.  dq += ds k
+// reuses ds's C fragments as A fragments, k read by ldmatrix.trans, with
+// ds split into bf16 hi + lo halves: rounded once, ds puts dq up to 1.04
+// bf16 ulps from the float32 plain version (512 tokens, 12 heads;
+// tests/test_torch_flash_backward.py emulates both), split it stays
+// within 0.64.  Dynamic shared memory 6 x 64 x D x 2 bytes (q, do and two
+// stages of k, v): 48 KB at D = 64, 96 KB at D = 128.
+//
+// dq and dkv in float32 (flash_bwd_dq_kernel, flash_bwd_dkv_kernel):
+// float32 math on the CUDA cores, kept so that the float32 checks (2e-4)
+// hold without TF32.  256 threads as 16 x 16 (ty,
 // tx), 64 x 64 tiles, every operand widened to float32 in shared memory,
 // rows padded by one float so column walks spread over the 32 banks.
 //   dkv: one block per (b, kv head, 64-key tile).  A thread owns 4 key rows
@@ -72,13 +88,7 @@ constexpr int kTile = 64;       // queries and keys per tile
 constexpr int kThreads = 256;   // 16 x 16
 
 __device__ __forceinline__ float widen(float x) { return x; }
-__device__ __forceinline__ float widen(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
 __device__ __forceinline__ void narrow(float* p, float x) { *p = x; }
-__device__ __forceinline__ void narrow(__nv_bfloat16* p, float x) {
-  *p = __float2bfloat16_rn(x);
-}
 
 // rows [r0, r0 + 64) of a [rows, D] matrix at `src` into a padded float32
 // tile; rows past `rows` read as 0
@@ -655,17 +665,201 @@ int launch_dkv_bf16(const Args& a) {
   return static_cast<int>(cudaGetLastError());
 }
 
+// cp.async copies 16-byte chunks of q, k, v and do
+bool misaligned(const Args& a) {
+  return (reinterpret_cast<uintptr_t>(a.q) | reinterpret_cast<uintptr_t>(a.k) |
+          reinterpret_cast<uintptr_t>(a.v) |
+          reinterpret_cast<uintptr_t>(a.dout)) & 15;
+}
+
 int dispatch_dkv_bf16(const Args& a, int d) {
-  // cp.async copies 16-byte chunks of q, k, v and do
-  if ((reinterpret_cast<uintptr_t>(a.q) | reinterpret_cast<uintptr_t>(a.k) |
-       reinterpret_cast<uintptr_t>(a.v) |
-       reinterpret_cast<uintptr_t>(a.dout)) & 15)
-    return static_cast<int>(cudaErrorMisalignedAddress);
+  if (misaligned(a)) return static_cast<int>(cudaErrorMisalignedAddress);
   switch (d) {
     case 16: return launch_dkv_bf16<16>(a);
     case 32: return launch_dkv_bf16<32>(a);
     case 64: return launch_dkv_bf16<64>(a);
     case 128: return launch_dkv_bf16<128>(a);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+
+// ---- dq in bfloat16: tensor cores -------------------------------------------
+
+template <int D>
+constexpr size_t dq_bf16_smem_bytes() {
+  // the q and do tiles, then two stages of the k tile and of the v tile
+  return 6 * static_cast<size_t>(kTile) * D * sizeof(__nv_bfloat16);
+}
+
+template <int D>
+__global__ void __launch_bounds__(kTcThreads)
+flash_bwd_dq_bf16_kernel(const __nv_bfloat16* __restrict__ q,
+                         const __nv_bfloat16* __restrict__ k,
+                         const __nv_bfloat16* __restrict__ v,
+                         const __nv_bfloat16* __restrict__ dout,
+                         const float* __restrict__ lse,
+                         const float* __restrict__ delta,
+                         __nv_bfloat16* __restrict__ dq, int n_heads,
+                         int n_rep, int sq, int sk, int causal, float scale) {
+  using namespace mma_bf16;
+  constexpr int kNk = kTile / 8;    // 8-key n-tiles of the score tile
+  constexpr int kNd = D / 8;        // 8-wide column tiles of dq
+  extern __shared__ uint4 tc_smem[];
+  __nv_bfloat16* qs = reinterpret_cast<__nv_bfloat16*>(tc_smem);
+  __nv_bfloat16* dos = qs + kTile * D;
+  __nv_bfloat16* ks = dos + kTile * D;       // [2][kTile][D]
+  __nv_bfloat16* vs = ks + 2 * kTile * D;    // [2][kTile][D]
+
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  const int t4 = lane % 4;
+  const int bh = blockIdx.y;
+  const int b = bh / n_heads;
+  const int h = bh % n_heads;
+  const int n_kv = n_heads / n_rep;
+  const int q0 = blockIdx.x * kTile;
+  const int qr = q0 + warp * 16 + lane / 4;   // row of c[0..1]; +8: c[2..3]
+  const size_t q_base = static_cast<size_t>(bh) * sq;
+  const size_t kv_base =
+      (static_cast<size_t>(b) * n_kv + h / n_rep) * static_cast<size_t>(sk) * D;
+
+  int n_tiles = (sk + kTile - 1) / kTile;
+  if (causal) {
+    const int q_last = min(q0 + kTile, sq) - 1;   // keys past it are masked
+    n_tiles = min(n_tiles, q_last / kTile + 1);
+  }
+
+  load_tile_async<D, kTile, kTcThreads>(qs, q + q_base * D, q0, sq);
+  load_tile_async<D, kTile, kTcThreads>(dos, dout + q_base * D, q0, sq);
+  if (n_tiles > 0) {
+    load_tile_async<D, kTile, kTcThreads>(ks, k + kv_base, 0, sk);
+    load_tile_async<D, kTile, kTcThreads>(vs, v + kv_base, 0, sk);
+  }
+  cp_async_commit();
+
+  // lse and delta of this lane's two rows (0 past the last query, whose
+  // p the mask zeroes)
+  const float scale_log2 = scale * kLog2e;
+  float lse_r[2], delta_r[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int qi = qr + 8 * r;
+    lse_r[r] = qi < sq ? lse[q_base + qi] * kLog2e : 0.f;
+    delta_r[r] = qi < sq ? delta[q_base + qi] : 0.f;
+  }
+
+  float acc[kNd][4];
+#pragma unroll
+  for (int n = 0; n < kNd; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
+
+  for (int t = 0; t < n_tiles; ++t) {
+    const int stage = t & 1;
+    if (t + 1 < n_tiles) {
+      const int nxt = (stage ^ 1) * kTile * D;
+      load_tile_async<D, kTile, kTcThreads>(ks + nxt, k + kv_base,
+                                            (t + 1) * kTile, sk);
+      load_tile_async<D, kTile, kTcThreads>(vs + nxt, v + kv_base,
+                                            (t + 1) * kTile, sk);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    const __nv_bfloat16* kt = ks + stage * kTile * D;
+    const __nv_bfloat16* vt = vs + stage * kTile * D;
+
+    // s = q k^T and dp = do v^T: 16 rows x 64 keys per warp, q and do as
+    // A fragments, k and v as B
+    float s[kNk][4], dp[kNk][4];
+#pragma unroll
+    for (int j = 0; j < kNk; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {
+      uint32_t qa[4], da[4];
+      ldsm_x4(frag_a_addr<D>(qs, warp * 16, kk * 16, lane), qa);
+      ldsm_x4(frag_a_addr<D>(dos, warp * 16, kk * 16, lane), da);
+#pragma unroll
+      for (int np = 0; np < kNk / 2; ++np) {
+        uint32_t bk[4], bv[4];
+        ldsm_x4(frag_bt_addr<D>(kt, np * 16, kk * 16, lane), bk);
+        ldsm_x4(frag_bt_addr<D>(vt, np * 16, kk * 16, lane), bv);
+        mma(s[2 * np], qa, bk[0], bk[1]);
+        mma(s[2 * np + 1], qa, bk[2], bk[3]);
+        mma(dp[2 * np], da, bv[0], bv[1]);
+        mma(dp[2 * np + 1], da, bv[2], bv[3]);
+      }
+    }
+
+    // ds = p (dp - delta) scale in place, with the float32 kernel's mask
+    // rules, tested only where the tile crosses the diagonal or a ragged
+    // end
+    const int k0 = t * kTile;
+    const bool edge = (causal && k0 + kTile - 1 > q0) || q0 + kTile > sq ||
+                      k0 + kTile > sk;
+#pragma unroll
+    for (int j = 0; j < kNk; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int qi = qr + 8 * (e >> 1);
+        const int kj = k0 + 8 * j + 2 * t4 + (e & 1);
+        const bool live =
+            !edge || (qi < sq && kj < sk && !(causal && qi < kj));
+        const float p =
+            live ? exp2f(s[j][e] * scale_log2 - lse_r[e >> 1]) : 0.f;
+        dp[j][e] = p * (dp[j][e] - delta_r[e >> 1]) * scale;
+      }
+
+    // dq += ds k: the C fragments of key tiles 2kk, 2kk + 1 are the A
+    // fragment of the 16-key step kk, split into bf16 hi + lo halves; k
+    // by ldmatrix.trans
+#pragma unroll
+    for (int kk = 0; kk < kNk / 2; ++kk) second_product<D>(acc, dp, kk, kt, lane);
+    __syncthreads();   // the next iteration refills this stage
+  }
+  cp_async_wait<0>();
+
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int qi = qr + 8 * r;
+    if (qi >= sq) continue;
+    __nv_bfloat16* row = dq + (q_base + qi) * D;
+#pragma unroll
+    for (int n = 0; n < kNd; ++n)
+      store_bf16x2(row + 8 * n + 2 * t4, acc[n][2 * r], acc[n][2 * r + 1]);
+  }
+}
+
+template <int D>
+int launch_dq_bf16(const Args& a) {
+  constexpr size_t smem = dq_bf16_smem_bytes<D>();
+  static bool attr_set = false;
+  if (int err = allow_smem(flash_bwd_dq_bf16_kernel<D>, smem, &attr_set))
+    return err;
+  const dim3 grid((a.sq + kTile - 1) / kTile, a.batch * a.n_heads);
+  flash_bwd_dq_bf16_kernel<D><<<grid, kTcThreads, smem, a.stream>>>(
+      static_cast<const __nv_bfloat16*>(a.q),
+      static_cast<const __nv_bfloat16*>(a.k),
+      static_cast<const __nv_bfloat16*>(a.v),
+      static_cast<const __nv_bfloat16*>(a.dout),
+      static_cast<const float*>(a.lse), static_cast<const float*>(a.delta),
+      static_cast<__nv_bfloat16*>(a.dq), a.n_heads, a.n_rep, a.sq, a.sk,
+      a.causal, 1.0f / sqrtf(static_cast<float>(D)));
+  return static_cast<int>(cudaGetLastError());
+}
+
+int dispatch_dq_bf16(const Args& a, int d) {
+  if (misaligned(a)) return static_cast<int>(cudaErrorMisalignedAddress);
+  switch (d) {
+    case 16: return launch_dq_bf16<16>(a);
+    case 32: return launch_dq_bf16<32>(a);
+    case 64: return launch_dq_bf16<64>(a);
+    case 128: return launch_dq_bf16<128>(a);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
@@ -693,6 +887,5 @@ extern "C" int flash_attn_bwd_dq(const void* q, const void* k, const void* v,
   const Args a{q, k, v, dout, lse, delta, dq, nullptr, nullptr, batch,
                n_heads, n_rep, sq, sk, causal,
                static_cast<cudaStream_t>(stream)};
-  return is_bf16 ? dispatch<__nv_bfloat16, false>(a, d)
-                 : dispatch<float, false>(a, d);
+  return is_bf16 ? dispatch_dq_bf16(a, d) : dispatch<float, false>(a, d);
 }

@@ -10,14 +10,21 @@ instruction; the up-to-four write slots replay in argument order; output
 slots may read back complemented.
 
 Kernel: `csrc/aap_interp.cu`, replacing the TPU kernel
-`src/repro/kernels/aap_interpreter.py:_interp_kernel`.  One thread owns
-one word column for the whole program; the column's state lives in
-dynamic shared memory (`state[row * C + t]`, conflict-free per warp),
-with C columns per block chosen so the block's state fits 227 KB; all
-waves run in one launch.  Device memory sees each staged row once, but
-the replay costs about seven shared-memory accesses per instruction per
-column, so shared memory bounds it.  On a CPU tensor the wrapper runs
-`aap_interp_plain`; on a CUDA tensor it launches the kernel or raises.
+`src/repro/kernels/aap_interpreter.py:_interp_kernel`.  It replays the
+stream as `pack_stream` packs it on the host, once per program: one
+16-byte word per instruction, its rows renamed to a compact set of
+shared-memory slots by a linear scan over each row version's live range
+(the instructions first put in demand order where that needs fewer
+slots), staged rows copied from the tiles `LOOKAHEAD` instructions
+before their first read instead of preloaded.  One thread owns 1, 2 or
+4 word columns of one wave; `launch_geometry` picks that and the block
+from the slot count and the SM count; all waves run in one
+launch.  Device memory sees each staged row once, but the replay's
+chain of dependent shared-memory accesses bounds it.  The kernel's
+plain twin `aap_interp_packed_plain` replays the packed words.  On a CPU
+tensor the wrapper runs that twin when given the packed stream (as the
+"cuda" engine gives it) and `aap_interp_plain` otherwise; on a CUDA
+tensor it launches the kernel or raises.
 
 Fault injection: `csrc/aap_interp_faulted.cu`, replacing
 `src/repro/kernels/aap_interpreter.py:_interp_kernel_faulted`, is the
@@ -46,19 +53,353 @@ from repro_torch.core.subarray import wrap_int32
 from repro_torch.kernels import _build
 
 # Shared memory one block may hold on Hopper (227 KB), and the widest
-# block the kernel uses.
+# block the faulted kernel uses.
 SMEM_BYTES = 232448
 MAX_BLOCK_COLS = 256
+# The fault-free kernel's launch geometry: shared memory of one SM (228
+# KB, 1 KB of it reserved per resident block), threads and blocks one SM
+# holds, the widest block, and the instruction chunk that each block
+# double-buffers in shared memory (16 bytes an instruction).
+SM_SMEM_BYTES = 233472
+BLOCK_RESERVED_SMEM = 1024
+SM_THREADS = 2048
+SM_BLOCKS = 32
+MAX_BLOCK_THREADS = 512
+STREAM_CHUNK = 256
+# Instructions between a staged row's copy and its first read (kLookahead
+# in csrc/aap_interp.cu), and the widest state the 16-bit row fields of a
+# packed instruction address.
+LOOKAHEAD = 16
+MAX_STATE_ROWS = 0xFFFF
 
 
 def block_cols(n_state: int) -> int:
-    """Columns per block: the widest multiple of 32 (at most 256) whose
-    state, 4 * n_state * C bytes, fits in one block's shared memory."""
+    """Columns per block of the faulted kernel: the widest multiple of 32
+    (at most 256) whose state, 4 * n_state * C bytes, fits in one block's
+    shared memory."""
     cols = min(MAX_BLOCK_COLS, SMEM_BYTES // (4 * n_state) // 32 * 32)
     if cols < 32:
         raise ValueError(f"{n_state} state rows do not fit one warp's "
                          "columns in shared memory")
     return cols
+
+
+def launch_geometry(n_slots: int, cols: int, waves: int, sm_count: int,
+                    words=(4, 2, 1)) -> Tuple[int, int, int]:
+    """(words per thread, threads per block, shared bytes per block) of
+    the fault-free kernel.  Each thread owns `w` neighbouring word
+    columns of one wave, and a block holds two instruction chunks and
+    (n_slots rounded up to odd) * 4 * w bytes a thread.  Of the `words`
+    choices and the
+    block widths that fit, the one with the fewest rounds of resident
+    blocks over `sm_count` SMs, then the most words a thread (one decode
+    for more words), then the fewest threads on the busiest SM within a
+    round, then the widest block."""
+    chunk = 2 * STREAM_CHUNK * 16
+    best = None
+    for w in words:
+        threads = -(-cols // w)
+        for t in range(32, MAX_BLOCK_THREADS + 1, 32):
+            smem = (n_slots | 1) * 4 * w * t + chunk
+            if smem > SMEM_BYTES:
+                break
+            per_sm = min(SM_SMEM_BYTES // (smem + BLOCK_RESERVED_SMEM),
+                         SM_THREADS // t, SM_BLOCKS)
+            blocks = -(-threads // t) * waves
+            rounds = -(-blocks // (per_sm * sm_count))
+            busiest = -(-blocks // (sm_count * rounds)) * t
+            key = (rounds, -w, busiest, -t)
+            if best is None or key < best[0]:
+                best = (key, w, t, smem)
+    if best is None:
+        raise ValueError(f"{n_slots} state slots do not fit one warp's "
+                         f"columns in shared memory")
+    return best[1:]
+
+
+class PackedStream:
+    """An encoded [n_ins, 19] stream packed for the fault-free kernel.
+
+    `words` [n_ins + 2, 4] int32: one 16-byte word per instruction (two
+    zero words pad the kernel's prefetch): the slots of reads a, b, c
+    and of writes 0 to 3 as 16-bit fields (x = a | b << 16, y = c | w0 <<
+    16, z = w1 | w2 << 16, w = w3 | flags << 16), flags holding the kind
+    (bits 0-1: 1 for BL = XNOR(a, b), 2 for MAJ3(a, b, c)), the read
+    complements (2-4), the write complements (5-8) and the number of
+    staged-row copies issued at this instruction (9-10).  Every word
+    reads three slots and writes four, so the kernel has no branch on
+    the kind or on a write: a COPY is XNOR(a, ~0) (b is slot 0,
+    complemented), an unused read is slot 0, and an unused write (or
+    one nobody reads) goes to slot 1, which is never read.  `loads`
+    int32 lists those copies as
+    tile row | slot << 16: the first `n_pre` before the loop, then in
+    instruction order, each issued `LOOKAHEAD` instructions before its
+    row's first read (four zero entries pad the prefetch).  `out_map`
+    [n_out, 2] int32: each output's slot, or -1 - tile row for a staged
+    row never written, and its complement flag.  Slot 0 holds zeros: a
+    read of a row that is neither staged nor written yet reads it.
+    `n_slots` counts the slots with slots 0 and 1; `peak_live` is the
+    most rows live at once."""
+
+    def __init__(self, words, loads, n_pre, out_map, n_ins, n_in, n_slots,
+                 peak_live):
+        self.words, self.loads, self.out_map = words, loads, out_map
+        self.n_pre, self.n_ins, self.n_in = n_pre, n_ins, n_in
+        self.n_slots, self.peak_live = n_slots, peak_live
+        self._on: Dict[torch.device, Tuple[torch.Tensor, ...]] = {}
+
+    def tensors(self, device) -> Tuple[torch.Tensor, ...]:
+        """(words, loads, out_map) on `device`, copied once."""
+        device = torch.device(device)
+        if device not in self._on:
+            self._on[device] = tuple(torch.from_numpy(a).to(device) for a in
+                                     (self.words, self.loads, self.out_map))
+        return self._on[device]
+
+
+_READS_OF_KIND = (1, 2, 3)      # COPY reads a; DRA a, b; TRA a, b, c
+
+
+def _linear_scan(intervals) -> Tuple[Dict[int, int], int]:
+    """Slots for (key, start, end) intervals: a slot is free for a new
+    interval once its last one ended before the new one starts.  Returns
+    ({key: slot}, slots used); slots 0 and 1 are kept back."""
+    import heapq
+    free, active, slot_of, used = [], [], {}, 1
+    for key, start, end in sorted(intervals, key=lambda x: (x[1], x[0])):
+        while active and active[0][0] < start:
+            heapq.heappush(free, heapq.heappop(active)[1])
+        if free:
+            slot = heapq.heappop(free)
+        else:
+            used += 1
+            slot = used
+        slot_of[key] = slot
+        heapq.heappush(active, (end, slot))
+    return slot_of, used
+
+
+def _demand_order(reads, writes, out_rows) -> list:
+    """An order of the instructions that keeps every read-after-write,
+    write-after-read and write-after-write dependency on a row, emitting
+    each instruction only when a later one needs it (depth first from
+    the instructions whose writes are read back, the latest predecessor
+    first; the rest after them in program order), so that a value is
+    made just before its first use and holds its row for less time."""
+    n = len(reads)
+    preds = [set() for _ in range(n)]
+    last_w: Dict[int, int] = {}
+    readers: Dict[int, list] = {}
+    for i in range(n):
+        for r in reads[i]:
+            if r in last_w:
+                preds[i].add(last_w[r])
+        for r in writes[i]:
+            if r in last_w:
+                preds[i].add(last_w[r])
+            preds[i].update(j for j in readers.get(r, ()) if j != i)
+        for r in reads[i]:
+            readers.setdefault(r, []).append(i)
+        for r in writes[i]:
+            last_w[r] = i
+            readers[r] = []
+    order, done = [], [False] * n
+    roots = sorted({last_w[r] for r in out_rows if r in last_w},
+                   reverse=True)
+    for root in roots + list(range(n)):
+        stack = [(root, iter(sorted(preds[root], reverse=True)))]
+        while stack:
+            node, todo = stack[-1]
+            nxt = next((p for p in todo if not done[p]), None)
+            if nxt is not None:
+                stack.append((nxt, iter(sorted(preds[nxt], reverse=True))))
+                continue
+            stack.pop()
+            if not done[node]:
+                done[node] = True
+                order.append(node)
+    return order
+
+
+def pack_stream(stream: np.ndarray, out_slots, n_state: int,
+                n_in: int) -> PackedStream:
+    """Pack an encoded [n_ins, 19] stream into one 16-byte word per
+    instruction over a compact set of shared-memory slots.
+
+    Each write of a row starts a version of it, live until its last read
+    (an output row's last version to the end); a staged row's initial
+    version is copied from the tiles `LOOKAHEAD` instructions before its
+    first read (all that fall before instruction `LOOKAHEAD` ahead of the
+    loop).  Versions nobody reads (and a write slot that a later slot of
+    the same instruction overwrites) are dropped: their write slots are
+    disabled.  Times order an instruction's copies before its reads
+    before its writes, so a write may reuse a slot whose last read is in
+    its own instruction, and a copy only one freed earlier.  Slots are
+    assigned by a linear scan over the versions' live ranges.
+
+    The stream is packed twice, in program order and in `_demand_order`,
+    and the packing with fewer slots is kept (program order on a tie):
+    demand order lets the staged XNOR products of a carry-save dot wait
+    for their adder instead of all being held at once (the K=128 serving
+    stream: 96 slots against 147), while program order needs fewer where
+    the adders share the DCC rows (the TMR stream: 138 against 142)."""
+    return min((_pack(stream, out_slots, n_state, n_in, demand)
+                for demand in (False, True)), key=lambda p: p.n_slots)
+
+
+def _pack(stream: np.ndarray, out_slots, n_state: int, n_in: int,
+          demand: bool) -> PackedStream:
+    """`pack_stream` in program order, or in `_demand_order` (the words
+    follow that order)."""
+    stream = np.asarray(stream, np.int64)
+    n_ins = stream.shape[0]
+    if n_state > MAX_STATE_ROWS:
+        raise ValueError(f"{n_state} state rows exceed the packed "
+                         f"stream's {MAX_STATE_ROWS} (16-bit row fields)")
+    if not 0 <= n_in <= n_state:
+        raise ValueError(f"{n_in} operand rows for {n_state} state rows")
+    rows = stream[:, [1, 3, 5, 7, 10, 13, 16]] if n_ins else np.zeros((0, 7))
+    if rows.size and (rows.min() < 0 or rows.max() >= n_state) or any(
+            not 0 <= r < n_state for r, _ in out_slots):
+        raise ValueError(f"stream addresses rows outside {n_state}")
+    if demand and n_ins:
+        stream = stream[_demand_order(
+            [{int(ins[1 + 2 * k]) for k in range(_READS_OF_KIND[ins[0]])}
+             for ins in stream],
+            [{int(ins[7 + 3 * k]) for k in range(4) if ins[9 + 3 * k]}
+             for ins in stream],
+            [r for r, _ in out_slots])]
+
+    # versions: [kind ("staged" | "written"), row, start, last read]
+    versions = []
+    cur = {}                            # row -> live version
+    reads = []                          # per instruction: version ids
+    writes = []                         # per instruction: version or None
+    for i in range(n_ins):
+        ins = stream[i]
+        kind = int(ins[0])
+        rd = []
+        for k in range(_READS_OF_KIND[kind]):
+            row = int(ins[1 + 2 * k])
+            v = cur.get(row)
+            if v is None and row < n_in:
+                v = cur[row] = len(versions)
+                versions.append(["staged", row, i, i])
+            if v is not None:
+                versions[v][3] = i
+            rd.append(v)
+        reads.append(rd)
+        last = {}                       # row -> its last enabled write slot
+        for k in range(4):
+            if ins[9 + 3 * k]:
+                last[int(ins[7 + 3 * k])] = k
+        wr = [None] * 4
+        for row, k in last.items():
+            wr[k] = cur[row] = len(versions)
+            versions.append(["written", row, i, None])
+        writes.append(wr)
+    outs = []
+    for row, neg in out_slots:
+        v = cur.get(row)
+        if v is not None:
+            versions[v][3] = n_ins      # read by the epilogue
+        outs.append((v, row, neg))
+
+    # live ranges in times: copies at 3i, reads at 3i + 1, writes at 3i + 2
+    def issue_at(v):
+        first = versions[v][2]
+        return first - LOOKAHEAD if first >= LOOKAHEAD else -1
+
+    live = [v for v, ver in enumerate(versions) if ver[3] is not None]
+    intervals = []
+    for v in live:
+        kind, _, start, end = versions[v]
+        begin = 3 * issue_at(v) if kind == "staged" else 3 * start + 2
+        intervals.append((v, begin, 3 * end + 1))
+    slot_of, used = _linear_scan(intervals)
+    if used + 1 > MAX_STATE_ROWS:
+        raise ValueError(f"{used + 1} slots exceed the packed stream's "
+                         f"{MAX_STATE_ROWS}")
+    _, peak = _linear_scan([
+        (v, 3 * s + (1 if k == "staged" else 2), 3 * e + 1)
+        for v, (k, _, s, e) in ((v, versions[v]) for v in live)])
+    peak -= 1
+
+    staged = sorted((issue_at(v), v) for v in live
+                    if versions[v][0] == "staged")
+    n_pre = sum(1 for at, _ in staged if at < 0)
+    n_loads = np.zeros(max(n_ins, 1), np.int64)
+    for at, _ in staged:
+        if at >= 0:
+            n_loads[at] += 1
+    loads = np.zeros(len(staged) + 4, np.int64)
+    for j, (_, v) in enumerate(staged):
+        loads[j] = versions[v][1] | slot_of[v] << 16
+
+    words = np.zeros((n_ins + 2, 4), np.int64)
+    for i in range(n_ins):
+        ins = stream[i]
+        kind = int(ins[0])
+        f = max(kind, 1) | int(n_loads[i]) << 9
+        if kind == 0:                   # COPY: BL = XNOR(a, ~slot 0) = a
+            f |= 1 << 3
+        sl = [0, 0, 0, 1, 1, 1, 1]      # unused reads: slot 0; writes: 1
+        for k, v in enumerate(reads[i]):
+            sl[k] = slot_of[v] if v is not None else 0
+            f |= int(ins[2 + 2 * k]) << (2 + k)
+        for k, v in enumerate(writes[i]):
+            if v is not None and v in slot_of:
+                sl[3 + k] = slot_of[v]
+                f |= int(ins[8 + 3 * k]) << (5 + k)
+        words[i] = (sl[0] | sl[1] << 16, sl[2] | sl[3] << 16,
+                    sl[4] | sl[5] << 16, sl[6] | f << 16)
+    out_map = np.array(
+        [(slot_of[v] if v is not None else (-1 - row if row < n_in else 0),
+          neg) for v, row, neg in outs], np.int64).reshape(-1, 2)
+    as32 = lambda a: a.astype(np.uint32).view(np.int32)  # noqa: E731
+    return PackedStream(as32(words), as32(loads), n_pre,
+                        out_map.astype(np.int32), n_ins, n_in, used + 1,
+                        peak)
+
+
+def aap_interp_packed_plain(packed: PackedStream,
+                            tiles: torch.Tensor) -> torch.Tensor:
+    """Plain torch twin of the kernel: replays the packed words over a
+    [n_slots, waves, cols] state, issuing the staged-row copies where
+    the kernel issues them and reading back `out_map`."""
+    waves, n_in, cols = tiles.shape
+    if n_in != packed.n_in:
+        raise ValueError(f"tiles hold {n_in} operand rows, the packed "
+                         f"stream {packed.n_in}")
+    state = torch.zeros((packed.n_slots, waves, cols), dtype=torch.int32,
+                        device=tiles.device)
+    loads = packed.loads.view(np.uint32).tolist()
+    pos = 0
+
+    def issue(count: int) -> None:
+        nonlocal pos
+        for e in loads[pos:pos + count]:
+            state[e >> 16] = tiles[:, e & 0xFFFF]
+        pos += count
+
+    issue(packed.n_pre)
+    for x, y, z, w in packed.words[:packed.n_ins].view(np.uint32).tolist():
+        f = w >> 16
+        issue(f >> 9 & 3)
+        a, b, c = (state[s] ^ -(f >> (2 + k) & 1)
+                   for k, s in enumerate((x & 0xFFFF, x >> 16, y & 0xFFFF)))
+        if f & 3 == 2:
+            bl = (a & b) | (a & c) | (b & c)
+        else:
+            bl = ~(a ^ b)
+        for k, s in enumerate((y >> 16, z & 0xFFFF, z >> 16, w & 0xFFFF)):
+            state[s] = bl ^ -(f >> (5 + k) & 1)
+    outs = [(state[code] if code >= 0 else tiles[:, -1 - code]) ^ -neg
+            for code, neg in packed.out_map.tolist()]
+    if not outs:
+        return torch.zeros((waves, 0, cols), dtype=torch.int32,
+                           device=tiles.device)
+    return torch.stack(outs, dim=1)
 
 
 @functools.lru_cache(maxsize=None)
@@ -67,7 +408,8 @@ def _lib() -> ctypes.CDLL:
     lib.aap_interp.argtypes = [
         ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_int,
         ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_int,
-        ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+        ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_int,
+        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
     lib.aap_interp.restype = ctypes.c_int
     return lib
 
@@ -143,12 +485,30 @@ def _check_operands(named, device) -> None:
             raise ValueError(f"{name} lies on {t.device}, tiles on {device}")
 
 
+def words_choices(cols: int, ptr: int) -> Tuple[int, ...]:
+    """Word columns a thread may own: those of 4, 2 and 1 that divide
+    `cols` and the tiles' address (so every thread's words are one
+    aligned vector)."""
+    return tuple(w for w in (4, 2, 1) if cols % w == 0 and ptr % (4 * w) == 0)
+
+
+@functools.lru_cache(maxsize=None)
+def sm_count(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
 def aap_interp(stream: torch.Tensor, tiles: torch.Tensor,
-               out_slots: torch.Tensor, n_state: int) -> torch.Tensor:
+               out_slots: torch.Tensor, n_state: int, *,
+               packed: PackedStream | None = None) -> torch.Tensor:
     """Replay `stream` [n_ins, 19] int32 over `tiles` [waves, n_in, cols]
     int32 (operand rows of each wave), reading back `out_slots` [n_out, 2]
     int32 (state row, complement flag).  Returns [waves, n_out, cols]
-    int32.  All three tensors contiguous and on one device."""
+    int32.  All three tensors contiguous and on one device.
+
+    `packed` is `pack_stream` of the same stream and read-back for these
+    tiles' n_in; without it a CUDA call packs it here, reading the stream
+    to the host.  With it a CPU call runs the kernel's plain twin
+    `aap_interp_packed_plain`, without it `aap_interp_plain`."""
     _check_operands((("stream", stream, 2), ("tiles", tiles, 3),
                      ("out_slots", out_slots, 2)), tiles.device)
     if stream.shape[1] != KSTREAM_COLS or out_slots.shape[1] != 2:
@@ -156,21 +516,39 @@ def aap_interp(stream: torch.Tensor, tiles: torch.Tensor,
     waves, n_in, cols = tiles.shape
     if n_in > n_state:
         raise ValueError(f"{n_in} operand rows exceed {n_state} state rows")
+    if n_state > MAX_STATE_ROWS:
+        raise ValueError(f"{n_state} state rows exceed the packed stream's "
+                         f"{MAX_STATE_ROWS} (16-bit row fields)")
+    if packed is not None and (packed.n_ins != stream.shape[0]
+                               or packed.n_in != n_in
+                               or len(packed.out_map) != out_slots.shape[0]):
+        raise ValueError("packed stream does not match stream, tiles and "
+                         "out_slots")
     if tiles.device.type == "cpu":
+        if packed is not None:
+            return aap_interp_packed_plain(packed, tiles)
         return aap_interp_plain(stream, tiles, out_slots, n_state)
     if tiles.device.type != "cuda":
         raise ValueError(f"aap_interp runs on cpu or cuda, not {tiles.device}")
+    if packed is None:
+        packed = pack_stream(stream.cpu().numpy(),
+                             out_slots.cpu().tolist(), n_state, n_in)
     n_out = out_slots.shape[0]
     out = torch.empty((waves, n_out, cols), dtype=torch.int32,
                       device=tiles.device)
     if out.numel() == 0:
         return out
+    w, threads, smem = launch_geometry(
+        packed.n_slots, cols, waves, sm_count(tiles.device),
+        words_choices(cols, tiles.data_ptr()))
+    p_words, p_loads, p_out = packed.tensors(tiles.device)
     with torch.cuda.device(tiles.device):
         cuda_stream = torch.cuda.current_stream().cuda_stream
         _build.check(_lib().aap_interp(
-            stream.data_ptr(), stream.shape[0], tiles.data_ptr(), n_in,
-            out_slots.data_ptr(), n_out, out.data_ptr(), n_state, cols,
-            waves, block_cols(n_state), cuda_stream), "aap_interp")
+            p_words.data_ptr(), packed.n_ins, p_loads.data_ptr(),
+            packed.n_pre, tiles.data_ptr(), n_in,
+            p_out.data_ptr(), n_out, out.data_ptr(), packed.n_slots, cols,
+            waves, w, threads, smem, cuda_stream), "aap_interp")
     aap_interp.launches += 1
     return out
 
@@ -288,7 +666,8 @@ def cuda_wave_fn(program: Tuple[AAP, ...], result_rows: Tuple[int, ...],
     Returns `run(staged)` mapping [waves, n_rows_in, chips, banks,
     subarrays, row_words] int32 to the readback block [waves,
     len(result_rows), ...].  The stream is encoded once per (program,
-    n_rows) and copied once to each device it runs on.
+    n_rows), packed once per number of staged rows and copied once to
+    each device it runs on.
 
     With a `FaultModel` (an active wave model) the faulted kernel runs:
     per-instruction thresholds come from the program, and the column
@@ -328,6 +707,7 @@ def cuda_wave_fn(program: Tuple[AAP, ...], result_rows: Tuple[int, ...],
                  else _op_thresholds(program, faults).view(np.int32))
     on_device: Dict[torch.device, Tuple[torch.Tensor, ...]] = {}
     metas: Dict[Tuple, torch.Tensor] = {}
+    packs: Dict[int, PackedStream] = {}        # by operand rows staged
 
     def run(staged: torch.Tensor) -> torch.Tensor:
         waves, n_in = staged.shape[:2]
@@ -345,7 +725,10 @@ def cuda_wave_fn(program: Tuple[AAP, ...], result_rows: Tuple[int, ...],
         tiles = staged.reshape(waves, n_in, -1)
         if faults is None:
             stream, slots = on_device[dev]
-            out = aap_interp(stream, tiles, slots, n_state)
+            if n_in not in packs:
+                packs[n_in] = pack_stream(stream_np, out_slots, n_state, n_in)
+            out = aap_interp(stream, tiles, slots, n_state,
+                             packed=packs[n_in])
         else:
             stream, slots, thresh, pins = on_device[dev]
             geom = (dev,) + tuple(staged.shape[2:])

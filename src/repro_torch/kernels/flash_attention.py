@@ -17,11 +17,11 @@ Kernels: `csrc/flash_attn_fwd.cu` replaces the TPU kernel
 `csrc/flash_attn_bwd.cu` its `_bwd_dkv_kernel` (`flash_bwd_dkv`: dk, dv)
 and `_bwd_dq_kernel` (`flash_bwd_dq`: dq).  Each output tile has one
 owner block that loops over the reduction itself, keeping its sums in
-registers, so operations bound all three.  In bfloat16 the forward and
-dkv run their products on the tensor cores (`mma.sync`, bf16 operands,
-float32 sums; dkv splits p and ds into bf16 hi + lo halves); in float32,
-and dq in both types, the work is float32 multiply-adds on the CUDA
-cores (see the sources for the designs).
+registers, so operations bound all three.  In bfloat16 all three run
+their products on the tensor cores (`mma.sync`, bf16 operands, float32
+sums; dkv splits p and ds, dq splits ds, into bf16 hi + lo halves); in
+float32 the work is float32 multiply-adds on the CUDA cores (see the
+sources for the designs).
 `flash_attention` is the reference's custom VJP as a
 `torch.autograd.Function`: the forward kernel, then both backward
 kernels.  On CPU tensors every wrapper runs its plain version; on CUDA

@@ -1,0 +1,152 @@
+"""Time the fault-free AAP interpreter kernel on the streams the main paths
+launch, at their shapes, so two checkouts can be compared on one card.
+
+    python3 src/repro_torch/launch/interp_timing.py [--src DIR] [--label L]
+
+`--src` names the `src` directory whose `repro_torch` is imported and
+timed (default: the one this file lies in); run the script once per
+checkout in one call, alternating them, to compare two versions of the
+kernel.  Cases, each over DRIM-R waves of 65,536 word columns with tiles
+from `np.random.default_rng(0)`:
+
+  - serving K=128: the decode launch of the "cuda" serving route, 1 wave;
+  - K=32 dot: the bulk phase's carry-save K=32 dot, 1 wave;
+  - TMR K=128 fault-free: the faults phase's TMR stream, 4 waves;
+  - not, xnor2, add: Fig. 8's ops through the "cuda" engine, 256 waves
+    (2**29 bits a plane).
+
+Each case prints one JSON line: the device time per launch in a CUDA
+graph (`ms`), the eager time per call (`call_ms`) and a SHA-256 of the
+output words, which must agree between checkouts.  The wrapper is called
+as the engine calls it: with the packed stream where it takes one.  The
+card's name and power limit come first.
+"""
+from __future__ import annotations
+
+import argparse
+import hashlib
+import inspect
+import json
+import os
+import subprocess
+import sys
+
+import numpy as np
+
+WAVE_COLS = 65536             # DRIM-R: 16,384 sub-arrays x 128 bits / 32
+BULK_WAVES = 256              # 2**29 bits over DRIM-R's 2**21 a wave
+
+
+def graph_ms(torch, fn, iters: int = 10, replays: int = 5) -> float:
+    """Mean device time per call of `fn`, `iters` calls captured in one
+    CUDA graph and replayed `replays` times between two CUDA events."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(iters):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    stop.record()
+    stop.synchronize()
+    return start.elapsed_time(stop) / (iters * replays)
+
+
+def call_ms(torch, fn, iters: int = 20) -> float:
+    """Mean eager time per call of `fn` between two CUDA events."""
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    stop.record()
+    stop.synchronize()
+    return start.elapsed_time(stop) / iters
+
+
+def cases():
+    """(label, program, readback rows, template rows, staged rows,
+    waves) of each timed launch."""
+    from repro_torch.core import DRIM_R
+    from repro_torch.pim import compile as drim_compile
+    from repro_torch.pim.bnn import bnn_dot_graph_carrysave, serving_lowering
+    from repro_torch.pim.scheduler import OP_ARITY
+    out = []
+    fp = serving_lowering(128, engine="cuda", geom=DRIM_R).fp
+    out.append(("serving K=128", fp.program, fp.readback_rows,
+                fp.template_rows, len(fp.loaded_inputs), 1))
+    for label, k, harden, waves in (("K=32 dot", 32, None, 1),
+                                    ("TMR K=128 fault-free", 128, "tmr", 4)):
+        fp = drim_compile(bnn_dot_graph_carrysave(k)[0], geom=DRIM_R).lower(
+            "cuda", harden=harden).fp
+        out.append((label, fp.program, fp.readback_rows, fp.template_rows,
+                    len(fp.loaded_inputs), waves))
+    for op in ("not", "xnor2", "add"):
+        low = drim_compile(op).lower("cuda")
+        out.append((op, low.program, low.result_rows, low.n_rows,
+                    OP_ARITY[op], BULK_WAVES))
+    return out
+
+
+def main() -> None:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--src", default=os.path.join(
+        os.path.dirname(os.path.abspath(__file__)), os.pardir, os.pardir))
+    ap.add_argument("--label", default="")
+    args = ap.parse_args()
+    sys.path.insert(0, os.path.abspath(args.src))
+    import torch
+    if not torch.cuda.is_available():
+        raise SystemExit("interp_timing needs a CUDA card")
+    from repro_torch.core import dcc_state_rows, encode_kernel_stream, \
+        kstream_slot
+    from repro_torch.kernels import aap_interpreter
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, check=True).stdout.strip()
+    print(f"card {smi.splitlines()[0]}", flush=True)
+    dev = torch.device("cuda")
+    takes_packed = "packed" in inspect.signature(
+        aap_interpreter.aap_interp).parameters
+    rng = np.random.default_rng(0)
+    for label, prog, readback, n_rows, n_in, waves in cases():
+        stream_np = encode_kernel_stream(prog, n_rows=n_rows)
+        stream = torch.from_numpy(stream_np).to(dev)
+        slot_list = [kstream_slot(r, n_rows) for r in readback]
+        slots = torch.tensor(slot_list, dtype=torch.int32, device=dev)
+        n_state = dcc_state_rows(n_rows)
+        kw = {}
+        if takes_packed:
+            kw["packed"] = aap_interpreter.pack_stream(stream_np, slot_list,
+                                                       n_state, n_in)
+        tiles = torch.from_numpy(rng.integers(
+            -2**31, 2**31, (waves, n_in, WAVE_COLS), dtype=np.int32)).to(dev)
+
+        def run():
+            return aap_interpreter.aap_interp(stream, tiles, slots, n_state,
+                                              **kw)
+        out = run()
+        digest = hashlib.sha256(out.cpu().numpy().tobytes()).hexdigest()
+        rec = {"label": args.label, "case": label, "n_ins": len(prog),
+               "waves": waves, "n_in": n_in, "cols": WAVE_COLS,
+               "n_state": n_state, "ms": graph_ms(torch, run),
+               "call_ms": call_ms(torch, run), "sha256": digest[:16]}
+        if takes_packed:
+            rec["slots"] = kw["packed"].n_slots
+        print("interp " + json.dumps(rec), flush=True)
+        del tiles, out
+
+
+if __name__ == "__main__":
+    main()

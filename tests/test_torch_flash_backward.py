@@ -5,9 +5,9 @@ in interpret mode) and through its `sdpa_ref` oracle, at
 tolerance (rtol = atol = 2e-4).  On the CPU the autograd Function and the
 kernel wrappers run the plain backward; the tests marked `cuda` hold the
 two CUDA kernels (dkv, dq) against it on the card and skip without one.
-The bfloat16 dkv kernel runs on the tensor cores with p and ds split into
-bfloat16 hi + lo halves; CPU tests emulate its numerics and show why the
-split is needed to stay within one bfloat16 ulp.
+The bfloat16 dkv and dq kernels run on the tensor cores with p and ds
+split into bfloat16 hi + lo halves; CPU tests emulate their numerics and
+show why the split is needed to stay within one bfloat16 ulp.
 The reference is imported by the `jref` fixture, so the `cuda` tests also
 run where JAX is not installed:
 
@@ -41,7 +41,7 @@ CARD_CASES = [
 # near zero)
 CARD_TOL = {"float32": dict(rtol=TOL, atol=TOL),
             "bfloat16": dict(rtol=2 ** -7, atol=4e-3)}
-# the bfloat16 tensor-core dkv kernel's edges (b, h, hkv, sq, sk, d,
+# the bfloat16 tensor-core dkv and dq kernels' edges (b, h, hkv, sq, sk, d,
 # causal): every head width, Sq != Sk both ways, ragged tiles, non-causal,
 # n_rep 1, 2, 3 and 4
 BF16_CARD_CASES = [
@@ -162,6 +162,71 @@ def test_bf16_single_rounding_of_p_and_ds_breaks_one_ulp():
     worst = [max(ulps_off(g, w) for g, w in zip(*bf16_grads(
         1, 4, 1, 64, 192, 128, True, seed, split=False)))
         for seed in range(3)]
+    assert max(worst) > 1.0, worst
+
+
+def emulate_bf16_dq(q, k, v, do, lse, delta, causal, n_rep, split=True):
+    """The bfloat16 dq kernel's numerics in plain torch: float32 scores of
+    bfloat16 inputs, p and ds in float32 as in `emulate_bf16_dkv`, then dq
+    = ds k with ds as a bfloat16 operand (hi + lo halves when `split`,
+    else one rounding) and float32 sums, rounded to bfloat16 once."""
+    def bf16(t):
+        return t.to(torch.bfloat16).float()
+
+    def operand(t):
+        return bf16(t) + bf16(t - bf16(t)) if split else bf16(t)
+
+    sq, d = q.shape[2], q.shape[3]
+    sk = k.shape[2]
+    qf, dof = q.float(), do.float()
+    kf, vf = (t.float().repeat_interleave(n_rep, 1) for t in (k, v))
+    s = qf @ kf.transpose(-1, -2) / d ** 0.5
+    live = torch.ones(sq, sk, dtype=torch.bool)
+    if causal:
+        live = torch.arange(sq)[:, None] >= torch.arange(sk)
+    p = torch.where(live, torch.exp(s - lse[..., None]), 0.0)
+    ds = p * (dof @ vf.transpose(-1, -2) - delta[..., None]) / d ** 0.5
+    return (operand(ds) @ kf).to(q.dtype)
+
+
+def bf16_dq(b, h, hkv, sq, sk, d, causal, seed, split):
+    """(emulated dq, plain dq) for seeded bfloat16 inputs."""
+    q, k, v, do = make(b, h, hkv, sq, sk, d, "bfloat16", seed)
+    n_rep = h // hkv
+    out, lse = fa.flash_attention_plain(q, k, v, causal, n_rep)
+    dq = fa.flash_attention_bwd_plain(q, k, v, out, lse, do, causal,
+                                      n_rep)[0]
+    return emulate_bf16_dq(q, k, v, do, lse, fa._delta(out, do), causal,
+                           n_rep, split), dq
+
+
+@pytest.mark.parametrize("b,h,hkv,sq,sk,d,causal,seed", [
+    *((2, 4, 2, 256, 256, 64, True, s) for s in range(3)),
+    *((1, 4, 1, 64, 192, 128, True, s) for s in range(3)),
+    *((2, 4, 4, 192, 320, 64, False, s) for s in range(3)),
+    *((1, 12, 4, 512, 512, 64, True, s) for s in range(3)),
+    (1, 4, 1, 2048, 2048, 64, True, 0)])
+def test_bf16_split_of_ds_keeps_dq_within_one_ulp(b, h, hkv, sq, sk, d,
+                                                  causal, seed):
+    """ds as bfloat16 hi + lo halves (the tensor-core dq kernel's numerics,
+    emulated) keeps dq within one bfloat16 ulp of the float32 plain
+    backward, up to 2048 tokens."""
+    got, want = bf16_dq(b, h, hkv, sq, sk, d, causal, seed, split=True)
+    torch.testing.assert_close(got.float(), want.float(),
+                               **CARD_TOL["bfloat16"])
+
+
+def test_bf16_single_rounding_of_ds_breaks_one_ulp_in_dq():
+    """Why the dq kernel splits: rounded to bfloat16 once, ds puts dq more
+    than one bfloat16 ulp from the plain backward (1.34 and 1.36 ulps at
+    512 tokens, 12 query heads, D = 128, seeds 0 and 1; 1.04 at D = 64,
+    seed 0; 0.65 at 2048 tokens, 4 heads), where the split keeps each
+    within 0.48."""
+    worst = [ulps_off(*bf16_dq(*shape, seed, split=False))
+             for shape, seed in (((1, 12, 4, 512, 512, 128, True), 0),
+                                 ((1, 12, 4, 512, 512, 128, True), 1),
+                                 ((1, 12, 4, 512, 512, 64, True), 0),
+                                 ((1, 4, 1, 2048, 2048, 64, True), 0))]
     assert max(worst) > 1.0, worst
 
 
@@ -360,3 +425,24 @@ def test_bf16_tensor_core_dkv_on_the_card(cuda, b, h, hkv, sq, sk, d, causal,
                                    **CARD_TOL["bfloat16"])
     if causal and sk > sq:
         assert not got[1][:, :, sq:].any() and not got[2][:, :, sq:].any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("seed", [0, 1, 2])
+@pytest.mark.parametrize("b,h,hkv,sq,sk,d,causal", BF16_CARD_CASES)
+def test_bf16_tensor_core_dq_on_the_card(cuda, b, h, hkv, sq, sk, d, causal,
+                                         seed):
+    q, k, v, do = make(b, h, hkv, sq, sk, d, "bfloat16", seed, device=cuda)
+    n_rep = h // hkv
+    out, lse = fa.flash_fwd(q, k, v, causal=causal, n_rep=n_rep, bq=16,
+                            bk=16)
+    before = fa.flash_bwd_dq.launches
+    got = fa.flash_bwd_dq(q, k, v, do, lse, fa._delta(out, do),
+                          causal=causal, n_rep=n_rep)
+    torch.cuda.synchronize()
+    assert fa.flash_bwd_dq.launches == before + 1
+    want = fa.flash_attention_bwd_plain(q, k, v, out, lse, do, causal,
+                                        n_rep)[0]
+    assert got.dtype == want.dtype and got.shape == want.shape
+    torch.testing.assert_close(got.float(), want.float(),
+                               **CARD_TOL["bfloat16"])

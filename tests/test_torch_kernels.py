@@ -201,6 +201,7 @@ def test_interp_rejects_addresses_outside_the_template():
 
 
 def test_block_cols_fit_shared_memory():
+    # the faulted kernel: n_state rows of shared memory per column
     assert aap_interpreter.block_cols(267) == 192      # K=128 serving kernel
     assert aap_interpreter.block_cols(510) == 96       # the 500-row budget
     for n_state in (3, 267, 510, 1816):
@@ -208,33 +209,245 @@ def test_block_cols_fit_shared_memory():
         assert c % 32 == 0 and 4 * n_state * c <= aap_interpreter.SMEM_BYTES
     with pytest.raises(ValueError):
         aap_interpreter.block_cols(2000)
+    # the fault-free kernel: slots, words per thread and the SM count
+    geometry = aap_interpreter.launch_geometry
+    # the K=128 serving stream's 96 slots over one full DRIM-R wave: 4
+    # words a thread, 128 blocks of 128 threads, one round on 132 SMs
+    chunks = 2 * aap_interpreter.STREAM_CHUNK * 16
+    assert geometry(96, 65536, 1, 132) == (4, 128, 97 * 4 * 4 * 128 + chunks)
+    assert geometry(97, 65536, 1, 132) == geometry(96, 65536, 1, 132)
+    for slots in (1, 31, 95, 137, 269, 1700):
+        for cols, waves in ((65536, 1), (65536, 4), (1000, 3)):
+            w, t, smem = geometry(slots, cols, waves, 132)
+            assert w in (1, 2, 4) and t % 32 == 0
+            assert smem == (slots | 1) * 4 * w * t + chunks
+            assert smem <= aap_interpreter.SMEM_BYTES
+    assert geometry(269, 65536, 1, 132, words=(1,))[0] == 1
+    with pytest.raises(ValueError):
+        geometry(2000, 65536, 1, 132)
+
+
+# the packed stream of the fault-free kernel, held on the CPU by its
+# plain twin: random soups (DCC aliases, complemented slots), staged rows
+# copied before the loop and inside it, in both instruction orders
+@pytest.mark.parametrize("trial", range(4))
+def test_packed_twin_equals_plain_and_pallas(jref, trial):
+    rng = np.random.default_rng(7 + trial)
+    n_rows, n_in = 12, 5
+    readback = tuple(range(n_rows + 4))
+    ref_prog = random_program(rng, jref.isa, n_rows, 40 + 60 * trial)
+    prog = tuple(isa.AAP(i.op, i.args) for i in ref_prog)
+    tiles = rng.integers(0, 2 ** 32, (n_in, 2, 1, 5), dtype=np.uint32)
+    want = np.asarray(jref.interp.pallas_wave_fn(
+        ref_prog, readback, n_rows, interpret=True)(jref.jnp.asarray(tiles)))
+    stream = isa.encode_kernel_stream(prog, n_rows=n_rows)
+    slots = [isa.kstream_slot(r, n_rows) for r in readback]
+    n_state = isa.dcc_state_rows(n_rows)
+    flat = words(tiles).reshape(1, n_in, -1)
+    plain = aap_interpreter.aap_interp_plain(
+        torch.from_numpy(stream), flat, torch.tensor(slots, dtype=torch.int32),
+        n_state)
+    np.testing.assert_array_equal(u32(plain[0]).reshape(want.shape), want)
+    for demand in (False, True):
+        packed = aap_interpreter._pack(stream, slots, n_state, n_in, demand)
+        assert packed.n_slots <= n_state + 2
+        assert torch.equal(aap_interpreter.aap_interp_packed_plain(
+            packed, flat), plain), demand
+    assert aap_interpreter.pack_stream(stream, slots, n_state, n_in).n_slots \
+        == min(aap_interpreter._pack(stream, slots, n_state, n_in, d).n_slots
+               for d in (False, True))
+
+
+@pytest.mark.parametrize("trial", range(2))
+def test_packed_twin_copies_staged_rows_inside_the_loop(jref, trial):
+    """Staged rows first read past the lookahead: a soup over the rows
+    that are not staged (DCC aliases included), then one TRA of three
+    staged rows (three copies issued at one instruction), then a soup
+    over every row.  The copies issued inside the loop land where the
+    twin reads them, in both instruction orders."""
+    rng = np.random.default_rng(11 + trial)
+    n_rows, n_in = 12, 5
+    readback = tuple(range(n_rows + 4))
+    lead = 2 * aap_interpreter.LOOKAHEAD + 7 * trial
+    ref_prog = tuple(
+        jref.isa.AAP(i.op, tuple(a + n_in for a in i.args)) for i in
+        random_program(rng, jref.isa, n_rows - n_in, lead)) + (
+        jref.isa.AAP(isa.OP_TRA, (0, 1, 2, n_in)),) + random_program(
+        rng, jref.isa, n_rows, 60)
+    prog = tuple(isa.AAP(i.op, i.args) for i in ref_prog)
+    tiles = rng.integers(0, 2 ** 32, (n_in, 1, 2, 3), dtype=np.uint32)
+    want = np.asarray(jref.interp.pallas_wave_fn(
+        ref_prog, readback, n_rows, interpret=True)(jref.jnp.asarray(tiles)))
+    stream = isa.encode_kernel_stream(prog, n_rows=n_rows)
+    slots = [isa.kstream_slot(r, n_rows) for r in readback]
+    flat = words(tiles).reshape(1, n_in, -1)
+    for demand in (False, True):
+        packed = aap_interpreter._pack(stream, slots,
+                                       isa.dcc_state_rows(n_rows), n_in,
+                                       demand)
+        flags = packed.words[:packed.n_ins, 3].view(np.uint32) >> 16
+        assert packed.n_pre < len(packed.loads) - 4, demand
+        assert (flags >> 9 & 3).max() == 3, demand
+        got = aap_interpreter.aap_interp_packed_plain(packed, flat)
+        np.testing.assert_array_equal(u32(got[0]).reshape(want.shape), want)
+
+
+def test_packing_constants_match_the_kernel():
+    """The host packs the staged-row copies LOOKAHEAD instructions ahead
+    and sizes shared memory for two STREAM_CHUNK chunks; the kernel is
+    built with the same kLookahead and kChunk."""
+    import pathlib
+    import re
+    src = (pathlib.Path(aap_interpreter.__file__).parents[1] / "csrc" /
+           "aap_interp.cu").read_text()
+    for name, value in (("kLookahead", aap_interpreter.LOOKAHEAD),
+                        ("kChunk", aap_interpreter.STREAM_CHUNK)):
+        found = re.findall(rf"constexpr int {name} = (\d+);", src)
+        assert found == [str(value)], (name, found)
+
+
+def test_packed_twin_of_the_empty_program(jref):
+    tiles = np.arange(2 * 3 * 4, dtype=np.uint32).reshape(2, 1, 3, 4)
+    readback = (0, 1, 5, 10, 11)                # rows, untouched rows, DCC
+    want = np.asarray(jref.interp.pallas_wave_fn(
+        (), readback, 10, interpret=True)(jref.jnp.asarray(tiles)))
+    slots = [isa.kstream_slot(r, 10) for r in readback]
+    packed = aap_interpreter.pack_stream(
+        np.zeros((0, isa.KSTREAM_COLS), np.int32), slots, 12, 2)
+    assert packed.n_slots == 2 and packed.n_pre == 0
+    got = aap_interpreter.aap_interp_packed_plain(
+        packed, words(tiles).reshape(1, 2, -1))
+    np.testing.assert_array_equal(u32(got[0]).reshape(want.shape), want)
+
+
+@pytest.fixture(scope="module")
+def carry_save_streams():
+    """{label: (program, readback rows, template rows, staged rows)} of
+    the carry-save dots the chip phases run: K=32, K=128 bare (the
+    serving stream) and hardened."""
+    from repro_torch.core import DRIM_R
+    from repro_torch.pim.bnn import bnn_dot_graph_carrysave
+    out = {}
+    for k, harden in ((32, None), (128, None), (128, "tmr"), (128, "ecc"),
+                      (128, "tmr+ecc")):
+        graph, _ = bnn_dot_graph_carrysave(k)
+        fp = compiler.compile(graph, geom=DRIM_R).lower(
+            "cuda", harden=harden).fp
+        out[f"K={k} {harden or 'bare'}"] = (
+            fp.program, fp.readback_rows, fp.template_rows,
+            len(fp.loaded_inputs))
+    return out
+
+
+@pytest.mark.parametrize("label", ["K=32 bare", "K=128 bare", "K=128 tmr",
+                                   "K=128 ecc", "K=128 tmr+ecc"])
+def test_packed_twin_on_carry_save_streams(jref, carry_save_streams, label):
+    """The serving, bulk and faults phases' streams: the packed twin (the
+    "cuda" engine's wave function on CPU tensors) equals the plain replay
+    and the reference's Pallas kernel in interpret mode."""
+    prog, readback, n_rows, n_in = carry_save_streams[label]
+    rng = np.random.default_rng(len(prog))
+    tiles = rng.integers(0, 2 ** 32, (n_in, 1, 2, 1, 3), dtype=np.uint32)
+    want = np.asarray(jref.interp.pallas_wave_fn(
+        tuple(jref.isa.AAP(i.op, i.args) for i in prog), readback, n_rows,
+        interpret=True)(jref.jnp.asarray(tiles)))
+    got = aap_interpreter.cuda_wave_fn(prog, readback, n_rows)(
+        words(tiles)[None])
+    np.testing.assert_array_equal(u32(got[0]), want)
+    stream = isa.encode_kernel_stream(prog, n_rows=n_rows)
+    slots = [isa.kstream_slot(r, n_rows) for r in readback]
+    n_state = isa.dcc_state_rows(n_rows)
+    plain = aap_interpreter.aap_interp_plain(
+        torch.from_numpy(stream), words(tiles).reshape(1, n_in, -1),
+        torch.tensor(slots, dtype=torch.int32), n_state)
+    np.testing.assert_array_equal(u32(plain[0]).reshape(want.shape), want)
+    packed = aap_interpreter.pack_stream(stream, slots, n_state, n_in)
+    assert packed.peak_live < packed.n_slots <= n_state + 2
+    # (slots with zeros and the sink, live-row peak) in program order and
+    # in demand order: demand order needs fewer for the bare dots, program
+    # order for the hardened streams, whose adders share the DCC rows;
+    # pack_stream keeps the fewer (the serving stream: 96 of 267 rows)
+    orders = {"K=32 bare": ((51, 35), (32, 25)),
+              "K=128 bare": ((147, 131), (96, 89)),
+              "K=128 tmr": ((138, 136), (142, 138)),
+              "K=128 ecc": ((261, 259), (263, 261)),
+              "K=128 tmr+ecc": ((270, 268), (272, 270))}[label]
+    for demand, (n_slots, peak) in zip((False, True), orders):
+        p = aap_interpreter._pack(stream, slots, n_state, n_in, demand)
+        assert (p.n_slots, p.peak_live) == (n_slots, peak), demand
+    assert (packed.n_slots, packed.peak_live) == min(orders)
+
+
+def test_pack_refuses_more_rows_than_16_bits_address():
+    empty = np.zeros((0, isa.KSTREAM_COLS), np.int32)
+    assert aap_interpreter.pack_stream(empty, [], 65535, 0).n_slots == 2
+    with pytest.raises(ValueError, match="65535"):
+        aap_interpreter.pack_stream(empty, [], 65536, 0)
+    with pytest.raises(ValueError, match="65535"):
+        aap_interpreter.aap_interp(
+            torch.zeros((0, 19), dtype=torch.int32),
+            torch.zeros((1, 1, 4), dtype=torch.int32),
+            torch.zeros((0, 2), dtype=torch.int32), 70000)
 
 
 @pytest.mark.cuda
-def test_interp_kernel_equals_plain(cuda):
-    rng = np.random.default_rng(5)
-    n_rows = 20
-    prog = random_program(rng, isa, n_rows, 300)
-    stream = torch.from_numpy(isa.encode_kernel_stream(
-        prog, n_rows=n_rows)).to(cuda)
-    slots = torch.tensor([isa.kstream_slot(r, n_rows)
-                          for r in range(n_rows + 4)],
-                         dtype=torch.int32, device=cuda)
-    tiles = torch.from_numpy(rng.integers(-2 ** 31, 2 ** 31, (3, 6, 1000),
+@pytest.mark.parametrize("cols,words_", [(1000, 4), (1002, 2), (999, 1),
+                                         (65536, 4)])
+def test_interp_kernel_equals_plain(cuda, cols, words_):
+    """The packed kernel against the plain replay and its plain twin: a
+    700-AAP soup (three shared-memory chunks of the stream) over 3 waves
+    of ragged widths that give 4, 2 and 1 words a thread, and the K=128
+    serving stream over one full DRIM-R wave (65,536 word columns)."""
+    rng = np.random.default_rng(5 + cols)
+    if cols == 65536:
+        from repro_torch.core import DRIM_R
+        from repro_torch.pim.bnn import serving_lowering
+        fp = serving_lowering(128, engine="cuda", geom=DRIM_R).fp
+        prog, readback, n_rows = (fp.program, fp.readback_rows,
+                                  fp.template_rows)
+        waves, n_in = 1, len(fp.loaded_inputs)
+    else:
+        n_rows = 20
+        prog = random_program(rng, isa, n_rows, 700)
+        readback = range(n_rows + 4)
+        waves, n_in = 3, 6
+    stream_np = isa.encode_kernel_stream(prog, n_rows=n_rows)
+    stream = torch.from_numpy(stream_np).to(cuda)
+    slot_list = [isa.kstream_slot(r, n_rows) for r in readback]
+    slots = torch.tensor(slot_list, dtype=torch.int32, device=cuda)
+    tiles = torch.from_numpy(rng.integers(-2 ** 31, 2 ** 31,
+                                          (waves, n_in, cols),
                                           dtype=np.int32)).to(cuda)
     n_state = isa.dcc_state_rows(n_rows)
-    got = aap_interpreter.aap_interp(stream, tiles, slots, n_state)
+    packed = aap_interpreter.pack_stream(stream_np, slot_list, n_state, n_in)
+    assert aap_interpreter.launch_geometry(
+        packed.n_slots, cols, waves,
+        torch.cuda.get_device_properties(cuda).multi_processor_count,
+        aap_interpreter.words_choices(cols, tiles.data_ptr()))[0] == words_
+    before = aap_interpreter.aap_interp.launches
+    got = aap_interpreter.aap_interp(stream, tiles, slots, n_state,
+                                     packed=packed)
     torch.cuda.synchronize()
+    assert aap_interpreter.aap_interp.launches == before + 1
+    assert torch.equal(got, aap_interpreter.aap_interp_packed_plain(
+        packed, tiles))
     assert torch.equal(got, aap_interpreter.aap_interp_plain(
+        stream, tiles, slots, n_state))
+    # packed by the wrapper itself
+    assert torch.equal(got, aap_interpreter.aap_interp(
         stream, tiles, slots, n_state))
 
 
 @pytest.mark.cuda
-def test_cuda_engine_on_the_card(cuda):
+@pytest.mark.parametrize("full_wave", [False, True])
+def test_cuda_engine_on_the_card(cuda, full_wave):
     """The whole "cuda" engine path on the card: staging, the interpreter
-    kernel over several waves, decoding; dots equal the numpy ±1 product."""
+    kernel over several waves (or over one full DRIM-R wave of 65,536
+    word columns), decoding; dots equal the numpy ±1 product."""
+    from repro_torch.core import DRIM_R
     from repro_torch.pim.bnn import bnn_dot_drim, serve_bnn_matmul
-    geom = DrimGeometry(chips=1, banks=2, subarrays_per_bank=4, row_bits=64)
+    geom = DRIM_R if full_wave else DrimGeometry(
+        chips=1, banks=2, subarrays_per_bank=4, row_bits=64)
     rng = np.random.default_rng(6)
     a = rng.integers(0, 2, (37, 150)).astype(np.uint8)
     b = rng.integers(0, 2, (29, 150)).astype(np.uint8)
@@ -244,6 +457,8 @@ def test_cuda_engine_on_the_card(cuda):
                            device=cuda)
     assert aap_interpreter.aap_interp.launches == before + 3
     np.testing.assert_array_equal(got.cpu().numpy(), want)
+    if full_wave:
+        return
     got, sched = bnn_dot_drim(a[:, :20], b[:, :20], geom=geom,
                               accumulate="carrysave", engine="cuda",
                               device=cuda)
