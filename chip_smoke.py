@@ -4,30 +4,35 @@
     python3 chip_smoke.py
 
 Phases, each fatal on failure:
-  1. build   -- compile the nine CUDA sources of `src/repro_torch/csrc/`
+  1. build   -- compile the eight CUDA sources of `src/repro_torch/csrc/`
                 (one nvcc per source, all started together), print
                 ptxas's registers and spills per kernel, and count each
-                flash kernel's tensor-core instructions (HMMA) in its
-                SASS: the bfloat16 forward, dkv and dq kernels must
-                have some, the float32 ones none ("sass" lines);
+                flash kernel's tensor-core instructions (HMMA) and the
+                XNOR GEMM's (IMMA) in their SASS: the bfloat16 forward,
+                dkv and dq kernels and the GEMM must have some, the
+                float32 flash kernels none ("sass" lines);
   2. kernels -- hold each kernel against its plain torch version on the
                 card at the main paths' shapes plus a ragged shape (exact
                 equality for the integer kernels; flash attention's float32
                 output at the reference test's 2e-5, its bfloat16 output
                 within about one bfloat16 ulp), and time kernel, plain
                 version and, where one exists, one PyTorch call computing
-                the same function (float32 matmul for the GEMM, SDPA for
-                flash attention); the AAP interpreter on its packed stream
+                the same function (`torch._int_mm` on the +-1 int8
+                operands for the GEMM, at its decode, prefill and FFN
+                shapes, and a float32 matmul beside it; SDPA for flash
+                attention); the AAP interpreter on its packed stream
                 at the serving decode shape (K=128, one full DRIM-R wave),
                 the bulk phase's K=32 dot (one wave), the TMR stream
                 fault-free over 4 waves and a ragged soup,
                 against the plain replay and its plain twin ("detail"
                 lines with slots, words_per_thread, block_cols and
                 smem_bound_ms);
-                the fault-injecting interpreter at the
-                TMR-hardened K=128 stream over 4 DRIM-R waves and at a
-                ragged shape with stuck rows, protected ops and a bank
-                offset; the bulk bit-wise kernels (not, the binary and
+                the fault-injecting interpreter on its packed stream
+                (stuck rows folded in) at the TMR-hardened K=128 stream
+                over 4 DRIM-R waves and at a ragged shape with stuck
+                rows, protected ops and a bank offset, against the plain
+                replay and the packed twin (its slots, words_per_thread
+                and smem_bound_ms); the bulk bit-wise kernels (not, the binary and
                 the ternary ops), the bit-plane adder and the sign
                 unpacker exactly, at the bulk phase's shapes and at ragged
                 ones (a length no block divides, a start one word off
@@ -139,6 +144,7 @@ M_ROWS = 512                      # activation rows: a 512-token prefill
 HBM_BYTES_S = 3.35e12
 INT32_OPS_S = 67e12 / 4
 BF16_FLOPS_S = 989e12             # dense tensor-core bf16 peak
+INT8_OPS_S = 1979e12              # dense tensor-core int8 peak
 
 # flash attention, (atol, rtol) of out against the plain version: float32
 # at the reference test's 2e-5 (tests/test_flash_attention.py); bfloat16
@@ -302,9 +308,8 @@ def sm_clock_mhz() -> float:
 def phase_build():
     from repro_torch.kernels import _build
     t0 = time.time()
-    sources = ["pack_signs", "xnor_gemm", "aap_interp", "aap_interp_faulted",
-               "flash_attn_fwd", "flash_attn_bwd", "bitwise", "bitplane_add",
-               "unpack_signs"]
+    sources = ["pack_signs", "xnor_gemm", "aap_interp", "flash_attn_fwd",
+               "flash_attn_bwd", "bitwise", "bitplane_add", "unpack_signs"]
     reports = _build.build(sources)
     missing = [n for n in sources if not _build._lib_path(n).exists()]
     if missing:
@@ -325,12 +330,14 @@ def phase_build():
 
 
 def check_tensor_cores(_build):
-    """Count the tensor-core instructions (HMMA) of each flash kernel in
-    the built libraries' SASS ("sass" lines): the bfloat16 forward, dkv
-    and dq kernels must have some, the float32 ones none."""
+    """Count the tensor-core instructions of the flash kernels (HMMA) and
+    of the XNOR GEMM (IMMA) in the built libraries' SASS ("sass" lines):
+    the bfloat16 forward, dkv and dq kernels and the GEMM must have some,
+    the float32 flash kernels none."""
     import shutil
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
-    for name in ("flash_attn_fwd", "flash_attn_bwd"):
+    for name, op in (("flash_attn_fwd", "HMMA"), ("flash_attn_bwd", "HMMA"),
+                     ("xnor_gemm", "IMMA")):
         sass = subprocess.run([tool, "-sass", str(_build._lib_path(name))],
                               capture_output=True, text=True,
                               check=True).stdout
@@ -340,13 +347,16 @@ def check_tensor_cores(_build):
             if "Function :" in line:
                 fn = line.split("Function :")[-1].strip()
                 counts[fn] = 0
-            elif fn is not None and "HMMA" in line:
+            elif fn is not None and op in line:
                 counts[fn] += 1
+        if not counts:
+            raise AssertionError(f"{name}: no function in the SASS")
         for fn, n in sorted(counts.items()):
             print("sass " + json.dumps({"source": name, "function": fn,
-                                        "hmma": n}))
-            if ("bf16_kernel" in fn) != (n > 0):
-                raise AssertionError(f"{name} {fn}: {n} HMMA instructions")
+                                        op.lower(): n}))
+            want = "bf16_kernel" in fn if op == "HMMA" else True
+            if want != (n > 0):
+                raise AssertionError(f"{name} {fn}: {n} {op} instructions")
 
 
 def phase_kernels(rng):
@@ -392,9 +402,15 @@ def phase_kernels(rng):
                 shape=f"[{rows},{k}] float32 -> [{rows},{-(-k // 32)}] int32")
 
     # -- XNOR-popcount GEMM -------------------------------------------------
-    gemm_shapes = [(M_ROWS, d_ff, d_model), (M_ROWS, d_model, d_ff),
-                   (100, 77, 700)]                      # ragged M, N, K
-    for m, n, k in gemm_shapes:
+    # the FFN pair at M_ROWS rows, the serving decode (batch 4) and prefill
+    # (batch 4 x 256 tokens) through both projections, ragged shapes
+    gemm_shapes = [("ffn", M_ROWS, d_ff, d_model),
+                   ("ffn", M_ROWS, d_model, d_ff),
+                   ("decode", 4, d_ff, d_model), ("decode", 4, d_model, d_ff),
+                   ("prefill", 1024, d_ff, d_model),
+                   ("prefill", 1024, d_model, d_ff),
+                   ("ragged", 100, 77, 700), ("ragged", 17, 9, 1)]
+    for use, m, n, k in gemm_shapes:
         w = -(-k // 32)
         a = torch.from_numpy(rng.integers(-2**31, 2**31, (m, w),
                                           dtype=np.int32)).to(dev)
@@ -406,27 +422,41 @@ def phase_kernels(rng):
         ms = graph_ms(lambda: xnor_popcount.xnor_gemm_packed(a, b, k), 50)
         call_ms = cuda_ms(lambda: xnor_popcount.xnor_gemm_packed(a, b, k), 200)
         plain_ms = graph_ms(lambda: xnor_popcount.xnor_gemm_plain(a, b, k), 3)
-        # The same function as one PyTorch call: the ±1 operands through
-        # a float32 torch.matmul, TF32 off (exact: every partial sum is an
-        # integer below 2**24; a bf16 product would round its bf16 output
-        # above 256).  A yardstick only; the port never calls it.
-        pa = unpack_signs_ref(a, torch.float32)[:, :k].contiguous()
-        pb = unpack_signs_ref(b, torch.float32)[:, :k].T.contiguous()
-        lib_out = torch.matmul(pa, pb)
-        if not torch.equal(lib_out.to(torch.int32), got):
+        # The same function as one PyTorch call, yardsticks the port never
+        # calls: torch._int_mm on the +-1 int8 operands (exact in int32;
+        # it takes M > 16 and K, N multiples of 8), and beside it a
+        # float32 torch.matmul, TF32 off (exact: every partial sum is an
+        # integer below 2**24).
+        pa8 = unpack_signs_ref(a, torch.int8)[:, :k].contiguous()
+        pb8 = unpack_signs_ref(b, torch.int8)[:, :k].contiguous()
+        library_ms, library_note = None, None
+        if m > 16 and k % 8 == 0 and n % 8 == 0:
+            if not torch.equal(torch._int_mm(pa8, pb8.T), got):
+                raise AssertionError("torch._int_mm yardstick disagrees")
+            library_ms = graph_ms(lambda: torch._int_mm(pa8, pb8.T), 50)
+        else:
+            library_note = ("torch._int_mm takes M > 16 and K, N multiples "
+                            f"of 8, not {m} x {k} x {n}")
+        pa, pb = pa8.to(torch.float32), pb8.to(torch.float32).T.contiguous()
+        if not torch.equal(torch.matmul(pa, pb).to(torch.int32), got):
             raise AssertionError("float32 torch.matmul yardstick disagrees")
-        library_ms = graph_ms(lambda: torch.matmul(pa, pb), 50)
-        nbytes = (m + n) * w * 4 + m * n * 4
-        b_ms, b_by = bound(nbytes, 3 * m * n * w)
+        library_fp32_ms = graph_ms(lambda: torch.matmul(pa, pb), 50)
+        # the least time: inputs read once and the int32 output written
+        # once over HBM, against 2 M N K int8 operations on the tensor cores
+        b_ms, b_by = bound((m + n) * w * 4 + m * n * 4, 2 * m * n * k,
+                           INT8_OPS_S)
         print("detail " + json.dumps({
-            "kernel": "xnor_gemm", "shape": [m, n, k], "ms": ms,
+            "kernel": "xnor_gemm", "use": use, "shape": [m, n, k], "ms": ms,
             "call_ms": call_ms, "plain_ms": plain_ms,
-            "library_ms": library_ms, "bound_ms": b_ms}))
+            "library_ms": library_ms, "library_note": library_note,
+            "library_fp32_ms": library_fp32_ms, "bound_ms": b_ms,
+            "bound_by": b_by}))
         if (m, n, k) == (M_ROWS, d_ff, d_model):
             records["xnor_gemm"] = dict(
                 max_abs_err=err, ms=ms, call_ms=call_ms, plain_ms=plain_ms,
                 bound_ms=b_ms,
                 bound_by=b_by, library_ms=library_ms,
+                library_fp32_ms=library_fp32_ms,
                 shape=f"[{m},{w}] x [{n},{w}] int32, K={k} -> [{m},{n}] int32")
 
     # -- AAP interpreter ------------------------------------------------------
@@ -490,16 +520,7 @@ def phase_kernels(rng):
         w, threads, _ = aap_interpreter.launch_geometry(
             packed.n_slots, ncols, waves, sms,
             aap_interpreter.words_choices(ncols, tiles.data_ptr()))
-        # shared-memory traffic: per instruction its three reads and the
-        # writes that are read later (not to the sink, slot 1), per staged
-        # row its copy, per output its read, 4 bytes a word column, over
-        # the SMs' 128 bytes a clock
-        fields = packed.words[:packed.n_ins].view(np.uint32)
-        writes = np.stack([fields[:, 1] >> 16, fields[:, 2] & 0xFFFF,
-                           fields[:, 2] >> 16, fields[:, 3] & 0xFFFF])
-        accesses = 3 * packed.n_ins + int((writes != 1).sum()) + \
-            len(packed.loads) - 4 + int((packed.out_map[:, 0] >= 0).sum())
-        smem_ms = accesses * 4 * waves * ncols / (sms * 128 * sm_clock_hz) * 1e3
+        smem_ms = smem_bound_ms(packed, waves, ncols, sms, sm_clock_hz)
         print("detail " + json.dumps({
             "kernel": "aap_interp", "case": label, "n_ins": len(prog),
             "n_in": n_in, "n_state": n_state, "slots": packed.n_slots,
@@ -522,6 +543,20 @@ def phase_kernels(rng):
     records.update(phase_flash_bwd(rng))
     records.update(phase_bulk_kernels(rng))
     return records
+
+
+def smem_bound_ms(packed, waves: int, cols: int, sms: int,
+                  sm_clock_hz: float) -> float:
+    """The interpreter's shared-memory bound: per instruction its three
+    reads and the writes that are read later (not to the sink, slot 1),
+    per staged row its copy, per output its read, 4 bytes a word column,
+    over the SMs' 128 bytes a clock."""
+    fields = packed.words[:packed.n_ins].view(np.uint32)
+    writes = np.stack([fields[:, 1] >> 16, fields[:, 2] & 0xFFFF,
+                       fields[:, 2] >> 16, fields[:, 3] & 0xFFFF])
+    accesses = 3 * packed.n_ins + int((writes != 1).sum()) + \
+        len(packed.loads) - 4 + int((packed.out_map[:, 0] >= 0).sum())
+    return accesses * 4 * waves * cols / (sms * 128 * sm_clock_hz) * 1e3
 
 
 def faulted_operands(prog, n_rows, readback, waves, n_in, geom4, faults,
@@ -550,11 +585,12 @@ def faulted_operands(prog, n_rows, readback, waves, n_in, geom4, faults,
 
 
 def phase_faulted_kernel(rng):
-    """The fault-injecting interpreter against its plain version: the
-    TMR-hardened K=128 stream at the Table-3 corner over the faults
-    phase's 4 DRIM-R waves, and a ragged soup with two stuck rows (one an
-    operand row), protected ops and a bank offset.  Returns the record of
-    the first."""
+    """The fault-injecting interpreter on its packed stream (stuck rows
+    folded in, as the "cuda" engine packs it) against the plain replay and
+    the packed twin: the TMR-hardened K=128 stream at the Table-3 corner
+    over the faults phase's 4 DRIM-R waves, and a ragged soup with three
+    stuck rows (an operand row, a result row and a DCC cell), protected
+    ops and a bank offset.  Returns the record of the first."""
     from repro_torch.core import AAP, DRIM_R, FaultModel
     from repro_torch.kernels import aap_interpreter
     from repro_torch.launch import faults as payload
@@ -573,26 +609,36 @@ def phase_faulted_kernel(rng):
                                for _ in range(arity[op])))
                  for op in (int(rng.integers(0, 4)) for _ in range(300)))
     ragged = FaultModel(p_dra=0.3, p_tra=0.4, seed=5,
-                        stuck_rows=((2, 1), (17, 0)),
+                        stuck_rows=((2, 1), (17, 0), (21, 1)),
                         protected_ops=tuple(range(0, 300, 7)))
     cases = [("tmr K=128", fp.program, fp.readback_rows, fp.template_rows,
               payload.WAVES, len(fp.loaded_inputs), geom4, corner, (0, None)),
              ("ragged soup", soup, tuple(range(n_rows + 4)), n_rows, 3, 6,
               (1, 3, 37, 9), ragged, (2, 8))]
     record = None
+    sm_clock_hz = sm_clock_mhz() * 1e6
+    sms = torch.cuda.get_device_properties("cuda").multi_processor_count
     for label, prog, readback, n_rows_t, waves, n_in, g4, faults, bank in cases:
         args = faulted_operands(prog, n_rows_t, readback, waves, n_in, g4,
                                 faults, bank, rng)
-        got = aap_interpreter.aap_interp_faulted(*args)
+        stream, thresh, meta, tiles = args[:4]
+        packed = aap_interpreter.pack_stream(
+            stream.cpu().numpy(), args[4].tolist(), args[5], n_in,
+            stuck=args[6].tolist())
+
+        def run():
+            return aap_interpreter.aap_interp_faulted(*args, packed=packed)
+        got = run()
         err = check_equal(f"aap_interp_faulted {label}", got,
                           aap_interpreter.aap_interp_faulted_plain(*args))
-        ms = graph_ms(lambda: aap_interpreter.aap_interp_faulted(*args), 5)
-        call_ms = cuda_ms(lambda: aap_interpreter.aap_interp_faulted(*args),
-                          10)
+        check_equal(f"aap_interp_faulted {label} (plain twin)", got,
+                    aap_interpreter.aap_interp_packed_plain(
+                        packed, tiles, thresh, meta, args[7]))
+        ms = graph_ms(run, 5)
+        call_ms = cuda_ms(run, 10)
         # the plain replay reads the stream to the host: timed eagerly
         plain_ms = cuda_ms(lambda: aap_interpreter.aap_interp_faulted_plain(
             *args), 1)
-        stream, thresh, meta, tiles = args[:4]
         armed = int((thresh != 0).sum())
         cols = tiles.shape[2]
         nbytes = 4 * (tiles.numel() + got.numel() + stream.numel()
@@ -600,6 +646,10 @@ def phase_faulted_kernel(rng):
         n_sub = cols // g4[3]           # sub-arrays: one draw each
         b_ms, b_by = bound(nbytes, waves * cols * len(prog)
                            + n_sub * HASH_OPS * armed)
+        w, threads, _ = aap_interpreter.launch_geometry(
+            packed.n_slots, cols, waves, sms,
+            aap_interpreter.words_choices(cols, tiles.data_ptr()),
+            faulted=True)
         flips = int((got != aap_interpreter.aap_interp(
             stream, tiles, args[4], args[5])).sum())
         if flips == 0:
@@ -608,18 +658,23 @@ def phase_faulted_kernel(rng):
         print("detail " + json.dumps({
             "kernel": "aap_interp_faulted", "case": label,
             "n_ins": len(prog), "armed": armed, "n_in": n_in,
-            "n_state": args[5], "waves": waves, "cols": cols,
-            "block_cols": aap_interpreter.block_cols(args[5]),
+            "n_state": args[5], "slots": packed.n_slots,
+            "peak_live": packed.peak_live, "waves": waves, "cols": cols,
+            "words_per_thread": w, "block_threads": threads,
             "stuck_rows": list(faults.stuck_rows),
             "words_differing_from_fault_free": flips,
             "ms": ms, "call_ms": call_ms, "plain_ms": plain_ms,
-            "bound_ms": b_ms, "bound_by": b_by}))
+            "bound_ms": b_ms, "bound_by": b_by,
+            "smem_bound_ms": smem_bound_ms(packed, waves, cols, sms,
+                                           sm_clock_hz),
+            "sm_clock_mhz": sm_clock_hz / 1e6}))
         if record is None:
             record = dict(
                 max_abs_err=err, ms=ms, call_ms=call_ms, plain_ms=plain_ms,
                 bound_ms=b_ms, bound_by=b_by, library_ms=None,
                 shape=f"{len(prog)} AAPs ({armed} armed) over [{waves},{n_in},"
-                      f"{cols}] int32, {args[5]} state rows")
+                      f"{cols}] int32, {packed.n_slots} slots of {args[5]} "
+                      f"state rows")
         del args, got
     return record
 
@@ -1629,7 +1684,7 @@ def main() -> int:
         "aap_interp": ("src/repro_torch/csrc/aap_interp.cu",
                        "src/repro/kernels/aap_interpreter.py:64 "
                        "_interp_kernel"),
-        "aap_interp_faulted": ("src/repro_torch/csrc/aap_interp_faulted.cu",
+        "aap_interp_faulted": ("src/repro_torch/csrc/aap_interp.cu",
                                "src/repro/kernels/aap_interpreter.py:106 "
                                "_interp_kernel_faulted"),
         "flash_attn_fwd": ("src/repro_torch/csrc/flash_attn_fwd.cu",
@@ -1667,6 +1722,7 @@ def main() -> int:
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
             "library_ms": r["library_ms"],
             "library_device_ms": r.get("library_device_ms"),
+            "library_fp32_ms": r.get("library_fp32_ms"),
             "shape": r["shape"]})
     print(json.dumps({"kernels": kernels}))
     smi = subprocess.run(

@@ -1,9 +1,12 @@
 // AAP bit-plane interpreter: replays a packed AAP stream
 // (repro_torch.kernels.aap_interpreter.pack_stream of the [n_ins, 19]
 // micro-op table of repro_torch.core.isa.encode_kernel_stream) over every
-// word column of every wave of a staged payload.
+// word column of every wave of a staged payload, fault-free or with the
+// Table-3 fault injection.
 //
-// Replaces src/repro/kernels/aap_interpreter.py:_interp_kernel.  The TPU
+// Replaces src/repro/kernels/aap_interpreter.py:_interp_kernel (the
+// instantiation kFaulted = false) and _interp_kernel_faulted (kFaulted =
+// true, described at the end of this note).  The TPU
 // kernel keeps a [n_state, 4096] block of row planes in VMEM and steps a
 // program counter over it.  The stream is the same for every word column,
 // and columns never exchange data, so here one thread owns W = 1, 2 or 4
@@ -144,6 +147,17 @@ __device__ __forceinline__ void store_row(uint32_t* p, const Row<W>& r,
   }
 }
 
+constexpr uint32_t kPosSalt = 0x85EBCA6Bu;
+
+__device__ __forceinline__ uint32_t mix32(uint32_t x) {
+  x ^= x >> 16;
+  x *= 0x7FEB352Du;
+  x ^= x >> 15;
+  x *= 0x846CA68Bu;
+  x ^= x >> 16;
+  return x;
+}
+
 // all ones where bit B of f is set (two shifts)
 template <int B>
 __device__ __forceinline__ uint32_t negmask(uint32_t f) {
@@ -151,7 +165,7 @@ __device__ __forceinline__ uint32_t negmask(uint32_t f) {
 }
 
 
-template <int W>
+template <int W, bool kFaulted>
 __global__ void aap_interp_kernel(const uint4* __restrict__ words, int n_ins,
                                   const uint32_t* __restrict__ loads,
                                   int n_pre,
@@ -159,10 +173,16 @@ __global__ void aap_interp_kernel(const uint4* __restrict__ words, int n_ins,
                                   int n_in,
                                   const int32_t* __restrict__ out_map,
                                   int n_out, uint32_t* __restrict__ out,
-                                  int n_slots, long long cols) {
+                                  int n_slots, long long cols,
+                                  const uint2* __restrict__ fault,
+                                  const uint32_t* __restrict__ meta,
+                                  uint32_t n_positions) {
   extern __shared__ uint4 smem[];
   uint4* chunks = smem;                        // [2][kChunk]
-  uint32_t* state = reinterpret_cast<uint32_t*>(smem + 2 * kChunk);
+  // kFaulted: [2][kChunk] (threshold, i * golden) beside the words
+  uint2* fchunks = reinterpret_cast<uint2*>(smem + 2 * kChunk);
+  uint32_t* state = reinterpret_cast<uint32_t*>(
+      smem + 2 * kChunk + (kFaulted ? kChunk : 0));
   const int nt = blockDim.x;
   const int t = threadIdx.x;
   // thread t's slots, W words each, an odd number of slots apart
@@ -188,8 +208,26 @@ __global__ void aap_interp_kernel(const uint4* __restrict__ words, int n_ins,
       const bool in = at < n_ins + 2;
       cp_async<16>(smem_u32(chunks + (c & 1) * kChunk + e),
                    words + (in ? at : 0), in ? 16 : 0);
+      if constexpr (kFaulted)
+        cp_async<8>(smem_u32(fchunks + (c & 1) * kChunk + e),
+                    fault + (in ? at : 0), in ? 8 : 0);
     }
   };
+
+  // kFaulted: this thread's slot hash and first word id, and whether its
+  // W words share them (one draw per instruction) or straddle sub-arrays
+  uint32_t slot_h = 0u, word0 = 0u;
+  bool one_draw = true;
+  if constexpr (kFaulted) {
+    if (live) {
+      slot_h = __ldg(meta + col);
+      word0 = __ldg(meta + cols + col);
+#pragma unroll
+      for (int k = 1; k < W; ++k)
+        one_draw = one_draw && __ldg(meta + col + k) == slot_h &&
+                   __ldg(meta + cols + col + k) == word0 + k;
+    }
+  }
 
   const Row<W> zero{};
   store_row<W>(slot(0), zero, 0u);
@@ -199,6 +237,8 @@ __global__ void aap_interp_kernel(const uint4* __restrict__ words, int n_ins,
   cp_async_wait<0>();
   __syncthreads();
   uint4 cur = chunks[0], nxt = chunks[1];
+  uint2 fcur = make_uint2(0u, 0u), fnxt = fcur;
+  if constexpr (kFaulted) fcur = fchunks[0], fnxt = fchunks[1];
   for (int p = 0; p < n_pre; ++p) copy_row(__ldg(loads + p));
   cp_async_commit();
 #pragma unroll
@@ -223,8 +263,10 @@ __global__ void aap_interp_kernel(const uint4* __restrict__ words, int n_ins,
       __syncthreads();
       copy_chunk(i / kChunk + 2);
     }
-    const uint4 after =                        // the word of i + 2
-        chunks[((i + 2) / kChunk & 1) * kChunk + (i + 2) % kChunk];
+    const int at = ((i + 2) / kChunk & 1) * kChunk + (i + 2) % kChunk;
+    const uint4 after = chunks[at];            // the word of i + 2
+    uint2 fafter = make_uint2(0u, 0u);
+    if constexpr (kFaulted) fafter = fchunks[at];
 
     // no branch on the kind: BL = MAJ3(a, b, c) where the kind is 2, else
     // XNOR(a, b) (a COPY reads b as slot 0 complemented)
@@ -240,6 +282,35 @@ __global__ void aap_interp_kernel(const uint4* __restrict__ words, int n_ins,
       const uint32_t maj = (x & y) | (x & z) | (y & z);
       bl.w[k] = (maj & tra) | (~(x ^ y) & ~tra);
     }
+    if constexpr (kFaulted) {
+      // the draw inline, for armed instructions only (drawing it for every
+      // instruction two ahead, off the chain of shared-memory accesses, was
+      // slower on an H100: 4.13 against 3.77 ms, the TMR stream over 4
+      // waves)
+      const uint32_t th = fcur.x;
+      if (th != 0u) {
+        if (one_draw) {
+          const uint32_t x = mix32(slot_h ^ fcur.y);
+          if (x < th) {
+            const uint32_t pos = mix32(x ^ kPosSalt) % n_positions;
+            const uint32_t d = (pos >> 5) - word0;
+#pragma unroll
+            for (int k = 0; k < W; ++k)
+              if (d == static_cast<uint32_t>(k)) bl.w[k] ^= 1u << (pos & 31u);
+          }
+        } else {                              // words straddle sub-arrays
+#pragma unroll
+          for (int k = 0; k < W; ++k) {
+            const uint32_t x = mix32(__ldg(meta + col + k) ^ fcur.y);
+            if (x < th) {
+              const uint32_t pos = mix32(x ^ kPosSalt) % n_positions;
+              if ((pos >> 5) == __ldg(meta + cols + col + k))
+                bl.w[k] ^= 1u << (pos & 31u);
+            }
+          }
+        }
+      }
+    }
     // the four write slots in argument order; an unused one writes slot 1
     store_row<W>(slot(cur.y >> 16), bl, negmask<5>(f));
     store_row<W>(slot(cur.z & 0xffffu), bl, negmask<6>(f));
@@ -247,6 +318,7 @@ __global__ void aap_interp_kernel(const uint4* __restrict__ words, int n_ins,
     store_row<W>(slot(cur.w & 0xffffu), bl, negmask<8>(f));
     cur = nxt;
     nxt = after;
+    if constexpr (kFaulted) fcur = fnxt, fnxt = fafter;
   }
   cp_async_wait<0>();
   if (!live) return;
@@ -269,28 +341,61 @@ struct Args {
   long long cols;
   int waves, threads, smem;
   cudaStream_t stream;
+  const void *fault, *meta;                   // kFaulted only
+  int n_positions;
 };
 
-template <int W>
+template <int W, bool kFaulted>
 int launch(const Args& a) {
   static int smem_set = 0;                    // the attribute is per kernel
   if (a.smem > smem_set) {
     const cudaError_t err = cudaFuncSetAttribute(
-        aap_interp_kernel<W>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        a.smem);
+        aap_interp_kernel<W, kFaulted>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, a.smem);
     if (err != cudaSuccess) return static_cast<int>(err);
     smem_set = a.smem;
   }
   const long long threads = a.cols / W;
   const dim3 grid(static_cast<unsigned>((threads + a.threads - 1) / a.threads),
                   static_cast<unsigned>(a.waves));
-  aap_interp_kernel<W><<<grid, a.threads, a.smem, a.stream>>>(
+  aap_interp_kernel<W, kFaulted><<<grid, a.threads, a.smem, a.stream>>>(
       static_cast<const uint4*>(a.words), a.n_ins,
       static_cast<const uint32_t*>(a.loads), a.n_pre,
       static_cast<const uint32_t*>(a.tiles), a.n_in,
       static_cast<const int32_t*>(a.out_map), a.n_out,
-      static_cast<uint32_t*>(a.out), a.n_slots, a.cols);
+      static_cast<uint32_t*>(a.out), a.n_slots, a.cols,
+      static_cast<const uint2*>(a.fault),
+      static_cast<const uint32_t*>(a.meta),
+      static_cast<uint32_t>(a.n_positions));
   return static_cast<int>(cudaGetLastError());
+}
+
+// the checks both entry points make; 0 when the launch may go ahead
+int check_args(const Args& a, int w, int chunk_bytes) {
+  const long long need =
+      2LL * kChunk * chunk_bytes +
+      static_cast<long long>(a.n_slots | 1) * 4 * w * a.threads;
+  if ((w != 1 && w != 2 && w != 4) ||
+      a.cols % w != 0 || a.threads <= 0 || a.threads % 32 != 0 ||
+      a.smem < need || a.n_slots < 1 || a.n_slots > 0xffff)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if ((reinterpret_cast<uintptr_t>(a.tiles) |
+       reinterpret_cast<uintptr_t>(a.out)) % (4 * w) ||
+      reinterpret_cast<uintptr_t>(a.words) % 16 ||
+      reinterpret_cast<uintptr_t>(a.fault) % 8)
+    return static_cast<int>(cudaErrorMisalignedAddress);
+  return 0;
+}
+
+template <bool kFaulted>
+int dispatch(const Args& a, int w) {
+  const int err = check_args(a, w, kFaulted ? 16 + 8 : 16);
+  if (err) return err;
+  switch (w) {
+    case 4: return launch<4, kFaulted>(a);
+    case 2: return launch<2, kFaulted>(a);
+    default: return launch<1, kFaulted>(a);
+  }
 }
 
 }  // namespace
@@ -306,24 +411,28 @@ extern "C" int aap_interp(const void* words, int n_ins, const void* loads,
                           int n_slots, long long cols, int waves,
                           int words_per_thread, int block_threads,
                           int smem_bytes, void* cuda_stream) {
-  const int w = words_per_thread;
-  const long long need =
-      2 * kChunk * 16 +
-      static_cast<long long>(n_slots | 1) * 4 * w * block_threads;
-  if ((w != 1 && w != 2 && w != 4) ||
-      cols % w != 0 || block_threads <= 0 || block_threads % 32 != 0 ||
-      smem_bytes < need || n_slots < 1 || n_slots > 0xffff)
-    return static_cast<int>(cudaErrorInvalidValue);
-  if ((reinterpret_cast<uintptr_t>(tiles) | reinterpret_cast<uintptr_t>(out)) %
-          (4 * w) ||
-      reinterpret_cast<uintptr_t>(words) % 16)
-    return static_cast<int>(cudaErrorMisalignedAddress);
   const Args a{words, loads, tiles, out_map, out, n_ins, n_pre, n_in, n_out,
                n_slots, cols, waves, block_threads, smem_bytes,
-               static_cast<cudaStream_t>(cuda_stream)};
-  switch (w) {
-    case 4: return launch<4>(a);
-    case 2: return launch<2>(a);
-    default: return launch<1>(a);
-  }
+               static_cast<cudaStream_t>(cuda_stream), nullptr, nullptr, 0};
+  return dispatch<false>(a, words_per_thread);
+}
+
+// aap_interp with fault injection: the stream packed with the stuck rows
+// folded in, fault [n_ins + 2] (threshold, i * 0x9E3779B9) per packed
+// word, meta [2, cols] (slot hash, word id) per column, n_positions the
+// row width in bits; smem_bytes also covers the two fault chunks.
+extern "C" int aap_interp_faulted(const void* words, const void* fault,
+                                  int n_ins, const void* loads, int n_pre,
+                                  const void* tiles, int n_in,
+                                  const void* meta, int n_positions,
+                                  const void* out_map, int n_out, void* out,
+                                  int n_slots, long long cols, int waves,
+                                  int words_per_thread, int block_threads,
+                                  int smem_bytes, void* cuda_stream) {
+  if (n_positions <= 0) return static_cast<int>(cudaErrorInvalidValue);
+  const Args a{words, loads, tiles, out_map, out, n_ins, n_pre, n_in, n_out,
+               n_slots, cols, waves, block_threads, smem_bytes,
+               static_cast<cudaStream_t>(cuda_stream), fault, meta,
+               n_positions};
+  return dispatch<true>(a, words_per_thread);
 }

@@ -26,15 +26,22 @@ tensor the wrapper runs that twin when given the packed stream (as the
 "cuda" engine gives it) and `aap_interp_plain` otherwise; on a CUDA
 tensor it launches the kernel or raises.
 
-Fault injection: `csrc/aap_interp_faulted.cu`, replacing
+Fault injection, replacing
 `src/repro/kernels/aap_interpreter.py:_interp_kernel_faulted`, is the
-same replay plus three inputs: per-instruction failure thresholds (0 for
-copies and protected ops), per-column metadata (the slot hash
+same kernel's other instantiation in `csrc/aap_interp.cu`, over the same
+packed stream plus three inputs: per-instruction failure thresholds (0
+for copies and protected ops), per-column metadata (the slot hash
 `mix32(slot ^ seed)` and the word id) and the stuck rows.  Each DRA/TRA
 XORs the flip mask of `core.faults.fault_mask` into its bit-line value
-before the write-back, and stuck rows are pinned after the load and
-after every instruction.  Its wrapper is `aap_interp_faulted`, its plain
-version `aap_interp_faulted_plain`; the fault-free kernel is untouched.
+before the write-back.  The reference pins stuck rows after the load and
+after every instruction; `pack_stream(..., stuck=)` folds them into the
+words instead (a read of a stuck row reads slot 0 complemented by the
+stuck bit, a write to it goes to the sink).  The hash is keyed by each
+instruction's index in program order, which the packed stream keeps
+beside the words (`PackedStream.order`).  Its wrapper is
+`aap_interp_faulted`; on a CPU tensor it runs the packed twin with the
+flips when given the packed stream, and the unpacked replay
+`aap_interp_faulted_plain`, the oracle, otherwise.
 """
 from __future__ import annotations
 
@@ -52,20 +59,19 @@ from repro_torch.core.isa import (AAP, KSTREAM_COLS, OP_DRA, OP_TRA,
 from repro_torch.core.subarray import wrap_int32
 from repro_torch.kernels import _build
 
-# Shared memory one block may hold on Hopper (227 KB), and the widest
-# block the faulted kernel uses.
-SMEM_BYTES = 232448
-MAX_BLOCK_COLS = 256
-# The fault-free kernel's launch geometry: shared memory of one SM (228
-# KB, 1 KB of it reserved per resident block), threads and blocks one SM
-# holds, the widest block, and the instruction chunk that each block
-# double-buffers in shared memory (16 bytes an instruction).
+# The kernel's launch geometry: shared memory one block may hold on Hopper
+# (227 KB) and one SM holds (228 KB, 1 KB of it reserved per resident
+# block), threads and blocks one SM holds, the widest block, and the
+# instruction chunk that each block double-buffers in shared memory (16
+# bytes an instruction, 8 more with fault injection).
+MAX_BLOCK_SMEM = 232448
 SM_SMEM_BYTES = 233472
 BLOCK_RESERVED_SMEM = 1024
 SM_THREADS = 2048
 SM_BLOCKS = 32
 MAX_BLOCK_THREADS = 512
 STREAM_CHUNK = 256
+FAULT_BYTES = 8
 # Instructions between a staged row's copy and its first read (kLookahead
 # in csrc/aap_interp.cu), and the widest state the 16-bit row fields of a
 # packed instruction address.
@@ -73,35 +79,25 @@ LOOKAHEAD = 16
 MAX_STATE_ROWS = 0xFFFF
 
 
-def block_cols(n_state: int) -> int:
-    """Columns per block of the faulted kernel: the widest multiple of 32
-    (at most 256) whose state, 4 * n_state * C bytes, fits in one block's
-    shared memory."""
-    cols = min(MAX_BLOCK_COLS, SMEM_BYTES // (4 * n_state) // 32 * 32)
-    if cols < 32:
-        raise ValueError(f"{n_state} state rows do not fit one warp's "
-                         "columns in shared memory")
-    return cols
-
-
 def launch_geometry(n_slots: int, cols: int, waves: int, sm_count: int,
-                    words=(4, 2, 1)) -> Tuple[int, int, int]:
+                    words=(4, 2, 1), *,
+                    faulted: bool = False) -> Tuple[int, int, int]:
     """(words per thread, threads per block, shared bytes per block) of
-    the fault-free kernel.  Each thread owns `w` neighbouring word
-    columns of one wave, and a block holds two instruction chunks and
-    (n_slots rounded up to odd) * 4 * w bytes a thread.  Of the `words`
-    choices and the
-    block widths that fit, the one with the fewest rounds of resident
-    blocks over `sm_count` SMs, then the most words a thread (one decode
-    for more words), then the fewest threads on the busiest SM within a
-    round, then the widest block."""
-    chunk = 2 * STREAM_CHUNK * 16
+    the kernel.  Each thread owns `w` neighbouring word columns of one
+    wave, and a block holds two instruction chunks (with `faulted` their
+    fault data too) and (n_slots rounded up to odd) * 4 * w bytes a
+    thread.  Of the `words` choices and the block widths that fit, the
+    one with the fewest rounds of resident blocks over `sm_count` SMs,
+    then the most words a thread (one decode for more words), then the
+    fewest threads on the busiest SM within a round, then the widest
+    block."""
+    chunk = 2 * STREAM_CHUNK * (16 + FAULT_BYTES * faulted)
     best = None
     for w in words:
         threads = -(-cols // w)
         for t in range(32, MAX_BLOCK_THREADS + 1, 32):
             smem = (n_slots | 1) * 4 * w * t + chunk
-            if smem > SMEM_BYTES:
+            if smem > MAX_BLOCK_SMEM:
                 break
             per_sm = min(SM_SMEM_BYTES // (smem + BLOCK_RESERVED_SMEM),
                          SM_THREADS // t, SM_BLOCKS)
@@ -137,27 +133,45 @@ class PackedStream:
     row's first read (four zero entries pad the prefetch).  `out_map`
     [n_out, 2] int32: each output's slot, or -1 - tile row for a staged
     row never written, and its complement flag.  Slot 0 holds zeros: a
-    read of a row that is neither staged nor written yet reads it.
-    `n_slots` counts the slots with slots 0 and 1; `peak_live` is the
-    most rows live at once."""
+    read of a row that is neither staged nor written yet reads it, and
+    so does a read of a stuck row (`stuck`, folded in by the pass),
+    complemented by its stuck bit.  `n_slots` counts the slots with
+    slots 0 and 1; `peak_live` is the most rows live at once.  `order`
+    [n_ins] int64 holds each word's instruction index in program order
+    (the key of its fault hash)."""
 
     def __init__(self, words, loads, n_pre, out_map, n_ins, n_in, n_slots,
-                 peak_live):
+                 peak_live, order, stuck):
         self.words, self.loads, self.out_map = words, loads, out_map
         self.n_pre, self.n_ins, self.n_in = n_pre, n_ins, n_in
         self.n_slots, self.peak_live = n_slots, peak_live
-        self._on: Dict[torch.device, Tuple[torch.Tensor, ...]] = {}
+        self.order, self.stuck = order, stuck
+        self._on: Dict[Tuple, Tuple[torch.Tensor, ...]] = {}
 
     def tensors(self, device) -> Tuple[torch.Tensor, ...]:
         """(words, loads, out_map) on `device`, copied once."""
-        device = torch.device(device)
-        if device not in self._on:
-            self._on[device] = tuple(torch.from_numpy(a).to(device) for a in
-                                     (self.words, self.loads, self.out_map))
-        return self._on[device]
+        key = ("words", torch.device(device))
+        if key not in self._on:
+            self._on[key] = tuple(torch.from_numpy(a).to(key[1]) for a in
+                                  (self.words, self.loads, self.out_map))
+        return self._on[key]
+
+    def fault_tensors(self, device) -> Tuple[torch.Tensor, torch.Tensor]:
+        """(order, keys) on `device`, copied once: `order` as an int64
+        index, and `keys` [n_ins + 2, 2] int32 holding 0 and each word's
+        `order * 0x9E3779B9` (two zero rows pad the kernel's prefetch);
+        the faulted wrapper writes the thresholds into column 0."""
+        key = ("fault", torch.device(device))
+        if key not in self._on:
+            keys = np.zeros((self.n_ins + 2, 2), np.uint32)
+            keys[:self.n_ins, 1] = (self.order * _GOLDEN) & 0xFFFFFFFF
+            self._on[key] = (torch.from_numpy(self.order).to(key[1]),
+                             torch.from_numpy(keys.view(np.int32)).to(key[1]))
+        return self._on[key]
 
 
 _READS_OF_KIND = (1, 2, 3)      # COPY reads a; DRA a, b; TRA a, b, c
+_GOLDEN = 0x9E3779B9            # the fault hash's op-index multiplier
 
 
 def _linear_scan(intervals) -> Tuple[Dict[int, int], int]:
@@ -222,7 +236,7 @@ def _demand_order(reads, writes, out_rows) -> list:
 
 
 def pack_stream(stream: np.ndarray, out_slots, n_state: int,
-                n_in: int) -> PackedStream:
+                n_in: int, stuck=()) -> PackedStream:
     """Pack an encoded [n_ins, 19] stream into one 16-byte word per
     instruction over a compact set of shared-memory slots.
 
@@ -242,17 +256,28 @@ def pack_stream(stream: np.ndarray, out_slots, n_state: int,
     demand order lets the staged XNOR products of a carry-save dot wait
     for their adder instead of all being held at once (the K=128 serving
     stream: 96 slots against 147), while program order needs fewer where
-    the adders share the DCC rows (the TMR stream: 138 against 142)."""
-    return min((_pack(stream, out_slots, n_state, n_in, demand)
+    the adders share the DCC rows (the TMR stream: 138 against 142).
+
+    `stuck` ((state row, bit), ...) lists rows that the fault model
+    pins to all ones or all zeros after the load and after every
+    instruction (rows outside the state are ignored; a later pin of a
+    row wins).  An instruction reads before it writes, so a read of a
+    stuck row sees its constant: it reads slot 0 with its complement
+    flag XORed with the stuck bit.  A write to it is lost: it goes to
+    the sink.  A stuck row is never copied from the tiles, never gets a
+    version and orders no instructions, and an output that is one reads
+    slot 0 complemented by its bit."""
+    return min((_pack(stream, out_slots, n_state, n_in, demand, stuck)
                 for demand in (False, True)), key=lambda p: p.n_slots)
 
 
 def _pack(stream: np.ndarray, out_slots, n_state: int, n_in: int,
-          demand: bool) -> PackedStream:
+          demand: bool, stuck=()) -> PackedStream:
     """`pack_stream` in program order, or in `_demand_order` (the words
     follow that order)."""
     stream = np.asarray(stream, np.int64)
     n_ins = stream.shape[0]
+    pins = {int(r): int(v) & 1 for r, v in stuck if 0 <= int(r) < n_state}
     if n_state > MAX_STATE_ROWS:
         raise ValueError(f"{n_state} state rows exceed the packed "
                          f"stream's {MAX_STATE_ROWS} (16-bit row fields)")
@@ -262,13 +287,15 @@ def _pack(stream: np.ndarray, out_slots, n_state: int, n_in: int,
     if rows.size and (rows.min() < 0 or rows.max() >= n_state) or any(
             not 0 <= r < n_state for r, _ in out_slots):
         raise ValueError(f"stream addresses rows outside {n_state}")
+    order = np.arange(n_ins, dtype=np.int64)
     if demand and n_ins:
-        stream = stream[_demand_order(
+        order = np.asarray(_demand_order(
             [{int(ins[1 + 2 * k]) for k in range(_READS_OF_KIND[ins[0]])}
-             for ins in stream],
+             - pins.keys() for ins in stream],
             [{int(ins[7 + 3 * k]) for k in range(4) if ins[9 + 3 * k]}
-             for ins in stream],
-            [r for r, _ in out_slots])]
+             - pins.keys() for ins in stream],
+            [r for r, _ in out_slots if r not in pins]), np.int64)
+        stream = stream[order]
 
     # versions: [kind ("staged" | "written"), row, start, last read]
     versions = []
@@ -281,6 +308,9 @@ def _pack(stream: np.ndarray, out_slots, n_state: int, n_in: int,
         rd = []
         for k in range(_READS_OF_KIND[kind]):
             row = int(ins[1 + 2 * k])
+            if row in pins:             # reads its constant from slot 0
+                rd.append(None)
+                continue
             v = cur.get(row)
             if v is None and row < n_in:
                 v = cur[row] = len(versions)
@@ -291,7 +321,7 @@ def _pack(stream: np.ndarray, out_slots, n_state: int, n_in: int,
         reads.append(rd)
         last = {}                       # row -> its last enabled write slot
         for k in range(4):
-            if ins[9 + 3 * k]:
+            if ins[9 + 3 * k] and int(ins[7 + 3 * k]) not in pins:
                 last[int(ins[7 + 3 * k])] = k
         wr = [None] * 4
         for row, k in last.items():
@@ -300,6 +330,9 @@ def _pack(stream: np.ndarray, out_slots, n_state: int, n_in: int,
         writes.append(wr)
     outs = []
     for row, neg in out_slots:
+        if row in pins:
+            outs.append((None, row, neg))
+            continue
         v = cur.get(row)
         if v is not None:
             versions[v][3] = n_ins      # read by the epilogue
@@ -346,7 +379,8 @@ def _pack(stream: np.ndarray, out_slots, n_state: int, n_in: int,
         sl = [0, 0, 0, 1, 1, 1, 1]      # unused reads: slot 0; writes: 1
         for k, v in enumerate(reads[i]):
             sl[k] = slot_of[v] if v is not None else 0
-            f |= int(ins[2 + 2 * k]) << (2 + k)
+            f |= (int(ins[2 + 2 * k])
+                  ^ pins.get(int(ins[1 + 2 * k]), 0)) << (2 + k)
         for k, v in enumerate(writes[i]):
             if v is not None and v in slot_of:
                 sl[3 + k] = slot_of[v]
@@ -354,19 +388,28 @@ def _pack(stream: np.ndarray, out_slots, n_state: int, n_in: int,
         words[i] = (sl[0] | sl[1] << 16, sl[2] | sl[3] << 16,
                     sl[4] | sl[5] << 16, sl[6] | f << 16)
     out_map = np.array(
-        [(slot_of[v] if v is not None else (-1 - row if row < n_in else 0),
-          neg) for v, row, neg in outs], np.int64).reshape(-1, 2)
+        [(slot_of[v] if v is not None else
+          (-1 - row if row < n_in and row not in pins else 0),
+          neg ^ pins.get(row, 0)) for v, row, neg in outs],
+        np.int64).reshape(-1, 2)
     as32 = lambda a: a.astype(np.uint32).view(np.int32)  # noqa: E731
     return PackedStream(as32(words), as32(loads), n_pre,
                         out_map.astype(np.int32), n_ins, n_in, used + 1,
-                        peak)
+                        peak, order, tuple(sorted(pins.items())))
 
 
-def aap_interp_packed_plain(packed: PackedStream,
-                            tiles: torch.Tensor) -> torch.Tensor:
+def aap_interp_packed_plain(packed: PackedStream, tiles: torch.Tensor,
+                            thresh: torch.Tensor | None = None,
+                            meta: torch.Tensor | None = None,
+                            n_positions: int = 0) -> torch.Tensor:
     """Plain torch twin of the kernel: replays the packed words over a
     [n_slots, waves, cols] state, issuing the staged-row copies where
-    the kernel issues them and reading back `out_map`."""
+    the kernel issues them and reading back `out_map`.  With `thresh`
+    [n_ins] (program order), `meta` and `n_positions` as
+    `aap_interp_faulted` takes them, the twin of its instantiation with
+    fault injection: each word's flip is keyed by its instruction's
+    program-order index `packed.order`."""
+    flip = None if thresh is None else _flipper(thresh, meta, n_positions)
     waves, n_in, cols = tiles.shape
     if n_in != packed.n_in:
         raise ValueError(f"tiles hold {n_in} operand rows, the packed "
@@ -383,7 +426,8 @@ def aap_interp_packed_plain(packed: PackedStream,
         pos += count
 
     issue(packed.n_pre)
-    for x, y, z, w in packed.words[:packed.n_ins].view(np.uint32).tolist():
+    words_ = packed.words[:packed.n_ins].view(np.uint32).tolist()
+    for j, (x, y, z, w) in enumerate(words_):
         f = w >> 16
         issue(f >> 9 & 3)
         a, b, c = (state[s] ^ -(f >> (2 + k) & 1)
@@ -392,6 +436,8 @@ def aap_interp_packed_plain(packed: PackedStream,
             bl = (a & b) | (a & c) | (b & c)
         else:
             bl = ~(a ^ b)
+        if flip is not None:
+            bl = flip(int(packed.order[j]), bl)
         for k, s in enumerate((y >> 16, z & 0xFFFF, z >> 16, w & 0xFFFF)):
             state[s] = bl ^ -(f >> (5 + k) & 1)
     outs = [(state[code] if code >= 0 else tiles[:, -1 - code]) ^ -neg
@@ -411,18 +457,12 @@ def _lib() -> ctypes.CDLL:
         ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_int,
         ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
     lib.aap_interp.restype = ctypes.c_int
-    return lib
-
-
-@functools.lru_cache(maxsize=None)
-def _lib_faulted() -> ctypes.CDLL:
-    lib = _build.load("aap_interp_faulted")
     lib.aap_interp_faulted.argtypes = [
-        ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
-        ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_int,
-        ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
+        ctypes.c_int, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
+        ctypes.c_int, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
         ctypes.c_int, ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
-        ctypes.c_void_p]
+        ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
     lib.aap_interp_faulted.restype = ctypes.c_int
     return lib
 
@@ -556,14 +596,10 @@ def aap_interp(stream: torch.Tensor, tiles: torch.Tensor,
 aap_interp.launches = 0
 
 
-def aap_interp_faulted_plain(stream: torch.Tensor, thresh: torch.Tensor,
-                             meta: torch.Tensor, tiles: torch.Tensor,
-                             out_slots: torch.Tensor, n_state: int,
-                             stuck: torch.Tensor,
-                             n_positions: int) -> torch.Tensor:
-    """Plain torch replay of the micro-op table with fault injection.
-    Every wave draws the same flips: the mask depends on the column
-    only."""
+def _flipper(thresh: torch.Tensor, meta: torch.Tensor, n_positions: int):
+    """flip(i, bl): instruction i's bit-line value with the flip mask of
+    `core.faults.fault_mask` XORed in (i in program order).  Every wave
+    draws the same flips: the mask depends on the column only."""
     slot_h, word_ids = as_u32(meta[0]), as_u32(meta[1])
     ts = thresh.tolist()
 
@@ -571,20 +607,38 @@ def aap_interp_faulted_plain(stream: torch.Tensor, thresh: torch.Tensor,
         if not ts[i]:
             return bl
         return bl ^ fault_mask(ts[i], i, slot_h, word_ids, n_positions)
+    return flip
 
-    return _replay(stream, tiles, out_slots, n_state, flip, stuck.tolist())
+
+def aap_interp_faulted_plain(stream: torch.Tensor, thresh: torch.Tensor,
+                             meta: torch.Tensor, tiles: torch.Tensor,
+                             out_slots: torch.Tensor, n_state: int,
+                             stuck: torch.Tensor,
+                             n_positions: int) -> torch.Tensor:
+    """Plain torch replay of the micro-op table with fault injection, the
+    reference's semantics: stuck rows pinned after the load and after
+    every instruction."""
+    return _replay(stream, tiles, out_slots, n_state,
+                   _flipper(thresh, meta, n_positions), stuck.tolist())
 
 
 def aap_interp_faulted(stream: torch.Tensor, thresh: torch.Tensor,
                        meta: torch.Tensor, tiles: torch.Tensor,
                        out_slots: torch.Tensor, n_state: int,
-                       stuck: torch.Tensor, n_positions: int) -> torch.Tensor:
+                       stuck: torch.Tensor, n_positions: int, *,
+                       packed: PackedStream | None = None) -> torch.Tensor:
     """`aap_interp` with fault injection.  thresh [n_ins] int32 holds each
     instruction's uint32 failure threshold (0: never flips); meta [2,
     cols] int32 holds each column's slot hash `mix32(slot ^ seed)` and
     word id; stuck [n_stuck, 2] int32 lists (state row, bit) pins;
     n_positions is the row width in bits.  Returns [waves, n_out, cols]
-    int32.  All tensors contiguous and on one device."""
+    int32.  All tensors contiguous and on one device.
+
+    `packed` is `pack_stream` of the same stream, read-back and n_in
+    with these stuck rows; without it a CUDA call packs it here, reading
+    stream, out_slots and stuck to the host.  With it a CPU call runs
+    the packed twin with the flips, without it
+    `aap_interp_faulted_plain`."""
     _check_operands((("stream", stream, 2), ("thresh", thresh, 1),
                      ("meta", meta, 2), ("tiles", tiles, 3),
                      ("out_slots", out_slots, 2), ("stuck", stuck, 2)),
@@ -601,25 +655,47 @@ def aap_interp_faulted(stream: torch.Tensor, thresh: torch.Tensor,
         raise ValueError(f"{n_in} operand rows exceed {n_state} state rows")
     if n_positions <= 0:
         raise ValueError("n_positions must be positive")
+    if n_state > MAX_STATE_ROWS:
+        raise ValueError(f"{n_state} state rows exceed the packed stream's "
+                         f"{MAX_STATE_ROWS} (16-bit row fields)")
+    if packed is not None and (packed.n_ins != stream.shape[0]
+                               or packed.n_in != n_in
+                               or len(packed.out_map) != out_slots.shape[0]
+                               or len(packed.stuck) > stuck.shape[0]):
+        raise ValueError("packed stream does not match stream, tiles, "
+                         "out_slots and stuck")
     if tiles.device.type == "cpu":
+        if packed is not None:
+            return aap_interp_packed_plain(packed, tiles, thresh, meta,
+                                           n_positions)
         return aap_interp_faulted_plain(stream, thresh, meta, tiles,
                                         out_slots, n_state, stuck,
                                         n_positions)
     if tiles.device.type != "cuda":
         raise ValueError(f"aap_interp_faulted runs on cpu or cuda, not "
                          f"{tiles.device}")
+    if packed is None:
+        packed = pack_stream(stream.cpu().numpy(), out_slots.cpu().tolist(),
+                             n_state, n_in, stuck=stuck.cpu().tolist())
     n_out = out_slots.shape[0]
     out = torch.empty((waves, n_out, cols), dtype=torch.int32,
                       device=tiles.device)
     if out.numel() == 0:
         return out
+    w, threads, smem = launch_geometry(
+        packed.n_slots, cols, waves, sm_count(tiles.device),
+        words_choices(cols, tiles.data_ptr()), faulted=True)
+    p_words, p_loads, p_out = packed.tensors(tiles.device)
+    order, keys = packed.fault_tensors(tiles.device)
+    fault = keys.clone()                       # (threshold, i * golden)
+    fault[:packed.n_ins, 0] = thresh[order]
     with torch.cuda.device(tiles.device):
         cuda_stream = torch.cuda.current_stream().cuda_stream
-        _build.check(_lib_faulted().aap_interp_faulted(
-            stream.data_ptr(), stream.shape[0], thresh.data_ptr(),
-            meta.data_ptr(), tiles.data_ptr(), n_in, out_slots.data_ptr(),
-            n_out, stuck.data_ptr(), stuck.shape[0], n_positions,
-            out.data_ptr(), n_state, cols, waves, block_cols(n_state),
+        _build.check(_lib().aap_interp_faulted(
+            p_words.data_ptr(), fault.data_ptr(), packed.n_ins,
+            p_loads.data_ptr(), packed.n_pre, tiles.data_ptr(), n_in,
+            meta.data_ptr(), n_positions, p_out.data_ptr(), n_out,
+            out.data_ptr(), packed.n_slots, cols, waves, w, threads, smem,
             cuda_stream), "aap_interp_faulted")
     aap_interp_faulted.launches += 1
     return out
@@ -666,8 +742,9 @@ def cuda_wave_fn(program: Tuple[AAP, ...], result_rows: Tuple[int, ...],
     Returns `run(staged)` mapping [waves, n_rows_in, chips, banks,
     subarrays, row_words] int32 to the readback block [waves,
     len(result_rows), ...].  The stream is encoded once per (program,
-    n_rows), packed once per number of staged rows and copied once to
-    each device it runs on.
+    n_rows), packed once per number of staged rows (with the fault
+    model's stuck rows folded in) and copied once to each device it runs
+    on.
 
     With a `FaultModel` (an active wave model) the faulted kernel runs:
     per-instruction thresholds come from the program, and the column
@@ -723,10 +800,11 @@ def cuda_wave_fn(program: Tuple[AAP, ...], result_rows: Tuple[int, ...],
                     torch.tensor(stuck, dtype=torch.int32,
                                  device=dev).reshape(len(stuck), 2))
         tiles = staged.reshape(waves, n_in, -1)
+        if n_in not in packs:
+            packs[n_in] = pack_stream(stream_np, out_slots, n_state, n_in,
+                                      stuck=stuck)
         if faults is None:
             stream, slots = on_device[dev]
-            if n_in not in packs:
-                packs[n_in] = pack_stream(stream_np, out_slots, n_state, n_in)
             out = aap_interp(stream, tiles, slots, n_state,
                              packed=packs[n_in])
         else:
@@ -739,6 +817,7 @@ def cuda_wave_fn(program: Tuple[AAP, ...], result_rows: Tuple[int, ...],
                                           device=dev)
             out = aap_interp_faulted(stream, thresh, metas[geom], tiles,
                                      slots, n_state, pins,
-                                     staged.shape[-1] * 32)
+                                     staged.shape[-1] * 32,
+                                     packed=packs[n_in])
         return out.reshape((waves, n_out) + tuple(staged.shape[2:]))
     return run

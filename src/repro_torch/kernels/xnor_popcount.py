@@ -3,16 +3,19 @@
     C[m, n] = dot(sign(A[m]), sign(B[n])) = 2*popcount(XNOR(a[m], b[n])) - K
 
 Kernel: `csrc/xnor_gemm.cu`, replacing the TPU kernel
-`src/repro/kernels/xnor_popcount.py:_xnor_gemm_kernel`.  The TPU kernel
-decodes packed words to ±1 int8 for its matrix unit; the port keeps the
-product in the packed domain (XOR, NOT, AND with the K mask, `__popc`,
-32 sign products per word pair).  At the main path's shapes the integer
-operations bound it, not device memory; the kernel stages 32-word
-slices of a 32 x 32 output tile's rows in shared memory so each loaded
-word is reused 32 times.  Bits past K are masked as `ref.xnor_gemm_ref`
-masks them, so the pad bits of the last word never count.  On a CPU
-tensor the wrapper runs `xnor_gemm_plain`; on a CUDA tensor it launches
-the kernel or raises.
+`src/repro/kernels/xnor_popcount.py:_xnor_gemm_kernel`.  Like the TPU
+kernel, which decodes packed words to ±1 int8 for its matrix unit, it
+runs the product on the int8 tensor cores (`mma.sync` m16n8k32).  Bits
+expand in registers to 0/1 int8 of the mma fragments, two integer
+operations per four k (lane t of a quad takes bits 8j + t and 8j + 4 + t
+of each word, the same on both sides), bits past K to 0 on the `a` side,
+so the pad bits of the last word never count, whatever they hold; the
+row popcounts below K turn the 0/1 product P into the ±1 dot, 4 P - 2
+pa - 2 pb + K.  The packed operands arrive by `cp.async`, all of K (up
+to 12,800 bits) at once; a block computes a 64 x 64 int32 output tile with
+2 x `k_groups` warps that split the k steps (`k_groups` picks more where
+the output has few tiles).  On a CPU tensor the wrapper runs
+`xnor_gemm_plain`; on a CUDA tensor it launches the kernel or raises.
 """
 from __future__ import annotations
 
@@ -30,9 +33,42 @@ def _lib() -> ctypes.CDLL:
     lib = _build.load("xnor_gemm")
     lib.xnor_gemm.argtypes = [ctypes.c_void_p, ctypes.c_void_p,
                               ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
-                              ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+                              ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                              ctypes.c_void_p]
     lib.xnor_gemm.restype = ctypes.c_int
     return lib
+
+
+# The kernel's launch: a block's output tile, the K words it holds at once
+# (kSegMax), its registers a thread (ptxas, sm_90a), and an SM's registers
+# and shared memory (1 KB of it reserved per block).
+TILE = 64
+SEG_MAX = 400
+REGS = 128
+SM_REGS = 65536
+SM_SMEM_BYTES = 233472
+
+
+def k_groups(m: int, n: int, words: int, sm_count: int) -> int:
+    """Warps sharing each warp's outputs along K (1, 2 or 4): the most
+    that leave every warp 12 or more k steps and keep every 64 x 64 tile's
+    block resident in one wave over `sm_count` SMs: more groups hide the
+    latency of few tiles, fewer pay less for handing sums to group 0."""
+    tiles = -(-m // TILE) * -(-n // TILE)
+    seg = min(-(-words // 8) * 8, SEG_MAX)
+    for kg in (4, 2):
+        if words < 12 * kg:
+            continue
+        smem = (2 * TILE) * (seg + 4) * 4 + 512 + 16384 + 1024
+        per_sm = min(SM_REGS // (64 * kg * REGS), SM_SMEM_BYTES // smem)
+        if tiles <= per_sm * sm_count:
+            return kg
+    return 1
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def xnor_gemm_plain(a_packed: torch.Tensor, b_packed: torch.Tensor,
@@ -69,10 +105,11 @@ def xnor_gemm_packed(a_packed: torch.Tensor, b_packed: torch.Tensor,
     out = torch.empty((m, n), dtype=torch.int32, device=a_packed.device)
     if out.numel() == 0:
         return out
+    kg = k_groups(m, n, words, _sm_count(a_packed.device))
     with torch.cuda.device(a_packed.device):
         stream = torch.cuda.current_stream().cuda_stream
         _build.check(_lib().xnor_gemm(a_packed.data_ptr(), b_packed.data_ptr(),
-                                      out.data_ptr(), m, n, words, k_bits,
+                                      out.data_ptr(), m, n, words, k_bits, kg,
                                       stream), "xnor_gemm")
     xnor_gemm_packed.launches += 1
     return out

@@ -5,8 +5,10 @@ it flips is a counter-based hash of (seed, op index, global sub-array
 slot), so the port's "resident", "baseline" and "cuda" engines must draw
 the IDENTICAL flips the reference's "resident", "baseline" and "pallas"
 engines draw (Pallas in interpret mode, as the reference's own tests run
-it off-TPU; the port's "cuda" engine runs `aap_interp_faulted_plain` on
-CPU tensors).  Tolerance: exact equality everywhere.
+it off-TPU; the port's "cuda" engine runs the kernel's packed twin on CPU
+tensors, the stuck rows folded into the packed stream, and
+`aap_interp_faulted_plain` is the unpacked oracle).  Tolerance: exact
+equality everywhere.
 
 The hash is uint32 arithmetic that the port does in int64, so the edge
 words (0, 0xFFFFFFFF), the largest threshold, op indices past 2**31 and a
@@ -50,6 +52,8 @@ def words(a: np.ndarray) -> torch.Tensor:
 def jref():
     import jax.numpy as jnp
 
+    from jax.experimental import pallas as pl
+
     import drim
     from repro.core import faults as ref_faults
     from repro.core import isa as ref_isa
@@ -57,7 +61,7 @@ def jref():
     from repro.pim import scheduler as ref_sched
     from repro.pim.bnn import bnn_dot_graph_carrysave as ref_carrysave
     return types.SimpleNamespace(
-        jnp=jnp, drim=drim, faults=ref_faults, isa=ref_isa,
+        jnp=jnp, pl=pl, drim=drim, faults=ref_faults, isa=ref_isa,
         interp=ref_interp, sched=ref_sched, carrysave=ref_carrysave,
         HOT=ref_faults.FaultModel(**HOT))
 
@@ -324,7 +328,9 @@ def test_inactive_models_run_the_clean_path(geoms, monkeypatch):
     runs the fault-free path, the cuda engine the fault-free kernel."""
     def boom(*args, **kwargs):
         raise AssertionError("the faulted interpreter ran")
+    # the unpacked oracle, and the flips of the packed twin
     monkeypatch.setattr(aap_interpreter, "aap_interp_faulted_plain", boom)
+    monkeypatch.setattr(aap_interpreter, "_flipper", boom)
     geom, _ = geoms
     rng = np.random.default_rng(5)
     a, b = (rng.integers(0, 1 << 32, 23, dtype=np.uint32) for _ in range(2))
@@ -457,6 +463,162 @@ def test_faulted_wrapper_checks_its_operands(monkeypatch):
     with pytest.raises(ValueError):
         call(*(t.to("meta") for t in (stream, thresh, meta, tiles, slots)),
              5, stuck.to("meta"), 64)
+    # a packed stream of another stream, read-back or operand count
+    other = aap_interpreter.pack_stream(
+        np.zeros((2, isa.KSTREAM_COLS), np.int32), [(0, 0)], 5, 2)
+    with pytest.raises(ValueError, match="packed"):
+        call(stream, thresh, meta, tiles, slots, 5, stuck, 64, packed=other)
+    with pytest.raises(ValueError, match="packed"):
+        call(stream[:2].contiguous(), thresh[:2].contiguous(), meta,
+             tiles[:, :1].contiguous(), slots, 5, stuck, 64, packed=other)
+
+
+# ---------------------------------------------------------------------------
+# The packed faulted twin: stuck rows folded into the stream, the hash
+# keyed by the program-order index
+# ---------------------------------------------------------------------------
+
+def _ref_faulted(jref, stream, meta, thresh, tiles, out_slots, n_state,
+                 stuck, n_positions):
+    """The reference's `_interp_kernel_faulted` in interpret mode over each
+    wave of `tiles` [waves, n_in, cols] (one block of all the columns),
+    as `pallas_wave_fn` calls it but with any stuck state rows, DCC
+    cells included; [waves, n_out, cols] uint32."""
+    import functools
+    jnp, pl = jref.jnp, jref.pl
+    waves, n_in, cols = tiles.shape
+    n_ins, n_out = stream.shape[0], len(out_slots)
+    kernel = functools.partial(
+        jref.interp._interp_kernel_faulted, n_in, n_state,
+        tuple(tuple(map(int, s)) for s in out_slots), n_positions,
+        tuple(tuple(map(int, s)) for s in stuck))
+    call = pl.pallas_call(
+        kernel, grid=(1,),
+        in_specs=[pl.BlockSpec((n_ins, isa.KSTREAM_COLS), lambda j: (0, 0)),
+                  pl.BlockSpec((2, cols), lambda j: (0, 0)),
+                  pl.BlockSpec((n_ins, 1), lambda j: (0, 0)),
+                  pl.BlockSpec((n_in, cols), lambda j: (0, 0))],
+        out_specs=pl.BlockSpec((n_out, cols), lambda j: (0, 0)),
+        out_shape=jref.jnp.zeros((n_out, cols), jnp.uint32),
+        interpret=True)
+    args = (jnp.asarray(stream), jnp.asarray(u32(meta)),
+            jnp.asarray(u32(thresh)[:, None]))
+    return np.stack([np.asarray(call(*args, jnp.asarray(u32(tiles[v]))))
+                     for v in range(waves)])
+
+
+def _faulted_case(prog, n_rows, readback, waves, n_in, geom4, faults,
+                  bank_lo, banks_total, rng, stuck=None):
+    """CPU operands of `aap_interp_faulted` (`_kernel_operands`), with the
+    stuck state rows `stuck` in place of the model's when given."""
+    args = list(_kernel_operands(prog, n_rows, readback, waves, n_in, geom4,
+                                 faults, bank_lo, banks_total, rng, "cpu"))
+    if stuck is not None:
+        args[6] = torch.tensor(stuck, dtype=torch.int32).reshape(-1, 2)
+    return args
+
+
+def _check_packed_twin(jref, args, *, moved_armed=False):
+    """Both instruction orders of the pass: the packed twin (through the
+    wrapper, as the "cuda" engine calls it on the CPU) equals the oracle
+    `aap_interp_faulted_plain` and the reference's faulted kernel in
+    interpret mode.  With `moved_armed`, demand order must put an armed
+    instruction (nonzero threshold) at another position."""
+    stream, thresh, meta, tiles, slots, n_state, stuck, n_pos = args
+    want = aap_interpreter.aap_interp_faulted_plain(*args)
+    np.testing.assert_array_equal(
+        u32(want), _ref_faulted(jref, stream.numpy(), meta, thresh, tiles,
+                                slots.tolist(), n_state, stuck.tolist(),
+                                n_pos))
+    for demand in (False, True):
+        packed = aap_interpreter._pack(stream.numpy(), slots.tolist(),
+                                       n_state, tiles.shape[1], demand,
+                                       stuck.tolist())
+        assert sorted(packed.order) == list(range(stream.shape[0]))
+        got = aap_interpreter.aap_interp_faulted(*args, packed=packed)
+        assert torch.equal(got, want), demand
+        if demand and moved_armed:
+            ts = thresh.numpy()[packed.order]
+            assert ((packed.order != np.arange(len(ts))) & (ts != 0)).any()
+    assert not torch.equal(want, aap_interpreter.aap_interp_plain(
+        stream, tiles, slots, n_state)), "no flip reached the outputs"
+
+
+@pytest.mark.parametrize("stuck", [
+    ((2, 1), (17, 0), (21, 1)),     # an operand row, a result row, a DCC cell
+    ((20, 0), (3, 1), (3, 0)),      # the other DCC cell; a row pinned twice
+])
+def test_packed_faulted_twin_on_the_ragged_soup(jref, stuck):
+    """The chip phase's ragged soup (DCC aliases, a bank offset, protected
+    ops, 9-word rows) with stuck operand, result and DCC rows, over three
+    waves, in program and in demand order (which moves armed ops)."""
+    rng = np.random.default_rng(13)
+    n_rows = 20
+    prog = random_program(rng, isa, n_rows, 300)
+    faults = FaultModel(p_dra=0.3, p_tra=0.4, seed=5,
+                        protected_ops=tuple(range(0, 300, 7)))
+    args = _faulted_case(prog, n_rows, tuple(range(n_rows + 4)), 3, 6,
+                         (1, 3, 5, 9), faults, 2, 8, rng, stuck)
+    _check_packed_twin(jref, args, moved_armed=True)
+    got = aap_interpreter.aap_interp_faulted(
+        *args, packed=aap_interpreter.pack_stream(
+            args[0].numpy(), args[4].tolist(), args[5], 6, args[6].tolist()))
+    for row, bit in dict(stuck).items():        # read back as the pin
+        if row < n_rows:
+            assert (got[:, row] == -bit).all()
+
+
+@pytest.mark.parametrize("harden", ["tmr", "ecc", "tmr+ecc"])
+def test_packed_faulted_twin_on_hardened_streams(jref, harden):
+    """The K=32 carry-save dot hardened, at the paper's +-15% corner with
+    the lowering's protected voter/parity spans, over two waves of a small
+    fleet slice, in program and in demand order.  Every word-line is read
+    back (the outputs' votes would hide most flips)."""
+    graph, _ = bnn_dot_graph_carrysave(32)
+    low = tcompile(graph, geom=DRIM_R).lower("cuda", harden=harden)
+    faults = low._resolve_faults(FaultModel.from_corner(0.15,
+                                                        source="paper"))
+    fp = low.fp
+    readback = tuple(range(fp.template_rows + 4))
+    args = _faulted_case(fp.program, fp.template_rows, readback, 2,
+                         len(fp.loaded_inputs), (1, 2, 16, 4), faults, 0,
+                         None, np.random.default_rng(len(harden)))
+    _check_packed_twin(jref, args)
+
+
+def test_stuck_rows_fold_into_the_packed_words():
+    """What the pass makes of stuck rows: no copy of a stuck staged row, no
+    write to one (the sink), reads of slot 0 complemented by the bit, and
+    an output read back as the pin."""
+    n_rows, n_in = 6, 3
+    prog = (isa.AAP(isa.OP_DRA, (0, 1, 4)),      # reads stuck row 0
+            isa.AAP(isa.OP_COPY, (4, 2)),        # writes stuck row 2
+            isa.AAP(isa.OP_TRA, (2, 4, 1, 5)))
+    stream = isa.encode_kernel_stream(prog, n_rows=n_rows)
+    slots = [(r, 0) for r in (0, 2, 4, 5)] + [(2, 1)]
+    n_state = isa.dcc_state_rows(n_rows)
+    free = aap_interpreter._pack(stream, slots, n_state, n_in, False)
+    packed = aap_interpreter._pack(stream, slots, n_state, n_in, False,
+                                   ((0, 1), (2, 0)))
+    assert packed.stuck == ((0, 1), (2, 0))
+    staged = {int(e) & 0xFFFF for e in packed.loads[:len(packed.loads) - 4]
+              .view(np.uint32)}
+    assert staged == {1} and {0, 1} <= {
+        int(e) & 0xFFFF for e in free.loads[:len(free.loads) - 4]}
+    fields = packed.words[:3].view(np.uint32)
+    flags = fields[:, 3] >> 16
+    assert fields[0, 0] & 0xFFFF == 0 and flags[0] >> 2 & 1 == 1   # ~0
+    assert fields[1, 1] >> 16 == 1                                  # sink
+    assert fields[2, 0] & 0xFFFF == 0 and flags[2] >> 2 & 1 == 0    # 0
+    assert packed.out_map.tolist()[:2] == [[0, 1], [0, 0]]
+    assert packed.out_map.tolist()[4] == [0, 1]
+    tiles = torch.from_numpy(np.random.default_rng(0).integers(
+        -2 ** 31, 2 ** 31, (2, n_in, 5), dtype=np.int32))
+    want = aap_interpreter._replay(
+        torch.from_numpy(stream), tiles, torch.tensor(slots), n_state,
+        pins=((0, 1), (2, 0)))
+    assert torch.equal(aap_interpreter.aap_interp_packed_plain(packed, tiles),
+                       want)
 
 
 # ---------------------------------------------------------------------------
@@ -486,30 +648,50 @@ def _kernel_operands(prog, n_rows, readback, waves, n_in, geom4, faults,
 
 
 @pytest.mark.cuda
-def test_faulted_kernel_equals_plain_ragged(cuda):
-    """A random soup over every word-line, DCC aliases included, with two
-    stuck rows (one an operand row), protected ops, a bank offset and a
-    column count no block width divides, over three waves."""
+@pytest.mark.parametrize("geom4,order", [
+    ((1, 3, 37, 9), None),          # 999 columns: 1 word a thread
+    ((1, 3, 37, 9), "demand"),
+    ((1, 2, 4, 9), "program"),      # 72 columns: 4 words straddle rows
+    ((1, 2, 8, 4), "demand"),       # 4 words of one sub-array: one draw
+])
+def test_faulted_kernel_equals_plain_ragged(cuda, geom4, order):
+    """A random soup over every word-line, DCC aliases included, with stuck
+    rows (an operand row, a result row, a DCC cell), protected ops and a
+    bank offset, over three waves: the kernel against the oracle and the
+    packed twin, packed by the wrapper or in a given order."""
     rng = np.random.default_rng(13)
     n_rows = 20
     prog = random_program(rng, isa, n_rows, 300)
     faults = FaultModel(p_dra=0.3, p_tra=0.4, seed=5,
                         stuck_rows=((2, 1), (17, 0)),
                         protected_ops=tuple(range(0, 300, 7)))
-    args = _kernel_operands(prog, n_rows, tuple(range(n_rows + 4)), 3, 6,
-                            (1, 3, 37, 9), faults, 2, 8, rng, cuda)
+    args = list(_kernel_operands(prog, n_rows, tuple(range(n_rows + 4)), 3,
+                                 6, geom4, faults, 2, 8, rng, cuda))
+    args[6] = torch.tensor([(2, 1), (17, 0), (21, 1)], dtype=torch.int32,
+                           device=cuda)
+    packed = None if order is None else aap_interpreter._pack(
+        args[0].cpu().numpy(), args[4].tolist(), args[5], 6,
+        order == "demand", args[6].tolist())
     before = aap_interpreter.aap_interp_faulted.launches
-    got = aap_interpreter.aap_interp_faulted(*args)
+    got = aap_interpreter.aap_interp_faulted(*args, packed=packed)
     torch.cuda.synchronize()
     assert aap_interpreter.aap_interp_faulted.launches == before + 1
     assert torch.equal(got, aap_interpreter.aap_interp_faulted_plain(*args))
+    if packed is not None:
+        assert torch.equal(got, aap_interpreter.aap_interp_packed_plain(
+            packed, args[3], *args[1:3], args[7]))
     assert (got[:, 2] == -1).all()
 
 
 @pytest.mark.cuda
-def test_faulted_kernel_equals_plain_tmr_full_width(cuda):
-    """The TMR-hardened K=128 serving dot at the Table-3 +-15% corner on
-    one wave of DRIM-R (65,536 word columns)."""
+@pytest.mark.parametrize("waves,stuck", [
+    (4, None),                              # the faults phase's payload
+    (1, ((0, 1), (100, 0), (257, 1))),      # operand, work and DCC rows
+])
+def test_faulted_kernel_equals_plain_tmr_full_width(cuda, waves, stuck):
+    """The TMR-hardened K=128 serving dot at the Table-3 +-15% corner over
+    DRIM-R waves of 65,536 word columns: the faults phase's 4 waves, and
+    one wave with stuck rows."""
     graph, _ = bnn_dot_graph_carrysave(128)
     low = tcompile(graph, geom=DRIM_R).lower("cuda", harden="tmr")
     faults = low._resolve_faults(FaultModel.from_corner(0.15,
@@ -517,10 +699,16 @@ def test_faulted_kernel_equals_plain_tmr_full_width(cuda):
     fp = low.fp
     geom4 = (DRIM_R.chips, DRIM_R.banks, DRIM_R.subarrays_per_bank,
              DRIM_R.row_bits // 32)
-    args = _kernel_operands(fp.program, fp.template_rows, fp.readback_rows,
-                            1, len(fp.loaded_inputs), geom4, faults, 0, None,
-                            np.random.default_rng(14), cuda)
-    got = aap_interpreter.aap_interp_faulted(*args)
+    args = list(_kernel_operands(
+        fp.program, fp.template_rows, fp.readback_rows, waves,
+        len(fp.loaded_inputs), geom4, faults, 0, None,
+        np.random.default_rng(14), cuda))
+    if stuck is not None:
+        args[6] = torch.tensor(stuck, dtype=torch.int32, device=cuda)
+    packed = aap_interpreter.pack_stream(
+        args[0].cpu().numpy(), args[4].tolist(), args[5], args[3].shape[1],
+        args[6].tolist())
+    got = aap_interpreter.aap_interp_faulted(*args, packed=packed)
     torch.cuda.synchronize()
     assert torch.equal(got, aap_interpreter.aap_interp_faulted_plain(*args))
 

@@ -121,17 +121,161 @@ def test_gemm_plain_equals_pallas_and_ref(jref, m, n, k):
             jnp.asarray(u32(noisy_a)), jnp.asarray(u32(b)), k)))
 
 
+# The kernel's arithmetic, emulated on the CPU: csrc/xnor_gemm.cu masks a's
+# words to K in shared memory, fills lane t's mma fragment registers with
+# 0/1 int8 from bits 8j + t (register 0) and 8j + 4 + t (register 2) of a
+# word shifted right by t, j = 0..3, and turns the 0/1 product P into the
+# +-1 dot with the rows' popcounts below K: 4 P - 2 pa - 2 pb + K.
+GEMM_EXPAND = ("x.x &= word_mask(w, words, k);",
+               "fb[ni][0] = y & kLow;", "fb[ni][1] = (y >> 4) & kLow;",
+               "{x0 & kLow, x1 & kLow, (x0 >> 4) & kLow",
+               "4 * acc[mi][ni][2 * h] - 2 * pa - 2 * pb0 + k")
+
+
+def expand_bits(x, t, mask=0xFFFFFFFF):
+    """Lane t's two fragment registers of words `x` (uint32 arrays) under
+    K masks `mask`, as the kernel computes them."""
+    x = (np.asarray(x, np.uint32) & np.asarray(mask, np.uint32)) \
+        >> np.uint32(t)
+    low = np.uint32(0x01010101)
+    return x & low, (x >> np.uint32(4)) & low
+
+
+@pytest.mark.parametrize("t", range(4))
+def test_gemm_bit_expansion_equals_unpack(t):
+    """Lane t's expansion, emulated, over all 16 patterns of its four bits
+    of a register and every mask pattern (the rest of the word random):
+    each int8 is the bit unpack_signs_ref unpacks (as 0/1), 0 where the
+    mask is 0; the .cu computes exactly these expressions."""
+    import pathlib
+    src = (pathlib.Path(xnor_popcount.__file__).parents[1] / "csrc" /
+           "xnor_gemm.cu").read_text()
+    for expr in GEMM_EXPAND:
+        assert expr in src, expr
+    rng = np.random.default_rng(t)
+    pats = np.arange(16, dtype=np.uint32)
+    v, m = (a.reshape(-1) for a in np.meshgrid(pats, pats, indexing="ij"))
+    for reg, base in ((0, t), (1, 4 + t)):
+        at = [8 * j + base for j in range(4)]
+        spread = lambda p: sum(((p >> j) & 1) << at[j]  # noqa: E731
+                               for j in range(4)).astype(np.uint32)
+        noise = rng.integers(0, 2 ** 32, (2, v.size), dtype=np.uint32)
+        keep = ~np.uint32(sum(1 << b for b in at))
+        x = (noise[0] & keep) | spread(v)
+        mask = (noise[1] & keep) | spread(m)
+        got = expand_bits(x, t, mask)[reg].view(np.int8).reshape(-1, 4)
+        bits = (ref.unpack_signs_ref(words(x)[:, None], torch.int8)
+                .numpy()[:, at] + 1) // 2
+        mbits = (mask[:, None] >> np.array(at, np.uint32)) & 1
+        np.testing.assert_array_equal(got, bits * mbits)
+        assert set(np.unique(got)) <= {0, 1}
+
+
+def emulate_xnor_gemm(a: np.ndarray, b: np.ndarray, k: int) -> np.ndarray:
+    """csrc/xnor_gemm.cu step by step in numpy: 64 x 64 block tiles, warps
+    of 64 x 32, each lane's fragment registers expanded from its bits, the
+    fragments read back into 16 x 32 and 32 x 8 int8 tiles by the PTX
+    layouts of mma.m16n8k32 (A: register j of lane (g, t) holds row g + 8
+    (j & 1), k 4t + 16 (j >> 1) + byte; B: register j holds k 4t + 16 j +
+    byte of column g; C: register j is row g + 8 (j >> 1), column 2t + (j
+    & 1)), multiplied, and the popcount correction applied.  (The K groups
+    only split the sum over k steps, which integer addition does not see.)
+    """
+    m_rows, words_ = a.shape
+    n_rows = b.shape[0]
+    wp = -(-words_ // 8) * 8
+    mp, np_ = -(-m_rows // 64) * 64, -(-n_rows // 64) * 64
+    ap = np.zeros((mp, wp), np.uint32)
+    bp = np.zeros((np_, wp), np.uint32)
+    ap[:m_rows, :words_], bp[:n_rows, :words_] = a, b
+    lane = np.arange(32)
+    g, t = lane >> 2, lane & 3
+    p = np.zeros((mp, np_), np.int64)
+    pa = np.zeros(mp, np.int64)
+    pb = np.zeros(np_, np.int64)
+
+    def int8s(reg):                      # [32 lanes] uint32 -> [32, 4]
+        return reg.astype(np.uint32).view(np.int8).reshape(32, 4)
+
+    popc = np.vectorize(lambda x: bin(int(x)).count("1"))
+    for w in range(wp):
+        valid = k - 32 * w
+        mask = 0 if w >= words_ or valid <= 0 else (
+            0xFFFFFFFF if valid >= 32 else (1 << valid) - 1)
+        pa += popc(ap[:, w] & np.uint32(mask))
+        pb += popc(bp[:, w] & np.uint32(mask))
+        for m0 in range(0, mp, 64):
+            for n0 in range(0, np_, 64):
+                for wn in (0, 32):
+                    for mi in range(4):
+                        rows = m0 + mi * 16 + g
+                        lo0, hi0 = expand_bits(ap[rows, w], t, mask)
+                        lo1, hi1 = expand_bits(ap[rows + 8, w], t, mask)
+                        tile_a = np.zeros((16, 32), np.int64)
+                        for j, reg in enumerate((lo0, lo1, hi0, hi1)):
+                            for byte in range(4):
+                                tile_a[g + 8 * (j & 1),
+                                       4 * t + 16 * (j >> 1) + byte] = \
+                                    int8s(reg)[:, byte]
+                        for ni in range(4):
+                            cols = n0 + wn + ni * 8 + g
+                            tile_b = np.zeros((32, 8), np.int64)
+                            for j, reg in enumerate(expand_bits(bp[cols, w],
+                                                                t)):
+                                for byte in range(4):
+                                    tile_b[4 * t + 16 * j + byte, g] = \
+                                        int8s(reg)[:, byte]
+                            acc = tile_a @ tile_b
+                            for j in range(4):
+                                rr, cc = g + 8 * (j >> 1), 2 * t + (j & 1)
+                                p[m0 + mi * 16 + rr,
+                                  n0 + wn + ni * 8 + cc] += acc[rr, cc]
+    c = 4 * p - 2 * pa[:, None] - 2 * pb[None, :] + k
+    return c[:m_rows, :n_rows].astype(np.int32)
+
+
+@pytest.mark.parametrize("m,n,k", [(17, 9, 1), (100, 77, 700), (3, 5, 32),
+                                   (70, 130, 300)])
+def test_gemm_kernel_emulated_equals_ref(m, n, k):
+    """The kernel's tiling, fragments and expansion, emulated, equal the
+    plain version with random (noisy) pad bits."""
+    rng = np.random.default_rng(m + n + k)
+    w = -(-k // 32)
+    a = rng.integers(0, 2 ** 32, (m, w), dtype=np.uint32)
+    b = rng.integers(0, 2 ** 32, (n, w), dtype=np.uint32)
+    np.testing.assert_array_equal(
+        emulate_xnor_gemm(a, b, k),
+        xnor_popcount.xnor_gemm_plain(words(a), words(b), k).numpy())
+
+
+@pytest.mark.parametrize("m,n,k,kg", [
+    (512, 3072, 768, 2), (512, 768, 3072, 4), (4, 3072, 768, 2),
+    (4, 768, 3072, 4), (1024, 3072, 768, 1), (1024, 768, 3072, 4),
+    (17, 9, 1, 1), (100, 77, 700, 1)])
+def test_gemm_k_groups(m, n, k, kg):
+    """The K groups the wrapper picks on 132 SMs: 12 or more k steps a
+    warp, every block resident at once."""
+    assert xnor_popcount.k_groups(m, n, -(-k // 32), 132) == kg
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("m,n,k", [(512, 3072, 768), (100, 77, 700)])
+@pytest.mark.parametrize("m,n,k", [
+    (512, 3072, 768), (4, 3072, 768), (1024, 3072, 768), (512, 768, 3072),
+    (17, 9, 1), (100, 77, 700)])
 def test_gemm_kernel_equals_plain(cuda, m, n, k):
+    """The tensor-core kernel at the FFN pair's, decode's and prefill's
+    shapes and ragged ones, random words (noisy pad bits where K is not
+    a multiple of 32) against the plain version, exactly."""
     rng = np.random.default_rng(k)
     w = -(-k // 32)
     a = torch.from_numpy(rng.integers(-2 ** 31, 2 ** 31, (m, w),
                                       dtype=np.int32)).to(cuda)
     b = torch.from_numpy(rng.integers(-2 ** 31, 2 ** 31, (n, w),
                                       dtype=np.int32)).to(cuda)
+    before = xnor_popcount.xnor_gemm_packed.launches
     got = xnor_popcount.xnor_gemm_packed(a, b, k)
     torch.cuda.synchronize()
+    assert xnor_popcount.xnor_gemm_packed.launches == before + 1
     assert torch.equal(got, xnor_popcount.xnor_gemm_plain(a, b, k))
 
 
@@ -200,20 +344,16 @@ def test_interp_rejects_addresses_outside_the_template():
                                      (15,), 10)
 
 
-def test_block_cols_fit_shared_memory():
-    # the faulted kernel: n_state rows of shared memory per column
-    assert aap_interpreter.block_cols(267) == 192      # K=128 serving kernel
-    assert aap_interpreter.block_cols(510) == 96       # the 500-row budget
-    for n_state in (3, 267, 510, 1816):
-        c = aap_interpreter.block_cols(n_state)
-        assert c % 32 == 0 and 4 * n_state * c <= aap_interpreter.SMEM_BYTES
-    with pytest.raises(ValueError):
-        aap_interpreter.block_cols(2000)
-    # the fault-free kernel: slots, words per thread and the SM count
-    geometry = aap_interpreter.launch_geometry
+@pytest.mark.parametrize("faulted", [False, True])
+def test_launch_geometry_fits_shared_memory(faulted):
+    """Slots, words per thread and the SM count set the block; with fault
+    injection each instruction chunk carries 8 more bytes an
+    instruction."""
+    def geometry(*args, **kw):
+        return aap_interpreter.launch_geometry(*args, **kw, faulted=faulted)
+    chunks = 2 * aap_interpreter.STREAM_CHUNK * (16 + 8 * faulted)
     # the K=128 serving stream's 96 slots over one full DRIM-R wave: 4
     # words a thread, 128 blocks of 128 threads, one round on 132 SMs
-    chunks = 2 * aap_interpreter.STREAM_CHUNK * 16
     assert geometry(96, 65536, 1, 132) == (4, 128, 97 * 4 * 4 * 128 + chunks)
     assert geometry(97, 65536, 1, 132) == geometry(96, 65536, 1, 132)
     for slots in (1, 31, 95, 137, 269, 1700):
@@ -221,7 +361,7 @@ def test_block_cols_fit_shared_memory():
             w, t, smem = geometry(slots, cols, waves, 132)
             assert w in (1, 2, 4) and t % 32 == 0
             assert smem == (slots | 1) * 4 * w * t + chunks
-            assert smem <= aap_interpreter.SMEM_BYTES
+            assert smem <= aap_interpreter.MAX_BLOCK_SMEM
     assert geometry(269, 65536, 1, 132, words=(1,))[0] == 1
     with pytest.raises(ValueError):
         geometry(2000, 65536, 1, 132)
@@ -376,6 +516,37 @@ def test_packed_twin_on_carry_save_streams(jref, carry_save_streams, label):
         p = aap_interpreter._pack(stream, slots, n_state, n_in, demand)
         assert (p.n_slots, p.peak_live) == (n_slots, peak), demand
     assert (packed.n_slots, packed.peak_live) == min(orders)
+
+
+# SHA-256 (first 16 hex digits) of words, loads and out_map as the pass
+# packed these streams before it took stuck rows
+UNSTUCK_PACKINGS = {"K=32 bare": "a5788675a0585d18",
+                    "K=128 bare": "2f81f8284fd9a262",
+                    "K=128 tmr": "9309580e5a64c2e0",
+                    "K=128 ecc": "1fe6c2cb67c8a163",
+                    "K=128 tmr+ecc": "8121e5be2debba15"}
+
+
+@pytest.mark.parametrize("label", sorted(UNSTUCK_PACKINGS))
+def test_pack_without_stuck_rows_is_unchanged(carry_save_streams, label):
+    """`stuck=()` packs the fault-free streams byte for byte as before the
+    pass took stuck rows, and keeps every instruction once in `order`."""
+    import hashlib
+    prog, readback, n_rows, n_in = carry_save_streams[label]
+    stream = isa.encode_kernel_stream(prog, n_rows=n_rows)
+    slots = [isa.kstream_slot(r, n_rows) for r in readback]
+    n_state = isa.dcc_state_rows(n_rows)
+    packed = aap_interpreter.pack_stream(stream, slots, n_state, n_in)
+    same = aap_interpreter.pack_stream(stream, slots, n_state, n_in,
+                                       stuck=())
+    digest = hashlib.sha256()
+    for a, b in ((packed.words, same.words), (packed.loads, same.loads),
+                 (packed.out_map, same.out_map)):
+        np.testing.assert_array_equal(a, b)
+        digest.update(np.ascontiguousarray(a).tobytes())
+    assert digest.hexdigest()[:16] == UNSTUCK_PACKINGS[label]
+    assert packed.stuck == () and sorted(packed.order) == list(
+        range(len(prog)))
 
 
 def test_pack_refuses_more_rows_than_16_bits_address():
