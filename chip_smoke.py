@@ -20,7 +20,12 @@ Phases, each fatal on failure:
                 the same function (`torch._int_mm` on the +-1 int8
                 operands for the GEMM, at its decode, prefill and FFN
                 shapes, and a float32 matmul beside it; SDPA for flash
-                attention); the AAP interpreter on its packed stream
+                attention); the sign packer at the FFN pair's and the
+                packed weights' float32 shapes, the served bfloat16
+                activations (decode [4, K], prefill [1024, K]), ragged K
+                and views one element in (the scalar path), beside an
+                empty kernel's launch (`launch_floor_ms`); the AAP
+                interpreter on its packed stream
                 at the serving decode shape (K=128, one full DRIM-R wave),
                 the bulk phase's K=32 dot (one wave), the TMR stream
                 fault-free over 4 waves and a ragged soup,
@@ -84,7 +89,16 @@ Phases, each fatal on failure:
                 op's kernel time, its Gbit/s beside the DRIM-R model and
                 the paper's GPU model, and the op-averaged DRIM-R / H100
                 ratio beside the paper's 8.4 ("bulk" lines);
-  7. train   -- the drim-bnn LM trained at full width and depth through
+  7. analog  -- the paper's Table-3 Monte-Carlo on the card (10,000
+                trials at the five corners, seed 0, draws from the port's
+                twin of jax.random): the wrong DRA and TRA results must
+                equal `launch.analog.EXPECTED` and
+                `FaultModel.from_corner(0.15, source="sim")` the rates of
+                `launch.analog.FROM_CORNER`; then a 32-bit
+                `multibit_add_program` over one DRIM-R wave (2**21
+                elements) on the AAP interpreter must equal numpy's a + b;
+                prints the phase's wall time ("analog" line);
+  8. train   -- the drim-bnn LM trained at full width and depth through
                 `repro_torch.launch.train.main` (examples/train_bnn_lm.py's
                 batch 8, seq 256, AdamW 3e-4; 20 steps, seeded weights,
                 deterministic algorithms): finite losses, the last below
@@ -92,23 +106,27 @@ Phases, each fatal on failure:
                 step-10 checkpoint restored into a fresh state and trained
                 10 more steps must equal the straight run's step-20 state
                 bit for bit;
-  8. counts  -- the launch counters are zeroed just before phase 3, before
-                each of phase 4's five legs, before phase 5, phase 6 and
-                each of phase 7's two legs, and read just after each:
+  9. counts  -- the launch counters are zeroed just before phase 3, before
+                each of phase 4's five legs, before phase 5, phase 6,
+                phase 7 and each of phase 8's two legs, and read just
+                after each:
                 phase 3 must launch the three BNN kernels, each serving
                 leg exactly the launches its route implies
                 (`expected_launches`), phase 5 the faulted interpreter
                 once per faulted "cuda" run and the fault-free one once,
                 phase 6 one bulk kernel per "gpu" op run and per non-copy
                 graph node (by kind), the interpreter once per "cuda" run
-                and never on "gpu", phase 7 per step the flash forward
+                and never on "gpu", phase 7 the interpreter once, phase 8
+                per step the flash forward
                 twice per layer (remat) and each backward kernel once per
                 layer; a counter a leg does not name must stay 0;
-  9. check   -- a float32 smoke-config prefill, and the same config's
+ 10. check   -- a float32 smoke-config prefill, and the same config's
                 first train step (loss and gradients), on the card held to
                 the same on the CPU (after the counts are read).
 
-Prints the kernels' JSON line, the card's name and power limit, and last
+Prints the kernels' JSON line (the packer's entry also under "served" at
+its decode [4, 768] bfloat16 and [3072, 768] float32 weight shapes), the
+card's name and power limit, and last
 `{"ok": true, "device": {...}}`.  Exits nonzero without a CUDA card.
 """
 from __future__ import annotations
@@ -373,33 +391,66 @@ def phase_kernels(rng):
     records = {}
 
     # -- sign packer ------------------------------------------------------
-    pack_shapes = [(M_ROWS, d_model, torch.float32),   # up activations
-                   (d_ff, d_model, torch.float32),     # up weights (d_out, d_in)
-                   (M_ROWS, d_ff, torch.float32),      # down activations
-                   (d_model, d_ff, torch.float32),     # down weights
-                   (300, 700, torch.bfloat16)]         # ragged R and K
-    for rows, k, dt in pack_shapes:
-        x = torch.from_numpy(rng.standard_normal((rows, k), dtype=np.float32))
-        x = x.to(dev, dt)
-        x[0, :4] = torch.tensor([-0.0, float("nan"), 0.0, -1e-30])
+    # the FFN pair's float32 operands, the weights the packed serving route
+    # packs once (float32, models/layers.py), the bfloat16 activations it
+    # packs per forward (decode at batch 4, prefill at 4 x 256 tokens,
+    # and the continuous batcher's), ragged K (the scalar path where a
+    # row's bytes are not a multiple of 16) and a view one element in
+    pack_shapes = [(M_ROWS, d_model, torch.float32, 0),   # up activations
+                   (d_ff, d_model, torch.float32, 0),     # up weights
+                   (M_ROWS, d_ff, torch.float32, 0),      # down activations
+                   (d_model, d_ff, torch.float32, 0),     # down weights
+                   (4, d_model, torch.bfloat16, 0),       # decode up
+                   (4, d_ff, torch.bfloat16, 0),          # decode down
+                   (1024, d_model, torch.bfloat16, 0),    # prefill up
+                   (1024, d_ff, torch.bfloat16, 0),       # prefill down
+                   # the continuous batcher's prefills (256 and 200
+                   # tokens) and decode steps (2 slots)
+                   (256, d_model, torch.bfloat16, 0),
+                   (256, d_ff, torch.bfloat16, 0),
+                   (200, d_model, torch.bfloat16, 0),
+                   (200, d_ff, torch.bfloat16, 0),
+                   (2, d_model, torch.bfloat16, 0),
+                   (2, d_ff, torch.bfloat16, 0),
+                   (300, 700, torch.bfloat16, 0),         # ragged R and K
+                   (300, 700, torch.float32, 0),
+                   (257, 33, torch.bfloat16, 0), (64, 1, torch.float32, 0),
+                   (M_ROWS, d_model, torch.float32, 1),   # offset view
+                   (1024, d_ff, torch.bfloat16, 1)]
+    # beside the FFN pair's shape, the kernels line carries the served
+    # shapes with the most launches: the decode activations and the weights
+    served_keys = [(4, d_model, torch.bfloat16, 0),
+                   (d_ff, d_model, torch.float32, 0)]
+    served = []
+    floor_ms = graph_ms(packbits.launch_floor, 50)
+    print("detail " + json.dumps({"kernel": "empty", "launch_floor_ms":
+                                  floor_ms}))
+    for rows, k, dt, offset in pack_shapes:
+        flat = rng.standard_normal(rows * k + offset, dtype=np.float32)
+        x = torch.from_numpy(flat).to(dev, dt)[offset:].view(rows, k)
+        x[0, :4] = torch.tensor([-0.0, float("nan"), 0.0, -1e-30])[:k]
         got = packbits.pack_signs(x)
-        err = check_equal(f"pack_signs {rows}x{k}", got,
+        err = check_equal(f"pack_signs {rows}x{k} {dt} +{offset}", got,
                           packbits.pack_signs_plain(x))
         ms = graph_ms(lambda: packbits.pack_signs(x), 50)
         call_ms = cuda_ms(lambda: packbits.pack_signs(x), 200)
         plain_ms = graph_ms(lambda: packbits.pack_signs_plain(x), 20)
         nbytes = x.numel() * x.element_size() + got.numel() * 4
         b_ms, b_by = bound(nbytes, x.numel())
-        print("detail " + json.dumps({
-            "kernel": "pack_signs", "shape": [rows, k], "dtype": str(dt),
-            "ms": ms, "call_ms": call_ms, "plain_ms": plain_ms,
-            "bound_ms": b_ms}))
-        if (rows, k) == (M_ROWS, d_model):
+        detail = {"shape": [rows, k], "dtype": str(dt), "offset": offset,
+                  "path": packbits.pack_path(x), "ms": ms,
+                  "call_ms": call_ms, "plain_ms": plain_ms, "bound_ms": b_ms}
+        print("detail " + json.dumps({"kernel": "pack_signs", **detail,
+                                      "launch_floor_ms": floor_ms}))
+        if (rows, k, dt, offset) in served_keys:
+            served.append(detail)
+        if (rows, k, dt, offset) == (M_ROWS, d_model, torch.float32, 0):
             records["pack_signs"] = dict(
                 max_abs_err=err, ms=ms, call_ms=call_ms, plain_ms=plain_ms,
-                bound_ms=b_ms,
-                bound_by=b_by, library_ms=None,
+                bound_ms=b_ms, bound_by=b_by, library_ms=None,
+                launch_floor_ms=floor_ms,
                 shape=f"[{rows},{k}] float32 -> [{rows},{-(-k // 32)}] int32")
+    records["pack_signs"]["served"] = served
 
     # -- XNOR-popcount GEMM -------------------------------------------------
     # the FFN pair at M_ROWS rows, the serving decode (batch 4) and prefill
@@ -987,6 +1038,85 @@ def phase_bulk_kernels(rng):
             if dt == torch.bfloat16:
                 records["unpack_signs"] = rec
     return records
+
+
+def sign_planes(x: np.ndarray, nbits: int) -> np.ndarray:
+    """[nbits, n / 32] uint32 bit planes of uint64 values x: bit j of word
+    c of plane i is bit i of element 32 c + j."""
+    shifts = np.arange(32, dtype=np.uint64)
+    return np.stack([(((x >> np.uint64(i)) & np.uint64(1)).reshape(-1, 32)
+                      << shifts).sum(1).astype(np.uint32)
+                     for i in range(nbits)])
+
+
+def plane_values(planes: np.ndarray) -> np.ndarray:
+    """The uint64 values of [nbits, W] uint32 bit planes (sign_planes'
+    inverse)."""
+    shifts = np.arange(32, dtype=np.uint64)
+    vals = np.zeros(planes.shape[1] * 32, np.uint64)
+    for i, plane in enumerate(planes.astype(np.uint64)):
+        vals |= (((plane[:, None] >> shifts) & np.uint64(1)).ravel()
+                 << np.uint64(i))
+    return vals
+
+
+def phase_analog(wrappers):
+    """The paper's Table-3 Monte-Carlo on the card (five corners, 10,000
+    trials, seed 0) and `FaultModel.from_corner(0.15, source="sim")`,
+    held to the counts the port records (`launch.analog.EXPECTED`, held to
+    the reference by the CPU tests); then a 32-bit `multibit_add_program`
+    (7 AAPs a bit slice) over one full DRIM-R wave on the AAP interpreter,
+    held to numpy's a + b.  Returns the phase's launch counts: the
+    interpreter once, nothing else."""
+    from repro_torch.core import (DRIM_R, dcc_state_rows,
+                                  encode_kernel_stream, kstream_slot,
+                                  make_subarray, multibit_add_program)
+    from repro_torch.kernels import aap_interpreter
+    from repro_torch.launch import analog
+    dev = torch.device("cuda")
+    nbits = 32
+    sa = make_subarray(n_data=4 * nbits + 1, row_bits=32)   # a template
+    a_rows, b_rows = range(nbits), range(nbits, 2 * nbits)
+    cin = 2 * nbits                                         # stays zero
+    sum_rows = range(cin + 1, cin + 1 + nbits)
+    carry_rows = range(cin + 1 + nbits, cin + 1 + 2 * nbits)
+    prog = multibit_add_program(sa, a_rows, b_rows, cin, sum_rows,
+                                carry_rows)
+    stream_np = encode_kernel_stream(prog, n_rows=sa.n_rows)
+    slot_list = [kstream_slot(r, sa.n_rows)
+                 for r in (*sum_rows, carry_rows[-1])]
+    n_state = dcc_state_rows(sa.n_rows)
+    cols = DRIM_R.n_subarrays * DRIM_R.row_bits // 32
+    rng = np.random.default_rng([SEED, 19])
+    a, b = (rng.integers(0, 1 << 32, cols * 32, dtype=np.uint64)
+            for _ in range(2))
+    tiles = np.concatenate([sign_planes(a, nbits), sign_planes(b, nbits)])
+    packed = aap_interpreter.pack_stream(stream_np, slot_list, n_state,
+                                         2 * nbits)
+
+    def run():
+        t0 = time.perf_counter()
+        mc = analog.run(dev)
+        out = aap_interpreter.aap_interp(
+            torch.from_numpy(stream_np).to(dev),
+            torch.from_numpy(tiles.view(np.int32)[None]).to(dev),
+            torch.tensor(slot_list, dtype=torch.int32, device=dev),
+            n_state, packed=packed)
+        torch.cuda.synchronize()
+        return mc, out, time.perf_counter() - t0
+
+    (mc, out, wall_s), counts = counted(wrappers, "analog", run,
+                                        lambda _: {"aap_interp": 1})
+    got = plane_values(out[0].cpu().numpy().view(np.uint32))
+    if not np.array_equal(got, a + b):
+        bad = int(np.flatnonzero(got != a + b)[0])
+        raise AssertionError(f"multibit add: element {bad} is {got[bad]}, "
+                             f"not {a[bad]} + {b[bad]}")
+    print("analog " + json.dumps({
+        **mc, "multibit_add": {"bits": nbits, "aaps": len(prog),
+                               "elements": cols * 32, "exact": True},
+        "wall_s": wall_s}))
+    return counts
 
 
 def phase_bulk(wrappers):
@@ -1666,6 +1796,7 @@ def main() -> int:
     by_leg = phase_serve(wrappers)
     by_leg["faults"] = phase_faults(wrappers)
     by_leg["bulk"] = phase_bulk(wrappers)
+    by_leg["analog"] = phase_analog(wrappers)
     by_leg.update(phase_train(wrappers))
     launches = {name: sum(c[name] for c in by_leg.values())
                 for name in wrappers}
@@ -1723,7 +1854,8 @@ def main() -> int:
             "library_ms": r["library_ms"],
             "library_device_ms": r.get("library_device_ms"),
             "library_fp32_ms": r.get("library_fp32_ms"),
-            "shape": r["shape"]})
+            "launch_floor_ms": r.get("launch_floor_ms"),
+            "served": r.get("served"), "shape": r["shape"]})
     print(json.dumps({"kernels": kernels}))
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",

@@ -171,13 +171,14 @@ class FaultModel:
     @classmethod
     def from_corner(cls, variation: float = 0.15, *, seed: int = 0,
                     source: str = "sim", trials: int = 10_000,
-                    mc_seed: int = 0, **kw) -> "FaultModel":
+                    mc_seed: int = 0, device=None, **kw) -> "FaultModel":
         """Build a model from a process-variation corner.
 
-        source="paper" reads the corner out of `analog.PAPER_TABLE3`;
-        source="sim" (the reference's default) needs the analog
-        Monte-Carlo, which is not ported yet."""
-        from .analog import PAPER_TABLE3
+        source="sim" runs `analog.monte_carlo_error_rates` for the corner
+        (calibrated simulator rates; `device` as there, None = the card);
+        source="paper" reads the corner straight out of
+        `analog.PAPER_TABLE3` (no Monte-Carlo)."""
+        from .analog import PAPER_TABLE3, monte_carlo_error_rates
         if source == "paper":
             try:
                 rates = PAPER_TABLE3[variation]
@@ -186,10 +187,9 @@ class FaultModel:
                     f"variation {variation} not a Table-3 corner; "
                     f"choose from {sorted(PAPER_TABLE3)}") from None
         elif source == "sim":
-            raise NotImplementedError(
-                "source='sim' needs the analog Monte-Carlo of "
-                "core/analog.py, not ported to repro_torch yet: ROADMAP "
-                "Queue 1 item 12; use source='paper' or pass p_dra/p_tra")
+            rates = monte_carlo_error_rates(
+                trials=trials, variations=(variation,), seed=mc_seed,
+                device=device)[variation]
         else:
             raise ValueError(f"unknown source {source!r} "
                              "(expected 'sim' or 'paper')")

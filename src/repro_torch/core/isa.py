@@ -32,6 +32,15 @@ from .subarray import (WORD_BITS, SubArray, _dra_bl, _tra_bl, _write_all,
 OP_COPY, OP_COPY2, OP_DRA, OP_TRA = 0, 1, 2, 3
 _ARITY = {OP_COPY: 2, OP_COPY2: 3, OP_DRA: 3, OP_TRA: 4}
 
+# Paper Table 1: the enable bits of the sense-amplification state.
+# W/R-Copy-NOT-TRA -> (En_M=1, En_x=1, En_C=0); DRA -> (0, 1, 1).
+ENABLE_BITS = {
+    OP_COPY: dict(En_M=1, En_x=1, En_C=0),
+    OP_COPY2: dict(En_M=1, En_x=1, En_C=0),
+    OP_DRA: dict(En_M=0, En_x=1, En_C=1),
+    OP_TRA: dict(En_M=1, En_x=1, En_C=0),
+}
+
 
 @dataclasses.dataclass(frozen=True)
 class AAP:
@@ -340,6 +349,25 @@ def microprogram_add(sa: SubArray, d_i: int, d_j: int, d_k: int,
         AAP(OP_COPY, (sa.wl_dcc(3), sum_r)),
         AAP(OP_TRA, (sa.wl_x(1), sa.wl_x(3), sa.wl_x(5), cout_r)),
     ]
+
+
+def multibit_add_program(sa: SubArray, a_rows: Sequence[int],
+                         b_rows: Sequence[int], cin_row: int,
+                         sum_rows: Sequence[int], carry_rows: Sequence[int],
+                         ) -> List[AAP]:
+    """Ripple-carry N-bit adder over bit-plane rows (LSB first).
+
+    a_rows[i], b_rows[i] hold bit i of every element in the row;
+    carry_rows[i] receives the carry out of slice i and feeds slice i+1.
+    7 AAPs per bit-slice (Table 2 full adder)."""
+    if not (len(a_rows) == len(b_rows) == len(sum_rows) == len(carry_rows)):
+        raise ValueError("bit-plane row lists must have equal length")
+    prog: List[AAP] = []
+    carry = cin_row
+    for a, b, s, c in zip(a_rows, b_rows, sum_rows, carry_rows):
+        prog += microprogram_add(sa, a, b, carry, s, c)
+        carry = c
+    return prog
 
 
 def microprogram_and2(sa: SubArray, d_i: int, d_j: int, zero_row: int,

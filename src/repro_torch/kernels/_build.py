@@ -7,12 +7,14 @@ use; the hash of the source and of the shared headers (`csrc/*.cuh`)
 names the library, so an edited source is rebuilt and a stale library is
 never loaded.  Every C entry point
 returns its `cudaGetLastError()`; `check` raises on a nonzero code.
+`sm_count` is the card's SM count, from which the wrappers size grids.
 
 Nothing here runs at import time: the CPU tests import every module.
 """
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import pathlib
@@ -20,6 +22,8 @@ import shutil
 import subprocess
 import threading
 from typing import Dict, Iterable
+
+import torch
 
 CSRC = pathlib.Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = pathlib.Path(__file__).resolve().parents[3] / "build" / "kernels"
@@ -92,3 +96,9 @@ def check(err: int, what: str) -> None:
     never runs, and a later synchronize would not report it)."""
     if err != 0:
         raise RuntimeError(f"{what}: CUDA error {err}")
+
+
+@functools.lru_cache(maxsize=None)
+def sm_count(device: torch.device) -> int:
+    """The card's SM count, which the wrappers size their grids from."""
+    return torch.cuda.get_device_properties(device).multi_processor_count

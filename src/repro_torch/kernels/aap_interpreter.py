@@ -532,11 +532,6 @@ def words_choices(cols: int, ptr: int) -> Tuple[int, ...]:
     return tuple(w for w in (4, 2, 1) if cols % w == 0 and ptr % (4 * w) == 0)
 
 
-@functools.lru_cache(maxsize=None)
-def sm_count(device: torch.device) -> int:
-    return torch.cuda.get_device_properties(device).multi_processor_count
-
-
 def aap_interp(stream: torch.Tensor, tiles: torch.Tensor,
                out_slots: torch.Tensor, n_state: int, *,
                packed: PackedStream | None = None) -> torch.Tensor:
@@ -579,7 +574,7 @@ def aap_interp(stream: torch.Tensor, tiles: torch.Tensor,
     if out.numel() == 0:
         return out
     w, threads, smem = launch_geometry(
-        packed.n_slots, cols, waves, sm_count(tiles.device),
+        packed.n_slots, cols, waves, _build.sm_count(tiles.device),
         words_choices(cols, tiles.data_ptr()))
     p_words, p_loads, p_out = packed.tensors(tiles.device)
     with torch.cuda.device(tiles.device):
@@ -683,7 +678,7 @@ def aap_interp_faulted(stream: torch.Tensor, thresh: torch.Tensor,
     if out.numel() == 0:
         return out
     w, threads, smem = launch_geometry(
-        packed.n_slots, cols, waves, sm_count(tiles.device),
+        packed.n_slots, cols, waves, _build.sm_count(tiles.device),
         words_choices(cols, tiles.data_ptr()), faulted=True)
     p_words, p_loads, p_out = packed.tensors(tiles.device)
     order, keys = packed.fault_tensors(tiles.device)

@@ -6,10 +6,12 @@ Bit j of word w is 1 where x[r, 32w + j] >= 0 (little-endian; -0.0 packs
 to 1, NaN to 0); bits past K are 0.
 
 Kernel: `csrc/pack_signs.cu`, replacing the TPU kernel
-`src/repro/kernels/packbits.py:_pack_kernel`.  One warp builds one word
-with `__ballot_sync`; the op reads each input once and writes 1/32 of
-it, so device-memory bandwidth bounds it, and the kernel's reads are
-fully coalesced (one 128-byte row segment per warp for float32).  On a
+`src/repro/kernels/packbits.py:_pack_kernel`.  The op reads each input
+once and writes 1/32 of it, so device-memory bandwidth bounds it.  Where
+the tensor and every row start on a 16-byte boundary (`pack_path` says
+"vector") a lane loads 16 bytes a round and lanes OR their bits into
+words with shuffles.  Other tensors (K = 700 bfloat16, a view one element
+in) take the same source's scalar path, one `__ballot_sync` a word.  The grid is sized from the SM count.  On a
 CPU tensor the wrapper runs `pack_signs_plain`; on a CUDA tensor it
 launches the kernel or raises.
 
@@ -41,8 +43,11 @@ def _lib() -> ctypes.CDLL:
     lib = _build.load("pack_signs")
     for fn in (lib.pack_signs_f32, lib.pack_signs_bf16):
         fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
-                       ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+                       ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                       ctypes.c_int, ctypes.c_void_p]
         fn.restype = ctypes.c_int
+    lib.launch_floor.argtypes = [ctypes.c_void_p]
+    lib.launch_floor.restype = ctypes.c_int
     return lib
 
 
@@ -65,6 +70,14 @@ def pack_signs_plain(x: torch.Tensor) -> torch.Tensor:
     return pack_signs_ref(x)
 
 
+def pack_path(x: torch.Tensor) -> str:
+    """The kernel's path for `x`: "vector" (16-byte loads) where the data
+    and every row start on a 16-byte boundary, else "scalar"."""
+    row_bytes = x.shape[-1] * x.element_size()
+    aligned = x.data_ptr() % 16 == 0 and row_bytes % 16 == 0
+    return "vector" if aligned else "scalar"
+
+
 def pack_signs(x: torch.Tensor) -> torch.Tensor:
     """[R, K] float32/bfloat16 contiguous -> [R, ceil(K/32)] int32."""
     if x.dim() != 2:
@@ -78,21 +91,33 @@ def pack_signs(x: torch.Tensor) -> torch.Tensor:
     if x.device.type != "cuda":
         raise ValueError(f"pack_signs runs on cpu or cuda, not {x.device}")
     rows, k = x.shape
+    if x.numel() >= 2**31:
+        raise ValueError(f"pack_signs takes fewer than 2**31 elements, got "
+                         f"{x.numel()}")
     words = -(-k // WORD_BITS)
     out = torch.empty((rows, words), dtype=torch.int32, device=x.device)
     if out.numel() == 0:
         return out
+    code = 1 if pack_path(x) == "vector" else 0
     lib = _lib()
     fn = lib.pack_signs_f32 if x.dtype == torch.float32 else lib.pack_signs_bf16
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
-        _build.check(fn(x.data_ptr(), out.data_ptr(), rows, k, words, stream),
+        _build.check(fn(x.data_ptr(), out.data_ptr(), rows, k, words, code,
+                        _build.sm_count(x.device), stream),
                      "pack_signs")
     pack_signs.launches += 1
     return out
 
 
 pack_signs.launches = 0
+
+
+def launch_floor() -> None:
+    """Launch the packer source's empty kernel once on the current stream:
+    what a launch costs with no work (timed beside the packer's bound)."""
+    _build.check(_lib().launch_floor(torch.cuda.current_stream().cuda_stream),
+                 "launch_floor")
 
 
 def unpack_signs_plain(p: torch.Tensor, dtype=torch.bfloat16) -> torch.Tensor:

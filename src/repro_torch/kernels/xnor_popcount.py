@@ -66,11 +66,6 @@ def k_groups(m: int, n: int, words: int, sm_count: int) -> int:
     return 1
 
 
-@functools.lru_cache(maxsize=None)
-def _sm_count(device: torch.device) -> int:
-    return torch.cuda.get_device_properties(device).multi_processor_count
-
-
 def xnor_gemm_plain(a_packed: torch.Tensor, b_packed: torch.Tensor,
                     k_bits: int) -> torch.Tensor:
     """Plain torch version: `ref.xnor_gemm_ref`."""
@@ -105,7 +100,7 @@ def xnor_gemm_packed(a_packed: torch.Tensor, b_packed: torch.Tensor,
     out = torch.empty((m, n), dtype=torch.int32, device=a_packed.device)
     if out.numel() == 0:
         return out
-    kg = k_groups(m, n, words, _sm_count(a_packed.device))
+    kg = k_groups(m, n, words, _build.sm_count(a_packed.device))
     with torch.cuda.device(a_packed.device):
         stream = torch.cuda.current_stream().cuda_stream
         _build.check(_lib().xnor_gemm(a_packed.data_ptr(), b_packed.data_ptr(),

@@ -1,8 +1,9 @@
-"""Time the AAP interpreter kernel, fault-free and fault-injecting, and the
-XNOR-popcount GEMM on the main paths' launches, at their shapes, so two
-checkouts can be compared on one card.
+"""Time the AAP interpreter kernel, fault-free and fault-injecting, the
+XNOR-popcount GEMM and the sign packer on the main paths' launches, at
+their shapes, so two checkouts can be compared on one card.
 
     python3 src/repro_torch/launch/interp_timing.py [--src DIR] [--label L]
+        [--kernels interp,gemm,pack]
 
 `--src` names the `src` directory whose `repro_torch` is imported and
 timed (default: the one this file lies in); run the script once per
@@ -23,6 +24,12 @@ kernels.  Interpreter cases, each over DRIM-R waves of 65,536 word columns
 GEMM cases ("gemm" lines): the drim-bnn FFN pair at 512 rows, decode
 (batch 4) and prefill (batch 4 x 256 tokens) through both projections,
 on random sign words.
+
+Packer cases ("pack" lines, `PACK_SHAPES`): the FFN pair's float32
+operands, the float32 weights the packed serving route packs, its
+bfloat16 activations at decode and prefill (the continuous batcher's
+too), ragged K and views one element in, from `np.random.default_rng(0)`
+normals, and an empty kernel's launch.
 
 Each case prints one JSON line: the device time per launch in a CUDA
 graph (`ms`), the eager time per call (`call_ms`) and a SHA-256 of the
@@ -144,12 +151,24 @@ GEMM_SHAPES = [("ffn", 512, 3072, 768), ("ffn", 512, 768, 3072),
                ("prefill", 1024, 3072, 768), ("prefill", 1024, 768, 3072)]
 
 
-def emit(torch, kind: str, rec: dict, run) -> None:
+# (rows, K, dtype name, offset in elements) of each timed packer launch
+PACK_SHAPES = [(512, 768, "float32", 0), (3072, 768, "float32", 0),
+               (512, 3072, "float32", 0), (768, 3072, "float32", 0),
+               (4, 768, "bfloat16", 0), (4, 3072, "bfloat16", 0),
+               (1024, 768, "bfloat16", 0), (1024, 3072, "bfloat16", 0),
+               (256, 768, "bfloat16", 0), (256, 3072, "bfloat16", 0),
+               (200, 768, "bfloat16", 0), (200, 3072, "bfloat16", 0),
+               (2, 768, "bfloat16", 0), (2, 3072, "bfloat16", 0),
+               (300, 700, "bfloat16", 0), (300, 700, "float32", 0),
+               (512, 768, "float32", 1), (1024, 3072, "bfloat16", 1)]
+
+
+def emit(torch, kind: str, rec: dict, run, iters: int = 10) -> None:
     """Time `run` and print one line of `kind` with its output's digest."""
     out = run()
     digest = hashlib.sha256(out.cpu().numpy().tobytes()).hexdigest()
-    rec.update(ms=graph_ms(torch, run), call_ms=call_ms(torch, run),
-               sha256=digest[:16])
+    rec.update(ms=graph_ms(torch, run, iters),
+               call_ms=call_ms(torch, run, 2 * iters), sha256=digest[:16])
     print(f"{kind} " + json.dumps(rec), flush=True)
 
 
@@ -158,22 +177,56 @@ def main() -> None:
     ap.add_argument("--src", default=os.path.join(
         os.path.dirname(os.path.abspath(__file__)), os.pardir, os.pardir))
     ap.add_argument("--label", default="")
+    ap.add_argument("--kernels", default="interp,gemm,pack",
+                    help="comma-separated: interp (both interpreters), "
+                         "gemm, pack")
     args = ap.parse_args()
+    kinds = set(args.kernels.split(","))
     sys.path.insert(0, os.path.abspath(args.src))
     import torch
     if not torch.cuda.is_available():
         raise SystemExit("interp_timing needs a CUDA card")
-    from repro_torch.core import dcc_state_rows, encode_kernel_stream, \
-        kstream_slot
-    from repro_torch.kernels import aap_interpreter
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip()
     print(f"card {smi.splitlines()[0]}", flush=True)
     dev = torch.device("cuda")
+    rng = np.random.default_rng(0)
+    if "interp" in kinds:
+        time_interpreters(torch, args, rng)
+    if "gemm" in kinds:
+        from repro_torch.kernels import xnor_popcount
+        for use, m, n, k in GEMM_SHAPES:
+            a, b = (torch.from_numpy(rng.integers(
+                -2**31, 2**31, (rows, -(-k // 32)), dtype=np.int32)).to(dev)
+                for rows in (m, n))
+            emit(torch, "gemm", {"label": args.label, "case": use,
+                                 "shape": [m, n, k]},
+                 lambda: xnor_popcount.xnor_gemm_packed(a, b, k))
+    if "pack" in kinds:
+        from repro_torch.kernels import packbits
+        if hasattr(packbits, "launch_floor"):      # an empty kernel's launch
+            print("pack " + json.dumps({
+                "label": args.label, "case": "empty kernel",
+                "ms": graph_ms(torch, packbits.launch_floor, 50)}),
+                flush=True)
+        for rows, k, dtype, offset in PACK_SHAPES:
+            flat = rng.standard_normal(rows * k + offset, dtype=np.float32)
+            x = torch.from_numpy(flat).to(dev, getattr(torch, dtype))
+            x = x[offset:].view(rows, k)
+            rec = {"label": args.label, "shape": [rows, k], "dtype": dtype,
+                   "offset": offset}
+            emit(torch, "pack", rec, lambda: packbits.pack_signs(x), iters=50)
+
+
+def time_interpreters(torch, args, rng) -> None:
+    """The fault-free and fault-injecting interpreter cases."""
+    from repro_torch.core import dcc_state_rows, encode_kernel_stream, \
+        kstream_slot
+    from repro_torch.kernels import aap_interpreter
+    dev = torch.device("cuda")
     takes_packed = "packed" in inspect.signature(
         aap_interpreter.aap_interp).parameters
-    rng = np.random.default_rng(0)
     for label, prog, readback, n_rows, n_in, waves in cases():
         stream_np = encode_kernel_stream(prog, n_rows=n_rows)
         stream = torch.from_numpy(stream_np).to(dev)
@@ -239,14 +292,6 @@ def main() -> None:
         emit(torch, "interp", rec, run_faulted)
         del operands
 
-    from repro_torch.kernels import xnor_popcount
-    for use, m, n, k in GEMM_SHAPES:
-        a, b = (torch.from_numpy(rng.integers(
-            -2**31, 2**31, (rows, -(-k // 32)), dtype=np.int32)).to(dev)
-            for rows in (m, n))
-        emit(torch, "gemm", {"label": args.label, "case": use,
-                             "shape": [m, n, k]},
-             lambda: xnor_popcount.xnor_gemm_packed(a, b, k))
 
 
 if __name__ == "__main__":

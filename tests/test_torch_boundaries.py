@@ -12,7 +12,7 @@ import numpy as np
 import pytest
 import torch
 
-from repro_torch.core import DRIM_R
+from repro_torch.core import DRIM_R, FaultModel, analog, prng
 from repro_torch.kernels import aap_interpreter, packbits, xnor_popcount
 from repro_torch.models import layers
 from repro_torch.pim import bnn, compiler
@@ -67,6 +67,9 @@ def test_entry_points_default_to_the_card(no_cuda):
         lambda: layers.bitlinear_from_jax({"bkernel": np.ones((4, 2))}),
         lambda: layers.packed_from_jax({"w_packed": np.ones((2, 1), np.uint32),
                                         "alpha": np.ones(2), "k_bits": 4}),
+        lambda: analog.monte_carlo_error_rates(trials=4),
+        lambda: FaultModel.from_corner(0.15, source="sim", trials=4),
+        lambda: prng.PRNGKey(0),
     ]
     for call in calls:
         with pytest.raises(RuntimeError, match="no CUDA device"):

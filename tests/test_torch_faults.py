@@ -77,11 +77,12 @@ def geoms(jref):
 
 @pytest.fixture(scope="module")
 def corner(jref):
-    """The reference's +-15% corner from its calibrated Monte-Carlo
-    (source="sim"), as the port's model: the port has no Monte-Carlo yet,
-    so the test reads the rates off the reference."""
+    """The +-15% corner from the calibrated Monte-Carlo (source="sim"),
+    the reference's and the port's, which must give the same rates."""
     ref = jref.faults.FaultModel.from_corner(0.15, source="sim", seed=0)
-    return ref, FaultModel(p_dra=ref.p_dra, p_tra=ref.p_tra, seed=0)
+    port = FaultModel.from_corner(0.15, source="sim", seed=0, device="cpu")
+    assert (port.p_dra, port.p_tra) == (ref.p_dra, ref.p_tra)
+    return ref, port
 
 
 @pytest.fixture
@@ -227,8 +228,14 @@ def test_from_corner(jref):
         FaultModel.from_corner(0.17, source="paper")
     with pytest.raises(ValueError, match="unknown source"):
         FaultModel.from_corner(0.15, source="oracle")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 12"):
-        FaultModel.from_corner(0.15)
+    # source="sim" (the default) runs the port's Monte-Carlo: the
+    # reference's rates; without a card, device=None raises
+    got = FaultModel.from_corner(0.15, seed=5, device="cpu")
+    want = jref.faults.FaultModel.from_corner(0.15, seed=5)
+    assert dataclasses.astuple(got) == dataclasses.astuple(want)
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            FaultModel.from_corner(0.15)
 
 
 # ---------------------------------------------------------------------------

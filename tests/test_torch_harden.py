@@ -44,10 +44,12 @@ def structure(graph):
 
 @pytest.fixture(scope="module")
 def corner():
-    """The reference's calibrated +-15% corner (source="sim"); the port
-    has no Monte-Carlo yet, so its model takes the reference's rates."""
+    """The calibrated +-15% corner (source="sim"), the reference's and
+    the port's, which must give the same rates."""
     ref = drim.FaultModel.from_corner(0.15, source="sim", seed=0)
-    return ref, FaultModel(p_dra=ref.p_dra, p_tra=ref.p_tra, seed=0)
+    port = FaultModel.from_corner(0.15, source="sim", seed=0, device="cpu")
+    assert (port.p_dra, port.p_tra) == (ref.p_dra, ref.p_tra)
+    return ref, port
 
 
 @pytest.fixture(scope="module")

@@ -54,7 +54,7 @@ def cuda():
 
 def sign_input(rng, rows, k):
     x = rng.standard_normal((rows, k)).astype(np.float32)
-    x[0, :4] = [-0.0, np.nan, 0.0, -1e-30]      # -0.0 >= 0; NaN packs to 0
+    x[0, :4] = [-0.0, np.nan, 0.0, -1e-30][:k]  # -0.0 >= 0; NaN packs to 0
     return x
 
 
@@ -83,6 +83,106 @@ def test_pack_plain_equals_pallas(jref, rows, k, dtype):
 def test_pack_kernel_equals_plain(cuda, rows, k, dtype):
     x = torch.from_numpy(sign_input(np.random.default_rng(1), rows, k))
     x = x.to(cuda, dtype)
+    before = packbits.pack_signs.launches
+    got = packbits.pack_signs(x)
+    torch.cuda.synchronize()
+    assert packbits.pack_signs.launches == before + 1
+    assert torch.equal(got, packbits.pack_signs_plain(x))
+
+
+# The packer at the shapes the main paths launch it with (the FFN pair's
+# and the weights' float32, the serving route's bfloat16 activations at
+# decode and prefill), ragged K and views one element in: the vector path
+# where the data and rows start 16-byte aligned, else the scalar path.
+PACK_CASES = [(512, 768, torch.float32, 0, "vector"),
+              (3072, 768, torch.float32, 0, "vector"),
+              (768, 3072, torch.float32, 0, "vector"),
+              (4, 768, torch.bfloat16, 0, "vector"),
+              (4, 3072, torch.bfloat16, 0, "vector"),
+              (1024, 768, torch.bfloat16, 0, "vector"),
+              (1024, 3072, torch.bfloat16, 0, "vector"),
+              (300, 700, torch.float32, 0, "vector"),
+              (40, 72, torch.bfloat16, 0, "vector"),
+              (300, 700, torch.bfloat16, 0, "scalar"),
+              (257, 33, torch.bfloat16, 0, "scalar"),
+              (64, 1, torch.float32, 0, "scalar"),
+              (512, 768, torch.float32, 1, "scalar"),
+              (1024, 3072, torch.bfloat16, 1, "scalar")]
+
+
+def offset_signs(rng, rows, k, dtype, offset, device):
+    """sign_input's values as a [rows, k] view `offset` elements into a
+    fresh buffer on `device`."""
+    flat = np.concatenate([np.ones(offset, np.float32),
+                           sign_input(rng, rows, k).ravel()])
+    return torch.from_numpy(flat).to(device, dtype)[offset:].view(rows, k)
+
+
+def emulate_pack(x: torch.Tensor, path: int, n_warps: int = 3) -> np.ndarray:
+    """numpy model of `csrc/pack_signs.cu`, lane by lane, `n_warps` warps
+    striding over rounds.  Vector (1): lane (grp, sub) loads 16-byte chunk
+    `sub` of word `grp` of the round, shifts its nibble (float32) or byte
+    (bfloat16) into place and OR-shuffles with the lanes of its word; the
+    lanes of chunk 0 store.  Scalar (0): one word a warp, a ballot of 32
+    lanes."""
+    rows, k = x.shape
+    sign = (x.to(torch.float32) >= 0).numpy().astype(np.uint64)
+    words = -(-k // 32)
+    total = rows * words
+    out = np.zeros(total, np.uint64)
+    lanes = np.arange(32)
+    if path == 0:
+        flat = sign.ravel()
+        for q in range(total):
+            r, w = divmod(q, words)
+            col = w * 32 + lanes
+            ok = col < k
+            bits = np.where(ok, flat[np.where(ok, r * k + col, 0)], 0)
+            out[q] = int((bits << lanes.astype(np.uint64)).sum())
+        return out.astype(np.uint32).reshape(rows, words)
+    per = 16 // x.element_size()              # elements (bits) a chunk
+    group, row_chunks = 32 // per, k // per
+    step = 32 // group
+    chunk = (sign.reshape(-1, per) << np.arange(per, dtype=np.uint64)).sum(1)
+    dense = row_chunks == words * group
+    sub, grp = lanes % group, lanes // group
+    for warp in range(n_warps):
+        for base in range(warp * step, total, n_warps * step):
+            q = base + grp
+            if dense:
+                c, ok = base * group + lanes, q < total
+            else:
+                r = q // words
+                j = (q - r * words) * group + sub
+                c, ok = r * row_chunks + j, (q < total) & (j < row_chunks)
+            word = np.where(ok, chunk[np.where(ok, c, 0)]
+                            << (sub * per).astype(np.uint64), 0)
+            s = 1
+            while s < group:
+                word = word | word[lanes ^ s]
+                s <<= 1
+            keep = (sub == 0) & (q < total)
+            out[q[keep]] = word[keep]
+    return out.astype(np.uint32).reshape(rows, words)
+
+
+@pytest.mark.parametrize("rows,k,dtype,offset,path", PACK_CASES)
+def test_pack_kernel_emulated_equals_plain(rows, k, dtype, offset, path):
+    x = offset_signs(np.random.default_rng(rows * k), rows, k, dtype, offset,
+                     "cpu")
+    assert packbits.pack_path(x) == path
+    want = u32(packbits.pack_signs_plain(x))
+    code = 1 if path == "vector" else 0
+    np.testing.assert_array_equal(emulate_pack(x, code), want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows,k,dtype,offset,path", PACK_CASES)
+def test_pack_kernel_served_shapes_equal_plain(cuda, rows, k, dtype, offset,
+                                               path):
+    x = offset_signs(np.random.default_rng(rows * k), rows, k, dtype, offset,
+                     cuda)
+    assert packbits.pack_path(x) == path
     before = packbits.pack_signs.launches
     got = packbits.pack_signs(x)
     torch.cuda.synchronize()
