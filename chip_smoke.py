@@ -24,7 +24,8 @@ Phases, each fatal on failure:
                 packed weights' float32 shapes, the served bfloat16
                 activations (decode [4, K], prefill [1024, K]), ragged K
                 and views one element in (the scalar path), beside an
-                empty kernel's launch (`launch_floor_ms`); the AAP
+                empty kernel's launch (`launch_floor_ms`), after a
+                warm-up graph of the first shape; the AAP
                 interpreter on its packed stream
                 at the serving decode shape (K=128, one full DRIM-R wave),
                 the bulk phase's K=32 dot (one wave), the TMR stream
@@ -98,7 +99,21 @@ Phases, each fatal on failure:
                 `multibit_add_program` over one DRIM-R wave (2**21
                 elements) on the AAP interpreter must equal numpy's a + b;
                 prints the phase's wall time ("analog" line);
-  8. train   -- the drim-bnn LM trained at full width and depth through
+  8. queue   -- the per-bank command queues at full DRIM-R width, one
+                queue per bank: `lower("queued", n_queues=8)` on xnor2
+                and on the carry-save K=32 dot over one wave, the same
+                words as "resident", clean and at the +-15% corner;
+                `bnn_dot_partitioned` at K=32 (4 and 8 queues, 2**21
+                lanes) and K=128 (8 queues, the faults phase's 4 waves)
+                on "cuda" and "queued", the dots equal to numpy's and the
+                4-queue K=32 critical path 113 AAPs; then the K=32 dot
+                over 8 queues with a stage-0 kill and a mid-graph kill,
+                clean (exact) and TMR at the corner ("cuda" and "queued"
+                bit for bit), each report's requeued segments and
+                detecting stages those of the partition; the
+                interpreters' times at the largest segment's queue block
+                ("queue" and "chaos" lines);
+  9. train   -- the drim-bnn LM trained at full width and depth through
                 `repro_torch.launch.train.main` (examples/train_bnn_lm.py's
                 batch 8, seq 256, AdamW 3e-4; 20 steps, seeded weights,
                 deterministic algorithms): finite losses, the last below
@@ -106,10 +121,10 @@ Phases, each fatal on failure:
                 step-10 checkpoint restored into a fresh state and trained
                 10 more steps must equal the straight run's step-20 state
                 bit for bit;
-  9. counts  -- the launch counters are zeroed just before phase 3, before
+  10. counts -- the launch counters are zeroed just before phase 3, before
                 each of phase 4's five legs, before phase 5, phase 6,
-                phase 7 and each of phase 8's two legs, and read just
-                after each:
+                phase 7, each of phase 8's three legs and each of phase
+                9's two legs, and read just after each:
                 phase 3 must launch the three BNN kernels, each serving
                 leg exactly the launches its route implies
                 (`expected_launches`), phase 5 the faulted interpreter
@@ -117,10 +132,13 @@ Phases, each fatal on failure:
                 phase 6 one bulk kernel per "gpu" op run and per non-copy
                 graph node (by kind), the interpreter once per "cuda" run
                 and never on "gpu", phase 7 the interpreter once, phase 8
+                nothing on the uniform "queued" leg and the interpreter
+                once per "cuda" segment run (a requeued one included; the
+                faulted one instead under flips), phase 9
                 per step the flash forward
                 twice per layer (remat) and each backward kernel once per
                 layer; a counter a leg does not name must stay 0;
- 10. check   -- a float32 smoke-config prefill, and the same config's
+ 11. check  -- a float32 smoke-config prefill, and the same config's
                 first train step (loss and gradients), on the card held to
                 the same on the CPU (after the counts are read).
 
@@ -132,6 +150,7 @@ card's name and power limit, and last
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import io
 import json
 import os
@@ -205,6 +224,10 @@ SERVE = ["--arch", "drim-bnn", "--batch", "4", "--prompt-len", "256",
 # pair: the words of a row and the waves share it.  The rare failing
 # draw's bit position and its one flipped word are not counted.
 HASH_OPS = 10
+
+# The queue phase's partitioned dots (K, queues, M, N): M x N lanes are one
+# DRIM-R wave of words at K=32 and the faults phase's 4 waves at K=128.
+QUEUE_DOTS = ((32, 4, 2048, 1024), (32, 8, 2048, 1024), (128, 8, 4096, 2048))
 
 # The bulk phase: Fig. 8's largest vector (benchmarks/fig8_throughput.py
 # sweeps 2**27..2**29 bits), 2**24 words, 64 MiB a plane: above the 50 MB
@@ -380,9 +403,8 @@ def check_tensor_cores(_build):
 def phase_kernels(rng):
     """Each kernel against its plain version; returns the per-kernel
     records measured at the up-projection's shapes."""
-    from repro_torch.core import (AAP, DRIM_R, dcc_state_rows,
-                                  encode_kernel_stream, kstream_slot)
-    from repro_torch.kernels import aap_interpreter, packbits, xnor_popcount
+    from repro_torch.core import AAP, DRIM_R
+    from repro_torch.kernels import packbits, xnor_popcount
     from repro_torch.kernels.ref import unpack_signs_ref
     from repro_torch.pim import compile as drim_compile
     from repro_torch.pim.bnn import bnn_dot_graph_carrysave, serving_lowering
@@ -422,6 +444,10 @@ def phase_kernels(rng):
     served_keys = [(4, d_model, torch.bfloat16, 0),
                    (d_ff, d_model, torch.float32, 0)]
     served = []
+    # Warm the packer up in a CUDA graph of its first timed shape before
+    # anything is timed: the first shape timed cold read 3x its steady time
+    warm = torch.ones(M_ROWS, d_model, device=dev)
+    graph_ms(lambda: packbits.pack_signs(warm), 50, replays=20)
     floor_ms = graph_ms(packbits.launch_floor, 50)
     print("detail " + json.dumps({"kernel": "empty", "launch_floor_ms":
                                   floor_ms}))
@@ -537,63 +563,78 @@ def phase_kernels(rng):
                  for op in (int(rng.integers(0, 4)) for _ in range(300)))
     cases.append(("ragged soup", soup, tuple(range(n_rows + 4)), n_rows, 3,
                   6, 1000))
-    sm_clock_hz = sm_clock_mhz() * 1e6
-    sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    for label, prog, readback, n_rows_t, waves, n_in, ncols in cases:
-        stream_np = encode_kernel_stream(prog, n_rows=n_rows_t)
-        stream = torch.from_numpy(stream_np).to(dev)
-        slot_list = [kstream_slot(r, n_rows_t) for r in readback]
-        slots = torch.tensor(slot_list, dtype=torch.int32, device=dev)
-        n_state = dcc_state_rows(n_rows_t)
-        packed = aap_interpreter.pack_stream(stream_np, slot_list, n_state,
-                                             n_in)
-        tiles = torch.from_numpy(rng.integers(
-            -2**31, 2**31, (waves, n_in, ncols), dtype=np.int32)).to(dev)
-
-        def run():
-            return aap_interpreter.aap_interp(stream, tiles, slots, n_state,
-                                              packed=packed)
-        got = run()
-        err = check_equal(f"aap_interp {label}", got,
-                          aap_interpreter.aap_interp_plain(
-                              stream, tiles, slots, n_state))
-        check_equal(f"aap_interp {label} (plain twin)", got,
-                    aap_interpreter.aap_interp_packed_plain(packed, tiles))
-        ms = graph_ms(run, 10)
-        call_ms = cuda_ms(run, 50)
-        # The plain replay reads the stream to the host (`tolist`), which
-        # a CUDA graph cannot capture: timed eagerly.
-        plain_ms = cuda_ms(lambda: aap_interpreter.aap_interp_plain(
-            stream, tiles, slots, n_state), 2)
-        nbytes = tiles.numel() * 4 + got.numel() * 4 + \
-            packed.words.nbytes + packed.loads.nbytes
-        b_ms, b_by = bound(nbytes, len(prog) * waves * ncols)
-        w, threads, _ = aap_interpreter.launch_geometry(
-            packed.n_slots, ncols, waves, sms,
-            aap_interpreter.words_choices(ncols, tiles.data_ptr()))
-        smem_ms = smem_bound_ms(packed, waves, ncols, sms, sm_clock_hz)
-        print("detail " + json.dumps({
-            "kernel": "aap_interp", "case": label, "n_ins": len(prog),
-            "n_in": n_in, "n_state": n_state, "slots": packed.n_slots,
-            "peak_live": packed.peak_live, "waves": waves, "cols": ncols,
-            "words_per_thread": w, "block_threads": threads,
-            "block_cols": threads * w, "ms": ms, "call_ms": call_ms,
-            "plain_ms": plain_ms, "bound_ms": b_ms,
-            "smem_bound_ms": smem_ms, "sm_clock_mhz": sm_clock_hz / 1e6}))
-        if label.startswith("serving"):
+    for case in cases:
+        detail, err = interp_case(*case, rng)
+        if case[0].startswith("serving"):
             records["aap_interp"] = dict(
-                max_abs_err=err, ms=ms, call_ms=call_ms, plain_ms=plain_ms,
-                bound_ms=b_ms,
-                bound_by=b_by, library_ms=None,
-                shape=f"{len(prog)} AAPs over [{waves},{n_in},{ncols}] "
-                      f"int32, {packed.n_slots} slots of {n_state} state "
-                      f"rows")
+                max_abs_err=err, library_ms=None,
+                **{k: detail[k] for k in ("ms", "call_ms", "plain_ms",
+                                          "bound_ms", "bound_by")},
+                shape=f"{detail['n_ins']} AAPs over [{detail['waves']},"
+                      f"{detail['n_in']},{detail['cols']}] int32, "
+                      f"{detail['slots']} slots of {detail['n_state']} "
+                      f"state rows")
 
     records["aap_interp_faulted"] = phase_faulted_kernel(rng)
     records["flash_attn_fwd"] = phase_flash(rng)
     records.update(phase_flash_bwd(rng))
     records.update(phase_bulk_kernels(rng))
     return records
+
+
+def interp_case(label, prog, readback, n_rows_t, waves, n_in, ncols, rng):
+    """The AAP interpreter on its packed stream over random tiles [waves,
+    n_in, ncols], held exactly to the plain replay and the packed twin and
+    timed ("detail" line); returns (detail, max_abs_err)."""
+    from repro_torch.core import (dcc_state_rows, encode_kernel_stream,
+                                  kstream_slot)
+    from repro_torch.kernels import aap_interpreter
+    dev = torch.device("cuda")
+    sm_clock_hz = sm_clock_mhz() * 1e6
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    stream_np = encode_kernel_stream(prog, n_rows=n_rows_t)
+    stream = torch.from_numpy(stream_np).to(dev)
+    slot_list = [kstream_slot(r, n_rows_t) for r in readback]
+    slots = torch.tensor(slot_list, dtype=torch.int32, device=dev)
+    n_state = dcc_state_rows(n_rows_t)
+    packed = aap_interpreter.pack_stream(stream_np, slot_list, n_state,
+                                         n_in)
+    tiles = torch.from_numpy(rng.integers(
+        -2**31, 2**31, (waves, n_in, ncols), dtype=np.int32)).to(dev)
+
+    def run():
+        return aap_interpreter.aap_interp(stream, tiles, slots, n_state,
+                                          packed=packed)
+    got = run()
+    err = check_equal(f"aap_interp {label}", got,
+                      aap_interpreter.aap_interp_plain(
+                          stream, tiles, slots, n_state))
+    check_equal(f"aap_interp {label} (plain twin)", got,
+                aap_interpreter.aap_interp_packed_plain(packed, tiles))
+    ms = graph_ms(run, 10)
+    call_ms = cuda_ms(run, 50)
+    # The plain replay reads the stream to the host (`tolist`), which a
+    # CUDA graph cannot capture: timed eagerly.
+    plain_ms = cuda_ms(lambda: aap_interpreter.aap_interp_plain(
+        stream, tiles, slots, n_state), 2)
+    nbytes = tiles.numel() * 4 + got.numel() * 4 + \
+        packed.words.nbytes + packed.loads.nbytes
+    b_ms, b_by = bound(nbytes, len(prog) * waves * ncols)
+    w, threads, _ = aap_interpreter.launch_geometry(
+        packed.n_slots, ncols, waves, sms,
+        aap_interpreter.words_choices(ncols, tiles.data_ptr()))
+    detail = {
+        "kernel": "aap_interp", "case": label, "n_ins": len(prog),
+        "n_in": n_in, "n_state": n_state, "slots": packed.n_slots,
+        "peak_live": packed.peak_live, "waves": waves, "cols": ncols,
+        "words_per_thread": w, "block_threads": threads,
+        "block_cols": threads * w, "ms": ms, "call_ms": call_ms,
+        "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+        "smem_bound_ms": smem_bound_ms(packed, waves, ncols, sms,
+                                       sm_clock_hz),
+        "sm_clock_mhz": sm_clock_hz / 1e6}
+    print("detail " + json.dumps(detail))
+    return detail, err
 
 
 def smem_bound_ms(packed, waves: int, cols: int, sms: int,
@@ -643,7 +684,6 @@ def phase_faulted_kernel(rng):
     stuck rows (an operand row, a result row and a DCC cell), protected
     ops and a bank offset.  Returns the record of the first."""
     from repro_torch.core import AAP, DRIM_R, FaultModel
-    from repro_torch.kernels import aap_interpreter
     from repro_torch.launch import faults as payload
     from repro_torch.pim import compile as drim_compile
     from repro_torch.pim.bnn import bnn_dot_graph_carrysave
@@ -667,67 +707,81 @@ def phase_faulted_kernel(rng):
              ("ragged soup", soup, tuple(range(n_rows + 4)), n_rows, 3, 6,
               (1, 3, 37, 9), ragged, (2, 8))]
     record = None
-    sm_clock_hz = sm_clock_mhz() * 1e6
-    sms = torch.cuda.get_device_properties("cuda").multi_processor_count
-    for label, prog, readback, n_rows_t, waves, n_in, g4, faults, bank in cases:
-        args = faulted_operands(prog, n_rows_t, readback, waves, n_in, g4,
-                                faults, bank, rng)
-        stream, thresh, meta, tiles = args[:4]
-        packed = aap_interpreter.pack_stream(
-            stream.cpu().numpy(), args[4].tolist(), args[5], n_in,
-            stuck=args[6].tolist())
-
-        def run():
-            return aap_interpreter.aap_interp_faulted(*args, packed=packed)
-        got = run()
-        err = check_equal(f"aap_interp_faulted {label}", got,
-                          aap_interpreter.aap_interp_faulted_plain(*args))
-        check_equal(f"aap_interp_faulted {label} (plain twin)", got,
-                    aap_interpreter.aap_interp_packed_plain(
-                        packed, tiles, thresh, meta, args[7]))
-        ms = graph_ms(run, 5)
-        call_ms = cuda_ms(run, 10)
-        # the plain replay reads the stream to the host: timed eagerly
-        plain_ms = cuda_ms(lambda: aap_interpreter.aap_interp_faulted_plain(
-            *args), 1)
-        armed = int((thresh != 0).sum())
-        cols = tiles.shape[2]
-        nbytes = 4 * (tiles.numel() + got.numel() + stream.numel()
-                      + thresh.numel() + meta.numel())
-        n_sub = cols // g4[3]           # sub-arrays: one draw each
-        b_ms, b_by = bound(nbytes, waves * cols * len(prog)
-                           + n_sub * HASH_OPS * armed)
-        w, threads, _ = aap_interpreter.launch_geometry(
-            packed.n_slots, cols, waves, sms,
-            aap_interpreter.words_choices(cols, tiles.data_ptr()),
-            faulted=True)
-        flips = int((got != aap_interpreter.aap_interp(
-            stream, tiles, args[4], args[5])).sum())
-        if flips == 0:
-            raise AssertionError(f"aap_interp_faulted {label}: no word "
-                                 "differs from the fault-free kernel's")
-        print("detail " + json.dumps({
-            "kernel": "aap_interp_faulted", "case": label,
-            "n_ins": len(prog), "armed": armed, "n_in": n_in,
-            "n_state": args[5], "slots": packed.n_slots,
-            "peak_live": packed.peak_live, "waves": waves, "cols": cols,
-            "words_per_thread": w, "block_threads": threads,
-            "stuck_rows": list(faults.stuck_rows),
-            "words_differing_from_fault_free": flips,
-            "ms": ms, "call_ms": call_ms, "plain_ms": plain_ms,
-            "bound_ms": b_ms, "bound_by": b_by,
-            "smem_bound_ms": smem_bound_ms(packed, waves, cols, sms,
-                                           sm_clock_hz),
-            "sm_clock_mhz": sm_clock_hz / 1e6}))
+    for case in cases:
+        detail, err = faulted_case(*case, rng)
         if record is None:
             record = dict(
-                max_abs_err=err, ms=ms, call_ms=call_ms, plain_ms=plain_ms,
-                bound_ms=b_ms, bound_by=b_by, library_ms=None,
-                shape=f"{len(prog)} AAPs ({armed} armed) over [{waves},{n_in},"
-                      f"{cols}] int32, {packed.n_slots} slots of {args[5]} "
-                      f"state rows")
-        del args, got
+                max_abs_err=err, library_ms=None,
+                **{k: detail[k] for k in ("ms", "call_ms", "plain_ms",
+                                          "bound_ms", "bound_by")},
+                shape=f"{detail['n_ins']} AAPs ({detail['armed']} armed) "
+                      f"over [{detail['waves']},{detail['n_in']},"
+                      f"{detail['cols']}] int32, {detail['slots']} slots of "
+                      f"{detail['n_state']} state rows")
     return record
+
+
+def faulted_case(label, prog, readback, n_rows_t, waves, n_in, g4, faults,
+                 bank, rng):
+    """The fault-injecting interpreter on its packed stream over random
+    tiles of a [waves, n_in, chips, banks, subarrays, row_words] payload
+    anchored at `bank` = (bank_lo, banks_total), held exactly to the plain
+    replay and the packed twin, flipping some word, and timed ("detail"
+    line); returns (detail, max_abs_err)."""
+    from repro_torch.kernels import aap_interpreter
+    sm_clock_hz = sm_clock_mhz() * 1e6
+    sms = torch.cuda.get_device_properties("cuda").multi_processor_count
+    args = faulted_operands(prog, n_rows_t, readback, waves, n_in, g4,
+                            faults, bank, rng)
+    stream, thresh, meta, tiles = args[:4]
+    packed = aap_interpreter.pack_stream(
+        stream.cpu().numpy(), args[4].tolist(), args[5], n_in,
+        stuck=args[6].tolist())
+
+    def run():
+        return aap_interpreter.aap_interp_faulted(*args, packed=packed)
+    got = run()
+    err = check_equal(f"aap_interp_faulted {label}", got,
+                      aap_interpreter.aap_interp_faulted_plain(*args))
+    check_equal(f"aap_interp_faulted {label} (plain twin)", got,
+                aap_interpreter.aap_interp_packed_plain(
+                    packed, tiles, thresh, meta, args[7]))
+    ms = graph_ms(run, 5)
+    call_ms = cuda_ms(run, 10)
+    # the plain replay reads the stream to the host: timed eagerly
+    plain_ms = cuda_ms(lambda: aap_interpreter.aap_interp_faulted_plain(
+        *args), 1)
+    armed = int((thresh != 0).sum())
+    cols = tiles.shape[2]
+    nbytes = 4 * (tiles.numel() + got.numel() + stream.numel()
+                  + thresh.numel() + meta.numel())
+    n_sub = cols // g4[3]           # sub-arrays: one draw each
+    b_ms, b_by = bound(nbytes, waves * cols * len(prog)
+                       + n_sub * HASH_OPS * armed)
+    w, threads, _ = aap_interpreter.launch_geometry(
+        packed.n_slots, cols, waves, sms,
+        aap_interpreter.words_choices(cols, tiles.data_ptr()),
+        faulted=True)
+    flips = int((got != aap_interpreter.aap_interp(
+        stream, tiles, args[4], args[5])).sum())
+    if flips == 0:
+        raise AssertionError(f"aap_interp_faulted {label}: no word "
+                             "differs from the fault-free kernel's")
+    detail = {
+        "kernel": "aap_interp_faulted", "case": label,
+        "n_ins": len(prog), "armed": armed, "n_in": n_in,
+        "n_state": args[5], "slots": packed.n_slots,
+        "peak_live": packed.peak_live, "waves": waves, "cols": cols,
+        "words_per_thread": w, "block_threads": threads,
+        "stuck_rows": list(faults.stuck_rows),
+        "words_differing_from_fault_free": flips,
+        "ms": ms, "call_ms": call_ms, "plain_ms": plain_ms,
+        "bound_ms": b_ms, "bound_by": b_by,
+        "smem_bound_ms": smem_bound_ms(packed, waves, cols, sms,
+                                       sm_clock_hz),
+        "sm_clock_mhz": sm_clock_hz / 1e6}
+    print("detail " + json.dumps(detail))
+    return detail, err
 
 
 def phase_flash(rng):
@@ -1252,6 +1306,232 @@ def phase_bulk(wrappers):
         "drim_over_h100": avg(drim_r) / avg(h100),
         "drim_over_paper_gpu_model": avg(drim_r) / avg(model_gpu),
         "paper_claim": PAPER_CLAIMS[("DRIM-R", "GPU")]}))
+    return counts
+
+
+def oracle_dots(a_bits: np.ndarray, b_bits: np.ndarray) -> np.ndarray:
+    """The +-1 dots C = (2a - 1)(2b - 1)^T of sign bits in numpy (float64:
+    every partial sum is an integer far below 2**53)."""
+    a = 2.0 * a_bits.astype(np.float64) - 1.0
+    b = 2.0 * b_bits.astype(np.float64) - 1.0
+    return (a @ b.T).astype(np.int32)
+
+
+def phase_queue(wrappers):
+    """The per-bank command queues at full DRIM-R width (8 banks x 1024
+    sub-arrays x 256 bits), three counted legs:
+
+      uniform     -- `lower("queued", n_queues=8)` on xnor2 and on the
+                     carry-save K=32 dot over one DRIM-R wave: the same
+                     words as "resident", clean and at the +-15 % corner
+                     (no kernel: the queued body is plain torch);
+      partitioned -- `bnn_dot_partitioned` at K=32 (4 and 8 queues, one
+                     wave of lanes) and K=128 (8 queues, the faults
+                     phase's 4 waves) on "cuda" and "queued": the dots
+                     equal the numpy oracle, the 4-queue K=32 critical
+                     path is 113 AAPs, and "cuda" launches the
+                     interpreter once per segment;
+      chaos       -- the K=32 dot over 8 queues with a stage-0 kill and a
+                     mid-graph kill, clean (exact against the oracle) and
+                     TMR at the corner ("cuda" and "queued" bit for bit):
+                     the interpreter (the faulted one under flips) once
+                     per executed and once per requeued segment.
+
+    Then the interpreters' CUDA-graph times at the largest segment's queue
+    block ("queue" lines).  Returns the legs' launch counts."""
+    from repro_torch.core import DRIM_R, FaultModel
+    from repro_torch.launch import faults as payload
+    from repro_torch.pim import compile as drim_compile, graph_ref_results
+    from repro_torch.pim.bnn import (bnn_dot_graph_carrysave,
+                                     bnn_dot_partitioned)
+    from repro_torch.pim.graph import partition_graph
+    from repro_torch.pim.queue import bank_blocks
+    dev = torch.device("cuda")
+    nq = DRIM_R.banks                              # one queue per bank
+    wave_words = DRIM_R.n_subarrays * DRIM_R.row_bits // 32
+    corner = FaultModel.from_corner(payload.CORNER, source="paper",
+                                    seed=payload.SEED)
+    g32, _ = bnn_dot_graph_carrysave(32)
+    feeds32 = payload.fault_feeds(g32, wave_words)
+    oracle32 = graph_ref_results(g32, feeds32)
+    card32 = {n: torch.from_numpy(a.view(np.int32)).to(dev)
+              for n, a in feeds32.items()}
+    counts = {}
+    t_phase = time.perf_counter()
+
+    # -- uniform: the same stream on every queue ---------------------------
+    def uniform():
+        rng = np.random.default_rng([SEED, 20])
+        a, b = (card_words(rng, wave_words) for _ in range(2))
+        for faults in (None, corner):
+            got = drim_compile("xnor2").lower("queued", n_queues=nq).run(
+                a, b, device=dev, faults=faults)
+            want = drim_compile("xnor2").lower("resident").run(
+                a, b, device=dev, faults=faults)
+            check_equal(f"queued xnor2 faults={faults is not None}",
+                        got[0], want[0])
+            t = time.perf_counter()
+            low = drim_compile(g32).lower("queued", n_queues=nq)
+            got = low.run(card32, device=dev, faults=faults)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t
+            want = drim_compile(g32).lower("resident").run(
+                card32, device=dev, faults=faults)
+            for name in want:
+                check_equal(f"queued K=32 {name} faults={faults is not None}",
+                            got[name], want[name])
+                if faults is None:
+                    check_equal(f"queued K=32 {name} vs oracle",
+                                got[name].cpu(), torch.from_numpy(
+                                    oracle32[name].view(np.int32)))
+            sched = low.schedule
+            print("queue " + json.dumps({
+                "lowering": "uniform queued K=32", "n_queues": nq,
+                "faults": "corner" if faults else None,
+                "fence_stages": sched.fence_stages,
+                "critical_path_aaps": sched.aaps_per_tile,
+                "issued_aaps": sched.issued_aaps_per_tile,
+                "stall_aaps": sched.contention_stall_aaps,
+                "identical_to_resident": True, "wall_s": wall}))
+    _, counts["queue uniform"] = counted(wrappers, "queue uniform", uniform,
+                                         lambda _: {})
+
+    # -- partitioned: bnn_dot_partitioned on both bodies -------------------
+    rng = np.random.default_rng([SEED, 21])
+    dots = []                  # (k, queues, a, b): lanes M x N
+    for k, queues, m, n in QUEUE_DOTS:
+        dots.append((k, queues, rng.integers(0, 2, (m, k), dtype=np.uint8),
+                     rng.integers(0, 2, (n, k), dtype=np.uint8)))
+    segments = {(k, q): partition_graph(bnn_dot_graph_carrysave(k)[0], q)
+                .segments for k, q, _, _ in dots}
+
+    def partitioned():
+        for k, queues, a, b in dots:
+            want = oracle_dots(a, b)
+            outs = {}
+            for engine in ("cuda", "queued"):
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                got, sched = bnn_dot_partitioned(a, b, geom=DRIM_R,
+                                                 n_queues=queues,
+                                                 engine=engine, device=dev)
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t
+                check_equal(f"partitioned K={k}@{queues} {engine} vs "
+                            "oracle", got.cpu(), torch.from_numpy(want))
+                outs[engine] = got
+                if (k, queues) == (32, 4) and sched.aaps_per_tile != 113:
+                    raise AssertionError(f"K=32 over 4 queues: critical "
+                                         f"path {sched.aaps_per_tile}, not "
+                                         "113 AAPs")
+                print("queue " + json.dumps({
+                    "lowering": f"partitioned K={k}", "engine": engine,
+                    "n_queues": queues, "lanes": a.shape[0] * b.shape[0],
+                    "words_per_plane": a.shape[0] * b.shape[0] // 32,
+                    "segments": len(segments[k, queues]),
+                    "fence_stages": sched.fence_stages,
+                    "critical_path_aaps": sched.aaps_per_tile,
+                    "issued_aaps": sched.issued_aaps_per_tile,
+                    "stall_aaps": sched.contention_stall_aaps,
+                    "waves_per_queue": sched.waves, "wall_s": wall}))
+            check_equal(f"partitioned K={k}@{queues} cuda vs queued",
+                        outs["cuda"], outs["queued"])
+
+    _, counts["queue partitioned"] = counted(
+        wrappers, "queue partitioned", partitioned,
+        lambda _: {"aap_interp": sum(len(segs) for segs in
+                                     segments.values())})
+
+    # -- chaos: dead queues requeued on survivors --------------------------
+    kills = {"stage-0 kill": (3,), "mid-graph kill": ((0, 2),)}
+    lows = {(engine, harden): drim_compile(g32).lower(
+        engine, partition=True, n_queues=nq, harden=harden)
+        for engine in ("cuda", "queued") for harden in (None, "tmr")}
+    launched = {"aap_interp": 0, "aap_interp_faulted": 0}
+
+    def chaos():
+        for kill, dead in kills.items():
+            for harden, flips in ((None, None), ("tmr", corner)):
+                fm = (dataclasses.replace(flips, dead_queues=dead)
+                      if flips else FaultModel(dead_queues=dead))
+                death = dict(fm.dead_queues)
+                outs = {}
+                for engine in ("cuda", "queued"):
+                    low = lows[engine, harden]
+                    torch.cuda.synchronize()
+                    t = time.perf_counter()
+                    outs[engine] = low.run(card32, device=dev, faults=fm)
+                    torch.cuda.synchronize()
+                    wall = time.perf_counter() - t
+                    rep = low.chaos_report
+                    orphans = [s for s in low.gp.segments
+                               if s.stage >= death.get(s.part,
+                                                       low.gp.n_stages)]
+                    if rep is None or rep.requeued_segments != len(orphans) \
+                            or rep.dead_queues != tuple(sorted(death)) \
+                            or rep.detected_stages != tuple(sorted(
+                                {s.stage for s in orphans})):
+                        raise AssertionError(f"chaos {kill} {harden}: report "
+                                             f"{rep}, orphans {orphans}")
+                    if engine == "cuda":
+                        launched["aap_interp_faulted" if flips else
+                                 "aap_interp"] += \
+                            len(low.gp.segments) - len(orphans) + \
+                            rep.requeued_segments
+                    print("chaos " + json.dumps({
+                        "kill": kill, "engine": engine,
+                        "harden": harden, "faults":
+                        "corner" if flips else None,
+                        "dead_queues": list(rep.dead_queues),
+                        "death_stages": [list(d) for d in rep.death_stages],
+                        "detected_stages": list(rep.detected_stages),
+                        "requeued_segments": rep.requeued_segments,
+                        "segments": len(low.gp.segments),
+                        "data_parallel": rep.data_parallel,
+                        "recovery_s": rep.recovery_s,
+                        "compile_s": rep.compile_s, "wall_s": wall}))
+                for name in oracle32:
+                    check_equal(f"chaos {kill} {harden} {name} cuda vs "
+                                "queued", outs["cuda"][name],
+                                outs["queued"][name])
+                    if harden is None:
+                        check_equal(f"chaos {kill} {name} vs oracle",
+                                    outs["cuda"][name].cpu(),
+                                    torch.from_numpy(
+                                        oracle32[name].view(np.int32)))
+
+    _, counts["queue chaos"] = counted(wrappers, "queue chaos", chaos,
+                                       lambda _: dict(launched))
+
+    # -- the interpreters at the largest segment's queue block (not counted)
+    trng = np.random.default_rng([SEED, 22])
+    geom_q = dataclasses.replace(DRIM_R, banks=DRIM_R.banks // nq)
+    cols = geom_q.n_subarrays * geom_q.row_bits // 32
+    seg = max(segments[128, nq], key=lambda s: s.fp.aaps_per_tile)
+    waves = payload.WAVES * nq           # the K=128 dot's 4 waves, per queue
+    detail, _ = interp_case(f"queue segment K=128@{nq}", seg.fp.program,
+                            seg.fp.readback_rows, seg.fp.template_rows,
+                            waves, len(seg.fp.loaded_inputs), cols, trng)
+    low = lows["cuda", "tmr"]
+    seg = max(low.gp.segments, key=lambda s: s.fp.aaps_per_tile)
+    prot = [k for i, lo, hi in seg.fp.node_spans
+            if seg.node_ids[i] in low.protected_nodes
+            for k in range(lo, hi)]
+    fm = corner.with_protected(prot) if prot else corner
+    g4 = (geom_q.chips, geom_q.banks, geom_q.subarrays_per_bank,
+          geom_q.row_bits // 32)
+    fdetail, _ = faulted_case(
+        f"queue segment TMR K=32@{nq}", seg.fp.program, seg.fp.readback_rows,
+        seg.fp.template_rows, wave_words // cols, len(seg.fp.loaded_inputs),
+        g4, fm,
+        (bank_blocks(DRIM_R.banks, nq)[seg.part][0], DRIM_R.banks), trng)
+    for d in (detail, fdetail):
+        print("queue " + json.dumps({
+            "kernel": d["kernel"], "case": d["case"], "n_ins": d["n_ins"],
+            "waves": d["waves"], "cols": d["cols"], "ms": d["ms"],
+            "bound_ms": d["bound_ms"], "bound_by": d["bound_by"]}))
+    print("queue " + json.dumps({"phase_wall_s":
+                                 time.perf_counter() - t_phase}))
     return counts
 
 
@@ -1797,6 +2077,7 @@ def main() -> int:
     by_leg["faults"] = phase_faults(wrappers)
     by_leg["bulk"] = phase_bulk(wrappers)
     by_leg["analog"] = phase_analog(wrappers)
+    by_leg.update(phase_queue(wrappers))
     by_leg.update(phase_train(wrappers))
     launches = {name: sum(c[name] for c in by_leg.values())
                 for name in wrappers}

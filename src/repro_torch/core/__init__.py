@@ -13,14 +13,15 @@ from .energy import (E_AAP_NJ_PER_KB, E_ACCESS_NJ_PER_KB, E_IO_NJ_PER_KB,
                      ddr4_copy_energy_nj_per_kb, energy_table,
                      pim_energy_nj_per_kb)
 from .faults import FaultModel, fault_mask, mix32, slot_ids_grid
-from .isa import (AAP, AAP_COUNTS, ENABLE_BITS, KSTREAM_COLS, OP_COPY,
-                  OP_COPY2, OP_DRA, OP_TRA, cost, dcc_state_rows, encode,
-                  encode_kernel_stream, kstream_slot, microprogram_add,
+from .isa import (AAP, AAP_COUNTS, CMDS_PER_AAP, ENABLE_BITS, KSTREAM_COLS,
+                  OP_COPY, OP_COPY2, OP_DRA, OP_TRA, cost, dcc_state_rows,
+                  encode, encode_kernel_stream, kstream_slot,
+                  microprogram_add,
                   microprogram_and2, microprogram_copy, microprogram_maj3,
                   microprogram_min3, microprogram_not, microprogram_or2,
                   microprogram_xnor2, microprogram_xor2,
                   multibit_add_program, run_program, run_program_py,
-                  run_program_unrolled)
+                  run_program_unrolled, simulate_bus_issue)
 from .subarray import (N_DCC_WL, N_XROWS, WORD_BITS, SubArray, aap_copy,
                        aap_copy2, aap_dra, aap_tra, activate_read, load_rows,
                        make_subarray, pack_bits, row_words, unpack_bits)

@@ -179,10 +179,30 @@ def device_run_program(dev: DrimDevice, encoded, *, donate: bool = False,
 
 def device_run_program_banked(dev: DrimDevice, encoded_by_block,
                               bank_blocks, *, faults=None) -> DrimDevice:
-    """MIMD over the bank axis: not ported yet."""
-    raise NotImplementedError(
-        "device_run_program_banked is not ported to repro_torch yet: "
-        "ROADMAP Queue 1 item 9 (pim/queue.py)")
+    """MIMD over the bank axis: a DIFFERENT encoded stream per bank block.
+
+    bank_blocks: (lo, hi) pairs partitioning [0, banks) into contiguous
+    blocks; block i runs `encoded_by_block[i]` on its [chips, hi-lo,
+    subarrays] slice through the same interpreter as `device_run_program`,
+    anchored at its physical banks (`bank_lo`, `banks_total`) so its flips
+    are the full fleet's.  This is the full-state reference the per-bank
+    queue engine (`pim/queue.py`) is held to: each block has its own
+    program counter."""
+    if len(encoded_by_block) != len(bank_blocks):
+        raise ValueError("one encoded stream per bank block required")
+    cover = [b for lo, hi in bank_blocks for b in range(lo, hi)]
+    if cover != list(range(dev.banks)):
+        raise ValueError(f"bank blocks {list(bank_blocks)} do not "
+                         f"partition [0, {dev.banks})")
+    datas, dccs = [], []
+    for (lo, hi), enc in zip(bank_blocks, encoded_by_block):
+        block = DrimDevice(data=dev.data[:, lo:hi], dcc=dev.dcc[:, lo:hi])
+        out = _device_run_program(block, enc, faults, bank_lo=lo,
+                                  banks_total=dev.banks)
+        datas.append(out.data)
+        dccs.append(out.dcc)
+    return DrimDevice(data=torch.cat(datas, dim=1),
+                      dcc=torch.cat(dccs, dim=1))
 
 
 def device_run_program_sharded(dev: DrimDevice, encoded, mesh, *,
@@ -190,4 +210,5 @@ def device_run_program_sharded(dev: DrimDevice, encoded, mesh, *,
     """`device_run_program` over a fleet mesh: not ported yet."""
     raise NotImplementedError(
         "device_run_program_sharded is not ported to repro_torch yet: "
-        "ROADMAP Queue 1 item 9 (pim/mesh.py fleet meshes)")
+        "ROADMAP Queue 1 item 12 (fleet meshes over the multi-rank "
+        "process group of runtime/sharding.py)")

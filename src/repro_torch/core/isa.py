@@ -19,6 +19,7 @@ touches only the rows it names.
 from __future__ import annotations
 
 import dataclasses
+import heapq
 from collections import Counter
 from typing import Dict, List, Sequence, Tuple
 
@@ -62,6 +63,50 @@ def encode(program: Sequence[AAP]) -> torch.Tensor:
 
 def cost(program: Sequence[AAP]) -> Tuple[int, Counter]:
     return len(program), Counter(ins.op for ins in program)
+
+
+# ---------------------------------------------------------------------------
+# Shared command-bus issue model (per-bank queues, pim/queue.py)
+# ---------------------------------------------------------------------------
+
+# One AAP needs three command-bus slots: ACTIVATE, ACTIVATE, PRECHARGE.
+CMDS_PER_AAP = 3
+
+
+def simulate_bus_issue(lengths: Sequence[int], *, slots_per_aap: int,
+                       cmds_per_aap: int = CMDS_PER_AAP,
+                       ) -> Tuple[int, Tuple[int, ...]]:
+    """Interleave N per-bank AAP streams onto ONE shared command bus.
+
+    `lengths[q]` is the number of AAPs queue q must issue.  Each AAP
+    occupies its bank for `slots_per_aap` command-bus slots (the
+    ACT-ACT-PRE envelope, `timing.CMD_SLOTS_PER_AAP` at DDR4 rates) but
+    takes only `cmds_per_aap` bus slots to issue; the controller grants
+    the bus to ready queues in (ready-time, queue-id) order.  Once
+    `n_queues x cmds_per_aap` approaches `slots_per_aap` the bus saturates
+    and banks stall waiting for issue slots.
+
+    Returns (makespan_slots, per-queue finish slots).  Stall cycles are
+    `makespan - max(lengths) * slots_per_aap`.
+    """
+    if cmds_per_aap > slots_per_aap:
+        raise ValueError("an AAP cannot need more issue slots than its "
+                         "own envelope provides")
+    heap = [(0, q) for q, n in enumerate(lengths) if n > 0]
+    heapq.heapify(heap)
+    remaining = list(lengths)
+    finish = [0] * len(lengths)
+    bus_free = 0
+    while heap:
+        ready, q = heapq.heappop(heap)
+        start = max(ready, bus_free)
+        bus_free = start + cmds_per_aap
+        done = start + slots_per_aap
+        finish[q] = done
+        remaining[q] -= 1
+        if remaining[q]:
+            heapq.heappush(heap, (done, q))
+    return (max(finish) if finish else 0), tuple(finish)
 
 
 # ---------------------------------------------------------------------------

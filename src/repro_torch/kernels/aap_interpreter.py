@@ -728,7 +728,7 @@ def column_meta(c: int, b: int, s: int, w: int, *, seed: int,
                         word.repeat(c * b * s)]).contiguous()
 
 
-@functools.lru_cache(maxsize=64)
+@functools.lru_cache(maxsize=256)
 def cuda_wave_fn(program: Tuple[AAP, ...], result_rows: Tuple[int, ...],
                  n_rows: int, faults=None, bank_geom=None):
     """The wave function behind engine "cuda" (the counterpart of the
@@ -739,7 +739,8 @@ def cuda_wave_fn(program: Tuple[AAP, ...], result_rows: Tuple[int, ...],
     len(result_rows), ...].  The stream is encoded once per (program,
     n_rows), packed once per number of staged rows (with the fault
     model's stuck rows folded in) and copied once to each device it runs
-    on.
+    on; `run.prepare(staged)` does that one-off work for a payload
+    without a launch.
 
     With a `FaultModel` (an active wave model) the faulted kernel runs:
     per-instruction thresholds come from the program, and the column
@@ -765,6 +766,7 @@ def cuda_wave_fn(program: Tuple[AAP, ...], result_rows: Tuple[int, ...],
                         v = ~zeros if sval else zeros
                 return ~v if neg else v
             return torch.stack([pick(r, n) for r, n in out_slots], dim=1)
+        run_empty.prepare = lambda staged: None
         return run_empty
 
     stream_np = encode_kernel_stream(program, n_rows=n_rows)
@@ -781,8 +783,11 @@ def cuda_wave_fn(program: Tuple[AAP, ...], result_rows: Tuple[int, ...],
     metas: Dict[Tuple, torch.Tensor] = {}
     packs: Dict[int, PackedStream] = {}        # by operand rows staged
 
-    def run(staged: torch.Tensor) -> torch.Tensor:
-        waves, n_in = staged.shape[:2]
+    def prepare(staged: torch.Tensor) -> None:
+        """The one-off host work of a payload shape: the stream packed for
+        its staged rows, copied to its device, the column metadata built
+        and, on the card, the kernel library loaded."""
+        n_in = staged.shape[1]
         dev = staged.device
         if dev not in on_device:
             on_device[dev] = (
@@ -794,25 +799,31 @@ def cuda_wave_fn(program: Tuple[AAP, ...], result_rows: Tuple[int, ...],
                     torch.from_numpy(thresh_np).to(dev),
                     torch.tensor(stuck, dtype=torch.int32,
                                  device=dev).reshape(len(stuck), 2))
-        tiles = staged.reshape(waves, n_in, -1)
+            if dev.type == "cuda":
+                _lib()
         if n_in not in packs:
             packs[n_in] = pack_stream(stream_np, out_slots, n_state, n_in,
                                       stuck=stuck)
+        geom = (dev,) + tuple(staged.shape[2:])
+        if faults is not None and geom not in metas:
+            metas[geom] = column_meta(*staged.shape[2:], seed=faults.seed,
+                                      bank_lo=bank_lo,
+                                      banks_total=banks_total, device=dev)
+
+    def run(staged: torch.Tensor) -> torch.Tensor:
+        prepare(staged)
+        waves, n_in = staged.shape[:2]
+        tiles = staged.reshape(waves, n_in, -1)
         if faults is None:
-            stream, slots = on_device[dev]
+            stream, slots = on_device[staged.device]
             out = aap_interp(stream, tiles, slots, n_state,
                              packed=packs[n_in])
         else:
-            stream, slots, thresh, pins = on_device[dev]
-            geom = (dev,) + tuple(staged.shape[2:])
-            if geom not in metas:
-                metas[geom] = column_meta(*staged.shape[2:], seed=faults.seed,
-                                          bank_lo=bank_lo,
-                                          banks_total=banks_total,
-                                          device=dev)
-            out = aap_interp_faulted(stream, thresh, metas[geom], tiles,
-                                     slots, n_state, pins,
-                                     staged.shape[-1] * 32,
+            stream, slots, thresh, pins = on_device[staged.device]
+            meta = metas[(staged.device,) + tuple(staged.shape[2:])]
+            out = aap_interp_faulted(stream, thresh, meta, tiles, slots,
+                                     n_state, pins, staged.shape[-1] * 32,
                                      packed=packs[n_in])
         return out.reshape((waves, n_out) + tuple(staged.shape[2:]))
+    run.prepare = prepare
     return run

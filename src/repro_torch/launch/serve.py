@@ -24,7 +24,8 @@ Timing: the first decode step runs UNTIMED as warm-up and is reported as
 `decode_tok_per_s` and the p50/p99 step latencies are steady-state.
 
 Not ported yet (ROADMAP Queue 1 item 6): the reference's --microbench,
---resilient, --telemetry/--trace-out, --mesh and --n-queues.
+--resilient, --telemetry/--trace-out, --mesh and --n-queues ("queued"
+itself is an --engine).
 
 CPU-scale example:
   PYTHONPATH=src python -m repro_torch.launch.serve --arch drim-bnn \\

@@ -10,7 +10,7 @@
 On the card (the default) attention runs the flash forward and backward
 kernels; `--device cpu` runs the plain versions.  `--mesh host` and
 `single` both mean one device; `multi` needs meshes (ROADMAP Queue 1
-item 9).  The CPU-scale example:
+item 12).  The CPU-scale example:
 
   PYTHONPATH=src python -m repro_torch.launch.train --arch drim-bnn \\
       --smoke-config --device cpu --steps 30 --batch 4 --seq 64
@@ -68,7 +68,7 @@ def parse_args(argv=None) -> argparse.Namespace:
     args = ap.parse_args(argv)
     if args.mesh == "multi":
         raise NotImplementedError("--mesh multi needs a device mesh: ROADMAP "
-                                  "Queue 1 item 9")
+                                  "Queue 1 item 12")
     return args
 
 

@@ -7,7 +7,7 @@ plus one float32 scale per tensor, and keep the quantization residual for
 the next step.  On one card there is no exchange: the train step encodes
 and decodes in place of it (`runtime.steps`), so the residual state and
 the update match the reference's.  `compressed_allreduce`, the exchange
-itself, needs a data-parallel group (ROADMAP Queue 1 item 9).
+itself, needs a data-parallel group (ROADMAP Queue 1 item 12).
 """
 from __future__ import annotations
 
@@ -52,4 +52,4 @@ def compressed_allreduce(grads, errors, axis_names):
     process group, which the port does not have yet."""
     raise NotImplementedError(
         "compressed_allreduce needs a data-parallel group: ROADMAP Queue 1 "
-        "item 9 (meshes)")
+        "item 12 (runtime/sharding.py)")

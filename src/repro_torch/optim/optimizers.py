@@ -14,7 +14,7 @@ tests line up:
 
 `update` runs under `torch.no_grad()` and returns new tensors; it
 changes none of its arguments.  The reference's ZeRO-1 sharding of the
-state needs a mesh (ROADMAP Queue 1 item 9).
+state needs a mesh (ROADMAP Queue 1 item 12).
 """
 from __future__ import annotations
 

@@ -10,9 +10,12 @@ every lane's operand pair.  Two popcount dataflows:
     ceil(log2(K+1))-plane resident counter by a full ripple of Table-2
     adders, so the stream grows as K * (1 + 7*nbits).
   * CARRY-SAVE (`bnn_dot_graph_carrysave`): a 3:2-compressor tree; each
-    full adder retires a whole plane, ~K adders in all.
+    full adder retires a whole plane, ~K adders in all, and disjoint
+    subtrees can run on different bank queues at once
+    (`bnn_dot_partitioned`, MIMD).
 
-Either way the whole dot is ONE AAP stream per slot; the 2K+1 operand
+Either way the whole dot is ONE AAP stream per slot (or one per bank
+queue and fence stage, partitioned); the 2K+1 operand
 planes are loaded once per tile and only the counter planes are read
 back.  Staging (lane broadcast + word packing) and decoding run as plain
 torch on the device the dot runs on.
@@ -153,13 +156,14 @@ def decode_counts(outs: Dict[str, torch.Tensor], nbits: int,
 
 def bnn_dot_drim(a_bits, b_bits, *, geom: DrimGeometry = DRIM_R,
                  accumulate: str = "ripple", engine: str = "resident",
+                 n_queues: Optional[int] = None,
                  device=None) -> Tuple[torch.Tensor, FusedSchedule]:
     """Full fused BNN dot product on the simulated fleet.
 
     a_bits [M, K], b_bits [N, K] sign bits in {0, 1} (numpy or tensors).
     Returns (C [M, N] int32 on `device`, schedule), C = 2*popcount(XNOR)
     - K.  `accumulate` picks the popcount dataflow: "ripple" or
-    "carrysave"."""
+    "carrysave"; `engine` and `n_queues` thread through the lowering."""
     from repro_torch.pim.compiler import compile as drim_compile
     dev = resolve_device(device)
     a_bits = torch.as_tensor(a_bits, device=dev)
@@ -173,7 +177,37 @@ def bnn_dot_drim(a_bits, b_bits, *, geom: DrimGeometry = DRIM_R,
     else:
         raise ValueError(f"unknown accumulate mode {accumulate!r}")
     feeds, lanes = stage_bnn_planes(a_bits, b_bits)
-    low = drim_compile(graph, geom=geom).lower(engine=engine)
+    low = drim_compile(graph, geom=geom).lower(engine=engine,
+                                               n_queues=n_queues)
+    outs = low.run(feeds, n_bits=lanes, device=dev)
+    count = decode_counts(outs, nbits, lanes)
+    return (2 * count - k_bits).reshape(m, n), low.schedule
+
+
+def bnn_dot_partitioned(a_bits, b_bits, *, geom: DrimGeometry = DRIM_R,
+                        n_queues: Optional[int] = None,
+                        engine: Optional[str] = None, device=None):
+    """The carry-save popcount tree split across per-bank command queues
+    (`lower(partition=True)`, the `pim.queue` MIMD runner): disjoint
+    compressor subtrees run on different bank queues, with cross-bank
+    fences where subtrees merge, so the critical path is the fence-staged
+    slowest queue, not the whole tree.
+
+    `engine`: "queued" (the default; plain torch) or "cuda" (one AAP
+    interpreter launch per segment).  Returns (C [M, N] int32 on
+    `device`, QueueSchedule), exactly `kernels.ref.xnor_gemm_ref`'s
+    dots."""
+    from repro_torch.pim.compiler import compile as drim_compile
+    dev = resolve_device(device)
+    a_bits = torch.as_tensor(a_bits, device=dev)
+    b_bits = torch.as_tensor(b_bits, device=dev)
+    m, k_bits = a_bits.shape
+    n = b_bits.shape[0]
+    graph, nbits = bnn_dot_graph_carrysave(k_bits)
+    feeds, lanes = stage_bnn_planes(a_bits, b_bits)
+    low = drim_compile(graph, geom=geom).lower(engine=engine,
+                                               partition=True,
+                                               n_queues=n_queues)
     outs = low.run(feeds, n_bits=lanes, device=dev)
     count = decode_counts(outs, nbits, lanes)
     return (2 * count - k_bits).reshape(m, n), low.schedule
@@ -216,17 +250,20 @@ def bitlinear_kernel(k_bits: int):
 
 
 def serving_lowering(k_bits: int, *, engine: str = "resident",
-                     geom: Optional[DrimGeometry] = None):
-    """compile -> lower the serving kernel once per (K, engine, geometry)
-    through the process-wide `compiler.lower_cached` memo."""
+                     geom: Optional[DrimGeometry] = None,
+                     n_queues: Optional[int] = None):
+    """compile -> lower the serving kernel once per (K, engine, geometry,
+    queues) through the process-wide `compiler.lower_cached` memo."""
     from repro_torch.pim import compiler
     return compiler.lower_cached(
         bitlinear_kernel(k_bits).trace(),
-        key=("bitlinear_dot", k_bits), geom=geom, engine=engine)
+        key=("bitlinear_dot", k_bits), geom=geom, engine=engine,
+        n_queues=n_queues)
 
 
 def serve_bnn_matmul(a_bits, b_bits, *, engine: str = "resident",
                      geom: Optional[DrimGeometry] = None,
+                     n_queues: Optional[int] = None,
                      k_tile: Optional[int] = None,
                      device=None) -> torch.Tensor:
     """Serving-path binary GEMM on the DRIM fleet.
@@ -248,7 +285,8 @@ def serve_bnn_matmul(a_bits, b_bits, *, engine: str = "resident",
     total = torch.zeros(lanes, dtype=torch.int32, device=dev)
     offset = 0
     for kc in k_chunks(k_bits, k_tile):
-        low = serving_lowering(kc, engine=engine, geom=geom)
+        low = serving_lowering(kc, engine=engine, geom=geom,
+                               n_queues=n_queues)
         a_planes, b_planes, _ = _lane_planes(a_bits[:, offset:offset + kc],
                                              b_bits[:, offset:offset + kc])
         outs = low.run(*a_planes, *b_planes, n_bits=lanes, device=dev)

@@ -7,22 +7,31 @@
     low.cost(n_bits)                    # closed-form schedule
 
 `lower()` runs a registered pass pipeline -- canonicalize -> harden ->
-fuse -> encode (`PASS_PIPELINE`) -- and engines live in one
-`EngineRegistry`: "resident" (plain torch, the default), "baseline" (the
-full device state stepped by the encoded-stream interpreter), "cuda"
+fuse -> optional partition -> encode (`PASS_PIPELINE`) -- and engines
+live in one `EngineRegistry`: "resident" (plain torch, the default),
+"baseline" (the full device state stepped by the encoded-stream
+interpreter), "queued" (per-bank command queues, `pim.queue`), "cuda"
 (the AAP interpreter kernels; their plain replays on CPU tensors), and
 the comparator "gpu" (the reference's "tpu"): no fleet, the op or graph
 evaluated natively by the bulk bit-wise kernels, one `ops.bitwise` call
 per node, and priced by the card's roofline (`pim.offload.gpu_cost`).
+Each device engine owns its dispatch and how it lifts tiling into its
+schedule (`lift_op` / `lift_graph`).
+
+`lower(partition=True | "greedy" | <int>, n_queues=q)` splits a graph
+across q bank queues (`PARTITIONERS`, `graph.partition_graph`) and runs
+each fence stage's per-queue segments on the "queued" engine's plain
+torch body or, with `engine="cuda"`, one AAP interpreter launch per
+segment; dead queues of the fault model are requeued
+(`Lowered.chaos_report`).
 
 Fault injection and hardening are ported: `lower(harden="tmr" | "ecc" |
 "tmr+ecc")` rewrites the graph before fusing (`pim.harden`), `lower(faults=
 FaultModel(...))` sets a default fault model and `run(..., faults=...)`
 overrides it per run; an ``ecc`` run leaves its parity verdict on
-`Lowered.last_ecc`.  The reference's MIMD partitioning, fleet meshes and
-static verifier are later slices: their arguments raise
-NotImplementedError naming the ROADMAP item, and are never silently
-ignored; so is `Lowered.verdict`, which needs the queued engine.
+`Lowered.last_ecc`.  The reference's fleet meshes and static verifier
+are later slices: their arguments raise NotImplementedError naming the
+ROADMAP item, and are never silently ignored; so does `Lowered.verdict`.
 """
 from __future__ import annotations
 
@@ -39,8 +48,9 @@ from repro_torch.device import resolve_device
 from repro_torch.kernels import ops as kops
 from repro_torch.pim.frontend import JittedFunction, TracedProgram, jit
 from repro_torch.pim.graph import (DEFAULT_ROW_BUDGET, BulkGraph,
-                                   FusedProgram, _make_fused_schedule,
-                                   compile_graph)
+                                   FusedProgram, GraphPartition,
+                                   _make_fused_schedule, compile_graph,
+                                   partition_graph)
 from repro_torch.pim.offload import gpu_cost
 from repro_torch.pim.scheduler import (N_DATA_ROWS, OP_ARITY, RESULT_ROWS,
                                        Schedule, _ceil_div, encoded_program,
@@ -49,12 +59,10 @@ from repro_torch.pim.scheduler import (N_DATA_ROWS, OP_ARITY, RESULT_ROWS,
 # Lowering arguments of the reference that later slices port, with the
 # ROADMAP Queue-1 item that brings each.
 _NOT_PORTED = {
-    "partition": "Queue 1 item 9 (partition_graph + pim/queue.py)",
-    "n_queues": "Queue 1 item 9 (the queued engine)",
-    "mesh": "Queue 1 item 9 (pim/mesh.py fleet meshes)",
+    "mesh": "Queue 1 item 12 (pim/mesh.py fleet meshes over the "
+            "multi-rank process group of runtime/sharding.py)",
     "verify": "Queue 1 item 10 (pim/verify.py)",
-    "verdict": "Queue 1 item 10 (offload.Verdict and build_verdict, after "
-               "the queued engine of item 9)",
+    "verdict": "Queue 1 item 10 (offload.Verdict and build_verdict)",
 }
 
 
@@ -75,16 +83,19 @@ def _reject_not_ported(**given) -> None:
 @dataclasses.dataclass(frozen=True)
 class Engine:
     """One execution backend.  A device engine's `dispatch(arrays,
-    program, result_rows, n_rows=, geom=, faults=) -> (outs, tiles,
-    waves)` stages the payload on the simulated fleet and runs one uniform
-    program over it.  A comparator (`device=False`) has no fleet: the
-    pipeline evaluates the op or graph natively and prices it with
-    `pim.offload.gpu_cost`."""
+    program, result_rows, n_rows=, geom=, n_queues=, faults=) -> (outs,
+    tiles, waves)` stages the payload on the simulated fleet and runs one
+    uniform program over it; `lift_op` / `lift_graph` wrap measured (or
+    closed-form) tiling into the engine's schedule flavour.  A comparator
+    (`device=False`) has no fleet: the pipeline evaluates the op or graph
+    natively and prices it with `pim.offload.gpu_cost`."""
 
     name: str
     description: str
     dispatch: Optional[Callable] = None
     device: bool = True
+    lift_op: Optional[Callable] = None
+    lift_graph: Optional[Callable] = None
 
 
 class EngineRegistry:
@@ -123,7 +134,7 @@ def engines() -> Tuple[str, ...]:
 
 def _simd_dispatch(engine_name: str) -> Callable:
     def dispatch(arrays, program, result_rows, *, n_rows, geom,
-                 faults=None):
+                 n_queues=None, faults=None):
         staged, tiles, waves = stage_rows(arrays, geom=geom)
         outs = run_waves(staged, program, result_rows, n_rows=n_rows,
                          engine=engine_name, faults=faults)
@@ -131,20 +142,71 @@ def _simd_dispatch(engine_name: str) -> Callable:
     return dispatch
 
 
+def _queued_dispatch(arrays, program, result_rows, *, n_rows, geom,
+                     n_queues=None, faults=None):
+    from repro_torch.pim.queue import dispatch_uniform_queued
+    return dispatch_uniform_queued(arrays, program, result_rows,
+                                   n_rows=n_rows, geom=geom,
+                                   n_queues=n_queues, faults=faults)
+
+
+def _lift_op_plain(low: "Lowered", n_bits: int,
+                   tiles: Optional[int] = None,
+                   waves: Optional[int] = None) -> Schedule:
+    geom = low.geom
+    if tiles is None:
+        tiles = _ceil_div(n_bits, geom.row_bits)
+    if waves is None:
+        waves = _ceil_div(tiles, geom.n_subarrays)
+    return Schedule(
+        op=low.op, n_bits=n_bits, row_bits=geom.row_bits, tiles=tiles,
+        slots=geom.n_subarrays, waves=waves, aaps_per_tile=low.aaps,
+        chips=geom.chips, banks=geom.banks,
+        subarrays_per_bank=geom.subarrays_per_bank, t_aap_s=geom.t_aap_s)
+
+
+def _lift_op_queued(low: "Lowered", n_bits: int,
+                    tiles: Optional[int] = None,
+                    waves: Optional[int] = None):
+    from repro_torch.pim.queue import uniform_queue_schedule
+    return uniform_queue_schedule(low.op, n_bits=n_bits, geom=low.geom,
+                                  tiles=tiles, waves=waves,
+                                  n_queues=low.n_queues)
+
+
+def _lift_graph_plain(low: "Lowered", sched):
+    return sched
+
+
+def _lift_graph_queued(low: "Lowered", sched):
+    from repro_torch.pim.queue import fused_queue_schedule
+    return fused_queue_schedule(sched, geom=low.geom,
+                                n_queues=low.n_queues)
+
+
 ENGINE_REGISTRY.register(Engine(
     "resident", "plain torch: the program unrolled over per-row tensors "
     "spanning every wave, only the named rows touched",
-    dispatch=_simd_dispatch("resident")))
+    dispatch=_simd_dispatch("resident"), lift_op=_lift_op_plain,
+    lift_graph=_lift_graph_plain))
 ENGINE_REGISTRY.register(Engine(
     "baseline", "the reference's first wave loop: per wave a fresh full "
     "device state, the encoded stream stepped over it one instruction at "
     "a time",
-    dispatch=_simd_dispatch("baseline")))
+    dispatch=_simd_dispatch("baseline"), lift_op=_lift_op_plain,
+    lift_graph=_lift_graph_plain))
+ENGINE_REGISTRY.register(Engine(
+    "queued", "per-bank command queues with independent program counters "
+    "(the resident body per bank block, plain torch), contention + "
+    "DMA-overlap cost model",
+    dispatch=_queued_dispatch, lift_op=_lift_op_queued,
+    lift_graph=_lift_graph_queued))
 ENGINE_REGISTRY.register(Engine(
     "cuda", "AAP interpreter kernel: the encoded stream as data, replayed "
     "by one thread per word column over shared-memory row state (its "
     "plain replay on CPU tensors)",
-    dispatch=_simd_dispatch("cuda")))
+    dispatch=_simd_dispatch("cuda"), lift_op=_lift_op_plain,
+    lift_graph=_lift_graph_plain))
 ENGINE_REGISTRY.register(Engine(
     "gpu", "native comparator: the op or graph evaluated on the run's "
     "device by the bulk bit-wise kernels, one ops.bitwise call per node "
@@ -155,6 +217,11 @@ ENGINE_REGISTRY.register(Engine(
 # ("copy" is an alias and launches nothing).
 NATIVE_OP = {"not": "not", "xnor2": "xnor", "xor2": "xor", "maj3": "maj3",
               "add": "fa"}
+
+# Partition strategies `lower(partition=...)` can pick.
+PARTITIONERS: Dict[str, Callable[..., GraphPartition]] = {
+    "greedy": partition_graph,
+}
 
 
 def _native_node(op: str, operands):
@@ -204,8 +271,15 @@ class Compiled:
               harden: Optional[str] = None,
               faults: Optional[FaultModel] = None,
               verify: Optional[bool] = None) -> "Lowered":
-        """Run the pass pipeline and bind an engine ("resident" by
-        default).
+        """Run the pass pipeline and bind an engine: "resident" by
+        default, "queued" when `partition` is set.
+
+        partition: None, True (the "greedy" strategy), a `PARTITIONERS`
+        key, or an int (the queue count, greedy): split the graph ACROSS
+        `n_queues` bank queues into fence-staged per-queue segments
+        (MIMD), run on engine "queued" (plain torch) or "cuda" (the AAP
+        interpreter kernel).  n_queues: the queue count of the "queued"
+        engine and of a partition (default `queue.default_n_queues`).
 
         harden: None | "tmr" | "ecc" | "tmr+ecc" -- rewrite the graph for
         fault tolerance before fusing (`pim.harden.harden_graph`); the
@@ -213,18 +287,19 @@ class Compiled:
         faults: the default `core.FaultModel` of every `run()` of this
         lowering (a per-run `run(..., faults=...)` overrides it).
 
-        `mesh`, `n_queues`, `partition` and `verify=True` belong to later
-        slices and raise NotImplementedError."""
-        _reject_not_ported(mesh=mesh, n_queues=n_queues,
-                           partition=partition, verify=verify)
+        `mesh` and `verify=True` belong to later slices and raise
+        NotImplementedError."""
+        _reject_not_ported(mesh=mesh, verify=verify)
         st = _LoweringState(compiled=self, engine_name=engine,
+                            n_queues=n_queues, partition=partition,
                             harden=harden, faults=faults)
         for p in PASS_PIPELINE:
             p.fn(st)
         return Lowered(
             kind=st.kind, engine=st.engine, geom=self.geom,
+            n_queues=st.n_queues, partition=st.partition,
             row_budget=self.row_budget, op=self.op, graph=st.graph,
-            traced=self.traced, fp=st.fp, program=st.program,
+            traced=self.traced, fp=st.fp, gp=st.gp, program=st.program,
             result_rows=st.result_rows, n_rows=st.n_rows, aaps=st.aaps,
             harden=st.harden, default_faults=st.faults,
             protected_nodes=st.protected_nodes)
@@ -266,6 +341,8 @@ class _LoweringState:
 
     compiled: Compiled
     engine_name: Optional[str]
+    n_queues: Optional[int] = None
+    partition: Any = None
     harden: Optional[str] = None
     faults: Optional[FaultModel] = None
     kind: str = ""
@@ -273,6 +350,7 @@ class _LoweringState:
     graph: Optional[BulkGraph] = None     # working graph (post-harden)
     protected_nodes: frozenset = frozenset()
     fp: Optional[FusedProgram] = None
+    gp: Optional[GraphPartition] = None
     program: Tuple[AAP, ...] = ()
     result_rows: Tuple[int, ...] = ()
     n_rows: int = 0
@@ -280,11 +358,45 @@ class _LoweringState:
 
 
 def _pass_canonicalize(st: _LoweringState) -> None:
-    """Validate the source and resolve the engine."""
+    """Validate the source, resolve the engine, partition and queue
+    defaults."""
     c = st.compiled
     if c.kind == "op" and c.op not in OP_ARITY:
         raise ValueError(f"unknown bulk op {c.op!r}")
+    if st.partition is not None and st.partition is not False:
+        if c.kind != "graph":
+            raise ValueError("partition= needs a graph source; a single "
+                             "Table-2 op has nothing to split")
+        if isinstance(st.partition, bool):
+            st.partition = "greedy"
+        elif isinstance(st.partition, int):
+            if st.n_queues not in (None, st.partition):
+                raise ValueError("partition=<int> conflicts with n_queues")
+            st.n_queues = st.partition
+            st.partition = "greedy"
+        if st.partition not in PARTITIONERS:
+            raise ValueError(
+                f"unknown partitioner {st.partition!r} (registered: "
+                f"{', '.join(sorted(PARTITIONERS))})")
+        if st.engine_name is None:
+            st.engine_name = "queued"
+        elif st.engine_name not in ("queued", "cuda"):
+            raise ValueError("a partitioned graph runs on the queued "
+                             f"(or cuda) engine, not {st.engine_name!r}")
+    else:
+        st.partition = None
     st.engine = ENGINE_REGISTRY.get(st.engine_name or "resident")
+    if not st.engine.device:
+        if st.n_queues is not None:
+            raise ValueError(f"engine {st.engine.name!r} is a comparator"
+                             " -- n_queues does not apply")
+    elif st.engine.name == "queued" or st.partition is not None:
+        from repro_torch.pim.queue import resolve_n_queues
+        st.n_queues = resolve_n_queues(c.geom, st.n_queues)
+    elif st.n_queues is not None:
+        raise ValueError(
+            f"n_queues only applies to the queued engine, not "
+            f"{st.engine.name!r}")
     if st.harden is not None and c.kind != "graph":
         raise ValueError("harden= needs a graph source; a single "
                          "Table-2 op has no redundancy to compile in")
@@ -321,6 +433,16 @@ def _pass_fuse(st: _LoweringState) -> None:
         st.aaps = st.fp.aaps_per_tile
 
 
+def _pass_partition(st: _LoweringState) -> None:
+    """Optionally split the graph across bank queues (MIMD)."""
+    if st.partition is None:
+        return
+    st.gp = PARTITIONERS[st.partition](
+        st.graph, st.n_queues, row_budget=st.compiled.row_budget)
+    st.kind = "partition"
+    st.aaps = st.gp.critical_path_aaps_per_tile
+
+
 def _pass_encode(st: _LoweringState) -> None:
     """Freeze program streams to hashable AAP tuples, the form the wave
     engines key their memos on."""
@@ -338,6 +460,7 @@ PASS_PIPELINE: Tuple[Pass, ...] = (
     Pass("canonicalize", _pass_canonicalize),
     Pass("harden", _pass_harden),
     Pass("fuse", _pass_fuse),
+    Pass("partition", _pass_partition),
     Pass("encode", _pass_encode),
 )
 
@@ -369,24 +492,29 @@ def _popcount(words: torch.Tensor) -> int:
 
 
 class Lowered:
-    """A program bound to an engine and a geometry.
+    """A program bound to an engine, a geometry, a queue count and a
+    partition.
 
     `run(...)` executes on the simulated fleet and records the measured
-    schedule on `self.schedule`; `cost(n_bits)` prices a payload in closed
-    form without touching the simulator."""
+    schedule on `self.schedule` (and, for partitioned runs, what dead
+    queues it survived on `self.chaos_report`); `cost(n_bits)` prices a
+    payload in closed form without touching the simulator."""
 
     def __init__(self, *, kind, engine, geom, row_budget, op, graph, traced,
-                 fp, program, result_rows, n_rows, aaps, harden=None,
-                 default_faults=None,
+                 fp, program, result_rows, n_rows, aaps, n_queues=None,
+                 partition=None, gp=None, harden=None, default_faults=None,
                  protected_nodes=frozenset()) -> None:
         self.kind = kind
         self.engine = engine
         self.geom = geom
+        self.n_queues = n_queues
+        self.partition = partition
         self.row_budget = row_budget
         self.op = op
         self.graph = graph
         self.traced = traced
         self.fp = fp
+        self.gp = gp
         self.program = program
         self.result_rows = result_rows
         self.n_rows = n_rows
@@ -396,6 +524,7 @@ class Lowered:
         self.protected_nodes = frozenset(protected_nodes)
         self.schedule = None          # measured by the last run()
         self.last_ecc = None          # EccReport of the last ecc run()
+        self.chaos_report = None      # ChaosReport of the last run()
 
     def _resolve_faults(self, faults):
         """Per-run faults override the lowering default; hardened
@@ -461,7 +590,9 @@ class Lowered:
         else:
             raise ValueError("graph lowering expects a feeds dict (or "
                              "positional planes for traced programs)")
-        outs = self._run_graph(feeds, n_bits, dev, faults)
+        outs = (self._run_partitioned(feeds, n_bits, dev, faults)
+                if self.kind == "partition"
+                else self._run_graph(feeds, n_bits, dev, faults))
         if self.harden is not None and "ecc" in self.harden:
             outs = self._check_ecc(dict(outs))
         if self.traced is not None:
@@ -486,20 +617,11 @@ class Lowered:
             return _native_node(self.op, ops)
         outs, tiles, waves = self.engine.dispatch(
             ops, self.program, self.result_rows, n_rows=self.n_rows,
-            geom=self.geom, faults=faults)
+            geom=self.geom, n_queues=self.n_queues, faults=faults)
         results = tuple(outs[:, i].reshape(-1)[:n_words]
                         for i in range(len(self.result_rows)))
-        self.schedule = self._op_schedule(n_bits, tiles, waves)
+        self.schedule = self.engine.lift_op(self, n_bits, tiles, waves)
         return results
-
-    def _op_schedule(self, n_bits: int, tiles: int, waves: int) -> Schedule:
-        geom = self.geom
-        return Schedule(
-            op=self.op, n_bits=n_bits, row_bits=geom.row_bits, tiles=tiles,
-            slots=geom.n_subarrays, waves=waves, aaps_per_tile=self.aaps,
-            chips=geom.chips, banks=geom.banks,
-            subarrays_per_bank=geom.subarrays_per_bank,
-            t_aap_s=geom.t_aap_s)
 
     def _check_feeds(self, feeds, dev) -> Tuple[Dict[str, torch.Tensor], int]:
         names = self.graph.input_names
@@ -541,11 +663,24 @@ class Lowered:
             outs, tiles, waves = self.engine.dispatch(
                 [arrays[n] for n in fp.loaded_inputs], fp.program,
                 fp.readback_rows, n_rows=fp.template_rows, geom=geom,
-                faults=faults)
+                n_queues=self.n_queues, faults=faults)
             col = {row: i for i, row in enumerate(fp.readback_rows)}
             for name, row in fp.device_outputs:
                 results[name] = outs[:, col[row]].reshape(-1)[:n_words]
-        self.schedule = _make_fused_schedule(fp, n_bits, tiles, waves, geom)
+        sched = _make_fused_schedule(fp, n_bits, tiles, waves, geom)
+        self.schedule = self.engine.lift_graph(self, sched)
+        return results
+
+    def _run_partitioned(self, feeds, n_bits, dev, faults=None):
+        from repro_torch.pim.queue import _execute_partitioned
+        arrays, n_words = self._check_feeds(feeds, dev)
+        n_bits = self._resolve_n_bits(n_bits, n_words)
+        results, sched, chaos = _execute_partitioned(
+            self.graph, arrays, gp=self.gp, geom=self.geom, n_bits=n_bits,
+            body_engine=self.engine.name, faults=faults,
+            protected_nodes=self.protected_nodes)
+        self.schedule = sched
+        self.chaos_report = chaos
         return results
 
     def cost(self, n_bits: int):
@@ -555,12 +690,17 @@ class Lowered:
             raise ValueError("n_bits must be positive")
         if not self.engine.device:
             return gpu_cost(self, n_bits)
+        if self.kind == "op":
+            return self.engine.lift_op(self, n_bits)
+        if self.kind == "partition":
+            from repro_torch.pim.queue import partitioned_queue_schedule
+            return partitioned_queue_schedule(self.gp, n_bits=n_bits,
+                                              geom=self.geom)
         geom = self.geom
         tiles = _ceil_div(n_bits, geom.row_bits)
         waves = _ceil_div(tiles, geom.n_subarrays)
-        if self.kind == "op":
-            return self._op_schedule(n_bits, tiles, waves)
-        return _make_fused_schedule(self.fp, n_bits, tiles, waves, geom)
+        sched = _make_fused_schedule(self.fp, n_bits, tiles, waves, geom)
+        return self.engine.lift_graph(self, sched)
 
     def verdict(self, n_bits: int, *, simulate: bool = False):
         """The DRIM-vs-GPU placement verdict: not ported yet."""
@@ -572,9 +712,10 @@ class Lowered:
         src = self.op if self.kind == "op" else (
             self.traced.name if self.traced is not None
             else f"graph[{len(self.graph.nodes)}]")
+        extra = f", partition={self.partition!r}" if self.partition else ""
         return (f"Lowered({src}, engine={self.engine.name!r}, "
                 f"geom={self.geom.chips}x{self.geom.banks}x"
-                f"{self.geom.subarrays_per_bank})")
+                f"{self.geom.subarrays_per_bank}{extra})")
 
 
 # ---------------------------------------------------------------------------
@@ -596,6 +737,7 @@ def clear_lower_cache() -> None:
 def lower_cached(src, *, key: Optional[Tuple] = None,
                  geom: Optional[DrimGeometry] = None,
                  engine: Optional[str] = None,
+                 n_queues: Optional[int] = None, partition=None,
                  harden: Optional[str] = None,
                  faults: Optional[FaultModel] = None,
                  row_budget: Optional[int] = DEFAULT_ROW_BUDGET,
@@ -613,12 +755,14 @@ def lower_cached(src, *, key: Optional[Tuple] = None,
         raise TypeError(
             "lower_cached needs a hashable src or an explicit key= "
             "identifying the program") from None
-    full_key = (ident, geom, engine, harden, faults, row_budget)
+    full_key = (ident, geom, engine, n_queues, partition, harden, faults,
+                row_budget)
     low = _LOWER_CACHE.get(full_key)
     if low is None:
         LOWER_CACHE_STATS["misses"] += 1
         low = compile(src, geom=geom, row_budget=row_budget).lower(
-            engine=engine, harden=harden, faults=faults)
+            engine=engine, n_queues=n_queues, partition=partition,
+            harden=harden, faults=faults)
         _LOWER_CACHE[full_key] = low
     else:
         LOWER_CACHE_STATS["hits"] += 1

@@ -1,5 +1,5 @@
-"""Fused bulk-op dataflow graphs: whole DAGs as ONE in-DRAM program
-(port of `repro.pim.graph`, without MIMD partitioning).
+"""Fused bulk-op dataflow graphs: whole DAGs as ONE in-DRAM program, or
+split across per-bank command queues (port of `repro.pim.graph`).
 
 A DAG of dependent bulk ops over named tensors is compiled -- data rows
 allocated per slot, operands loaded once, intermediates resident, dead
@@ -13,8 +13,11 @@ from the hardware model:
     is read in place: `xnor2` collapses from 3 AAPs to the single-cycle
     DRA, `xor2` 4 -> 2, `maj3` 4 -> 1.
 
-`FusedSchedule` extends the measured cost model with the unfused
-comparison (per-tile AAPs and DDR row movements of the op-by-op chain).
+`partition_graph` splits one graph across `n_parts` bank queues instead:
+per-queue segments, each compiled by `compile_graph`, ordered by fence
+stages (`pim.queue` runs them).  `FusedSchedule` extends the measured
+cost model with the unfused comparison (per-tile AAPs and DDR row
+movements of the op-by-op chain).
 """
 from __future__ import annotations
 
@@ -356,6 +359,240 @@ def _emit_node(sa: SubArray, opname: str, rows: Tuple[int, ...],
     else:  # maj3
         prog.append(AAP(OP_TRA, (srcs[0], srcs[1], srcs[2], res[0])))
     return prog
+
+
+# ---------------------------------------------------------------------------
+# MIMD partitioning: one graph split across per-bank command queues
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class QueueSegment:
+    """One queue's compiled sub-program for one fence stage.
+
+    `subgraph` re-expresses the assigned nodes as a standalone BulkGraph
+    (external values become named inputs, values needed later become
+    named outputs) so the fused compiler does the row allocation and
+    elision per segment; `fp` is its compiled program.  Value names are
+    the partition-wide env names: graph inputs keep their names, node
+    results get ``{prefix}{vid}`` under a prefix chosen to never
+    collide with an input name (``v`` unless some input starts with it).
+    """
+
+    part: int
+    stage: int
+    node_ids: Tuple[int, ...]
+    subgraph: BulkGraph
+    fp: FusedProgram
+
+
+@dataclasses.dataclass(frozen=True)
+class GraphPartition:
+    """A BulkGraph split across `n_parts` bank queues with fences.
+
+    Nodes are assigned to queues by cost-balanced list scheduling
+    (roots take the least-loaded queue, dependent nodes the
+    least-loaded of their producers' queues — fences are only paid
+    where values genuinely merge), then fence stages follow structurally:
+    a node lands one stage after its latest cross-queue producer, so
+    within a stage every queue's segment touches only values that are
+    local or already fenced across.  Cross-queue edges are the fence
+    traffic; `critical_path_aaps_per_tile` — the sum over stages of the
+    slowest segment — is the MIMD serialization the queue cost model
+    prices (the SIMD fused stream serializes `issued_aaps_per_tile`,
+    the sum over ALL segments).
+    """
+
+    n_parts: int
+    n_stages: int
+    n_nodes: int
+    part_of: Tuple[int, ...]          # per node; copies follow their source
+    stage_of: Tuple[int, ...]
+    segments: Tuple[QueueSegment, ...]
+    cross_edges: Tuple[Tuple[str, int, int], ...]  # (value, src, dst part)
+    output_sources: Tuple[Tuple[str, str], ...]    # (output, env name)
+    queue_aaps_per_tile: Tuple[int, ...]           # per-part totals
+    stage_aaps: Tuple[Tuple[int, ...], ...]        # [stage][active part]
+    critical_path_aaps_per_tile: int
+    issued_aaps_per_tile: int
+    rows_used: int                    # peak per-slot rows of any queue
+    loaded_input_rows: int            # host rows: graph inputs per queue
+    readback_rows_count: int          # host rows: distinct output values
+    cross_fence_rows: int             # inter-bank rows at fences
+    unfused_aaps_per_tile: int
+    unfused_ddr_rows_per_tile: int
+
+
+def partition_graph(graph: BulkGraph, n_parts: int, *,
+                    row_budget: Optional[int] = DEFAULT_ROW_BUDGET,
+                    ) -> GraphPartition:
+    """Split one BulkGraph into per-queue sub-programs with fences."""
+    if n_parts < 1:
+        raise ValueError("n_parts must be positive")
+    if not graph.outputs:
+        raise ValueError("graph has no outputs")
+
+    # -- collapse copies, map every value to its origin ---------------------
+    input_vids = set(graph.input_vids)
+    name_of_input = {vid: name for name, vid
+                     in zip(graph.input_names, graph.input_vids)}
+    origin: Dict[int, int] = {vid: vid for vid in graph.input_vids}
+    producer: Dict[int, int] = {}          # origin vid -> node index
+    for i, (opname, opnds, res) in enumerate(graph.nodes):
+        if opname == "copy":
+            origin[res[0]] = origin[opnds[0]]
+        else:
+            for v in res:
+                origin[v] = v
+                producer[v] = i
+
+    # Internal (node-result) env names must never collide with a
+    # user-chosen input name — grow the prefix until no input starts
+    # with it, which makes f"{prefix}{vid}" provably fresh.
+    prefix = "v"
+    while any(name.startswith(prefix) for name in graph.input_names):
+        prefix += "#"
+
+    def env_name(vid: int) -> str:
+        return name_of_input[vid] if vid in input_vids else f"{prefix}{vid}"
+
+    nodes = [(i, op, tuple(origin[v] for v in opnds), res)
+             for i, (op, opnds, res) in enumerate(graph.nodes)
+             if op != "copy"]
+
+    # -- cost-balanced list scheduling onto queues --------------------------
+    # Roots (nodes fed only by graph inputs) scatter to the least-loaded
+    # queue; dependent nodes follow the least-loaded of their producers'
+    # queues — a fence is only ever paid where values genuinely merge,
+    # so a pure chain degenerates to one queue with zero fences while a
+    # reduction tree spreads its subtrees and fences at the joins.
+    costs = {i: len(build_program(op)) for i, op, _, _ in nodes}
+    load = [0] * n_parts
+    part_of_node: Dict[int, int] = {}
+    for i, op, opnds, _ in nodes:
+        prod_parts = {part_of_node[producer[v]]
+                      for v in opnds if v in producer}
+        cand = min(prod_parts or range(n_parts),
+                   key=lambda p: (load[p], p))
+        part_of_node[i] = cand
+        load[cand] += costs[i]
+
+    # -- fence stages: one past the latest cross-queue producer -------------
+    stage_of_node: Dict[int, int] = {}
+    for i, _, opnds, _ in nodes:
+        s = 0
+        for v in opnds:
+            if v in producer:
+                j = producer[v]
+                s = max(s, stage_of_node[j]
+                        + (part_of_node[j] != part_of_node[i]))
+        stage_of_node[i] = s
+    n_stages = max(stage_of_node.values()) + 1 if nodes else 0
+
+    def seg_key(i: int) -> Tuple[int, int]:
+        return (stage_of_node[i], part_of_node[i])
+
+    # -- value traffic: cross-queue fences, host loads, readbacks -----------
+    out_origin = {name: origin[vid] for name, vid in graph.outputs.items()}
+    exported: Dict[int, set] = {}          # origin vid -> consumer seg keys
+    cross_pairs = set()                    # (vid, dst part) — one row each
+    for i, _, opnds, _ in nodes:
+        for v in opnds:
+            if v in producer and seg_key(producer[v]) != seg_key(i):
+                exported.setdefault(v, set()).add(seg_key(i))
+                if part_of_node[producer[v]] != part_of_node[i]:
+                    cross_pairs.add((v, part_of_node[i]))
+    for v in out_origin.values():
+        if v in producer:
+            exported.setdefault(v, set())
+
+    part_inputs: Dict[int, set] = {}       # part -> graph inputs it loads
+    for i, _, opnds, _ in nodes:
+        for v in opnds:
+            if v in input_vids:
+                part_inputs.setdefault(part_of_node[i], set()).add(v)
+
+    # -- build + compile one segment per (stage, part) ----------------------
+    groups: Dict[Tuple[int, int], List] = {}
+    for rec in nodes:
+        groups.setdefault(seg_key(rec[0]), []).append(rec)
+
+    segments: List[QueueSegment] = []
+    for key in sorted(groups):
+        stage, part = key
+        g2 = BulkGraph()
+        local: Dict[int, ValueRef] = {}
+        produced: List[int] = []
+        for i, op, opnds, res in groups[key]:
+            refs = []
+            for v in opnds:
+                if v not in local:
+                    local[v] = g2.input(env_name(v))
+                refs.append(local[v])
+            out = g2.op(op, *refs)
+            outs = out if isinstance(out, tuple) else (out,)
+            for v, r in zip(res, outs):
+                local[v] = r
+                produced.append(v)
+        exports = [v for v in produced if v in exported]
+        if not exports:
+            # A queue must land its final bit-line state somewhere
+            # readable even when every value is dead — one forced row.
+            exports = [produced[-1]]
+        for v in exports:
+            g2.output(env_name(v), local[v])
+        fp = compile_graph(g2, row_budget=row_budget)
+        segments.append(QueueSegment(
+            part=part, stage=stage,
+            node_ids=tuple(i for i, *_ in groups[key]),
+            subgraph=g2, fp=fp))
+
+    # -- accounting ---------------------------------------------------------
+    queue_totals = [0] * n_parts
+    stage_tables: List[List[int]] = [[] for _ in range(n_stages)]
+    rows_used = [0] * n_parts
+    for s in segments:
+        queue_totals[s.part] += s.fp.aaps_per_tile
+        stage_tables[s.stage].append(s.fp.aaps_per_tile)
+        rows_used[s.part] = max(rows_used[s.part], s.fp.n_data_rows)
+    critical = sum(max(t) for t in stage_tables if t)
+
+    part_of_full = []
+    stage_of_full = []
+    for i, (opname, opnds, _) in enumerate(graph.nodes):
+        if opname == "copy":
+            v = origin[opnds[0]]
+            j = producer.get(v)
+            part_of_full.append(part_of_node[j] if j is not None else 0)
+            stage_of_full.append(stage_of_node[j] if j is not None else 0)
+        else:
+            part_of_full.append(part_of_node[i])
+            stage_of_full.append(stage_of_node[i])
+
+    cross_edges = tuple(sorted(
+        (env_name(v), part_of_node[producer[v]], dst)
+        for v, dst in cross_pairs))
+    output_sources = tuple((name, env_name(v))
+                           for name, v in out_origin.items())
+    unfused_aaps = sum(cost(build_program(op))[0]
+                       for op, _, _ in graph.nodes)
+    unfused_ddr = sum(OP_ARITY[op] + _N_RESULTS[op]
+                      for op, _, _ in graph.nodes)
+    return GraphPartition(
+        n_parts=n_parts, n_stages=n_stages, n_nodes=len(graph.nodes),
+        part_of=tuple(part_of_full), stage_of=tuple(stage_of_full),
+        segments=tuple(segments), cross_edges=cross_edges,
+        output_sources=output_sources,
+        queue_aaps_per_tile=tuple(queue_totals),
+        stage_aaps=tuple(tuple(t) for t in stage_tables),
+        critical_path_aaps_per_tile=critical,
+        issued_aaps_per_tile=sum(queue_totals),
+        rows_used=max(rows_used),
+        loaded_input_rows=sum(len(v) for v in part_inputs.values()),
+        readback_rows_count=sum(1 for v in set(out_origin.values())
+                                if v in producer),
+        cross_fence_rows=len(cross_pairs),
+        unfused_aaps_per_tile=unfused_aaps,
+        unfused_ddr_rows_per_tile=unfused_ddr)
 
 
 # ---------------------------------------------------------------------------

@@ -16,10 +16,10 @@ limit, from NVIDIA's data sheet:
 Energy is the card's 700 W limit over the latency: an upper bound, since
 the data sheet gives no energy per HBM3 byte.
 
-The placement `Verdict` and `build_verdict` price the DRIM-queued row,
-which needs the queued engine (ROADMAP Queue 1 item 9); they come with
-Queue 1 item 10.  `VerdictRow` is here already, so that the comparator
-row has the shape every contender's row will share.
+The placement `Verdict` and `build_verdict` (pricing the DRIM-queued row
+with `pim.queue.QueueSchedule`) come with ROADMAP Queue 1 item 10.
+`VerdictRow` is here already, so that the comparator row has the shape
+every contender's row will share.
 """
 from __future__ import annotations
 

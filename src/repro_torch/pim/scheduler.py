@@ -4,12 +4,14 @@ unsharded).
 
 Operands are tiled into `row_bits`-wide rows, assigned to (chip, bank,
 subarray) slots, and every active sub-array runs the same program in
-lock-step.  Three wave engines share the staging and the cost model:
+lock-step.  Four wave engines share the staging and the cost model:
 
   * "resident" (default): plain torch.  `isa.run_program_unrolled`
     replays the stream over per-row tensors that span every wave at once,
     touching only the rows the program names; readback gathers only the
     result rows.
+  * "queued": the resident body, run by `pim.queue` once per bank queue
+    over that queue's block of banks, one program per queue.
   * "baseline": the reference's first wave loop -- per wave a fresh full
     device state (`core.device`), the encoded [n, 5] stream stepped over
     it by `isa.run_program`, `device_read_rows` readback.  Slow, and kept
@@ -72,7 +74,7 @@ REF_OP: Dict[str, str | None] = {
     "maj3": "maj3", "add": "fa",
 }
 
-ENGINES = ("resident", "baseline", "cuda")
+ENGINES = ("resident", "baseline", "queued", "cuda")
 
 
 def random_operands(op: str, n_words: int, seed: int = 0) -> List[np.ndarray]:
@@ -124,17 +126,23 @@ _ENCODED_TUPLE_CACHE: "collections.OrderedDict" = collections.OrderedDict()
 _ENCODED_TUPLE_CACHE_MAX = 512
 
 
-def encoded_program(op, *, materialize: bool = True,
+def encoded_program(op, *, queue: int | None = None,
+                    materialize: bool = True,
                     ) -> Tuple[torch.Tensor | None, Tuple[AAP, ...], int]:
     """Cached (encoded [n, 5] stream, program tuple, n_aaps).
 
-    `op` is an op name or a sequence of `AAP`s.  `materialize=False`
-    skips building the encoded tensor; a later materializing call fills
-    it in place."""
+    `op` is an op name or a sequence of `AAP`s (fused graph streams and
+    per-bank queue programs memoize through the same stats).  `queue`
+    additionally books the hit or miss under ``q{queue}:hits`` /
+    ``q{queue}:misses``.  `materialize=False` skips building the encoded
+    tensor; a later materializing call fills it in place."""
     key = op if isinstance(op, str) else tuple(op)
     cache = _ENCODED_CACHE if isinstance(key, str) else _ENCODED_TUPLE_CACHE
     hit = cache.get(key)
-    ENCODE_CACHE_STATS["hits" if hit is not None else "misses"] += 1
+    kind = "hits" if hit is not None else "misses"
+    ENCODE_CACHE_STATS[kind] += 1
+    if queue is not None:
+        ENCODE_CACHE_STATS[f"q{queue}:{kind}"] += 1
     if hit is not None:
         if cache is _ENCODED_TUPLE_CACHE:
             _ENCODED_TUPLE_CACHE.move_to_end(key)
@@ -247,7 +255,8 @@ def wave_fn(engine: str, program: Tuple[AAP, ...],
     per-wave body under `lax.map` the resident and cuda bodies cover the
     wave axis at once: waves are independent (each starts from a fresh
     sub-array).  The baseline body loops over the waves, a fresh device
-    state each.
+    state each.  "queued" is the resident body (`pim.queue` maps it over
+    per-bank payloads, one program per queue).
 
     faults: an optional `FaultModel` (its `wave_model()` is what runs; an
     inactive model is the fault-free path).  `bank_geom` = (bank_lo,
@@ -281,7 +290,7 @@ def wave_fn(engine: str, program: Tuple[AAP, ...],
                 outs.append(device_read_rows(out, result_rows))
             return torch.stack(outs)
         return run_baseline
-    if engine != "resident":
+    if engine not in ("resident", "queued"):
         raise ValueError(f"unknown wave engine {engine!r} "
                          f"(registered: {', '.join(ENGINES)})")
 

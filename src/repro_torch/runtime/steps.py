@@ -12,7 +12,7 @@ step_fn(state, batch) -> (new_state, metrics) is what the trainer
 
 The reference shards the state over a mesh (`train_state_pspecs`,
 `state_shardings`, `runtime/sharding.py`, ZeRO-1); on one card there is
-nothing to shard, and meshes wait for ROADMAP Queue 1 item 9.
+nothing to shard, and meshes wait for ROADMAP Queue 1 item 12.
 """
 from __future__ import annotations
 

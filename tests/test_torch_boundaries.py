@@ -4,6 +4,7 @@ caller asks for the CPU, its kernel wrappers refuse what their kernels do
 not take instead of quietly running the plain version, and the lowering
 arguments of later slices raise instead of being ignored."""
 import ast
+import dataclasses
 import pathlib
 import subprocess
 import sys
@@ -62,6 +63,7 @@ def test_entry_points_default_to_the_card(no_cuda):
     w = np.ones(4, np.uint32)
     calls = [
         lambda: bnn.bnn_dot_drim(a, a),
+        lambda: bnn.bnn_dot_partitioned(a, a, engine="cuda"),
         lambda: bnn.serve_bnn_matmul(a, a, engine="cuda"),
         lambda: compiler.compile("xnor2").lower(engine="cuda").run(w, w),
         lambda: layers.bitlinear_from_jax({"bkernel": np.ones((4, 2))}),
@@ -132,20 +134,46 @@ def test_wrappers_refuse_what_their_kernels_do_not_take(monkeypatch):
     {"partition": True}, {"mesh": object()}, {"verify": True},
     {"n_queues": 2}])
 def test_later_slice_arguments_raise(kwargs):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        compiler.compile("xnor2").lower(**kwargs)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        compiler.lower_cached("xnor2", **kwargs)
+    """`mesh=` and `verify=True` belong to later slices and raise naming
+    the ROADMAP item; `partition=` and `n_queues=` (Queue 1 item 9) lower
+    and run: the K=3 carry-save dot split over two bank queues, or on the
+    "queued" engine's two queues, gives the oracle's words."""
+    if "mesh" in kwargs or "verify" in kwargs:
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            compiler.compile("xnor2").lower(**kwargs)
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            compiler.lower_cached("xnor2", **kwargs)
+        return
+    from repro_torch.pim import graph_ref_results
+    geom = dataclasses.replace(DRIM_R, subarrays_per_bank=2, row_bits=64)
+    g, _ = bnn.bnn_dot_graph_carrysave(3)
+    rng = np.random.default_rng(5)
+    feeds = {n: rng.integers(0, 1 << 32, 40, dtype=np.uint32)
+             for n in g.input_names}
+    engine = None if "partition" in kwargs else "queued"
+    lows = (compiler.compile(g, geom=geom).lower(engine, **kwargs),
+            compiler.lower_cached(g, key=("k3", geom), geom=geom,
+                                  engine=engine, **kwargs))
+    for low in lows:
+        assert low.engine.name == "queued"
+        assert low.kind == ("partition" if "partition" in kwargs
+                            else "graph")
+        out = low.run(feeds, device="cpu")
+        for name, want in graph_ref_results(g, feeds).items():
+            np.testing.assert_array_equal(out[name].numpy().view(np.uint32),
+                                          want)
 
 
 def test_only_the_ported_engines_are_registered():
-    """The three DRIM engines and the comparator "gpu" (the reference's
-    "tpu", renamed for the card) are registered; the reference's other
-    engines are not ported yet and its "tpu" name is not taken."""
-    assert compiler.engines() == ("resident", "baseline", "cuda", "gpu")
+    """The four DRIM engines (the reference's order, "cuda" in the place
+    of "pallas") and the comparator "gpu" (the reference's "tpu", renamed
+    for the card) are registered; the reference's "pallas" and "tpu"
+    names are not taken."""
+    assert compiler.engines() == ("resident", "baseline", "queued", "cuda",
+                                  "gpu")
     assert [compiler.get_engine(e).device for e in compiler.engines()] \
-        == [True, True, True, False]
-    for name in ("pallas", "queued", "tpu"):
+        == [True, True, True, True, False]
+    for name in ("pallas", "tpu"):
         with pytest.raises(ValueError, match="unknown engine"):
             compiler.compile("xnor2").lower(engine=name)
     with pytest.raises(ValueError, match="unknown engine"):

@@ -250,10 +250,24 @@ def test_donate_runs_in_place_and_copy_keeps_the_input(devices):
 
 
 def test_banked_and_sharded_runners_wait_for_item_9(devices):
-    port, _ = devices
-    with pytest.raises(NotImplementedError, match="Queue 1 item 9"):
-        tdev.device_run_program_banked(port, [isa.encode(())], [(0, 4)])
-    with pytest.raises(NotImplementedError, match="Queue 1 item 9"):
+    """The banked runner (Queue 1 item 9) runs a different Table-2 stream
+    per bank block and equals the reference's, fault-free and faulted;
+    the sharded one waits for the fleet meshes of Queue 1 item 12."""
+    port, ref = devices
+    blocks = [(0, 1), (1, 3), (3, 4)]
+    names = ("xnor2", "add", "maj3")
+    for faults in (None, HOT):
+        out = tdev.device_run_program_banked(
+            port, [isa.encode(MICROPROGRAMS[n][0](isa, tdev.device_template(
+                port))) for n in names], blocks,
+            faults=FaultModel(**faults) if faults else None)
+        want = ref_dev.device_run_program_banked(
+            ref, [ref_isa.encode(MICROPROGRAMS[n][0](
+                ref_isa, ref_dev.device_template(ref))) for n in names],
+            blocks, faults=ref_faults.FaultModel(**faults) if faults
+            else None)
+        assert_state_equal(out, want, f"banked {faults}")
+    with pytest.raises(NotImplementedError, match="Queue 1 item 12"):
         tdev.device_run_program_sharded(port, isa.encode(()), None)
 
 

@@ -167,13 +167,14 @@ def test_temperature_sampling_is_seeded():
 
 
 def test_engines_are_gpu_and_the_registry():
-    """--engine takes the registry's names; "gpu" (now the registered
-    comparator) stays the default and is the native route."""
-    for engine in ("tpu", "pallas", "queued"):
+    """--engine takes the registry's names ("queued" since the per-bank
+    queues are ported); "gpu" (now the registered comparator) stays the
+    default and is the native route."""
+    for engine in ("tpu", "pallas"):
         with pytest.raises(SystemExit):
             serve.parse_args(TINY + ["--engine", engine])
     assert serve.parse_args(TINY).engine == "gpu"
-    for engine in ("cuda", "baseline", "gpu"):
+    for engine in ("cuda", "baseline", "gpu", "queued"):
         assert serve.parse_args(TINY + ["--engine", engine]).engine == engine
     with layers.serving_engine("gpu"):
         assert layers.serving_engine_name() is None
