@@ -113,7 +113,21 @@ Phases, each fatal on failure:
                 detecting stages those of the partition; the
                 interpreters' times at the largest segment's queue block
                 ("queue" and "chaos" lines);
-  9. train   -- the drim-bnn LM trained at full width and depth through
+  9. verdict -- the DRIM-vs-GPU placement Verdict (`Lowered.verdict`) at
+                one DRIM-R wave (2**21 bits) of xnor2, the carry-save
+                K=32 dot, the same under tmr+ecc at the faults phase's
+                corner and the same over 4 queues, on "cuda": each
+                simulated verdict runs on the card and must equal the
+                closed form row for row; each distinct program once on
+                "gpu", exact against numpy; then each "gpu" program's
+                CUDA-graph time at 2**21 and 2**29 bits beside the
+                Verdict's GPU row (`gpu_cost`), `serving_verdict` of the
+                drim-bnn decode FFN pair at batch 4 on "resident", "cuda"
+                and "queued" (8 queues), `plan_model_payloads` of
+                drim-bnn, and `python -m repro_torch.pim.verify --k 32
+                --partition 4 --harden tmr,ecc,tmr+ecc`, which must exit 0
+                ("verdict" lines);
+  10. train  -- the drim-bnn LM trained at full width and depth through
                 `repro_torch.launch.train.main` (examples/train_bnn_lm.py's
                 batch 8, seq 256, AdamW 3e-4; 20 steps, seeded weights,
                 deterministic algorithms): finite losses, the last below
@@ -121,10 +135,10 @@ Phases, each fatal on failure:
                 step-10 checkpoint restored into a fresh state and trained
                 10 more steps must equal the straight run's step-20 state
                 bit for bit;
-  10. counts -- the launch counters are zeroed just before phase 3, before
+  11. counts -- the launch counters are zeroed just before phase 3, before
                 each of phase 4's five legs, before phase 5, phase 6,
-                phase 7, each of phase 8's three legs and each of phase
-                9's two legs, and read just after each:
+                phase 7, each of phase 8's three legs, phase 9 and each of
+                phase 10's two legs, and read just after each:
                 phase 3 must launch the three BNN kernels, each serving
                 leg exactly the launches its route implies
                 (`expected_launches`), phase 5 the faulted interpreter
@@ -134,11 +148,18 @@ Phases, each fatal on failure:
                 and never on "gpu", phase 7 the interpreter once, phase 8
                 nothing on the uniform "queued" leg and the interpreter
                 once per "cuda" segment run (a requeued one included; the
-                faulted one instead under flips), phase 9
+                faulted one instead under flips), phase 9 the interpreter
+                25 times (1 + 1 + 23 segments), the faulted one once and
+                one bulk kernel per "gpu" node, by kind, phase 10
                 per step the flash forward
                 twice per layer (remat) and each backward kernel once per
-                layer; a counter a leg does not name must stay 0;
- 11. check  -- a float32 smoke-config prefill, and the same config's
+                layer; a counter a leg does not name must stay 0; and
+                each of these legs, and each of phases 3 to 10 as a
+                whole, prints a "verify" line (the verify passes its
+                lowerings ran: programs, clean, failed, wall seconds),
+                which fails the script on any failure; a serving leg's
+                line also carries `verify_s` beside its `compile_s`;
+ 12. check  -- a float32 smoke-config prefill, and the same config's
                 first train step (loss and gradients), on the card held to
                 the same on the CPU (after the counts are read).
 
@@ -239,6 +260,12 @@ FIG8_OPS = ("not", "xnor2", "add")
 # integer operations per word of each bulk bit-wise op (for its bound)
 BITWISE_OPS = {"not": 1, "xnor": 2, "xor": 1, "and": 1, "or": 1, "nand": 2,
                "nor": 2, "maj3": 5, "min3": 6, "fa": 7}
+
+# The verdict phase's payloads: one DRIM-R wave (offload.SIMULATE_MAX_BITS,
+# the largest payload a verdict simulates) and Fig. 8's largest vector.
+VERDICT_BITS = (1 << 21, BULK_BITS)
+# Wall seconds of every verify pass, appended by `install_verify_tally`.
+VERIFY_WALLS: list = []
 
 
 def cuda_ms(fn, iters: int) -> float:
@@ -1535,6 +1562,182 @@ def phase_queue(wrappers):
     return counts
 
 
+def phase_verdict(wrappers):
+    """The DRIM-vs-GPU placement Verdict on DRIM-R (`Lowered.verdict`,
+    `pim.offload`) at one DRIM-R wave (`offload.SIMULATE_MAX_BITS`), four
+    lowerings on "cuda": xnor2, the carry-save K=32 dot, the same under
+    tmr+ecc at the faults phase's Table-3 corner, the same over 4 queues.
+
+    Counted leg: each `verdict(simulate=True)` runs on the card (the
+    interpreter once for the op and the fused dot, once per segment of the
+    partition, the faulted one once under the corner) and its rows must
+    equal `verdict(simulate=False)`'s field by field; each distinct program
+    runs once on "gpu" (one bulk kernel per node), its words equal to
+    numpy's.  Then, not counted: each "gpu" program's CUDA-graph time at
+    2**21 and 2**29 bits beside the Verdict's GPU row (`gpu_cost`),
+    `serving_verdict` of the drim-bnn decode FFN pair at batch 4 on
+    "resident", "cuda" and "queued" (8 queues), `plan_model_payloads` of
+    drim-bnn, and the verifier's CLI ("verdict" lines).  Returns the leg's
+    counts."""
+    from repro_torch.configs import get_config
+    from repro_torch.core import FaultModel
+    from repro_torch.launch import faults as payload
+    from repro_torch.pim import (compile as drim_compile, graph_ref_results,
+                                 plan_model_payloads, serving_verdict)
+    from repro_torch.pim.bnn import bnn_dot_graph_carrysave
+    from repro_torch.pim.compiler import (NATIVE_OP, _native_graph,
+                                          _native_node)
+    from repro_torch.pim.offload import SIMULATE_MAX_BITS, gpu_cost
+    dev = torch.device("cuda")
+    t_phase = time.perf_counter()
+    n_bits = SIMULATE_MAX_BITS
+    n_words = n_bits // 32
+    corner = FaultModel.from_corner(payload.CORNER, source="paper",
+                                    seed=payload.SEED)
+    g32, _ = bnn_dot_graph_carrysave(32)
+    cases = {"xnor2": ("xnor2", {}),
+             "carry-save K=32": (g32, {}),
+             "carry-save K=32 tmr+ecc": (g32, dict(harden="tmr+ecc",
+                                                   faults=corner)),
+             "carry-save K=32 over 4 queues": (g32, dict(partition=True,
+                                                         n_queues=4))}
+    # the distinct programs the GPU contender runs (a partition is the
+    # fused dot's graph)
+    gpu_cases = {"xnor2": ("xnor2", None), "carry-save K=32": (g32, None),
+                 "carry-save K=32 tmr+ecc": (g32, "tmr+ecc")}
+    feeds = payload.fault_feeds(g32, n_words)
+    oracle = graph_ref_results(g32, feeds)
+    on_card = {n: torch.from_numpy(a.view(np.int32)).to(dev)
+               for n, a in feeds.items()}
+
+    def body():
+        lows, gpus = {}, {}
+        for label, (src, kw) in cases.items():
+            low = drim_compile(src).lower("cuda", **kw)
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            sim = low.verdict(n_bits, simulate=True, device=dev)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t
+            closed = low.verdict(n_bits)
+            if not sim.simulated or closed.simulated or \
+                    (sim.workload, sim.n_nodes, sim.rows) != \
+                    (closed.workload, closed.n_nodes, closed.rows):
+                raise AssertionError(f"verdict {label}: simulated {sim} != "
+                                     f"closed form {closed}")
+            big = low.verdict(BULK_BITS)
+            for v in (sim, big):
+                print("verdict " + json.dumps({
+                    "lowering": label, "engine": "cuda",
+                    "workload": v.workload, "n_bits": v.n_bits,
+                    "simulated": v.simulated, "winner": v.winner,
+                    "drim_rows_equal_closed_form": True,
+                    "rows": [dataclasses.asdict(r) for r in v.rows],
+                    **({"simulate_wall_s": wall} if v is sim else {})}))
+            lows[label] = low
+        for label, (src, harden) in gpu_cases.items():
+            low = drim_compile(src).lower("gpu", harden=harden)
+            if low.kind == "op":
+                a, b = on_card["a0"], on_card["b0"]
+                check_equal("verdict gpu xnor2", low.run(a, b, device=dev)[0],
+                            ~(a ^ b))
+            else:
+                got = low.run(on_card, device=dev)
+                for name, want in oracle.items():
+                    check_equal(f"verdict gpu {label} {name}", got[name].cpu(),
+                                torch.from_numpy(want.view(np.int32)))
+                if harden and low.last_ecc.mismatch_bits != 0:
+                    raise AssertionError(f"verdict gpu {label}: ECC "
+                                         f"{low.last_ecc}")
+            gpus[label] = low
+        return lows, gpus
+
+    def expected(out):
+        """The prediction: the interpreter once for the op, once for the
+        fused dot, once per segment of the 4-queue partition (23), the
+        faulted one once; one bulk kernel per "gpu" node, by kind."""
+        lows, gpus = out
+        segments = len(lows["carry-save K=32 over 4 queues"].gp.segments)
+        if segments != 23:
+            raise AssertionError(f"K=32 over 4 queues: {segments} segments, "
+                                 "not 23")
+        per = {"aap_interp": 25, "aap_interp_faulted": 1,
+               "bitwise_not": 0, "bitwise_binary": 0, "bitwise_ternary": 0}
+        for low in gpus.values():
+            ops = [low.op] if low.kind == "op" else \
+                [op for op, _, _ in low.graph.nodes if op != "copy"]
+            for op in ops:
+                per[bitwise_kernel(NATIVE_OP[op])[0]] += 1
+        return per
+
+    (lows, gpus), counts = counted(wrappers, "verdict", body, expected)
+
+    # -- the GPU contender measured against its roofline (not counted) -----
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    for bits in VERDICT_BITS:
+        words = bits // 32
+        planes = {n: (torch.zeros(words, dtype=torch.int32, device=dev)
+                      if n == "zero" else torch.randint(
+                          -2 ** 31, 2 ** 31, (words,), dtype=torch.int32,
+                          device=dev, generator=gen))
+                  for n in g32.input_names}
+        for label, low in gpus.items():
+            if low.kind == "op":
+                def fn(a=planes["a0"], b=planes["b0"]):
+                    return _native_node("xnor2", [a, b])
+                kernels = 1
+            else:
+                def fn(graph=low.graph):
+                    return _native_graph(graph, planes)
+                kernels = sum(op != "copy" for op, _, _ in low.graph.nodes)
+            ms = graph_ms(fn, 20 if bits < BULK_BITS else 3, replays=3)
+            cost = gpu_cost(low, bits)
+            print("verdict " + json.dumps({
+                "gpu_program": label, "n_bits": bits,
+                "kernels_per_call": kernels, "measured_ms": ms,
+                "roofline_ms": cost.latency_s * 1e3,
+                "roofline_bound_by": ("bytes" if cost.dma_s >= cost.compute_s
+                                      else "operations"),
+                "measured_over_roofline": ms / (cost.latency_s * 1e3)}))
+        del planes
+
+    # -- serving_verdict, model payloads, the verifier's CLI ----------------
+    cfg = get_config("drim-bnn")
+    for m, n, k in ((4, cfg.d_ff, cfg.d_model), (4, cfg.d_model, cfg.d_ff)):
+        for engine, nq in (("resident", None), ("cuda", None), ("queued", 8)):
+            v = serving_verdict(m, n, k, engine=engine, n_queues=nq)
+            print("verdict " + json.dumps({
+                "serving": v.workload, "engine": engine, "n_queues": nq,
+                "n_nodes": v.n_nodes, "winner": v.winner,
+                "rows": [dataclasses.asdict(r) for r in v.rows]}))
+    for name, v in plan_model_payloads(cfg).items():
+        print("verdict " + json.dumps({
+            "payload": name, "arch": cfg.arch, "n_bits": v.n_bits,
+            "winner": v.winner,
+            "rows": [dataclasses.asdict(r) for r in v.rows]}))
+    argv = ["--k", "32", "--partition", "4", "--harden", "tmr,ecc,tmr+ecc"]
+    t = time.perf_counter()
+    cli = subprocess.run(
+        [sys.executable, "-m", "repro_torch.pim.verify", *argv],
+        capture_output=True, text=True,
+        env={**os.environ, "PYTHONPATH": str(ROOT / "src")})
+    cli_s = time.perf_counter() - t
+    lines = cli.stdout.splitlines()
+    if cli.returncode != 0 or not lines or \
+            lines[-1] != "all lowerings verified clean":
+        raise AssertionError(f"verify CLI exited {cli.returncode}: "
+                             f"{cli.stdout[-2000:]}{cli.stderr[-2000:]}")
+    walls = [float(line.split("wall=")[1].split("ms")[0])
+             for line in lines if "wall=" in line]
+    print("verdict " + json.dumps({
+        "verify_cli": " ".join(argv), "exit": cli.returncode,
+        "lowerings": len(walls), "wall_ms_total": sum(walls),
+        "wall_ms_max": max(walls), "process_s": cli_s}))
+    print("verdict " + json.dumps({"phase_wall_s":
+                                   time.perf_counter() - t_phase}))
+    return counts
+
+
 def check_ste_product(rng):
     """The dense STE product on the card at a decode shape (M=4, K=3072,
     the down projection): the port's float32 product rounded once must
@@ -1611,11 +1814,18 @@ def phase_path(rng):
         x, x_cpu = y_native, y_native.cpu()
 
 
-def serve_line(leg: str, stats) -> None:
+def serve_line(leg: str, stats, verified) -> None:
+    """A leg's serving stats, with the verifier's wall seconds in it (all
+    of it inside the warm-up step that `compile_s` times)."""
     keys = ("prefill_s", "compile_s", "decode_tok_per_s", "decode_p50_ms",
             "decode_p99_ms", "n_waves", "wall_s", "tok_per_s")
-    print("serve " + json.dumps({"leg": leg, **{k: stats[k] for k in keys
-                                                if k in stats}}))
+    line = {"leg": leg, **{k: stats[k] for k in keys if k in stats},
+            "verify_programs": verified["programs"],
+            "verify_s": verified["wall_s_total"]}
+    if "compile_s" in stats:
+        line["verify_share_of_compile"] = (verified["wall_s_total"]
+                                           / stats["compile_s"])
+    print("serve " + json.dumps(line))
 
 
 def expected_launches(cfg, *, packed: bool, native_fwd: int,
@@ -1637,15 +1847,71 @@ def expected_launches(cfg, *, packed: bool, native_fwd: int,
             "flash_attn_fwd": cfg.n_layers * aligned}
 
 
+def install_verify_tally() -> None:
+    """Record the wall time of every verify pass the pipeline runs (the
+    verifier's own `VerifyReport.wall_s`), for the "verify" lines."""
+    from repro_torch.pim import verify
+    inner = verify.verify_state
+
+    def timed(st):
+        try:
+            rep = inner(st)
+        except verify.VerifyError as err:
+            VERIFY_WALLS.append(err.report.wall_s)
+            raise
+        VERIFY_WALLS.append(rep.wall_s)
+        return rep
+    verify.verify_state = timed
+
+
+def verify_mark():
+    from repro_torch.pim.verify import VERIFY_STATS
+    return dict(VERIFY_STATS), len(VERIFY_WALLS)
+
+
+def verify_since(mark):
+    """The verify passes run since `mark`: programs, clean, failed and
+    their wall seconds (total and largest)."""
+    from repro_torch.pim.verify import VERIFY_STATS
+    stats, n = mark
+    walls = VERIFY_WALLS[n:]
+    got = {k: VERIFY_STATS[k] - stats.get(k, 0)
+           for k in ("programs", "clean", "failed")}
+    return {**got, "wall_s_total": sum(walls),
+            "wall_s_max": max(walls, default=0.0)}
+
+
+def verify_line(leg: str, mark):
+    """Print a leg's "verify" line; fail if a program failed or went
+    unrecorded."""
+    got = verify_since(mark)
+    print("verify " + json.dumps({"phase": leg, **got}))
+    if got["failed"] or got["clean"] != got["programs"] \
+            or len(VERIFY_WALLS) - mark[1] != got["programs"]:
+        raise AssertionError(f"{leg}: verifier {got}")
+    return got
+
+
+def verified_phase(phase: str, run):
+    """`run()` and print the "verify" line of the whole phase: lowerings
+    a phase makes outside its counted legs are verified too."""
+    mark = verify_mark()
+    result = run()
+    verify_line(f"{phase} (whole phase)", mark)
+    return result
+
+
 def counted(wrappers, leg: str, run, want_of):
     """Zero every launch counter, `run()`, read the counters and hold them
-    to `want_of(result)` (a counter it does not name must stay 0);
-    returns (result, counts)."""
+    to `want_of(result)` (a counter it does not name must stay 0), and
+    print the leg's "verify" line; returns (result, counts)."""
     for fn in wrappers.values():
         fn.launches = 0
+    mark = verify_mark()
     result = run()
     got = {name: fn.launches for name, fn in wrappers.items()}
     print("counts " + json.dumps({"phase": leg, **got}))
+    verify_line(leg, mark)
     named = want_of(result)
     if not set(named) <= set(wrappers):
         raise AssertionError(f"{leg}: no counter for {set(named) - set(wrappers)}")
@@ -1673,6 +1939,7 @@ def phase_serve(wrappers):
     gens, counts = {}, {}
     for leg, extra in legs.items():
         args = serve.parse_args(SERVE + extra)
+        mark = verify_mark()
         (gen, stats), counts[leg] = counted(
             wrappers, leg, lambda: serve.run_serve(args),
             lambda _, leg=leg, args=args: expected_launches(
@@ -1683,7 +1950,7 @@ def phase_serve(wrappers):
                 or gen.max() >= cfg.vocab_size:
             raise AssertionError(f"{leg}: bad token ids {gen.tolist()}")
         gens[leg] = gen
-        serve_line(leg, stats)
+        serve_line(leg, stats, verify_since(mark))
     first = gens["gpu dense"]
     for leg, gen in gens.items():
         if not np.array_equal(gen, first):
@@ -1701,6 +1968,7 @@ def phase_serve(wrappers):
         drim = args.engine == "cuda"
         # one prefill per request, only the 256-token one aligned; one
         # decode step per wave
+        mark = verify_mark()
         (res, stats), counts["continuous " + leg] = counted(
             wrappers, "continuous " + leg,
             lambda: serve.run_continuous(args, prompts=prompts),
@@ -1708,7 +1976,7 @@ def phase_serve(wrappers):
                 cfg, packed=True,
                 native_fwd=2 + (0 if drim else out[1]["n_waves"]),
                 drim_steps=out[1]["n_waves"] if drim else 0, aligned=1))
-        serve_line("continuous " + leg, stats)
+        serve_line("continuous " + leg, stats, verify_since(mark))
         results[leg] = res
     for r in range(2):
         a, b = results["gpu packed"][r], results["cuda packed"][r]
@@ -2053,6 +2321,7 @@ def main() -> int:
 
     torch.backends.cuda.matmul.allow_tf32 = False
     rng = np.random.default_rng(SEED)
+    install_verify_tally()
     phase_build()
     records = phase_kernels(rng)
     check_ste_product(rng)
@@ -2070,15 +2339,21 @@ def main() -> int:
                 "unpack_signs": packbits.unpack_signs}
     for fn in wrappers.values():
         fn.launches = 0
+    mark = verify_mark()
     phase_path(rng)
     path_launches = read_counts(wrappers, ("pack_signs", "xnor_gemm",
                                            "aap_interp"), "path")
-    by_leg = phase_serve(wrappers)
-    by_leg["faults"] = phase_faults(wrappers)
-    by_leg["bulk"] = phase_bulk(wrappers)
-    by_leg["analog"] = phase_analog(wrappers)
-    by_leg.update(phase_queue(wrappers))
-    by_leg.update(phase_train(wrappers))
+    verify_line("path", mark)
+    by_leg = verified_phase("serve", lambda: phase_serve(wrappers))
+    by_leg["faults"] = verified_phase("faults",
+                                      lambda: phase_faults(wrappers))
+    by_leg["bulk"] = verified_phase("bulk", lambda: phase_bulk(wrappers))
+    by_leg["analog"] = verified_phase("analog",
+                                      lambda: phase_analog(wrappers))
+    by_leg.update(verified_phase("queue", lambda: phase_queue(wrappers)))
+    by_leg["verdict"] = verified_phase("verdict",
+                                       lambda: phase_verdict(wrappers))
+    by_leg.update(verified_phase("train", lambda: phase_train(wrappers)))
     launches = {name: sum(c[name] for c in by_leg.values())
                 for name in wrappers}
     idle = [name for name, n in launches.items() if n <= 0]

@@ -51,3 +51,16 @@ class ModelConfig:
 
     def replace(self, **kw) -> "ModelConfig":
         return dataclasses.replace(self, **kw)
+
+    def param_count(self) -> int:
+        """Analytic parameter count (embedding + trunk + head), the
+        reference's formula for the dense family."""
+        if self.family != "dense":
+            raise NotImplementedError(
+                f"param_count of family {self.family!r}: ROADMAP Queue 1 "
+                "item 12")
+        d, v = self.d_model, self.vocab_size
+        attn = (d * self.n_heads * self.d_head
+                + 2 * d * self.n_kv_heads * self.d_head
+                + self.n_heads * self.d_head * d)
+        return 2 * v * d + self.n_layers * (attn + 3 * d * self.d_ff)

@@ -57,20 +57,22 @@ def sample_tokens(logits: torch.Tensor, temperature: float,
 
 
 def make_decode_fn(cfg, temperature: float = 0.0,
-                   engine: Optional[str] = None) -> Callable:
+                   engine: Optional[str] = None,
+                   n_queues: Optional[int] = None) -> Callable:
     """(params, tok [B,1], caches, pos [B], key) -> (next_tok [B,1], caches).
 
     engine None or "gpu": the native route (the packed-kernel or dense
     BitLinear GEMMs on the params' device).  A registry engine ("resident",
     "cuda"): the same decode step inside `serving_engine`, so BitLinear
-    GEMMs run on the simulated DRIM fleet."""
+    GEMMs run on the simulated DRIM fleet (`n_queues`: the "queued"
+    engine's queue count)."""
     drim = engine if engine not in (None, NATIVE_ENGINE) else None
     if drim is not None:
         from repro_torch.pim.compiler import get_engine
         get_engine(drim)                   # fail fast on unknown names
 
     def dec(p, tok, caches, pos, key):
-        with serving_engine(drim):
+        with serving_engine(drim, n_queues=n_queues):
             lg, caches = decode_step(p, cfg, tok, caches, pos)
         return sample_tokens(lg, temperature, key), caches
     return dec
@@ -123,7 +125,8 @@ class WaveBatcher:
 
     def __init__(self, cfg, params, *, n_slots: int, ctx_len: int,
                  temperature: float = 0.0, seed: int = 0,
-                 engine: Optional[str] = None, device=None) -> None:
+                 engine: Optional[str] = None,
+                 n_queues: Optional[int] = None, device=None) -> None:
         self.device = resolve_device(device)
         self.cfg = cfg
         self.params = params
@@ -131,7 +134,7 @@ class WaveBatcher:
         self.ctx_len = ctx_len
         self.temperature = temperature
         self._keys = np.random.default_rng(seed)
-        self._decode = make_decode_fn(cfg, temperature, engine)
+        self._decode = make_decode_fn(cfg, temperature, engine, n_queues)
         self.caches = empty_caches(cfg, n_slots, ctx_len, device=self.device)
         self.wave = 0
         self.wave_log: List[Dict[str, Any]] = []

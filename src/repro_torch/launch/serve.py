@@ -23,9 +23,10 @@ Timing: the first decode step runs UNTIMED as warm-up and is reported as
 `compile_s` (first launches: kernel builds, DRIM lowerings), so
 `decode_tok_per_s` and the p50/p99 step latencies are steady-state.
 
+  * --n-queues: the queue count of --engine queued.
+
 Not ported yet (ROADMAP Queue 1 item 6): the reference's --microbench,
---resilient, --telemetry/--trace-out, --mesh and --n-queues ("queued"
-itself is an --engine).
+--resilient, --telemetry/--trace-out and --mesh.
 
 CPU-scale example:
   PYTHONPATH=src python -m repro_torch.launch.serve --arch drim-bnn \\
@@ -73,6 +74,8 @@ def parse_args(argv=None) -> argparse.Namespace:
                     "registry's comparator) = the native route; the DRIM "
                     "engines route decode GEMMs through the drim.jit "
                     "compile->lower->run pipeline")
+    ap.add_argument("--n-queues", type=int, default=None,
+                    help="queue count for --engine queued")
     ap.add_argument("--packed", action="store_true",
                     help="serve from bit-packed BitLinear weights")
     ap.add_argument("--continuous", type=int, default=0, metavar="N",
@@ -207,7 +210,7 @@ def run_serve(args, *, params=None, tokens=None
     st = _setup(args, cfg, dev, params, tokens)
     params, caches = st["params"], st["caches"]
     batch, prompt_len = st["logits"].shape[0], args.prompt_len
-    dec = make_decode_fn(cfg, args.temperature, args.engine)
+    dec = make_decode_fn(cfg, args.temperature, args.engine, args.n_queues)
 
     tok = st["logits"][:, -1, :].argmax(-1)[:, None]
     pos0 = torch.full((batch,), prompt_len, dtype=torch.long, device=dev)
@@ -264,7 +267,8 @@ def run_continuous(args, *, params=None, prompts=None
         params = pack_model_params(params)
     batcher = WaveBatcher(cfg, params, n_slots=args.batch, ctx_len=ctx_len,
                           temperature=args.temperature, seed=args.seed,
-                          engine=args.engine, device=dev)
+                          engine=args.engine, n_queues=args.n_queues,
+                          device=dev)
     if prompts is None:
         prompts = list(_prompts(args, cfg, args.continuous))
     for r, prompt in enumerate(prompts):

@@ -39,25 +39,28 @@ from repro_torch.tree import tree_slice, tree_stack
 
 Params = Dict[str, Any]
 
-# (engine, geometry) of the active DRIM serving scope, or None for the
-# native packed-kernel path.
-_SERVING: contextvars.ContextVar[Optional[Tuple[str, Any]]] = \
+# (engine, queue count, geometry) of the active DRIM serving scope, or
+# None for the native packed-kernel path.
+_SERVING: contextvars.ContextVar[Optional[Tuple[str, Any, Any]]] = \
     contextvars.ContextVar("repro_torch_serving_engine", default=None)
 
 
 @contextlib.contextmanager
-def serving_engine(engine: Optional[str] = None, *, geom=None):
+def serving_engine(engine: Optional[str] = None, *,
+                   n_queues: Optional[int] = None, geom=None):
     """Route BitLinear matmuls through the DRIM pipeline for the scope.
 
     `engine` is a `pim.compiler.ENGINE_REGISTRY` name: None or the
     comparator "gpu" keeps the native packed-kernel path; "resident",
-    "baseline" and "cuda" run the sign GEMMs on the DRIM fleet.  The fleet
-    runs on the activations' device."""
+    "baseline", "queued" and "cuda" run the sign GEMMs on the DRIM fleet
+    (`n_queues`: the "queued" engine's queue count).  The fleet runs on
+    the activations' device."""
     if engine is not None:
         from repro_torch.pim.compiler import get_engine
         if not get_engine(engine).device:   # fail fast on unknown names
             engine = None                   # "gpu" == the native path
-    token = _SERVING.set((engine, geom) if engine is not None else None)
+    token = _SERVING.set((engine, n_queues, geom) if engine is not None
+                         else None)
     try:
         yield
     finally:
@@ -74,11 +77,11 @@ def _drim_gemm(x: torch.Tensor, wb_bits: torch.Tensor) -> torch.Tensor:
     """x [..., K] activations vs wb_bits [N, K] weight sign bits, as a ±1
     dot on the DRIM fleet; returns [..., N] int32 (exact)."""
     from repro_torch.pim.bnn import serve_bnn_matmul
-    engine, geom = _SERVING.get()
+    engine, n_queues, geom = _SERVING.get()
     lead = x.shape[:-1]
     xb = kops.sign_bits(x.to(torch.float32)).reshape(-1, x.shape[-1])
     dot = serve_bnn_matmul(xb, wb_bits, engine=engine, geom=geom,
-                           device=x.device)
+                           n_queues=n_queues, device=x.device)
     return dot.reshape(*lead, wb_bits.shape[0])
 
 

@@ -1,7 +1,7 @@
 """Scheduler, fused graphs, MIMD graph partitions and per-bank command
 queues, the `jit` front end, the compile -> lower -> run pipeline,
-fault-tolerance hardening, the BNN dot product and the "gpu" comparator's
-cost."""
+fault-tolerance hardening, the static verifier, the BNN dot product and
+the DRIM-vs-GPU placement Verdict with the "gpu" comparator's cost."""
 from repro_torch.core.faults import FaultModel
 from repro_torch.pim.compiler import (ENGINE_REGISTRY, PARTITIONERS,
                                       PASS_PIPELINE, Compiled, EccReport,
@@ -15,7 +15,9 @@ from repro_torch.pim.graph import (BulkGraph, FusedProgram, FusedSchedule,
                                    compile_graph, graph_ref_results,
                                    partition_graph, plan_graph_schedule)
 from repro_torch.pim.harden import ECC_OUTPUT, HARDEN_SCHEMES, harden_graph
-from repro_torch.pim.offload import GpuCost, VerdictRow, gpu_cost
+from repro_torch.pim.offload import (SIMULATE_MAX_BITS, GpuCost, Verdict,
+                                     VerdictRow, build_verdict, gpu_cost,
+                                     plan_model_payloads, serving_verdict)
 from repro_torch.pim.queue import (ChaosReport, QueueProgressTable,
                                    QueueSchedule, bank_blocks,
                                    default_n_queues, fused_queue_schedule,
@@ -28,4 +30,7 @@ from repro_torch.pim.scheduler import (ENGINES, OP_ARITY, RESULT_ROWS,
                                        expected_results, plan_schedule,
                                        random_operands, run_waves,
                                        stage_rows, wave_fn)
+from repro_torch.pim import verify
+from repro_torch.pim.verify import (VerifyError, VerifyReport, verify_fused,
+                                    verify_lowered, verify_partition)
 from repro_torch.pim.bnn import bnn_dot_partitioned

@@ -5,11 +5,12 @@
           .lower(engine=...)            #      TracedProgram | jit function
     out = low.run(..., device=...)      # measured low.schedule
     low.cost(n_bits)                    # closed-form schedule
+    low.verdict(n_bits)                 # DRIM-vs-GPU placement Verdict
 
 `lower()` runs a registered pass pipeline -- canonicalize -> harden ->
-fuse -> optional partition -> encode (`PASS_PIPELINE`) -- and engines
-live in one `EngineRegistry`: "resident" (plain torch, the default),
-"baseline" (the full device state stepped by the encoded-stream
+fuse -> optional partition -> encode -> verify (`PASS_PIPELINE`) -- and
+engines live in one `EngineRegistry`: "resident" (plain torch, the
+default), "baseline" (the full device state stepped by the encoded-stream
 interpreter), "queued" (per-bank command queues, `pim.queue`), "cuda"
 (the AAP interpreter kernels; their plain replays on CPU tensors), and
 the comparator "gpu" (the reference's "tpu"): no fleet, the op or graph
@@ -29,9 +30,11 @@ Fault injection and hardening are ported: `lower(harden="tmr" | "ecc" |
 "tmr+ecc")` rewrites the graph before fusing (`pim.harden`), `lower(faults=
 FaultModel(...))` sets a default fault model and `run(..., faults=...)`
 overrides it per run; an ``ecc`` run leaves its parity verdict on
-`Lowered.last_ecc`.  The reference's fleet meshes and static verifier
-are later slices: their arguments raise NotImplementedError naming the
-ROADMAP item, and are never silently ignored; so does `Lowered.verdict`.
+`Lowered.last_ecc`.  The static verifier (`pim.verify`) runs on every
+lowering by default and raises `verify.VerifyError` before a miscompiled
+stream can run.  The reference's fleet meshes are a later slice: `mesh=`
+raises NotImplementedError naming the ROADMAP item, and is never silently
+ignored.
 """
 from __future__ import annotations
 
@@ -42,6 +45,7 @@ from typing import Any, Callable, Dict, Optional, Tuple
 import numpy as np
 import torch
 
+import repro_torch.pim.verify as verify_mod
 from repro_torch.core import AAP, DRIM_R, DrimGeometry, FaultModel
 from repro_torch.core.subarray import N_XROWS, WORD_BITS, as_words
 from repro_torch.device import resolve_device
@@ -56,24 +60,14 @@ from repro_torch.pim.scheduler import (N_DATA_ROWS, OP_ARITY, RESULT_ROWS,
                                        Schedule, _ceil_div, encoded_program,
                                        run_waves, stage_rows)
 
-# Lowering arguments of the reference that later slices port, with the
-# ROADMAP Queue-1 item that brings each.
-_NOT_PORTED = {
-    "mesh": "Queue 1 item 12 (pim/mesh.py fleet meshes over the "
-            "multi-rank process group of runtime/sharding.py)",
-    "verify": "Queue 1 item 10 (pim/verify.py)",
-    "verdict": "Queue 1 item 10 (offload.Verdict and build_verdict)",
-}
 
-
-def _reject_not_ported(**given) -> None:
-    """Raise for any later-slice lowering argument that was actually set
-    (None and False mean unset; `verify=False` asks for no verifier)."""
-    for arg, value in given.items():
-        if value is not None and value is not False:
-            raise NotImplementedError(
-                f"{arg}= is not ported to repro_torch yet: ROADMAP "
-                f"{_NOT_PORTED[arg]}")
+def _reject_mesh(mesh) -> None:
+    """Fleet meshes are a later slice: raise if one was actually given."""
+    if mesh is not None:
+        raise NotImplementedError(
+            "mesh= is not ported to repro_torch yet: ROADMAP Queue 1 item "
+            "12 (pim/mesh.py fleet meshes over the multi-rank process "
+            "group of runtime/sharding.py)")
 
 
 # ---------------------------------------------------------------------------
@@ -237,13 +231,21 @@ def _native_graph(graph: BulkGraph, arrays: Dict[str, torch.Tensor]
                   ) -> Dict[str, torch.Tensor]:
     """Evaluate a graph node by node with the native kernels: the
     comparator's counterpart of `graph.graph_ref_results`, on the arrays'
-    device."""
+    device.  A value is dropped after its last use, so the live planes are
+    the graph's width, not its length (a hardened K=32 dot at 2**29 bits
+    would otherwise hold ~900 planes of 64 MiB)."""
     vals = {vid: arrays[name]
             for name, vid in zip(graph.input_names, graph.input_vids)}
-    for op, opnds, res in graph.nodes:
+    keep = set(graph.outputs.values())
+    last = {v: i for i, (_, opnds, _) in enumerate(graph.nodes)
+            for v in opnds}
+    for i, (op, opnds, res) in enumerate(graph.nodes):
         outs = _native_node(op, [vals[v] for v in opnds])
         for v, r in zip(res, outs):
             vals[v] = r
+        for v in (*opnds, *res):
+            if last.get(v, -1) <= i and v not in keep:
+                vals.pop(v, None)
     return {name: vals[vid] for name, vid in graph.outputs.items()}
 
 
@@ -287,12 +289,19 @@ class Compiled:
         faults: the default `core.FaultModel` of every `run()` of this
         lowering (a per-run `run(..., faults=...)` overrides it).
 
-        `mesh` and `verify=True` belong to later slices and raise
-        NotImplementedError."""
-        _reject_not_ported(mesh=mesh, verify=verify)
+        verify: run the static verifier (`pim.verify`) over the lowered
+        program -- AAP-stream hazards, MIMD fence races, harden
+        invariants.  Defaults on (``DRIM_VERIFY=0`` opts the process out;
+        ``DRIM_VERIFY=1`` forces it on even over an explicit
+        ``verify=False``).  The report lands on `Lowered.verify_report`;
+        a diagnostic raises `verify.VerifyError` at lower time.
+
+        `mesh` belongs to a later slice and raises NotImplementedError."""
+        _reject_mesh(mesh)
         st = _LoweringState(compiled=self, engine_name=engine,
                             n_queues=n_queues, partition=partition,
-                            harden=harden, faults=faults)
+                            harden=harden, faults=faults,
+                            verify=verify_mod.resolve_enabled(verify))
         for p in PASS_PIPELINE:
             p.fn(st)
         return Lowered(
@@ -302,7 +311,8 @@ class Compiled:
             traced=self.traced, fp=st.fp, gp=st.gp, program=st.program,
             result_rows=st.result_rows, n_rows=st.n_rows, aaps=st.aaps,
             harden=st.harden, default_faults=st.faults,
-            protected_nodes=st.protected_nodes)
+            protected_nodes=st.protected_nodes,
+            verify_report=st.verify_report)
 
 
 def compile(src, *, geom: Optional[DrimGeometry] = None,
@@ -355,6 +365,8 @@ class _LoweringState:
     result_rows: Tuple[int, ...] = ()
     n_rows: int = 0
     aaps: int = 0
+    verify: bool = True
+    verify_report: Optional["verify_mod.VerifyReport"] = None
 
 
 def _pass_canonicalize(st: _LoweringState) -> None:
@@ -450,6 +462,19 @@ def _pass_encode(st: _LoweringState) -> None:
     st.result_rows = tuple(st.result_rows)
 
 
+def _pass_verify(st: _LoweringState) -> None:
+    """Static verification of the lowered program (`pim.verify`):
+    AAP-stream hazard analysis over the fused stream, fence
+    happens-before over MIMD partitions, harden structural invariants.
+    It checks the AAP program, not the "cuda" engine's packed stream,
+    as the reference checks the program its interpreter replays.  Raises
+    `verify.VerifyError` on the first diagnostic; the clean report lands
+    on `Lowered.verify_report`."""
+    if not st.verify:
+        return
+    st.verify_report = verify_mod.verify_state(st)
+
+
 @dataclasses.dataclass(frozen=True)
 class Pass:
     name: str
@@ -462,6 +487,7 @@ PASS_PIPELINE: Tuple[Pass, ...] = (
     Pass("fuse", _pass_fuse),
     Pass("partition", _pass_partition),
     Pass("encode", _pass_encode),
+    Pass("verify", _pass_verify),
 )
 
 
@@ -503,7 +529,7 @@ class Lowered:
     def __init__(self, *, kind, engine, geom, row_budget, op, graph, traced,
                  fp, program, result_rows, n_rows, aaps, n_queues=None,
                  partition=None, gp=None, harden=None, default_faults=None,
-                 protected_nodes=frozenset()) -> None:
+                 protected_nodes=frozenset(), verify_report=None) -> None:
         self.kind = kind
         self.engine = engine
         self.geom = geom
@@ -522,6 +548,7 @@ class Lowered:
         self.harden = harden
         self.default_faults = default_faults
         self.protected_nodes = frozenset(protected_nodes)
+        self.verify_report = verify_report   # pim.verify, when enabled
         self.schedule = None          # measured by the last run()
         self.last_ecc = None          # EccReport of the last ecc run()
         self.chaos_report = None      # ChaosReport of the last run()
@@ -702,11 +729,13 @@ class Lowered:
         sched = _make_fused_schedule(self.fp, n_bits, tiles, waves, geom)
         return self.engine.lift_graph(self, sched)
 
-    def verdict(self, n_bits: int, *, simulate: bool = False):
-        """The DRIM-vs-GPU placement verdict: not ported yet."""
-        raise NotImplementedError(
-            "Lowered.verdict is not ported to repro_torch yet: ROADMAP "
-            + _NOT_PORTED["verdict"])
+    def verdict(self, n_bits: int, *, simulate: bool = False, device=None):
+        """The DRIM-vs-GPU placement verdict (`offload.Verdict`): every
+        contender priced with the same row fields, the winner by latency.
+        `simulate=True` runs the program on `device` (None: the card)
+        with seeded operands and prices the measured schedule."""
+        from repro_torch.pim.offload import build_verdict
+        return build_verdict(self, n_bits, simulate=simulate, device=device)
 
     def __repr__(self) -> str:
         src = self.op if self.kind == "op" else (
@@ -741,13 +770,13 @@ def lower_cached(src, *, key: Optional[Tuple] = None,
                  harden: Optional[str] = None,
                  faults: Optional[FaultModel] = None,
                  row_budget: Optional[int] = DEFAULT_ROW_BUDGET,
-                 **later_slices) -> Lowered:
+                 verify: Optional[bool] = None, mesh=None) -> Lowered:
     """`compile(src).lower(...)` memoized for the life of the process.
 
     `src` itself keys the memo when hashable; pass an explicit `key`
     identifying the program for unhashable sources or when the source
     object is rebuilt per call."""
-    _reject_not_ported(**later_slices)
+    _reject_mesh(mesh)
     ident: Any = key if key is not None else src
     try:
         hash(ident)
@@ -755,14 +784,18 @@ def lower_cached(src, *, key: Optional[Tuple] = None,
         raise TypeError(
             "lower_cached needs a hashable src or an explicit key= "
             "identifying the program") from None
+    # The resolved verify flag keys the memo, not the raw argument:
+    # DRIM_VERIFY may differ between calls, and a caller who pinned
+    # verification on must not get an unverified lowering.
+    verify_on = verify_mod.resolve_enabled(verify)
     full_key = (ident, geom, engine, n_queues, partition, harden, faults,
-                row_budget)
+                row_budget, verify_on)
     low = _LOWER_CACHE.get(full_key)
     if low is None:
         LOWER_CACHE_STATS["misses"] += 1
         low = compile(src, geom=geom, row_budget=row_budget).lower(
             engine=engine, n_queues=n_queues, partition=partition,
-            harden=harden, faults=faults)
+            harden=harden, faults=faults, verify=verify_on)
         _LOWER_CACHE[full_key] = low
     else:
         LOWER_CACHE_STATS["hits"] += 1

@@ -140,6 +140,29 @@ def test_packed_bitlinear_equals_reference(d_in, d_out, small_geom):
     assert layers.serving_engine_name() is None
 
 
+def test_queued_bitlinear_equals_reference(small_geom):
+    """The serving scope's queue count reaches the "queued" engine: a
+    BitLinear matmul on 2 queues gives the reference's float32 outputs
+    exactly, and its cached lowering runs 2 queues."""
+    from repro_torch.pim import bnn as tbnn
+    geom = DrimGeometry(**dataclasses.asdict(small_geom))
+    d_in, d_out = 40, 24            # one K chunk, short to compile
+    params, x = smoke_layer(7, d_in, d_out, rows=5)
+    packed_ref = ref_layers.pack_bitlinear(
+        {k: jnp.asarray(v) for k, v in params.items()})
+    with ref_layers.serving_engine("queued", n_queues=2, geom=small_geom):
+        want = np.asarray(ref_layers.bitlinear_packed(
+            packed_ref, jnp.asarray(x), d_in))
+    layer = layers.packed_from_jax(
+        {k: np.asarray(v) for k, v in packed_ref.items()}, device="cpu")
+    with layers.serving_engine("queued", n_queues=2, geom=geom):
+        got = layer(torch.from_numpy(x)).detach().numpy()
+    np.testing.assert_array_equal(got, want)
+    low = tbnn.serving_lowering(d_in, engine="queued", geom=geom,
+                                n_queues=2)
+    assert low.engine.name == "queued" and low.n_queues == 2
+
+
 def test_dense_bitlinear_equals_reference():
     """Dense weights loaded with `bitlinear_from_jax`: the port packs them
     to the reference's words, its STE forward and packed route agree bit

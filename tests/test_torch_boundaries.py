@@ -133,16 +133,25 @@ def test_wrappers_refuse_what_their_kernels_do_not_take(monkeypatch):
 @pytest.mark.parametrize("kwargs", [
     {"partition": True}, {"mesh": object()}, {"verify": True},
     {"n_queues": 2}])
-def test_later_slice_arguments_raise(kwargs):
-    """`mesh=` and `verify=True` belong to later slices and raise naming
-    the ROADMAP item; `partition=` and `n_queues=` (Queue 1 item 9) lower
-    and run: the K=3 carry-save dot split over two bank queues, or on the
-    "queued" engine's two queues, gives the oracle's words."""
-    if "mesh" in kwargs or "verify" in kwargs:
+def test_later_slice_arguments_raise(kwargs, monkeypatch):
+    """`mesh=` belongs to a later slice and raises naming the ROADMAP
+    item; `verify=True` (Queue 1 item 10) lowers through the verify pass
+    and carries a clean report; `partition=` and `n_queues=` (Queue 1 item
+    9) lower and run: the K=3 carry-save dot split over two bank queues,
+    or on the "queued" engine's two queues, gives the oracle's words."""
+    if "mesh" in kwargs:
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             compiler.compile("xnor2").lower(**kwargs)
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             compiler.lower_cached("xnor2", **kwargs)
+        return
+    if "verify" in kwargs:
+        monkeypatch.setenv("DRIM_VERIFY", "0")      # explicit True wins
+        for low in (compiler.compile("xnor2").lower(**kwargs),
+                    compiler.lower_cached("xnor2", **kwargs)):
+            rep = low.verify_report
+            assert rep is not None and rep.ok and rep.layers == ("aap",)
+            assert (rep.aaps_checked, rep.nodes_checked) == (low.aaps, 1)
         return
     from repro_torch.pim import graph_ref_results
     geom = dataclasses.replace(DRIM_R, subarrays_per_bank=2, row_bits=64)

@@ -220,8 +220,20 @@ def test_gpu_cost_prices_the_reference_boundary(jref, src):
 
 
 def test_verdict_waits_for_the_queued_engine():
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 10"):
+    """A verdict prices DRIM against the comparator, so a Table-2 op
+    lowered on the comparator itself raises ValueError naming the device
+    engines (the reference crashes there with an AttributeError); the op
+    on a device engine, and a graph on the comparator, are priced."""
+    with pytest.raises(ValueError, match="device engine"):
         tcompile("xnor2").lower("gpu").verdict(1 << 20)
+    v = tcompile("xnor2").lower("queued").verdict(1 << 20)
+    assert [r.contender for r in v.rows] == ["DRIM-queued", "GPU"]
+    g = bnn_dot_graph_carrysave(4)[0]
+    v = tcompile(g).lower("gpu").verdict(1 << 20)
+    assert [r.contender for r in v.rows] == ["DRIM-fused", "DRIM-unfused",
+                                             "GPU"]
+    assert v.row("GPU").latency_s == tcompile(g).lower("gpu").cost(
+        1 << 20).latency_s
 
 
 def test_gpu_is_the_native_serving_route():

@@ -82,8 +82,9 @@ def gpu_run():
 
 @pytest.mark.parametrize("extra", [
     ("--engine", "resident"), ("--engine", "gpu", "--packed"),
-    ("--engine", "resident", "--packed")],
-    ids=["resident", "packed", "packed-resident"])
+    ("--engine", "resident", "--packed"),
+    ("--engine", "queued", "--n-queues", "2", "--packed")],
+    ids=["resident", "packed", "packed-resident", "packed-queued-2"])
 def test_routes_match_native_dense_tokens(gpu_run, extra):
     gen_g, stats_g = gpu_run
     gen, stats = _serve(*extra)
