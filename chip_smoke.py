@@ -127,7 +127,22 @@ Phases, each fatal on failure:
                 drim-bnn, and `python -m repro_torch.pim.verify --k 32
                 --partition 4 --harden tmr,ecc,tmr+ecc`, which must exit 0
                 ("verdict" lines);
-  10. train  -- the drim-bnn LM trained at full width and depth through
+ 10. telemetry -- the observability layer on the serving path at full
+                width: `serve.main --telemetry --trace-out` on "cuda"
+                --packed for 4 tokens (the disarmed leg's first 4 tokens
+                and its launches for 4 steps, a parseable trace with 3
+                "decode:token" spans and a "Lowered.run" span per
+                interpreter launch; `build/trace_serve.json`),
+                `--microbench` on "cuda" and "gpu" --packed (4 prefills,
+                1 + 3 decode steps), `--resilient` on "cuda" with a decode
+                fn that raises (2 retries, then "gpu" gives the "gpu
+                packed" leg's tokens), and the queue phase's TMR run at
+                the corner under a mid-graph kill, armed (the same words,
+                report and launches; `build/trace_queue.json` holds one
+                sim process of 8 queue tracks, the DEAD instant, requeue
+                spans and the report's ``chaos.*`` gauges); "telemetry"
+                lines print span counts by name and registry counters;
+  11. train  -- the drim-bnn LM trained at full width and depth through
                 `repro_torch.launch.train.main` (examples/train_bnn_lm.py's
                 batch 8, seq 256, AdamW 3e-4; 20 steps, seeded weights,
                 deterministic algorithms): finite losses, the last below
@@ -135,10 +150,11 @@ Phases, each fatal on failure:
                 step-10 checkpoint restored into a fresh state and trained
                 10 more steps must equal the straight run's step-20 state
                 bit for bit;
-  11. counts -- the launch counters are zeroed just before phase 3, before
+  12. counts -- the launch counters are zeroed just before phase 3, before
                 each of phase 4's five legs, before phase 5, phase 6,
-                phase 7, each of phase 8's three legs, phase 9 and each of
-                phase 10's two legs, and read just after each:
+                phase 7, each of phase 8's three legs, phase 9, each of
+                phase 10's five legs and each of phase 11's two legs, and
+                read just after each:
                 phase 3 must launch the three BNN kernels, each serving
                 leg exactly the launches its route implies
                 (`expected_launches`), phase 5 the faulted interpreter
@@ -151,15 +167,17 @@ Phases, each fatal on failure:
                 faulted one instead under flips), phase 9 the interpreter
                 25 times (1 + 1 + 23 segments), the faulted one once and
                 one bulk kernel per "gpu" node, by kind, phase 10
+                `expected_launches` per serving leg and the disarmed
+                run's faulted launches on the chaos leg, phase 11
                 per step the flash forward
                 twice per layer (remat) and each backward kernel once per
                 layer; a counter a leg does not name must stay 0; and
-                each of these legs, and each of phases 3 to 10 as a
+                each of these legs, and each of phases 3 to 11 as a
                 whole, prints a "verify" line (the verify passes its
                 lowerings ran: programs, clean, failed, wall seconds),
                 which fails the script on any failure; a serving leg's
                 line also carries `verify_s` beside its `compile_s`;
- 12. check  -- a float32 smoke-config prefill, and the same config's
+ 13. check  -- a float32 smoke-config prefill, and the same config's
                 first train step (loss and gradients), on the card held to
                 the same on the CPU (after the counts are read).
 
@@ -266,6 +284,14 @@ BITWISE_OPS = {"not": 1, "xnor": 2, "xor": 1, "and": 1, "or": 1, "nand": 2,
 VERDICT_BITS = (1 << 21, BULK_BITS)
 # Wall seconds of every verify pass, appended by `install_verify_tally`.
 VERIFY_WALLS: list = []
+# The telemetry phase's disarmed yardsticks: each static serving leg's
+# tokens (by leg, from the serve phase) and the queue phase's TMR run at
+# the corner under ARMED_KILL on "cuda" (feeds, faults, words, report,
+# launches).
+SERVED: dict = {}
+CHAOS_DISARMED: dict = {}
+ARMED_KILL = "mid-graph kill"
+TRACE_DIR = ROOT / "build"
 
 
 def cuda_ms(fn, iters: int) -> float:
@@ -1505,6 +1531,13 @@ def phase_queue(wrappers):
                                  "aap_interp"] += \
                             len(low.gp.segments) - len(orphans) + \
                             rep.requeued_segments
+                    if (engine, harden, kill) == ("cuda", "tmr", ARMED_KILL):
+                        CHAOS_DISARMED.update(
+                            feeds=card32, faults=fm, report=rep,
+                            words={n: v.clone() for n, v in
+                                   outs[engine].items()},
+                            launches=len(low.gp.segments) - len(orphans)
+                            + rep.requeued_segments)
                     print("chaos " + json.dumps({
                         "kill": kill, "engine": engine,
                         "harden": harden, "faults":
@@ -1951,6 +1984,7 @@ def phase_serve(wrappers):
             raise AssertionError(f"{leg}: bad token ids {gen.tolist()}")
         gens[leg] = gen
         serve_line(leg, stats, verify_since(mark))
+    SERVED.update(gens)
     first = gens["gpu dense"]
     for leg, gen in gens.items():
         if not np.array_equal(gen, first):
@@ -1986,6 +2020,234 @@ def phase_serve(wrappers):
     print("serve " + json.dumps({"continuous_tokens_identical": True,
                                  "tokens": {r: v.tolist() for r, v in
                                             results["gpu packed"].items()}}))
+    return counts
+
+
+def span_counts(events, key: str = "name"):
+    """{span name (or another key): count} of a trace's complete ("X")
+    events."""
+    counts: dict = {}
+    for e in events:
+        if e["ph"] == "X":
+            counts[e[key]] = counts.get(e[key], 0) + 1
+    return dict(sorted(counts.items()))
+
+
+def namespaces(counters, names):
+    return {k: v for k, v in counters.items()
+            if k.rsplit(".", 1)[0] in names}
+
+
+def phase_telemetry(wrappers):
+    """The observability layer (`runtime.telemetry`) and the serve flags
+    that need it, on the card, five counted legs:
+
+      cuda packed armed    -- `serve.main` with --telemetry and
+                              --trace-out, 4 tokens at the disarmed leg's
+                              cache length: its tokens are the disarmed
+                              "cuda packed" leg's first 4, its launches
+                              `expected_launches` of 4 DRIM steps (arming
+                              adds none), and the trace holds 3
+                              "decode:token" spans and one "Lowered.run"
+                              span per interpreter launch (3 steps' worth
+                              inside the timed spans);
+      microbench cuda/gpu  -- `run_microbench` (--gen 4): 4 prefills and
+                              1 + 3 decode steps' launches;
+      resilient fallback   -- `run_serve --resilient` on "cuda" --packed
+                              whose "cuda" decode fn raises: 2 retries,
+                              1 fallback to "gpu", the "gpu packed" leg's
+                              tokens and launches, the incidents on the
+                              registry;
+      chaos armed          -- the queue phase's TMR run at the corner
+                              under ARMED_KILL, armed: the same words,
+                              report (timings aside) and launches, and a
+                              trace with one sim process of 8 queue
+                              tracks, a DEAD instant per dead queue,
+                              requeue spans and ``chaos.*`` gauges equal
+                              to the report.
+
+    Registry counts are read as `delta`s: a `telemetry.fresh()` block
+    would restore `VERIFY_STATS` under the "verify" lines.  Returns the
+    legs' launch counts."""
+    from repro_torch.core import DRIM_R
+    from repro_torch.launch import batching, serve
+    from repro_torch.pim import compile as drim_compile
+    from repro_torch.pim.bnn import bnn_dot_graph_carrysave
+    from repro_torch.runtime import telemetry
+    cfg = serve.build_cfg(serve.parse_args(SERVE))
+    counts = {}
+    reg = telemetry.REGISTRY
+    t_phase = time.perf_counter()
+
+    # -- the armed serving leg ---------------------------------------------
+    trace_serve = TRACE_DIR / "trace_serve.json"
+    argv = SERVE + ["--engine", "cuda", "--packed", "--telemetry",
+                    "--trace-out", str(trace_serve), "--gen", "4",
+                    "--ctx", "264"]
+
+    def armed_serve():
+        out = io.StringIO()
+        with telemetry.armed(False):            # main arms; disarm after
+            telemetry.clear_trace()
+            before = reg.snapshot()
+            with contextlib.redirect_stdout(out):
+                gen = serve.main(argv)
+            delta = reg.delta(before)
+            telemetry.clear_trace()
+        return gen, json.loads(out.getvalue().strip().splitlines()[-1]), \
+            delta
+
+    mark = verify_mark()
+    (gen, stats, delta), counts["cuda packed armed"] = counted(
+        wrappers, "cuda packed armed", armed_serve,
+        lambda _: expected_launches(cfg, packed=True, native_fwd=2,
+                                    drim_steps=4, aligned=1))
+    serve_line("cuda packed armed", stats, verify_since(mark))
+    if not np.array_equal(gen, SERVED["cuda packed"][:, :4]):
+        raise AssertionError(f"armed tokens {gen.tolist()} differ from the "
+                             f"disarmed {SERVED['cuda packed'].tolist()}")
+    with open(stats["trace_out"]) as f:
+        events = json.load(f)["traceEvents"]
+    spans = span_counts(events)
+    decode = [e for e in events if e["ph"] == "X"
+              and e["name"] == "decode:token"]
+    runs = [e for e in events if e["ph"] == "X"
+            and e["name"] == "Lowered.run"]
+    timed = [e for e in runs if any(d["ts"] <= e["ts"] and e["ts"] + e["dur"]
+                                    <= d["ts"] + d["dur"] for d in decode)]
+    interp = counts["cuda packed armed"]["aap_interp"]
+    if len(decode) != 3 or len(runs) != interp \
+            or 4 * len(timed) != 3 * interp:
+        raise AssertionError(f"armed trace: {len(decode)} decode spans, "
+                             f"{len(runs)} runs ({len(timed)} timed) for "
+                             f"{interp} interpreter launches")
+    print("telemetry " + json.dumps({
+        "leg": "cuda packed armed", "trace": str(trace_serve),
+        "events": len(events), "spans": spans,
+        "timed_runs": len(timed),
+        "counters": namespaces(delta["counters"],
+                               ("encode_cache", "lower_cache",
+                                "drim.verify")),
+        "decode_p50_ms_armed": stats["decode_p50_ms"],
+        "armed": stats["telemetry"]["armed"]}))
+
+    # -- the microbenchmark split ------------------------------------------
+    for leg, extra in (("microbench cuda packed", ["--engine", "cuda"]),
+                       ("microbench gpu packed", ["--engine", "gpu"])):
+        args = serve.parse_args(SERVE + extra + ["--packed", "--microbench",
+                                                 "--gen", "4"])
+        drim = args.engine == "cuda"
+        # 4 prefills (1 + 3 timed); 1 + 3 decode steps, native or DRIM
+        stats, counts[leg] = counted(
+            wrappers, leg, lambda args=args: serve.run_microbench(args)[1],
+            lambda _, drim=drim: expected_launches(
+                cfg, packed=True, native_fwd=4 + (0 if drim else 4),
+                drim_steps=4 if drim else 0, aligned=4))
+        print("serve " + json.dumps({"leg": leg, **stats["microbench"]}))
+
+    # -- resilient fallback --------------------------------------------------
+    def make_fn(cfg_, temperature, engine, n_queues):
+        if engine == "cuda":
+            def wedged(*args):
+                raise RuntimeError("cuda decode wedged")
+            return wedged
+        return batching.make_decode_fn(cfg_, temperature, engine, n_queues)
+
+    def resilient():
+        before = reg.snapshot()
+        out = serve.run_serve(serve.parse_args(
+            SERVE + ["--engine", "cuda", "--packed", "--resilient"]),
+            make_fn=make_fn, sleep=lambda s: None)
+        return out, reg.delta(before)
+
+    mark = verify_mark()
+    ((gen, stats), delta), counts["resilient fallback"] = counted(
+        wrappers, "resilient fallback", resilient,
+        lambda _: expected_launches(cfg, packed=True, native_fwd=2 + 8,
+                                    drim_steps=0, aligned=1))
+    actions = [i["action"] for i in stats["incidents"]]
+    incidents = namespaces(delta["counters"], ("serve",))
+    if actions != ["retry(backoff=0.05s)", "retry(backoff=0.1s)",
+                   "fallback:gpu"] or stats["engine"] != "gpu" \
+            or incidents != {"serve.incident:retry": 2,
+                             "serve.incident:fallback": 1} \
+            or not np.array_equal(gen, SERVED["gpu packed"]):
+        raise AssertionError(f"resilient fallback: {actions}, {incidents}, "
+                             f"engine {stats['engine']}, tokens "
+                             f"{gen.tolist()}")
+    serve_line("resilient fallback", stats, verify_since(mark))
+    print("serve " + json.dumps({"leg": "resilient fallback",
+                                 "incidents": stats["incidents"],
+                                 "counters": incidents,
+                                 "tokens_equal_gpu_packed": True}))
+
+    # -- the chaos leg, armed ------------------------------------------------
+    ref = CHAOS_DISARMED
+    nq = DRIM_R.banks
+    low = drim_compile(bnn_dot_graph_carrysave(32)[0]).lower(
+        "cuda", partition=True, n_queues=nq, harden="tmr")
+    trace_queue = TRACE_DIR / "trace_queue.json"
+
+    def chaos_armed():
+        with telemetry.armed(True):
+            telemetry.clear_trace()
+            before = reg.snapshot()
+            outs = low.run(ref["feeds"], device=torch.device("cuda"),
+                           faults=ref["faults"])
+            torch.cuda.synchronize()
+            path = telemetry.export_trace(str(trace_queue))
+            delta = reg.delta(before)
+            telemetry.clear_trace()
+        return outs, low.chaos_report, path, delta
+
+    (outs, rep, path, delta), counts["chaos armed"] = counted(
+        wrappers, "chaos armed", chaos_armed,
+        lambda _: {"aap_interp_faulted": ref["launches"]})
+    for name, want in ref["words"].items():
+        check_equal(f"chaos armed {name}", outs[name], want)
+    timings = ("recovery_s", "compile_s")
+    got_rep, want_rep = (
+        {k: v for k, v in dataclasses.asdict(r).items() if k not in timings}
+        for r in (rep, ref["report"]))
+    if got_rep != want_rep:
+        raise AssertionError(f"chaos armed report {got_rep} != {want_rep}")
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    sims = {e["pid"] for e in events if e["ph"] == "M"
+            and e["name"] == "process_name"
+            and e["args"]["name"].startswith("drim-sim")}
+    tracks = [e["args"]["name"] for e in events if e["ph"] == "M"
+              and e["name"] == "thread_name" and e["pid"] in sims]
+    dead = [e for e in events if e.get("cat") == "chaos"
+            and e["name"].endswith("DEAD")]
+    requeues = [e for e in events if e.get("cat") == "chaos-requeue"]
+    gauges = {k: v for k, v in delta["gauges"].items()
+              if k.startswith("chaos.")}
+    if len(sims) != 1 or len(tracks) != nq \
+            or not all(t.startswith("queue ") for t in tracks) \
+            or len(dead) != len(rep.dead_queues) or not requeues \
+            or gauges != {"chaos.compile_s": rep.compile_s,
+                          "chaos.recovery_s": rep.recovery_s} \
+            or delta["counters"].get("chaos.requeued_segments") \
+            != rep.requeued_segments:
+        raise AssertionError(f"chaos armed trace: {len(sims)} sim "
+                             f"processes, tracks {tracks}, {len(dead)} DEAD, "
+                             f"{len(requeues)} requeue spans, gauges "
+                             f"{gauges}, counters {delta['counters']}")
+    print("telemetry " + json.dumps({
+        "leg": "chaos armed", "kill": ARMED_KILL, "trace": path,
+        "events": len(events),
+        "host_spans": span_counts([e for e in events
+                                   if e["pid"] not in sims]),
+        "sim_spans_by_cat": span_counts([e for e in events
+                                         if e["pid"] in sims], "cat"),
+        "sim_processes": len(sims), "queue_tracks": len(tracks),
+        "dead_instants": len(dead), "requeue_spans": len(requeues),
+        "gauges": gauges,
+        "counters": namespaces(delta["counters"], ("chaos", "faults",
+                                                   "encode_cache"))}))
+    print("telemetry " + json.dumps({"phase_wall_s":
+                                     time.perf_counter() - t_phase}))
     return counts
 
 
@@ -2353,6 +2615,8 @@ def main() -> int:
     by_leg.update(verified_phase("queue", lambda: phase_queue(wrappers)))
     by_leg["verdict"] = verified_phase("verdict",
                                        lambda: phase_verdict(wrappers))
+    by_leg.update(verified_phase("telemetry",
+                                 lambda: phase_telemetry(wrappers)))
     by_leg.update(verified_phase("train", lambda: phase_train(wrappers)))
     launches = {name: sum(c[name] for c in by_leg.values())
                 for name in wrappers}

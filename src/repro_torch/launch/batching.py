@@ -30,6 +30,7 @@ import torch
 from repro_torch.device import resolve_device
 from repro_torch.models import decode_step, empty_caches, prefill
 from repro_torch.models.layers import serving_engine
+from repro_torch.runtime import telemetry
 from repro_torch.tree import tree_map_with_path
 
 NATIVE_ENGINE = "gpu"
@@ -221,9 +222,12 @@ class WaveBatcher:
         if active:
             tok = torch.as_tensor(self._slot_last, device=self.device)[:, None]
             pos = torch.as_tensor(self._slot_pos, device=self.device)
-            nxt, self.caches = self._decode(self.params, tok, self.caches,
-                                            pos, self._key())
-            nxt = nxt.reshape(-1).cpu().numpy()
+            with telemetry.span("batch:wave", cat="serve", tid="serve",
+                                wave=self.wave, n_active=len(active),
+                                admitted=len(admitted)):
+                nxt, self.caches = self._decode(self.params, tok,
+                                                self.caches, pos, self._key())
+                nxt = nxt.reshape(-1).cpu().numpy()
             for s in active:
                 rid = self._slot_rid[s]
                 self.results[rid].append(int(nxt[s]))

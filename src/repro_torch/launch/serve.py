@@ -14,8 +14,20 @@
   * --packed: BitLinear weights bit-packed (32x smaller weight reads),
     with a bit-exactness check against the dense STE path at temperature
     0;
+  * --microbench: the prefill / insert / generate split (the maxtext
+    experimental_decode_microbenchmark pattern), each stage's first call
+    reported apart as its `compile_s`;
   * --continuous N: N staggered requests through the continuous-batching
     wave scheduler (`launch.batching.WaveBatcher`);
+  * --resilient: the decode fn wrapped in retry-with-backoff and a
+    fallback to the "gpu" engine; incidents land in the stats record and
+    on the telemetry registry instead of killing the server;
+  * --telemetry / --trace-out PATH: arm `runtime.telemetry` (spans
+    through lowering and decode, the registry snapshot folded into the
+    stats under "telemetry"); --trace-out also writes the Chrome-trace /
+    Perfetto JSON.  Spans read the host's clock: on the card a span
+    around queued launches closes before they finish (a "decode:token"
+    span ends with the step's device sync);
   * --device: where to serve (default: the card; "cpu" runs the plain
     torch versions of the kernels).
 
@@ -25,8 +37,7 @@ Timing: the first decode step runs UNTIMED as warm-up and is reported as
 
   * --n-queues: the queue count of --engine queued.
 
-Not ported yet (ROADMAP Queue 1 item 6): the reference's --microbench,
---resilient, --telemetry/--trace-out and --mesh.
+Not ported yet (ROADMAP Queue 1 item 12): the reference's --mesh.
 
 CPU-scale example:
   PYTHONPATH=src python -m repro_torch.launch.serve --arch drim-bnn \\
@@ -37,7 +48,7 @@ from __future__ import annotations
 import argparse
 import json
 import time
-from typing import Any, Dict, List, Tuple
+from typing import Any, Callable, Dict, List, Tuple
 
 import numpy as np
 import torch
@@ -48,6 +59,7 @@ from repro_torch.launch.batching import (NATIVE_ENGINE, WaveBatcher, fold_in,
                                          make_decode_fn)
 from repro_torch.models import decode_step, empty_caches, init_params, prefill
 from repro_torch.models.layers import pack_bitlinear
+from repro_torch.runtime import telemetry
 from repro_torch.tree import tree_map_with_path
 
 # config-geometry override flags -> ModelConfig fields (0 = keep)
@@ -78,12 +90,25 @@ def parse_args(argv=None) -> argparse.Namespace:
                     help="queue count for --engine queued")
     ap.add_argument("--packed", action="store_true",
                     help="serve from bit-packed BitLinear weights")
+    ap.add_argument("--microbench", action="store_true",
+                    help="prefill/insert/generate microbenchmark split")
     ap.add_argument("--continuous", type=int, default=0, metavar="N",
                     help="run N requests through the continuous-batching "
                     "wave scheduler instead of one static batch")
     ap.add_argument("--arrive-every", type=int, default=1,
                     help="waves between request arrivals in --continuous "
                     "mode (0 = all arrive at wave 0)")
+    ap.add_argument("--resilient", action="store_true",
+                    help="wrap the decode fn in retry-with-backoff and a "
+                    "fallback to the 'gpu' engine; incidents land in the "
+                    "stats record instead of killing the server")
+    ap.add_argument("--telemetry", action="store_true",
+                    help="arm the observability layer: span tracing "
+                    "through lowering/decode, registry snapshot folded "
+                    "into the stats record under 'telemetry'")
+    ap.add_argument("--trace-out", default=None, metavar="PATH",
+                    help="write the Chrome-trace/Perfetto JSON here after "
+                    "the run (implies --telemetry)")
     ap.add_argument("--device", default=None,
                     help="cuda (the default) or cpu")
     for flag, _field in _CFG_OVERRIDES:
@@ -158,6 +183,78 @@ def _assert_packed_bit_exact(cfg, dense_params, packed_params, tok, caches,
                                "dense STE path")
 
 
+def make_resilient_decode(cfg, temperature: float, engine: str, n_queues,
+                          *, max_retries: int = 2, backoff_s: float = 0.05,
+                          sleep: Callable[[float], None] = time.sleep,
+                          make_fn: Callable = make_decode_fn,
+                          ) -> Tuple[Callable, Dict[str, Any],
+                                     List[Dict[str, Any]]]:
+    """Graceful degradation for the serving hot path.
+
+    A decode step that raises (a DRIM engine wedged mid-lowering, a dead
+    queue surfacing as a dispatch error) is retried with exponential
+    backoff on the SAME engine; once retries exhaust, the server rebuilds
+    the decode fn on the "gpu" comparator engine (the reference's "tpu"),
+    which gives the DRIM engines' tokens, and keeps serving.
+
+    Every failure appends a structured incident record -- `t_s` (seconds
+    since this wrapper was built), `engine`, `attempt`, `retries`
+    (retries already burned on the current engine), `error`, `action`,
+    `action_kind`, and for fallbacks a `fallback_reason` -- and books it
+    on the telemetry registry (``serve.incident:*`` counters, a
+    "serve:incident" instant when armed).
+
+    Returns (decode_fn, state, incidents); `state["engine"]` tracks the
+    engine currently serving.  `make_fn(cfg, temperature, engine,
+    n_queues)` builds a decode fn (`make_decode_fn`; the port's takes no
+    ctx_len, the caches carry it) and `sleep` waits; both are injectable
+    so tests drive the failure path with fakes and no wall-clock."""
+    state: Dict[str, Any] = {
+        "engine": engine,
+        "fn": make_fn(cfg, temperature, engine, n_queues)}
+    incidents: List[Dict[str, Any]] = []
+    clock0 = time.perf_counter()
+
+    def book(rec: Dict[str, Any], kind: str) -> None:
+        rec["action_kind"] = kind
+        incidents.append(rec)
+        telemetry.REGISTRY.counters("serve")[f"incident:{kind}"] += 1
+        telemetry.event("serve:incident", cat="serve", tid="serve", **rec)
+
+    def dec(*args):
+        attempt, delay = 0, backoff_s
+        while True:
+            try:
+                return state["fn"](*args)
+            except Exception as e:  # noqa: BLE001 -- any engine failure
+                rec = {"t_s": round(time.perf_counter() - clock0, 6),
+                       "engine": state["engine"], "attempt": attempt,
+                       "retries": attempt,
+                       "error": f"{type(e).__name__}: {e}"[:200]}
+                attempt += 1
+                if attempt <= max_retries:
+                    rec["action"] = f"retry(backoff={delay:g}s)"
+                    book(rec, "retry")
+                    sleep(delay)
+                    delay *= 2
+                elif state["engine"] != NATIVE_ENGINE:
+                    rec["action"] = f"fallback:{NATIVE_ENGINE}"
+                    rec["fallback_reason"] = (
+                        f"retries exhausted on engine "
+                        f"{state['engine']!r} ({max_retries} retries)")
+                    book(rec, "fallback")
+                    state["engine"] = NATIVE_ENGINE
+                    state["fn"] = make_fn(cfg, temperature, NATIVE_ENGINE,
+                                          n_queues)
+                    attempt, delay = 0, backoff_s
+                else:
+                    rec["action"] = "abort"
+                    book(rec, "abort")
+                    raise
+
+    return dec, state, incidents
+
+
 def _percentiles_ms(step_times: List[float]) -> Tuple[float, float]:
     if not step_times:
         return 0.0, 0.0
@@ -200,17 +297,28 @@ def _setup(args, cfg, dev, params=None, tokens=None) -> Dict[str, Any]:
                 logits=logits, caches=caches, prefill_s=t_prefill)
 
 
-def run_serve(args, *, params=None, tokens=None
+def run_serve(args, *, params=None, tokens=None,
+              make_fn: Callable = make_decode_fn,
+              sleep: Callable[[float], None] = time.sleep,
               ) -> Tuple[np.ndarray, Dict[str, Any]]:
     """The static-batch serving loop; returns (generated ids [B, gen],
     stats dict).  `params` (the port's tree, dense) and `tokens`
-    ([B, prompt_len]) replace the seeded weights and prompts."""
+    ([B, prompt_len]) replace the seeded weights and prompts; `make_fn`
+    (`make_decode_fn`'s signature) builds the decode fn and, with
+    --resilient, `make_resilient_decode` wraps it and backs off with
+    `sleep`."""
     dev = resolve_device(args.device)
     cfg = build_cfg(args)
     st = _setup(args, cfg, dev, params, tokens)
     params, caches = st["params"], st["caches"]
     batch, prompt_len = st["logits"].shape[0], args.prompt_len
-    dec = make_decode_fn(cfg, args.temperature, args.engine, args.n_queues)
+    if args.resilient:
+        dec, eng_state, incidents = make_resilient_decode(
+            cfg, args.temperature, args.engine, args.n_queues,
+            make_fn=make_fn, sleep=sleep)
+    else:
+        dec = make_fn(cfg, args.temperature, args.engine, args.n_queues)
+        eng_state, incidents = {"engine": args.engine}, []
 
     tok = st["logits"][:, -1, :].argmax(-1)[:, None]
     pos0 = torch.full((batch,), prompt_len, dtype=torch.long, device=dev)
@@ -232,16 +340,19 @@ def run_serve(args, *, params=None, tokens=None
         pos = torch.full((batch,), prompt_len + i, dtype=torch.long,
                          device=dev)
         t1 = time.perf_counter()
-        tok, caches = dec(params, tok, caches, pos,
-                          fold_in(args.seed, 100 + i))
-        _sync(dev)
+        with telemetry.span("decode:token", cat="serve", tid="serve",
+                            token=i, engine=eng_state["engine"],
+                            batch=batch):
+            tok, caches = dec(params, tok, caches, pos,
+                              fold_in(args.seed, 100 + i))
+            _sync(dev)
         step_times.append(time.perf_counter() - t1)
         out.append(tok.cpu().numpy())
 
     gen = np.concatenate(out, 1)
     p50, p99 = _percentiles_ms(step_times)
     stats = {
-        "arch": cfg.arch, "engine": args.engine, "device": str(dev),
+        "arch": cfg.arch, "engine": eng_state["engine"], "device": str(dev),
         "packed": bool(args.packed), "batch": batch, "gen": args.gen,
         "prefill_s": st["prefill_s"], "compile_s": compile_s,
         "decode_tok_per_s": batch * (args.gen - 1)
@@ -249,7 +360,83 @@ def run_serve(args, *, params=None, tokens=None
         "decode_p50_ms": p50, "decode_p99_ms": p99,
         "sample_ids": gen[0, :8].tolist(),
     }
+    if args.resilient:
+        stats["requested_engine"] = args.engine
+        stats["incidents"] = incidents
+    if telemetry.enabled():
+        stats["telemetry"] = telemetry.snapshot()
     return gen, stats
+
+
+def run_microbench(args) -> Tuple[None, Dict[str, Any]]:
+    """The maxtext-style decode microbenchmark split: prefill / insert /
+    generate timed separately.  Nothing is compiled ahead here, so each
+    stage's `compile_s` is its first call's time (kernel builds, DRIM
+    lowerings), reported apart from the steady state of the next calls,
+    as `run_serve` treats its warm-up step."""
+    dev = resolve_device(args.device)
+    cfg = build_cfg(args)
+    iters = 3
+    ctx_len = args.ctx or (args.prompt_len + args.gen)
+    params = init_params(args.seed, cfg, device=dev)
+    if args.packed:
+        params = pack_model_params(params)
+    batch = {"tokens": torch.as_tensor(_prompts(args, cfg, args.batch),
+                                       device=dev).long()}
+
+    def timed(fn):
+        t0 = time.perf_counter()
+        out = fn()
+        _sync(dev)
+        return out, time.perf_counter() - t0
+
+    def split(fn):
+        """(last output, first call's seconds, the next `iters` calls')."""
+        out, first = timed(fn)
+        times = []
+        for _ in range(iters):
+            out, t = timed(fn)
+            times.append(t)
+        return out, first, times
+
+    # prefill: full-sequence forward building batch caches
+    (logits, pre_caches), pf_first, times = split(
+        lambda: prefill(params, cfg, batch))
+    prefill_stats = {"compile_s": pf_first, "avg_s": float(np.mean(times))}
+
+    # insert: splice prefill caches into the ctx-length decode caches
+    empty = empty_caches(cfg, args.batch, ctx_len, device=dev)
+    caches, ins_first, times = split(lambda: splice_caches(empty,
+                                                           pre_caches))
+    insert_stats = {"compile_s": ins_first, "avg_s": float(np.mean(times))}
+
+    # generate: steady-state decode steps after one untimed warm-up
+    dec = make_decode_fn(cfg, args.temperature, args.engine, args.n_queues)
+    tok = logits[:, -1, :].argmax(-1)[:, None]
+    pos0 = torch.full((args.batch,), args.prompt_len, dtype=torch.long,
+                      device=dev)
+    _, gen_first = timed(lambda: dec(params, tok, caches, pos0,
+                                     fold_in(args.seed, 100)))
+    step_times = []
+    for i in range(max(args.gen - 1, 1)):
+        pos = torch.full((args.batch,), args.prompt_len + i,
+                         dtype=torch.long, device=dev)
+        (tok, caches), t = timed(lambda: dec(params, tok, caches, pos,
+                                             fold_in(args.seed, 100 + i)))
+        step_times.append(t)
+    p50, p99 = _percentiles_ms(step_times)
+    generate_stats = {
+        "compile_s": gen_first,
+        "tok_per_s": args.batch * len(step_times)
+        / max(sum(step_times), 1e-9),
+        "p50_ms": p50, "p99_ms": p99}
+
+    stats = {"arch": cfg.arch, "engine": args.engine, "device": str(dev),
+             "packed": bool(args.packed), "batch": args.batch,
+             "microbench": {"prefill": prefill_stats,
+                            "insert": insert_stats,
+                            "generate": generate_stats}}
+    return None, stats
 
 
 def run_continuous(args, *, params=None, prompts=None
@@ -295,10 +482,18 @@ def run_continuous(args, *, params=None, prompts=None
 
 def main(argv=None):
     args = parse_args(argv)
-    if args.continuous:
+    if args.telemetry or args.trace_out:
+        telemetry.arm()
+    if args.microbench:
+        gen, stats = run_microbench(args)
+    elif args.continuous:
         gen, stats = run_continuous(args)
     else:
         gen, stats = run_serve(args)
+    if telemetry.enabled() and "telemetry" not in stats:
+        stats["telemetry"] = telemetry.snapshot()
+    if args.trace_out:
+        stats["trace_out"] = telemetry.export_trace(args.trace_out)
     print(json.dumps(stats))
     return gen
 

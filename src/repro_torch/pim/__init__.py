@@ -27,9 +27,9 @@ from repro_torch.pim.queue import (ChaosReport, QueueProgressTable,
                                    uniform_queue_schedule)
 from repro_torch.pim.scheduler import (ENGINES, OP_ARITY, RESULT_ROWS,
                                        Schedule, encoded_program,
-                                       expected_results, plan_schedule,
-                                       random_operands, run_waves,
-                                       stage_rows, wave_fn)
+                                       expected_results, fresh_encode_cache,
+                                       plan_schedule, random_operands,
+                                       run_waves, stage_rows, wave_fn)
 from repro_torch.pim import verify
 from repro_torch.pim.verify import (VerifyError, VerifyReport, verify_fused,
                                     verify_lowered, verify_partition)

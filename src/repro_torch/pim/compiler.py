@@ -35,6 +35,12 @@ lowering by default and raises `verify.VerifyError` before a miscompiled
 stream can run.  The reference's fleet meshes are a later slice: `mesh=`
 raises NotImplementedError naming the ROADMAP item, and is never silently
 ignored.
+
+Armed telemetry (`runtime.telemetry`) records the reference's host spans:
+"lower" with one "pass:{name}" span per pass, and "Lowered.run" with its
+"stage", "dispatch" and "readback" spans.  They read the host's clock
+and never synchronize the device: on the card a "dispatch" span closes
+when its kernel launches are queued, not when they finish.
 """
 from __future__ import annotations
 
@@ -59,6 +65,7 @@ from repro_torch.pim.offload import gpu_cost
 from repro_torch.pim.scheduler import (N_DATA_ROWS, OP_ARITY, RESULT_ROWS,
                                        Schedule, _ceil_div, encoded_program,
                                        run_waves, stage_rows)
+from repro_torch.runtime import telemetry
 
 
 def _reject_mesh(mesh) -> None:
@@ -129,9 +136,14 @@ def engines() -> Tuple[str, ...]:
 def _simd_dispatch(engine_name: str) -> Callable:
     def dispatch(arrays, program, result_rows, *, n_rows, geom,
                  n_queues=None, faults=None):
-        staged, tiles, waves = stage_rows(arrays, geom=geom)
-        outs = run_waves(staged, program, result_rows, n_rows=n_rows,
-                         engine=engine_name, faults=faults)
+        with telemetry.span("stage", cat="run", tid="run",
+                            engine=engine_name):
+            staged, tiles, waves = stage_rows(arrays, geom=geom)
+        with telemetry.span("dispatch", cat="run", tid="run",
+                            engine=engine_name, waves=waves, tiles=tiles,
+                            aaps=len(program)):
+            outs = run_waves(staged, program, result_rows, n_rows=n_rows,
+                             engine=engine_name, faults=faults)
         return outs, tiles, waves
     return dispatch
 
@@ -302,8 +314,15 @@ class Compiled:
                             n_queues=n_queues, partition=partition,
                             harden=harden, faults=faults,
                             verify=verify_mod.resolve_enabled(verify))
-        for p in PASS_PIPELINE:
-            p.fn(st)
+        with telemetry.span("lower", cat="compiler", tid="compiler",
+                            kind=self.kind, engine=engine or ""):
+            for p in PASS_PIPELINE:
+                with telemetry.span(f"pass:{p.name}", cat="compiler",
+                                    tid="compiler") as sp:
+                    p.fn(st)
+                    sp.set(nodes=(len(st.graph.nodes)
+                                  if st.graph is not None else 1),
+                           aaps=st.aaps)
         return Lowered(
             kind=st.kind, engine=st.engine, geom=self.geom,
             n_queues=st.n_queues, partition=st.partition,
@@ -598,8 +617,21 @@ class Lowered:
 
         faults: a `core.FaultModel` for THIS run only (overrides the
         lowering-time default).  With `harden="ecc"` lowerings the
-        detection evidence of each run lands on `self.last_ecc`."""
+        detection evidence of each run lands on `self.last_ecc`.
+
+        Armed telemetry wraps the run in a "Lowered.run" span, and a
+        partitioned run also records its simulated-clock queue timeline
+        (`telemetry.record_queue_timeline`)."""
         dev = resolve_device(device)
+        with telemetry.span("Lowered.run", cat="run", tid="run",
+                            kind=self.kind, engine=self.engine.name,
+                            op=self.op or "", aaps=self.aaps):
+            out = self._run(args, n_bits, dev, faults)
+        if telemetry.enabled() and self.kind == "partition":
+            telemetry.record_queue_timeline(self)
+        return out
+
+    def _run(self, args, n_bits, dev, faults):
         faults = self._resolve_faults(faults)
         if self.kind == "op":
             return self._run_op(args, n_bits, dev, faults)
@@ -645,8 +677,9 @@ class Lowered:
         outs, tiles, waves = self.engine.dispatch(
             ops, self.program, self.result_rows, n_rows=self.n_rows,
             geom=self.geom, n_queues=self.n_queues, faults=faults)
-        results = tuple(outs[:, i].reshape(-1)[:n_words]
-                        for i in range(len(self.result_rows)))
+        with telemetry.span("readback", cat="run", tid="run", op=self.op):
+            results = tuple(outs[:, i].reshape(-1)[:n_words]
+                            for i in range(len(self.result_rows)))
         self.schedule = self.engine.lift_op(self, n_bits, tiles, waves)
         return results
 
@@ -692,8 +725,10 @@ class Lowered:
                 fp.readback_rows, n_rows=fp.template_rows, geom=geom,
                 n_queues=self.n_queues, faults=faults)
             col = {row: i for i, row in enumerate(fp.readback_rows)}
-            for name, row in fp.device_outputs:
-                results[name] = outs[:, col[row]].reshape(-1)[:n_words]
+            with telemetry.span("readback", cat="run", tid="run",
+                                outputs=len(fp.device_outputs)):
+                for name, row in fp.device_outputs:
+                    results[name] = outs[:, col[row]].reshape(-1)[:n_words]
         sched = _make_fused_schedule(fp, n_bits, tiles, waves, geom)
         self.schedule = self.engine.lift_graph(self, sched)
         return results
@@ -754,8 +789,11 @@ class Lowered:
 _LOWER_CACHE: Dict[Tuple, Lowered] = {}
 
 # A serving loop must pay trace + compile + lower once per kernel shape,
-# never once per call; tests read the hit/miss counts.
-LOWER_CACHE_STATS: collections.Counter = collections.Counter()
+# never once per call; tests read the hit/miss counts.  It IS the
+# telemetry registry's "lower_cache" namespace (the same Counter object),
+# so `telemetry.snapshot()` and `telemetry.fresh()` see it.
+LOWER_CACHE_STATS: collections.Counter = \
+    telemetry.REGISTRY.counters("lower_cache")
 
 
 def clear_lower_cache() -> None:

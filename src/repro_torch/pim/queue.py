@@ -48,6 +48,7 @@ from repro_torch.pim.graph import (DEFAULT_ROW_BUDGET, BulkGraph,
 from repro_torch.pim.scheduler import (N_DATA_ROWS, OP_ARITY, RESULT_ROWS,
                                        _ceil_div, encoded_program,
                                        stage_rows, wave_fn)
+from repro_torch.runtime import telemetry
 
 # A queue per bank is the hardware concept, but blocks of banks behind one
 # controller clock are indistinguishable from single banks.  Default: one
@@ -504,7 +505,10 @@ def _execute_partitioned(graph: BulkGraph, env: Dict[str, torch.Tensor], *,
     segments never run or beat, the fence's progress table detects the
     gap, the survivor fleet is validated through `runtime.ft.elastic_plan`
     and the orphaned segments are requeued round-robin on survivor bank
-    blocks, with a per-epoch flip salt.  A requeued segment is exact.
+    blocks, with a per-epoch flip salt.  A requeued segment is exact.  The
+    recovery lands on the telemetry registry (``chaos.recovery_s`` and
+    ``chaos.compile_s`` gauges, the ``chaos.requeued_segments`` counter,
+    a ``chaos:requeue`` instant per detecting fence when armed).
 
     Returns ({output_name: tensor}, QueueSchedule, ChaosReport | None).
     """
@@ -604,6 +608,9 @@ def _execute_partitioned(graph: BulkGraph, env: Dict[str, torch.Tensor], *,
             compile_s += rec_t.get("compile_s", 0.0)
             recovery_s += (time.perf_counter() - t0
                            - rec_t.get("compile_s", 0.0))
+            telemetry.event("chaos:requeue", cat="chaos", tid="chaos",
+                            stage=stage, orphans=len(orphans),
+                            survivors=list(survivors))
 
     results = {name: env[src] for name, src in gp.output_sources}
     sched = partitioned_queue_schedule(gp, n_bits=n_bits, geom=geom,
@@ -618,4 +625,8 @@ def _execute_partitioned(graph: BulkGraph, env: Dict[str, torch.Tensor], *,
                             compile_s=compile_s,
                             death_stages=tuple(sorted(
                                 death_stage.items())))
+        telemetry.gauge("chaos.recovery_s", recovery_s)
+        telemetry.gauge("chaos.compile_s", compile_s)
+        telemetry.REGISTRY.counters("chaos")["requeued_segments"] \
+            += requeued
     return results, sched, chaos

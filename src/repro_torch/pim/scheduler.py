@@ -29,6 +29,14 @@ broadcast it over the wave axis.
 Cost accounting is measured from the executed stream: `aaps_per_tile` is
 the program length, latency is `waves x aaps_per_tile x t_AAP`.
 
+Telemetry (`runtime.telemetry`): the encode memo's stats are the
+registry's "encode_cache" namespace, and a faulted `run_waves` books its
+armed fault sites under "faults" once per wave-runner signature, as the
+reference does.  The reference's ``TRACE_COUNTS`` ("wave_trace", the jit
+traces of its wave body) is left out: torch runs the body eagerly, and
+nothing here is traced or compiled per signature ("cuda" memoizes its
+packed stream, a host-side build, which is not a trace).
+
 Semantics per op (results read back from the Table-2 destination rows):
     copy  (a)       -> a
     not   (a)       -> ~a
@@ -40,7 +48,9 @@ Semantics per op (results read back from the Table-2 destination rows):
 from __future__ import annotations
 
 import collections
+import contextlib
 import dataclasses
+import functools
 from typing import Dict, List, Sequence, Tuple
 
 import numpy as np
@@ -56,6 +66,7 @@ from repro_torch.core.device import (_device_run_program, device_load_rows,
 from repro_torch.core.energy import E_AAP_NJ_PER_KB
 from repro_torch.core.faults import mix32, slot_ids_grid
 from repro_torch.core.subarray import N_XROWS, WORD_BITS, as_words
+from repro_torch.runtime import telemetry
 
 # Per-slot row layout: operands at word-lines [0, arity), results at the
 # word-lines listed here.  8 data rows are plenty for every Table-2 op.
@@ -119,8 +130,12 @@ def build_program(op: str) -> List[AAP]:
 
 # Encoded-program memo.  Op-name keys are bounded by the Table-2 op count;
 # program-tuple keys (fused graphs) are open-ended, so that side is a
-# bounded LRU.  The stats counter lets tests see the hit path taken.
-ENCODE_CACHE_STATS: collections.Counter = collections.Counter()
+# bounded LRU.  The stats counter lets tests see the hit path taken.  It
+# IS the telemetry registry's "encode_cache" namespace (the same Counter
+# object), so one `telemetry.snapshot()` sees it and `telemetry.fresh()`
+# scopes it.
+ENCODE_CACHE_STATS: collections.Counter = \
+    telemetry.REGISTRY.counters("encode_cache")
 _ENCODED_CACHE: Dict = {}
 _ENCODED_TUPLE_CACHE: "collections.OrderedDict" = collections.OrderedDict()
 _ENCODED_TUPLE_CACHE_MAX = 512
@@ -157,6 +172,30 @@ def encoded_program(op, *, queue: int | None = None,
         while len(_ENCODED_TUPLE_CACHE) > _ENCODED_TUPLE_CACHE_MAX:
             _ENCODED_TUPLE_CACHE.popitem(last=False)
     return out
+
+
+@contextlib.contextmanager
+def fresh_encode_cache():
+    """Run a block against an EMPTY encode memo and stats counter, then
+    restore the process-wide state untouched: inside it the first issue
+    of any program is a miss and repeats are hits, in any test order.
+    Yields the (cleared) stats counter.
+
+    The stats side is the registry's "encode_cache" namespace, restored
+    in place, so this context composes with an enclosing
+    `telemetry.fresh()`."""
+    saved_ops = dict(_ENCODED_CACHE)
+    saved_tuples = collections.OrderedDict(_ENCODED_TUPLE_CACHE)
+    _ENCODED_CACHE.clear()
+    _ENCODED_TUPLE_CACHE.clear()
+    try:
+        with telemetry.REGISTRY.fresh_namespace("encode_cache") as stats:
+            yield stats
+    finally:
+        _ENCODED_CACHE.clear()
+        _ENCODED_CACHE.update(saved_ops)
+        _ENCODED_TUPLE_CACHE.clear()
+        _ENCODED_TUPLE_CACHE.update(saved_tuples)
 
 
 def _ceil_div(a: int, b: int) -> int:
@@ -325,8 +364,33 @@ def run_waves(staged: torch.Tensor, program: Sequence[AAP],
 
     Returns [waves, len(result_rows), chips, banks, subarrays, row_words].
     """
-    return wave_fn(engine, tuple(program), tuple(result_rows), n_rows,
-                   faults, bank_geom)(staged)
+    program, result_rows = tuple(program), tuple(result_rows)
+    wave_faults = faults.wave_model() if faults is not None else None
+    if wave_faults is not None:
+        _book_fault_census(engine, program, result_rows, n_rows,
+                           wave_faults, bank_geom)
+    return wave_fn(engine, program, result_rows, n_rows, faults,
+                   bank_geom)(staged)
+
+
+@functools.lru_cache(maxsize=512)
+def _book_fault_census(engine: str, program: Tuple[AAP, ...],
+                       result_rows: Tuple[int, ...], n_rows: int,
+                       faults, bank_geom) -> None:
+    """Book the armed fault-site census of a faulted wave runner once per
+    build: how many DRA/TRA instances of this program can draw flips on
+    this engine (registry namespace "faults", ``{engine}:armed_{kind}``).
+    The reference books it where it builds its compiled runner, memoized
+    in an LRU of 512 per (engine, program, readback, rows, faults, bank
+    offset) and its mesh and buffer donation, which the port does not
+    have; so the same sequence of runs books the same counts.  This memo
+    holds faulted signatures only (a fault-free run books nothing and
+    skips the key's hash), so the two part only past 512 live
+    signatures."""
+    for kind, n in faults.count_faultable(program).items():
+        if n:
+            telemetry.REGISTRY.counters("faults")[
+                f"{engine}:armed_{kind}"] += n
 
 
 def stage_rows(arrays: Sequence[torch.Tensor], *, geom: DrimGeometry,

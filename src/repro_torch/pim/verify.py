@@ -43,7 +43,8 @@ Diagnostics are structured `VerifyError` objects (a `ValueError`
 subclass, so legacy ``except ValueError`` callers keep working) with
 stable machine-readable codes (`V001_USE_AFTER_RECYCLE`, ...) plus the
 node / AAP / queue / stage they anchor to, collected into a
-`VerifyReport`.  Counts land in `VERIFY_STATS`.  The pass registers in
+`VerifyReport`.  Counts land in `VERIFY_STATS`, the ``drim.verify``
+telemetry namespace.  The pass registers in
 `compiler.PASS_PIPELINE` after `encode`, runs by default (skippable
 per-lowering via ``lower(verify=False)``; ``DRIM_VERIFY=1`` forces it
 back on for CI, ``DRIM_VERIFY=0`` disables the default), and is runnable
@@ -64,6 +65,7 @@ from repro_torch.core.isa import OP_COPY, OP_COPY2, OP_DRA, OP_TRA
 from repro_torch.core.subarray import N_DCC_WL
 from repro_torch.pim.graph import BulkGraph, FusedProgram, GraphPartition
 from repro_torch.pim.scheduler import OP_ARITY
+from repro_torch.runtime import telemetry
 
 # ---------------------------------------------------------------------------
 # Diagnostic codes — stable, machine-readable, one per hazard class
@@ -99,8 +101,10 @@ ALL_CODES = tuple(v for k, v in sorted(globals().items())
                   if k.startswith("V0") and isinstance(v, str))
 
 # Everything the verifier touches counts here ("programs", "clean",
-# "failed", plus one key per code).
-VERIFY_STATS: collections.Counter = collections.Counter()
+# "failed", plus one key per code).  It IS the telemetry registry's
+# "drim.verify" namespace (the same Counter object), so `telemetry.fresh()`
+# scopes it too.
+VERIFY_STATS: collections.Counter = telemetry.REGISTRY.counters("drim.verify")
 
 
 class VerifyError(ValueError):

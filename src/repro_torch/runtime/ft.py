@@ -3,9 +3,8 @@
 
 Designed for 1000+-node fleets; on one card the mechanisms are exercised
 by unit tests and the single-host trainer, which beats the heartbeat
-every step.  The reference also publishes liveness as telemetry gauges
-(`ft.alive`, `ft.stragglers`, `ft.dead`); telemetry comes with ROADMAP
-Queue 1 item 11.
+every step.  `HeartbeatMonitor.report` publishes liveness as telemetry
+gauges (`ft.alive`, `ft.stragglers`, `ft.dead`).
 
   * Heartbeats  : every host appends (host, step, t) to a shared file/KV;
                   the coordinator flags hosts > `straggler_factor` x median
@@ -30,6 +29,8 @@ import json
 import os
 import time
 from typing import Callable, Dict, List, Optional, Tuple
+
+from repro_torch.runtime import telemetry
 
 
 @dataclasses.dataclass
@@ -79,7 +80,9 @@ class HeartbeatMonitor:
 
     def report(self, now: Optional[float] = None
                ) -> Tuple[List[int], List[int]]:
-        """-> (straggler host ids, dead host ids)."""
+        """-> (straggler host ids, dead host ids).  Liveness also lands
+        as telemetry gauges (``ft.alive`` / ``ft.stragglers`` /
+        ``ft.dead``), so fleet health rides every registry snapshot."""
         now = now or time.time()
         tab = self.table()
         if not tab:
@@ -91,6 +94,9 @@ class HeartbeatMonitor:
                       if med and h.step_latency > self.straggler_factor * med]
         dead = [h.host_id for h in tab.values()
                 if now - h.last_seen > self.dead_after_s]
+        telemetry.gauge("ft.alive", len(tab) - len(dead))
+        telemetry.gauge("ft.stragglers", len(stragglers))
+        telemetry.gauge("ft.dead", len(dead))
         return stragglers, dead
 
     def prune(self, now: Optional[float] = None) -> List[int]:

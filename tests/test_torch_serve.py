@@ -14,6 +14,7 @@ The reference is imported by the `jref` fixture, so the tests marked
     PYTHONPATH=src python -m pytest -q --noconftest -m cuda \
         tests/test_torch_serve.py
 """
+import json
 import pathlib
 import subprocess
 import sys
@@ -355,6 +356,180 @@ def test_submit_rejects_overlong_request():
                              device="cpu")
     with pytest.raises(ValueError, match="ctx_len"):
         b.submit(np.zeros(10, np.int32), 10)
+
+
+# --- --microbench, --resilient, --telemetry / --trace-out -----------------------
+
+def _fake_decode_factory(fail_plan, ref=False):
+    """make_fn stand-in (the reference's signature with `ref`):
+    `fail_plan[engine]` is how many times a decode step on that engine
+    raises before succeeding."""
+    made = []
+
+    def build(engine):
+        made.append(engine)
+        remaining = {"n": fail_plan.get(engine, 0)}
+
+        def dec(*args):
+            if remaining["n"] > 0:
+                remaining["n"] -= 1
+                raise RuntimeError(f"{engine} queue wedged")
+            return ("tok", engine)
+        return dec
+
+    if ref:
+        return (lambda cfg, ctx_len, temperature, engine, n_queues:
+                build(engine)), made
+    return (lambda cfg, temperature, engine, n_queues: build(engine)), made
+
+
+def _port_view(incidents):
+    """Incident records without `t_s`, the fallback engine named "gpu"."""
+    out = []
+    for rec in incidents:
+        rec = {k: v for k, v in rec.items() if k != "t_s"}
+        out.append({k: v.replace("tpu", "gpu") if isinstance(v, str) else v
+                    for k, v in rec.items()})
+    return out
+
+
+# (engine, fail plan by engine, max_retries, backoff_s): retry-then-recover,
+# fallback, abort (the fallback engine fails too)
+RESILIENT = {
+    "retry_then_recover": ("resident", {"resident": 2}, 2, 0.01),
+    "fallback": ("queued", {"queued": 99}, 1, 0.0),
+    "abort": ("resident", {"resident": 99, "gpu": 99, "tpu": 99}, 1, 0.0),
+}
+
+
+@pytest.mark.parametrize("case", sorted(RESILIENT))
+def test_resilient_incidents_equal_reference(case, jref):
+    """The same failures give the reference's incident records (but `t_s`
+    and the fallback engine's name), naps, rebuilt engines and
+    ``serve.incident:*`` counters."""
+    from repro.runtime import telemetry as ref_telemetry
+    from repro_torch.runtime import telemetry
+    engine, plan, retries, backoff = RESILIENT[case]
+    runs = []
+    for pkg, reg in ((serve, telemetry), (jref.serve, ref_telemetry)):
+        ref = pkg is jref.serve
+        make_fn, made = _fake_decode_factory(plan, ref=ref)
+        naps = []
+        head = (None, 16) if ref else (None,)
+        with reg.fresh():
+            dec, state, incidents = pkg.make_resilient_decode(
+                *head, 0.0, engine, 4, max_retries=retries,
+                backoff_s=backoff, sleep=naps.append, make_fn=make_fn)
+            try:
+                out = [dec(), dec()]
+            except RuntimeError as err:
+                out = [str(err)]
+            counters = dict(reg.REGISTRY.counters("serve"))
+        assert all(i["t_s"] >= 0 for i in incidents)
+        runs.append((out, state["engine"], made, naps, incidents, counters))
+    (out, eng, made, naps, inc, cnt), (r_out, r_eng, r_made, r_naps, r_inc,
+                                       r_cnt) = runs
+    def gpu(x):
+        return json.loads(json.dumps(x).replace("tpu", "gpu"))
+
+    assert gpu(out) == gpu(r_out) and eng == gpu(r_eng)
+    assert made == gpu(r_made)
+    assert naps == r_naps and cnt == r_cnt
+    assert [{k: v for k, v in i.items() if k != "t_s"} for i in inc] == \
+        _port_view(r_inc)
+    assert inc and {i["action_kind"] for i in inc} <= {"retry", "fallback",
+                                                      "abort"}
+
+
+def test_resilient_serve_on_a_healthy_engine_is_a_no_op(gpu_run):
+    gen_g, _ = gpu_run
+    gen, stats = _serve("--engine", "resident", "--resilient")
+    np.testing.assert_array_equal(gen, gen_g)
+    assert stats["requested_engine"] == "resident"
+    assert stats["engine"] == "resident" and stats["incidents"] == []
+
+
+def test_resilient_serve_falls_back_to_the_native_route(gpu_run):
+    """A DRIM decode fn that always raises: two retries, then the "gpu"
+    route serves the native tokens."""
+    gen_g, _ = gpu_run
+
+    def make_fn(cfg, temperature, engine, n_queues):
+        if engine == "resident":
+            def broken(*args):
+                raise RuntimeError("resident queue wedged")
+            return broken
+        return batching.make_decode_fn(cfg, temperature, engine, n_queues)
+
+    args = serve.parse_args(TINY + CPU + ["--engine", "resident",
+                                          "--resilient"])
+    gen, stats = serve.run_serve(args, make_fn=make_fn)
+    np.testing.assert_array_equal(gen, gen_g)
+    assert stats["engine"] == "gpu" and stats["requested_engine"] == "resident"
+    assert [i["action"] for i in stats["incidents"]] == [
+        "retry(backoff=0.05s)", "retry(backoff=0.1s)", "fallback:gpu"]
+
+
+def test_microbench_reports_the_reference_key_set(jref):
+    args = TINY + ["--microbench"]
+    _, want = jref.serve.run_microbench(jref.serve.parse_args(args))
+    _, got = serve.run_microbench(serve.parse_args(args + CPU))
+    assert set(got) == set(want) | {"device"}
+    assert {k: set(v) for k, v in got["microbench"].items()} == \
+        {k: set(v) for k, v in want["microbench"].items()}
+    mb = got["microbench"]
+    for stage in mb.values():
+        assert stage["compile_s"] > 0
+    assert 0 < mb["prefill"]["avg_s"] and 0 < mb["insert"]["avg_s"]
+    assert mb["generate"]["tok_per_s"] > 0
+    assert 0 < mb["generate"]["p50_ms"] <= mb["generate"]["p99_ms"]
+
+
+def test_microbench_tokens_follow_the_serving_route():
+    """The generate stage decodes on the chosen engine: a DRIM engine's
+    lowerings are booked, the native route's are not."""
+    from repro_torch.runtime import telemetry
+    for engine, lowered in (("gpu", False), ("resident", True)):
+        with telemetry.fresh():
+            serve.run_microbench(serve.parse_args(
+                TINY + CPU + ["--microbench", "--engine", engine]))
+            hits = sum(telemetry.REGISTRY.counters("lower_cache").values())
+        assert (hits > 0) is lowered, engine
+
+
+def test_main_trace_out_writes_decode_spans(tmp_path, capsys):
+    from repro_torch.runtime import telemetry
+    path = tmp_path / "trace.json"
+    with telemetry.armed(False):
+        telemetry.clear_trace()
+        gen = serve.main(TINY + CPU + ["--engine", "resident",
+                                       "--trace-out", str(path)])
+        telemetry.clear_trace()
+    assert not telemetry.enabled()
+    stats = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert stats["trace_out"] == str(path)
+    assert stats["telemetry"]["armed"] is True
+    assert stats["telemetry"]["counters"]["lower_cache.hits"] > 0
+    with open(path) as f:
+        doc = json.load(f)
+    spans = [e for e in doc["traceEvents"] if e["ph"] == "X"]
+    decode = [e for e in spans if e["name"] == "decode:token"]
+    assert [e["args"]["token"] for e in decode] == list(range(gen.shape[1] - 1))
+    runs = [e for e in spans if e["name"] == "Lowered.run"]
+    # every decode step of the 2 layers runs gate, up and down
+    assert len(runs) == 3 * 2 * gen.shape[1]
+    assert {e["name"] for e in spans} >= {"stage", "dispatch", "readback"}
+
+
+def test_disarmed_serve_folds_no_telemetry(gpu_run):
+    _, stats = gpu_run
+    assert "telemetry" not in stats and "incidents" not in stats
+
+
+def test_microbench_defaults_to_the_card(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        serve.run_microbench(serve.parse_args(TINY + ["--microbench"]))
 
 
 # --- on the card ------------------------------------------------------------------
