@@ -142,7 +142,23 @@ Phases, each fatal on failure:
                 sim process of 8 queue tracks, the DEAD instant, requeue
                 spans and the report's ``chaos.*`` gauges); "telemetry"
                 lines print span counts by name and registry counters;
-  11. train  -- the drim-bnn LM trained at full width and depth through
+  11. drim   -- the `drim` import surface as `drim_torch`: the README's
+                `@drim.jit` kernel (xnor -> full_add) over one DRIM-R wave
+                on every engine ("resident" through `kernel(...)`,
+                "baseline", "queued" over 4 queues, "cuda", "gpu",
+                `partition=True` on "queued" and "cuda", `drim.lower` on
+                "cuda"), every word equal to `graph_ref_results`; xnor2
+                and the carry-save K=32 dot on "resident" under
+                `fleet_mesh(DRIM_R)` (1x1) and under a 1x8 mesh over
+                [cuda:0] * 8 on one DRIM-S wave (256 banks x 152
+                sub-arrays), and the K=32 dot partitioned over 4 queues
+                under a 1x2 mesh, the words equal to the unsharded run's
+                (host wall times beside); each deprecated shim once at one
+                DRIM-R wave ("cuda" where it takes an engine), its
+                DeprecationWarning naming this file and its words (or
+                report fields) the pipeline's; `examples/
+                quickstart_torch.py` in this process ("drim" lines);
+  12. train  -- the drim-bnn LM trained at full width and depth through
                 `repro_torch.launch.train.main` (examples/train_bnn_lm.py's
                 batch 8, seq 256, AdamW 3e-4; 20 steps, seeded weights,
                 deterministic algorithms): finite losses, the last below
@@ -150,11 +166,11 @@ Phases, each fatal on failure:
                 step-10 checkpoint restored into a fresh state and trained
                 10 more steps must equal the straight run's step-20 state
                 bit for bit;
-  12. counts -- the launch counters are zeroed just before phase 3, before
+  13. counts -- the launch counters are zeroed just before phase 3, before
                 each of phase 4's five legs, before phase 5, phase 6,
                 phase 7, each of phase 8's three legs, phase 9, each of
-                phase 10's five legs and each of phase 11's two legs, and
-                read just after each:
+                phase 10's five legs, each of phase 11's four legs and
+                each of phase 12's two legs, and read just after each:
                 phase 3 must launch the three BNN kernels, each serving
                 leg exactly the launches its route implies
                 (`expected_launches`), phase 5 the faulted interpreter
@@ -168,16 +184,20 @@ Phases, each fatal on failure:
                 25 times (1 + 1 + 23 segments), the faulted one once and
                 one bulk kernel per "gpu" node, by kind, phase 10
                 `expected_launches` per serving leg and the disarmed
-                run's faulted launches on the chaos leg, phase 11
-                per step the flash forward
+                run's faulted launches on the chaos leg, phase 11 the
+                interpreter 3 times and one binary and one ternary bulk
+                kernel on its engines leg, nothing on its mesh leg, the
+                interpreter 6 times on its shims leg and the packer
+                twice, the GEMM and the adder once each on its quickstart
+                leg, phase 12 per step the flash forward
                 twice per layer (remat) and each backward kernel once per
                 layer; a counter a leg does not name must stay 0; and
-                each of these legs, and each of phases 3 to 11 as a
+                each of these legs, and each of phases 3 to 12 as a
                 whole, prints a "verify" line (the verify passes its
                 lowerings ran: programs, clean, failed, wall seconds),
                 which fails the script on any failure; a serving leg's
                 line also carries `verify_s` beside its `compile_s`;
- 13. check  -- a float32 smoke-config prefill, and the same config's
+ 14. check  -- a float32 smoke-config prefill, and the same config's
                 first train step (loss and gradients), on the card held to
                 the same on the CPU (after the counts are read).
 
@@ -2343,6 +2363,270 @@ def phase_faults(wrappers):
     return counts
 
 
+def readme_kernel():
+    """The README's "Write a kernel in 10 lines" kernel, through
+    `drim_torch`."""
+    import drim_torch as drim
+
+    @drim.jit
+    def kernel(a, b, c):
+        x = drim.xnor(a, b)                 # 1 AAP fused (3 unfused)
+        s, carry = drim.full_add(x, c, b)   # Table-2 adder slice, 7 AAPs
+        return {"sum": s, "carry": carry}
+    return kernel
+
+
+def warns_here(what: str, call):
+    """`call()` must raise the shims' DeprecationWarning naming this file
+    (the caller), not the shim's module; returns its result."""
+    import warnings
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        out = call()
+    deps = [w for w in caught if issubclass(w.category, DeprecationWarning)
+            and "staged pipeline" in str(w.message)]
+    here = pathlib.Path(__file__).resolve()
+    if not deps or any(pathlib.Path(w.filename).resolve() != here
+                       for w in deps):
+        named = [(w.filename, w.lineno) for w in deps]
+        raise AssertionError(f"{what}: warnings at {named}, not one "
+                             f"naming {here.name}")
+    return out
+
+
+def timed_run(low, *args):
+    """(outputs, host wall s) of one `low.run` on the card, synchronized."""
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    out = low.run(*args, device=torch.device("cuda"))
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t
+
+
+def phase_drim(wrappers):
+    """The `drim` import surface as `drim_torch`, four counted legs:
+
+      engines    -- the README's `@drim.jit` kernel (xnor -> full_add)
+                    over one DRIM-R wave through `kernel(...)` on
+                    "resident" and `drim.compile(kernel).lower(...)` on
+                    "baseline", "queued" (4 queues), "cuda", "gpu", and
+                    `partition=True` on "queued" and "cuda" (and
+                    `drim.lower`): every output's words equal
+                    `graph_ref_results`;
+      mesh       -- xnor2 and the carry-save K=32 dot on "resident" under
+                    `fleet_mesh(DRIM_R)` (1x1 on one card) over one DRIM-R
+                    wave and under a 1x8 mesh over [cuda:0] * 8 over one
+                    DRIM-S wave (256 banks x 152 sub-arrays, blocks of 32
+                    banks), and the K=32 dot partitioned over 4 queues
+                    under a 1x2 mesh: the words equal the unsharded run's
+                    exactly; the host wall time of each ("drim" lines);
+      shims      -- each deprecated `execute*`/`plan*` shim once at one
+                    DRIM-R wave ("cuda" where it takes an engine): its
+                    DeprecationWarning names this file, and its words (or
+                    report fields) equal the pipeline's;
+      quickstart -- `examples/quickstart_torch.py` in this process: it
+                    holds the packer against its plain version, the
+                    GEMM against sign(x) @ sign(w) and the adder
+                    against its plain version and a + b, on the card.
+
+    Returns the legs' launch counts."""
+    import drim_torch as drim
+    from repro_torch.core import DRIM_R, DRIM_S
+    from repro_torch.launch import faults as payload
+    from repro_torch.pim import (execute, execute_graph, execute_oplist,
+                                 execute_partitioned, graph_ref_results,
+                                 plan, plan_fused, plan_queued)
+    from repro_torch.pim.bnn import bnn_dot_graph_carrysave
+    from repro_torch.pim.graph import partition_graph
+    dev = torch.device("cuda")
+    t_phase = time.perf_counter()
+    counts = {}
+    kernel = readme_kernel()
+    graph = kernel.trace().graph
+    wave = DRIM_R.n_subarrays * DRIM_R.row_bits // 32
+    rng = np.random.default_rng([SEED, 30])
+    abc = [rng.integers(0, 1 << 32, wave, dtype=np.uint32)
+           for _ in graph.input_names]
+    feeds = dict(zip(graph.input_names, abc))
+    oracle = graph_ref_results(graph, feeds)
+
+    def check_words(what, got, want):
+        for name, w in want.items():
+            check_equal(f"{what} {name}", got[name].cpu(),
+                        torch.from_numpy(np.asarray(w).view(np.int32))
+                        if isinstance(w, np.ndarray) else w.cpu())
+
+    # -- engines: compile -> lower -> run on every engine ------------------
+    legs = (("baseline", {}), ("queued", {"n_queues": 4}), ("cuda", {}),
+            ("gpu", {}), ("queued", {"partition": True}),
+            ("cuda", {"partition": True}))
+    segments = len(partition_graph(
+        graph, drim.compile(graph).lower(partition=True).n_queues).segments)
+
+    def engines():
+        check_words("drim README resident", kernel(*abc, device=dev), oracle)
+        for engine, kw in legs:
+            low = drim.compile(kernel).lower(engine, **kw)
+            check_words(f"drim README {engine} {kw}",
+                        low.run(*abc, device=dev), oracle)
+        low = drim.lower(kernel, engine="cuda")
+        if low.program != drim.compile(kernel).lower("cuda").program:
+            raise AssertionError("drim.lower differs from compile().lower()")
+        check_words("drim README drim.lower cuda", low.run(*abc, device=dev),
+                    oracle)
+    _, counts["drim engines"] = counted(
+        wrappers, "drim engines", engines,
+        lambda _: {"aap_interp": 2 + segments, "bitwise_binary": 1,
+                   "bitwise_ternary": 1})
+
+    # -- mesh: sharded runs equal the unsharded ones -----------------------
+    g32, _ = bnn_dot_graph_carrysave(32)
+
+    def mesh_legs():
+        cases = (("fleet_mesh(DRIM_R)", DRIM_R, drim.fleet_mesh(DRIM_R),
+                  {"chips": 1, "banks": 1}),
+                 ("1x8 over cuda:0", DRIM_S,
+                  drim.fleet_mesh(DRIM_S, devices=[dev] * 8),
+                  {"chips": 1, "banks": 8}))
+        for label, geom, mesh, shape in cases:
+            if mesh.shape != shape:
+                raise AssertionError(f"{label}: mesh {mesh.shape}")
+            words = geom.n_subarrays * geom.row_bits // 32
+            ab = [card_words(rng, words) for _ in range(2)]
+            card32 = {n: torch.from_numpy(a.view(np.int32)).to(dev)
+                      for n, a in payload.fault_feeds(g32, words).items()}
+            for name, src, args in (("xnor2", "xnor2", ab),
+                                    ("carry-save K=32", g32, [card32])):
+                lows = [drim.compile(src, geom=geom).lower("resident",
+                                                           mesh=m)
+                        for m in (None, mesh)]
+                walls = [[], []]
+                outs = [None, None]
+                for _ in range(2):         # the first pair warms up
+                    for i, low in enumerate(lows):
+                        outs[i], wall = timed_run(low, *args)
+                        walls[i].append(wall)
+                if name == "xnor2":
+                    check_equal(f"drim mesh {label} xnor2", outs[1][0],
+                                outs[0][0])
+                else:
+                    check_words(f"drim mesh {label} K=32", outs[1], outs[0])
+                print("drim " + json.dumps({
+                    "leg": "mesh", "mesh": label, "mesh_shape": mesh.shape,
+                    "program": name, "geom": [geom.chips, geom.banks,
+                                              geom.subarrays_per_bank],
+                    "words_per_plane": words, "engine": "resident",
+                    "unsharded_wall_s": walls[0], "sharded_wall_s": walls[1],
+                    "identical": True}))
+        mesh2 = drim.fleet_mesh(DRIM_R, devices=[dev] * 2)
+        card32 = {n: torch.from_numpy(a.view(np.int32)).to(dev)
+                  for n, a in payload.fault_feeds(g32, wave).items()}
+        lows = [drim.compile(g32, geom=DRIM_R).lower(partition=True,
+                                                     n_queues=4, mesh=m)
+                for m in (None, mesh2)]
+        (want, wall_u), (got, wall_m) = (timed_run(low, card32)
+                                         for low in lows)
+        check_words("drim mesh 1x2 partitioned K=32", got, want)
+        check_words("drim mesh 1x2 partitioned K=32 vs oracle", got,
+                    graph_ref_results(g32, payload.fault_feeds(g32, wave)))
+        print("drim " + json.dumps({
+            "leg": "mesh", "mesh": "1x2 over cuda:0", "mesh_shape":
+            mesh2.shape, "program": "partitioned carry-save K=32",
+            "n_queues": 4, "words_per_plane": wave, "engine": "queued",
+            "unsharded_wall_s": wall_u, "sharded_wall_s": wall_m,
+            "identical": True}))
+    _, counts["drim mesh"] = counted(wrappers, "drim mesh", mesh_legs,
+                                     lambda _: {})
+
+    # -- shims: the deprecated entry points name their caller --------------
+    def shims():
+        a, b = abc[0], abc[1]
+        res, _ = warns_here("execute", lambda: execute(
+            "xnor2", a, b, engine="cuda", device=dev))
+        check_equal("drim shim execute", res[0], drim.compile(
+            "xnor2").lower("cuda").run(a, b, device=dev)[0])
+        [(res, _)] = warns_here("execute_oplist", lambda: execute_oplist(
+            [("xnor2", (a, b))], engine="cuda", device=dev))
+        check_equal("drim shim execute_oplist", res[0], drim.compile(
+            "xnor2").lower("cuda").run(a, b, device=dev)[0])
+        res, _ = warns_here("execute_graph", lambda: execute_graph(
+            graph, feeds, engine="cuda", device=dev))
+        check_words("drim shim execute_graph", res, drim.compile(
+            graph).lower("cuda").run(feeds, device=dev))
+        res, _ = warns_here("execute_partitioned", lambda: (
+            execute_partitioned(graph, feeds, n_queues=4, device=dev)))
+        check_words("drim shim execute_partitioned", res, drim.compile(
+            graph).lower(partition=True, n_queues=4).run(feeds, device=dev))
+        n_bits = wave * 32
+        rep = warns_here("plan", lambda: plan(
+            "xnor2", n_bits, simulate=True, device=dev))
+        v = drim.compile("xnor2").lower().verdict(n_bits, simulate=True,
+                                                  device=dev)
+        fused = warns_here("plan_fused", lambda: plan_fused(
+            graph, n_bits, simulate=True, device=dev))
+        vg = drim.compile(graph).lower().verdict(n_bits, simulate=True,
+                                                 device=dev)
+        queued = warns_here("plan_queued", lambda: plan_queued(
+            graph, n_bits, n_queues=4, simulate=True, device=dev))
+        vq = drim.compile(graph).lower(partition=True, n_queues=4).verdict(
+            n_bits, simulate=True, device=dev)
+        pairs = {
+            "plan drim_latency_s": (rep.drim_latency_s,
+                                    v.row("DRIM-resident").latency_s),
+            "plan gpu_latency_s": (rep.gpu_latency_s,
+                                   v.row("GPU").latency_s),
+            "plan_fused fused_latency_s": (fused.fused_latency_s,
+                                           vg.row("DRIM-fused").compute_s),
+            "plan_fused unfused_latency_s": (
+                fused.unfused_latency_s, vg.row("DRIM-unfused").compute_s),
+            "plan_queued queued_latency_s": (
+                queued.queued_latency_s, vq.row("DRIM-queued").latency_s),
+            "plan_queued critical_path_aaps": (
+                queued.critical_path_aaps, vq.row("DRIM-queued").aaps)}
+        for what, (got, want) in pairs.items():
+            if got != want:
+                raise AssertionError(f"drim shim {what}: {got} != {want}")
+        if not (rep.simulated and fused.simulated and queued.simulated):
+            raise AssertionError("drim shims: a plan* report did not run")
+        print("drim " + json.dumps({
+            "leg": "shims", "warned_at": pathlib.Path(__file__).name,
+            "plan": rep.as_dict(), "winner_fused": fused.winner,
+            "winner_queued": queued.winner}))
+    _, counts["drim shims"] = counted(wrappers, "drim shims", shims,
+                                      lambda _: {"aap_interp": 6})
+
+    # -- quickstart: the example twin in this process ----------------------
+    def quickstart():
+        import runpy
+        main_fn = runpy.run_path(
+            str(ROOT / "examples" / "quickstart_torch.py"))["main"]
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            main_fn([])
+        text = out.getvalue()
+        if "Quickstart complete" not in text:
+            raise AssertionError(f"quickstart_torch.py: {text[-400:]}")
+        lines = text.splitlines()
+        # The example asserts each of these on the card, against the
+        # plain packer, sign(x) @ sign(w) and the integer sum a + b.
+        checked = [next((line for line in lines if line.startswith(start)
+                         and end in line), None)
+                   for start, end in (("sign-packed", "== the plain packer"),
+                                      ("XNOR-popcount GEMM", "== sign(x)"),
+                                      ("bit-plane ripple adder", "== a + b"),
+                                      ("traced kernel", ""))]
+        if None in checked:
+            raise AssertionError(f"quickstart_torch.py: {text[-400:]}")
+        print("drim " + json.dumps({"leg": "quickstart", "lines": checked}))
+    _, counts["drim quickstart"] = counted(
+        wrappers, "drim quickstart", quickstart,
+        lambda _: {"pack_signs": 2, "xnor_gemm": 1, "bitplane_add": 1})
+
+    print("drim " + json.dumps({"phase_wall_s": time.perf_counter() - t_phase,
+                                "launches": counts}))
+    return counts
+
+
 def check_prefill_reference():
     """The float32 smoke config's prefill logits on the card (flash
     attention at S=128) against the same prefill on the CPU (dense
@@ -2617,6 +2901,7 @@ def main() -> int:
                                        lambda: phase_verdict(wrappers))
     by_leg.update(verified_phase("telemetry",
                                  lambda: phase_telemetry(wrappers)))
+    by_leg.update(verified_phase("drim", lambda: phase_drim(wrappers)))
     by_leg.update(verified_phase("train", lambda: phase_train(wrappers)))
     launches = {name: sum(c[name] for c in by_leg.values())
                 for name in wrappers}

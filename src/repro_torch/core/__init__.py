@@ -3,11 +3,12 @@ timing, the analog sense-amplifier model and its Table-3 Monte-Carlo,
 the Fig. 9 energy model and the paper's platform models."""
 from .analog import (PAPER_TABLE3, AnalogParams, dra_analog,
                      monte_carlo_error_rates, tra_analog)
-from .device import (DrimDevice, device_broadcast_rows, device_load_rows,
-                     device_read_row, device_read_row_window,
-                     device_read_rows, device_run_program,
-                     device_run_program_banked, device_run_program_sharded,
-                     device_template, make_device)
+from .device import (MESH_AXES, DrimDevice, device_broadcast_rows,
+                     device_load_rows, device_read_row,
+                     device_read_row_window, device_read_rows,
+                     device_run_program, device_run_program_banked,
+                     device_run_program_sharded, device_template,
+                     make_device)
 from .energy import (E_AAP_NJ_PER_KB, E_ACCESS_NJ_PER_KB, E_IO_NJ_PER_KB,
                      PAPER_ENERGY_CLAIMS, cpu_energy_nj_per_kb,
                      ddr4_copy_energy_nj_per_kb, energy_table,
@@ -27,6 +28,6 @@ from .subarray import (N_DCC_WL, N_XROWS, WORD_BITS, SubArray, aap_copy,
                        make_subarray, pack_bits, row_words, unpack_bits)
 from .platforms import (CONTEXT_CLAIMS, PAPER_CLAIMS, PIM_CYCLES, Platform,
                         all_platforms)
-from .timing import (CMD_SLOTS_PER_AAP, DRIM_R, DRIM_S, T_AAP_S, T_CMD_S,
-                     DrimGeometry, area_report, ddr_rows_s,
+from .timing import (CMD_SLOTS_PER_AAP, DDR4_BW_BYTES_S, DRIM_R, DRIM_S,
+                     T_AAP_S, T_CMD_S, DrimGeometry, area_report, ddr_rows_s,
                      drim_latency_s, drim_throughput_bits)

@@ -1,5 +1,5 @@
 """Bank/chip-level DRIM device model: a [chips, banks, subarrays] stack
-(port of `repro.core.device`, without the banked and sharded runners).
+(port of `repro.core.device`).
 
 The paper's throughput comes from inter-subarray parallelism: every
 computational sub-array of every bank (and every chip) executes the same
@@ -22,8 +22,14 @@ from repro_torch.device import resolve_device
 
 from .faults import slot_ids_grid
 from .isa import run_program
+from .mesh import PartitionSpec, map_blocks
 from .subarray import N_XROWS, SubArray, as_words, make_subarray, row_words
 from .timing import DrimGeometry
+
+# Mesh axis names the fleet is laid out over (`pim/mesh.py` builds meshes
+# with these axes; `device_run_program_sharded` and the scheduler's
+# sharded wave runs cut the leading device dims on them).
+MESH_AXES = ("chips", "banks")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -207,8 +213,25 @@ def device_run_program_banked(dev: DrimDevice, encoded_by_block,
 
 def device_run_program_sharded(dev: DrimDevice, encoded, mesh, *,
                                faults=None) -> DrimDevice:
-    """`device_run_program` over a fleet mesh: not ported yet."""
-    raise NotImplementedError(
-        "device_run_program_sharded is not ported to repro_torch yet: "
-        "ROADMAP Queue 1 item 12 (fleet meshes over the multi-rank "
-        "process group of runtime/sharding.py)")
+    """`device_run_program` over a (chips, banks) device mesh.
+
+    Every sub-array runs the same stream over its own rows, so the leading
+    [chips, banks] dims split across `mesh` with no communication: each
+    mesh device runs the interpreter on its block, and the blocks are
+    concatenated in order (`core.mesh.map_blocks`).  The mesh's shape
+    must divide (chips, banks); `pim.mesh.fleet_mesh` builds exactly that.
+    Bit-identical to `device_run_program` either way."""
+    if faults is not None and faults.active:
+        raise ValueError(
+            "fault injection is not supported on the shard_map path: "
+            "global slot ids are not visible inside a mesh shard, so "
+            "flips could not stay identical to the vmap engines; run "
+            "faulted programs with mesh=None")
+
+    def block(data, dcc):
+        out = _device_run_program(DrimDevice(data=data, dcc=dcc), encoded)
+        return out.data, out.dcc
+
+    data, dcc = map_blocks(mesh, block, (dev.data, dev.dcc),
+                           PartitionSpec(*MESH_AXES))
+    return DrimDevice(data=data, dcc=dcc)

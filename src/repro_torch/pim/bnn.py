@@ -156,14 +156,15 @@ def decode_counts(outs: Dict[str, torch.Tensor], nbits: int,
 
 def bnn_dot_drim(a_bits, b_bits, *, geom: DrimGeometry = DRIM_R,
                  accumulate: str = "ripple", engine: str = "resident",
-                 n_queues: Optional[int] = None,
+                 mesh=None, n_queues: Optional[int] = None,
                  device=None) -> Tuple[torch.Tensor, FusedSchedule]:
     """Full fused BNN dot product on the simulated fleet.
 
     a_bits [M, K], b_bits [N, K] sign bits in {0, 1} (numpy or tensors).
     Returns (C [M, N] int32 on `device`, schedule), C = 2*popcount(XNOR)
     - K.  `accumulate` picks the popcount dataflow: "ripple" or
-    "carrysave"; `engine` and `n_queues` thread through the lowering."""
+    "carrysave"; `engine`, `mesh` and `n_queues` thread through the
+    lowering."""
     from repro_torch.pim.compiler import compile as drim_compile
     dev = resolve_device(device)
     a_bits = torch.as_tensor(a_bits, device=dev)
@@ -177,7 +178,7 @@ def bnn_dot_drim(a_bits, b_bits, *, geom: DrimGeometry = DRIM_R,
     else:
         raise ValueError(f"unknown accumulate mode {accumulate!r}")
     feeds, lanes = stage_bnn_planes(a_bits, b_bits)
-    low = drim_compile(graph, geom=geom).lower(engine=engine,
+    low = drim_compile(graph, geom=geom).lower(engine=engine, mesh=mesh,
                                                n_queues=n_queues)
     outs = low.run(feeds, n_bits=lanes, device=dev)
     count = decode_counts(outs, nbits, lanes)
@@ -185,7 +186,7 @@ def bnn_dot_drim(a_bits, b_bits, *, geom: DrimGeometry = DRIM_R,
 
 
 def bnn_dot_partitioned(a_bits, b_bits, *, geom: DrimGeometry = DRIM_R,
-                        n_queues: Optional[int] = None,
+                        n_queues: Optional[int] = None, mesh=None,
                         engine: Optional[str] = None, device=None):
     """The carry-save popcount tree split across per-bank command queues
     (`lower(partition=True)`, the `pim.queue` MIMD runner): disjoint
@@ -194,7 +195,8 @@ def bnn_dot_partitioned(a_bits, b_bits, *, geom: DrimGeometry = DRIM_R,
     slowest queue, not the whole tree.
 
     `engine`: "queued" (the default; plain torch) or "cuda" (one AAP
-    interpreter launch per segment).  Returns (C [M, N] int32 on
+    interpreter launch per segment); `mesh` a fleet mesh each segment's
+    run is cut over ("queued" only).  Returns (C [M, N] int32 on
     `device`, QueueSchedule), exactly `kernels.ref.xnor_gemm_ref`'s
     dots."""
     from repro_torch.pim.compiler import compile as drim_compile
@@ -207,7 +209,7 @@ def bnn_dot_partitioned(a_bits, b_bits, *, geom: DrimGeometry = DRIM_R,
     feeds, lanes = stage_bnn_planes(a_bits, b_bits)
     low = drim_compile(graph, geom=geom).lower(engine=engine,
                                                partition=True,
-                                               n_queues=n_queues)
+                                               n_queues=n_queues, mesh=mesh)
     outs = low.run(feeds, n_bits=lanes, device=dev)
     count = decode_counts(outs, nbits, lanes)
     return (2 * count - k_bits).reshape(m, n), low.schedule
@@ -250,19 +252,19 @@ def bitlinear_kernel(k_bits: int):
 
 
 def serving_lowering(k_bits: int, *, engine: str = "resident",
-                     geom: Optional[DrimGeometry] = None,
+                     geom: Optional[DrimGeometry] = None, mesh=None,
                      n_queues: Optional[int] = None):
     """compile -> lower the serving kernel once per (K, engine, geometry,
-    queues) through the process-wide `compiler.lower_cached` memo."""
+    mesh, queues) through the process-wide `compiler.lower_cached` memo."""
     from repro_torch.pim import compiler
     return compiler.lower_cached(
         bitlinear_kernel(k_bits).trace(),
         key=("bitlinear_dot", k_bits), geom=geom, engine=engine,
-        n_queues=n_queues)
+        mesh=mesh, n_queues=n_queues)
 
 
 def serve_bnn_matmul(a_bits, b_bits, *, engine: str = "resident",
-                     geom: Optional[DrimGeometry] = None,
+                     geom: Optional[DrimGeometry] = None, mesh=None,
                      n_queues: Optional[int] = None,
                      k_tile: Optional[int] = None,
                      device=None) -> torch.Tensor:
@@ -285,7 +287,7 @@ def serve_bnn_matmul(a_bits, b_bits, *, engine: str = "resident",
     total = torch.zeros(lanes, dtype=torch.int32, device=dev)
     offset = 0
     for kc in k_chunks(k_bits, k_tile):
-        low = serving_lowering(kc, engine=engine, geom=geom,
+        low = serving_lowering(kc, engine=engine, geom=geom, mesh=mesh,
                                n_queues=n_queues)
         a_planes, b_planes, _ = _lane_planes(a_bits[:, offset:offset + kc],
                                              b_bits[:, offset:offset + kc])

@@ -2,7 +2,8 @@
 `repro.pim.compiler`).
 
     low = compile(src, geom=...)        # src: op name | BulkGraph |
-          .lower(engine=...)            #      TracedProgram | jit function
+          .lower(engine=..., mesh=...,  #      TracedProgram | jit function
+                 n_queues=..., partition=...)
     out = low.run(..., device=...)      # measured low.schedule
     low.cost(n_bits)                    # closed-form schedule
     low.verdict(n_bits)                 # DRIM-vs-GPU placement Verdict
@@ -32,9 +33,16 @@ FaultModel(...))` sets a default fault model and `run(..., faults=...)`
 overrides it per run; an ``ecc`` run leaves its parity verdict on
 `Lowered.last_ecc`.  The static verifier (`pim.verify`) runs on every
 lowering by default and raises `verify.VerifyError` before a miscompiled
-stream can run.  The reference's fleet meshes are a later slice: `mesh=`
-raises NotImplementedError naming the ROADMAP item, and is never silently
-ignored.
+stream can run.  `lower(mesh=fleet_mesh(...))` (`pim.mesh`) runs the
+"resident" engine's waves, the "queued" engine's queues and a partition's
+segments block by block over the mesh's devices, the unsharded words by
+construction; "baseline" drops the mesh, "cuda" and the comparator refuse
+it, and so do active faults (the verifier's V020), as in the reference.
+
+The legacy entry points (`scheduler.execute`/`execute_oplist`,
+`graph.execute_graph`, `queue.execute_partitioned`, `offload.plan`/
+`plan_fused`/`plan_queued`) are deprecated shims over this pipeline; each
+warns through `_warn_deprecated`, naming its caller.
 
 Armed telemetry (`runtime.telemetry`) records the reference's host spans:
 "lower" with one "pass:{name}" span per pass, and "Lowered.run" with its
@@ -46,6 +54,7 @@ from __future__ import annotations
 
 import collections
 import dataclasses
+import warnings
 from typing import Any, Callable, Dict, Optional, Tuple
 
 import numpy as np
@@ -68,13 +77,18 @@ from repro_torch.pim.scheduler import (N_DATA_ROWS, OP_ARITY, RESULT_ROWS,
 from repro_torch.runtime import telemetry
 
 
-def _reject_mesh(mesh) -> None:
-    """Fleet meshes are a later slice: raise if one was actually given."""
-    if mesh is not None:
-        raise NotImplementedError(
-            "mesh= is not ported to repro_torch yet: ROADMAP Queue 1 item "
-            "12 (pim/mesh.py fleet meshes over the multi-rank process "
-            "group of runtime/sharding.py)")
+def _warn_deprecated(old: str, new: str, *, stacklevel: int = 3) -> None:
+    """One shared deprecation channel for the legacy execute*/plan* shims;
+    `-W error::DeprecationWarning` turns any lingering caller into a hard
+    failure.
+
+    `stacklevel` counts from `warnings.warn` inside this helper: 3 is right
+    for the direct shims (caller -> shim -> here), so the warning names the
+    CALLER's file and line.  A shim that interposes another wrapper must
+    pass `stacklevel=4`."""
+    warnings.warn(
+        f"{old} is deprecated; use the staged pipeline instead: {new}",
+        DeprecationWarning, stacklevel=stacklevel)
 
 
 # ---------------------------------------------------------------------------
@@ -84,12 +98,12 @@ def _reject_mesh(mesh) -> None:
 @dataclasses.dataclass(frozen=True)
 class Engine:
     """One execution backend.  A device engine's `dispatch(arrays,
-    program, result_rows, n_rows=, geom=, n_queues=, faults=) -> (outs,
-    tiles, waves)` stages the payload on the simulated fleet and runs one
-    uniform program over it; `lift_op` / `lift_graph` wrap measured (or
-    closed-form) tiling into the engine's schedule flavour.  A comparator
-    (`device=False`) has no fleet: the pipeline evaluates the op or graph
-    natively and prices it with `pim.offload.gpu_cost`."""
+    program, result_rows, n_rows=, geom=, mesh=, n_queues=, faults=) ->
+    (outs, tiles, waves)` stages the payload on the simulated fleet and
+    runs one uniform program over it; `lift_op` / `lift_graph` wrap
+    measured (or closed-form) tiling into the engine's schedule flavour.
+    A comparator (`device=False`) has no fleet: the pipeline evaluates
+    the op or graph natively and prices it with `pim.offload.gpu_cost`."""
 
     name: str
     description: str
@@ -121,6 +135,9 @@ class EngineRegistry:
     def names(self) -> Tuple[str, ...]:
         return tuple(self._engines)
 
+    def device_names(self) -> Tuple[str, ...]:
+        return tuple(n for n, e in self._engines.items() if e.device)
+
 
 ENGINE_REGISTRY = EngineRegistry()
 
@@ -135,25 +152,39 @@ def engines() -> Tuple[str, ...]:
 
 def _simd_dispatch(engine_name: str) -> Callable:
     def dispatch(arrays, program, result_rows, *, n_rows, geom,
-                 n_queues=None, faults=None):
+                 mesh=None, n_queues=None, faults=None):
         with telemetry.span("stage", cat="run", tid="run",
                             engine=engine_name):
-            staged, tiles, waves = stage_rows(arrays, geom=geom)
+            staged, tiles, waves = stage_rows(
+                arrays, geom=geom,
+                mesh=mesh if engine_name == "resident" else None)
         with telemetry.span("dispatch", cat="run", tid="run",
                             engine=engine_name, waves=waves, tiles=tiles,
                             aaps=len(program)):
             outs = run_waves(staged, program, result_rows, n_rows=n_rows,
-                             engine=engine_name, faults=faults)
+                             mesh=mesh, engine=engine_name, faults=faults)
         return outs, tiles, waves
     return dispatch
 
 
 def _queued_dispatch(arrays, program, result_rows, *, n_rows, geom,
-                     n_queues=None, faults=None):
+                     mesh=None, n_queues=None, faults=None):
     from repro_torch.pim.queue import dispatch_uniform_queued
     return dispatch_uniform_queued(arrays, program, result_rows,
-                                   n_rows=n_rows, geom=geom,
+                                   n_rows=n_rows, geom=geom, mesh=mesh,
                                    n_queues=n_queues, faults=faults)
+
+
+_CUDA_MESH_ERROR = ("engine 'cuda' runs unsharded — use engine='resident' "
+                    "for shard_map fleet meshes")
+
+
+def _cuda_dispatch(arrays, program, result_rows, *, n_rows, geom,
+                   mesh=None, n_queues=None, faults=None):
+    if mesh is not None:
+        raise ValueError(_CUDA_MESH_ERROR)
+    return _simd_dispatch("cuda")(arrays, program, result_rows,
+                                  n_rows=n_rows, geom=geom, faults=faults)
 
 
 def _lift_op_plain(low: "Lowered", n_bits: int,
@@ -211,7 +242,7 @@ ENGINE_REGISTRY.register(Engine(
     "cuda", "AAP interpreter kernel: the encoded stream as data, replayed "
     "by one thread per word column over shared-memory row state (its "
     "plain replay on CPU tensors)",
-    dispatch=_simd_dispatch("cuda"), lift_op=_lift_op_plain,
+    dispatch=_cuda_dispatch, lift_op=_lift_op_plain,
     lift_graph=_lift_graph_plain))
 ENGINE_REGISTRY.register(Engine(
     "gpu", "native comparator: the op or graph evaluated on the run's "
@@ -308,9 +339,11 @@ class Compiled:
         ``verify=False``).  The report lands on `Lowered.verify_report`;
         a diagnostic raises `verify.VerifyError` at lower time.
 
-        `mesh` belongs to a later slice and raises NotImplementedError."""
-        _reject_mesh(mesh)
-        st = _LoweringState(compiled=self, engine_name=engine,
+        mesh: a (chips, banks) fleet mesh (`pim.mesh.fleet_mesh`) the
+        "resident" and "queued" engines and partitions shard their runs
+        over; "baseline" ignores it, "cuda" and the comparator refuse it,
+        and active faults with a mesh raise V020."""
+        st = _LoweringState(compiled=self, engine_name=engine, mesh=mesh,
                             n_queues=n_queues, partition=partition,
                             harden=harden, faults=faults,
                             verify=verify_mod.resolve_enabled(verify))
@@ -324,7 +357,7 @@ class Compiled:
                                   if st.graph is not None else 1),
                            aaps=st.aaps)
         return Lowered(
-            kind=st.kind, engine=st.engine, geom=self.geom,
+            kind=st.kind, engine=st.engine, geom=self.geom, mesh=st.mesh,
             n_queues=st.n_queues, partition=st.partition,
             row_budget=self.row_budget, op=self.op, graph=st.graph,
             traced=self.traced, fp=st.fp, gp=st.gp, program=st.program,
@@ -370,6 +403,7 @@ class _LoweringState:
 
     compiled: Compiled
     engine_name: Optional[str]
+    mesh: Any = None
     n_queues: Optional[int] = None
     partition: Any = None
     harden: Optional[str] = None
@@ -417,10 +451,12 @@ def _pass_canonicalize(st: _LoweringState) -> None:
     else:
         st.partition = None
     st.engine = ENGINE_REGISTRY.get(st.engine_name or "resident")
+    if st.engine.name == "cuda" and st.mesh is not None:
+        raise ValueError(_CUDA_MESH_ERROR)
     if not st.engine.device:
-        if st.n_queues is not None:
+        if st.mesh is not None or st.n_queues is not None:
             raise ValueError(f"engine {st.engine.name!r} is a comparator"
-                             " -- n_queues does not apply")
+                             " — mesh/n_queues do not apply")
     elif st.engine.name == "queued" or st.partition is not None:
         from repro_torch.pim.queue import resolve_n_queues
         st.n_queues = resolve_n_queues(c.geom, st.n_queues)
@@ -431,8 +467,11 @@ def _pass_canonicalize(st: _LoweringState) -> None:
     if st.harden is not None and c.kind != "graph":
         raise ValueError("harden= needs a graph source; a single "
                          "Table-2 op has no redundancy to compile in")
-    if st.faults is not None and not isinstance(st.faults, FaultModel):
-        raise TypeError("faults= expects a core.FaultModel")
+    if st.faults is not None:
+        if not isinstance(st.faults, FaultModel):
+            raise TypeError("faults= expects a core.FaultModel")
+        if st.faults.active and st.mesh is not None:
+            raise verify_mod.faults_on_mesh_error()
     st.graph = c.graph
     st.kind = c.kind
 
@@ -537,8 +576,8 @@ def _popcount(words: torch.Tensor) -> int:
 
 
 class Lowered:
-    """A program bound to an engine, a geometry, a queue count and a
-    partition.
+    """A program bound to an engine, a geometry, a fleet mesh, a queue
+    count and a partition.
 
     `run(...)` executes on the simulated fleet and records the measured
     schedule on `self.schedule` (and, for partitioned runs, what dead
@@ -546,12 +585,14 @@ class Lowered:
     payload in closed form without touching the simulator."""
 
     def __init__(self, *, kind, engine, geom, row_budget, op, graph, traced,
-                 fp, program, result_rows, n_rows, aaps, n_queues=None,
-                 partition=None, gp=None, harden=None, default_faults=None,
+                 fp, program, result_rows, n_rows, aaps, mesh=None,
+                 n_queues=None, partition=None, gp=None, harden=None,
+                 default_faults=None,
                  protected_nodes=frozenset(), verify_report=None) -> None:
         self.kind = kind
         self.engine = engine
         self.geom = geom
+        self.mesh = mesh
         self.n_queues = n_queues
         self.partition = partition
         self.row_budget = row_budget
@@ -585,6 +626,8 @@ class Lowered:
             raise TypeError("faults= expects a core.FaultModel")
         if not faults.active:
             return None
+        if self.mesh is not None:
+            raise verify_mod.faults_on_mesh_error()
         if self.protected_nodes and self.fp is not None:
             spans = {i: (lo, hi) for i, lo, hi in self.fp.node_spans}
             ops = [k for i in self.protected_nodes
@@ -676,7 +719,8 @@ class Lowered:
             return _native_node(self.op, ops)
         outs, tiles, waves = self.engine.dispatch(
             ops, self.program, self.result_rows, n_rows=self.n_rows,
-            geom=self.geom, n_queues=self.n_queues, faults=faults)
+            geom=self.geom, mesh=self.mesh, n_queues=self.n_queues,
+            faults=faults)
         with telemetry.span("readback", cat="run", tid="run", op=self.op):
             results = tuple(outs[:, i].reshape(-1)[:n_words]
                             for i in range(len(self.result_rows)))
@@ -723,7 +767,7 @@ class Lowered:
             outs, tiles, waves = self.engine.dispatch(
                 [arrays[n] for n in fp.loaded_inputs], fp.program,
                 fp.readback_rows, n_rows=fp.template_rows, geom=geom,
-                n_queues=self.n_queues, faults=faults)
+                mesh=self.mesh, n_queues=self.n_queues, faults=faults)
             col = {row: i for i, row in enumerate(fp.readback_rows)}
             with telemetry.span("readback", cat="run", tid="run",
                                 outputs=len(fp.device_outputs)):
@@ -739,7 +783,7 @@ class Lowered:
         n_bits = self._resolve_n_bits(n_bits, n_words)
         results, sched, chaos = _execute_partitioned(
             self.graph, arrays, gp=self.gp, geom=self.geom, n_bits=n_bits,
-            body_engine=self.engine.name, faults=faults,
+            mesh=self.mesh, body_engine=self.engine.name, faults=faults,
             protected_nodes=self.protected_nodes)
         self.schedule = sched
         self.chaos_report = chaos
@@ -782,6 +826,19 @@ class Lowered:
                 f"{self.geom.subarrays_per_bank}{extra})")
 
 
+def lower(src, *, geom: Optional[DrimGeometry] = None,
+          engine: Optional[str] = None, mesh=None,
+          n_queues: Optional[int] = None, partition=None,
+          harden: Optional[str] = None,
+          faults: Optional[FaultModel] = None,
+          row_budget: Optional[int] = DEFAULT_ROW_BUDGET,
+          verify: Optional[bool] = None) -> Lowered:
+    """Convenience: `compile(src).lower(...)` in one call."""
+    return compile(src, geom=geom, row_budget=row_budget).lower(
+        engine=engine, mesh=mesh, n_queues=n_queues, partition=partition,
+        harden=harden, faults=faults, verify=verify)
+
+
 # ---------------------------------------------------------------------------
 # Process-wide lowering memo: the serving hot path
 # ---------------------------------------------------------------------------
@@ -803,18 +860,18 @@ def clear_lower_cache() -> None:
 
 def lower_cached(src, *, key: Optional[Tuple] = None,
                  geom: Optional[DrimGeometry] = None,
-                 engine: Optional[str] = None,
+                 engine: Optional[str] = None, mesh=None,
                  n_queues: Optional[int] = None, partition=None,
                  harden: Optional[str] = None,
                  faults: Optional[FaultModel] = None,
                  row_budget: Optional[int] = DEFAULT_ROW_BUDGET,
-                 verify: Optional[bool] = None, mesh=None) -> Lowered:
+                 verify: Optional[bool] = None) -> Lowered:
     """`compile(src).lower(...)` memoized for the life of the process.
 
     `src` itself keys the memo when hashable; pass an explicit `key`
     identifying the program for unhashable sources or when the source
-    object is rebuilt per call."""
-    _reject_mesh(mesh)
+    object is rebuilt per call.  The mesh is part of the key (a `Mesh` is
+    a hashable value)."""
     ident: Any = key if key is not None else src
     try:
         hash(ident)
@@ -826,14 +883,15 @@ def lower_cached(src, *, key: Optional[Tuple] = None,
     # DRIM_VERIFY may differ between calls, and a caller who pinned
     # verification on must not get an unverified lowering.
     verify_on = verify_mod.resolve_enabled(verify)
-    full_key = (ident, geom, engine, n_queues, partition, harden, faults,
-                row_budget, verify_on)
+    full_key = (ident, geom, engine, mesh, n_queues, partition, harden,
+                faults, row_budget, verify_on)
     low = _LOWER_CACHE.get(full_key)
     if low is None:
         LOWER_CACHE_STATS["misses"] += 1
         low = compile(src, geom=geom, row_budget=row_budget).lower(
-            engine=engine, n_queues=n_queues, partition=partition,
-            harden=harden, faults=faults, verify=verify_on)
+            engine=engine, mesh=mesh, n_queues=n_queues,
+            partition=partition, harden=harden, faults=faults,
+            verify=verify_on)
         _LOWER_CACHE[full_key] = low
     else:
         LOWER_CACHE_STATS["hits"] += 1

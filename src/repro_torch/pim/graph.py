@@ -718,3 +718,31 @@ def plan_graph_schedule(graph: BulkGraph, n_bits: int, *,
     tiles = _ceil_div(n_bits, geom.row_bits)
     waves = _ceil_div(tiles, geom.n_subarrays)
     return _make_fused_schedule(fp, n_bits, tiles, waves, geom)
+
+
+# ---------------------------------------------------------------------------
+# Execution
+# ---------------------------------------------------------------------------
+
+def execute_graph(graph: BulkGraph, feeds, *, geom: DrimGeometry = DRIM_R,
+                  n_bits: Optional[int] = None,
+                  row_budget: Optional[int] = DEFAULT_ROW_BUDGET,
+                  mesh=None, engine: str = "resident",
+                  n_queues: Optional[int] = None, device=None):
+    """DEPRECATED shim over the staged pipeline.
+
+    Use ``compile(graph, geom=geom).lower(engine=..., mesh=...,
+    n_queues=...).run(feeds, n_bits=..., device=...)``, or trace a Python
+    function with `jit` instead of hand-building the BulkGraph.  This
+    wrapper lowers per call and returns ({output: tensor}, schedule) on
+    `device` (None: the card); the fused execution lives in
+    `pim.compiler.Lowered`."""
+    from repro_torch.pim.compiler import _warn_deprecated, compile as _compile
+    _warn_deprecated(
+        "graph.execute_graph",
+        "compile(graph).lower(engine=..., mesh=..., n_queues=...)"
+        ".run(feeds, n_bits=...)")
+    low = _compile(graph, geom=geom, row_budget=row_budget).lower(
+        engine=engine, mesh=mesh, n_queues=n_queues)
+    results = low.run(feeds, n_bits=n_bits, device=device)
+    return results, low.schedule

@@ -27,16 +27,27 @@ its 700 W limit, from NVIDIA's data sheet:
 
 Energy is the card's 700 W limit over the latency: an upper bound, since
 the data sheet gives no energy per HBM3 byte.
+
+The reference's per-path reports (`plan`, `plan_fused`, `plan_queued`
+and their `OffloadReport`, `FusedOffloadReport`, `QueuedOffloadReport`)
+remain as deprecated shims with the reference's field layouts and winner
+rules; their DRIM fields are the reference's, their comparator fields the
+GPU row's (`gpu_latency_s`, `gpu_energy_j`, `speedup_vs_gpu`, winner
+"GPU").  `plan(operands_in_dram=False)` stages the operands at the
+comparator's memory rate, as the reference stages them at its TPU's.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 
+from repro_torch.core import DRIM_R, DrimGeometry
+from repro_torch.core.energy import E_ACCESS_NJ_PER_KB, E_IO_NJ_PER_KB
 from repro_torch.core.subarray import WORD_BITS
-from repro_torch.pim.graph import FusedSchedule, _make_fused_schedule
+from repro_torch.pim.graph import (BulkGraph, FusedSchedule,
+                                   _make_fused_schedule, plan_graph_schedule)
 from repro_torch.pim.scheduler import (OP_ARITY, RESULT_ROWS, _ceil_div,
                                        random_operands)
 
@@ -49,6 +60,9 @@ GPU_POWER_W = 700.0
 # simulation is requested: the schedule math is exactly what execution
 # measures.
 SIMULATE_MAX_BITS = 1 << 21
+
+_BYTES_MOVED = {"not": 2, "xnor2": 3, "xor2": 3, "maj3": 4, "add": 5,
+                "copy": 2}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -258,6 +272,226 @@ def build_verdict(lowered, n_bits: int, *, simulate: bool = False,
         n_ops = base.n_nodes
     return Verdict(workload=name, n_bits=n_bits, n_nodes=n_ops,
                    rows=rows, simulated=simulated)
+
+
+# ---------------------------------------------------------------------------
+# Legacy reports (deprecated shims over the pipeline)
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class OffloadReport:
+    op: str
+    n_bits: int
+    drim_latency_s: float
+    drim_energy_j: float
+    drim_aaps: int              # serialized AAP cycles (waves x per-tile)
+    gpu_latency_s: float
+    gpu_energy_j: float
+    winner: str
+    speedup: float
+    # parallelism breakdown (measured from the schedule)
+    tiles: int = 0
+    waves: int = 0
+    active_subarrays: int = 0   # slots busy in the fullest wave
+    occupancy: float = 0.0      # tiles / (waves x slots)
+    aaps_issued: int = 0        # total AAPs across active sub-arrays
+    simulated: bool = False     # True when the streams actually ran
+
+    def as_dict(self) -> Dict:
+        return dataclasses.asdict(self)
+
+
+def plan(op: str, n_bits: int, *, geom: DrimGeometry = DRIM_R,
+         operands_in_dram: bool = True, simulate: bool = False, mesh=None,
+         device=None) -> OffloadReport:
+    """DEPRECATED shim: use `compile(op).lower(...).verdict(n_bits)`.
+
+    Keeps the reference's OffloadReport layout and winner rule (DRIM
+    compute latency against the GPU row, with a host-staging penalty at
+    the card's memory rate when operands are not already in DRAM).
+    `simulate` runs the op on `device` (None: the card)."""
+    from repro_torch.pim.compiler import _warn_deprecated, compile as _compile
+    _warn_deprecated("offload.plan",
+                     "compile(op).lower(...).verdict(n_bits)")
+    if op not in OP_ARITY or op not in _BYTES_MOVED:
+        raise ValueError(f"unknown bulk op {op!r}")
+    if n_bits <= 0:
+        raise ValueError("n_bits must be positive")
+    low = _compile(op, geom=geom).lower(mesh=mesh)
+    simulated = simulate and n_bits <= SIMULATE_MAX_BITS
+    sched = (_measured_schedule(low, n_bits, device) if simulated
+             else low.cost(n_bits))
+    drim_lat = sched.latency_s
+    drim_e = sched.energy_j
+    kb = n_bits / 8.0 / 1024.0
+
+    gpu = _gpu_row(_BYTES_MOVED[op], 1, n_bits)
+    moved_bytes = _BYTES_MOVED[op] * n_bits / 8.0
+    if not operands_in_dram:
+        # host->DRAM round trip to stage operands for PIM
+        drim_e += 2 * (E_ACCESS_NJ_PER_KB + E_IO_NJ_PER_KB) * kb * 1e-9
+        drim_lat += moved_bytes / GPU_HBM_BW
+
+    winner = "DRIM" if drim_lat < gpu.latency_s else "GPU"
+    return OffloadReport(op=op, n_bits=n_bits, drim_latency_s=drim_lat,
+                         drim_energy_j=drim_e,
+                         drim_aaps=sched.aaps_sequential,
+                         gpu_latency_s=gpu.latency_s,
+                         gpu_energy_j=gpu.energy_j, winner=winner,
+                         speedup=gpu.latency_s / max(drim_lat, 1e-30),
+                         tiles=sched.tiles, waves=sched.waves,
+                         active_subarrays=sched.active_subarrays,
+                         occupancy=sched.occupancy,
+                         aaps_issued=sched.aaps_issued,
+                         simulated=simulated)
+
+
+@dataclasses.dataclass(frozen=True)
+class FusedOffloadReport:
+    """Placement verdict for a whole fused dataflow graph (the reference's
+    layout; the winner compares DRIM compute latencies against the GPU)."""
+
+    n_nodes: int
+    n_bits: int
+    fused_latency_s: float
+    fused_energy_j: float
+    fused_aaps: int                 # serialized cycles, waves x per-tile
+    unfused_latency_s: float
+    unfused_energy_j: float
+    unfused_aaps: int
+    ddr_rows_moved: int
+    unfused_ddr_rows_moved: int
+    gpu_latency_s: float
+    gpu_energy_j: float
+    winner: str
+    speedup_vs_unfused: float
+    speedup_vs_gpu: float
+    rows_used: int
+    waves: int
+    simulated: bool = False
+
+    def as_dict(self) -> Dict:
+        return dataclasses.asdict(self)
+
+
+def plan_fused(graph: BulkGraph, n_bits: int, *,
+               geom: DrimGeometry = DRIM_R, simulate: bool = False,
+               mesh=None, device=None) -> FusedOffloadReport:
+    """DEPRECATED shim: use `compile(graph).lower(...).verdict(n_bits)`.
+
+    The GPU row prices the graph boundary (inputs + outputs x n_bits) over
+    HBM, with a bit-op floor of one per node per bit."""
+    from repro_torch.pim.compiler import _warn_deprecated, compile as _compile
+    _warn_deprecated("offload.plan_fused",
+                     "compile(graph).lower(...).verdict(n_bits)")
+    low = _compile(graph, geom=geom).lower(mesh=mesh)
+    if n_bits <= 0:
+        raise ValueError("n_bits must be positive")
+    simulated = simulate and n_bits <= SIMULATE_MAX_BITS
+    sched = (_measured_schedule(low, n_bits, device) if simulated
+             else low.cost(n_bits))
+    gpu = _gpu_row(sched.n_inputs + sched.n_outputs, sched.n_nodes, n_bits)
+
+    fused_lat = sched.latency_s
+    unfused_lat = sched.unfused_latency_s
+    lats = {"DRIM-fused": fused_lat, "DRIM-unfused": unfused_lat,
+            "GPU": gpu.latency_s}
+    return FusedOffloadReport(
+        n_nodes=sched.n_nodes, n_bits=n_bits,
+        fused_latency_s=fused_lat, fused_energy_j=sched.total_energy_j,
+        fused_aaps=sched.aaps_sequential,
+        unfused_latency_s=unfused_lat,
+        unfused_energy_j=sched.unfused_total_energy_j,
+        unfused_aaps=sched.unfused_aaps_sequential,
+        ddr_rows_moved=sched.ddr_rows_moved,
+        unfused_ddr_rows_moved=sched.unfused_ddr_rows_moved,
+        gpu_latency_s=gpu.latency_s, gpu_energy_j=gpu.energy_j,
+        winner=min(lats, key=lats.get),
+        speedup_vs_unfused=unfused_lat / max(fused_lat, 1e-30),
+        speedup_vs_gpu=gpu.latency_s / max(fused_lat, 1e-30),
+        rows_used=sched.rows_used, waves=sched.waves,
+        simulated=simulated)
+
+
+@dataclasses.dataclass(frozen=True)
+class QueuedOffloadReport:
+    """Placement verdict for a graph run through per-bank MIMD queues (the
+    reference's layout).  Queued latency is the overlapped model; the
+    serialized figure and the stall count are reported beside it."""
+
+    n_nodes: int
+    n_bits: int
+    n_queues: int
+    fence_stages: int
+    critical_path_aaps: int
+    issued_aaps: int
+    contention_stall_aaps: int
+    queued_latency_s: float
+    queued_serialized_latency_s: float
+    dma_overlap_speedup: float
+    cross_fence_rows: int
+    fused_latency_s: float          # SIMD fused compute + serialized DMA
+    fused_aaps: int
+    gpu_latency_s: float
+    gpu_energy_j: float
+    winner: str
+    speedup_vs_fused: float
+    speedup_vs_gpu: float
+    rows_used: int
+    waves: int
+    simulated: bool = False
+
+    def as_dict(self) -> Dict:
+        return dataclasses.asdict(self)
+
+
+def plan_queued(graph: BulkGraph, n_bits: int, *,
+                n_queues: Optional[int] = None,
+                geom: DrimGeometry = DRIM_R, simulate: bool = False,
+                mesh=None, device=None) -> QueuedOffloadReport:
+    """DEPRECATED shim: use `compile(graph).lower(partition=True,
+    n_queues=...).verdict(n_bits)`.
+
+    The queued side pays the fence-staged critical path plus command-bus
+    stalls with host DMA overlapped; the SIMD fused side its shorter wave
+    count with the same DMA serialized after compute."""
+    from repro_torch.pim.compiler import _warn_deprecated, compile as _compile
+    _warn_deprecated(
+        "offload.plan_queued",
+        "compile(graph).lower(partition=True, n_queues=...)"
+        ".verdict(n_bits)")
+    if n_bits <= 0:
+        raise ValueError("n_bits must be positive")
+    low = _compile(graph, geom=geom).lower(partition=True,
+                                           n_queues=n_queues, mesh=mesh)
+    simulated = simulate and n_bits <= SIMULATE_MAX_BITS
+    qsched = (_measured_schedule(low, n_bits, device) if simulated
+              else low.cost(n_bits))
+    fsched = plan_graph_schedule(graph, n_bits, geom=geom)
+    fused_lat = fsched.latency_s + fsched.dma_s
+
+    gpu = _gpu_row(fsched.n_inputs + fsched.n_outputs, fsched.n_nodes,
+                   n_bits)
+    queued_lat = qsched.overlapped_latency_s
+    lats = {"DRIM-queued": queued_lat, "DRIM-fused": fused_lat,
+            "GPU": gpu.latency_s}
+    return QueuedOffloadReport(
+        n_nodes=qsched.n_nodes, n_bits=n_bits, n_queues=qsched.n_queues,
+        fence_stages=qsched.fence_stages,
+        critical_path_aaps=qsched.critical_path_aaps,
+        issued_aaps=qsched.aaps_issued,
+        contention_stall_aaps=qsched.contention_stall_aaps,
+        queued_latency_s=queued_lat,
+        queued_serialized_latency_s=qsched.serialized_latency_s,
+        dma_overlap_speedup=qsched.dma_overlap_speedup,
+        cross_fence_rows=qsched.cross_rows_per_tile * qsched.tiles,
+        fused_latency_s=fused_lat, fused_aaps=fsched.aaps_sequential,
+        gpu_latency_s=gpu.latency_s, gpu_energy_j=gpu.energy_j,
+        winner=min(lats, key=lats.get),
+        speedup_vs_fused=fused_lat / max(queued_lat, 1e-30),
+        speedup_vs_gpu=gpu.latency_s / max(queued_lat, 1e-30),
+        rows_used=qsched.rows_used, waves=qsched.waves,
+        simulated=simulated)
 
 
 def serving_verdict(m: int, n: int, k_bits: int, *, geom=None,

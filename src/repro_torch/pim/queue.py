@@ -27,8 +27,9 @@ sum over stages of the slowest queue) instead of the whole node list.
 Dead queues (`FaultModel.dead_queues`) are found at the fence and their
 segments requeued on survivor bank blocks, exactly.
 
-Fleet meshes are not ported (ROADMAP Queue 1 item 12): `mesh` must be
-None.
+With a fleet mesh, every queue's payload runs block by block over
+`queue_mesh`'s devices (`core.mesh.map_blocks`), the unsharded words by
+construction; faults with a mesh raise, as in the reference.
 """
 from __future__ import annotations
 
@@ -40,11 +41,13 @@ import torch
 
 from repro_torch.core import (AAP, CMDS_PER_AAP, DRIM_R, DrimGeometry,
                               FaultModel, simulate_bus_issue)
+from repro_torch.core.mesh import map_blocks
 from repro_torch.core.subarray import WORD_BITS
 from repro_torch.core.timing import CMD_SLOTS_PER_AAP, ddr_rows_s
 from repro_torch.pim.graph import (DEFAULT_ROW_BUDGET, BulkGraph,
                                    FusedSchedule, GraphPartition,
                                    QueueSegment, partition_graph)
+from repro_torch.pim.mesh import STAGED_SPEC, fleet_mesh, shard_staged
 from repro_torch.pim.scheduler import (N_DATA_ROWS, OP_ARITY, RESULT_ROWS,
                                        _ceil_div, encoded_program,
                                        stage_rows, wave_fn)
@@ -54,10 +57,6 @@ from repro_torch.runtime import telemetry
 # controller clock are indistinguishable from single banks.  Default: one
 # queue per bank, capped at this many queue blocks.
 DEFAULT_MAX_QUEUES = 8
-
-_MESH_NOT_PORTED = ("fleet meshes are not ported to repro_torch yet: "
-                    "ROADMAP Queue 1 item 12 (pim/mesh.py over the "
-                    "multi-rank process group of runtime/sharding.py)")
 
 
 def default_n_queues(geom: DrimGeometry) -> int:
@@ -84,11 +83,18 @@ def bank_blocks(banks: int, n_queues: int) -> Tuple[Tuple[int, int], ...]:
 
 
 def queue_mesh(geom: DrimGeometry, n_queues: int, mesh=None):
-    """A fleet mesh compatible with per-queue payloads; only `mesh=None`
-    (no sharding) is ported."""
-    if mesh is not None:
-        raise NotImplementedError(_MESH_NOT_PORTED)
-    return None
+    """A fleet mesh compatible with per-queue payloads.
+
+    Queue payloads carry `banks / n_queues` banks, so a caller's fleet mesh
+    (built for the whole bank axis) generally cannot cut them.  Rebuild it
+    over the same devices for the queue-block geometry: the largest
+    (chips, banks) split that divides every queue's block.  `None` stays
+    `None`.  One mesh cuts every queue's payload, so the queue blocks
+    share the mesh's first devices, as in the reference."""
+    if mesh is None:
+        return None
+    geom_q = dataclasses.replace(geom, banks=geom.banks // n_queues)
+    return fleet_mesh(geom_q, devices=list(mesh.devices.flat))
 
 
 def stage_rows_queued(arrays: Sequence[torch.Tensor], *,
@@ -98,8 +104,8 @@ def stage_rows_queued(arrays: Sequence[torch.Tensor], *,
     tile and split pass: the per-queue payloads [waves, n_arrays, chips,
     banks_q, subarrays, row_words] are written directly, never the full
     staged array, in the same tile -> slot order as
-    `scheduler.stage_rows`.  Returns (staged_per_queue, tiles, waves)."""
-    queue_mesh(geom, n_queues, mesh)
+    `scheduler.stage_rows`, each shard-aligned over `mesh` (a queue mesh,
+    `queue_mesh`) when given.  Returns (staged_per_queue, tiles, waves)."""
     n_words = arrays[0].shape[0]
     row_w = geom.row_bits // WORD_BITS
     tiles = _ceil_div(n_words, row_w)
@@ -112,6 +118,8 @@ def stage_rows_queued(arrays: Sequence[torch.Tensor], *,
                       geom.subarrays_per_bank, row_w)
     staged_qs = tuple(tiled[:, :, :, lo:hi].transpose(0, 1).contiguous()
                       for lo, hi in bank_blocks(geom.banks, n_queues))
+    if mesh is not None:                  # every queue's block is alike
+        shard_staged(staged_qs[0], mesh)
     return staged_qs, tiles, waves
 
 
@@ -141,7 +149,9 @@ def run_waves_queued(staged_qs: Sequence[torch.Tensor],
     faults: None, one `FaultModel` for every queue, or one per queue
     (hardening may protect different op ranges per queue); `bank_geoms[q]`
     = (bank_lo, banks_total) anchors queue q's payload at its physical
-    banks, so its flips match the SIMD engines'.
+    banks, so its flips match the SIMD engines'.  `mesh` (a queue-block
+    mesh, `queue_mesh`) runs each queue's wave function block by block on
+    the mesh's devices; faults with a mesh raise ValueError.
 
     timings: optional dict.  There is no compile step here, so what lands
     in ``timings["compile_s"]`` (accumulated) is the one-off host work of
@@ -156,8 +166,6 @@ def run_waves_queued(staged_qs: Sequence[torch.Tensor],
             == len(n_rows)):
         raise ValueError("one staged payload, program, readback row "
                          "tuple and template size per queue required")
-    if mesh is not None:
-        raise NotImplementedError(_MESH_NOT_PORTED)
     progs = tuple(tuple(p) for p in programs)
     for qid, p in enumerate(progs):
         encoded_program(p, queue=qid, materialize=False)
@@ -171,6 +179,11 @@ def run_waves_queued(staged_qs: Sequence[torch.Tensor],
     if faults is None:
         faults = (None,) * len(progs)
         bank_geoms = None
+    elif mesh is not None:
+        raise ValueError(
+            "fault injection is not supported under a shard_map mesh "
+            "(see scheduler.run_waves); run faulted queues with "
+            "mesh=None")
     bank_geoms = (tuple(bank_geoms) if bank_geoms is not None
                   else (None,) * len(progs))
     t0 = time.perf_counter()
@@ -178,6 +191,8 @@ def run_waves_queued(staged_qs: Sequence[torch.Tensor],
     for prog, rr, nr, fm, bg, st in zip(progs, result_rows, n_rows, faults,
                                         bank_geoms, staged_qs):
         fn = wave_fn(body_engine, prog, tuple(rr), nr, fm, bg)
+        if mesh is not None:
+            fn = _on_mesh(mesh, fn)
         if timings is not None and hasattr(fn, "prepare"):
             fn.prepare(st)
         fns.append(fn)
@@ -185,6 +200,11 @@ def run_waves_queued(staged_qs: Sequence[torch.Tensor],
         timings["compile_s"] = (timings.get("compile_s", 0.0)
                                 + time.perf_counter() - t0)
     return tuple(fn(st) for fn, st in zip(fns, staged_qs))
+
+
+def _on_mesh(mesh, fn):
+    """`fn` over a staged payload, run block by block over the mesh."""
+    return lambda staged: map_blocks(mesh, fn, (staged,), STAGED_SPEC)
 
 
 def dispatch_uniform_queued(arrays: Sequence[torch.Tensor],
@@ -201,15 +221,17 @@ def dispatch_uniform_queued(arrays: Sequence[torch.Tensor],
     to the faulted SIMD engines' too (dead-queue entries only apply to
     partitioned graphs and are ignored here)."""
     nq = resolve_n_queues(geom, n_queues)
+    qmesh = queue_mesh(geom, nq, mesh)
     staged_qs, tiles, waves = stage_rows_queued(arrays, geom=geom,
-                                                n_queues=nq, mesh=mesh)
+                                                n_queues=nq, mesh=qmesh)
     bank_geoms = None
     if faults is not None and faults.wave_model() is not None:
         bank_geoms = tuple((lo, geom.banks)
                            for lo, hi in bank_blocks(geom.banks, nq))
     outs = run_waves_queued(staged_qs, (tuple(program),) * nq,
                             (result_rows,) * nq, (n_rows,) * nq,
-                            faults=faults, bank_geoms=bank_geoms)
+                            mesh=qmesh, faults=faults,
+                            bank_geoms=bank_geoms)
     return torch.cat(outs, dim=3), tiles, waves
 
 
@@ -433,6 +455,31 @@ def plan_partitioned_schedule(graph: BulkGraph, n_bits: int, *,
 # MIMD graph execution
 # ---------------------------------------------------------------------------
 
+def execute_partitioned(graph: BulkGraph, feeds, *,
+                        geom: DrimGeometry = DRIM_R,
+                        n_bits: Optional[int] = None,
+                        n_queues: Optional[int] = None,
+                        row_budget: Optional[int] = DEFAULT_ROW_BUDGET,
+                        mesh=None, device=None,
+                        ) -> Tuple[Dict[str, torch.Tensor], QueueSchedule]:
+    """DEPRECATED shim over the staged pipeline.
+
+    Use ``compile(graph, geom=geom).lower(partition=True, n_queues=...,
+    mesh=...).run(feeds, n_bits=..., device=...)``: partitioning is a
+    lowering choice (`compiler.PARTITIONERS`), not a separate entry point.
+    This wrapper lowers per call and returns ({output: tensor},
+    QueueSchedule) on `device` (None: the card)."""
+    from repro_torch.pim.compiler import _warn_deprecated, compile as _compile
+    _warn_deprecated(
+        "queue.execute_partitioned",
+        "compile(graph).lower(partition=True, n_queues=..., mesh=...)"
+        ".run(feeds, n_bits=...)")
+    low = _compile(graph, geom=geom, row_budget=row_budget).lower(
+        partition=True, n_queues=n_queues, mesh=mesh)
+    results = low.run(feeds, n_bits=n_bits, device=device)
+    return results, low.schedule
+
+
 @dataclasses.dataclass(frozen=True)
 class ChaosReport:
     """What one partitioned run survived: which queues died, which fence
@@ -517,7 +564,7 @@ def _execute_partitioned(graph: BulkGraph, env: Dict[str, torch.Tensor], *,
     nq = gp.n_parts
     n_words = next(iter(env.values())).shape[0] if env else 0
     geom_q = dataclasses.replace(geom, banks=geom.banks // nq)
-    queue_mesh(geom, nq, mesh)
+    qmesh = queue_mesh(geom, nq, mesh)
     tiles = _ceil_div(n_bits, geom.row_bits)
     waves = _ceil_div(tiles, geom_q.n_subarrays)
     blocks = bank_blocks(geom.banks, nq)
@@ -554,7 +601,7 @@ def _execute_partitioned(graph: BulkGraph, env: Dict[str, torch.Tensor], *,
     def run_segs(segs: List[QueueSegment], parts: Sequence[int],
                  epoch: int = 0, timings=None) -> None:
         staged_qs = [stage_rows([env[n] for n in s.fp.loaded_inputs],
-                                geom=geom_q)[0] for s in segs]
+                                geom=geom_q, mesh=qmesh)[0] for s in segs]
         per_faults = (tuple(seg_faults(s, epoch) for s in segs)
                       if flips is not None else None)
         geoms = (tuple((blocks[p][0], geom.banks) for p in parts)
@@ -562,7 +609,7 @@ def _execute_partitioned(graph: BulkGraph, env: Dict[str, torch.Tensor], *,
         outs = run_waves_queued(
             staged_qs, [s.fp.program for s in segs],
             [s.fp.readback_rows for s in segs],
-            [s.fp.template_rows for s in segs],
+            [s.fp.template_rows for s in segs], mesh=qmesh,
             body_engine=body_engine, faults=per_faults, bank_geoms=geoms,
             timings=timings)
         for s, out in zip(segs, outs):

@@ -1,6 +1,5 @@
 """Bulk-op scheduler: tile word operands onto the simulated DRIM fleet and
-replay an AAP stream wave by wave (port of `repro.pim.scheduler`,
-unsharded).
+replay an AAP stream wave by wave (port of `repro.pim.scheduler`).
 
 Operands are tiled into `row_bits`-wide rows, assigned to (chip, bank,
 subarray) slots, and every active sub-array runs the same program in
@@ -20,6 +19,11 @@ lock-step.  Four wave engines share the staging and the cost model:
     once and the AAP interpreter kernel (`kernels.aap_interpreter`)
     replays it over every word column of every wave in one launch; on CPU
     tensors the kernel's plain replay runs instead.
+
+With a fleet mesh (`pim.mesh.fleet_mesh`), "resident" runs each (chips,
+banks) block of the staged payload on its mesh device and concatenates the
+readbacks in order (`core.mesh.map_blocks`): the unsharded words by
+construction.  "baseline" drops the mesh, as the reference does.
 
 With a `core.faults.FaultModel` every engine draws the same flips for the
 same (seed, op index, global slot): the slot hash has no wave index, so
@@ -65,7 +69,9 @@ from repro_torch.core.device import (_device_run_program, device_load_rows,
                                      device_read_rows, make_device)
 from repro_torch.core.energy import E_AAP_NJ_PER_KB
 from repro_torch.core.faults import mix32, slot_ids_grid
+from repro_torch.core.mesh import map_blocks
 from repro_torch.core.subarray import N_XROWS, WORD_BITS, as_words
+from repro_torch.pim.mesh import STAGED_SPEC, shard_staged
 from repro_torch.runtime import telemetry
 
 # Per-slot row layout: operands at word-lines [0, arity), results at the
@@ -351,7 +357,7 @@ def wave_fn(engine: str, program: Tuple[AAP, ...],
 
 
 def run_waves(staged: torch.Tensor, program: Sequence[AAP],
-              result_rows: Tuple[int, ...], *, n_rows: int,
+              result_rows: Tuple[int, ...], *, n_rows: int, mesh=None,
               engine: str = "resident", faults=None,
               bank_geom=None) -> torch.Tensor:
     """Execute every wave of a staged payload.
@@ -360,17 +366,38 @@ def run_waves(staged: torch.Tensor, program: Sequence[AAP],
     wave w holds its tile block in word-lines [0, n_rows_in).  `program`
     addresses were resolved against a template with `n_rows` normal rows
     (addresses >= n_rows are DCC word-lines).  `faults` and `bank_geom`
-    as in `wave_fn`.
+    as in `wave_fn`.  `mesh` (from `pim.mesh.fleet_mesh`) runs the wave
+    function on each (chips, banks) block on its mesh device; a mesh
+    with active faults raises the verifier's V020 diagnostic, and
+    "baseline" drops the mesh.
 
     Returns [waves, len(result_rows), chips, banks, subarrays, row_words].
     """
     program, result_rows = tuple(program), tuple(result_rows)
     wave_faults = faults.wave_model() if faults is not None else None
     if wave_faults is not None:
+        if mesh is not None:
+            # V020_FAULTS_UNSUPPORTED_ON_MESH, the diagnostic the verify
+            # pass also raises at lower time (verify sits above the
+            # scheduler in the module graph).
+            from repro_torch.pim.verify import faults_on_mesh_error
+            raise faults_on_mesh_error()
         _book_fault_census(engine, program, result_rows, n_rows,
                            wave_faults, bank_geom)
-    return wave_fn(engine, program, result_rows, n_rows, faults,
-                   bank_geom)(staged)
+    fn = wave_fn(engine, program, result_rows, n_rows, faults, bank_geom)
+    if mesh is None or engine == "baseline":
+        return fn(staged)
+    return map_blocks(mesh, fn, (staged,), STAGED_SPEC)
+
+
+def run_waves_baseline(staged: torch.Tensor, program: Sequence[AAP],
+                       result_rows: Tuple[int, ...], *,
+                       n_rows: int) -> torch.Tensor:
+    """The reference's first wave loop (per wave a full device state, the
+    encoded stream stepped over it), kept as the engine the others are
+    held against: `run_waves(..., engine="baseline")`."""
+    return run_waves(staged, program, result_rows, n_rows=n_rows,
+                     engine="baseline")
 
 
 @functools.lru_cache(maxsize=512)
@@ -394,10 +421,12 @@ def _book_fault_census(engine: str, program: Tuple[AAP, ...],
 
 
 def stage_rows(arrays: Sequence[torch.Tensor], *, geom: DrimGeometry,
-               ) -> Tuple[torch.Tensor, int, int]:
+               mesh=None) -> Tuple[torch.Tensor, int, int]:
     """Tile flat int32 word arrays onto the fleet: pad to a whole number of
     waves and reshape to [waves, n_arrays, chips, banks, subarrays,
-    row_words] on the arrays' device.  Returns (staged, tiles, waves)."""
+    row_words] on the arrays' device, shard-aligned over `mesh` when given
+    (a mesh that does not divide (chips, banks) raises ValueError).
+    Returns (staged, tiles, waves)."""
     n_words = arrays[0].shape[0]
     row_w = geom.row_bits // WORD_BITS
     tiles = _ceil_div(n_words, row_w)
@@ -408,4 +437,70 @@ def stage_rows(arrays: Sequence[torch.Tensor], *, geom: DrimGeometry,
     flat[:, :n_words] = torch.stack(list(arrays))
     staged = flat.view(len(arrays), waves, geom.chips, geom.banks,
                        geom.subarrays_per_bank, row_w)
-    return staged.transpose(0, 1).contiguous(), tiles, waves
+    staged = staged.transpose(0, 1).contiguous()
+    if mesh is not None:
+        shard_staged(staged, mesh)
+    return staged, tiles, waves
+
+
+def dispatch_waves(engine: str, arrays: Sequence[torch.Tensor],
+                   program: Sequence[AAP], result_rows: Tuple[int, ...], *,
+                   n_rows: int, geom: DrimGeometry, mesh=None,
+                   n_queues: int | None = None, faults=None,
+                   ) -> Tuple[torch.Tensor, int, int]:
+    """One dispatch point for every device wave engine: the engine's own
+    staging (`pim.compiler.ENGINE_REGISTRY`) and the shared wave body
+    (`wave_fn`).  Returns (outs, tiles, waves) with outs [waves,
+    len(result_rows), chips, banks, subarrays, row_words] on the arrays'
+    device.  A comparator engine ("gpu") has no waves and raises."""
+    from repro_torch.pim.compiler import get_engine
+    eng = get_engine(engine)
+    if not eng.device:
+        raise ValueError(f"engine {engine!r} is a comparator, not a "
+                         "device wave engine")
+    return eng.dispatch(arrays, program, result_rows, n_rows=n_rows,
+                        geom=geom, mesh=mesh, n_queues=n_queues,
+                        faults=faults)
+
+
+def execute(op: str, *operands, geom: DrimGeometry = DRIM_R,
+            n_bits: int | None = None, mesh=None, engine: str = "resident",
+            n_queues: int | None = None, device=None,
+            ) -> Tuple[Tuple[torch.Tensor, ...], Schedule]:
+    """DEPRECATED shim over the staged pipeline.
+
+    Use ``compile(op, geom=geom).lower(engine=..., mesh=...,
+    n_queues=...).run(*operands, n_bits=..., device=...)``: the lowering
+    is reusable across payloads and its measured schedule lands on
+    ``lowered.schedule``.  This wrapper lowers per call and returns
+    (results, schedule) on `device` (None: the card)."""
+    from repro_torch.pim.compiler import _warn_deprecated, compile as _compile
+    _warn_deprecated(
+        "scheduler.execute",
+        "compile(op).lower(engine=..., mesh=..., n_queues=...).run(...)")
+    low = _compile(op, geom=geom).lower(engine=engine, mesh=mesh,
+                                        n_queues=n_queues)
+    results = low.run(*operands, n_bits=n_bits, device=device)
+    return results, low.schedule
+
+
+def execute_oplist(ops: Sequence[Tuple[str, Tuple]], *,
+                   geom: DrimGeometry = DRIM_R, mesh=None,
+                   engine: str = "resident", n_queues: int | None = None,
+                   device=None,
+                   ) -> List[Tuple[Tuple[torch.Tensor, ...], Schedule]]:
+    """DEPRECATED shim over the staged pipeline: the unfused baseline,
+    every op reloading its operands and reading its results back.  Lower
+    each op (or trace the whole chain with `jit`, so it fuses); this
+    wrapper keeps the [(results, schedule), ...] contract."""
+    from repro_torch.pim.compiler import _warn_deprecated, compile as _compile
+    _warn_deprecated("scheduler.execute_oplist",
+                     "compile(op).lower(...).run(...) per op, or "
+                     "drim.jit over the whole chain")
+    out = []
+    for op, args in ops:
+        low = _compile(op, geom=geom).lower(engine=engine, mesh=mesh,
+                                            n_queues=n_queues)
+        res = low.run(*args, device=device)
+        out.append((res, low.schedule))
+    return out

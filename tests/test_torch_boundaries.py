@@ -1,8 +1,9 @@
-"""Guards on the port's rules: `src/repro_torch` imports neither JAX nor
-the reference packages, its entry points run on the card unless the
-caller asks for the CPU, its kernel wrappers refuse what their kernels do
-not take instead of quietly running the plain version, and the lowering
-arguments of later slices raise instead of being ignored."""
+"""Guards on the port's rules: `src/repro_torch`, `src/drim_torch` and the
+examples' torch twins import neither JAX nor the reference packages, the
+entry points run on the card unless the caller asks for the CPU, the
+kernel wrappers refuse what their kernels do not take instead of quietly
+running the plain version, and the lowering arguments of earlier slices
+(`mesh=`, `partition=`, `verify=`, `n_queues=`) lower and run."""
 import ast
 import dataclasses
 import pathlib
@@ -20,6 +21,10 @@ from repro_torch.pim import bnn, compiler
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 PORT = ROOT / "src" / "repro_torch"
+PORT_FILES = (sorted(PORT.rglob("*.py"))
+              + sorted((ROOT / "src" / "drim_torch").rglob("*.py"))
+              + sorted((ROOT / "examples").glob("*_torch.py"))
+              + [ROOT / "chip_smoke.py"])
 FORBIDDEN = {"jax", "jaxlib", "repro", "drim"}
 
 
@@ -33,16 +38,34 @@ def imported_roots(path: pathlib.Path):
             yield node.module.split(".")[0]
 
 
-@pytest.mark.parametrize("path", sorted(PORT.rglob("*.py")) +
-                         [ROOT / "chip_smoke.py"],
+@pytest.mark.parametrize("path", PORT_FILES,
                          ids=lambda p: str(p.relative_to(ROOT)))
 def test_no_jax_or_reference_imports(path):
     bad = sorted(set(imported_roots(path)) & FORBIDDEN)
     assert not bad, f"{path} imports {bad}"
 
 
+def test_core_imports_no_higher_layer():
+    """`repro_torch.core` (the device model, and the mesh its sharded runner
+    cuts) sits at the bottom: it imports the port's `device` module and
+    itself, never `launch`, `pim` or another layer above it."""
+    for path in sorted((PORT / "core").glob("*.py")):
+        tree = ast.parse(path.read_text(), filename=str(path))
+        for node in ast.walk(tree):
+            if isinstance(node, ast.ImportFrom) and node.level == 0:
+                names = [node.module]
+            elif isinstance(node, ast.Import):
+                names = [alias.name for alias in node.names]
+            else:
+                continue
+            for name in names:
+                if name.split(".")[0] == "repro_torch":
+                    assert name in ("repro_torch.device",) or \
+                        name.startswith("repro_torch.core"), (path, name)
+
+
 def test_importing_the_port_loads_no_jax():
-    code = ("import sys, repro_torch, repro_torch.pim.bnn, "
+    code = ("import sys, repro_torch, repro_torch.pim.bnn, drim_torch, "
             "repro_torch.models.layers, repro_torch.kernels.aap_interpreter; "
             "print(sorted(m for m in sys.modules "
             "if m.split('.')[0] in ('jax', 'jaxlib', 'repro', 'drim')))")
@@ -134,16 +157,30 @@ def test_wrappers_refuse_what_their_kernels_do_not_take(monkeypatch):
     {"partition": True}, {"mesh": object()}, {"verify": True},
     {"n_queues": 2}])
 def test_later_slice_arguments_raise(kwargs, monkeypatch):
-    """`mesh=` belongs to a later slice and raises naming the ROADMAP
-    item; `verify=True` (Queue 1 item 10) lowers through the verify pass
-    and carries a clean report; `partition=` and `n_queues=` (Queue 1 item
-    9) lower and run: the K=3 carry-save dot split over two bank queues,
-    or on the "queued" engine's two queues, gives the oracle's words."""
+    """`mesh=` (Queue 1 item 12) lowers with any hashable mesh object and
+    runs only with a fleet mesh: a mesh that is not one raises
+    AttributeError where a run would cut its blocks (as the reference's
+    run does), and a real 2x4 mesh gives the oracle's words;
+    `verify=True` (Queue 1 item 10) lowers through the verify pass and
+    carries a clean report; `partition=` and `n_queues=` (Queue 1 item 9)
+    lower and run: the K=3 carry-save dot split over two bank queues, or
+    on the "queued" engine's two queues, gives the oracle's words."""
     if "mesh" in kwargs:
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            compiler.compile("xnor2").lower(**kwargs)
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            compiler.lower_cached("xnor2", **kwargs)
+        from repro_torch.pim import fleet_mesh
+        w = np.arange(64, dtype=np.uint32)
+        for low in (compiler.compile("xnor2").lower(**kwargs),
+                    compiler.lower_cached("xnor2", **kwargs)):
+            assert low.mesh is kwargs["mesh"]
+            with pytest.raises(AttributeError):
+                low.run(w, w, device="cpu")
+        geom = dataclasses.replace(DRIM_R, chips=2, banks=4,
+                                   subarrays_per_bank=2, row_bits=64)
+        mesh = fleet_mesh(geom, devices=[torch.device("cpu")] * 8)
+        for low in (compiler.compile("xnor2", geom=geom).lower(mesh=mesh),
+                    compiler.lower_cached("xnor2", geom=geom, mesh=mesh)):
+            (got,) = low.run(w, w, device="cpu")
+            np.testing.assert_array_equal(got.numpy().view(np.uint32),
+                                          ~(w ^ w))
         return
     if "verify" in kwargs:
         monkeypatch.setenv("DRIM_VERIFY", "0")      # explicit True wins

@@ -252,7 +252,9 @@ def test_donate_runs_in_place_and_copy_keeps_the_input(devices):
 def test_banked_and_sharded_runners_wait_for_item_9(devices):
     """The banked runner (Queue 1 item 9) runs a different Table-2 stream
     per bank block and equals the reference's, fault-free and faulted;
-    the sharded one waits for the fleet meshes of Queue 1 item 12."""
+    the sharded one (Queue 1 item 12) runs every Table-2 stream over a
+    2x4 fleet mesh of CPU devices and equals the reference's unsharded
+    run, and refuses active faults with the reference's ValueError."""
     port, ref = devices
     blocks = [(0, 1), (1, 3), (3, 4)]
     names = ("xnor2", "add", "maj3")
@@ -267,8 +269,20 @@ def test_banked_and_sharded_runners_wait_for_item_9(devices):
             blocks, faults=ref_faults.FaultModel(**faults) if faults
             else None)
         assert_state_equal(out, want, f"banked {faults}")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 12"):
-        tdev.device_run_program_sharded(port, isa.encode(()), None)
+    from repro_torch.pim import fleet_mesh
+    mesh = fleet_mesh(DrimGeometry(**SHAPE),
+                      devices=[torch.device("cpu")] * 8)
+    assert mesh.shape == {"chips": 2, "banks": 4}
+    for name in names:
+        out = tdev.device_run_program_sharded(port, isa.encode(
+            MICROPROGRAMS[name][0](isa, tdev.device_template(port))), mesh)
+        want = ref_dev.device_run_program(ref, ref_isa.encode(
+            MICROPROGRAMS[name][0](ref_isa, ref_dev.device_template(ref))))
+        assert_state_equal(out, want, f"sharded {name}")
+    with pytest.raises(ValueError, match="run faulted programs with "
+                       "mesh=None"):
+        tdev.device_run_program_sharded(port, isa.encode(()), mesh,
+                                        faults=FaultModel(**HOT))
 
 
 def test_serving_through_the_baseline_engine_keeps_the_tokens():

@@ -143,8 +143,16 @@ def test_queue_counts_and_blocks():
             assert queue.bank_blocks(banks, want) == \
                 ref_queue.bank_blocks(banks, want)
     assert queue.DEFAULT_MAX_QUEUES == ref_queue.DEFAULT_MAX_QUEUES
-    with pytest.raises(NotImplementedError, match="Queue 1 item 12"):
-        queue.queue_mesh(GEOM, 2, mesh=object())
+    # the queue mesh: the largest split of a queue's bank block over the
+    # mesh's devices (the reference's rule), None for no mesh
+    from repro.pim.mesh import fleet_shape as ref_fleet_shape
+    from repro_torch.pim import fleet_mesh
+    mesh = fleet_mesh(GEOM, devices=[torch.device("cpu")] * 8)
+    assert queue.queue_mesh(GEOM, 2) is None
+    for nq in (1, 2, 4):
+        qm = queue.queue_mesh(GEOM, nq, mesh=mesh)
+        assert tuple(qm.shape.values()) == ref_fleet_shape(
+            dataclasses.replace(REF_GEOM, banks=REF_GEOM.banks // nq), 8)
 
 
 def test_stage_rows_queued_splits_the_simd_staging():

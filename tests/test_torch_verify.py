@@ -23,6 +23,7 @@ import types
 
 import numpy as np
 import pytest
+import torch
 
 import drim
 from repro.core import DrimGeometry as RefGeometry
@@ -574,16 +575,24 @@ def test_harden_mutant_dies(name):
 # V020: faults + mesh is a named lower-time diagnostic -----------------------
 
 def test_v020_faults_on_mesh_is_verify_error():
-    """The port has no fleet mesh (`mesh=` raises, ROADMAP Queue 1 item
-    12), so only the diagnostic itself exists; it carries V020."""
+    """Active faults with a fleet mesh raise the V020 diagnostic at lower
+    time and at run time, as the reference's do."""
     err = V.faults_on_mesh_error()
     assert err.code == V.V020_FAULTS_UNSUPPORTED_ON_MESH == \
         ref_verify.faults_on_mesh_error().code
     assert isinstance(err, ValueError) and "unsharded" in str(err)
     assert err.layer == "lower"
-    with pytest.raises(NotImplementedError, match="item 12"):
-        tcompile("xnor2", geom=GEOM).lower(
-            "resident", mesh=object(), faults=FaultModel(p_dra=0.25, seed=3))
+    from repro_torch.pim import fleet_mesh
+    mesh = fleet_mesh(GEOM, devices=[torch.device("cpu")] * 8)
+    hot = FaultModel(p_dra=0.25, seed=3)
+    with pytest.raises(V.VerifyError, match="V020") as ei:
+        tcompile("xnor2", geom=GEOM).lower("resident", mesh=mesh,
+                                           faults=hot)
+    assert ei.value.code == V.V020_FAULTS_UNSUPPORTED_ON_MESH
+    low = tcompile("xnor2", geom=GEOM).lower("resident", mesh=mesh)
+    w = np.zeros(GEOM.n_subarrays * GEOM.row_bits // 32, np.uint32)
+    with pytest.raises(V.VerifyError, match="V020"):
+        low.run(w, w, device="cpu", faults=hot)
 
 
 # ---------------------------------------------------------------------------
