@@ -50,7 +50,10 @@ Phases, each fatal on failure:
                 2e-4, bfloat16 within about one bfloat16 ulp), with SDPA's
                 backward as their yardstick; forward and backward also at
                 the training shape and the bfloat16 tensor-core kernels'
-                edges (FLASH_BF16_EDGES), a "detail" line each;
+                edges (FLASH_BF16_EDGES), the forward also at the families
+                phase's prefills (zamba2 [4, 32, 512, 64], n_rep 1;
+                qwen3-14b [4, 40, 256, 128] over 8 KV heads, n_rep 5), a
+                "detail" line each;
   3. path    -- one drim-bnn FFN BitLinear pair at full width (768 -> 3072
                 -> 768) on M = 512 activation rows, weights from a seeded
                 numpy generator, each projection served by the native
@@ -68,6 +71,25 @@ Phases, each fatal on failure:
                 (the second takes the dense-scores attention) into 2
                 slots, native packed and DRIM packed, with identical
                 tokens per request;
+  4b. families -- the SSM, hybrid and dense families at full width
+                through `run_serve` on the "gpu" route, seeded weights,
+                batch 4, 8 greedy tokens: mamba2-130m at its 24 layers
+                (a 1024-token prompt, 4 SSD chunks), zamba2-1.2b at its
+                38 (512 tokens, 2 chunks; the shared attention block at
+                its 6 group sites), qwen3-14b at full width cut from 40
+                layers to 2 (256 tokens; GQA n_rep 5 at d_head 128); each
+                leg's prefill_s, decode tok/s and p50/p99 (host clock),
+                every logits tensor finite and every token id inside the
+                vocabulary, and after each, outside its count, 3 decode
+                steps under `torch.profiler` (device ms and launches a
+                step, the idle share of the p50 step); then two mamba2 requests (1024 and 512
+                tokens) through the continuous batcher, which must refuse
+                zamba2 as the reference's does; then the float32 smoke
+                configs of mamba2 and zamba2 prefilled on the card and on
+                the CPU (FAMILY_REF_TOL), and one full-width mamba2 mixer's
+                prefill state against stepping its decode token by token
+                on the card (the reference's 0.05, SSM_EQUIV_TOL)
+                ("families" lines);
   5. faults  -- Table-3 fault injection (the +-15% corner of the paper)
                 on the carry-save K=128 serving dot at full width: DRIM-R,
                 4 waves, 262,144 words per input plane, bare and hardened
@@ -167,13 +189,17 @@ Phases, each fatal on failure:
                 10 more steps must equal the straight run's step-20 state
                 bit for bit;
   13. counts -- the launch counters are zeroed just before phase 3, before
-                each of phase 4's five legs, before phase 5, phase 6,
+                each of phase 4's five legs and phase 4b's four, before
+                phase 5, phase 6,
                 phase 7, each of phase 8's three legs, phase 9, each of
                 phase 10's five legs, each of phase 11's four legs and
                 each of phase 12's two legs, and read just after each:
                 phase 3 must launch the three BNN kernels, each serving
                 leg exactly the launches its route implies
-                (`expected_launches`), phase 5 the faulted interpreter
+                (`expected_launches`), each of phase 4b's four legs the
+                flash forward once per attention site of its prefill
+                (mamba2 0, zamba2 6, qwen3-14b 2, continuous 0) and
+                nothing else, phase 5 the faulted interpreter
                 once per faulted "cuda" run and the fault-free one once,
                 phase 6 one bulk kernel per "gpu" op run and per non-copy
                 graph node (by kind), the interpreter once per "cuda" run
@@ -277,6 +303,27 @@ TRAIN = ["--arch", "drim-bnn", "--steps", str(TRAIN_STEPS), "--batch", "8",
 TRAIN_LOSS_RTOL, TRAIN_GRAD_RTOL = 1e-5, 1e-3
 SERVE = ["--arch", "drim-bnn", "--batch", "4", "--prompt-len", "256",
          "--gen", "8", "--seed", str(SEED), "--temperature", "0"]
+# The families phase: the SSM, hybrid and dense archs served at full width
+# (arch, depth cut or 0 for the published depth, prompt length, flash
+# launches of the one aligned prefill: an attention site each -- none in
+# mamba2, one per group site in zamba2, one per layer in qwen3-14b).
+# qwen3-14b keeps its width and is cut from 40 layers to 2, so that its
+# host-side initialisation stays short.
+FAMILIES = (("mamba2-130m", 0, 1024, 0), ("zamba2-1.2b", 0, 512, 6),
+            ("qwen3-14b", 2, 256, 2))
+FAMILY_BATCH, FAMILY_GEN = 4, 8
+FAMILY_CONTINUOUS = (1024, 512)         # two mamba2 requests' prompts
+# The float32 smoke configs' prefill on the card against the CPU: mamba2
+# at the drim-bnn check's 1e-3; zamba2 at 4 bfloat16 ulps of the logits'
+# magnitude, since its scan rounds product operands to bfloat16 in
+# float32 too and the shared attention amplifies a one-ulp change (a
+# 1.2e-7 relative nudge of the embeddings moves its CPU logits by ~1e-4:
+# tests/test_torch_families.py).
+FAMILY_REF_TOL = {"mamba2-130m": 1e-3, "zamba2-1.2b": 1.6e-2}
+# A full-width mamba2 layer's prefill against stepping its decode token by
+# token: the reference's tolerances (tests/test_ssm_equiv.py): state 0.05,
+# outputs 0.08, conv window 1e-4.
+SSM_EQUIV_TOL = {"state": 0.05, "y": 0.08, "conv": 1e-4}
 # integer operations of one armed DRA/TRA's draw: the XOR of the slot
 # hash with i * golden (one scalar per instruction), mix32 (3 xor-shifts,
 # 2 multiplies) and the compare.  A draw belongs to a (sub-array, op)
@@ -867,8 +914,12 @@ def phase_flash(rng):
         (4, 12, 4, 256, 256, 64, 128, 128, True, torch.bfloat16),
         (1, 4, 1, 64, 192, 128, 64, 64, True, torch.float32),
         (1, 2, 2, 256, 256, 32, 128, 64, False, torch.float32),
-        # the training step's shape, then the tensor-core kernel's edges
+        # the training step's shape, the families phase's prefills
+        # (zamba2's shared block, n_rep 1; qwen3-14b, n_rep 5 at D = 128),
+        # then the tensor-core kernel's edges
         (8, 12, 4, 256, 256, 64, 128, 128, True, torch.bfloat16),
+        (4, 32, 32, 512, 512, 64, 128, 128, True, torch.bfloat16),
+        (4, 40, 8, 256, 256, 128, 128, 128, True, torch.bfloat16),
         *FLASH_BF16_EDGES]
     record = None
     for b, h, hkv, sq, sk, d, bq, bk, causal, dt in cases:
@@ -2166,12 +2217,13 @@ def phase_telemetry(wrappers):
         print("serve " + json.dumps({"leg": leg, **stats["microbench"]}))
 
     # -- resilient fallback --------------------------------------------------
-    def make_fn(cfg_, temperature, engine, n_queues):
+    def make_fn(cfg_, ctx_len, temperature, engine, n_queues):
         if engine == "cuda":
             def wedged(*args):
                 raise RuntimeError("cuda decode wedged")
             return wedged
-        return batching.make_decode_fn(cfg_, temperature, engine, n_queues)
+        return batching.make_decode_fn(cfg_, ctx_len, temperature, engine,
+                                       n_queues)
 
     def resilient():
         before = reg.snapshot()
@@ -2627,6 +2679,246 @@ def phase_drim(wrappers):
     return counts
 
 
+@contextlib.contextmanager
+def finite_logits():
+    """Record, without a host sync, whether every logits tensor the
+    serving loop's prefill and decode steps return is finite; yields the
+    list of recorded flags (0-d bool tensors)."""
+    from repro_torch.launch import batching, serve
+    flags = []
+    patched = ((serve, "prefill"), (batching, "prefill"),
+               (batching, "decode_step"))
+    inner = [getattr(mod, name) for mod, name in patched]
+
+    def recording(fn):
+        def call(*args, **kw):
+            lg, caches = fn(*args, **kw)
+            flags.append(torch.isfinite(lg).all())
+            return lg, caches
+        return call
+    for (mod, name), fn in zip(patched, inner):
+        setattr(mod, name, recording(fn))
+    try:
+        yield flags
+    finally:
+        for (mod, name), fn in zip(patched, inner):
+            setattr(mod, name, fn)
+
+
+def check_served(leg: str, gen, cfg, flags, n_gen: int, n_calls: int):
+    """Token ids [..., n_gen] inside the vocabulary; `n_calls` logits
+    tensors recorded, every one finite."""
+    if gen.shape[-1] != n_gen or gen.min() < 0 \
+            or gen.max() >= cfg.vocab_size:
+        raise AssertionError(f"{leg}: bad token ids {gen.tolist()}")
+    if len(flags) != n_calls or not all(bool(f) for f in flags):
+        raise AssertionError(f"{leg}: {len(flags)} logits tensors (expected "
+                             f"{n_calls}), finite {[bool(f) for f in flags]}")
+
+
+def phase_families(wrappers):
+    """The SSM, hybrid and dense families served through `run_serve` on
+    the "gpu" route at full width: mamba2-130m and zamba2-1.2b at their
+    published depth, qwen3-14b cut to 2 layers; then two mamba2 requests
+    through the continuous batcher, and the batcher refusing zamba2.  Each
+    leg's launches are counted on their own (flash once per attention
+    site of the aligned prefill); returns the phase's counts summed."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import batching, serve
+    from repro_torch.models import init_params
+    t_phase = time.perf_counter()
+    counts = {}
+    mamba_params = None
+    for arch, layers, prompt, n_flash in FAMILIES:
+        argv = ["--arch", arch, "--batch", str(FAMILY_BATCH),
+                "--prompt-len", str(prompt), "--gen", str(FAMILY_GEN),
+                "--seed", str(SEED), "--temperature", "0"]
+        if layers:
+            argv += ["--layers", str(layers)]
+        args = serve.parse_args(argv)
+        cfg = serve.build_cfg(args)
+        sites = (cfg.n_layers if cfg.family == "dense" else
+                 cfg.n_layers // cfg.attn_every if cfg.attn_every else 0)
+        if sites != n_flash:
+            raise AssertionError(f"{arch}: {sites} attention sites, "
+                                 f"FAMILIES expects {n_flash}")
+        t0 = time.perf_counter()
+        params = init_params(SEED, cfg)
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+        leg = f"families {arch}"
+        with finite_logits() as flags:
+            (gen, stats), counts[leg] = counted(
+                wrappers, leg,
+                lambda args=args, params=params: serve.run_serve(
+                    args, params=params),
+                lambda _, n=n_flash: {"flash_attn_fwd": n} if n else {})
+        # the prefill, the warm-up decode step and FAMILY_GEN - 1 more
+        check_served(leg, gen, cfg, flags, FAMILY_GEN, FAMILY_GEN + 1)
+        print("families " + json.dumps({
+            "leg": arch, "family": cfg.family, "n_layers": cfg.n_layers,
+            "published_layers": get_config(arch).n_layers,
+            "d_model": cfg.d_model, "params": cfg.param_count(),
+            "batch": FAMILY_BATCH, "prompt": prompt, "gen": FAMILY_GEN,
+            "init_s": init_s, "prefill_s": stats["prefill_s"],
+            "compile_s": stats["compile_s"],
+            "decode_tok_per_s": stats["decode_tok_per_s"],
+            "decode_p50_ms": stats["decode_p50_ms"],
+            "decode_p99_ms": stats["decode_p99_ms"],
+            "flash_launches": counts[leg]["flash_attn_fwd"],
+            "logits_finite": True, "ids_in_vocab": True,
+            "sample_ids": stats["sample_ids"]}))
+        profile_decode(arch, cfg, params, prompt, stats["decode_p50_ms"])
+        if arch == "mamba2-130m":
+            mamba_params = params
+        del params
+
+    # continuous batching: two mamba2 requests into two slots
+    args = serve.parse_args(["--arch", "mamba2-130m", "--batch", "2",
+                             "--continuous", "2", "--gen", str(FAMILY_GEN),
+                             "--prompt-len", str(max(FAMILY_CONTINUOUS)),
+                             "--seed", str(SEED)])
+    cfg = serve.build_cfg(args)
+    prompts = [np.random.default_rng([SEED, 5]).integers(0, cfg.vocab_size,
+                                                         n)
+               for n in FAMILY_CONTINUOUS]
+    leg = "families continuous mamba2-130m"
+    with finite_logits() as flags:
+        (res, stats), counts[leg] = counted(
+            wrappers, leg, lambda: serve.run_continuous(
+                args, params=mamba_params, prompts=prompts),
+            lambda _: {})
+    # one prefill per request, one decode step a wave (every wave has an
+    # active request: the second arrives a wave after the first)
+    check_served(leg, np.stack([res[r] for r in sorted(res)]), cfg, flags,
+                 FAMILY_GEN, len(prompts) + stats["n_waves"])
+    print("families " + json.dumps({
+        "leg": "continuous mamba2-130m", "prompts": list(FAMILY_CONTINUOUS),
+        "n_waves": stats["n_waves"], "wall_s": stats["wall_s"],
+        "tok_per_s": stats["tok_per_s"],
+        "flash_launches": counts[leg]["flash_attn_fwd"],
+        "logits_finite": True, "ids_in_vocab": True,
+        "request_tokens": stats["request_tokens"]}))
+    del mamba_params
+    try:
+        batching.WaveBatcher(serve.build_cfg(serve.parse_args(
+            ["--arch", "zamba2-1.2b"])), None, n_slots=2, ctx_len=8)
+    except NotImplementedError as err:
+        print("families " + json.dumps({"leg": "continuous zamba2-1.2b",
+                                        "refused": str(err)}))
+    else:
+        raise AssertionError("the wave batcher served the hybrid family")
+    check_families_reference()
+    check_ssm_prefill_decode()
+    print("families " + json.dumps({
+        "phase_wall_s": time.perf_counter() - t_phase}))
+    return {name: sum(c[name] for c in counts.values()) for name in wrappers}
+
+
+def profile_decode(arch: str, cfg, params, prompt: int, step_ms: float):
+    """Where a family's decode step goes: the leg's prompt prefilled, then
+    PROFILE_STEPS decode steps at its first position under
+    `torch.profiler` (after one unprofiled step); device ms and kernel
+    launches per step, and the device's idle share of the leg's
+    unprofiled p50 step (`step_ms`)."""
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.launch import batching, serve
+    from repro_torch.models import empty_caches, prefill
+    dev = torch.device("cuda")
+    toks = torch.from_numpy(np.random.default_rng([SEED, 8]).integers(
+        0, cfg.vocab_size, (FAMILY_BATCH, prompt))).to(dev)
+    ctx_len = prompt + FAMILY_GEN
+    logits, pre = prefill(params, cfg, {"tokens": toks})
+    caches = serve.splice_caches(empty_caches(cfg, FAMILY_BATCH, ctx_len,
+                                              device=dev), pre)
+    dec = batching.make_decode_fn(cfg, ctx_len)
+    tok = logits[:, -1].argmax(-1)[:, None]
+    pos = torch.full((FAMILY_BATCH,), prompt, dtype=torch.long, device=dev)
+    dec(params, tok, caches, pos, 0)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(PROFILE_STEPS):
+            dec(params, tok, caches, pos, 0)
+        torch.cuda.synchronize()
+    kernels = device_kernels(prof, PROFILE_STEPS)
+    busy = sum(ms for _, ms, _ in kernels)
+    top = sorted(kernels, key=lambda k: -k[1])[:5]
+    print("families " + json.dumps({
+        "profile": arch, "profile_steps": PROFILE_STEPS,
+        "device_busy_ms_per_step": busy,
+        "device_launches_per_step": sum(c for _, _, c in kernels),
+        "p50_step_ms": step_ms,
+        "device_idle_share": 1 - busy / step_ms if busy else None,
+        "top_kernels_ms_per_step": [[name[:80], ms, cnt]
+                                    for name, ms, cnt in top]}))
+
+
+def check_families_reference():
+    """The float32 smoke configs of mamba2 and zamba2 prefilled on the
+    card (zamba2's shared attention on the flash kernel at 512 tokens) and
+    on the CPU from the same seeded weights and tokens (2 SSD chunks of
+    256), the last position's logits within FAMILY_REF_TOL."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.kernels import flash_attention
+    from repro_torch.models import init_params, prefill
+    for arch, tol in FAMILY_REF_TOL.items():
+        cfg = get_smoke_config(arch).replace(dtype="float32",
+                                             param_dtype="float32")
+        toks = torch.from_numpy(np.random.default_rng([SEED, 6]).integers(
+            0, cfg.vocab_size, (2, 512)))
+        before = flash_attention.flash_fwd.launches
+        logits = {}
+        for dev in ("cuda", "cpu"):
+            params = init_params(SEED, cfg, device=dev)
+            lg, _ = prefill(params, cfg, {"tokens": toks.to(dev)})
+            logits[dev] = lg.cpu()
+        sites = cfg.n_layers // cfg.attn_every if cfg.attn_every else 0
+        ran = flash_attention.flash_fwd.launches - before
+        if ran != sites:
+            raise AssertionError(f"{arch}: the card's prefill launched flash "
+                                 f"{ran} times, not {sites}")
+        err = float((logits["cuda"] - logits["cpu"]).abs().max())
+        bound = tol * max(1.0, float(logits["cpu"].abs().max()))
+        print("families " + json.dumps({
+            "check": f"{arch} float32 smoke prefill, card vs CPU",
+            "max_abs_err": err, "tolerance": bound}))
+        if not (torch.isfinite(logits["cuda"]).all() and err <= bound):
+            raise AssertionError(f"{arch}: card prefill differs from the "
+                                 f"CPU's by {err}")
+
+
+def check_ssm_prefill_decode():
+    """One full-width mamba2-130m mixer on the card: its prefill over 512
+    tokens (2 SSD chunks) against stepping `ssm_decode` token by token,
+    at the reference's tolerances (SSM_EQUIV_TOL)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import ssm
+    from repro_torch.tree import tree_map
+    dev = torch.device("cuda")
+    cfg = get_config("mamba2-130m")
+    p = tree_map(lambda t: t.to(dev), ssm.ssm_init(
+        torch.Generator().manual_seed(SEED), cfg))
+    x = torch.from_numpy(np.random.default_rng([SEED, 7]).standard_normal(
+        (2, 512, cfg.d_model), dtype=np.float32) * 0.1).to(dev)
+    y_full, cache_full = ssm.ssm_mix(p, cfg, x)
+    cache = ssm.ssm_empty_cache(cfg, 2, device=dev)
+    ys = []
+    for t in range(x.shape[1]):
+        y_t, cache = ssm.ssm_decode(p, cfg, x[:, t:t + 1], cache)
+        ys.append(y_t)
+    pairs = {"y": (y_full, torch.cat(ys, 1)),
+             "state": (cache_full["state"], cache["state"]),
+             "conv": (cache_full["conv"], cache["conv"])}
+    errs = {name: check_close(f"mamba2 layer {name}, prefill vs decode",
+                              got, want, SSM_EQUIV_TOL[name])
+            for name, (got, want) in pairs.items()}
+    print("families " + json.dumps({
+        "check": "mamba2-130m layer, prefill vs token-by-token decode",
+        "tokens": x.shape[1], "max_abs_err": errs,
+        "tolerance": SSM_EQUIV_TOL}))
+
+
 def check_prefill_reference():
     """The float32 smoke config's prefill logits on the card (flash
     attention at S=128) against the same prefill on the CPU (dense
@@ -2762,6 +3054,14 @@ def phase_train(wrappers):
     return counts
 
 
+def device_kernels(prof, n: int):
+    """(name, device ms, launches) per call of each CUDA kernel a
+    `torch.profiler` run over `n` calls recorded."""
+    return [(e.key, e.self_device_time_total / 1e3 / n, e.count / n)
+            for e in prof.key_averages()
+            if e.self_device_time_total > 0 and e.device_type.name == "CUDA"]
+
+
 def profile_train_steps(step_fn, state, batches) -> None:
     """Where a training step's time goes: PROFILE_STEPS steps under
     `torch.profiler`, the device time of each kernel summed by kind (the
@@ -2777,10 +3077,7 @@ def profile_train_steps(step_fn, state, batches) -> None:
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     n = len(batches)
-    kernels = [(e.key, e.self_device_time_total / 1e3 / n, e.count / n)
-               for e in prof.key_averages()
-               if e.self_device_time_total > 0 and e.device_type.name ==
-               "CUDA"]
+    kernels = device_kernels(prof, n)
     busy = sum(ms for _, ms, _ in kernels)
 
     def kind(name: str) -> str:
@@ -2891,6 +3188,8 @@ def main() -> int:
                                            "aap_interp"), "path")
     verify_line("path", mark)
     by_leg = verified_phase("serve", lambda: phase_serve(wrappers))
+    by_leg["families"] = verified_phase("families",
+                                        lambda: phase_families(wrappers))
     by_leg["faults"] = verified_phase("faults",
                                       lambda: phase_faults(wrappers))
     by_leg["bulk"] = verified_phase("bulk", lambda: phase_bulk(wrappers))

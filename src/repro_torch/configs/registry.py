@@ -1,21 +1,28 @@
 """--arch id -> config resolution (port of `repro.configs.registry`).
 
-Only drim-bnn is ported; the reference's other architectures raise and
-name the ROADMAP item that brings them."""
+The dense, SSM and hybrid archs are ported; the reference's MoE, audio
+and vlm archs raise and name the ROADMAP item that brings them."""
 from importlib import import_module
 
-ARCHS = {"drim-bnn": "drim_bnn"}
+ARCHS = {
+    "qwen3-14b": "qwen3_14b",
+    "qwen2-72b": "qwen2_72b",
+    "qwen3-32b": "qwen3_32b",
+    "minitron-4b": "minitron_4b",
+    "mamba2-130m": "mamba2_130m",
+    "zamba2-1.2b": "zamba2_1p2b",
+    "drim-bnn": "drim_bnn",
+}
 
-_NOT_PORTED = ("qwen3-14b", "qwen2-72b", "qwen3-32b", "minitron-4b",
-               "whisper-medium", "llava-next-34b", "kimi-k2-1t-a32b",
-               "deepseek-v3-671b", "mamba2-130m", "zamba2-1.2b")
+_NOT_PORTED = ("whisper-medium", "llava-next-34b", "kimi-k2-1t-a32b",
+               "deepseek-v3-671b")
 
 
 def _module(arch: str):
     if arch in _NOT_PORTED:
         raise NotImplementedError(
             f"arch {arch!r} is not ported to repro_torch yet: ROADMAP "
-            "Queue 1 item 12 (the dense archs, MoE and SSM models)")
+            "Queue 1 item 12 (the MoE, audio and vlm families)")
     if arch not in ARCHS:
         raise KeyError(f"unknown arch {arch!r}; choose from {sorted(ARCHS)}")
     return import_module(f"repro_torch.configs.{ARCHS[arch]}")

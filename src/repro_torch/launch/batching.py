@@ -57,16 +57,17 @@ def sample_tokens(logits: torch.Tensor, temperature: float,
     return nxt[:, None]
 
 
-def make_decode_fn(cfg, temperature: float = 0.0,
+def make_decode_fn(cfg, ctx_len: int, temperature: float = 0.0,
                    engine: Optional[str] = None,
                    n_queues: Optional[int] = None) -> Callable:
     """(params, tok [B,1], caches, pos [B], key) -> (next_tok [B,1], caches).
 
-    engine None or "gpu": the native route (the packed-kernel or dense
-    BitLinear GEMMs on the params' device).  A registry engine ("resident",
-    "cuda"): the same decode step inside `serving_engine`, so BitLinear
-    GEMMs run on the simulated DRIM fleet (`n_queues`: the "queued"
-    engine's queue count)."""
+    `ctx_len` is the caches' length (it sets the hybrid's attention
+    window).  engine None or "gpu": the native route (the packed-kernel
+    or dense BitLinear GEMMs on the params' device).  A registry engine
+    ("resident", "cuda"): the same decode step inside `serving_engine`,
+    so BitLinear GEMMs run on the simulated DRIM fleet (`n_queues`: the
+    "queued" engine's queue count)."""
     drim = engine if engine not in (None, NATIVE_ENGINE) else None
     if drim is not None:
         from repro_torch.pim.compiler import get_engine
@@ -74,7 +75,7 @@ def make_decode_fn(cfg, temperature: float = 0.0,
 
     def dec(p, tok, caches, pos, key):
         with serving_engine(drim, n_queues=n_queues):
-            lg, caches = decode_step(p, cfg, tok, caches, pos)
+            lg, caches = decode_step(p, cfg, tok, caches, pos, ctx_len)
         return sample_tokens(lg, temperature, key), caches
     return dec
 
@@ -83,9 +84,10 @@ def insert_request(caches, pre_caches, slot: int):
     """Splice one request's batch-1 prefill caches into `slot` of the
     batched decode caches, ZEROING the slot's previous contents first.
 
-    Caches are stacked [L, batch, ...] trees (layer axis 0, batch axis 1);
-    any leaf that cannot insert raises a shape-mismatch error naming the
-    cache path."""
+    Caches are stacked [L, batch, ...] trees (layer axis 0, batch axis 1;
+    a None subtree stays None); any leaf that cannot insert raises a
+    shape-mismatch error naming the cache path (the hybrid's [G, per,
+    batch, ...] groups among them, as in the reference)."""
     def ins(path, full, one):
         if (full.dim() != one.dim() or full.dim() < 2 or one.shape[1] != 1
                 or any(o > f for o, f in zip(one.shape, full.shape))):
@@ -122,12 +124,18 @@ class WaveBatcher:
     slots; `run()` loops until every request finished.  The `wave_log`
     records admissions, decoded request ids, per-request positions and
     occupancy per wave.  The pool lives on `device` (None: the card).
+    The hybrid family's caches nest differently ([G, per, batch, ...]),
+    so it is refused, as the reference refuses it.
     """
 
     def __init__(self, cfg, params, *, n_slots: int, ctx_len: int,
                  temperature: float = 0.0, seed: int = 0,
                  engine: Optional[str] = None,
                  n_queues: Optional[int] = None, device=None) -> None:
+        if cfg.family not in ("dense", "vlm", "moe", "ssm"):
+            raise NotImplementedError(
+                "continuous batching needs stacked [L, batch, ...] "
+                f"caches; family {cfg.family!r} nests differently")
         self.device = resolve_device(device)
         self.cfg = cfg
         self.params = params
@@ -135,7 +143,8 @@ class WaveBatcher:
         self.ctx_len = ctx_len
         self.temperature = temperature
         self._keys = np.random.default_rng(seed)
-        self._decode = make_decode_fn(cfg, temperature, engine, n_queues)
+        self._decode = make_decode_fn(cfg, ctx_len, temperature, engine,
+                                      n_queues)
         self.caches = empty_caches(cfg, n_slots, ctx_len, device=self.device)
         self.wave = 0
         self.wave_log: List[Dict[str, Any]] = []

@@ -29,7 +29,12 @@
     around queued launches closes before they finish (a "decode:token"
     span ends with the step's device sync);
   * --device: where to serve (default: the card; "cpu" runs the plain
-    torch versions of the kernels).
+    torch versions of the kernels);
+  * --arch: every ported arch (`configs.ARCHS`: drim-bnn, the dense
+    qwen3-14b, qwen3-32b, qwen2-72b and minitron-4b, the SSM mamba2-130m
+    and the hybrid zamba2-1.2b).  Only drim-bnn has BitLinear layers
+    (`bitlinear="ffn"`), so on the others every engine serves the native
+    route, as in the reference.
 
 Timing: the first decode step runs UNTIMED as warm-up and is reported as
 `compile_s` (first launches: kernel builds, DRIM lowerings), so
@@ -37,11 +42,14 @@ Timing: the first decode step runs UNTIMED as warm-up and is reported as
 
   * --n-queues: the queue count of --engine queued.
 
-Not ported yet (ROADMAP Queue 1 item 12): the reference's --mesh.
+Not ported yet (ROADMAP Queue 1 item 12): the reference's --mesh and
+its MoE, audio and vlm archs.
 
-CPU-scale example:
+CPU-scale examples:
   PYTHONPATH=src python -m repro_torch.launch.serve --arch drim-bnn \\
       --smoke-config --device cpu --engine resident --prompt-len 128 --gen 4
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch zamba2-1.2b \\
+      --smoke-config --device cpu --prompt-len 64 --gen 4
 """
 from __future__ import annotations
 
@@ -163,13 +171,13 @@ def pack_model_params(params):
 
 
 def _assert_packed_bit_exact(cfg, dense_params, packed_params, tok, caches,
-                             pos) -> None:
+                             pos, ctx_len: int) -> None:
     """--packed at temperature 0 must reproduce the dense STE path
     bitwise: the packed XNOR-popcount dot and the STE product both give
     the same exact integer, rounded once, so logits -- and served tokens
     -- must match."""
-    lg_dense = decode_step(dense_params, cfg, tok, caches, pos)[0]
-    lg_packed = decode_step(packed_params, cfg, tok, caches, pos)[0]
+    lg_dense = decode_step(dense_params, cfg, tok, caches, pos, ctx_len)[0]
+    lg_packed = decode_step(packed_params, cfg, tok, caches, pos, ctx_len)[0]
     ids_dense = lg_dense[:, -1, :].argmax(-1)
     ids_packed = lg_packed[:, -1, :].argmax(-1)
     if not torch.equal(ids_dense, ids_packed):
@@ -183,8 +191,9 @@ def _assert_packed_bit_exact(cfg, dense_params, packed_params, tok, caches,
                                "dense STE path")
 
 
-def make_resilient_decode(cfg, temperature: float, engine: str, n_queues,
-                          *, max_retries: int = 2, backoff_s: float = 0.05,
+def make_resilient_decode(cfg, ctx_len: int, temperature: float,
+                          engine: str, n_queues, *, max_retries: int = 2,
+                          backoff_s: float = 0.05,
                           sleep: Callable[[float], None] = time.sleep,
                           make_fn: Callable = make_decode_fn,
                           ) -> Tuple[Callable, Dict[str, Any],
@@ -205,13 +214,13 @@ def make_resilient_decode(cfg, temperature: float, engine: str, n_queues,
     "serve:incident" instant when armed).
 
     Returns (decode_fn, state, incidents); `state["engine"]` tracks the
-    engine currently serving.  `make_fn(cfg, temperature, engine,
-    n_queues)` builds a decode fn (`make_decode_fn`; the port's takes no
-    ctx_len, the caches carry it) and `sleep` waits; both are injectable
-    so tests drive the failure path with fakes and no wall-clock."""
+    engine currently serving.  `make_fn(cfg, ctx_len, temperature, engine,
+    n_queues)` builds a decode fn (`make_decode_fn`) and `sleep` waits;
+    both are injectable so tests drive the failure path with fakes and no
+    wall-clock."""
     state: Dict[str, Any] = {
         "engine": engine,
-        "fn": make_fn(cfg, temperature, engine, n_queues)}
+        "fn": make_fn(cfg, ctx_len, temperature, engine, n_queues)}
     incidents: List[Dict[str, Any]] = []
     clock0 = time.perf_counter()
 
@@ -244,8 +253,8 @@ def make_resilient_decode(cfg, temperature: float, engine: str, n_queues,
                         f"{state['engine']!r} ({max_retries} retries)")
                     book(rec, "fallback")
                     state["engine"] = NATIVE_ENGINE
-                    state["fn"] = make_fn(cfg, temperature, NATIVE_ENGINE,
-                                          n_queues)
+                    state["fn"] = make_fn(cfg, ctx_len, temperature,
+                                          NATIVE_ENGINE, n_queues)
                     attempt, delay = 0, backoff_s
                 else:
                     rec["action"] = "abort"
@@ -302,7 +311,7 @@ def run_serve(args, *, params=None, tokens=None,
               sleep: Callable[[float], None] = time.sleep,
               ) -> Tuple[np.ndarray, Dict[str, Any]]:
     """The static-batch serving loop; returns (generated ids [B, gen],
-    stats dict).  `params` (the port's tree, dense) and `tokens`
+    stats dict).  `params` (the port's tree) and `tokens`
     ([B, prompt_len]) replace the seeded weights and prompts; `make_fn`
     (`make_decode_fn`'s signature) builds the decode fn and, with
     --resilient, `make_resilient_decode` wraps it and backs off with
@@ -314,10 +323,11 @@ def run_serve(args, *, params=None, tokens=None,
     batch, prompt_len = st["logits"].shape[0], args.prompt_len
     if args.resilient:
         dec, eng_state, incidents = make_resilient_decode(
-            cfg, args.temperature, args.engine, args.n_queues,
-            make_fn=make_fn, sleep=sleep)
+            cfg, st["ctx_len"], args.temperature, args.engine,
+            args.n_queues, make_fn=make_fn, sleep=sleep)
     else:
-        dec = make_fn(cfg, args.temperature, args.engine, args.n_queues)
+        dec = make_fn(cfg, st["ctx_len"], args.temperature, args.engine,
+                      args.n_queues)
         eng_state, incidents = {"engine": args.engine}, []
 
     tok = st["logits"][:, -1, :].argmax(-1)[:, None]
@@ -325,7 +335,7 @@ def run_serve(args, *, params=None, tokens=None,
 
     if args.packed and args.temperature == 0:
         _assert_packed_bit_exact(cfg, st["dense_params"], params, tok,
-                                 caches, pos0)
+                                 caches, pos0, st["ctx_len"])
 
     # Untimed warm-up on the first step's exact shapes: first launches
     # (kernel builds, DRIM kernel traces and lowerings) land here.
@@ -411,7 +421,8 @@ def run_microbench(args) -> Tuple[None, Dict[str, Any]]:
     insert_stats = {"compile_s": ins_first, "avg_s": float(np.mean(times))}
 
     # generate: steady-state decode steps after one untimed warm-up
-    dec = make_decode_fn(cfg, args.temperature, args.engine, args.n_queues)
+    dec = make_decode_fn(cfg, ctx_len, args.temperature, args.engine,
+                         args.n_queues)
     tok = logits[:, -1, :].argmax(-1)[:, None]
     pos0 = torch.full((args.batch,), args.prompt_len, dtype=torch.long,
                       device=dev)

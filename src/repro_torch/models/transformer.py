@@ -1,24 +1,34 @@
-"""Model trunk for the dense family (port of `repro.models.transformer`).
+"""Model trunk for the dense, SSM and hybrid families (port of
+`repro.models.transformer`).
 
 Public interface (functions of (params, cfg, ...)):
 
   init_params(seed, cfg, device=)              -> params
   train_loss(params, cfg, batch)               -> (loss, metrics)
   prefill(params, cfg, batch)                  -> (logits_last, caches)
-  decode_step(params, cfg, tokens, caches, pos) -> (logits, caches)
+  decode_step(params, cfg, tokens, caches, pos, ctx_len) -> (logits, caches)
   empty_caches(cfg, batch, s_max, device=)     -> caches
   lm_from_jax(params, cfg, device=)            -> params
 
+Family assembly:
+  dense           : N x dense_block
+  ssm             : N x ssm_block (Mamba2 SSD)
+  hybrid (zamba2) : G groups of [attn_every x ssm_block], each followed by
+                    the one shared dense_block (weights SHARED across
+                    sites, a cache per site), then the tail ssm_blocks
+
 Layers are stacked ([L, ...] leaves, as the reference stacks them for
-`lax.scan`) and driven by a Python loop over layers.  Nothing is traced,
-so one decode loop serves every route: `decode_step_eager`, the
-reference's untraced twin of its scanned `decode_step` for the DRIM
-engines, is the same function here.  For training, `cfg.remat` wraps
-each layer in `torch.utils.checkpoint` (the reference wraps its scan
-body in `jax.checkpoint`): the backward runs each layer's forward again,
-so a step runs the flash forward kernel twice per layer.  The
-reference's other families (MoE, SSM, hybrid, audio, vlm) come later
-(ROADMAP Queue 1 item 12).
+`lax.scan`; the hybrid's groups [G, per, ...]) and driven by Python
+loops.  Nothing is traced, so one decode loop serves every route:
+`decode_step_eager`, the reference's untraced twin of its scanned
+`decode_step` for the DRIM engines, is the same function here.
+`ctx_len`, the decode cache length, sets the hybrid's attention window
+(`_window_for`); a prefill's window comes from its own length.  For
+training, `cfg.remat` wraps each layer (the hybrid: each group) in
+`torch.utils.checkpoint`, as the reference wraps its scan bodies in
+`jax.checkpoint`: the backward runs that forward again, so a dense step
+runs the flash forward kernel twice per layer.  The reference's MoE,
+audio and vlm families come later (ROADMAP Queue 1 item 12).
 """
 from __future__ import annotations
 
@@ -31,17 +41,43 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.device import resolve_device
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import blocks as B
+from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.layers import Params, rmsnorm, rmsnorm_init
-from repro_torch.tree import tree_map, tree_slice, tree_stack, tree_unstack
+from repro_torch.tree import (tree_leaves, tree_map, tree_slice, tree_stack,
+                             tree_unstack)
 
 LB_COEF, Z_COEF = 0.01, 1e-3
+LONG_CTX_THRESHOLD = 131072
 
 
-def _dense_only(cfg) -> None:
-    if cfg.family != "dense":
+def _check_family(cfg) -> None:
+    if cfg.family not in ("dense", "ssm", "hybrid"):
         raise NotImplementedError(
             f"family {cfg.family!r} is not ported to repro_torch yet: "
             "ROADMAP Queue 1 item 12")
+
+
+def _window_for(cfg, ctx_len: int) -> int:
+    """The hybrid's shared attention is windowed at long context."""
+    if cfg.family == "hybrid" and ctx_len >= LONG_CTX_THRESHOLD:
+        return cfg.long_context_window
+    return 0
+
+
+def _block_fns(cfg):
+    _check_family(cfg)
+    if cfg.family == "dense":
+        return B.dense_block_init, B.dense_block, B.dense_block_decode
+    if cfg.family == "ssm":
+        return B.ssm_block_init, B.ssm_block, B.ssm_block_decode
+    raise ValueError(cfg.family)
+
+
+def _hybrid_layout(cfg) -> Tuple[int, int, int]:
+    """(n_groups, per_group, tail) for the zamba2 layout."""
+    per = cfg.attn_every
+    groups = cfg.n_layers // per
+    return groups, per, cfg.n_layers - groups * per
 
 
 def padded_vocab(cfg) -> int:
@@ -57,7 +93,7 @@ def init_params(seed, cfg, *, device=None) -> Params:
     """Seeded parameters (an int seed or a `torch.Generator`), drawn on
     the CPU so a seed gives the same weights on every machine, then moved
     to `device` (None: the card)."""
-    _dense_only(cfg)
+    _check_family(cfg)
     dev = resolve_device(device)
     gen = (seed if isinstance(seed, torch.Generator)
            else torch.Generator().manual_seed(int(seed)))
@@ -67,9 +103,21 @@ def init_params(seed, cfg, *, device=None) -> Params:
         "embed": (torch.randn(v, d, generator=gen) * 0.01).to(dtype),
         "final_norm": rmsnorm_init(d),
         "head": (torch.randn(d, v, generator=gen) * 0.01).to(dtype),
-        "layers": tree_stack([B.dense_block_init(gen, cfg, dtype=dtype)
-                              for _ in range(cfg.n_layers)]),
     }
+
+    def stacked(init_fn, n: int):
+        return tree_stack([init_fn(gen, cfg, dtype=dtype) for _ in range(n)])
+
+    if cfg.family == "hybrid":
+        groups, per, tail = _hybrid_layout(cfg)
+        p["mamba_groups"] = tree_map(
+            lambda t: t.reshape(groups, per, *t.shape[1:]),
+            stacked(B.ssm_block_init, groups * per))
+        if tail:
+            p["mamba_tail"] = stacked(B.ssm_block_init, tail)
+        p["shared"] = B.dense_block_init(gen, cfg, dtype=dtype)
+    else:
+        p["layers"] = stacked(_block_fns(cfg)[0], cfg.n_layers)
     return tree_map(lambda t: t.to(dev), p)
 
 
@@ -85,18 +133,28 @@ def _to_torch(a: np.ndarray, device) -> torch.Tensor:
     return torch.from_numpy(a).to(device)
 
 
+def _depth(p: Params) -> int:
+    """Stacked layers in a parameter tree: `layers`, or the hybrid's
+    `mamba_groups` [G, per, ...] plus `mamba_tail`."""
+    if "layers" in p:
+        return tree_leaves(p["layers"])[0].shape[0]
+    g = tree_leaves(p["mamba_groups"])[0]
+    tail = tree_leaves(p.get("mamba_tail"))
+    return g.shape[0] * g.shape[1] + (tail[0].shape[0] if tail else 0)
+
+
 def lm_from_jax(params, cfg, *, device=None) -> Params:
-    """The reference's stacked [L, ...] parameter tree (numpy arrays, as
+    """The reference's stacked parameter tree (numpy arrays, as
     `jax.tree.map(np.asarray, params)` gives them) as the port's, each
     leaf keeping its dtype."""
-    _dense_only(cfg)
+    _check_family(cfg)
     dev = resolve_device(device)
     out = tree_map(lambda a: _to_torch(np.asarray(a), dev), params)
     embed = tuple(out["embed"].shape)
     if embed != (padded_vocab(cfg), cfg.d_model):
         raise ValueError(f"embed {embed} does not match the config's "
                          f"({padded_vocab(cfg)}, {cfg.d_model})")
-    depth = out["layers"]["attn_norm"]["scale"].shape[0]
+    depth = _depth(out)
     if depth != cfg.n_layers:
         raise ValueError(f"{depth} stacked layers, the config has "
                          f"{cfg.n_layers}")
@@ -121,8 +179,8 @@ def _logits(p, cfg, x: torch.Tensor) -> torch.Tensor:
 
 # --- full-sequence forward (train / prefill) ---------------------------------
 
-def _layer(layer_p, cfg, x, positions):
-    return B.dense_block(layer_p, cfg, x, positions)[0]
+def _layer(block_fn, layer_p, cfg, x, positions, window):
+    return block_fn(layer_p, cfg, x, positions, window=window)[0]
 
 
 def _forward_full(p, cfg, batch: Dict[str, Any], *, with_cache: bool):
@@ -130,19 +188,61 @@ def _forward_full(p, cfg, batch: Dict[str, Any], *, with_cache: bool):
     bsz, s = tokens.shape
     positions = torch.arange(s, device=tokens.device)[None, :] \
         .expand(bsz, s)
+    window = _window_for(cfg, s)
     x = _embed(p, cfg, tokens)
     aux = {k: torch.tensor(v, device=x.device)
            for k, v in B.ZERO_AUX.items()}
     remat = cfg.remat and not with_cache and torch.is_grad_enabled()
+    if cfg.family == "hybrid":
+        x, caches = _hybrid_full(p, cfg, x, positions, window, remat=remat,
+                                 with_cache=with_cache)
+        return x, aux, caches
+    _, block_fn, _ = _block_fns(cfg)
     caches = []
     for layer_p in tree_unstack(p["layers"], cfg.n_layers):
         if remat:
-            x = checkpoint(_layer, layer_p, cfg, x, positions,
-                           use_reentrant=False)
+            x = checkpoint(_layer, block_fn, layer_p, cfg, x, positions,
+                           window, use_reentrant=False)
         else:
-            x, cache = B.dense_block(layer_p, cfg, x, positions)
+            x, cache = block_fn(layer_p, cfg, x, positions, window=window)
             caches.append(cache)
     return x, aux, (tree_stack(caches) if with_cache else None)
+
+
+def _hybrid_full(p, cfg, x, positions, window, *, remat: bool,
+                 with_cache: bool):
+    """The zamba2 trunk: each group's ssm blocks, then the shared dense
+    block at that group's site; then the tail blocks.  Caches
+    {"groups" [G, per, ...], "shared" [G, ...], "tail" [T, ...] or None}."""
+    groups, per, tail = _hybrid_layout(cfg)
+
+    def group(group_p, h):
+        m_caches = []
+        for layer_p in tree_unstack(group_p, per):
+            h, cache = B.ssm_block(layer_p, cfg, h)
+            m_caches.append(cache)
+        h, a_cache = B.dense_block(p["shared"], cfg, h, positions,
+                                   window=window)
+        return h, tree_stack(m_caches), a_cache
+
+    g_caches, s_caches = [], []
+    for group_p in tree_unstack(p["mamba_groups"], groups):
+        if remat:
+            x = checkpoint(lambda gp, h: group(gp, h)[0], group_p, x,
+                           use_reentrant=False)
+        else:
+            x, m_cache, a_cache = group(group_p, x)
+            g_caches.append(m_cache)
+            s_caches.append(a_cache)
+    t_caches = []
+    for layer_p in tree_unstack(p.get("mamba_tail"), tail):
+        x, cache = B.ssm_block(layer_p, cfg, x)
+        t_caches.append(cache)
+    if not with_cache:
+        return x, None
+    return x, {"groups": tree_stack(g_caches),
+               "shared": tree_stack(s_caches),
+               "tail": tree_stack(t_caches) if tail else None}
 
 
 # --- train loss --------------------------------------------------------------
@@ -169,23 +269,29 @@ def train_loss(params, cfg, batch: Dict[str, Any]
 
 def prefill(params, cfg, batch: Dict[str, Any]) -> Tuple[torch.Tensor, Any]:
     """batch {"tokens": [B, S]} -> (logits of the last position [B, 1, V]
-    float32, caches stacked [L, B, S, Hkv, Dh])."""
+    float32, caches: stacked [L, B, S, Hkv, Dh] keys and values (dense),
+    [L, B, ...] SSM states (ssm), or the hybrid's nested tree)."""
     x, _, caches = _forward_full(params, cfg, batch, with_cache=True)
     return _logits(params, cfg, x[:, -1:, :]), caches
 
 
 # --- decode ------------------------------------------------------------------
 
-def decode_step(params, cfg, tokens: torch.Tensor, caches, pos: torch.Tensor
-                ) -> Tuple[torch.Tensor, Any]:
-    """tokens [B, 1]; pos [B] write index -> (logits [B, 1, V] float32,
-    new caches).  Inside a `layers.serving_engine` scope the BitLinear
-    GEMMs run on the DRIM fleet."""
+def decode_step(params, cfg, tokens: torch.Tensor, caches, pos: torch.Tensor,
+                ctx_len: int) -> Tuple[torch.Tensor, Any]:
+    """tokens [B, 1]; pos [B] write index; ctx_len the cache length ->
+    (logits [B, 1, V] float32, new caches).  Inside a
+    `layers.serving_engine` scope the BitLinear GEMMs run on the DRIM
+    fleet."""
+    window = _window_for(cfg, ctx_len)
     x = _embed(params, cfg, tokens)
+    if cfg.family == "hybrid":
+        return _hybrid_decode(params, cfg, x, caches, pos, window)
+    _, _, decode_fn = _block_fns(cfg)
     new_caches = []
     for i in range(cfg.n_layers):
-        x, nc = B.dense_block_decode(tree_slice(params["layers"], i), cfg, x,
-                                     tree_slice(caches, i), pos)
+        x, nc = decode_fn(tree_slice(params["layers"], i), cfg, x,
+                          tree_slice(caches, i), pos, window=window)
         new_caches.append(nc)
     return _logits(params, cfg, x), tree_stack(new_caches)
 
@@ -193,13 +299,54 @@ def decode_step(params, cfg, tokens: torch.Tensor, caches, pos: torch.Tensor
 decode_step_eager = decode_step
 
 
+def _hybrid_decode(params, cfg, x, caches, pos, window):
+    groups, per, tail = _hybrid_layout(cfg)
+    new_groups, new_shared = [], []
+    for g in range(groups):
+        group_p = tree_slice(params["mamba_groups"], g)
+        group_c = tree_slice(caches["groups"], g)
+        new_m = []
+        for i in range(per):
+            x, nc = B.ssm_block_decode(tree_slice(group_p, i), cfg, x,
+                                       tree_slice(group_c, i))
+            new_m.append(nc)
+        x, new_a = B.dense_block_decode(params["shared"], cfg, x,
+                                        tree_slice(caches["shared"], g), pos,
+                                        window=window)
+        new_groups.append(tree_stack(new_m))
+        new_shared.append(new_a)
+    new_tail = []
+    for i in range(tail):
+        x, nc = B.ssm_block_decode(tree_slice(params["mamba_tail"], i), cfg,
+                                   x, tree_slice(caches["tail"], i))
+        new_tail.append(nc)
+    return _logits(params, cfg, x), {
+        "groups": tree_stack(new_groups), "shared": tree_stack(new_shared),
+        "tail": tree_stack(new_tail) if tail else None}
+
+
 # --- cache constructors ------------------------------------------------------
 
 def empty_caches(cfg, batch: int, s_max: int, dtype=torch.bfloat16,
                  device=None):
-    """Zeroed decode caches stacked [L, batch, s_max, Hkv, Dh] (prefill
-    produces the same layout)."""
+    """Zeroed decode caches in prefill's layout: dense [L, batch, s_max,
+    Hkv, Dh] keys and values (`dtype`); ssm [L, batch, ...] float32
+    states; hybrid {"groups" [G, per, batch, ...], "shared" [G, batch,
+    s_max, Hkv, Dh], "tail" [T, batch, ...] or None}."""
+    _check_family(cfg)
     dev = resolve_device(device)
-    one = attn_mod.gqa_empty_cache(cfg, batch, s_max, dtype, dev)
-    return tree_map(lambda t: t[None].expand(cfg.n_layers, *t.shape)
-                    .contiguous(), one)
+
+    def stack(n, c):
+        return tree_map(lambda t: t[None].expand(n, *t.shape).contiguous(), c)
+
+    if cfg.family == "dense":
+        return stack(cfg.n_layers, attn_mod.gqa_empty_cache(
+            cfg, batch, s_max, dtype, dev))
+    m = ssm_mod.ssm_empty_cache(cfg, batch, device=dev)
+    if cfg.family == "ssm":
+        return stack(cfg.n_layers, m)
+    groups, per, tail = _hybrid_layout(cfg)
+    return {"groups": stack(groups, stack(per, m)),
+            "shared": stack(groups, attn_mod.gqa_empty_cache(
+                cfg, batch, s_max, dtype, dev)),
+            "tail": stack(tail, m) if tail else None}

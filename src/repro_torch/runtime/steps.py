@@ -127,8 +127,8 @@ def make_prefill_step(cfg):
 
 
 def make_decode_step(cfg, ctx_len: int):
-    """`ctx_len` is the cache length; it selects the attention window of
-    the hybrid family only, so the dense decode step does not read it."""
+    """`ctx_len` is the cache length; it selects the hybrid family's
+    attention window."""
     def fn(params, tokens, caches, pos):
-        return model_decode(params, cfg, tokens, caches, pos)
+        return model_decode(params, cfg, tokens, caches, pos, ctx_len)
     return fn

@@ -1,8 +1,10 @@
 """Nested-dict parameter and cache trees: the few pytree operations the
 port needs (the reference uses `jax.tree` and `jax.tree_util`).
 
-Dicts are inner nodes; everything else is a leaf.  Paths are written as
-`jax.tree_util.keystr` writes them, e.g. "['layers']['attn']['wq']".
+Dicts are inner nodes, None is an empty subtree (as in `jax.tree`: the
+hybrid family's cache has a None `tail` when its depth leaves none), and
+everything else is a leaf.  Paths are written as `jax.tree_util.keystr`
+writes them, e.g. "['layers']['attn']['wq']".
 """
 from __future__ import annotations
 
@@ -13,6 +15,8 @@ import torch
 
 def tree_map(fn: Callable, tree, *rest):
     """fn over the leaves of `tree` and the matching leaves of `rest`."""
+    if tree is None:
+        return None
     if isinstance(tree, dict):
         return {k: tree_map(fn, v, *(r[k] for r in rest))
                 for k, v in tree.items()}
@@ -21,6 +25,8 @@ def tree_map(fn: Callable, tree, *rest):
 
 def tree_map_with_path(fn: Callable, tree, *rest, path: str = ""):
     """fn(path, leaf, *matching leaves) over the leaves of `tree`."""
+    if tree is None:
+        return None
     if isinstance(tree, dict):
         return {k: tree_map_with_path(fn, v, *(r[k] for r in rest),
                                       path=f"{path}[{k!r}]")
@@ -56,6 +62,8 @@ def tree_stack(trees: Sequence[Any]):
 def tree_leaves(tree) -> list:
     """The leaves in the order `jax.tree.leaves` gives them (dict keys
     sorted), so that sums over a tree add in the reference's order."""
+    if tree is None:
+        return []
     if isinstance(tree, dict):
         return [leaf for key in sorted(tree)
                 for leaf in tree_leaves(tree[key])]

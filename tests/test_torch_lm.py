@@ -119,7 +119,7 @@ def test_configs_match_the_reference(jref):
             assert getattr(ct, f.name) == getattr(cj, f.name), f.name
     assert configs.get_config("drim-bnn").activation_dtype == torch.bfloat16
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        configs.get_config("qwen3-14b")
+        configs.get_config("whisper-medium")
     with pytest.raises(KeyError):
         configs.get_config("no-such-arch")
 
@@ -247,7 +247,7 @@ def test_prefill_and_three_decode_steps(jref, model):
         lj, cache_j = jref.models.decode_step(pj, cj, tok_j, cache_j,
                                               jref.jnp.asarray(pos), CTX)
         lt, cache_t = models.decode_step(pt, ct, tok_t, cache_t,
-                                         torch.from_numpy(pos))
+                                         torch.from_numpy(pos), CTX)
         close(lt, lj, TOL[dtype])
         for name in ("k", "v"):
             close(cache_t[name], cache_j[name], CACHE_TOL[dtype])

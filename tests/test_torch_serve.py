@@ -132,11 +132,12 @@ def test_packed_check_catches_divergence():
     tok = torch.zeros(2, 1, dtype=torch.long)
     caches = models.empty_caches(cfg, 2, 8, device="cpu")
     pos = torch.zeros(2, dtype=torch.long)
-    serve._assert_packed_bit_exact(cfg, dense, packed, tok, caches, pos)
+    serve._assert_packed_bit_exact(cfg, dense, packed, tok, caches, pos, 8)
     flipped = tree_map(lambda t: t, packed)
     flipped["head"] = -packed["head"]
     with pytest.raises((RuntimeError, AssertionError)):
-        serve._assert_packed_bit_exact(cfg, dense, flipped, tok, caches, pos)
+        serve._assert_packed_bit_exact(cfg, dense, flipped, tok, caches, pos,
+                                       8)
 
 
 # --- the CLI and its boundaries -------------------------------------------------
@@ -360,10 +361,10 @@ def test_submit_rejects_overlong_request():
 
 # --- --microbench, --resilient, --telemetry / --trace-out -----------------------
 
-def _fake_decode_factory(fail_plan, ref=False):
-    """make_fn stand-in (the reference's signature with `ref`):
-    `fail_plan[engine]` is how many times a decode step on that engine
-    raises before succeeding."""
+def _fake_decode_factory(fail_plan):
+    """make_fn stand-in (`make_decode_fn`'s signature, the reference's
+    too): `fail_plan[engine]` is how many times a decode step on that
+    engine raises before succeeding."""
     made = []
 
     def build(engine):
@@ -377,10 +378,8 @@ def _fake_decode_factory(fail_plan, ref=False):
             return ("tok", engine)
         return dec
 
-    if ref:
-        return (lambda cfg, ctx_len, temperature, engine, n_queues:
-                build(engine)), made
-    return (lambda cfg, temperature, engine, n_queues: build(engine)), made
+    return (lambda cfg, ctx_len, temperature, engine, n_queues:
+            build(engine)), made
 
 
 def _port_view(incidents):
@@ -412,13 +411,11 @@ def test_resilient_incidents_equal_reference(case, jref):
     engine, plan, retries, backoff = RESILIENT[case]
     runs = []
     for pkg, reg in ((serve, telemetry), (jref.serve, ref_telemetry)):
-        ref = pkg is jref.serve
-        make_fn, made = _fake_decode_factory(plan, ref=ref)
+        make_fn, made = _fake_decode_factory(plan)
         naps = []
-        head = (None, 16) if ref else (None,)
         with reg.fresh():
             dec, state, incidents = pkg.make_resilient_decode(
-                *head, 0.0, engine, 4, max_retries=retries,
+                None, 16, 0.0, engine, 4, max_retries=retries,
                 backoff_s=backoff, sleep=naps.append, make_fn=make_fn)
             try:
                 out = [dec(), dec()]
@@ -454,12 +451,13 @@ def test_resilient_serve_falls_back_to_the_native_route(gpu_run):
     route serves the native tokens."""
     gen_g, _ = gpu_run
 
-    def make_fn(cfg, temperature, engine, n_queues):
+    def make_fn(cfg, ctx_len, temperature, engine, n_queues):
         if engine == "resident":
             def broken(*args):
                 raise RuntimeError("resident queue wedged")
             return broken
-        return batching.make_decode_fn(cfg, temperature, engine, n_queues)
+        return batching.make_decode_fn(cfg, ctx_len, temperature, engine,
+                                       n_queues)
 
     args = serve.parse_args(TINY + CPU + ["--engine", "resident",
                                           "--resilient"])

@@ -545,7 +545,7 @@ def test_prefill_and_decode_steps_wrap_the_model():
     empty = models.empty_caches(cfg, 2, 12, device="cpu")
     pos = torch.tensor([0, 0])
     got, _ = steps.make_decode_step(cfg, 12)(params, toks[:, :1], empty, pos)
-    want, _ = models.decode_step(params, cfg, toks[:, :1], empty, pos)
+    want, _ = models.decode_step(params, cfg, toks[:, :1], empty, pos, 12)
     assert torch.equal(got, want)
 
 
