@@ -52,7 +52,9 @@ Phases, each fatal on failure:
                 the training shape and the bfloat16 tensor-core kernels'
                 edges (FLASH_BF16_EDGES), the forward also at the families
                 phase's prefills (zamba2 [4, 32, 512, 64], n_rep 1;
-                qwen3-14b [4, 40, 256, 128] over 8 KV heads, n_rep 5), a
+                qwen3-14b [4, 40, 256, 128] over 8 KV heads, n_rep 5;
+                kimi-k2 [4, 64, 256, 128] over 8 KV heads, n_rep 8;
+                whisper-medium's decoder [4, 16, 256, 64], n_rep 1), a
                 "detail" line each;
   3. path    -- one drim-bnn FFN BitLinear pair at full width (768 -> 3072
                 -> 768) on M = 512 activation rows, weights from a seeded
@@ -71,25 +73,36 @@ Phases, each fatal on failure:
                 (the second takes the dense-scores attention) into 2
                 slots, native packed and DRIM packed, with identical
                 tokens per request;
-  4b. families -- the SSM, hybrid and dense families at full width
-                through `run_serve` on the "gpu" route, seeded weights,
-                batch 4, 8 greedy tokens: mamba2-130m at its 24 layers
-                (a 1024-token prompt, 4 SSD chunks), zamba2-1.2b at its
-                38 (512 tokens, 2 chunks; the shared attention block at
+  4b. families -- the SSM, hybrid, dense, MoE and audio families at
+                full width through `run_serve` on the "gpu" route, seeded
+                weights, batch 4, 8 greedy tokens: mamba2-130m at its 24
+                layers (a 1024-token prompt, 4 SSD chunks), zamba2-1.2b at
+                its 38 (512 tokens, 2 chunks; the shared attention block at
                 its 6 group sites), qwen3-14b at full width cut from 40
-                layers to 2 (256 tokens; GQA n_rep 5 at d_head 128); each
-                leg's prefill_s, decode tok/s and p50/p99 (host clock),
-                every logits tensor finite and every token id inside the
-                vocabulary, and after each, outside its count, 3 decode
-                steps under `torch.profiler` (device ms and launches a
-                step, the idle share of the p50 step); then two mamba2 requests (1024 and 512
-                tokens) through the continuous batcher, which must refuse
-                zamba2 as the reference's does; then the float32 smoke
-                configs of mamba2 and zamba2 prefilled on the card and on
-                the CPU (FAMILY_REF_TOL), and one full-width mamba2 mixer's
-                prefill state against stepping its decode token by token
-                on the card (the reference's 0.05, SSM_EQUIV_TOL)
-                ("families" lines);
+                layers to 2 (256 tokens; GQA n_rep 5 at d_head 128),
+                deepseek-v3-671b and kimi-k2-1t-a32b at full width cut from
+                61 layers to 1 (256 tokens; 256 experts top-8 behind MLA,
+                which takes dense scores; 384 experts top-8 behind GQA
+                n_rep 8 at d_head 128), whisper-medium at its 24 + 24
+                layers over 1500 zero frames (256 tokens; the decoder's
+                self-attention on flash, the encoder and the
+                cross-attention on dense scores); each leg's host weight
+                draw (init_s), prefill_s, decode tok/s and p50/p99 (host
+                clock), every logits tensor finite and every token id
+                inside the vocabulary, and after each, outside its count,
+                3 decode steps under `torch.profiler` (device ms and
+                launches a step, the idle share of the p50 step); the
+                full-width deepseek-v3 decode step run twice, bitwise
+                equal logits (the deterministic combine); then two mamba2
+                requests (1024 and 512 tokens) through the continuous
+                batcher, which must refuse zamba2 as the reference's does;
+                then the float32 smoke configs of mamba2, zamba2,
+                deepseek-v3, kimi-k2 and whisper-medium prefilled on the
+                card and on the CPU (FAMILY_REF_TOL; the MoE archs' top-k
+                expert choices that differ between the two counted), and
+                one full-width mamba2 mixer's prefill state against
+                stepping its decode token by token on the card (the
+                reference's 0.05, SSM_EQUIV_TOL) ("families" lines);
   5. faults  -- Table-3 fault injection (the +-15% corner of the paper)
                 on the carry-save K=128 serving dot at full width: DRIM-R,
                 4 waves, 262,144 words per input plane, bare and hardened
@@ -198,7 +211,8 @@ Phases, each fatal on failure:
                 leg exactly the launches its route implies
                 (`expected_launches`), each of phase 4b's four legs the
                 flash forward once per attention site of its prefill
-                (mamba2 0, zamba2 6, qwen3-14b 2, continuous 0) and
+                (mamba2 0, zamba2 6, qwen3-14b 2, deepseek-v3 0, kimi-k2
+                1, whisper-medium 24, continuous 0) and
                 nothing else, phase 5 the faulted interpreter
                 once per faulted "cuda" run and the fault-free one once,
                 phase 6 one bulk kernel per "gpu" op run and per non-copy
@@ -303,14 +317,18 @@ TRAIN = ["--arch", "drim-bnn", "--steps", str(TRAIN_STEPS), "--batch", "8",
 TRAIN_LOSS_RTOL, TRAIN_GRAD_RTOL = 1e-5, 1e-3
 SERVE = ["--arch", "drim-bnn", "--batch", "4", "--prompt-len", "256",
          "--gen", "8", "--seed", str(SEED), "--temperature", "0"]
-# The families phase: the SSM, hybrid and dense archs served at full width
-# (arch, depth cut or 0 for the published depth, prompt length, flash
-# launches of the one aligned prefill: an attention site each -- none in
-# mamba2, one per group site in zamba2, one per layer in qwen3-14b).
-# qwen3-14b keeps its width and is cut from 40 layers to 2, so that its
-# host-side initialisation stays short.
+# The families phase: the SSM, hybrid, dense, MoE and audio archs served
+# at full width (arch, depth cut or 0 for the published depth, prompt
+# length, flash launches of the one aligned prefill: a GQA attention site
+# each -- none in mamba2, one per group site in zamba2, one per layer in
+# qwen3-14b and kimi-k2, none behind deepseek-v3's MLA, one per decoder
+# layer in whisper).  qwen3-14b keeps its width and is cut from 40 layers
+# to 2, so that its host-side initialisation stays short; the two MoE
+# archs keep theirs and are cut from 61 layers to 1 (26.7 GB and 38.9 GB
+# in bfloat16, 13.4 B and 19.4 B weights drawn on the host).
 FAMILIES = (("mamba2-130m", 0, 1024, 0), ("zamba2-1.2b", 0, 512, 6),
-            ("qwen3-14b", 2, 256, 2))
+            ("qwen3-14b", 2, 256, 2), ("deepseek-v3-671b", 1, 256, 0),
+            ("kimi-k2-1t-a32b", 1, 256, 1), ("whisper-medium", 0, 256, 24))
 FAMILY_BATCH, FAMILY_GEN = 4, 8
 FAMILY_CONTINUOUS = (1024, 512)         # two mamba2 requests' prompts
 # The float32 smoke configs' prefill on the card against the CPU: mamba2
@@ -318,8 +336,13 @@ FAMILY_CONTINUOUS = (1024, 512)         # two mamba2 requests' prompts
 # magnitude, since its scan rounds product operands to bfloat16 in
 # float32 too and the shared attention amplifies a one-ulp change (a
 # 1.2e-7 relative nudge of the embeddings moves its CPU logits by ~1e-4:
-# tests/test_torch_families.py).
-FAMILY_REF_TOL = {"mamba2-130m": 1e-3, "zamba2-1.2b": 1.6e-2}
+# tests/test_torch_families.py); deepseek-v3, kimi-k2 and whisper-medium
+# at the drim-bnn check's 1e-3 of the logits' magnitude (cuBLAS and the
+# CPU sum float32 in other orders, ~1e-6 relative; a top-k choice that a
+# near-tie flips would show as a larger error, and the check counts them).
+FAMILY_REF_TOL = {"mamba2-130m": 1e-3, "zamba2-1.2b": 1.6e-2,
+                  "deepseek-v3-671b": 1e-3, "kimi-k2-1t-a32b": 1e-3,
+                  "whisper-medium": 1e-3}
 # A full-width mamba2 layer's prefill against stepping its decode token by
 # token: the reference's tolerances (tests/test_ssm_equiv.py): state 0.05,
 # outputs 0.08, conv window 1e-4.
@@ -915,11 +938,14 @@ def phase_flash(rng):
         (1, 4, 1, 64, 192, 128, 64, 64, True, torch.float32),
         (1, 2, 2, 256, 256, 32, 128, 64, False, torch.float32),
         # the training step's shape, the families phase's prefills
-        # (zamba2's shared block, n_rep 1; qwen3-14b, n_rep 5 at D = 128),
-        # then the tensor-core kernel's edges
+        # (zamba2's shared block, n_rep 1; qwen3-14b, n_rep 5 at D = 128;
+        # kimi-k2, n_rep 8 at D = 128; whisper's decoder, n_rep 1), then
+        # the tensor-core kernel's edges
         (8, 12, 4, 256, 256, 64, 128, 128, True, torch.bfloat16),
         (4, 32, 32, 512, 512, 64, 128, 128, True, torch.bfloat16),
         (4, 40, 8, 256, 256, 128, 128, 128, True, torch.bfloat16),
+        (4, 64, 8, 256, 256, 128, 128, 128, True, torch.bfloat16),
+        (4, 16, 16, 256, 256, 64, 128, 128, True, torch.bfloat16),
         *FLASH_BF16_EDGES]
     record = None
     for b, h, hkv, sq, sk, d, bq, bk, causal, dt in cases:
@@ -2716,10 +2742,23 @@ def check_served(leg: str, gen, cfg, flags, n_gen: int, n_calls: int):
                              f"{n_calls}), finite {[bool(f) for f in flags]}")
 
 
+def attention_sites(cfg) -> int:
+    """GQA attention sites of a prefill, each one flash launch where the
+    prompt is block-aligned: a layer each in the dense archs, the GQA moe
+    archs and whisper's decoder (its encoder and cross-attention take
+    dense scores), none behind MLA or in mamba2, a group site each in the
+    hybrid."""
+    if cfg.family in ("dense", "audio") or (cfg.family == "moe"
+                                            and not cfg.mla):
+        return cfg.n_layers
+    return cfg.n_layers // cfg.attn_every if cfg.attn_every else 0
+
+
 def phase_families(wrappers):
-    """The SSM, hybrid and dense families served through `run_serve` on
-    the "gpu" route at full width: mamba2-130m and zamba2-1.2b at their
-    published depth, qwen3-14b cut to 2 layers; then two mamba2 requests
+    """The SSM, hybrid, dense, MoE and audio families served through
+    `run_serve` on the "gpu" route at full width: mamba2-130m, zamba2-1.2b
+    and whisper-medium at their published depth, qwen3-14b cut to 2
+    layers, deepseek-v3 and kimi-k2 to 1; then two mamba2 requests
     through the continuous batcher, and the batcher refusing zamba2.  Each
     leg's launches are counted on their own (flash once per attention
     site of the aligned prefill); returns the phase's counts summed."""
@@ -2737,8 +2776,7 @@ def phase_families(wrappers):
             argv += ["--layers", str(layers)]
         args = serve.parse_args(argv)
         cfg = serve.build_cfg(args)
-        sites = (cfg.n_layers if cfg.family == "dense" else
-                 cfg.n_layers // cfg.attn_every if cfg.attn_every else 0)
+        sites = attention_sites(cfg)
         if sites != n_flash:
             raise AssertionError(f"{arch}: {sites} attention sites, "
                                  f"FAMILIES expects {n_flash}")
@@ -2758,7 +2796,10 @@ def phase_families(wrappers):
         print("families " + json.dumps({
             "leg": arch, "family": cfg.family, "n_layers": cfg.n_layers,
             "published_layers": get_config(arch).n_layers,
+            "encoder_layers": cfg.encoder_layers,
             "d_model": cfg.d_model, "params": cfg.param_count(),
+            "active_params": cfg.active_param_count(),
+            "experts": cfg.n_experts, "top_k": cfg.top_k, "mla": cfg.mla,
             "batch": FAMILY_BATCH, "prompt": prompt, "gen": FAMILY_GEN,
             "init_s": init_s, "prefill_s": stats["prefill_s"],
             "compile_s": stats["compile_s"],
@@ -2769,9 +2810,12 @@ def phase_families(wrappers):
             "logits_finite": True, "ids_in_vocab": True,
             "sample_ids": stats["sample_ids"]}))
         profile_decode(arch, cfg, params, prompt, stats["decode_p50_ms"])
+        if cfg.family == "moe" and cfg.mla:
+            check_decode_repeats(arch, cfg, params, prompt)
         if arch == "mamba2-130m":
             mamba_params = params
         del params
+        torch.cuda.empty_cache()
 
     # continuous batching: two mamba2 requests into two slots
     args = serve.parse_args(["--arch", "mamba2-130m", "--batch", "2",
@@ -2828,7 +2872,7 @@ def profile_decode(arch: str, cfg, params, prompt: int, step_ms: float):
     toks = torch.from_numpy(np.random.default_rng([SEED, 8]).integers(
         0, cfg.vocab_size, (FAMILY_BATCH, prompt))).to(dev)
     ctx_len = prompt + FAMILY_GEN
-    logits, pre = prefill(params, cfg, {"tokens": toks})
+    logits, pre = prefill(params, cfg, serve.model_batch(cfg, toks))
     caches = serve.splice_caches(empty_caches(cfg, FAMILY_BATCH, ctx_len,
                                               device=dev), pre)
     dec = batching.make_decode_fn(cfg, ctx_len)
@@ -2854,35 +2898,87 @@ def profile_decode(arch: str, cfg, params, prompt: int, step_ms: float):
                                     for name, ms, cnt in top]}))
 
 
+def check_decode_repeats(arch: str, cfg, params, prompt: int):
+    """The same decode step of the leg's full-width model (its prompt
+    prefilled) run twice on the card: bitwise-equal logits and caches.
+    The MoE combine adds each token's k expert outputs in a fixed order
+    (no atomics), so nothing in the step may vary between runs."""
+    from repro_torch.launch import serve
+    from repro_torch.models import decode_step, empty_caches, prefill
+    from repro_torch.tree import tree_leaves
+    dev = torch.device("cuda")
+    toks = torch.from_numpy(np.random.default_rng([SEED, 9]).integers(
+        0, cfg.vocab_size, (FAMILY_BATCH, prompt))).to(dev)
+    ctx_len = prompt + FAMILY_GEN
+    logits, pre = prefill(params, cfg, serve.model_batch(cfg, toks))
+    caches = serve.splice_caches(empty_caches(cfg, FAMILY_BATCH, ctx_len,
+                                              device=dev), pre)
+    tok = logits[:, -1].argmax(-1)[:, None]
+    pos = torch.full((FAMILY_BATCH,), prompt, dtype=torch.long, device=dev)
+    runs = [decode_step(params, cfg, tok, caches, pos, ctx_len)
+            for _ in range(2)]
+    same = torch.equal(runs[0][0], runs[1][0]) and all(
+        torch.equal(a, b) for a, b in zip(tree_leaves(runs[0][1]),
+                                          tree_leaves(runs[1][1])))
+    print("families " + json.dumps({
+        "check": f"{arch} decode step run twice, bitwise equal",
+        "equal": same,
+        "max_abs_diff": float((runs[0][0] - runs[1][0]).abs().max())}))
+    if not same:
+        raise AssertionError(f"{arch}: a repeated decode step differs")
+
+
 def check_families_reference():
-    """The float32 smoke configs of mamba2 and zamba2 prefilled on the
-    card (zamba2's shared attention on the flash kernel at 512 tokens) and
-    on the CPU from the same seeded weights and tokens (2 SSD chunks of
-    256), the last position's logits within FAMILY_REF_TOL."""
+    """The float32 smoke configs prefilled on the card (flash at every GQA
+    site at 512 tokens) and on the CPU from the same seeded weights,
+    tokens and (whisper) frames, the last position's logits within
+    FAMILY_REF_TOL; for the MoE archs, how many top-k expert choices the
+    two runs made differently (a near-tie of router probabilities may
+    flip one under cuBLAS's order of sums)."""
     from repro_torch.configs import get_smoke_config
     from repro_torch.kernels import flash_attention
-    from repro_torch.models import init_params, prefill
+    from repro_torch.models import init_params, moe, prefill
+    route = moe._route
     for arch, tol in FAMILY_REF_TOL.items():
         cfg = get_smoke_config(arch).replace(dtype="float32",
                                              param_dtype="float32")
-        toks = torch.from_numpy(np.random.default_rng([SEED, 6]).integers(
-            0, cfg.vocab_size, (2, 512)))
+        rng = np.random.default_rng([SEED, 6])
+        batch = {"tokens": torch.from_numpy(rng.integers(
+            0, cfg.vocab_size, (2, 512)))}
+        if cfg.family == "audio":
+            batch["frames"] = torch.from_numpy(rng.standard_normal(
+                (2, cfg.n_frames, cfg.d_model), dtype=np.float32))
         before = flash_attention.flash_fwd.launches
-        logits = {}
+        logits, choices = {}, {}
         for dev in ("cuda", "cpu"):
-            params = init_params(SEED, cfg, device=dev)
-            lg, _ = prefill(params, cfg, {"tokens": toks.to(dev)})
+            picks = choices.setdefault(dev, [])
+
+            def recording(p, c, x, picks=picks):
+                out = route(p, c, x)
+                picks.append(out[1].cpu())
+                return out
+            moe._route = recording
+            try:
+                params = init_params(SEED, cfg, device=dev)
+                lg, _ = prefill(params, cfg, {k: v.to(dev)
+                                              for k, v in batch.items()})
+            finally:
+                moe._route = route
             logits[dev] = lg.cpu()
-        sites = cfg.n_layers // cfg.attn_every if cfg.attn_every else 0
         ran = flash_attention.flash_fwd.launches - before
-        if ran != sites:
+        if ran != attention_sites(cfg):
             raise AssertionError(f"{arch}: the card's prefill launched flash "
-                                 f"{ran} times, not {sites}")
+                                 f"{ran} times, not {attention_sites(cfg)}")
         err = float((logits["cuda"] - logits["cpu"]).abs().max())
         bound = tol * max(1.0, float(logits["cpu"].abs().max()))
-        print("families " + json.dumps({
-            "check": f"{arch} float32 smoke prefill, card vs CPU",
-            "max_abs_err": err, "tolerance": bound}))
+        line = {"check": f"{arch} float32 smoke prefill, card vs CPU",
+                "max_abs_err": err, "tolerance": bound}
+        if cfg.family == "moe":
+            line["expert_choices"] = sum(t.numel() for t in choices["cpu"])
+            line["expert_choices_differing"] = sum(
+                int((a != b).sum()) for a, b in zip(choices["cuda"],
+                                                    choices["cpu"]))
+        print("families " + json.dumps(line))
         if not (torch.isfinite(logits["cuda"]).all() and err <= bound):
             raise AssertionError(f"{arch}: card prefill differs from the "
                                  f"CPU's by {err}")

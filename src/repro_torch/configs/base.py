@@ -1,9 +1,9 @@
-"""ModelConfig (port of `repro.configs.base`, the fields the dense, SSM
-and hybrid families read).
+"""ModelConfig (port of `repro.configs.base`, the fields the dense, MoE,
+SSM, hybrid and audio families read).
 
-The reference's config also carries the MoE, MLA, encoder, vlm and
-sharding fields of its other architectures; they arrive with those
-families (ROADMAP Queue 1 item 12).
+The reference's config also carries the vlm family's `n_patches` and its
+sharding fields (`seq_parallel`, `scan_unroll`); they arrive with the
+vlm prefix and the sharding bullet (ROADMAP Queue 1 item 12).
 """
 from __future__ import annotations
 
@@ -15,7 +15,7 @@ import torch
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
     arch: str
-    family: str                 # dense | ssm | hybrid (the ported ones)
+    family: str                 # dense | moe | ssm | hybrid | audio
     n_layers: int
     d_model: int
     vocab_size: int
@@ -28,6 +28,12 @@ class ModelConfig:
     rope_theta: float = 1e6
     # ffn
     d_ff: int = 0
+    # moe
+    n_experts: int = 0
+    n_shared_experts: int = 0
+    top_k: int = 0
+    moe_d_ff: int = 0
+    capacity_factor: float = 1.25
     # Embedding/head vocab dim padded to a multiple of this; the logical
     # vocab stays vocab_size and the pad logits are masked to -1e30.
     vocab_pad_multiple: int = 128
@@ -36,6 +42,18 @@ class ModelConfig:
     # CPU, as the reference runs it off the TPU).  "xla": dense scores
     # everywhere (the reference's name for it).
     attention_impl: str = "flash"
+    # "ep": expert parallelism over a mesh, which resolves to "grouped"
+    # without one (the port has no mesh yet).  "grouped": routing and
+    # dispatch per batch row.  "global": one sort over all B*S tokens
+    # (and every decode step, S == 1).
+    moe_dispatch: str = "ep"
+    # mla (deepseek-v3)
+    mla: bool = False
+    q_lora_rank: int = 0
+    kv_lora_rank: int = 0
+    qk_nope_dim: int = 128
+    qk_rope_dim: int = 64
+    v_head_dim: int = 128
     # ssm (mamba2 / zamba2)
     ssm_state: int = 0
     ssm_conv: int = 4
@@ -43,6 +61,9 @@ class ModelConfig:
     ssm_head_dim: int = 64
     # hybrid (zamba2): shared attention block applied every N mamba blocks
     attn_every: int = 0
+    # enc-dec (whisper)
+    encoder_layers: int = 0
+    n_frames: int = 1500        # stub conv frontend output length
     # long-context policy
     subquadratic: bool = False  # may run long_500k
     long_context_window: int = 4096  # hybrid attn window at >=128k ctx
@@ -68,18 +89,34 @@ class ModelConfig:
 
     def param_count(self) -> int:
         """Analytic parameter count (embedding + trunk + head), the
-        reference's formula for the dense, SSM and hybrid families."""
-        if self.family not in ("dense", "ssm", "hybrid"):
+        reference's formula for the dense, MoE, SSM, hybrid and audio
+        families."""
+        if self.family not in ("dense", "moe", "ssm", "hybrid", "audio"):
             raise NotImplementedError(
                 f"param_count of family {self.family!r}: ROADMAP Queue 1 "
-                "item 12")
+                "item 12 (the vlm family)")
         d, v = self.d_model, self.vocab_size
         n = 2 * v * d                                    # embed + head
-        if self.family == "dense":
-            per_layer = (d * self.n_heads * self.d_head
-                         + 2 * d * self.n_kv_heads * self.d_head
-                         + self.n_heads * self.d_head * d
-                         + 3 * d * self.d_ff)
+        if self.family in ("dense", "moe", "audio"):
+            if self.mla:
+                attn = (d * self.q_lora_rank
+                        + self.q_lora_rank * self.n_heads
+                        * (self.qk_nope_dim + self.qk_rope_dim)
+                        + d * (self.kv_lora_rank + self.qk_rope_dim)
+                        + self.kv_lora_rank * self.n_heads
+                        * (self.qk_nope_dim + self.v_head_dim)
+                        + self.n_heads * self.v_head_dim * d)
+            else:
+                attn = (d * self.n_heads * self.d_head
+                        + 2 * d * self.n_kv_heads * self.d_head
+                        + self.n_heads * self.d_head * d)
+            if self.family == "moe":
+                ffn = (d * self.n_experts
+                       + 3 * self.n_experts * d * self.moe_d_ff
+                       + 3 * self.n_shared_experts * d * self.moe_d_ff)
+            else:
+                ffn = 3 * d * self.d_ff
+            per_layer = attn + ffn
         else:
             ci = self.d_inner + 2 * self.ssm_state
             per_layer = (d * (2 * self.d_inner + 2 * self.ssm_state
@@ -87,4 +124,16 @@ class ModelConfig:
                          + self.ssm_conv * ci + self.d_inner * d)
         if self.family == "hybrid":                      # one shared block
             n += 4 * d * self.n_heads * self.d_head + 3 * d * self.d_ff
-        return n + self.n_layers * per_layer
+        n += self.n_layers * per_layer
+        if self.family == "audio":                       # the encoder
+            n += self.encoder_layers * per_layer
+        return n
+
+    def active_param_count(self) -> int:
+        """Parameters a token activates (MoE: its top_k routed experts and
+        the shared ones; every other family: all of them)."""
+        if self.family != "moe":
+            return self.param_count()
+        per_expert = 3 * self.d_model * self.moe_d_ff
+        return (self.param_count() - self.n_layers * per_expert
+                * (self.n_experts - self.top_k))

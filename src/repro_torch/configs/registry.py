@@ -1,7 +1,7 @@
 """--arch id -> config resolution (port of `repro.configs.registry`).
 
-The dense, SSM and hybrid archs are ported; the reference's MoE, audio
-and vlm archs raise and name the ROADMAP item that brings them."""
+The dense, MoE, SSM, hybrid and audio archs are ported; the reference's
+vlm arch raises and names the ROADMAP item that brings it."""
 from importlib import import_module
 
 ARCHS = {
@@ -9,20 +9,22 @@ ARCHS = {
     "qwen2-72b": "qwen2_72b",
     "qwen3-32b": "qwen3_32b",
     "minitron-4b": "minitron_4b",
+    "whisper-medium": "whisper_medium",
+    "kimi-k2-1t-a32b": "kimi_k2_1t_a32b",
+    "deepseek-v3-671b": "deepseek_v3_671b",
     "mamba2-130m": "mamba2_130m",
     "zamba2-1.2b": "zamba2_1p2b",
     "drim-bnn": "drim_bnn",
 }
 
-_NOT_PORTED = ("whisper-medium", "llava-next-34b", "kimi-k2-1t-a32b",
-               "deepseek-v3-671b")
+_NOT_PORTED = ("llava-next-34b",)
 
 
 def _module(arch: str):
     if arch in _NOT_PORTED:
         raise NotImplementedError(
             f"arch {arch!r} is not ported to repro_torch yet: ROADMAP "
-            "Queue 1 item 12 (the MoE, audio and vlm families)")
+            "Queue 1 item 12 (the vlm family)")
     if arch not in ARCHS:
         raise KeyError(f"unknown arch {arch!r}; choose from {sorted(ARCHS)}")
     return import_module(f"repro_torch.configs.{ARCHS[arch]}")

@@ -31,10 +31,13 @@
   * --device: where to serve (default: the card; "cpu" runs the plain
     torch versions of the kernels);
   * --arch: every ported arch (`configs.ARCHS`: drim-bnn, the dense
-    qwen3-14b, qwen3-32b, qwen2-72b and minitron-4b, the SSM mamba2-130m
-    and the hybrid zamba2-1.2b).  Only drim-bnn has BitLinear layers
-    (`bitlinear="ffn"`), so on the others every engine serves the native
-    route, as in the reference.
+    qwen3-14b, qwen3-32b, qwen2-72b and minitron-4b, the MoE
+    deepseek-v3-671b (MLA) and kimi-k2-1t-a32b (GQA), the SSM
+    mamba2-130m, the hybrid zamba2-1.2b and the encoder-decoder
+    whisper-medium, whose batch carries zero frame embeddings for the
+    stub audio frontend, as in the reference).  Only drim-bnn has
+    BitLinear layers (`bitlinear="ffn"`), so on the others every engine
+    serves the native route, as in the reference.
 
 Timing: the first decode step runs UNTIMED as warm-up and is reported as
 `compile_s` (first launches: kernel builds, DRIM lowerings), so
@@ -43,13 +46,16 @@ Timing: the first decode step runs UNTIMED as warm-up and is reported as
   * --n-queues: the queue count of --engine queued.
 
 Not ported yet (ROADMAP Queue 1 item 12): the reference's --mesh and
-its MoE, audio and vlm archs.
+its vlm arch (llava-next-34b).
 
 CPU-scale examples:
   PYTHONPATH=src python -m repro_torch.launch.serve --arch drim-bnn \\
       --smoke-config --device cpu --engine resident --prompt-len 128 --gen 4
   PYTHONPATH=src python -m repro_torch.launch.serve --arch zamba2-1.2b \\
       --smoke-config --device cpu --prompt-len 64 --gen 4
+  PYTHONPATH=src python -m repro_torch.launch.serve \\
+      --arch deepseek-v3-671b --smoke-config --device cpu --prompt-len 128 \\
+      --gen 4
 """
 from __future__ import annotations
 
@@ -283,6 +289,18 @@ def _prompts(args, cfg, n: int) -> np.ndarray:
         0, cfg.vocab_size, (n, args.prompt_len))
 
 
+def model_batch(cfg, tokens: torch.Tensor) -> Dict[str, torch.Tensor]:
+    """The prefill batch: the tokens, and for the audio family zero frame
+    embeddings [B, n_frames, d_model] in bfloat16 (the stub frontend's
+    output, as the reference serves it)."""
+    batch = {"tokens": tokens}
+    if cfg.family == "audio":
+        batch["frames"] = torch.zeros(tokens.shape[0], cfg.n_frames,
+                                      cfg.d_model, dtype=torch.bfloat16,
+                                      device=tokens.device)
+    return batch
+
+
 def _setup(args, cfg, dev, params=None, tokens=None) -> Dict[str, Any]:
     """Params + prompt batch + prefill + spliced ctx caches."""
     ctx_len = args.ctx or (args.prompt_len + args.gen)
@@ -296,7 +314,7 @@ def _setup(args, cfg, dev, params=None, tokens=None) -> Dict[str, Any]:
         params = pack_model_params(params)
 
     t0 = time.perf_counter()
-    logits, pre_caches = prefill(params, cfg, {"tokens": tokens})
+    logits, pre_caches = prefill(params, cfg, model_batch(cfg, tokens))
     _sync(dev)
     t_prefill = time.perf_counter() - t0
 
@@ -391,8 +409,8 @@ def run_microbench(args) -> Tuple[None, Dict[str, Any]]:
     params = init_params(args.seed, cfg, device=dev)
     if args.packed:
         params = pack_model_params(params)
-    batch = {"tokens": torch.as_tensor(_prompts(args, cfg, args.batch),
-                                       device=dev).long()}
+    batch = model_batch(cfg, torch.as_tensor(_prompts(args, cfg, args.batch),
+                                             device=dev).long())
 
     def timed(fn):
         t0 = time.perf_counter()

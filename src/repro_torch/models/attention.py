@@ -1,12 +1,20 @@
-"""GQA attention (port of the GQA part of `repro.models.attention`).
+"""Attention mixers: GQA (RoPE, qk-norm, bias, windowed), DeepSeek's MLA
+and the whisper decoder's cross-attention (port of
+`repro.models.attention`).
 
 Two entry modes share one set of params:
   * prefill : full-sequence causal attention, returns (out, cache)
   * decode  : one new token against a KV cache of length S_ctx
 
-Cache: {"k": [B, S, Hkv, Dh], "v": [B, S, Hkv, Dh]}.  Windowed attention
-masks keys older than `window`.  MLA and cross-attention come with the
-families that use them (ROADMAP Queue 1 item 12).
+Caches:
+  GQA   : {"k": [B, S, Hkv, Dh], "v": [B, S, Hkv, Dh]}
+  MLA   : {"ckv": [B, S, kv_lora], "k_rope": [B, S, rope_dim]}, the
+          compressed latent and the one rope key all heads share
+  cross : {"k", "v": [B, S_enc, H, Dh]}, computed once from the encoder
+
+Windowed attention masks keys older than `window`.  Only GQA's prefill
+takes the flash kernel; MLA and cross-attention take dense scores, as in
+the reference.
 """
 from __future__ import annotations
 
@@ -16,8 +24,9 @@ from typing import Dict, Tuple
 import torch
 
 from repro_torch.kernels.flash_attention import flash_attention
-from repro_torch.models.layers import (Params, apply_rope, linear,
-                                       linear_init, rmsnorm, rmsnorm_init)
+from repro_torch.models.layers import (Params, apply_rope, dense, dense_init,
+                                       linear, linear_init, rmsnorm,
+                                       rmsnorm_init)
 
 NEG_INF = -1e30
 
@@ -135,3 +144,128 @@ def gqa_empty_cache(cfg, batch: int, s_max: int, dtype=torch.bfloat16,
     shp = (batch, s_max, cfg.n_kv_heads, cfg.d_head)
     return {"k": torch.zeros(shp, dtype=dtype, device=device),
             "v": torch.zeros(shp, dtype=dtype, device=device)}
+
+
+# --- MLA (DeepSeek-V3): low-rank joint KV compression + decoupled RoPE -------
+
+def mla_init(gen: torch.Generator, cfg, *, dtype=torch.float32) -> Params:
+    d, h = cfg.d_model, cfg.n_heads
+    r_q, r_kv = cfg.q_lora_rank, cfg.kv_lora_rank
+    dn, dr, dv = cfg.qk_nope_dim, cfg.qk_rope_dim, cfg.v_head_dim
+    return {
+        "wq_a": dense_init(gen, d, r_q, dtype=dtype),
+        "q_a_norm": rmsnorm_init(r_q),
+        "wq_b": dense_init(gen, r_q, h * (dn + dr), dtype=dtype),
+        "wkv_a": dense_init(gen, d, r_kv + dr, dtype=dtype),
+        "kv_a_norm": rmsnorm_init(r_kv),
+        "wk_b": dense_init(gen, r_kv, h * dn, dtype=dtype),
+        "wv_b": dense_init(gen, r_kv, h * dv, dtype=dtype),
+        "wo": dense_init(gen, h * dv, d, dtype=dtype),
+    }
+
+
+def _mla_q(p: Params, cfg, x: torch.Tensor, positions: torch.Tensor):
+    b, s, _ = x.shape
+    h, dn, dr = cfg.n_heads, cfg.qk_nope_dim, cfg.qk_rope_dim
+    q = dense(p["wq_b"], rmsnorm(p["q_a_norm"], dense(p["wq_a"], x)))
+    q = q.reshape(b, s, h, dn + dr)
+    q_nope, q_rope = q[..., :dn], q[..., dn:]
+    return q_nope, apply_rope(q_rope, positions, cfg.rope_theta)
+
+
+def _mla_latent(p: Params, cfg, x: torch.Tensor, positions: torch.Tensor):
+    """Compressed latent ckv [B,S,r_kv] + shared rope key [B,S,dr]."""
+    r_kv = cfg.kv_lora_rank
+    kv = dense(p["wkv_a"], x)
+    ckv = rmsnorm(p["kv_a_norm"], kv[..., :r_kv])
+    k_rope = apply_rope(kv[..., r_kv:][:, :, None, :], positions,
+                        cfg.rope_theta)[:, :, 0, :]
+    return ckv, k_rope
+
+
+def _mla_core_multihead(p: Params, cfg, q_nope, q_rope, ckv, k_rope, mask):
+    """Scores of each head's q_nope against its decompressed keys plus its
+    q_rope against the one shared rope key, scaled by 1/sqrt(dn + dr);
+    both products and the value product summed in float32, the output
+    cast to ckv's dtype."""
+    b, sq = q_nope.shape[:2]
+    h, dn, dv = cfg.n_heads, cfg.qk_nope_dim, cfg.v_head_dim
+    sk = ckv.shape[1]
+    f32 = torch.float32
+    k_nope = dense(p["wk_b"], ckv).reshape(b, sk, h, dn)
+    v = dense(p["wv_b"], ckv).reshape(b, sk, h, dv)
+    scale = 1.0 / math.sqrt(dn + cfg.qk_rope_dim)
+    logits = (torch.einsum("bqhd,bkhd->bhqk", q_nope.to(f32),
+                           k_nope.to(f32))
+              + torch.einsum("bqhd,bkd->bhqk", q_rope.to(f32),
+                             k_rope.to(f32))) * scale
+    logits = logits.masked_fill(~mask[:, None, :, :], NEG_INF)
+    w = torch.softmax(logits, -1)
+    out = torch.einsum("bhqk,bkhd->bqhd", w.to(v.dtype).to(f32), v.to(f32))
+    return out.reshape(b, sq, h * dv).to(ckv.dtype)
+
+
+def mla_attend(p: Params, cfg, x: torch.Tensor, positions: torch.Tensor,
+               window: int = 0) -> Tuple[torch.Tensor, Dict]:
+    """Full-sequence causal MLA (prefill); the cache is the latent."""
+    s = x.shape[1]
+    q_nope, q_rope = _mla_q(p, cfg, x, positions)
+    ckv, k_rope = _mla_latent(p, cfg, x, positions)
+    mask = causal_mask(s, window, x.device)[None]
+    out = _mla_core_multihead(p, cfg, q_nope, q_rope, ckv, k_rope, mask)
+    return dense(p["wo"], out), {"ckv": ckv, "k_rope": k_rope}
+
+
+def mla_decode(p: Params, cfg, x: torch.Tensor, cache: Dict,
+               pos: torch.Tensor, window: int = 0
+               ) -> Tuple[torch.Tensor, Dict]:
+    """One-token MLA decode: the new latent and rope key added at `pos`
+    (a one-hot update, as `gqa_decode`)."""
+    q_nope, q_rope = _mla_q(p, cfg, x, pos[:, None])
+    ckv_new, k_rope_new = _mla_latent(p, cfg, x, pos[:, None])
+    s_max = cache["ckv"].shape[1]
+    j = torch.arange(s_max, device=x.device)
+    onehot = (j[None, :] == pos[:, None]).to(cache["ckv"].dtype)[:, :, None]
+    ckv = cache["ckv"] + onehot * ckv_new.to(cache["ckv"].dtype)
+    k_rope = cache["k_rope"] + onehot * k_rope_new.to(cache["k_rope"].dtype)
+    mask = j[None, None, :] <= pos[:, None, None]
+    if window:
+        mask &= (pos[:, None, None] - j[None, None, :]) < window
+    out = _mla_core_multihead(p, cfg, q_nope, q_rope, ckv, k_rope, mask)
+    return dense(p["wo"], out), {"ckv": ckv, "k_rope": k_rope}
+
+
+def mla_empty_cache(cfg, batch: int, s_max: int, dtype=torch.bfloat16,
+                    device=None) -> Dict:
+    return {"ckv": torch.zeros(batch, s_max, cfg.kv_lora_rank, dtype=dtype,
+                               device=device),
+            "k_rope": torch.zeros(batch, s_max, cfg.qk_rope_dim,
+                                  dtype=dtype, device=device)}
+
+
+# --- cross-attention (the whisper decoder) -----------------------------------
+
+def cross_init(gen: torch.Generator, cfg, *, dtype=torch.float32) -> Params:
+    d, h, dh = cfg.d_model, cfg.n_heads, cfg.d_head
+    return {"wq": dense_init(gen, d, h * dh, dtype=dtype),
+            "wk": dense_init(gen, d, h * dh, dtype=dtype),
+            "wv": dense_init(gen, d, h * dh, dtype=dtype),
+            "wo": dense_init(gen, h * dh, d, dtype=dtype)}
+
+
+def cross_kv(p: Params, cfg, enc: torch.Tensor) -> Dict:
+    b, se, _ = enc.shape
+    h, dh = cfg.n_heads, cfg.d_head
+    return {"k": dense(p["wk"], enc).reshape(b, se, h, dh),
+            "v": dense(p["wv"], enc).reshape(b, se, h, dh)}
+
+
+def cross_attend(p: Params, cfg, x: torch.Tensor, kv: Dict) -> torch.Tensor:
+    """x [B,Sq,D] against every encoder position (no mask, no rope)."""
+    b, sq, _ = x.shape
+    h, dh = cfg.n_heads, cfg.d_head
+    q = dense(p["wq"], x).reshape(b, sq, h, dh)
+    mask = torch.ones(1, sq, kv["k"].shape[1], dtype=torch.bool,
+                      device=x.device)
+    out = _sdpa(q, kv["k"], kv["v"], mask, 1)
+    return dense(p["wo"], out.reshape(b, sq, -1))

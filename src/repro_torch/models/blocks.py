@@ -1,17 +1,23 @@
-"""Decoder blocks with pre-norm residuals (port of the dense and SSM
-blocks of `repro.models.blocks`).
+"""Decoder and encoder blocks with pre-norm residuals (port of
+`repro.models.blocks`).
 
 A block is (init, apply_full, apply_decode): apply_full runs prefill over
-the full sequence and returns its cache, apply_decode consumes the cache
-for one-token serving.  Families: dense (GQA attention + SwiGLU MLP) and
-ssm (the Mamba2 mixer only); the zamba2 hybrid's shared block is a dense
-block applied at every site, assembled in `transformer.py`.  The
-reference's `_sp` (a sequence-parallel sharding constraint on the
-residual stream) is the identity on one card and has no counterpart; its
-MoE and cross-attention blocks come with those families (ROADMAP Queue 1
-item 12).  The reference's blocks return an auxiliary loss beside the
-cache, which only its MoE block sets; the ported blocks return none, so
-their trunks' auxiliary loss is `ZERO_AUX`.
+the full sequence and returns (x, cache, aux), apply_decode consumes the
+cache for one-token serving and returns (x, cache).  Families:
+
+  dense / audio encoder : GQA attention (causal, or bidirectional in the
+                          encoder) + SwiGLU MLP
+  moe                   : GQA or MLA attention (cfg.mla) + MoE FFN
+  ssm                   : the Mamba2 mixer only
+  audio decoder (xdec)  : causal self-attention + cross-attention over
+                          the encoder's output + SwiGLU MLP
+
+The zamba2 hybrid's shared block is a dense block applied at every site,
+assembled in `transformer.py`.  `aux` holds the auxiliary losses a block
+adds to the training loss; only the MoE block sets them (routing), the
+others return `ZERO_AUX`.  The reference's `_sp` (a sequence-parallel
+sharding constraint on the residual stream) is the identity on one card
+and has no counterpart.
 """
 from __future__ import annotations
 
@@ -20,13 +26,16 @@ from typing import Dict, Tuple
 import torch
 
 from repro_torch.models import attention as attn
+from repro_torch.models import moe as moe_mod
 from repro_torch.models import ssm as ssm_mod
-from repro_torch.models.layers import Params, mlp, mlp_init, rmsnorm, \
-    rmsnorm_init
+from repro_torch.models.layers import Params, linear, mlp, mlp_init, \
+    rmsnorm, rmsnorm_init
 
 # the auxiliary losses a block may add to the training loss (MoE routing)
 ZERO_AUX = {"load_balance": 0.0, "router_z": 0.0}
 
+
+# --- dense -------------------------------------------------------------------
 
 def dense_block_init(gen: torch.Generator, cfg, *, dtype=torch.float32
                      ) -> Params:
@@ -38,13 +47,26 @@ def dense_block_init(gen: torch.Generator, cfg, *, dtype=torch.float32
                             bitlinear_on=bl)}
 
 
-def dense_block(p: Params, cfg, x, positions, *, window: int = 0
-                ) -> Tuple[torch.Tensor, Dict]:
-    a, cache = attn.gqa_attend(p["attn"], cfg, rmsnorm(p["attn_norm"], x),
-                               positions, window)
+def dense_block(p: Params, cfg, x, positions, *, window: int = 0,
+                causal: bool = True) -> Tuple[torch.Tensor, Dict, Dict]:
+    if causal:
+        a, cache = attn.gqa_attend(p["attn"], cfg,
+                                   rmsnorm(p["attn_norm"], x), positions,
+                                   window)
+    else:                   # the encoder: full bidirectional attention
+        a, cache = _bidir_attend(p["attn"], cfg, rmsnorm(p["attn_norm"], x),
+                                 positions)
     x = x + a
     x = x + mlp(p["mlp"], rmsnorm(p["mlp_norm"], x))
-    return x, cache
+    return x, cache, ZERO_AUX
+
+
+def _bidir_attend(p: Params, cfg, x, positions):
+    b, s, _ = x.shape
+    q, k, v = attn._qkv(p, cfg, x, positions)
+    mask = torch.ones(1, s, s, dtype=torch.bool, device=x.device)
+    out = attn._sdpa(q, k, v, mask, cfg.n_heads // cfg.n_kv_heads)
+    return linear(p["wo"], out.reshape(b, s, -1)), {"k": k, "v": v}
 
 
 def dense_block_decode(p: Params, cfg, x, cache, pos, *, window: int = 0
@@ -56,6 +78,39 @@ def dense_block_decode(p: Params, cfg, x, cache, pos, *, window: int = 0
     return x, cache
 
 
+# --- moe ---------------------------------------------------------------------
+
+def moe_block_init(gen: torch.Generator, cfg, *, dtype=torch.float32
+                   ) -> Params:
+    a = (attn.mla_init(gen, cfg, dtype=dtype) if cfg.mla
+         else attn.gqa_init(gen, cfg, dtype=dtype))
+    return {"attn_norm": rmsnorm_init(cfg.d_model), "attn": a,
+            "mlp_norm": rmsnorm_init(cfg.d_model),
+            "moe": moe_mod.moe_init(gen, cfg, dtype=dtype)}
+
+
+def moe_block(p: Params, cfg, x, positions, *, window: int = 0
+              ) -> Tuple[torch.Tensor, Dict, Dict]:
+    at = attn.mla_attend if cfg.mla else attn.gqa_attend
+    a, cache = at(p["attn"], cfg, rmsnorm(p["attn_norm"], x), positions,
+                  window)
+    x = x + a
+    y, aux = moe_mod.moe_ffn(p["moe"], cfg, rmsnorm(p["mlp_norm"], x))
+    return x + y, cache, aux
+
+
+def moe_block_decode(p: Params, cfg, x, cache, pos, *, window: int = 0
+                     ) -> Tuple[torch.Tensor, Dict]:
+    at = attn.mla_decode if cfg.mla else attn.gqa_decode
+    a, cache = at(p["attn"], cfg, rmsnorm(p["attn_norm"], x), cache, pos,
+                  window)
+    x = x + a
+    y, _ = moe_mod.moe_ffn(p["moe"], cfg, rmsnorm(p["mlp_norm"], x))
+    return x + y, cache
+
+
+# --- ssm ---------------------------------------------------------------------
+
 def ssm_block_init(gen: torch.Generator, cfg, *, dtype=torch.float32
                    ) -> Params:
     return {"norm": rmsnorm_init(cfg.d_model),
@@ -63,9 +118,9 @@ def ssm_block_init(gen: torch.Generator, cfg, *, dtype=torch.float32
 
 
 def ssm_block(p: Params, cfg, x, positions=None, *, window: int = 0
-              ) -> Tuple[torch.Tensor, Dict]:
+              ) -> Tuple[torch.Tensor, Dict, Dict]:
     y, cache = ssm_mod.ssm_mix(p["mixer"], cfg, rmsnorm(p["norm"], x))
-    return x + y, cache
+    return x + y, cache, ZERO_AUX
 
 
 def ssm_block_decode(p: Params, cfg, x, cache, pos=None, *, window: int = 0
@@ -73,3 +128,40 @@ def ssm_block_decode(p: Params, cfg, x, cache, pos=None, *, window: int = 0
     y, cache = ssm_mod.ssm_decode(p["mixer"], cfg, rmsnorm(p["norm"], x),
                                   cache)
     return x + y, cache
+
+
+# --- the whisper decoder block (self + cross) --------------------------------
+
+def xdec_block_init(gen: torch.Generator, cfg, *, dtype=torch.float32
+                    ) -> Params:
+    return {"self_norm": rmsnorm_init(cfg.d_model),
+            "self": attn.gqa_init(gen, cfg, dtype=dtype),
+            "cross_norm": rmsnorm_init(cfg.d_model),
+            "cross": attn.cross_init(gen, cfg, dtype=dtype),
+            "mlp_norm": rmsnorm_init(cfg.d_model),
+            "mlp": mlp_init(gen, cfg.d_model, cfg.d_ff, dtype=dtype)}
+
+
+def xdec_block(p: Params, cfg, x, positions, enc, *, window: int = 0
+               ) -> Tuple[torch.Tensor, Dict, Dict]:
+    a, self_cache = attn.gqa_attend(p["self"], cfg,
+                                    rmsnorm(p["self_norm"], x), positions,
+                                    window)
+    x = x + a
+    xkv = attn.cross_kv(p["cross"], cfg, enc)
+    x = x + attn.cross_attend(p["cross"], cfg, rmsnorm(p["cross_norm"], x),
+                              xkv)
+    x = x + mlp(p["mlp"], rmsnorm(p["mlp_norm"], x))
+    return x, {"self": self_cache, "cross": xkv}, ZERO_AUX
+
+
+def xdec_block_decode(p: Params, cfg, x, cache, pos, *, window: int = 0
+                      ) -> Tuple[torch.Tensor, Dict]:
+    a, self_cache = attn.gqa_decode(p["self"], cfg,
+                                    rmsnorm(p["self_norm"], x),
+                                    cache["self"], pos, window)
+    x = x + a
+    x = x + attn.cross_attend(p["cross"], cfg, rmsnorm(p["cross_norm"], x),
+                              cache["cross"])
+    x = x + mlp(p["mlp"], rmsnorm(p["mlp_norm"], x))
+    return x, {"self": self_cache, "cross": cache["cross"]}

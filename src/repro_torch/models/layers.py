@@ -103,6 +103,22 @@ def rmsnorm(params: Params, x: torch.Tensor, eps: float = 1e-6
     return (x * params["scale"].to(torch.float32)).to(dt)
 
 
+def layernorm_init(d: int) -> Params:
+    return {"scale": torch.ones(d, dtype=torch.float32),
+            "bias": torch.zeros(d, dtype=torch.float32)}
+
+
+def layernorm(params: Params, x: torch.Tensor, eps: float = 1e-5
+              ) -> torch.Tensor:
+    """The reference defines it and no model calls it; kept for parity."""
+    dt = x.dtype
+    x = x.to(torch.float32)
+    mu = x.mean(-1, keepdim=True)
+    var = (x - mu).square().mean(-1, keepdim=True)
+    y = (x - mu) * torch.rsqrt(var + eps)
+    return (y * params["scale"] + params["bias"]).to(dt)
+
+
 # --- dense / BitLinear -------------------------------------------------------
 
 def dense_init(gen: torch.Generator, d_in: int, d_out: int, *,

@@ -1,5 +1,5 @@
-"""Model trunk for the dense, SSM and hybrid families (port of
-`repro.models.transformer`).
+"""Model trunk for the dense, MoE, SSM, hybrid and audio families (port
+of `repro.models.transformer`).
 
 Public interface (functions of (params, cfg, ...)):
 
@@ -12,10 +12,16 @@ Public interface (functions of (params, cfg, ...)):
 
 Family assembly:
   dense           : N x dense_block
+  moe             : N x moe_block (GQA or MLA attention, MoE FFN)
   ssm             : N x ssm_block (Mamba2 SSD)
   hybrid (zamba2) : G groups of [attn_every x ssm_block], each followed by
                     the one shared dense_block (weights SHARED across
                     sites, a cache per site), then the tail ssm_blocks
+  audio (whisper) : an encoder of bidirectional dense blocks over the
+                    batch's frame embeddings (`batch["frames"]`, the stub
+                    frontend's output), then N x xdec_block (self- and
+                    cross-attention); the cross caches hold the encoder's
+                    keys and values
 
 Layers are stacked ([L, ...] leaves, as the reference stacks them for
 `lax.scan`; the hybrid's groups [G, per, ...]) and driven by Python
@@ -27,11 +33,13 @@ loops.  Nothing is traced, so one decode loop serves every route:
 training, `cfg.remat` wraps each layer (the hybrid: each group) in
 `torch.utils.checkpoint`, as the reference wraps its scan bodies in
 `jax.checkpoint`: the backward runs that forward again, so a dense step
-runs the flash forward kernel twice per layer.  The reference's MoE,
-audio and vlm families come later (ROADMAP Queue 1 item 12).
+runs the flash forward kernel twice per layer.  The blocks' auxiliary
+losses (MoE routing) are summed over the layers into `train_loss`.  The
+reference's vlm family comes later (ROADMAP Queue 1 item 12).
 """
 from __future__ import annotations
 
+import functools
 from typing import Any, Dict, Tuple
 
 import numpy as np
@@ -42,6 +50,7 @@ from repro_torch.device import resolve_device
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import blocks as B
 from repro_torch.models import ssm as ssm_mod
+from repro_torch.models.moe import ExpertBank
 from repro_torch.models.layers import Params, rmsnorm, rmsnorm_init
 from repro_torch.tree import (tree_leaves, tree_map, tree_slice, tree_stack,
                              tree_unstack)
@@ -51,10 +60,10 @@ LONG_CTX_THRESHOLD = 131072
 
 
 def _check_family(cfg) -> None:
-    if cfg.family not in ("dense", "ssm", "hybrid"):
+    if cfg.family not in ("dense", "moe", "ssm", "hybrid", "audio"):
         raise NotImplementedError(
             f"family {cfg.family!r} is not ported to repro_torch yet: "
-            "ROADMAP Queue 1 item 12")
+            "ROADMAP Queue 1 item 12 (the vlm family)")
 
 
 def _window_for(cfg, ctx_len: int) -> int:
@@ -68,6 +77,8 @@ def _block_fns(cfg):
     _check_family(cfg)
     if cfg.family == "dense":
         return B.dense_block_init, B.dense_block, B.dense_block_decode
+    if cfg.family == "moe":
+        return B.moe_block_init, B.moe_block, B.moe_block_decode
     if cfg.family == "ssm":
         return B.ssm_block_init, B.ssm_block, B.ssm_block_decode
     raise ValueError(cfg.family)
@@ -89,10 +100,35 @@ def padded_vocab(cfg) -> int:
 
 # --- init --------------------------------------------------------------------
 
+def _place(leaf, dst: torch.Tensor) -> None:
+    """A drawn leaf copied into its slot of a stacked leaf; an expert bank
+    drawn straight into it, several experts at a time."""
+    if isinstance(leaf, ExpertBank):
+        leaf.draw_into(dst)
+    else:
+        dst.copy_(leaf)
+
+
+def _draw_stacked(draw_layer, n: int, dev) -> Params:
+    """n layers drawn in turn, each moved into the stacked [n, ...] leaves
+    preallocated on `dev` as soon as it is drawn, so the host holds one
+    layer at a time (and no expert bank whole)."""
+    out = None
+    for i in range(n):
+        layer = draw_layer()
+        if out is None:
+            out = tree_map(lambda leaf: torch.empty(
+                (n, *leaf.shape), dtype=leaf.dtype, device=dev), layer)
+        tree_map(lambda dst, leaf, i=i: _place(leaf, dst[i]), out, layer)
+    return out
+
+
 def init_params(seed, cfg, *, device=None) -> Params:
     """Seeded parameters (an int seed or a `torch.Generator`), drawn on
-    the CPU so a seed gives the same weights on every machine, then moved
-    to `device` (None: the card)."""
+    the CPU so a seed gives the same weights on every machine, each leaf
+    moved to `device` (None: the card) as it is drawn.  The MoE expert
+    banks are drawn by several threads (`ExpertBank.draw_into`); the
+    weights do not depend on how many."""
     _check_family(cfg)
     dev = resolve_device(device)
     gen = (seed if isinstance(seed, torch.Generator)
@@ -100,25 +136,32 @@ def init_params(seed, cfg, *, device=None) -> Params:
     dtype = getattr(torch, cfg.param_dtype)
     v, d = padded_vocab(cfg), cfg.d_model
     p: Params = {
-        "embed": (torch.randn(v, d, generator=gen) * 0.01).to(dtype),
-        "final_norm": rmsnorm_init(d),
-        "head": (torch.randn(d, v, generator=gen) * 0.01).to(dtype),
+        "embed": torch.randn(v, d, generator=gen).mul_(0.01).to(dtype)
+        .to(dev),
+        "final_norm": tree_map(lambda t: t.to(dev), rmsnorm_init(d)),
+        "head": torch.randn(d, v, generator=gen).mul_(0.01).to(dtype)
+        .to(dev),
     }
 
     def stacked(init_fn, n: int):
-        return tree_stack([init_fn(gen, cfg, dtype=dtype) for _ in range(n)])
+        return _draw_stacked(lambda: init_fn(gen, cfg, dtype=dtype), n, dev)
 
-    if cfg.family == "hybrid":
+    if cfg.family == "audio":
+        p["enc_layers"] = stacked(B.dense_block_init, cfg.encoder_layers)
+        p["enc_norm"] = tree_map(lambda t: t.to(dev), rmsnorm_init(d))
+        p["layers"] = stacked(B.xdec_block_init, cfg.n_layers)
+    elif cfg.family == "hybrid":
         groups, per, tail = _hybrid_layout(cfg)
         p["mamba_groups"] = tree_map(
             lambda t: t.reshape(groups, per, *t.shape[1:]),
             stacked(B.ssm_block_init, groups * per))
         if tail:
             p["mamba_tail"] = stacked(B.ssm_block_init, tail)
-        p["shared"] = B.dense_block_init(gen, cfg, dtype=dtype)
+        p["shared"] = tree_map(lambda t: t.to(dev), B.dense_block_init(
+            gen, cfg, dtype=dtype))
     else:
         p["layers"] = stacked(_block_fns(cfg)[0], cfg.n_layers)
-    return tree_map(lambda t: t.to(dev), p)
+    return p
 
 
 def _to_torch(a: np.ndarray, device) -> torch.Tensor:
@@ -158,6 +201,11 @@ def lm_from_jax(params, cfg, *, device=None) -> Params:
     if depth != cfg.n_layers:
         raise ValueError(f"{depth} stacked layers, the config has "
                          f"{cfg.n_layers}")
+    if cfg.family == "audio":
+        enc = tree_leaves(out["enc_layers"])[0].shape[0]
+        if enc != cfg.encoder_layers:
+            raise ValueError(f"{enc} stacked encoder layers, the config "
+                             f"has {cfg.encoder_layers}")
     return out
 
 
@@ -179,8 +227,32 @@ def _logits(p, cfg, x: torch.Tensor) -> torch.Tensor:
 
 # --- full-sequence forward (train / prefill) ---------------------------------
 
-def _layer(block_fn, layer_p, cfg, x, positions, window):
-    return block_fn(layer_p, cfg, x, positions, window=window)[0]
+def _zero_aux(device) -> Dict[str, torch.Tensor]:
+    return {k: torch.tensor(v, device=device) for k, v in B.ZERO_AUX.items()}
+
+
+def _layer(block_fn, layer_p, cfg, x, positions, window, *extra):
+    x, _, aux = block_fn(layer_p, cfg, x, positions, *extra, window=window)
+    return x, aux
+
+
+def _run_layers(p_layers, n: int, cfg, block_fn, x, positions, window, *,
+                remat: bool, with_cache: bool, extra=()):
+    """n stacked layers in turn: (x, the layers' auxiliary losses summed
+    in layer order, stacked caches or None)."""
+    aux = _zero_aux(x.device)
+    caches = []
+    for layer_p in tree_unstack(p_layers, n):
+        if remat:
+            x, aux_l = checkpoint(_layer, block_fn, layer_p, cfg, x,
+                                  positions, window, *extra,
+                                  use_reentrant=False)
+        else:
+            x, cache, aux_l = block_fn(layer_p, cfg, x, positions, *extra,
+                                       window=window)
+            caches.append(cache)
+        aux = {k: aux[k] + aux_l[k] for k in aux}
+    return x, aux, (tree_stack(caches) if with_cache else None)
 
 
 def _forward_full(p, cfg, batch: Dict[str, Any], *, with_cache: bool):
@@ -190,23 +262,26 @@ def _forward_full(p, cfg, batch: Dict[str, Any], *, with_cache: bool):
         .expand(bsz, s)
     window = _window_for(cfg, s)
     x = _embed(p, cfg, tokens)
-    aux = {k: torch.tensor(v, device=x.device)
-           for k, v in B.ZERO_AUX.items()}
     remat = cfg.remat and not with_cache and torch.is_grad_enabled()
     if cfg.family == "hybrid":
         x, caches = _hybrid_full(p, cfg, x, positions, window, remat=remat,
                                  with_cache=with_cache)
-        return x, aux, caches
+        return x, _zero_aux(x.device), caches
+    if cfg.family == "audio":
+        enc = batch["frames"].to(cfg.activation_dtype)
+        enc_pos = torch.arange(enc.shape[1], device=enc.device)[None, :] \
+            .expand(bsz, enc.shape[1])
+        enc, _, _ = _run_layers(
+            p["enc_layers"], cfg.encoder_layers, cfg,
+            functools.partial(B.dense_block, causal=False), enc, enc_pos, 0,
+            remat=remat, with_cache=False)
+        enc = rmsnorm(p["enc_norm"], enc)
+        return _run_layers(p["layers"], cfg.n_layers, cfg, B.xdec_block, x,
+                           positions, window, remat=remat,
+                           with_cache=with_cache, extra=(enc,))
     _, block_fn, _ = _block_fns(cfg)
-    caches = []
-    for layer_p in tree_unstack(p["layers"], cfg.n_layers):
-        if remat:
-            x = checkpoint(_layer, block_fn, layer_p, cfg, x, positions,
-                           window, use_reentrant=False)
-        else:
-            x, cache = block_fn(layer_p, cfg, x, positions, window=window)
-            caches.append(cache)
-    return x, aux, (tree_stack(caches) if with_cache else None)
+    return _run_layers(p["layers"], cfg.n_layers, cfg, block_fn, x,
+                       positions, window, remat=remat, with_cache=with_cache)
 
 
 def _hybrid_full(p, cfg, x, positions, window, *, remat: bool,
@@ -219,10 +294,10 @@ def _hybrid_full(p, cfg, x, positions, window, *, remat: bool,
     def group(group_p, h):
         m_caches = []
         for layer_p in tree_unstack(group_p, per):
-            h, cache = B.ssm_block(layer_p, cfg, h)
+            h, cache, _ = B.ssm_block(layer_p, cfg, h)
             m_caches.append(cache)
-        h, a_cache = B.dense_block(p["shared"], cfg, h, positions,
-                                   window=window)
+        h, a_cache, _ = B.dense_block(p["shared"], cfg, h, positions,
+                                      window=window)
         return h, tree_stack(m_caches), a_cache
 
     g_caches, s_caches = [], []
@@ -236,7 +311,7 @@ def _hybrid_full(p, cfg, x, positions, window, *, remat: bool,
             s_caches.append(a_cache)
     t_caches = []
     for layer_p in tree_unstack(p.get("mamba_tail"), tail):
-        x, cache = B.ssm_block(layer_p, cfg, x)
+        x, cache, _ = B.ssm_block(layer_p, cfg, x)
         t_caches.append(cache)
     if not with_cache:
         return x, None
@@ -268,9 +343,11 @@ def train_loss(params, cfg, batch: Dict[str, Any]
 # --- prefill -----------------------------------------------------------------
 
 def prefill(params, cfg, batch: Dict[str, Any]) -> Tuple[torch.Tensor, Any]:
-    """batch {"tokens": [B, S]} -> (logits of the last position [B, 1, V]
-    float32, caches: stacked [L, B, S, Hkv, Dh] keys and values (dense),
-    [L, B, ...] SSM states (ssm), or the hybrid's nested tree)."""
+    """batch {"tokens": [B, S]} (audio: and "frames" [B, n_frames, D]) ->
+    (logits of the last position [B, 1, V] float32, caches: stacked
+    [L, B, S, Hkv, Dh] keys and values (dense, GQA moe), MLA latents,
+    [L, B, ...] SSM states (ssm), the hybrid's nested tree, or audio's
+    {"self", "cross"})."""
     x, _, caches = _forward_full(params, cfg, batch, with_cache=True)
     return _logits(params, cfg, x[:, -1:, :]), caches
 
@@ -287,7 +364,8 @@ def decode_step(params, cfg, tokens: torch.Tensor, caches, pos: torch.Tensor,
     x = _embed(params, cfg, tokens)
     if cfg.family == "hybrid":
         return _hybrid_decode(params, cfg, x, caches, pos, window)
-    _, _, decode_fn = _block_fns(cfg)
+    decode_fn = (B.xdec_block_decode if cfg.family == "audio"
+                 else _block_fns(cfg)[2])
     new_caches = []
     for i in range(cfg.n_layers):
         x, nc = decode_fn(tree_slice(params["layers"], i), cfg, x,
@@ -329,10 +407,12 @@ def _hybrid_decode(params, cfg, x, caches, pos, window):
 
 def empty_caches(cfg, batch: int, s_max: int, dtype=torch.bfloat16,
                  device=None):
-    """Zeroed decode caches in prefill's layout: dense [L, batch, s_max,
-    Hkv, Dh] keys and values (`dtype`); ssm [L, batch, ...] float32
-    states; hybrid {"groups" [G, per, batch, ...], "shared" [G, batch,
-    s_max, Hkv, Dh], "tail" [T, batch, ...] or None}."""
+    """Zeroed decode caches in prefill's layout: dense and GQA moe
+    [L, batch, s_max, Hkv, Dh] keys and values, MLA moe [L, batch, s_max,
+    r_kv] latents and [L, batch, s_max, dr] rope keys (`dtype`); ssm
+    [L, batch, ...] float32 states; hybrid {"groups" [G, per, batch, ...],
+    "shared" [G, batch, s_max, Hkv, Dh], "tail" [T, batch, ...] or None};
+    audio {"self": GQA, "cross": [L, batch, n_frames, H, Dh]}."""
     _check_family(cfg)
     dev = resolve_device(device)
 
@@ -342,6 +422,17 @@ def empty_caches(cfg, batch: int, s_max: int, dtype=torch.bfloat16,
     if cfg.family == "dense":
         return stack(cfg.n_layers, attn_mod.gqa_empty_cache(
             cfg, batch, s_max, dtype, dev))
+    if cfg.family == "moe":
+        empty = (attn_mod.mla_empty_cache if cfg.mla
+                 else attn_mod.gqa_empty_cache)
+        return stack(cfg.n_layers, empty(cfg, batch, s_max, dtype, dev))
+    if cfg.family == "audio":
+        shp = (batch, cfg.n_frames, cfg.n_heads, cfg.d_head)
+        cross = {"k": torch.zeros(shp, dtype=dtype, device=dev),
+                 "v": torch.zeros(shp, dtype=dtype, device=dev)}
+        return stack(cfg.n_layers, {
+            "self": attn_mod.gqa_empty_cache(cfg, batch, s_max, dtype, dev),
+            "cross": cross})
     m = ssm_mod.ssm_empty_cache(cfg, batch, device=dev)
     if cfg.family == "ssm":
         return stack(cfg.n_layers, m)

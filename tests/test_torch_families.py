@@ -38,9 +38,9 @@ from repro_torch.models import transformer
 from repro_torch.tree import tree_map, tree_map_with_path
 
 PORTED = ("mamba2-130m", "zamba2-1.2b", "qwen3-14b", "qwen3-32b",
-          "qwen2-72b", "minitron-4b")
-UNPORTED = ("whisper-medium", "llava-next-34b", "kimi-k2-1t-a32b",
-            "deepseek-v3-671b")
+          "qwen2-72b", "minitron-4b", "deepseek-v3-671b", "kimi-k2-1t-a32b",
+          "whisper-medium")
+UNPORTED = ("llava-next-34b",)
 F32 = dict(rtol=1e-4, atol=1e-4)
 BF16 = dict(rtol=1.6e-2, atol=1.6e-2)
 KV_F32 = dict(rtol=2 ** -7, atol=1e-4)
@@ -100,14 +100,14 @@ def flat_port(tree):
 
 def close_caches(jref, dtype, got, want, family="dense"):
     """Every cache leaf: in float32 configs the attention keys and values
-    (bfloat16 in both) at one bfloat16 ulp, the rest at `tol`; the
+    and MLA's latents and rope keys (bfloat16 in both) at one bfloat16 ulp, the rest at `tol`; the
     bfloat16 hybrid's in relative L2 norm."""
     fj, ft = flat_ref(jref, want), flat_port(got)
     assert sorted(ft) == sorted(fj)
     for path, t in ft.items():
         w = np.asarray(fj[path], np.float32)
         assert tuple(t.shape) == w.shape, path
-        kv = path.endswith("['k']") or path.endswith("['v']")
+        kv = path.endswith(("['k']", "['v']", "['ckv']", "['k_rope']"))
         if family == "hybrid" and dtype == "bfloat16":
             err = np.linalg.norm(t.to(torch.float32).numpy() - w)
             assert err <= HYBRID_L2 * np.linalg.norm(w), path
@@ -115,6 +115,34 @@ def close_caches(jref, dtype, got, want, family="dense"):
             close(t, w, KV_F32)
         else:
             close(t, w, tol(dtype, w, family))
+
+
+def batches(jref, cfg, toks, **extra):
+    """The same batch for both packages: the tokens (and `extra` arrays),
+    plus seeded frame embeddings for the audio family."""
+    arrays = dict(tokens=toks, **extra)
+    if cfg.family == "audio":
+        arrays["frames"] = np.random.default_rng(9).standard_normal(
+            (toks.shape[0], cfg.n_frames, cfg.d_model)).astype(np.float32)
+    return ({k: jref.jnp.asarray(v) for k, v in arrays.items()},
+            {k: torch.from_numpy(v) for k, v in arrays.items()})
+
+
+def greedy_tokens(jref, lj, lt):
+    """Both packages' greedy tokens [B, 1] from their last logits, which
+    must be equal, except where the reference's own logits tie exactly at
+    the top: argmax then takes the first of values that one rounding in
+    the last bit reorders, so the port's token need only be one of the
+    tied ones (the deepseek-v3 bfloat16 smoke prefill has such a tie;
+    ROADMAP Queue 3).  Both decode on from the reference's tokens."""
+    want = np.asarray(lj[:, -1], np.float32)
+    tok_j = want.argmax(-1)
+    tok_t = lt[:, -1].argmax(-1).numpy()
+    rows = np.arange(len(tok_j))
+    tied = want[rows, tok_t] == want[rows, tok_j]
+    np.testing.assert_array_equal(np.where(tied, tok_j, tok_t), tok_j)
+    return (jref.jnp.asarray(tok_j[:, None]),
+            torch.from_numpy(tok_j[:, None]))
 
 
 def model_pair(jref, arch, dtype, **over):
@@ -156,11 +184,10 @@ def test_other_archs_still_raise(arch, jref):
 
 def test_param_count_of_other_families_raises():
     cfg = configs.get_config("qwen3-14b")
-    for family in ("moe", "audio", "vlm"):
-        with pytest.raises(NotImplementedError, match="item 12"):
-            cfg.replace(family=family).param_count()
     with pytest.raises(NotImplementedError, match="item 12"):
-        models.init_params(0, cfg.replace(family="moe", n_layers=1),
+        cfg.replace(family="vlm").param_count()
+    with pytest.raises(NotImplementedError, match="item 12"):
+        models.init_params(0, cfg.replace(family="vlm", n_layers=1),
                            device="cpu")
 
 
@@ -234,9 +261,9 @@ def test_prefill_and_decode_match_the_reference(arch, dtype, jref):
     cj, pj, ct, pt = model_pair(jref, arch, dtype)
     fam = ct.family
     toks = np.random.default_rng(0).integers(0, cj.vocab_size, (B, S))
-    lj, pre_j = jref.models.prefill(pj, cj,
-                                    {"tokens": jref.jnp.asarray(toks)})
-    lt, pre_t = models.prefill(pt, ct, {"tokens": torch.from_numpy(toks)})
+    batch_j, batch_t = batches(jref, cj, toks)
+    lj, pre_j = jref.models.prefill(pj, cj, batch_j)
+    lt, pre_t = models.prefill(pt, ct, batch_t)
     close(lt, lj, tol(dtype, lj, fam))
     close_caches(jref, dtype, pre_t, pre_j, fam)
 
@@ -244,9 +271,7 @@ def test_prefill_and_decode_match_the_reference(arch, dtype, jref):
                                        pre_j)
     cache_t = serve.splice_caches(models.empty_caches(ct, B, CTX,
                                                       device="cpu"), pre_t)
-    tok_j = jref.jnp.argmax(lj[:, -1], -1)[:, None]
-    tok_t = lt[:, -1].argmax(-1)[:, None]
-    np.testing.assert_array_equal(tok_t.numpy(), np.asarray(tok_j))
+    tok_j, tok_t = greedy_tokens(jref, lj, lt)
     for i in range(3):
         pos = np.full(B, S + i)
         lj, cache_j = jref.models.decode_step(pj, cj, tok_j, cache_j,
@@ -255,9 +280,7 @@ def test_prefill_and_decode_match_the_reference(arch, dtype, jref):
                                          torch.from_numpy(pos), CTX)
         close(lt, lj, tol(dtype, lj, fam))
         close_caches(jref, dtype, cache_t, cache_j, fam)
-        tok_j = jref.jnp.argmax(lj[:, -1], -1)[:, None]
-        tok_t = lt[:, -1].argmax(-1)[:, None]
-        np.testing.assert_array_equal(tok_t.numpy(), np.asarray(tok_j))
+        tok_j, tok_t = greedy_tokens(jref, lj, lt)
 
 
 def test_hybrid_float32_rounds_inside_the_scan():
@@ -322,23 +345,23 @@ def test_hybrid_decode_windows_at_long_context(jref):
     assert torch.equal(got, logits[131072])
 
 
-@pytest.mark.parametrize("arch", ["mamba2-130m", "zamba2-1.2b"])
+@pytest.mark.parametrize("arch", ["mamba2-130m", "zamba2-1.2b",
+                                  "deepseek-v3-671b", "kimi-k2-1t-a32b",
+                                  "whisper-medium"])
 def test_train_loss_matches_the_reference(arch, jref):
-    """The loss and its metrics at the float32 smoke config; the port
-    with remat on (a checkpoint per layer, per group in the hybrid), its
-    backward finite."""
+    """The loss and its metrics at the float32 smoke config (the MoE
+    archs' auxiliary losses included); the port with remat on (a
+    checkpoint per layer, per group in the hybrid), its backward
+    finite."""
     cj, pj, ct, pt = model_pair(jref, arch, "float32")
     rng = np.random.default_rng(2)
     toks = rng.integers(0, cj.vocab_size, (B, S))
     labels = np.where(rng.random((B, S)) < 0.2, -1,
                       rng.integers(0, cj.vocab_size, (B, S)))
-    loss_j, met_j = jref.models.train_loss(
-        pj, cj, {"tokens": jref.jnp.asarray(toks),
-                 "labels": jref.jnp.asarray(labels)})
+    batch_j, batch_t = batches(jref, cj, toks, labels=labels)
+    loss_j, met_j = jref.models.train_loss(pj, cj, batch_j)
     live = tree_map(lambda t: t.requires_grad_(True), pt)
-    loss_t, met_t = models.train_loss(
-        live, ct.replace(remat=True), {"tokens": torch.from_numpy(toks),
-                                       "labels": torch.from_numpy(labels)})
+    loss_t, met_t = models.train_loss(live, ct.replace(remat=True), batch_t)
     close(loss_t, loss_j, F32)
     for name in ("ce", "aux_lb", "aux_z", "ntokens"):
         close(met_t[name], met_j[name], F32)

@@ -119,7 +119,7 @@ def test_configs_match_the_reference(jref):
             assert getattr(ct, f.name) == getattr(cj, f.name), f.name
     assert configs.get_config("drim-bnn").activation_dtype == torch.bfloat16
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        configs.get_config("whisper-medium")
+        configs.get_config("llava-next-34b")
     with pytest.raises(KeyError):
         configs.get_config("no-such-arch")
 
@@ -216,9 +216,11 @@ def test_dense_block(jref, model):
     xj, xt = activations(jref, dtype, (B, S, ct.d_model))
     pos = np.broadcast_to(np.arange(S), (B, S))
     yj, cache_j, _ = jref.blocks.dense_block(lj, cj, xj, jref.jnp.asarray(pos))
-    yt, cache_t = blocks.dense_block(lt, ct, xt, torch.from_numpy(pos.copy()))
+    yt, cache_t, aux_t = blocks.dense_block(lt, ct, xt,
+                                            torch.from_numpy(pos.copy()))
     close(yt, yj, TOL[dtype])
     close(cache_t["v"], cache_j["v"], TOL[dtype])
+    assert aux_t == blocks.ZERO_AUX
 
 
 # ---------------------------------------------------------------------------

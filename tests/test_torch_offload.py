@@ -266,7 +266,7 @@ def test_param_count_and_payloads_equal_reference(which):
               "weight_sign_copy": "copy"}[name]
         assert_rows_equal(v, want[name], tcompile(op).lower())
     with pytest.raises(NotImplementedError, match="item 12"):
-        cfg.replace(family="moe").param_count()
+        cfg.replace(family="vlm").param_count()
 
 
 def test_exports():
