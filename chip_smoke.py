@@ -54,8 +54,9 @@ Phases, each fatal on failure:
                 phase's prefills (zamba2 [4, 32, 512, 64], n_rep 1;
                 qwen3-14b [4, 40, 256, 128] over 8 KV heads, n_rep 5;
                 kimi-k2 [4, 64, 256, 128] over 8 KV heads, n_rep 8;
-                whisper-medium's decoder [4, 16, 256, 64], n_rep 1), a
-                "detail" line each;
+                whisper-medium's decoder [4, 16, 256, 64], n_rep 1;
+                llava-next-34b [4, 56, 3072, 128] over 8 KV heads, n_rep
+                7), a "detail" line each;
   3. path    -- one drim-bnn FFN BitLinear pair at full width (768 -> 3072
                 -> 768) on M = 512 activation rows, weights from a seeded
                 numpy generator, each projection served by the native
@@ -73,7 +74,7 @@ Phases, each fatal on failure:
                 (the second takes the dense-scores attention) into 2
                 slots, native packed and DRIM packed, with identical
                 tokens per request;
-  4b. families -- the SSM, hybrid, dense, MoE and audio families at
+  4b. families -- the SSM, hybrid, dense, MoE, audio and vlm families at
                 full width through `run_serve` on the "gpu" route, seeded
                 weights, batch 4, 8 greedy tokens: mamba2-130m at its 24
                 layers (a 1024-token prompt, 4 SSD chunks), zamba2-1.2b at
@@ -86,7 +87,10 @@ Phases, each fatal on failure:
                 n_rep 8 at d_head 128), whisper-medium at its 24 + 24
                 layers over 1500 zero frames (256 tokens; the decoder's
                 self-attention on flash, the encoder and the
-                cross-attention on dense scores); each leg's host weight
+                cross-attention on dense scores), llava-next-34b at full
+                width cut from 60 layers to 2 (a 3072-token prompt whose
+                first 2880 positions are zero patch embeddings; GQA n_rep
+                7 at d_head 128); each leg's host weight
                 draw (init_s), prefill_s, decode tok/s and p50/p99 (host
                 clock), every logits tensor finite and every token id
                 inside the vocabulary, and after each, outside its count,
@@ -97,8 +101,9 @@ Phases, each fatal on failure:
                 requests (1024 and 512 tokens) through the continuous
                 batcher, which must refuse zamba2 as the reference's does;
                 then the float32 smoke configs of mamba2, zamba2,
-                deepseek-v3, kimi-k2 and whisper-medium prefilled on the
-                card and on the CPU (FAMILY_REF_TOL; the MoE archs' top-k
+                deepseek-v3, kimi-k2, whisper-medium and llava-next-34b
+                (seeded patch embeddings) prefilled on the card and on
+                the CPU (FAMILY_REF_TOL; the MoE archs' top-k
                 expert choices that differ between the two counted), and
                 one full-width mamba2 mixer's prefill state against
                 stepping its decode token by token on the card (the
@@ -202,17 +207,17 @@ Phases, each fatal on failure:
                 10 more steps must equal the straight run's step-20 state
                 bit for bit;
   13. counts -- the launch counters are zeroed just before phase 3, before
-                each of phase 4's five legs and phase 4b's four, before
+                each of phase 4's five legs and phase 4b's legs, before
                 phase 5, phase 6,
                 phase 7, each of phase 8's three legs, phase 9, each of
                 phase 10's five legs, each of phase 11's four legs and
                 each of phase 12's two legs, and read just after each:
                 phase 3 must launch the three BNN kernels, each serving
                 leg exactly the launches its route implies
-                (`expected_launches`), each of phase 4b's four legs the
+                (`expected_launches`), each of phase 4b's legs the
                 flash forward once per attention site of its prefill
                 (mamba2 0, zamba2 6, qwen3-14b 2, deepseek-v3 0, kimi-k2
-                1, whisper-medium 24, continuous 0) and
+                1, whisper-medium 24, llava-next-34b 2, continuous 0) and
                 nothing else, phase 5 the faulted interpreter
                 once per faulted "cuda" run and the fault-free one once,
                 phase 6 one bulk kernel per "gpu" op run and per non-copy
@@ -317,18 +322,24 @@ TRAIN = ["--arch", "drim-bnn", "--steps", str(TRAIN_STEPS), "--batch", "8",
 TRAIN_LOSS_RTOL, TRAIN_GRAD_RTOL = 1e-5, 1e-3
 SERVE = ["--arch", "drim-bnn", "--batch", "4", "--prompt-len", "256",
          "--gen", "8", "--seed", str(SEED), "--temperature", "0"]
-# The families phase: the SSM, hybrid, dense, MoE and audio archs served
-# at full width (arch, depth cut or 0 for the published depth, prompt
-# length, flash launches of the one aligned prefill: a GQA attention site
-# each -- none in mamba2, one per group site in zamba2, one per layer in
-# qwen3-14b and kimi-k2, none behind deepseek-v3's MLA, one per decoder
-# layer in whisper).  qwen3-14b keeps its width and is cut from 40 layers
-# to 2, so that its host-side initialisation stays short; the two MoE
-# archs keep theirs and are cut from 61 layers to 1 (26.7 GB and 38.9 GB
-# in bfloat16, 13.4 B and 19.4 B weights drawn on the host).
+# The families phase: the SSM, hybrid, dense, MoE, audio and vlm archs
+# served at full width (arch, depth cut or 0 for the published depth,
+# prompt length, flash launches of the one aligned prefill: a GQA
+# attention site each -- none in mamba2, one per group site in zamba2, one
+# per layer in qwen3-14b, kimi-k2 and llava, none behind deepseek-v3's
+# MLA, one per decoder layer in whisper).  qwen3-14b keeps its width and
+# is cut from 40 layers to 2, so that its host-side initialisation stays
+# short; the two MoE archs keep theirs and are cut from 61 layers to 1
+# (26.7 GB and 38.9 GB in bfloat16, 13.4 B and 19.4 B weights drawn on
+# the host); llava-next-34b keeps its width and is cut from 60 layers to
+# 2 (2.03 B weights drawn on the host, 4.07 GB in bfloat16, against
+# 34.4 B for all 60).  llava's prompt is 3072 tokens, longer than its
+# 2880 patches, so that 192 text positions follow them, and a multiple
+# of 128, so that the prefill takes the flash kernel.
 FAMILIES = (("mamba2-130m", 0, 1024, 0), ("zamba2-1.2b", 0, 512, 6),
             ("qwen3-14b", 2, 256, 2), ("deepseek-v3-671b", 1, 256, 0),
-            ("kimi-k2-1t-a32b", 1, 256, 1), ("whisper-medium", 0, 256, 24))
+            ("kimi-k2-1t-a32b", 1, 256, 1), ("whisper-medium", 0, 256, 24),
+            ("llava-next-34b", 2, 3072, 2))
 FAMILY_BATCH, FAMILY_GEN = 4, 8
 FAMILY_CONTINUOUS = (1024, 512)         # two mamba2 requests' prompts
 # The float32 smoke configs' prefill on the card against the CPU: mamba2
@@ -336,13 +347,14 @@ FAMILY_CONTINUOUS = (1024, 512)         # two mamba2 requests' prompts
 # magnitude, since its scan rounds product operands to bfloat16 in
 # float32 too and the shared attention amplifies a one-ulp change (a
 # 1.2e-7 relative nudge of the embeddings moves its CPU logits by ~1e-4:
-# tests/test_torch_families.py); deepseek-v3, kimi-k2 and whisper-medium
-# at the drim-bnn check's 1e-3 of the logits' magnitude (cuBLAS and the
+# tests/test_torch_families.py); deepseek-v3, kimi-k2, whisper-medium and
+# llava-next-34b at the drim-bnn check's 1e-3 of the logits' magnitude
+# (cuBLAS and the
 # CPU sum float32 in other orders, ~1e-6 relative; a top-k choice that a
 # near-tie flips would show as a larger error, and the check counts them).
 FAMILY_REF_TOL = {"mamba2-130m": 1e-3, "zamba2-1.2b": 1.6e-2,
                   "deepseek-v3-671b": 1e-3, "kimi-k2-1t-a32b": 1e-3,
-                  "whisper-medium": 1e-3}
+                  "whisper-medium": 1e-3, "llava-next-34b": 1e-3}
 # A full-width mamba2 layer's prefill against stepping its decode token by
 # token: the reference's tolerances (tests/test_ssm_equiv.py): state 0.05,
 # outputs 0.08, conv window 1e-4.
@@ -939,13 +951,16 @@ def phase_flash(rng):
         (1, 2, 2, 256, 256, 32, 128, 64, False, torch.float32),
         # the training step's shape, the families phase's prefills
         # (zamba2's shared block, n_rep 1; qwen3-14b, n_rep 5 at D = 128;
-        # kimi-k2, n_rep 8 at D = 128; whisper's decoder, n_rep 1), then
-        # the tensor-core kernel's edges
+        # kimi-k2, n_rep 8 at D = 128; whisper's decoder, n_rep 1; llava,
+        # n_rep 7 at D = 128 over 3072 tokens, whose plain version holds
+        # [4, 56, 3072, 3072] float32 scores, 8.5 GB a tensor), then the
+        # tensor-core kernel's edges
         (8, 12, 4, 256, 256, 64, 128, 128, True, torch.bfloat16),
         (4, 32, 32, 512, 512, 64, 128, 128, True, torch.bfloat16),
         (4, 40, 8, 256, 256, 128, 128, 128, True, torch.bfloat16),
         (4, 64, 8, 256, 256, 128, 128, 128, True, torch.bfloat16),
         (4, 16, 16, 256, 256, 64, 128, 128, True, torch.bfloat16),
+        (4, 56, 8, 3072, 3072, 128, 128, 128, True, torch.bfloat16),
         *FLASH_BF16_EDGES]
     record = None
     for b, h, hkv, sq, sk, d, bq, bk, causal, dt in cases:
@@ -996,6 +1011,7 @@ def phase_flash(rng):
                 shape=f"q {list(q.shape)} k/v {list(k.shape)} bfloat16, "
                       "causal")
         del q, k, v, out, lse, want, want_lse
+        torch.cuda.empty_cache()
     return record
 
 
@@ -2744,21 +2760,22 @@ def check_served(leg: str, gen, cfg, flags, n_gen: int, n_calls: int):
 
 def attention_sites(cfg) -> int:
     """GQA attention sites of a prefill, each one flash launch where the
-    prompt is block-aligned: a layer each in the dense archs, the GQA moe
-    archs and whisper's decoder (its encoder and cross-attention take
-    dense scores), none behind MLA or in mamba2, a group site each in the
-    hybrid."""
-    if cfg.family in ("dense", "audio") or (cfg.family == "moe"
-                                            and not cfg.mla):
+    prompt is block-aligned: a layer each in the dense and vlm archs, the
+    GQA moe archs and whisper's decoder (its encoder and cross-attention
+    take dense scores), none behind MLA or in mamba2, a group site each
+    in the hybrid."""
+    if cfg.family in ("dense", "vlm", "audio") or (cfg.family == "moe"
+                                                   and not cfg.mla):
         return cfg.n_layers
     return cfg.n_layers // cfg.attn_every if cfg.attn_every else 0
 
 
 def phase_families(wrappers):
-    """The SSM, hybrid, dense, MoE and audio families served through
+    """The SSM, hybrid, dense, MoE, audio and vlm families served through
     `run_serve` on the "gpu" route at full width: mamba2-130m, zamba2-1.2b
-    and whisper-medium at their published depth, qwen3-14b cut to 2
-    layers, deepseek-v3 and kimi-k2 to 1; then two mamba2 requests
+    and whisper-medium at their published depth, qwen3-14b and
+    llava-next-34b cut to 2 layers, deepseek-v3 and kimi-k2 to 1; then
+    two mamba2 requests
     through the continuous batcher, and the batcher refusing zamba2.  Each
     leg's launches are counted on their own (flash once per attention
     site of the aligned prefill); returns the phase's counts summed."""
@@ -2797,7 +2814,8 @@ def phase_families(wrappers):
             "leg": arch, "family": cfg.family, "n_layers": cfg.n_layers,
             "published_layers": get_config(arch).n_layers,
             "encoder_layers": cfg.encoder_layers,
-            "d_model": cfg.d_model, "params": cfg.param_count(),
+            "d_model": cfg.d_model, "n_patches": cfg.n_patches,
+            "params": cfg.param_count(),
             "active_params": cfg.active_param_count(),
             "experts": cfg.n_experts, "top_k": cfg.top_k, "mla": cfg.mla,
             "batch": FAMILY_BATCH, "prompt": prompt, "gen": FAMILY_GEN,
@@ -2931,7 +2949,8 @@ def check_decode_repeats(arch: str, cfg, params, prompt: int):
 def check_families_reference():
     """The float32 smoke configs prefilled on the card (flash at every GQA
     site at 512 tokens) and on the CPU from the same seeded weights,
-    tokens and (whisper) frames, the last position's logits within
+    tokens, (whisper) frames and (llava) patch embeddings, the last
+    position's logits within
     FAMILY_REF_TOL; for the MoE archs, how many top-k expert choices the
     two runs made differently (a near-tie of router probabilities may
     flip one under cuBLAS's order of sums)."""
@@ -2948,6 +2967,9 @@ def check_families_reference():
         if cfg.family == "audio":
             batch["frames"] = torch.from_numpy(rng.standard_normal(
                 (2, cfg.n_frames, cfg.d_model), dtype=np.float32))
+        if cfg.family == "vlm":
+            batch["patch_embeds"] = torch.from_numpy(rng.standard_normal(
+                (2, cfg.n_patches, cfg.d_model), dtype=np.float32))
         before = flash_attention.flash_fwd.launches
         logits, choices = {}, {}
         for dev in ("cuda", "cpu"):

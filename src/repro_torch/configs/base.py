@@ -1,9 +1,9 @@
-"""ModelConfig (port of `repro.configs.base`, the fields the dense, MoE,
-SSM, hybrid and audio families read).
+"""ModelConfig (port of `repro.configs.base`, the fields the dense, vlm,
+MoE, SSM, hybrid and audio families read).
 
-The reference's config also carries the vlm family's `n_patches` and its
-sharding fields (`seq_parallel`, `scan_unroll`); they arrive with the
-vlm prefix and the sharding bullet (ROADMAP Queue 1 item 12).
+The reference's config also carries its sharding fields (`seq_parallel`,
+`scan_unroll`); they arrive with the sharding bullet (ROADMAP Queue 1
+item 12).
 """
 from __future__ import annotations
 
@@ -15,7 +15,7 @@ import torch
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
     arch: str
-    family: str                 # dense | moe | ssm | hybrid | audio
+    family: str                 # dense | vlm | moe | ssm | hybrid | audio
     n_layers: int
     d_model: int
     vocab_size: int
@@ -64,6 +64,8 @@ class ModelConfig:
     # enc-dec (whisper)
     encoder_layers: int = 0
     n_frames: int = 1500        # stub conv frontend output length
+    # vlm (llava): patch embeds prepended by the stub frontend
+    n_patches: int = 0
     # long-context policy
     subquadratic: bool = False  # may run long_500k
     long_context_window: int = 4096  # hybrid attn window at >=128k ctx
@@ -89,15 +91,13 @@ class ModelConfig:
 
     def param_count(self) -> int:
         """Analytic parameter count (embedding + trunk + head), the
-        reference's formula for the dense, MoE, SSM, hybrid and audio
-        families."""
-        if self.family not in ("dense", "moe", "ssm", "hybrid", "audio"):
-            raise NotImplementedError(
-                f"param_count of family {self.family!r}: ROADMAP Queue 1 "
-                "item 12 (the vlm family)")
+        reference's formula."""
+        if self.family not in ("dense", "vlm", "moe", "ssm", "hybrid",
+                               "audio"):
+            raise ValueError(f"unknown family {self.family!r}")
         d, v = self.d_model, self.vocab_size
         n = 2 * v * d                                    # embed + head
-        if self.family in ("dense", "moe", "audio"):
+        if self.family in ("dense", "vlm", "moe", "audio"):
             if self.mla:
                 attn = (d * self.q_lora_rank
                         + self.q_lora_rank * self.n_heads

@@ -1,7 +1,5 @@
-"""--arch id -> config resolution (port of `repro.configs.registry`).
-
-The dense, MoE, SSM, hybrid and audio archs are ported; the reference's
-vlm arch raises and names the ROADMAP item that brings it."""
+"""--arch id -> config resolution (port of `repro.configs.registry`):
+every arch of the reference."""
 from importlib import import_module
 
 ARCHS = {
@@ -10,6 +8,7 @@ ARCHS = {
     "qwen3-32b": "qwen3_32b",
     "minitron-4b": "minitron_4b",
     "whisper-medium": "whisper_medium",
+    "llava-next-34b": "llava_next_34b",
     "kimi-k2-1t-a32b": "kimi_k2_1t_a32b",
     "deepseek-v3-671b": "deepseek_v3_671b",
     "mamba2-130m": "mamba2_130m",
@@ -17,14 +16,8 @@ ARCHS = {
     "drim-bnn": "drim_bnn",
 }
 
-_NOT_PORTED = ("llava-next-34b",)
-
 
 def _module(arch: str):
-    if arch in _NOT_PORTED:
-        raise NotImplementedError(
-            f"arch {arch!r} is not ported to repro_torch yet: ROADMAP "
-            "Queue 1 item 12 (the vlm family)")
     if arch not in ARCHS:
         raise KeyError(f"unknown arch {arch!r}; choose from {sorted(ARCHS)}")
     return import_module(f"repro_torch.configs.{ARCHS[arch]}")

@@ -30,12 +30,14 @@
     span ends with the step's device sync);
   * --device: where to serve (default: the card; "cpu" runs the plain
     torch versions of the kernels);
-  * --arch: every ported arch (`configs.ARCHS`: drim-bnn, the dense
-    qwen3-14b, qwen3-32b, qwen2-72b and minitron-4b, the MoE
-    deepseek-v3-671b (MLA) and kimi-k2-1t-a32b (GQA), the SSM
-    mamba2-130m, the hybrid zamba2-1.2b and the encoder-decoder
-    whisper-medium, whose batch carries zero frame embeddings for the
-    stub audio frontend, as in the reference).  Only drim-bnn has
+  * --arch: every arch (`configs.ARCHS`: drim-bnn, the dense
+    qwen3-14b, qwen3-32b, qwen2-72b and minitron-4b, the vlm
+    llava-next-34b, whose batch carries zero patch embeddings for the
+    stub vision frontend, the MoE deepseek-v3-671b (MLA) and
+    kimi-k2-1t-a32b (GQA), the SSM mamba2-130m, the hybrid zamba2-1.2b
+    and the encoder-decoder whisper-medium, whose batch carries zero
+    frame embeddings for the stub audio frontend, as in the
+    reference).  Only drim-bnn has
     BitLinear layers (`bitlinear="ffn"`), so on the others every engine
     serves the native route, as in the reference.
 
@@ -45,8 +47,7 @@ Timing: the first decode step runs UNTIMED as warm-up and is reported as
 
   * --n-queues: the queue count of --engine queued.
 
-Not ported yet (ROADMAP Queue 1 item 12): the reference's --mesh and
-its vlm arch (llava-next-34b).
+Not ported yet (ROADMAP Queue 1 item 12): the reference's --mesh.
 
 CPU-scale examples:
   PYTHONPATH=src python -m repro_torch.launch.serve --arch drim-bnn \\
@@ -290,10 +291,15 @@ def _prompts(args, cfg, n: int) -> np.ndarray:
 
 
 def model_batch(cfg, tokens: torch.Tensor) -> Dict[str, torch.Tensor]:
-    """The prefill batch: the tokens, and for the audio family zero frame
-    embeddings [B, n_frames, d_model] in bfloat16 (the stub frontend's
-    output, as the reference serves it)."""
+    """The prefill batch: the tokens, and zero stub-frontend outputs in
+    bfloat16, as the reference serves them: the vlm family's patch
+    embeddings [B, n_patches, d_model], the audio family's frame
+    embeddings [B, n_frames, d_model]."""
     batch = {"tokens": tokens}
+    if cfg.family == "vlm":
+        batch["patch_embeds"] = torch.zeros(
+            tokens.shape[0], cfg.n_patches, cfg.d_model,
+            dtype=torch.bfloat16, device=tokens.device)
     if cfg.family == "audio":
         batch["frames"] = torch.zeros(tokens.shape[0], cfg.n_frames,
                                       cfg.d_model, dtype=torch.bfloat16,

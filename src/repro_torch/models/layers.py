@@ -260,10 +260,18 @@ def mlp_init(gen: torch.Generator, d_model: int, d_ff: int, *,
     }
 
 
+def silu(x: torch.Tensor) -> torch.Tensor:
+    """x * logistic(x) with logistic as 1 / (1 + exp(-x)), each op rounded
+    to x's dtype: the reference's `jax.nn.silu` as XLA computes it, bit
+    for bit in bfloat16 on the CPU (torch's fused SiLU rounds once and
+    differs in the last bit of ~40 % of bfloat16 values).  In float32 it
+    is within 3 ulps of XLA's (equal on 96 % of values)."""
+    return x * torch.reciprocal(1 + torch.exp(-x))
+
+
 def mlp(params: Params, x: torch.Tensor) -> torch.Tensor:
     return linear(params["down"],
-                  torch.nn.functional.silu(linear(params["gate"], x))
-                  * linear(params["up"], x))
+                  silu(linear(params["gate"], x)) * linear(params["up"], x))
 
 
 class BitLinear(nn.Module):

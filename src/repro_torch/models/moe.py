@@ -48,7 +48,7 @@ from typing import Dict, Optional, Tuple
 import torch
 
 from repro_torch.models.layers import Params, dense, dense_init, linear, \
-    linear_init
+    linear_init, silu
 
 
 @dataclasses.dataclass(frozen=True)
@@ -207,20 +207,12 @@ def _combine(cfg, expert_out: torch.Tensor, ctx, t: int) -> torch.Tensor:
     return y
 
 
-def _silu(x: torch.Tensor) -> torch.Tensor:
-    """x * logistic(x) with logistic as 1 / (1 + exp(-x)), each op rounded
-    to x's dtype: the reference's `jax.nn.silu` as XLA computes it, bit
-    for bit in bfloat16 on the CPU (`torch.nn.functional.silu` rounds
-    once and differs in the last bit of ~20 % of values)."""
-    return x * torch.reciprocal(1 + torch.exp(-x))
-
-
 def _expert_mlps(p: Params, x_dtype, expert_in: torch.Tensor
                  ) -> torch.Tensor:
     """[..., E, C, D] -> [..., E, C, D] through the E expert SwiGLUs."""
     g = torch.einsum("...ecd,edf->...ecf", expert_in, p["gate"].to(x_dtype))
     u = torch.einsum("...ecd,edf->...ecf", expert_in, p["up"].to(x_dtype))
-    h = _silu(g) * u
+    h = silu(g) * u
     return torch.einsum("...ecf,efd->...ecd", h, p["down"].to(x_dtype))
 
 
@@ -253,5 +245,5 @@ def moe_ffn(p: Params, cfg, x: torch.Tensor
     if "shared" in p:
         sh = p["shared"]
         y = y + linear(sh["down"],
-                       _silu(linear(sh["gate"], x)) * linear(sh["up"], x))
+                       silu(linear(sh["gate"], x)) * linear(sh["up"], x))
     return y, aux

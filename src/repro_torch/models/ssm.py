@@ -25,7 +25,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.models.layers import (Params, dense, dense_init, rmsnorm,
-                                       rmsnorm_init)
+                                       rmsnorm_init, silu)
 
 CHUNK = 256
 
@@ -69,7 +69,7 @@ def _causal_conv(xbc: torch.Tensor, w: torch.Tensor, b: torch.Tensor
     k, c = w.shape
     x = F.pad(xbc.transpose(1, 2), (k - 1, 0))               # [B,C,S+K-1]
     out = F.conv1d(x, w.t().unsqueeze(1), groups=c)          # w [C,1,K]
-    return F.silu(out.transpose(1, 2) + b)
+    return silu(out.transpose(1, 2) + b)
 
 
 def _ssd_chunked(x, dt, a_log, b_mat, c_mat, d_skip
@@ -156,7 +156,7 @@ def ssm_mix(p: Params, cfg, x: torch.Tensor) -> Tuple[torch.Tensor, Dict]:
                             b_mat.to(torch.float32),
                             c_mat.to(torch.float32), p["d_skip"])
     y = y.reshape(bsz, s, di).to(x.dtype)
-    y = rmsnorm(p["norm"], y * F.silu(z))
+    y = rmsnorm(p["norm"], y * silu(z))
     cache = {"state": state.to(torch.float32),
              "conv": xbc_raw[:, -(cfg.ssm_conv - 1):, :].to(torch.float32)}
     return dense(p["out_proj"], y), cache
@@ -186,7 +186,7 @@ def ssm_decode(p: Params, cfg, x: torch.Tensor, cache: Dict
     w = p["conv_w"].to(x.dtype)
     conv_out = (hist * w[None, :, :]).sum(1, keepdim=True) \
         + p["conv_b"].to(x.dtype)[None, None, :]
-    xbc = F.silu(conv_out)
+    xbc = silu(conv_out)
     new_conv = hist[:, 1:, :]
 
     xin = xbc[..., :di].reshape(bsz, h, hd)
@@ -203,5 +203,5 @@ def ssm_decode(p: Params, cfg, x: torch.Tensor, cache: Dict
     y = torch.einsum("bn,bhpn->bhp", c_mat.to(f32), state) \
         + xin.to(f32) * p["d_skip"][None, :, None]
     y = y.reshape(bsz, 1, di).to(x.dtype)
-    y = rmsnorm(p["norm"], y * F.silu(z))
+    y = rmsnorm(p["norm"], y * silu(z))
     return dense(p["out_proj"], y), {"state": state, "conv": new_conv}

@@ -1,5 +1,5 @@
-"""Model trunk for the dense, MoE, SSM, hybrid and audio families (port
-of `repro.models.transformer`).
+"""Model trunk for the dense, vlm, MoE, SSM, hybrid and audio families
+(port of `repro.models.transformer`).
 
 Public interface (functions of (params, cfg, ...)):
 
@@ -11,7 +11,10 @@ Public interface (functions of (params, cfg, ...)):
   lm_from_jax(params, cfg, device=)            -> params
 
 Family assembly:
-  dense           : N x dense_block
+  dense | vlm     : N x dense_block; vlm's batch may carry the stub
+                    frontend's patch embeddings (`batch["patch_embeds"]`
+                    [B, n_patches, D]), which replace the first n_patches
+                    token embeddings (decode embeds tokens only)
   moe             : N x moe_block (GQA or MLA attention, MoE FFN)
   ssm             : N x ssm_block (Mamba2 SSD)
   hybrid (zamba2) : G groups of [attn_every x ssm_block], each followed by
@@ -34,8 +37,7 @@ training, `cfg.remat` wraps each layer (the hybrid: each group) in
 `torch.utils.checkpoint`, as the reference wraps its scan bodies in
 `jax.checkpoint`: the backward runs that forward again, so a dense step
 runs the flash forward kernel twice per layer.  The blocks' auxiliary
-losses (MoE routing) are summed over the layers into `train_loss`.  The
-reference's vlm family comes later (ROADMAP Queue 1 item 12).
+losses (MoE routing) are summed over the layers into `train_loss`.
 """
 from __future__ import annotations
 
@@ -60,10 +62,8 @@ LONG_CTX_THRESHOLD = 131072
 
 
 def _check_family(cfg) -> None:
-    if cfg.family not in ("dense", "moe", "ssm", "hybrid", "audio"):
-        raise NotImplementedError(
-            f"family {cfg.family!r} is not ported to repro_torch yet: "
-            "ROADMAP Queue 1 item 12 (the vlm family)")
+    if cfg.family not in ("dense", "vlm", "moe", "ssm", "hybrid", "audio"):
+        raise ValueError(f"unknown family {cfg.family!r}")
 
 
 def _window_for(cfg, ctx_len: int) -> int:
@@ -75,7 +75,7 @@ def _window_for(cfg, ctx_len: int) -> int:
 
 def _block_fns(cfg):
     _check_family(cfg)
-    if cfg.family == "dense":
+    if cfg.family in ("dense", "vlm"):
         return B.dense_block_init, B.dense_block, B.dense_block_decode
     if cfg.family == "moe":
         return B.moe_block_init, B.moe_block, B.moe_block_decode
@@ -211,8 +211,17 @@ def lm_from_jax(params, cfg, *, device=None) -> Params:
 
 # --- embedding / head --------------------------------------------------------
 
-def _embed(p, cfg, tokens: torch.Tensor) -> torch.Tensor:
-    return p["embed"][tokens.long()].to(cfg.activation_dtype)
+def _embed(p, cfg, tokens: torch.Tensor, batch: Dict[str, Any]
+           ) -> torch.Tensor:
+    """Token embeddings; for vlm with `patch_embeds` in the batch, the
+    patches then the token embeddings past them, as the reference
+    concatenates them (a prompt shorter than the patches gives a
+    patch-long sequence there too)."""
+    x = p["embed"][tokens.long()].to(cfg.activation_dtype)
+    if cfg.family == "vlm" and "patch_embeds" in batch:
+        pe = batch["patch_embeds"].to(x.dtype)
+        x = torch.cat([pe, x[:, pe.shape[1]:, :]], dim=1)
+    return x
 
 
 def _logits(p, cfg, x: torch.Tensor) -> torch.Tensor:
@@ -261,7 +270,7 @@ def _forward_full(p, cfg, batch: Dict[str, Any], *, with_cache: bool):
     positions = torch.arange(s, device=tokens.device)[None, :] \
         .expand(bsz, s)
     window = _window_for(cfg, s)
-    x = _embed(p, cfg, tokens)
+    x = _embed(p, cfg, tokens, batch)
     remat = cfg.remat and not with_cache and torch.is_grad_enabled()
     if cfg.family == "hybrid":
         x, caches = _hybrid_full(p, cfg, x, positions, window, remat=remat,
@@ -343,7 +352,8 @@ def train_loss(params, cfg, batch: Dict[str, Any]
 # --- prefill -----------------------------------------------------------------
 
 def prefill(params, cfg, batch: Dict[str, Any]) -> Tuple[torch.Tensor, Any]:
-    """batch {"tokens": [B, S]} (audio: and "frames" [B, n_frames, D]) ->
+    """batch {"tokens": [B, S]} (audio: and "frames" [B, n_frames, D];
+    vlm: and optionally "patch_embeds" [B, n_patches, D]) ->
     (logits of the last position [B, 1, V] float32, caches: stacked
     [L, B, S, Hkv, Dh] keys and values (dense, GQA moe), MLA latents,
     [L, B, ...] SSM states (ssm), the hybrid's nested tree, or audio's
@@ -361,7 +371,7 @@ def decode_step(params, cfg, tokens: torch.Tensor, caches, pos: torch.Tensor,
     `layers.serving_engine` scope the BitLinear GEMMs run on the DRIM
     fleet."""
     window = _window_for(cfg, ctx_len)
-    x = _embed(params, cfg, tokens)
+    x = _embed(params, cfg, tokens, {})
     if cfg.family == "hybrid":
         return _hybrid_decode(params, cfg, x, caches, pos, window)
     decode_fn = (B.xdec_block_decode if cfg.family == "audio"
@@ -407,7 +417,7 @@ def _hybrid_decode(params, cfg, x, caches, pos, window):
 
 def empty_caches(cfg, batch: int, s_max: int, dtype=torch.bfloat16,
                  device=None):
-    """Zeroed decode caches in prefill's layout: dense and GQA moe
+    """Zeroed decode caches in prefill's layout: dense, vlm and GQA moe
     [L, batch, s_max, Hkv, Dh] keys and values, MLA moe [L, batch, s_max,
     r_kv] latents and [L, batch, s_max, dr] rope keys (`dtype`); ssm
     [L, batch, ...] float32 states; hybrid {"groups" [G, per, batch, ...],
@@ -419,7 +429,7 @@ def empty_caches(cfg, batch: int, s_max: int, dtype=torch.bfloat16,
     def stack(n, c):
         return tree_map(lambda t: t[None].expand(n, *t.shape).contiguous(), c)
 
-    if cfg.family == "dense":
+    if cfg.family in ("dense", "vlm"):
         return stack(cfg.n_layers, attn_mod.gqa_empty_cache(
             cfg, batch, s_max, dtype, dev))
     if cfg.family == "moe":

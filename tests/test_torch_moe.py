@@ -9,7 +9,7 @@ float32 within rtol = atol = 1e-5; bfloat16 within 4 bfloat16 ulps of
 their magnitude (rtol 1.6e-2, atol 1.6e-2 times the larger of 1 and the
 reference's largest |value|).  The expert einsums sum in another order
 in the two packages, so a bfloat16 expert output differs in its last bit
-now and then; the port's SiLU rounds as XLA's does (`moe._silu`), and
+now and then; the port's SiLU rounds as XLA's does (`layers.silu`), and
 its combine adds in the reference's order, so given the same expert
 outputs it equals the reference's bit for bit.
 
@@ -28,7 +28,7 @@ import torch
 from repro_torch import configs, models
 from repro_torch.configs.registry import ARCHS
 from repro_torch.launch import batching
-from repro_torch.models import moe
+from repro_torch.models import layers, moe
 from repro_torch.tree import tree_map, tree_slice
 
 F32 = dict(rtol=1e-5, atol=1e-5)
@@ -201,7 +201,7 @@ def test_silu_rounds_as_the_reference(jref):
     x = np.random.default_rng(4).standard_normal(4096).astype(np.float32) * 4
     for dtype in ("float32", "bfloat16"):
         want = jref.jax.nn.silu(jref.jnp.asarray(x).astype(dtype))
-        got = moe._silu(torch.from_numpy(x).to(getattr(torch, dtype)))
+        got = layers.silu(torch.from_numpy(x).to(getattr(torch, dtype)))
         if dtype == "bfloat16":
             equal(got.to(torch.float32), np.asarray(want, np.float32))
         else:
