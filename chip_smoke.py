@@ -75,7 +75,8 @@ Phases, each fatal on failure:
                 slots, native packed and DRIM packed, with identical
                 tokens per request;
   4b. families -- the SSM, hybrid, dense, MoE, audio and vlm families at
-                full width through `run_serve` on the "gpu" route, seeded
+                full width through `run_serve` on the "gpu" route under
+                its default `--mesh host` (a 1x1 mesh of the card), seeded
                 weights, batch 4, 8 greedy tokens: mamba2-130m at its 24
                 layers (a 1024-token prompt, 4 SSD chunks), zamba2-1.2b at
                 its 38 (512 tokens, 2 chunks; the shared attention block at
@@ -97,7 +98,21 @@ Phases, each fatal on failure:
                 3 decode steps under `torch.profiler` (device ms and
                 launches a step, the idle share of the p50 step); the
                 full-width deepseek-v3 decode step run twice, bitwise
-                equal logits (the deterministic combine); then two mamba2
+                equal logits (the deterministic combine); the MoE legs'
+                prefill takes the expert-parallel dispatch with one model
+                shard (a spy), and beside each, with the same weights and
+                prompt, the prefill runs three ways in one counted leg:
+                under the host mesh (EP x1), with no mesh (grouped) and
+                under a 1x8 mesh of the card (EP x8: 32 and 48 experts a
+                shard), EP x1 bitwise equal to grouped in logits and
+                caches, each EP x8 logit within a bf16 ulp
+                (EP_LOGIT_RTOL) of its own value plus the logits' RMS,
+                under a quarter of them moved
+                (EP_MOVED_MAX) and the same greedy tokens save at an
+                exact tie, two planted faults (shard 0's partial
+                dropped, and added twice) failing that check, the
+                three times printed ("families" "mesh" lines); then
+                two mamba2
                 requests (1024 and 512 tokens) through the continuous
                 batcher, which must refuse zamba2 as the reference's does;
                 then the float32 smoke configs of mamba2, zamba2,
@@ -198,10 +213,22 @@ Phases, each fatal on failure:
                 DeprecationWarning naming this file and its words (or
                 report fields) the pipeline's; `examples/
                 quickstart_torch.py` in this process ("drim" lines);
+  11b. collective -- `optim.compress.compressed_allreduce` on a one-rank
+                NCCL process group over the card: a gradient tree of the
+                drim-bnn LM's parameter shapes, every full-size payload
+                all-reduced as int8 (a spy on `dist.all_reduce`), the mean
+                and the new residuals equal to the single-rank decode
+                exactly, the call's time ("collective" line); and
+                `serve.main` and `train.main` under `--mesh single` raise
+                the production mesh's ValueError;
   12. train  -- the drim-bnn LM trained at full width and depth through
-                `repro_torch.launch.train.main` (examples/train_bnn_lm.py's
+                `repro_torch.launch.train.main` under `--mesh host`
+                (examples/train_bnn_lm.py's
                 batch 8, seq 256, AdamW 3e-4; 20 steps, seeded weights,
-                deterministic algorithms): finite losses, the last below
+                deterministic algorithms; the state placed on its ZeRO-1
+                shardings over a 1x1 mesh, every AdamW moment's spec with
+                a "data" entry, the sharded and replicated leaves
+                counted): finite losses, the last below
                 the first, s/step and tokens/s ("train" lines); then the
                 step-10 checkpoint restored into a fresh state and trained
                 10 more steps must equal the straight run's step-20 state
@@ -217,8 +244,9 @@ Phases, each fatal on failure:
                 (`expected_launches`), each of phase 4b's legs the
                 flash forward once per attention site of its prefill
                 (mamba2 0, zamba2 6, qwen3-14b 2, deepseek-v3 0, kimi-k2
-                1, whisper-medium 24, llava-next-34b 2, continuous 0) and
-                nothing else, phase 5 the faulted interpreter
+                1, whisper-medium 24, llava-next-34b 2, continuous 0; the
+                mesh legs three prefills: deepseek-v3 0, kimi-k2 3) and
+                nothing else, phase 11b nothing, phase 5 the faulted interpreter
                 once per faulted "cuda" run and the fault-free one once,
                 phase 6 one bulk kernel per "gpu" op run and per non-copy
                 graph node (by kind), the interpreter once per "cuda" run
@@ -313,7 +341,7 @@ FLASH_BF16_EDGES = [
 TRAIN_STEPS, RESTART_AT = 20, 10
 PROFILE_STEPS = 3               # steps traced after the restart check
 TRAIN = ["--arch", "drim-bnn", "--steps", str(TRAIN_STEPS), "--batch", "8",
-         "--seq", "256", "--lr", "3e-4", "--log-every", "1",
+         "--seq", "256", "--mesh", "host", "--lr", "3e-4", "--log-every", "1",
          "--ckpt-every", str(RESTART_AT), "--seed", str(SEED)]
 # The card's float32 smoke-config train step against the CPU's: both sum
 # float32 in other orders (about 1e-6 relative, as the CPU tests measure
@@ -341,6 +369,23 @@ FAMILIES = (("mamba2-130m", 0, 1024, 0), ("zamba2-1.2b", 0, 512, 6),
             ("kimi-k2-1t-a32b", 1, 256, 1), ("whisper-medium", 0, 256, 24),
             ("llava-next-34b", 2, 3072, 2))
 FAMILY_BATCH, FAMILY_GEN = 4, 8
+# The MoE legs' mesh check: EP over 8 model shards of one card (32
+# experts a shard in deepseek-v3, 48 in kimi-k2).  EP x8 sums a token's 8
+# expert outputs as per-shard partials, then across shards, where the
+# grouped dispatch adds them in one sorted run, so the bf16 MoE output
+# rounds apart by a ulp here and there.  A logit then moves by up to a
+# bf16 ulp of its own value (its rounding) plus about a ulp of the
+# logits' RMS (the hidden state's one-ulp change, carried through the
+# head to every logit alike).  So each logit is held at EP_LOGIT_RTOL *
+# (|logit| + RMS of the logits), and under EP_MOVED_MAX of them may move
+# at all (tests/test_torch_ep.py, the one-ulp test, holds the same).  Two
+# planted faults must fail that check: shard 0's partial dropped, and
+# added twice.  FAMILY_REF_TOL's 1e-3 of the logits' magnitude, the
+# float32 configs' bound, sits under the bf16 rounding of the logits; its
+# reading is printed beside the check.
+EP_SHARDS = 8
+EP_LOGIT_RTOL = 2 ** -7
+EP_MOVED_MAX = 0.25
 FAMILY_CONTINUOUS = (1024, 512)         # two mamba2 requests' prompts
 # The float32 smoke configs' prefill on the card against the CPU: mamba2
 # at the drim-bnn check's 1e-3; zamba2 at 4 bfloat16 ulps of the logits'
@@ -2802,12 +2847,19 @@ def phase_families(wrappers):
         torch.cuda.synchronize()
         init_s = time.perf_counter() - t0
         leg = f"families {arch}"
-        with finite_logits() as flags:
+        with finite_logits() as flags, ep_calls() as eps:
             (gen, stats), counts[leg] = counted(
                 wrappers, leg,
                 lambda args=args, params=params: serve.run_serve(
                     args, params=params),
                 lambda _, n=n_flash: {"flash_attn_fwd": n} if n else {})
+        # under the default --mesh host every MoE prefill layer takes EP
+        # with one model shard; decode (S == 1) never does
+        want_eps = ([{"data": 1, "model": 1}] * cfg.n_layers
+                    if cfg.family == "moe" else [])
+        if eps != want_eps:
+            raise AssertionError(f"{leg}: expert-parallel calls {eps}, "
+                                 f"expected {want_eps}")
         # the prefill, the warm-up decode step and FAMILY_GEN - 1 more
         check_served(leg, gen, cfg, flags, FAMILY_GEN, FAMILY_GEN + 1)
         print("families " + json.dumps({
@@ -2830,6 +2882,13 @@ def phase_families(wrappers):
         profile_decode(arch, cfg, params, prompt, stats["decode_p50_ms"])
         if cfg.family == "moe" and cfg.mla:
             check_decode_repeats(arch, cfg, params, prompt)
+        if cfg.family == "moe":
+            mleg = f"families mesh {arch}"
+            _, counts[mleg] = counted(
+                wrappers, mleg,
+                lambda args=args, cfg=cfg, params=params: check_moe_meshes(
+                    args, cfg, params),
+                lambda _, n=n_flash: {"flash_attn_fwd": 5 * n} if n else {})
         if arch == "mamba2-130m":
             mamba_params = params
         del params
@@ -2875,6 +2934,145 @@ def phase_families(wrappers):
     print("families " + json.dumps({
         "phase_wall_s": time.perf_counter() - t_phase}))
     return {name: sum(c[name] for c in counts.values()) for name in wrappers}
+
+
+@contextlib.contextmanager
+def ep_calls():
+    """Record the mesh shape of every expert-parallel MoE block run in the
+    scope (a spy on `moe._ep_shard_map`); yields the list."""
+    from repro_torch.models import moe
+    calls = []
+    inner = moe._ep_shard_map
+
+    def spy(*args):
+        calls.append(dict(args[-1].shape))
+        return inner(*args)
+    moe._ep_shard_map = spy
+    try:
+        yield calls
+    finally:
+        moe._ep_shard_map = inner
+
+
+def ep_logits_check(got, want, tol: float) -> dict:
+    """EP x8's logits `got` against grouped's `want`: each within
+    EP_LOGIT_RTOL of its own |value| plus the logits' RMS, under
+    EP_MOVED_MAX of them moved, and the same greedy tokens save at an
+    exact tie of `want`'s last-position logits.  The worst error over
+    the bound with `tol` of the largest |logit| as the floor
+    (FAMILY_REF_TOL) is printed, not held."""
+    g, e = want.float(), got.float()
+    err, mag = (e - g).abs(), g.abs()
+    rms = float(g.pow(2).mean().sqrt())
+    excess = float((err / (EP_LOGIT_RTOL * (mag + rms))).max())
+    ref_floor = tol * max(1.0, float(mag.max()))
+    moved = float((got != want).float().mean())
+    g_tok, e_tok = want[:, -1].argmax(-1), got[:, -1].argmax(-1)
+    rows = torch.nonzero(g_tok != e_tok).flatten().tolist()
+    ties = all(bool(want[r, -1, e_tok[r]] == want[r, -1].max())
+               for r in rows)
+    return {"max_abs_err": float(err.max()), "logits_rms": rms,
+            "worst_err_over_bound": excess, "logits_moved": moved,
+            "worst_err_over_family_ref_tol": float(
+                (err / (EP_LOGIT_RTOL * mag + ref_floor)).max()),
+            "greedy_rows_differing": rows, "at_exact_ties": ties,
+            "ok": bool(torch.isfinite(e).all()) and excess <= 1.0
+            and moved < EP_MOVED_MAX and ties}
+
+
+@contextlib.contextmanager
+def planted_partial(fault: str):
+    """A planted expert-parallel fault: every combine of model shard 0's
+    partial (`moe._combine`, called once a shard in model order) comes
+    back zero ("drop") or doubled ("twice")."""
+    from repro_torch.models import moe
+    inner, calls = moe._combine, [0]
+
+    def combine(*args):
+        out = inner(*args)
+        calls[0] += 1
+        if (calls[0] - 1) % EP_SHARDS == 0:
+            out = out * (0 if fault == "drop" else 2)
+        return out
+    moe._combine = combine
+    try:
+        yield
+    finally:
+        moe._combine = inner
+
+
+def check_moe_meshes(args, cfg, params):
+    """A MoE leg's prefill (its weights and prompt) three ways: under the
+    host mesh (EP with one model shard), with no mesh (the grouped
+    dispatch) and under a 1x8 mesh of the card (EP over EP_SHARDS model
+    shards).  EP x1 must equal grouped bit for bit in logits and caches;
+    EP x8's logits must pass `ep_logits_check` against grouped's, and
+    two more EP x8 prefills, with shard 0's partial planted dropped and
+    doubled (`planted_partial`), must fail it.  (The one layer writes its
+    caches before its MoE, so EP x8's caches say nothing here.)  Each of
+    the three prefills timed on the host clock, synchronised."""
+    from repro_torch.core.mesh import make_named_mesh
+    from repro_torch.launch import mesh as lmesh
+    from repro_torch.launch import serve
+    from repro_torch.models import prefill
+    from repro_torch.tree import tree_leaves
+    dev = torch.device("cuda", 0)
+    toks = torch.as_tensor(serve._prompts(args, cfg, FAMILY_BATCH),
+                           device=dev).long()
+    batch = serve.model_batch(cfg, toks)
+    ep8 = f"ep{EP_SHARDS}"
+
+    def mesh8():
+        return make_named_mesh((1, EP_SHARDS), ("data", "model"),
+                               [dev] * EP_SHARDS)
+    ways = {"ep1": lmesh.cli_mesh("host", torch.device("cuda")),
+            "grouped": contextlib.nullcontext(), ep8: mesh8()}
+    out, times, shapes = {}, {}, {}
+    for way, ctx in ways.items():
+        with ctx, ep_calls() as eps:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out[way] = prefill(params, cfg, batch)
+            torch.cuda.synchronize()
+            times[way] = time.perf_counter() - t0
+        shapes[way] = eps
+    want = {"ep1": [{"data": 1, "model": 1}] * cfg.n_layers, "grouped": [],
+            ep8: [{"data": 1, "model": EP_SHARDS}] * cfg.n_layers}
+    if shapes != want:
+        raise AssertionError(f"{cfg.arch}: expert-parallel calls {shapes}, "
+                             f"expected {want}")
+    g_logits, g_caches = out["grouped"]
+    e_logits, e_caches = out["ep1"]
+    bitwise = torch.equal(e_logits, g_logits) and all(
+        torch.equal(a, b) for a, b in zip(tree_leaves(e_caches),
+                                          tree_leaves(g_caches)))
+    tol = FAMILY_REF_TOL[cfg.arch]
+    check = ep_logits_check(out[ep8][0], g_logits, tol)
+    planted = {}
+    for fault in ("drop", "twice"):
+        with mesh8(), planted_partial(fault):
+            planted[fault] = ep_logits_check(prefill(params, cfg, batch)[0],
+                                             g_logits, tol)
+    print("families " + json.dumps({
+        "mesh": cfg.arch, "experts": cfg.n_experts,
+        "experts_per_shard": cfg.n_experts // EP_SHARDS,
+        "batch": FAMILY_BATCH, "prompt": toks.shape[1],
+        "prefill_s": times, "ep1_bitwise_equal_grouped": bitwise,
+        "family_ref_tol": tol, "logit_rtol": EP_LOGIT_RTOL,
+        "moved_max": EP_MOVED_MAX, ep8: check,
+        "planted_shard0_partial": planted,
+        "ep_calls": {k: len(v) for k, v in shapes.items()}}))
+    if not bitwise:
+        raise AssertionError(f"{cfg.arch}: EP x1 prefill differs from the "
+                             "grouped dispatch")
+    if not check["ok"]:
+        raise AssertionError(f"{cfg.arch}: EP x{EP_SHARDS} prefill off the "
+                             f"grouped one: {check}")
+    caught = [f for f, c in planted.items() if not c["ok"]]
+    if caught != list(planted):
+        raise AssertionError(f"{cfg.arch}: the EP x{EP_SHARDS} check missed "
+                             f"a planted fault: {planted}")
+    return times
 
 
 def profile_decode(arch: str, cfg, params, prompt: int, step_ms: float):
@@ -3071,6 +3269,99 @@ def flat_leaves(tree):
             for p, leaf in flat_leaves(tree[k])]
 
 
+def phase_collective(wrappers):
+    """`compressed_allreduce` on a one-rank NCCL group over the card, on a
+    gradient tree of the drim-bnn LM's parameter shapes (seeded gradients
+    and residuals): every payload of a gradient's full size goes to
+    `dist.all_reduce` as int8, and the mean and new residuals equal the
+    single-rank decode (`decompress_tree(compress_tree(g, e))`) exactly.
+    Then `--mesh single` refused by both CLIs.  Returns the counted leg's
+    launches (none of the port's kernels)."""
+    import torch.distributed as dist
+    from repro_torch.configs import get_config
+    from repro_torch.models import abstract_params
+    from repro_torch.optim import compress
+    from repro_torch.tree import tree_leaves, tree_map
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    shapes = abstract_params(get_config("drim-bnn"))
+    grads = tree_map(lambda t: torch.randn(t.shape, generator=gen,
+                                           device=dev), shapes)
+    errors = tree_map(lambda t: 0.01 * torch.randn(t.shape, generator=gen,
+                                                   device=dev), shapes)
+    sizes = {t.numel() for t in tree_leaves(grads)}
+    seen = []
+    inner = dist.all_reduce
+
+    def spy(t, *args, **kw):
+        seen.append((t.dtype, t.numel()))
+        return inner(t, *args, **kw)
+
+    def run():
+        dist.init_process_group("nccl", store=dist.HashStore(), rank=0,
+                                world_size=1)
+        dist.all_reduce = spy
+        try:
+            times = []
+            for _ in range(3):
+                seen.clear()
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                mean, new_err = compress.compressed_allreduce(
+                    grads, errors, ("data",))
+                torch.cuda.synchronize()
+                times.append(time.perf_counter() - t0)
+            return mean, new_err, times
+        finally:
+            dist.all_reduce = inner
+            dist.destroy_process_group()
+    (mean, new_err, times), counts = counted(wrappers, "collective", run,
+                                             lambda _: {})
+    full = [(dt, n) for dt, n in seen if n in sizes]
+    signs, scales, want_err = compress.compress_tree(grads, errors)
+    want = compress.decompress_tree(signs, scales)
+    exact = all(torch.equal(a, b) for a, b in zip(tree_leaves(mean),
+                                                  tree_leaves(want)))
+    exact_err = all(torch.equal(a, b) for a, b in zip(tree_leaves(new_err),
+                                                      tree_leaves(want_err)))
+    n_leaves = len(tree_leaves(grads))
+    elements = sum(t.numel() for t in tree_leaves(grads))
+    print("collective " + json.dumps({
+        "backend": "nccl", "world_size": 1, "leaves": n_leaves,
+        "elements": elements,
+        "all_reduce_calls": len(seen),
+        "full_size_payloads": len(full),
+        "full_size_dtypes": sorted({str(dt) for dt, _ in full}),
+        "payload_bytes": sum(n for dt, n in full),
+        "first_call_s": times[0], "call_s": times[1:],
+        "mean_equals_single_rank_decode": exact,
+        "errors_equal_compress_tree": exact_err}))
+    if len(full) != n_leaves or any(dt != torch.int8 for dt, _ in full):
+        raise AssertionError(f"collective: full-size payloads {full}")
+    if not (exact and exact_err):
+        raise AssertionError("collective: the one-rank mean or residuals "
+                             "differ from the single-rank decode")
+    check_mesh_refusals()
+    return counts
+
+
+def check_mesh_refusals():
+    """`--mesh single` on the serve and train CLIs: the production mesh's
+    ValueError (one card, not 256), before any weight is drawn."""
+    from repro_torch.launch import serve, train
+    for name, main in (("serve", serve.main), ("train", train.main)):
+        try:
+            main(["--arch", "drim-bnn", "--mesh", "single"])
+        except ValueError as err:
+            if "needs 256 devices" not in str(err):
+                raise
+            print("collective " + json.dumps({"mesh_single": name,
+                                              "refused": str(err)}))
+        else:
+            raise AssertionError(f"{name} --mesh single did not raise")
+
+
 def phase_train(wrappers):
     """The drim-bnn LM trained at full width and depth through the
     trainer's CLI entry point (`launch.train.main`): batch 8, seq 256,
@@ -3100,15 +3391,27 @@ def phase_train(wrappers):
                         * cfg.n_layers, "flash_bwd_dkv": cfg.n_layers,
                         "flash_bwd_dq": cfg.n_layers}
 
+            placed = []
+            place = train.place
+
+            def spy_place(tree, shardings):
+                placed.append(shardings)
+                return place(tree, shardings)
+
             def run():
                 text = io.StringIO()
-                with contextlib.redirect_stdout(text):
-                    final = train.main(argv)
+                train.place = spy_place
+                try:
+                    with contextlib.redirect_stdout(text):
+                        final = train.main(argv)
+                finally:
+                    train.place = place
                 return final, [json.loads(line) for line in
                                text.getvalue().splitlines()]
             (final, lines), counts["train"] = counted(
                 wrappers, "train", run,
                 lambda _: {k: n * TRAIN_STEPS for k, n in per_step.items()})
+            check_train_shardings(placed)
             steps = [line for line in lines if "step" in line]
             losses = [line["loss"] for line in steps]
             if len(steps) != TRAIN_STEPS or not np.all(np.isfinite(losses)) \
@@ -3170,6 +3473,36 @@ def phase_train(wrappers):
         torch.use_deterministic_algorithms(False)
         torch.utils.deterministic.fill_uninitialized_memory = fill
     return counts
+
+
+def check_train_shardings(placed):
+    """The trainer placed its state once, on a 1x1 mesh of the CLI's
+    device (the card, `resolve_device()`), with ZeRO-1 specs: every AdamW
+    moment's spec names "data"; prints the sharded and replicated leaves
+    ("train" line)."""
+    from repro_torch.device import resolve_device
+    if len(placed) != 1:
+        raise AssertionError(f"train: the state was placed {len(placed)} "
+                             "times")
+    leaves = flat_leaves(placed[0])
+    mesh = leaves[0][1].mesh
+    devices = {str(d) for d in mesh.devices.flat}
+    if mesh.shape != {"data": 1, "model": 1} \
+            or devices != {str(resolve_device())}:
+        raise AssertionError(f"train: mesh {mesh}")
+    sharded = [p for p, sh in leaves if any(e is not None for e in sh.spec)]
+    moments = [(p, sh.spec) for p, sh in leaves
+               if p.startswith(("opt/m/", "opt/v/"))]
+    missing = [p for p, spec in moments if "data" not in tuple(spec)]
+    print("train " + json.dumps({
+        "mesh": mesh.shape, "devices": sorted(devices),
+        "state_leaves": len(leaves), "sharded_leaves": len(sharded),
+        "replicated_leaves": len(leaves) - len(sharded),
+        "adamw_moments": len(moments),
+        "moments_with_data_axis": len(moments) - len(missing)}))
+    if not moments or missing:
+        raise AssertionError(f"train: ZeRO-1 left moments without a data "
+                             f"axis: {missing[:3]}")
 
 
 def device_kernels(prof, n: int):
@@ -3319,6 +3652,8 @@ def main() -> int:
     by_leg.update(verified_phase("telemetry",
                                  lambda: phase_telemetry(wrappers)))
     by_leg.update(verified_phase("drim", lambda: phase_drim(wrappers)))
+    by_leg["collective"] = verified_phase(
+        "collective", lambda: phase_collective(wrappers))
     by_leg.update(verified_phase("train", lambda: phase_train(wrappers)))
     launches = {name: sum(c[name] for c in by_leg.values())
                 for name in wrappers}

@@ -13,8 +13,8 @@ through the carry-save pipeline on the simulated DRIM fleet (greedy
 token ids stay identical to the native "gpu" path), `--packed` serves
 from bit-packed weights with a bit-exactness assert, and `--microbench`
 / `--continuous N` select the prefill/insert/generate split and the
-continuous-batching wave scheduler.  The reference's `--mesh` waits for
-ROADMAP Queue 1 item 12, so none is passed.
+continuous-batching wave scheduler.  It serves under `--mesh host`, as
+the reference's example does: the host mesh over the serving devices.
 """
 import argparse
 
@@ -34,7 +34,7 @@ def main(argv=None):
     argv = ["--arch", args.arch, "--smoke-config",
             "--batch", str(args.batch),
             "--prompt-len", str(args.prompt_len),
-            "--gen", str(args.gen)] + extra
+            "--gen", str(args.gen), "--mesh", "host"] + extra
     if args.device is not None:
         argv += ["--device", args.device]
     serve.main(argv)

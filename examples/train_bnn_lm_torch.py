@@ -13,8 +13,8 @@ bulk bit-wise X(N)OR workload DRIM accelerates.
 The run exercises the port's training path: config -> synthetic data
 pipeline -> train step (AdamW, cosine schedule; flash attention's
 forward and backward kernels on the card) -> checkpoint every 50 steps
--> restart-capable.  The reference's `--mesh` (and its ZeRO-1 sharding)
-waits for ROADMAP Queue 1 item 12, so none is passed.  Loss on the
+-> restart-capable, under `--mesh host` (the host mesh and the state's
+ZeRO-1 shardings), as the reference's example runs.  Loss on the
 synthetic Zipf-LM task should fall from ~ln(V)=10.4 to <7 within 300
 steps.  Extra flags pass through to `repro_torch.launch.train` (the last
 of a repeated flag wins).
@@ -40,7 +40,7 @@ def main(argv=None):
     ckpt_dir = tempfile.mkdtemp(prefix="drim_bnn_ckpt_")
     steps = args.steps or (30 if args.quick else 300)
     argv = ["--arch", "drim-bnn", "--steps", str(steps),
-            "--batch", "8", "--seq", "256",
+            "--batch", "8", "--seq", "256", "--mesh", "host",
             "--lr", "3e-4", "--ckpt-dir", ckpt_dir,
             "--ckpt-every", "50", "--log-every", "10"]
     if args.quick:

@@ -1,9 +1,11 @@
 """ModelConfig (port of `repro.configs.base`, the fields the dense, vlm,
 MoE, SSM, hybrid and audio families read).
 
-The reference's config also carries its sharding fields (`seq_parallel`,
-`scan_unroll`); they arrive with the sharding bullet (ROADMAP Queue 1
-item 12).
+The reference's config also carries two sharding fields that nothing in
+the port would act on, so they are not carried: `seq_parallel` (its
+sequence-parallel constraints and the expert-parallel block's S-sharded
+entry, identities in one process) and `scan_unroll` (the port loops over
+layers in Python and has no scan).
 """
 from __future__ import annotations
 
@@ -42,10 +44,11 @@ class ModelConfig:
     # CPU, as the reference runs it off the TPU).  "xla": dense scores
     # everywhere (the reference's name for it).
     attention_impl: str = "flash"
-    # "ep": expert parallelism over a mesh, which resolves to "grouped"
-    # without one (the port has no mesh yet).  "grouped": routing and
-    # dispatch per batch row.  "global": one sort over all B*S tokens
-    # (and every decode step, S == 1).
+    # "ep": expert parallelism over the ambient mesh's `model` axis
+    # (`moe._ep_shard_map`), which falls back to "grouped" off a mesh or
+    # where the mesh does not divide the experts or the batch.
+    # "grouped": routing and dispatch per batch row.  "global": one sort
+    # over all B*S tokens (and every decode step, S == 1).
     moe_dispatch: str = "ep"
     # mla (deepseek-v3)
     mla: bool = False

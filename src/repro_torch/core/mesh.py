@@ -11,7 +11,13 @@ device in turn (`map_blocks`) and concatenates the results in order.
 A device list may repeat one device (`[torch.device("cpu")] * 8`,
 `[torch.device("cuda", 0)] * 8`): that is a real 2x4 or 1x8 split of the
 work on one card or on the CPU, the port's counterpart of the reference's
-`--xla_force_host_platform_device_count=8`.
+`--xla_force_host_platform_device_count=8`.  Over `[torch.device("meta")]
+* n` (`abstract_mesh`) it is the counterpart of
+`jax.sharding.AbstractMesh`: specs for the (16, 16) and (2, 16, 16)
+production shapes, computed with no device behind them.
+
+`with mesh:` installs the mesh as the ambient one (`ambient_mesh()`, the
+reference's `with mesh:`); nesting restores the outer mesh on exit.
 
 This module sits below `core.device` and imports nothing of the port;
 `launch.mesh` adds the LM meshes and `pim.mesh` the fleet mesh.  Defined
@@ -19,6 +25,7 @@ as functions, so importing it touches no device.
 """
 from __future__ import annotations
 
+import contextvars
 import dataclasses
 import math
 from typing import Callable, Dict, Optional, Sequence, Tuple
@@ -29,13 +36,27 @@ import torch
 
 class PartitionSpec(tuple):
     """Which mesh axis shards each dim (None: replicated), printed as the
-    reference's `jax.sharding.PartitionSpec`."""
+    reference's `jax.sharding.PartitionSpec`.  An entry may name several
+    axes (a tuple); as in jax, a one-axis tuple is stored as that axis and
+    an empty one as None."""
 
     def __new__(cls, *entries):
-        return super().__new__(cls, entries)
+        return super().__new__(cls, (_entry(e) for e in entries))
 
     def __repr__(self) -> str:
         return f"PartitionSpec({', '.join(map(repr, self))})"
+
+
+def _entry(entry):
+    if isinstance(entry, (tuple, list)):
+        entry = tuple(entry)
+        return None if not entry else entry[0] if len(entry) == 1 else entry
+    return entry
+
+
+# the meshes entered with `with mesh:`, innermost last
+_AMBIENT: contextvars.ContextVar[tuple] = contextvars.ContextVar(
+    "repro_torch_ambient_mesh", default=())
 
 
 @dataclasses.dataclass(frozen=True, eq=False)
@@ -68,6 +89,53 @@ class Mesh:
 
     def __repr__(self) -> str:
         return f"Mesh({self.shape}, devices={list(self.devices.flat)})"
+
+    def __enter__(self) -> "Mesh":
+        _AMBIENT.set(_AMBIENT.get() + (self,))
+        return self
+
+    def __exit__(self, *exc) -> None:
+        _AMBIENT.set(_AMBIENT.get()[:-1])
+
+
+def ambient_mesh() -> Optional[Mesh]:
+    """The mesh of the innermost `with mesh:` block, or None."""
+    stack = _AMBIENT.get()
+    return stack[-1] if stack else None
+
+
+@dataclasses.dataclass(frozen=True)
+class NamedSharding:
+    """A spec over a mesh: where each block of a leaf lives (the
+    reference's `jax.sharding.NamedSharding`)."""
+
+    mesh: Mesh
+    spec: PartitionSpec
+
+
+def axis_size(mesh: Mesh, entry) -> int:
+    """Devices along a spec entry: 1 for None, the product of the named
+    axes' sizes otherwise; ValueError for an axis the mesh lacks."""
+    if entry is None:
+        return 1
+    n = 1
+    for axis in ((entry,) if isinstance(entry, str) else entry):
+        if axis not in mesh.axis_names:
+            raise ValueError(f"mesh axes {mesh.axis_names} have no {axis!r}")
+        n *= mesh.shape[axis]
+    return n
+
+
+def fits(mesh: Mesh, entry, dim: int) -> bool:
+    """Whether a spec entry's devices cut `dim` into equal, non-empty
+    blocks (None always fits): the one divisibility rule of the specs."""
+    n = axis_size(mesh, entry)
+    return entry is None or (dim % n == 0 and dim >= n)
+
+
+def dp_axes(mesh: Mesh) -> Tuple[str, ...]:
+    """Axes used for data parallelism (batch sharding + grad reduce)."""
+    return tuple(a for a in ("pod", "data") if a in mesh.axis_names)
 
 
 def visible_devices() -> list:
@@ -103,18 +171,34 @@ def make_named_mesh(shape: Tuple[int, ...], axis_names: Tuple[str, ...],
     return Mesh(arr.reshape(tuple(shape)), tuple(axis_names))
 
 
+def abstract_mesh(shape: Tuple[int, ...], axis_names: Tuple[str, ...]
+                  ) -> Mesh:
+    """A mesh of the given shape over meta devices: for computing specs of
+    shapes no machine here has (the reference's `AbstractMesh`)."""
+    return make_named_mesh(shape, axis_names,
+                           [torch.device("meta")] * math.prod(shape))
+
+
+def sanitize_spec(spec: PartitionSpec, shape, mesh: Mesh) -> PartitionSpec:
+    """Drop named axes that do not evenly divide their dim (the
+    reference's `runtime.sharding.sanitize_spec`)."""
+    parts = list(spec) + [None] * (len(shape) - len(spec))
+    out = [entry if fits(mesh, entry, dim) else None
+           for entry, dim in zip(parts, shape)]
+    while out and out[-1] is None:
+        out.pop()
+    return PartitionSpec(*out)
+
+
 def check_spec(spec: PartitionSpec, shape, mesh: Mesh) -> PartitionSpec:
     """Refuse a placement the mesh cannot hold without padding: every
-    named axis must divide its dim exactly (the reference's
-    `runtime.sharding.sanitize_spec` rule, which drops such an axis; a
-    changed spec raises)."""
-    parts = list(spec) + [None] * (len(shape) - len(spec))
-    kept = [entry if entry is not None and dim % mesh.shape[entry] == 0
-            and dim >= mesh.shape[entry] else None
-            for entry, dim in zip(parts, shape)]
-    while kept and kept[-1] is None:
-        kept.pop()
-    if PartitionSpec(*kept) != spec:
+    named axis must divide its dim exactly (`sanitize_spec`'s rule, which
+    drops such an axis; a changed spec raises)."""
+    want = list(spec)
+    while want and want[-1] is None:
+        want.pop()
+    if len(spec) > len(shape) \
+            or list(sanitize_spec(spec, shape, mesh)) != want:
         raise ValueError(
             f"mesh {dict(mesh.shape)} does not divide array shape "
             f"{tuple(shape)} under spec {spec}")

@@ -2,17 +2,24 @@
 host mesh and the production mesh, and the data-parallel axes.
 
 The mesh itself, its device lists and the block runner live in
-`core.mesh`; this module only shapes meshes for the LM.
+`core.mesh`; this module only shapes meshes for the LM (`dp_axes` is
+`core.mesh`'s).  `cli_mesh` is the serve and train CLIs' `--mesh`:
+"host" a 1 x 1 host mesh over the CLI's `--device`, "single" and "multi"
+the production meshes, as the reference builds them; those raise
+ValueError below 256 and 512 devices.
 """
 from __future__ import annotations
 
 import math
 from typing import Optional, Sequence
 
-from repro_torch.core.mesh import Mesh, make_named_mesh, visible_devices
+import torch
+
+from repro_torch.core.mesh import Mesh, dp_axes, make_named_mesh, \
+    visible_devices
 
 __all__ = ["make_named_mesh", "make_production_mesh", "make_host_mesh",
-           "dp_axes"]
+           "dp_axes", "cli_mesh"]
 
 
 def make_production_mesh(*, multi_pod: bool = False,
@@ -41,6 +48,15 @@ def make_host_mesh(model_axis: int = 1,
                            devices)
 
 
-def dp_axes(mesh: Mesh) -> tuple:
-    """Axes used for data parallelism (batch sharding + grad reduce)."""
-    return tuple(a for a in ("pod", "data") if a in mesh.axis_names)
+def cli_mesh(kind: str, device: torch.device) -> Mesh:
+    """The CLIs' `--mesh` on `device` (a resolved cpu or cuda device):
+    "host", "single" or "multi".  The host mesh is 1 x 1 over `device`
+    alone, also where more cards are visible: an LM mesh of distinct
+    devices needs a process per device (ROADMAP Queue 1 item 15)."""
+    if kind == "host":
+        return make_host_mesh(devices=[device])
+    if kind in ("single", "multi"):
+        devices = visible_devices() if device.type == "cuda" else [device]
+        return make_production_mesh(multi_pod=kind == "multi",
+                                    devices=devices)
+    raise ValueError(f"unknown mesh {kind!r}: host, single or multi")

@@ -45,9 +45,13 @@ Timing: the first decode step runs UNTIMED as warm-up and is reported as
 `compile_s` (first launches: kernel builds, DRIM lowerings), so
 `decode_tok_per_s` and the p50/p99 step latencies are steady-state.
 
-  * --n-queues: the queue count of --engine queued.
-
-Not ported yet (ROADMAP Queue 1 item 12): the reference's --mesh.
+  * --n-queues: the queue count of --engine queued;
+  * --mesh {host,single,multi}: the reference's.  "host" (the default)
+    is the host mesh over --device's devices (data x model n x 1; on one
+    card or the CPU, 1 x 1), entered around setup, prefill and decode:
+    under it every MoE prefill takes the expert-parallel dispatch, as the
+    reference's default does.  "single" and "multi" are the production
+    meshes, which raise ValueError below 256 and 512 devices.
 
 CPU-scale examples:
   PYTHONPATH=src python -m repro_torch.launch.serve --arch drim-bnn \\
@@ -72,6 +76,7 @@ from repro_torch.configs import get_config, get_smoke_config
 from repro_torch.device import resolve_device
 from repro_torch.launch.batching import (NATIVE_ENGINE, WaveBatcher, fold_in,
                                          make_decode_fn)
+from repro_torch.launch.mesh import cli_mesh
 from repro_torch.models import decode_step, empty_caches, init_params, prefill
 from repro_torch.models.layers import pack_bitlinear
 from repro_torch.runtime import telemetry
@@ -96,6 +101,8 @@ def parse_args(argv=None) -> argparse.Namespace:
                     help="cache length (default prompt+gen)")
     ap.add_argument("--temperature", type=float, default=0.0)
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--mesh", default="host",
+                    choices=["host", "single", "multi"])
     ap.add_argument("--engine", default=NATIVE_ENGINE, choices=engines(),
                     help="BitLinear decode matmul backend: 'gpu' (the "
                     "registry's comparator) = the native route; the DRIM "
@@ -342,6 +349,11 @@ def run_serve(args, *, params=None, tokens=None,
     `sleep`."""
     dev = resolve_device(args.device)
     cfg = build_cfg(args)
+    with cli_mesh(args.mesh, dev):
+        return _serve(args, cfg, dev, params, tokens, make_fn, sleep)
+
+
+def _serve(args, cfg, dev, params, tokens, make_fn, sleep):
     st = _setup(args, cfg, dev, params, tokens)
     params, caches = st["params"], st["caches"]
     batch, prompt_len = st["logits"].shape[0], args.prompt_len
@@ -410,6 +422,11 @@ def run_microbench(args) -> Tuple[None, Dict[str, Any]]:
     as `run_serve` treats its warm-up step."""
     dev = resolve_device(args.device)
     cfg = build_cfg(args)
+    with cli_mesh(args.mesh, dev):
+        return _microbench(args, cfg, dev)
+
+
+def _microbench(args, cfg, dev) -> Tuple[None, Dict[str, Any]]:
     iters = 3
     ctx_len = args.ctx or (args.prompt_len + args.gen)
     params = init_params(args.seed, cfg, device=dev)
@@ -482,6 +499,12 @@ def run_continuous(args, *, params=None, prompts=None
     seeded prompts; `params` (dense) the seeded weights."""
     dev = resolve_device(args.device)
     cfg = build_cfg(args)
+    with cli_mesh(args.mesh, dev):
+        return _continuous(args, cfg, dev, params, prompts)
+
+
+def _continuous(args, cfg, dev, params, prompts
+                ) -> Tuple[Dict[int, np.ndarray], Dict[str, Any]]:
     ctx_len = args.ctx or (args.prompt_len + args.gen)
     if params is None:
         params = init_params(args.seed, cfg, device=dev)

@@ -1,16 +1,20 @@
-"""End-to-end trainer: config -> data -> train step loop (port of
-`repro.launch.train`).
+"""End-to-end trainer: config -> mesh -> data -> train step loop (port
+of `repro.launch.train`).
 
-  * --arch drim-bnn (the paper's application, the one arch ported)
+  * --arch drim-bnn (the paper's application; the card trains it)
   * checkpoint/restart (atomic manifests, async save, --resume)
   * heartbeats every step (runtime/ft.py)
-  * gradient accumulation, 1-bit EF compression
+  * gradient accumulation, 1-bit EF compression, ZeRO-1 specs
   * deterministic (seed, step) data order => restarts are exact
 
 On the card (the default) attention runs the flash forward and backward
-kernels; `--device cpu` runs the plain versions.  `--mesh host` and
-`single` both mean one device; `multi` needs meshes (ROADMAP Queue 1
-item 12).  The CPU-scale example:
+kernels; `--device cpu` runs the plain versions.  `--mesh` is the
+reference's: "host" (the default) the host mesh over `--device`'s
+devices, data x model n x 1; the state's shardings come from
+`state_shardings` over the abstract state and the state is placed on
+them (on one card or the CPU, a 1x1 mesh: nothing moves).  "single" and
+"multi" are the 16 x 16 and 2 x 16 x 16 production meshes, which raise
+ValueError below 256 and 512 devices.  The CPU-scale example:
 
   PYTHONPATH=src python -m repro_torch.launch.train --arch drim-bnn \\
       --smoke-config --device cpu --steps 30 --batch 4 --seq 64
@@ -34,9 +38,15 @@ import torch
 from repro_torch.checkpoint.checkpoint import Checkpointer
 from repro_torch.configs import get_config, get_smoke_config
 from repro_torch.data.pipeline import SyntheticLM, attach_modality_stub
+from repro_torch.core.mesh import NamedSharding
 from repro_torch.device import resolve_device
+from repro_torch.launch.mesh import cli_mesh
+from repro_torch.optim import get_optimizer
+from repro_torch.runtime import sharding as shd
 from repro_torch.runtime.ft import HeartbeatMonitor
-from repro_torch.runtime.steps import make_train_step
+from repro_torch.runtime.steps import (abstract_train_state, make_train_step,
+                                       place, state_shardings)
+from repro_torch.tree import tree_map
 
 
 def parse_args(argv=None) -> argparse.Namespace:
@@ -65,26 +75,44 @@ def parse_args(argv=None) -> argparse.Namespace:
                     help="override cfg.bitlinear (none|ffn|attn|all)")
     ap.add_argument("--device", default=None,
                     help="cuda (the default) or cpu")
-    args = ap.parse_args(argv)
-    if args.mesh == "multi":
-        raise NotImplementedError("--mesh multi needs a device mesh: ROADMAP "
-                                  "Queue 1 item 12")
-    return args
+    return ap.parse_args(argv)
 
 
-def build(args):
-    """(cfg, step_fn, init_state) as the trainer builds them from its
-    arguments."""
+def build_cfg(args):
     cfg = (get_smoke_config(args.arch) if args.smoke_config
            else get_config(args.arch))
     if args.bitlinear is not None:
         cfg = cfg.replace(bitlinear=args.bitlinear)
+    return cfg
+
+
+def build(args, mesh=None):
+    """(cfg, step_fn, init_state) as the trainer builds them from its
+    arguments, the step over `mesh` (default: the --mesh of --device)."""
+    cfg = build_cfg(args)
+    if mesh is None:
+        mesh = cli_mesh(args.mesh, resolve_device(args.device))
     warmup = (args.warmup if args.warmup is not None
               else max(1, min(2000, args.steps // 10)))
     step_fn, init_state, _ = make_train_step(
-        cfg, optimizer_name=args.optimizer, peak_lr=args.lr, warmup=warmup,
-        total_steps=args.steps, accum=args.accum, compress=args.compress)
+        cfg, mesh, optimizer_name=args.optimizer, peak_lr=args.lr,
+        warmup=warmup, total_steps=args.steps, accum=args.accum,
+        compress=args.compress)
     return cfg, step_fn, init_state
+
+
+def shardings(args, cfg, mesh):
+    """The train state's shardings on `mesh`, as the reference's trainer
+    computes them: `state_shardings` of the abstract state, and with
+    --compress the error-feedback residuals on the moments' specs."""
+    state_shape = abstract_train_state(cfg, get_optimizer(args.optimizer))
+    st_sh = state_shardings(state_shape, mesh, family=cfg.family)
+    if args.compress:
+        st_sh["errors"] = tree_map(
+            lambda s: NamedSharding(mesh, s),
+            shd.opt_state_pspecs(state_shape["params"], mesh,
+                                 family=cfg.family))
+    return st_sh
 
 
 def batch_at(data, cfg, step: int, seed: int, device):
@@ -95,16 +123,19 @@ def batch_at(data, cfg, step: int, seed: int, device):
 def main(argv=None) -> float:
     args = parse_args(argv)
     dev = resolve_device(args.device)
-    cfg, step_fn, init_state = build(args)
+    mesh = cli_mesh(args.mesh, dev)
+    cfg, step_fn, init_state = build(args, mesh)
+    st_sh = shardings(args, cfg, mesh)
     data = SyntheticLM(cfg.vocab_size, args.seq, args.batch, seed=args.seed)
     ckpt = Checkpointer(args.ckpt_dir) if args.ckpt_dir else None
 
     with contextlib.ExitStack() as stack:
+        stack.enter_context(mesh)
         hb_dir = args.ckpt_dir or stack.enter_context(
             tempfile.TemporaryDirectory(prefix="drimx_"))
         hb = HeartbeatMonitor(os.path.join(hb_dir, "heartbeats.jsonl"),
                               host_id=0)
-        state = init_state(args.seed, device=dev)
+        state = place(init_state(args.seed, device=dev), st_sh)
         start = 0
         if ckpt and args.resume:
             got = ckpt.restore_latest(state, device=dev)

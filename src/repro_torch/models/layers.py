@@ -5,8 +5,9 @@ Functional like the reference: every layer is init(generator, ...) ->
 params and apply(params, x), with params plain dicts of tensors (scan-
 stacked [L, ...] in the model trunk).  Initial values come from a seeded
 `torch.Generator` with the reference's distributions, not its numbers.
-The reference's sharding helpers (`ambient_mesh`, `constrain`) have no
-counterpart: the port runs on one card, where they are the identity.
+The reference's `ambient_mesh` is `core.mesh.ambient_mesh`; its
+`constrain` has no counterpart: one process holds every block, where a
+sharding constraint is the identity.
 
 BitLinear is the paper's technique as a layer: weights are sign-binarized
 with a per-output-channel scale alpha = mean|w| (XNOR-Net).  Training uses

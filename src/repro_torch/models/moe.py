@@ -18,9 +18,15 @@ Dispatches (cfg.moe_dispatch), each over G groups of T tokens:
   * "global": one group of all B*S tokens; every decode step (S == 1)
     takes it, as in the reference.
   * "ep": the reference's `_ep_shard_map`, expert parallelism over the
-    mesh's `model` axis.  The port has no mesh yet (ROADMAP Queue 1
-    item 12, the sharding bullet), so "ep" resolves to "grouped", as the
-    reference resolves it off a mesh.
+    ambient mesh's `model` axis (`with mesh:`).  It applies where the
+    reference's `_ep_applicable` does: a mesh with a `model` axis that
+    divides the experts, DP axes that divide the batch, and S > 1.
+    Otherwise it falls back to "grouped" (and S == 1 to "global"), as in
+    the reference.  Model shard i holds experts [i*E_loc, (i+1)*E_loc)
+    and builds only its own dispatch slab; each (data, model) block runs
+    in turn on its mesh device, and the partial outputs are summed in
+    model-index order.  With one model shard it is the grouped dispatch
+    bit for bit.
 
 Numerics that the reference fixes and the port keeps: top-k is k passes
 of argmax (first index on ties, not `torch.topk`); the expert sort is
@@ -45,8 +51,10 @@ import math
 import os
 from typing import Dict, Optional, Tuple
 
+import numpy as np
 import torch
 
+from repro_torch.core.mesh import ambient_mesh, axis_size, dp_axes
 from repro_torch.models.layers import Params, dense, dense_init, linear, \
     linear_init, silu
 
@@ -92,8 +100,11 @@ class ExpertBank:
 
 def _bank(gen: torch.Generator, e: int, d_in: int, d_out: int,
           dtype) -> ExpertBank:
-    seeds = torch.randint(0, 2 ** 62, (e,), generator=gen).tolist()
-    return ExpertBank(tuple(seeds), d_in, d_out, dtype)
+    seeds = torch.randint(0, 2 ** 62, (e,), generator=gen)
+    # an abstract init (on the meta device) draws no seed: only the
+    # bank's shape is read
+    return ExpertBank(tuple([0] * e if seeds.is_meta else seeds.tolist()),
+                      d_in, d_out, dtype)
 
 
 def moe_init(gen: torch.Generator, cfg, *, dtype=torch.float32) -> Params:
@@ -154,15 +165,20 @@ def _route(p: Params, cfg, x: torch.Tensor):
 
 
 def _sort_dispatch(cfg, xt: torch.Tensor, top_e: torch.Tensor,
-                   top_w: torch.Tensor, cap: int):
-    """Sort and scatter each group's T tokens into [E, cap, D] buffers.
+                   top_w: torch.Tensor, cap: int, lo: int = 0,
+                   e_loc: Optional[int] = None):
+    """Sort and scatter each group's T tokens into [E_loc, cap, D]
+    buffers, for the experts [lo, lo + E_loc) (default: all E).
 
-    xt [G, T, D]; top_e, top_w [G, T, k] -> (expert_in [G, E, cap, D],
-    ctx = (slot, st_, sw, keep, order), each [G, T*k]).  A kept
-    assignment writes its own slot; the dropped ones all go to a last
-    bucket, which is cut off."""
+    xt [G, T, D]; top_e, top_w [G, T, k] -> (expert_in [G, E_loc, cap,
+    D], ctx = (slot, st_, sw, keep, order), each [G, T*k]).  Ranks are
+    taken over all E experts' sorted order; an assignment is kept when
+    its rank is under the capacity and its expert in the range (the
+    reference's expert-parallel `keep`), and writes its own slot; the
+    others all go to a last bucket, which is cut off."""
     g, t, d = xt.shape
     e, k = cfg.n_experts, cfg.top_k
+    e_loc = e if e_loc is None else e_loc
     dev = xt.device
     flat_e = top_e.reshape(g, t * k)
     flat_t = torch.arange(t, device=dev).repeat_interleave(k).expand(g, -1)
@@ -175,11 +191,13 @@ def _sort_dispatch(cfg, xt: torch.Tensor, top_e: torch.Tensor,
     starts = torch.searchsorted(se.contiguous(), experts)     # [G, E]
     rank = torch.arange(t * k, device=dev) - starts.gather(1, se)
     keep = rank < cap
-    slot = torch.where(keep, se * cap + rank, e * cap)
+    if e_loc != e:
+        keep = keep & (se >= lo) & (se < lo + e_loc)
+    slot = torch.where(keep, (se - lo) * cap + rank, e_loc * cap)
     rows = torch.arange(g, device=dev)[:, None]
-    buf = xt.new_zeros(g, e * cap + 1, d)
+    buf = xt.new_zeros(g, e_loc * cap + 1, d)
     buf[rows, slot] = xt[rows, st_]
-    return (buf[:, :-1].reshape(g, e, cap, d),
+    return (buf[:, :-1].reshape(g, e_loc, cap, d),
             (slot, st_, sw, keep, order))
 
 
@@ -216,12 +234,74 @@ def _expert_mlps(p: Params, x_dtype, expert_in: torch.Tensor
     return torch.einsum("...ecf,efd->...ecd", h, p["down"].to(x_dtype))
 
 
-def dispatch_mode(cfg, s: int) -> str:
-    """"grouped" or "global" for a sequence of s tokens: "ep" needs a
-    mesh, which the port does not have, so it resolves to "grouped"; a
-    grouped dispatch needs s > 1."""
+def _ep_applicable(cfg, mesh, b: int, s: int) -> bool:
+    if mesh is None or s <= 1 or "model" not in mesh.axis_names:
+        return False
+    return (cfg.n_experts % mesh.shape["model"] == 0) \
+        and (b % axis_size(mesh, dp_axes(mesh)) == 0)
+
+
+def _ep_shard_map(p: Params, cfg, x: torch.Tensor, top_e: torch.Tensor,
+                  top_w: torch.Tensor, mesh) -> torch.Tensor:
+    """Expert parallelism over `mesh` (the reference's shard_map block).
+
+    Model shard i holds E_loc = E / |model| experts, [i*E_loc,
+    (i+1)*E_loc), as views of the banks (no copy).  The DP axes cut the
+    batch into |dp| row blocks.  Each (data, model) block runs in turn on
+    its mesh device: it builds only its own [B_loc, E_loc, C, D] dispatch
+    slab (the grouped sort, kept where the rank is under the capacity and
+    the expert is the shard's), runs its expert SwiGLUs and combines a
+    partial [B_loc, S, D] in which tokens routed elsewhere add zero.  The
+    reference's psum over `model` is the partials summed in model-index
+    order, so the sum is the same on every run.  Its sequence-parallel
+    entry (an all-gather of x over `model`) and exit (a psum_scatter
+    along S) are identities on the whole tensor in one process.  With
+    one model shard the slab, the expert products and the combine are
+    the grouped dispatch's, bit for bit."""
+    b, s, d = x.shape
+    n_model = mesh.shape["model"]
+    e_loc = cfg.n_experts // n_model
+    cap = _capacity(s, cfg)
+    n_dp = axis_size(mesh, dp_axes(mesh))
+    b_loc = b // n_dp
+    # mesh devices as [data position, model index], the DP axes in mesh
+    # order; an axis that is neither replicates the block (its first
+    # position runs it)
+    axes = ("pod", "data", "model")
+    grid = mesh.devices[tuple(slice(None) if a in axes else 0
+                              for a in mesh.axis_names)]
+    names = [a for a in mesh.axis_names if a in axes]
+    devices = np.moveaxis(grid, names.index("model"), -1).reshape(
+        n_dp, n_model)
+    home = x.device
+    rows = []
+    for j in range(n_dp):
+        blk = slice(j * b_loc, (j + 1) * b_loc)
+        y = None
+        for i in range(n_model):
+            dev = devices[j, i]
+            lo = i * e_loc
+            banks = {name: p[name][lo:lo + e_loc].to(dev)
+                     for name in ("gate", "up", "down")}
+            x_l = x[blk].to(dev)
+            expert_in, ctx = _sort_dispatch(
+                cfg, x_l, top_e[blk].to(dev), top_w[blk].to(dev), cap,
+                lo=lo, e_loc=e_loc)
+            out = _expert_mlps(banks, x.dtype, expert_in)
+            part = _combine(cfg, out, ctx, s).to(home)
+            y = part if y is None else y + part
+        rows.append(y)
+    return rows[0] if n_dp == 1 else torch.cat(rows, 0)
+
+
+def dispatch_mode(cfg, s: int, b: int = 1) -> str:
+    """"ep", "grouped" or "global" for a batch of b sequences of s tokens:
+    "ep" needs the ambient mesh to pass `_ep_applicable`, else it falls
+    back to "grouped", and a grouped dispatch needs s > 1."""
     mode = getattr(cfg, "moe_dispatch", "ep")
     if mode == "ep":
+        if _ep_applicable(cfg, ambient_mesh(), b, s):
+            return "ep"
         mode = "grouped"
     return "grouped" if mode == "grouped" and s > 1 else "global"
 
@@ -230,18 +310,22 @@ def moe_ffn(p: Params, cfg, x: torch.Tensor
             ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """x [B, S, D] -> (y [B, S, D], aux losses)."""
     b, s, d = x.shape
-    if dispatch_mode(cfg, s) == "grouped":
-        xg = x                                  # a group per batch row
-        top_w, top_e, aux = _route(p, cfg, x)
-    else:
+    mode = dispatch_mode(cfg, s, b)
+    if mode == "global":
         xg = x.reshape(1, b * s, d)             # one group of B*S tokens
         top_w, top_e, aux = _route(p, cfg, x.reshape(b * s, d))
         top_w, top_e = top_w[None], top_e[None]
-    t = xg.shape[1]
-    expert_in, ctx = _sort_dispatch(cfg, xg, top_e, top_w,
-                                    _capacity(t, cfg))
-    expert_out = _expert_mlps(p, x.dtype, expert_in)
-    y = _combine(cfg, expert_out, ctx, t).reshape(b, s, d)
+    else:
+        xg = x                                  # a group per batch row
+        top_w, top_e, aux = _route(p, cfg, x)
+    if mode == "ep":
+        y = _ep_shard_map(p, cfg, x, top_e, top_w, ambient_mesh())
+    else:
+        t = xg.shape[1]
+        expert_in, ctx = _sort_dispatch(cfg, xg, top_e, top_w,
+                                        _capacity(t, cfg))
+        expert_out = _expert_mlps(p, x.dtype, expert_in)
+        y = _combine(cfg, expert_out, ctx, t).reshape(b, s, d)
     if "shared" in p:
         sh = p["shared"]
         y = y + linear(sh["down"],

@@ -4,10 +4,12 @@
 Public interface (functions of (params, cfg, ...)):
 
   init_params(seed, cfg, device=)              -> params
+  abstract_params(cfg)                         -> params on the meta device
   train_loss(params, cfg, batch)               -> (loss, metrics)
   prefill(params, cfg, batch)                  -> (logits_last, caches)
   decode_step(params, cfg, tokens, caches, pos, ctx_len) -> (logits, caches)
   empty_caches(cfg, batch, s_max, device=)     -> caches
+  abstract_caches(cfg, batch, s_max)           -> caches on the meta device
   lm_from_jax(params, cfg, device=)            -> params
 
 Family assembly:
@@ -112,7 +114,11 @@ def _place(leaf, dst: torch.Tensor) -> None:
 def _draw_stacked(draw_layer, n: int, dev) -> Params:
     """n layers drawn in turn, each moved into the stacked [n, ...] leaves
     preallocated on `dev` as soon as it is drawn, so the host holds one
-    layer at a time (and no expert bank whole)."""
+    layer at a time (and no expert bank whole).  On the meta device one
+    layer's shapes give the stack's: nothing is drawn."""
+    if dev.type == "meta":
+        return tree_map(lambda leaf: torch.empty(
+            (n, *leaf.shape), dtype=leaf.dtype, device=dev), draw_layer())
     out = None
     for i in range(n):
         layer = draw_layer()
@@ -130,9 +136,23 @@ def init_params(seed, cfg, *, device=None) -> Params:
     banks are drawn by several threads (`ExpertBank.draw_into`); the
     weights do not depend on how many."""
     _check_family(cfg)
-    dev = resolve_device(device)
     gen = (seed if isinstance(seed, torch.Generator)
            else torch.Generator().manual_seed(int(seed)))
+    return _init_params(gen, cfg, resolve_device(device))
+
+
+def abstract_params(cfg) -> Params:
+    """The parameter tree as meta tensors: the shapes and dtypes
+    `init_params` gives, with no storage and no draw (the reference's
+    `jax.eval_shape(init_params, key, cfg)`), so a 671 B-parameter tree
+    costs no memory.  For specs and dry runs; nothing can run on it."""
+    _check_family(cfg)
+    meta = torch.device("meta")
+    with meta:
+        return _init_params(torch.Generator(), cfg, meta)
+
+
+def _init_params(gen: torch.Generator, cfg, dev: torch.device) -> Params:
     dtype = getattr(torch, cfg.param_dtype)
     v, d = padded_vocab(cfg), cfg.d_model
     p: Params = {
@@ -424,8 +444,18 @@ def empty_caches(cfg, batch: int, s_max: int, dtype=torch.bfloat16,
     "shared" [G, batch, s_max, Hkv, Dh], "tail" [T, batch, ...] or None};
     audio {"self": GQA, "cross": [L, batch, n_frames, H, Dh]}."""
     _check_family(cfg)
-    dev = resolve_device(device)
+    return _empty_caches(cfg, batch, s_max, dtype, resolve_device(device))
 
+
+def abstract_caches(cfg, batch: int, s_max: int, dtype=torch.bfloat16):
+    """`empty_caches`'s tree as meta tensors (no storage), for specs."""
+    _check_family(cfg)
+    meta = torch.device("meta")
+    with meta:
+        return _empty_caches(cfg, batch, s_max, dtype, meta)
+
+
+def _empty_caches(cfg, batch: int, s_max: int, dtype, dev: torch.device):
     def stack(n, c):
         return tree_map(lambda t: t[None].expand(n, *t.shape).contiguous(), c)
 

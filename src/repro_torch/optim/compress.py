@@ -2,20 +2,21 @@
 `repro.optim.compress`): the paper's bulk X(N)OR primitive applied to the
 data-parallel gradient exchange.
 
-Each worker would send only the sign bits of its error-corrected gradient
-plus one float32 scale per tensor, and keep the quantization residual for
-the next step.  On one card there is no exchange: the train step encodes
-and decodes in place of it (`runtime.steps`), so the residual state and
-the update match the reference's.  `compressed_allreduce`, the exchange
-itself, needs a data-parallel group (ROADMAP Queue 1 item 12).
+Each worker sends only the sign of its error-corrected gradient (an int8
+±1 payload) plus one float32 scale per tensor, and keeps the quantization
+residual for the next step.  `compressed_allreduce` is that exchange over
+a `torch.distributed` process group: NCCL on the card (one rank on one
+card), gloo on the CPU.  The trainer, like the reference's, encodes and
+decodes in its step (`runtime.steps`) and calls no collective.
 """
 from __future__ import annotations
 
 from typing import Tuple
 
 import torch
+import torch.distributed as dist
 
-from repro_torch.tree import tree_map
+from repro_torch.tree import tree_leaves, tree_map
 
 
 def compress_grad(g: torch.Tensor, err: torch.Tensor
@@ -47,9 +48,33 @@ def init_errors(params):
                                           device=p.device), params)
 
 
-def compressed_allreduce(grads, errors, axis_names):
-    """The EF-compressed data-parallel mean: it needs a data-parallel
-    process group, which the port does not have yet."""
-    raise NotImplementedError(
-        "compressed_allreduce needs a data-parallel group: ROADMAP Queue 1 "
-        "item 12 (runtime/sharding.py)")
+def compressed_allreduce(grads, errors, axis_names, *, group=None):
+    """EF-compressed data-parallel mean over `group` (default: the
+    default process group), whose ranks are the workers along the
+    reference's `axis_names` (the data-parallel axes the group spans).
+
+    Encodes sign + scale (`compress_tree`), all-reduces each ±1 payload
+    as INT8 with SUM (1 byte an element on the wire; exact for up to 127
+    ranks) and the scales as float32 SUM divided by n, the group's size
+    (gloo has no AVG), and decodes mean = sum_sign / n * avg_scale.
+    Returns (mean_grads, new_errors).  Raises without an initialised
+    process group: it never acts as if it had one rank."""
+    if not dist.is_available() or not dist.is_initialized():
+        raise RuntimeError(
+            "compressed_allreduce needs a process group: call "
+            "torch.distributed.init_process_group first")
+    del axis_names                      # the group decides who takes part
+    signs, scales, new_err = compress_tree(grads, errors)
+    n = dist.get_world_size(group)
+
+    def summed(t: torch.Tensor) -> torch.Tensor:
+        dist.all_reduce(t, op=dist.ReduceOp.SUM, group=group)
+        return t
+
+    sum_sign = tree_map(lambda t: summed(t.to(torch.int8)), signs)
+    leaves = tree_leaves(scales)
+    stacked = summed(torch.stack(leaves).to(torch.float32)) / n
+    avg_of = {id(t): stacked[i] for i, t in enumerate(leaves)}
+    mean = tree_map(lambda t, sc: t.to(torch.float32) / n * avg_of[id(sc)],
+                    sum_sign, scales)
+    return mean, new_err

@@ -13,8 +13,8 @@ tests line up:
                  {"q": {"mq", "ms", "vq", "vs"}, "step"}.
 
 `update` runs under `torch.no_grad()` and returns new tensors; it
-changes none of its arguments.  The reference's ZeRO-1 sharding of the
-state needs a mesh (ROADMAP Queue 1 item 12).
+changes none of its arguments.  The state's ZeRO-1 specs are
+`runtime.steps.train_state_pspecs`'s.
 """
 from __future__ import annotations
 

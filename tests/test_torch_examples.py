@@ -134,3 +134,15 @@ def test_train_bnn_lm_twin(tmp_path):
     first = logged[0]["loss"]
     assert np.isfinite(final["final_loss"]) and final["final_loss"] < first
     assert lines[-1].startswith(f"final loss {final['final_loss']:.4f}")
+
+
+def test_serve_and_train_twins_pass_mesh_host():
+    """The serve and train twins pass `--mesh host`, as their reference
+    examples do, to CLIs that take it."""
+    from repro_torch.launch import serve, train
+    for ref, twin in (("serve_decode.py", "serve_decode_torch.py"),
+                      ("train_bnn_lm.py", "train_bnn_lm_torch.py")):
+        for name in (ref, twin):
+            text = (ROOT / "examples" / name).read_text()
+            assert '"--mesh", "host"' in text, name
+    assert serve.parse_args([]).mesh == train.parse_args([]).mesh == "host"

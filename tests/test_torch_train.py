@@ -338,7 +338,7 @@ def test_compress_tree_and_allreduce():
     assert sorted(flat(dec)) == sorted(flat(params))
     assert torch.equal(dec["b"]["c"], -torch.ones(3))
     assert all(bool(torch.isfinite(e).all()) for e in flat(new_errs).values())
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 12"):
+    with pytest.raises(RuntimeError, match="init_process_group"):
         compressed_allreduce(params, errs, "data")
 
 
@@ -586,7 +586,7 @@ def test_cli_resumes_from_the_latest_checkpoint(tmp_path, capsys):
     out = capsys.readouterr().out.splitlines()
     assert out[0] == "resumed from step 2"
     assert [json.loads(line)["step"] for line in out[1:-1]] == [3]
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 12"):
+    with pytest.raises(ValueError, match="needs 512 devices"):
         train.main(argv + ["--mesh", "multi"])
 
 
