@@ -47,7 +47,10 @@ Phases, each fatal on failure:
                 kernel, in float32, bfloat16 and int8; the flash
                 backward kernels (dkv, dq) at the training shape and the
                 forward's other cases (float32 at the reference test's
-                2e-4, bfloat16 within about one bfloat16 ulp), with SDPA's
+                2e-4, bfloat16 within about one bfloat16 ulp), and at the
+                train-families phase's attention shapes (llava-next-34b
+                q [1, 56, 3072, 128] n_rep 7, zamba2 [4, 32, 512, 64],
+                whisper-medium [4, 16, 256, 64]), with SDPA's
                 backward as their yardstick; forward and backward also at
                 the training shape and the bfloat16 tensor-core kernels'
                 edges (FLASH_BF16_EDGES), the forward also at the families
@@ -233,6 +236,20 @@ Phases, each fatal on failure:
                 step-10 checkpoint restored into a fresh state and trained
                 10 more steps must equal the straight run's step-20 state
                 bit for bit;
+  12b. train families -- one arch of each remaining family trained at
+                its published width through `launch.train.main` under
+                `--mesh host` and deterministic algorithms
+                (TRAIN_FAMILIES, 6 steps each): mamba2-130m (4 x 1024),
+                zamba2-1.2b (4 x 512) and whisper-medium (4 x 256, 1500
+                frames) at full depth with AdamW, llava-next-34b at 2 of
+                its 60 layers (1 x 3072: 2880 patches, 192 text
+                positions) with AdamW, deepseek-v3-671b at 1 of its 61
+                layers with 32 of its 256 experts and adafactor (2 x
+                256): finite losses, the last below the first, s/step,
+                tokens/s, peak GB; then a step from the final state run
+                twice, bitwise the same loss and parameters, and 2 steps
+                under `torch.profiler` (launches a step, the idle share)
+                ("train families" lines);
   13. counts -- the launch counters are zeroed just before phase 3, before
                 each of phase 4's five legs and phase 4b's legs, before
                 phase 5, phase 6,
@@ -264,7 +281,11 @@ Phases, each fatal on failure:
                 twice, the GEMM and the adder once each on its quickstart
                 leg, phase 12 per step the flash forward
                 twice per layer (remat) and each backward kernel once per
-                layer; a counter a leg does not name must stay 0; and
+                layer, phase 12b per step the flash forward twice per GQA
+                site and each backward kernel once per site (mamba2 and
+                deepseek-v3 none, zamba2 6 sites, whisper 24, llava 2),
+                and its repeat legs two steps' worth; a counter a leg
+                does not name must stay 0; and
                 each of these legs, and each of phases 3 to 12 as a
                 whole, prints a "verify" line (the verify passes its
                 lowerings ran: programs, clean, failed, wall seconds),
@@ -272,7 +293,18 @@ Phases, each fatal on failure:
                 line also carries `verify_s` beside its `compile_s`;
  14. check  -- a float32 smoke-config prefill, and the same config's
                 first train step (loss and gradients), on the card held to
-                the same on the CPU (after the counts are read).
+                the same on the CPU (after the counts are read); the
+                first train step also for qwen3-14b, mamba2-130m,
+                zamba2-1.2b, deepseek-v3-671b, kimi-k2-1t-a32b,
+                whisper-medium and llava-next-34b, each within its
+                family's bound (TRAIN_REF_TOL), which the card's
+                gradient with its largest leaf zeroed must fail;
+ 15. dryrun -- `launch.dryrun.main(["--all", "--out", <a temporary
+                file>])`, started in a process of its own on the host
+                (no card visible to it) before phase 1 and read last:
+                every cell of `all_cells()` with status "ok", each cell's
+                per-device argument bytes and whether they fit the card,
+                and the run's wall time ("dryrun" lines).
 
 Prints the kernels' JSON line (the packer's entry also under "served" at
 its decode [4, 768] bfloat16 and [3072, 768] float32 weight shapes), the
@@ -335,6 +367,14 @@ FLASH_BF16_EDGES = [
     (1, 2, 2, 256, 256, 32, 128, 64, False, torch.bfloat16),
     (2, 6, 2, 128, 128, 16, 64, 64, True, torch.bfloat16),
     (2, 4, 4, 192, 320, 64, 64, 64, False, torch.bfloat16)]
+# The flash backward at the train-families phase's attention shapes (b, h,
+# hkv, sq, sk, d, causal, dtype): llava-next-34b (q [1, 56, 3072, 128],
+# n_rep 7), zamba2-1.2b's shared block [4, 32, 512, 64] and whisper-
+# medium's decoder [4, 16, 256, 64], n_rep 1.
+FLASH_BWD_FAMILIES = [
+    (1, 56, 8, 3072, 3072, 128, True, torch.bfloat16),
+    (4, 32, 32, 512, 512, 64, True, torch.bfloat16),
+    (4, 16, 16, 256, 256, 64, True, torch.bfloat16)]
 # The train phase: examples/train_bnn_lm.py's run (batch 8, seq 256,
 # AdamW at 3e-4) at full width and depth, cut to TRAIN_STEPS steps, with a
 # checkpoint at RESTART_AT for the restart check.
@@ -348,6 +388,47 @@ TRAIN = ["--arch", "drim-bnn", "--steps", str(TRAIN_STEPS), "--batch", "8",
 # against the reference); the gradient's bound leaves room for an STE
 # sign flip of an activation within float32 noise of 0.
 TRAIN_LOSS_RTOL, TRAIN_GRAD_RTOL = 1e-5, 1e-3
+# The train-families phase: one arch of each family trained through the
+# trainer's CLI at its published width:
+# mamba2-130m, zamba2-1.2b and whisper-medium (1500 frames) at full depth;
+# llava-next-34b cut from 60 layers to 2 (3072 tokens: its 2880 patches
+# and 192 text positions, as the serve leg); deepseek-v3-671b cut from 61
+# layers to 1 and from 256 experts to 32, with the dry-run's adafactor
+# (`launch.dryrun.ARCH_OPTIMIZER`): one layer with all 256 experts is
+# 13.4 B parameters, ~107 GB of adafactor state, and 32 experts make it
+# 3.49 B (top-8, moe_d_ff 2048, d_model 7168, the MLA ranks and the
+# vocabulary at their published sizes).  FAMILY_TRAIN_STEPS steps each,
+# logged every step, at drim-bnn's 3e-4, but the two 7168-wide legs at
+# 2e-5 (LLaVA-NeXT's published learning rate for its language model):
+# an update at 3e-4 moves a logit by up to about 7168 * 3e-4, and on an
+# H100 llava's loss rose from 11.44 to 13.64 in 6 steps; then one step
+# from the final state run twice (bitwise the same loss and parameters)
+# and FAMILY_PROFILE_STEPS steps under `torch.profiler`.  (arch, depth
+# cut or 0, experts cut or 0, batch, sequence, optimizer, learning rate)
+TRAIN_FAMILIES = (("mamba2-130m", 0, 0, 4, 1024, "adamw", 3e-4),
+                  ("zamba2-1.2b", 0, 0, 4, 512, "adamw", 3e-4),
+                  ("whisper-medium", 0, 0, 4, 256, "adamw", 3e-4),
+                  ("llava-next-34b", 2, 0, 1, 3072, "adamw", 2e-5),
+                  ("deepseek-v3-671b", 1, 32, 2, 256, "adafactor", 2e-5))
+FAMILY_TRAIN_STEPS, FAMILY_PROFILE_STEPS = 6, 2
+# The float32 smoke configs' first train step, card against CPU (loss
+# relative error, whole-gradient and per-leaf relative L2).  A one-ulp
+# (1e-7 relative) nudge of the weights moves the CPU's own gradients by
+# 1.6-2.0e-6 in the dense, MoE, audio and vlm archs, 1.1e-3 / 1.5e-3
+# (whole / worst leaf) in mamba2 and 3.5e-3 / 4.0e-3 in zamba2, whose SSD
+# scans round their product operands to bfloat16 (a ten-ulp nudge: 9e-6,
+# 2.0e-3, 1.0e-2).  The card's float32 flash kernels and cuBLAS sum in
+# other orders than the CPU's dense scores, so each family is held at
+# about ten times its ten-ulp reading: 1e-4 for the dense, MoE, audio
+# and vlm archs (a top-k expert choice that a router near-tie flipped
+# would move its experts' gradients by far more, and shows here), 1e-2
+# for mamba2, 5e-2 for zamba2.  The loss at 1e-5 in all.  drim-bnn keeps
+# its own bounds (TRAIN_LOSS_RTOL, TRAIN_GRAD_RTOL).  One leaf's card
+# gradient zeroed (the largest) must fail each bound.
+TRAIN_REF_TOL = {"qwen3-14b": 1e-4, "mamba2-130m": 1e-2,
+                 "zamba2-1.2b": 5e-2, "deepseek-v3-671b": 1e-4,
+                 "kimi-k2-1t-a32b": 1e-4, "whisper-medium": 1e-4,
+                 "llava-next-34b": 1e-4}
 SERVE = ["--arch", "drim-bnn", "--batch", "4", "--prompt-len", "256",
          "--gen", "8", "--seed", str(SEED), "--temperature", "0"]
 # The families phase: the SSM, hybrid, dense, MoE, audio and vlm archs
@@ -1062,7 +1143,8 @@ def phase_flash(rng):
 
 def phase_flash_bwd(rng):
     """The flash backward kernels (dkv, dq) against the plain backward on
-    the same q, k, v, do and the forward kernel's out and lse; returns
+    the same q, k, v, do and the forward kernel's out and lse, also at
+    the train-families phase's shapes (FLASH_BWD_FAMILIES); returns
     their records at the training shape (q [8,12,256,64], bf16, causal).
     `library_ms` is SDPA's backward, `torch.autograd.grad` over one
     retained graph, timed eagerly (the autograd engine runs the backward
@@ -1076,7 +1158,8 @@ def phase_flash_bwd(rng):
         (4, 12, 4, 2048, 2048, 64, True, torch.bfloat16),
         (1, 4, 1, 64, 192, 128, True, torch.float32),
         (1, 2, 2, 256, 256, 32, False, torch.float32),
-        *(c[:6] + c[8:] for c in FLASH_BF16_EDGES)]
+        *(c[:6] + c[8:] for c in FLASH_BF16_EDGES),
+        *FLASH_BWD_FAMILIES]
     records = {}
     for b, h, hkv, sq, sk, d, causal, dt in cases:
         q, k, v, do = (torch.from_numpy(rng.standard_normal(
@@ -2804,11 +2887,11 @@ def check_served(leg: str, gen, cfg, flags, n_gen: int, n_calls: int):
 
 
 def attention_sites(cfg) -> int:
-    """GQA attention sites of a prefill, each one flash launch where the
-    prompt is block-aligned: a layer each in the dense and vlm archs, the
-    GQA moe archs and whisper's decoder (its encoder and cross-attention
-    take dense scores), none behind MLA or in mamba2, a group site each
-    in the hybrid."""
+    """GQA attention sites of a prefill or a training forward, each one
+    flash launch where the sequence is block-aligned: a layer each in the
+    dense and vlm archs, the GQA moe archs and whisper's decoder (its
+    encoder over 1500 frames and its cross-attention take dense scores),
+    none behind MLA or in mamba2, a group site each in the hybrid."""
     if cfg.family in ("dense", "vlm", "audio") or (cfg.family == "moe"
                                                    and not cfg.mla):
         return cfg.n_layers
@@ -3376,102 +3459,93 @@ def phase_train(wrappers):
     dev = torch.device("cuda")
     counts = {}
     torch.cuda.reset_peak_memory_stats()
-    torch.use_deterministic_algorithms(True)
-    # Deterministic mode also fills every new tensor with NaN, a check for
-    # reads of uninitialized memory that costs a kernel per allocation and
-    # does not change which results repeat: off, so s/step is the step's.
-    fill = torch.utils.deterministic.fill_uninitialized_memory
-    torch.utils.deterministic.fill_uninitialized_memory = False
-    try:
-        with tempfile.TemporaryDirectory(prefix="drim_train_") as ckpt_dir:
-            argv = TRAIN + ["--ckpt-dir", ckpt_dir]
-            args = train.parse_args(argv)
-            cfg, step_fn, init_state = train.build(args)
-            per_step = {"flash_attn_fwd": (2 if cfg.remat else 1)
-                        * cfg.n_layers, "flash_bwd_dkv": cfg.n_layers,
-                        "flash_bwd_dq": cfg.n_layers}
+    with deterministic(), \
+            tempfile.TemporaryDirectory(prefix="drim_train_") as ckpt_dir:
+        argv = TRAIN + ["--ckpt-dir", ckpt_dir]
+        args = train.parse_args(argv)
+        cfg, step_fn, init_state = train.build(args)
+        per_step = {"flash_attn_fwd": (2 if cfg.remat else 1)
+                    * cfg.n_layers, "flash_bwd_dkv": cfg.n_layers,
+                    "flash_bwd_dq": cfg.n_layers}
 
-            placed = []
-            place = train.place
+        placed = []
+        place = train.place
 
-            def spy_place(tree, shardings):
-                placed.append(shardings)
-                return place(tree, shardings)
+        def spy_place(tree, shardings):
+            placed.append(shardings)
+            return place(tree, shardings)
 
-            def run():
-                text = io.StringIO()
-                train.place = spy_place
-                try:
-                    with contextlib.redirect_stdout(text):
-                        final = train.main(argv)
-                finally:
-                    train.place = place
-                return final, [json.loads(line) for line in
-                               text.getvalue().splitlines()]
-            (final, lines), counts["train"] = counted(
-                wrappers, "train", run,
-                lambda _: {k: n * TRAIN_STEPS for k, n in per_step.items()})
-            check_train_shardings(placed)
-            steps = [line for line in lines if "step" in line]
-            losses = [line["loss"] for line in steps]
-            if len(steps) != TRAIN_STEPS or not np.all(np.isfinite(losses)) \
-                    or not np.isfinite(final):
-                raise AssertionError(f"train: bad losses {losses} {final}")
-            if not final < losses[0]:
-                raise AssertionError(f"train: the loss did not fall "
-                                     f"({losses[0]} -> {final})")
-            # s/step after the first (warm-up) step; each logged step
-            # ends with its metrics on the host
-            s_step = (steps[-1]["wall_s"] - steps[0]["wall_s"]) \
-                / (TRAIN_STEPS - 1)
-            tokens = args.batch * args.seq
-            print("train " + json.dumps({
-                "arch": args.arch, "layers": cfg.n_layers,
-                "d_model": cfg.d_model, "bitlinear": cfg.bitlinear,
-                "remat": cfg.remat, "batch": args.batch, "seq": args.seq,
-                "steps": TRAIN_STEPS, "first_step_s": steps[0]["wall_s"],
-                "s_per_step": s_step, "tokens_per_s": tokens / s_step,
-                "first_loss": losses[0], "last_loss": final,
-                "losses": losses,
-                "grad_norm": [line["grad_norm"] for line in steps],
-                "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}))
+        def run():
+            text = io.StringIO()
+            train.place = spy_place
+            try:
+                with contextlib.redirect_stdout(text):
+                    final = train.main(argv)
+            finally:
+                train.place = place
+            return final, [json.loads(line) for line in
+                           text.getvalue().splitlines()]
+        (final, lines), counts["train"] = counted(
+            wrappers, "train", run,
+            lambda _: {k: n * TRAIN_STEPS for k, n in per_step.items()})
+        check_train_shardings(placed)
+        steps = [line for line in lines if "step" in line]
+        losses = [line["loss"] for line in steps]
+        if len(steps) != TRAIN_STEPS or not np.all(np.isfinite(losses)) \
+                or not np.isfinite(final):
+            raise AssertionError(f"train: bad losses {losses} {final}")
+        if not final < losses[0]:
+            raise AssertionError(f"train: the loss did not fall "
+                                 f"({losses[0]} -> {final})")
+        # s/step after the first (warm-up) step; each logged step
+        # ends with its metrics on the host
+        s_step = (steps[-1]["wall_s"] - steps[0]["wall_s"]) \
+            / (TRAIN_STEPS - 1)
+        tokens = args.batch * args.seq
+        print("train " + json.dumps({
+            "arch": args.arch, "layers": cfg.n_layers,
+            "d_model": cfg.d_model, "bitlinear": cfg.bitlinear,
+            "remat": cfg.remat, "batch": args.batch, "seq": args.seq,
+            "steps": TRAIN_STEPS, "first_step_s": steps[0]["wall_s"],
+            "s_per_step": s_step, "tokens_per_s": tokens / s_step,
+            "first_loss": losses[0], "last_loss": final,
+            "losses": losses,
+            "grad_norm": [line["grad_norm"] for line in steps],
+            "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}))
 
-            def restart():
-                ck = Checkpointer(ckpt_dir)
-                fresh = init_state(SEED + 1, device=dev)
-                state = ck.restore(RESTART_AT, fresh, device=dev)
-                data = SyntheticLM(cfg.vocab_size, args.seq, args.batch,
-                                   seed=args.seed)
-                for step in range(RESTART_AT, TRAIN_STEPS):
-                    state, _ = step_fn(state, train.batch_at(
-                        data, cfg, step, args.seed, dev))
-                torch.cuda.synchronize()
-                return state, ck.restore(TRAIN_STEPS, fresh, device=dev)
-            (resumed, straight), counts["train restart"] = counted(
-                wrappers, "train restart", restart,
-                lambda _: {k: n * (TRAIN_STEPS - RESTART_AT)
-                           for k, n in per_step.items()})
-            differ = [p for (p, a), (_, b) in zip(flat_leaves(resumed),
-                                                  flat_leaves(straight))
-                      if not torch.equal(a, b)]
-            if differ:
-                raise AssertionError(f"restart: {len(differ)} leaves differ "
-                                     f"from the straight run, e.g. "
-                                     f"{differ[:3]}")
-            print("train " + json.dumps({
-                "restart": f"{RESTART_AT} + checkpoint + "
-                           f"{TRAIN_STEPS - RESTART_AT} steps",
-                "leaves": len(flat_leaves(straight)),
-                "bit_identical_to_straight_run": True,
-                "deterministic_algorithms": True}))
+        def restart():
+            ck = Checkpointer(ckpt_dir)
+            fresh = init_state(SEED + 1, device=dev)
+            state = ck.restore(RESTART_AT, fresh, device=dev)
             data = SyntheticLM(cfg.vocab_size, args.seq, args.batch,
                                seed=args.seed)
-            profile_train_steps(step_fn, resumed, [
-                train.batch_at(data, cfg, TRAIN_STEPS + i, args.seed, dev)
-                for i in range(PROFILE_STEPS)])
-    finally:
-        torch.use_deterministic_algorithms(False)
-        torch.utils.deterministic.fill_uninitialized_memory = fill
+            for step in range(RESTART_AT, TRAIN_STEPS):
+                state, _ = step_fn(state, train.batch_at(
+                    data, cfg, step, args.seed, dev))
+            torch.cuda.synchronize()
+            return state, ck.restore(TRAIN_STEPS, fresh, device=dev)
+        (resumed, straight), counts["train restart"] = counted(
+            wrappers, "train restart", restart,
+            lambda _: {k: n * (TRAIN_STEPS - RESTART_AT)
+                       for k, n in per_step.items()})
+        differ = [p for (p, a), (_, b) in zip(flat_leaves(resumed),
+                                              flat_leaves(straight))
+                  if not torch.equal(a, b)]
+        if differ:
+            raise AssertionError(f"restart: {len(differ)} leaves differ "
+                                 f"from the straight run, e.g. "
+                                 f"{differ[:3]}")
+        print("train " + json.dumps({
+            "restart": f"{RESTART_AT} + checkpoint + "
+                       f"{TRAIN_STEPS - RESTART_AT} steps",
+            "leaves": len(flat_leaves(straight)),
+            "bit_identical_to_straight_run": True,
+            "deterministic_algorithms": True}))
+        data = SyntheticLM(cfg.vocab_size, args.seq, args.batch,
+                           seed=args.seed)
+        profile_train_steps(step_fn, resumed, [
+            train.batch_at(data, cfg, TRAIN_STEPS + i, args.seed, dev)
+            for i in range(PROFILE_STEPS)])
     return counts
 
 
@@ -3513,11 +3587,13 @@ def device_kernels(prof, n: int):
             if e.self_device_time_total > 0 and e.device_type.name == "CUDA"]
 
 
-def profile_train_steps(step_fn, state, batches) -> None:
-    """Where a training step's time goes: PROFILE_STEPS steps under
+def profile_train_steps(step_fn, state, batches, arch: str = "drim-bnn",
+                        tag: str = "train") -> dict:
+    """Where a training step's time goes: a step per batch under
     `torch.profiler`, the device time of each kernel summed by kind (the
     flash kernels, GEMMs, the rest), the kernel launches per step, and the
-    device's idle share of the host-clock wall time ("train" line)."""
+    device's idle share of the host-clock wall time (a `tag` line);
+    returns the line."""
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
@@ -3535,64 +3611,350 @@ def profile_train_steps(step_fn, state, batches) -> None:
         low = name.lower()
         if "flash" in low and ("bwd" in low or "fwd" in low):
             return "flash kernels (port)"
-        if "gemm" in low or "xmma" in low or "cutlass" in low:
+        if "gemm" in low or "xmma" in low or "cutlass" in low \
+                or "nvjet" in low:
             return "gemm (cuBLAS)"
         return "other"
     by_kind = {}
     for name, ms, _ in kernels:
         by_kind[kind(name)] = by_kind.get(kind(name), 0.0) + ms
     top = sorted(kernels, key=lambda k: -k[1])[:10]
-    print("train " + json.dumps({
-        "profile_steps": n, "wall_ms_per_step": wall * 1e3 / n,
-        "device_busy_ms_per_step": busy,
-        "device_idle_share": (1 - busy / (wall * 1e3 / n)) if busy else None,
-        "device_launches_per_step": sum(c for _, _, c in kernels),
-        "device_ms_per_step_by_kind": by_kind,
-        "top_kernels_ms_per_step": [[name[:80], ms, cnt]
-                                    for name, ms, cnt in top]}))
+    line = {"arch": arch, "profile_steps": n,
+            "wall_ms_per_step": wall * 1e3 / n,
+            "device_busy_ms_per_step": busy,
+            "device_idle_share": (1 - busy / (wall * 1e3 / n)) if busy
+            else None,
+            "device_launches_per_step": sum(c for _, _, c in kernels),
+            "device_ms_per_step_by_kind": by_kind,
+            "top_kernels_ms_per_step": [[name[:80], ms, cnt]
+                                        for name, ms, cnt in top]}
+    print(f"{tag} " + json.dumps(line))
+    return line
+
+
+@contextlib.contextmanager
+def deterministic():
+    """`torch.use_deterministic_algorithms(True)`, without its filling of
+    every new tensor with NaN (a check for reads of uninitialized memory
+    that costs a kernel per allocation and does not change which results
+    repeat), so that s/step is the step's."""
+    fill = torch.utils.deterministic.fill_uninitialized_memory
+    torch.use_deterministic_algorithms(True)
+    torch.utils.deterministic.fill_uninitialized_memory = False
+    try:
+        yield
+    finally:
+        torch.use_deterministic_algorithms(False)
+        torch.utils.deterministic.fill_uninitialized_memory = fill
+
+
+@contextlib.contextmanager
+def trainer_spy(train, **cut):
+    """`train.main` with its config cut (`ModelConfig.replace(**cut)`:
+    depth, experts) and its step recorded: yields a dict that holds, once
+    main returns, the step function, the config and the last state and
+    batch the trainer stepped."""
+    build_cfg, build = train.build_cfg, train.build
+    seen = {}
+
+    def cut_cfg(args):
+        cfg = build_cfg(args)
+        return cfg.replace(**cut) if cut else cfg
+
+    def spy_build(args, mesh=None):
+        cfg, step_fn, init_state = build(args, mesh)
+
+        def step(state, batch):
+            new, metrics = step_fn(state, batch)
+            seen.update(state=new, batch=batch)
+            return new, metrics
+        seen.update(step_fn=step_fn, cfg=cfg)
+        return cfg, step, init_state
+    train.build_cfg, train.build = cut_cfg, spy_build
+    try:
+        yield seen
+    finally:
+        train.build_cfg, train.build = build_cfg, build
+
+
+def repeat_step(step_fn, state, batch):
+    """One step from `state` run twice: (loss, whether the two losses and
+    every new parameter are bitwise equal).  The first run's parameters
+    wait on the host, so the card holds one new state at a time."""
+    new, metrics = step_fn(state, batch)
+    loss = metrics["loss"].cpu()
+    first = [(p, t.cpu()) for p, t in flat_leaves(new["params"])]
+    del new, metrics
+    new, metrics = step_fn(state, batch)
+    same = torch.equal(loss, metrics["loss"].cpu()) and all(
+        torch.equal(a, b.cpu()) for (_, a), (_, b) in
+        zip(first, flat_leaves(new["params"])))
+    return float(loss), same
+
+
+def phase_train_families(wrappers):
+    """One arch of each remaining family trained at its published width
+    through the trainer's CLI entry point (`launch.train.main`, `--mesh
+    host`), under deterministic algorithms (TRAIN_FAMILIES): finite
+    losses falling from the first step to the last, s/step, tokens/s,
+    peak GB; each step the flash forward twice per GQA site (remat) and
+    each backward kernel once, nothing else; then a step from the final
+    state run twice, bitwise the same, and FAMILY_PROFILE_STEPS steps
+    under `torch.profiler` (launches a step, the idle share).  Returns
+    the launch counts of the legs."""
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.launch import train
+    dev = torch.device("cuda")
+    counts = {}
+    t_phase = time.perf_counter()
+    with deterministic():
+        for arch, layers, experts, batch, seq, opt, lr in TRAIN_FAMILIES:
+            argv = ["--arch", arch, "--steps", str(FAMILY_TRAIN_STEPS),
+                    "--batch", str(batch), "--seq", str(seq), "--mesh",
+                    "host", "--optimizer", opt, "--lr", str(lr),
+                    "--log-every", "1", "--seed", str(SEED)]
+            cut = {}
+            if layers:
+                cut["n_layers"] = layers
+            if experts:
+                cut["n_experts"] = experts
+            cfg = get_config(arch).replace(**cut)
+            sites = attention_sites(cfg)
+            per_step = ({"flash_attn_fwd": (2 if cfg.remat else 1) * sites,
+                         "flash_bwd_dkv": sites, "flash_bwd_dq": sites}
+                        if sites else {})
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            leg = f"train families {arch}"
+            with trainer_spy(train, **cut) as seen:
+                def run(argv=argv):
+                    text = io.StringIO()
+                    t0 = time.perf_counter()
+                    with contextlib.redirect_stdout(text):
+                        final = train.main(argv)
+                    return final, time.perf_counter() - t0, [
+                        json.loads(line) for line in
+                        text.getvalue().splitlines()]
+                (final, main_s, lines), counts[leg] = counted(
+                    wrappers, leg, run,
+                    lambda _, n=FAMILY_TRAIN_STEPS, ps=per_step:
+                        {k: v * n for k, v in ps.items()})
+            peak = torch.cuda.max_memory_allocated() / 1e9
+            steps = [line for line in lines if "step" in line]
+            losses = [line["loss"] for line in steps]
+            if len(steps) != FAMILY_TRAIN_STEPS \
+                    or not np.all(np.isfinite(losses)) \
+                    or not np.isfinite(final):
+                raise AssertionError(f"{leg}: bad losses {losses} {final}")
+            if not final < losses[0]:
+                raise AssertionError(f"{leg}: the loss did not fall "
+                                     f"({losses[0]} -> {final})")
+            if seen["cfg"] != cfg:
+                raise AssertionError(f"{leg}: trained {seen['cfg']}")
+            s_step = (steps[-1]["wall_s"] - steps[0]["wall_s"]) \
+                / (FAMILY_TRAIN_STEPS - 1)
+            # the final state, held here alone, so that the profiled
+            # steps can drop it after their first step (the card holds
+            # two of llava's states, not three)
+            step_fn, held = seen.pop("step_fn"), [seen.pop("state")]
+            data = SyntheticLM(cfg.vocab_size, seq, batch, seed=SEED)
+            nxt = train.batch_at(data, cfg, FAMILY_TRAIN_STEPS, SEED, dev)
+            (loss, same), counts[leg + " repeat"] = counted(
+                wrappers, leg + " repeat",
+                lambda: repeat_step(step_fn, held[0], nxt),
+                lambda _, ps=per_step: {k: 2 * v for k, v in ps.items()})
+            if not same:
+                raise AssertionError(f"{leg}: a step repeated from the same "
+                                     "state differs")
+            batches = [train.batch_at(data, cfg, FAMILY_TRAIN_STEPS + 1 + i,
+                                      SEED, dev)
+                       for i in range(FAMILY_PROFILE_STEPS)]
+            prof = profile_train_steps(step_fn, held.pop(), batches,
+                                       arch=arch, tag="train families")
+            print("train families " + json.dumps({
+                "leg": arch, "family": cfg.family, "layers": cfg.n_layers,
+                "published_layers": get_config(arch).n_layers,
+                "encoder_layers": cfg.encoder_layers,
+                "experts": cfg.n_experts,
+                "published_experts": get_config(arch).n_experts,
+                "d_model": cfg.d_model, "params": cfg.param_count(),
+                "optimizer": opt, "lr": lr, "remat": cfg.remat,
+                "batch": batch,
+                "seq": seq, "steps": FAMILY_TRAIN_STEPS,
+                "main_s": main_s, "first_step_s": steps[0]["wall_s"],
+                "s_per_step": s_step, "tokens_per_s": batch * seq / s_step,
+                "first_loss": losses[0], "last_loss": final,
+                "losses": losses,
+                "grad_norm": [line["grad_norm"] for line in steps],
+                "peak_mem_gb": peak, "flash_sites": sites,
+                "flash_launches_per_step": per_step,
+                "repeat_loss": loss, "repeat_bitwise_equal": True,
+                "device_launches_per_step":
+                    prof["device_launches_per_step"],
+                "device_idle_share": prof["device_idle_share"]}))
+            del seen, step_fn, nxt, batches
+            torch.cuda.empty_cache()
+    print("train families " + json.dumps({
+        "phase_wall_s": time.perf_counter() - t_phase}))
+    return counts
+
+
+def train_step_grads(cfg, batch, dev: str):
+    """(loss, [(path, gradient on the CPU)]) of `train_loss` at the seeded
+    weights on `dev`."""
+    from repro_torch.models import init_params, train_loss
+    from repro_torch.tree import tree_map
+    params = tree_map(lambda t: t.requires_grad_(True),
+                      init_params(SEED, cfg, device=dev))
+    leaves = flat_leaves(params)
+    loss, _ = train_loss(params, cfg, {k: v.to(dev)
+                                       for k, v in batch.items()})
+    grads = torch.autograd.grad(loss, [t for _, t in leaves])
+    return float(loss.detach()), [(p, g.cpu()) for (p, _), g in
+                                  zip(leaves, grads)]
+
+
+def grad_rel_l2(got, want):
+    """(whole-gradient relative L2, worst leaf's relative L2, its path)."""
+    num = sum(float(((a - b) ** 2).sum()) for (_, a), (_, b) in
+              zip(got, want))
+    den = sum(float((b ** 2).sum()) for _, b in want)
+    leaf = [(float((a - b).norm() / b.norm().clamp_min(1e-30)), p)
+            for (p, a), (_, b) in zip(got, want)]
+    worst, path = max(leaf)
+    return (num / den) ** 0.5, worst, path
 
 
 def check_train_reference():
-    """The float32 smoke config's first-step loss and gradients on the
+    """The float32 smoke configs' first-step loss and gradients on the
     card (flash forward and backward kernels at S=128) against the same
-    step on the CPU (dense scores), same seeded weights and batch: the
-    loss within TRAIN_LOSS_RTOL, the whole gradient within
-    TRAIN_GRAD_RTOL in relative L2."""
+    step on the CPU (dense scores), same seeded weights and batch:
+    drim-bnn's loss within TRAIN_LOSS_RTOL and whole gradient within
+    TRAIN_GRAD_RTOL in relative L2; each family's arch (TRAIN_REF_TOL) its
+    loss within 1e-5 and its whole gradient and every leaf within its
+    bound.  The card's step must run the flash backward once per GQA
+    site, and the card's gradient with its largest leaf zeroed must fail
+    each bound."""
     from repro_torch.configs import get_smoke_config
     from repro_torch.kernels import flash_attention
-    from repro_torch.models import init_params, train_loss
-    from repro_torch.tree import tree_map
-    cfg = get_smoke_config("drim-bnn").replace(dtype="float32",
-                                                param_dtype="float32")
-    toks = torch.from_numpy(np.random.default_rng([SEED, 4]).integers(
-        0, cfg.vocab_size, (2, 129)))
-    batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
-    before = flash_attention.flash_bwd_dq.launches
-    got = {}
-    for dev in ("cuda", "cpu"):
-        params = tree_map(lambda t: t.requires_grad_(True),
-                          init_params(SEED, cfg, device=dev))
-        loss, _ = train_loss(params, cfg, {k: v.to(dev)
-                                           for k, v in batch.items()})
-        grads = torch.autograd.grad(loss, [t for _, t in
-                                           flat_leaves(params)])
-        got[dev] = (float(loss.detach()), [g.cpu() for g in grads])
-    if flash_attention.flash_bwd_dq.launches != before + cfg.n_layers:
-        raise AssertionError("the card's step did not run the flash "
-                             "backward in every layer")
-    (l_card, g_card), (l_cpu, g_cpu) = got["cuda"], got["cpu"]
-    num = sum(float(((a - b) ** 2).sum()) for a, b in zip(g_card, g_cpu))
-    den = sum(float((b ** 2).sum()) for b in g_cpu)
-    rel = (num / den) ** 0.5
-    worst = max(float((a - b).norm() / b.norm().clamp_min(1e-30))
-                for a, b in zip(g_card, g_cpu))
-    line = {"loss_card": l_card, "loss_cpu": l_cpu,
-            "grad_rel_l2": rel, "worst_leaf_rel_l2": worst}
-    print("train " + json.dumps(line))
-    if not (np.isfinite(l_card) and abs(l_card - l_cpu)
-            <= TRAIN_LOSS_RTOL * abs(l_cpu) and rel <= TRAIN_GRAD_RTOL):
-        raise AssertionError(f"card train step differs from the CPU's: "
-                             f"{line}")
+    bounds = {"drim-bnn": (TRAIN_LOSS_RTOL, TRAIN_GRAD_RTOL, None)}
+    bounds.update({arch: (1e-5, tol, tol)
+                   for arch, tol in TRAIN_REF_TOL.items()})
+    for arch, (loss_rtol, grad_rtol, leaf_rtol) in bounds.items():
+        cfg = get_smoke_config(arch).replace(dtype="float32",
+                                             param_dtype="float32")
+        rng = np.random.default_rng([SEED, 4])
+        toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, (2, 129)))
+        batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+        if cfg.family == "audio":
+            batch["frames"] = torch.from_numpy(rng.standard_normal(
+                (2, cfg.n_frames, cfg.d_model), dtype=np.float32))
+        if cfg.family == "vlm":
+            batch["patch_embeds"] = torch.from_numpy(rng.standard_normal(
+                (2, cfg.n_patches, cfg.d_model), dtype=np.float32))
+        before = flash_attention.flash_bwd_dq.launches
+        l_card, g_card = train_step_grads(cfg, batch, "cuda")
+        ran = flash_attention.flash_bwd_dq.launches - before
+        if ran != attention_sites(cfg):
+            raise AssertionError(f"{arch}: the card's step ran the flash "
+                                 f"backward {ran} times, not "
+                                 f"{attention_sites(cfg)}")
+        l_cpu, g_cpu = train_step_grads(cfg, batch, "cpu")
+
+        def holds(grads):
+            rel, worst, _ = grad_rel_l2(grads, g_cpu)
+            return (np.isfinite(l_card)
+                    and abs(l_card - l_cpu) <= loss_rtol * abs(l_cpu)
+                    and rel <= grad_rtol
+                    and (leaf_rtol is None or worst <= leaf_rtol))
+        rel, worst, path = grad_rel_l2(g_card, g_cpu)
+        big = max(range(len(g_card)), key=lambda i: float(g_card[i][1]
+                                                          .norm()))
+        planted = list(g_card)
+        planted[big] = (planted[big][0], torch.zeros_like(planted[big][1]))
+        p_rel, p_worst, _ = grad_rel_l2(planted, g_cpu)
+        line = {"arch": arch, "family": cfg.family, "loss_card": l_card,
+                "loss_cpu": l_cpu, "loss_rtol": loss_rtol,
+                "grad_rel_l2": rel, "worst_leaf_rel_l2": worst,
+                "worst_leaf": path, "grad_rtol": grad_rtol,
+                "leaf_rtol": leaf_rtol, "flash_bwd_sites": ran,
+                "planted_zeroed_leaf": planted[big][0],
+                "planted_grad_rel_l2": p_rel,
+                "planted_worst_leaf_rel_l2": p_worst}
+        print("train " + json.dumps(line))
+        if not holds(g_card):
+            raise AssertionError(f"{arch}: the card's train step differs "
+                                 f"from the CPU's: {line}")
+        if holds(planted):
+            raise AssertionError(f"{arch}: a zeroed gradient leaf passes "
+                                 f"the bound: {line}")
+
+
+@contextlib.contextmanager
+def dryrun_process():
+    """The dry-run of every cell, `launch.dryrun.main(["--all", "--out",
+    <a temporary file>])`, in a process of its own on the host's CPU (no
+    card visible to it), started now so that it runs beside the card's
+    phases; yields (process, records path, log path); the process is
+    killed if it still runs on exit."""
+    tmp = tempfile.TemporaryDirectory(prefix="drim_dryrun_")
+    out = os.path.join(tmp.name, "cells.jsonl")
+    log = open(os.path.join(tmp.name, "dryrun.log"), "w")
+    code = ("import sys, time\n"
+            "from repro_torch.launch import dryrun\n"
+            "t0 = time.perf_counter()\n"
+            "rc = dryrun.main(['--all', '--out', sys.argv[1]])\n"
+            "print('dryrun_wall_s', time.perf_counter() - t0)\n"
+            "sys.exit(rc)\n")
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="",
+               PYTHONPATH=str(ROOT / "src"))
+    proc = subprocess.Popen([sys.executable, "-c", code, out], cwd=ROOT,
+                            env=env, stdout=log, stderr=subprocess.STDOUT)
+    try:
+        yield proc, out, log.name
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+        log.close()
+        tmp.cleanup()
+
+
+def phase_dryrun(proc, out: str, log: str) -> None:
+    """The dry-run's records: every cell of `all_cells()` with status
+    "ok", each cell's per-device argument bytes beside the card's memory
+    ("dryrun" lines), and the run's wall time on the host."""
+    from repro_torch.launch import dryrun
+    t0 = time.perf_counter()
+    rc = proc.wait(timeout=900)
+    waited = time.perf_counter() - t0
+    text = open(log).read()
+    if rc != 0:
+        raise AssertionError(f"the dry-run exited {rc}: {text[-3000:]}")
+    records = [json.loads(line) for line in open(out)]
+    cells = [(r["arch"], r["shape"], r["mesh"]) for r in records]
+    if cells != list(dryrun.all_cells()):
+        raise AssertionError(f"the dry-run wrote cells {cells}")
+    card = torch.cuda.get_device_properties(0).total_memory
+    for r in records:
+        if r["status"] != "ok":
+            raise AssertionError(f"dry-run cell {r}")
+        print("dryrun " + json.dumps({
+            "cell": f"{r['arch']} {r['shape']} {r['mesh']}",
+            "optimizer": r["optimizer"], "lower_s": r["lower_s"],
+            "mem_argument_b": r["mem_argument_b"],
+            "mem_output_b": r["mem_output_b"],
+            "arguments_fit_the_card": r["mem_argument_b"] < card,
+            "flops_global": r["flops_global"],
+            "model_flops_global": r["model_flops_global"]}))
+    wall = [float(line.split()[1]) for line in text.splitlines()
+            if line.startswith("dryrun_wall_s")]
+    print("dryrun " + json.dumps({
+        "cells": len(records), "ok": len(records),
+        "fit_the_card": sum(r["mem_argument_b"] < card for r in records),
+        "card_total_memory_b": card, "phase_wall_s": wall[0],
+        "waited_s": waited}))
 
 
 def read_counts(wrappers, names, phase: str):
@@ -3608,6 +3970,13 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
+    with dryrun_process() as dry:
+        return run(dry)
+
+
+def run(dry) -> int:
+    """Every phase on the card; `dry` is the dry-run's process, which runs
+    beside them and is read last."""
     from repro_torch.kernels import (aap_interpreter, bitserial_add,
                                      flash_attention, packbits, xnor_popcount)
     from repro_torch.kernels.bitwise import (binary_kernel, not_kernel,
@@ -3655,6 +4024,8 @@ def main() -> int:
     by_leg["collective"] = verified_phase(
         "collective", lambda: phase_collective(wrappers))
     by_leg.update(verified_phase("train", lambda: phase_train(wrappers)))
+    by_leg.update(verified_phase(
+        "train families", lambda: phase_train_families(wrappers)))
     launches = {name: sum(c[name] for c in by_leg.values())
                 for name in wrappers}
     idle = [name for name, n in launches.items() if n <= 0]
@@ -3662,6 +4033,7 @@ def main() -> int:
         raise AssertionError(f"the main paths never launched {idle}")
     check_prefill_reference()
     check_train_reference()
+    phase_dryrun(*dry)
 
     meta = {
         "pack_signs": ("src/repro_torch/csrc/pack_signs.cu",

@@ -1,5 +1,6 @@
-"""ModelConfig (port of `repro.configs.base`, the fields the dense, vlm,
-MoE, SSM, hybrid and audio families read).
+"""ModelConfig and the dry-run's shape suite (port of
+`repro.configs.base`: the fields the dense, vlm, MoE, SSM, hybrid and
+audio families read, and `ShapeConfig`, `SHAPES`, `shapes_for`).
 
 The reference's config also carries two sharding fields that nothing in
 the port would act on, so they are not carried: `seq_parallel` (its
@@ -10,6 +11,7 @@ layers in Python and has no scan).
 from __future__ import annotations
 
 import dataclasses
+from typing import Tuple
 
 import torch
 
@@ -140,3 +142,25 @@ class ModelConfig:
         per_expert = 3 * self.d_model * self.moe_d_ff
         return (self.param_count() - self.n_layers * per_expert
                 * (self.n_experts - self.top_k))
+
+
+@dataclasses.dataclass(frozen=True)
+class ShapeConfig:
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str  # "train" | "prefill" | "decode"
+
+
+SHAPES = {
+    "train_4k": ShapeConfig("train_4k", 4096, 256, "train"),
+    "prefill_32k": ShapeConfig("prefill_32k", 32768, 32, "prefill"),
+    "decode_32k": ShapeConfig("decode_32k", 32768, 128, "decode"),
+    "long_500k": ShapeConfig("long_500k", 524288, 1, "decode"),
+}
+
+
+def shapes_for(cfg: ModelConfig) -> Tuple[str, ...]:
+    """Applicable shape cells for an arch (long_500k needs sub-quadratic)."""
+    base = ("train_4k", "prefill_32k", "decode_32k")
+    return base + ("long_500k",) if cfg.subquadratic else base

@@ -1,7 +1,9 @@
 """End-to-end trainer: config -> mesh -> data -> train step loop (port
 of `repro.launch.train`).
 
-  * --arch drim-bnn (the paper's application; the card trains it)
+  * --arch: drim-bnn (the paper's application) or any arch of
+    `configs.ARCHS` (the dense, vlm, MoE, SSM, hybrid and audio
+    families; `chip_smoke.py` trains one of each on the card)
   * checkpoint/restart (atomic manifests, async save, --resume)
   * heartbeats every step (runtime/ft.py)
   * gradient accumulation, 1-bit EF compression, ZeRO-1 specs

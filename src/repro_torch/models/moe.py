@@ -147,6 +147,17 @@ def _topk_local(probs: torch.Tensor, k: int):
     return torch.stack(ws, -1), torch.stack(idxs, -1)
 
 
+def _expert_counts(top_e: torch.Tensor, e: int) -> torch.Tensor:
+    """Assignments per expert [E] (int64), from the sorted choices: exact,
+    so equal to the reference's float32 scatter-add of ones below 2**24,
+    deterministic on the card, and shape-only on the meta device, where
+    `torch.bincount`'s data-dependent length cannot run."""
+    flat = top_e.reshape(-1).sort().values
+    experts = torch.arange(e, device=top_e.device)
+    return (torch.searchsorted(flat, experts, right=True)
+            - torch.searchsorted(flat, experts))
+
+
 def _route(p: Params, cfg, x: torch.Tensor):
     """x [..., D] -> (top_w, top_e [..., k], aux losses)."""
     e, k = cfg.n_experts, cfg.top_k
@@ -157,8 +168,7 @@ def _route(p: Params, cfg, x: torch.Tensor):
     top_w = top_w / top_w.sum(-1, keepdim=True).clamp_min(1e-9)
     # Switch load balance and the router z-loss
     me = probs.mean(tuple(range(logits.dim() - 1)))           # [E]
-    ce = torch.bincount(top_e.reshape(-1), minlength=e).to(
-        torch.float32) / (t * k)
+    ce = _expert_counts(top_e, e).to(torch.float32) / (t * k)
     aux_lb = e * (me * ce).sum()
     aux_z = torch.logsumexp(logits, -1).square().mean()
     return top_w, top_e, {"load_balance": aux_lb, "router_z": aux_z}
