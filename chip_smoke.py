@@ -236,6 +236,27 @@ Phases, each fatal on failure:
                 step-10 checkpoint restored into a fresh state and trained
                 10 more steps must equal the straight run's step-20 state
                 bit for bit;
+  12a. ranks -- the train phase's run (TRAIN) over 2 ranks on the one
+                card: `python -m torch.distributed.run --nproc-per-node 2
+                chip_smoke.py --ranks-worker DIR gloo`, each rank
+                `launch.train.main` under torchrun's environment
+                (`launch.mesh.init_ranks`: gloo, both on cuda:0), the
+                (2, 1) mesh of ranks, 4 rows of each global batch a rank,
+                ZeRO-1 moments cut over "data", deterministic: step 1's
+                loss within RANKS_STEP1_TOL of the train phase's step 1,
+                every later loss within RANKS_LOSS_BOUND; each rank's
+                flash launches 24 / 12 / 12 a step; each rank's moment
+                bytes half of one process's and equal to its specs'
+                local bytes; the 10 + 10 restart (--resume) bitwise the
+                straight 20 steps; the 2-rank checkpoint restored here in
+                one process equal to each rank's blocks leaf for leaf; a
+                planted fault (rank 1's gradients left out of the sum)
+                past the loss bound; backend, devices, s/step, global
+                tokens/s, peak GB and collective s a step per rank
+                ("ranks" lines).  Then NCCL: with 2 or more cards the
+                straight run at min(4, cards) ranks, a card each; with one
+                card, the NCCL error of two ranks on it
+                (`launch.rank_probe`; a line, not a failure);
   12b. train families -- one arch of each remaining family trained at
                 its published width through `launch.train.main` under
                 `--mesh host` and deterministic algorithms
@@ -254,8 +275,9 @@ Phases, each fatal on failure:
                 each of phase 4's five legs and phase 4b's legs, before
                 phase 5, phase 6,
                 phase 7, each of phase 8's three legs, phase 9, each of
-                phase 10's five legs, each of phase 11's four legs and
-                each of phase 12's two legs, and read just after each:
+                phase 10's five legs, each of phase 11's four legs,
+                each of phase 12's two legs and in each rank each of
+                phase 12a's legs, and read just after each:
                 phase 3 must launch the three BNN kernels, each serving
                 leg exactly the launches its route implies
                 (`expected_launches`), each of phase 4b's legs the
@@ -279,10 +301,11 @@ Phases, each fatal on failure:
                 kernel on its engines leg, nothing on its mesh leg, the
                 interpreter 6 times on its shims leg and the packer
                 twice, the GEMM and the adder once each on its quickstart
-                leg, phase 12 per step the flash forward
-                twice per layer (remat) and each backward kernel once per
-                layer, phase 12b per step the flash forward twice per GQA
-                site and each backward kernel once per site (mamba2 and
+                leg, phase 12 and in each rank phase 12a per step the
+                flash forward twice per layer (remat) and each backward
+                kernel once per layer, phase 12b per step the flash
+                forward twice per GQA site and each backward kernel once
+                per site (mamba2 and
                 deepseek-v3 none, zamba2 6 sites, whisper 24, llava 2),
                 and its repeat legs two steps' worth; a counter a leg
                 does not name must stay 0; and
@@ -517,6 +540,8 @@ VERIFY_WALLS: list = []
 # the corner under ARMED_KILL on "cuda" (feeds, faults, words, report,
 # launches).
 SERVED: dict = {}
+# the train phase's per-step losses, which the ranks phase is held to
+TRAINED: dict = {}
 CHAOS_DISARMED: dict = {}
 ARMED_KILL = "mid-graph kill"
 TRACE_DIR = ROOT / "build"
@@ -3479,10 +3504,12 @@ def phase_train(wrappers):
             text = io.StringIO()
             train.place = spy_place
             try:
-                with contextlib.redirect_stdout(text):
+                with contextlib.redirect_stdout(text), \
+                        trainer_spy(train) as seen:
                     final = train.main(argv)
             finally:
                 train.place = place
+            TRAINED["losses"] = seen["losses"]
             return final, [json.loads(line) for line in
                            text.getvalue().splitlines()]
         (final, lines), counts["train"] = counted(
@@ -3579,6 +3606,368 @@ def check_train_shardings(placed):
                              f"axis: {missing[:3]}")
 
 
+# The ranks phase: the train phase's run (TRAIN) over RANKS ranks, each a
+# process started by torchrun, on the one card over gloo (NCCL refuses two
+# ranks on one card); on a machine with 2 or more cards the same run over
+# NCCL at min(4, cards) ranks, a card each.  Step 1's loss within
+# RANKS_STEP1_TOL of the one-process run's (the same parameters; only
+# the CE's sum order differs); every later step within RANKS_LOSS_BOUND:
+# the ranks' partial weight gradients round to bfloat16 apart from the
+# whole batch's (2e-3 relative of the summed gradient on the CPU), which
+# moves later losses by a few 1e-3 (the CPU at smoke and at mid size:
+# at most 3.4e-3 and 3.7e-3 over 20 steps), while leaving one rank's
+# gradients out of the sum moved them by 2.4e-2 and 5.7e-2 (the planted
+# fault, RANKS_PLANTED_STEPS steps, must exceed the bound).
+RANKS = 2
+RANKS_STEP1_TOL = 1e-5
+RANKS_LOSS_BOUND = 2e-2
+RANKS_PLANTED_STEPS = 8
+RANKS_TIMEOUT_S = 420
+# a drim-bnn step's flash launches on each rank: the forward twice per
+# layer (remat), each backward kernel once
+RANKS_FLASH_PER_STEP = {"flash_attn_fwd": 24, "flash_bwd_dkv": 12,
+                        "flash_bwd_dq": 12}
+
+
+def kernel_wrappers():
+    """{counter name: the wrapper whose `.launches` counts its kernel}."""
+    from repro_torch.kernels import (aap_interpreter, bitserial_add,
+                                     flash_attention, packbits, xnor_popcount)
+    from repro_torch.kernels.bitwise import (binary_kernel, not_kernel,
+                                             ternary_kernel)
+    return {"pack_signs": packbits.pack_signs,
+            "xnor_gemm": xnor_popcount.xnor_gemm_packed,
+            "aap_interp": aap_interpreter.aap_interp,
+            "aap_interp_faulted": aap_interpreter.aap_interp_faulted,
+            "flash_attn_fwd": flash_attention.flash_fwd,
+            "flash_bwd_dkv": flash_attention.flash_bwd_dkv,
+            "flash_bwd_dq": flash_attention.flash_bwd_dq,
+            "bitwise_not": not_kernel, "bitwise_binary": binary_kernel,
+            "bitwise_ternary": ternary_kernel,
+            "bitplane_add": bitserial_add.bitplane_add,
+            "unpack_signs": packbits.unpack_signs}
+
+
+def torchrun(n: int, args, timeout: float):
+    """`python -m torch.distributed.run --standalone --nproc-per-node n
+    chip_smoke.py *args` in a session of its own, killed with every
+    process it started after `timeout` s; returns (exit code, stdout,
+    stderr, wall s)."""
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+           "--nproc-per-node", str(n), str(pathlib.Path(__file__).resolve()),
+           *args]
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(cmd, cwd=ROOT, env=env, stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True,
+                            start_new_session=True)
+    try:
+        out, err = proc.communicate(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, 9)
+        out, err = proc.communicate()
+        return 124, out, err, time.perf_counter() - t0
+    finally:
+        if proc.poll() is None:
+            os.killpg(proc.pid, 9)
+            proc.wait()
+    return proc.returncode, out, err, time.perf_counter() - t0
+
+
+def sha_of(t: torch.Tensor) -> str:
+    import hashlib
+    return hashlib.sha256(t.detach().cpu().contiguous().view(-1)
+                          .view(torch.uint8).numpy().tobytes()).hexdigest()
+
+
+def ranks_worker(out: str, kind: str) -> int:
+    """One rank of the ranks phase, started by torchrun
+    (`chip_smoke.py --ranks-worker OUT KIND`, KIND "gloo" or "nccl"):
+    the legs through `launch.train.main` under deterministic algorithms
+    (`init_ranks` reads torchrun's environment): "straight" (TRAIN with
+    checkpoints in OUT/straight), then for KIND "gloo" the
+    "restart" (the step-RESTART_AT checkpoint, --resume, to the end in
+    OUT/resumed) and the "planted" fault (RANKS_PLANTED_STEPS steps, rank
+    1's gradients zeroed before the sum).  Each leg's launches, collective
+    calls, bytes and seconds (apart from the checkpoint's gathers), peak
+    bytes and printed lines go to OUT/rank<r>_<leg>.json."""
+    import shutil
+    from repro_torch.core import mesh as core_mesh
+    from repro_torch.core.mesh import local_shape
+    from repro_torch.launch import train
+    from repro_torch.launch.mesh import init_ranks
+    from repro_torch.optim import get_optimizer
+    from repro_torch.runtime import steps
+    from repro_torch.tree import tree_leaves, tree_map
+    torch.backends.cuda.matmul.allow_tf32 = False
+    ranks = init_ranks(train.parse_args(TRAIN).device)
+    wrappers = kernel_wrappers()
+    mesh = train.cli_mesh("host", ranks.device, ranks)
+    legs = [("straight", TRAIN + ["--ckpt-dir", f"{out}/straight"])]
+    if kind == "gloo":
+        planted = list(TRAIN)
+        planted[planted.index("--steps") + 1] = str(RANKS_PLANTED_STEPS)
+        legs += [("restart", TRAIN + ["--ckpt-dir", f"{out}/resumed",
+                                      "--resume"]),
+                 ("planted", planted)]
+    try:
+        for leg, argv in legs:
+            if leg == "restart":
+                if ranks.rank == 0:
+                    step_dir = f"step_{RESTART_AT:09d}"
+                    os.makedirs(f"{out}/resumed")
+                    shutil.copytree(f"{out}/straight/{step_dir}",
+                                    f"{out}/resumed/{step_dir}")
+                    with open(f"{out}/resumed/LATEST", "w") as f:
+                        f.write(str(RESTART_AT))
+                core_mesh.mesh_barrier(mesh)
+            for fn in wrappers.values():
+                fn.launches = 0
+            stats0 = dict(core_mesh.COLLECTIVE_STATS)
+            gathers = {"s": 0.0}
+            gather, sum_tree = train.gather, steps._sum_tree
+
+            def timed_gather(*a, **kw):
+                t0 = time.perf_counter()
+                try:
+                    return gather(*a, **kw)
+                finally:
+                    gathers["s"] += time.perf_counter() - t0
+
+            def leave_out(tree, m):
+                if m.rank == 1:
+                    tree = tree_map(torch.zeros_like, tree)
+                return sum_tree(tree, m)
+            train.gather = timed_gather
+            if leg == "planted":
+                steps._sum_tree = leave_out
+            torch.cuda.reset_peak_memory_stats()
+            text = io.StringIO()
+            try:
+                with deterministic(), trainer_spy(train) as seen, \
+                        contextlib.redirect_stdout(text):
+                    train.main(argv)
+            finally:
+                train.gather, steps._sum_tree = gather, sum_tree
+            torch.cuda.synchronize()
+            stats = {k: core_mesh.COLLECTIVE_STATS[k] - stats0[k]
+                     for k in stats0}
+            record = {
+                "rank": ranks.rank, "world_size": ranks.world,
+                "backend": ranks.backend, "device": str(ranks.device),
+                "launches": {n: fn.launches for n, fn in wrappers.items()},
+                "collective": stats, "checkpoint_gather_s": gathers["s"],
+                "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+                "losses": seen["losses"],
+                "lines": [json.loads(line) for line in
+                          text.getvalue().splitlines()
+                          if line.startswith("{")]}
+            if leg == "straight":
+                state = seen["state"]
+                opt = get_optimizer("adamw")
+                specs, shapes = steps.state_pspecs(seen["cfg"], opt, mesh)
+
+                def nbytes(tree):
+                    return sum(t.numel() * t.element_size()
+                               for t in tree_leaves(tree))
+                moments = {k: state["opt"][k] for k in ("m", "v")}
+                record.update(
+                    moment_bytes=nbytes(moments),
+                    moment_bytes_one_process=4 * sum(
+                        t.numel() for k in ("m", "v")
+                        for t in tree_leaves(shapes["opt"][k])),
+                    moment_bytes_of_specs=4 * sum(
+                        np.prod(local_shape(tuple(t.shape), sp, mesh))
+                        for k in ("m", "v") for t, sp in
+                        zip(tree_leaves(shapes["opt"][k]),
+                            tree_leaves(specs["opt"][k]))),
+                    hashes={p: sha_of(t) for p, t in flat_leaves(state)})
+            with open(os.path.join(out, f"rank{ranks.rank}_{leg}.json"),
+                      "w") as f:
+                json.dump(record, f, default=float)
+    finally:
+        ranks.close()
+    return 0
+
+
+def check_rank_leg(records, leg: str, n_steps: int):
+    """Each rank's flash launches (TRAIN's per-step counts times the
+    leg's steps) and nothing else; rank 0's losses; every rank's first
+    line its own."""
+    for r in records:
+        want = {n: RANKS_FLASH_PER_STEP.get(n, 0) * n_steps
+                for n in r["launches"]}
+        if r["launches"] != want:
+            raise AssertionError(f"ranks {leg} rank {r['rank']}: launches "
+                                 f"{r['launches']}, expected {want}")
+        if r["rank"] and any("step" in line for line in r["lines"]):
+            raise AssertionError(f"ranks {leg}: rank {r['rank']} printed "
+                                 "steps")
+    losses = records[0]["losses"]
+    if records[1]["losses"] != losses:
+        raise AssertionError(f"ranks {leg}: the ranks' losses differ")
+    if len(losses) != n_steps or not np.all(np.isfinite(losses)):
+        raise AssertionError(f"ranks {leg}: losses {losses}")
+    return losses
+
+
+def loss_gaps(losses, one):
+    return [abs(a - b) for a, b in zip(losses, one)]
+
+
+def phase_ranks(wrappers):
+    """The train phase's run over RANKS gloo ranks on the one card (each
+    rank a process: `ranks_worker` under torchrun), held to the one-process
+    run: step 1 within RANKS_STEP1_TOL, every later step within
+    RANKS_LOSS_BOUND; each rank's flash launches 24 / 12 / 12 a step;
+    each rank's AdamW moments half of one process's bytes, as the specs
+    give; the 10 + 10 restart bitwise the straight 20 steps; the 2-rank
+    checkpoint restored here (one process) equal, leaf for leaf, to each
+    rank's own blocks; the planted fault past the loss bound.  Then NCCL:
+    with 2 or more cards the straight run at min(4, cards) ranks; with
+    one, two ranks' NCCL error.  Returns the ranks' launches (straight
+    and restart legs, summed over the ranks)."""
+    from repro_torch.checkpoint.checkpoint import Checkpointer
+    from repro_torch.core.mesh import local_block, make_named_mesh
+    from repro_torch.launch import train
+    from repro_torch.optim import get_optimizer
+    from repro_torch.runtime import steps
+    one = TRAINED["losses"]
+    args = train.parse_args(TRAIN)
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory(prefix="drim_ranks_") as tmp:
+        rc, out, err, wall = torchrun(RANKS, ["--ranks-worker", tmp, "gloo"],
+                                      RANKS_TIMEOUT_S)
+        if rc != 0:
+            raise AssertionError(f"ranks: torchrun exited {rc}:\n"
+                                 f"{out[-2000:]}\n{err[-4000:]}")
+        legs = {leg: [json.load(open(f"{tmp}/rank{r}_{leg}.json"))
+                      for r in range(RANKS)]
+                for leg in ("straight", "restart", "planted")}
+        straight = check_rank_leg(legs["straight"], "straight", TRAIN_STEPS)
+        resumed = check_rank_leg(legs["restart"], "restart",
+                                 TRAIN_STEPS - RESTART_AT)
+        planted = check_rank_leg(legs["planted"], "planted",
+                                 RANKS_PLANTED_STEPS)
+        gaps = loss_gaps(straight, one)
+        planted_gaps = loss_gaps(planted, one)
+        recs = legs["straight"]
+        lines = [line for line in recs[0]["lines"] if "step" in line]
+        s_step = (lines[-1]["wall_s"] - lines[0]["wall_s"]) \
+            / (TRAIN_STEPS - 1)
+        coll = [r["collective"] for r in recs]
+        print("ranks " + json.dumps({
+            "backend": recs[0]["backend"], "world_size": RANKS,
+            "devices": [r["device"] for r in recs],
+            "steps": TRAIN_STEPS, "s_per_step": s_step,
+            "global_tokens_per_s": args.batch * args.seq / s_step,
+            "first_step_s": lines[0]["wall_s"],
+            "peak_gb_per_rank": [r["peak_gb"] for r in recs],
+            "collective_s_per_step": [
+                (c["seconds"] - r["checkpoint_gather_s"]) / TRAIN_STEPS
+                for c, r in zip(coll, recs)],
+            "collective_calls": [c["calls"] for c in coll],
+            "collective_gb": [c["bytes"] / 1e9 for c in coll],
+            "checkpoint_gather_s": [r["checkpoint_gather_s"] for r in recs],
+            "losses": straight, "one_process_losses": one,
+            "loss_gaps": gaps, "loss_bound": RANKS_LOSS_BOUND,
+            "torchrun_wall_s": wall}))
+        for r in recs:
+            print("ranks " + json.dumps({
+                "rank": r["rank"], "device": r["device"],
+                "moment_bytes": r["moment_bytes"],
+                "moment_bytes_of_specs": r["moment_bytes_of_specs"],
+                "moment_bytes_one_process": r["moment_bytes_one_process"]}))
+            if not (r["moment_bytes"] == r["moment_bytes_of_specs"]
+                    and 2 * r["moment_bytes"]
+                    == r["moment_bytes_one_process"]):
+                raise AssertionError(f"ranks: rank {r['rank']}'s moments "
+                                     f"are not half the one-process bytes")
+        if gaps[0] > RANKS_STEP1_TOL or max(gaps[1:]) > RANKS_LOSS_BOUND:
+            raise AssertionError(f"ranks: losses {straight} against one "
+                                 f"process's {one}")
+        if max(planted_gaps) <= RANKS_LOSS_BOUND:
+            raise AssertionError(f"ranks: the planted fault stayed inside "
+                                 f"the bound: {planted_gaps}")
+        print("ranks " + json.dumps({
+            "planted": "rank 1's gradients left out of the sum",
+            "steps": RANKS_PLANTED_STEPS, "loss_gaps": planted_gaps,
+            "over_the_bound": True}))
+        if resumed != straight[RESTART_AT:]:
+            raise AssertionError(f"ranks: the restart's losses {resumed}")
+        cfg = train.build_cfg(args)
+        like = steps.abstract_train_state(cfg, get_optimizer("adamw"))
+        step_dir = f"step_{TRAIN_STEPS:09d}"
+        for name in os.listdir(f"{tmp}/straight/{step_dir}"):
+            a = open(f"{tmp}/straight/{step_dir}/{name}", "rb").read()
+            b = open(f"{tmp}/resumed/{step_dir}/{name}", "rb").read()
+            if a != b:
+                raise AssertionError(f"ranks: the restart's {name} differs")
+        whole = Checkpointer(f"{tmp}/straight").restore(TRAIN_STEPS, like,
+                                                        device="cpu")
+        here = dataclasses.replace(
+            make_named_mesh((RANKS, 1), ("data", "model"),
+                            [torch.device("cpu")] * RANKS),
+            ranks=np.arange(RANKS).reshape(RANKS, 1))
+        specs = steps.state_pspecs(cfg, get_optimizer("adamw"), here)[0]
+        cut = dict(zip((p for p, _ in flat_leaves(whole)),
+                       (sp for _, sp in flat_leaves(specs))))
+        for r in recs:
+            differ = [p for p, t in flat_leaves(whole)
+                      if sha_of(t[local_block(tuple(t.shape), cut[p], here,
+                                              r["rank"])])
+                      != r["hashes"][p]]
+            if differ or len(r["hashes"]) != len(cut):
+                raise AssertionError(f"ranks: rank {r['rank']}'s state "
+                                     f"differs from the checkpoint in "
+                                     f"{differ[:3]}")
+        print("ranks " + json.dumps({
+            "restart": f"{RESTART_AT} + checkpoint + "
+                       f"{TRAIN_STEPS - RESTART_AT} steps over {RANKS} "
+                       "ranks", "bit_identical_to_straight_run": True,
+            "checkpoint_leaves": len(cut),
+            "restored_in_one_process_equals_each_rank": True}))
+        phase_ranks_nccl(tmp, one)
+    counts = {n: sum(r["launches"][n] for leg in ("straight", "restart")
+                     for r in legs[leg]) for n in wrappers}
+    print("counts " + json.dumps({"phase": "ranks", **counts}))
+    return counts
+
+
+def phase_ranks_nccl(tmp: str, one) -> None:
+    """With 2 or more cards, the straight run over NCCL at min(4, cards)
+    ranks, a card each, held to the same bounds; with one card, NCCL's
+    own error for two ranks on it (why the ranks phase runs gloo)."""
+    from repro_torch.launch import rank_probe
+    cards = torch.cuda.device_count()
+    if cards < 2:
+        t0 = time.perf_counter()
+        said = rank_probe.run(rank_probe.probe_nccl, "cuda:0", [], 120)
+        print("ranks " + json.dumps({
+            "nccl": f"did not run: {cards} card visible, NCCL needs a card "
+                    "a rank", "two_ranks_on_one_card": said,
+            "probe_wall_s": time.perf_counter() - t0}))
+        return
+    n = min(4, cards)
+    rc, out, err, wall = torchrun(n, ["--ranks-worker", f"{tmp}/nccl",
+                                      "nccl"], RANKS_TIMEOUT_S)
+    if rc != 0:
+        raise AssertionError(f"ranks nccl: torchrun exited {rc}:\n"
+                             f"{err[-4000:]}")
+    recs = [json.load(open(f"{tmp}/nccl/rank{r}_straight.json"))
+            for r in range(n)]
+    losses = check_rank_leg(recs, "nccl", TRAIN_STEPS)
+    gaps = loss_gaps(losses, one)
+    print("ranks " + json.dumps({
+        "backend": recs[0]["backend"], "world_size": n,
+        "devices": [r["device"] for r in recs], "loss_gaps": gaps,
+        "peak_gb_per_rank": [r["peak_gb"] for r in recs],
+        "torchrun_wall_s": wall}))
+    if recs[0]["backend"] != "nccl" or gaps[0] > RANKS_STEP1_TOL \
+            or max(gaps[1:]) > RANKS_LOSS_BOUND:
+        raise AssertionError(f"ranks nccl: {recs[0]['backend']}, {gaps}")
+
+
 def device_kernels(prof, n: int):
     """(name, device ms, launches) per call of each CUDA kernel a
     `torch.profiler` run over `n` calls recorded."""
@@ -3652,8 +4041,9 @@ def deterministic():
 def trainer_spy(train, **cut):
     """`train.main` with its config cut (`ModelConfig.replace(**cut)`:
     depth, experts) and its step recorded: yields a dict that holds, once
-    main returns, the step function, the config and the last state and
-    batch the trainer stepped."""
+    main returns, the step function, the config, the last state and
+    batch the trainer stepped, and every step's loss unrounded
+    ("losses")."""
     build_cfg, build = train.build_cfg, train.build
     seen = {}
 
@@ -3667,8 +4057,9 @@ def trainer_spy(train, **cut):
         def step(state, batch):
             new, metrics = step_fn(state, batch)
             seen.update(state=new, batch=batch)
+            seen["losses"].append(float(metrics["loss"]))
             return new, metrics
-        seen.update(step_fn=step_fn, cfg=cfg)
+        seen.update(step_fn=step_fn, cfg=cfg, losses=[])
         return cfg, step, init_state
     train.build_cfg, train.build = cut_cfg, spy_build
     try:
@@ -3970,6 +4361,8 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
+    if sys.argv[1:2] == ["--ranks-worker"]:
+        return ranks_worker(*sys.argv[2:4])
     with dryrun_process() as dry:
         return run(dry)
 
@@ -3977,11 +4370,6 @@ def main() -> int:
 def run(dry) -> int:
     """Every phase on the card; `dry` is the dry-run's process, which runs
     beside them and is read last."""
-    from repro_torch.kernels import (aap_interpreter, bitserial_add,
-                                     flash_attention, packbits, xnor_popcount)
-    from repro_torch.kernels.bitwise import (binary_kernel, not_kernel,
-                                             ternary_kernel)
-
     torch.backends.cuda.matmul.allow_tf32 = False
     rng = np.random.default_rng(SEED)
     install_verify_tally()
@@ -3989,17 +4377,7 @@ def run(dry) -> int:
     records = phase_kernels(rng)
     check_ste_product(rng)
 
-    wrappers = {"pack_signs": packbits.pack_signs,
-                "xnor_gemm": xnor_popcount.xnor_gemm_packed,
-                "aap_interp": aap_interpreter.aap_interp,
-                "aap_interp_faulted": aap_interpreter.aap_interp_faulted,
-                "flash_attn_fwd": flash_attention.flash_fwd,
-                "flash_bwd_dkv": flash_attention.flash_bwd_dkv,
-                "flash_bwd_dq": flash_attention.flash_bwd_dq,
-                "bitwise_not": not_kernel, "bitwise_binary": binary_kernel,
-                "bitwise_ternary": ternary_kernel,
-                "bitplane_add": bitserial_add.bitplane_add,
-                "unpack_signs": packbits.unpack_signs}
+    wrappers = kernel_wrappers()
     for fn in wrappers.values():
         fn.launches = 0
     mark = verify_mark()
@@ -4024,6 +4402,7 @@ def run(dry) -> int:
     by_leg["collective"] = verified_phase(
         "collective", lambda: phase_collective(wrappers))
     by_leg.update(verified_phase("train", lambda: phase_train(wrappers)))
+    by_leg["ranks"] = phase_ranks(wrappers)
     by_leg.update(verified_phase(
         "train families", lambda: phase_train_families(wrappers)))
     launches = {name: sum(c[name] for c in by_leg.values())

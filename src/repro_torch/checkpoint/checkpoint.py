@@ -23,7 +23,15 @@ Fault-tolerance contract (runtime/ft.py):
   * leaves are saved whole, so a restore may go to any device.
 
 `host_id`/`n_hosts` select the leaves this host writes (its share of a
-multi-host save); one card is host 0 of 1 and writes them all.
+multi-host save); one card is host 0 of 1 and writes them all.  Each
+host writes its leaves into the step's temporary directory; the manifest
+(every leaf's shape and dtype), the step directory and LATEST are
+published once, by host 0: with one host by its background write, with
+several in `wait()`, after a `barrier` every host calls (and a second
+one, so that no host reads the step before it is published).  The
+trainer over ranks gathers the cut leaves first and lets rank 0 write
+them all (`launch/train.py`), so its checkpoint is the one a one-process
+run writes, and restores at any world size.
 """
 from __future__ import annotations
 
@@ -32,7 +40,7 @@ import json
 import os
 import shutil
 import threading
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Callable, Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -49,6 +57,15 @@ def _leaf_paths(tree, prefix: str = "") -> Dict[str, Any]:
         out.update(_leaf_paths(tree[key], f"{prefix}/{key}" if prefix
                                else str(key)))
     return out
+
+
+def _dtype_name(t) -> str:
+    """The manifest's dtype of a leaf (`_to_numpy`'s name, no copy)."""
+    if not isinstance(t, torch.Tensor):
+        return str(np.array(t).dtype)
+    if t.dtype == torch.bfloat16:
+        return "bfloat16"
+    return str(torch.empty((), dtype=t.dtype).numpy().dtype)
 
 
 def _to_numpy(t) -> Tuple[np.ndarray, str]:
@@ -76,12 +93,19 @@ def _to_tensor(arr: np.ndarray, like, device) -> torch.Tensor:
 
 class Checkpointer:
     def __init__(self, directory: str, keep: int = 3, host_id: int = 0,
-                 n_hosts: int = 1):
+                 n_hosts: int = 1,
+                 barrier: Optional[Callable[[], None]] = None):
+        """`barrier`: with n_hosts > 1, a call that no host leaves before
+        every host has made it (e.g. `core.mesh.mesh_barrier`)."""
+        if n_hosts > 1 and barrier is None:
+            raise ValueError("a save by several hosts needs a barrier")
         self.dir = directory
         self.keep = keep
         self.host_id, self.n_hosts = host_id, n_hosts
+        self.barrier = barrier
         self._thread: Optional[threading.Thread] = None
         self._error: Optional[BaseException] = None
+        self._pending: Optional[Tuple[int, Dict[str, Any]]] = None
         os.makedirs(directory, exist_ok=True)
 
     # -- save -----------------------------------------------------------------
@@ -89,10 +113,12 @@ class Checkpointer:
         self.wait()
         leaves = _leaf_paths(state)
         # device->host NOW (snapshot semantics); file IO async.
-        host = {k: _to_numpy(v) for k, v in leaves.items() if self._owns(k)}
-        host_leaves = {k: arr for k, (arr, _) in host.items()}
-        meta = {k: {"shape": list(arr.shape), "dtype": name}
-                for k, (arr, name) in host.items()}
+        host_leaves = {k: _to_numpy(v)[0] for k, v in leaves.items()
+                       if self._owns(k)}
+        meta = {k: {"shape": list(v.shape), "dtype": _dtype_name(v)}
+                for k, v in leaves.items()}
+        if self.n_hosts > 1:
+            self._pending = (step, meta)
         self._thread = threading.Thread(
             target=self._write_or_keep_error, args=(step, host_leaves, meta),
             daemon=True)
@@ -109,11 +135,17 @@ class Checkpointer:
         return (h % self.n_hosts) == self.host_id
 
     def _write(self, step: int, leaves, meta) -> None:
-        d = os.path.join(self.dir, f"step_{step:09d}")
-        tmp = d + ".tmp"
+        tmp = os.path.join(self.dir, f"step_{step:09d}") + ".tmp"
         os.makedirs(tmp, exist_ok=True)
         for k, v in leaves.items():
             np.save(os.path.join(tmp, k.replace("/", "__") + ".npy"), v)
+        if self.n_hosts == 1:
+            self._publish(step, meta)
+
+    def _publish(self, step: int, meta) -> None:
+        """The manifest, the step directory and LATEST (host 0, once)."""
+        d = os.path.join(self.dir, f"step_{step:09d}")
+        tmp = d + ".tmp"
         manifest = {"step": step, "leaves": meta, "n_hosts": self.n_hosts}
         with open(os.path.join(tmp, "manifest.json"), "w") as f:
             json.dump(manifest, f)
@@ -135,13 +167,22 @@ class Checkpointer:
             shutil.rmtree(os.path.join(self.dir, p), ignore_errors=True)
 
     def wait(self) -> None:
-        """Join the background write; raise its error if it failed."""
+        """Join the background write; raise its error if it failed.  With
+        several hosts, publish the pending step: every host's leaves
+        written (a barrier), host 0 publishes, and a second barrier."""
         if self._thread is not None:
             self._thread.join()
             self._thread = None
         if self._error is not None:
             err, self._error = self._error, None
             raise RuntimeError("checkpoint save failed") from err
+        if self._pending is not None:
+            step, meta = self._pending
+            self._pending = None
+            self.barrier()
+            if self.host_id == 0:
+                self._publish(step, meta)
+            self.barrier()
 
     # -- restore --------------------------------------------------------------
     def latest_step(self) -> Optional[int]:

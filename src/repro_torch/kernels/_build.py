@@ -9,11 +9,17 @@ never loaded.  Every C entry point
 returns its `cudaGetLastError()`; `check` raises on a nonzero code.
 `sm_count` is the card's SM count, from which the wrappers size grids.
 
+A library is built under a file lock of its own (`build/kernels/
+lib<name>-<hash>.so.lock`), so that two processes (the ranks of a
+`torchrun` launch) never build the same kernel at once: the second waits
+and loads the first's library.
+
 Nothing here runs at import time: the CPU tests import every module.
 """
 from __future__ import annotations
 
 import ctypes
+import fcntl
 import functools
 import hashlib
 import os
@@ -57,24 +63,35 @@ def build(names: Iterable[str]) -> Dict[str, str]:
     the sources compiled by this call."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     procs = {}
-    for name in names:
-        out = _lib_path(name)
-        if out.exists():
-            continue
-        tmp = out.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
-        procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                                        stderr=subprocess.STDOUT, text=True),
-                       tmp, out)
-    reports = {}
-    failed = []
-    for name, (proc, tmp, out) in procs.items():
-        text, _ = proc.communicate()
-        if proc.returncode != 0:
-            failed.append(f"{name}:\n{text}")
-            continue
-        os.replace(tmp, out)
-        reports[name] = text
+    locks = []
+    try:
+        for name in sorted(set(names)):       # locks taken in one order
+            out = _lib_path(name)
+            if out.exists():
+                continue
+            lock = open(out.with_name(out.name + ".lock"), "w")
+            locks.append(lock)
+            fcntl.flock(lock, fcntl.LOCK_EX)  # another build of it ends
+            if out.exists():
+                continue
+            tmp = out.with_suffix(f".{os.getpid()}.tmp")
+            cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
+                   str(CSRC / f"{name}.cu")]
+            procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                            stderr=subprocess.STDOUT,
+                                            text=True), tmp, out)
+        reports = {}
+        failed = []
+        for name, (proc, tmp, out) in procs.items():
+            text, _ = proc.communicate()
+            if proc.returncode != 0:
+                failed.append(f"{name}:\n{text}")
+                continue
+            os.replace(tmp, out)
+            reports[name] = text
+    finally:
+        for lock in locks:
+            lock.close()                      # releases the lock
     if failed:
         raise RuntimeError("nvcc failed for " + "\n".join(failed))
     return reports

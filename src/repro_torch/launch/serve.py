@@ -51,7 +51,9 @@ Timing: the first decode step runs UNTIMED as warm-up and is reported as
     card or the CPU, 1 x 1), entered around setup, prefill and decode:
     under it every MoE prefill takes the expert-parallel dispatch, as the
     reference's default does.  "single" and "multi" are the production
-    meshes, which raise ValueError below 256 and 512 devices.
+    meshes, which raise ValueError below 256 and 512 devices.  Serving
+    over W > 1 ranks (under torchrun) raises ValueError: it waits for
+    ROADMAP Queue 1 item 15.2, and never serves on one rank alone.
 
 CPU-scale examples:
   PYTHONPATH=src python -m repro_torch.launch.serve --arch drim-bnn \\
@@ -76,7 +78,7 @@ from repro_torch.configs import get_config, get_smoke_config
 from repro_torch.device import resolve_device
 from repro_torch.launch.batching import (NATIVE_ENGINE, WaveBatcher, fold_in,
                                          make_decode_fn)
-from repro_torch.launch.mesh import cli_mesh
+from repro_torch.launch.mesh import MODEL_AXIS_WAITS, cli_mesh, world_size
 from repro_torch.models import decode_step, empty_caches, init_params, prefill
 from repro_torch.models.layers import pack_bitlinear
 from repro_torch.runtime import telemetry
@@ -337,6 +339,21 @@ def _setup(args, cfg, dev, params=None, tokens=None) -> Dict[str, Any]:
                 logits=logits, caches=caches, prefill_s=t_prefill)
 
 
+def refuse_ranks() -> None:
+    """ValueError under W > 1 ranks (torchrun's environment or a process
+    group): serving over ranks waits for ROADMAP Queue 1 item 15.2."""
+    n = world_size()
+    if n > 1:
+        raise ValueError(f"serving over {n} ranks is {MODEL_AXIS_WAITS}; "
+                         "run the server as one process")
+
+
+def serve_mesh(args, dev):
+    """The CLI's `--mesh` on `dev` (`refuse_ranks` first)."""
+    refuse_ranks()
+    return cli_mesh(args.mesh, dev)
+
+
 def run_serve(args, *, params=None, tokens=None,
               make_fn: Callable = make_decode_fn,
               sleep: Callable[[float], None] = time.sleep,
@@ -349,7 +366,7 @@ def run_serve(args, *, params=None, tokens=None,
     `sleep`."""
     dev = resolve_device(args.device)
     cfg = build_cfg(args)
-    with cli_mesh(args.mesh, dev):
+    with serve_mesh(args, dev):
         return _serve(args, cfg, dev, params, tokens, make_fn, sleep)
 
 
@@ -422,7 +439,7 @@ def run_microbench(args) -> Tuple[None, Dict[str, Any]]:
     as `run_serve` treats its warm-up step."""
     dev = resolve_device(args.device)
     cfg = build_cfg(args)
-    with cli_mesh(args.mesh, dev):
+    with serve_mesh(args, dev):
         return _microbench(args, cfg, dev)
 
 
@@ -499,7 +516,7 @@ def run_continuous(args, *, params=None, prompts=None
     seeded prompts; `params` (dense) the seeded weights."""
     dev = resolve_device(args.device)
     cfg = build_cfg(args)
-    with cli_mesh(args.mesh, dev):
+    with serve_mesh(args, dev):
         return _continuous(args, cfg, dev, params, prompts)
 
 
@@ -540,6 +557,7 @@ def _continuous(args, cfg, dev, params, prompts
 
 def main(argv=None):
     args = parse_args(argv)
+    refuse_ranks()
     if args.telemetry or args.trace_out:
         telemetry.arm()
     if args.microbench:

@@ -11,20 +11,37 @@ of `repro.launch.train`).
 
 On the card (the default) attention runs the flash forward and backward
 kernels; `--device cpu` runs the plain versions.  `--mesh` is the
-reference's: "host" (the default) the host mesh over `--device`'s
-devices, data x model n x 1; the state's shardings come from
-`state_shardings` over the abstract state and the state is placed on
-them (on one card or the CPU, a 1x1 mesh: nothing moves).  "single" and
-"multi" are the 16 x 16 and 2 x 16 x 16 production meshes, which raise
-ValueError below 256 and 512 devices.  The CPU-scale example:
+reference's: "host" (the default) the host mesh, data x model n x 1; the
+state's shardings come from `state_shardings` over the abstract state
+and the state is placed on them.  In one process the host mesh is 1 x 1
+over `--device` (nothing moves).  "single" and "multi" are the 16 x 16
+and 2 x 16 x 16 production meshes, which raise ValueError below 256 and
+512 devices.  The CPU-scale example:
 
   PYTHONPATH=src python -m repro_torch.launch.train --arch drim-bnn \\
       --smoke-config --device cpu --steps 30 --batch 4 --seq 64
 
+Under torchrun the trainer runs data-parallel over W ranks, a process
+each; torchrun's environment is the only switch (`launch.mesh.
+init_ranks`): gloo on the CPU (`--device cpu`), NCCL with a card a rank,
+gloo where ranks share a card.  `--mesh host` is then (W, 1) over the
+ranks; each rank takes its rows of every global batch, holds its ZeRO-1
+block of the moments, and sums its gradients with the others'
+(`runtime.steps`); the metrics are the global batch's:
+
+  python -m torch.distributed.run --nproc-per-node 2 \\
+      -m repro_torch.launch.train --arch drim-bnn --smoke-config \\
+      --device cpu --steps 30 --batch 4 --seq 64
+
+Checkpoints hold the whole leaves (the cut ones gathered first), written
+by rank 0 and published once, and restore at any world size.  A model
+axis over ranks waits for ROADMAP Queue 1 item 15.2.
+
 Prints one JSON line per logged step ({"step", "s_per_step", "loss",
 "ce", "lr", "grad_norm", ...}; "wall_s" is the time since the loop
 began, after the step's values reached the host), then
-{"final_loss", "steps"}.
+{"final_loss", "steps"}; under ranks rank 0 alone prints them, after
+every rank's first line (`init_ranks`).
 """
 from __future__ import annotations
 
@@ -36,18 +53,18 @@ import tempfile
 import time
 
 import torch
+import torch.distributed as dist
 
 from repro_torch.checkpoint.checkpoint import Checkpointer
 from repro_torch.configs import get_config, get_smoke_config
 from repro_torch.data.pipeline import SyntheticLM, attach_modality_stub
-from repro_torch.core.mesh import NamedSharding
+from repro_torch.core.mesh import NamedSharding, mesh_barrier
 from repro_torch.device import resolve_device
-from repro_torch.launch.mesh import cli_mesh
+from repro_torch.launch.mesh import cli_mesh, init_ranks
 from repro_torch.optim import get_optimizer
-from repro_torch.runtime import sharding as shd
 from repro_torch.runtime.ft import HeartbeatMonitor
-from repro_torch.runtime.steps import (abstract_train_state, make_train_step,
-                                       place, state_shardings)
+from repro_torch.runtime.steps import (gather, make_train_step, place,
+                                       state_pspecs)
 from repro_torch.tree import tree_map
 
 
@@ -107,14 +124,9 @@ def shardings(args, cfg, mesh):
     """The train state's shardings on `mesh`, as the reference's trainer
     computes them: `state_shardings` of the abstract state, and with
     --compress the error-feedback residuals on the moments' specs."""
-    state_shape = abstract_train_state(cfg, get_optimizer(args.optimizer))
-    st_sh = state_shardings(state_shape, mesh, family=cfg.family)
-    if args.compress:
-        st_sh["errors"] = tree_map(
-            lambda s: NamedSharding(mesh, s),
-            shd.opt_state_pspecs(state_shape["params"], mesh,
-                                 family=cfg.family))
-    return st_sh
+    specs, _ = state_pspecs(cfg, get_optimizer(args.optimizer), mesh,
+                            args.compress)
+    return tree_map(lambda s: NamedSharding(mesh, s), specs)
 
 
 def batch_at(data, cfg, step: int, seed: int, device):
@@ -124,26 +136,50 @@ def batch_at(data, cfg, step: int, seed: int, device):
 
 def main(argv=None) -> float:
     args = parse_args(argv)
-    dev = resolve_device(args.device)
-    mesh = cli_mesh(args.mesh, dev)
+    ranks = init_ranks(args.device)
+    try:
+        return _train(args, ranks)
+    finally:
+        if ranks is not None:
+            ranks.close()
+
+
+def _train(args, ranks) -> float:
+    dev = ranks.device if ranks is not None else resolve_device(args.device)
+    lead = ranks is None or ranks.rank == 0      # the rank that prints
+    mesh = cli_mesh(args.mesh, dev, ranks)
     cfg, step_fn, init_state = build(args, mesh)
-    st_sh = shardings(args, cfg, mesh)
+    # the state's specs (`shardings`') and its whole leaves, abstract
+    specs, whole = state_pspecs(cfg, get_optimizer(args.optimizer), mesh,
+                                args.compress)
+    st_sh = tree_map(lambda s: NamedSharding(mesh, s), specs)
     data = SyntheticLM(cfg.vocab_size, args.seq, args.batch, seed=args.seed)
-    ckpt = Checkpointer(args.ckpt_dir) if args.ckpt_dir else None
+    # under ranks rank 0 writes each checkpoint's whole leaves
+    ckpt = Checkpointer(args.ckpt_dir) if args.ckpt_dir and lead else None
+
+    def save(step: int, state) -> None:
+        """A checkpoint of the whole leaves (every rank takes part in
+        gathering the cut ones)."""
+        if ranks is not None:
+            state = gather(state, specs, whole, mesh)
+        if ckpt:
+            ckpt.save(step, state)
 
     with contextlib.ExitStack() as stack:
         stack.enter_context(mesh)
-        hb_dir = args.ckpt_dir or stack.enter_context(
-            tempfile.TemporaryDirectory(prefix="drimx_"))
+        hb_dir = args.ckpt_dir or _shared_tempdir(stack, ranks)
         hb = HeartbeatMonitor(os.path.join(hb_dir, "heartbeats.jsonl"),
-                              host_id=0)
+                              host_id=0 if ranks is None else ranks.rank)
         state = place(init_state(args.seed, device=dev), st_sh)
         start = 0
-        if ckpt and args.resume:
-            got = ckpt.restore_latest(state, device=dev)
+        if args.ckpt_dir and args.resume:
+            # every rank reads the whole leaves and keeps its blocks
+            got = Checkpointer(args.ckpt_dir).restore_latest(whole,
+                                                             device=dev)
             if got[0] is not None:
-                start, state = got
-                print(f"resumed from step {start}")
+                start, state = got[0], place(got[1], st_sh)
+                if lead:
+                    print(f"resumed from step {start}")
 
         metrics, saved = None, start
         t0 = time.time()
@@ -155,21 +191,40 @@ def main(argv=None) -> float:
                 m = {k: float(v) for k, v in metrics.items()}
                 wall = time.time() - t0
                 dt = wall / (step - start + 1)
-                print(json.dumps({"step": step + 1, "s_per_step":
-                                  round(dt, 3), **{k: round(v, 4)
-                                                   for k, v in m.items()},
-                                  "wall_s": wall}), flush=True)
-            if ckpt and (step + 1) % args.ckpt_every == 0:
-                ckpt.save(step + 1, state)
+                if lead:
+                    print(json.dumps({"step": step + 1, "s_per_step":
+                                      round(dt, 3),
+                                      **{k: round(v, 4)
+                                         for k, v in m.items()},
+                                      "wall_s": wall}), flush=True)
+            if args.ckpt_dir and (step + 1) % args.ckpt_every == 0:
+                save(step + 1, state)
                 saved = step + 1
+        if args.ckpt_dir and saved != args.steps:
+            save(args.steps, state)
         if ckpt:
-            if saved != args.steps:
-                ckpt.save(args.steps, state)
             ckpt.wait()
+        if ranks is not None:
+            # every checkpoint published and every heartbeat written
+            # before any rank goes on
+            mesh_barrier(mesh)
     final_loss = (float(metrics["loss"]) if metrics is not None
                   else float("nan"))
-    print(json.dumps({"final_loss": final_loss, "steps": args.steps}))
+    if lead:
+        print(json.dumps({"final_loss": final_loss, "steps": args.steps}))
     return final_loss
+
+
+def _shared_tempdir(stack, ranks) -> str:
+    """A temporary directory for the heartbeats, removed on exit; under
+    ranks rank 0 makes it and every rank gets its path."""
+    path = [None]
+    if ranks is None or ranks.rank == 0:
+        path[0] = stack.enter_context(
+            tempfile.TemporaryDirectory(prefix="drimx_"))
+    if ranks is not None and ranks.world > 1:
+        dist.broadcast_object_list(path, src=0)
+    return path[0]
 
 
 if __name__ == "__main__":

@@ -54,7 +54,8 @@ from typing import Dict, Optional, Tuple
 import numpy as np
 import torch
 
-from repro_torch.core.mesh import ambient_mesh, axis_size, dp_axes
+from repro_torch.core.mesh import ambient_mesh, ambient_ranks, axis_size, \
+    dp_axes, mesh_sum
 from repro_torch.models.layers import Params, dense, dense_init, linear, \
     linear_init, silu
 
@@ -159,7 +160,16 @@ def _expert_counts(top_e: torch.Tensor, e: int) -> torch.Tensor:
 
 
 def _route(p: Params, cfg, x: torch.Tensor):
-    """x [..., D] -> (top_w, top_e [..., k], aux losses)."""
+    """x [..., D] -> (top_w, top_e [..., k], aux losses).
+
+    Inside a data-parallel step over ranks (`core.mesh.ambient_ranks`)
+    the aux losses are this rank's share of the global batch's: the
+    expert counts are summed over the data ranks (they carry no
+    gradient), and the mean router probability and the z-loss's mean are
+    over the global batch's tokens.  The load balance is linear in the
+    mean probability once the counts are global, so the ranks' shares sum
+    to the global value and their gradients to its gradient, each rank's
+    tokens counted once."""
     e, k = cfg.n_experts, cfg.top_k
     t = x[..., 0].numel()
     logits = dense(p["router"], x).to(torch.float32)          # [..., E]
@@ -168,9 +178,15 @@ def _route(p: Params, cfg, x: torch.Tensor):
     top_w = top_w / top_w.sum(-1, keepdim=True).clamp_min(1e-9)
     # Switch load balance and the router z-loss
     me = probs.mean(tuple(range(logits.dim() - 1)))           # [E]
-    ce = _expert_counts(top_e, e).to(torch.float32) / (t * k)
-    aux_lb = e * (me * ce).sum()
+    counts = _expert_counts(top_e, e)
     aux_z = torch.logsumexp(logits, -1).square().mean()
+    ranks = ambient_ranks()
+    if ranks is not None:
+        n = axis_size(ranks, dp_axes(ranks))
+        counts = mesh_sum([counts], ranks)[0]
+        me, aux_z, t = me / n, aux_z / n, t * n
+    ce = counts.to(torch.float32) / (t * k)
+    aux_lb = e * (me * ce).sum()
     return top_w, top_e, {"load_balance": aux_lb, "router_z": aux_z}
 
 
@@ -310,7 +326,12 @@ def dispatch_mode(cfg, s: int, b: int = 1) -> str:
     back to "grouped", and a grouped dispatch needs s > 1."""
     mode = getattr(cfg, "moe_dispatch", "ep")
     if mode == "ep":
-        if _ep_applicable(cfg, ambient_mesh(), b, s):
+        # over ranks each process holds its own rows and the model axis
+        # is 1 (a model axis over ranks is ROADMAP Queue 1 item 15.2):
+        # EP with one model shard is the grouped dispatch bit for bit
+        mesh = ambient_mesh()
+        if mesh is not None and mesh.ranks is None \
+                and _ep_applicable(cfg, mesh, b, s):
             return "ep"
         mode = "grouped"
     return "grouped" if mode == "grouped" and s > 1 else "global"

@@ -50,6 +50,7 @@ import numpy as np
 import torch
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch.core.mesh import ambient_ranks, mesh_sum
 from repro_torch.device import resolve_device
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import blocks as B
@@ -355,7 +356,9 @@ def train_loss(params, cfg, batch: Dict[str, Any]
                ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """batch {"tokens", "labels": [B, S]} -> (loss, metrics): the mean
     cross-entropy over labels >= 0 plus the auxiliary losses, with the
-    reference's metrics (ce, aux_lb, aux_z, ntokens)."""
+    reference's metrics (ce, aux_lb, aux_z, ntokens).  Inside a step over
+    ranks (`core.mesh.ambient_ranks`) `batch` is this rank's rows and the
+    CE's denominator is the global batch's token count."""
     x, aux, _ = _forward_full(params, cfg, batch, with_cache=False)
     logits = _logits(params, cfg, x)                       # [B,S,V] f32
     labels = batch["labels"].long()
@@ -363,10 +366,27 @@ def train_loss(params, cfg, batch: Dict[str, Any]
     safe = labels.clamp_min(0)
     lse = torch.logsumexp(logits, dim=-1)
     ll = logits.gather(-1, safe[..., None])[..., 0]
-    ce = ((lse - ll) * mask).sum() / mask.sum().clamp_min(1.0)
+    ntokens = mask.sum()
+    ranks = ambient_ranks()
+    if ranks is not None:
+        ntokens = mesh_sum([ntokens], ranks)[0]
+    ce = ((lse - ll) * mask).sum() / ntokens.clamp_min(1.0)
     loss = ce + LB_COEF * aux["load_balance"] + Z_COEF * aux["router_z"]
-    return loss, {"ce": ce, "aux_lb": aux["load_balance"],
-                  "aux_z": aux["router_z"], "ntokens": mask.sum()}
+    metrics = {"ce": ce, "aux_lb": aux["load_balance"],
+               "aux_z": aux["router_z"], "ntokens": ntokens}
+    if ranks is None:
+        return loss, metrics
+    # a rank of a data-parallel step: `loss` is its share of the global
+    # batch's (the CE over the global token count, the MoE's aux shares),
+    # so the ranks' gradients sum to the global gradient; the metrics
+    # and the returned loss's value are the global ones, equal on every
+    # rank, and its gradient is the share's
+    ce, lb, z = mesh_sum([torch.stack([ce, aux["load_balance"],
+                                       aux["router_z"]]).detach()],
+                         ranks)[0].unbind()
+    total = ce + LB_COEF * lb + Z_COEF * z
+    metrics.update(ce=ce, aux_lb=lb, aux_z=z)
+    return total + (loss - loss.detach()), metrics
 
 
 # --- prefill -----------------------------------------------------------------

@@ -49,9 +49,13 @@ def adamw(b1=0.9, b2=0.95, eps=1e-8, weight_decay=0.1,
                 "step": step}
 
     @torch.no_grad()
-    def update(grads, state, params, lr):
+    def update(grads, state, params, lr, norm=None):
+        """`norm`: the whole gradient's global norm where `grads`,
+        `state` and `params` are blocks of the whole leaves (a ZeRO-1
+        rank's, `runtime.steps`): the update is elementwise given the
+        clip's scale, which comes from `norm`."""
         step = state["step"] + 1
-        grads = clip_by_global_norm(grads, grad_clip)
+        grads = clip_by_global_norm(grads, grad_clip, norm)
         m = tree_map(lambda m_, g: b1 * m_ + (1 - b1) * _f32(g),
                      state["m"], grads)
         v = tree_map(lambda v_, g: b2 * v_ + (1 - b2) * torch.square(_f32(g)),
@@ -198,10 +202,13 @@ def global_norm(tree) -> torch.Tensor:
 
 
 @torch.no_grad()
-def clip_by_global_norm(grads, max_norm: float):
+def clip_by_global_norm(grads, max_norm: float, norm=None):
+    """`grads` scaled to a global norm of at most `max_norm`; `norm` is
+    their global norm where known (default: computed from `grads`)."""
     if not max_norm:
         return grads
-    scale = torch.clamp_max(max_norm / (global_norm(grads) + 1e-9), 1.0)
+    norm = global_norm(grads) if norm is None else norm
+    scale = torch.clamp_max(max_norm / (norm + 1e-9), 1.0)
     return tree_map(lambda g: (_f32(g) * scale).to(g.dtype), grads)
 
 

@@ -1,10 +1,12 @@
 """Fault tolerance, straggler mitigation, elastic scaling (port of
 `repro.runtime.ft`: host-only Python, the reference's logic as it is).
 
-Designed for 1000+-node fleets; on one card the mechanisms are exercised
-by unit tests and the single-host trainer, which beats the heartbeat
-every step.  `HeartbeatMonitor.report` publishes liveness as telemetry
-gauges (`ft.alive`, `ft.stragglers`, `ft.dead`).
+Designed for 1000+-node fleets; here the mechanisms are exercised by
+unit tests and the trainer, which beats the heartbeat every step: in one
+process as host 0, under torchrun each rank as host = its rank, all into
+one file, so that `table()` sees every rank.  `HeartbeatMonitor.report`
+publishes liveness as telemetry gauges (`ft.alive`, `ft.stragglers`,
+`ft.dead`).
 
   * Heartbeats  : every host appends (host, step, t) to a shared file/KV;
                   the coordinator flags hosts > `straggler_factor` x median

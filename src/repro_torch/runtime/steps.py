@@ -15,8 +15,28 @@ The state's specs are the reference's (`train_state_pspecs`,
 computed on `abstract_train_state` (meta tensors, no storage).  `place`
 puts a state on its shardings: on a mesh whose devices are all one
 device (the host mesh of one card, or of the CPU) each leaf moves whole
-to that device, so a 1x1 mesh changes no value.  A mesh of distinct
-devices needs a process per device (ROADMAP Queue 1) and raises.
+to that device, so a 1x1 mesh changes no value.
+
+Over a mesh of ranks (`launch.mesh.cli_mesh` under torchrun: (W, 1)
+data x model) the step is data-parallel and computes the global-batch
+formula of the reference's pjit step on a W-device host mesh; only the
+float order differs:
+
+  each rank takes its rows of the global batch (of each microbatch's
+    rows with `accum` > 1), contiguous, in rank order
+  its loss is its share of the global loss (`models.train_loss`)
+  the ranks' gradients are summed (`core.mesh.mesh_sum`)
+  ZeRO-1: each rank holds its block of every moment (`place`); AdamW
+    updates the rank's block of each param, and the blocks are put back
+    together by a broadcast from each owner (`core.mesh.mesh_gather`);
+    Adafactor and adam8bit, whose updates need the whole leaf, gather
+    the state, update whole leaves and keep the rank's block
+  --compress: the cut residuals are gathered, the whole summed gradient
+    is encoded and decoded, and each rank keeps its residuals' block
+
+A `model` axis over ranks (cut params and their collectives) is ROADMAP
+Queue 1 item 15.2.  A mesh of distinct devices with no process group
+would need a process per device and raises.
 """
 from __future__ import annotations
 
@@ -26,7 +46,9 @@ from typing import Any, Dict, Tuple
 import numpy as np
 import torch
 
-from repro_torch.core.mesh import NamedSharding, PartitionSpec as P
+from repro_torch.core.mesh import (NamedSharding, PartitionSpec as P,
+                                   dp_axes, local_block, mesh_gather,
+                                   mesh_sum)
 from repro_torch.device import resolve_device
 from repro_torch.models import (abstract_params, decode_step as model_decode,
                                 init_params, lm_from_jax,
@@ -110,20 +132,83 @@ def state_shardings(state_shape, mesh, zero1: bool = True,
     return tree_map(lambda s: NamedSharding(mesh, s), specs)
 
 
+def state_pspecs(cfg, optimizer, mesh, compress: bool = False):
+    """(the train state's specs, its abstract tree) as the trainer
+    places it: `train_state_pspecs` of `abstract_train_state`, and with
+    `compress` the error-feedback residuals on the moments' specs (the
+    reference's trainer's)."""
+    shape = abstract_train_state(cfg, optimizer)
+    specs = train_state_pspecs(shape, mesh, family=cfg.family)
+    if compress:
+        specs["errors"] = shd.opt_state_pspecs(shape["params"], mesh,
+                                               family=cfg.family)
+        shape["errors"] = shape["params"]
+    return specs, shape
+
+
 def place(tree, shardings):
-    """Every leaf of `tree` on its `NamedSharding`.  On a mesh whose
-    devices are all one device the leaf moves there whole (a no-op when
-    it is there already).  A mesh of distinct devices would need a
-    process per device, which the port does not have: ValueError."""
+    """Every leaf of `tree` on its `NamedSharding`.  On a mesh of ranks
+    each process keeps its own block of each leaf (`core.mesh.
+    local_block` of the leaf's spec: the ZeRO-1 moments cut over "data";
+    the params stay whole while the model axis is 1) on its own device.
+    On a mesh whose devices are all one device the leaf moves there whole
+    (a no-op when it is there already).  A mesh of distinct devices with
+    no process group would need a process per device: ValueError."""
     def one(leaf, sh):
-        devs = set(sh.mesh.devices.flat)
+        mesh = sh.mesh
+        if mesh.ranks is not None:
+            sl = local_block(tuple(leaf.shape), sh.spec, mesh)
+            if all(s.stop - s.start == n for s, n in zip(sl, leaf.shape)):
+                return leaf.to(mesh.device)
+            return leaf[sl].to(mesh.device).clone()
+        devs = set(mesh.devices.flat)
         if len(devs) != 1:
             raise ValueError(
                 f"placing a state on a mesh of {len(devs)} distinct devices "
-                f"({sorted(map(str, devs))}) needs a process per device "
-                "(ROADMAP Queue 1); use a mesh of one device")
+                f"({sorted(map(str, devs))}) needs a process per device: "
+                "start one per device with torchrun (ROADMAP Queue 1 item "
+                "15.1), or use a mesh of one device")
         return leaf.to(next(iter(devs)))
     return tree_map(one, tree, shardings)
+
+
+def cut(tree, specs, mesh):
+    """Each leaf's block on this rank (views; `place` without the move)."""
+    return tree_map(lambda t, s: t[local_block(tuple(t.shape), s, mesh)],
+                    tree, specs)
+
+
+def gather(tree, specs, shapes, mesh):
+    """The whole leaves of a tree of this rank's blocks (`cut`'s inverse,
+    over `core.mesh.mesh_gather`); `shapes` is a tree of the whole
+    leaves (tensors, meta ones included)."""
+    leaves = tree_leaves(tree)
+    whole = mesh_gather(leaves, [tuple(t.shape) for t in tree_leaves(shapes)],
+                        tree_leaves(specs), mesh)
+    of = {id(t): w for t, w in zip(leaves, whole)}
+    return tree_map(lambda t: of[id(t)], tree)
+
+
+def _sum_tree(tree, mesh):
+    """Every leaf summed over the data ranks."""
+    leaves = tree_leaves(tree)
+    of = {id(t): s for t, s in zip(leaves, mesh_sum(leaves, mesh))}
+    return tree_map(lambda t: of[id(t)], tree)
+
+
+def rank_rows(batch, mesh, accum: int = 1):
+    """This rank's microbatches of the global `batch`: microbatch i is
+    the global rows [i*B/accum, (i+1)*B/accum) (the reference's
+    `reshape(accum, ...)`), cut over the data ranks contiguously in rank
+    order (its data-parallel sharding of each microbatch)."""
+    rows = next(iter(batch.values())).shape[0]
+    if rows % accum:
+        raise ValueError(f"a global batch of {rows} rows does not cut into "
+                         f"{accum} microbatches")
+    per = rows // accum
+    mine = local_block((per,), P(dp_axes(mesh)), mesh)[0]
+    return [{k: v[i * per + mine.start:i * per + mine.stop]
+             for k, v in batch.items()} for i in range(accum)]
 
 
 def train_state_from_jax(state, cfg, *, device=None):
@@ -156,8 +241,14 @@ def make_train_step(cfg, mesh=None, *, optimizer_name: str = "adamw",
                     compress: bool = False):
     """Returns (step_fn, init_state, optimizer); init_state(seed, device=)
     builds a fresh state.  With a `mesh`, each step runs inside `with
-    mesh:` (the model code's ambient mesh)."""
+    mesh:` (the model code's ambient mesh).  Over a mesh of ranks
+    step_fn takes the global batch and the state `place`d on the mesh
+    (`state_pspecs`), and returns the rank's new state and the global
+    metrics, equal on every rank."""
     optimizer = get_optimizer(optimizer_name)
+    ranks = mesh if mesh is not None and mesh.ranks is not None else None
+    if ranks is not None:
+        specs, shapes = state_pspecs(cfg, optimizer, ranks, compress)
 
     def step_fn(state, batch) -> Tuple[Dict[str, Any], Dict[str, Any]]:
         with (mesh if mesh is not None else contextlib.nullcontext()):
@@ -165,11 +256,17 @@ def make_train_step(cfg, mesh=None, *, optimizer_name: str = "adamw",
 
     def _step(state, batch) -> Tuple[Dict[str, Any], Dict[str, Any]]:
         params = state["params"]
+        if ranks is not None:
+            mbs = rank_rows(batch, ranks, accum)
+        elif accum > 1:
+            mbs = [{k: v.reshape(accum, v.shape[0] // accum,
+                                 *v.shape[1:])[i] for k, v in batch.items()}
+                   for i in range(accum)]
+        else:
+            mbs = [batch]
         if accum > 1:
             gsum, lsum = None, 0.0
-            for i in range(accum):
-                mb = {k: v.reshape(accum, v.shape[0] // accum,
-                                   *v.shape[1:])[i] for k, v in batch.items()}
+            for mb in mbs:
                 loss, _, g = _loss_and_grads(cfg, params, mb)
                 g = tree_map(lambda t: t.to(torch.float32), g)
                 gsum = g if gsum is None else tree_map(torch.add, gsum, g)
@@ -178,20 +275,45 @@ def make_train_step(cfg, mesh=None, *, optimizer_name: str = "adamw",
             loss = lsum / accum
             metrics = {"ce": loss}
         else:
-            loss, metrics, grads = _loss_and_grads(cfg, params, batch)
+            loss, metrics, grads = _loss_and_grads(cfg, params, mbs[0])
+        if ranks is not None:
+            grads = _sum_tree(grads, ranks)
 
         if compress:
-            grads, new_err = _ef_compress(grads, state["errors"])
+            errors = state["errors"]
+            if ranks is not None:
+                errors = gather(errors, specs["errors"], shapes["errors"],
+                                ranks)
+            grads, new_err = _ef_compress(grads, errors)
+            if ranks is not None:
+                new_err = tree_map(torch.Tensor.clone,
+                                   cut(new_err, specs["errors"], ranks))
         lr = warmup_cosine(state["step"], peak_lr=peak_lr, warmup=warmup,
                            total=total_steps)
-        new_params, new_opt = optimizer.update(grads, state["opt"], params,
-                                               lr)
+        grad_norm = _global_norm(grads)
+        if ranks is None:
+            new_params, new_opt = optimizer.update(grads, state["opt"],
+                                                   params, lr)
+        elif optimizer_name == "adamw":
+            # elementwise given the clip's scale: the rank's blocks
+            mspec = specs["opt"]["m"]
+            blocks, new_opt = optimizer.update(
+                cut(grads, mspec, ranks), state["opt"],
+                cut(params, mspec, ranks), lr, norm=grad_norm)
+            new_params = gather(blocks, mspec, params, ranks)
+        else:
+            # the update needs whole leaves (factored rows and columns,
+            # a leaf's RMS, blocks over the flattened leaf)
+            whole = gather(state["opt"], specs["opt"], shapes["opt"], ranks)
+            new_params, new_opt = optimizer.update(grads, whole, params, lr)
+            new_opt = tree_map(torch.Tensor.clone,
+                               cut(new_opt, specs["opt"], ranks))
         new_state = {"params": new_params, "opt": new_opt,
                      "step": state["step"] + 1}
         if compress:
             new_state["errors"] = new_err
         metrics = dict(metrics)
-        metrics.update(loss=loss, lr=lr, grad_norm=_global_norm(grads))
+        metrics.update(loss=loss, lr=lr, grad_norm=grad_norm)
         return new_state, metrics
 
     def init_state(seed, *, device=None):
