@@ -59,7 +59,11 @@ Phases, each fatal on failure:
                 kimi-k2 [4, 64, 256, 128] over 8 KV heads, n_rep 8;
                 whisper-medium's decoder [4, 16, 256, 64], n_rep 1;
                 llava-next-34b [4, 56, 3072, 128] over 8 KV heads, n_rep
-                7), a "detail" line each;
+                7), and both, with the GEMM, at the tp phase's rank
+                blocks (flash q [8, 6, 256, 64] forward and backward, [4,
+                6, 256, 64] and [4, 20, 256, 128] forward; the GEMM's
+                gate/up columns and down's output block at decode and
+                prefill rows), a "detail" line each;
   3. path    -- one drim-bnn FFN BitLinear pair at full width (768 -> 3072
                 -> 768) on M = 512 activation rows, weights from a seeded
                 numpy generator, each projection served by the native
@@ -257,6 +261,38 @@ Phases, each fatal on failure:
                 straight run at min(4, cards) ranks, a card each; with one
                 card, the NCCL error of two ranks on it
                 (`launch.rank_probe`; a line, not a failure);
+  12c. tp   -- the train phase's run (TRAIN) and the serve phase's legs
+                over a model axis of 2 ranks on the one card: `python -m
+                torch.distributed.run --nproc-per-node 2 chip_smoke.py
+                --tp-worker DIR gloo`, each rank `launch.train.main
+                --model-axis 2` and `launch.serve.run_serve --model-axis
+                2` under torchrun's environment (gloo, both on cuda:0),
+                the (1, 2) mesh of ranks: each rank holds its model block
+                of every param, moment and KV cache by the reference's
+                specs (Megatron's column- and row-parallel products, the
+                vocab-parallel embedding, head and cross-entropy,
+                flash-decoding over the sequence-cut cache).  Training:
+                step 1's loss within TP_STEP1_TOL of the train phase's
+                step 1, every later loss within TP_LOSS_BOUND, a planted
+                fault (rank 1 drops layer 0's wo reduce for 8 steps) past
+                it; flash 24 / 12 / 12 a step on each rank; each rank's
+                param and moment bytes its specs' local bytes (half of
+                one process's for every cut leaf); the 10 + 10 restart
+                bitwise the straight run; the 2-rank checkpoint restored
+                here in one process equal to each rank's blocks; s/step,
+                global tokens/s, peak GB and collective calls, GB and s a
+                step by axis per rank.  Serving (4 x 256, 8 greedy
+                tokens): drim-bnn on "gpu", "gpu --packed" and "cuda
+                --packed", the same tokens on every route and rank (their
+                agreement with the serve phase's, which the BNN's signs
+                undo at full depth, printed); drim-bnn cut to 2 layers
+                ("gpu") and qwen3-14b at 2 of its 40 layers, tokens equal
+                to one process's but where its top two logits lie within
+                TP_LOGIT_TOL, the prefill's last logits within it; each
+                rank's KV cache bytes half of one process's, its launches
+                the one-process leg's ("tp" lines).  With 2 or more
+                cards the training run over NCCL at (1, min(4, cards)), a
+                card a rank; with one card a line;
   12b. train families -- one arch of each remaining family trained at
                 its published width through `launch.train.main` under
                 `--mesh host` and deterministic algorithms
@@ -277,7 +313,8 @@ Phases, each fatal on failure:
                 phase 7, each of phase 8's three legs, phase 9, each of
                 phase 10's five legs, each of phase 11's four legs,
                 each of phase 12's two legs and in each rank each of
-                phase 12a's legs, and read just after each:
+                phase 12a's and phase 12c's legs, and read just after
+                each:
                 phase 3 must launch the three BNN kernels, each serving
                 leg exactly the launches its route implies
                 (`expected_launches`), each of phase 4b's legs the
@@ -301,11 +338,12 @@ Phases, each fatal on failure:
                 kernel on its engines leg, nothing on its mesh leg, the
                 interpreter 6 times on its shims leg and the packer
                 twice, the GEMM and the adder once each on its quickstart
-                leg, phase 12 and in each rank phase 12a per step the
-                flash forward twice per layer (remat) and each backward
-                kernel once per layer, phase 12b per step the flash
-                forward twice per GQA site and each backward kernel once
-                per site (mamba2 and
+                leg, phase 12 and in each rank phases 12a and 12c per
+                step the flash forward twice per layer (remat) and each
+                backward kernel once per layer, each rank's phase 12c
+                serving legs the launches of their one-process legs,
+                phase 12b per step the flash forward twice per GQA site
+                and each backward kernel once per site (mamba2 and
                 deepseek-v3 none, zamba2 6 sites, whisper 24, llava 2),
                 and its repeat legs two steps' worth; a counter a leg
                 does not name must stay 0; and
@@ -452,8 +490,12 @@ TRAIN_REF_TOL = {"qwen3-14b": 1e-4, "mamba2-130m": 1e-2,
                  "zamba2-1.2b": 5e-2, "deepseek-v3-671b": 1e-4,
                  "kimi-k2-1t-a32b": 1e-4, "whisper-medium": 1e-4,
                  "llava-next-34b": 1e-4}
+SERVE_GEN = 8
 SERVE = ["--arch", "drim-bnn", "--batch", "4", "--prompt-len", "256",
-         "--gen", "8", "--seed", str(SEED), "--temperature", "0"]
+         "--gen", str(SERVE_GEN), "--seed", str(SEED), "--temperature", "0"]
+SERVE_LEGS = {"gpu dense": ["--engine", "gpu"],
+              "gpu packed": ["--engine", "gpu", "--packed"],
+              "cuda packed": ["--engine", "cuda", "--packed"]}
 # The families phase: the SSM, hybrid, dense, MoE, audio and vlm archs
 # served at full width (arch, depth cut or 0 for the published depth,
 # prompt length, flash launches of the one aligned prefill: a GQA
@@ -542,6 +584,10 @@ VERIFY_WALLS: list = []
 SERVED: dict = {}
 # the train phase's per-step losses, which the ranks phase is held to
 TRAINED: dict = {}
+# the one-process serving legs the tp phase is held to: drim-bnn's "gpu
+# dense" and the families phase's qwen3-14b (tokens, prefill logits and
+# each token's top-two logit gap: `tap_values`)
+ONE_PROCESS: dict = {}
 CHAOS_DISARMED: dict = {}
 ARMED_KILL = "mid-graph kill"
 TRACE_DIR = ROOT / "build"
@@ -792,7 +838,13 @@ def phase_kernels(rng):
                    ("decode", 4, d_ff, d_model), ("decode", 4, d_model, d_ff),
                    ("prefill", 1024, d_ff, d_model),
                    ("prefill", 1024, d_model, d_ff),
-                   ("ragged", 100, 77, 700), ("ragged", 17, 9, 1)]
+                   ("ragged", 100, 77, 700), ("ragged", 17, 9, 1),
+                   # the tp phase's rank blocks: gate and up's columns,
+                   # down's output block over its gathered input
+                   ("tp decode", 4, d_ff // TP, d_model),
+                   ("tp decode", 4, d_model // TP, d_ff),
+                   ("tp prefill", 1024, d_ff // TP, d_model),
+                   ("tp prefill", 1024, d_model // TP, d_ff)]
     for use, m, n, k in gemm_shapes:
         w = -(-k // 32)
         a = torch.from_numpy(rng.integers(-2**31, 2**31, (m, w),
@@ -1112,7 +1164,15 @@ def phase_flash(rng):
         (4, 64, 8, 256, 256, 128, 128, 128, True, torch.bfloat16),
         (4, 16, 16, 256, 256, 64, 128, 128, True, torch.bfloat16),
         (4, 56, 8, 3072, 3072, 128, 128, 128, True, torch.bfloat16),
-        *FLASH_BF16_EDGES]
+        *FLASH_BF16_EDGES,
+        # the tp phase's rank heads (TP ranks): the drim-bnn training
+        # step and prefill, qwen3-14b's prefill
+        (8, 12 // TP, 4 // TP, 256, 256, 64, 128, 128, True,
+         torch.bfloat16),
+        (4, 12 // TP, 4 // TP, 256, 256, 64, 128, 128, True,
+         torch.bfloat16),
+        (4, 40 // TP, 8 // TP, 256, 256, 128, 128, 128, True,
+         torch.bfloat16)]
     record = None
     for b, h, hkv, sq, sk, d, bq, bk, causal, dt in cases:
         q, k, v = (torch.from_numpy(rng.standard_normal(
@@ -1184,7 +1244,9 @@ def phase_flash_bwd(rng):
         (1, 4, 1, 64, 192, 128, True, torch.float32),
         (1, 2, 2, 256, 256, 32, False, torch.float32),
         *(c[:6] + c[8:] for c in FLASH_BF16_EDGES),
-        *FLASH_BWD_FAMILIES]
+        *FLASH_BWD_FAMILIES,
+        # the tp phase's training step on each of its TP ranks' heads
+        (8, 12 // TP, 4 // TP, 256, 256, 64, True, torch.bfloat16)]
     records = {}
     for b, h, hkv, sq, sk, d, causal, dt in cases:
         q, k, v, do = (torch.from_numpy(rng.standard_normal(
@@ -2127,6 +2189,55 @@ def serve_line(leg: str, stats, verified) -> None:
     print("serve " + json.dumps(line))
 
 
+def serve_launches(cfg, args):
+    """`expected_launches` of a static serving leg of SERVE_GEN tokens:
+    the prefill, then on the native packed route the bit-exactness
+    check's packed step and every decode step (the warm-up included);
+    the DRIM route decodes on the fleet."""
+    native = 0 if not args.packed else 2 + (
+        SERVE_GEN if args.engine == "gpu" else 0)
+    return expected_launches(
+        cfg, packed=args.packed, native_fwd=native,
+        drim_steps=SERVE_GEN if args.engine == "cuda" else 0, aligned=1)
+
+
+@contextlib.contextmanager
+def logits_tap():
+    """Record, without a host sync, the logits of the serving loop's
+    prefill and the top-two gap of each decode call's logits (the warm-up
+    step's first); yields {"prefill": [...], "gaps": [...]}."""
+    from repro_torch.launch import batching, serve
+    tap = {"prefill": [], "gaps": []}
+    prefill, decode = serve.prefill, batching.decode_step
+
+    def tapped_prefill(*args, **kw):
+        lg, caches = prefill(*args, **kw)
+        tap["prefill"].append(lg.detach().clone())
+        return lg, caches
+
+    def tapped_decode(*args, **kw):
+        lg, caches = decode(*args, **kw)
+        top = lg[:, -1].topk(2, -1).values
+        tap["gaps"].append(top[:, 0] - top[:, 1])
+        return lg, caches
+    serve.prefill, batching.decode_step = tapped_prefill, tapped_decode
+    try:
+        yield tap
+    finally:
+        serve.prefill, batching.decode_step = prefill, decode
+
+
+def tap_values(tap):
+    """A tap's prefill logits [B, V] and the top-two gap of every
+    generated token's logits [B, gen] (token 0 from the prefill, token t
+    from decode call t: call 0 is the warm-up of token 1), on the host."""
+    lg = tap["prefill"][0][:, -1].float().cpu()
+    top = lg.topk(2, -1).values
+    gaps = [top[:, 0] - top[:, 1]] + [g.float().cpu()
+                                      for g in tap["gaps"][1:]]
+    return {"prefill": lg, "gaps": torch.stack(gaps, 1)}
+
+
 def expected_launches(cfg, *, packed: bool, native_fwd: int,
                       drim_steps: int, aligned: int):
     """The launches a serving leg must make: flash once per layer per
@@ -2226,25 +2337,19 @@ def phase_serve(wrappers):
     batcher on two routes.  Each leg's launches are counted on their own;
     returns them by leg."""
     from repro_torch.launch import serve
-    legs = {"gpu dense": ["--engine", "gpu"],
-            "gpu packed": ["--engine", "gpu", "--packed"],
-            "cuda packed": ["--engine", "cuda", "--packed"]}
+    legs = SERVE_LEGS
     cfg = serve.build_cfg(serve.parse_args(SERVE))
-    n_gen = 8
-    # native forwards of a static leg: the prefill, then on the native
-    # packed route the bit-exactness check's packed step and every decode
-    # step (the warm-up included); the DRIM route decodes on the fleet
-    native = {"gpu dense": 0, "gpu packed": 2 + n_gen, "cuda packed": 2}
+    n_gen = SERVE_GEN
     gens, counts = {}, {}
     for leg, extra in legs.items():
         args = serve.parse_args(SERVE + extra)
         mark = verify_mark()
-        (gen, stats), counts[leg] = counted(
-            wrappers, leg, lambda: serve.run_serve(args),
-            lambda _, leg=leg, args=args: expected_launches(
-                cfg, packed=args.packed, native_fwd=native[leg],
-                drim_steps=n_gen if args.engine == "cuda" else 0,
-                aligned=1))
+        with logits_tap() as tap:
+            (gen, stats), counts[leg] = counted(
+                wrappers, leg, lambda: serve.run_serve(args),
+                lambda _, args=args: serve_launches(cfg, args))
+        if leg == "gpu dense":
+            ONE_PROCESS["drim-bnn"] = {"gen": gen, **tap_values(tap)}
         if gen.shape != (4, n_gen) or gen.min() < 0 \
                 or gen.max() >= cfg.vocab_size:
             raise AssertionError(f"{leg}: bad token ids {gen.tolist()}")
@@ -2911,6 +3016,14 @@ def check_served(leg: str, gen, cfg, flags, n_gen: int, n_calls: int):
                              f"{n_calls}), finite {[bool(f) for f in flags]}")
 
 
+def family_argv(arch: str, layers: int, prompt: int):
+    """The families phase's serve flags of a leg (FAMILIES)."""
+    argv = ["--arch", arch, "--batch", str(FAMILY_BATCH), "--prompt-len",
+            str(prompt), "--gen", str(FAMILY_GEN), "--seed", str(SEED),
+            "--temperature", "0"]
+    return argv + (["--layers", str(layers)] if layers else [])
+
+
 def attention_sites(cfg) -> int:
     """GQA attention sites of a prefill or a training forward, each one
     flash launch where the sequence is block-aligned: a layer each in the
@@ -2939,12 +3052,7 @@ def phase_families(wrappers):
     counts = {}
     mamba_params = None
     for arch, layers, prompt, n_flash in FAMILIES:
-        argv = ["--arch", arch, "--batch", str(FAMILY_BATCH),
-                "--prompt-len", str(prompt), "--gen", str(FAMILY_GEN),
-                "--seed", str(SEED), "--temperature", "0"]
-        if layers:
-            argv += ["--layers", str(layers)]
-        args = serve.parse_args(argv)
+        args = serve.parse_args(family_argv(arch, layers, prompt))
         cfg = serve.build_cfg(args)
         sites = attention_sites(cfg)
         if sites != n_flash:
@@ -2955,12 +3063,15 @@ def phase_families(wrappers):
         torch.cuda.synchronize()
         init_s = time.perf_counter() - t0
         leg = f"families {arch}"
-        with finite_logits() as flags, ep_calls() as eps:
+        with finite_logits() as flags, ep_calls() as eps, \
+                logits_tap() as tap:
             (gen, stats), counts[leg] = counted(
                 wrappers, leg,
                 lambda args=args, params=params: serve.run_serve(
                     args, params=params),
                 lambda _, n=n_flash: {"flash_attn_fwd": n} if n else {})
+        if arch == "qwen3-14b":
+            ONE_PROCESS[arch] = {"gen": gen, **tap_values(tap)}
         # under the default --mesh host every MoE prefill layer takes EP
         # with one model shard; decode (S == 1) never does
         want_eps = ([{"data": 1, "model": 1}] * cfg.n_layers
@@ -3680,17 +3791,21 @@ def sha_of(t: torch.Tensor) -> str:
                           .view(torch.uint8).numpy().tobytes()).hexdigest()
 
 
-def ranks_worker(out: str, kind: str) -> int:
-    """One rank of the ranks phase, started by torchrun
-    (`chip_smoke.py --ranks-worker OUT KIND`, KIND "gloo" or "nccl"):
-    the legs through `launch.train.main` under deterministic algorithms
-    (`init_ranks` reads torchrun's environment): "straight" (TRAIN with
-    checkpoints in OUT/straight), then for KIND "gloo" the
+def ranks_worker(out: str, kind: str, model_axis: int = 1) -> int:
+    """One rank of the ranks phase (`model_axis` 1) or of the tp phase
+    (TP), started by torchrun (`chip_smoke.py --ranks-worker OUT KIND` or
+    `--tp-worker OUT KIND`, KIND "gloo" or "nccl"): the legs through
+    `launch.train.main --model-axis model_axis` under deterministic
+    algorithms (`init_ranks` reads torchrun's environment): "straight"
+    (TRAIN with checkpoints in OUT/straight), then for KIND "gloo" the
     "restart" (the step-RESTART_AT checkpoint, --resume, to the end in
-    OUT/resumed) and the "planted" fault (RANKS_PLANTED_STEPS steps, rank
-    1's gradients zeroed before the sum).  Each leg's launches, collective
-    calls, bytes and seconds (apart from the checkpoint's gathers), peak
-    bytes and printed lines go to OUT/rank<r>_<leg>.json."""
+    OUT/resumed) and the "planted" fault (RANKS_PLANTED_STEPS steps: over
+    data ranks rank 1's gradients zeroed before the sum, over a model
+    axis rank 1 skipping layer 0's wo reduce); over a model axis and
+    gloo, then the tp serve legs (`tp_serve_legs`).  Each leg's launches,
+    collective calls, bytes and seconds in all and by axis (apart from
+    the checkpoint's gathers), peak bytes and printed lines go to
+    OUT/rank<r>_<leg>.json."""
     import shutil
     from repro_torch.core import mesh as core_mesh
     from repro_torch.core.mesh import local_shape
@@ -3698,18 +3813,19 @@ def ranks_worker(out: str, kind: str) -> int:
     from repro_torch.launch.mesh import init_ranks
     from repro_torch.optim import get_optimizer
     from repro_torch.runtime import steps
-    from repro_torch.tree import tree_leaves, tree_map
+    from repro_torch.tree import tree_leaves
     torch.backends.cuda.matmul.allow_tf32 = False
     ranks = init_ranks(train.parse_args(TRAIN).device)
     wrappers = kernel_wrappers()
-    mesh = train.cli_mesh("host", ranks.device, ranks)
-    legs = [("straight", TRAIN + ["--ckpt-dir", f"{out}/straight"])]
+    mesh = train.cli_mesh("host", ranks.device, ranks, model_axis)
+    axis = ["--model-axis", str(model_axis)]
+    legs = [("straight", TRAIN + axis + ["--ckpt-dir", f"{out}/straight"])]
     if kind == "gloo":
         planted = list(TRAIN)
         planted[planted.index("--steps") + 1] = str(RANKS_PLANTED_STEPS)
-        legs += [("restart", TRAIN + ["--ckpt-dir", f"{out}/resumed",
-                                      "--resume"]),
-                 ("planted", planted)]
+        legs += [("restart", TRAIN + axis + ["--ckpt-dir", f"{out}/resumed",
+                                             "--resume"]),
+                 ("planted", planted + axis)]
     try:
         for leg, argv in legs:
             if leg == "restart":
@@ -3721,51 +3837,23 @@ def ranks_worker(out: str, kind: str) -> int:
                     with open(f"{out}/resumed/LATEST", "w") as f:
                         f.write(str(RESTART_AT))
                 core_mesh.mesh_barrier(mesh)
-            for fn in wrappers.values():
-                fn.launches = 0
-            stats0 = dict(core_mesh.COLLECTIVE_STATS)
-            gathers = {"s": 0.0}
-            gather, sum_tree = train.gather, steps._sum_tree
-
-            def timed_gather(*a, **kw):
-                t0 = time.perf_counter()
-                try:
-                    return gather(*a, **kw)
-                finally:
-                    gathers["s"] += time.perf_counter() - t0
-
-            def leave_out(tree, m):
-                if m.rank == 1:
-                    tree = tree_map(torch.zeros_like, tree)
-                return sum_tree(tree, m)
-            train.gather = timed_gather
-            if leg == "planted":
-                steps._sum_tree = leave_out
-            torch.cuda.reset_peak_memory_stats()
-            text = io.StringIO()
-            try:
-                with deterministic(), trainer_spy(train) as seen, \
-                        contextlib.redirect_stdout(text):
-                    train.main(argv)
-            finally:
-                train.gather, steps._sum_tree = gather, sum_tree
-            torch.cuda.synchronize()
-            stats = {k: core_mesh.COLLECTIVE_STATS[k] - stats0[k]
-                     for k in stats0}
-            record = {
-                "rank": ranks.rank, "world_size": ranks.world,
-                "backend": ranks.backend, "device": str(ranks.device),
-                "launches": {n: fn.launches for n, fn in wrappers.items()},
-                "collective": stats, "checkpoint_gather_s": gathers["s"],
-                "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
-                "losses": seen["losses"],
-                "lines": [json.loads(line) for line in
-                          text.getvalue().splitlines()
-                          if line.startswith("{")]}
+            plant = (planted_fault(model_axis)
+                     if leg == "planted" and ranks.rank == 1
+                     else contextlib.nullcontext())
+            record, seen = train_leg(ranks, wrappers, argv, plant)
             if leg == "straight":
                 state = seen["state"]
                 opt = get_optimizer("adamw")
                 specs, shapes = steps.state_pspecs(seen["cfg"], opt, mesh)
+
+                def local_bytes(part, keys):
+                    return sum(
+                        np.prod(local_shape(tuple(t.shape), sp, mesh))
+                        * t.element_size() for k in keys for t, sp in
+                        zip(tree_leaves(shapes[part][k] if k else
+                                        shapes[part]),
+                            tree_leaves(specs[part][k] if k else
+                                        specs[part])))
 
                 def nbytes(tree):
                     return sum(t.numel() * t.element_size()
@@ -3776,18 +3864,107 @@ def ranks_worker(out: str, kind: str) -> int:
                     moment_bytes_one_process=4 * sum(
                         t.numel() for k in ("m", "v")
                         for t in tree_leaves(shapes["opt"][k])),
-                    moment_bytes_of_specs=4 * sum(
-                        np.prod(local_shape(tuple(t.shape), sp, mesh))
-                        for k in ("m", "v") for t, sp in
-                        zip(tree_leaves(shapes["opt"][k]),
-                            tree_leaves(specs["opt"][k]))),
+                    moment_bytes_of_specs=local_bytes("opt", ("m", "v")),
+                    param_bytes=nbytes(state["params"]),
+                    param_bytes_one_process=nbytes(shapes["params"]),
+                    param_bytes_of_specs=local_bytes("params", (None,)),
+                    replicated_param_bytes=sum(
+                        t.numel() * t.element_size() for t, sp in
+                        zip(tree_leaves(shapes["params"]),
+                            tree_leaves(specs["params"]))
+                        if all(e is None for e in sp)),
                     hashes={p: sha_of(t) for p, t in flat_leaves(state)})
             with open(os.path.join(out, f"rank{ranks.rank}_{leg}.json"),
                       "w") as f:
                 json.dump(record, f, default=float)
+        if model_axis > 1 and kind == "gloo":
+            tp_serve_legs(out, ranks, wrappers)
     finally:
         ranks.close()
     return 0
+
+
+def train_leg(ranks, wrappers, argv, plant):
+    """`train.main(argv)` on this rank under deterministic algorithms and
+    `plant` (a context: the planted fault, or nothing), with the launch
+    counters zeroed first; returns (the leg's record, `trainer_spy`'s
+    dict).  The checkpoint's gathers are timed apart."""
+    from repro_torch.core import mesh as core_mesh
+    from repro_torch.launch import train
+    for fn in wrappers.values():
+        fn.launches = 0
+    stats0 = dict(core_mesh.COLLECTIVE_STATS)
+    gathers = {"s": 0.0}
+    gather = train.gather
+
+    def timed_gather(*a, **kw):
+        t0 = time.perf_counter()
+        try:
+            return gather(*a, **kw)
+        finally:
+            gathers["s"] += time.perf_counter() - t0
+    train.gather = timed_gather
+    torch.cuda.reset_peak_memory_stats()
+    text = io.StringIO()
+    try:
+        with deterministic(), trainer_spy(train) as seen, plant, \
+                contextlib.redirect_stdout(text):
+            train.main(argv)
+    finally:
+        train.gather = gather
+    torch.cuda.synchronize()
+    record = {
+        "rank": ranks.rank, "world_size": ranks.world,
+        "backend": ranks.backend, "device": str(ranks.device),
+        "launches": {n: fn.launches for n, fn in wrappers.items()},
+        "collective": {k: v - stats0.get(k, 0)
+                       for k, v in core_mesh.COLLECTIVE_STATS.items()},
+        "checkpoint_gather_s": gathers["s"],
+        "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+        "losses": seen["losses"],
+        "lines": [json.loads(line) for line in text.getvalue().splitlines()
+                  if line.startswith("{")]}
+    return record, seen
+
+
+@contextlib.contextmanager
+def planted_fault(model_axis: int):
+    """This rank's planted fault: over data ranks its gradients zeroed
+    before the sum; over a model axis its layer-0 `wo` product left as
+    its own partial (the reduce still runs, so the ranks' collectives
+    stay matched, and its result is dropped).  Layer 0's leaves are the
+    stacked leaves' first views, at storage offset 0."""
+    from repro_torch.models import attention, layers
+    from repro_torch.runtime import steps
+    from repro_torch.tree import tree_map
+    if model_axis == 1:
+        sum_tree = steps._sum_tree
+        steps._sum_tree = lambda tree, m: sum_tree(
+            tree_map(torch.zeros_like, tree), m)
+        try:
+            yield
+        finally:
+            steps._sum_tree = sum_tree
+        return
+    out_fn, reduce = attention._out, layers.reduce_from_model
+
+    def skipped(x, mesh):
+        reduce(x, mesh)
+        return x
+
+    def faulty_out(p, cfg, out):
+        if p["wo"]["kernel"].storage_offset():       # not layer 0
+            return out_fn(p, cfg, out)
+        layers.reduce_from_model = skipped
+        try:
+            return out_fn(p, cfg, out)
+        finally:
+            layers.reduce_from_model = reduce
+    attention._out = faulty_out
+    try:
+        yield
+    finally:
+        attention._out = out_fn
 
 
 def check_rank_leg(records, leg: str, n_steps: int):
@@ -3966,6 +4143,375 @@ def phase_ranks_nccl(tmp: str, one) -> None:
     if recs[0]["backend"] != "nccl" or gaps[0] > RANKS_STEP1_TOL \
             or max(gaps[1:]) > RANKS_LOSS_BOUND:
         raise AssertionError(f"ranks nccl: {recs[0]['backend']}, {gaps}")
+
+
+# The tp phase: the train phase's run (TRAIN) and the serve phase's legs
+# over a model axis of TP ranks, `--model-axis TP` on the (1, TP) host
+# mesh of ranks, a process each on the one card over gloo (torchrun runs
+# `chip_smoke.py --tp-worker DIR gloo`).  Each rank holds its model block
+# of every param and moment, so the forward differs from one process's
+# in float order (the row products' partials summed in float32, then
+# rounded to bfloat16) and in the vocab-parallel CE's.  Step 1 within
+# TP_STEP1_TOL of the train phase's step 1, every later step within
+# TP_LOSS_BOUND; the planted fault (rank 1 drops layer 0's wo reduce for
+# RANKS_PLANTED_STEPS steps) must pass the bound.  On the CPU (this
+# script's tp worker with "cuda" replaced by the CPU, drim-bnn at
+# d_model 384, 6 heads over 2 KV heads, d_ff 1536, 6 layers, 8 x 256,
+# 20 steps) the gaps were 1.17e-3 at step 1 and at most 5.44e-3 over 20
+# steps; the planted fault's 0.103 at step 3, 0.192 at step 8.
+TP = 2
+TP_STEP1_TOL = 1e-2
+TP_LOSS_BOUND = 2e-2
+TP_TIMEOUT_S = 420
+# The serving legs (`tp_serve_argvs`): drim-bnn on the serve phase's
+# three routes at full depth, whose tokens must be the same on every
+# route and rank; and, held to one process's, drim-bnn cut to 2 layers
+# ("gpu") and qwen3-14b at 2 layers (the families phase's leg): tokens
+# equal but from a row's first differing token on, where one process's
+# top two logits there lie within TP_LOGIT_TOL (a near tie that float
+# order may flip), and the prefill's last logits within TP_LOGIT_TOL,
+# about four times the largest CPU reading of bfloat16 prefills at full
+# width and 2 layers.  At drim-bnn's full depth the BNN's signs amplify
+# float order (this phase's worker on the CPU: 12 layers moved them by
+# 1.30 against an RMS of 0.28), so there the legs against one process
+# are a reading, not a bound.
+TP_LOGIT_TOL = 0.1
+
+
+def tp_serve_argvs():
+    """{leg: serve flags} of the tp phase's serving legs."""
+    legs = {leg: SERVE + extra for leg, extra in SERVE_LEGS.items()}
+    legs["drim-bnn 2 layers"] = SERVE + SERVE_LEGS["gpu dense"] \
+        + ["--layers", "2"]
+    legs["qwen3-14b"] = family_argv("qwen3-14b", 2, 256)
+    return legs
+
+
+def tp_serve_legs(out: str, ranks, wrappers) -> None:
+    """The tp phase's serving legs on this rank (`tp_serve_argvs`)
+    through `serve.run_serve --model-axis TP`, each
+    with its launch counts, tokens, prefill logits and top-two gaps
+    (`tap_values`), decode cache bytes and peak bytes ->
+    OUT/rank<r>_serve.pt."""
+    from repro_torch.launch import serve
+    from repro_torch.tree import tree_leaves
+    legs = tp_serve_argvs()
+    res = {}
+    splice = serve.splice_rank_caches
+    for leg, argv in legs.items():
+        args = serve.parse_args(argv + ["--model-axis", str(TP)])
+        caches = []
+
+        def spy(*a, **kw):
+            caches.append(splice(*a, **kw))
+            return caches[-1]
+        for fn in wrappers.values():
+            fn.launches = 0
+        torch.cuda.reset_peak_memory_stats()
+        serve.splice_rank_caches = spy
+        try:
+            with logits_tap() as tap:
+                gen, stats = serve.run_serve(args)
+        finally:
+            serve.splice_rank_caches = splice
+        torch.cuda.synchronize()
+        res[leg] = {"gen": gen, "stats": stats, **tap_values(tap),
+                    "launches": {n: fn.launches
+                                 for n, fn in wrappers.items()},
+                    "cache_bytes": sum(t.numel() * t.element_size()
+                                       for t in tree_leaves(caches[0])),
+                    "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+        del caches
+        torch.cuda.empty_cache()
+    torch.save(res, os.path.join(out, f"rank{ranks.rank}_serve.pt"))
+
+
+def tp_bytes_check(r) -> dict:
+    """A tp rank's param and moment bytes: its specs' local bytes, and
+    half of one process's for every cut leaf (the replicated leaves
+    whole: the norms' scales; a moment is float32 like its param)."""
+    rep = r["replicated_param_bytes"]
+    got = {"param_bytes": r["param_bytes"],
+           "param_bytes_of_specs": r["param_bytes_of_specs"],
+           "param_bytes_one_process": r["param_bytes_one_process"],
+           "moment_bytes": r["moment_bytes"],
+           "moment_bytes_of_specs": r["moment_bytes_of_specs"],
+           "moment_bytes_one_process": r["moment_bytes_one_process"],
+           "replicated_param_bytes": rep}
+    if not (r["param_bytes"] == r["param_bytes_of_specs"]
+            and TP * (r["param_bytes"] - rep)
+            == r["param_bytes_one_process"] - rep
+            and r["moment_bytes"] == r["moment_bytes_of_specs"]
+            and TP * (r["moment_bytes"] - 2 * rep)
+            == r["moment_bytes_one_process"] - 2 * rep):
+        raise AssertionError(f"tp: rank {r['rank']}'s bytes {got}")
+    return got
+
+
+def by_axis(coll, steps: int):
+    """A leg's collective calls, GB and seconds a step by axis."""
+    return {axis: {"calls": coll.get(f"calls:{axis}", 0) / steps,
+                   "gb": coll.get(f"bytes:{axis}", 0) / 1e9 / steps,
+                   "s": coll.get(f"seconds:{axis}", 0.0) / steps}
+            for axis in ("data", "model", "data+model")
+            if coll.get(f"calls:{axis}", 0)}
+
+
+def first_difference_ok(leg: str, got, want, gaps) -> list:
+    """Tokens [B, gen] equal to one process's, but that a row may differ
+    from its first differing token on, where one process's top two
+    logits there lie within TP_LOGIT_TOL; returns the differing (row,
+    token, gap)s."""
+    got, want = np.asarray(got), np.asarray(want)
+    if got.shape != want.shape:
+        raise AssertionError(f"tp {leg}: tokens {got.shape} vs "
+                             f"{want.shape}")
+    ties = []
+    for b in range(got.shape[0]):
+        differ = np.nonzero(got[b] != want[b])[0]
+        if len(differ):
+            t = int(differ[0])
+            gap = float(gaps[b, t])
+            if gap > TP_LOGIT_TOL:
+                raise AssertionError(
+                    f"tp {leg}: row {b} token {t} is {got[b, t]}, one "
+                    f"process {want[b, t]} (top-two gap {gap})")
+            ties.append((b, t, gap))
+    return ties
+
+
+def phase_tp(wrappers):
+    """The train phase's run and the serve phase's legs over a model axis
+    of TP gloo ranks on the one card (`ranks_worker` and `tp_serve_legs`
+    under torchrun, the (1, TP) mesh), held to the one-process runs:
+    step 1 within TP_STEP1_TOL, every later step within TP_LOSS_BOUND,
+    the planted fault past it; each rank's flash launches 24 / 12 / 12 a
+    step (q [8, 6, 256, 64], n_rep 3); each rank's param and moment bytes
+    its specs' (half of one process's for every cut leaf); the 10 + 10
+    restart bitwise the straight 20 steps; the TP-rank checkpoint
+    restored here (one process) equal to each rank's blocks; the serving
+    legs (`check_tp_serving`; first the one-process drim-bnn cut to 2
+    layers here).  Then NCCL at (1, min(4, cards)) where 2 or more cards
+    show.  Returns the ranks' launches (straight, restart and serving
+    legs, summed)."""
+    from repro_torch.checkpoint.checkpoint import Checkpointer
+    from repro_torch.core.mesh import local_block, make_named_mesh
+    from repro_torch.launch import serve, train
+    from repro_torch.optim import get_optimizer
+    from repro_torch.runtime import steps
+    one = TRAINED["losses"]
+    args = train.parse_args(TRAIN)
+    t_phase = time.perf_counter()
+    cut = serve.parse_args(tp_serve_argvs()["drim-bnn 2 layers"])
+    with logits_tap() as tap:
+        gen, _ = serve.run_serve(cut)
+    ONE_PROCESS["drim-bnn 2 layers"] = {"gen": gen, **tap_values(tap)}
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory(prefix="drim_tp_") as tmp:
+        rc, out, err, wall = torchrun(TP, ["--tp-worker", tmp, "gloo"],
+                                      TP_TIMEOUT_S)
+        if rc != 0:
+            raise AssertionError(f"tp: torchrun exited {rc}:\n"
+                                 f"{out[-2000:]}\n{err[-4000:]}")
+        legs = {leg: [json.load(open(f"{tmp}/rank{r}_{leg}.json"))
+                      for r in range(TP)]
+                for leg in ("straight", "restart", "planted")}
+        straight = check_rank_leg(legs["straight"], "tp straight",
+                                  TRAIN_STEPS)
+        resumed = check_rank_leg(legs["restart"], "tp restart",
+                                 TRAIN_STEPS - RESTART_AT)
+        planted = check_rank_leg(legs["planted"], "tp planted",
+                                 RANKS_PLANTED_STEPS)
+        gaps, planted_gaps = loss_gaps(straight, one), loss_gaps(planted,
+                                                                 one)
+        recs = legs["straight"]
+        lines = [line for line in recs[0]["lines"] if "step" in line]
+        s_step = (lines[-1]["wall_s"] - lines[0]["wall_s"]) \
+            / (TRAIN_STEPS - 1)
+        print("tp " + json.dumps({
+            "backend": recs[0]["backend"], "mesh": {"data": 1, "model": TP},
+            "devices": [r["device"] for r in recs], "steps": TRAIN_STEPS,
+            "s_per_step": s_step,
+            "global_tokens_per_s": args.batch * args.seq / s_step,
+            "first_step_s": lines[0]["wall_s"],
+            "losses": straight, "one_process_losses": one,
+            "loss_gaps": gaps, "step1_tol": TP_STEP1_TOL,
+            "loss_bound": TP_LOSS_BOUND, "torchrun_wall_s": wall}))
+        for r in recs:
+            coll = r["collective"]
+            print("tp " + json.dumps({
+                "rank": r["rank"], "device": r["device"],
+                "peak_gb": r["peak_gb"],
+                "collective_calls_per_step": coll["calls"] / TRAIN_STEPS,
+                "collective_gb_per_step": coll["bytes"] / 1e9 / TRAIN_STEPS,
+                "collective_s_per_step": (coll["seconds"]
+                                          - r["checkpoint_gather_s"])
+                / TRAIN_STEPS,
+                "by_axis_per_step": by_axis(coll, TRAIN_STEPS),
+                "checkpoint_gather_s": r["checkpoint_gather_s"],
+                **tp_bytes_check(r)}))
+        if gaps[0] > TP_STEP1_TOL or max(gaps[1:]) > TP_LOSS_BOUND:
+            raise AssertionError(f"tp: losses {straight} against one "
+                                 f"process's {one}")
+        if max(planted_gaps) <= TP_LOSS_BOUND:
+            raise AssertionError(f"tp: the planted fault stayed inside the "
+                                 f"bound: {planted_gaps}")
+        print("tp " + json.dumps({
+            "planted": "rank 1 drops layer 0's wo reduce",
+            "steps": RANKS_PLANTED_STEPS, "loss_gaps": planted_gaps,
+            "over_the_bound": True}))
+        if resumed != straight[RESTART_AT:]:
+            raise AssertionError(f"tp: the restart's losses {resumed}")
+        step_dir = f"step_{TRAIN_STEPS:09d}"
+        for name in os.listdir(f"{tmp}/straight/{step_dir}"):
+            a = open(f"{tmp}/straight/{step_dir}/{name}", "rb").read()
+            b = open(f"{tmp}/resumed/{step_dir}/{name}", "rb").read()
+            if a != b:
+                raise AssertionError(f"tp: the restart's {name} differs")
+        cfg = train.build_cfg(args)
+        like = steps.abstract_train_state(cfg, get_optimizer("adamw"))
+        whole = Checkpointer(f"{tmp}/straight").restore(TRAIN_STEPS, like,
+                                                        device="cpu")
+        here = dataclasses.replace(
+            make_named_mesh((1, TP), ("data", "model"),
+                            [torch.device("cpu")] * TP),
+            ranks=np.arange(TP).reshape(1, TP))
+        specs = steps.state_pspecs(cfg, get_optimizer("adamw"), here)[0]
+        cut = dict(zip((p for p, _ in flat_leaves(whole)),
+                       (sp for _, sp in flat_leaves(specs))))
+        for r in recs:
+            differ = [p for p, t in flat_leaves(whole)
+                      if sha_of(t[local_block(tuple(t.shape), cut[p], here,
+                                              r["rank"])])
+                      != r["hashes"][p]]
+            if differ or len(r["hashes"]) != len(cut):
+                raise AssertionError(f"tp: rank {r['rank']}'s state "
+                                     f"differs from the checkpoint in "
+                                     f"{differ[:3]}")
+        print("tp " + json.dumps({
+            "restart": f"{RESTART_AT} + checkpoint + "
+                       f"{TRAIN_STEPS - RESTART_AT} steps over a model "
+                       f"axis of {TP}", "bit_identical_to_straight_run": True,
+            "checkpoint_leaves": len(cut),
+            "restored_in_one_process_equals_each_rank": True}))
+        served = [torch.load(f"{tmp}/rank{r}_serve.pt", weights_only=False)
+                  for r in range(TP)]
+        serve_counts = check_tp_serving(served)
+        phase_tp_nccl(tmp, one)
+    counts = {n: sum(r["launches"][n] for leg in ("straight", "restart")
+                     for r in legs[leg]) + serve_counts[n] for n in wrappers}
+    print("tp " + json.dumps({"phase_wall_s":
+                              time.perf_counter() - t_phase}))
+    print("counts " + json.dumps({"phase": "tp", **counts}))
+    return counts
+
+
+def tp_launches(cfg, args):
+    """A tp serving leg's launches on each rank: its one-process leg's
+    (`serve_launches`; qwen3-14b's the flash forward once a layer)."""
+    if cfg.arch == "drim-bnn":
+        return serve_launches(cfg, args)
+    return {"flash_attn_fwd": cfg.n_layers}
+
+
+def check_tp_serving(served) -> dict:
+    """The tp serving legs of every rank: the same tokens on every rank;
+    drim-bnn's full-depth routes the same tokens as its "gpu dense" leg
+    (and their agreement with one process's, a reading); the cut legs
+    held to one process's (ONE_PROCESS, `first_difference_ok`, the
+    prefill logits within TP_LOGIT_TOL); each rank's decode cache bytes
+    1 / TP of one process's and its launches the one-process leg's.
+    Returns the launches summed over the legs and ranks."""
+    from repro_torch.launch import serve
+    from repro_torch.models import abstract_caches
+    from repro_torch.tree import tree_leaves
+    total = {}
+    for leg, argv in tp_serve_argvs().items():
+        args = serve.parse_args(argv)
+        cfg = serve.build_cfg(args)
+        one_cache = sum(t.numel() * t.element_size() for t in tree_leaves(
+            abstract_caches(cfg, args.batch, args.prompt_len + args.gen)))
+        launches = tp_launches(cfg, args)
+        first = served[0][leg]
+        launches = {n: launches.get(n, 0) for n in first["launches"]}
+        for r, res in enumerate(served):
+            got = res[leg]
+            if got["launches"] != launches:
+                raise AssertionError(f"tp {leg} rank {r}: launches "
+                                     f"{got['launches']}, expected "
+                                     f"{launches}")
+            if TP * got["cache_bytes"] != one_cache:
+                raise AssertionError(f"tp {leg} rank {r}: cache bytes "
+                                     f"{got['cache_bytes']} of {one_cache}")
+            if not np.array_equal(got["gen"], first["gen"]):
+                raise AssertionError(f"tp {leg}: rank {r}'s tokens differ")
+        want = ONE_PROCESS["drim-bnn" if leg in SERVE_LEGS else leg]
+        err = float((first["prefill"] - want["prefill"]).abs().max())
+        held = leg not in SERVE_LEGS
+        if held:
+            ties = first_difference_ok(leg, first["gen"], want["gen"],
+                                       want["gaps"])
+            if err > TP_LOGIT_TOL:
+                raise AssertionError(f"tp {leg}: prefill logits {err} from "
+                                     "one process's")
+        elif not np.array_equal(first["gen"],
+                                served[0]["gpu dense"]["gen"]):
+            raise AssertionError(f"tp {leg}: tokens differ from gpu dense")
+        stats = first["stats"]
+        line = {"serve": leg, "held_to_one_process": held,
+                "tokens_equal_one_process": int(np.sum(
+                    np.asarray(first["gen"]) == np.asarray(want["gen"]))),
+                "tokens": int(np.asarray(want["gen"]).size),
+                "prefill_logits_max_abs_diff": err,
+                "one_process_logits_rms": float(
+                    want["prefill"].pow(2).mean().sqrt()),
+                "cache_bytes_per_rank": [r[leg]["cache_bytes"]
+                                         for r in served],
+                "cache_bytes_one_process": one_cache,
+                "peak_gb_per_rank": [r[leg]["peak_gb"] for r in served],
+                "prefill_s": stats["prefill_s"],
+                "compile_s": stats["compile_s"],
+                "decode_tok_per_s": stats["decode_tok_per_s"],
+                "decode_p50_ms": stats["decode_p50_ms"],
+                "launches_per_rank": {n: c for n, c in launches.items()
+                                      if c},
+                "sample_ids": stats["sample_ids"]}
+        if held:
+            line.update(near_ties=ties, logit_tol=TP_LOGIT_TOL)
+        print("tp " + json.dumps(line))
+        for n, c in launches.items():
+            total[n] = total.get(n, 0) + c * TP
+    return total
+
+
+def phase_tp_nccl(tmp: str, one) -> None:
+    """With 2 or more cards, the tp straight run over NCCL at (1, min(4,
+    cards)), a card a rank, held to the same bounds; with one card a
+    line."""
+    cards = torch.cuda.device_count()
+    if cards < 2:
+        print("tp " + json.dumps({
+            "nccl": f"did not run: {cards} card visible, NCCL needs a card "
+                    "a rank"}))
+        return
+    n = min(4, cards)
+    rc, out, err, wall = torchrun(n, ["--tp-worker", f"{tmp}/nccl", "nccl",
+                                      str(n)], TP_TIMEOUT_S)
+    if rc != 0:
+        raise AssertionError(f"tp nccl: torchrun exited {rc}:\n"
+                             f"{err[-4000:]}")
+    recs = [json.load(open(f"{tmp}/nccl/rank{r}_straight.json"))
+            for r in range(n)]
+    losses = check_rank_leg(recs, "tp nccl", TRAIN_STEPS)
+    gaps = loss_gaps(losses, one)
+    print("tp " + json.dumps({
+        "backend": recs[0]["backend"], "mesh": {"data": 1, "model": n},
+        "devices": [r["device"] for r in recs], "loss_gaps": gaps,
+        "peak_gb_per_rank": [r["peak_gb"] for r in recs],
+        "torchrun_wall_s": wall}))
+    if recs[0]["backend"] != "nccl" or gaps[0] > TP_STEP1_TOL \
+            or max(gaps[1:]) > TP_LOSS_BOUND:
+        raise AssertionError(f"tp nccl: {recs[0]['backend']}, {gaps}")
 
 
 def device_kernels(prof, n: int):
@@ -4363,6 +4909,9 @@ def main() -> int:
         return 2
     if sys.argv[1:2] == ["--ranks-worker"]:
         return ranks_worker(*sys.argv[2:4])
+    if sys.argv[1:2] == ["--tp-worker"]:
+        return ranks_worker(*sys.argv[2:4], model_axis=int(
+            sys.argv[4]) if len(sys.argv) > 4 else TP)
     with dryrun_process() as dry:
         return run(dry)
 
@@ -4403,6 +4952,7 @@ def run(dry) -> int:
         "collective", lambda: phase_collective(wrappers))
     by_leg.update(verified_phase("train", lambda: phase_train(wrappers)))
     by_leg["ranks"] = phase_ranks(wrappers)
+    by_leg["tp"] = phase_tp(wrappers)
     by_leg.update(verified_phase(
         "train families", lambda: phase_train_families(wrappers)))
     launches = {name: sum(c[name] for c in by_leg.values())

@@ -23,13 +23,26 @@ A mesh of ranks (`make_rank_mesh`, under an initialised
 `torch.distributed` process group) is the other kind: its positions are
 processes, `ranks` holds the global rank at each, and each process holds
 only its own block of a leaf cut by a `PartitionSpec` (`local_block`,
-GSPMD's contiguous blocks).  Its collectives are `mesh_sum` (a sum over
-an axis's ranks) and `mesh_gather` (cut blocks put back together by a
-broadcast from each block's owner), written over `dist.all_reduce` and
-`dist.broadcast` alone: gloo takes CUDA tensors for both (torch 2.11), so
-one code path serves gloo on the CPU, gloo with several ranks on one
-card, and NCCL with a card a rank.  `COLLECTIVE_STATS` counts their
-calls, bytes and seconds.
+GSPMD's contiguous blocks).  Its collectives run over the ranks that
+share this rank's coordinates off some axes (`_axis_group`: one
+`dist.new_group` per distinct group of each axis set, all made once per
+mesh by every rank in one order): `mesh_sum` and `mesh_max` (all-reduces),
+`mesh_all_gather` (blocks concatenated along a dim in mesh order) and
+`mesh_gather` (cut blocks put back together by a broadcast from each
+block's owner).  They are written over `dist.all_reduce`,
+`dist.all_gather` and `dist.broadcast`, which gloo takes for CUDA tensors
+too, so one code path serves gloo on the CPU, gloo with several ranks on
+one card, and NCCL with a card a rank.  `COLLECTIVE_STATS` counts their
+calls, bytes and seconds, in all and by axis ("calls:data",
+"bytes:model", ...).
+
+Megatron's four operators for a `model` axis over ranks (the ambient
+mesh's, `model_ranks`) are autograd functions: `copy_to_model` (forward
+the identity, backward the sum over the model group), `reduce_from_model`
+(forward the sum, backward the identity), `gather_from_model` (forward an
+all-gather along a dim, backward the rank's slice) and `vocab_lookup`
+(the rows of a vocabulary-cut table, zero outside the rank's range,
+summed over the model group).
 
 This module sits below `core.device` and imports nothing of the port;
 `launch.mesh` adds the LM meshes and `pim.mesh` the fleet mesh.  Defined
@@ -39,6 +52,7 @@ from __future__ import annotations
 
 import contextvars
 import dataclasses
+import itertools
 import math
 import time
 from typing import Callable, Dict, List, Optional, Sequence, Tuple
@@ -303,10 +317,18 @@ def map_blocks(mesh: Mesh, fn: Callable, tensors: Sequence[torch.Tensor],
 
 # --- meshes of ranks ----------------------------------------------------------
 
-# calls, payload bytes and wall seconds of the rank collectives below
-# (each call timed from its inputs' readiness to its result's: the card
-# is synchronised on either side)
-COLLECTIVE_STATS = {"calls": 0, "bytes": 0, "seconds": 0.0}
+# calls, payload bytes and wall seconds of the rank collectives below, in
+# all and by the axes they ran over ("calls:data", "bytes:model", ...;
+# "data+model" where a call spans both); each call timed from its
+# inputs' readiness to its result's: the card is synchronised on either
+# side
+COLLECTIVE_STATS = {f"{k}{axes}": 0.0 if k == "seconds" else 0
+                    for k in ("calls", "bytes", "seconds")
+                    for axes in ("", ":data", ":model", ":data+model")}
+
+# {(default group, mesh shape, axis names): {(axes, members): group}}:
+# the sub-groups of each mesh of ranks, made once
+_GROUPS: Dict[tuple, Dict[tuple, object]] = {}
 
 
 def make_rank_mesh(shape: Tuple[int, ...], axis_names: Tuple[str, ...],
@@ -314,7 +336,9 @@ def make_rank_mesh(shape: Tuple[int, ...], axis_names: Tuple[str, ...],
     """A mesh whose positions are the ranks of the initialised default
     process group, in rank order; `devices[r]` is rank r's device.
     Raises ValueError without a process group or when the shape does not
-    hold exactly the group's ranks."""
+    hold exactly the group's ranks.  Every rank must call it, in the same
+    order as the others: the first call for a shape makes the process
+    groups of its axis sets (`dist.new_group` is collective)."""
     if not (dist.is_available() and dist.is_initialized()):
         raise ValueError("a mesh of ranks needs an initialised process "
                          "group (start the ranks with torchrun)")
@@ -323,8 +347,44 @@ def make_rank_mesh(shape: Tuple[int, ...], axis_names: Tuple[str, ...],
         raise ValueError(f"mesh shape {tuple(shape)} over {world} ranks "
                          f"({len(devices)} devices)")
     mesh = make_named_mesh(shape, axis_names, devices)
-    return dataclasses.replace(
+    mesh = dataclasses.replace(
         mesh, ranks=np.arange(world, dtype=np.int64).reshape(tuple(shape)))
+    _make_groups(mesh)
+    return mesh
+
+
+def _group_key(mesh: Mesh) -> tuple:
+    return (id(dist.distributed_c10d._get_default_group()),
+            mesh.devices.shape, mesh.axis_names)
+
+
+def _members(mesh: Mesh, axes: Tuple[str, ...],
+             coords: Tuple[int, ...]) -> Tuple[int, ...]:
+    """The global ranks sharing `coords` off `axes`, ascending (the mesh
+    order of their blocks)."""
+    keep = tuple(slice(None) if a in axes else coords[i]
+                 for i, a in enumerate(mesh.axis_names))
+    return tuple(int(r) for r in np.sort(mesh.ranks[keep].reshape(-1)))
+
+
+def _make_groups(mesh: Mesh) -> None:
+    """One process group per distinct group of ranks of every axis set
+    that spans some but not all ranks, made by every rank in one order."""
+    key = _group_key(mesh)
+    if key in _GROUPS:
+        return
+    groups = {}
+    names = mesh.axis_names
+    world = mesh.ranks.size
+    for n in range(1, len(names)):
+        for subset in itertools.combinations(names, n):
+            for pos in np.ndindex(*mesh.devices.shape):
+                members = _members(mesh, subset, pos)
+                if 1 < len(members) < world \
+                        and (subset, members) not in groups:
+                    groups[(subset, members)] = dist.new_group(
+                        list(members))
+    _GROUPS[key] = groups
 
 
 def _block_of(mesh: Mesh, entry, coords: Tuple[int, ...]) -> Tuple[int, int]:
@@ -364,43 +424,71 @@ def local_shape(shape, spec: PartitionSpec, mesh: Mesh,
                                                        rank))
 
 
+def drop_axes(spec: PartitionSpec, axes: Tuple[str, ...]) -> PartitionSpec:
+    """`spec` with the named `axes` taken out of every entry: the spec of
+    the block a gather over `axes` rebuilds."""
+    def keep(entry):
+        if entry is None:
+            return None
+        return tuple(a for a in ((entry,) if isinstance(entry, str)
+                                 else entry) if a not in axes)
+    return PartitionSpec(*(keep(e) for e in spec))
+
+
+def sub_block(shape, spec: PartitionSpec, within: PartitionSpec,
+              mesh: Mesh, rank: Optional[int] = None) -> Tuple[slice, ...]:
+    """The slices of this rank's block under `spec` inside its block under
+    `within` (a coarser cut of the same leaf of `shape`, e.g. a ZeRO-1
+    moment's spec inside its param's); ValueError where it is not inside."""
+    inner = local_block(shape, spec, mesh, rank)
+    outer = local_block(shape, within, mesh, rank)
+    if any(i.start < o.start or i.stop > o.stop
+           for i, o in zip(inner, outer)):
+        raise ValueError(f"{spec} is not a cut of {within}")
+    return tuple(slice(i.start - o.start, i.stop - o.start)
+                 for i, o in zip(inner, outer))
+
+
 def _axis_group(mesh: Mesh, axes: Tuple[str, ...]):
     """(process group, size) of the ranks that share this rank's
-    coordinates off `axes`; a group of one rank is (None, 1).  A group
-    of some but not all ranks (a `model` axis over ranks beside the data
-    axes) waits for ROADMAP Queue 1 item 15.2."""
-    coords = mesh.coords()
-    keep = tuple(slice(None) if a in axes else coords[i]
-                 for i, a in enumerate(mesh.axis_names))
-    members = mesh.ranks[keep].size
-    if members == 1:
+    coordinates off `axes`; a group of one rank is (None, 1), of every
+    rank the default group."""
+    members = _members(mesh, axes, mesh.coords())
+    if len(members) == 1:
         return None, 1
-    if members == mesh.ranks.size:
-        return dist.group.WORLD, members
-    raise ValueError(f"a collective over {axes} of {mesh.shape} spans some "
-                     "of the ranks: a model axis over ranks is ROADMAP "
-                     "Queue 1 item 15.2")
+    if len(members) == mesh.ranks.size:
+        return dist.group.WORLD, len(members)
+    _make_groups(mesh)
+    return _GROUPS[_group_key(mesh)][(tuple(a for a in mesh.axis_names
+                                            if a in axes), members)], \
+        len(members)
 
 
-def _timed(fn, t: torch.Tensor) -> None:
+def _label(mesh: Mesh, axes: Tuple[str, ...]) -> str:
+    return "+".join(a for a in mesh.axis_names
+                    if a in axes and mesh.shape[a] > 1)
+
+
+def _timed(fn, t: torch.Tensor, label: str = "") -> None:
     if t.is_cuda:
         torch.cuda.synchronize(t.device)
     t0 = time.perf_counter()
     fn()
     if t.is_cuda:
         torch.cuda.synchronize(t.device)
-    COLLECTIVE_STATS["calls"] += 1
-    COLLECTIVE_STATS["bytes"] += t.numel() * t.element_size()
-    COLLECTIVE_STATS["seconds"] += time.perf_counter() - t0
+    dt = time.perf_counter() - t0
+    for suffix in ("", f":{label}") if label else ("",):
+        COLLECTIVE_STATS[f"calls{suffix}"] = \
+            COLLECTIVE_STATS.get(f"calls{suffix}", 0) + 1
+        COLLECTIVE_STATS[f"bytes{suffix}"] = \
+            COLLECTIVE_STATS.get(f"bytes{suffix}", 0) \
+            + t.numel() * t.element_size()
+        COLLECTIVE_STATS[f"seconds{suffix}"] = \
+            COLLECTIVE_STATS.get(f"seconds{suffix}", 0.0) + dt
 
 
-def mesh_sum(tensors: Sequence[torch.Tensor], mesh: Mesh,
-             axes: Optional[Tuple[str, ...]] = None) -> List[torch.Tensor]:
-    """Each tensor summed over the ranks along `axes` (default: the data
-    axes), as new tensors; the inputs are not changed.  The tensors of
-    one dtype travel as one flat buffer (one `all_reduce` a dtype).
-    Where the axes hold one rank the tensors come back as they are."""
-    axes = dp_axes(mesh) if axes is None else tuple(axes)
+def _all_reduce(tensors: Sequence[torch.Tensor], mesh: Mesh,
+                axes: Tuple[str, ...], op) -> List[torch.Tensor]:
     group, n = _axis_group(mesh, axes)
     if n == 1:
         return list(tensors)
@@ -410,8 +498,8 @@ def mesh_sum(tensors: Sequence[torch.Tensor], mesh: Mesh,
         by_dtype.setdefault(t.dtype, []).append(i)
     for idx in by_dtype.values():
         flat = torch.cat([tensors[i].reshape(-1) for i in idx])
-        _timed(lambda: dist.all_reduce(flat, op=dist.ReduceOp.SUM,
-                                       group=group), flat)
+        _timed(lambda: dist.all_reduce(flat, op=op, group=group), flat,
+               _label(mesh, axes))
         offset = 0
         for i in idx:
             n_el = tensors[i].numel()
@@ -420,48 +508,97 @@ def mesh_sum(tensors: Sequence[torch.Tensor], mesh: Mesh,
     return out
 
 
-def mesh_gather(blocks: Sequence[torch.Tensor], shapes, specs, mesh: Mesh
+def mesh_sum(tensors: Sequence[torch.Tensor], mesh: Mesh,
+             axes: Optional[Tuple[str, ...]] = None) -> List[torch.Tensor]:
+    """Each tensor summed over the ranks along `axes` (default: the data
+    axes), as new tensors; the inputs are not changed.  The tensors of
+    one dtype travel as one flat buffer (one `all_reduce` a dtype).
+    Where the axes hold one rank the tensors come back as they are."""
+    axes = dp_axes(mesh) if axes is None else tuple(axes)
+    return _all_reduce(tensors, mesh, axes, dist.ReduceOp.SUM)
+
+
+def mesh_max(tensors: Sequence[torch.Tensor], mesh: Mesh,
+             axes: Tuple[str, ...] = ("model",)) -> List[torch.Tensor]:
+    """`mesh_sum` with the elementwise maximum (default over "model")."""
+    return _all_reduce(tensors, mesh, tuple(axes), dist.ReduceOp.MAX)
+
+
+def mesh_all_gather(t: torch.Tensor, mesh: Mesh, axes: Tuple[str, ...],
+                    dim: int) -> torch.Tensor:
+    """Every rank's `t` along `axes` concatenated along `dim` in mesh
+    order (one `all_gather`); `t` itself where the axes hold one rank.
+    The ranks' tensors must have one shape."""
+    group, n = _axis_group(mesh, tuple(axes))
+    if n == 1:
+        return t
+    t = t.contiguous()
+    parts = [torch.empty_like(t) for _ in range(n)]
+    _timed(lambda: dist.all_gather(parts, t, group=group), t,
+           _label(mesh, tuple(axes)))
+    return torch.cat(parts, dim)
+
+
+def mesh_gather(blocks: Sequence[torch.Tensor], shapes, specs, mesh: Mesh,
+                axes: Optional[Tuple[str, ...]] = None
                 ) -> List[torch.Tensor]:
-    """The whole leaves from this rank's blocks (`local_block` of each
-    `shapes[i]` under `specs[i]`).  Each distinct block is broadcast from
-    its owner, the lowest rank that holds it, bit for bit (no sum: a zero
-    filled all-reduce would turn -0.0 into +0.0); an owner's blocks of
-    every leaf travel as one byte buffer, so a gather is one `broadcast`
-    per owning rank.  A leaf whose spec cuts it into one block (replicated,
-    or named axes of one rank) comes back as it is."""
+    """The leaves rebuilt over `axes` (default: every axis, so the whole
+    leaves) from this rank's blocks (`local_block` of each `shapes[i]`
+    under `specs[i]`): each comes back as its block under the spec with
+    `axes` taken out (`drop_axes`), so a gather over "data" alone keeps
+    the model cut.  Each distinct block is broadcast within the group
+    over `axes` from its owner, the lowest rank that holds it, bit for
+    bit (no sum: a zero filled all-reduce would turn -0.0 into +0.0); an
+    owner's blocks of every leaf travel as one byte buffer, so a gather is
+    one `broadcast` per owning rank.  A leaf whose block is already the
+    rebuilt one comes back as it is."""
+    axes = tuple(mesh.axis_names) if axes is None else tuple(axes)
+    group, _ = _axis_group(mesh, axes)
     me = mesh.rank
-    world = mesh.ranks.size
+    members = _members(mesh, axes, mesh.coords())
     device = blocks[0].device if blocks else mesh.device
     out: List[Optional[torch.Tensor]] = [None] * len(blocks)
-    sends: Dict[int, List[Tuple[int, Tuple[slice, ...]]]] = {}
+    sends: Dict[int, List[Tuple[int, Tuple[slice, ...],
+                                Tuple[slice, ...]]]] = {}
     for i, (blk, shape, spec) in enumerate(zip(blocks, shapes, specs)):
         shape = tuple(shape)
-        if all(axis_size(mesh, e) == 1 for e in spec):
-            out[i] = blk            # every rank holds the whole leaf
+        target = drop_axes(spec, axes)
+        mine = local_block(shape, target, mesh)
+        if local_block(shape, spec, mesh) == mine:
+            out[i] = blk            # the block holds what a gather gives
             continue
-        out[i] = torch.empty(shape, dtype=blk.dtype, device=device)
+        out[i] = torch.empty(tuple(s.stop - s.start for s in mine),
+                             dtype=blk.dtype, device=device)
         owned = set()
-        for r in range(world):
+        for r in members:
             sl = local_block(shape, spec, mesh, r)
             key = tuple((s.start, s.stop) for s in sl)
-            if key not in owned:
-                owned.add(key)
-                sends.setdefault(r, []).append((i, sl))
+            if key in owned:
+                continue
+            owned.add(key)
+            if any(s.start < m.start or s.stop > m.stop
+                   for s, m in zip(sl, mine)):
+                raise ValueError(f"a gather over {axes} of {spec} leaves "
+                                 "its blocks apart")
+            rel = tuple(slice(s.start - m.start, s.stop - m.start)
+                        for s, m in zip(sl, mine))
+            sends.setdefault(r, []).append((i, sl, rel))
     for r in sorted(sends):
         items = sends[r]
         sizes = [math.prod(s.stop - s.start for s in sl)
-                 * blocks[i].element_size() for i, sl in items]
+                 * blocks[i].element_size() for i, sl, _ in items]
         if r == me:
             buf = torch.cat([blocks[i].contiguous().reshape(-1)
-                             .view(torch.uint8) for i, _ in items])
+                             .view(torch.uint8) for i, _, _ in items])
         else:
             buf = torch.empty(sum(sizes), dtype=torch.uint8, device=device)
-        if world > 1:
-            _timed(lambda: dist.broadcast(buf, src=int(r)), buf)
+        if len(members) > 1:
+            _timed(lambda: dist.broadcast(buf, src=int(r), group=group),
+                   buf, _label(mesh, axes))
         offset = 0
-        for (i, sl), size in zip(items, sizes):
+        for (i, sl, rel), size in zip(items, sizes):
             block_shape = tuple(s.stop - s.start for s in sl)
-            out[i][sl] = buf[offset:offset + size].view(out[i].dtype) \
+            out[i][rel] = buf[offset:offset + size].view(out[i].dtype) \
                 .view(block_shape)
             offset += size
     return out
@@ -471,4 +608,114 @@ def mesh_barrier(mesh: Mesh) -> None:
     """Every rank of the mesh reaches this point before any leaves it."""
     if mesh.ranks.size > 1:
         t = torch.zeros(1, device=mesh.device)
-        _timed(lambda: dist.all_reduce(t), t)
+        _timed(lambda: dist.all_reduce(t), t,
+               _label(mesh, mesh.axis_names))
+
+
+# --- the model axis: Megatron's operators ------------------------------------
+
+# what a model axis over ranks does not run yet, by the ROADMAP item that
+# brings it
+MODEL_AXIS_WAITS = {
+    "moe": "ROADMAP Queue 1 item 15.3",        # the MoE's EP over "model"
+    "families": "ROADMAP Queue 1 item 15.4",   # ssm, hybrid, audio, vlm
+    "serving": "ROADMAP Queue 1 item 15.5",    # batcher, microbench, retry
+}
+
+
+def refuse_family(cfg, mesh: Optional[Mesh] = None) -> None:
+    """ValueError for a family the model axis over ranks cannot run yet
+    (all but the dense trunk), naming its ROADMAP item; nothing without
+    a model axis over ranks (default: the ambient one, `model_ranks`)."""
+    mesh = model_ranks() if mesh is None else mesh
+    if mesh is None or mesh.shape.get("model", 1) == 1 \
+            or cfg.family == "dense":
+        return
+    item = MODEL_AXIS_WAITS["moe" if cfg.family == "moe" else "families"]
+    raise ValueError(f"the {cfg.family} family under a model axis of "
+                     f"{mesh.shape['model']} ranks is {item}")
+
+def model_ranks() -> Optional[Mesh]:
+    """The ambient mesh of ranks when its `model` axis holds more than one
+    rank (the model code's switch for its cut params), else None."""
+    mesh = ambient_ranks()
+    if mesh is None or mesh.shape.get("model", 1) == 1:
+        return None
+    return mesh
+
+
+def model_coord(mesh: Mesh) -> Tuple[int, int]:
+    """(this rank's index along "model", the axis's size)."""
+    return (mesh.coords()[mesh.axis_names.index("model")],
+            mesh.shape["model"])
+
+
+def _model_sum(t: torch.Tensor, mesh: Mesh) -> torch.Tensor:
+    """`t` summed over the model group in float32, in `t`'s dtype."""
+    return mesh_sum([t.to(torch.float32).contiguous()], mesh,
+                    ("model",))[0].to(t.dtype)
+
+
+class _CopyToModel(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh):
+        ctx.mesh = mesh
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return _model_sum(grad, ctx.mesh), None
+
+
+class _ReduceFromModel(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh):
+        return mesh_sum([x.contiguous()], mesh, ("model",))[0]
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad, None
+
+
+class _GatherFromModel(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, dim):
+        ctx.mesh, ctx.dim, ctx.width = mesh, dim, x.shape[dim]
+        return mesh_all_gather(x, mesh, ("model",), dim)
+
+    @staticmethod
+    def backward(ctx, grad):
+        index, _ = model_coord(ctx.mesh)
+        return grad.narrow(ctx.dim, index * ctx.width, ctx.width), None, None
+
+
+def copy_to_model(x: torch.Tensor, mesh: Mesh) -> torch.Tensor:
+    """The identity; its gradient is summed over the model group (in
+    float32): the input of a column-parallel product, or a whole weight
+    that each rank uses its own part of."""
+    return _CopyToModel.apply(x, mesh)
+
+
+def reduce_from_model(x: torch.Tensor, mesh: Mesh) -> torch.Tensor:
+    """`x` summed over the model group (the partials of a row-parallel
+    product); its gradient passes unchanged."""
+    return _ReduceFromModel.apply(x, mesh)
+
+
+def gather_from_model(x: torch.Tensor, mesh: Mesh, dim: int) -> torch.Tensor:
+    """The model group's blocks of `x` concatenated along `dim` in mesh
+    order; the gradient keeps the rank's own block."""
+    return _GatherFromModel.apply(x, mesh, dim % x.dim())
+
+
+def vocab_lookup(table: torch.Tensor, tokens: torch.Tensor, lo: int,
+                 mesh: Mesh) -> torch.Tensor:
+    """Rows `tokens` of a table cut over its vocabulary: this rank holds
+    rows [lo, lo + len(table)); a token outside them gives zeros, and the
+    ranks' rows are summed over the model group (one rank holds each
+    token's row, so the sum is that row)."""
+    local = tokens.long() - lo
+    inside = (local >= 0) & (local < table.shape[0])
+    rows = table[local.clamp(0, table.shape[0] - 1)]
+    rows = rows.to(torch.float32) * inside[..., None].to(torch.float32)
+    return reduce_from_model(rows, mesh).to(table.dtype)

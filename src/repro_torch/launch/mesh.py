@@ -8,11 +8,13 @@ The mesh itself, its device lists and the block runner live in
 one process "host" is a 1 x 1 host mesh over the CLI's `--device`.
 Under W ranks (`init_ranks`: torchrun's environment, or a process group
 the caller initialised) it is the reference's host mesh over W devices,
-(W, 1) `("data", "model")`, whose positions are the ranks.  "single"
+`make_host_mesh(model_axis=K)`: (W / K, K) `("data", "model")`, whose
+positions are the ranks (the CLIs' `--model-axis K`, default 1).  "single"
 and "multi" are the production meshes, as the reference builds them;
-they raise ValueError below 256 and 512 devices or ranks.  A `model`
-axis over ranks (`make_host_mesh(model_axis=k)`, k > 1, the production
-meshes over ranks) waits for ROADMAP Queue 1 item 15.2 and raises.
+they raise ValueError below 256 and 512 devices or ranks.  In one
+process a model axis over devices of one card or the CPU is the block
+runner's (`core.mesh.map_blocks`); the CLIs refuse K > 1 there, since a
+model axis over ranks needs a process per position.
 """
 from __future__ import annotations
 
@@ -25,13 +27,11 @@ from typing import Optional, Sequence
 import torch
 import torch.distributed as dist
 
-from repro_torch.core.mesh import Mesh, dp_axes, make_named_mesh, \
-    make_rank_mesh, visible_devices
+from repro_torch.core.mesh import MODEL_AXIS_WAITS, Mesh, dp_axes, \
+    make_named_mesh, make_rank_mesh, visible_devices
 
 __all__ = ["make_named_mesh", "make_production_mesh", "make_host_mesh",
-           "dp_axes", "cli_mesh", "init_ranks", "Ranks", "world_size"]
-
-MODEL_AXIS_WAITS = "ROADMAP Queue 1 item 15.2"
+           "dp_axes", "cli_mesh", "init_ranks", "Ranks", "MODEL_AXIS_WAITS"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -75,14 +75,6 @@ def rank_device(kind: str, local_rank: int, local_world: int):
     return "gloo", torch.device("cuda", local_rank % n)
 
 
-def world_size() -> int:
-    """The ranks this process runs among: the process group's size, else
-    torchrun's WORLD_SIZE, else 1."""
-    if dist.is_available() and dist.is_initialized():
-        return dist.get_world_size()
-    return int(os.environ.get("WORLD_SIZE", "1"))
-
-
 def init_ranks(device: Optional[str] = None) -> Optional[Ranks]:
     """Set up the ranks, or None in a plain run (no process group and no
     torchrun environment).  `device` is the CLI's `--device` ("cpu", or
@@ -122,14 +114,16 @@ def _ranked() -> bool:
     return dist.is_available() and dist.is_initialized()
 
 
-def _rank_devices() -> list:
+def _rank_devices(kind: Optional[str] = None) -> list:
     """Each rank's device under the process group, by `rank_device`'s
-    rule (the CPU where no card is visible; pass `Ranks` to `cli_mesh`
-    for the ranks' own choice)."""
+    rule: on the CPU for `kind` "cpu", else on the cards (default: the
+    CPU where no card is visible; pass `Ranks` to `cli_mesh` for the
+    ranks' own choice)."""
     world = dist.get_world_size()
     local_world = int(os.environ.get("LOCAL_WORLD_SIZE", world))
-    kind = "cuda" if torch.cuda.is_available() \
-        and torch.cuda.device_count() else "cpu"
+    if kind is None:
+        kind = "cuda" if torch.cuda.is_available() \
+            and torch.cuda.device_count() else "cpu"
     return [rank_device(kind, r % local_world, local_world)[1]
             for r in range(world)]
 
@@ -137,19 +131,17 @@ def _rank_devices() -> list:
 def make_production_mesh(*, multi_pod: bool = False,
                          devices: Optional[Sequence] = None) -> Mesh:
     """The reference's production shapes: data x model 16 x 16, or pod x
-    data x model 2 x 16 x 16.  Raises ValueError with fewer devices (under
-    a process group: ranks), and over ranks at any size: its model axis
-    of 16 waits for ROADMAP Queue 1 item 15.2."""
+    data x model 2 x 16 x 16.  Raises ValueError unless the devices
+    (under a process group: the ranks) fill it, naming the count."""
     shape = (2, 16, 16) if multi_pod else (16, 16)
     axes = ("pod", "data", "model") if multi_pod else ("data", "model")
     if devices is None and _ranked():
         world = dist.get_world_size()
-        if world < math.prod(shape):
+        if world != math.prod(shape):
             raise ValueError(f"the production mesh {shape} needs "
                              f"{math.prod(shape)} devices, {world} ranks "
                              "exist")
-        raise ValueError(f"the production mesh {shape} over ranks has a "
-                         f"model axis of 16: {MODEL_AXIS_WAITS}")
+        return make_rank_mesh(shape, axes, _rank_devices())
     devices = visible_devices() if devices is None else list(devices)
     if len(devices) < math.prod(shape):
         raise ValueError(f"the production mesh {shape} needs "
@@ -161,13 +153,10 @@ def make_host_mesh(model_axis: int = 1,
                    devices: Optional[Sequence] = None) -> Mesh:
     """Mesh over whatever devices exist (default: the visible CUDA
     devices; under a process group, the ranks, one position each): data x
-    model with `model_axis` devices on the model axis."""
+    model with `model_axis` devices on the model axis.  ValueError where
+    `model_axis` does not divide the devices or ranks."""
     if devices is None and _ranked():
-        n = dist.get_world_size()
-        if model_axis != 1:
-            raise ValueError(f"model_axis={model_axis} over {n} ranks: a "
-                             f"model axis over ranks is {MODEL_AXIS_WAITS}")
-        return make_rank_mesh((n, 1), ("data", "model"), _rank_devices())
+        return _rank_host_mesh(_rank_devices(), model_axis)
     devices = visible_devices() if devices is None else list(devices)
     n = len(devices)
     if model_axis < 1 or n % model_axis:
@@ -177,21 +166,37 @@ def make_host_mesh(model_axis: int = 1,
                            devices)
 
 
+def _rank_host_mesh(devs: list, model_axis: int) -> Mesh:
+    n = len(devs)
+    if model_axis < 1 or n % model_axis:
+        raise ValueError(f"model_axis={model_axis} does not divide {n} "
+                         "ranks")
+    return make_rank_mesh((n // model_axis, model_axis), ("data", "model"),
+                          devs)
+
+
 def cli_mesh(kind: str, device: torch.device,
-             ranks: Optional[Ranks] = None) -> Mesh:
+             ranks: Optional[Ranks] = None, model_axis: int = 1) -> Mesh:
     """The CLIs' `--mesh` on `device` (a resolved cpu or cuda device):
-    "host", "single" or "multi".  In one process the host mesh is 1 x 1
-    over `device` alone, also where more cards are visible: a mesh of
-    distinct devices needs a process per device.  Under `ranks` (or any
-    initialised process group) it is (W, 1) over the W ranks, each on its
-    own device (`Ranks.device_of`)."""
+    "host", "single" or "multi", and `--model-axis`.  In one process the
+    host mesh is 1 x 1 over `device` alone, also where more cards are
+    visible: a mesh of distinct devices needs a process per device, and
+    so does a model axis (ValueError for `model_axis` > 1).  Under
+    `ranks` (or any initialised process group) it is `make_host_mesh(
+    model_axis)` over the W ranks, each on its own device
+    (`Ranks.device_of`)."""
     ranked = ranks is not None or _ranked()
     if kind == "host":
         if not ranked:
+            if model_axis != 1:
+                raise ValueError(
+                    f"--model-axis {model_axis} in one process: a model "
+                    "axis needs a process per position (start the ranks "
+                    "with torchrun)")
             return make_host_mesh(devices=[device])
         devs = ([ranks.device_of(r) for r in range(ranks.world)]
-                if ranks is not None else _rank_devices())
-        return make_rank_mesh((len(devs), 1), ("data", "model"), devs)
+                if ranks is not None else _rank_devices(device.type))
+        return _rank_host_mesh(devs, model_axis)
     if kind in ("single", "multi"):
         if ranked:
             return make_production_mesh(multi_pod=kind == "multi")

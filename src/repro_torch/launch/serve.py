@@ -51,9 +51,21 @@ Timing: the first decode step runs UNTIMED as warm-up and is reported as
     card or the CPU, 1 x 1), entered around setup, prefill and decode:
     under it every MoE prefill takes the expert-parallel dispatch, as the
     reference's default does.  "single" and "multi" are the production
-    meshes, which raise ValueError below 256 and 512 devices.  Serving
-    over W > 1 ranks (under torchrun) raises ValueError: it waits for
-    ROADMAP Queue 1 item 15.2, and never serves on one rank alone.
+    meshes, which raise ValueError below 256 and 512 devices;
+  * --model-axis K: under torchrun, W ranks serve the dense family over
+    the (W / K, K) host mesh (`launch.mesh.make_host_mesh(model_axis=K)`):
+    each rank holds its blocks of the params (packed ones included) and
+    of the sequence-cut KV caches by the reference's specs, runs its rows
+    of the batch and its heads (`models`), and gets the whole logits, so
+    every rank samples the same tokens; rank 0 alone prints the stats
+    line, after every rank's first line (`launch.mesh.init_ranks`).
+    Over W > 1 ranks the other families, --continuous, --microbench and
+    --resilient raise ValueError naming their ROADMAP items; K > 1 in one
+    process raises too.  On the CPU:
+
+      python -m torch.distributed.run --nproc-per-node 2 \\
+          -m repro_torch.launch.serve --arch drim-bnn --smoke-config \\
+          --device cpu --prompt-len 128 --gen 4 --model-axis 2
 
 CPU-scale examples:
   PYTHONPATH=src python -m repro_torch.launch.serve --arch drim-bnn \\
@@ -78,10 +90,13 @@ from repro_torch.configs import get_config, get_smoke_config
 from repro_torch.device import resolve_device
 from repro_torch.launch.batching import (NATIVE_ENGINE, WaveBatcher, fold_in,
                                          make_decode_fn)
-from repro_torch.launch.mesh import MODEL_AXIS_WAITS, cli_mesh, world_size
+from repro_torch.core.mesh import (local_block, mesh_all_gather,
+                                   model_coord, model_ranks)
+from repro_torch.launch.mesh import MODEL_AXIS_WAITS, cli_mesh, init_ranks
 from repro_torch.models import decode_step, empty_caches, init_params, prefill
-from repro_torch.models.layers import pack_bitlinear
+from repro_torch.models.layers import pack_bitlinear, pack_bitlinear_rows
 from repro_torch.runtime import telemetry
+from repro_torch.runtime.sharding import param_spec
 from repro_torch.tree import tree_map_with_path
 
 # config-geometry override flags -> ModelConfig fields (0 = keep)
@@ -105,6 +120,8 @@ def parse_args(argv=None) -> argparse.Namespace:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--mesh", default="host",
                     choices=["host", "single", "multi"])
+    ap.add_argument("--model-axis", type=int, default=1,
+                    help="ranks on the mesh's model axis (under torchrun)")
     ap.add_argument("--engine", default=NATIVE_ENGINE, choices=engines(),
                     help="BitLinear decode matmul backend: 'gpu' (the "
                     "registry's comparator) = the native route; the DRIM "
@@ -173,15 +190,56 @@ def splice_caches(caches, pre_caches):
     return tree_map_with_path(splice, caches, pre_caches)
 
 
+def splice_rank_caches(caches, pre_caches, s_pre: int, s_ctx: int, mesh):
+    """`splice_caches` under a model axis over ranks: the dense family's
+    [L, B', S, Hkv, Dh] caches are the rank's sequence blocks of an
+    `s_pre`-long prefill cache and an `s_ctx`-long decode cache (each
+    whole where the axis does not divide its length), which do not line
+    up; the prefill's are gathered over the model group and the rank
+    copies the prompt positions its decode block holds."""
+    index, m = model_coord(mesh)
+
+    def splice(path, full, pre):
+        if s_pre % m == 0:
+            pre = mesh_all_gather(pre, mesh, ("model",), 2)
+        lo = index * full.shape[2] if s_ctx % m == 0 else 0
+        own = pre[:, :, lo:min(lo + full.shape[2], s_pre)]
+        out = full.clone()
+        out[:, :, :own.shape[2]] = own.to(full.dtype)
+        return out
+
+    return tree_map_with_path(splice, caches, pre_caches)
+
+
+def place_params(params, mesh):
+    """This rank's blocks of a whole param tree by the reference's specs
+    (`runtime.sharding.param_spec`); leaves the specs leave whole stay as
+    they are."""
+    def one(path, leaf):
+        sl = local_block(tuple(leaf.shape), param_spec(path, leaf, mesh),
+                         mesh)
+        if all(s.stop - s.start == n for s, n in zip(sl, leaf.shape)):
+            return leaf
+        return leaf[sl].clone()
+    return tree_map_with_path(one, params)
+
+
 def pack_model_params(params):
     """The offline --packed conversion: every BitLinear param dict (marker:
     'bkernel') in the tree becomes its bit-packed serving form; works on
-    scan-stacked [L, d_in, d_out] leaves."""
-    def walk(p):
+    scan-stacked [L, d_in, d_out] leaves.  Under a model axis over ranks
+    the tree holds this rank's blocks: a column-parallel layer packs its
+    own columns, the row-parallel `down` packs into the packed spec's
+    output block (`layers.pack_bitlinear_rows`)."""
+    mesh = model_ranks()
+
+    def walk(p, name=""):
         if isinstance(p, dict):
             if "bkernel" in p:
+                if mesh is not None and name == "down":
+                    return pack_bitlinear_rows(p, mesh)
                 return pack_bitlinear(p)
-            return {k: walk(v) for k, v in p.items()}
+            return {k: walk(v, k) for k, v in p.items()}
         return p
     return walk(params)
 
@@ -317,13 +375,18 @@ def model_batch(cfg, tokens: torch.Tensor) -> Dict[str, torch.Tensor]:
 
 
 def _setup(args, cfg, dev, params=None, tokens=None) -> Dict[str, Any]:
-    """Params + prompt batch + prefill + spliced ctx caches."""
+    """Params + prompt batch + prefill + spliced ctx caches.  Under a model
+    axis over ranks every rank draws (or takes) the whole params and
+    keeps its blocks, then packs them."""
     ctx_len = args.ctx or (args.prompt_len + args.gen)
     if params is None:
         params = init_params(args.seed, cfg, device=dev)
     if tokens is None:
         tokens = _prompts(args, cfg, args.batch)
     tokens = torch.as_tensor(np.array(tokens), device=dev).long()
+    mesh = model_ranks()
+    if mesh is not None:
+        params = place_params(params, mesh)
     dense_params = params
     if args.packed:
         params = pack_model_params(params)
@@ -333,25 +396,31 @@ def _setup(args, cfg, dev, params=None, tokens=None) -> Dict[str, Any]:
     _sync(dev)
     t_prefill = time.perf_counter() - t0
 
-    caches = splice_caches(empty_caches(cfg, tokens.shape[0], ctx_len,
-                                        device=dev), pre_caches)
+    empty = empty_caches(cfg, tokens.shape[0], ctx_len, device=dev)
+    caches = (splice_caches(empty, pre_caches) if mesh is None else
+              splice_rank_caches(empty, pre_caches, tokens.shape[1],
+                                 ctx_len, mesh))
     return dict(ctx_len=ctx_len, params=params, dense_params=dense_params,
                 logits=logits, caches=caches, prefill_s=t_prefill)
 
 
-def refuse_ranks() -> None:
-    """ValueError under W > 1 ranks (torchrun's environment or a process
-    group): serving over ranks waits for ROADMAP Queue 1 item 15.2."""
-    n = world_size()
-    if n > 1:
-        raise ValueError(f"serving over {n} ranks is {MODEL_AXIS_WAITS}; "
-                         "run the server as one process")
-
-
-def serve_mesh(args, dev):
-    """The CLI's `--mesh` on `dev` (`refuse_ranks` first)."""
-    refuse_ranks()
-    return cli_mesh(args.mesh, dev)
+def serve_mesh(args, dev, cfg):
+    """The CLI's `--mesh` and `--model-axis` on `dev`.  Over W > 1 ranks
+    the families other than dense, --continuous, --microbench and
+    --resilient raise ValueError naming their ROADMAP items."""
+    mesh = cli_mesh(args.mesh, dev, model_axis=args.model_axis)
+    if mesh.ranks is not None and mesh.ranks.size > 1:
+        n = mesh.ranks.size
+        for flag in ("continuous", "microbench", "resilient"):
+            if getattr(args, flag):
+                raise ValueError(f"--{flag} over {n} ranks is "
+                                 f"{MODEL_AXIS_WAITS['serving']}")
+        if cfg.family != "dense":
+            item = MODEL_AXIS_WAITS["moe" if cfg.family == "moe"
+                                    else "families"]
+            raise ValueError(f"serving the {cfg.family} family over {n} "
+                             f"ranks is {item}")
+    return mesh
 
 
 def run_serve(args, *, params=None, tokens=None,
@@ -366,7 +435,9 @@ def run_serve(args, *, params=None, tokens=None,
     `sleep`."""
     dev = resolve_device(args.device)
     cfg = build_cfg(args)
-    with serve_mesh(args, dev):
+    with serve_mesh(args, dev, cfg) as mesh:
+        if mesh.ranks is not None:
+            dev = mesh.device
         return _serve(args, cfg, dev, params, tokens, make_fn, sleep)
 
 
@@ -439,7 +510,7 @@ def run_microbench(args) -> Tuple[None, Dict[str, Any]]:
     as `run_serve` treats its warm-up step."""
     dev = resolve_device(args.device)
     cfg = build_cfg(args)
-    with serve_mesh(args, dev):
+    with serve_mesh(args, dev, cfg):
         return _microbench(args, cfg, dev)
 
 
@@ -516,7 +587,7 @@ def run_continuous(args, *, params=None, prompts=None
     seeded prompts; `params` (dense) the seeded weights."""
     dev = resolve_device(args.device)
     cfg = build_cfg(args)
-    with serve_mesh(args, dev):
+    with serve_mesh(args, dev, cfg):
         return _continuous(args, cfg, dev, params, prompts)
 
 
@@ -557,7 +628,15 @@ def _continuous(args, cfg, dev, params, prompts
 
 def main(argv=None):
     args = parse_args(argv)
-    refuse_ranks()
+    ranks = init_ranks(args.device)
+    try:
+        return _main(args, ranks is None or ranks.rank == 0)
+    finally:
+        if ranks is not None:
+            ranks.close()
+
+
+def _main(args, lead: bool):
     if args.telemetry or args.trace_out:
         telemetry.arm()
     if args.microbench:
@@ -568,9 +647,10 @@ def main(argv=None):
         gen, stats = run_serve(args)
     if telemetry.enabled() and "telemetry" not in stats:
         stats["telemetry"] = telemetry.snapshot()
-    if args.trace_out:
+    if args.trace_out and lead:
         stats["trace_out"] = telemetry.export_trace(args.trace_out)
-    print(json.dumps(stats))
+    if lead:
+        print(json.dumps(stats))
     return gen
 
 

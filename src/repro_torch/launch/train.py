@@ -33,9 +33,21 @@ block of the moments, and sums its gradients with the others'
       -m repro_torch.launch.train --arch drim-bnn --smoke-config \\
       --device cpu --steps 30 --batch 4 --seq 64
 
-Checkpoints hold the whole leaves (the cut ones gathered first), written
-by rank 0 and published once, and restore at any world size.  A model
-axis over ranks waits for ROADMAP Queue 1 item 15.2.
+`--model-axis K` (default 1) makes the mesh (W / K, K): each rank
+holds its model block of every param and moment by the reference's
+specs, and the dense LM's products are Megatron's (column- and
+row-parallel, the vocab-parallel embedding, head and cross-entropy; the
+other families raise ValueError naming their ROADMAP items).  On the CPU,
+two data ranks of two model ranks each:
+
+  python -m torch.distributed.run --nproc-per-node 4 \\
+      -m repro_torch.launch.train --arch drim-bnn --smoke-config \\
+      --device cpu --steps 30 --batch 4 --seq 64 --model-axis 2
+
+In one process K > 1 raises ValueError: a model axis needs a process per
+position.  Checkpoints hold the whole leaves (the cut ones gathered
+first), written by rank 0 and published once, and restore at any (D, M)
+and in one process.
 
 Prints one JSON line per logged step ({"step", "s_per_step", "loss",
 "ce", "lr", "grad_norm", ...}; "wall_s" is the time since the loop
@@ -78,6 +90,8 @@ def parse_args(argv=None) -> argparse.Namespace:
     ap.add_argument("--seq", type=int, default=256)
     ap.add_argument("--mesh", default="host",
                     choices=["host", "single", "multi"])
+    ap.add_argument("--model-axis", type=int, default=1,
+                    help="ranks on the mesh's model axis (under torchrun)")
     ap.add_argument("--optimizer", default="adamw")
     ap.add_argument("--lr", type=float, default=3e-4)
     ap.add_argument("--warmup", type=int, default=None,
@@ -110,7 +124,8 @@ def build(args, mesh=None):
     arguments, the step over `mesh` (default: the --mesh of --device)."""
     cfg = build_cfg(args)
     if mesh is None:
-        mesh = cli_mesh(args.mesh, resolve_device(args.device))
+        mesh = cli_mesh(args.mesh, resolve_device(args.device),
+                        model_axis=args.model_axis)
     warmup = (args.warmup if args.warmup is not None
               else max(1, min(2000, args.steps // 10)))
     step_fn, init_state, _ = make_train_step(
@@ -147,7 +162,7 @@ def main(argv=None) -> float:
 def _train(args, ranks) -> float:
     dev = ranks.device if ranks is not None else resolve_device(args.device)
     lead = ranks is None or ranks.rank == 0      # the rank that prints
-    mesh = cli_mesh(args.mesh, dev, ranks)
+    mesh = cli_mesh(args.mesh, dev, ranks, args.model_axis)
     cfg, step_fn, init_state = build(args, mesh)
     # the state's specs (`shardings`') and its whole leaves, abstract
     specs, whole = state_pspecs(cfg, get_optimizer(args.optimizer), mesh,

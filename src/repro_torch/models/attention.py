@@ -15,6 +15,18 @@ Caches:
 Windowed attention masks keys older than `window`.  Only GQA's prefill
 takes the flash kernel; MLA and cross-attention take dense scores, as in
 the reference.
+
+Under a `model` axis over ranks (`core.mesh.model_ranks`) GQA runs on the
+rank's heads: its H / |model| query heads and the KV heads they read
+(`head_split`), from column-parallel wq/wk/wv (a leaf whose cut does not
+fall on those heads is gathered and sliced), with `wo` row-parallel.  The
+decode cache is cut over the sequence (`cache_pspecs`), so decode is
+flash-decoding: q and the new K/V are gathered over the model group, the
+rank that holds position `pos` writes it, each rank scores every head over
+its own positions, the softmax's max and sum and the weighted values are
+merged over the group, and the rank keeps its heads for `wo`.  A cache
+whose length the axis does not divide is whole on every rank, which then
+attends with its own heads.
 """
 from __future__ import annotations
 
@@ -23,10 +35,13 @@ from typing import Dict, Tuple
 
 import torch
 
+from repro_torch.core.mesh import (copy_to_model, mesh_all_gather,
+                                   mesh_max, mesh_sum, model_coord,
+                                   model_ranks)
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.models.layers import (Params, apply_rope, dense, dense_init,
-                                       linear, linear_init, rmsnorm,
-                                       rmsnorm_init)
+                                       linear, linear_col, linear_init,
+                                       linear_row, rmsnorm, rmsnorm_init)
 
 NEG_INF = -1e30
 
@@ -49,18 +64,57 @@ def gqa_init(gen: torch.Generator, cfg, *, dtype=torch.float32) -> Params:
     return p
 
 
+def head_split(cfg, index: int, m: int) -> Tuple[int, int, int, int]:
+    """(q_lo, q_hi, kv_lo, kv_hi): the query heads of position `index` of
+    a model axis of `m`, and the KV heads they read.  ValueError where the
+    heads do not split evenly."""
+    h, hkv = cfg.n_heads, cfg.n_kv_heads
+    n_rep = h // hkv
+    if h % m:
+        raise ValueError(f"{h} heads do not divide a model axis of {m}")
+    q_lo, q_hi = index * h // m, (index + 1) * h // m
+    kv_lo, kv_hi = q_lo // n_rep, (q_hi - 1) // n_rep + 1
+    if (q_hi - q_lo) % (kv_hi - kv_lo) \
+            or (q_hi - q_lo) // (kv_hi - kv_lo) not in (n_rep, q_hi - q_lo):
+        raise ValueError(f"{h} heads over {hkv} KV heads do not split over "
+                         f"a model axis of {m}")
+    return q_lo, q_hi, kv_lo, kv_hi
+
+
 def _qkv(p: Params, cfg, x: torch.Tensor, positions: torch.Tensor):
+    """q [B, S, H', Dh], k and v [B, S, Hkv', Dh]: every head, or under a
+    model axis over ranks the rank's (`head_split`); a site's n_rep is
+    q.shape[2] // k.shape[2]."""
     b, s, _ = x.shape
     h, hkv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.d_head
-    q = linear(p["wq"], x).reshape(b, s, h, dh)
-    k = linear(p["wk"], x).reshape(b, s, hkv, dh)
-    v = linear(p["wv"], x).reshape(b, s, hkv, dh)
+    mesh = model_ranks()
+    if mesh is None:
+        q = linear(p["wq"], x).reshape(b, s, h, dh)
+        k = linear(p["wk"], x).reshape(b, s, hkv, dh)
+        v = linear(p["wv"], x).reshape(b, s, hkv, dh)
+    else:
+        q_lo, q_hi, kv_lo, kv_hi = head_split(cfg, *model_coord(mesh))
+        q = linear_col(p["wq"], x, h * dh, q_lo * dh, q_hi * dh) \
+            .reshape(b, s, q_hi - q_lo, dh)
+        k, v = (linear_col(p[n], x, hkv * dh, kv_lo * dh, kv_hi * dh)
+                .reshape(b, s, kv_hi - kv_lo, dh) for n in ("wk", "wv"))
     if cfg.qk_norm:
-        q = rmsnorm(p["q_norm"], q)
-        k = rmsnorm(p["k_norm"], k)
+        qn, kn = p["q_norm"], p["k_norm"]
+        if mesh is not None:
+            # the rank's heads: each rank's share of the norms' gradients
+            qn, kn = ({"scale": copy_to_model(n["scale"], mesh)}
+                      for n in (qn, kn))
+        q = rmsnorm(qn, q)
+        k = rmsnorm(kn, k)
     q = apply_rope(q, positions, cfg.rope_theta)
     k = apply_rope(k, positions, cfg.rope_theta)
     return q, k, v
+
+
+def _out(p: Params, cfg, out: torch.Tensor) -> torch.Tensor:
+    """wo over the heads' outputs [B, S, H' * Dh] (row-parallel under a
+    model axis over ranks)."""
+    return linear_row(p["wo"], out, cfg.n_heads * cfg.d_head, cfg.d_model)
 
 
 def _sdpa(q, k, v, mask, n_rep: int):
@@ -102,28 +156,35 @@ def _use_flash(cfg, s: int, window: int, device) -> bool:
 
 def gqa_attend(p: Params, cfg, x: torch.Tensor, positions: torch.Tensor,
                window: int = 0) -> Tuple[torch.Tensor, Dict]:
-    """Full-sequence causal attention (prefill)."""
+    """Full-sequence causal attention (prefill); the cache holds the
+    site's heads (under a model axis over ranks, the rank's KV heads)."""
     b, s, _ = x.shape
     q, k, v = _qkv(p, cfg, x, positions)
+    n_rep = q.shape[2] // k.shape[2]
     if _use_flash(cfg, s, window, x.device):
         out = flash_attention(
             q.transpose(1, 2).contiguous(), k.transpose(1, 2).contiguous(),
-            v.transpose(1, 2).contiguous(), True,
-            cfg.n_heads // cfg.n_kv_heads).transpose(1, 2)
+            v.transpose(1, 2).contiguous(), True, n_rep).transpose(1, 2)
     else:
         mask = causal_mask(s, window, x.device)[None]
-        out = _sdpa(q, k, v, mask, cfg.n_heads // cfg.n_kv_heads)
-    return linear(p["wo"], out.reshape(b, s, -1)), {"k": k, "v": v}
+        out = _sdpa(q, k, v, mask, n_rep)
+    return _out(p, cfg, out.reshape(b, s, -1)), {"k": k, "v": v}
 
 
 def gqa_decode(p: Params, cfg, x: torch.Tensor, cache: Dict,
-               pos: torch.Tensor, window: int = 0
+               pos: torch.Tensor, window: int = 0, ctx_len: int = 0
                ) -> Tuple[torch.Tensor, Dict]:
     """One-token decode. x [B,1,D]; pos [B] current index into the cache.
 
     The new key and value are added at `pos` as the reference adds them
     (a one-hot update onto the zeroed slot), into new cache tensors; a
-    position past the cache writes nothing."""
+    position past the cache writes nothing.  Under a model axis over
+    ranks `cache` is the rank's block of a cache of `ctx_len` positions
+    (flash-decoding; see the module docstring)."""
+    mesh = model_ranks()
+    if mesh is not None:
+        return _gqa_decode_ranks(p, cfg, x, cache, pos, window, ctx_len,
+                                 mesh)
     b = x.shape[0]
     q, k_new, v_new = _qkv(p, cfg, x, pos[:, None])
     s_max = cache["k"].shape[1]
@@ -137,6 +198,79 @@ def gqa_decode(p: Params, cfg, x: torch.Tensor, cache: Dict,
         mask &= (pos[:, None, None] - j[None, None, :]) < window
     out = _sdpa(q, k, v, mask, cfg.n_heads // cfg.n_kv_heads)
     return linear(p["wo"], out.reshape(b, 1, -1)), {"k": k, "v": v}
+
+
+def all_heads(cfg, blocks: torch.Tensor, m: int, kv: bool, dim: int = 2
+              ) -> torch.Tensor:
+    """The heads of every model position from their blocks concatenated
+    along `dim` in mesh order (`head_split`'s heads of each): the query
+    heads, or each KV head once, from the first position that holds it."""
+    picks, at = [], 0
+    for index in range(m):
+        q_lo, q_hi, kv_lo, kv_hi = head_split(cfg, index, m)
+        lo, hi = (kv_lo, kv_hi) if kv else (q_lo, q_hi)
+        for head in range(lo, hi):
+            if head == len(picks):
+                picks.append(at + head - lo)
+        at += hi - lo
+    return blocks.index_select(dim, torch.tensor(picks,
+                                                 device=blocks.device))
+
+
+def _gqa_decode_ranks(p, cfg, x, cache, pos, window, ctx_len, mesh):
+    b = x.shape[0]
+    index, m = model_coord(mesh)
+    q_lo, q_hi, kv_lo, kv_hi = head_split(cfg, index, m)
+    q, k_new, v_new = _qkv(p, cfg, x, pos[:, None])
+    # every head's q and new K/V, in one all-gather
+    width = [t.shape[2] * t.shape[3] for t in (q, k_new, v_new)]
+    got = mesh_all_gather(torch.cat([t.reshape(b, -1) for t in
+                                     (q, k_new, v_new)], -1)[None],
+                          mesh, ("model",), 0)
+    q_all, k_all, v_all = (all_heads(cfg, t.reshape(m, b, 1, -1, cfg.d_head)
+                                     .permute(1, 2, 0, 3, 4)
+                                     .reshape(b, 1, -1, cfg.d_head),
+                                     m, kv)
+                           for t, kv in zip(got.split(width, -1),
+                                            (False, True, True)))
+    s_loc = cache["k"].shape[1]
+    cut = s_loc != ctx_len
+    lo = index * s_loc if cut else 0
+    j = lo + torch.arange(s_loc, device=x.device)
+    onehot = (j[None, :] == pos[:, None]).to(cache["k"].dtype)[:, :, None,
+                                                               None]
+    k = cache["k"] + onehot * k_all.to(cache["k"].dtype)
+    v = cache["v"] + onehot * v_all.to(cache["v"].dtype)
+    mask = j[None, None, :] <= pos[:, None, None]
+    if window:
+        mask &= (pos[:, None, None] - j[None, None, :]) < window
+    if not cut:                          # a whole cache: the rank's heads
+        out = _sdpa(q, k[:, :, kv_lo:kv_hi], v[:, :, kv_lo:kv_hi], mask,
+                    q.shape[2] // (kv_hi - kv_lo))
+    else:
+        out = _merged_sdpa(q_all, k, v, mask, cfg, mesh)[:, :, q_lo:q_hi]
+    return _out(p, cfg, out.reshape(b, 1, -1)), {"k": k, "v": v}
+
+
+def _merged_sdpa(q, k, v, mask, cfg, mesh):
+    """`_sdpa` of every head over a cache cut over the model group's
+    positions: the softmax's max and sum over all positions from the
+    ranks' (a MAX and a SUM all-reduce), each rank's weights rounded to
+    v's dtype as `_sdpa` rounds them, the weighted values summed over the
+    group in float32 and rounded once."""
+    b, sq, h, dh = q.shape
+    hkv = k.shape[2]
+    qg = q.reshape(b, sq, hkv, h // hkv, dh)
+    logits = torch.einsum("bqgrd,bkgd->bgrqk", qg.to(torch.float32),
+                          k.to(torch.float32)) * (1.0 / math.sqrt(dh))
+    logits = logits.masked_fill(~mask[:, None, None, :, :], NEG_INF)
+    top = mesh_max([logits.amax(-1, keepdim=True)], mesh)[0]
+    e = torch.exp(logits - top)
+    w = e / mesh_sum([e.sum(-1, keepdim=True)], mesh, ("model",))[0]
+    out = torch.einsum("bgrqk,bkgd->bqgrd", w.to(v.dtype).to(torch.float32),
+                       v.to(torch.float32))
+    out = mesh_sum([out.contiguous()], mesh, ("model",))[0]
+    return out.reshape(b, sq, h, dh).to(q.dtype)
 
 
 def gqa_empty_cache(cfg, batch: int, s_max: int, dtype=torch.bfloat16,

@@ -13,9 +13,14 @@ cache for one-token serving and returns (x, cache).  Families:
                           the encoder's output + SwiGLU MLP
 
 The zamba2 hybrid's shared block is a dense block applied at every site,
-assembled in `transformer.py`.  `aux` holds the auxiliary losses a block
-adds to the training loss; only the MoE block sets them (routing), the
-others return `ZERO_AUX`.  The reference's `_sp` (a sequence-parallel
+assembled in `transformer.py`.  Under a `model` axis over ranks
+(`core.mesh.model_ranks`) the dense block is Megatron's: each sublayer's
+normed input passes `copy_to_model` before its column-parallel products,
+and its row-parallel product (`wo`, `down`) ends in the sum over the
+model group, so the residual stream stays whole on every rank.  The
+other blocks raise ValueError there, naming their ROADMAP items.
+`aux` holds the auxiliary losses a block adds to the training loss;
+only the MoE block sets them (routing), the others return `ZERO_AUX`.  The reference's `_sp` (a sequence-parallel
 sharding constraint on the residual stream) is the identity on one card
 and has no counterpart.
 """
@@ -25,6 +30,8 @@ from typing import Dict, Tuple
 
 import torch
 
+from repro_torch.core.mesh import copy_to_model, model_ranks, \
+    refuse_family
 from repro_torch.models import attention as attn
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import ssm as ssm_mod
@@ -47,17 +54,26 @@ def dense_block_init(gen: torch.Generator, cfg, *, dtype=torch.float32
                             bitlinear_on=bl)}
 
 
+def _normed(norm: Params, x):
+    """rmsnorm(x), through `copy_to_model` under a model axis over ranks
+    (the input of the sublayer's column-parallel products)."""
+    h = rmsnorm(norm, x)
+    mesh = model_ranks()
+    return h if mesh is None else copy_to_model(h, mesh)
+
+
 def dense_block(p: Params, cfg, x, positions, *, window: int = 0,
                 causal: bool = True) -> Tuple[torch.Tensor, Dict, Dict]:
+    refuse_family(cfg)
     if causal:
         a, cache = attn.gqa_attend(p["attn"], cfg,
-                                   rmsnorm(p["attn_norm"], x), positions,
+                                   _normed(p["attn_norm"], x), positions,
                                    window)
     else:                   # the encoder: full bidirectional attention
         a, cache = _bidir_attend(p["attn"], cfg, rmsnorm(p["attn_norm"], x),
                                  positions)
     x = x + a
-    x = x + mlp(p["mlp"], rmsnorm(p["mlp_norm"], x))
+    x = x + mlp(p["mlp"], _normed(p["mlp_norm"], x), cfg.d_ff)
     return x, cache, ZERO_AUX
 
 
@@ -69,12 +85,15 @@ def _bidir_attend(p: Params, cfg, x, positions):
     return linear(p["wo"], out.reshape(b, s, -1)), {"k": k, "v": v}
 
 
-def dense_block_decode(p: Params, cfg, x, cache, pos, *, window: int = 0
-                       ) -> Tuple[torch.Tensor, Dict]:
-    a, cache = attn.gqa_decode(p["attn"], cfg, rmsnorm(p["attn_norm"], x),
-                               cache, pos, window)
+def dense_block_decode(p: Params, cfg, x, cache, pos, *, window: int = 0,
+                       ctx_len: int = 0) -> Tuple[torch.Tensor, Dict]:
+    """`ctx_len`: the cache's whole length, which a model axis over ranks
+    needs to tell a sequence-cut cache from a whole one."""
+    refuse_family(cfg)
+    a, cache = attn.gqa_decode(p["attn"], cfg, _normed(p["attn_norm"], x),
+                               cache, pos, window, ctx_len)
     x = x + a
-    x = x + mlp(p["mlp"], rmsnorm(p["mlp_norm"], x))
+    x = x + mlp(p["mlp"], _normed(p["mlp_norm"], x), cfg.d_ff)
     return x, cache
 
 
@@ -91,6 +110,7 @@ def moe_block_init(gen: torch.Generator, cfg, *, dtype=torch.float32
 
 def moe_block(p: Params, cfg, x, positions, *, window: int = 0
               ) -> Tuple[torch.Tensor, Dict, Dict]:
+    refuse_family(cfg)
     at = attn.mla_attend if cfg.mla else attn.gqa_attend
     a, cache = at(p["attn"], cfg, rmsnorm(p["attn_norm"], x), positions,
                   window)
@@ -101,6 +121,7 @@ def moe_block(p: Params, cfg, x, positions, *, window: int = 0
 
 def moe_block_decode(p: Params, cfg, x, cache, pos, *, window: int = 0
                      ) -> Tuple[torch.Tensor, Dict]:
+    refuse_family(cfg)
     at = attn.mla_decode if cfg.mla else attn.gqa_decode
     a, cache = at(p["attn"], cfg, rmsnorm(p["attn_norm"], x), cache, pos,
                   window)
@@ -119,12 +140,14 @@ def ssm_block_init(gen: torch.Generator, cfg, *, dtype=torch.float32
 
 def ssm_block(p: Params, cfg, x, positions=None, *, window: int = 0
               ) -> Tuple[torch.Tensor, Dict, Dict]:
+    refuse_family(cfg)
     y, cache = ssm_mod.ssm_mix(p["mixer"], cfg, rmsnorm(p["norm"], x))
     return x + y, cache, ZERO_AUX
 
 
 def ssm_block_decode(p: Params, cfg, x, cache, pos=None, *, window: int = 0
                      ) -> Tuple[torch.Tensor, Dict]:
+    refuse_family(cfg)
     y, cache = ssm_mod.ssm_decode(p["mixer"], cfg, rmsnorm(p["norm"], x),
                                   cache)
     return x + y, cache
@@ -144,6 +167,7 @@ def xdec_block_init(gen: torch.Generator, cfg, *, dtype=torch.float32
 
 def xdec_block(p: Params, cfg, x, positions, enc, *, window: int = 0
                ) -> Tuple[torch.Tensor, Dict, Dict]:
+    refuse_family(cfg)
     a, self_cache = attn.gqa_attend(p["self"], cfg,
                                     rmsnorm(p["self_norm"], x), positions,
                                     window)
@@ -157,6 +181,7 @@ def xdec_block(p: Params, cfg, x, positions, enc, *, window: int = 0
 
 def xdec_block_decode(p: Params, cfg, x, cache, pos, *, window: int = 0
                       ) -> Tuple[torch.Tensor, Dict]:
+    refuse_family(cfg)
     a, self_cache = attn.gqa_decode(p["self"], cfg,
                                     rmsnorm(p["self_norm"], x),
                                     cache["self"], pos, window)

@@ -21,6 +21,20 @@ layout is kept: shadow weights are [d_in, d_out], packed weights
 Every route computes the exact integer dot first, rounds it once to the
 activation dtype, then multiplies by `alpha.to(x.dtype)` and adds the
 bias, in the reference's order, so the routes agree bit for bit.
+
+Under a `model` axis over ranks (`core.mesh.model_ranks`) each rank holds
+its block of every weight by the reference's specs, and the products are
+Megatron's: `linear_col` (column-parallel: the replicated input against
+the rank's output columns) and `linear_row` (row-parallel: the rank's
+block of the input features against its rows, the partials summed over
+the model group in float32 and rounded once to the activation dtype;
+BitLinear's alpha = mean|w| over the whole d_in from the group's sum of
+|w|).  A leaf that the specs do not cut the way its product wants (a
+fallback spec, replication, or a column range off the block boundaries)
+is gathered whole and the rank takes the part it needs; its gradient is
+then summed over the group.  The packed `down` layer is cut over its
+output, so its input is gathered over the group first.  With no model
+axis over ranks both are `linear`.
 """
 from __future__ import annotations
 
@@ -33,6 +47,9 @@ import numpy as np
 import torch
 from torch import nn
 
+from repro_torch.core.mesh import (copy_to_model, gather_from_model,
+                                   model_coord, model_ranks,
+                                   reduce_from_model)
 from repro_torch.core.subarray import as_words
 from repro_torch.device import resolve_device
 from repro_torch.kernels import ops as kops
@@ -174,6 +191,41 @@ def bitlinear(params: Params, x: torch.Tensor) -> torch.Tensor:
     return y
 
 
+def row_alpha(rows: torch.Tensor, d_in: int, mesh) -> torch.Tensor:
+    """alpha [d_out] of a BitLinear whose rows [d_in / |model|, d_out] are
+    cut over the model group: sum|w| in float64 over the group, divided
+    by d_in, rounded once to the weights' dtype."""
+    total = reduce_from_model(rows.abs().to(torch.float64).sum(0), mesh)
+    return (total / d_in).to(rows.dtype)
+
+
+def pack_bitlinear_rows(params: Params, mesh) -> Params:
+    """`pack_bitlinear` of a row-parallel layer's shadow weights [..., d_in
+    / |model|, d_out] (this rank's rows; stacked ones layer by layer) into
+    the packed spec's block, cut over d_out: the rows gathered over the
+    model group, the rank's output columns packed over the whole d_in,
+    alpha the row product's (`row_alpha`), so the packed and the shadow
+    products agree bit for bit."""
+    w = params["bkernel"].detach()
+    if w.dim() > 2:
+        return tree_stack([pack_bitlinear_rows(tree_slice(params, i), mesh)
+                           for i in range(w.shape[0])])
+    index, m = model_coord(mesh)
+    d_in, d_out = w.shape[0] * m, w.shape[1]
+    if d_out % m:
+        raise ValueError(f"{d_out} output features do not divide a model "
+                         f"axis of {m}")
+    lo, hi = index * d_out // m, (index + 1) * d_out // m
+    whole = gather_from_model(w, mesh, 0)
+    out = {"w_packed": kops.pack_signs(whole[:, lo:hi].T.contiguous()),
+           "alpha": row_alpha(w, d_in, mesh)[lo:hi],
+           "k_bits": int(d_in)}
+    if "bias" in params:
+        b = params["bias"].detach()
+        out["bias"] = b if b.shape[0] != d_out else b[lo:hi]
+    return out
+
+
 def pack_bitlinear(params: Params) -> Params:
     """Dense shadow weights -> packed serving weights: w_packed [d_out,
     ceil(d_in/32)] int32 sign words, alpha [d_out], k_bits = d_in.
@@ -228,6 +280,133 @@ def linear(params: Params, x: torch.Tensor) -> torch.Tensor:
     return dense(params, x)
 
 
+# --- Megatron's column- and row-parallel products ----------------------------
+
+def _whole(t: torch.Tensor, shape, mesh) -> torch.Tensor:
+    """The whole leaf of `shape` from this rank's block `t` (cut over
+    "model" on at most one dim), for a use in which each rank takes its
+    own part: gathered where cut, and its gradient summed over the
+    model group."""
+    cut = [d for d, (a, b) in enumerate(zip(t.shape, shape)) if a != b]
+    if len(cut) > 1 or (cut and t.shape[cut[0]] * model_coord(mesh)[1]
+                        != shape[cut[0]]):
+        raise ValueError(f"a block {tuple(t.shape)} of a leaf "
+                         f"{tuple(shape)} is not a model-axis cut")
+    if cut:
+        t = gather_from_model(t, mesh, cut[0])
+    return copy_to_model(t, mesh)
+
+
+def part_of(t: torch.Tensor, shape, dim: int, lo: int, hi: int, mesh
+            ) -> torch.Tensor:
+    """Elements [lo, hi) along `dim` of the leaf of `shape` whose block
+    this rank holds as `t`: the block itself where the leaf is cut there
+    into exactly that block, else a slice of the whole leaf."""
+    index, m = model_coord(mesh)
+    width = shape[dim] // m
+    if t.shape[dim] * m == shape[dim] \
+            and tuple(t.shape[:dim]) + tuple(t.shape[dim + 1:]) \
+            == tuple(shape[:dim]) + tuple(shape[dim + 1:]) \
+            and (lo, hi) == (index * width, (index + 1) * width):
+        return t
+    return _whole(t, shape, mesh).narrow(dim, lo, hi - lo)
+
+
+def _bias_part(params: Params, d_out: int, lo: int, hi: int, mesh):
+    return ({"bias": part_of(params["bias"], (d_out,), 0, lo, hi, mesh)}
+            if "bias" in params else {})
+
+
+def linear_col(params: Params, x: torch.Tensor, d_out: int,
+               lo: Optional[int] = None, hi: Optional[int] = None
+               ) -> torch.Tensor:
+    """Column-parallel `linear` of a [d_in, d_out] layer (packed: [d_out,
+    W]): the replicated input x [..., d_in] against output columns [lo,
+    hi) (default: this rank's block of d_out / |model|), [..., hi - lo].
+    The caller passes x through `copy_to_model`.  `linear` with no model
+    axis over ranks."""
+    mesh = model_ranks()
+    if mesh is None:
+        return linear(params, x)
+    index, m = model_coord(mesh)
+    if lo is None:
+        if d_out % m:
+            raise ValueError(f"{d_out} output features do not divide a "
+                             f"model axis of {m}")
+        lo, hi = index * d_out // m, (index + 1) * d_out // m
+    d_in = x.shape[-1]
+    if "w_packed" in params:
+        w = params["w_packed"]
+        packed = {"w_packed": part_of(w, (d_out, w.shape[-1]), 0, lo, hi,
+                                      mesh),
+                  "alpha": part_of(params["alpha"], (d_out,), 0, lo, hi,
+                                   mesh),
+                  **_bias_part(params, d_out, lo, hi, mesh)}
+        return bitlinear_packed(packed, x, d_in)
+    key = "bkernel" if "bkernel" in params else "kernel"
+    cols = {key: part_of(params[key], (d_in, d_out), 1, lo, hi, mesh),
+            **_bias_part(params, d_out, lo, hi, mesh)}
+    return bitlinear(cols, x) if key == "bkernel" else dense(cols, x)
+
+
+def linear_row(params: Params, x: torch.Tensor, d_in: int, d_out: int
+               ) -> torch.Tensor:
+    """Row-parallel `linear` of a [d_in, d_out] layer: x [..., d_in /
+    |model|] is this rank's block of the input features, the result
+    [..., d_out] the whole output on every rank.  Shadow and dense
+    weights: the rank's rows, the partial products summed over the model
+    group in float32 and rounded once to x's dtype.  Packed weights (cut
+    over d_out): x gathered over the group, the rank's output columns,
+    gathered.  `linear` with no model axis over ranks."""
+    mesh = model_ranks()
+    if mesh is None:
+        return linear(params, x)
+    index, m = model_coord(mesh)
+    if x.shape[-1] * m != d_in:
+        raise ValueError(f"a row-parallel input of {x.shape[-1]} features "
+                         f"is not a block of {d_in} over {m} ranks")
+    if "w_packed" in params:
+        x_all = gather_from_model(x, mesh, -1)
+        if params["w_packed"].shape[0] == d_out:     # replicated
+            return bitlinear_packed(params, x_all, d_in)
+        return gather_from_model(linear_col(params, x_all, d_out), mesh, -1)
+    lo, hi = index * x.shape[-1], (index + 1) * x.shape[-1]
+    key = "bkernel" if "bkernel" in params else "kernel"
+    rows = part_of(params[key], (d_in, d_out), 0, lo, hi, mesh)
+    if key == "kernel":
+        part = x.to(torch.float32) @ rows.to(x.dtype).to(torch.float32)
+        y = reduce_from_model(part, mesh).to(x.dtype)
+    else:
+        dot, alpha = row_bitlinear_parts(rows, x, d_in, mesh)
+        y = dot.to(x.dtype) * alpha.to(x.dtype)
+    if "bias" in params:
+        b = params["bias"]
+        y = y + (b if b.shape[0] == d_out
+                 else gather_from_model(b, mesh, 0)).to(x.dtype)
+    return y
+
+
+def row_bitlinear_parts(rows: torch.Tensor, x: torch.Tensor, d_in: int,
+                        mesh) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(the ±1 dot [..., d_out] float32, alpha [d_out] in the weights'
+    dtype) of a row-parallel BitLinear from this rank's rows [d_in /
+    |model|, d_out] and input block x: each rank's partial dot is an
+    integer below 2**24 in float32 (from the DRIM fleet inside a
+    `serving_engine` scope), so their sum over the model group is the
+    one-process dot exactly; alpha = mean|w| over the whole d_in from the
+    group's sum of |w|, in float64 and rounded once: the correctly rounded
+    mean.  (The one-process float32 `mean` is not: it sums in its own
+    order, up to 3 float32 ulps from the exact mean at these widths, and
+    no split of the rows can repeat that order.)"""
+    alpha = row_alpha(rows, d_in, mesh)
+    if _SERVING.get() is not None:
+        part = _drim_gemm(x, kops.sign_bits(rows).T).to(torch.float32)
+    else:
+        part = _ste_sign(x.to(torch.float32)) \
+            @ _ste_sign(rows).to(torch.float32)
+    return reduce_from_model(part, mesh), alpha
+
+
 # --- rotary embeddings -------------------------------------------------------
 
 def rope_frequencies(d_head: int, theta: float, device=None) -> torch.Tensor:
@@ -270,9 +449,17 @@ def silu(x: torch.Tensor) -> torch.Tensor:
     return x * torch.reciprocal(1 + torch.exp(-x))
 
 
-def mlp(params: Params, x: torch.Tensor) -> torch.Tensor:
-    return linear(params["down"],
-                  silu(linear(params["gate"], x)) * linear(params["up"], x))
+def mlp(params: Params, x: torch.Tensor, d_ff: Optional[int] = None
+        ) -> torch.Tensor:
+    """The SwiGLU MLP; under a model axis over ranks (`d_ff` given, x
+    through `copy_to_model`) gate and up are column-parallel and down is
+    row-parallel."""
+    if d_ff is None or model_ranks() is None:
+        return linear(params["down"], silu(linear(params["gate"], x))
+                      * linear(params["up"], x))
+    h = silu(linear_col(params["gate"], x, d_ff)) \
+        * linear_col(params["up"], x, d_ff)
+    return linear_row(params["down"], h, d_ff, x.shape[-1])
 
 
 class BitLinear(nn.Module):

@@ -55,7 +55,7 @@ import numpy as np
 import torch
 
 from repro_torch.core.mesh import ambient_mesh, ambient_ranks, axis_size, \
-    dp_axes, mesh_sum
+    dp_axes, mesh_sum, refuse_family
 from repro_torch.models.layers import Params, dense, dense_init, linear, \
     linear_init, silu
 
@@ -327,9 +327,11 @@ def dispatch_mode(cfg, s: int, b: int = 1) -> str:
     mode = getattr(cfg, "moe_dispatch", "ep")
     if mode == "ep":
         # over ranks each process holds its own rows and the model axis
-        # is 1 (a model axis over ranks is ROADMAP Queue 1 item 15.2):
-        # EP with one model shard is the grouped dispatch bit for bit
+        # is 1 (the MoE under a model axis over ranks, whose expert banks
+        # are cut over it, raises: ROADMAP Queue 1 item 15.3): EP with
+        # one model shard is the grouped dispatch bit for bit
         mesh = ambient_mesh()
+        refuse_family(cfg)
         if mesh is not None and mesh.ranks is None \
                 and _ep_applicable(cfg, mesh, b, s):
             return "ep"

@@ -40,9 +40,24 @@ training, `cfg.remat` wraps each layer (the hybrid: each group) in
 `jax.checkpoint`: the backward runs that forward again, so a dense step
 runs the flash forward kernel twice per layer.  The blocks' auxiliary
 losses (MoE routing) are summed over the layers into `train_loss`.
+
+Under a `model` axis over ranks (`core.mesh.model_ranks`; the dense
+family only, the others raise naming their ROADMAP items) the embedding
+is a vocab-parallel lookup, the head's logits are the rank's vocabulary
+block (the pad mask at the global column), and `train_loss` is the
+vocab-parallel cross-entropy: the row max by a MAX all-reduce, the sum of
+exps and the target logit (from the rank that holds it) by sums over the
+model group, never a [B, S, V] gather.  Over ranks `prefill` and
+`decode_step` take the global batch, run the rank's rows (cut over the
+data axes) and return the whole [B, 1, V] logits on every rank (the last
+position gathered), so every rank samples the same token; their caches
+are the rank's blocks of `runtime.sharding.cache_pspecs` (cut over the
+sequence: prefill re-lays its head-cut K/V into them), and
+`empty_caches` gives those blocks.
 """
 from __future__ import annotations
 
+import contextlib
 import functools
 from typing import Any, Dict, Tuple
 
@@ -50,13 +65,19 @@ import numpy as np
 import torch
 from torch.utils.checkpoint import checkpoint
 
-from repro_torch.core.mesh import ambient_ranks, mesh_sum
+from repro_torch.core.mesh import (PartitionSpec, ambient_mesh,
+                                   ambient_ranks, copy_to_model, dp_axes,
+                                   gather_from_model,
+                                   local_block, local_shape, mesh_all_gather,
+                                   mesh_max, mesh_sum, model_coord,
+                                   model_ranks, reduce_from_model,
+                                   refuse_family, vocab_lookup)
 from repro_torch.device import resolve_device
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import blocks as B
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.moe import ExpertBank
-from repro_torch.models.layers import Params, rmsnorm, rmsnorm_init
+from repro_torch.models.layers import Params, part_of, rmsnorm, rmsnorm_init
 from repro_torch.tree import (tree_leaves, tree_map, tree_slice, tree_stack,
                              tree_unstack)
 
@@ -237,8 +258,19 @@ def _embed(p, cfg, tokens: torch.Tensor, batch: Dict[str, Any]
     """Token embeddings; for vlm with `patch_embeds` in the batch, the
     patches then the token embeddings past them, as the reference
     concatenates them (a prompt shorter than the patches gives a
-    patch-long sequence there too)."""
-    x = p["embed"][tokens.long()].to(cfg.activation_dtype)
+    patch-long sequence there too).  Under a model axis over ranks: the
+    vocab-parallel lookup (a table cut over d_model by the specs'
+    fallback: the rank's columns, gathered)."""
+    table = p["embed"]
+    mesh = model_ranks()
+    if mesh is None or table.shape == (padded_vocab(cfg), cfg.d_model):
+        x = table[tokens.long()]
+    elif table.shape[1] == cfg.d_model:
+        x = vocab_lookup(table, tokens, model_coord(mesh)[0]
+                         * table.shape[0], mesh)
+    else:
+        x = gather_from_model(table[tokens.long()], mesh, -1)
+    x = x.to(cfg.activation_dtype)
     if cfg.family == "vlm" and "patch_embeds" in batch:
         pe = batch["patch_embeds"].to(x.dtype)
         x = torch.cat([pe, x[:, pe.shape[1]:, :]], dim=1)
@@ -246,6 +278,11 @@ def _embed(p, cfg, tokens: torch.Tensor, batch: Dict[str, Any]
 
 
 def _logits(p, cfg, x: torch.Tensor) -> torch.Tensor:
+    """The logits [..., V] float32, the pad columns masked; under a model
+    axis over ranks gathered from the ranks' vocabulary blocks."""
+    mesh = model_ranks()
+    if mesh is not None:
+        return gather_from_model(_vocab_logits(p, cfg, x, mesh)[0], mesh, -1)
     x = rmsnorm(p["final_norm"], x)
     logits = (x @ p["head"].to(x.dtype)).to(torch.float32)
     v_pad = p["head"].shape[-1]
@@ -255,14 +292,68 @@ def _logits(p, cfg, x: torch.Tensor) -> torch.Tensor:
     return logits
 
 
+def _vocab_logits(p, cfg, x: torch.Tensor, mesh) -> Tuple[torch.Tensor, int]:
+    """(this rank's block of the logits [..., V / |model|] float32, the
+    block's first column): the column-parallel head, its pad columns
+    masked at their global index."""
+    index, m = model_coord(mesh)
+    v = padded_vocab(cfg)
+    if v % m:
+        raise ValueError(f"a vocabulary of {v} does not divide a model "
+                         f"axis of {m}")
+    lo, hi = index * v // m, (index + 1) * v // m
+    x = copy_to_model(rmsnorm(p["final_norm"], x), mesh)
+    head = part_of(p["head"], (cfg.d_model, v), 1, lo, hi, mesh)
+    logits = (x @ head.to(x.dtype)).to(torch.float32)
+    if v != cfg.vocab_size:
+        col = torch.arange(lo, hi, device=x.device)
+        logits = logits.masked_fill(col >= cfg.vocab_size, -1e30)
+    return logits, lo
+
+
+def _vocab_parallel_ce(logits: torch.Tensor, labels: torch.Tensor, lo: int,
+                       mesh) -> torch.Tensor:
+    """logsumexp(logits) - logits[label] per token from this rank's
+    vocabulary block [lo, lo + V_loc): the max by a MAX all-reduce (no
+    gradient: the result does not depend on it), the sum of exps and the
+    target logit (zero on the ranks that do not hold it) by sums over
+    the model group."""
+    top = mesh_max([logits.detach().amax(-1)], mesh)[0]
+    sumexp = reduce_from_model(torch.exp(logits - top[..., None]).sum(-1),
+                               mesh)
+    local = labels - lo
+    inside = (local >= 0) & (local < logits.shape[-1])
+    picked = logits.gather(-1, local.clamp(0, logits.shape[-1] - 1)[..., None]
+                           )[..., 0] * inside.to(logits.dtype)
+    return top + torch.log(sumexp) - reduce_from_model(picked, mesh)
+
+
+def _rows(t: torch.Tensor, mesh) -> torch.Tensor:
+    """This rank's rows of a global batch tensor (cut over the data
+    axes, contiguous in rank order)."""
+    return t[local_block((t.shape[0],), PartitionSpec(dp_axes(mesh)),
+                         mesh)[0]]
+
+
+def _whole_rows(t: torch.Tensor, mesh) -> torch.Tensor:
+    """The global batch's rows from every data rank's (`_rows`'
+    inverse)."""
+    return mesh_all_gather(t, mesh, dp_axes(mesh), 0)
+
+
 # --- full-sequence forward (train / prefill) ---------------------------------
 
 def _zero_aux(device) -> Dict[str, torch.Tensor]:
     return {k: torch.tensor(v, device=device) for k, v in B.ZERO_AUX.items()}
 
 
-def _layer(block_fn, layer_p, cfg, x, positions, window, *extra):
-    x, _, aux = block_fn(layer_p, cfg, x, positions, *extra, window=window)
+def _layer(mesh, block_fn, layer_p, cfg, x, positions, window, *extra):
+    """A remat layer, inside the forward's ambient `mesh` (None: none):
+    the backward recomputes it on the autograd engine's thread, where the
+    forward's `with mesh:` is not in effect (on the card)."""
+    with (mesh if mesh is not None else contextlib.nullcontext()):
+        x, _, aux = block_fn(layer_p, cfg, x, positions, *extra,
+                             window=window)
     return x, aux
 
 
@@ -274,8 +365,8 @@ def _run_layers(p_layers, n: int, cfg, block_fn, x, positions, window, *,
     caches = []
     for layer_p in tree_unstack(p_layers, n):
         if remat:
-            x, aux_l = checkpoint(_layer, block_fn, layer_p, cfg, x,
-                                  positions, window, *extra,
+            x, aux_l = checkpoint(_layer, ambient_mesh(), block_fn, layer_p,
+                                  cfg, x, positions, window, *extra,
                                   use_reentrant=False)
         else:
             x, cache, aux_l = block_fn(layer_p, cfg, x, positions, *extra,
@@ -286,6 +377,7 @@ def _run_layers(p_layers, n: int, cfg, block_fn, x, positions, window, *,
 
 
 def _forward_full(p, cfg, batch: Dict[str, Any], *, with_cache: bool):
+    refuse_family(cfg)
     tokens = batch["tokens"]
     bsz, s = tokens.shape
     positions = torch.arange(s, device=tokens.device)[None, :] \
@@ -331,10 +423,15 @@ def _hybrid_full(p, cfg, x, positions, window, *, remat: bool,
         return h, tree_stack(m_caches), a_cache
 
     g_caches, s_caches = [], []
+    mesh = ambient_mesh()
+
+    def remat_group(gp, h):
+        with (mesh if mesh is not None else contextlib.nullcontext()):
+            return group(gp, h)[0]
+
     for group_p in tree_unstack(p["mamba_groups"], groups):
         if remat:
-            x = checkpoint(lambda gp, h: group(gp, h)[0], group_p, x,
-                           use_reentrant=False)
+            x = checkpoint(remat_group, group_p, x, use_reentrant=False)
         else:
             x, m_cache, a_cache = group(group_p, x)
             g_caches.append(m_cache)
@@ -358,19 +455,25 @@ def train_loss(params, cfg, batch: Dict[str, Any]
     cross-entropy over labels >= 0 plus the auxiliary losses, with the
     reference's metrics (ce, aux_lb, aux_z, ntokens).  Inside a step over
     ranks (`core.mesh.ambient_ranks`) `batch` is this rank's rows and the
-    CE's denominator is the global batch's token count."""
+    CE's denominator is the global batch's token count; under a model
+    axis the CE is the vocab-parallel one."""
     x, aux, _ = _forward_full(params, cfg, batch, with_cache=False)
-    logits = _logits(params, cfg, x)                       # [B,S,V] f32
     labels = batch["labels"].long()
     mask = (labels >= 0).to(torch.float32)
     safe = labels.clamp_min(0)
-    lse = torch.logsumexp(logits, dim=-1)
-    ll = logits.gather(-1, safe[..., None])[..., 0]
+    tp = model_ranks()
+    if tp is None:
+        logits = _logits(params, cfg, x)                   # [B,S,V] f32
+        lse = torch.logsumexp(logits, dim=-1)
+        nll = lse - logits.gather(-1, safe[..., None])[..., 0]
+    else:
+        logits, lo = _vocab_logits(params, cfg, x, tp)     # [B,S,V/M]
+        nll = _vocab_parallel_ce(logits, safe, lo, tp)
     ntokens = mask.sum()
     ranks = ambient_ranks()
     if ranks is not None:
         ntokens = mesh_sum([ntokens], ranks)[0]
-    ce = ((lse - ll) * mask).sum() / ntokens.clamp_min(1.0)
+    ce = (nll * mask).sum() / ntokens.clamp_min(1.0)
     loss = ce + LB_COEF * aux["load_balance"] + Z_COEF * aux["router_z"]
     metrics = {"ce": ce, "aux_lb": aux["load_balance"],
                "aux_z": aux["router_z"], "ntokens": ntokens}
@@ -397,9 +500,34 @@ def prefill(params, cfg, batch: Dict[str, Any]) -> Tuple[torch.Tensor, Any]:
     (logits of the last position [B, 1, V] float32, caches: stacked
     [L, B, S, Hkv, Dh] keys and values (dense, GQA moe), MLA latents,
     [L, B, ...] SSM states (ssm), the hybrid's nested tree, or audio's
-    {"self", "cross"})."""
+    {"self", "cross"}).  Over ranks: the rank's rows run, the logits
+    come back whole, the caches as the rank's `cache_pspecs` blocks."""
+    ranks = ambient_ranks()
+    if ranks is not None:
+        batch = {k: _rows(v, ranks) for k, v in batch.items()}
     x, _, caches = _forward_full(params, cfg, batch, with_cache=True)
-    return _logits(params, cfg, x[:, -1:, :]), caches
+    logits = _logits(params, cfg, x[:, -1:, :])
+    if ranks is None:
+        return logits, caches
+    tp = model_ranks()
+    if tp is not None:
+        caches = {name: _sequence_cut(cfg, caches[name], tp)
+                  for name in ("k", "v")}
+    return _whole_rows(logits, ranks), caches
+
+
+def _sequence_cut(cfg, t: torch.Tensor, mesh) -> torch.Tensor:
+    """Stacked head-cut keys or values [L, B', S, Hkv', Dh] (each rank
+    its `head_split` KV heads) as the rank's block of the sequence-cut
+    cache [L, B', S / |model|, Hkv, Dh] (whole S where the axis does not
+    divide it, as `sanitize_spec` leaves it)."""
+    index, m = model_coord(mesh)
+    every = attn_mod.all_heads(cfg, mesh_all_gather(t, mesh, ("model",), 3),
+                               m, True, dim=3)
+    s = every.shape[2]
+    if s % m:
+        return every
+    return every[:, :, index * s // m:(index + 1) * s // m].contiguous()
 
 
 # --- decode ------------------------------------------------------------------
@@ -409,17 +537,29 @@ def decode_step(params, cfg, tokens: torch.Tensor, caches, pos: torch.Tensor,
     """tokens [B, 1]; pos [B] write index; ctx_len the cache length ->
     (logits [B, 1, V] float32, new caches).  Inside a
     `layers.serving_engine` scope the BitLinear GEMMs run on the DRIM
-    fleet."""
+    fleet.  Over ranks: the global tokens and positions, the rank's
+    cache blocks, the whole logits on every rank."""
+    ranks = ambient_ranks()
+    if ranks is not None:
+        logits, caches = _decode(params, cfg, _rows(tokens, ranks), caches,
+                                 _rows(pos, ranks), ctx_len)
+        return _whole_rows(logits, ranks), caches
+    return _decode(params, cfg, tokens, caches, pos, ctx_len)
+
+
+def _decode(params, cfg, tokens, caches, pos, ctx_len):
+    refuse_family(cfg)
     window = _window_for(cfg, ctx_len)
     x = _embed(params, cfg, tokens, {})
     if cfg.family == "hybrid":
         return _hybrid_decode(params, cfg, x, caches, pos, window)
     decode_fn = (B.xdec_block_decode if cfg.family == "audio"
                  else _block_fns(cfg)[2])
+    kw = {"ctx_len": ctx_len} if model_ranks() is not None else {}
     new_caches = []
     for i in range(cfg.n_layers):
         x, nc = decode_fn(tree_slice(params["layers"], i), cfg, x,
-                          tree_slice(caches, i), pos, window=window)
+                          tree_slice(caches, i), pos, window=window, **kw)
         new_caches.append(nc)
     return _logits(params, cfg, x), tree_stack(new_caches)
 
@@ -462,9 +602,19 @@ def empty_caches(cfg, batch: int, s_max: int, dtype=torch.bfloat16,
     r_kv] latents and [L, batch, s_max, dr] rope keys (`dtype`); ssm
     [L, batch, ...] float32 states; hybrid {"groups" [G, per, batch, ...],
     "shared" [G, batch, s_max, Hkv, Dh], "tail" [T, batch, ...] or None};
-    audio {"self": GQA, "cross": [L, batch, n_frames, H, Dh]}."""
+    audio {"self": GQA, "cross": [L, batch, n_frames, H, Dh]}.  Inside a
+    mesh of ranks, this rank's blocks of them (`cache_pspecs`)."""
     _check_family(cfg)
-    return _empty_caches(cfg, batch, s_max, dtype, resolve_device(device))
+    ranks = ambient_ranks()
+    if ranks is None:
+        return _empty_caches(cfg, batch, s_max, dtype,
+                             resolve_device(device))
+    refuse_family(cfg)
+    from repro_torch.runtime.sharding import cache_pspecs
+    whole = abstract_caches(cfg, batch, s_max, dtype)
+    return tree_map(lambda t, spec: torch.zeros(
+        local_shape(tuple(t.shape), spec, ranks), dtype=t.dtype,
+        device=resolve_device(device)), whole, cache_pspecs(ranks, whole))
 
 
 def abstract_caches(cfg, batch: int, s_max: int, dtype=torch.bfloat16):

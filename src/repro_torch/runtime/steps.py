@@ -17,26 +17,31 @@ puts a state on its shardings: on a mesh whose devices are all one
 device (the host mesh of one card, or of the CPU) each leaf moves whole
 to that device, so a 1x1 mesh changes no value.
 
-Over a mesh of ranks (`launch.mesh.cli_mesh` under torchrun: (W, 1)
-data x model) the step is data-parallel and computes the global-batch
-formula of the reference's pjit step on a W-device host mesh; only the
-float order differs:
+Over a mesh of ranks (`launch.mesh.cli_mesh` under torchrun: (D, M)
+data x model) the step computes the global-batch formula of the
+reference's pjit step on a (D, M) host mesh; only the float order
+differs:
 
   each rank takes its rows of the global batch (of each microbatch's
-    rows with `accum` > 1), contiguous, in rank order
-  its loss is its share of the global loss (`models.train_loss`)
-  the ranks' gradients are summed (`core.mesh.mesh_sum`)
-  ZeRO-1: each rank holds its block of every moment (`place`); AdamW
-    updates the rank's block of each param, and the blocks are put back
-    together by a broadcast from each owner (`core.mesh.mesh_gather`);
-    Adafactor and adam8bit, whose updates need the whole leaf, gather
-    the state, update whole leaves and keep the rank's block
-  --compress: the cut residuals are gathered, the whole summed gradient
-    is encoded and decoded, and each rank keeps its residuals' block
+    rows with `accum` > 1), contiguous, cut over the data axes alone
+  each rank holds its model block of every param (`place`; Megatron's
+    products and their collectives: `models`), and its loss is its data
+    share of the global loss (`models.train_loss`)
+  the gradients are summed over the data group (`core.mesh.mesh_sum`)
+  the global gradient norm sums the squares of the model-cut leaves over
+    the model group and counts each replicated leaf once
+  ZeRO-1: each rank holds its (model, data) block of every moment;
+    AdamW updates the rank's block of each param and the blocks are put
+    back together over the data group alone (`core.mesh.mesh_gather`),
+    so each rank keeps its model block; Adafactor and adam8bit, whose
+    updates need the whole leaf, gather the params, gradients and state
+    over both axes, update whole leaves and keep the rank's blocks
+  --compress: the gradients and the cut residuals are gathered whole,
+    the whole summed gradient is encoded and decoded, and each rank
+    keeps its residuals' block
 
-A `model` axis over ranks (cut params and their collectives) is ROADMAP
-Queue 1 item 15.2.  A mesh of distinct devices with no process group
-would need a process per device and raises.
+A mesh of distinct devices with no process group would need a process
+per device and raises.
 """
 from __future__ import annotations
 
@@ -47,8 +52,8 @@ import numpy as np
 import torch
 
 from repro_torch.core.mesh import (NamedSharding, PartitionSpec as P,
-                                   dp_axes, local_block, mesh_gather,
-                                   mesh_sum)
+                                   axis_size, dp_axes, local_block,
+                                   mesh_gather, mesh_sum, sub_block)
 from repro_torch.device import resolve_device
 from repro_torch.models import (abstract_params, decode_step as model_decode,
                                 init_params, lm_from_jax,
@@ -149,11 +154,11 @@ def state_pspecs(cfg, optimizer, mesh, compress: bool = False):
 def place(tree, shardings):
     """Every leaf of `tree` on its `NamedSharding`.  On a mesh of ranks
     each process keeps its own block of each leaf (`core.mesh.
-    local_block` of the leaf's spec: the ZeRO-1 moments cut over "data";
-    the params stay whole while the model axis is 1) on its own device.
-    On a mesh whose devices are all one device the leaf moves there whole
-    (a no-op when it is there already).  A mesh of distinct devices with
-    no process group would need a process per device: ValueError."""
+    local_block` of the leaf's spec: the params cut over "model", the
+    ZeRO-1 moments over "data" too) on its own device.  On a mesh whose
+    devices are all one device the leaf moves there whole (a no-op when
+    it is there already).  A mesh of distinct devices with no process
+    group would need a process per device: ValueError."""
     def one(leaf, sh):
         mesh = sh.mesh
         if mesh.ranks is not None:
@@ -172,21 +177,50 @@ def place(tree, shardings):
     return tree_map(one, tree, shardings)
 
 
-def cut(tree, specs, mesh):
-    """Each leaf's block on this rank (views; `place` without the move)."""
-    return tree_map(lambda t, s: t[local_block(tuple(t.shape), s, mesh)],
-                    tree, specs)
+def cut(tree, specs, mesh, within=None, shapes=None):
+    """Each leaf's block on this rank (views; `place` without the move).
+    With `within` (a tree of coarser specs) the leaves are already this
+    rank's blocks under those, and `shapes` gives the whole leaves."""
+    if within is None:
+        return tree_map(lambda t, s: t[local_block(tuple(t.shape), s, mesh)],
+                        tree, specs)
+    return tree_map(lambda t, s, w, whole: t[sub_block(
+        tuple(whole.shape), s, w, mesh)], tree, specs, within, shapes)
 
 
-def gather(tree, specs, shapes, mesh):
-    """The whole leaves of a tree of this rank's blocks (`cut`'s inverse,
-    over `core.mesh.mesh_gather`); `shapes` is a tree of the whole
-    leaves (tensors, meta ones included)."""
+def gather(tree, specs, shapes, mesh, axes=None):
+    """The leaves of a tree of this rank's blocks rebuilt over `axes`
+    (default: every axis, so the whole leaves; `cut`'s inverse, over
+    `core.mesh.mesh_gather`); `shapes` is a tree of the whole leaves
+    (tensors, meta ones included)."""
     leaves = tree_leaves(tree)
     whole = mesh_gather(leaves, [tuple(t.shape) for t in tree_leaves(shapes)],
-                        tree_leaves(specs), mesh)
+                        tree_leaves(specs), mesh, axes)
     of = {id(t): w for t, w in zip(leaves, whole)}
     return tree_map(lambda t: of[id(t)], tree)
+
+
+def _model_cut(spec, mesh) -> bool:
+    return any(e is not None and "model" in ((e,) if isinstance(e, str)
+                                             else e)
+               for e in spec) and axis_size(mesh, "model") > 1
+
+
+def tp_global_norm(grads, specs, mesh):
+    """The global norm of a gradient tree whose leaves are this rank's
+    model blocks under `specs`: each leaf's sum of squares in float32 (in
+    `optim.global_norm`'s leaf order), the model-cut leaves' summed over
+    the model group in one all-reduce, each replicated leaf's counted
+    once."""
+    leaves, leaf_specs = tree_leaves(grads), tree_leaves(specs)
+    sums = [torch.sum(torch.square(g.to(torch.float32))) for g in leaves]
+    cut_at = [i for i, sp in enumerate(leaf_specs) if _model_cut(sp, mesh)]
+    if cut_at:
+        total = mesh_sum([torch.stack([sums[i] for i in cut_at])], mesh,
+                         ("model",))[0]
+        for j, i in enumerate(cut_at):
+            sums[i] = total[j]
+    return torch.sqrt(sum(sums))
 
 
 def _sum_tree(tree, mesh):
@@ -278,39 +312,68 @@ def make_train_step(cfg, mesh=None, *, optimizer_name: str = "adamw",
             loss, metrics, grads = _loss_and_grads(cfg, params, mbs[0])
         if ranks is not None:
             grads = _sum_tree(grads, ranks)
+            return _rank_update(state, grads, loss, metrics)
 
         if compress:
-            errors = state["errors"]
-            if ranks is not None:
-                errors = gather(errors, specs["errors"], shapes["errors"],
-                                ranks)
-            grads, new_err = _ef_compress(grads, errors)
-            if ranks is not None:
-                new_err = tree_map(torch.Tensor.clone,
-                                   cut(new_err, specs["errors"], ranks))
+            grads, new_err = _ef_compress(grads, state["errors"])
         lr = warmup_cosine(state["step"], peak_lr=peak_lr, warmup=warmup,
                            total=total_steps)
         grad_norm = _global_norm(grads)
-        if ranks is None:
-            new_params, new_opt = optimizer.update(grads, state["opt"],
-                                                   params, lr)
-        elif optimizer_name == "adamw":
-            # elementwise given the clip's scale: the rank's blocks
+        new_params, new_opt = optimizer.update(grads, state["opt"], params,
+                                               lr)
+        return _finish(state, new_params, new_opt,
+                       new_err if compress else None, loss, metrics, lr,
+                       grad_norm)
+
+    def _rank_update(state, grads, loss, metrics):
+        """The update over a mesh of ranks from this rank's model blocks
+        of the data-summed gradients."""
+        params = state["params"]
+        pspec, model = specs["params"], ("model",)
+        whole = compress or optimizer_name != "adamw"
+        if whole:       # every update below but AdamW's needs whole leaves
+            grads = gather(grads, pspec, shapes["params"], ranks, model)
+        new_err = None
+        if compress:
+            errors = gather(state["errors"], specs["errors"],
+                            shapes["errors"], ranks)
+            grads, new_err = _ef_compress(grads, errors)
+            new_err = tree_map(torch.Tensor.clone,
+                               cut(new_err, specs["errors"], ranks))
+        lr = warmup_cosine(state["step"], peak_lr=peak_lr, warmup=warmup,
+                           total=total_steps)
+        grad_norm = (_global_norm(grads) if whole
+                     else tp_global_norm(grads, pspec, ranks))
+        if optimizer_name == "adamw":
+            # elementwise given the clip's scale: the rank's (model, data)
+            # blocks, put back together over the data group
             mspec = specs["opt"]["m"]
+            g_blocks = (cut(grads, mspec, ranks) if whole else
+                        cut(grads, mspec, ranks, pspec, shapes["params"]))
             blocks, new_opt = optimizer.update(
-                cut(grads, mspec, ranks), state["opt"],
-                cut(params, mspec, ranks), lr, norm=grad_norm)
-            new_params = gather(blocks, mspec, params, ranks)
+                g_blocks, state["opt"],
+                cut(params, mspec, ranks, pspec, shapes["params"]), lr,
+                norm=grad_norm)
+            new_params = gather(blocks, mspec, shapes["params"], ranks,
+                                dp_axes(ranks))
         else:
             # the update needs whole leaves (factored rows and columns,
             # a leaf's RMS, blocks over the flattened leaf)
-            whole = gather(state["opt"], specs["opt"], shapes["opt"], ranks)
-            new_params, new_opt = optimizer.update(grads, whole, params, lr)
+            full = gather(params, pspec, shapes["params"], ranks, model)
+            opt = gather(state["opt"], specs["opt"], shapes["opt"], ranks)
+            full, opt = optimizer.update(grads, opt, full, lr)
+            new_params = tree_map(torch.Tensor.clone,
+                                  cut(full, pspec, ranks))
             new_opt = tree_map(torch.Tensor.clone,
-                               cut(new_opt, specs["opt"], ranks))
+                               cut(opt, specs["opt"], ranks))
+        return _finish(state, new_params, new_opt, new_err, loss, metrics,
+                       lr, grad_norm)
+
+    def _finish(state, new_params, new_opt, new_err, loss, metrics, lr,
+                grad_norm):
         new_state = {"params": new_params, "opt": new_opt,
                      "step": state["step"] + 1}
-        if compress:
+        if new_err is not None:
             new_state["errors"] = new_err
         metrics = dict(metrics)
         metrics.update(loss=loss, lr=lr, grad_norm=grad_norm)

@@ -316,13 +316,17 @@ def scenario_refusals(out):
     for name, call in (
             ("serve", lambda: serve.main(["--arch", "drim-bnn",
                                           "--smoke-config", "--device",
-                                          "cpu"])),
+                                          "cpu", "--prompt-len", "16",
+                                          "--gen", "2"])),
+            ("moe_serve", lambda: serve.main([
+                "--arch", "deepseek-v3-671b", "--smoke-config", "--device",
+                "cpu", "--model-axis", "2"])),
             ("model_axis", lambda: lmesh.make_host_mesh(model_axis=2)),
             ("single", lambda: train.cli_mesh("single",
                                               torch.device("cpu")))):
         try:
-            call()
-            said[name] = None
+            got = call()
+            said[name] = ("ran", tuple(getattr(got, "shape", ())))
         except ValueError as err:
             said[name] = str(err)
     return said
@@ -345,19 +349,23 @@ def _rank_entry(rank, world, store, out_dir, names):
         dist.destroy_process_group()
 
 
-def run_world(world, names, tmp):
-    """Spawn `world` gloo ranks running the named scenarios; returns each
-    rank's {scenario: results}."""
+def run_world(world, names, tmp, entry=None, timeout=SPAWN_TIMEOUT_S):
+    """Spawn `world` gloo ranks running the named scenarios (`entry`, a
+    module's `_rank_entry`, default this one's); returns each rank's
+    {scenario: results}."""
     os.makedirs(tmp, exist_ok=True)
-    ctx = mp.start_processes(_rank_entry, args=(world, str(tmp / "store"),
-                                                str(tmp), names),
+    store = tmp / f"store{world}"
+    if store.exists():
+        store.unlink()
+    ctx = mp.start_processes(entry or _rank_entry,
+                             args=(world, str(store), str(tmp), names),
                              nprocs=world, join=False, start_method="spawn")
-    deadline = time.monotonic() + SPAWN_TIMEOUT_S
+    deadline = time.monotonic() + timeout
     try:
         while not ctx.join(timeout=1.0):
             if time.monotonic() > deadline:
                 raise AssertionError(f"the {world}-rank world took over "
-                                     f"{SPAWN_TIMEOUT_S} s")
+                                     f"{timeout} s")
     finally:
         for p in ctx.processes:
             if p.is_alive():
@@ -722,9 +730,13 @@ def test_a_save_by_two_hosts_is_published_once(world2):
 # --- refusals ----------------------------------------------------------------
 
 def test_serve_and_model_axes_refuse_ranks(world2):
+    """Over 2 ranks the dense family serves (on the (2, 1) mesh) and the
+    (1, 2) mesh exists; a MoE serve under a model axis of 2 and the
+    production mesh raise, naming their item and the rank count."""
     said = result(world2[1], "refusals")
-    assert "15.2" in said["serve"] and "2 ranks" in said["serve"]
-    assert "15.2" in said["model_axis"]
+    assert said["serve"] == ("ran", (4, 2))
+    assert said["model_axis"][0] == "ran"
+    assert "15.3" in said["moe_serve"] and "2 ranks" in said["moe_serve"]
     assert "needs 256 devices" in said["single"]
 
 
