@@ -261,6 +261,20 @@ Phases, each fatal on failure:
                 straight run at min(4, cards) ranks, a card each; with one
                 card, the NCCL error of two ranks on it
                 (`launch.rank_probe`; a line, not a failure);
+  12b. train families -- one arch of each remaining family trained at
+                its published width through `launch.train.main` under
+                `--mesh host` and deterministic algorithms
+                (TRAIN_FAMILIES, 6 steps each): mamba2-130m (4 x 1024),
+                zamba2-1.2b (4 x 512) and whisper-medium (4 x 256, 1500
+                frames) at full depth with AdamW, llava-next-34b at 2 of
+                its 60 layers (1 x 3072: 2880 patches, 192 text
+                positions) with AdamW, deepseek-v3-671b at 1 of its 61
+                layers with 32 of its 256 experts and adafactor (2 x
+                256): finite losses, the last below the first, s/step,
+                tokens/s, peak GB; then a step from the final state run
+                twice, bitwise the same loss and parameters, and 2 steps
+                under `torch.profiler` (launches a step, the idle share)
+                ("train families" lines);
   12c. tp   -- the train phase's run (TRAIN) and the serve phase's legs
                 over a model axis of 2 ranks on the one card: `python -m
                 torch.distributed.run --nproc-per-node 2 chip_smoke.py
@@ -290,23 +304,23 @@ Phases, each fatal on failure:
                 to one process's but where its top two logits lie within
                 TP_LOGIT_TOL, the prefill's last logits within it; each
                 rank's KV cache bytes half of one process's, its launches
-                the one-process leg's ("tp" lines).  With 2 or more
-                cards the training run over NCCL at (1, min(4, cards)), a
+                the one-process leg's ("tp" lines).  Then, in the same
+                worker, the MoE (TP_MOE_ARCHS): deepseek-v3 (MLA) and
+                kimi-k2 (GQA) served as the families phase serves them
+                (full width, 1 of 61 layers, all 256 / 384 experts, 128
+                / 192 a rank, each rank drawing only its blocks), tokens
+                and prefill logits held to that phase's one-process legs
+                as qwen3-14b's, each rank's expert and cache bytes half
+                of one process's, flash 0 / 1 a prefill, and a planted
+                fault (rank 1's expert-parallel partial left out of the
+                sum) failing that bound; deepseek-v3 trained at the
+                train-families cut (1 layer, 32 experts, 2 x 256, 6
+                steps) with AdamW 2e-5 on a donated state, step 1 within
+                TP_STEP1_TOL of the train-families leg's, the losses
+                finite and falling, each rank's param and moment bytes
+                its specs'.  With 2 or more cards the training run and
+                the MoE serving legs over NCCL at (1, min(4, cards)), a
                 card a rank; with one card a line;
-  12b. train families -- one arch of each remaining family trained at
-                its published width through `launch.train.main` under
-                `--mesh host` and deterministic algorithms
-                (TRAIN_FAMILIES, 6 steps each): mamba2-130m (4 x 1024),
-                zamba2-1.2b (4 x 512) and whisper-medium (4 x 256, 1500
-                frames) at full depth with AdamW, llava-next-34b at 2 of
-                its 60 layers (1 x 3072: 2880 patches, 192 text
-                positions) with AdamW, deepseek-v3-671b at 1 of its 61
-                layers with 32 of its 256 experts and adafactor (2 x
-                256): finite losses, the last below the first, s/step,
-                tokens/s, peak GB; then a step from the final state run
-                twice, bitwise the same loss and parameters, and 2 steps
-                under `torch.profiler` (launches a step, the idle share)
-                ("train families" lines);
   13. counts -- the launch counters are zeroed just before phase 3, before
                 each of phase 4's five legs and phase 4b's legs, before
                 phase 5, phase 6,
@@ -583,10 +597,13 @@ VERIFY_WALLS: list = []
 # launches).
 SERVED: dict = {}
 # the train phase's per-step losses, which the ranks phase is held to
+# ("losses"), and each train-families leg's (by arch), which the tp
+# phase's MoE training leg is held to
 TRAINED: dict = {}
 # the one-process serving legs the tp phase is held to: drim-bnn's "gpu
-# dense" and the families phase's qwen3-14b (tokens, prefill logits and
-# each token's top-two logit gap: `tap_values`)
+# dense" and the families phase's qwen3-14b, deepseek-v3 and kimi-k2
+# (tokens, prefill logits and each token's top-two logit gap:
+# `tap_values`)
 ONE_PROCESS: dict = {}
 CHAOS_DISARMED: dict = {}
 ARMED_KILL = "mid-graph kill"
@@ -1172,6 +1189,9 @@ def phase_flash(rng):
         (4, 12 // TP, 4 // TP, 256, 256, 64, 128, 128, True,
          torch.bfloat16),
         (4, 40 // TP, 8 // TP, 256, 256, 128, 128, 128, True,
+         torch.bfloat16),
+        # kimi-k2's prefill on a rank's heads (the tp phase's MoE leg)
+        (4, 64 // TP, 8 // TP, 256, 256, 128, 128, 128, True,
          torch.bfloat16)]
     record = None
     for b, h, hkv, sq, sk, d, bq, bk, causal, dt in cases:
@@ -3070,7 +3090,7 @@ def phase_families(wrappers):
                 lambda args=args, params=params: serve.run_serve(
                     args, params=params),
                 lambda _, n=n_flash: {"flash_attn_fwd": n} if n else {})
-        if arch == "qwen3-14b":
+        if arch == "qwen3-14b" or arch in TP_MOE_ARCHS:
             ONE_PROCESS[arch] = {"gen": gen, **tap_values(tap)}
         # under the default --mesh host every MoE prefill layer takes EP
         # with one model shard; decode (S == 1) never does
@@ -3607,9 +3627,9 @@ def phase_train(wrappers):
         placed = []
         place = train.place
 
-        def spy_place(tree, shardings):
+        def spy_place(tree, shardings, *shapes):
             placed.append(shardings)
-            return place(tree, shardings)
+            return place(tree, shardings, *shapes)
 
         def run():
             text = io.StringIO()
@@ -3802,18 +3822,16 @@ def ranks_worker(out: str, kind: str, model_axis: int = 1) -> int:
     OUT/resumed) and the "planted" fault (RANKS_PLANTED_STEPS steps: over
     data ranks rank 1's gradients zeroed before the sum, over a model
     axis rank 1 skipping layer 0's wo reduce); over a model axis and
-    gloo, then the tp serve legs (`tp_serve_legs`).  Each leg's launches,
-    collective calls, bytes and seconds in all and by axis (apart from
-    the checkpoint's gathers), peak bytes and printed lines go to
-    OUT/rank<r>_<leg>.json."""
+    gloo, then the tp serve legs (`tp_serve_legs`); over a model axis,
+    then the MoE serving legs (`tp_moe_serve_legs`) and, for gloo, the
+    MoE training leg (`tp_moe_train_leg`), -> OUT/rank<r>_moe.pt.  Each
+    training leg's launches, collective calls, bytes and seconds in all
+    and by axis (apart from the checkpoint's gathers), peak bytes and
+    printed lines go to OUT/rank<r>_<leg>.json."""
     import shutil
     from repro_torch.core import mesh as core_mesh
-    from repro_torch.core.mesh import local_shape
     from repro_torch.launch import train
     from repro_torch.launch.mesh import init_ranks
-    from repro_torch.optim import get_optimizer
-    from repro_torch.runtime import steps
-    from repro_torch.tree import tree_leaves
     torch.backends.cuda.matmul.allow_tf32 = False
     ranks = init_ranks(train.parse_args(TRAIN).device)
     wrappers = kernel_wrappers()
@@ -3842,53 +3860,167 @@ def ranks_worker(out: str, kind: str, model_axis: int = 1) -> int:
                      else contextlib.nullcontext())
             record, seen = train_leg(ranks, wrappers, argv, plant)
             if leg == "straight":
-                state = seen["state"]
-                opt = get_optimizer("adamw")
-                specs, shapes = steps.state_pspecs(seen["cfg"], opt, mesh)
-
-                def local_bytes(part, keys):
-                    return sum(
-                        np.prod(local_shape(tuple(t.shape), sp, mesh))
-                        * t.element_size() for k in keys for t, sp in
-                        zip(tree_leaves(shapes[part][k] if k else
-                                        shapes[part]),
-                            tree_leaves(specs[part][k] if k else
-                                        specs[part])))
-
-                def nbytes(tree):
-                    return sum(t.numel() * t.element_size()
-                               for t in tree_leaves(tree))
-                moments = {k: state["opt"][k] for k in ("m", "v")}
-                record.update(
-                    moment_bytes=nbytes(moments),
-                    moment_bytes_one_process=4 * sum(
-                        t.numel() for k in ("m", "v")
-                        for t in tree_leaves(shapes["opt"][k])),
-                    moment_bytes_of_specs=local_bytes("opt", ("m", "v")),
-                    param_bytes=nbytes(state["params"]),
-                    param_bytes_one_process=nbytes(shapes["params"]),
-                    param_bytes_of_specs=local_bytes("params", (None,)),
-                    replicated_param_bytes=sum(
-                        t.numel() * t.element_size() for t, sp in
-                        zip(tree_leaves(shapes["params"]),
-                            tree_leaves(specs["params"]))
-                        if all(e is None for e in sp)),
-                    hashes={p: sha_of(t) for p, t in flat_leaves(state)})
+                record.update(state_bytes(seen, mesh), hashes={
+                    p: sha_of(t) for p, t in flat_leaves(seen["state"])})
             with open(os.path.join(out, f"rank{ranks.rank}_{leg}.json"),
                       "w") as f:
                 json.dump(record, f, default=float)
         if model_axis > 1 and kind == "gloo":
             tp_serve_legs(out, ranks, wrappers)
+        if model_axis > 1:
+            moe = {"serve": tp_moe_serve_legs(ranks, wrappers, mesh)}
+            if kind == "gloo":
+                moe["train"] = tp_moe_train_leg(ranks, wrappers, mesh)
+            torch.save(moe, os.path.join(out, f"rank{ranks.rank}_moe.pt"))
     finally:
         ranks.close()
     return 0
 
 
-def train_leg(ranks, wrappers, argv, plant):
+def state_bytes(seen, mesh) -> dict:
+    """A rank's AdamW state after a leg (`trainer_spy`'s dict): its param
+    and moment bytes, their specs' local bytes, one process's bytes, and
+    the bytes of the leaves the specs leave whole."""
+    from repro_torch.core.mesh import local_shape
+    from repro_torch.optim import get_optimizer
+    from repro_torch.runtime import steps
+    from repro_torch.tree import tree_leaves
+    state = seen["state"]
+    specs, shapes = steps.state_pspecs(seen["cfg"], get_optimizer("adamw"),
+                                       mesh)
+
+    def local_bytes(part, keys):
+        return int(sum(
+            np.prod(local_shape(tuple(t.shape), sp, mesh))
+            * t.element_size() for k in keys for t, sp in
+            zip(tree_leaves(shapes[part][k] if k else shapes[part]),
+                tree_leaves(specs[part][k] if k else specs[part]))))
+
+    def nbytes(tree):
+        return sum(t.numel() * t.element_size() for t in tree_leaves(tree))
+    moments = {k: state["opt"][k] for k in ("m", "v")}
+    return dict(
+        moment_bytes=nbytes(moments),
+        moment_bytes_one_process=4 * sum(
+            t.numel() for k in ("m", "v")
+            for t in tree_leaves(shapes["opt"][k])),
+        moment_bytes_of_specs=local_bytes("opt", ("m", "v")),
+        param_bytes=nbytes(state["params"]),
+        param_bytes_one_process=nbytes(shapes["params"]),
+        param_bytes_of_specs=local_bytes("params", (None,)),
+        replicated_param_bytes=sum(
+            t.numel() * t.element_size() for t, sp in
+            zip(tree_leaves(shapes["params"]), tree_leaves(specs["params"]))
+            if all(e is None for e in sp)))
+
+
+@contextlib.contextmanager
+def planted_ep_fault(on: bool):
+    """Where `on` (model index 1), this rank's expert-parallel partial
+    left out of the sum: its `_combine` gives zeros, and the all-reduce
+    still runs, so the ranks' collectives stay matched."""
+    from repro_torch.models import moe
+    if not on:
+        yield
+        return
+    combine = moe._combine
+    moe._combine = lambda *a: torch.zeros_like(combine(*a))
+    try:
+        yield
+    finally:
+        moe._combine = combine
+
+
+def tp_moe_serve_legs(ranks, wrappers, mesh) -> dict:
+    """The tp phase's MoE serving legs on this rank (TP_MOE_ARCHS, the
+    families phase's flags, `serve.run_serve --model-axis M` over
+    `mesh`'s M): each leg's tokens, prefill logits and top-two gaps
+    (`tap_values`), launches (zeroed just before), the rank's expert bank
+    and decode cache bytes, peak GB and wall s; then, outside the count,
+    the leg again from the drawn blocks with the planted fault
+    (`planted_ep_fault`) on model index 1: its tokens and prefill
+    logits.  Returns {arch: record}."""
+    from repro_torch.launch import serve
+    from repro_torch.tree import tree_leaves
+    res = {}
+    m = mesh.shape["model"]
+    for arch in TP_MOE_ARCHS:
+        args = serve.parse_args(family_argv(arch, 1, 256)
+                                + ["--model-axis", str(m)])
+        drawn, caches = [], []
+        init, splice = serve.init_params, serve.splice_rank_caches
+
+        def spy_init(*a, **kw):
+            drawn.append(init(*a, **kw))
+            return drawn[-1]
+
+        def spy_splice(*a, **kw):
+            caches.append(splice(*a, **kw))
+            return caches[-1]
+        for fn in wrappers.values():
+            fn.launches = 0
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        serve.init_params, serve.splice_rank_caches = spy_init, spy_splice
+        try:
+            with logits_tap() as tap:
+                gen, stats = serve.run_serve(args)
+        finally:
+            serve.init_params, serve.splice_rank_caches = init, splice
+        torch.cuda.synchronize()
+        rec = {"gen": gen, "stats": stats, **tap_values(tap),
+               "launches": {n: fn.launches for n, fn in wrappers.items()},
+               "wall_s": time.perf_counter() - t0,
+               "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+        params = drawn.pop()
+        bank = params["layers"]["moe"]
+        rec["expert_bytes"] = sum(bank[k].numel() * bank[k].element_size()
+                                  for k in ("gate", "up", "down"))
+        rec["cache_bytes"] = sum(t.numel() * t.element_size()
+                                 for t in tree_leaves(caches.pop()))
+        del caches, bank
+        # the leg again from the drawn blocks, with the planted fault
+        serve.init_params = lambda *a, **kw: params
+        try:
+            with planted_ep_fault(mesh.coords()[1] == 1), \
+                    logits_tap() as tap:
+                gen, _ = serve.run_serve(args)
+        finally:
+            serve.init_params = init
+        rec.update(planted_gen=gen,
+                   planted_prefill=tap_values(tap)["prefill"])
+        del params, drawn, tap
+        torch.cuda.empty_cache()
+        res[arch] = rec
+    return res
+
+
+def tp_moe_train_leg(ranks, wrappers, mesh) -> dict:
+    """The tp phase's MoE training leg on this rank (TP_MOE_TRAIN through
+    `launch.train.main --model-axis TP`, the config cut by `trainer_spy`):
+    `train_leg`'s record with the state's bytes (`state_bytes`)."""
+    arch, layers, experts, batch, seq, opt, lr = TP_MOE_TRAIN
+    argv = ["--arch", arch, "--steps", str(FAMILY_TRAIN_STEPS), "--batch",
+            str(batch), "--seq", str(seq), "--mesh", "host", "--optimizer",
+            opt, "--lr", str(lr), "--log-every", "1", "--seed", str(SEED),
+            "--model-axis", str(TP), "--donate"]
+    torch.cuda.empty_cache()
+    record, seen = train_leg(ranks, wrappers, argv,
+                             contextlib.nullcontext(), n_layers=layers,
+                             n_experts=experts)
+    record.update(state_bytes(seen, mesh))
+    del seen
+    torch.cuda.empty_cache()
+    return record
+
+
+def train_leg(ranks, wrappers, argv, plant, **cut):
     """`train.main(argv)` on this rank under deterministic algorithms and
-    `plant` (a context: the planted fault, or nothing), with the launch
-    counters zeroed first; returns (the leg's record, `trainer_spy`'s
-    dict).  The checkpoint's gathers are timed apart."""
+    `plant` (a context: the planted fault, or nothing), the config cut by
+    `cut` (`trainer_spy`), with the launch counters zeroed first; returns
+    (the leg's record, `trainer_spy`'s dict).  The checkpoint's gathers
+    are timed apart."""
     from repro_torch.core import mesh as core_mesh
     from repro_torch.launch import train
     for fn in wrappers.values():
@@ -3907,7 +4039,7 @@ def train_leg(ranks, wrappers, argv, plant):
     torch.cuda.reset_peak_memory_stats()
     text = io.StringIO()
     try:
-        with deterministic(), trainer_spy(train) as seen, plant, \
+        with deterministic(), trainer_spy(train, **cut) as seen, plant, \
                 contextlib.redirect_stdout(text):
             train.main(argv)
     finally:
@@ -4176,6 +4308,33 @@ TP_TIMEOUT_S = 420
 # 1.30 against an RMS of 0.28), so there the legs against one process
 # are a reading, not a bound.
 TP_LOGIT_TOL = 0.1
+# The tp phase's MoE legs, in the same worker after the dense legs (one
+# torchrun start, one import, one kernel load; each leg frees its card
+# memory before the next): deepseek-v3-671b (MLA) and kimi-k2-1t-a32b
+# (GQA, q [4, 32, 256, 128] a rank, n_rep 8) served as the families
+# phase serves them (full width cut from 61 layers to 1, FAMILY_BATCH x
+# 256 tokens, FAMILY_GEN greedy), every expert (128 / 192 a rank), each
+# rank drawing only its blocks; held to the families phase's one-process
+# legs (ONE_PROCESS) as qwen3-14b's are; each rank's expert and cache
+# bytes 1 / TP of one process's, its flash launches one process's; a
+# planted fault (rank 1's expert-parallel partial left out of the sum)
+# must move the prefill's last logits past TP_LOGIT_TOL.  Then
+# deepseek-v3 trained at the train-families leg's cut (TP_MOE_TRAIN: 1
+# layer, 32 experts, 2 x 256, FAMILY_TRAIN_STEPS steps) with AdamW on cut
+# moments at that leg's 2e-5, not its adafactor: adafactor over ranks
+# gathers every whole leaf on both ranks, and the one-process leg already
+# peaks at 50.74 GB, so two such ranks would not fit the card.  The leg
+# donates its state (`--donate`, the reference trainer's
+# `donate_argnums`): a rank holds 1.75 B float32 params (7.0 GB) and
+# 14.0 GB of moments, and an undonated update holds the old and the new
+# state at once (~56 GB a rank), past the card for two ranks.  Step 1
+# (before any update) within TP_STEP1_TOL of the train-families leg's
+# step 1, later losses finite and falling; each rank's param and moment
+# bytes its specs' local bytes.  The worker's time limit grows by
+# TP_MOE_TIMEOUT_S for these legs.
+TP_MOE_ARCHS = ("deepseek-v3-671b", "kimi-k2-1t-a32b")
+TP_MOE_TRAIN = ("deepseek-v3-671b", 1, 32, 2, 256, "adamw", 2e-5)
+TP_MOE_TIMEOUT_S = 420
 
 
 def tp_serve_argvs():
@@ -4291,9 +4450,9 @@ def phase_tp(wrappers):
     restart bitwise the straight 20 steps; the TP-rank checkpoint
     restored here (one process) equal to each rank's blocks; the serving
     legs (`check_tp_serving`; first the one-process drim-bnn cut to 2
-    layers here).  Then NCCL at (1, min(4, cards)) where 2 or more cards
-    show.  Returns the ranks' launches (straight, restart and serving
-    legs, summed)."""
+    layers here); the MoE legs (`check_tp_moe`).  Then NCCL at (1,
+    min(4, cards)) where 2 or more cards show.  Returns the ranks'
+    launches (straight, restart, serving and MoE legs, summed)."""
     from repro_torch.checkpoint.checkpoint import Checkpointer
     from repro_torch.core.mesh import local_block, make_named_mesh
     from repro_torch.launch import serve, train
@@ -4309,7 +4468,7 @@ def phase_tp(wrappers):
     torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory(prefix="drim_tp_") as tmp:
         rc, out, err, wall = torchrun(TP, ["--tp-worker", tmp, "gloo"],
-                                      TP_TIMEOUT_S)
+                                      TP_TIMEOUT_S + TP_MOE_TIMEOUT_S)
         if rc != 0:
             raise AssertionError(f"tp: torchrun exited {rc}:\n"
                                  f"{out[-2000:]}\n{err[-4000:]}")
@@ -4397,9 +4556,11 @@ def phase_tp(wrappers):
         served = [torch.load(f"{tmp}/rank{r}_serve.pt", weights_only=False)
                   for r in range(TP)]
         serve_counts = check_tp_serving(served)
+        moe_counts = check_tp_moe(tmp, TP)
         phase_tp_nccl(tmp, one)
     counts = {n: sum(r["launches"][n] for leg in ("straight", "restart")
-                     for r in legs[leg]) + serve_counts[n] for n in wrappers}
+                     for r in legs[leg]) + serve_counts[n] + moe_counts[n]
+              for n in wrappers}
     print("tp " + json.dumps({"phase_wall_s":
                               time.perf_counter() - t_phase}))
     print("counts " + json.dumps({"phase": "tp", **counts}))
@@ -4496,7 +4657,8 @@ def phase_tp_nccl(tmp: str, one) -> None:
         return
     n = min(4, cards)
     rc, out, err, wall = torchrun(n, ["--tp-worker", f"{tmp}/nccl", "nccl",
-                                      str(n)], TP_TIMEOUT_S)
+                                      str(n)], TP_TIMEOUT_S
+                                  + TP_MOE_TIMEOUT_S)
     if rc != 0:
         raise AssertionError(f"tp nccl: torchrun exited {rc}:\n"
                              f"{err[-4000:]}")
@@ -4512,6 +4674,157 @@ def phase_tp_nccl(tmp: str, one) -> None:
     if recs[0]["backend"] != "nccl" or gaps[0] > TP_STEP1_TOL \
             or max(gaps[1:]) > TP_LOSS_BOUND:
         raise AssertionError(f"tp nccl: {recs[0]['backend']}, {gaps}")
+    check_tp_moe(f"{tmp}/nccl", n, label="tp nccl")
+
+
+def check_tp_moe(tmp: str, n: int, label: str = "tp") -> dict:
+    """The MoE legs of the tp worker's n ranks (OUT/rank<r>_moe.pt).
+    Serving (`tp_moe_serve_legs`): the same tokens on every rank, held to
+    the families phase's one-process legs (ONE_PROCESS,
+    `first_difference_ok`, the prefill's last logits within
+    TP_LOGIT_TOL); each rank's expert and decode cache bytes 1 / n of one
+    process's; its launches one process's (flash once per GQA layer of
+    the prefill); the planted fault's leg failing those bounds (its
+    prefill logits past TP_LOGIT_TOL, or its tokens apart where one
+    process's top two logits are no near tie).
+    Training, where the worker ran it (`tp_moe_train_leg`): no launches
+    (MLA), both ranks' losses equal, step 1 within TP_STEP1_TOL of the
+    train-families leg's step 1, the losses finite and falling; each
+    rank's param and moment bytes its specs' local bytes.  Prints the
+    "tp" lines; returns the launches summed over the legs and ranks."""
+    from repro_torch.launch import serve
+    from repro_torch.models import abstract_caches, abstract_params
+    from repro_torch.tree import tree_leaves
+    recs = [torch.load(f"{tmp}/rank{r}_moe.pt", weights_only=False)
+            for r in range(n)]
+
+    def nbytes(leaves):
+        return sum(t.numel() * t.element_size() for t in leaves)
+    total = {}
+    for arch in TP_MOE_ARCHS:
+        args = serve.parse_args(family_argv(arch, 1, 256))
+        cfg = serve.build_cfg(args)
+        one_cache = nbytes(tree_leaves(abstract_caches(
+            cfg, args.batch, args.prompt_len + args.gen)))
+        bank = abstract_params(cfg)["layers"]["moe"]
+        one_expert = nbytes(bank[k] for k in ("gate", "up", "down"))
+        first = recs[0]["serve"][arch]
+        launches = {name: 0 for name in first["launches"]}
+        launches["flash_attn_fwd"] = attention_sites(cfg)
+        for r, rec in enumerate(recs):
+            got = rec["serve"][arch]
+            if got["launches"] != launches:
+                raise AssertionError(f"{label} {arch} rank {r}: launches "
+                                     f"{got['launches']}, expected "
+                                     f"{launches}")
+            if n * got["cache_bytes"] != one_cache \
+                    or n * got["expert_bytes"] != one_expert:
+                raise AssertionError(
+                    f"{label} {arch} rank {r}: cache bytes "
+                    f"{got['cache_bytes']} of {one_cache}, expert bytes "
+                    f"{got['expert_bytes']} of {one_expert}")
+            if not np.array_equal(got["gen"], first["gen"]):
+                raise AssertionError(f"{label} {arch}: rank {r}'s tokens "
+                                     "differ")
+        want = ONE_PROCESS[arch]
+        ties = first_difference_ok(f"{label} {arch}", first["gen"],
+                                   want["gen"], want["gaps"])
+        err = float((first["prefill"] - want["prefill"]).abs().max())
+        if err > TP_LOGIT_TOL:
+            raise AssertionError(f"{label} {arch}: prefill logits {err} "
+                                 "from one process's")
+        planted = float((first["planted_prefill"]
+                         - want["prefill"]).abs().max())
+        try:
+            first_difference_ok(f"{label} {arch} planted",
+                                first["planted_gen"], want["gen"],
+                                want["gaps"])
+            tokens_held = True
+        except AssertionError:
+            tokens_held = False
+        if planted <= TP_LOGIT_TOL and tokens_held:
+            raise AssertionError(f"{label} {arch}: the planted EP fault "
+                                 f"stayed inside the bound ({planted})")
+        stats = first["stats"]
+        print(f"{label} " + json.dumps({
+            "serve": arch, "mesh": {"data": 1, "model": n},
+            "layers": cfg.n_layers, "experts": cfg.n_experts,
+            "experts_per_rank": cfg.n_experts // n,
+            "tokens_equal_one_process": int(np.sum(
+                np.asarray(first["gen"]) == np.asarray(want["gen"]))),
+            "tokens": int(np.asarray(want["gen"]).size),
+            "near_ties": ties, "prefill_logits_max_abs_diff": err,
+            "logit_tol": TP_LOGIT_TOL,
+            "one_process_logits_rms": float(
+                want["prefill"].pow(2).mean().sqrt()),
+            "planted": "rank 1's EP partial left out of the sum",
+            "planted_prefill_max_abs_diff": planted,
+            "planted_tokens_held": tokens_held,
+            "expert_bytes_per_rank": [r["serve"][arch]["expert_bytes"]
+                                      for r in recs],
+            "expert_bytes_one_process": one_expert,
+            "cache_bytes_per_rank": [r["serve"][arch]["cache_bytes"]
+                                     for r in recs],
+            "cache_bytes_one_process": one_cache,
+            "peak_gb_per_rank": [r["serve"][arch]["peak_gb"] for r in recs],
+            "leg_wall_s": [r["serve"][arch]["wall_s"] for r in recs],
+            "prefill_s": stats["prefill_s"],
+            "compile_s": stats["compile_s"],
+            "decode_tok_per_s": stats["decode_tok_per_s"],
+            "decode_p50_ms": stats["decode_p50_ms"],
+            "launches_per_rank": {k: c for k, c in launches.items() if c},
+            "sample_ids": stats["sample_ids"]}))
+        for name, c in launches.items():
+            total[name] = total.get(name, 0) + c * n
+    if "train" not in recs[0]:
+        return total
+    arch = TP_MOE_TRAIN[0]
+    train_recs = [rec["train"] for rec in recs]
+    for r in train_recs:
+        if any(r["launches"].values()):
+            raise AssertionError(f"{label} train {arch} rank {r['rank']}: "
+                                 f"launches {r['launches']}")
+    losses = train_recs[0]["losses"]
+    if any(r["losses"] != losses for r in train_recs):
+        raise AssertionError(f"{label} train {arch}: the ranks' losses "
+                             "differ")
+    one = TRAINED[arch]
+    gap = abs(losses[0] - one[0])
+    if len(losses) != FAMILY_TRAIN_STEPS or not np.all(np.isfinite(losses)) \
+            or not losses[-1] < losses[0] or gap > TP_STEP1_TOL:
+        raise AssertionError(f"{label} train {arch}: losses {losses}, the "
+                             f"train-families leg's step 1 {one[0]}")
+    lines = [line for line in train_recs[0]["lines"] if "step" in line]
+    s_step = (lines[-1]["wall_s"] - lines[0]["wall_s"]) / (len(lines) - 1)
+    _, _, _, batch, seq, opt, lr = TP_MOE_TRAIN
+    print(f"{label} " + json.dumps({
+        "train": arch, "mesh": {"data": 1, "model": n}, "layers": 1,
+        "experts": TP_MOE_TRAIN[2], "optimizer": opt, "lr": lr,
+        "batch": batch, "seq": seq, "losses": losses,
+        "train_families_losses": one, "step1_gap": gap,
+        "step1_tol": TP_STEP1_TOL, "s_per_step": s_step,
+        "tokens_per_s": batch * seq / s_step,
+        "first_step_s": lines[0]["wall_s"]}))
+    for r in train_recs:
+        coll = r["collective"]
+        steps = len(losses)
+        got = {"param_bytes": r["param_bytes"],
+               "param_bytes_of_specs": r["param_bytes_of_specs"],
+               "param_bytes_one_process": r["param_bytes_one_process"],
+               "moment_bytes": r["moment_bytes"],
+               "moment_bytes_of_specs": r["moment_bytes_of_specs"],
+               "moment_bytes_one_process": r["moment_bytes_one_process"]}
+        print(f"{label} " + json.dumps({
+            "train": arch, "rank": r["rank"], "peak_gb": r["peak_gb"],
+            "collective_calls_per_step": coll["calls"] / steps,
+            "collective_gb_per_step": coll["bytes"] / 1e9 / steps,
+            "collective_s_per_step": coll["seconds"] / steps,
+            "by_axis_per_step": by_axis(coll, steps), **got}))
+        if r["param_bytes"] != r["param_bytes_of_specs"] \
+                or r["moment_bytes"] != r["moment_bytes_of_specs"]:
+            raise AssertionError(f"{label} train {arch} rank {r['rank']}: "
+                                 f"bytes {got}")
+    return total
 
 
 def device_kernels(prof, n: int):
@@ -4678,6 +4991,7 @@ def phase_train_families(wrappers):
                     lambda _, n=FAMILY_TRAIN_STEPS, ps=per_step:
                         {k: v * n for k, v in ps.items()})
             peak = torch.cuda.max_memory_allocated() / 1e9
+            TRAINED[arch] = list(seen["losses"])
             steps = [line for line in lines if "step" in line]
             losses = [line["loss"] for line in steps]
             if len(steps) != FAMILY_TRAIN_STEPS \
@@ -4952,9 +5266,11 @@ def run(dry) -> int:
         "collective", lambda: phase_collective(wrappers))
     by_leg.update(verified_phase("train", lambda: phase_train(wrappers)))
     by_leg["ranks"] = phase_ranks(wrappers)
-    by_leg["tp"] = phase_tp(wrappers)
+    # before the tp phase, whose MoE training leg is held to its
+    # deepseek-v3 leg's step 1
     by_leg.update(verified_phase(
         "train families", lambda: phase_train_families(wrappers)))
+    by_leg["tp"] = phase_tp(wrappers)
     launches = {name: sum(c[name] for c in by_leg.values())
                 for name in wrappers}
     idle = [name for name, n in launches.items() if n <= 0]

@@ -614,26 +614,39 @@ def mesh_barrier(mesh: Mesh) -> None:
 
 # --- the model axis: Megatron's operators ------------------------------------
 
-# what a model axis over ranks does not run yet, by the ROADMAP item that
-# brings it
+# what ranks do not run yet, by the ROADMAP item that brings it
 MODEL_AXIS_WAITS = {
-    "moe": "ROADMAP Queue 1 item 15.3",        # the MoE's EP over "model"
     "families": "ROADMAP Queue 1 item 15.4",   # ssm, hybrid, audio, vlm
     "serving": "ROADMAP Queue 1 item 15.5",    # batcher, microbench, retry
 }
 
+# the families a model axis over ranks runs: the dense trunk (Megatron's
+# cut params) and the MoE (its experts cut over "model" too)
+MODEL_AXIS_FAMILIES = ("dense", "moe")
+
+
+def family_refusal(cfg, where: str) -> Optional[str]:
+    """The one refusal text for a family that ranks cannot run yet
+    (`where`: "under a model axis of 2 ranks", "served over 2 ranks"),
+    naming its ROADMAP item; None for the families they run."""
+    if cfg.family in MODEL_AXIS_FAMILIES:
+        return None
+    return (f"the {cfg.family} family {where} is "
+            f"{MODEL_AXIS_WAITS['families']}")
+
 
 def refuse_family(cfg, mesh: Optional[Mesh] = None) -> None:
-    """ValueError for a family the model axis over ranks cannot run yet
-    (all but the dense trunk), naming its ROADMAP item; nothing without
-    a model axis over ranks (default: the ambient one, `model_ranks`)."""
+    """ValueError (`family_refusal`) for a family the model axis over
+    ranks cannot run yet; nothing without a model axis over ranks
+    (default: the ambient one, `model_ranks`)."""
     mesh = model_ranks() if mesh is None else mesh
-    if mesh is None or mesh.shape.get("model", 1) == 1 \
-            or cfg.family == "dense":
+    if mesh is None or mesh.shape.get("model", 1) == 1:
         return
-    item = MODEL_AXIS_WAITS["moe" if cfg.family == "moe" else "families"]
-    raise ValueError(f"the {cfg.family} family under a model axis of "
-                     f"{mesh.shape['model']} ranks is {item}")
+    said = family_refusal(
+        cfg, f"under a model axis of {mesh.shape['model']} ranks")
+    if said is not None:
+        raise ValueError(said)
+
 
 def model_ranks() -> Optional[Mesh]:
     """The ambient mesh of ranks when its `model` axis holds more than one

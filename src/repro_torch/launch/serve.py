@@ -52,16 +52,18 @@ Timing: the first decode step runs UNTIMED as warm-up and is reported as
     under it every MoE prefill takes the expert-parallel dispatch, as the
     reference's default does.  "single" and "multi" are the production
     meshes, which raise ValueError below 256 and 512 devices;
-  * --model-axis K: under torchrun, W ranks serve the dense family over
-    the (W / K, K) host mesh (`launch.mesh.make_host_mesh(model_axis=K)`):
-    each rank holds its blocks of the params (packed ones included) and
-    of the sequence-cut KV caches by the reference's specs, runs its rows
-    of the batch and its heads (`models`), and gets the whole logits, so
-    every rank samples the same tokens; rank 0 alone prints the stats
-    line, after every rank's first line (`launch.mesh.init_ranks`).
-    Over W > 1 ranks the other families, --continuous, --microbench and
-    --resilient raise ValueError naming their ROADMAP items; K > 1 in one
-    process raises too.  On the CPU:
+  * --model-axis K: under torchrun, W ranks serve the dense and MoE
+    families over the (W / K, K) host mesh (`launch.mesh.make_host_mesh(
+    model_axis=K)`): each rank draws and holds only its blocks of the
+    params (packed ones included; the MoE's experts, E / K a rank) and
+    of the sequence-cut KV or MLA latent caches by the reference's specs,
+    runs its rows of the batch, its heads and its experts (`models`), and
+    gets the whole logits, so every rank samples the same tokens; rank 0
+    alone prints the stats line, after every rank's first line
+    (`launch.mesh.init_ranks`).  Over W > 1 ranks the ssm, hybrid, audio
+    and vlm families, --continuous, --microbench and --resilient raise
+    ValueError naming their ROADMAP items; K > 1 in one process raises
+    too.  On the CPU:
 
       python -m torch.distributed.run --nproc-per-node 2 \\
           -m repro_torch.launch.serve --arch drim-bnn --smoke-config \\
@@ -90,8 +92,9 @@ from repro_torch.configs import get_config, get_smoke_config
 from repro_torch.device import resolve_device
 from repro_torch.launch.batching import (NATIVE_ENGINE, WaveBatcher, fold_in,
                                          make_decode_fn)
-from repro_torch.core.mesh import (local_block, mesh_all_gather,
-                                   model_coord, model_ranks)
+from repro_torch.core.mesh import (family_refusal, local_block,
+                                   mesh_all_gather, model_coord,
+                                   model_ranks)
 from repro_torch.launch.mesh import MODEL_AXIS_WAITS, cli_mesh, init_ranks
 from repro_torch.models import decode_step, empty_caches, init_params, prefill
 from repro_torch.models.layers import pack_bitlinear, pack_bitlinear_rows
@@ -191,12 +194,13 @@ def splice_caches(caches, pre_caches):
 
 
 def splice_rank_caches(caches, pre_caches, s_pre: int, s_ctx: int, mesh):
-    """`splice_caches` under a model axis over ranks: the dense family's
-    [L, B', S, Hkv, Dh] caches are the rank's sequence blocks of an
-    `s_pre`-long prefill cache and an `s_ctx`-long decode cache (each
-    whole where the axis does not divide its length), which do not line
-    up; the prefill's are gathered over the model group and the rank
-    copies the prompt positions its decode block holds."""
+    """`splice_caches` under a model axis over ranks: the [L, B', S, Hkv,
+    Dh] keys and values (dense, GQA moe) and the MLA's [L, B', S, R]
+    latents are the rank's sequence blocks (dim 2) of an `s_pre`-long
+    prefill cache and an `s_ctx`-long decode cache (each whole where the
+    axis does not divide its length), which do not line up; the
+    prefill's are gathered over the model group and the rank copies the
+    prompt positions its decode block holds."""
     index, m = model_coord(mesh)
 
     def splice(path, full, pre):
@@ -376,17 +380,18 @@ def model_batch(cfg, tokens: torch.Tensor) -> Dict[str, torch.Tensor]:
 
 def _setup(args, cfg, dev, params=None, tokens=None) -> Dict[str, Any]:
     """Params + prompt batch + prefill + spliced ctx caches.  Under a model
-    axis over ranks every rank draws (or takes) the whole params and
-    keeps its blocks, then packs them."""
+    axis over ranks every rank draws only its blocks of the params
+    (`models.init_params` inside the mesh) or keeps its blocks of the
+    whole params it is given, then packs them."""
     ctx_len = args.ctx or (args.prompt_len + args.gen)
+    mesh = model_ranks()
     if params is None:
         params = init_params(args.seed, cfg, device=dev)
+    elif mesh is not None:
+        params = place_params(params, mesh)
     if tokens is None:
         tokens = _prompts(args, cfg, args.batch)
     tokens = torch.as_tensor(np.array(tokens), device=dev).long()
-    mesh = model_ranks()
-    if mesh is not None:
-        params = place_params(params, mesh)
     dense_params = params
     if args.packed:
         params = pack_model_params(params)
@@ -406,8 +411,9 @@ def _setup(args, cfg, dev, params=None, tokens=None) -> Dict[str, Any]:
 
 def serve_mesh(args, dev, cfg):
     """The CLI's `--mesh` and `--model-axis` on `dev`.  Over W > 1 ranks
-    the families other than dense, --continuous, --microbench and
-    --resilient raise ValueError naming their ROADMAP items."""
+    the families other than dense and moe (`core.mesh.family_refusal`),
+    --continuous, --microbench and --resilient raise ValueError naming
+    their ROADMAP items."""
     mesh = cli_mesh(args.mesh, dev, model_axis=args.model_axis)
     if mesh.ranks is not None and mesh.ranks.size > 1:
         n = mesh.ranks.size
@@ -415,11 +421,9 @@ def serve_mesh(args, dev, cfg):
             if getattr(args, flag):
                 raise ValueError(f"--{flag} over {n} ranks is "
                                  f"{MODEL_AXIS_WAITS['serving']}")
-        if cfg.family != "dense":
-            item = MODEL_AXIS_WAITS["moe" if cfg.family == "moe"
-                                    else "families"]
-            raise ValueError(f"serving the {cfg.family} family over {n} "
-                             f"ranks is {item}")
+        said = family_refusal(cfg, f"served over {n} ranks")
+        if said is not None:
+            raise ValueError(said)
     return mesh
 
 

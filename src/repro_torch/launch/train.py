@@ -7,6 +7,10 @@ of `repro.launch.train`).
   * checkpoint/restart (atomic manifests, async save, --resume)
   * heartbeats every step (runtime/ft.py)
   * gradient accumulation, 1-bit EF compression, ZeRO-1 specs
+  * --donate: the reference's donated state (`jax.jit(step_fn,
+    donate_argnums=(0,))`): AdamW updates the state in place, the same
+    bits, so a step holds one state, not two (what lets two ranks of
+    the MoE's widest leaves share one card)
   * deterministic (seed, step) data order => restarts are exact
 
 On the card (the default) attention runs the flash forward and backward
@@ -34,11 +38,13 @@ block of the moments, and sums its gradients with the others'
       --device cpu --steps 30 --batch 4 --seq 64
 
 `--model-axis K` (default 1) makes the mesh (W / K, K): each rank
-holds its model block of every param and moment by the reference's
-specs, and the dense LM's products are Megatron's (column- and
+draws and holds only its model block of every param and moment by the
+reference's specs, and the LM's products are Megatron's (column- and
 row-parallel, the vocab-parallel embedding, head and cross-entropy; the
-other families raise ValueError naming their ROADMAP items).  On the CPU,
-two data ranks of two model ranks each:
+MoE's experts, E / K a rank, expert-parallel over the model group, and
+MLA on the rank's heads; the ssm, hybrid, audio and vlm families raise
+ValueError naming their ROADMAP item).  On the CPU, two data ranks of
+two model ranks each:
 
   python -m torch.distributed.run --nproc-per-node 4 \\
       -m repro_torch.launch.train --arch drim-bnn --smoke-config \\
@@ -99,6 +105,11 @@ def parse_args(argv=None) -> argparse.Namespace:
     ap.add_argument("--accum", type=int, default=1)
     ap.add_argument("--compress", action="store_true",
                     help="1-bit EF gradient compression")
+    ap.add_argument("--donate", action="store_true",
+                    help="hand each step the state's buffers (the "
+                    "reference's donated state): AdamW updates its "
+                    "moments and params in place, the same bits, one "
+                    "state in memory instead of two")
     ap.add_argument("--ckpt-dir", default="")
     ap.add_argument("--ckpt-every", type=int, default=50)
     ap.add_argument("--resume", action="store_true")
@@ -131,7 +142,7 @@ def build(args, mesh=None):
     step_fn, init_state, _ = make_train_step(
         cfg, mesh, optimizer_name=args.optimizer, peak_lr=args.lr,
         warmup=warmup, total_steps=args.steps, accum=args.accum,
-        compress=args.compress)
+        compress=args.compress, donate=args.donate)
     return cfg, step_fn, init_state
 
 
@@ -185,7 +196,8 @@ def _train(args, ranks) -> float:
         hb_dir = args.ckpt_dir or _shared_tempdir(stack, ranks)
         hb = HeartbeatMonitor(os.path.join(hb_dir, "heartbeats.jsonl"),
                               host_id=0 if ranks is None else ranks.rank)
-        state = place(init_state(args.seed, device=dev), st_sh)
+        # over ranks a fresh state comes as this rank's blocks
+        state = place(init_state(args.seed, device=dev), st_sh, whole)
         start = 0
         if args.ckpt_dir and args.resume:
             # every rank reads the whole leaves and keeps its blocks

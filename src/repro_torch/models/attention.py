@@ -26,7 +26,10 @@ rank that holds position `pos` writes it, each rank scores every head over
 its own positions, the softmax's max and sum and the weighted values are
 merged over the group, and the rank keeps its heads for `wo`.  A cache
 whose length the axis does not divide is whole on every rank, which then
-attends with its own heads.
+attends with its own heads.  MLA runs on the rank's heads too: `wq_b`,
+`wk_b` and `wv_b` column-parallel over heads, `wo` row-parallel, the
+low-rank down-projections and their norms whole on every rank; its
+decode gathers the sequence-cut latent (`mla_decode`).
 """
 from __future__ import annotations
 
@@ -298,11 +301,30 @@ def mla_init(gen: torch.Generator, cfg, *, dtype=torch.float32) -> Params:
     }
 
 
+def _mla_heads(cfg, mesh) -> int:
+    """The query heads a rank scores: all of them, or under a model axis
+    over ranks its H / |model| (ValueError where they do not divide)."""
+    if mesh is None:
+        return cfg.n_heads
+    m = model_coord(mesh)[1]
+    if cfg.n_heads % m:
+        raise ValueError(f"{cfg.n_heads} heads do not divide a model axis "
+                         f"of {m}")
+    return cfg.n_heads // m
+
+
 def _mla_q(p: Params, cfg, x: torch.Tensor, positions: torch.Tensor):
+    """(q_nope, q_rope) of every head, or under a model axis over ranks of
+    the rank's (`wq_b` column-parallel over heads, its normed latent
+    input through `copy_to_model`; `wq_a` and `q_a_norm` whole)."""
     b, s, _ = x.shape
     h, dn, dr = cfg.n_heads, cfg.qk_nope_dim, cfg.qk_rope_dim
-    q = dense(p["wq_b"], rmsnorm(p["q_a_norm"], dense(p["wq_a"], x)))
-    q = q.reshape(b, s, h, dn + dr)
+    mesh = model_ranks()
+    lat = rmsnorm(p["q_a_norm"], dense(p["wq_a"], x))
+    if mesh is not None:
+        lat = copy_to_model(lat, mesh)
+    q = linear_col(p["wq_b"], lat, h * (dn + dr))
+    q = q.reshape(b, s, _mla_heads(cfg, mesh), dn + dr)
     q_nope, q_rope = q[..., :dn], q[..., dn:]
     return q_nope, apply_rope(q_rope, positions, cfg.rope_theta)
 
@@ -321,13 +343,16 @@ def _mla_core_multihead(p: Params, cfg, q_nope, q_rope, ckv, k_rope, mask):
     """Scores of each head's q_nope against its decompressed keys plus its
     q_rope against the one shared rope key, scaled by 1/sqrt(dn + dr);
     both products and the value product summed in float32, the output
-    cast to ckv's dtype."""
-    b, sq = q_nope.shape[:2]
-    h, dn, dv = cfg.n_heads, cfg.qk_nope_dim, cfg.v_head_dim
+    cast to ckv's dtype.  The heads are q's (under a model axis over
+    ranks the rank's: `wk_b` and `wv_b` column-parallel over them, ckv
+    and k_rope through `copy_to_model`)."""
+    b, sq, h = q_nope.shape[:3]
+    dn, dv = cfg.qk_nope_dim, cfg.v_head_dim
     sk = ckv.shape[1]
     f32 = torch.float32
-    k_nope = dense(p["wk_b"], ckv).reshape(b, sk, h, dn)
-    v = dense(p["wv_b"], ckv).reshape(b, sk, h, dv)
+    k_nope = linear_col(p["wk_b"], ckv, cfg.n_heads * dn).reshape(b, sk, h,
+                                                                  dn)
+    v = linear_col(p["wv_b"], ckv, cfg.n_heads * dv).reshape(b, sk, h, dv)
     scale = 1.0 / math.sqrt(dn + cfg.qk_rope_dim)
     logits = (torch.einsum("bqhd,bkhd->bhqk", q_nope.to(f32),
                            k_nope.to(f32))
@@ -339,34 +364,67 @@ def _mla_core_multihead(p: Params, cfg, q_nope, q_rope, ckv, k_rope, mask):
     return out.reshape(b, sq, h * dv).to(ckv.dtype)
 
 
+def _mla_scores(p: Params, cfg, q_nope, q_rope, ckv, k_rope, mask):
+    """The heads' attention over the latent and `wo` (row-parallel under
+    a model axis over ranks, the latent through `copy_to_model`: every
+    head reads it)."""
+    mesh = model_ranks()
+    if mesh is not None:
+        ckv, k_rope = copy_to_model(ckv, mesh), copy_to_model(k_rope, mesh)
+    out = _mla_core_multihead(p, cfg, q_nope, q_rope, ckv, k_rope, mask)
+    return linear_row(p["wo"], out, cfg.n_heads * cfg.v_head_dim,
+                      cfg.d_model)
+
+
 def mla_attend(p: Params, cfg, x: torch.Tensor, positions: torch.Tensor,
                window: int = 0) -> Tuple[torch.Tensor, Dict]:
-    """Full-sequence causal MLA (prefill); the cache is the latent."""
+    """Full-sequence causal MLA (prefill); the cache is the latent (whole
+    on every rank under a model axis over ranks)."""
     s = x.shape[1]
     q_nope, q_rope = _mla_q(p, cfg, x, positions)
     ckv, k_rope = _mla_latent(p, cfg, x, positions)
     mask = causal_mask(s, window, x.device)[None]
-    out = _mla_core_multihead(p, cfg, q_nope, q_rope, ckv, k_rope, mask)
-    return dense(p["wo"], out), {"ckv": ckv, "k_rope": k_rope}
+    return (_mla_scores(p, cfg, q_nope, q_rope, ckv, k_rope, mask),
+            {"ckv": ckv, "k_rope": k_rope})
 
 
 def mla_decode(p: Params, cfg, x: torch.Tensor, cache: Dict,
-               pos: torch.Tensor, window: int = 0
+               pos: torch.Tensor, window: int = 0, ctx_len: int = 0
                ) -> Tuple[torch.Tensor, Dict]:
     """One-token MLA decode: the new latent and rope key added at `pos`
-    (a one-hot update, as `gqa_decode`)."""
+    (a one-hot update, as `gqa_decode`).
+
+    Under a model axis over ranks `cache` is the rank's block of a cache
+    of `ctx_len` positions, cut over the sequence (`cache_pspecs`).  The
+    latent is shared by every head, so the rank that holds `pos` writes
+    it, the ranks' blocks of the latent and rope key are gathered over
+    the group (one all-gather of [B, S_ctx / |model|, r_kv + dr] a
+    layer), and the rank scores its own heads over every position as one
+    process does: no softmax merge, and the scores are one process's
+    heads'.  A cache whose length the axis does not divide is whole on
+    every rank."""
     q_nope, q_rope = _mla_q(p, cfg, x, pos[:, None])
     ckv_new, k_rope_new = _mla_latent(p, cfg, x, pos[:, None])
-    s_max = cache["ckv"].shape[1]
-    j = torch.arange(s_max, device=x.device)
+    mesh = model_ranks()
+    s_loc = cache["ckv"].shape[1]
+    cut = mesh is not None and s_loc != ctx_len
+    lo = model_coord(mesh)[0] * s_loc if cut else 0
+    j = lo + torch.arange(s_loc, device=x.device)
     onehot = (j[None, :] == pos[:, None]).to(cache["ckv"].dtype)[:, :, None]
     ckv = cache["ckv"] + onehot * ckv_new.to(cache["ckv"].dtype)
     k_rope = cache["k_rope"] + onehot * k_rope_new.to(cache["k_rope"].dtype)
+    ckv_all, k_rope_all = ckv, k_rope
+    if cut:
+        got = mesh_all_gather(torch.cat([ckv, k_rope], -1), mesh,
+                              ("model",), 1)
+        ckv_all, k_rope_all = got.split([ckv.shape[-1], k_rope.shape[-1]],
+                                        -1)
+    j = torch.arange(ckv_all.shape[1], device=x.device)
     mask = j[None, None, :] <= pos[:, None, None]
     if window:
         mask &= (pos[:, None, None] - j[None, None, :]) < window
-    out = _mla_core_multihead(p, cfg, q_nope, q_rope, ckv, k_rope, mask)
-    return dense(p["wo"], out), {"ckv": ckv, "k_rope": k_rope}
+    return (_mla_scores(p, cfg, q_nope, q_rope, ckv_all, k_rope_all, mask),
+            {"ckv": ckv, "k_rope": k_rope})
 
 
 def mla_empty_cache(cfg, batch: int, s_max: int, dtype=torch.bfloat16,

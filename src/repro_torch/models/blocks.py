@@ -17,8 +17,11 @@ assembled in `transformer.py`.  Under a `model` axis over ranks
 (`core.mesh.model_ranks`) the dense block is Megatron's: each sublayer's
 normed input passes `copy_to_model` before its column-parallel products,
 and its row-parallel product (`wo`, `down`) ends in the sum over the
-model group, so the residual stream stays whole on every rank.  The
-other blocks raise ValueError there, naming their ROADMAP items.
+model group, so the residual stream stays whole on every rank.  The moe
+block runs its attention on the rank's heads (GQA as the dense block's,
+MLA with its latent whole on every rank) and its FFN expert-parallel
+over the group (`moe.moe_ffn`).  The ssm, hybrid and audio blocks raise
+ValueError there, naming their ROADMAP item.
 `aux` holds the auxiliary losses a block adds to the training loss;
 only the MoE block sets them (routing), the others return `ZERO_AUX`.  The reference's `_sp` (a sequence-parallel
 sharding constraint on the residual stream) is the identity on one card
@@ -108,23 +111,30 @@ def moe_block_init(gen: torch.Generator, cfg, *, dtype=torch.float32
             "moe": moe_mod.moe_init(gen, cfg, dtype=dtype)}
 
 
+def _moe_attn_in(p: Params, cfg, x):
+    """The attention's normed input: GQA's through `copy_to_model` under
+    a model axis over ranks (`_normed`); MLA's as it is, since its
+    down-projections are whole on every rank and the copy comes after
+    them (`attention._mla_q`, `_mla_scores`)."""
+    return rmsnorm(p["attn_norm"], x) if cfg.mla \
+        else _normed(p["attn_norm"], x)
+
+
 def moe_block(p: Params, cfg, x, positions, *, window: int = 0
               ) -> Tuple[torch.Tensor, Dict, Dict]:
-    refuse_family(cfg)
     at = attn.mla_attend if cfg.mla else attn.gqa_attend
-    a, cache = at(p["attn"], cfg, rmsnorm(p["attn_norm"], x), positions,
-                  window)
+    a, cache = at(p["attn"], cfg, _moe_attn_in(p, cfg, x), positions, window)
     x = x + a
     y, aux = moe_mod.moe_ffn(p["moe"], cfg, rmsnorm(p["mlp_norm"], x))
     return x + y, cache, aux
 
 
-def moe_block_decode(p: Params, cfg, x, cache, pos, *, window: int = 0
-                     ) -> Tuple[torch.Tensor, Dict]:
-    refuse_family(cfg)
+def moe_block_decode(p: Params, cfg, x, cache, pos, *, window: int = 0,
+                     ctx_len: int = 0) -> Tuple[torch.Tensor, Dict]:
+    """`ctx_len`: the cache's whole length (`dense_block_decode`)."""
     at = attn.mla_decode if cfg.mla else attn.gqa_decode
-    a, cache = at(p["attn"], cfg, rmsnorm(p["attn_norm"], x), cache, pos,
-                  window)
+    a, cache = at(p["attn"], cfg, _moe_attn_in(p, cfg, x), cache, pos,
+                  window, ctx_len)
     x = x + a
     y, _ = moe_mod.moe_ffn(p["moe"], cfg, rmsnorm(p["mlp_norm"], x))
     return x + y, cache

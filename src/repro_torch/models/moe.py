@@ -26,7 +26,9 @@ Dispatches (cfg.moe_dispatch), each over G groups of T tokens:
     and builds only its own dispatch slab; each (data, model) block runs
     in turn on its mesh device, and the partial outputs are summed in
     model-index order.  With one model shard it is the grouped dispatch
-    bit for bit.
+    bit for bit.  Over a model axis of ranks (a process each) the
+    banks are cut by the specs and each rank runs only its own block
+    (`_rank_ep`), at every dispatch, decode included (`moe_ffn`).
 
 Numerics that the reference fixes and the port keeps: top-k is k passes
 of argmax (first index on ties, not `torch.topk`); the expert sort is
@@ -55,9 +57,10 @@ import numpy as np
 import torch
 
 from repro_torch.core.mesh import ambient_mesh, ambient_ranks, axis_size, \
-    dp_axes, mesh_sum, refuse_family
-from repro_torch.models.layers import Params, dense, dense_init, linear, \
-    linear_init, silu
+    copy_to_model, dp_axes, mesh_sum, model_coord, model_ranks, \
+    reduce_from_model
+from repro_torch.models.layers import Params, dense, dense_init, \
+    linear_init, mlp, silu
 
 
 @dataclasses.dataclass(frozen=True)
@@ -80,21 +83,30 @@ class ExpertBank:
         w = torch.randn(self.d_in, self.d_out, generator=gen)
         return w.div_(math.sqrt(self.d_in)).to(self.dtype)
 
-    def draw_into(self, out: torch.Tensor,
-                  threads: Optional[int] = None) -> torch.Tensor:
+    def draw_into(self, out: torch.Tensor, threads: Optional[int] = None,
+                  block: Optional[Tuple[slice, slice, slice]] = None
+                  ) -> torch.Tensor:
         """Every expert drawn straight into `out` [E, d_in, d_out] (on any
         device), `threads` at a time (default: one per core this process
-        may run on)."""
-        if tuple(out.shape) != self.shape or out.dtype != self.dtype:
-            raise ValueError(f"bank {self.shape} {self.dtype} into "
-                             f"{tuple(out.shape)} {out.dtype}")
+        may run on).  `block` (slices of [E, d_in, d_out]) draws only the
+        experts of its first slice, each cut to the other two, into `out`
+        of the block's shape: a rank's block of the bank, whose weights
+        are the whole bank's."""
+        es, rows, cols = block or (slice(None),) * 3
+        experts = range(len(self.seeds))[es]
+        shape = (len(experts), len(range(self.d_in)[rows]),
+                 len(range(self.d_out)[cols]))
+        if tuple(out.shape) != shape or out.dtype != self.dtype:
+            raise ValueError(f"bank {self.shape} {self.dtype} block "
+                             f"{shape} into {tuple(out.shape)} {out.dtype}")
         n = max(1, min(threads or len(os.sched_getaffinity(0)),
-                       len(self.seeds)))
+                       len(experts)))
 
-        def one(e: int) -> None:
-            out[e].copy_(self.expert(e))
+        def one(j: int, e: int) -> None:
+            out[j].copy_(self.expert(e)[rows, cols])
         with concurrent.futures.ThreadPoolExecutor(n) as pool:
-            for f in [pool.submit(one, e) for e in range(len(self.seeds))]:
+            for f in [pool.submit(one, j, e)
+                      for j, e in enumerate(experts)]:
                 f.result()
         return out
 
@@ -320,20 +332,46 @@ def _ep_shard_map(p: Params, cfg, x: torch.Tensor, top_e: torch.Tensor,
     return rows[0] if n_dp == 1 else torch.cat(rows, 0)
 
 
+def _rank_ep(p: Params, cfg, xg: torch.Tensor, top_e: torch.Tensor,
+             top_w: torch.Tensor, cap: int, mesh) -> torch.Tensor:
+    """Expert parallelism over the model group of ranks (the reference's
+    `_ep_shard_map` body on this rank alone).  `p`'s banks are this
+    rank's block, experts [i*E_loc, (i+1)*E_loc) of model index i; xg
+    [G, T, D] and top_w come through `copy_to_model`.  The rank builds
+    only its own [G, E_loc, cap, D] slab (`_sort_dispatch` with its
+    range), runs its expert SwiGLUs and combines a partial [G, T, D] in
+    which tokens routed elsewhere add zero; the partials are summed over
+    the model group in float32 and rounded once to x's dtype (at two
+    ranks the one-process sum of two float32 partials, bit for bit)."""
+    index, m = model_coord(mesh)
+    e_loc = p["gate"].shape[0]
+    if e_loc * m != cfg.n_experts:
+        raise ValueError(f"a bank block of {e_loc} experts is not a cut "
+                         f"of {cfg.n_experts} over {m} ranks")
+    expert_in, ctx = _sort_dispatch(cfg, xg, top_e, top_w, cap,
+                                    lo=index * e_loc, e_loc=e_loc)
+    part = _combine(cfg, _expert_mlps(p, xg.dtype, expert_in), ctx,
+                    xg.shape[1])
+    return reduce_from_model(part.to(torch.float32), mesh).to(part.dtype)
+
+
 def dispatch_mode(cfg, s: int, b: int = 1) -> str:
-    """"ep", "grouped" or "global" for a batch of b sequences of s tokens:
-    "ep" needs the ambient mesh to pass `_ep_applicable`, else it falls
-    back to "grouped", and a grouped dispatch needs s > 1."""
+    """"ep", "grouped" or "global" for a batch of b sequences of s tokens
+    (over ranks: this rank's b rows): "ep" needs the ambient mesh to pass
+    `_ep_applicable` (over ranks with a model axis of several, for the
+    global batch), else it falls back to "grouped", and a grouped
+    dispatch needs s > 1.  Over data ranks alone each process holds its
+    own rows and the model axis is 1: "grouped", EP with one model shard
+    bit for bit."""
     mode = getattr(cfg, "moe_dispatch", "ep")
     if mode == "ep":
-        # over ranks each process holds its own rows and the model axis
-        # is 1 (the MoE under a model axis over ranks, whose expert banks
-        # are cut over it, raises: ROADMAP Queue 1 item 15.3): EP with
-        # one model shard is the grouped dispatch bit for bit
         mesh = ambient_mesh()
-        refuse_family(cfg)
         if mesh is not None and mesh.ranks is None \
                 and _ep_applicable(cfg, mesh, b, s):
+            return "ep"
+        if mesh is not None and mesh.ranks is not None \
+                and mesh.shape.get("model", 1) > 1 and _ep_applicable(
+                    cfg, mesh, b * axis_size(mesh, dp_axes(mesh)), s):
             return "ep"
         mode = "grouped"
     return "grouped" if mode == "grouped" and s > 1 else "global"
@@ -341,26 +379,47 @@ def dispatch_mode(cfg, s: int, b: int = 1) -> str:
 
 def moe_ffn(p: Params, cfg, x: torch.Tensor
             ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-    """x [B, S, D] -> (y [B, S, D], aux losses)."""
+    """x [B, S, D] -> (y [B, S, D], aux losses).
+
+    Under a model axis over ranks (`core.mesh.model_ranks`) whose specs
+    cut the expert banks (E divisible by |model|), every dispatch runs
+    expert-parallel over the model group (`_rank_ep`): "ep" and
+    "grouped" a group per row, "global" (every decode step) one group of
+    the rank's B*S tokens, each rank keeping its experts' assignments.
+    The residual stream is whole on every model rank, so the reference's
+    sequence-parallel entry (an all-gather of x along S) is the identity
+    here and its exit (a psum_scatter) one all-reduce of the partials.
+    The router, `_route` and the aux losses run whole on every rank, on
+    x as it comes: their gradients are whole there already.  x (the
+    dispatch's input) and top_w (the combine's weights) pass
+    `copy_to_model`, so the ranks' parts of their gradients are summed.
+    A bank the specs leave whole runs the plain dispatch on every rank,
+    with no sum.  The shared experts are column- (gate, up) and
+    row-parallel (down)."""
     b, s, d = x.shape
     mode = dispatch_mode(cfg, s, b)
+    tp = model_ranks()
+    split = tp is not None and p["gate"].shape[0] != cfg.n_experts
+    xc = x if tp is None else copy_to_model(x, tp)
+    xd = xc if split else x                     # the dispatch's input
     if mode == "global":
-        xg = x.reshape(1, b * s, d)             # one group of B*S tokens
+        xg = xd.reshape(1, b * s, d)            # one group of B*S tokens
         top_w, top_e, aux = _route(p, cfg, x.reshape(b * s, d))
         top_w, top_e = top_w[None], top_e[None]
     else:
-        xg = x                                  # a group per batch row
+        xg = xd                                 # a group per batch row
         top_w, top_e, aux = _route(p, cfg, x)
-    if mode == "ep":
+    t = xg.shape[1]
+    if split:
+        y = _rank_ep(p, cfg, xg, top_e, copy_to_model(top_w, tp),
+                     _capacity(t, cfg), tp).reshape(b, s, d)
+    elif mode == "ep":
         y = _ep_shard_map(p, cfg, x, top_e, top_w, ambient_mesh())
     else:
-        t = xg.shape[1]
         expert_in, ctx = _sort_dispatch(cfg, xg, top_e, top_w,
                                         _capacity(t, cfg))
         expert_out = _expert_mlps(p, x.dtype, expert_in)
         y = _combine(cfg, expert_out, ctx, t).reshape(b, s, d)
     if "shared" in p:
-        sh = p["shared"]
-        y = y + linear(sh["down"],
-                       silu(linear(sh["gate"], x)) * linear(sh["up"], x))
+        y = y + mlp(p["shared"], xc, cfg.moe_d_ff * cfg.n_shared_experts)
     return y, aux

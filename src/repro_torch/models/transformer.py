@@ -41,8 +41,8 @@ training, `cfg.remat` wraps each layer (the hybrid: each group) in
 runs the flash forward kernel twice per layer.  The blocks' auxiliary
 losses (MoE routing) are summed over the layers into `train_loss`.
 
-Under a `model` axis over ranks (`core.mesh.model_ranks`; the dense
-family only, the others raise naming their ROADMAP items) the embedding
+Under a `model` axis over ranks (`core.mesh.model_ranks`; the dense and
+moe families, the others raise naming their ROADMAP item) the embedding
 is a vocab-parallel lookup, the head's logits are the rank's vocabulary
 block (the pad mask at the global column), and `train_loss` is the
 vocab-parallel cross-entropy: the row max by a MAX all-reduce, the sum of
@@ -51,9 +51,11 @@ model group, never a [B, S, V] gather.  Over ranks `prefill` and
 `decode_step` take the global batch, run the rank's rows (cut over the
 data axes) and return the whole [B, 1, V] logits on every rank (the last
 position gathered), so every rank samples the same token; their caches
-are the rank's blocks of `runtime.sharding.cache_pspecs` (cut over the
-sequence: prefill re-lays its head-cut K/V into them), and
-`empty_caches` gives those blocks.
+are the rank's blocks of `runtime.sharding.rank_cache_pspecs` (cut over
+the sequence: prefill re-lays its head-cut K/V, and cuts the MLA latent
+that every rank holds whole, into them), and `empty_caches` gives those
+blocks.  `init_params` there draws only the rank's blocks of the
+params.
 """
 from __future__ import annotations
 
@@ -78,8 +80,8 @@ from repro_torch.models import blocks as B
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.moe import ExpertBank
 from repro_torch.models.layers import Params, part_of, rmsnorm, rmsnorm_init
-from repro_torch.tree import (tree_leaves, tree_map, tree_slice, tree_stack,
-                             tree_unstack)
+from repro_torch.tree import (tree_leaves, tree_map, tree_map_with_path,
+                             tree_slice, tree_stack, tree_unstack)
 
 LB_COEF, Z_COEF = 0.01, 1e-3
 LONG_CTX_THRESHOLD = 131072
@@ -124,30 +126,62 @@ def padded_vocab(cfg) -> int:
 
 # --- init --------------------------------------------------------------------
 
-def _place(leaf, dst: torch.Tensor) -> None:
-    """A drawn leaf copied into its slot of a stacked leaf; an expert bank
-    drawn straight into it, several experts at a time."""
+def _whole_slices(shape) -> Tuple[slice, ...]:
+    return tuple(slice(0, n) for n in shape)
+
+
+def _rank_slices(mesh, path: str, shape, family: str
+                 ) -> Tuple[slice, ...]:
+    """The slices of the whole leaf at `path` (the port's "['a']['b']"
+    form) of `shape` that this rank keeps: its `local_block` under the
+    reference's spec (`runtime.sharding.param_pspecs`: the ssm family's
+    replicated); all of it without `mesh`."""
+    if mesh is None or family == "ssm":
+        return _whole_slices(shape)
+    from repro_torch.runtime.sharding import param_spec
+    return local_block(tuple(shape), param_spec(
+        path, torch.empty(tuple(shape), device="meta"), mesh), mesh)
+
+
+def _sizes(sl) -> Tuple[int, ...]:
+    return tuple(s.stop - s.start for s in sl)
+
+
+def _place(leaf, dst: torch.Tensor, sl: Tuple[slice, ...]) -> None:
+    """The block `sl` of a drawn leaf copied into its slot of a stacked
+    leaf; an expert bank draws only the block's experts, straight into
+    it, several at a time."""
     if isinstance(leaf, ExpertBank):
-        leaf.draw_into(dst)
+        leaf.draw_into(dst, block=sl)
     else:
-        dst.copy_(leaf)
+        dst.copy_(leaf[sl])
 
 
-def _draw_stacked(draw_layer, n: int, dev) -> Params:
+def _draw_stacked(draw_layer, n: int, dev, mesh=None, path: str = "",
+                  family: str = "") -> Params:
     """n layers drawn in turn, each moved into the stacked [n, ...] leaves
     preallocated on `dev` as soon as it is drawn, so the host holds one
-    layer at a time (and no expert bank whole).  On the meta device one
-    layer's shapes give the stack's: nothing is drawn."""
+    layer at a time (and no expert bank whole).  Under a mesh of ranks
+    (`mesh`; the stack at `path`) the stacked leaves are this rank's
+    blocks (`_rank_slices`): every layer is still drawn, in order, so the
+    generator's stream is one process's.  On the meta device one layer's
+    shapes give the stack's: nothing is drawn."""
     if dev.type == "meta":
         return tree_map(lambda leaf: torch.empty(
             (n, *leaf.shape), dtype=leaf.dtype, device=dev), draw_layer())
-    out = None
+    out = cuts = None
     for i in range(n):
         layer = draw_layer()
         if out is None:
-            out = tree_map(lambda leaf: torch.empty(
-                (n, *leaf.shape), dtype=leaf.dtype, device=dev), layer)
-        tree_map(lambda dst, leaf, i=i: _place(leaf, dst[i]), out, layer)
+            cuts = tree_map_with_path(lambda p, leaf: _rank_slices(
+                mesh, path + p, (n, *leaf.shape), family), layer)
+            out = tree_map(lambda leaf, sl: torch.empty(
+                _sizes(sl), dtype=leaf.dtype, device=dev), layer, cuts)
+
+        def put(dst, leaf, sl, i=i):
+            if sl[0].start <= i < sl[0].stop:
+                _place(leaf, dst[i - sl[0].start], sl[1:])
+        tree_map(put, out, layer, cuts)
     return out
 
 
@@ -156,11 +190,20 @@ def init_params(seed, cfg, *, device=None) -> Params:
     the CPU so a seed gives the same weights on every machine, each leaf
     moved to `device` (None: the card) as it is drawn.  The MoE expert
     banks are drawn by several threads (`ExpertBank.draw_into`); the
-    weights do not depend on how many."""
+    weights do not depend on how many.
+
+    Inside a mesh of ranks whose model axis holds several ranks
+    (`core.mesh.model_ranks`) each leaf is this rank's block of it under
+    the reference's specs, and only the blocks reach the device: every
+    other leaf is still drawn whole on the host, in one process's order,
+    and cut there; an expert bank draws only its block's experts (each
+    has its own seed).  The result is `init_params` then the cut, leaf
+    for leaf, without a whole layer on the device (one full-width
+    kimi-k2 layer is 38.9 GB)."""
     _check_family(cfg)
     gen = (seed if isinstance(seed, torch.Generator)
            else torch.Generator().manual_seed(int(seed)))
-    return _init_params(gen, cfg, resolve_device(device))
+    return _init_params(gen, cfg, resolve_device(device), model_ranks())
 
 
 def abstract_params(cfg) -> Params:
@@ -174,35 +217,48 @@ def abstract_params(cfg) -> Params:
         return _init_params(torch.Generator(), cfg, meta)
 
 
-def _init_params(gen: torch.Generator, cfg, dev: torch.device) -> Params:
+def _init_params(gen: torch.Generator, cfg, dev: torch.device,
+                 mesh=None) -> Params:
     dtype = getattr(torch, cfg.param_dtype)
     v, d = padded_vocab(cfg), cfg.d_model
+
+    def keep(path: str, t: torch.Tensor) -> torch.Tensor:
+        if mesh is None:
+            return t.to(dev)
+        return t[_rank_slices(mesh, path, t.shape, cfg.family)].clone() \
+            .to(dev)
+
+    def kept(path: str, tree) -> Params:
+        return tree_map_with_path(lambda p, t: keep(path + p, t), tree)
+
     p: Params = {
-        "embed": torch.randn(v, d, generator=gen).mul_(0.01).to(dtype)
-        .to(dev),
-        "final_norm": tree_map(lambda t: t.to(dev), rmsnorm_init(d)),
-        "head": torch.randn(d, v, generator=gen).mul_(0.01).to(dtype)
-        .to(dev),
+        "embed": keep("['embed']", torch.randn(v, d, generator=gen)
+                      .mul_(0.01).to(dtype)),
+        "final_norm": kept("['final_norm']", rmsnorm_init(d)),
+        "head": keep("['head']", torch.randn(d, v, generator=gen)
+                     .mul_(0.01).to(dtype)),
     }
 
-    def stacked(init_fn, n: int):
-        return _draw_stacked(lambda: init_fn(gen, cfg, dtype=dtype), n, dev)
+    def stacked(init_fn, n: int, name: str):
+        return _draw_stacked(lambda: init_fn(gen, cfg, dtype=dtype), n, dev,
+                             mesh, f"[{name!r}]", cfg.family)
 
     if cfg.family == "audio":
-        p["enc_layers"] = stacked(B.dense_block_init, cfg.encoder_layers)
-        p["enc_norm"] = tree_map(lambda t: t.to(dev), rmsnorm_init(d))
-        p["layers"] = stacked(B.xdec_block_init, cfg.n_layers)
+        p["enc_layers"] = stacked(B.dense_block_init, cfg.encoder_layers,
+                                  "enc_layers")
+        p["enc_norm"] = kept("['enc_norm']", rmsnorm_init(d))
+        p["layers"] = stacked(B.xdec_block_init, cfg.n_layers, "layers")
     elif cfg.family == "hybrid":
         groups, per, tail = _hybrid_layout(cfg)
         p["mamba_groups"] = tree_map(
             lambda t: t.reshape(groups, per, *t.shape[1:]),
-            stacked(B.ssm_block_init, groups * per))
+            stacked(B.ssm_block_init, groups * per, "mamba_groups"))
         if tail:
-            p["mamba_tail"] = stacked(B.ssm_block_init, tail)
-        p["shared"] = tree_map(lambda t: t.to(dev), B.dense_block_init(
+            p["mamba_tail"] = stacked(B.ssm_block_init, tail, "mamba_tail")
+        p["shared"] = kept("['shared']", B.dense_block_init(
             gen, cfg, dtype=dtype))
     else:
-        p["layers"] = stacked(_block_fns(cfg)[0], cfg.n_layers)
+        p["layers"] = stacked(_block_fns(cfg)[0], cfg.n_layers, "layers")
     return p
 
 
@@ -511,19 +567,21 @@ def prefill(params, cfg, batch: Dict[str, Any]) -> Tuple[torch.Tensor, Any]:
         return logits, caches
     tp = model_ranks()
     if tp is not None:
-        caches = {name: _sequence_cut(cfg, caches[name], tp)
-                  for name in ("k", "v")}
+        caches = {name: _sequence_cut(cfg, t, tp, heads=name in ("k", "v"))
+                  for name, t in caches.items()}
     return _whole_rows(logits, ranks), caches
 
 
-def _sequence_cut(cfg, t: torch.Tensor, mesh) -> torch.Tensor:
+def _sequence_cut(cfg, t: torch.Tensor, mesh, heads: bool = True
+                  ) -> torch.Tensor:
     """Stacked head-cut keys or values [L, B', S, Hkv', Dh] (each rank
-    its `head_split` KV heads) as the rank's block of the sequence-cut
-    cache [L, B', S / |model|, Hkv, Dh] (whole S where the axis does not
-    divide it, as `sanitize_spec` leaves it)."""
+    its `head_split` KV heads; `heads`) or the MLA's latent or rope key
+    [L, B', S, R] (whole on every rank) as the rank's block of the
+    sequence-cut cache [L, B', S / |model|, ...] (whole S where the axis
+    does not divide it, as `sanitize_spec` leaves it)."""
     index, m = model_coord(mesh)
-    every = attn_mod.all_heads(cfg, mesh_all_gather(t, mesh, ("model",), 3),
-                               m, True, dim=3)
+    every = t if not heads else attn_mod.all_heads(
+        cfg, mesh_all_gather(t, mesh, ("model",), 3), m, True, dim=3)
     s = every.shape[2]
     if s % m:
         return every
@@ -603,18 +661,20 @@ def empty_caches(cfg, batch: int, s_max: int, dtype=torch.bfloat16,
     [L, batch, ...] float32 states; hybrid {"groups" [G, per, batch, ...],
     "shared" [G, batch, s_max, Hkv, Dh], "tail" [T, batch, ...] or None};
     audio {"self": GQA, "cross": [L, batch, n_frames, H, Dh]}.  Inside a
-    mesh of ranks, this rank's blocks of them (`cache_pspecs`)."""
+    mesh of ranks, this rank's blocks of them (`runtime.sharding.
+    rank_cache_pspecs`)."""
     _check_family(cfg)
     ranks = ambient_ranks()
     if ranks is None:
         return _empty_caches(cfg, batch, s_max, dtype,
                              resolve_device(device))
     refuse_family(cfg)
-    from repro_torch.runtime.sharding import cache_pspecs
+    from repro_torch.runtime.sharding import rank_cache_pspecs
     whole = abstract_caches(cfg, batch, s_max, dtype)
     return tree_map(lambda t, spec: torch.zeros(
         local_shape(tuple(t.shape), spec, ranks), dtype=t.dtype,
-        device=resolve_device(device)), whole, cache_pspecs(ranks, whole))
+        device=resolve_device(device)), whole,
+        rank_cache_pspecs(ranks, whole))
 
 
 def abstract_caches(cfg, batch: int, s_max: int, dtype=torch.bfloat16):

@@ -13,8 +13,13 @@ tests line up:
                  {"q": {"mq", "ms", "vq", "vs"}, "step"}.
 
 `update` runs under `torch.no_grad()` and returns new tensors; it
-changes none of its arguments.  The state's ZeRO-1 specs are
-`runtime.steps.train_state_pspecs`'s.
+changes none of its arguments.  AdamW's `update(..., donate=True)` is
+the reference trainer's donated state (`jax.jit(step_fn,
+donate_argnums=(0,))`): the moments and params it is given are updated
+in place, a leaf at a time (its clipped gradient made as it is used),
+by the same operations in the same order (so to the same bits), and
+returned, so an update holds one state, not two.  The
+state's ZeRO-1 specs are `runtime.steps.train_state_pspecs`'s.
 """
 from __future__ import annotations
 
@@ -49,17 +54,13 @@ def adamw(b1=0.9, b2=0.95, eps=1e-8, weight_decay=0.1,
                 "step": step}
 
     @torch.no_grad()
-    def update(grads, state, params, lr, norm=None):
+    def update(grads, state, params, lr, norm=None, donate=False):
         """`norm`: the whole gradient's global norm where `grads`,
         `state` and `params` are blocks of the whole leaves (a ZeRO-1
         rank's, `runtime.steps`): the update is elementwise given the
-        clip's scale, which comes from `norm`."""
+        clip's scale, which comes from `norm`.  `donate`: update the
+        moments and params in place (one leaf at a time)."""
         step = state["step"] + 1
-        grads = clip_by_global_norm(grads, grad_clip, norm)
-        m = tree_map(lambda m_, g: b1 * m_ + (1 - b1) * _f32(g),
-                     state["m"], grads)
-        v = tree_map(lambda v_, g: b2 * v_ + (1 - b2) * torch.square(_f32(g)),
-                     state["v"], grads)
         bc1 = 1 - b1 ** _f32(step)
         bc2 = 1 - b2 ** _f32(step)
 
@@ -67,6 +68,23 @@ def adamw(b1=0.9, b2=0.95, eps=1e-8, weight_decay=0.1,
             u = (m_ / bc1) / (torch.sqrt(v_ / bc2) + eps)
             u = u + weight_decay * _f32(p)
             return (_f32(p) - lr * u).to(p.dtype)
+        if donate:
+            # each leaf's clipped gradient made as it is used
+            scale = _clip_scale(grads, grad_clip, norm)
+
+            def in_place(p, m_, v_, g):
+                if scale is not None:
+                    g = _clipped(g, scale)
+                m_.mul_(b1).add_((1 - b1) * _f32(g))
+                v_.mul_(b2).add_((1 - b2) * torch.square(_f32(g)))
+                return p.copy_(upd(p, m_, v_))
+            new = tree_map(in_place, params, state["m"], state["v"], grads)
+            return new, {"m": state["m"], "v": state["v"], "step": step}
+        grads = clip_by_global_norm(grads, grad_clip, norm)
+        m = tree_map(lambda m_, g: b1 * m_ + (1 - b1) * _f32(g),
+                     state["m"], grads)
+        v = tree_map(lambda v_, g: b2 * v_ + (1 - b2) * torch.square(_f32(g)),
+                     state["v"], grads)
         return tree_map(upd, params, m, v), {"m": m, "v": v, "step": step}
 
     return Optimizer(init, update)
@@ -202,14 +220,25 @@ def global_norm(tree) -> torch.Tensor:
 
 
 @torch.no_grad()
+def _clip_scale(grads, max_norm: float, norm=None):
+    """The factor `clip_by_global_norm` scales by (None: no clip)."""
+    if not max_norm:
+        return None
+    norm = global_norm(grads) if norm is None else norm
+    return torch.clamp_max(max_norm / (norm + 1e-9), 1.0)
+
+
+def _clipped(g: torch.Tensor, scale) -> torch.Tensor:
+    return (_f32(g) * scale).to(g.dtype)
+
+
 def clip_by_global_norm(grads, max_norm: float, norm=None):
     """`grads` scaled to a global norm of at most `max_norm`; `norm` is
     their global norm where known (default: computed from `grads`)."""
-    if not max_norm:
+    scale = _clip_scale(grads, max_norm, norm)
+    if scale is None:
         return grads
-    norm = global_norm(grads) if norm is None else norm
-    scale = torch.clamp_max(max_norm / (norm + 1e-9), 1.0)
-    return tree_map(lambda g: (_f32(g) * scale).to(g.dtype), grads)
+    return tree_map(lambda g: _clipped(g, scale), grads)
 
 
 def get_optimizer(name: str, **kw) -> Optimizer:

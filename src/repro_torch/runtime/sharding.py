@@ -201,6 +201,25 @@ def cache_pspecs(mesh: Mesh, caches):
                                       tuple(leaf.shape), mesh), caches)
 
 
+def rank_cache_pspecs(mesh: Mesh, caches):
+    """The caches' specs as a mesh of ranks holds them, a block a rank:
+    `cache_pspecs`, but for the MLA latent.  The reference's name test
+    sends "ckv" down its k/v branch, so on the stacked [L, B, S, R]
+    latent its spec cuts L over the data axes and B over "model", which
+    GSPMD reshards to whatever each step needs; a rank holds only its
+    block, and prefill and decode run on its rows, so the latent takes
+    the branch written for it, as "k_rope" does: B over the data axes, S
+    over "model"."""
+    def spec(path, leaf):
+        if _path_str(path).endswith("ckv"):
+            want = P(*(None,) * (_ndim(leaf) - 3), dp_axes(mesh), "model",
+                     None)
+        else:
+            want = cache_spec(path, leaf, mesh)
+        return sanitize_spec(want, tuple(leaf.shape), mesh)
+    return tree_map_with_path(spec, caches)
+
+
 def activation_spec(mesh: Mesh) -> P:
     """Residual-stream constraint [B, S, D]."""
     return P(dp_axes(mesh), None, None)

@@ -151,20 +151,28 @@ def state_pspecs(cfg, optimizer, mesh, compress: bool = False):
     return specs, shape
 
 
-def place(tree, shardings):
+def place(tree, shardings, shapes=None):
     """Every leaf of `tree` on its `NamedSharding`.  On a mesh of ranks
     each process keeps its own block of each leaf (`core.mesh.
     local_block` of the leaf's spec: the params cut over "model", the
-    ZeRO-1 moments over "data" too) on its own device.  On a mesh whose
-    devices are all one device the leaf moves there whole (a no-op when
-    it is there already).  A mesh of distinct devices with no process
-    group would need a process per device: ValueError."""
-    def one(leaf, sh):
+    ZeRO-1 moments over "data" too) on its own device; with `shapes` (a
+    tree of the whole leaves) a leaf that is already this rank's block
+    (a fresh state from `make_train_step`'s `init_state` over ranks)
+    stays as it is.  On a mesh whose devices are all one device the leaf
+    moves there whole (a no-op when it is there already).  A mesh of
+    distinct devices with no process group would need a process per
+    device: ValueError."""
+    def one(leaf, sh, whole=None):
         mesh = sh.mesh
         if mesh.ranks is not None:
-            sl = local_block(tuple(leaf.shape), sh.spec, mesh)
+            shape = tuple(leaf.shape if whole is None else whole.shape)
+            sl = local_block(shape, sh.spec, mesh)
             if all(s.stop - s.start == n for s, n in zip(sl, leaf.shape)):
                 return leaf.to(mesh.device)
+            if tuple(leaf.shape) != shape:
+                raise ValueError(f"a leaf {tuple(leaf.shape)} is neither "
+                                 f"the whole {shape} nor its block under "
+                                 f"{sh.spec}")
             return leaf[sl].to(mesh.device).clone()
         devs = set(mesh.devices.flat)
         if len(devs) != 1:
@@ -174,7 +182,9 @@ def place(tree, shardings):
                 "start one per device with torchrun (ROADMAP Queue 1 item "
                 "15.1), or use a mesh of one device")
         return leaf.to(next(iter(devs)))
-    return tree_map(one, tree, shardings)
+    if shapes is None:
+        return tree_map(one, tree, shardings)
+    return tree_map(one, tree, shardings, shapes)
 
 
 def cut(tree, specs, mesh, within=None, shapes=None):
@@ -272,14 +282,21 @@ def _loss_and_grads(cfg, params, batch):
 def make_train_step(cfg, mesh=None, *, optimizer_name: str = "adamw",
                     peak_lr: float = 3e-4, warmup: int = 2000,
                     total_steps: int = 100_000, accum: int = 1,
-                    compress: bool = False):
+                    compress: bool = False, donate: bool = False):
     """Returns (step_fn, init_state, optimizer); init_state(seed, device=)
     builds a fresh state.  With a `mesh`, each step runs inside `with
     mesh:` (the model code's ambient mesh).  Over a mesh of ranks
-    step_fn takes the global batch and the state `place`d on the mesh
-    (`state_pspecs`), and returns the rank's new state and the global
-    metrics, equal on every rank."""
+    init_state gives this rank's blocks of the fresh state (never the
+    whole params on the device), step_fn takes the global batch and the
+    state `place`d on the mesh (`state_pspecs`), and returns the rank's
+    new state and the global metrics, equal on every rank.  `donate`
+    (AdamW): step_fn takes the state's buffers, as the reference's
+    trainer donates them, and updates its moments and params in place
+    (the same bits as a new state); the caller must not use the state it
+    passed again."""
     optimizer = get_optimizer(optimizer_name)
+    in_place = {"donate": True} if donate and optimizer_name == "adamw" \
+        else {}
     ranks = mesh if mesh is not None and mesh.ranks is not None else None
     if ranks is not None:
         specs, shapes = state_pspecs(cfg, optimizer, ranks, compress)
@@ -320,7 +337,7 @@ def make_train_step(cfg, mesh=None, *, optimizer_name: str = "adamw",
                            total=total_steps)
         grad_norm = _global_norm(grads)
         new_params, new_opt = optimizer.update(grads, state["opt"], params,
-                                               lr)
+                                               lr, **in_place)
         return _finish(state, new_params, new_opt,
                        new_err if compress else None, loss, metrics, lr,
                        grad_norm)
@@ -353,7 +370,7 @@ def make_train_step(cfg, mesh=None, *, optimizer_name: str = "adamw",
             blocks, new_opt = optimizer.update(
                 g_blocks, state["opt"],
                 cut(params, mspec, ranks, pspec, shapes["params"]), lr,
-                norm=grad_norm)
+                norm=grad_norm, **in_place)
             new_params = gather(blocks, mspec, shapes["params"], ranks,
                                 dp_axes(ranks))
         else:
@@ -380,9 +397,44 @@ def make_train_step(cfg, mesh=None, *, optimizer_name: str = "adamw",
         return new_state, metrics
 
     def init_state(seed, *, device=None):
+        if ranks is not None:
+            return _rank_state(seed, device)
         st = make_train_state(seed, cfg, optimizer, device=device)
         if compress:
             st["errors"] = init_errors(st["params"])
+        return st
+
+    def _rank_state(seed, device):
+        """A fresh state as this rank holds it (its blocks under `specs`),
+        drawn as blocks: the params inside the mesh (`init_params`: the
+        rank's model blocks, the weights one process's), AdamW's zero
+        moments and the --compress residuals as their blocks within the
+        params'; the whole-leaf optimizers' state from whole-shaped
+        stand-ins (a zero expanded, no storage) of the params, cut."""
+        with ranks:
+            params = init_params(seed, cfg, device=device)
+        pspec, pshape = specs["params"], shapes["params"]
+
+        def within(tree, spec):
+            # a block smaller than the param's is copied out of it
+            return tree_map(lambda b, t: t if b.shape == t.shape
+                            else b.clone(),
+                            cut(tree, spec, ranks, pspec, pshape), tree)
+        if optimizer_name == "adamw":
+            opt = optimizer.init(params)
+            opt.update(m=within(opt["m"], specs["opt"]["m"]),
+                       v=within(opt["v"], specs["opt"]["v"]))
+        else:
+            dev = resolve_device(device)
+            stand = tree_map(lambda t: torch.zeros(
+                (), dtype=t.dtype, device=dev).expand(t.shape), pshape)
+            opt = tree_map(torch.Tensor.clone,
+                           cut(optimizer.init(stand), specs["opt"], ranks))
+        st = {"params": params, "opt": opt,
+              "step": torch.zeros((), dtype=torch.int32,
+                                  device=resolve_device(device))}
+        if compress:
+            st["errors"] = within(init_errors(params), specs["errors"])
         return st
 
     return step_fn, init_state, optimizer

@@ -127,6 +127,11 @@ def scenario_ops(out):
     mesh = host_mesh(out["world"])
     index, m = core_mesh.model_coord(mesh)
     x, w1, w2 = ops_inputs()
+    # the whole params, drawn outside the mesh (inside it each rank draws
+    # only its blocks)
+    cfg = f32(vocab_size=PAD_VOCAB)
+    params = init_params(0, cfg, device="cpu")
+    whole = init_params(0, f32(), device="cpu")
     w1b = w1[:, index * 256 // m:(index + 1) * 256 // m].clone()
     w2b = w2[index * 256 // m:(index + 1) * 256 // m].clone()
     x, w1b, w2b = (t.requires_grad_(True) for t in (x, w1b, w2b))
@@ -142,8 +147,6 @@ def scenario_ops(out):
         dot, alpha = layers.row_bitlinear_parts(
             rows, torch.tanh(h).detach(), 256, mesh)
         res["bitlinear"] = {"dot": dot, "alpha": alpha}
-        cfg = f32(vocab_size=PAD_VOCAB)
-        params = init_params(0, cfg, device="cpu")
         lo = index * 512 // m
         local = {"embed": params["embed"][lo:lo + 512 // m],
                  "head": params["head"][:, lo:lo + 512 // m].clone()
@@ -161,8 +164,7 @@ def scenario_ops(out):
         # the global gradient norm of the model blocks
         cfg = f32()
         specs = steps.state_pspecs(cfg, get_optimizer("adamw"), mesh)[0]
-        placed = steps.cut(init_params(0, cfg, device="cpu"),
-                           specs["params"], mesh)
+        placed = steps.cut(whole, specs["params"], mesh)
         b = steps.rank_rows(batches(cfg, 1)[0], mesh)[0]
         _, metrics, grads = steps._loss_and_grads(cfg, placed, b)
         res["norm"] = {"loss": metrics["ce"],
@@ -319,8 +321,8 @@ def scenario_refusals(out):
     }
     for name, call in calls.items():
         try:
-            call()
-            said[name] = None
+            got = call()
+            said[name] = ("ran", getattr(got, "shape", got))
         except ValueError as err:
             said[name] = str(err)
     return said
@@ -675,12 +677,14 @@ def test_decode_cache_blocks_follow_the_specs(m, world2, world4):
 
 
 def test_refusals(world2):
-    """The other families, a model axis that does not divide the ranks,
-    and --continuous over ranks raise ValueError naming their ROADMAP
-    items; K > 1 in one process raises too."""
+    """The MoE family runs under a model axis (served and trained); the
+    ssm family, a model axis that does not divide the ranks, and
+    --continuous over ranks raise ValueError naming their ROADMAP items;
+    K > 1 in one process raises too."""
     said = result(world2, "refusals")
-    assert "15.3" in said["moe"] and "moe" in said["moe"]
-    assert "15.3" in said["moe_train"]
+    assert said["moe"] == ("ran", (4, 16))
+    assert said["moe_train"][0] == "ran" \
+        and np.isfinite(said["moe_train"][1])
     assert "15.4" in said["ssm"] and "ssm" in said["ssm"]
     assert "does not divide 2 ranks" in said["divide"]
     assert "15.5" in said["continuous"]
