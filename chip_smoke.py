@@ -61,7 +61,10 @@ Phases, each fatal on failure:
                 llava-next-34b [4, 56, 3072, 128] over 8 KV heads, n_rep
                 7), and both, with the GEMM, at the tp phase's rank
                 blocks (flash q [8, 6, 256, 64] forward and backward, [4,
-                6, 256, 64] and [4, 20, 256, 128] forward; the GEMM's
+                6, 256, 64] and [4, 20, 256, 128] forward; kimi-k2's [4,
+                32, 256, 128]; zamba2's [4, 16, 512, 64] forward and
+                backward, llava's [4, 28, 3072, 128] forward and [1, 28,
+                3072, 128] forward and backward, n_rep 7; the GEMM's
                 gate/up columns and down's output block at decode and
                 prefill rows), a "detail" line each;
   3. path    -- one drim-bnn FFN BitLinear pair at full width (768 -> 3072
@@ -231,14 +234,14 @@ Phases, each fatal on failure:
   12. train  -- the drim-bnn LM trained at full width and depth through
                 `repro_torch.launch.train.main` under `--mesh host`
                 (examples/train_bnn_lm.py's
-                batch 8, seq 256, AdamW 3e-4; 20 steps, seeded weights,
+                batch 8, seq 256, AdamW 3e-4; 10 steps, seeded weights,
                 deterministic algorithms; the state placed on its ZeRO-1
                 shardings over a 1x1 mesh, every AdamW moment's spec with
                 a "data" entry, the sharded and replicated leaves
                 counted): finite losses, the last below
                 the first, s/step and tokens/s ("train" lines); then the
-                step-10 checkpoint restored into a fresh state and trained
-                10 more steps must equal the straight run's step-20 state
+                step-5 checkpoint restored into a fresh state and trained
+                5 more steps must equal the straight run's step-10 state
                 bit for bit;
   12a. ranks -- the train phase's run (TRAIN) over 2 ranks on the one
                 card: `python -m torch.distributed.run --nproc-per-node 2
@@ -251,8 +254,8 @@ Phases, each fatal on failure:
                 every later loss within RANKS_LOSS_BOUND; each rank's
                 flash launches 24 / 12 / 12 a step; each rank's moment
                 bytes half of one process's and equal to its specs'
-                local bytes; the 10 + 10 restart (--resume) bitwise the
-                straight 20 steps; the 2-rank checkpoint restored here in
+                local bytes; the 5 + 5 restart (--resume) bitwise the
+                straight 10 steps; the 2-rank checkpoint restored here in
                 one process equal to each rank's blocks leaf for leaf; a
                 planted fault (rank 1's gradients left out of the sum)
                 past the loss bound; backend, devices, s/step, global
@@ -291,7 +294,7 @@ Phases, each fatal on failure:
                 fault (rank 1 drops layer 0's wo reduce for 8 steps) past
                 it; flash 24 / 12 / 12 a step on each rank; each rank's
                 param and moment bytes its specs' local bytes (half of
-                one process's for every cut leaf); the 10 + 10 restart
+                one process's for every cut leaf); the 5 + 5 restart
                 bitwise the straight run; the 2-rank checkpoint restored
                 here in one process equal to each rank's blocks; s/step,
                 global tokens/s, peak GB and collective calls, GB and s a
@@ -318,9 +321,33 @@ Phases, each fatal on failure:
                 steps) with AdamW 2e-5 on a donated state, step 1 within
                 TP_STEP1_TOL of the train-families leg's, the losses
                 finite and falling, each rank's param and moment bytes
-                its specs'.  With 2 or more cards the training run and
-                the MoE serving legs over NCCL at (1, min(4, cards)), a
-                card a rank; with one card a line;
+                its specs'.  Then, in the same worker, the ssm, hybrid
+                and vlm families (TP_FAMILY_SERVE, TP_FAMILY_TRAIN):
+                mamba2-130m served over (1, 2) (its params replicated,
+                its 1024-token prompt cut over the sequence, 512 tokens
+                a rank) and over the (2, 1) data mesh (one process's
+                tokens bit for bit), zamba2-1.2b over (1, 2) (its mixer
+                on cut params) at 6 of its 38 layers in bfloat16 and at
+                full depth in float32 with the scan's bfloat16 roundings
+                off (`float32_numerics`; prefill logits within
+                TP_F32_LOGIT_TOL of one process's, and a planted fault,
+                rank 1's out_proj partial of the last mixer left out of
+                the sum, past it), llava-next-34b at 2 of 60 layers
+                over (1, 2) (3072 tokens), as the families phase serves
+                them and held to one-process legs as qwen3-14b's; each
+                rank's param and cache bytes its specs' (`rank_cache_
+                pspecs`: the SSM states over heads, the conv windows
+                whole), its prefill and decode collectives by axis; the
+                three trained over (1, 2) at their train-families legs
+                (6 steps; zamba2 at 6 layers, held to a one-process leg
+                at that depth run here first; llava at 2, donated),
+                step 1 within
+                TP_STEP1_TOL of one process's and later steps within
+                TP_LOSS_BOUND, each rank's param and moment bytes its
+                specs'.  With 2 or
+                more cards the training run and the MoE serving legs
+                over NCCL at (1, min(4, cards)), a card a rank; with one
+                card a line;
   13. counts -- the launch counters are zeroed just before phase 3, before
                 each of phase 4's five legs and phase 4b's legs, before
                 phase 5, phase 6,
@@ -355,7 +382,11 @@ Phases, each fatal on failure:
                 leg, phase 12 and in each rank phases 12a and 12c per
                 step the flash forward twice per layer (remat) and each
                 backward kernel once per layer, each rank's phase 12c
-                serving legs the launches of their one-process legs,
+                serving legs the launches of their one-process legs
+                (the family legs' prefills mamba2 0, zamba2 6 (1 at 6
+                layers), llava 2;
+                their training per step twice a GQA site and each
+                backward kernel once a site: 0, 1, 2),
                 phase 12b per step the flash forward twice per GQA site
                 and each backward kernel once per site (mamba2 and
                 deepseek-v3 none, zamba2 6 sites, whisper 24, llava 2),
@@ -452,8 +483,12 @@ FLASH_BWD_FAMILIES = [
     (4, 16, 16, 256, 256, 64, True, torch.bfloat16)]
 # The train phase: examples/train_bnn_lm.py's run (batch 8, seq 256,
 # AdamW at 3e-4) at full width and depth, cut to TRAIN_STEPS steps, with a
-# checkpoint at RESTART_AT for the restart check.
-TRAIN_STEPS, RESTART_AT = 20, 10
+# checkpoint at RESTART_AT for the restart check.  10 steps and a 5 + 5
+# restart leave the script's time for the tp phase's family legs; the
+# ranks and tp phases run the same schedule (the warmup-cosine's decay
+# depends on the step count), since both are held to this phase's
+# losses.
+TRAIN_STEPS, RESTART_AT = 10, 5
 PROFILE_STEPS = 3               # steps traced after the restart check
 TRAIN = ["--arch", "drim-bnn", "--steps", str(TRAIN_STEPS), "--batch", "8",
          "--seq", "256", "--mesh", "host", "--lr", "3e-4", "--log-every", "1",
@@ -601,9 +636,9 @@ SERVED: dict = {}
 # phase's MoE training leg is held to
 TRAINED: dict = {}
 # the one-process serving legs the tp phase is held to: drim-bnn's "gpu
-# dense" and the families phase's qwen3-14b, deepseek-v3 and kimi-k2
-# (tokens, prefill logits and each token's top-two logit gap:
-# `tap_values`)
+# dense" and the families phase's qwen3-14b, deepseek-v3, kimi-k2,
+# mamba2, zamba2 and llava (tokens, prefill logits and each token's
+# top-two logit gap: `tap_values`)
 ONE_PROCESS: dict = {}
 CHAOS_DISARMED: dict = {}
 ARMED_KILL = "mid-graph kill"
@@ -1192,6 +1227,15 @@ def phase_flash(rng):
          torch.bfloat16),
         # kimi-k2's prefill on a rank's heads (the tp phase's MoE leg)
         (4, 64 // TP, 8 // TP, 256, 256, 128, 128, 128, True,
+         torch.bfloat16),
+        # the tp phase's family legs on a rank's heads: zamba2's shared
+        # block (n_rep 1), llava's serving prefill and training step
+        # (n_rep 7)
+        (4, 32 // TP, 32 // TP, 512, 512, 64, 128, 128, True,
+         torch.bfloat16),
+        (4, 56 // TP, 8 // TP, 3072, 3072, 128, 128, 128, True,
+         torch.bfloat16),
+        (1, 56 // TP, 8 // TP, 3072, 3072, 128, 128, 128, True,
          torch.bfloat16)]
     record = None
     for b, h, hkv, sq, sk, d, bq, bk, causal, dt in cases:
@@ -1265,8 +1309,11 @@ def phase_flash_bwd(rng):
         (1, 2, 2, 256, 256, 32, False, torch.float32),
         *(c[:6] + c[8:] for c in FLASH_BF16_EDGES),
         *FLASH_BWD_FAMILIES,
-        # the tp phase's training step on each of its TP ranks' heads
-        (8, 12 // TP, 4 // TP, 256, 256, 64, True, torch.bfloat16)]
+        # the tp phase's training step on each of its TP ranks' heads,
+        # and its zamba2 and llava training legs' rank heads
+        (8, 12 // TP, 4 // TP, 256, 256, 64, True, torch.bfloat16),
+        (4, 32 // TP, 32 // TP, 512, 512, 64, True, torch.bfloat16),
+        (1, 56 // TP, 8 // TP, 3072, 3072, 128, True, torch.bfloat16)]
     records = {}
     for b, h, hkv, sq, sk, d, causal, dt in cases:
         q, k, v, do = (torch.from_numpy(rng.standard_normal(
@@ -3090,8 +3137,17 @@ def phase_families(wrappers):
                 lambda args=args, params=params: serve.run_serve(
                     args, params=params),
                 lambda _, n=n_flash: {"flash_attn_fwd": n} if n else {})
-        if arch == "qwen3-14b" or arch in TP_MOE_ARCHS:
+        if arch == "qwen3-14b" or arch in TP_MOE_ARCHS \
+                or any(arch == a for a, *_ in TP_FAMILY_SERVE):
             ONE_PROCESS[arch] = {"gen": gen, **tap_values(tap)}
+        if (arch, layers, True) in ((a, n, f32) for a, n, _, _, f32
+                                    in TP_FAMILY_SERVE):
+            # the tp phase's float32 leg's one-process run, on these
+            # weights (bfloat16 params either way), not counted
+            with float32_numerics(), logits_tap() as tap32:
+                gen32, _ = serve.run_serve(args, params=params)
+            ONE_PROCESS[one_process_key(arch, layers, True)] = {
+                "gen": gen32, **tap_values(tap32)}
         # under the default --mesh host every MoE prefill layer takes EP
         # with one model shard; decode (S == 1) never does
         want_eps = ([{"data": 1, "model": 1}] * cfg.n_layers
@@ -3824,7 +3880,10 @@ def ranks_worker(out: str, kind: str, model_axis: int = 1) -> int:
     axis rank 1 skipping layer 0's wo reduce); over a model axis and
     gloo, then the tp serve legs (`tp_serve_legs`); over a model axis,
     then the MoE serving legs (`tp_moe_serve_legs`) and, for gloo, the
-    MoE training leg (`tp_moe_train_leg`), -> OUT/rank<r>_moe.pt.  Each
+    MoE training leg (`tp_moe_train_leg`), -> OUT/rank<r>_moe.pt; over a
+    model axis and gloo, then the ssm, hybrid and vlm legs
+    (`tp_family_serve_legs`, `tp_family_train_legs`) ->
+    OUT/rank<r>_families.pt.  Each
     training leg's launches, collective calls, bytes and seconds in all
     and by axis (apart from the checkpoint's gathers), peak bytes and
     printed lines go to OUT/rank<r>_<leg>.json."""
@@ -3872,6 +3931,11 @@ def ranks_worker(out: str, kind: str, model_axis: int = 1) -> int:
             if kind == "gloo":
                 moe["train"] = tp_moe_train_leg(ranks, wrappers, mesh)
             torch.save(moe, os.path.join(out, f"rank{ranks.rank}_moe.pt"))
+        if model_axis > 1 and kind == "gloo":
+            fam = {"serve": tp_family_serve_legs(ranks, wrappers),
+                   "train": tp_family_train_legs(ranks, wrappers, mesh)}
+            torch.save(fam, os.path.join(out,
+                                         f"rank{ranks.rank}_families.pt"))
     finally:
         ranks.close()
     return 0
@@ -4015,6 +4079,156 @@ def tp_moe_train_leg(ranks, wrappers, mesh) -> dict:
     return record
 
 
+def collective_since(before) -> dict:
+    """`COLLECTIVE_STATS` minus its copy `before`."""
+    from repro_torch.core import mesh as core_mesh
+    return {k: v - before.get(k, 0)
+            for k, v in core_mesh.COLLECTIVE_STATS.items()}
+
+
+def tp_family_serve_legs(ranks, wrappers) -> dict:
+    """The tp phase's ssm, hybrid and vlm serving legs on this rank
+    (TP_FAMILY_SERVE, the families phase's flags, `serve.run_serve
+    --model-axis K`, under `float32_numerics` where the leg says): each
+    leg's tokens, prefill logits and top-two gaps (`tap_values`),
+    launches (zeroed just before), the rank's param and decode cache
+    bytes, the collective calls, bytes and seconds of the prefill and of
+    the whole leg, peak GB and wall s.  A float32 leg also runs its
+    prefill a second time, untimed, right after the first, with
+    `planted_mixer_fault` on the last mixer ("planted_prefill"); that
+    run's launches and collectives are left out of the leg's.  Returns
+    {(arch, layers, K, float32): record}."""
+    from repro_torch.core import mesh as core_mesh
+    from repro_torch.launch import serve
+    from repro_torch.tree import tree_leaves
+
+    def nbytes(tree):
+        return sum(t.numel() * t.element_size() for t in tree_leaves(tree))
+    res = {}
+    for arch, layers, prompt, k, f32 in TP_FAMILY_SERVE:
+        args = serve.parse_args(family_argv(arch, layers, prompt)
+                                + ["--model-axis", str(k)])
+        drawn, caches, at_prefill, planted = [], [], [], {}
+        inner = {n: getattr(serve, n) for n in
+                 ("init_params", "prefill", "splice_caches",
+                  "splice_rank_caches")}
+
+        def spy_prefill(*a, **kw):
+            before = dict(core_mesh.COLLECTIVE_STATS)
+            out = inner["prefill"](*a, **kw)
+            at_prefill.append(collective_since(before))
+            if f32 and not planted:
+                planted["args"] = a, kw
+            return out
+
+        def plant():
+            """The planted prefill, after the timed one."""
+            a, kw = planted.pop("args")
+            before = dict(core_mesh.COLLECTIVE_STATS)
+            counts = {n: fn.launches for n, fn in wrappers.items()}
+            on = core_mesh.model_coord(core_mesh.model_ranks())[0] == 1
+            with planted_mixer_fault(on, a[1].n_layers - 1):
+                lg = inner["prefill"](*a, **kw)[0]
+            planted.update(prefill=lg[:, -1].float().cpu(),
+                           collective=collective_since(before),
+                           launches={n: fn.launches - counts[n]
+                                     for n, fn in wrappers.items()})
+
+        def spy_splice(name):
+            def spy(*a, **kw):
+                if "args" in planted:
+                    plant()
+                caches.append(inner[name](*a, **kw))
+                return caches[-1]
+            return spy
+
+        def draw(*a, **kw):
+            params = inner["init_params"](*a, **kw)
+            drawn.append(nbytes(params))
+            return params
+        for fn in wrappers.values():
+            fn.launches = 0
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        before = dict(core_mesh.COLLECTIVE_STATS)
+        t0 = time.perf_counter()
+        serve.init_params, serve.prefill = draw, spy_prefill
+        serve.splice_caches = spy_splice("splice_caches")
+        serve.splice_rank_caches = spy_splice("splice_rank_caches")
+        try:
+            with float32_numerics(f32), logits_tap() as tap:
+                gen, stats = serve.run_serve(args)
+        finally:
+            for n, fn in inner.items():
+                setattr(serve, n, fn)
+        torch.cuda.synchronize()
+        coll = collective_since(before)
+        launches = {n: fn.launches for n, fn in wrappers.items()}
+        if planted:
+            coll = {key: v - planted["collective"].get(key, 0)
+                    for key, v in coll.items()}
+            launches = {n: c - planted["launches"][n]
+                        for n, c in launches.items()}
+        res[(arch, layers, k, f32)] = {
+            "gen": gen, "stats": stats, **tap_values(tap),
+            "launches": launches,
+            "wall_s": time.perf_counter() - t0,
+            "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+            "param_bytes": drawn[0], "cache_bytes": nbytes(caches[0]),
+            "collective": coll, "prefill_collective": at_prefill[0],
+            "planted_prefill": planted.get("prefill")}
+        del caches, tap
+        torch.cuda.empty_cache()
+    return res
+
+
+def family_train_argv(arch: str):
+    """The train CLI's flags of `arch`'s train-families leg
+    (TRAIN_FAMILIES), and its config cut (`trainer_spy`'s)."""
+    _, layers, experts, batch, seq, opt, lr = next(
+        leg for leg in TRAIN_FAMILIES if leg[0] == arch)
+    argv = ["--arch", arch, "--steps", str(FAMILY_TRAIN_STEPS), "--batch",
+            str(batch), "--seq", str(seq), "--mesh", "host", "--optimizer",
+            opt, "--lr", str(lr), "--log-every", "1", "--seed", str(SEED)]
+    cut = {"n_layers": layers} if layers else {}
+    if experts:
+        cut["n_experts"] = experts
+    return argv, cut
+
+
+def trained_key(arch: str, layers: int) -> str:
+    """The TRAINED key of a training leg at depth `layers` (0: the
+    published): the arch where its train-families leg has that depth,
+    else "<arch> <layers> layers"."""
+    _, cut = family_train_argv(arch)
+    return arch if cut.get("n_layers", 0) == layers \
+        else f"{arch} {layers} layers"
+
+
+def tp_family_train_legs(ranks, wrappers, mesh) -> dict:
+    """The tp phase's ssm, hybrid and vlm training legs on this rank
+    (TP_FAMILY_TRAIN: their TRAIN_FAMILIES legs at the depth given,
+    `launch.train.main --model-axis TP`, llava with --donate):
+    `train_leg`'s records with the state's bytes (`state_bytes`), by
+    arch."""
+    res = {}
+    for arch, layers in TP_FAMILY_TRAIN:
+        argv, cut = family_train_argv(arch)
+        argv += ["--model-axis", str(TP)]
+        if arch == "llava-next-34b":
+            argv.append("--donate")
+        if layers:
+            cut["n_layers"] = layers
+        torch.cuda.empty_cache()
+        record, seen = train_leg(ranks, wrappers, argv,
+                                 contextlib.nullcontext(), **cut)
+        record.update(state_bytes(seen, mesh))
+        del seen
+        torch.cuda.empty_cache()
+        res[arch] = record
+    return res
+
+
 def train_leg(ranks, wrappers, argv, plant, **cut):
     """`train.main(argv)` on this rank under deterministic algorithms and
     `plant` (a context: the planted fault, or nothing), the config cut by
@@ -4071,8 +4285,8 @@ def planted_fault(model_axis: int):
     from repro_torch.tree import tree_map
     if model_axis == 1:
         sum_tree = steps._sum_tree
-        steps._sum_tree = lambda tree, m: sum_tree(
-            tree_map(torch.zeros_like, tree), m)
+        steps._sum_tree = lambda tree, *a: sum_tree(
+            tree_map(torch.zeros_like, tree), *a)
         try:
             yield
         finally:
@@ -4125,19 +4339,20 @@ def loss_gaps(losses, one):
 
 
 def phase_ranks(wrappers):
-    """The train phase's run over RANKS gloo ranks on the one card (each
-    rank a process: `ranks_worker` under torchrun), held to the one-process
-    run: step 1 within RANKS_STEP1_TOL, every later step within
-    RANKS_LOSS_BOUND; each rank's flash launches 24 / 12 / 12 a step;
-    each rank's AdamW moments half of one process's bytes, as the specs
-    give; the 10 + 10 restart bitwise the straight 20 steps; the 2-rank
+    """The train phase's run cut to TRAIN_STEPS steps over RANKS gloo
+    ranks on the one card (each rank a process: `ranks_worker` under
+    torchrun), held to the one-process run's first steps: step 1 within
+    RANKS_STEP1_TOL, every later step within RANKS_LOSS_BOUND; each
+    rank's flash launches 24 / 12 / 12 a step; each rank's AdamW moments
+    half of one process's bytes, as the specs give; the 5 + 5 restart
+    bitwise the straight 10 steps; the 2-rank
     checkpoint restored here (one process) equal, leaf for leaf, to each
     rank's own blocks; the planted fault past the loss bound.  Then NCCL:
     with 2 or more cards the straight run at min(4, cards) ranks; with
     one, two ranks' NCCL error.  Returns the ranks' launches (straight
     and restart legs, summed over the ranks)."""
     from repro_torch.checkpoint.checkpoint import Checkpointer
-    from repro_torch.core.mesh import local_block, make_named_mesh
+    from repro_torch.core.mesh import local_block
     from repro_torch.launch import train
     from repro_torch.optim import get_optimizer
     from repro_torch.runtime import steps
@@ -4214,10 +4429,7 @@ def phase_ranks(wrappers):
                 raise AssertionError(f"ranks: the restart's {name} differs")
         whole = Checkpointer(f"{tmp}/straight").restore(TRAIN_STEPS, like,
                                                         device="cpu")
-        here = dataclasses.replace(
-            make_named_mesh((RANKS, 1), ("data", "model"),
-                            [torch.device("cpu")] * RANKS),
-            ranks=np.arange(RANKS).reshape(RANKS, 1))
+        here = rank_mesh_here((RANKS, 1))
         specs = steps.state_pspecs(cfg, get_optimizer("adamw"), here)[0]
         cut = dict(zip((p for p, _ in flat_leaves(whole)),
                        (sp for _, sp in flat_leaves(specs))))
@@ -4335,6 +4547,116 @@ TP_LOGIT_TOL = 0.1
 TP_MOE_ARCHS = ("deepseek-v3-671b", "kimi-k2-1t-a32b")
 TP_MOE_TRAIN = ("deepseek-v3-671b", 1, 32, 2, 256, "adamw", 2e-5)
 TP_MOE_TIMEOUT_S = 420
+# The tp phase's ssm, hybrid and vlm legs, in the same worker after the
+# MoE legs.  Served as the families phase serves them (4 rows, FAMILY_GEN
+# greedy tokens, each rank drawing its own blocks; arch, depth cut or 0,
+# prompt, model axis, float32): mamba2-130m at full depth over 1024
+# tokens on the (1, TP) mesh, its params replicated and its sequence cut
+# over "model" (512 tokens, two SSD chunks a rank), and again over the
+# (TP, 1) data mesh (2 rows a rank), whose tokens must be one process's
+# bit for bit; zamba2-1.2b over 512 tokens (its Mamba2 mixer on params
+# cut by the reference's specs, its shared block the dense one's) cut to
+# 6 of its 38 layers (one group: six mixers and one site of the shared
+# block) in bfloat16, and at full depth in float32 with the scan's
+# bfloat16 roundings off (`float32_numerics`, in both runs);
+# llava-next-34b cut to 2 of its 60 layers over 3072 tokens behind 2880
+# zero patches.  Each held to its one-process leg (the families phase's,
+# or the tp phase's own where that phase does not serve it) as
+# qwen3-14b's is: tokens but for near ties, prefill last logits within
+# TP_LOGIT_TOL, or TP_F32_LOGIT_TOL for the float32 leg.  zamba2 at full
+# depth is not held in bfloat16: there its 38 layers turn one-ulp changes
+# into O(1) logits (on an H100, one process's own prefill moved by 1.27
+# when one bfloat16 ulp was added to a seventh of the embedding's
+# columns, 0.082 at 6 layers; over (1, 2) the prefill was 0.034 from one
+# process's at 6 layers, 0.19 at 12 and 0.50 at 38), while in float32
+# with the scan unrounded, where float order cannot flip a rounding, the
+# two were 3.2e-4 apart at 38 layers.  TP_F32_LOGIT_TOL is about 15 times
+# that; the planted fault (rank 1's out_proj partial of the last mixer,
+# layer 38's, left out of the sum in a second prefill: TP_F32_PLANTED)
+# must read past it.  Each rank's flash launches one per attention site
+# of its prefill (0 / 0 / 1 / 6 / 2) and nothing else; each rank's param
+# and decode cache bytes its specs' local bytes (the ssm params whole,
+# the SSM states over heads, the conv windows whole:
+# `runtime.sharding.rank_cache_pspecs`).  Then each arch trained over
+# (1, TP) at its train-families leg (TRAIN_FAMILIES: batch, sequence,
+# learning rate; depth as TP_FAMILY_TRAIN gives it) for
+# FAMILY_TRAIN_STEPS steps, the same schedule, llava donating its state:
+# step 1 within TP_STEP1_TOL of one process's step 1 (the train-families
+# leg's, or the tp phase's own one-process leg at the depth given),
+# every later step within TP_LOSS_BOUND (on the CPU, the smoke configs'
+# 3 CLI steps over (1, 2) and (2, 2) stayed within 1e-3 relative of the
+# reference trainer's: tests/test_torch_ssm_ranks.py,
+# test_torch_hybrid_ranks.py).  llava trains at its train-families
+# leg's 2 layers (two ranks reckoned at ~24 GB each, donated), zamba2 at
+# 6 of its 38 layers (one group, one shared-block site): at full depth
+# over (1, 2) it took 9.7 s a step (4.0 GB of gloo
+# collectives), and after its first update its trajectory at 3e-4 turns
+# ulp-level gradient changes into loss gaps past the bound (AdamW's first
+# update is about lr * sign(g)): on an H100 its steps 1-2 were 2.3e-3
+# and 3.8e-3 from one process's, step 3 0.062, while one process's own
+# full-depth leg moved by 0.015 at step 3 when one float32 ulp was added
+# to a seventh of the initial embedding's columns; at 6 layers the gaps
+# were 4.0e-4, 9.0e-5 and 2.7e-4.  Flash twice a GQA site a step (remat)
+# and each backward kernel once a site (0 / 1 / 2); each rank's param
+# and moment bytes its specs'.
+TP_FAMILY_SERVE = (("mamba2-130m", 0, 1024, TP, False),
+                   ("mamba2-130m", 0, 1024, 1, False),
+                   ("zamba2-1.2b", 6, 512, TP, False),
+                   ("zamba2-1.2b", 0, 512, TP, True),
+                   ("llava-next-34b", 2, 3072, TP, False))
+TP_F32_LOGIT_TOL = 5e-3
+TP_F32_PLANTED = "rank 1's out_proj partial of the last mixer left out"
+TP_FAMILY_TRAIN = (("mamba2-130m", 0), ("zamba2-1.2b", 6),
+                   ("llava-next-34b", 2))
+TP_FAMILY_TIMEOUT_S = 360
+
+
+def one_process_key(arch: str, layers: int, f32: bool = False) -> str:
+    """The ONE_PROCESS key of a serving leg: the arch where the families
+    phase serves it at that depth, else "<arch> <layers> layers" (and
+    " float32" under `float32_numerics`)."""
+    if not f32 and any((a, n) == (arch, layers)
+                       for a, n, _, _ in FAMILIES):
+        return arch
+    return f"{arch} {layers} layers" + (" float32" if f32 else "")
+
+
+@contextlib.contextmanager
+def float32_numerics(on: bool = True):
+    """Where `on`, the serve CLI's models in float32 activations with the
+    SSD scan's bfloat16 roundings off (`ssm._bf` the identity)."""
+    from repro_torch.launch import serve
+    from repro_torch.models import ssm
+    if not on:
+        yield
+        return
+    build, bf = serve.build_cfg, ssm._bf
+    serve.build_cfg = lambda args: build(args).replace(dtype="float32")
+    ssm._bf = lambda t: t
+    try:
+        yield
+    finally:
+        serve.build_cfg, ssm._bf = build, bf
+
+
+@contextlib.contextmanager
+def planted_mixer_fault(on: bool, at: int):
+    """Where `on` (model index 1), the `at`-th Mamba2 mixer call's
+    out_proj partial left out of the sum: this rank's rows of y zeroed,
+    the all-reduce still run, so the ranks' collectives stay matched."""
+    from repro_torch.models import ssm
+    inner, calls = ssm._out_proj, [0]
+
+    def out_proj(p, cfg, y, mesh):
+        calls[0] += 1
+        if on and calls[0] - 1 == at:
+            y = torch.zeros_like(y)
+        return inner(p, cfg, y, mesh)
+    ssm._out_proj = out_proj
+    try:
+        yield
+    finally:
+        ssm._out_proj = inner
 
 
 def tp_serve_argvs():
@@ -4416,11 +4738,12 @@ def by_axis(coll, steps: int):
             if coll.get(f"calls:{axis}", 0)}
 
 
-def first_difference_ok(leg: str, got, want, gaps) -> list:
+def first_difference_ok(leg: str, got, want, gaps,
+                        tol: float = TP_LOGIT_TOL) -> list:
     """Tokens [B, gen] equal to one process's, but that a row may differ
     from its first differing token on, where one process's top two
-    logits there lie within TP_LOGIT_TOL; returns the differing (row,
-    token, gap)s."""
+    logits there lie within `tol`; returns the differing (row, token,
+    gap)s."""
     got, want = np.asarray(got), np.asarray(want)
     if got.shape != want.shape:
         raise AssertionError(f"tp {leg}: tokens {got.shape} vs "
@@ -4431,7 +4754,7 @@ def first_difference_ok(leg: str, got, want, gaps) -> list:
         if len(differ):
             t = int(differ[0])
             gap = float(gaps[b, t])
-            if gap > TP_LOGIT_TOL:
+            if gap > tol:
                 raise AssertionError(
                     f"tp {leg}: row {b} token {t} is {got[b, t]}, one "
                     f"process {want[b, t]} (top-two gap {gap})")
@@ -4446,15 +4769,17 @@ def phase_tp(wrappers):
     step 1 within TP_STEP1_TOL, every later step within TP_LOSS_BOUND,
     the planted fault past it; each rank's flash launches 24 / 12 / 12 a
     step (q [8, 6, 256, 64], n_rep 3); each rank's param and moment bytes
-    its specs' (half of one process's for every cut leaf); the 10 + 10
-    restart bitwise the straight 20 steps; the TP-rank checkpoint
+    its specs' (half of one process's for every cut leaf); the 5 + 5
+    restart bitwise the straight 10 steps; the TP-rank checkpoint
     restored here (one process) equal to each rank's blocks; the serving
     legs (`check_tp_serving`; first the one-process drim-bnn cut to 2
-    layers here); the MoE legs (`check_tp_moe`).  Then NCCL at (1,
+    layers here); the MoE legs (`check_tp_moe`); the ssm, hybrid and vlm
+    legs (`check_tp_families`; first their one-process legs that the
+    families and train-families phases do not run, here).  Then NCCL at (1,
     min(4, cards)) where 2 or more cards show.  Returns the ranks'
     launches (straight, restart, serving and MoE legs, summed)."""
     from repro_torch.checkpoint.checkpoint import Checkpointer
-    from repro_torch.core.mesh import local_block, make_named_mesh
+    from repro_torch.core.mesh import local_block
     from repro_torch.launch import serve, train
     from repro_torch.optim import get_optimizer
     from repro_torch.runtime import steps
@@ -4466,9 +4791,28 @@ def phase_tp(wrappers):
         gen, _ = serve.run_serve(cut)
     ONE_PROCESS["drim-bnn 2 layers"] = {"gen": gen, **tap_values(tap)}
     torch.cuda.empty_cache()
+    for arch, layers, prompt, _, f32 in TP_FAMILY_SERVE:
+        key = one_process_key(arch, layers, f32)
+        if key not in ONE_PROCESS:
+            with float32_numerics(f32), logits_tap() as tap:
+                gen, _ = serve.run_serve(serve.parse_args(
+                    family_argv(arch, layers, prompt)))
+            ONE_PROCESS[key] = {"gen": gen, **tap_values(tap)}
+            torch.cuda.empty_cache()
+    for arch, layers in TP_FAMILY_TRAIN:
+        if layers and trained_key(arch, layers) not in TRAINED:
+            argv, cut = family_train_argv(arch)
+            with deterministic(), \
+                    trainer_spy(train, **{**cut, "n_layers": layers}) \
+                    as seen, contextlib.redirect_stdout(io.StringIO()):
+                train.main(argv)
+            TRAINED[trained_key(arch, layers)] = list(seen["losses"])
+            del seen
+            torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory(prefix="drim_tp_") as tmp:
         rc, out, err, wall = torchrun(TP, ["--tp-worker", tmp, "gloo"],
-                                      TP_TIMEOUT_S + TP_MOE_TIMEOUT_S)
+                                      TP_TIMEOUT_S + TP_MOE_TIMEOUT_S
+                                      + TP_FAMILY_TIMEOUT_S)
         if rc != 0:
             raise AssertionError(f"tp: torchrun exited {rc}:\n"
                                  f"{out[-2000:]}\n{err[-4000:]}")
@@ -4531,10 +4875,7 @@ def phase_tp(wrappers):
         like = steps.abstract_train_state(cfg, get_optimizer("adamw"))
         whole = Checkpointer(f"{tmp}/straight").restore(TRAIN_STEPS, like,
                                                         device="cpu")
-        here = dataclasses.replace(
-            make_named_mesh((1, TP), ("data", "model"),
-                            [torch.device("cpu")] * TP),
-            ranks=np.arange(TP).reshape(1, TP))
+        here = rank_mesh_here((1, TP))
         specs = steps.state_pspecs(cfg, get_optimizer("adamw"), here)[0]
         cut = dict(zip((p for p, _ in flat_leaves(whole)),
                        (sp for _, sp in flat_leaves(specs))))
@@ -4557,10 +4898,11 @@ def phase_tp(wrappers):
                   for r in range(TP)]
         serve_counts = check_tp_serving(served)
         moe_counts = check_tp_moe(tmp, TP)
+        family_counts = check_tp_families(tmp, TP)
         phase_tp_nccl(tmp, one)
     counts = {n: sum(r["launches"][n] for leg in ("straight", "restart")
                      for r in legs[leg]) + serve_counts[n] + moe_counts[n]
-              for n in wrappers}
+              + family_counts[n] for n in wrappers}
     print("tp " + json.dumps({"phase_wall_s":
                               time.perf_counter() - t_phase}))
     print("counts " + json.dumps({"phase": "tp", **counts}))
@@ -4824,6 +5166,213 @@ def check_tp_moe(tmp: str, n: int, label: str = "tp") -> dict:
                 or r["moment_bytes"] != r["moment_bytes_of_specs"]:
             raise AssertionError(f"{label} train {arch} rank {r['rank']}: "
                                  f"bytes {got}")
+    return total
+
+
+def rank_mesh_here(shape):
+    """A (data, model) mesh of ranks of `shape` over CPU stand-ins, built
+    here without a process group (for `local_block` of any rank)."""
+    from repro_torch.core.mesh import make_named_mesh
+    n = int(np.prod(shape))
+    return dataclasses.replace(
+        make_named_mesh(tuple(shape), ("data", "model"),
+                        [torch.device("cpu")] * n),
+        ranks=np.arange(n).reshape(shape))
+
+
+def local_bytes_of(whole, specs, mesh, rank: int) -> int:
+    """The bytes of `rank`'s blocks of a tree of whole (meta) leaves under
+    `specs`."""
+    from repro_torch.core.mesh import local_shape
+    from repro_torch.tree import tree_leaves
+    return int(sum(np.prod(local_shape(tuple(t.shape), sp, mesh, rank))
+                   * t.element_size() for t, sp in
+                   zip(tree_leaves(whole), tree_leaves(specs))))
+
+
+def check_tp_families(tmp: str, n: int) -> dict:
+    """The ssm, hybrid and vlm legs of the tp worker's n ranks
+    (OUT/rank<r>_families.pt).  Serving (`tp_family_serve_legs`): the
+    same tokens on every rank; over a model axis held to the one-process
+    legs (ONE_PROCESS at `one_process_key`, `first_difference_ok`, the
+    prefill's last logits within TP_LOGIT_TOL, or TP_F32_LOGIT_TOL for
+    a float32 leg, whose planted prefill must read past it), over the
+    data mesh one process's tokens bit for bit; each rank's launches one
+    per attention site of the prefill; its param and decode cache bytes
+    its specs' local bytes (`param_pspecs` of the family,
+    `rank_cache_pspecs`).  Training (`tp_family_train_legs`): both ranks'
+    losses equal and finite, step 1 within TP_STEP1_TOL of one process's
+    (TRAINED at `trained_key`), later steps within TP_LOSS_BOUND; each
+    rank's flash launches twice a GQA site a step and each backward
+    kernel once; its param and moment bytes its specs'.  Prints the "tp"
+    lines; returns the launches summed over the legs and ranks."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve
+    from repro_torch.models import abstract_caches, abstract_params
+    from repro_torch.runtime.sharding import param_pspecs, rank_cache_pspecs
+    from repro_torch.tree import tree_leaves
+    recs = [torch.load(f"{tmp}/rank{r}_families.pt", weights_only=False)
+            for r in range(n)]
+
+    def nbytes(tree):
+        return sum(t.numel() * t.element_size() for t in tree_leaves(tree))
+    total = {}
+    for arch, layers, prompt, k, f32 in TP_FAMILY_SERVE:
+        leg = (arch, layers, k, f32)
+        label = (f"tp {arch} {layers or 'all'} layers ({n // k}, {k})"
+                 + (" float32" if f32 else ""))
+        args = serve.parse_args(family_argv(arch, layers, prompt))
+        with float32_numerics(f32):
+            cfg = serve.build_cfg(args)
+        here = rank_mesh_here((n // k, k))
+        caches = abstract_caches(cfg, args.batch, args.prompt_len + args.gen)
+        params = abstract_params(cfg)
+        cache_specs = rank_cache_pspecs(here, caches)
+        param_specs = param_pspecs(params, here, cfg.family)
+        first = recs[0]["serve"][leg]
+        launches = {name: 0 for name in first["launches"]}
+        launches["flash_attn_fwd"] = attention_sites(cfg)
+        for r, rec in enumerate(recs):
+            got = rec["serve"][leg]
+            want_bytes = (local_bytes_of(params, param_specs, here, r),
+                          local_bytes_of(caches, cache_specs, here, r))
+            if got["launches"] != launches:
+                raise AssertionError(f"{label} rank {r}: launches "
+                                     f"{got['launches']}, expected "
+                                     f"{launches}")
+            if (got["param_bytes"], got["cache_bytes"]) != want_bytes:
+                raise AssertionError(
+                    f"{label} rank {r}: param and cache bytes "
+                    f"{got['param_bytes']}, {got['cache_bytes']}, the "
+                    f"specs' {want_bytes}")
+            if not np.array_equal(got["gen"], first["gen"]):
+                raise AssertionError(f"{label}: rank {r}'s tokens differ")
+        want = ONE_PROCESS[one_process_key(arch, layers, f32)]
+        err = float((first["prefill"] - want["prefill"]).abs().max())
+        tol = TP_F32_LOGIT_TOL if f32 else TP_LOGIT_TOL
+        ties, planted = [], {}
+        if k == 1:
+            if not np.array_equal(first["gen"], want["gen"]):
+                raise AssertionError(f"{label}: tokens {first['gen']}, one "
+                                     f"process {want['gen']}")
+        else:
+            ties = first_difference_ok(label, first["gen"], want["gen"],
+                                       want["gaps"], tol)
+            if err > tol:
+                raise AssertionError(f"{label}: prefill logits {err} from "
+                                     "one process's")
+        if f32:
+            moved = float((first["planted_prefill"] - want["prefill"])
+                          .abs().max())
+            if moved <= tol:
+                raise AssertionError(f"{label}: the planted fault stayed "
+                                     f"inside the bound: {moved}")
+            planted = {"planted": TP_F32_PLANTED,
+                       "planted_prefill_max_abs_diff": moved}
+        stats = first["stats"]
+        decode_calls = FAMILY_GEN
+        per_rank = []
+        for r, rec in enumerate(recs):
+            got = rec["serve"][leg]
+            coll, pre = got["collective"], got["prefill_collective"]
+            dec = {key: v - pre.get(key, 0) for key, v in coll.items()}
+            per_rank.append({
+                "rank": r, "peak_gb": got["peak_gb"],
+                "param_bytes": got["param_bytes"],
+                "cache_bytes": got["cache_bytes"],
+                "prefill_collective": {
+                    "calls": pre.get("calls", 0),
+                    "gb": pre.get("bytes", 0) / 1e9,
+                    "s": pre.get("seconds", 0.0)},
+                "decode_collective_per_step": by_axis(dec, decode_calls),
+                "leg_wall_s": got["wall_s"]})
+        print("tp " + json.dumps({
+            "serve": arch, "family": cfg.family,
+            "mesh": {"data": n // k, "model": k}, "layers": cfg.n_layers,
+            "published_layers": get_config(arch).n_layers,
+            "prompt": prompt, "batch": args.batch, "gen": args.gen,
+            "float32_scan_unrounded": f32,
+            "tokens_equal_one_process": int(np.sum(
+                np.asarray(first["gen"]) == np.asarray(want["gen"]))),
+            "tokens": int(np.asarray(want["gen"]).size),
+            "near_ties": ties, "prefill_logits_max_abs_diff": err,
+            "logit_tol": tol, **planted,
+            "one_process_logits_rms": float(
+                want["prefill"][want["prefill"] > -1e29].pow(2).mean()
+                .sqrt()),
+            "param_bytes_one_process": nbytes(params),
+            "cache_bytes_one_process": nbytes(caches),
+            "prefill_s": stats["prefill_s"],
+            "compile_s": stats["compile_s"],
+            "decode_tok_per_s": stats["decode_tok_per_s"],
+            "decode_p50_ms": stats["decode_p50_ms"],
+            "launches_per_rank": {key: c for key, c in launches.items()
+                                  if c},
+            "per_rank": per_rank, "sample_ids": stats["sample_ids"]}))
+        for name, c in launches.items():
+            total[name] = total.get(name, 0) + c * n
+    for arch, layers in TP_FAMILY_TRAIN:
+        label = f"tp train {arch}"
+        _, _, _, batch, seq, opt, lr = next(
+            leg for leg in TRAIN_FAMILIES if leg[0] == arch)
+        cfg = get_config(arch).replace(**family_train_argv(arch)[1])
+        if layers:
+            cfg = cfg.replace(n_layers=layers)
+        sites = attention_sites(cfg)
+        steps = FAMILY_TRAIN_STEPS
+        launches = {name: 0 for name in recs[0]["train"][arch]["launches"]}
+        if sites:
+            launches.update(flash_attn_fwd=(2 if cfg.remat else 1) * sites
+                            * steps, flash_bwd_dkv=sites * steps,
+                            flash_bwd_dq=sites * steps)
+        train_recs = [rec["train"][arch] for rec in recs]
+        losses = train_recs[0]["losses"]
+        for r in train_recs:
+            if r["launches"] != launches:
+                raise AssertionError(f"{label} rank {r['rank']}: launches "
+                                     f"{r['launches']}, expected "
+                                     f"{launches}")
+            if r["losses"] != losses:
+                raise AssertionError(f"{label}: the ranks' losses differ")
+            if r["param_bytes"] != r["param_bytes_of_specs"] \
+                    or r["moment_bytes"] != r["moment_bytes_of_specs"]:
+                raise AssertionError(f"{label} rank {r['rank']}: param "
+                                     f"and moment bytes not the specs'")
+        one = TRAINED[trained_key(arch, layers)]
+        gaps = loss_gaps(losses, one)
+        if len(losses) != steps or not np.all(np.isfinite(losses)) \
+                or gaps[0] > TP_STEP1_TOL or max(gaps[1:]) > TP_LOSS_BOUND:
+            raise AssertionError(f"{label}: losses {losses}, the "
+                                 f"train-families leg's {one}")
+        lines = [line for line in train_recs[0]["lines"] if "step" in line]
+        s_step = (lines[-1]["wall_s"] - lines[0]["wall_s"]) \
+            / (len(lines) - 1)
+        print("tp " + json.dumps({
+            "train": arch, "family": cfg.family,
+            "mesh": {"data": 1, "model": n}, "layers": cfg.n_layers,
+            "optimizer": opt, "lr": lr, "batch": batch, "seq": seq,
+            "donate": arch == "llava-next-34b", "losses": losses,
+            "one_process_losses": one, "loss_gaps": gaps,
+            "step1_tol": TP_STEP1_TOL, "loss_bound": TP_LOSS_BOUND,
+            "s_per_step": s_step, "tokens_per_s": batch * seq / s_step,
+            "first_step_s": lines[0]["wall_s"],
+            "flash_launches_per_rank": {key: c for key, c in
+                                        launches.items() if c}}))
+        for r in train_recs:
+            coll = r["collective"]
+            print("tp " + json.dumps({
+                "train": arch, "rank": r["rank"], "peak_gb": r["peak_gb"],
+                "collective_calls_per_step": coll["calls"] / steps,
+                "collective_gb_per_step": coll["bytes"] / 1e9 / steps,
+                "collective_s_per_step": coll["seconds"] / steps,
+                "by_axis_per_step": by_axis(coll, steps),
+                **{key: r[key] for key in (
+                    "param_bytes", "param_bytes_of_specs",
+                    "param_bytes_one_process", "moment_bytes",
+                    "moment_bytes_of_specs", "moment_bytes_one_process",
+                    "replicated_param_bytes")}}))
+        for name, c in launches.items():
+            total[name] = total.get(name, 0) + c * n
     return total
 
 

@@ -42,7 +42,14 @@ the identity, backward the sum over the model group), `reduce_from_model`
 (forward the sum, backward the identity), `gather_from_model` (forward an
 all-gather along a dim, backward the rank's slice) and `vocab_lookup`
 (the rows of a vocabulary-cut table, zero outside the rank's range,
-summed over the model group).
+summed over the model group).  Two more serve the Mamba2 mixer:
+`scatter_to_model` (forward the rank's block along a dim, backward the
+all-gather: the input of a row-parallel product that every rank computes
+whole) and, for a sequence cut over the model group, `gather_sequence`
+(forward an all-gather along a dim, backward the gradients summed over
+the group and the rank's block kept, since each rank uses the others'
+blocks differently) and `sequence_halo` (the previous rank's last
+frames of a causal convolution, zeros on the first rank).
 
 This module sits below `core.device` and imports nothing of the port;
 `launch.mesh` adds the LM meshes and `pim.mesh` the fleet mesh.  Defined
@@ -616,13 +623,15 @@ def mesh_barrier(mesh: Mesh) -> None:
 
 # what ranks do not run yet, by the ROADMAP item that brings it
 MODEL_AXIS_WAITS = {
-    "families": "ROADMAP Queue 1 item 15.4",   # ssm, hybrid, audio, vlm
+    "families": "ROADMAP Queue 1 item 15.4",   # audio
     "serving": "ROADMAP Queue 1 item 15.5",    # batcher, microbench, retry
 }
 
 # the families a model axis over ranks runs: the dense trunk (Megatron's
-# cut params) and the MoE (its experts cut over "model" too)
-MODEL_AXIS_FAMILIES = ("dense", "moe")
+# cut params) and the vlm on it, the MoE (its experts cut over "model"
+# too), the ssm (replicated params, the sequence cut over "model") and the
+# hybrid (its mixer on cut params, the shared block the dense one's)
+MODEL_AXIS_FAMILIES = ("dense", "vlm", "moe", "ssm", "hybrid")
 
 
 def family_refusal(cfg, where: str) -> Optional[str]:
@@ -732,3 +741,80 @@ def vocab_lookup(table: torch.Tensor, tokens: torch.Tensor, lo: int,
     rows = table[local.clamp(0, table.shape[0] - 1)]
     rows = rows.to(torch.float32) * inside[..., None].to(torch.float32)
     return reduce_from_model(rows, mesh).to(table.dtype)
+
+
+class _ScatterToModel(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, dim):
+        index, m = model_coord(mesh)
+        ctx.mesh, ctx.dim = mesh, dim
+        width = x.shape[dim] // m
+        return x.narrow(dim, index * width, width).contiguous()
+
+    @staticmethod
+    def backward(ctx, grad):
+        return mesh_all_gather(grad, ctx.mesh, ("model",), ctx.dim), None, \
+            None
+
+
+class _GatherSequence(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, dim):
+        ctx.mesh, ctx.dim, ctx.width = mesh, dim, x.shape[dim]
+        return mesh_all_gather(x, mesh, ("model",), dim)
+
+    @staticmethod
+    def backward(ctx, grad):
+        index, _ = model_coord(ctx.mesh)
+        whole = mesh_sum([grad.contiguous()], ctx.mesh, ("model",))[0]
+        return whole.narrow(ctx.dim, index * ctx.width, ctx.width), None, \
+            None
+
+
+class _SequenceHalo(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, tail, mesh):
+        index, m = model_coord(mesh)
+        ctx.mesh, ctx.frames = mesh, tail.shape[1]
+        tails = mesh_all_gather(tail, mesh, ("model",), 1)
+        k = tail.shape[1]
+        halo = (torch.zeros_like(tail) if index == 0
+                else tails[:, (index - 1) * k:index * k].contiguous())
+        last = tails[:, (m - 1) * k:].contiguous()
+        ctx.mark_non_differentiable(last)
+        return halo, last
+
+    @staticmethod
+    def backward(ctx, grad, _grad_last):
+        index, m = model_coord(ctx.mesh)
+        k = ctx.frames
+        grads = mesh_all_gather(grad.contiguous(), ctx.mesh, ("model",), 1)
+        if index == m - 1:
+            return torch.zeros_like(grad), None
+        return grads[:, (index + 1) * k:(index + 2) * k], None
+
+
+def scatter_to_model(x: torch.Tensor, mesh: Mesh, dim: int) -> torch.Tensor:
+    """This rank's block of `x` along `dim` (|model| equal blocks in mesh
+    order); the gradient is the group's blocks all-gathered, so a whole
+    `x` that every rank computes alike gets the whole gradient on every
+    rank (the input of a row-parallel product)."""
+    return _ScatterToModel.apply(x, mesh, dim % x.dim())
+
+
+def gather_sequence(x: torch.Tensor, mesh: Mesh, dim: int) -> torch.Tensor:
+    """The model group's blocks of `x` concatenated along `dim` in mesh
+    order, for ranks that each use the whole differently (a sequence cut
+    over the group): the gradient is the ranks' gradients summed over the
+    group, of which the rank keeps its own block."""
+    return _GatherSequence.apply(x, mesh, dim % x.dim())
+
+
+def sequence_halo(tail: torch.Tensor, mesh: Mesh
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(the previous model rank's `tail` [B, K-1, C], zeros on the first
+    rank; the last rank's, with no gradient) in one all-gather: the halo
+    of a causal convolution over a sequence cut over the model group, and
+    its last frames.  The halo's gradient goes back to the rank it came
+    from."""
+    return _SequenceHalo.apply(tail, mesh)

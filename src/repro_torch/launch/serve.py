@@ -55,15 +55,16 @@ Timing: the first decode step runs UNTIMED as warm-up and is reported as
   * --model-axis K: under torchrun, W ranks serve the dense and MoE
     families over the (W / K, K) host mesh (`launch.mesh.make_host_mesh(
     model_axis=K)`): each rank draws and holds only its blocks of the
-    params (packed ones included; the MoE's experts, E / K a rank) and
-    of the sequence-cut KV or MLA latent caches by the reference's specs,
-    runs its rows of the batch, its heads and its experts (`models`), and
+    params (packed ones included; the MoE's experts, E / K a rank; the
+    ssm family's whole) and of the sequence-cut KV or MLA latent caches by
+    the reference's specs (the SSM states cut over heads, the conv
+    windows whole), runs its rows of the batch, its heads and its experts
+    (`models`; the ssm family its block of the prompt's sequence), and
     gets the whole logits, so every rank samples the same tokens; rank 0
     alone prints the stats line, after every rank's first line
-    (`launch.mesh.init_ranks`).  Over W > 1 ranks the ssm, hybrid, audio
-    and vlm families, --continuous, --microbench and --resilient raise
-    ValueError naming their ROADMAP items; K > 1 in one process raises
-    too.  On the CPU:
+    (`launch.mesh.init_ranks`).  Over W > 1 ranks the audio family,
+    --continuous, --microbench and --resilient raise ValueError naming
+    their ROADMAP items; K > 1 in one process raises too.  On the CPU:
 
       python -m torch.distributed.run --nproc-per-node 2 \\
           -m repro_torch.launch.serve --arch drim-bnn --smoke-config \\
@@ -99,7 +100,7 @@ from repro_torch.launch.mesh import MODEL_AXIS_WAITS, cli_mesh, init_ranks
 from repro_torch.models import decode_step, empty_caches, init_params, prefill
 from repro_torch.models.layers import pack_bitlinear, pack_bitlinear_rows
 from repro_torch.runtime import telemetry
-from repro_torch.runtime.sharding import param_spec
+from repro_torch.runtime.sharding import _path_str, param_pspecs
 from repro_torch.tree import tree_map_with_path
 
 # config-geometry override flags -> ModelConfig fields (0 = keep)
@@ -194,16 +195,26 @@ def splice_caches(caches, pre_caches):
 
 
 def splice_rank_caches(caches, pre_caches, s_pre: int, s_ctx: int, mesh):
-    """`splice_caches` under a model axis over ranks: the [L, B', S, Hkv,
-    Dh] keys and values (dense, GQA moe) and the MLA's [L, B', S, R]
-    latents are the rank's sequence blocks (dim 2) of an `s_pre`-long
-    prefill cache and an `s_ctx`-long decode cache (each whole where the
-    axis does not divide its length), which do not line up; the
-    prefill's are gathered over the model group and the rank copies the
-    prompt positions its decode block holds."""
+    """`splice_caches` under a model axis over ranks: the [.., B', S, Hkv,
+    Dh] keys and values (dense, vlm, GQA moe, the hybrid's shared block)
+    and the MLA's [L, B', S, R] latents are the rank's sequence blocks
+    (dim 2) of an `s_pre`-long prefill cache and an `s_ctx`-long decode
+    cache (each whole where the axis does not divide its length), which
+    do not line up; the prefill's are gathered over the model group and
+    the rank copies the prompt positions its decode block holds.  The
+    SSM states (the rank's heads) and conv windows (whole: the last
+    sequence rank's final frames, which prefill hands every rank) have no
+    sequence dim and are the decode caches' blocks as they are."""
     index, m = model_coord(mesh)
 
     def splice(path, full, pre):
+        if _path_str(path).split("/")[-1] not in ("k", "v", "ckv",
+                                                   "k_rope"):
+            if full.shape != pre.shape:
+                raise ValueError(f"cache splice mismatch at {path}: "
+                                 f"{tuple(pre.shape)} is not the block "
+                                 f"{tuple(full.shape)}")
+            return pre.to(full.dtype)
         if s_pre % m == 0:
             pre = mesh_all_gather(pre, mesh, ("model",), 2)
         lo = index * full.shape[2] if s_ctx % m == 0 else 0
@@ -215,17 +226,17 @@ def splice_rank_caches(caches, pre_caches, s_pre: int, s_ctx: int, mesh):
     return tree_map_with_path(splice, caches, pre_caches)
 
 
-def place_params(params, mesh):
+def place_params(params, mesh, family: str | None = None):
     """This rank's blocks of a whole param tree by the reference's specs
-    (`runtime.sharding.param_spec`); leaves the specs leave whole stay as
-    they are."""
-    def one(path, leaf):
-        sl = local_block(tuple(leaf.shape), param_spec(path, leaf, mesh),
-                         mesh)
+    (`runtime.sharding.param_pspecs` of `family`: the ssm family's are
+    replicated); leaves the specs leave whole stay as they are."""
+    def one(path, leaf, spec):
+        sl = local_block(tuple(leaf.shape), spec, mesh)
         if all(s.stop - s.start == n for s, n in zip(sl, leaf.shape)):
             return leaf
         return leaf[sl].clone()
-    return tree_map_with_path(one, params)
+    return tree_map_with_path(one, params, param_pspecs(params, mesh,
+                                                        family))
 
 
 def pack_model_params(params):
@@ -388,7 +399,7 @@ def _setup(args, cfg, dev, params=None, tokens=None) -> Dict[str, Any]:
     if params is None:
         params = init_params(args.seed, cfg, device=dev)
     elif mesh is not None:
-        params = place_params(params, mesh)
+        params = place_params(params, mesh, cfg.family)
     if tokens is None:
         tokens = _prompts(args, cfg, args.batch)
     tokens = torch.as_tensor(np.array(tokens), device=dev).long()
@@ -411,9 +422,9 @@ def _setup(args, cfg, dev, params=None, tokens=None) -> Dict[str, Any]:
 
 def serve_mesh(args, dev, cfg):
     """The CLI's `--mesh` and `--model-axis` on `dev`.  Over W > 1 ranks
-    the families other than dense and moe (`core.mesh.family_refusal`),
-    --continuous, --microbench and --resilient raise ValueError naming
-    their ROADMAP items."""
+    the audio family (`core.mesh.family_refusal`), --continuous,
+    --microbench and --resilient raise ValueError naming their ROADMAP
+    items."""
     mesh = cli_mesh(args.mesh, dev, model_axis=args.model_axis)
     if mesh.ranks is not None and mesh.ranks.size > 1:
         n = mesh.ranks.size

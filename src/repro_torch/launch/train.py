@@ -41,9 +41,12 @@ block of the moments, and sums its gradients with the others'
 draws and holds only its model block of every param and moment by the
 reference's specs, and the LM's products are Megatron's (column- and
 row-parallel, the vocab-parallel embedding, head and cross-entropy; the
-MoE's experts, E / K a rank, expert-parallel over the model group, and
-MLA on the rank's heads; the ssm, hybrid, audio and vlm families raise
-ValueError naming their ROADMAP item).  On the CPU, two data ranks of
+vlm's and the hybrid's shared block likewise; the MoE's experts, E / K a
+rank, expert-parallel over the model group, and MLA on the rank's heads;
+the hybrid's Mamba2 mixer on its cut params; the ssm family's params
+replicated and its sequence cut over the model group, the gradients
+summed over it; the audio family raises ValueError naming its ROADMAP
+item).  On the CPU, two data ranks of
 two model ranks each:
 
   python -m torch.distributed.run --nproc-per-node 4 \\

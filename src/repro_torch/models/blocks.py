@@ -17,10 +17,14 @@ assembled in `transformer.py`.  Under a `model` axis over ranks
 (`core.mesh.model_ranks`) the dense block is Megatron's: each sublayer's
 normed input passes `copy_to_model` before its column-parallel products,
 and its row-parallel product (`wo`, `down`) ends in the sum over the
-model group, so the residual stream stays whole on every rank.  The moe
-block runs its attention on the rank's heads (GQA as the dense block's,
-MLA with its latent whole on every rank) and its FFN expert-parallel
-over the group (`moe.moe_ffn`).  The ssm, hybrid and audio blocks raise
+model group, so the residual stream stays whole on every rank (the vlm
+and the hybrid's shared block run it too).  The moe block runs its
+attention on the rank's heads (GQA as the dense block's, MLA with its
+latent whole on every rank) and its FFN expert-parallel over the group
+(`moe.moe_ffn`).  The ssm block of the ssm family takes the rank's block
+of a residual cut over the sequence (`seq_cut`, the reference's `_sp`:
+its params replicated); the hybrid's keeps the residual whole and runs
+its mixer on cut params (`ssm.ssm_mix`).  The audio blocks raise
 ValueError there, naming their ROADMAP item.
 `aux` holds the auxiliary losses a block adds to the training loss;
 only the MoE block sets them (routing), the others return `ZERO_AUX`.  The reference's `_sp` (a sequence-parallel
@@ -148,16 +152,17 @@ def ssm_block_init(gen: torch.Generator, cfg, *, dtype=torch.float32
             "mixer": ssm_mod.ssm_init(gen, cfg, dtype=dtype)}
 
 
-def ssm_block(p: Params, cfg, x, positions=None, *, window: int = 0
-              ) -> Tuple[torch.Tensor, Dict, Dict]:
-    refuse_family(cfg)
-    y, cache = ssm_mod.ssm_mix(p["mixer"], cfg, rmsnorm(p["norm"], x))
+def ssm_block(p: Params, cfg, x, positions=None, *, window: int = 0,
+              seq_cut: bool = False) -> Tuple[torch.Tensor, Dict, Dict]:
+    """`seq_cut`: x is this rank's block of a residual cut over the
+    sequence (the ssm family under a model axis over ranks)."""
+    y, cache = ssm_mod.ssm_mix(p["mixer"], cfg, rmsnorm(p["norm"], x),
+                               seq_cut=seq_cut)
     return x + y, cache, ZERO_AUX
 
 
-def ssm_block_decode(p: Params, cfg, x, cache, pos=None, *, window: int = 0
-                     ) -> Tuple[torch.Tensor, Dict]:
-    refuse_family(cfg)
+def ssm_block_decode(p: Params, cfg, x, cache, pos=None, *, window: int = 0,
+                     ctx_len: int = 0) -> Tuple[torch.Tensor, Dict]:
     y, cache = ssm_mod.ssm_decode(p["mixer"], cfg, rmsnorm(p["norm"], x),
                                   cache)
     return x + y, cache

@@ -41,19 +41,25 @@ training, `cfg.remat` wraps each layer (the hybrid: each group) in
 runs the flash forward kernel twice per layer.  The blocks' auxiliary
 losses (MoE routing) are summed over the layers into `train_loss`.
 
-Under a `model` axis over ranks (`core.mesh.model_ranks`; the dense and
-moe families, the others raise naming their ROADMAP item) the embedding
-is a vocab-parallel lookup, the head's logits are the rank's vocabulary
-block (the pad mask at the global column), and `train_loss` is the
-vocab-parallel cross-entropy: the row max by a MAX all-reduce, the sum of
-exps and the target logit (from the rank that holds it) by sums over the
-model group, never a [B, S, V] gather.  Over ranks `prefill` and
+Under a `model` axis over ranks (`core.mesh.model_ranks`; the dense, vlm,
+moe, ssm and hybrid families, audio raises naming its ROADMAP item) the
+embedding is a vocab-parallel lookup, the head's logits are the rank's
+vocabulary block (the pad mask at the global column), and `train_loss` is
+the vocab-parallel cross-entropy: the row max by a MAX all-reduce, the
+sum of exps and the target logit (from the rank that holds it) by sums
+over the model group, never a [B, S, V] gather.  The ssm family's params
+are replicated (`runtime.sharding.param_pspecs`): its residual is cut
+over the sequence after the embedding (where the axis divides S), each
+rank takes the whole vocabulary's logits and cross-entropy on its own
+positions, and the cross-entropy's sum and token count are summed over
+the model group as well as the data group.  Over ranks `prefill` and
 `decode_step` take the global batch, run the rank's rows (cut over the
 data axes) and return the whole [B, 1, V] logits on every rank (the last
 position gathered), so every rank samples the same token; their caches
-are the rank's blocks of `runtime.sharding.rank_cache_pspecs` (cut over
-the sequence: prefill re-lays its head-cut K/V, and cuts the MLA latent
-that every rank holds whole, into them), and `empty_caches` gives those
+are the rank's blocks of `runtime.sharding.rank_cache_pspecs` (K/V and
+latents cut over the sequence: prefill re-lays its head-cut K/V, and
+cuts the MLA latent that every rank holds whole, into them; SSM states
+cut over heads, conv windows whole), and `empty_caches` gives those
 blocks.  `init_params` there draws only the rank's blocks of the
 params.
 """
@@ -80,6 +86,8 @@ from repro_torch.models import blocks as B
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.moe import ExpertBank
 from repro_torch.models.layers import Params, part_of, rmsnorm, rmsnorm_init
+from repro_torch.runtime.sharding import (_path_str, param_ranks,
+                                         sequence_parallel)
 from repro_torch.tree import (tree_leaves, tree_map, tree_map_with_path,
                              tree_slice, tree_stack, tree_unstack)
 
@@ -136,7 +144,7 @@ def _rank_slices(mesh, path: str, shape, family: str
     form) of `shape` that this rank keeps: its `local_block` under the
     reference's spec (`runtime.sharding.param_pspecs`: the ssm family's
     replicated); all of it without `mesh`."""
-    if mesh is None or family == "ssm":
+    if mesh is None or sequence_parallel(family):
         return _whole_slices(shape)
     from repro_torch.runtime.sharding import param_spec
     return local_block(tuple(shape), param_spec(
@@ -333,10 +341,32 @@ def _embed(p, cfg, tokens: torch.Tensor, batch: Dict[str, Any]
     return x
 
 
+def _seq_block(cfg, s: int):
+    """(lo, hi) of the sequence positions this rank's residual holds, or
+    None where it is whole: the ssm family under a model axis over ranks
+    cuts an S > 1 the axis divides (the reference's `_sp`)."""
+    mesh = model_ranks()
+    if not sequence_parallel(cfg.family) or mesh is None or s < 2:
+        return None
+    index, m = model_coord(mesh)
+    if s % m:
+        return None
+    return index * s // m, (index + 1) * s // m
+
+
+def grad_axes(cfg, mesh) -> Tuple[str, ...]:
+    """The axes of a mesh of ranks over which the ranks' shares of the
+    loss and of its gradients are summed: the data axes, and "model" for
+    the ssm family, whose ranks of a model group each hold a block of the
+    sequence and the whole params."""
+    return dp_axes(mesh) + (("model",) if sequence_parallel(cfg.family)
+                            else ())
+
+
 def _logits(p, cfg, x: torch.Tensor) -> torch.Tensor:
     """The logits [..., V] float32, the pad columns masked; under a model
     axis over ranks gathered from the ranks' vocabulary blocks."""
-    mesh = model_ranks()
+    mesh = param_ranks(cfg)
     if mesh is not None:
         return gather_from_model(_vocab_logits(p, cfg, x, mesh)[0], mesh, -1)
     x = rmsnorm(p["final_norm"], x)
@@ -439,6 +469,9 @@ def _forward_full(p, cfg, batch: Dict[str, Any], *, with_cache: bool):
     positions = torch.arange(s, device=tokens.device)[None, :] \
         .expand(bsz, s)
     window = _window_for(cfg, s)
+    block = _seq_block(cfg, s)
+    if block is not None:       # the ssm family's sequence-cut residual
+        tokens = tokens[:, block[0]:block[1]]
     x = _embed(p, cfg, tokens, batch)
     remat = cfg.remat and not with_cache and torch.is_grad_enabled()
     if cfg.family == "hybrid":
@@ -458,6 +491,8 @@ def _forward_full(p, cfg, batch: Dict[str, Any], *, with_cache: bool):
                            positions, window, remat=remat,
                            with_cache=with_cache, extra=(enc,))
     _, block_fn, _ = _block_fns(cfg)
+    if block is not None:
+        block_fn = functools.partial(block_fn, seq_cut=True)
     return _run_layers(p["layers"], cfg.n_layers, cfg, block_fn, x,
                        positions, window, remat=remat, with_cache=with_cache)
 
@@ -515,9 +550,12 @@ def train_loss(params, cfg, batch: Dict[str, Any]
     axis the CE is the vocab-parallel one."""
     x, aux, _ = _forward_full(params, cfg, batch, with_cache=False)
     labels = batch["labels"].long()
+    block = _seq_block(cfg, labels.shape[1])
+    if block is not None:
+        labels = labels[:, block[0]:block[1]]
     mask = (labels >= 0).to(torch.float32)
     safe = labels.clamp_min(0)
-    tp = model_ranks()
+    tp = param_ranks(cfg)
     if tp is None:
         logits = _logits(params, cfg, x)                   # [B,S,V] f32
         lse = torch.logsumexp(logits, dim=-1)
@@ -527,8 +565,9 @@ def train_loss(params, cfg, batch: Dict[str, Any]
         nll = _vocab_parallel_ce(logits, safe, lo, tp)
     ntokens = mask.sum()
     ranks = ambient_ranks()
+    over = None if ranks is None else grad_axes(cfg, ranks)
     if ranks is not None:
-        ntokens = mesh_sum([ntokens], ranks)[0]
+        ntokens = mesh_sum([ntokens], ranks, over)[0]
     ce = (nll * mask).sum() / ntokens.clamp_min(1.0)
     loss = ce + LB_COEF * aux["load_balance"] + Z_COEF * aux["router_z"]
     metrics = {"ce": ce, "aux_lb": aux["load_balance"],
@@ -542,7 +581,7 @@ def train_loss(params, cfg, batch: Dict[str, Any]
     # rank, and its gradient is the share's
     ce, lb, z = mesh_sum([torch.stack([ce, aux["load_balance"],
                                        aux["router_z"]]).detach()],
-                         ranks)[0].unbind()
+                         ranks, over)[0].unbind()
     total = ce + LB_COEF * lb + Z_COEF * z
     metrics.update(ce=ce, aux_lb=lb, aux_z=z)
     return total + (loss - loss.detach()), metrics
@@ -562,14 +601,35 @@ def prefill(params, cfg, batch: Dict[str, Any]) -> Tuple[torch.Tensor, Any]:
     if ranks is not None:
         batch = {k: _rows(v, ranks) for k, v in batch.items()}
     x, _, caches = _forward_full(params, cfg, batch, with_cache=True)
-    logits = _logits(params, cfg, x[:, -1:, :])
+    last = x[:, -1:, :]
+    tp = model_ranks()
+    if _seq_block(cfg, batch["tokens"].shape[1]) is not None:
+        # the last position is the last model rank's
+        last = mesh_all_gather(last, tp, ("model",), 1)[:, -1:, :]
+    logits = _logits(params, cfg, last)
     if ranks is None:
         return logits, caches
-    tp = model_ranks()
     if tp is not None:
-        caches = {name: _sequence_cut(cfg, t, tp, heads=name in ("k", "v"))
-                  for name, t in caches.items()}
+        caches = _rank_caches(cfg, caches, tp)
     return _whole_rows(logits, ranks), caches
+
+
+def _rank_caches(cfg, caches, mesh):
+    """The rank's `rank_cache_pspecs` blocks of a prefill's caches, which
+    hold the rank's rows: keys and values cut over the sequence
+    (`_sequence_cut`), likewise the MLA latents, the SSM states cut over
+    heads where the axis divides them, the conv windows whole."""
+    index, m = model_coord(mesh)
+
+    def one(path, t):
+        name = _path_str(path).split("/")[-1]
+        if name in ("k", "v", "ckv", "k_rope"):
+            return _sequence_cut(cfg, t, mesh, heads=name in ("k", "v"))
+        if name == "state" and t.shape[-3] % m == 0:
+            h = t.shape[-3] // m
+            return t.narrow(-3, index * h, h).contiguous()
+        return t
+    return tree_map_with_path(one, caches)
 
 
 def _sequence_cut(cfg, t: torch.Tensor, mesh, heads: bool = True
@@ -609,11 +669,11 @@ def _decode(params, cfg, tokens, caches, pos, ctx_len):
     refuse_family(cfg)
     window = _window_for(cfg, ctx_len)
     x = _embed(params, cfg, tokens, {})
+    kw = {"ctx_len": ctx_len} if model_ranks() is not None else {}
     if cfg.family == "hybrid":
-        return _hybrid_decode(params, cfg, x, caches, pos, window)
+        return _hybrid_decode(params, cfg, x, caches, pos, window, kw)
     decode_fn = (B.xdec_block_decode if cfg.family == "audio"
                  else _block_fns(cfg)[2])
-    kw = {"ctx_len": ctx_len} if model_ranks() is not None else {}
     new_caches = []
     for i in range(cfg.n_layers):
         x, nc = decode_fn(tree_slice(params["layers"], i), cfg, x,
@@ -625,7 +685,7 @@ def _decode(params, cfg, tokens, caches, pos, ctx_len):
 decode_step_eager = decode_step
 
 
-def _hybrid_decode(params, cfg, x, caches, pos, window):
+def _hybrid_decode(params, cfg, x, caches, pos, window, kw):
     groups, per, tail = _hybrid_layout(cfg)
     new_groups, new_shared = [], []
     for g in range(groups):
@@ -638,7 +698,7 @@ def _hybrid_decode(params, cfg, x, caches, pos, window):
             new_m.append(nc)
         x, new_a = B.dense_block_decode(params["shared"], cfg, x,
                                         tree_slice(caches["shared"], g), pos,
-                                        window=window)
+                                        window=window, **kw)
         new_groups.append(tree_stack(new_m))
         new_shared.append(new_a)
     new_tail = []

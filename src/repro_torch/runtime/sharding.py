@@ -29,7 +29,7 @@ from __future__ import annotations
 import re
 
 from repro_torch.core.mesh import (Mesh, NamedSharding, PartitionSpec as P,
-                                   dp_axes, fits, sanitize_spec)
+                                   dp_axes, fits, model_ranks, sanitize_spec)
 from repro_torch.tree import tree_map, tree_map_with_path
 
 
@@ -113,11 +113,25 @@ def param_spec(path, leaf, mesh: Mesh) -> P:
     return P()
 
 
+def sequence_parallel(family: str | None) -> bool:
+    """Whether `family` runs sequence-parallel over the model axis: the
+    ssm family (pure Mamba2), whose params are all replicated (its mixer
+    dims do not divide a 16-way TP axis) and whose residual is cut over
+    the sequence instead (the reference's `_sp`)."""
+    return family == "ssm"
+
+
+def param_ranks(cfg):
+    """The model axis over ranks that cuts `cfg`'s params
+    (`core.mesh.model_ranks`), or None: no such axis, or a
+    `sequence_parallel` family's replicated params."""
+    return None if sequence_parallel(cfg.family) else model_ranks()
+
+
 def param_pspecs(params, mesh: Mesh, family: str | None = None):
-    """family "ssm" (pure Mamba2): REPLICATED params (the reference's
-    sequence-parallel layout: its mixer dims do not divide a 16-way TP
-    axis)."""
-    if family == "ssm":
+    """The params' specs: `param_spec` each, or all replicated for a
+    `sequence_parallel` family."""
+    if sequence_parallel(family):
         return tree_map(lambda leaf: P(), params)
     return tree_map_with_path(lambda p, leaf: param_spec(p, leaf, mesh),
                               params)
@@ -203,17 +217,24 @@ def cache_pspecs(mesh: Mesh, caches):
 
 def rank_cache_pspecs(mesh: Mesh, caches):
     """The caches' specs as a mesh of ranks holds them, a block a rank:
-    `cache_pspecs`, but for the MLA latent.  The reference's name test
-    sends "ckv" down its k/v branch, so on the stacked [L, B, S, R]
-    latent its spec cuts L over the data axes and B over "model", which
-    GSPMD reshards to whatever each step needs; a rank holds only its
-    block, and prefill and decode run on its rows, so the latent takes
-    the branch written for it, as "k_rope" does: B over the data axes, S
-    over "model"."""
+    `cache_pspecs`, but for the MLA latent and the SSM conv windows.  The
+    reference's name test sends "ckv" and "conv" down its k/v branch, so
+    on the stacked [L, B, S, R] latent and [L, B, K-1, C] window its spec
+    cuts L over the data axes and B over "model", which GSPMD reshards to
+    whatever each step needs; a rank holds only its block, and prefill
+    and decode run on its rows, so the latent takes the branch written
+    for it, as "k_rope" does (B over the data axes, S over "model"), and
+    the conv window is cut over B alone: its channels' cut over "model"
+    (the conv branch's) does not fall on the state's heads, and each
+    rank's decode step reads the B and C channels every head shares.
+    The SSM states keep the reference's cut (heads over "model")."""
     def spec(path, leaf):
-        if _path_str(path).endswith("ckv"):
-            want = P(*(None,) * (_ndim(leaf) - 3), dp_axes(mesh), "model",
-                     None)
+        name = _path_str(path)
+        lead = (None,) * (_ndim(leaf) - 3)
+        if name.endswith("ckv"):
+            want = P(*lead, dp_axes(mesh), "model", None)
+        elif name.endswith("conv"):
+            want = P(*lead, dp_axes(mesh), None, None)
         else:
             want = cache_spec(path, leaf, mesh)
         return sanitize_spec(want, tuple(leaf.shape), mesh)

@@ -27,7 +27,9 @@ differs:
   each rank holds its model block of every param (`place`; Megatron's
     products and their collectives: `models`), and its loss is its data
     share of the global loss (`models.train_loss`)
-  the gradients are summed over the data group (`core.mesh.mesh_sum`)
+  the gradients are summed over the data group (`core.mesh.mesh_sum`);
+    the ssm family's over the model group too: its params are replicated
+    and each rank's gradient comes from its block of the sequence
   the global gradient norm sums the squares of the model-cut leaves over
     the model group and counts each replicated leaf once
   ZeRO-1: each rank holds its (model, data) block of every moment;
@@ -58,7 +60,7 @@ from repro_torch.device import resolve_device
 from repro_torch.models import (abstract_params, decode_step as model_decode,
                                 init_params, lm_from_jax,
                                 prefill as model_prefill, train_loss)
-from repro_torch.models.transformer import _to_torch
+from repro_torch.models.transformer import _to_torch, grad_axes
 from repro_torch.optim import (compress_tree, decompress_tree, get_optimizer,
                                init_errors, warmup_cosine)
 from repro_torch.optim.optimizers import global_norm as _global_norm
@@ -233,10 +235,11 @@ def tp_global_norm(grads, specs, mesh):
     return torch.sqrt(sum(sums))
 
 
-def _sum_tree(tree, mesh):
-    """Every leaf summed over the data ranks."""
+def _sum_tree(tree, mesh, axes=None):
+    """Every leaf summed over the ranks along `axes` (default: the data
+    axes)."""
     leaves = tree_leaves(tree)
-    of = {id(t): s for t, s in zip(leaves, mesh_sum(leaves, mesh))}
+    of = {id(t): s for t, s in zip(leaves, mesh_sum(leaves, mesh, axes))}
     return tree_map(lambda t: of[id(t)], tree)
 
 
@@ -300,6 +303,7 @@ def make_train_step(cfg, mesh=None, *, optimizer_name: str = "adamw",
     ranks = mesh if mesh is not None and mesh.ranks is not None else None
     if ranks is not None:
         specs, shapes = state_pspecs(cfg, optimizer, ranks, compress)
+        over = grad_axes(cfg, ranks)
 
     def step_fn(state, batch) -> Tuple[Dict[str, Any], Dict[str, Any]]:
         with (mesh if mesh is not None else contextlib.nullcontext()):
@@ -328,7 +332,7 @@ def make_train_step(cfg, mesh=None, *, optimizer_name: str = "adamw",
         else:
             loss, metrics, grads = _loss_and_grads(cfg, params, mbs[0])
         if ranks is not None:
-            grads = _sum_tree(grads, ranks)
+            grads = _sum_tree(grads, ranks, over)
             return _rank_update(state, grads, loss, metrics)
 
         if compress:

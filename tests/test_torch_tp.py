@@ -310,7 +310,7 @@ def scenario_refusals(out):
         "moe": lambda: serve.main(["--arch", "deepseek-v3-671b",
                                    "--smoke-config", "--device", "cpu",
                                    "--model-axis", "2"]),
-        "ssm": lambda: train.main(["--arch", "mamba2-130m", *SMALL,
+        "audio": lambda: train.main(["--arch", "whisper-medium", *SMALL,
                                    "--steps", "1", "--model-axis", "2"]),
         "divide": lambda: host_mesh(3),
         "continuous": lambda: serve.main(SERVE_ARGS + ["--continuous", "2",
@@ -678,14 +678,14 @@ def test_decode_cache_blocks_follow_the_specs(m, world2, world4):
 
 def test_refusals(world2):
     """The MoE family runs under a model axis (served and trained); the
-    ssm family, a model axis that does not divide the ranks, and
+    audio family, a model axis that does not divide the ranks, and
     --continuous over ranks raise ValueError naming their ROADMAP items;
     K > 1 in one process raises too."""
     said = result(world2, "refusals")
     assert said["moe"] == ("ran", (4, 16))
     assert said["moe_train"][0] == "ran" \
         and np.isfinite(said["moe_train"][1])
-    assert "15.4" in said["ssm"] and "ssm" in said["ssm"]
+    assert "15.4" in said["audio"] and "audio" in said["audio"]
     assert "does not divide 2 ranks" in said["divide"]
     assert "15.5" in said["continuous"]
     with pytest.raises(ValueError, match="process per position"):
