@@ -299,10 +299,9 @@ Phases, each fatal on failure:
                 here in one process equal to each rank's blocks; s/step,
                 global tokens/s, peak GB and collective calls, GB and s a
                 step by axis per rank.  Serving (4 x 256, 8 greedy
-                tokens): drim-bnn on "gpu", "gpu --packed" and "cuda
-                --packed", the same tokens on every route and rank (their
-                agreement with the serve phase's, which the BNN's signs
-                undo at full depth, printed); drim-bnn cut to 2 layers
+                tokens): drim-bnn cut to 6 layers (TP_ROUTE_LAYERS) on
+                "gpu", "gpu --packed" and "cuda --packed", the same
+                tokens on every route and rank; drim-bnn cut to 2 layers
                 ("gpu") and qwen3-14b at 2 of its 40 layers, tokens equal
                 to one process's but where its top two logits lie within
                 TP_LOGIT_TOL, the prefill's last logits within it; each
@@ -344,7 +343,34 @@ Phases, each fatal on failure:
                 step 1 within
                 TP_STEP1_TOL of one process's and later steps within
                 TP_LOSS_BOUND, each rank's param and moment bytes its
-                specs'.  With 2 or
+                specs'.  Then, in the same worker, the audio family
+                (TP_AUDIO): whisper-medium at full width and depth served
+                over (1, 2) (encoder and decoder on the rank's heads, the
+                cross cache the rank's heads of every frame) and over the
+                (2, 1) data mesh from one whole draw of its weights, held
+                to the families phase's one-process leg as qwen3-14b's
+                (whether the data mesh's tokens are bit for bit printed);
+                over (1, 2) its prompts prefilled again over seeded
+                frames (zero frames make every cross-attention output
+                zero), within TP_LOGIT_TOL of one process's prefill of
+                them, and with rank 1's cross-attention wo partials left
+                out of the sum at every decoder layer, past it; trained
+                over (1, 2) at 6 encoder and 6 decoder layers as zamba2
+                at 6.  Last, the serving modes (TP_MODES) on drim-bnn cut
+                to 2 layers: --continuous on "gpu --packed" and "cuda
+                --packed" over (1, 2) and "gpu --packed" over (2, 1), the
+                request tokens one process's but for near ties
+                (`batcher_tap`), the two routes' equal; --microbench on
+                "gpu --packed" over (1, 2), each stage's figures per rank
+                and their maximum; --resilient on "cuda --packed" over
+                (1, 2) with a decode fn failing on rank 1 alone from its
+                third call (`failing_make_fn`): both ranks book retry,
+                retry, fallback alike and give the tokens of the run with
+                no failure; each rank's launches those of the same leg in
+                one process.  The worker's non-MoE legs read the trees
+                the parent drew for the same seed and config from a
+                temporary directory and keep their blocks
+                (`shared_draws`).  With 2 or
                 more cards the training run and the MoE serving legs
                 over NCCL at (1, min(4, cards)), a card a rank; with one
                 card a line;
@@ -384,9 +410,10 @@ Phases, each fatal on failure:
                 backward kernel once per layer, each rank's phase 12c
                 serving legs the launches of their one-process legs
                 (the family legs' prefills mamba2 0, zamba2 6 (1 at 6
-                layers), llava 2;
+                layers), llava 2, whisper 24;
                 their training per step twice a GQA site and each
-                backward kernel once a site: 0, 1, 2),
+                backward kernel once a site: 0, 1, 2, 6; the serving
+                modes' those of the same leg in one process),
                 phase 12b per step the flash forward twice per GQA site
                 and each backward kernel once per site (mamba2 and
                 deepseek-v3 none, zamba2 6 sites, whisper 24, llava 2),
@@ -1236,6 +1263,10 @@ def phase_flash(rng):
         (4, 56 // TP, 8 // TP, 3072, 3072, 128, 128, 128, True,
          torch.bfloat16),
         (1, 56 // TP, 8 // TP, 3072, 3072, 128, 128, 128, True,
+         torch.bfloat16),
+        # whisper-medium's decoder self-attention on a rank's heads (the
+        # tp phase's audio legs' prefill and training step)
+        (4, 16 // TP, 16 // TP, 256, 256, 64, 128, 128, True,
          torch.bfloat16)]
     record = None
     for b, h, hkv, sq, sk, d, bq, bk, causal, dt in cases:
@@ -1310,10 +1341,11 @@ def phase_flash_bwd(rng):
         *(c[:6] + c[8:] for c in FLASH_BF16_EDGES),
         *FLASH_BWD_FAMILIES,
         # the tp phase's training step on each of its TP ranks' heads,
-        # and its zamba2 and llava training legs' rank heads
+        # and its zamba2, llava and whisper training legs' rank heads
         (8, 12 // TP, 4 // TP, 256, 256, 64, True, torch.bfloat16),
         (4, 32 // TP, 32 // TP, 512, 512, 64, True, torch.bfloat16),
-        (1, 56 // TP, 8 // TP, 3072, 3072, 128, True, torch.bfloat16)]
+        (1, 56 // TP, 8 // TP, 3072, 3072, 128, True, torch.bfloat16),
+        (4, 16 // TP, 16 // TP, 256, 256, 64, True, torch.bfloat16)]
     records = {}
     for b, h, hkv, sq, sk, d, causal, dt in cases:
         q, k, v, do = (torch.from_numpy(rng.standard_normal(
@@ -3148,6 +3180,17 @@ def phase_families(wrappers):
                 gen32, _ = serve.run_serve(args, params=params)
             ONE_PROCESS[one_process_key(arch, layers, True)] = {
                 "gen": gen32, **tap_values(tap32)}
+        if arch == TP_AUDIO:
+            # the tp phase's prefill over seeded frames in one process, on
+            # these weights, not counted
+            toks = torch.as_tensor(serve._prompts(args, cfg, args.batch),
+                                   device=params["embed"].device).long()
+            with torch.no_grad():
+                lg = serve.prefill(params, cfg, {
+                    "tokens": toks, "frames": audio_frames(toks, cfg)})[0]
+            ONE_PROCESS[f"{arch} seeded frames"] = {
+                "prefill": lg[:, -1].float().cpu()}
+            del toks, lg
         # under the default --mesh host every MoE prefill layer takes EP
         # with one model shard; decode (S == 1) never does
         want_eps = ([{"data": 1, "model": 1}] * cfg.n_layers
@@ -3816,6 +3859,91 @@ RANKS_FLASH_PER_STEP = {"flash_attn_fwd": 24, "flash_bwd_dkv": 12,
                         "flash_bwd_dq": 12}
 
 
+# Trees drawn once on the host for every process of the script that
+# needs them: the parent writes each whole tree whose key
+# (`shared_draw_keys`: the tp worker's non-MoE legs) it draws, in a
+# temporary directory named in DRAWS_ENV, and the tp worker's ranks read
+# it and keep their blocks (`serve.place_params`), the weights
+# `init_params` inside their mesh would draw (init-then-cut, tested on
+# the CPU).  The MoE legs draw their own blocks, as their check asks.
+DRAWS_ENV = "CHIP_SMOKE_DRAWS"
+
+
+def draw_key(seed: int, cfg) -> str:
+    """A seeded tree's key: the seed and the config, whose activation
+    dtype the draw does not read."""
+    import hashlib
+    text = repr((int(seed), cfg.replace(dtype="bfloat16")))
+    return hashlib.sha1(text.encode()).hexdigest()[:20]
+
+
+def shared_draw_keys() -> set:
+    """The keys of the trees the tp worker's non-MoE legs draw."""
+    from repro_torch.launch import serve, train
+    keys = set()
+    for argv in [tp_serve_argvs()["qwen3-14b"]] + [
+            family_argv(arch, layers, prompt)
+            for arch, layers, prompt, _, _ in TP_FAMILY_SERVE]:
+        keys.add(draw_key(SEED, serve.build_cfg(serve.parse_args(argv))))
+    for arch, layers in TP_FAMILY_TRAIN:
+        argv, cut = family_train_argv(arch)
+        cut.update(depth_cut(arch, layers))
+        keys.add(draw_key(SEED, train.build_cfg(train.parse_args(argv))
+                          .replace(**cut)))
+    return keys
+
+
+@contextlib.contextmanager
+def shared_draws(directory: str, keys=None):
+    """`init_params` as `repro_torch.models`, `launch.serve` and
+    `runtime.steps` call it, reading a non-MoE tree another process drew
+    from `directory` (`draw_key`; under a model axis over ranks this
+    rank's blocks of it) and, where `keys` is given, writing there each
+    whole tree it draws whose key is in `keys` (where the disk has room
+    for it twice over)."""
+    import shutil
+    from repro_torch import models
+    from repro_torch.core.mesh import model_ranks
+    from repro_torch.device import resolve_device
+    from repro_torch.launch import serve
+    from repro_torch.runtime import steps
+    from repro_torch.tree import tree_leaves, tree_map
+    inner = models.init_params
+
+    def init(seed, cfg, *, device=None):
+        if cfg.family == "moe" or not isinstance(seed, int):
+            return inner(seed, cfg, device=device)
+        key = draw_key(seed, cfg)
+        path = os.path.join(directory, key + ".pt")
+        mesh = model_ranks()
+        if os.path.exists(path):
+            dev = resolve_device(device)
+            whole = torch.load(path, map_location="cpu", mmap=True,
+                               weights_only=True)
+            if mesh is not None:
+                whole = serve.place_params(whole, mesh, cfg.family)
+            return tree_map(lambda t: t.to(dev), whole)
+        params = inner(seed, cfg, device=device)
+        if keys is not None and key in keys and mesh is None:
+            size = sum(t.numel() * t.element_size()
+                       for t in tree_leaves(params))
+            if shutil.disk_usage(directory).free > 2 * size:
+                torch.save(tree_map(lambda t: t.detach().cpu(), params),
+                           path + ".part")
+                os.replace(path + ".part", path)
+        return params
+    names = [(models, "init_params"), (serve, "init_params"),
+             (steps, "init_params")]
+    saved = [getattr(m, n) for m, n in names]
+    for m, n in names:
+        setattr(m, n, init)
+    try:
+        yield
+    finally:
+        for (m, n), fn in zip(names, saved):
+            setattr(m, n, fn)
+
+
 def kernel_wrappers():
     """{counter name: the wrapper whose `.launches` counts its kernel}."""
     from repro_torch.kernels import (aap_interpreter, bitserial_add,
@@ -3881,9 +4009,10 @@ def ranks_worker(out: str, kind: str, model_axis: int = 1) -> int:
     gloo, then the tp serve legs (`tp_serve_legs`); over a model axis,
     then the MoE serving legs (`tp_moe_serve_legs`) and, for gloo, the
     MoE training leg (`tp_moe_train_leg`), -> OUT/rank<r>_moe.pt; over a
-    model axis and gloo, then the ssm, hybrid and vlm legs
+    model axis and gloo, then the ssm, hybrid, vlm and audio legs
     (`tp_family_serve_legs`, `tp_family_train_legs`) ->
-    OUT/rank<r>_families.pt.  Each
+    OUT/rank<r>_families.pt, and the serving modes (`tp_mode_legs`) ->
+    OUT/rank<r>_modes.pt.  Each
     training leg's launches, collective calls, bytes and seconds in all
     and by axis (apart from the checkpoint's gathers), peak bytes and
     printed lines go to OUT/rank<r>_<leg>.json."""
@@ -3895,6 +4024,9 @@ def ranks_worker(out: str, kind: str, model_axis: int = 1) -> int:
     ranks = init_ranks(train.parse_args(TRAIN).device)
     wrappers = kernel_wrappers()
     mesh = train.cli_mesh("host", ranks.device, ranks, model_axis)
+    draws = contextlib.ExitStack()
+    if os.environ.get(DRAWS_ENV):
+        draws.enter_context(shared_draws(os.environ[DRAWS_ENV]))
     axis = ["--model-axis", str(model_axis)]
     legs = [("straight", TRAIN + axis + ["--ckpt-dir", f"{out}/straight"])]
     if kind == "gloo":
@@ -3936,7 +4068,11 @@ def ranks_worker(out: str, kind: str, model_axis: int = 1) -> int:
                    "train": tp_family_train_legs(ranks, wrappers, mesh)}
             torch.save(fam, os.path.join(out,
                                          f"rank{ranks.rank}_families.pt"))
+            del fam
+            torch.save(tp_mode_legs(ranks, wrappers),
+                       os.path.join(out, f"rank{ranks.rank}_modes.pt"))
     finally:
+        draws.close()
         ranks.close()
     return 0
 
@@ -4087,48 +4223,72 @@ def collective_since(before) -> dict:
 
 
 def tp_family_serve_legs(ranks, wrappers) -> dict:
-    """The tp phase's ssm, hybrid and vlm serving legs on this rank
+    """The tp phase's ssm, hybrid, vlm and audio serving legs on this rank
     (TP_FAMILY_SERVE, the families phase's flags, `serve.run_serve
     --model-axis K`, under `float32_numerics` where the leg says): each
     leg's tokens, prefill logits and top-two gaps (`tap_values`),
     launches (zeroed just before), the rank's param and decode cache
     bytes, the collective calls, bytes and seconds of the prefill and of
-    the whole leg, peak GB and wall s.  A float32 leg also runs its
-    prefill a second time, untimed, right after the first, with
-    `planted_mixer_fault` on the last mixer ("planted_prefill"); that
-    run's launches and collectives are left out of the leg's.  Returns
-    {(arch, layers, K, float32): record}."""
+    the whole leg, peak GB and wall s.  An arch served by more than one
+    leg at one depth is drawn whole once (`init_params` of the seed, the
+    draw each leg would make) and handed to each leg, which keeps its
+    blocks.  Right after the timed prefill, untimed: a float32 leg runs
+    its prefill again with `planted_mixer_fault` on the last mixer
+    ("planted_prefill"); an audio leg over a model axis prefills its
+    prompts over seeded frames (TP_AUDIO_FRAMES), clean ("frames_prefill")
+    and with `planted_cross_fault` at every decoder layer
+    ("planted_prefill").  Their launches and collectives are left out of
+    the leg's.  Returns {(arch, layers, K, float32): record}."""
     from repro_torch.core import mesh as core_mesh
     from repro_torch.launch import serve
+    from repro_torch.models import init_params
     from repro_torch.tree import tree_leaves
 
     def nbytes(tree):
         return sum(t.numel() * t.element_size() for t in tree_leaves(tree))
+    legs_of = {}
+    for arch, layers, *_ in TP_FAMILY_SERVE:
+        legs_of[(arch, layers)] = legs_of.get((arch, layers), 0) + 1
+    shared = {}
     res = {}
     for arch, layers, prompt, k, f32 in TP_FAMILY_SERVE:
         args = serve.parse_args(family_argv(arch, layers, prompt)
                                 + ["--model-axis", str(k)])
-        drawn, caches, at_prefill, planted = [], [], [], {}
+        given = None
+        if legs_of[(arch, layers)] > 1:
+            if (arch, layers) not in shared:
+                shared[(arch, layers)] = init_params(
+                    SEED, serve.build_cfg(args), device=ranks.device)
+            given = shared[(arch, layers)]
+        caches, at_prefill, used, planted = [], [], {}, {}
         inner = {n: getattr(serve, n) for n in
-                 ("init_params", "prefill", "splice_caches",
-                  "splice_rank_caches")}
+                 ("prefill", "splice_caches", "splice_rank_caches")}
 
         def spy_prefill(*a, **kw):
             before = dict(core_mesh.COLLECTIVE_STATS)
             out = inner["prefill"](*a, **kw)
             at_prefill.append(collective_since(before))
-            if f32 and not planted:
-                planted["args"] = a, kw
+            if not used:
+                used.update(args=a, kw=kw, bytes=nbytes(a[0]))
             return out
 
         def plant():
-            """The planted prefill, after the timed one."""
-            a, kw = planted.pop("args")
+            """The untimed prefills, after the timed one."""
+            a, kw = used.pop("args"), used.pop("kw")
+            params, cfg, batch = a[0], a[1], a[2]
             before = dict(core_mesh.COLLECTIVE_STATS)
             counts = {n: fn.launches for n, fn in wrappers.items()}
             on = core_mesh.model_coord(core_mesh.model_ranks())[0] == 1
-            with planted_mixer_fault(on, a[1].n_layers - 1):
-                lg = inner["prefill"](*a, **kw)[0]
+            if cfg.family == "audio":
+                frames = {**batch, "frames": audio_frames(batch["tokens"],
+                                                          cfg)}
+                planted["frames_prefill"] = inner["prefill"](
+                    params, cfg, frames)[0][:, -1].float().cpu()
+                with planted_cross_fault(on):
+                    lg = inner["prefill"](params, cfg, frames)[0]
+            else:
+                with planted_mixer_fault(on, cfg.n_layers - 1):
+                    lg = inner["prefill"](*a, **kw)[0]
             planted.update(prefill=lg[:, -1].float().cpu(),
                            collective=collective_since(before),
                            launches={n: fn.launches - counts[n]
@@ -4136,35 +4296,31 @@ def tp_family_serve_legs(ranks, wrappers) -> dict:
 
         def spy_splice(name):
             def spy(*a, **kw):
-                if "args" in planted:
+                if "args" in used and (f32 or (arch == TP_AUDIO
+                                               and k > 1)):
                     plant()
                 caches.append(inner[name](*a, **kw))
                 return caches[-1]
             return spy
-
-        def draw(*a, **kw):
-            params = inner["init_params"](*a, **kw)
-            drawn.append(nbytes(params))
-            return params
         for fn in wrappers.values():
             fn.launches = 0
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
         before = dict(core_mesh.COLLECTIVE_STATS)
         t0 = time.perf_counter()
-        serve.init_params, serve.prefill = draw, spy_prefill
+        serve.prefill = spy_prefill
         serve.splice_caches = spy_splice("splice_caches")
         serve.splice_rank_caches = spy_splice("splice_rank_caches")
         try:
             with float32_numerics(f32), logits_tap() as tap:
-                gen, stats = serve.run_serve(args)
+                gen, stats = serve.run_serve(args, params=given)
         finally:
             for n, fn in inner.items():
                 setattr(serve, n, fn)
         torch.cuda.synchronize()
         coll = collective_since(before)
         launches = {n: fn.launches for n, fn in wrappers.items()}
-        if planted:
+        if "launches" in planted:
             coll = {key: v - planted["collective"].get(key, 0)
                     for key, v in coll.items()}
             launches = {n: c - planted["launches"][n]
@@ -4174,11 +4330,173 @@ def tp_family_serve_legs(ranks, wrappers) -> dict:
             "launches": launches,
             "wall_s": time.perf_counter() - t0,
             "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
-            "param_bytes": drawn[0], "cache_bytes": nbytes(caches[0]),
+            "param_bytes": used["bytes"], "cache_bytes": nbytes(caches[0]),
             "collective": coll, "prefill_collective": at_prefill[0],
-            "planted_prefill": planted.get("prefill")}
-        del caches, tap
+            "planted_prefill": planted.get("prefill"),
+            "frames_prefill": planted.get("frames_prefill")}
+        del caches, tap, used
+        legs_of[(arch, layers)] -= 1
+        if not legs_of[(arch, layers)]:
+            shared.pop((arch, layers), None)
         torch.cuda.empty_cache()
+    return res
+
+
+def audio_frames(tokens: torch.Tensor, cfg) -> torch.Tensor:
+    """Seeded frame embeddings [B, n_frames, d_model] in bfloat16 for
+    `tokens`' rows (the global batch: `prefill` over ranks cuts them with
+    the tokens) on their device (TP_AUDIO_FRAMES)."""
+    rng = np.random.default_rng([SEED, TP_AUDIO_FRAMES])
+    return torch.from_numpy(rng.standard_normal(
+        (tokens.shape[0], cfg.n_frames, cfg.d_model)).astype(np.float32)) \
+        .to(tokens.device, torch.bfloat16)
+
+
+@contextlib.contextmanager
+def planted_cross_fault(on: bool):
+    """Where `on` (model index 1), every cross-attention call's `wo`
+    partial left out of the sum: this rank's heads' outputs zeroed, the
+    all-reduce still run, so the ranks' collectives stay matched."""
+    from repro_torch.models import attention
+    inner, out_fn = attention.cross_attend, attention._out
+
+    def cross_attend(p, cfg, x, kv):
+        if not on:
+            return inner(p, cfg, x, kv)
+        attention._out = lambda p, cfg, out: out_fn(p, cfg,
+                                                    torch.zeros_like(out))
+        try:
+            return inner(p, cfg, x, kv)
+        finally:
+            attention._out = out_fn
+    attention.cross_attend = cross_attend
+    try:
+        yield
+    finally:
+        attention.cross_attend = inner
+
+
+def mode_argv(leg: str):
+    """(the serve flags of a TP_MODES leg at TP_MODE_LAYERS layers, its
+    model axis)."""
+    k, extra = TP_MODES[leg]
+    return SERVE + extra + ["--layers", str(TP_MODE_LAYERS)], k
+
+
+def mode_prompts(cfg):
+    """The serve phase's two continuous prompts (256 and 200 tokens)."""
+    return [np.random.default_rng([SEED, 2]).integers(0, cfg.vocab_size, n)
+            for n in (256, 200)]
+
+
+def failing_make_fn(rank: int):
+    """A `make_fn` for `serve.make_resilient_decode` whose decode fns on a
+    DRIM engine fail on `rank` (the process itself where no group is
+    initialised) from their TP_FAIL_FROM-th call on, after running the
+    step: a failure found at the step's readback."""
+    import torch.distributed as dist
+    from repro_torch.launch import batching
+
+    def make_fn(cfg, ctx_len, temperature, engine, n_queues):
+        inner = batching.make_decode_fn(cfg, ctx_len, temperature, engine,
+                                        n_queues)
+        calls = [0]
+
+        def dec(*args):
+            out = inner(*args)
+            calls[0] += 1
+            me = dist.get_rank() if dist.is_initialized() else rank
+            if me == rank and calls[0] >= TP_FAIL_FROM \
+                    and engine != batching.NATIVE_ENGINE:
+                raise RuntimeError(f"planted failure at call {calls[0]}")
+            return out
+        return dec
+    return make_fn
+
+
+@contextlib.contextmanager
+def batcher_tap():
+    """Record, for a continuous run, the top-two gap of the logits of
+    each request's tokens (its first from its admission's prefill, the
+    rest from the waves' decode steps at its slot); yields {rid:
+    [gap, ...]}."""
+    from repro_torch.launch import batching
+    gaps, now = {}, {"rid": None, "slots": []}
+    sample = batching.sample_tokens
+    admit, pending = batching.WaveBatcher._admit, \
+        batching.WaveBatcher._admit_pending
+
+    def tapped_sample(logits, temperature, key):
+        top = logits[:, -1].topk(2, -1).values
+        gap = (top[:, 0] - top[:, 1]).float().cpu().tolist()
+        if now["rid"] is not None:
+            gaps.setdefault(now["rid"], []).append(gap[0])
+        else:
+            for slot, rid in enumerate(now["slots"]):
+                if rid >= 0:
+                    gaps.setdefault(rid, []).append(gap[slot])
+        return sample(logits, temperature, key)
+
+    def tapped_admit(self, req, slot):
+        now["rid"] = req.rid
+        try:
+            return admit(self, req, slot)
+        finally:
+            now["rid"] = None
+
+    def tapped_pending(self):
+        out = pending(self)
+        now["slots"] = list(self._slot_rid)
+        return out
+    batching.sample_tokens = tapped_sample
+    batching.WaveBatcher._admit = tapped_admit
+    batching.WaveBatcher._admit_pending = tapped_pending
+    try:
+        yield gaps
+    finally:
+        batching.sample_tokens = sample
+        batching.WaveBatcher._admit = admit
+        batching.WaveBatcher._admit_pending = pending
+
+
+def run_mode(leg: str, wrappers, extra=()):
+    """A TP_MODES leg through the serve CLI's entry point (`extra`: more
+    flags, the model axis over ranks), its launch counters zeroed just
+    before: {"out": the entry point's result, "launches", "gaps" (a
+    continuous leg's, `batcher_tap`), "wall_s", "peak_gb"}."""
+    from repro_torch.launch import serve
+    argv, _ = mode_argv(leg)
+    args = serve.parse_args(argv + list(extra))
+    for fn in wrappers.values():
+        fn.launches = 0
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    with batcher_tap() as gaps:
+        if args.continuous:
+            out = serve.run_continuous(args, prompts=mode_prompts(
+                serve.build_cfg(args)))
+        elif args.microbench:
+            out = serve.run_microbench(args)
+        else:
+            out = serve.run_serve(args, make_fn=failing_make_fn(1))
+    torch.cuda.synchronize()
+    return {"out": out, "gaps": {r: list(g) for r, g in gaps.items()},
+            "launches": {n: fn.launches for n, fn in wrappers.items()},
+            "wall_s": time.perf_counter() - t0,
+            "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+
+
+def tp_mode_legs(ranks, wrappers) -> dict:
+    """The tp phase's serving-mode legs on this rank (TP_MODES through
+    `run_mode` with `--model-axis K`), each with its collective calls,
+    bytes and seconds; returns {leg: record}."""
+    from repro_torch.core import mesh as core_mesh
+    res = {}
+    for leg, (k, _) in TP_MODES.items():
+        before = dict(core_mesh.COLLECTIVE_STATS)
+        res[leg] = run_mode(leg, wrappers, ["--model-axis", str(k)])
+        res[leg]["collective"] = collective_since(before)
     return res
 
 
@@ -4194,6 +4512,17 @@ def family_train_argv(arch: str):
     if experts:
         cut["n_experts"] = experts
     return argv, cut
+
+
+def depth_cut(arch: str, layers: int) -> dict:
+    """The config cut of a training leg at depth `layers` (0: none): the
+    layers, and for the audio family its encoder's as well."""
+    if not layers:
+        return {}
+    cut = {"n_layers": layers}
+    if arch == TP_AUDIO:
+        cut["encoder_layers"] = layers
+    return cut
 
 
 def trained_key(arch: str, layers: int) -> str:
@@ -4217,8 +4546,7 @@ def tp_family_train_legs(ranks, wrappers, mesh) -> dict:
         argv += ["--model-axis", str(TP)]
         if arch == "llava-next-34b":
             argv.append("--donate")
-        if layers:
-            cut["n_layers"] = layers
+        cut.update(depth_cut(arch, layers))
         torch.cuda.empty_cache()
         record, seen = train_leg(ranks, wrappers, argv,
                                  contextlib.nullcontext(), **cut)
@@ -4252,6 +4580,7 @@ def train_leg(ranks, wrappers, argv, plant, **cut):
     train.gather = timed_gather
     torch.cuda.reset_peak_memory_stats()
     text = io.StringIO()
+    t0 = time.perf_counter()
     try:
         with deterministic(), trainer_spy(train, **cut) as seen, plant, \
                 contextlib.redirect_stdout(text):
@@ -4266,6 +4595,7 @@ def train_leg(ranks, wrappers, argv, plant, **cut):
         "collective": {k: v - stats0.get(k, 0)
                        for k, v in core_mesh.COLLECTIVE_STATS.items()},
         "checkpoint_gather_s": gathers["s"],
+        "wall_s": time.perf_counter() - t0,
         "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
         "losses": seen["losses"],
         "lines": [json.loads(line) for line in text.getvalue().splitlines()
@@ -4520,6 +4850,10 @@ TP_TIMEOUT_S = 420
 # 1.30 against an RMS of 0.28), so there the legs against one process
 # are a reading, not a bound.
 TP_LOGIT_TOL = 0.1
+# The three routes' legs are held only to each other, so they run
+# **reduced** from drim-bnn's 12 layers to 6 (PR 33, to make room for the
+# audio and serving-mode legs).
+TP_ROUTE_LAYERS = 6
 # The tp phase's MoE legs, in the same worker after the dense legs (one
 # torchrun start, one import, one kernel load; each leg frees its card
 # memory before the next): deepseek-v3-671b (MLA) and kimi-k2-1t-a32b
@@ -4599,16 +4933,79 @@ TP_MOE_TIMEOUT_S = 420
 # were 4.0e-4, 9.0e-5 and 2.7e-4.  Flash twice a GQA site a step (remat)
 # and each backward kernel once a site (0 / 1 / 2); each rank's param
 # and moment bytes its specs'.
+#
+# The audio family's legs follow in the same lists.  whisper-medium
+# (TP_AUDIO) served at its full width and depth (24 encoder and 24
+# decoder layers, 1500 zero frames, 256 tokens, as the families phase
+# serves it) over (1, TP), its encoder and decoder on the rank's heads
+# and its cross cache the rank's heads of every frame, and over the (TP,
+# 1) data mesh, both from one whole draw of its weights (an arch served
+# by two legs is drawn once); held to the families phase's one-process
+# leg as qwen3-14b's is (the data mesh's tokens but for near ties, and
+# whether they are bit for bit printed).  Zero frames make the encoder's
+# output, and so every cross-attention output, exactly zero, so over
+# (1, TP) the prompts are also prefilled over seeded frames
+# (TP_AUDIO_FRAMES), held to one process's prefill of them (the families
+# phase's, on the same weights) within TP_LOGIT_TOL, and again with
+# rank 1's cross-attention `wo` partials left out of the sum at every
+# decoder layer (TP_AUDIO_PLANTED), which must read past it (on an H100
+# rank 1's partial of the last decoder layer alone moved the logits by
+# 0.051, inside the bound).  Then
+# whisper trained over (1, TP) at its train-families leg (4 x 256,
+# AdamW 3e-4, FAMILY_TRAIN_STEPS steps), cut to 6 encoder and 6 decoder
+# layers: at full depth the Megatron sums of the [4, 1500, 1024]
+# encoder activations come to about 4-5 GB of gloo traffic a step a
+# rank; held to a one-process leg at that depth run here first, as
+# zamba2's 6-layer leg is.  Flash once per decoder self-attention site
+# of a prefill (24; none in the encoder or the cross-attention), twice a
+# site a training step and each backward kernel once (6 sites).
+TP_AUDIO = "whisper-medium"
+TP_AUDIO_FRAMES = 6                     # the seeded frames' stream
+TP_AUDIO_PLANTED = ("rank 1's cross-attention wo partials left out at "
+                    "every decoder layer")
 TP_FAMILY_SERVE = (("mamba2-130m", 0, 1024, TP, False),
                    ("mamba2-130m", 0, 1024, 1, False),
                    ("zamba2-1.2b", 6, 512, TP, False),
                    ("zamba2-1.2b", 0, 512, TP, True),
-                   ("llava-next-34b", 2, 3072, TP, False))
+                   ("llava-next-34b", 2, 3072, TP, False),
+                   (TP_AUDIO, 0, 256, TP, False),
+                   (TP_AUDIO, 0, 256, 1, False))
 TP_F32_LOGIT_TOL = 5e-3
 TP_F32_PLANTED = "rank 1's out_proj partial of the last mixer left out"
 TP_FAMILY_TRAIN = (("mamba2-130m", 0), ("zamba2-1.2b", 6),
-                   ("llava-next-34b", 2))
-TP_FAMILY_TIMEOUT_S = 360
+                   ("llava-next-34b", 2), (TP_AUDIO, 6))
+TP_FAMILY_TIMEOUT_S = 480
+# The serving modes over ranks, last in the tp worker, on drim-bnn cut
+# to 2 layers (the depth the tp phase holds to one process), the serve
+# phase's flags: --continuous (its two prompts of 256 and 200 tokens, a
+# wave apart, into 2 slots) on "gpu --packed" and "cuda --packed" over
+# (1, TP) and on "gpu --packed" over (TP, 1), the
+# request tokens held to a one-process continuous run at 2 layers (run
+# here first) but for near ties (`batcher_tap`), the two routes' tokens
+# over (1, TP) equal; --microbench on "gpu --packed" over (1, TP), every
+# stage on every rank with each figure per rank and their maximum;
+# --resilient on "cuda --packed" over (1, TP) with a decode fn that fails
+# on rank 1 alone from its TP_FAIL_FROM-th call on (`failing_make_fn`,
+# after running the step, so the ranks' collectives stay matched): both
+# ranks book retry, retry, fallback, switch to "gpu" together, and give
+# the tokens of the tp phase's "drim-bnn 2 layers" leg (every route the
+# same tokens).  Each rank's launches those of the same leg in one
+# process (the resilient one failing there too).
+TP_MODES = {
+    "continuous gpu packed": (TP, ["--engine", "gpu", "--packed", "--batch",
+                                   "2", "--continuous", "2"]),
+    "continuous cuda packed": (TP, ["--engine", "cuda", "--packed",
+                                    "--batch", "2", "--continuous", "2"]),
+    "continuous gpu packed data": (1, ["--engine", "gpu", "--packed",
+                                       "--batch", "2", "--continuous", "2"]),
+    "microbench gpu packed": (TP, ["--engine", "gpu", "--packed",
+                                   "--microbench"]),
+    "resilient cuda packed": (TP, ["--engine", "cuda", "--packed",
+                                   "--resilient"]),
+}
+TP_MODE_LAYERS = 2
+TP_FAIL_FROM = 3
+TP_MODES_TIMEOUT_S = 240
 
 
 def one_process_key(arch: str, layers: int, f32: bool = False) -> str:
@@ -4661,7 +5058,8 @@ def planted_mixer_fault(on: bool, at: int):
 
 def tp_serve_argvs():
     """{leg: serve flags} of the tp phase's serving legs."""
-    legs = {leg: SERVE + extra for leg, extra in SERVE_LEGS.items()}
+    legs = {leg: SERVE + extra + ["--layers", str(TP_ROUTE_LAYERS)]
+            for leg, extra in SERVE_LEGS.items()}
     legs["drim-bnn 2 layers"] = SERVE + SERVE_LEGS["gpu dense"] \
         + ["--layers", "2"]
     legs["qwen3-14b"] = family_argv("qwen3-14b", 2, 256)
@@ -4690,6 +5088,7 @@ def tp_serve_legs(out: str, ranks, wrappers) -> None:
             fn.launches = 0
         torch.cuda.reset_peak_memory_stats()
         serve.splice_rank_caches = spy
+        t0 = time.perf_counter()
         try:
             with logits_tap() as tap:
                 gen, stats = serve.run_serve(args)
@@ -4697,6 +5096,7 @@ def tp_serve_legs(out: str, ranks, wrappers) -> None:
             serve.splice_rank_caches = splice
         torch.cuda.synchronize()
         res[leg] = {"gen": gen, "stats": stats, **tap_values(tap),
+                    "wall_s": time.perf_counter() - t0,
                     "launches": {n: fn.launches
                                  for n, fn in wrappers.items()},
                     "cache_bytes": sum(t.numel() * t.element_size()
@@ -4802,17 +5202,25 @@ def phase_tp(wrappers):
     for arch, layers in TP_FAMILY_TRAIN:
         if layers and trained_key(arch, layers) not in TRAINED:
             argv, cut = family_train_argv(arch)
-            with deterministic(), \
-                    trainer_spy(train, **{**cut, "n_layers": layers}) \
-                    as seen, contextlib.redirect_stdout(io.StringIO()):
+            cut.update(depth_cut(arch, layers))
+            with deterministic(), trainer_spy(train, **cut) as seen, \
+                    contextlib.redirect_stdout(io.StringIO()):
                 train.main(argv)
             TRAINED[trained_key(arch, layers)] = list(seen["losses"])
             del seen
             torch.cuda.empty_cache()
+    one_modes = {}
+    for leg in TP_MODES:
+        argv, _ = mode_argv(leg)
+        same = next((m for m in one_modes if mode_argv(m)[0] == argv), None)
+        one_modes[leg] = (one_modes[same] if same is not None
+                          else run_mode(leg, wrappers))
+    one_process_s = time.perf_counter() - t_phase
     with tempfile.TemporaryDirectory(prefix="drim_tp_") as tmp:
         rc, out, err, wall = torchrun(TP, ["--tp-worker", tmp, "gloo"],
                                       TP_TIMEOUT_S + TP_MOE_TIMEOUT_S
-                                      + TP_FAMILY_TIMEOUT_S)
+                                      + TP_FAMILY_TIMEOUT_S
+                                      + TP_MODES_TIMEOUT_S)
         if rc != 0:
             raise AssertionError(f"tp: torchrun exited {rc}:\n"
                                  f"{out[-2000:]}\n{err[-4000:]}")
@@ -4839,7 +5247,9 @@ def phase_tp(wrappers):
             "first_step_s": lines[0]["wall_s"],
             "losses": straight, "one_process_losses": one,
             "loss_gaps": gaps, "step1_tol": TP_STEP1_TOL,
-            "loss_bound": TP_LOSS_BOUND, "torchrun_wall_s": wall}))
+            "loss_bound": TP_LOSS_BOUND, "torchrun_wall_s": wall,
+            "leg_wall_s": {leg: [r["wall_s"] for r in legs[leg]]
+                           for leg in legs}}))
         for r in recs:
             coll = r["collective"]
             print("tp " + json.dumps({
@@ -4899,12 +5309,16 @@ def phase_tp(wrappers):
         serve_counts = check_tp_serving(served)
         moe_counts = check_tp_moe(tmp, TP)
         family_counts = check_tp_families(tmp, TP)
+        mode_counts = check_tp_modes(tmp, TP, one_modes,
+                                     served[0]["drim-bnn 2 layers"]["gen"])
         phase_tp_nccl(tmp, one)
     counts = {n: sum(r["launches"][n] for leg in ("straight", "restart")
                      for r in legs[leg]) + serve_counts[n] + moe_counts[n]
-              + family_counts[n] for n in wrappers}
+              + family_counts[n] + mode_counts[n] for n in wrappers}
     print("tp " + json.dumps({"phase_wall_s":
-                              time.perf_counter() - t_phase}))
+                              time.perf_counter() - t_phase,
+                              "one_process_legs_s": one_process_s,
+                              "torchrun_wall_s": wall}))
     print("counts " + json.dumps({"phase": "tp", **counts}))
     return counts
 
@@ -4919,9 +5333,9 @@ def tp_launches(cfg, args):
 
 def check_tp_serving(served) -> dict:
     """The tp serving legs of every rank: the same tokens on every rank;
-    drim-bnn's full-depth routes the same tokens as its "gpu dense" leg
-    (and their agreement with one process's, a reading); the cut legs
-    held to one process's (ONE_PROCESS, `first_difference_ok`, the
+    drim-bnn's three routes (TP_ROUTE_LAYERS layers) the same tokens as
+    its "gpu dense" leg; drim-bnn at 2 layers and qwen3-14b held to one
+    process's (ONE_PROCESS, `first_difference_ok`, the
     prefill logits within TP_LOGIT_TOL); each rank's decode cache bytes
     1 / TP of one process's and its launches the one-process leg's.
     Returns the launches summed over the legs and ranks."""
@@ -4948,37 +5362,39 @@ def check_tp_serving(served) -> dict:
                                      f"{got['cache_bytes']} of {one_cache}")
             if not np.array_equal(got["gen"], first["gen"]):
                 raise AssertionError(f"tp {leg}: rank {r}'s tokens differ")
-        want = ONE_PROCESS["drim-bnn" if leg in SERVE_LEGS else leg]
-        err = float((first["prefill"] - want["prefill"]).abs().max())
         held = leg not in SERVE_LEGS
+        stats = first["stats"]
+        line = {"serve": leg, "held_to_one_process": held,
+                "layers": cfg.n_layers}
         if held:
+            want = ONE_PROCESS[leg]
+            err = float((first["prefill"] - want["prefill"]).abs().max())
             ties = first_difference_ok(leg, first["gen"], want["gen"],
                                        want["gaps"])
             if err > TP_LOGIT_TOL:
                 raise AssertionError(f"tp {leg}: prefill logits {err} from "
                                      "one process's")
+            line.update(
+                tokens_equal_one_process=int(np.sum(
+                    np.asarray(first["gen"]) == np.asarray(want["gen"]))),
+                tokens=int(np.asarray(want["gen"]).size),
+                prefill_logits_max_abs_diff=err,
+                one_process_logits_rms=float(
+                    want["prefill"].pow(2).mean().sqrt()))
         elif not np.array_equal(first["gen"],
                                 served[0]["gpu dense"]["gen"]):
             raise AssertionError(f"tp {leg}: tokens differ from gpu dense")
-        stats = first["stats"]
-        line = {"serve": leg, "held_to_one_process": held,
-                "tokens_equal_one_process": int(np.sum(
-                    np.asarray(first["gen"]) == np.asarray(want["gen"]))),
-                "tokens": int(np.asarray(want["gen"]).size),
-                "prefill_logits_max_abs_diff": err,
-                "one_process_logits_rms": float(
-                    want["prefill"].pow(2).mean().sqrt()),
-                "cache_bytes_per_rank": [r[leg]["cache_bytes"]
-                                         for r in served],
-                "cache_bytes_one_process": one_cache,
-                "peak_gb_per_rank": [r[leg]["peak_gb"] for r in served],
-                "prefill_s": stats["prefill_s"],
-                "compile_s": stats["compile_s"],
-                "decode_tok_per_s": stats["decode_tok_per_s"],
-                "decode_p50_ms": stats["decode_p50_ms"],
-                "launches_per_rank": {n: c for n, c in launches.items()
-                                      if c},
-                "sample_ids": stats["sample_ids"]}
+        line.update({
+            "cache_bytes_per_rank": [r[leg]["cache_bytes"] for r in served],
+            "cache_bytes_one_process": one_cache,
+            "peak_gb_per_rank": [r[leg]["peak_gb"] for r in served],
+            "prefill_s": stats["prefill_s"],
+            "compile_s": stats["compile_s"],
+            "decode_tok_per_s": stats["decode_tok_per_s"],
+            "decode_p50_ms": stats["decode_p50_ms"],
+            "launches_per_rank": {n: c for n, c in launches.items() if c},
+            "leg_wall_s": first["wall_s"],
+            "sample_ids": stats["sample_ids"]})
         if held:
             line.update(near_ties=ties, logit_tol=TP_LOGIT_TOL)
         print("tp " + json.dumps(line))
@@ -5251,8 +5667,9 @@ def check_tp_families(tmp: str, n: int) -> dict:
         err = float((first["prefill"] - want["prefill"]).abs().max())
         tol = TP_F32_LOGIT_TOL if f32 else TP_LOGIT_TOL
         ties, planted = [], {}
-        if k == 1:
-            if not np.array_equal(first["gen"], want["gen"]):
+        bitwise = bool(np.array_equal(first["gen"], want["gen"]))
+        if k == 1 and cfg.family != "audio":
+            if not bitwise:
                 raise AssertionError(f"{label}: tokens {first['gen']}, one "
                                      f"process {want['gen']}")
         else:
@@ -5261,14 +5678,23 @@ def check_tp_families(tmp: str, n: int) -> dict:
             if err > tol:
                 raise AssertionError(f"{label}: prefill logits {err} from "
                                      "one process's")
-        if f32:
-            moved = float((first["planted_prefill"] - want["prefill"])
-                          .abs().max())
+        if first["planted_prefill"] is not None:
+            base = want["prefill"]
+            if cfg.family == "audio":
+                base = ONE_PROCESS[f"{arch} seeded frames"]["prefill"]
+                clean = float((first["frames_prefill"] - base).abs().max())
+                if clean > tol:
+                    raise AssertionError(f"{label}: the seeded frames' "
+                                         f"prefill logits {clean} from one "
+                                         "process's")
+                planted["frames_prefill_max_abs_diff"] = clean
+            moved = float((first["planted_prefill"] - base).abs().max())
             if moved <= tol:
                 raise AssertionError(f"{label}: the planted fault stayed "
                                      f"inside the bound: {moved}")
-            planted = {"planted": TP_F32_PLANTED,
-                       "planted_prefill_max_abs_diff": moved}
+            planted.update(planted=TP_F32_PLANTED if f32
+                           else TP_AUDIO_PLANTED,
+                           planted_prefill_max_abs_diff=moved)
         stats = first["stats"]
         decode_calls = FAMILY_GEN
         per_rank = []
@@ -5295,6 +5721,7 @@ def check_tp_families(tmp: str, n: int) -> dict:
             "tokens_equal_one_process": int(np.sum(
                 np.asarray(first["gen"]) == np.asarray(want["gen"]))),
             "tokens": int(np.asarray(want["gen"]).size),
+            "tokens_bit_for_bit": bitwise,
             "near_ties": ties, "prefill_logits_max_abs_diff": err,
             "logit_tol": tol, **planted,
             "one_process_logits_rms": float(
@@ -5315,9 +5742,8 @@ def check_tp_families(tmp: str, n: int) -> dict:
         label = f"tp train {arch}"
         _, _, _, batch, seq, opt, lr = next(
             leg for leg in TRAIN_FAMILIES if leg[0] == arch)
-        cfg = get_config(arch).replace(**family_train_argv(arch)[1])
-        if layers:
-            cfg = cfg.replace(n_layers=layers)
+        cfg = get_config(arch).replace(**{**family_train_argv(arch)[1],
+                                          **depth_cut(arch, layers)})
         sites = attention_sites(cfg)
         steps = FAMILY_TRAIN_STEPS
         launches = {name: 0 for name in recs[0]["train"][arch]["launches"]}
@@ -5362,6 +5788,7 @@ def check_tp_families(tmp: str, n: int) -> dict:
             coll = r["collective"]
             print("tp " + json.dumps({
                 "train": arch, "rank": r["rank"], "peak_gb": r["peak_gb"],
+                "leg_wall_s": r["wall_s"],
                 "collective_calls_per_step": coll["calls"] / steps,
                 "collective_gb_per_step": coll["bytes"] / 1e9 / steps,
                 "collective_s_per_step": coll["seconds"] / steps,
@@ -5376,12 +5803,172 @@ def check_tp_families(tmp: str, n: int) -> dict:
     return total
 
 
+def check_tp_modes(tmp: str, n: int, one: dict, static_gen) -> dict:
+    """The serving-mode legs of the tp worker's n ranks
+    (OUT/rank<r>_modes.pt) against their one-process runs (`one`, by
+    leg): each rank's launches one process's; --continuous the same
+    request tokens on every rank, one process's but for near ties
+    (`first_difference_ok` on the requests' rows, TP_LOGIT_TOL), the two
+    routes over (1, TP) equal; --microbench every stage on every rank,
+    each figure per rank in rank order and its maximum; --resilient the
+    same retry, retry, fallback incidents on every rank but for their
+    `error` and `t_s`, "gpu" serving at the end, and `static_gen`'s
+    tokens (the tp "drim-bnn 2 layers" leg's).  Prints the "tp" lines;
+    returns the launches summed over the legs and ranks."""
+    recs = [torch.load(f"{tmp}/rank{r}_modes.pt", weights_only=False)
+            for r in range(n)]
+    total, tokens = {}, {}
+    for leg, (k, _) in TP_MODES.items():
+        label = f"tp {leg} ({n // k}, {k})"
+        want = one[leg]
+        for r, rec in enumerate(recs):
+            if rec[leg]["launches"] != want["launches"]:
+                raise AssertionError(f"{label} rank {r}: launches "
+                                     f"{rec[leg]['launches']}, one "
+                                     f"process {want['launches']}")
+        first = recs[0][leg]
+        line = {"mode": leg, "mesh": {"data": n // k, "model": k},
+                "layers": TP_MODE_LAYERS,
+                "wall_s_per_rank": [rec[leg]["wall_s"] for rec in recs],
+                "one_process_wall_s": want["wall_s"],
+                "peak_gb_per_rank": [rec[leg]["peak_gb"] for rec in recs],
+                "collective_per_rank": [{
+                    "calls": rec[leg]["collective"].get("calls", 0),
+                    "gb": rec[leg]["collective"].get("bytes", 0) / 1e9,
+                    "s": rec[leg]["collective"].get("seconds", 0.0)}
+                    for rec in recs],
+                "launches_per_rank": {key: c for key, c in
+                                      want["launches"].items() if c}}
+        if leg.startswith("continuous"):
+            res, stats = first["out"]
+            for r, rec in enumerate(recs):
+                got = rec[leg]["out"][0]
+                if sorted(got) != sorted(res) or any(
+                        not np.array_equal(got[q], res[q]) for q in res):
+                    raise AssertionError(f"{label}: rank {r}'s tokens "
+                                         "differ")
+            rids = sorted(want["out"][0])
+            got = np.stack([res[q] for q in rids])
+            ref = np.stack([want["out"][0][q] for q in rids])
+            gaps = np.array([want["gaps"][q] for q in rids])
+            ties = first_difference_ok(label, got, ref, gaps)
+            tokens[leg] = got
+            line.update(tokens_equal_one_process=int(np.sum(got == ref)),
+                        tokens=int(ref.size),
+                        tokens_bit_for_bit=bool(np.array_equal(got, ref)),
+                        near_ties=ties, logit_tol=TP_LOGIT_TOL,
+                        n_waves=stats["n_waves"],
+                        tok_per_s=stats["tok_per_s"],
+                        one_process_tok_per_s=want["out"][1]["tok_per_s"])
+        elif leg.startswith("microbench"):
+            split = {}
+            for r, rec in enumerate(recs):
+                stages = rec[leg]["out"][1]["microbench"]
+                if set(stages) != {"prefill", "insert", "generate"}:
+                    raise AssertionError(f"{label} rank {r}: stages "
+                                         f"{sorted(stages)}")
+                for stage, fig in stages.items():
+                    for key, every in fig["per_rank"].items():
+                        if len(every) != n or every[r] != fig[key] \
+                                or fig["max"][key] != max(every):
+                            raise AssertionError(f"{label} rank {r}: "
+                                                 f"{stage} {key} {fig}")
+                split = stages
+            line.update(microbench=split,
+                        one_process=want["out"][1]["microbench"])
+        else:
+            books = []
+            for r, rec in enumerate(recs):
+                gen, stats = rec[leg]["out"]
+                kinds = [i["action_kind"] for i in stats["incidents"]]
+                if kinds != ["retry", "retry", "fallback"] \
+                        or stats["engine"] != "gpu":
+                    raise AssertionError(f"{label} rank {r}: incidents "
+                                         f"{kinds}, engine "
+                                         f"{stats['engine']}")
+                if not np.array_equal(gen, static_gen):
+                    raise AssertionError(f"{label} rank {r}: tokens "
+                                         f"{gen.tolist()}, the run with no "
+                                         f"failure {static_gen.tolist()}")
+                books.append([{key: v for key, v in i.items()
+                               if key not in ("error", "t_s")}
+                              for i in stats["incidents"]])
+            if any(b != books[0] for b in books):
+                raise AssertionError(f"{label}: the ranks' incidents "
+                                     f"differ: {books}")
+            stats = first["out"][1]
+            line.update(incidents=[{key: i[key] for key in (
+                "action_kind", "engine", "attempt", "failed_ranks",
+                "error")} for i in stats["incidents"]],
+                errors_per_rank=[[i["error"] for i in rec[leg]["out"][1]
+                                  ["incidents"]] for rec in recs],
+                failure_flag_per_rank=[rec[leg]["out"][1]["failure_flag"]
+                                       for rec in recs],
+                decode_tok_per_s=stats["decode_tok_per_s"],
+                tokens_equal_run_with_no_failure=True)
+        print("tp " + json.dumps(line))
+        for name, c in want["launches"].items():
+            total[name] = total.get(name, 0) + c * n
+    if not np.array_equal(tokens["continuous gpu packed"],
+                          tokens["continuous cuda packed"]):
+        raise AssertionError("tp continuous: the routes' tokens differ")
+    return total
+
+
+# whether `device_kernels`' sums agreed with `key_averages` on its first
+# call (empty before it)
+KEY_AVERAGES_CHECKED: list = []
+
+
 def device_kernels(prof, n: int):
     """(name, device ms, launches) per call of each CUDA kernel a
-    `torch.profiler` run over `n` calls recorded."""
-    return [(e.key, e.self_device_time_total / 1e3 / n, e.count / n)
-            for e in prof.key_averages()
-            if e.self_device_time_total > 0 and e.device_type.name == "CUDA"]
+    `torch.profiler` run over `n` calls recorded: `key_averages()`'s
+    figures for its CUDA events, summed here from the profiler's raw
+    device events alone (the name rewritten and filtered as
+    `key_averages` does, an event's device time its duration), since
+    `key_averages` builds an event object for every CPU op as well (the
+    train-families phase's two profiled steps of 10,000-17,000 launches
+    took 21-37 s a leg with it on the card's host, PR 33 run 2).  The
+    first call runs both and keeps `key_averages` for every call unless
+    the two agree (`KEY_AVERAGES_CHECKED`, a "profile" line); where the
+    torch build lacks the helpers, `key_averages` alone."""
+    def averaged():
+        return [(e.key, e.self_device_time_total / 1e3 / n, e.count / n)
+                for e in prof.key_averages()
+                if e.self_device_time_total > 0
+                and e.device_type.name == "CUDA"]
+    try:
+        from torch.autograd import DeviceType
+        from torch.autograd.profiler_util import _filter_name, _rewrite_name
+        events = prof.profiler.kineto_results.events()
+    except (ImportError, AttributeError):
+        return averaged()
+    us, count = {}, {}
+    for ev in events:
+        if ev.device_type() != DeviceType.CUDA or _filter_name(ev.name()) \
+                or getattr(ev, "is_hidden_event", lambda: False)() \
+                or ev.is_async() \
+                or ev.start_thread_id() != ev.end_thread_id():
+            continue
+        key = _rewrite_name(name=ev.name(), with_wildcard=True)
+        us[key] = us.get(key, 0.0) + (ev.end_ns() - ev.start_ns()) / 1e3
+        count[key] = count.get(key, 0) + 1
+    got = [(key, t / 1e3 / n, count[key] / n) for key, t in us.items()
+           if t > 0]
+    if not KEY_AVERAGES_CHECKED:
+        want = averaged()
+        mine, theirs = ({key: (ms, c) for key, ms, c in kernels}
+                        for kernels in (got, want))
+        same = mine.keys() == theirs.keys() and all(
+            mine[k][1] == theirs[k][1]
+            and abs(mine[k][0] - theirs[k][0]) <= 1e-6 * max(theirs[k][0], 1)
+            for k in theirs)
+        KEY_AVERAGES_CHECKED.append(same)
+        print("profile " + json.dumps({
+            "device_kernels_equal_key_averages": same,
+            "kernels": len(theirs)}))
+        return want
+    return got if KEY_AVERAGES_CHECKED[0] else averaged()
 
 
 def profile_train_steps(step_fn, state, batches, arch: str = "drim-bnn",
@@ -5560,18 +6147,22 @@ def phase_train_families(wrappers):
             step_fn, held = seen.pop("step_fn"), [seen.pop("state")]
             data = SyntheticLM(cfg.vocab_size, seq, batch, seed=SEED)
             nxt = train.batch_at(data, cfg, FAMILY_TRAIN_STEPS, SEED, dev)
+            t0 = time.perf_counter()
             (loss, same), counts[leg + " repeat"] = counted(
                 wrappers, leg + " repeat",
                 lambda: repeat_step(step_fn, held[0], nxt),
                 lambda _, ps=per_step: {k: 2 * v for k, v in ps.items()})
+            repeat_s = time.perf_counter() - t0
             if not same:
                 raise AssertionError(f"{leg}: a step repeated from the same "
                                      "state differs")
             batches = [train.batch_at(data, cfg, FAMILY_TRAIN_STEPS + 1 + i,
                                       SEED, dev)
                        for i in range(FAMILY_PROFILE_STEPS)]
+            t0 = time.perf_counter()
             prof = profile_train_steps(step_fn, held.pop(), batches,
                                        arch=arch, tag="train families")
+            profile_s = time.perf_counter() - t0
             print("train families " + json.dumps({
                 "leg": arch, "family": cfg.family, "layers": cfg.n_layers,
                 "published_layers": get_config(arch).n_layers,
@@ -5590,6 +6181,7 @@ def phase_train_families(wrappers):
                 "peak_mem_gb": peak, "flash_sites": sites,
                 "flash_launches_per_step": per_step,
                 "repeat_loss": loss, "repeat_bitwise_equal": True,
+                "repeat_s": repeat_s, "profile_s": profile_s,
                 "device_launches_per_step":
                     prof["device_launches_per_step"],
                 "device_idle_share": prof["device_idle_share"]}))
@@ -5775,7 +6367,10 @@ def main() -> int:
     if sys.argv[1:2] == ["--tp-worker"]:
         return ranks_worker(*sys.argv[2:4], model_axis=int(
             sys.argv[4]) if len(sys.argv) > 4 else TP)
-    with dryrun_process() as dry:
+    with dryrun_process() as dry, \
+            tempfile.TemporaryDirectory(prefix="drim_draws_") as draws, \
+            shared_draws(draws, shared_draw_keys()):
+        os.environ[DRAWS_ENV] = draws
         return run(dry)
 
 
@@ -5785,9 +6380,18 @@ def run(dry) -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     rng = np.random.default_rng(SEED)
     install_verify_tally()
+    walls, t_last = {}, [time.perf_counter()]
+
+    def lap(phase: str) -> None:
+        """The wall seconds since the last lap, as `phase`'s."""
+        now = time.perf_counter()
+        walls[phase] = now - t_last[0]
+        t_last[0] = now
     phase_build()
+    lap("build")
     records = phase_kernels(rng)
     check_ste_product(rng)
+    lap("kernels")
 
     wrappers = kernel_wrappers()
     for fn in wrappers.values():
@@ -5797,9 +6401,12 @@ def run(dry) -> int:
     path_launches = read_counts(wrappers, ("pack_signs", "xnor_gemm",
                                            "aap_interp"), "path")
     verify_line("path", mark)
+    lap("path")
     by_leg = verified_phase("serve", lambda: phase_serve(wrappers))
+    lap("serve")
     by_leg["families"] = verified_phase("families",
                                         lambda: phase_families(wrappers))
+    lap("families")
     by_leg["faults"] = verified_phase("faults",
                                       lambda: phase_faults(wrappers))
     by_leg["bulk"] = verified_phase("bulk", lambda: phase_bulk(wrappers))
@@ -5808,18 +6415,24 @@ def run(dry) -> int:
     by_leg.update(verified_phase("queue", lambda: phase_queue(wrappers)))
     by_leg["verdict"] = verified_phase("verdict",
                                        lambda: phase_verdict(wrappers))
+    lap("faults to verdict")
     by_leg.update(verified_phase("telemetry",
                                  lambda: phase_telemetry(wrappers)))
     by_leg.update(verified_phase("drim", lambda: phase_drim(wrappers)))
     by_leg["collective"] = verified_phase(
         "collective", lambda: phase_collective(wrappers))
+    lap("telemetry to collective")
     by_leg.update(verified_phase("train", lambda: phase_train(wrappers)))
+    lap("train")
     by_leg["ranks"] = phase_ranks(wrappers)
+    lap("ranks")
     # before the tp phase, whose MoE training leg is held to its
     # deepseek-v3 leg's step 1
     by_leg.update(verified_phase(
         "train families", lambda: phase_train_families(wrappers)))
+    lap("train families")
     by_leg["tp"] = phase_tp(wrappers)
+    lap("tp")
     launches = {name: sum(c[name] for c in by_leg.values())
                 for name in wrappers}
     idle = [name for name, n in launches.items() if n <= 0]
@@ -5827,7 +6440,11 @@ def run(dry) -> int:
         raise AssertionError(f"the main paths never launched {idle}")
     check_prefill_reference()
     check_train_reference()
+    lap("check")
     phase_dryrun(*dry)
+    lap("dryrun wait")
+    print("timing " + json.dumps({"phase_wall_s": walls,
+                                  "total_s": sum(walls.values())}))
 
     meta = {
         "pack_signs": ("src/repro_torch/csrc/pack_signs.cu",

@@ -621,42 +621,6 @@ def mesh_barrier(mesh: Mesh) -> None:
 
 # --- the model axis: Megatron's operators ------------------------------------
 
-# what ranks do not run yet, by the ROADMAP item that brings it
-MODEL_AXIS_WAITS = {
-    "families": "ROADMAP Queue 1 item 15.4",   # audio
-    "serving": "ROADMAP Queue 1 item 15.5",    # batcher, microbench, retry
-}
-
-# the families a model axis over ranks runs: the dense trunk (Megatron's
-# cut params) and the vlm on it, the MoE (its experts cut over "model"
-# too), the ssm (replicated params, the sequence cut over "model") and the
-# hybrid (its mixer on cut params, the shared block the dense one's)
-MODEL_AXIS_FAMILIES = ("dense", "vlm", "moe", "ssm", "hybrid")
-
-
-def family_refusal(cfg, where: str) -> Optional[str]:
-    """The one refusal text for a family that ranks cannot run yet
-    (`where`: "under a model axis of 2 ranks", "served over 2 ranks"),
-    naming its ROADMAP item; None for the families they run."""
-    if cfg.family in MODEL_AXIS_FAMILIES:
-        return None
-    return (f"the {cfg.family} family {where} is "
-            f"{MODEL_AXIS_WAITS['families']}")
-
-
-def refuse_family(cfg, mesh: Optional[Mesh] = None) -> None:
-    """ValueError (`family_refusal`) for a family the model axis over
-    ranks cannot run yet; nothing without a model axis over ranks
-    (default: the ambient one, `model_ranks`)."""
-    mesh = model_ranks() if mesh is None else mesh
-    if mesh is None or mesh.shape.get("model", 1) == 1:
-        return
-    said = family_refusal(
-        cfg, f"under a model axis of {mesh.shape['model']} ranks")
-    if said is not None:
-        raise ValueError(said)
-
-
 def model_ranks() -> Optional[Mesh]:
     """The ambient mesh of ranks when its `model` axis holds more than one
     rank (the model code's switch for its cut params), else None."""

@@ -17,6 +17,16 @@ packed into shared waves over a fixed KV-cache slot pool (port of
 The decode function comes from `make_decode_fn`, which `launch.serve`
 uses for its static loop too: the native route for the "gpu" engine, the
 DRIM fleet under `layers.serving_engine` for a registry engine.
+
+Over a mesh of ranks (built inside `with mesh:`) every rank runs the same
+waves in lockstep: the same arrivals, slots and sampling keys.  An
+arriving request's batch-1 prefill runs on every rank with its blocks of
+the params (replicated over the data axes, which do not divide one row);
+only the ranks whose rows hold the slot splice it in
+(`insert_rank_request`: under a model axis at their sequence block of the
+K/V cache, the SSM states on their heads); decode runs each rank's rows
+and gives every rank the whole logits, so every rank books the same
+tokens.
 """
 from __future__ import annotations
 
@@ -27,10 +37,14 @@ from typing import Any, Callable, Deque, Dict, List, Optional
 import numpy as np
 import torch
 
+from repro_torch.core.mesh import (PartitionSpec, ambient_ranks, dp_axes,
+                                   local_block, mesh_all_gather, model_coord,
+                                   model_ranks, sanitize_spec)
 from repro_torch.device import resolve_device
 from repro_torch.models import decode_step, empty_caches, prefill
 from repro_torch.models.layers import serving_engine
 from repro_torch.runtime import telemetry
+from repro_torch.runtime.sharding import _path_str, is_cross_cache
 from repro_torch.tree import tree_map_with_path
 
 NATIVE_ENGINE = "gpu"
@@ -88,7 +102,31 @@ def insert_request(caches, pre_caches, slot: int):
     a None subtree stays None); any leaf that cannot insert raises a
     shape-mismatch error naming the cache path (the hybrid's [G, per,
     batch, ...] groups among them, as in the reference)."""
+    return _insert(caches, pre_caches, slot, lambda path, one: one)
+
+
+def insert_rank_request(caches, pre_caches, slot: int, s_pre: int,
+                        s_ctx: int):
+    """`insert_request` into the local `slot` of this rank's block of the
+    caches: under a model axis over ranks the K/V and MLA latent leaves
+    are the rank's sequence blocks of an `s_pre`-long prefill cache and
+    an `s_ctx`-long decode cache (`sequence_block`), every other leaf its
+    block as it is; `insert_request` itself without one.  Every rank of
+    the slot's model group calls it."""
+    mesh = model_ranks()
+
+    def own(path, one):
+        name = _path_str(path)
+        if mesh is None or is_cross_cache(name) \
+                or name.split("/")[-1] not in ("k", "v", "ckv", "k_rope"):
+            return one
+        return sequence_block(one, s_pre, s_ctx, mesh, 2)
+    return _insert(caches, pre_caches, slot, own)
+
+
+def _insert(caches, pre_caches, slot: int, own):
     def ins(path, full, one):
+        one = own(path, one)
         if (full.dim() != one.dim() or full.dim() < 2 or one.shape[1] != 1
                 or any(o > f for o, f in zip(one.shape, full.shape))):
             raise ValueError(
@@ -103,6 +141,31 @@ def insert_request(caches, pre_caches, slot: int):
         return out
 
     return tree_map_with_path(ins, caches, pre_caches)
+
+
+def sequence_block(pre: torch.Tensor, s_pre: int, s_ctx: int, mesh,
+                   dim: int) -> torch.Tensor:
+    """The prompt positions that this rank's block of an `s_ctx`-long
+    decode cache holds (dim `dim`, a block of s_ctx / |model|, or all of
+    it where the model axis does not divide s_ctx), from its block `pre`
+    of an `s_pre`-long prefill cache (likewise cut, or whole): the
+    prefill's blocks gathered over the model group where they are cut,
+    then the rank's positions, fewer or none past the prompt."""
+    index, m = model_coord(mesh)
+    if s_pre % m == 0:
+        pre = mesh_all_gather(pre, mesh, ("model",), dim)
+    length = s_ctx // m if s_ctx % m == 0 else s_ctx
+    lo = min(index * length if s_ctx % m == 0 else 0, s_pre)
+    return pre.narrow(dim, lo, min(lo + length, s_pre) - lo)
+
+
+def slot_block(n_slots: int, mesh) -> range:
+    """The slots whose rows this rank holds (cut over the data axes as a
+    batch of `n_slots` rows is, or all of them where the axes do not
+    divide it)."""
+    sl = local_block((n_slots,), sanitize_spec(
+        PartitionSpec(dp_axes(mesh)), (n_slots,), mesh), mesh)[0]
+    return range(sl.start, sl.stop)
 
 
 @dataclasses.dataclass
@@ -123,9 +186,11 @@ class WaveBatcher:
     (prefill + zeroed-slot insert), then runs ONE decode step over all
     slots; `run()` loops until every request finished.  The `wave_log`
     records admissions, decoded request ids, per-request positions and
-    occupancy per wave.  The pool lives on `device` (None: the card).
-    The hybrid family's caches nest differently ([G, per, batch, ...]),
-    so it is refused, as the reference refuses it.
+    occupancy per wave.  The pool lives on `device` (None: the card);
+    inside a mesh of ranks it is the rank's block of it (see the module
+    docstring).  The hybrid family's caches nest differently ([G, per,
+    batch, ...]) and the audio family's prefill needs frames, so both are
+    refused, as the reference refuses them.
     """
 
     def __init__(self, cfg, params, *, n_slots: int, ctx_len: int,
@@ -146,6 +211,9 @@ class WaveBatcher:
         self._decode = make_decode_fn(cfg, ctx_len, temperature, engine,
                                       n_queues)
         self.caches = empty_caches(cfg, n_slots, ctx_len, device=self.device)
+        ranks = ambient_ranks()
+        self._slots = (range(n_slots) if ranks is None
+                       else slot_block(n_slots, ranks))
         self.wave = 0
         self.wave_log: List[Dict[str, Any]] = []
         self.results: Dict[int, List[int]] = {}
@@ -190,7 +258,10 @@ class WaveBatcher:
     def _admit(self, req: Request, slot: int) -> None:
         toks = torch.as_tensor(req.prompt, device=self.device)[None, :]
         logits, pre = prefill(self.params, self.cfg, {"tokens": toks})
-        self.caches = insert_request(self.caches, pre, slot)
+        if slot in self._slots:
+            self.caches = insert_rank_request(
+                self.caches, pre, slot - self._slots.start, len(req.prompt),
+                self.ctx_len)
         first = int(sample_tokens(logits, self.temperature, self._key())[0])
         self.results[req.rid].append(first)
         if req.max_new_tokens == 1:

@@ -27,11 +27,11 @@ from typing import Optional, Sequence
 import torch
 import torch.distributed as dist
 
-from repro_torch.core.mesh import MODEL_AXIS_WAITS, Mesh, dp_axes, \
-    make_named_mesh, make_rank_mesh, visible_devices
+from repro_torch.core.mesh import Mesh, dp_axes, make_named_mesh, \
+    make_rank_mesh, visible_devices
 
 __all__ = ["make_named_mesh", "make_production_mesh", "make_host_mesh",
-           "dp_axes", "cli_mesh", "init_ranks", "Ranks", "MODEL_AXIS_WAITS"]
+           "dp_axes", "cli_mesh", "init_ranks", "Ranks"]
 
 
 @dataclasses.dataclass(frozen=True)

@@ -52,19 +52,23 @@ Timing: the first decode step runs UNTIMED as warm-up and is reported as
     under it every MoE prefill takes the expert-parallel dispatch, as the
     reference's default does.  "single" and "multi" are the production
     meshes, which raise ValueError below 256 and 512 devices;
-  * --model-axis K: under torchrun, W ranks serve the dense and MoE
-    families over the (W / K, K) host mesh (`launch.mesh.make_host_mesh(
-    model_axis=K)`): each rank draws and holds only its blocks of the
-    params (packed ones included; the MoE's experts, E / K a rank; the
-    ssm family's whole) and of the sequence-cut KV or MLA latent caches by
-    the reference's specs (the SSM states cut over heads, the conv
-    windows whole), runs its rows of the batch, its heads and its experts
-    (`models`; the ssm family its block of the prompt's sequence), and
-    gets the whole logits, so every rank samples the same tokens; rank 0
-    alone prints the stats line, after every rank's first line
-    (`launch.mesh.init_ranks`).  Over W > 1 ranks the audio family,
-    --continuous, --microbench and --resilient raise ValueError naming
-    their ROADMAP items; K > 1 in one process raises too.  On the CPU:
+  * --model-axis K: under torchrun, W ranks serve every family over the
+    (W / K, K) host mesh (`launch.mesh.make_host_mesh(model_axis=K)`):
+    each rank draws and holds only its blocks of the params (packed ones
+    included; the MoE's experts, E / K a rank; the ssm family's whole)
+    and of the sequence-cut KV or MLA latent caches by the reference's
+    specs (the SSM states cut over heads, the conv windows whole, the
+    audio family's cross cache over heads), runs its rows of the batch,
+    its heads and its experts (`models`; the ssm family its block of the
+    prompt's sequence), and gets the whole logits, so every rank samples
+    the same tokens; rank 0 alone prints the stats line, after every
+    rank's first line (`launch.mesh.init_ranks`).  --continuous,
+    --microbench and --resilient run over the ranks too (every rank the
+    same waves; each stage's time per rank and their maximum; one
+    failure flag a decode attempt gathered over the mesh, so every rank
+    takes the same retry, fallback or abort).  A model axis that does not
+    divide the ranks, or K > 1 in one process, raises ValueError.  On the
+    CPU:
 
       python -m torch.distributed.run --nproc-per-node 2 \\
           -m repro_torch.launch.serve --arch drim-bnn --smoke-config \\
@@ -92,15 +96,15 @@ import torch
 from repro_torch.configs import get_config, get_smoke_config
 from repro_torch.device import resolve_device
 from repro_torch.launch.batching import (NATIVE_ENGINE, WaveBatcher, fold_in,
-                                         make_decode_fn)
-from repro_torch.core.mesh import (family_refusal, local_block,
-                                   mesh_all_gather, model_coord,
-                                   model_ranks)
-from repro_torch.launch.mesh import MODEL_AXIS_WAITS, cli_mesh, init_ranks
+                                         make_decode_fn, sequence_block)
+from repro_torch.core.mesh import (ambient_ranks, local_block,
+                                   mesh_all_gather, model_ranks)
+from repro_torch.launch.mesh import cli_mesh, init_ranks
 from repro_torch.models import decode_step, empty_caches, init_params, prefill
 from repro_torch.models.layers import pack_bitlinear, pack_bitlinear_rows
 from repro_torch.runtime import telemetry
-from repro_torch.runtime.sharding import _path_str, param_pspecs
+from repro_torch.runtime.sharding import (_path_str, is_cross_cache,
+                                         param_pspecs)
 from repro_torch.tree import tree_map_with_path
 
 # config-geometry override flags -> ModelConfig fields (0 = keep)
@@ -196,29 +200,27 @@ def splice_caches(caches, pre_caches):
 
 def splice_rank_caches(caches, pre_caches, s_pre: int, s_ctx: int, mesh):
     """`splice_caches` under a model axis over ranks: the [.., B', S, Hkv,
-    Dh] keys and values (dense, vlm, GQA moe, the hybrid's shared block)
-    and the MLA's [L, B', S, R] latents are the rank's sequence blocks
-    (dim 2) of an `s_pre`-long prefill cache and an `s_ctx`-long decode
-    cache (each whole where the axis does not divide its length), which
-    do not line up; the prefill's are gathered over the model group and
-    the rank copies the prompt positions its decode block holds.  The
-    SSM states (the rank's heads) and conv windows (whole: the last
-    sequence rank's final frames, which prefill hands every rank) have no
-    sequence dim and are the decode caches' blocks as they are."""
-    index, m = model_coord(mesh)
-
+    Dh] keys and values (dense, vlm, GQA moe, the hybrid's shared block,
+    the audio family's self cache) and the MLA's [L, B', S, R] latents are
+    the rank's sequence blocks (dim 2) of an `s_pre`-long prefill cache
+    and an `s_ctx`-long decode cache (each whole where the axis does not
+    divide its length), which do not line up; the prefill's are gathered
+    over the model group and the rank copies the prompt positions its
+    decode block holds (`batching.sequence_block`).  The SSM states (the
+    rank's heads), conv windows (whole: the last sequence rank's final
+    frames, which prefill hands every rank) and the audio family's cross
+    cache (the rank's heads of every frame) have no sequence dim and are
+    the decode caches' blocks as they are."""
     def splice(path, full, pre):
-        if _path_str(path).split("/")[-1] not in ("k", "v", "ckv",
-                                                   "k_rope"):
+        name = _path_str(path)
+        if is_cross_cache(name) or name.split("/")[-1] not in (
+                "k", "v", "ckv", "k_rope"):
             if full.shape != pre.shape:
                 raise ValueError(f"cache splice mismatch at {path}: "
                                  f"{tuple(pre.shape)} is not the block "
                                  f"{tuple(full.shape)}")
             return pre.to(full.dtype)
-        if s_pre % m == 0:
-            pre = mesh_all_gather(pre, mesh, ("model",), 2)
-        lo = index * full.shape[2] if s_ctx % m == 0 else 0
-        own = pre[:, :, lo:min(lo + full.shape[2], s_pre)]
+        own = sequence_block(pre, s_pre, s_ctx, mesh, 2)
         out = full.clone()
         out[:, :, :own.shape[2]] = own.to(full.dtype)
         return out
@@ -302,13 +304,27 @@ def make_resilient_decode(cfg, ctx_len: int, temperature: float,
     on the telemetry registry (``serve.incident:*`` counters, a
     "serve:incident" instant when armed).
 
+    Inside a mesh of ranks every rank must take the same decision, or one
+    would sit in a collective while another retries: each attempt ends
+    with one all-gather of every rank's failure flag over the whole mesh
+    (`state["flag_calls"]`, `state["flag_s"]`: its cost), and a failure on
+    any rank makes every rank book the same incident (its `error` the
+    rank's own exception, or on a rank that did not fail, which ranks
+    did) and retry, fall back or abort together.  The flag is read at the
+    step's end, so a rank's failure must surface there too: a rank that
+    raises inside a step, between the step's own collectives, leaves the
+    other ranks waiting in them.
+
     Returns (decode_fn, state, incidents); `state["engine"]` tracks the
     engine currently serving.  `make_fn(cfg, ctx_len, temperature, engine,
     n_queues)` builds a decode fn (`make_decode_fn`) and `sleep` waits;
     both are injectable so tests drive the failure path with fakes and no
     wall-clock."""
+    mesh = ambient_ranks()
+    if mesh is not None and mesh.ranks.size == 1:
+        mesh = None
     state: Dict[str, Any] = {
-        "engine": engine,
+        "engine": engine, "flag_calls": 0, "flag_s": 0.0,
         "fn": make_fn(cfg, ctx_len, temperature, engine, n_queues)}
     incidents: List[Dict[str, Any]] = []
     clock0 = time.perf_counter()
@@ -319,36 +335,61 @@ def make_resilient_decode(cfg, ctx_len: int, temperature: float,
         telemetry.REGISTRY.counters("serve")[f"incident:{kind}"] += 1
         telemetry.event("serve:incident", cat="serve", tid="serve", **rec)
 
+    def failed_ranks(err) -> List[int]:
+        """The ranks whose attempt raised (this process alone: [0] or
+        [])."""
+        if mesh is None:
+            return [] if err is None else [0]
+        t0 = time.perf_counter()
+        flags = mesh_all_gather(
+            torch.tensor([0 if err is None else 1], dtype=torch.int32,
+                         device=mesh.device), mesh, mesh.axis_names, 0)
+        flags = flags.cpu().tolist()
+        state["flag_calls"] += 1
+        state["flag_s"] += time.perf_counter() - t0
+        order = mesh.ranks.reshape(-1).tolist()
+        return [r for r, f in zip(order, flags) if f]
+
     def dec(*args):
         attempt, delay = 0, backoff_s
         while True:
+            err, out = None, None
             try:
-                return state["fn"](*args)
+                out = state["fn"](*args)
             except Exception as e:  # noqa: BLE001 -- any engine failure
-                rec = {"t_s": round(time.perf_counter() - clock0, 6),
-                       "engine": state["engine"], "attempt": attempt,
-                       "retries": attempt,
-                       "error": f"{type(e).__name__}: {e}"[:200]}
-                attempt += 1
-                if attempt <= max_retries:
-                    rec["action"] = f"retry(backoff={delay:g}s)"
-                    book(rec, "retry")
-                    sleep(delay)
-                    delay *= 2
-                elif state["engine"] != NATIVE_ENGINE:
-                    rec["action"] = f"fallback:{NATIVE_ENGINE}"
-                    rec["fallback_reason"] = (
-                        f"retries exhausted on engine "
-                        f"{state['engine']!r} ({max_retries} retries)")
-                    book(rec, "fallback")
-                    state["engine"] = NATIVE_ENGINE
-                    state["fn"] = make_fn(cfg, ctx_len, temperature,
-                                          NATIVE_ENGINE, n_queues)
-                    attempt, delay = 0, backoff_s
-                else:
-                    rec["action"] = "abort"
-                    book(rec, "abort")
-                    raise
+                err = e
+            failed = failed_ranks(err)
+            if not failed:
+                return out
+            text = (f"{type(err).__name__}: {err}" if err is not None
+                    else f"failed on rank(s) {failed}")
+            rec = {"t_s": round(time.perf_counter() - clock0, 6),
+                   "engine": state["engine"], "attempt": attempt,
+                   "retries": attempt, "error": text[:200]}
+            if mesh is not None:
+                rec["failed_ranks"] = failed
+            attempt += 1
+            if attempt <= max_retries:
+                rec["action"] = f"retry(backoff={delay:g}s)"
+                book(rec, "retry")
+                sleep(delay)
+                delay *= 2
+            elif state["engine"] != NATIVE_ENGINE:
+                rec["action"] = f"fallback:{NATIVE_ENGINE}"
+                rec["fallback_reason"] = (
+                    f"retries exhausted on engine "
+                    f"{state['engine']!r} ({max_retries} retries)")
+                book(rec, "fallback")
+                state["engine"] = NATIVE_ENGINE
+                state["fn"] = make_fn(cfg, ctx_len, temperature,
+                                      NATIVE_ENGINE, n_queues)
+                attempt, delay = 0, backoff_s
+            else:
+                rec["action"] = "abort"
+                book(rec, "abort")
+                if err is not None:
+                    raise err
+                raise RuntimeError(f"decode aborted: {text}")
 
     return dec, state, incidents
 
@@ -420,22 +461,11 @@ def _setup(args, cfg, dev, params=None, tokens=None) -> Dict[str, Any]:
                 logits=logits, caches=caches, prefill_s=t_prefill)
 
 
-def serve_mesh(args, dev, cfg):
-    """The CLI's `--mesh` and `--model-axis` on `dev`.  Over W > 1 ranks
-    the audio family (`core.mesh.family_refusal`), --continuous,
-    --microbench and --resilient raise ValueError naming their ROADMAP
-    items."""
-    mesh = cli_mesh(args.mesh, dev, model_axis=args.model_axis)
-    if mesh.ranks is not None and mesh.ranks.size > 1:
-        n = mesh.ranks.size
-        for flag in ("continuous", "microbench", "resilient"):
-            if getattr(args, flag):
-                raise ValueError(f"--{flag} over {n} ranks is "
-                                 f"{MODEL_AXIS_WAITS['serving']}")
-        said = family_refusal(cfg, f"served over {n} ranks")
-        if said is not None:
-            raise ValueError(said)
-    return mesh
+def serve_mesh(args, dev):
+    """The CLI's `--mesh` and `--model-axis` on `dev` (`cli_mesh`: a model
+    axis that does not divide the ranks, or K > 1 in one process, raises
+    ValueError)."""
+    return cli_mesh(args.mesh, dev, model_axis=args.model_axis)
 
 
 def run_serve(args, *, params=None, tokens=None,
@@ -450,7 +480,7 @@ def run_serve(args, *, params=None, tokens=None,
     `sleep`."""
     dev = resolve_device(args.device)
     cfg = build_cfg(args)
-    with serve_mesh(args, dev, cfg) as mesh:
+    with serve_mesh(args, dev) as mesh:
         if mesh.ranks is not None:
             dev = mesh.device
         return _serve(args, cfg, dev, params, tokens, make_fn, sleep)
@@ -467,7 +497,8 @@ def _serve(args, cfg, dev, params, tokens, make_fn, sleep):
     else:
         dec = make_fn(cfg, st["ctx_len"], args.temperature, args.engine,
                       args.n_queues)
-        eng_state, incidents = {"engine": args.engine}, []
+        eng_state = {"engine": args.engine, "flag_calls": 0}
+        incidents = []
 
     tok = st["logits"][:, -1, :].argmax(-1)[:, None]
     pos0 = torch.full((batch,), prompt_len, dtype=torch.long, device=dev)
@@ -512,6 +543,10 @@ def _serve(args, cfg, dev, params, tokens, make_fn, sleep):
     if args.resilient:
         stats["requested_engine"] = args.engine
         stats["incidents"] = incidents
+        if eng_state["flag_calls"]:
+            stats["failure_flag"] = {
+                "calls": eng_state["flag_calls"], "s": eng_state["flag_s"],
+                "s_per_call": eng_state["flag_s"] / eng_state["flag_calls"]}
     if telemetry.enabled():
         stats["telemetry"] = telemetry.snapshot()
     return gen, stats
@@ -522,10 +557,15 @@ def run_microbench(args) -> Tuple[None, Dict[str, Any]]:
     generate timed separately.  Nothing is compiled ahead here, so each
     stage's `compile_s` is its first call's time (kernel builds, DRIM
     lowerings), reported apart from the steady state of the next calls,
-    as `run_serve` treats its warm-up step."""
+    as `run_serve` treats its warm-up step.  Over ranks each rank draws
+    its blocks of the params, the insert is `splice_rank_caches`, and each
+    stage's figures are this rank's, with every rank's beside them
+    (`per_rank`, in rank order) and their maximum (`max`)."""
     dev = resolve_device(args.device)
     cfg = build_cfg(args)
-    with serve_mesh(args, dev, cfg):
+    with serve_mesh(args, dev) as mesh:
+        if mesh.ranks is not None:
+            dev = mesh.device
         return _microbench(args, cfg, dev)
 
 
@@ -537,6 +577,7 @@ def _microbench(args, cfg, dev) -> Tuple[None, Dict[str, Any]]:
         params = pack_model_params(params)
     batch = model_batch(cfg, torch.as_tensor(_prompts(args, cfg, args.batch),
                                              device=dev).long())
+    mesh = model_ranks()
 
     def timed(fn):
         t0 = time.perf_counter()
@@ -560,8 +601,10 @@ def _microbench(args, cfg, dev) -> Tuple[None, Dict[str, Any]]:
 
     # insert: splice prefill caches into the ctx-length decode caches
     empty = empty_caches(cfg, args.batch, ctx_len, device=dev)
-    caches, ins_first, times = split(lambda: splice_caches(empty,
-                                                           pre_caches))
+    caches, ins_first, times = split(
+        lambda: splice_caches(empty, pre_caches) if mesh is None else
+        splice_rank_caches(empty, pre_caches, args.prompt_len, ctx_len,
+                           mesh))
     insert_stats = {"compile_s": ins_first, "avg_s": float(np.mean(times))}
 
     # generate: steady-state decode steps after one untimed warm-up
@@ -586,12 +629,31 @@ def _microbench(args, cfg, dev) -> Tuple[None, Dict[str, Any]]:
         / max(sum(step_times), 1e-9),
         "p50_ms": p50, "p99_ms": p99}
 
+    split_stats = {"prefill": prefill_stats, "insert": insert_stats,
+                   "generate": generate_stats}
+    ranks = ambient_ranks()
+    if ranks is not None:
+        _every_rank(split_stats, ranks)
     stats = {"arch": cfg.arch, "engine": args.engine, "device": str(dev),
              "packed": bool(args.packed), "batch": args.batch,
-             "microbench": {"prefill": prefill_stats,
-                            "insert": insert_stats,
-                            "generate": generate_stats}}
+             "microbench": split_stats}
     return None, stats
+
+
+def _every_rank(split_stats: Dict[str, Dict[str, float]], mesh) -> None:
+    """Each stage's figures from every rank of `mesh` (one all-gather),
+    added to the stage as `per_rank` {name: [rank 0's, ...]} and `max`."""
+    names = [(stage, k) for stage, fig in split_stats.items() for k in fig]
+    mine = torch.tensor([[split_stats[st][k] for st, k in names]],
+                        dtype=torch.float64, device=mesh.device)
+    every = mesh_all_gather(mine, mesh, mesh.axis_names, 0).cpu()
+    order = np.argsort(mesh.ranks.reshape(-1))
+    every = every[torch.as_tensor(order)]
+    for j, (stage, k) in enumerate(names):
+        fig = split_stats[stage]
+        col = every[:, j].tolist()
+        fig.setdefault("per_rank", {})[k] = col
+        fig.setdefault("max", {})[k] = max(col)
 
 
 def run_continuous(args, *, params=None, prompts=None
@@ -599,10 +661,16 @@ def run_continuous(args, *, params=None, prompts=None
     """Staggered requests through the wave batcher; arrivals join the next
     shared wave, positions and slots tracked per request.  `prompts` (a
     list of 1-D token arrays, any lengths) replaces the --continuous
-    seeded prompts; `params` (dense) the seeded weights."""
+    seeded prompts; `params` (dense) the seeded weights (over ranks the
+    whole tree, of which each rank keeps its blocks).  Over ranks every
+    rank runs the same waves and returns the same results."""
     dev = resolve_device(args.device)
     cfg = build_cfg(args)
-    with serve_mesh(args, dev, cfg):
+    with serve_mesh(args, dev) as mesh:
+        if mesh.ranks is not None:
+            dev = mesh.device
+            if params is not None and model_ranks() is not None:
+                params = place_params(params, mesh, cfg.family)
         return _continuous(args, cfg, dev, params, prompts)
 
 

@@ -29,7 +29,10 @@ whose length the axis does not divide is whole on every rank, which then
 attends with its own heads.  MLA runs on the rank's heads too: `wq_b`,
 `wk_b` and `wv_b` column-parallel over heads, `wo` row-parallel, the
 low-rank down-projections and their norms whole on every rank; its
-decode gathers the sequence-cut latent (`mla_decode`).
+decode gathers the sequence-cut latent (`mla_decode`).  So does the
+cross-attention (`cross_kv`, `cross_attend`): `wq`, `wk` and `wv`
+column-parallel, `wo` row-parallel, and the cross cache holds the rank's
+heads of every frame, so its decode adds no collective but `wo`'s sum.
 """
 from __future__ import annotations
 
@@ -445,19 +448,47 @@ def cross_init(gen: torch.Generator, cfg, *, dtype=torch.float32) -> Params:
             "wo": dense_init(gen, h * dh, d, dtype=dtype)}
 
 
+def cross_heads(cfg, mesh) -> Tuple[int, int]:
+    """(lo, hi): the heads a rank's cross-attention runs, all of them
+    without a model axis over ranks (`mesh` None), else the rank's H /
+    |model| (ValueError where they do not divide)."""
+    if mesh is None:
+        return 0, cfg.n_heads
+    index, m = model_coord(mesh)
+    if cfg.n_heads % m:
+        raise ValueError(f"{cfg.n_heads} heads do not divide a model axis "
+                         f"of {m}")
+    return index * cfg.n_heads // m, (index + 1) * cfg.n_heads // m
+
+
 def cross_kv(p: Params, cfg, enc: torch.Tensor) -> Dict:
+    """The cross cache {"k", "v": [B, S_enc, H', Dh]} of the encoder's
+    output: every head, or under a model axis over ranks the rank's
+    (`wk`, `wv` column-parallel over every frame, `enc` through
+    `copy_to_model`: each rank reads all of it for its heads)."""
     b, se, _ = enc.shape
-    h, dh = cfg.n_heads, cfg.d_head
-    return {"k": dense(p["wk"], enc).reshape(b, se, h, dh),
-            "v": dense(p["wv"], enc).reshape(b, se, h, dh)}
+    dh = cfg.d_head
+    mesh = model_ranks()
+    lo, hi = cross_heads(cfg, mesh)
+    if mesh is not None:
+        enc = copy_to_model(enc, mesh)
+    width = cfg.n_heads * dh
+    return {n: linear_col(p[w], enc, width, lo * dh, hi * dh)
+            .reshape(b, se, hi - lo, dh) for n, w in (("k", "wk"),
+                                                       ("v", "wv"))}
 
 
 def cross_attend(p: Params, cfg, x: torch.Tensor, kv: Dict) -> torch.Tensor:
-    """x [B,Sq,D] against every encoder position (no mask, no rope)."""
+    """x [B,Sq,D] against every encoder position (no mask, no rope); under
+    a model axis over ranks on the rank's heads of `kv` (`wq`
+    column-parallel, the caller's x through `copy_to_model`, `wo`
+    row-parallel: the one collective, at prefill and decode alike)."""
     b, sq, _ = x.shape
-    h, dh = cfg.n_heads, cfg.d_head
-    q = dense(p["wq"], x).reshape(b, sq, h, dh)
+    dh = cfg.d_head
+    lo, hi = cross_heads(cfg, model_ranks())
+    q = linear_col(p["wq"], x, cfg.n_heads * dh, lo * dh, hi * dh) \
+        .reshape(b, sq, hi - lo, dh)
     mask = torch.ones(1, sq, kv["k"].shape[1], dtype=torch.bool,
                       device=x.device)
     out = _sdpa(q, kv["k"], kv["v"], mask, 1)
-    return dense(p["wo"], out.reshape(b, sq, -1))
+    return _out(p, cfg, out.reshape(b, sq, -1))

@@ -24,8 +24,11 @@ latent whole on every rank) and its FFN expert-parallel over the group
 (`moe.moe_ffn`).  The ssm block of the ssm family takes the rank's block
 of a residual cut over the sequence (`seq_cut`, the reference's `_sp`:
 its params replicated); the hybrid's keeps the residual whole and runs
-its mixer on cut params (`ssm.ssm_mix`).  The audio blocks raise
-ValueError there, naming their ROADMAP item.
+its mixer on cut params (`ssm.ssm_mix`).  The audio blocks are the dense
+block's pieces on the same cut: the encoder's bidirectional attention on
+the rank's heads, and in the decoder block (xdec) the self-attention,
+the cross-attention over the rank's heads of every frame and the MLP,
+each behind `_normed`.
 `aux` holds the auxiliary losses a block adds to the training loss;
 only the MoE block sets them (routing), the others return `ZERO_AUX`.  The reference's `_sp` (a sequence-parallel
 sharding constraint on the residual stream) is the identity on one card
@@ -37,13 +40,12 @@ from typing import Dict, Tuple
 
 import torch
 
-from repro_torch.core.mesh import copy_to_model, model_ranks, \
-    refuse_family
+from repro_torch.core.mesh import copy_to_model, model_ranks
 from repro_torch.models import attention as attn
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import ssm as ssm_mod
-from repro_torch.models.layers import Params, linear, mlp, mlp_init, \
-    rmsnorm, rmsnorm_init
+from repro_torch.models.layers import Params, mlp, mlp_init, rmsnorm, \
+    rmsnorm_init
 
 # the auxiliary losses a block may add to the training loss (MoE routing)
 ZERO_AUX = {"load_balance": 0.0, "router_z": 0.0}
@@ -71,32 +73,33 @@ def _normed(norm: Params, x):
 
 def dense_block(p: Params, cfg, x, positions, *, window: int = 0,
                 causal: bool = True) -> Tuple[torch.Tensor, Dict, Dict]:
-    refuse_family(cfg)
     if causal:
         a, cache = attn.gqa_attend(p["attn"], cfg,
                                    _normed(p["attn_norm"], x), positions,
                                    window)
     else:                   # the encoder: full bidirectional attention
-        a, cache = _bidir_attend(p["attn"], cfg, rmsnorm(p["attn_norm"], x),
-                                 positions)
+        a, cache = _bidir_attend(p["attn"], cfg,
+                                 _normed(p["attn_norm"], x), positions)
     x = x + a
     x = x + mlp(p["mlp"], _normed(p["mlp_norm"], x), cfg.d_ff)
     return x, cache, ZERO_AUX
 
 
 def _bidir_attend(p: Params, cfg, x, positions):
+    """The encoder's attention over every position, on dense scores (the
+    reference's: the encoder calls no Pallas kernel), on the rank's heads
+    under a model axis over ranks."""
     b, s, _ = x.shape
     q, k, v = attn._qkv(p, cfg, x, positions)
     mask = torch.ones(1, s, s, dtype=torch.bool, device=x.device)
-    out = attn._sdpa(q, k, v, mask, cfg.n_heads // cfg.n_kv_heads)
-    return linear(p["wo"], out.reshape(b, s, -1)), {"k": k, "v": v}
+    out = attn._sdpa(q, k, v, mask, q.shape[2] // k.shape[2])
+    return attn._out(p, cfg, out.reshape(b, s, -1)), {"k": k, "v": v}
 
 
 def dense_block_decode(p: Params, cfg, x, cache, pos, *, window: int = 0,
                        ctx_len: int = 0) -> Tuple[torch.Tensor, Dict]:
     """`ctx_len`: the cache's whole length, which a model axis over ranks
     needs to tell a sequence-cut cache from a whole one."""
-    refuse_family(cfg)
     a, cache = attn.gqa_decode(p["attn"], cfg, _normed(p["attn_norm"], x),
                                cache, pos, window, ctx_len)
     x = x + a
@@ -182,26 +185,26 @@ def xdec_block_init(gen: torch.Generator, cfg, *, dtype=torch.float32
 
 def xdec_block(p: Params, cfg, x, positions, enc, *, window: int = 0
                ) -> Tuple[torch.Tensor, Dict, Dict]:
-    refuse_family(cfg)
     a, self_cache = attn.gqa_attend(p["self"], cfg,
-                                    rmsnorm(p["self_norm"], x), positions,
+                                    _normed(p["self_norm"], x), positions,
                                     window)
     x = x + a
     xkv = attn.cross_kv(p["cross"], cfg, enc)
-    x = x + attn.cross_attend(p["cross"], cfg, rmsnorm(p["cross_norm"], x),
+    x = x + attn.cross_attend(p["cross"], cfg, _normed(p["cross_norm"], x),
                               xkv)
-    x = x + mlp(p["mlp"], rmsnorm(p["mlp_norm"], x))
+    x = x + mlp(p["mlp"], _normed(p["mlp_norm"], x), cfg.d_ff)
     return x, {"self": self_cache, "cross": xkv}, ZERO_AUX
 
 
-def xdec_block_decode(p: Params, cfg, x, cache, pos, *, window: int = 0
-                      ) -> Tuple[torch.Tensor, Dict]:
-    refuse_family(cfg)
+def xdec_block_decode(p: Params, cfg, x, cache, pos, *, window: int = 0,
+                      ctx_len: int = 0) -> Tuple[torch.Tensor, Dict]:
+    """`ctx_len`: the self cache's whole length (`dense_block_decode`);
+    the cross cache is the rank's heads of every frame."""
     a, self_cache = attn.gqa_decode(p["self"], cfg,
-                                    rmsnorm(p["self_norm"], x),
-                                    cache["self"], pos, window)
+                                    _normed(p["self_norm"], x),
+                                    cache["self"], pos, window, ctx_len)
     x = x + a
-    x = x + attn.cross_attend(p["cross"], cfg, rmsnorm(p["cross_norm"], x),
+    x = x + attn.cross_attend(p["cross"], cfg, _normed(p["cross_norm"], x),
                               cache["cross"])
-    x = x + mlp(p["mlp"], rmsnorm(p["mlp_norm"], x))
+    x = x + mlp(p["mlp"], _normed(p["mlp_norm"], x), cfg.d_ff)
     return x, {"self": self_cache, "cross": cache["cross"]}

@@ -41,9 +41,8 @@ training, `cfg.remat` wraps each layer (the hybrid: each group) in
 runs the flash forward kernel twice per layer.  The blocks' auxiliary
 losses (MoE routing) are summed over the layers into `train_loss`.
 
-Under a `model` axis over ranks (`core.mesh.model_ranks`; the dense, vlm,
-moe, ssm and hybrid families, audio raises naming its ROADMAP item) the
-embedding is a vocab-parallel lookup, the head's logits are the rank's
+Under a `model` axis over ranks (`core.mesh.model_ranks`; every family)
+the embedding is a vocab-parallel lookup, the head's logits are the rank's
 vocabulary block (the pad mask at the global column), and `train_loss` is
 the vocab-parallel cross-entropy: the row max by a MAX all-reduce, the
 sum of exps and the target logit (from the rank that holds it) by sums
@@ -52,16 +51,21 @@ are replicated (`runtime.sharding.param_pspecs`): its residual is cut
 over the sequence after the embedding (where the axis divides S), each
 rank takes the whole vocabulary's logits and cross-entropy on its own
 positions, and the cross-entropy's sum and token count are summed over
-the model group as well as the data group.  Over ranks `prefill` and
-`decode_step` take the global batch, run the rank's rows (cut over the
-data axes) and return the whole [B, 1, V] logits on every rank (the last
-position gathered), so every rank samples the same token; their caches
-are the rank's blocks of `runtime.sharding.rank_cache_pspecs` (K/V and
-latents cut over the sequence: prefill re-lays its head-cut K/V, and
-cuts the MLA latent that every rank holds whole, into them; SSM states
-cut over heads, conv windows whole), and `empty_caches` gives those
-blocks.  `init_params` there draws only the rank's blocks of the
-params.
+the model group as well as the data group.  The audio family's encoder
+and decoder run on the rank's heads (the dense cut; the cross-attention's
+`wq`, `wk`, `wv` column-parallel and `wo` row-parallel).  Over ranks
+`prefill` and `decode_step` take the global batch (its every tensor, the
+audio frames too), run the rank's rows (cut over the data axes, or every
+row where the data axes do not divide the batch, as `sanitize_spec`
+leaves it: a batch-1 prefill) and return the whole [B, 1, V] logits on
+every rank (the last position gathered), so every rank samples the same
+token; their caches are the rank's blocks of
+`runtime.sharding.rank_cache_pspecs` (K/V and latents cut over the
+sequence: prefill re-lays its head-cut K/V, and cuts the MLA latent that
+every rank holds whole, into them; SSM states cut over heads, conv
+windows whole; the cross cache the rank's heads of every frame), and
+`empty_caches` gives those blocks.  `init_params` there draws only the
+rank's blocks of the params.
 """
 from __future__ import annotations
 
@@ -79,15 +83,15 @@ from repro_torch.core.mesh import (PartitionSpec, ambient_mesh,
                                    local_block, local_shape, mesh_all_gather,
                                    mesh_max, mesh_sum, model_coord,
                                    model_ranks, reduce_from_model,
-                                   refuse_family, vocab_lookup)
+                                   sanitize_spec, vocab_lookup)
 from repro_torch.device import resolve_device
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import blocks as B
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.moe import ExpertBank
 from repro_torch.models.layers import Params, part_of, rmsnorm, rmsnorm_init
-from repro_torch.runtime.sharding import (_path_str, param_ranks,
-                                         sequence_parallel)
+from repro_torch.runtime.sharding import (_path_str, is_cross_cache,
+                                         param_ranks, sequence_parallel)
 from repro_torch.tree import (tree_leaves, tree_map, tree_map_with_path,
                              tree_slice, tree_stack, tree_unstack)
 
@@ -414,16 +418,25 @@ def _vocab_parallel_ce(logits: torch.Tensor, labels: torch.Tensor, lo: int,
     return top + torch.log(sumexp) - reduce_from_model(picked, mesh)
 
 
+def _row_spec(n: int, mesh) -> PartitionSpec:
+    """The spec of a global batch of `n` rows: cut over the data axes, or
+    replicated where they do not divide it (`sanitize_spec`)."""
+    return sanitize_spec(PartitionSpec(dp_axes(mesh)), (n,), mesh)
+
+
 def _rows(t: torch.Tensor, mesh) -> torch.Tensor:
     """This rank's rows of a global batch tensor (cut over the data
-    axes, contiguous in rank order)."""
-    return t[local_block((t.shape[0],), PartitionSpec(dp_axes(mesh)),
+    axes, contiguous in rank order; all of them where the axes do not
+    divide the batch)."""
+    return t[local_block((t.shape[0],), _row_spec(t.shape[0], mesh),
                          mesh)[0]]
 
 
-def _whole_rows(t: torch.Tensor, mesh) -> torch.Tensor:
-    """The global batch's rows from every data rank's (`_rows`'
+def _whole_rows(t: torch.Tensor, n: int, mesh) -> torch.Tensor:
+    """The global batch's `n` rows from every data rank's (`_rows`'
     inverse)."""
+    if _row_spec(n, mesh) == PartitionSpec():
+        return t
     return mesh_all_gather(t, mesh, dp_axes(mesh), 0)
 
 
@@ -463,7 +476,6 @@ def _run_layers(p_layers, n: int, cfg, block_fn, x, positions, window, *,
 
 
 def _forward_full(p, cfg, batch: Dict[str, Any], *, with_cache: bool):
-    refuse_family(cfg)
     tokens = batch["tokens"]
     bsz, s = tokens.shape
     positions = torch.arange(s, device=tokens.device)[None, :] \
@@ -598,6 +610,7 @@ def prefill(params, cfg, batch: Dict[str, Any]) -> Tuple[torch.Tensor, Any]:
     {"self", "cross"}).  Over ranks: the rank's rows run, the logits
     come back whole, the caches as the rank's `cache_pspecs` blocks."""
     ranks = ambient_ranks()
+    n = batch["tokens"].shape[0]
     if ranks is not None:
         batch = {k: _rows(v, ranks) for k, v in batch.items()}
     x, _, caches = _forward_full(params, cfg, batch, with_cache=True)
@@ -611,18 +624,21 @@ def prefill(params, cfg, batch: Dict[str, Any]) -> Tuple[torch.Tensor, Any]:
         return logits, caches
     if tp is not None:
         caches = _rank_caches(cfg, caches, tp)
-    return _whole_rows(logits, ranks), caches
+    return _whole_rows(logits, n, ranks), caches
 
 
 def _rank_caches(cfg, caches, mesh):
     """The rank's `rank_cache_pspecs` blocks of a prefill's caches, which
     hold the rank's rows: keys and values cut over the sequence
     (`_sequence_cut`), likewise the MLA latents, the SSM states cut over
-    heads where the axis divides them, the conv windows whole."""
+    heads where the axis divides them, the conv windows whole, the cross
+    cache as it is (the rank's heads)."""
     index, m = model_coord(mesh)
 
     def one(path, t):
         name = _path_str(path).split("/")[-1]
+        if is_cross_cache(_path_str(path)):
+            return t
         if name in ("k", "v", "ckv", "k_rope"):
             return _sequence_cut(cfg, t, mesh, heads=name in ("k", "v"))
         if name == "state" and t.shape[-3] % m == 0:
@@ -661,12 +677,11 @@ def decode_step(params, cfg, tokens: torch.Tensor, caches, pos: torch.Tensor,
     if ranks is not None:
         logits, caches = _decode(params, cfg, _rows(tokens, ranks), caches,
                                  _rows(pos, ranks), ctx_len)
-        return _whole_rows(logits, ranks), caches
+        return _whole_rows(logits, tokens.shape[0], ranks), caches
     return _decode(params, cfg, tokens, caches, pos, ctx_len)
 
 
 def _decode(params, cfg, tokens, caches, pos, ctx_len):
-    refuse_family(cfg)
     window = _window_for(cfg, ctx_len)
     x = _embed(params, cfg, tokens, {})
     kw = {"ctx_len": ctx_len} if model_ranks() is not None else {}
@@ -728,7 +743,6 @@ def empty_caches(cfg, batch: int, s_max: int, dtype=torch.bfloat16,
     if ranks is None:
         return _empty_caches(cfg, batch, s_max, dtype,
                              resolve_device(device))
-    refuse_family(cfg)
     from repro_torch.runtime.sharding import rank_cache_pspecs
     whole = abstract_caches(cfg, batch, s_max, dtype)
     return tree_map(lambda t, spec: torch.zeros(

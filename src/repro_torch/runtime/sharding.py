@@ -217,17 +217,26 @@ def cache_pspecs(mesh: Mesh, caches):
 
 def rank_cache_pspecs(mesh: Mesh, caches):
     """The caches' specs as a mesh of ranks holds them, a block a rank:
-    `cache_pspecs`, but for the MLA latent and the SSM conv windows.  The
-    reference's name test sends "ckv" and "conv" down its k/v branch, so
-    on the stacked [L, B, S, R] latent and [L, B, K-1, C] window its spec
-    cuts L over the data axes and B over "model", which GSPMD reshards to
-    whatever each step needs; a rank holds only its block, and prefill
-    and decode run on its rows, so the latent takes the branch written
-    for it, as "k_rope" does (B over the data axes, S over "model"), and
-    the conv window is cut over B alone: its channels' cut over "model"
-    (the conv branch's) does not fall on the state's heads, and each
-    rank's decode step reads the B and C channels every head shares.
-    The SSM states keep the reference's cut (heads over "model")."""
+    `cache_pspecs`, but for the MLA latent, the SSM conv windows and the
+    audio family's cross cache.  The reference's name test sends "ckv"
+    and "conv" down its k/v branch, so on the stacked [L, B, S, R] latent
+    and [L, B, K-1, C] window its spec cuts L over the data axes and B
+    over "model", which GSPMD reshards to whatever each step needs; a
+    rank holds only its block, and prefill and decode run on its rows, so
+    the latent takes the branch written for it, as "k_rope" does (B over
+    the data axes, S over "model"), and the conv window is cut over B
+    alone: its channels' cut over "model" (the conv branch's) does not
+    fall on the state's heads, and each rank's decode step reads the B
+    and C channels every head shares.  The SSM states keep the
+    reference's cut (heads over "model").  The cross cache's "cross/k"
+    and "cross/v" [L, B, S_enc, H, Dh] take the reference's k/v branch,
+    which cuts the frames over "model"; a rank whose `wk` and `wv` are
+    column-cut computes its heads of every frame, and a frame cut would
+    cost an all-to-all a layer at prefill and a q gather and a merged
+    softmax a layer at decode (about 72 more collectives a decode step
+    for whisper-medium), so over ranks it is cut over its heads (B over
+    the data axes, H over "model"): a rank's bytes are still 1 / |model|
+    of them."""
     def spec(path, leaf):
         name = _path_str(path)
         lead = (None,) * (_ndim(leaf) - 3)
@@ -235,10 +244,19 @@ def rank_cache_pspecs(mesh: Mesh, caches):
             want = P(*lead, dp_axes(mesh), "model", None)
         elif name.endswith("conv"):
             want = P(*lead, dp_axes(mesh), None, None)
+        elif is_cross_cache(name):
+            want = P(*lead[1:], dp_axes(mesh), None, "model", None)
         else:
             want = cache_spec(path, leaf, mesh)
         return sanitize_spec(want, tuple(leaf.shape), mesh)
     return tree_map_with_path(spec, caches)
+
+
+def is_cross_cache(name: str) -> bool:
+    """Whether the cache leaf at `name` (the "a/b/c" form) is the audio
+    family's cross cache, which holds heads of every frame rather than
+    positions of the decoded sequence."""
+    return name.startswith("cross/") or "/cross/" in name
 
 
 def activation_spec(mesh: Mesh) -> P:

@@ -251,10 +251,10 @@ def scenario_train(out):
 
 
 def scenario_refusals(out):
-    """What ranks still refuse: the audio family served over the world's
-    meshes and trained under a model axis (ROADMAP item 15.4), and the
-    batcher, the microbenchmark and the retrying decode over ranks for
-    the newly served families (item 15.5)."""
+    """What ranks refused until they ran it: the audio family served over
+    the world's meshes and trained under a model axis, and the batcher,
+    the microbenchmark and the retrying decode over ranks for the hybrid
+    (the batcher refusing the hybrid there as in one process)."""
     said = {}
     whisper = ["--arch", "whisper-medium", *SERVE_ARGV, "--device", "cpu"]
     calls = {("audio train", 2): lambda: train.main(
@@ -269,9 +269,10 @@ def scenario_refusals(out):
              "--model-axis", "2", *flag])
     for key, call in calls.items():
         try:
-            said[key] = ("ran", call())
-        except ValueError as err:
-            said[key] = str(err)
+            with float32_serving(serve):
+                said[key] = ("ran", call())
+        except (ValueError, NotImplementedError) as err:
+            said[key] = ("raised", str(err))
     return said
 
 
@@ -555,13 +556,27 @@ def test_two_rank_checkpoint_restores_in_one_process(world2, tmp):
 
 def test_ranks_still_refuse_the_audio_family_and_the_batcher(world2):
     """whisper-medium under a model axis and served over 2 ranks ((1, 2)
-    and the (2, 1) data mesh) raises ValueError naming ROADMAP item 15.4;
-    --continuous, --microbench and --resilient over ranks name item 15.5
-    for the hybrid too."""
+    and the (2, 1) data mesh) runs, with one process's tokens; over
+    ranks the hybrid runs --microbench and --resilient (one process's
+    tokens), and the batcher refuses it as in one process (float32
+    activations throughout)."""
+    whisper = ["--arch", "whisper-medium", *SERVE_ARGV, "--device", "cpu"]
+    hybrid = ["--arch", HYBRID, *SERVE_ARGV, "--device", "cpu"]
+    with float32_serving(serve):
+        one_whisper = serve.main(whisper)
+        one_hybrid = serve.main(hybrid)
+        with pytest.raises(NotImplementedError) as refused:
+            serve.main(hybrid + ["--continuous", "2"])
     for r in range(2):
         said = result(world2, "refusals", r)
-        for key in (("audio train", 2), ("audio serve", 2),
-                    ("audio serve", 1)):
-            assert "15.4" in said[key] and "audio" in said[key], key
-        for flag in ("--continuous", "--microbench", "--resilient"):
-            assert "15.5" in said[(flag, 2)] and flag in said[(flag, 2)]
+        kind, loss = said[("audio train", 2)]
+        assert kind == "ran" and np.isfinite(loss)
+        for k in (2, 1):
+            kind, gen = said[("audio serve", k)]
+            assert kind == "ran"
+            np.testing.assert_array_equal(gen, one_whisper)
+        assert said[("--continuous", 2)] == ("raised", str(refused.value))
+        assert said[("--microbench", 2)] == ("ran", None)
+        kind, gen = said[("--resilient", 2)]
+        assert kind == "ran"
+        np.testing.assert_array_equal(gen, one_hybrid)

@@ -677,17 +677,22 @@ def test_decode_cache_blocks_follow_the_specs(m, world2, world4):
 
 
 def test_refusals(world2):
-    """The MoE family runs under a model axis (served and trained); the
-    audio family, a model axis that does not divide the ranks, and
-    --continuous over ranks raise ValueError naming their ROADMAP items;
-    K > 1 in one process raises too."""
+    """The MoE and audio families run under a model axis (served and
+    trained), and so does --continuous over ranks, with one process's
+    request tokens; a model axis that does not divide the ranks raises
+    ValueError, and so does K > 1 in one process."""
     said = result(world2, "refusals")
     assert said["moe"] == ("ran", (4, 16))
     assert said["moe_train"][0] == "ran" \
         and np.isfinite(said["moe_train"][1])
-    assert "15.4" in said["audio"] and "audio" in said["audio"]
+    assert said["audio"][0] == "ran" and np.isfinite(said["audio"][1])
     assert "does not divide 2 ranks" in said["divide"]
-    assert "15.5" in said["continuous"]
+    assert said["continuous"][0] == "ran"
+    want = serve.main(SERVE_ARGS + ["--continuous", "2"])
+    got = said["continuous"][1]
+    assert sorted(got) == sorted(want) == [0, 1]
+    for rid in want:
+        np.testing.assert_array_equal(got[rid], want[rid])
     with pytest.raises(ValueError, match="process per position"):
         host_mesh(2)
 
