@@ -367,7 +367,20 @@ Phases, each fatal on failure:
                 third call (`failing_make_fn`): both ranks book retry,
                 retry, fallback alike and give the tokens of the run with
                 no failure; each rank's launches those of the same leg in
-                one process.  The worker's non-MoE legs read the trees
+                one process.  Then the uneven-heads legs (UNEVEN_CUT):
+                qwen3-14b's smoke config in float32 with 5 heads over 1
+                KV head over (1, 2), 2.5 heads a rank, trained 2 steps
+                (`train.main`) and served (`serve.run_serve`) through
+                the flash forward and both backward kernels, held to the
+                same legs in one process (UNEVEN_LOSS_TOL,
+                UNEVEN_LOGIT_TOL; a planted shift of rank 1's wo columns
+                past the logit bound), launches exact, each leg within
+                UNEVEN_WALL_S.  Every training
+                step of the worker's drim-bnn leg and of the ranks
+                phase's, and every decode step of whisper's (1, 2) leg,
+                keeps its own collective calls and bytes by axis, which
+                the dryrun phase holds to the dry-run's rank trace.
+                The worker's non-MoE legs read the trees
                 the parent drew for the same seed and config from a
                 temporary directory and keep their blocks
                 (`shared_draws`).  With 2 or
@@ -417,8 +430,12 @@ Phases, each fatal on failure:
                 phase 12b per step the flash forward twice per GQA site
                 and each backward kernel once per site (mamba2 and
                 deepseek-v3 none, zamba2 6 sites, whisper 24, llava 2),
-                and its repeat legs two steps' worth; a counter a leg
-                does not name must stay 0; and
+                and its repeat legs two steps' worth, the uneven-heads
+                legs (in one process and in each rank) a forward a layer
+                at the served prefill (and the decode's launches, none)
+                and per training step twice a layer and each backward
+                kernel once a layer; a counter a leg does not
+                name must stay 0; and
                 each of these legs, and each of phases 3 to 12 as a
                 whole, prints a "verify" line (the verify passes its
                 lowerings ran: programs, clean, failed, wall seconds),
@@ -432,12 +449,23 @@ Phases, each fatal on failure:
                 whisper-medium and llava-next-34b, each within its
                 family's bound (TRAIN_REF_TOL), which the card's
                 gradient with its largest leaf zeroed must fail;
- 15. dryrun -- `launch.dryrun.main(["--all", "--out", <a temporary
+ 15. dryrun -- first the dry-run's rank trace (`launch.dryrun.
+                rank_trace`, a fake process group on meta tensors) of the
+                legs RANK_LEGS names, as each of their 2 ranks, then
+                `launch.dryrun.main(["--all", "--out", <a temporary
                 file>])`, started in a process of its own on the host
                 (no card visible to it) before phase 1 and read last:
-                every cell of `all_cells()` with status "ok", each cell's
-                per-device argument bytes and whether they fit the card,
-                and the run's wall time ("dryrun" lines).
+                every cell of `all_cells()` with status "ok" and the
+                fields of its rank trace as rank 0 of the production
+                mesh, each cell's per-device argument bytes and whether
+                they fit the card, rank 0's collective calls and payload
+                bytes a step by axis and its wire bytes by kind, and the
+                run's wall time ("dryrun" lines); then each leg's
+                predicted calls and payload bytes a step by axis equal,
+                rank for rank, to every step the ranks and tp phases
+                measured ("dryrun ranks" lines): drim-bnn's TRAIN step
+                over (1, 2) and (2, 1), whisper-medium's decode step over
+                (1, 2).
 
 Prints the kernels' JSON line (the packer's entry also under "served" at
 its decode [4, 768] bfloat16 and [3072, 768] float32 weight shapes), the
@@ -4011,11 +4039,13 @@ def ranks_worker(out: str, kind: str, model_axis: int = 1) -> int:
     MoE training leg (`tp_moe_train_leg`), -> OUT/rank<r>_moe.pt; over a
     model axis and gloo, then the ssm, hybrid, vlm and audio legs
     (`tp_family_serve_legs`, `tp_family_train_legs`) ->
-    OUT/rank<r>_families.pt, and the serving modes (`tp_mode_legs`) ->
-    OUT/rank<r>_modes.pt.  Each
+    OUT/rank<r>_families.pt, the serving modes (`tp_mode_legs`) ->
+    OUT/rank<r>_modes.pt and the uneven-heads legs (`uneven_legs`) ->
+    OUT/rank<r>_uneven.pt.  Each
     training leg's launches, collective calls, bytes and seconds in all
     and by axis (apart from the checkpoint's gathers), peak bytes and
-    printed lines go to OUT/rank<r>_<leg>.json."""
+    printed lines, and each step's collectives (`trainer_spy`) go to
+    OUT/rank<r>_<leg>.json."""
     import shutil
     from repro_torch.core import mesh as core_mesh
     from repro_torch.launch import train
@@ -4071,6 +4101,8 @@ def ranks_worker(out: str, kind: str, model_axis: int = 1) -> int:
             del fam
             torch.save(tp_mode_legs(ranks, wrappers),
                        os.path.join(out, f"rank{ranks.rank}_modes.pt"))
+            torch.save(uneven_legs(wrappers, model_axis),
+                       os.path.join(out, f"rank{ranks.rank}_uneven.pt"))
     finally:
         draws.close()
         ranks.close()
@@ -4228,8 +4260,9 @@ def tp_family_serve_legs(ranks, wrappers) -> dict:
     --model-axis K`, under `float32_numerics` where the leg says): each
     leg's tokens, prefill logits and top-two gaps (`tap_values`),
     launches (zeroed just before), the rank's param and decode cache
-    bytes, the collective calls, bytes and seconds of the prefill and of
-    the whole leg, peak GB and wall s.  An arch served by more than one
+    bytes, the collective calls, bytes and seconds of the prefill, of
+    each decode call ("decode_collectives") and of the whole leg, peak GB
+    and wall s.  An arch served by more than one
     leg at one depth is drawn whole once (`init_params` of the seed, the
     draw each leg would make) and handed to each leg, which keeps its
     blocks.  Right after the timed prefill, untimed: a float32 leg runs
@@ -4241,11 +4274,24 @@ def tp_family_serve_legs(ranks, wrappers) -> dict:
     the leg's.  Returns {(arch, layers, K, float32): record}."""
     from repro_torch.core import mesh as core_mesh
     from repro_torch.launch import serve
+    from repro_torch.launch.batching import make_decode_fn
     from repro_torch.models import init_params
     from repro_torch.tree import tree_leaves
 
     def nbytes(tree):
         return sum(t.numel() * t.element_size() for t in tree_leaves(tree))
+
+    def counted_decode(*a, **kw):
+        """`make_decode_fn` whose every call's collectives are kept
+        ("decode_collectives")."""
+        dec = make_decode_fn(*a, **kw)
+
+        def run(*args):
+            before = dict(core_mesh.COLLECTIVE_STATS)
+            out = dec(*args)
+            decodes.append(collective_since(before))
+            return out
+        return run
     legs_of = {}
     for arch, layers, *_ in TP_FAMILY_SERVE:
         legs_of[(arch, layers)] = legs_of.get((arch, layers), 0) + 1
@@ -4261,6 +4307,7 @@ def tp_family_serve_legs(ranks, wrappers) -> dict:
                     SEED, serve.build_cfg(args), device=ranks.device)
             given = shared[(arch, layers)]
         caches, at_prefill, used, planted = [], [], {}, {}
+        decodes = []
         inner = {n: getattr(serve, n) for n in
                  ("prefill", "splice_caches", "splice_rank_caches")}
 
@@ -4313,7 +4360,8 @@ def tp_family_serve_legs(ranks, wrappers) -> dict:
         serve.splice_rank_caches = spy_splice("splice_rank_caches")
         try:
             with float32_numerics(f32), logits_tap() as tap:
-                gen, stats = serve.run_serve(args, params=given)
+                gen, stats = serve.run_serve(args, params=given,
+                                             make_fn=counted_decode)
         finally:
             for n, fn in inner.items():
                 setattr(serve, n, fn)
@@ -4332,6 +4380,7 @@ def tp_family_serve_legs(ranks, wrappers) -> dict:
             "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
             "param_bytes": used["bytes"], "cache_bytes": nbytes(caches[0]),
             "collective": coll, "prefill_collective": at_prefill[0],
+            "decode_collectives": decodes,
             "planted_prefill": planted.get("prefill"),
             "frames_prefill": planted.get("frames_prefill")}
         del caches, tap, used
@@ -4598,6 +4647,7 @@ def train_leg(ranks, wrappers, argv, plant, **cut):
         "wall_s": time.perf_counter() - t0,
         "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
         "losses": seen["losses"],
+        "step_collectives": seen["step_collectives"],
         "lines": [json.loads(line) for line in text.getvalue().splitlines()
                   if line.startswith("{")]}
     return record, seen
@@ -4706,6 +4756,8 @@ def phase_ranks(wrappers):
         gaps = loss_gaps(straight, one)
         planted_gaps = loss_gaps(planted, one)
         recs = legs["straight"]
+        MEASURED_RANK_LEGS["drim-bnn train (2, 1)"] = [
+            r["step_collectives"] for r in recs]
         lines = [line for line in recs[0]["lines"] if "step" in line]
         s_step = (lines[-1]["wall_s"] - lines[0]["wall_s"]) \
             / (TRAIN_STEPS - 1)
@@ -5006,6 +5058,36 @@ TP_MODES = {
 TP_MODE_LAYERS = 2
 TP_FAIL_FROM = 3
 TP_MODES_TIMEOUT_S = 240
+# The uneven-heads legs, last in the tp worker: qwen3-14b's smoke config
+# in float32 with 5 query heads over 1 KV head (d_head 32; UNEVEN_CUT,
+# cut as `trainer_spy` and `serve_cut` cut a config) over (1, TP), 2.5
+# heads a rank: each rank computes the 3 heads its block of 80 of wq's
+# 160 columns overlaps (0-2 and 2-4) whole and hands exactly that block
+# to the row-parallel wo.  Through the CLI entry points: `train.main`
+# (UNEVEN_TRAIN: UNEVEN_STEPS AdamW steps on 4 x 256 seeded tokens,
+# block-aligned, so the flash forward and both backward kernels run on
+# the rank's 3 heads, n_rep 3) and `serve.run_serve` (UNEVEN_SERVE: a
+# 4 x 256 prompt through the flash forward, then decode steps), held to
+# the same legs in one process (run in the parent before the worker):
+# the losses within UNEVEN_LOSS_TOL, the prefill's last logits within
+# UNEVEN_LOGIT_TOL and the tokens equal but for near ties within it;
+# both ranks' losses and tokens equal; on each side the launches exact
+# and each leg within UNEVEN_WALL_S.  The bounds are float32's: on an
+# H100 the rank and one-process logits read 2.98e-7 apart and the losses
+# bit for bit.  A planted fault (`planted_uneven_fault`: rank 1 hands wo
+# the first 80 of its 96 head columns instead of its block, which starts
+# half a head in) must move the prefill's logits past UNEVEN_LOGIT_TOL.
+UNEVEN_CUT = {"n_heads": 5, "n_kv_heads": 1, "dtype": "float32"}
+UNEVEN_STEPS = 2
+UNEVEN_TRAIN = ["--arch", "qwen3-14b", "--smoke-config", "--steps",
+                str(UNEVEN_STEPS), "--batch", "4", "--seq", "256", "--mesh",
+                "host", "--optimizer", "adamw", "--lr", "3e-4", "--warmup",
+                "0", "--log-every", "1", "--seed", str(SEED)]
+UNEVEN_SERVE = ["--arch", "qwen3-14b", "--smoke-config", "--batch", "4",
+                "--prompt-len", "256", "--gen", "4", "--seed", str(SEED),
+                "--temperature", "0"]
+UNEVEN_LOGIT_TOL, UNEVEN_LOSS_TOL = 1e-4, 1e-5
+UNEVEN_WALL_S = 15.0
 
 
 def one_process_key(arch: str, layers: int, f32: bool = False) -> str:
@@ -5175,7 +5257,9 @@ def phase_tp(wrappers):
     legs (`check_tp_serving`; first the one-process drim-bnn cut to 2
     layers here); the MoE legs (`check_tp_moe`); the ssm, hybrid and vlm
     legs (`check_tp_families`; first their one-process legs that the
-    families and train-families phases do not run, here).  Then NCCL at (1,
+    families and train-families phases do not run, here); the serving
+    modes (`check_tp_modes`) and the uneven-heads legs (`check_tp_uneven`;
+    first their one-process legs, here).  Then NCCL at (1,
     min(4, cards)) where 2 or more cards show.  Returns the ranks'
     launches (straight, restart, serving and MoE legs, summed)."""
     from repro_torch.checkpoint.checkpoint import Checkpointer
@@ -5209,6 +5293,8 @@ def phase_tp(wrappers):
             TRAINED[trained_key(arch, layers)] = list(seen["losses"])
             del seen
             torch.cuda.empty_cache()
+    one_uneven = uneven_legs(wrappers)
+    torch.cuda.empty_cache()
     one_modes = {}
     for leg in TP_MODES:
         argv, _ = mode_argv(leg)
@@ -5236,6 +5322,8 @@ def phase_tp(wrappers):
         gaps, planted_gaps = loss_gaps(straight, one), loss_gaps(planted,
                                                                  one)
         recs = legs["straight"]
+        MEASURED_RANK_LEGS["drim-bnn train (1, 2)"] = [
+            r["step_collectives"] for r in recs]
         lines = [line for line in recs[0]["lines"] if "step" in line]
         s_step = (lines[-1]["wall_s"] - lines[0]["wall_s"]) \
             / (TRAIN_STEPS - 1)
@@ -5311,16 +5399,185 @@ def phase_tp(wrappers):
         family_counts = check_tp_families(tmp, TP)
         mode_counts = check_tp_modes(tmp, TP, one_modes,
                                      served[0]["drim-bnn 2 layers"]["gen"])
+        uneven_counts = check_tp_uneven(tmp, TP, one_uneven)
         phase_tp_nccl(tmp, one)
     counts = {n: sum(r["launches"][n] for leg in ("straight", "restart")
                      for r in legs[leg]) + serve_counts[n] + moe_counts[n]
-              + family_counts[n] + mode_counts[n] for n in wrappers}
+              + family_counts[n] + mode_counts[n] + uneven_counts[n]
+              for n in wrappers}
     print("tp " + json.dumps({"phase_wall_s":
                               time.perf_counter() - t_phase,
                               "one_process_legs_s": one_process_s,
                               "torchrun_wall_s": wall}))
     print("counts " + json.dumps({"phase": "tp", **counts}))
     return counts
+
+
+def uneven_cfg():
+    from repro_torch.configs import get_smoke_config
+    return get_smoke_config("qwen3-14b").replace(**UNEVEN_CUT)
+
+
+def uneven_expected(cfg):
+    """The training leg's launches (UNEVEN_STEPS steps: the flash forward
+    twice a layer under remat, each backward kernel once a layer)."""
+    sites = cfg.n_layers * UNEVEN_STEPS
+    return {"flash_attn_fwd": (2 if cfg.remat else 1) * sites,
+            "flash_bwd_dkv": sites, "flash_bwd_dq": sites}
+
+
+@contextlib.contextmanager
+def serve_cut(**cut):
+    """The serve CLI's config cut (`ModelConfig.replace(**cut)`), as
+    `trainer_spy` cuts the trainer's."""
+    from repro_torch.launch import serve
+    build = serve.build_cfg
+    serve.build_cfg = lambda args: build(args).replace(**cut)
+    try:
+        yield
+    finally:
+        serve.build_cfg = build
+
+
+@contextlib.contextmanager
+def planted_uneven_fault(on: bool):
+    """Where `on` (model index 1), `_out` hands the row-parallel wo the
+    first columns of the rank's heads, not its block of them, which
+    starts inside the head it shares with its neighbour: the wrong
+    columns of a shared head, the all-reduce still run."""
+    from repro_torch.core.mesh import model_coord, model_ranks
+    from repro_torch.models import attention
+    out_fn = attention._out
+
+    def shifted(p, cfg, out):
+        mesh = model_ranks()
+        lo = attention.head_columns(cfg, *model_coord(mesh))[0]
+        at = lo - attention._rank_heads(cfg, mesh)[0] * cfg.d_head
+        return out_fn(p, cfg, torch.roll(out, at, -1))
+    if on:
+        attention._out = shifted
+    try:
+        yield
+    finally:
+        attention._out = out_fn
+
+
+def uneven_legs(wrappers, model_axis: int = 1) -> dict:
+    """The uneven-heads legs (UNEVEN_CUT) through the CLI entry points,
+    in one process or (`model_axis` > 1) as this rank of the tp worker:
+    `train.main` (UNEVEN_TRAIN; its losses) and `serve.run_serve`
+    (UNEVEN_SERVE; its tokens, prefill logits and top-two gaps), each
+    with its launches (zeroed just before) and wall s.  Over ranks, after
+    the serving leg, untimed: its prefill again under
+    `planted_uneven_fault` ("planted")."""
+    from repro_torch.core import mesh as core_mesh
+    from repro_torch.launch import serve, train
+    axis = ["--model-axis", str(model_axis)] if model_axis > 1 else []
+    res = {}
+    for fn in wrappers.values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    with deterministic(), trainer_spy(train, **UNEVEN_CUT) as seen, \
+            contextlib.redirect_stdout(io.StringIO()):
+        train.main(UNEVEN_TRAIN + axis)
+    torch.cuda.synchronize()
+    res["train"] = {"losses": seen["losses"],
+                    "launches": {n: fn.launches
+                                 for n, fn in wrappers.items()},
+                    "wall_s": time.perf_counter() - t0}
+    del seen
+    inner, used = serve.prefill, []
+
+    def spy_prefill(*a, **kw):
+        used.append((a, kw, core_mesh.model_ranks()))
+        return inner(*a, **kw)
+    for fn in wrappers.values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    serve.prefill = spy_prefill
+    try:
+        with serve_cut(**UNEVEN_CUT), logits_tap() as tap:
+            gen, _ = serve.run_serve(serve.parse_args(UNEVEN_SERVE + axis))
+    finally:
+        serve.prefill = inner
+    torch.cuda.synchronize()
+    res["serve"] = {"gen": gen, **tap_values(tap),
+                    "launches": {n: fn.launches
+                                 for n, fn in wrappers.items()},
+                    "wall_s": time.perf_counter() - t0}
+    if model_axis > 1:
+        a, kw, mesh = used[0]
+        on = core_mesh.model_coord(mesh)[0] == 1
+        with mesh, planted_uneven_fault(on):
+            res["planted"] = inner(*a, **kw)[0][:, -1].float().cpu()
+    return res
+
+
+def check_tp_uneven(tmp: str, n: int, one: dict) -> dict:
+    """The uneven-heads legs of the tp worker's n ranks (OUT/rank<r>_
+    uneven.pt) against `one` (the same legs in one process): on every
+    side the launches exact and each leg within UNEVEN_WALL_S; the ranks'
+    losses and tokens equal; the losses within UNEVEN_LOSS_TOL of one
+    process's, the prefill's last logits within UNEVEN_LOGIT_TOL, the
+    tokens but for ties within it; the planted prefill past it.  Prints a
+    "tp" line; returns the launches of every side, summed."""
+    from repro_torch.launch import serve
+    cfg = uneven_cfg()
+    args = serve.parse_args(UNEVEN_SERVE)
+    recs = [torch.load(f"{tmp}/rank{r}_uneven.pt", weights_only=False)
+            for r in range(n)]
+    want = {"train": uneven_expected(cfg),
+            "serve": serve_launches(cfg, args)}
+    for side, rec in [("one process", one)] + [
+            (f"rank {r}", rec) for r, rec in enumerate(recs)]:
+        for leg in ("train", "serve"):
+            got = rec[leg]["launches"]
+            if got != {k: want[leg].get(k, 0) for k in got}:
+                raise AssertionError(f"tp uneven heads {side} {leg}: "
+                                     f"launches {got}, expected "
+                                     f"{want[leg]}")
+            if rec[leg]["wall_s"] > UNEVEN_WALL_S:
+                raise AssertionError(f"tp uneven heads {side} {leg}: "
+                                     f"{rec[leg]['wall_s']} s, over "
+                                     f"{UNEVEN_WALL_S}")
+    losses = [r["train"]["losses"] for r in recs]
+    if any(x != losses[0] for x in losses) or any(
+            not np.array_equal(r["serve"]["gen"], recs[0]["serve"]["gen"])
+            for r in recs):
+        raise AssertionError(f"tp uneven heads: the ranks' losses or "
+                             f"tokens differ: {losses}")
+    ties = first_difference_ok("uneven heads", recs[0]["serve"]["gen"],
+                               one["serve"]["gen"], one["serve"]["gaps"],
+                               UNEVEN_LOGIT_TOL)
+    err = max(float((r["serve"]["prefill"] - one["serve"]["prefill"])
+                    .abs().max()) for r in recs)
+    planted = max(float((r["planted"] - one["serve"]["prefill"])
+                        .abs().max()) for r in recs)
+    gaps = loss_gaps(losses[0], one["train"]["losses"])
+    print("tp " + json.dumps({
+        "uneven_heads": f"qwen3-14b smoke float32, {cfg.n_heads} heads over "
+                        f"{cfg.n_kv_heads} KV head over (1, {n})",
+        "train": {"batch": 4, "seq": 256, "steps": UNEVEN_STEPS,
+                  "losses": losses[0],
+                  "one_process_losses": one["train"]["losses"],
+                  "loss_gaps": gaps, "loss_tol": UNEVEN_LOSS_TOL},
+        "serve": {"tokens_equal": not ties, "ties": ties,
+                  "prefill_logits_max_abs_diff": err,
+                  "planted_max_abs_diff": planted,
+                  "logit_tol": UNEVEN_LOGIT_TOL},
+        "launches_a_side": want,
+        "wall_s": {leg: {"one_process": one[leg]["wall_s"],
+                         "ranks": [r[leg]["wall_s"] for r in recs]}
+                   for leg in ("train", "serve")}}))
+    if err > UNEVEN_LOGIT_TOL or max(gaps) > UNEVEN_LOSS_TOL:
+        raise AssertionError(f"tp uneven heads: logits {err}, loss gaps "
+                             f"{gaps}")
+    if planted <= UNEVEN_LOGIT_TOL:
+        raise AssertionError(f"tp uneven heads: the planted fault stayed "
+                             f"inside the bound: {planted}")
+    return {k: sum(r[leg]["launches"][k] for r in recs + [one]
+                   for leg in ("train", "serve"))
+            for k in one["train"]["launches"]}
 
 
 def tp_launches(cfg, args):
@@ -5697,6 +5954,9 @@ def check_tp_families(tmp: str, n: int) -> dict:
                            planted_prefill_max_abs_diff=moved)
         stats = first["stats"]
         decode_calls = FAMILY_GEN
+        if (arch, k) == (TP_AUDIO, TP):
+            MEASURED_RANK_LEGS["whisper-medium decode (1, 2)"] = [
+                rec["serve"][leg]["decode_collectives"] for rec in recs]
         per_rank = []
         for r, rec in enumerate(recs):
             got = rec["serve"][leg]
@@ -6037,8 +6297,10 @@ def trainer_spy(train, **cut):
     """`train.main` with its config cut (`ModelConfig.replace(**cut)`:
     depth, experts) and its step recorded: yields a dict that holds, once
     main returns, the step function, the config, the last state and
-    batch the trainer stepped, and every step's loss unrounded
-    ("losses")."""
+    batch the trainer stepped, every step's loss unrounded ("losses")
+    and every step's rank collectives (`collective_since`:
+    "step_collectives")."""
+    from repro_torch.core import mesh as core_mesh
     build_cfg, build = train.build_cfg, train.build
     seen = {}
 
@@ -6050,11 +6312,14 @@ def trainer_spy(train, **cut):
         cfg, step_fn, init_state = build(args, mesh)
 
         def step(state, batch):
+            before = dict(core_mesh.COLLECTIVE_STATS)
             new, metrics = step_fn(state, batch)
+            seen["step_collectives"].append(collective_since(before))
             seen.update(state=new, batch=batch)
             seen["losses"].append(float(metrics["loss"]))
             return new, metrics
-        seen.update(step_fn=step_fn, cfg=cfg, losses=[])
+        seen.update(step_fn=step_fn, cfg=cfg, losses=[],
+                    step_collectives=[])
         return cfg, step, init_state
     train.build_cfg, train.build = cut_cfg, spy_build
     try:
@@ -6283,28 +6548,78 @@ def check_train_reference():
                                  f"the bound: {line}")
 
 
+# The dry-run's rank trace of the legs the ranks and tp phases run over
+# 2 gloo ranks (leg: kind, mesh shape), predicted on the host
+# (`predict_rank_legs`) and held equal, calls and payload bytes by axis,
+# to every step each rank measured (MEASURED_RANK_LEGS, filled by those
+# phases: the train steps from `trainer_spy`, whisper's decode steps
+# from `tp_family_serve_legs`, the warm-up step among them).
+RANK_LEGS = {"drim-bnn train (1, 2)": ("train", (1, 2)),
+             "drim-bnn train (2, 1)": ("train", (2, 1)),
+             "whisper-medium decode (1, 2)": ("decode", (1, 2))}
+MEASURED_RANK_LEGS: dict = {}
+
+
+def predict_rank_legs(out: str) -> None:
+    """`launch.dryrun.rank_trace` of each RANK_LEGS leg as each of its
+    ranks, on meta tensors: drim-bnn's TRAIN run (its config, global
+    batch and optimizer as `launch.train` builds them) and one decode
+    step of the tp phase's whisper-medium leg (`family_argv`, its caches
+    of prompt + gen positions) -> OUT, {leg: [each rank's fields]}."""
+    import math
+    from repro_torch.launch import dryrun, serve, train
+    res = {}
+    for leg, (kind, shape) in RANK_LEGS.items():
+        axis = ["--model-axis", str(shape[1])]
+        if kind == "train":
+            args = train.parse_args(TRAIN + axis)
+            cfg, opt = train.build_cfg(args), args.optimizer
+            rows, width, ctx = args.batch, args.seq, 0
+        else:
+            args = serve.parse_args(family_argv(TP_AUDIO, 0, 256) + axis)
+            cfg, opt = serve.build_cfg(args), "adamw"
+            rows, width = args.batch, 1
+            ctx = args.ctx or args.prompt_len + args.gen
+        names = ("tokens", "labels") if kind == "train" else ("tokens",)
+        batch = {k: torch.empty((rows, width), dtype=torch.long,
+                                device="meta") for k in names}
+        res[leg] = [dryrun.rank_trace(cfg, kind, shape, ("data", "model"),
+                                      batch, ctx_len=ctx, optimizer=opt,
+                                      rank=r, flops=False)
+                    for r in range(math.prod(shape))]
+    with open(out, "w") as f:
+        json.dump(res, f)
+
+
 @contextlib.contextmanager
 def dryrun_process():
-    """The dry-run of every cell, `launch.dryrun.main(["--all", "--out",
-    <a temporary file>])`, in a process of its own on the host's CPU (no
+    """The dry-run's predictions of the rank legs (`predict_rank_legs`),
+    then of every cell, `launch.dryrun.main(["--all", "--out", <a
+    temporary file>])`, in a process of its own on the host's CPU (no
     card visible to it), started now so that it runs beside the card's
-    phases; yields (process, records path, log path); the process is
-    killed if it still runs on exit."""
+    phases; yields (process, records path, log path, predictions path);
+    the process is killed if it still runs on exit."""
     tmp = tempfile.TemporaryDirectory(prefix="drim_dryrun_")
     out = os.path.join(tmp.name, "cells.jsonl")
+    legs = os.path.join(tmp.name, "rank_legs.json")
     log = open(os.path.join(tmp.name, "dryrun.log"), "w")
     code = ("import sys, time\n"
-            "from repro_torch.launch import dryrun\n"
             "t0 = time.perf_counter()\n"
+            "sys.path.insert(0, sys.argv[3])\n"
+            "import chip_smoke\n"
+            "chip_smoke.predict_rank_legs(sys.argv[2])\n"
+            "print('rank_legs_s', time.perf_counter() - t0)\n"
+            "from repro_torch.launch import dryrun\n"
             "rc = dryrun.main(['--all', '--out', sys.argv[1]])\n"
             "print('dryrun_wall_s', time.perf_counter() - t0)\n"
             "sys.exit(rc)\n")
     env = dict(os.environ, CUDA_VISIBLE_DEVICES="",
                PYTHONPATH=str(ROOT / "src"))
-    proc = subprocess.Popen([sys.executable, "-c", code, out], cwd=ROOT,
-                            env=env, stdout=log, stderr=subprocess.STDOUT)
+    proc = subprocess.Popen([sys.executable, "-c", code, out, legs,
+                             str(ROOT)], cwd=ROOT, env=env, stdout=log,
+                            stderr=subprocess.STDOUT)
     try:
-        yield proc, out, log.name
+        yield proc, out, log.name, legs
     finally:
         if proc.poll() is None:
             proc.kill()
@@ -6313,10 +6628,13 @@ def dryrun_process():
         tmp.cleanup()
 
 
-def phase_dryrun(proc, out: str, log: str) -> None:
+def phase_dryrun(proc, out: str, log: str, legs: str) -> None:
     """The dry-run's records: every cell of `all_cells()` with status
-    "ok", each cell's per-device argument bytes beside the card's memory
-    ("dryrun" lines), and the run's wall time on the host."""
+    "ok" and its rank trace's fields, each cell's per-device argument
+    bytes beside the card's memory, rank 0's collective calls and payload
+    bytes a step by axis and its wire bytes by kind ("dryrun" lines), and
+    the run's wall time on the host; then the rank legs' predictions
+    against the ranks' measured steps (`check_rank_legs`)."""
     from repro_torch.launch import dryrun
     t0 = time.perf_counter()
     rc = proc.wait(timeout=900)
@@ -6329,8 +6647,11 @@ def phase_dryrun(proc, out: str, log: str) -> None:
     if cells != list(dryrun.all_cells()):
         raise AssertionError(f"the dry-run wrote cells {cells}")
     card = torch.cuda.get_device_properties(0).total_memory
+    fields = ("collective_counts", "collective_by_kind",
+              "collective_bytes_per_device", "collective_calls_by_axis",
+              "collective_payload_b_by_axis", "flops_per_device")
     for r in records:
-        if r["status"] != "ok":
+        if r["status"] != "ok" or any(k not in r for k in fields):
             raise AssertionError(f"dry-run cell {r}")
         print("dryrun " + json.dumps({
             "cell": f"{r['arch']} {r['shape']} {r['mesh']}",
@@ -6339,14 +6660,52 @@ def phase_dryrun(proc, out: str, log: str) -> None:
             "mem_output_b": r["mem_output_b"],
             "arguments_fit_the_card": r["mem_argument_b"] < card,
             "flops_global": r["flops_global"],
-            "model_flops_global": r["model_flops_global"]}))
+            "model_flops_global": r["model_flops_global"],
+            "rank0_calls_by_axis": r["collective_calls_by_axis"],
+            "rank0_payload_b_by_axis": r["collective_payload_b_by_axis"],
+            "rank0_wire_b_by_kind": {
+                k: v for k, v in r["collective_by_kind"].items() if v},
+            "rank0_wire_b": r["collective_bytes_per_device"],
+            "rank0_flops": r["flops_per_device"],
+            "rank_trace_s": r["rank_trace_s"]}))
     wall = [float(line.split()[1]) for line in text.splitlines()
             if line.startswith("dryrun_wall_s")]
+    legs_s = [float(line.split()[1]) for line in text.splitlines()
+              if line.startswith("rank_legs_s")]
     print("dryrun " + json.dumps({
         "cells": len(records), "ok": len(records),
         "fit_the_card": sum(r["mem_argument_b"] < card for r in records),
         "card_total_memory_b": card, "phase_wall_s": wall[0],
-        "waited_s": waited}))
+        "rank_legs_s": legs_s[0], "waited_s": waited}))
+    check_rank_legs(json.load(open(legs)))
+
+
+def check_rank_legs(predicted) -> None:
+    """Each RANK_LEGS leg's predicted calls and payload bytes a step by
+    axis (`predict_rank_legs`) equal, rank for rank, to every step the
+    rank measured (MEASURED_RANK_LEGS: `COLLECTIVE_STATS`' "calls:<axes>"
+    and "bytes:<axes>"); a "dryrun ranks" line each."""
+    for leg in RANK_LEGS:
+        for rank, (want, steps) in enumerate(zip(
+                predicted[leg], MEASURED_RANK_LEGS[leg])):
+            pred = {axes: {"calls": n, "bytes":
+                           want["collective_payload_b_by_axis"][axes]}
+                    for axes, n in want["collective_calls_by_axis"].items()}
+            seen = []
+            for got in steps:
+                have = {key[len("calls:"):]: {
+                    "calls": n, "bytes": got["bytes" + key[len("calls"):]]}
+                    for key, n in got.items()
+                    if key.startswith("calls:") and n}
+                if have not in seen:
+                    seen.append(have)
+            print("dryrun ranks " + json.dumps({
+                "leg": leg, "rank": rank, "steps": len(steps),
+                "predicted_per_step": pred, "measured_per_step": seen,
+                "equal": seen == [pred]}))
+            if seen != [pred] or not steps:
+                raise AssertionError(f"dryrun ranks {leg} rank {rank}: "
+                                     f"predicted {pred}, measured {seen}")
 
 
 def read_counts(wrappers, names, phase: str):

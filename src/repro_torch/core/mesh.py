@@ -34,7 +34,9 @@ block's owner).  They are written over `dist.all_reduce`,
 too, so one code path serves gloo on the CPU, gloo with several ranks on
 one card, and NCCL with a card a rank.  `COLLECTIVE_STATS` counts their
 calls, bytes and seconds, in all and by axis ("calls:data",
-"bytes:model", ...).
+"bytes:model", ...); inside a `record_collectives()` block each call is
+also listed with its kind, group size, payload and axes (the dry-run's
+per-rank trace, `launch.dryrun.rank_trace`).
 
 Megatron's four operators for a `model` axis over ranks (the ambient
 mesh's, `model_ranks`) are autograd functions: `copy_to_model` (forward
@@ -57,6 +59,7 @@ as functions, so importing it touches no device.
 """
 from __future__ import annotations
 
+import contextlib
 import contextvars
 import dataclasses
 import itertools
@@ -337,6 +340,33 @@ COLLECTIVE_STATS = {f"{k}{axes}": 0.0 if k == "seconds" else 0
 # the sub-groups of each mesh of ranks, made once
 _GROUPS: Dict[tuple, Dict[tuple, object]] = {}
 
+# the lists of the open `record_collectives` blocks (module-wide, not per
+# thread: a backward may run on the autograd engine's thread)
+_RECORDS: List[list] = []
+
+
+@contextlib.contextmanager
+def record_collectives():
+    """Yields a list that gets one dict per rank collective run inside
+    the block, in order: {"kind": "all-reduce", "all-gather" or
+    "broadcast", "n": the group's ranks, "payload_b": the bytes
+    `COLLECTIVE_STATS` counts (an all-reduce's buffer, an all-gather's
+    input, a broadcast's buffer), "axes": the axes' label ("model",
+    "pod+data", ...)}."""
+    calls: list = []
+    _RECORDS.append(calls)
+    try:
+        yield calls
+    finally:
+        _RECORDS.remove(calls)
+
+
+def forget_groups() -> None:
+    """Drop the sub-groups made for every mesh of ranks: call it when the
+    default group they belong to is destroyed, since a new default group
+    may reuse its id (`_group_key`) and would be handed dead sub-groups."""
+    _GROUPS.clear()
+
 
 def make_rank_mesh(shape: Tuple[int, ...], axis_names: Tuple[str, ...],
                    devices: Sequence) -> Mesh:
@@ -476,7 +506,7 @@ def _label(mesh: Mesh, axes: Tuple[str, ...]) -> str:
                     if a in axes and mesh.shape[a] > 1)
 
 
-def _timed(fn, t: torch.Tensor, label: str = "") -> None:
+def _timed(fn, t: torch.Tensor, label: str, kind: str, n: int) -> None:
     if t.is_cuda:
         torch.cuda.synchronize(t.device)
     t0 = time.perf_counter()
@@ -492,6 +522,10 @@ def _timed(fn, t: torch.Tensor, label: str = "") -> None:
             + t.numel() * t.element_size()
         COLLECTIVE_STATS[f"seconds{suffix}"] = \
             COLLECTIVE_STATS.get(f"seconds{suffix}", 0.0) + dt
+    for calls in _RECORDS:
+        calls.append({"kind": kind, "n": n,
+                      "payload_b": t.numel() * t.element_size(),
+                      "axes": label})
 
 
 def _all_reduce(tensors: Sequence[torch.Tensor], mesh: Mesh,
@@ -506,7 +540,7 @@ def _all_reduce(tensors: Sequence[torch.Tensor], mesh: Mesh,
     for idx in by_dtype.values():
         flat = torch.cat([tensors[i].reshape(-1) for i in idx])
         _timed(lambda: dist.all_reduce(flat, op=op, group=group), flat,
-               _label(mesh, axes))
+               _label(mesh, axes), "all-reduce", n)
         offset = 0
         for i in idx:
             n_el = tensors[i].numel()
@@ -542,7 +576,7 @@ def mesh_all_gather(t: torch.Tensor, mesh: Mesh, axes: Tuple[str, ...],
     t = t.contiguous()
     parts = [torch.empty_like(t) for _ in range(n)]
     _timed(lambda: dist.all_gather(parts, t, group=group), t,
-           _label(mesh, tuple(axes)))
+           _label(mesh, tuple(axes)), "all-gather", n)
     return torch.cat(parts, dim)
 
 
@@ -601,7 +635,7 @@ def mesh_gather(blocks: Sequence[torch.Tensor], shapes, specs, mesh: Mesh,
             buf = torch.empty(sum(sizes), dtype=torch.uint8, device=device)
         if len(members) > 1:
             _timed(lambda: dist.broadcast(buf, src=int(r), group=group),
-                   buf, _label(mesh, axes))
+                   buf, _label(mesh, axes), "broadcast", len(members))
         offset = 0
         for (i, sl, rel), size in zip(items, sizes):
             block_shape = tuple(s.stop - s.start for s in sl)
@@ -616,7 +650,7 @@ def mesh_barrier(mesh: Mesh) -> None:
     if mesh.ranks.size > 1:
         t = torch.zeros(1, device=mesh.device)
         _timed(lambda: dist.all_reduce(t), t,
-               _label(mesh, mesh.axis_names))
+               _label(mesh, mesh.axis_names), "all-reduce", mesh.ranks.size)
 
 
 # --- the model axis: Megatron's operators ------------------------------------

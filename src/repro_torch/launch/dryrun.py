@@ -35,11 +35,52 @@ for the card), which is right for shapes, so `flops_global` counts dense
 scores.  The port's trunk is a Python loop, so the meta run counts every
 layer.
 
+Then each cell runs a second time, as rank 0 of the production mesh of
+ranks (`rank_trace`): a `"fake"` process group of 256 or 512 ranks
+(`torch.testing`'s `FakeStore`: every collective returns at once, and
+moves nothing), the mesh `launch.mesh.make_production_mesh` builds under
+ranks with meta devices, and the rank path of the cell's kind on its
+inputs: a train step (`make_train_step(cfg, mesh)`) on the state's
+`steps.cut` blocks of `state_pspecs` and the global batch; a prefill or
+decode step inside the mesh on `serve.place_params`' blocks, the decode
+caches cut by `rank_cache_pspecs`, as `launch.serve` feeds them.  Every
+collective of the port's own code (`core.mesh`'s all-reduces,
+all-gathers and broadcasts, `record_collectives`) is recorded with its
+kind, group size n, payload and axes, which gives:
+
+  * collective_counts, collective_by_kind, collective_bytes_per_device
+                        under the reference's names and its five kinds
+                        (zero where the port has none) plus "broadcast"
+                        (`mesh_gather`'s), the wire bytes a device by the
+                        reference's ring rule (`ring_wire_bytes`): an
+                        all-reduce of S bytes 2*S*(n-1)/n, an all-gather
+                        S*(n-1)/n of its gathered result S (n times its
+                        input), a broadcast S*(n-1)/n (each of its n-1
+                        receivers takes S once, averaged over the n
+                        devices).  These are the port's collectives, not
+                        XLA's: the same model's step over the same mesh,
+                        but another program;
+  * collective_calls_by_axis, collective_payload_b_by_axis
+                        the calls and payload bytes by axis label
+                        ("model", "data", "pod+data", ...), in the units
+                        of `core.mesh.COLLECTIVE_STATS`' "calls:<axes>"
+                        and "bytes:<axes>", so that a run over real ranks
+                        compares exactly;
+  * flops_per_device    `FlopCounterMode` over the rank's step: the
+                        counterpart of the reference's
+                        hlo_flops_per_device (no HLO here, so no hlo_).
+
+Where the fake backend cannot be imported or the rank's step raises, the
+cell's status is "error" with the reason: no count reads as zero.  A
+`--no-zero1` cell has no rank trace ("rank_trace" says why): the rank
+path always cuts the moments over the data axes.
+
 Left out, as reference-only (they read XLA's compiler output, which a
 process that compiles nothing does not have): mem_temp_b and mem_peak_b,
-the hlo_* costs, collective_bytes_per_device and its HLO text parser,
-and the probe extrapolation (`probe_points` to `probe_all`, which exist
-because XLA counts a scanned layer once).
+hlo_bytes_per_device and the HLO text parser, and the probe
+extrapolation (`probe_points` to `probe_all`, which exist because XLA
+counts a scanned layer once: the port's trunk is a Python loop, so the
+rank trace counts every layer and needs no probe).
 
 Usage:
   PYTHONPATH=src python -m repro_torch.launch.dryrun --arch qwen3-14b \\
@@ -52,29 +93,42 @@ there are skipped unless --force); the exit code is 1 when a cell fails.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import json
+import math
 import os
 import sys
 import time
-from typing import Any, Callable, Tuple
+from typing import Any, Callable, Dict, Tuple
 
 import torch
+import torch.distributed as dist
 from torch.utils._python_dispatch import TorchDispatchMode
 from torch.utils.flop_counter import FlopCounterMode
 
 from repro_torch.configs import SHAPES, get_config, shapes_for
 from repro_torch.configs.registry import ARCHS
+from repro_torch.core import mesh as core_mesh
 from repro_torch.core.mesh import (Mesh, NamedSharding, PartitionSpec as P,
                                    abstract_mesh, axis_size)
-from repro_torch.models import abstract_caches, abstract_params
+from repro_torch.launch.mesh import PRODUCTION_MESHES
+from repro_torch.launch.serve import place_params
+from repro_torch.models import abstract_caches, abstract_params, init_params
 from repro_torch.models.transformer import padded_vocab
 from repro_torch.optim import init_errors
 from repro_torch.runtime import sharding as shd
-from repro_torch.runtime.steps import (abstract_train_state, make_decode_step,
-                                       make_prefill_step, make_train_step,
-                                       state_shardings)
+from repro_torch.runtime.steps import (abstract_train_state, cut,
+                                       make_decode_step, make_prefill_step,
+                                       make_train_state, make_train_step,
+                                       state_pspecs, state_shardings)
 from repro_torch.tree import tree_leaves, tree_map
+
+# The reference's collective kinds (its dry-run's COLLECTIVES), and the
+# port's one more: `core.mesh.mesh_gather`'s broadcasts.
+COLLECTIVES = ("all-gather", "all-reduce", "reduce-scatter", "all-to-all",
+               "collective-permute")
+KINDS = COLLECTIVES + ("broadcast",)
 
 # Per-arch optimizer defaults (the giant MoEs use adafactor).
 ARCH_OPTIMIZER = {"kimi-k2-1t-a32b": "adafactor",
@@ -86,11 +140,9 @@ META = torch.device("meta")
 def production_mesh(mesh_kind: str) -> Mesh:
     """The 16 x 16 (single) or 2 x 16 x 16 (multi) mesh over meta
     devices."""
-    if mesh_kind == "multi":
-        return abstract_mesh((2, 16, 16), ("pod", "data", "model"))
-    if mesh_kind == "single":
-        return abstract_mesh((16, 16), ("data", "model"))
-    raise ValueError(f"unknown mesh {mesh_kind!r}: single or multi")
+    if mesh_kind not in PRODUCTION_MESHES:
+        raise ValueError(f"unknown mesh {mesh_kind!r}: single or multi")
+    return abstract_mesh(*PRODUCTION_MESHES[mesh_kind])
 
 
 def input_specs(cfg, shape_name: str, *, batch_override=None):
@@ -286,6 +338,155 @@ def run_meta(cell: Cell, args):
     return out, counter.get_total_flops(), read
 
 
+def ring_wire_bytes(kind: str, payload_b: int, n: int) -> float:
+    """The ring model's wire bytes a device of one collective over n
+    ranks (the reference's `collective_bytes_per_device` rule, on its
+    result bytes S): an all-reduce's payload is S, 2*S*(n-1)/n; an
+    all-gather's payload is its input, S = n times it, S*(n-1)/n; a
+    broadcast's payload is S, S*(n-1)/n (each of the n-1 receivers takes
+    S once, averaged over the n devices)."""
+    if kind == "all-reduce":
+        return 2.0 * payload_b * (n - 1) / n
+    if kind == "all-gather":
+        size = payload_b * n
+        return size * (n - 1) / n
+    if kind == "broadcast":
+        return payload_b * (n - 1) / n
+    raise ValueError(f"no ring rule for {kind!r}")
+
+
+def collective_fields(calls) -> Dict[str, Any]:
+    """The record's collective fields from `core.mesh.
+    record_collectives`' calls."""
+    counts = {k: 0 for k in KINDS}
+    by_kind = {k: 0.0 for k in KINDS}
+    calls_by_axis: Dict[str, int] = {}
+    payload_by_axis: Dict[str, int] = {}
+    for c in calls:
+        counts[c["kind"]] += 1
+        by_kind[c["kind"]] += ring_wire_bytes(c["kind"], c["payload_b"],
+                                              c["n"])
+        calls_by_axis[c["axes"]] = calls_by_axis.get(c["axes"], 0) + 1
+        payload_by_axis[c["axes"]] = payload_by_axis.get(c["axes"], 0) \
+            + c["payload_b"]
+    return {"collective_bytes_per_device": sum(by_kind.values()),
+            "collective_by_kind": by_kind, "collective_counts": counts,
+            "collective_calls_by_axis": calls_by_axis,
+            "collective_payload_b_by_axis": payload_by_axis}
+
+
+@contextlib.contextmanager
+def fake_ranks(world: int, rank: int = 0):
+    """A `"fake"` default process group of `world` ranks, this process
+    `rank`, destroyed on exit with the sub-groups made for it
+    (`core.mesh.forget_groups`).  ValueError where a process group is
+    already initialised: it is never replaced."""
+    if dist.is_available() and dist.is_initialized():
+        raise ValueError("a process group is already initialised; the rank "
+                         "trace makes a fake one of its own")
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+    dist.init_process_group("fake", store=FakeStore(), rank=rank,
+                            world_size=world)
+    try:
+        yield
+    finally:
+        dist.destroy_process_group()
+        core_mesh.forget_groups()
+
+
+def rank_steps(cfg, kind: str, mesh: Mesh, batch, *, ctx_len: int = 0,
+               optimizer: str = "adamw", compress: bool = False,
+               device=META):
+    """(the step, its arguments, whether it trains) of `kind` ("train",
+    "prefill", "decode") as this rank of `mesh` runs it: `batch` the
+    global batch (decode: {"tokens": [B, 1]}, against caches of `ctx_len`
+    positions), `cfg` as it is (the serving dtype is the caller's).  The
+    state, params and caches are this rank's blocks (`steps.cut` of the
+    state's specs, `serve.place_params`, `rank_cache_pspecs`) of whole
+    trees on `device`: meta tensors, or on a real device seed 0's draws
+    and zero caches."""
+    real = torch.device(device).type != "meta"
+    if kind == "train":
+        step_fn, _, opt = make_train_step(cfg, mesh, optimizer_name=optimizer,
+                                          compress=compress)
+        specs, shapes = state_pspecs(cfg, opt, mesh, compress)
+        if real:
+            shapes = make_train_state(0, cfg, opt, device=device)
+            if compress:
+                shapes["errors"] = init_errors(shapes["params"])
+        return step_fn, (cut(shapes, specs, mesh), batch), True
+    params = (init_params(0, cfg, device=device) if real
+              else abstract_params(cfg))
+    params = place_params(params, mesh, cfg.family)
+    if kind == "prefill":
+        return _in_mesh(make_prefill_step(cfg), mesh), (params, batch), \
+            False
+    tokens = batch["tokens"]
+    whole = abstract_caches(cfg, tokens.shape[0], ctx_len)
+    if real:
+        whole = tree_map(lambda t: torch.zeros(t.shape, dtype=t.dtype,
+                                               device=device), whole)
+    caches = cut(whole, shd.rank_cache_pspecs(mesh, whole), mesh)
+    pos = torch.zeros((tokens.shape[0],), dtype=torch.int32, device=device)
+    return _in_mesh(make_decode_step(cfg, ctx_len), mesh), \
+        (params, tokens, caches, pos), False
+
+
+def _in_mesh(fn, mesh):
+    def run(*args):
+        with mesh:
+            return fn(*args)
+    return run
+
+
+def rank_trace(cfg, kind: str, shape, axis_names, batch, *,
+               ctx_len: int = 0, optimizer: str = "adamw",
+               compress: bool = False, rank: int = 0,
+               flops: bool = True) -> Dict[str, Any]:
+    """One step of `kind` as rank `rank` of a mesh of `shape` x
+    `axis_names` runs it, on meta tensors under a fake process group of
+    that many ranks (`fake_ranks`): `rank_steps`' step and arguments.
+    Returns `collective_fields` of every collective the step ran,
+    "flops_per_device" (with `flops`: the counter costs about as much as
+    the step) and "rank_trace_s".  Any mesh: the production cells' and
+    the legs a card runs over 2 or 4 ranks alike."""
+    t0 = time.time()
+    world = math.prod(shape)
+    with fake_ranks(world, rank):
+        # the mesh `launch.mesh.make_production_mesh` makes under ranks
+        # (for a production cell: its PRODUCTION_MESHES shape), its
+        # devices meta
+        mesh = core_mesh.make_rank_mesh(tuple(shape), tuple(axis_names),
+                                        [META] * world)
+        fn, args, train = rank_steps(cfg, kind, mesh, batch,
+                                     ctx_len=ctx_len, optimizer=optimizer,
+                                     compress=compress)
+        counter = FlopCounterMode(display=False) if flops else None
+        with core_mesh.record_collectives() as calls, \
+                (counter or contextlib.nullcontext()), \
+                (torch.enable_grad() if train else torch.no_grad()):
+            fn(*args)
+    out = {**collective_fields(calls),
+           "rank_trace_s": round(time.time() - t0, 2)}
+    if flops:
+        out["flops_per_device"] = float(counter.get_total_flops())
+    return out
+
+
+def cell_rank_trace(cfg, shape_name: str, mesh_kind: str, *,
+                    optimizer: str, compress: bool = False
+                    ) -> Dict[str, Any]:
+    """`rank_trace` of a cell as rank 0 of its production mesh: the cell's
+    config (serving: `build_cell`'s bfloat16 serving config), its global
+    batch, its decode caches of the shape's length."""
+    sh = SHAPES[shape_name]
+    if sh.kind != "train":
+        cfg = cfg.replace(param_dtype="bfloat16", remat=False)
+    return rank_trace(cfg, sh.kind, *PRODUCTION_MESHES[mesh_kind],
+                      input_specs(cfg, shape_name), ctx_len=sh.seq_len,
+                      optimizer=optimizer, compress=compress)
+
+
 def run_cell(arch: str, shape_name: str, mesh_kind: str, *,
              optimizer=None, compress=False, zero1=True, variant="base",
              cfg_overrides=None) -> dict:
@@ -315,6 +516,16 @@ def run_cell(arch: str, shape_name: str, mesh_kind: str, *,
         print(f"memory per device: arguments {rec['mem_argument_b']:,} B, "
               f"outputs {rec['mem_output_b']:,} B; flops (global) "
               f"{flops:.3e}")
+        if not zero1:
+            # the rank path cuts the moments over the data axes always
+            rec["rank_trace"] = "not run: the ranks' moments are ZeRO-1's"
+        else:
+            rec.update(cell_rank_trace(cfg, shape_name, mesh_kind,
+                                       optimizer=optimizer,
+                                       compress=compress))
+            print(f"rank 0: {rec['collective_calls_by_axis']} calls, "
+                  f"{rec['collective_bytes_per_device']:.3e} wire B, "
+                  f"flops {rec['flops_per_device']:.3e}")
     except Exception as e:  # noqa: BLE001 -- record the failure, don't die
         rec["status"] = "error"
         rec["error"] = f"{type(e).__name__}: {e}"[:2000]

@@ -128,13 +128,19 @@ def _rank_devices(kind: Optional[str] = None) -> list:
             for r in range(world)]
 
 
+# The reference's production meshes: (shape, axes) by the dry-run's
+# --mesh name.
+PRODUCTION_MESHES = {"single": ((16, 16), ("data", "model")),
+                     "multi": ((2, 16, 16), ("pod", "data", "model"))}
+
+
 def make_production_mesh(*, multi_pod: bool = False,
                          devices: Optional[Sequence] = None) -> Mesh:
-    """The reference's production shapes: data x model 16 x 16, or pod x
-    data x model 2 x 16 x 16.  Raises ValueError unless the devices
-    (under a process group: the ranks) fill it, naming the count."""
-    shape = (2, 16, 16) if multi_pod else (16, 16)
-    axes = ("pod", "data", "model") if multi_pod else ("data", "model")
+    """The reference's production shapes (PRODUCTION_MESHES): data x
+    model 16 x 16, or pod x data x model 2 x 16 x 16.  Raises ValueError
+    unless the devices (under a process group: the ranks) fill it, naming
+    the count."""
+    shape, axes = PRODUCTION_MESHES["multi" if multi_pod else "single"]
     if devices is None and _ranked():
         world = dist.get_world_size()
         if world != math.prod(shape):

@@ -19,20 +19,28 @@ the reference.
 Under a `model` axis over ranks (`core.mesh.model_ranks`) GQA runs on the
 rank's heads: its H / |model| query heads and the KV heads they read
 (`head_split`), from column-parallel wq/wk/wv (a leaf whose cut does not
-fall on those heads is gathered and sliced), with `wo` row-parallel.  The
-decode cache is cut over the sequence (`cache_pspecs`), so decode is
-flash-decoding: q and the new K/V are gathered over the model group, the
-rank that holds position `pos` writes it, each rank scores every head over
-its own positions, the softmax's max and sum and the weighted values are
-merged over the group, and the rank keeps its heads for `wo`.  A cache
-whose length the axis does not divide is whole on every rank, which then
-attends with its own heads.  MLA runs on the rank's heads too: `wq_b`,
-`wk_b` and `wv_b` column-parallel over heads, `wo` row-parallel, the
-low-rank down-projections and their norms whole on every rank; its
-decode gathers the sequence-cut latent (`mla_decode`).  So does the
-cross-attention (`cross_kv`, `cross_attend`): `wq`, `wk` and `wv`
-column-parallel, `wo` row-parallel, and the cross cache holds the rank's
-heads of every frame, so its decode adds no collective but `wo`'s sum.
+fall on those heads is gathered and sliced), with `wo` row-parallel.
+Where |model| does not divide the heads (40 over 16), the specs still cut
+wq's H * Dh columns and wo's rows into |model| blocks: the rank computes
+whole every head its block overlaps (a head two blocks share is computed
+on both, from wq gathered whole) and hands exactly its block of columns
+to `wo`; a rank whose heads read their KV heads unevenly reads them one
+KV head a query head (`kv_index`).  The decode cache is cut over the
+sequence (`cache_pspecs`), so decode is flash-decoding: each rank's block
+of q's columns (before its norm and rope, which act on whole heads) and
+its new K/V are gathered over the model group, the rank that holds
+position `pos` writes it, each rank scores every head over its own
+positions, the softmax's max and sum and the weighted values are merged
+over the group, and the rank keeps its block of columns for `wo`.  A
+cache whose length the axis does not divide is whole on every rank,
+which then attends with its own heads.  MLA runs on the rank's heads
+too: `wq_b`, `wk_b` and `wv_b` column-parallel over heads, `wo`
+row-parallel, the low-rank down-projections and their norms whole on
+every rank; its decode gathers the sequence-cut latent (`mla_decode`).
+So does the cross-attention (`cross_kv`, `cross_attend`): `wq`, `wk` and
+`wv` column-parallel, `wo` row-parallel, and the cross cache holds the
+rank's heads of every frame, so its decode adds no collective but `wo`'s
+sum.
 """
 from __future__ import annotations
 
@@ -72,54 +80,120 @@ def gqa_init(gen: torch.Generator, cfg, *, dtype=torch.float32) -> Params:
 
 def head_split(cfg, index: int, m: int) -> Tuple[int, int, int, int]:
     """(q_lo, q_hi, kv_lo, kv_hi): the query heads of position `index` of
-    a model axis of `m`, and the KV heads they read.  ValueError where the
-    heads do not split evenly."""
-    h, hkv = cfg.n_heads, cfg.n_kv_heads
+    a model axis of `m`, and the KV heads they read.  Where `m` divides
+    the heads, the position's H / m of them; where it does not, every
+    head that the position's block of H * Dh / m columns overlaps (its
+    first and last may be shared with its neighbours).  ValueError where
+    `m` does not divide H * Dh."""
+    h, hkv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.d_head
     n_rep = h // hkv
-    if h % m:
-        raise ValueError(f"{h} heads do not divide a model axis of {m}")
-    q_lo, q_hi = index * h // m, (index + 1) * h // m
-    kv_lo, kv_hi = q_lo // n_rep, (q_hi - 1) // n_rep + 1
-    if (q_hi - q_lo) % (kv_hi - kv_lo) \
-            or (q_hi - q_lo) // (kv_hi - kv_lo) not in (n_rep, q_hi - q_lo):
-        raise ValueError(f"{h} heads over {hkv} KV heads do not split over "
+    col_lo, col_hi = head_columns(cfg, index, m)
+    q_lo, q_hi = col_lo // dh, -(-col_hi // dh)
+    return q_lo, q_hi, q_lo // n_rep, (q_hi - 1) // n_rep + 1
+
+
+def head_columns(cfg, index: int, m: int) -> Tuple[int, int]:
+    """[lo, hi): position `index`'s block of the H * Dh attention columns
+    (of wq's output and wo's input) over a model axis of `m`; ValueError
+    where `m` does not divide them."""
+    width = cfg.n_heads * cfg.d_head
+    if width % m:
+        raise ValueError(f"{cfg.n_heads} heads of {cfg.d_head} do not divide "
                          f"a model axis of {m}")
-    return q_lo, q_hi, kv_lo, kv_hi
+    return index * width // m, (index + 1) * width // m
+
+
+def kv_index(cfg, q_lo: int, q_hi: int, kv_lo: int, kv_hi: int):
+    """None where every KV head of [kv_lo, kv_hi) is read by equally many
+    of the query heads [q_lo, q_hi) (the site's n_rep is then their
+    ratio); else, for each query head, the KV head it reads counted from
+    kv_lo (40 heads over 8 KV heads on a model axis of 16 never need it;
+    9 heads over 3 on 4 do)."""
+    n_rep = cfg.n_heads // cfg.n_kv_heads
+    reads = [hd // n_rep - kv_lo for hd in range(q_lo, q_hi)]
+    counts = {reads.count(j) for j in range(kv_hi - kv_lo)}
+    return None if len(counts) == 1 else reads
+
+
+def _rank_heads(cfg, mesh) -> Tuple[int, int, int, int]:
+    """`head_split` of this rank, or every head without a model axis over
+    ranks (`mesh` None)."""
+    if mesh is None:
+        return 0, cfg.n_heads, 0, cfg.n_kv_heads
+    return head_split(cfg, *model_coord(mesh))
+
+
+def _site_kv(cfg, k: torch.Tensor, v: torch.Tensor, heads):
+    """(k, v, n_rep) as this rank's query heads `heads` (`head_split`'s
+    four numbers) read them: the KV heads as they are, or one a query head
+    where they are read unevenly (`kv_index`)."""
+    q_lo, q_hi, kv_lo, kv_hi = heads
+    reads = kv_index(cfg, *heads)
+    if reads is None:
+        return k, v, (q_hi - q_lo) // (kv_hi - kv_lo)
+    at = torch.tensor(reads, device=k.device)
+    return k.index_select(2, at), v.index_select(2, at), 1
+
+
+def _q_heads(p: Params, cfg, q: torch.Tensor, positions: torch.Tensor,
+             mesh) -> torch.Tensor:
+    """q [B, S, H', Dh] normed (qk-norm) and rotated."""
+    if cfg.qk_norm:
+        qn = p["q_norm"]
+        if mesh is not None:
+            # the rank's heads: each rank's share of the norm's gradient
+            qn = {"scale": copy_to_model(qn["scale"], mesh)}
+        q = rmsnorm(qn, q)
+    return apply_rope(q, positions, cfg.rope_theta)
+
+
+def _kv(p: Params, cfg, x: torch.Tensor, positions: torch.Tensor, mesh,
+        kv_lo: int, kv_hi: int):
+    """k, v [B, S, Hkv', Dh] of the KV heads [kv_lo, kv_hi)."""
+    b, s, _ = x.shape
+    hkv, dh = cfg.n_kv_heads, cfg.d_head
+    if mesh is None:
+        k = linear(p["wk"], x).reshape(b, s, hkv, dh)
+        v = linear(p["wv"], x).reshape(b, s, hkv, dh)
+    else:
+        k, v = (linear_col(p[n], x, hkv * dh, kv_lo * dh, kv_hi * dh)
+                .reshape(b, s, kv_hi - kv_lo, dh) for n in ("wk", "wv"))
+    if cfg.qk_norm:
+        kn = p["k_norm"]
+        if mesh is not None:
+            kn = {"scale": copy_to_model(kn["scale"], mesh)}
+        k = rmsnorm(kn, k)
+    return apply_rope(k, positions, cfg.rope_theta), v
 
 
 def _qkv(p: Params, cfg, x: torch.Tensor, positions: torch.Tensor):
     """q [B, S, H', Dh], k and v [B, S, Hkv', Dh]: every head, or under a
-    model axis over ranks the rank's (`head_split`); a site's n_rep is
-    q.shape[2] // k.shape[2]."""
+    model axis over ranks the rank's (`head_split`; `_site_kv` gives the
+    site's n_rep)."""
     b, s, _ = x.shape
-    h, hkv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.d_head
+    h, dh = cfg.n_heads, cfg.d_head
     mesh = model_ranks()
+    q_lo, q_hi, kv_lo, kv_hi = _rank_heads(cfg, mesh)
     if mesh is None:
-        q = linear(p["wq"], x).reshape(b, s, h, dh)
-        k = linear(p["wk"], x).reshape(b, s, hkv, dh)
-        v = linear(p["wv"], x).reshape(b, s, hkv, dh)
+        q = linear(p["wq"], x)
     else:
-        q_lo, q_hi, kv_lo, kv_hi = head_split(cfg, *model_coord(mesh))
-        q = linear_col(p["wq"], x, h * dh, q_lo * dh, q_hi * dh) \
-            .reshape(b, s, q_hi - q_lo, dh)
-        k, v = (linear_col(p[n], x, hkv * dh, kv_lo * dh, kv_hi * dh)
-                .reshape(b, s, kv_hi - kv_lo, dh) for n in ("wk", "wv"))
-    if cfg.qk_norm:
-        qn, kn = p["q_norm"], p["k_norm"]
-        if mesh is not None:
-            # the rank's heads: each rank's share of the norms' gradients
-            qn, kn = ({"scale": copy_to_model(n["scale"], mesh)}
-                      for n in (qn, kn))
-        q = rmsnorm(qn, q)
-        k = rmsnorm(kn, k)
-    q = apply_rope(q, positions, cfg.rope_theta)
-    k = apply_rope(k, positions, cfg.rope_theta)
+        q = linear_col(p["wq"], x, h * dh, q_lo * dh, q_hi * dh)
+    q = _q_heads(p, cfg, q.reshape(b, s, q_hi - q_lo, dh), positions, mesh)
+    k, v = _kv(p, cfg, x, positions, mesh, kv_lo, kv_hi)
     return q, k, v
 
 
 def _out(p: Params, cfg, out: torch.Tensor) -> torch.Tensor:
     """wo over the heads' outputs [B, S, H' * Dh] (row-parallel under a
-    model axis over ranks)."""
+    model axis over ranks, on the rank's block of the columns: all of its
+    heads' where |model| divides the heads)."""
+    mesh = model_ranks()
+    if mesh is not None:
+        index, m = model_coord(mesh)
+        col_lo, col_hi = head_columns(cfg, index, m)
+        at = col_lo - _rank_heads(cfg, mesh)[0] * cfg.d_head
+        if (at, col_hi - col_lo) != (0, out.shape[-1]):
+            out = out[..., at:at + col_hi - col_lo]
     return linear_row(p["wo"], out, cfg.n_heads * cfg.d_head, cfg.d_model)
 
 
@@ -166,14 +240,14 @@ def gqa_attend(p: Params, cfg, x: torch.Tensor, positions: torch.Tensor,
     site's heads (under a model axis over ranks, the rank's KV heads)."""
     b, s, _ = x.shape
     q, k, v = _qkv(p, cfg, x, positions)
-    n_rep = q.shape[2] // k.shape[2]
+    ks, vs, n_rep = _site_kv(cfg, k, v, _rank_heads(cfg, model_ranks()))
     if _use_flash(cfg, s, window, x.device):
         out = flash_attention(
-            q.transpose(1, 2).contiguous(), k.transpose(1, 2).contiguous(),
-            v.transpose(1, 2).contiguous(), True, n_rep).transpose(1, 2)
+            q.transpose(1, 2).contiguous(), ks.transpose(1, 2).contiguous(),
+            vs.transpose(1, 2).contiguous(), True, n_rep).transpose(1, 2)
     else:
         mask = causal_mask(s, window, x.device)[None]
-        out = _sdpa(q, k, v, mask, n_rep)
+        out = _sdpa(q, ks, vs, mask, n_rep)
     return _out(p, cfg, out.reshape(b, s, -1)), {"k": k, "v": v}
 
 
@@ -206,39 +280,58 @@ def gqa_decode(p: Params, cfg, x: torch.Tensor, cache: Dict,
     return linear(p["wo"], out.reshape(b, 1, -1)), {"k": k, "v": v}
 
 
-def all_heads(cfg, blocks: torch.Tensor, m: int, kv: bool, dim: int = 2
+def kv_slots(cfg, m: int) -> int:
+    """The most KV heads a position of a model axis of `m` holds: the
+    width every position's KV block is padded to for an all-gather."""
+    return max(kv_hi - kv_lo for _, _, kv_lo, kv_hi in
+               (head_split(cfg, i, m) for i in range(m)))
+
+
+def pad_kv(t: torch.Tensor, cfg, m: int, dim: int = 2) -> torch.Tensor:
+    """A rank's KV heads along `dim` padded with zeros to `kv_slots`."""
+    extra = kv_slots(cfg, m) - t.shape[dim]
+    if not extra:
+        return t
+    shape = list(t.shape)
+    shape[dim] = extra
+    return torch.cat([t, t.new_zeros(shape)], dim)
+
+
+def all_heads(cfg, blocks: torch.Tensor, m: int, dim: int = 2
               ) -> torch.Tensor:
-    """The heads of every model position from their blocks concatenated
-    along `dim` in mesh order (`head_split`'s heads of each): the query
-    heads, or each KV head once, from the first position that holds it."""
-    picks, at = [], 0
+    """Each KV head once, from the first model position that holds it,
+    out of every position's KV heads (`head_split`'s, padded to
+    `kv_slots`: `pad_kv`) concatenated along `dim` in mesh order."""
+    picks, width = [], kv_slots(cfg, m)
     for index in range(m):
-        q_lo, q_hi, kv_lo, kv_hi = head_split(cfg, index, m)
-        lo, hi = (kv_lo, kv_hi) if kv else (q_lo, q_hi)
+        _, _, lo, hi = head_split(cfg, index, m)
         for head in range(lo, hi):
             if head == len(picks):
-                picks.append(at + head - lo)
-        at += hi - lo
+                picks.append(index * width + head - lo)
     return blocks.index_select(dim, torch.tensor(picks,
                                                  device=blocks.device))
 
 
 def _gqa_decode_ranks(p, cfg, x, cache, pos, window, ctx_len, mesh):
     b = x.shape[0]
+    h, dh = cfg.n_heads, cfg.d_head
     index, m = model_coord(mesh)
-    q_lo, q_hi, kv_lo, kv_hi = head_split(cfg, index, m)
-    q, k_new, v_new = _qkv(p, cfg, x, pos[:, None])
-    # every head's q and new K/V, in one all-gather
-    width = [t.shape[2] * t.shape[3] for t in (q, k_new, v_new)]
+    heads = head_split(cfg, index, m)
+    q_lo, q_hi, kv_lo, kv_hi = heads
+    q = linear_col(p["wq"], x, h * dh)       # the rank's block of columns
+    k_new, v_new = (pad_kv(t, cfg, m) for t in _kv(
+        p, cfg, x, pos[:, None], mesh, kv_lo, kv_hi))
+    # every rank's q columns and new K/V, in one all-gather
+    width = [q.shape[-1], k_new.shape[2] * dh, v_new.shape[2] * dh]
     got = mesh_all_gather(torch.cat([t.reshape(b, -1) for t in
                                      (q, k_new, v_new)], -1)[None],
                           mesh, ("model",), 0)
-    q_all, k_all, v_all = (all_heads(cfg, t.reshape(m, b, 1, -1, cfg.d_head)
-                                     .permute(1, 2, 0, 3, 4)
-                                     .reshape(b, 1, -1, cfg.d_head),
-                                     m, kv)
-                           for t, kv in zip(got.split(width, -1),
-                                            (False, True, True)))
+    q_got, k_got, v_got = got.split(width, -1)
+    q_all = _q_heads(p, cfg, q_got.permute(1, 0, 2).reshape(b, 1, h, dh),
+                     pos[:, None], mesh)
+    k_all, v_all = (all_heads(cfg, t.reshape(m, b, 1, -1, dh)
+                              .permute(1, 2, 0, 3, 4).reshape(b, 1, -1, dh),
+                              m) for t in (k_got, v_got))
     s_loc = cache["k"].shape[1]
     cut = s_loc != ctx_len
     lo = index * s_loc if cut else 0
@@ -251,8 +344,9 @@ def _gqa_decode_ranks(p, cfg, x, cache, pos, window, ctx_len, mesh):
     if window:
         mask &= (pos[:, None, None] - j[None, None, :]) < window
     if not cut:                          # a whole cache: the rank's heads
-        out = _sdpa(q, k[:, :, kv_lo:kv_hi], v[:, :, kv_lo:kv_hi], mask,
-                    q.shape[2] // (kv_hi - kv_lo))
+        ks, vs, n_rep = _site_kv(cfg, k[:, :, kv_lo:kv_hi],
+                                 v[:, :, kv_lo:kv_hi], heads)
+        out = _sdpa(q_all[:, :, q_lo:q_hi], ks, vs, mask, n_rep)
     else:
         out = _merged_sdpa(q_all, k, v, mask, cfg, mesh)[:, :, q_lo:q_hi]
     return _out(p, cfg, out.reshape(b, 1, -1)), {"k": k, "v": v}

@@ -91,8 +91,10 @@ def _bidir_attend(p: Params, cfg, x, positions):
     under a model axis over ranks."""
     b, s, _ = x.shape
     q, k, v = attn._qkv(p, cfg, x, positions)
+    ks, vs, n_rep = attn._site_kv(cfg, k, v,
+                                  attn._rank_heads(cfg, model_ranks()))
     mask = torch.ones(1, s, s, dtype=torch.bool, device=x.device)
-    out = attn._sdpa(q, k, v, mask, q.shape[2] // k.shape[2])
+    out = attn._sdpa(q, ks, vs, mask, n_rep)
     return attn._out(p, cfg, out.reshape(b, s, -1)), {"k": k, "v": v}
 
 

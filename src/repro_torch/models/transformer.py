@@ -651,13 +651,15 @@ def _rank_caches(cfg, caches, mesh):
 def _sequence_cut(cfg, t: torch.Tensor, mesh, heads: bool = True
                   ) -> torch.Tensor:
     """Stacked head-cut keys or values [L, B', S, Hkv', Dh] (each rank
-    its `head_split` KV heads; `heads`) or the MLA's latent or rope key
-    [L, B', S, R] (whole on every rank) as the rank's block of the
-    sequence-cut cache [L, B', S / |model|, ...] (whole S where the axis
-    does not divide it, as `sanitize_spec` leaves it)."""
+    its `head_split` KV heads, padded for the gather; `heads`) or the
+    MLA's latent or rope key [L, B', S, R] (whole on every rank) as the
+    rank's block of the sequence-cut cache [L, B', S / |model|, ...]
+    (whole S where the axis does not divide it, as `sanitize_spec`
+    leaves it)."""
     index, m = model_coord(mesh)
     every = t if not heads else attn_mod.all_heads(
-        cfg, mesh_all_gather(t, mesh, ("model",), 3), m, True, dim=3)
+        cfg, mesh_all_gather(attn_mod.pad_kv(t, cfg, m, 3), mesh,
+                             ("model",), 3), m, dim=3)
     s = every.shape[2]
     if s % m:
         return every

@@ -8,9 +8,12 @@ pytest worker; so the tests run this script in a subprocess:
     python tests/_dryrun_reference.py < request.json > answer.json
 
 The request is {"tables": bool, "cells": [[arch, shape, mesh, compress,
-zero1], ...]}.  With "tables" the answer carries ARCH_OPTIMIZER,
-all_cells() and, for every arch and applicable shape of the published
-configs, input_specs (shapes and dtypes) and model_flops.  Each cell is
+zero1], ...], "hlo": [[line, total devices], ...]}.  With "hlo" the
+answer carries the reference's `collective_bytes_per_device` of each
+HLO line (total, by kind, counts) and its COLLECTIVES.  With "tables"
+the answer carries ARCH_OPTIMIZER, all_cells() and, for every arch and
+applicable shape of the published configs, input_specs (shapes and
+dtypes) and model_flops.  Each cell is
 the arch's smoke config at the shape's full global size, lowered and
 compiled as `run_cell` compiles it; its answer is XLA's
 memory_analysis() argument and output bytes and the number of output
@@ -66,6 +69,10 @@ def main() -> None:
     out = tables() if req.get("tables") else {}
     out["cells"] = {"|".join(map(str, c)): cell(*c)
                     for c in req.get("cells", [])}
+    if req.get("hlo"):
+        out["collectives"] = list(dryrun.COLLECTIVES)
+        out["hlo"] = [dryrun.collective_bytes_per_device(line, devices)
+                      for line, devices in req["hlo"]]
     json.dump(out, sys.stdout)
 
 

@@ -33,6 +33,14 @@ Bounds, each measured on this CPU first:
   * prefill (float32): logits and the gathered caches PREFILL_ATOL of one
     process's and the reference's (the test_torch_lm bound, 2e-5);
     greedy tokens equal on every route.
+  * heads the model axis does not divide (6 over 4, 9 over 4): prefill
+    logits PREFILL_ATOL, a decode step's logits PREFILL_ATOL and one
+    step's gradients (the rank's blocks) within the gradient-norm test's
+    bounds of one process's and of the reference's (its prefill,
+    decode_step and value_and_grad on the same params and inputs).
+  * the dry-run's rank trace (`launch.dryrun.rank_trace`, a fake process
+    group on meta tensors) against each gloo rank's own record of the
+    same step: calls and payload bytes by axis and calls by kind equal.
 """
 from __future__ import annotations
 
@@ -52,7 +60,7 @@ import torch.distributed as dist
 from repro_torch.configs import get_smoke_config
 from repro_torch.core import mesh as core_mesh
 from repro_torch.core.mesh import local_block, make_named_mesh
-from repro_torch.launch import serve, train
+from repro_torch.launch import dryrun, serve, train
 from repro_torch.models import (init_params, layers, lm_from_jax, prefill,
                                 transformer)
 from repro_torch.optim import get_optimizer
@@ -304,6 +312,128 @@ def scenario_cache_blocks(out):
     return res
 
 
+# heads a model axis of 4 does not divide: 1.5 a rank, each rank's two
+# heads reading one KV head; 2.25 a rank, rank 1's heads 2-4 reading KV
+# heads 0, 1, 1 (`attention.kv_index`: one KV head a query head)
+UNEVEN = {"6 over 2": {"n_heads": 6, "n_kv_heads": 2},
+          "9 over 3": {"n_heads": 9, "n_kv_heads": 3}}
+UNEVEN_CTX = (40, 37)            # a sequence-cut decode cache, a whole one
+
+
+def uneven_cfg(name):
+    return get_smoke_config("qwen3-14b").replace(dtype="float32",
+                                                 **UNEVEN[name])
+
+
+def uneven_inputs(cfg):
+    toks = torch.from_numpy(np.random.default_rng(8).integers(
+        0, cfg.vocab_size, (4, 32)))
+    return init_params(0, cfg, device="cpu"), toks
+
+
+def uneven_decode(params, cfg, toks, logits, caches, ctx, mesh=None):
+    """One greedy decode step after a prefill of `toks` into float32
+    caches of `ctx` positions (the rank's blocks under a mesh of ranks;
+    bfloat16 caches would round float-order changes of K and V apart)."""
+    empty = transformer.empty_caches(cfg, toks.shape[0], ctx,
+                                     dtype=torch.float32, device="cpu")
+    spliced = (serve.splice_caches(empty, caches) if mesh is None else
+               serve.splice_rank_caches(empty, caches, toks.shape[1], ctx,
+                                        mesh))
+    tok = logits[:, -1].argmax(-1)[:, None]
+    pos = torch.full((toks.shape[0],), toks.shape[1], dtype=torch.long)
+    return transformer.decode_step(params, cfg, tok, spliced, pos, ctx)[0]
+
+
+def scenario_uneven_heads(out):
+    """Heads a model axis of 4 does not divide, at (1, 4): the float32
+    prefill's logits, a decode step's over each cache, one step's
+    gradients of the rank's blocks."""
+    mesh = host_mesh(4)
+    res = {}
+    for name in UNEVEN:
+        cfg = uneven_cfg(name)
+        params, toks = uneven_inputs(cfg)
+        got = {}
+        with mesh:
+            placed = serve.place_params(params, mesh)
+            logits, caches = prefill(placed, cfg, {"tokens": toks})
+            got["prefill"] = logits
+            for ctx in UNEVEN_CTX:
+                got[ctx] = uneven_decode(placed, cfg, toks, logits, caches,
+                                         ctx, mesh)
+            specs = steps.state_pspecs(cfg, get_optimizer("adamw"),
+                                       mesh)[0]
+            b = steps.rank_rows(batches(cfg, 1)[0], mesh)[0]
+            got["grads"] = steps._loss_and_grads(
+                cfg, steps.cut(params, specs["params"], mesh), b)[2]
+        res[name] = got
+    return res
+
+
+# The rank trace against the gloo run: drim-bnn and an arch of each other
+# family at smoke width, a train, prefill and decode step each
+TRACE_ARCHS = ("drim-bnn", "qwen3-14b", "deepseek-v3-671b", "mamba2-130m",
+               "zamba2-1.2b", "whisper-medium", "llava-next-34b")
+TRACE_SHAPES = {2: ((1, 2), (2, 1)), 4: ((2, 2), (1, 4))}
+TRACE_BATCH, TRACE_SEQ, TRACE_CTX = 4, 32, 40
+
+
+def trace_batch(cfg, kind, device):
+    """A step's global batch: seeded on a real device, meta tensors of
+    the same shapes and dtypes on meta."""
+    s = 1 if kind == "decode" else TRACE_SEQ
+    shapes = {"tokens": ((TRACE_BATCH, s), torch.long)}
+    if kind == "train":
+        shapes["labels"] = ((TRACE_BATCH, s), torch.long)
+    if kind != "decode" and cfg.family == "vlm":
+        shapes["patch_embeds"] = ((TRACE_BATCH, cfg.n_patches, cfg.d_model),
+                                  torch.bfloat16)
+    if kind != "decode" and cfg.family == "audio":
+        shapes["frames"] = ((TRACE_BATCH, cfg.n_frames, cfg.d_model),
+                            torch.bfloat16)
+    if torch.device(device).type == "meta":
+        return {k: torch.empty(shp, dtype=dt, device="meta")
+                for k, (shp, dt) in shapes.items()}
+    rng = np.random.default_rng(9)
+    return {k: (torch.from_numpy(rng.integers(0, cfg.vocab_size, shp))
+                if dt == torch.long else
+                torch.from_numpy(rng.standard_normal(shp).astype(
+                    np.float32)).to(dt))
+            for k, (shp, dt) in shapes.items()}
+
+
+def trace_cfg(arch, kind):
+    """The arch's smoke config (whisper's widened to 4 heads, as the audio
+    ranks tests widen it: its cross-attention takes whole heads a rank);
+    a serving step's in the dry-run's bfloat16 serving dtype."""
+    cfg = get_smoke_config(arch)
+    if arch == "whisper-medium":
+        cfg = cfg.replace(n_heads=4, n_kv_heads=4)
+    return cfg if kind == "train" else cfg.replace(param_dtype="bfloat16",
+                                                   remat=False)
+
+
+def scenario_trace(out):
+    """Every (arch, kind) step at each mesh of the world, its collectives
+    recorded (`core.mesh.record_collectives`) -> `dryrun.
+    collective_fields`."""
+    res = {}
+    for shape in TRACE_SHAPES[out["world"]]:
+        mesh = host_mesh(shape[1])
+        for arch in TRACE_ARCHS:
+            for kind in ("train", "prefill", "decode"):
+                cfg = trace_cfg(arch, kind)
+                fn, args, grad = dryrun.rank_steps(
+                    cfg, kind, mesh, trace_batch(cfg, kind, "cpu"),
+                    ctx_len=TRACE_CTX, device="cpu")
+                with core_mesh.record_collectives() as calls, \
+                        (torch.enable_grad() if grad else torch.no_grad()):
+                    fn(*args)
+                res[(shape, arch, kind)] = dryrun.collective_fields(calls)
+    return res
+
+
 def scenario_refusals(out):
     said = {}
     calls = {
@@ -377,13 +507,14 @@ def reference(jref, tmp):
 @pytest.fixture(scope="module")
 def world4(reference, tmp):
     return run_world(4, ["cli", "optimizers", "prefill", "serve", "ops",
-                         "cache_blocks"], tmp, entry=_rank_entry)
+                         "cache_blocks", "uneven_heads", "trace"], tmp,
+                     entry=_rank_entry)
 
 
 @pytest.fixture(scope="module")
 def world2(world4, reference, tmp):
     return run_world(2, ["ops", "cli", "reference", "restore", "prefill",
-                         "serve", "cache_blocks", "refusals"], tmp,
+                         "serve", "cache_blocks", "refusals", "trace"], tmp,
                      entry=_rank_entry)
 
 
@@ -720,3 +851,120 @@ def test_torchrun_serve_cli_over_a_model_axis(tmp_path):
     _, want = serve.run_serve(serve.parse_args(argv))
     assert len(stats) == 1
     assert stats[0]["sample_ids"] == want["sample_ids"]
+
+
+# --- heads the model axis does not divide -------------------------------------
+
+@pytest.fixture(scope="module")
+def uneven_reference(jref):
+    """{name: the reference's float32 prefill logits, its decode step's
+    logits over float32 caches of each UNEVEN_CTX, and its
+    `value_and_grad` gradients (as the port's tree)} of each UNEVEN
+    config, on the port's params and inputs of `uneven_inputs`."""
+    from repro.launch import serve as jserve
+    jnp = jref.jnp
+    res = {}
+    for name in UNEVEN:
+        cfg = uneven_cfg(name)
+        params, toks = uneven_inputs(cfg)
+        cj = jref.configs.get_smoke_config("qwen3-14b").replace(
+            dtype="float32", **UNEVEN[name])
+        pj = jref.jax.tree.map(jnp.asarray,
+                               tree_map(lambda t: t.numpy(), params))
+        lj, pre = jref.models.prefill(pj, cj,
+                                      {"tokens": jnp.asarray(toks.numpy())})
+        got = {"prefill": torch.from_numpy(np.array(lj))}
+        tok = jnp.argmax(lj[:, -1], -1)[:, None]
+        pos = jnp.full((toks.shape[0],), toks.shape[1], dtype=jnp.int32)
+        for ctx in UNEVEN_CTX:
+            empty = jref.models.empty_caches(cj, toks.shape[0], ctx,
+                                             dtype=jnp.float32)
+            got[ctx] = torch.from_numpy(np.array(jref.models.decode_step(
+                pj, cj, tok, jserve.splice_caches(empty, pre), pos,
+                ctx)[0]))
+        b = {k: jnp.asarray(v.numpy())
+             for k, v in batches(cfg, 1)[0].items()}
+        _, gj = jref.jax.value_and_grad(
+            lambda p: jref.models.train_loss(p, cj, b), has_aux=True)(pj)
+        got["grads"] = lm_from_jax(jref.jax.tree.map(np.asarray, gj), cfg,
+                                   device="cpu")
+        res[name] = got
+    return res
+
+
+@pytest.mark.parametrize("name", list(UNEVEN))
+def test_heads_the_model_axis_does_not_divide(name, world4,
+                                              uneven_reference):
+    """6 heads over 2 KV heads and 9 over 3 at (1, 4), 1.5 and 2.25 heads
+    a rank: each rank computes every head its block of wq's columns
+    overlaps and hands exactly that block to the row-parallel wo.  The
+    prefill's logits, a decode step's over a sequence-cut (40) and a whole
+    (37) cache, and one step's gradients of each rank's blocks equal one
+    process's and the reference's within the bounds."""
+    cfg = uneven_cfg(name)
+    params, toks = uneven_inputs(cfg)
+    logits, caches = prefill(params, cfg, {"tokens": toks})
+    tol = {"atol": PREFILL_ATOL, "rtol": 0}
+    loss, _, grads = steps._loss_and_grads(cfg, params,
+                                           batches(cfg, 1)[0])
+    ref = uneven_reference[name]
+    mesh = mesh_here((1, 4))
+    specs = sharding.param_pspecs(params, mesh)
+    for r in range(4):
+        got = result(world4, "uneven_heads", r)[name]
+        close(got["prefill"], logits, tol, "prefill")
+        close(got["prefill"], ref["prefill"], tol, "reference prefill")
+        for ctx in UNEVEN_CTX:
+            close(got[ctx], uneven_decode(params, cfg, toks, logits, caches,
+                                          ctx), tol, f"decode {ctx}")
+            close(got[ctx], ref[ctx], tol, f"reference decode {ctx}")
+        for whole in (grads, ref["grads"]):
+            want = tree_map(lambda g, s: g[local_block(tuple(g.shape), s,
+                                                       mesh, r)],
+                            whole, specs)
+            assert_trees_close(got["grads"], want, 1e-5, 1e-4)
+
+
+def test_uneven_heads_split_and_straddle():
+    """Which heads and columns each rank of 4 takes: 9 heads over 3 KV
+    heads (n_rep 3) give rank 1 heads 2-4, whose KV heads 0, 1, 1 are read
+    one a query head (`kv_index`); 6 over 2 leave every rank one KV head;
+    an axis that does not divide H * Dh raises."""
+    from repro_torch.models import attention
+    cfg = uneven_cfg("9 over 3")
+    assert [attention.head_split(cfg, i, 4) for i in range(4)] == [
+        (0, 3, 0, 1), (2, 5, 0, 2), (4, 7, 1, 3), (6, 9, 2, 3)]
+    assert [attention.head_columns(cfg, i, 4) for i in range(4)] == [
+        (0, 72), (72, 144), (144, 216), (216, 288)]
+    assert attention.kv_index(cfg, 2, 5, 0, 2) == [0, 1, 1]
+    assert attention.kv_index(cfg, 0, 3, 0, 1) is None
+    cfg6 = uneven_cfg("6 over 2")
+    assert all(attention.kv_index(cfg6, *attention.head_split(cfg6, i, 4))
+               is None for i in range(4))
+    with pytest.raises(ValueError, match="do not divide"):
+        attention.head_columns(cfg.replace(d_head=30), 0, 4)
+
+
+# --- the dry-run's rank trace -------------------------------------------------
+
+@pytest.mark.parametrize("shape", [(1, 2), (2, 1), (2, 2), (1, 4)])
+def test_rank_trace_equals_the_gloo_run(shape, world2, world4):
+    """The rank trace of each (arch, kind) step, on a fake process group
+    and meta tensors as each rank, against that gloo rank's record of
+    the same step: every collective field equal."""
+    world = shape[0] * shape[1]
+    ranks = {2: world2, 4: world4}[world]
+    for r in range(world):
+        got = result(ranks, "trace", r)
+        for arch in TRACE_ARCHS:
+            for kind in ("train", "prefill", "decode"):
+                cfg = trace_cfg(arch, kind)
+                want = dryrun.rank_trace(
+                    cfg, kind, shape, ("data", "model"),
+                    trace_batch(cfg, kind, "meta"), ctx_len=TRACE_CTX,
+                    rank=r, flops=False)
+                have = got[(shape, arch, kind)]
+                assert sum(have["collective_counts"].values()) > 0
+                for key, value in have.items():
+                    assert want[key] == value, (r, arch, kind, key)
+                assert want.keys() - have.keys() == {"rank_trace_s"}
