@@ -3741,7 +3741,7 @@ def phase_train(wrappers):
     from repro_torch.launch import train
     dev = torch.device("cuda")
     counts = {}
-    torch.cuda.reset_peak_memory_stats()
+    reset_peak()
     with deterministic(), \
             tempfile.TemporaryDirectory(prefix="drim_train_") as ckpt_dir:
         argv = TRAIN + ["--ckpt-dir", ckpt_dir]
@@ -3796,7 +3796,7 @@ def phase_train(wrappers):
             "first_loss": losses[0], "last_loss": final,
             "losses": losses,
             "grad_norm": [line["grad_norm"] for line in steps],
-            "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}))
+            "peak_mem_gb": peak_bytes() / 1e9}))
 
         def restart():
             ck = Checkpointer(ckpt_dir)
@@ -4192,7 +4192,7 @@ def tp_moe_serve_legs(ranks, wrappers, mesh) -> dict:
         for fn in wrappers.values():
             fn.launches = 0
         torch.cuda.empty_cache()
-        torch.cuda.reset_peak_memory_stats()
+        reset_peak()
         t0 = time.perf_counter()
         serve.init_params, serve.splice_rank_caches = spy_init, spy_splice
         try:
@@ -4204,7 +4204,7 @@ def tp_moe_serve_legs(ranks, wrappers, mesh) -> dict:
         rec = {"gen": gen, "stats": stats, **tap_values(tap),
                "launches": {n: fn.launches for n, fn in wrappers.items()},
                "wall_s": time.perf_counter() - t0,
-               "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+               "peak_gb": peak_bytes() / 1e9}
         params = drawn.pop()
         bank = params["layers"]["moe"]
         rec["expert_bytes"] = sum(bank[k].numel() * bank[k].element_size()
@@ -4288,8 +4288,9 @@ def tp_family_serve_legs(ranks, wrappers) -> dict:
 
         def run(*args):
             before = dict(core_mesh.COLLECTIVE_STATS)
-            out = dec(*args)
+            out, temp = measured_temp(lambda: dec(*args))
             decodes.append(collective_since(before))
+            decode_temps.append(temp)
             return out
         return run
     legs_of = {}
@@ -4307,7 +4308,7 @@ def tp_family_serve_legs(ranks, wrappers) -> dict:
                     SEED, serve.build_cfg(args), device=ranks.device)
             given = shared[(arch, layers)]
         caches, at_prefill, used, planted = [], [], {}, {}
-        decodes = []
+        decodes, decode_temps = [], []
         inner = {n: getattr(serve, n) for n in
                  ("prefill", "splice_caches", "splice_rank_caches")}
 
@@ -4352,7 +4353,7 @@ def tp_family_serve_legs(ranks, wrappers) -> dict:
         for fn in wrappers.values():
             fn.launches = 0
         torch.cuda.empty_cache()
-        torch.cuda.reset_peak_memory_stats()
+        reset_peak()
         before = dict(core_mesh.COLLECTIVE_STATS)
         t0 = time.perf_counter()
         serve.prefill = spy_prefill
@@ -4377,10 +4378,10 @@ def tp_family_serve_legs(ranks, wrappers) -> dict:
             "gen": gen, "stats": stats, **tap_values(tap),
             "launches": launches,
             "wall_s": time.perf_counter() - t0,
-            "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+            "peak_gb": peak_bytes() / 1e9,
             "param_bytes": used["bytes"], "cache_bytes": nbytes(caches[0]),
             "collective": coll, "prefill_collective": at_prefill[0],
-            "decode_collectives": decodes,
+            "decode_collectives": decodes, "decode_temp_b": decode_temps,
             "planted_prefill": planted.get("prefill"),
             "frames_prefill": planted.get("frames_prefill")}
         del caches, tap, used
@@ -4519,7 +4520,7 @@ def run_mode(leg: str, wrappers, extra=()):
     for fn in wrappers.values():
         fn.launches = 0
     torch.cuda.empty_cache()
-    torch.cuda.reset_peak_memory_stats()
+    reset_peak()
     t0 = time.perf_counter()
     with batcher_tap() as gaps:
         if args.continuous:
@@ -4533,7 +4534,7 @@ def run_mode(leg: str, wrappers, extra=()):
     return {"out": out, "gaps": {r: list(g) for r, g in gaps.items()},
             "launches": {n: fn.launches for n, fn in wrappers.items()},
             "wall_s": time.perf_counter() - t0,
-            "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+            "peak_gb": peak_bytes() / 1e9}
 
 
 def tp_mode_legs(ranks, wrappers) -> dict:
@@ -4627,7 +4628,7 @@ def train_leg(ranks, wrappers, argv, plant, **cut):
         finally:
             gathers["s"] += time.perf_counter() - t0
     train.gather = timed_gather
-    torch.cuda.reset_peak_memory_stats()
+    reset_peak()
     text = io.StringIO()
     t0 = time.perf_counter()
     try:
@@ -4645,9 +4646,10 @@ def train_leg(ranks, wrappers, argv, plant, **cut):
                        for k, v in core_mesh.COLLECTIVE_STATS.items()},
         "checkpoint_gather_s": gathers["s"],
         "wall_s": time.perf_counter() - t0,
-        "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+        "peak_gb": peak_bytes() / 1e9,
         "losses": seen["losses"],
         "step_collectives": seen["step_collectives"],
+        "step_temp_b": seen["step_temp_b"],
         "lines": [json.loads(line) for line in text.getvalue().splitlines()
                   if line.startswith("{")]}
     return record, seen
@@ -4758,6 +4760,8 @@ def phase_ranks(wrappers):
         recs = legs["straight"]
         MEASURED_RANK_LEGS["drim-bnn train (2, 1)"] = [
             r["step_collectives"] for r in recs]
+        MEASURED_RANK_MEMORY["drim-bnn train (2, 1)"] = [
+            r["step_temp_b"] for r in recs]
         lines = [line for line in recs[0]["lines"] if "step" in line]
         s_step = (lines[-1]["wall_s"] - lines[0]["wall_s"]) \
             / (TRAIN_STEPS - 1)
@@ -5168,7 +5172,7 @@ def tp_serve_legs(out: str, ranks, wrappers) -> None:
             return caches[-1]
         for fn in wrappers.values():
             fn.launches = 0
-        torch.cuda.reset_peak_memory_stats()
+        reset_peak()
         serve.splice_rank_caches = spy
         t0 = time.perf_counter()
         try:
@@ -5183,7 +5187,7 @@ def tp_serve_legs(out: str, ranks, wrappers) -> None:
                                  for n, fn in wrappers.items()},
                     "cache_bytes": sum(t.numel() * t.element_size()
                                        for t in tree_leaves(caches[0])),
-                    "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+                    "peak_gb": peak_bytes() / 1e9}
         del caches
         torch.cuda.empty_cache()
     torch.save(res, os.path.join(out, f"rank{ranks.rank}_serve.pt"))
@@ -5324,6 +5328,8 @@ def phase_tp(wrappers):
         recs = legs["straight"]
         MEASURED_RANK_LEGS["drim-bnn train (1, 2)"] = [
             r["step_collectives"] for r in recs]
+        MEASURED_RANK_MEMORY["drim-bnn train (1, 2)"] = [
+            r["step_temp_b"] for r in recs]
         lines = [line for line in recs[0]["lines"] if "step" in line]
         s_step = (lines[-1]["wall_s"] - lines[0]["wall_s"]) \
             / (TRAIN_STEPS - 1)
@@ -5957,6 +5963,8 @@ def check_tp_families(tmp: str, n: int) -> dict:
         if (arch, k) == (TP_AUDIO, TP):
             MEASURED_RANK_LEGS["whisper-medium decode (1, 2)"] = [
                 rec["serve"][leg]["decode_collectives"] for rec in recs]
+            MEASURED_RANK_MEMORY["whisper-medium decode (1, 2)"] = [
+                rec["serve"][leg]["decode_temp_b"] for rec in recs]
         per_rank = []
         for r, rec in enumerate(recs):
             got = rec["serve"][leg]
@@ -6292,14 +6300,44 @@ def deterministic():
         torch.utils.deterministic.fill_uninitialized_memory = fill
 
 
+# The allocator's peak before the last reset `measured_temp` made: a leg
+# whose steps are measured one by one reads its own peak as the most of
+# these and the peak since (`peak_bytes`).
+HELD_PEAK = [0]
+
+
+def reset_peak() -> None:
+    """Start a leg's peak (`peak_bytes`) afresh."""
+    HELD_PEAK[0] = 0
+    torch.cuda.reset_peak_memory_stats()
+
+
+def peak_bytes() -> int:
+    """The most bytes allocated on the card since `reset_peak`."""
+    return max(HELD_PEAK[0], torch.cuda.max_memory_allocated())
+
+
+def measured_temp(run):
+    """(run(), the bytes it held on the card on top of what was allocated
+    just before it: `max_memory_allocated()` over the call less
+    `memory_allocated()` before it, the allocator's counterpart of the
+    dry-run's mem_temp_b)."""
+    HELD_PEAK[0] = peak_bytes()
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    out = run()
+    return out, torch.cuda.max_memory_allocated() - before
+
+
 @contextlib.contextmanager
 def trainer_spy(train, **cut):
     """`train.main` with its config cut (`ModelConfig.replace(**cut)`:
     depth, experts) and its step recorded: yields a dict that holds, once
     main returns, the step function, the config, the last state and
-    batch the trainer stepped, every step's loss unrounded ("losses")
-    and every step's rank collectives (`collective_since`:
-    "step_collectives")."""
+    batch the trainer stepped, every step's loss unrounded ("losses"),
+    every step's rank collectives (`collective_since`:
+    "step_collectives") and every step's bytes on top of what it was
+    handed (`measured_temp`: "step_temp_b")."""
     from repro_torch.core import mesh as core_mesh
     build_cfg, build = train.build_cfg, train.build
     seen = {}
@@ -6313,13 +6351,15 @@ def trainer_spy(train, **cut):
 
         def step(state, batch):
             before = dict(core_mesh.COLLECTIVE_STATS)
-            new, metrics = step_fn(state, batch)
+            (new, metrics), temp = measured_temp(
+                lambda: step_fn(state, batch))
             seen["step_collectives"].append(collective_since(before))
+            seen["step_temp_b"].append(temp)
             seen.update(state=new, batch=batch)
             seen["losses"].append(float(metrics["loss"]))
             return new, metrics
         seen.update(step_fn=step_fn, cfg=cfg, losses=[],
-                    step_collectives=[])
+                    step_collectives=[], step_temp_b=[])
         return cfg, step, init_state
     train.build_cfg, train.build = cut_cfg, spy_build
     try:
@@ -6330,9 +6370,10 @@ def trainer_spy(train, **cut):
 
 def repeat_step(step_fn, state, batch):
     """One step from `state` run twice: (loss, whether the two losses and
-    every new parameter are bitwise equal).  The first run's parameters
+    every new parameter are bitwise equal, the first run's bytes on top of
+    what it was handed: `measured_temp`).  The first run's parameters
     wait on the host, so the card holds one new state at a time."""
-    new, metrics = step_fn(state, batch)
+    (new, metrics), temp = measured_temp(lambda: step_fn(state, batch))
     loss = metrics["loss"].cpu()
     first = [(p, t.cpu()) for p, t in flat_leaves(new["params"])]
     del new, metrics
@@ -6340,7 +6381,7 @@ def repeat_step(step_fn, state, batch):
     same = torch.equal(loss, metrics["loss"].cpu()) and all(
         torch.equal(a, b.cpu()) for (_, a), (_, b) in
         zip(first, flat_leaves(new["params"])))
-    return float(loss), same
+    return float(loss), same, temp
 
 
 def phase_train_families(wrappers):
@@ -6376,7 +6417,7 @@ def phase_train_families(wrappers):
                          "flash_bwd_dkv": sites, "flash_bwd_dq": sites}
                         if sites else {})
             torch.cuda.empty_cache()
-            torch.cuda.reset_peak_memory_stats()
+            reset_peak()
             leg = f"train families {arch}"
             with trainer_spy(train, **cut) as seen:
                 def run(argv=argv):
@@ -6391,7 +6432,7 @@ def phase_train_families(wrappers):
                     wrappers, leg, run,
                     lambda _, n=FAMILY_TRAIN_STEPS, ps=per_step:
                         {k: v * n for k, v in ps.items()})
-            peak = torch.cuda.max_memory_allocated() / 1e9
+            peak = peak_bytes() / 1e9
             TRAINED[arch] = list(seen["losses"])
             steps = [line for line in lines if "step" in line]
             losses = [line["loss"] for line in steps]
@@ -6413,7 +6454,7 @@ def phase_train_families(wrappers):
             data = SyntheticLM(cfg.vocab_size, seq, batch, seed=SEED)
             nxt = train.batch_at(data, cfg, FAMILY_TRAIN_STEPS, SEED, dev)
             t0 = time.perf_counter()
-            (loss, same), counts[leg + " repeat"] = counted(
+            (loss, same, temp), counts[leg + " repeat"] = counted(
                 wrappers, leg + " repeat",
                 lambda: repeat_step(step_fn, held[0], nxt),
                 lambda _, ps=per_step: {k: 2 * v for k, v in ps.items()})
@@ -6421,6 +6462,9 @@ def phase_train_families(wrappers):
             if not same:
                 raise AssertionError(f"{leg}: a step repeated from the same "
                                      "state differs")
+            if arch in HOST_MEMORY_LEGS:
+                MEASURED_HOST_LEGS[arch] = {
+                    "warm_temp_b": temp, "steps_temp_b": seen["step_temp_b"]}
             batches = [train.batch_at(data, cfg, FAMILY_TRAIN_STEPS + 1 + i,
                                       SEED, dev)
                        for i in range(FAMILY_PROFILE_STEPS)]
@@ -6558,6 +6602,35 @@ RANK_LEGS = {"drim-bnn train (1, 2)": ("train", (1, 2)),
              "drim-bnn train (2, 1)": ("train", (2, 1)),
              "whisper-medium decode (1, 2)": ("decode", (1, 2))}
 MEASURED_RANK_LEGS: dict = {}
+# The same legs' bytes a step on top of what the step was handed, each
+# rank's steps (`measured_temp` in `trainer_spy` and in the tp phase's
+# decode calls), held to the trace's mem_temp_b (`check_memory_legs`).
+MEASURED_RANK_MEMORY: dict = {}
+# The train families legs whose warm repeated step (`repeat_step`) is
+# held to the dry-run's one-process trace (`launch.dryrun.host_trace`):
+# llava (2 layers, AdamW) and deepseek-v3 (1 layer, 32 experts,
+# adafactor), the widest steps the card runs.
+HOST_MEMORY_LEGS = ("llava-next-34b", "deepseek-v3-671b")
+MEASURED_HOST_LEGS: dict = {}
+# The bound, fixed before the first card run: the predicted temp within
+# 10 % of the measured, or within 256 MiB where the measured temp is
+# under 2.5 GiB.
+MEMORY_RTOL, MEMORY_ATOL_B, MEMORY_SMALL_B = 0.10, 256 * 2**20, 2.5 * 2**30
+# The planted prediction that must fail the bound: llava's step with
+# `--donate` (AdamW in place, one state where the card's leg holds two).
+# The dense-scores prediction cannot serve: every leg's peak falls in the
+# optimizer's update, after the backward has freed the scores, so the
+# meta trace with `attention_impl="xla"` gives each leg's flash temp to
+# the byte (43,013,309,440 bytes for llava).
+MEMORY_PLANT = ("llava-next-34b", "its step traced with --donate: AdamW "
+                "in place, one state where the leg holds two")
+
+
+def memory_holds(predicted: int, measured: int) -> bool:
+    """The predicted temp within the bound of the measured."""
+    gap = abs(predicted - measured)
+    return gap <= MEMORY_RTOL * measured or (
+        measured < MEMORY_SMALL_B and gap <= MEMORY_ATOL_B)
 
 
 def predict_rank_legs(out: str) -> None:
@@ -6565,8 +6638,14 @@ def predict_rank_legs(out: str) -> None:
     ranks, on meta tensors: drim-bnn's TRAIN run (its config, global
     batch and optimizer as `launch.train` builds them) and one decode
     step of the tp phase's whisper-medium leg (`family_argv`, its caches
-    of prompt + gen positions) -> OUT, {leg: [each rank's fields]}."""
+    of prompt + gen positions); then `launch.dryrun.host_trace` of each
+    HOST_MEMORY_LEGS leg (its TRAIN_FAMILIES row: the config cut, the
+    trainer's batch of step 0 as meta tensors, the optimizer) and of the
+    planted MEMORY_PLANT -> OUT, {leg: [each rank's fields], "host":
+    {arch: fields}, "planted": fields}."""
     import math
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import SyntheticLM
     from repro_torch.launch import dryrun, serve, train
     res = {}
     for leg, (kind, shape) in RANK_LEGS.items():
@@ -6587,6 +6666,21 @@ def predict_rank_legs(out: str) -> None:
                                       batch, ctx_len=ctx, optimizer=opt,
                                       rank=r, flops=False)
                     for r in range(math.prod(shape))]
+    res["host"] = {}
+    for arch, layers, experts, rows, seq, opt, _ in TRAIN_FAMILIES:
+        if arch not in HOST_MEMORY_LEGS:
+            continue
+        cut = {"n_layers": layers} if layers else {}
+        if experts:
+            cut["n_experts"] = experts
+        cfg = get_config(arch).replace(**cut)
+        data = SyntheticLM(cfg.vocab_size, seq, rows, seed=SEED)
+        batch = {k: torch.empty_like(v, device="meta") for k, v in
+                 train.batch_at(data, cfg, 0, SEED, "cpu").items()}
+        res["host"][arch] = dryrun.host_trace(cfg, batch, optimizer=opt)
+        if arch == MEMORY_PLANT[0]:
+            res["planted"] = dryrun.host_trace(cfg, batch, optimizer=opt,
+                                               donate=True)
     with open(out, "w") as f:
         json.dump(res, f)
 
@@ -6597,13 +6691,16 @@ def dryrun_process():
     then of every cell, `launch.dryrun.main(["--all", "--out", <a
     temporary file>])`, in a process of its own on the host's CPU (no
     card visible to it), started now so that it runs beside the card's
-    phases; yields (process, records path, log path, predictions path);
-    the process is killed if it still runs on exit."""
+    phases, at the lowest CPU priority (nice 19: it takes the cores the
+    phases leave idle, and the threaded weight draws keep theirs);
+    yields (process, records path, log path, predictions path); the
+    process is killed if it still runs on exit."""
     tmp = tempfile.TemporaryDirectory(prefix="drim_dryrun_")
     out = os.path.join(tmp.name, "cells.jsonl")
     legs = os.path.join(tmp.name, "rank_legs.json")
     log = open(os.path.join(tmp.name, "dryrun.log"), "w")
-    code = ("import sys, time\n"
+    code = ("import os, sys, time\n"
+            "os.nice(19)\n"
             "t0 = time.perf_counter()\n"
             "sys.path.insert(0, sys.argv[3])\n"
             "import chip_smoke\n"
@@ -6649,9 +6746,12 @@ def phase_dryrun(proc, out: str, log: str, legs: str) -> None:
     card = torch.cuda.get_device_properties(0).total_memory
     fields = ("collective_counts", "collective_by_kind",
               "collective_bytes_per_device", "collective_calls_by_axis",
-              "collective_payload_b_by_axis", "flops_per_device")
+              "collective_payload_b_by_axis", "flops_per_device",
+              "mem_temp_b", "mem_peak_b")
     for r in records:
-        if r["status"] != "ok" or any(k not in r for k in fields):
+        if r["status"] != "ok" or any(k not in r for k in fields) \
+                or not r["mem_temp_b"] > 0 or r["mem_peak_b"] != \
+                r["mem_argument_b"] + r["mem_temp_b"]:
             raise AssertionError(f"dry-run cell {r}")
         print("dryrun " + json.dumps({
             "cell": f"{r['arch']} {r['shape']} {r['mesh']}",
@@ -6659,6 +6759,9 @@ def phase_dryrun(proc, out: str, log: str, legs: str) -> None:
             "mem_argument_b": r["mem_argument_b"],
             "mem_output_b": r["mem_output_b"],
             "arguments_fit_the_card": r["mem_argument_b"] < card,
+            "mem_temp_b": r["mem_temp_b"], "mem_peak_b": r["mem_peak_b"],
+            "rank0_argument_b": r["rank_argument_b"],
+            "peak_fits_the_card": r["mem_peak_b"] < card,
             "flops_global": r["flops_global"],
             "model_flops_global": r["model_flops_global"],
             "rank0_calls_by_axis": r["collective_calls_by_axis"],
@@ -6675,9 +6778,13 @@ def phase_dryrun(proc, out: str, log: str, legs: str) -> None:
     print("dryrun " + json.dumps({
         "cells": len(records), "ok": len(records),
         "fit_the_card": sum(r["mem_argument_b"] < card for r in records),
+        "peak_fits_the_card": sum(r["mem_peak_b"] < card
+                                  for r in records),
         "card_total_memory_b": card, "phase_wall_s": wall[0],
         "rank_legs_s": legs_s[0], "waited_s": waited}))
-    check_rank_legs(json.load(open(legs)))
+    predicted = json.load(open(legs))
+    check_rank_legs(predicted)
+    check_memory_legs(predicted)
 
 
 def check_rank_legs(predicted) -> None:
@@ -6706,6 +6813,47 @@ def check_rank_legs(predicted) -> None:
             if seen != [pred] or not steps:
                 raise AssertionError(f"dryrun ranks {leg} rank {rank}: "
                                      f"predicted {pred}, measured {seen}")
+
+
+def check_memory_legs(predicted) -> None:
+    """Each leg's predicted temp (the dry-run's mem_temp_b) against the
+    allocator's (`measured_temp`) within the bound (`memory_holds`): every
+    rank of each RANK_LEGS leg at every step from the second (the first,
+    printed beside, also takes the card's one-off buffers), and the
+    HOST_MEMORY_LEGS legs' warm repeated step; the planted prediction
+    (MEMORY_PLANT) must fail it.  A "dryrun memory" line each."""
+    def line(leg, pred, meas, **more):
+        held = memory_holds(pred, meas)
+        print("dryrun memory " + json.dumps({
+            "leg": leg, **more, "predicted_temp_gb": pred / 1e9,
+            "measured_temp_gb": meas / 1e9, "ratio": pred / meas,
+            "bound": f"{MEMORY_RTOL:.0%}, or {MEMORY_ATOL_B // 2**20} MiB "
+                     f"under {MEMORY_SMALL_B / 2**30} GiB",
+            "within": held}))
+        return held
+    failed = []
+    for leg in RANK_LEGS:
+        for rank, (want, steps) in enumerate(zip(
+                predicted[leg], MEASURED_RANK_MEMORY[leg])):
+            if len(steps) < 2:
+                failed.append(f"{leg} rank {rank}: {len(steps)} steps")
+            for i, got in enumerate(steps[1:], 2):
+                if not line(leg, want["mem_temp_b"], got, rank=rank,
+                            step=i, step1_temp_gb=steps[0] / 1e9):
+                    failed.append(f"{leg} rank {rank} step {i}")
+    for arch in HOST_MEMORY_LEGS:
+        got = MEASURED_HOST_LEGS[arch]
+        if not line(f"train families {arch}",
+                    predicted["host"][arch]["mem_temp_b"],
+                    got["warm_temp_b"], step="warm repeat",
+                    steps_temp_gb=[t / 1e9 for t in got["steps_temp_b"]]):
+            failed.append(f"train families {arch}")
+    arch, what = MEMORY_PLANT
+    if line(f"planted {arch}", predicted["planted"]["mem_temp_b"],
+            MEASURED_HOST_LEGS[arch]["warm_temp_b"], planted=what):
+        failed.append(f"the planted prediction ({what}) held")
+    if failed:
+        raise AssertionError(f"dryrun memory: {failed}")
 
 
 def read_counts(wrappers, names, phase: str):

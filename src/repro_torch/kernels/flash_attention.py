@@ -26,6 +26,18 @@ sources for the designs).
 `torch.autograd.Function`: the forward kernel, then both backward
 kernels.  On CPU tensors every wrapper runs its plain version; on CUDA
 tensors it launches its kernel or raises.
+
+On meta tensors (the dry-run, which models the card) every wrapper gives
+what its kernel gives, shapes and dtypes with no storage and no launch:
+the forward out in q's dtype and lse float32 [B, H, Sq], the backward
+delta float32 [B, H, Sq] (the same torch op as on the card), then dk, dv
+and dq.  Each is an operator of its own (`repro_torch::flash_fwd`,
+`flash_bwd_dkv`, `flash_bwd_dq`, a Meta kernel only) whose FLOP formula
+for `torch.utils.flop_counter` is the dense products the CPU's `_sdpa`
+runs for the same attention, so that a meta step counts what a CPU step
+counts: the forward 4*B*H*Sq*Sk*D (scores and values, unhalved), the
+backward 8*B*H*Sq*Sk*D, dkv the 6 of them that give dv, the scores'
+gradient and dk, dq the 2 that give dq.
 """
 from __future__ import annotations
 
@@ -34,6 +46,7 @@ import functools
 from typing import Tuple
 
 import torch
+from torch.utils.flop_counter import register_flop_formula
 
 from repro_torch.kernels import _build
 from repro_torch.kernels.ref import sdpa_ref
@@ -102,12 +115,61 @@ def _check(q, k, v, n_rep: int, bq: int, bk: int) -> None:
 
 
 def _check_kernel(q) -> None:
-    if q.device.type != "cuda":
+    if q.device.type not in ("cuda", "meta"):
         raise ValueError(f"flash attention runs on cpu or cuda, not "
                          f"{q.device}")
     if q.shape[3] not in HEAD_DIMS:
         raise ValueError(f"the kernel takes head widths {HEAD_DIMS}, not "
                          f"{q.shape[3]}")
+
+
+# --- the meta device's operators ---------------------------------------------
+
+_META_LIB = torch.library.Library("repro_torch", "FRAGMENT")
+_META_LIB.define("flash_fwd(Tensor q, Tensor k, Tensor v) -> (Tensor, Tensor)")
+_META_LIB.define("flash_bwd_dkv(Tensor q, Tensor k, Tensor v, Tensor do, "
+                 "Tensor lse, Tensor delta) -> (Tensor, Tensor)")
+_META_LIB.define("flash_bwd_dq(Tensor q, Tensor k, Tensor v, Tensor do, "
+                 "Tensor lse, Tensor delta) -> Tensor")
+
+
+def _fwd_meta(q, k, v):
+    return (torch.empty_like(q),
+            q.new_empty(q.shape[:3], dtype=torch.float32))
+
+
+def _dkv_meta(q, k, v, do, lse, delta):
+    return torch.empty_like(k), torch.empty_like(v)
+
+
+def _dq_meta(q, k, v, do, lse, delta):
+    return torch.empty_like(q)
+
+
+_META_LIB.impl("flash_fwd", _fwd_meta, "Meta")
+_META_LIB.impl("flash_bwd_dkv", _dkv_meta, "Meta")
+_META_LIB.impl("flash_bwd_dq", _dq_meta, "Meta")
+
+
+def _dense_products(q_shape, k_shape) -> int:
+    """B*H*Sq*Sk*D: the multiply-adds of one dense [Sq, Sk] product."""
+    b, h, sq, d = q_shape
+    return b * h * sq * k_shape[2] * d
+
+
+@register_flop_formula(torch.ops.repro_torch.flash_fwd)
+def _fwd_flops(q_shape, k_shape, *args, out_shape=None, **kwargs) -> int:
+    return 4 * _dense_products(q_shape, k_shape)
+
+
+@register_flop_formula(torch.ops.repro_torch.flash_bwd_dkv)
+def _dkv_flops(q_shape, k_shape, *args, out_shape=None, **kwargs) -> int:
+    return 6 * _dense_products(q_shape, k_shape)
+
+
+@register_flop_formula(torch.ops.repro_torch.flash_bwd_dq)
+def _dq_flops(q_shape, k_shape, *args, out_shape=None, **kwargs) -> int:
+    return 2 * _dense_products(q_shape, k_shape)
 
 
 def flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -119,6 +181,8 @@ def flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, causal, n_rep)
     _check_kernel(q)
+    if q.device.type == "meta":
+        return torch.ops.repro_torch.flash_fwd(q, k, v)
     b, h, sq, d = q.shape
     out = torch.empty_like(q)
     lse = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
@@ -215,6 +279,8 @@ def flash_bwd_dkv(q, k, v, do, lse, delta, *, causal: bool = True,
     if q.device.type == "cpu":
         return _bwd_plain(q, k, v, do, lse, delta, causal, n_rep)[1:]
     _check_kernel(q)
+    if q.device.type == "meta":
+        return torch.ops.repro_torch.flash_bwd_dkv(q, k, v, do, lse, delta)
     dk, dv = torch.empty_like(k), torch.empty_like(v)
     if dk.numel() == 0:
         return dk, dv
@@ -238,6 +304,8 @@ def flash_bwd_dq(q, k, v, do, lse, delta, *, causal: bool = True,
     if q.device.type == "cpu":
         return _bwd_plain(q, k, v, do, lse, delta, causal, n_rep)[0]
     _check_kernel(q)
+    if q.device.type == "meta":
+        return torch.ops.repro_torch.flash_bwd_dq(q, k, v, do, lse, delta)
     dq = torch.empty_like(q)
     if dq.numel() == 0:
         return dq
@@ -256,7 +324,7 @@ flash_bwd_dq.launches = 0
 def flash_bwd(q, k, v, out, lse, do, *, causal: bool = True, n_rep: int = 1
               ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """(dq, dk, dv): the plain version on CPU tensors, else delta as one
-    torch op and the two kernels."""
+    torch op and the two kernels (on meta tensors, their operators)."""
     if q.device.type == "cpu":
         return flash_attention_bwd_plain(q, k, v, out, lse, do, causal, n_rep)
     delta = _delta(out, do)

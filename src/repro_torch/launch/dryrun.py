@@ -29,11 +29,15 @@ the cell's full global shape, and records:
 
 The step is traced with no ambient mesh: under the production mesh the
 MoE would take its expert-parallel path, which runs a block per (data,
-model) position in turn.  The mesh enters only through the specs.  On
-meta tensors attention takes the dense-scores `_sdpa` (`_use_flash` is
-for the card), which is right for shapes, so `flops_global` counts dense
-scores.  The port's trunk is a Python loop, so the meta run counts every
-layer.
+model) position in turn.  The mesh enters only through the specs.  The
+meta device models the card: attention takes the flash wrappers wherever
+the card would (`attention._use_flash`: unwindowed, the sequence a
+multiple of 128), whose meta operators give the kernels' outputs (out,
+lse; in the backward delta, dq, dk, dv) and nothing [Sq, Sk]-shaped, and
+count for `FlopCounterMode` the FLOPs of the dense products the CPU's
+`_sdpa` runs (`kernels.flash_attention`), so `flops_global` is a CPU
+run's count of the same step.  The port's trunk is a Python loop, so the
+meta run counts every layer.
 
 Then each cell runs a second time, as rank 0 of the production mesh of
 ranks (`rank_trace`): a `"fake"` process group of 256 or 512 ranks
@@ -68,19 +72,43 @@ kind, group size n, payload and axes, which gives:
                         compares exactly;
   * flops_per_device    `FlopCounterMode` over the rank's step: the
                         counterpart of the reference's
-                        hlo_flops_per_device (no HLO here, so no hlo_).
+                        hlo_flops_per_device (no HLO here, so no hlo_);
+  * mem_temp_b          the most bytes the rank's step holds on its
+                        device on top of its arguments, from the same
+                        run (`LiveBytes`): at each operator the bytes of
+                        every storage still referenced (a view's once,
+                        an in-place result none, autograd's saved
+                        tensors until the backward frees them, remat's
+                        recomputation where it runs), each rounded up as
+                        the card's allocator rounds a block.  On the
+                        card it is `torch.cuda.max_memory_allocated()`
+                        less `memory_allocated()` just before the step.
+                        Eager execution keeps the outputs live, so they
+                        fall inside it, where XLA's temp_size_in_bytes
+                        counts them apart and reuses buffers as its
+                        schedule allows: the values are the port's, not
+                        XLA's;
+  * mem_peak_b          mem_argument_b + mem_temp_b, the reference's
+                        identity: does the step fit a device;
+  * rank_argument_b     the bytes of the arguments rank 0 itself holds
+                        (its blocks; every leaf, read or not), beside
+                        the spec-derived mem_argument_b.
 
 Where the fake backend cannot be imported or the rank's step raises, the
 cell's status is "error" with the reason: no count reads as zero.  A
-`--no-zero1` cell has no rank trace ("rank_trace" says why): the rank
-path always cuts the moments over the data axes.
+`--no-zero1` cell has no rank trace ("rank_trace" says why) and so no
+mem_temp_b or mem_peak_b ("mem_note", the reference's key, says why):
+the rank path always cuts the moments over the data axes.
+
+`host_trace` traces one process's training step (`train --mesh host`) on
+meta tensors the same way, for the legs a card runs in one process.
 
 Left out, as reference-only (they read XLA's compiler output, which a
-process that compiles nothing does not have): mem_temp_b and mem_peak_b,
-hlo_bytes_per_device and the HLO text parser, and the probe
-extrapolation (`probe_points` to `probe_all`, which exist because XLA
-counts a scanned layer once: the port's trunk is a Python loop, so the
-rank trace counts every layer and needs no probe).
+process that compiles nothing does not have): hlo_bytes_per_device and
+the HLO text parser, and the probe extrapolation (`probe_points` to
+`probe_all`, which exist because XLA counts a scanned layer once: the
+port's trunk is a Python loop, so the rank trace counts every layer and
+needs no probe).
 
 Usage:
   PYTHONPATH=src python -m repro_torch.launch.dryrun --arch qwen3-14b \\
@@ -104,6 +132,7 @@ from typing import Any, Callable, Dict, Tuple
 
 import torch
 import torch.distributed as dist
+from torch.multiprocessing.reductions import StorageWeakRef
 from torch.utils._python_dispatch import TorchDispatchMode
 from torch.utils.flop_counter import FlopCounterMode
 
@@ -112,7 +141,7 @@ from repro_torch.configs.registry import ARCHS
 from repro_torch.core import mesh as core_mesh
 from repro_torch.core.mesh import (Mesh, NamedSharding, PartitionSpec as P,
                                    abstract_mesh, axis_size)
-from repro_torch.launch.mesh import PRODUCTION_MESHES
+from repro_torch.launch.mesh import PRODUCTION_MESHES, make_host_mesh
 from repro_torch.launch.serve import place_params
 from repro_torch.models import abstract_caches, abstract_params, init_params
 from repro_torch.models.transformer import padded_vocab
@@ -320,6 +349,80 @@ class _Dataflow(TorchDispatchMode):
         return live
 
 
+# The card's caching allocator rounds every block up to 512 bytes.
+ALLOC_ROUND_B = 512
+
+
+class LiveBytes(TorchDispatchMode):
+    """The live bytes of a step's own storages on `device`, over its
+    operators: each storage an operator returns (a view's is its base's,
+    counted once; an in-place operator returns one already counted), held
+    through a `StorageWeakRef` (meta storages all have data_ptr 0, so the
+    key is the storage's `_cdata`, which a weak reference keeps unique)
+    until it expires: when the last tensor, view or autograd saved tensor
+    that holds it goes.  Each storage counts as the card's allocator
+    counts its block (ALLOC_ROUND_B).  The storages of `args` (the step's
+    arguments, which the caller holds throughout) are left out, so that
+    `peak_b` is the most the step held on top of them: the counterpart of
+    `torch.cuda.max_memory_allocated()` less `memory_allocated()` just
+    before the step.  The live total is swept for expired storages only
+    where it would pass the peak, which keeps the peak exact (a sweep
+    only lowers the total)."""
+
+    def __init__(self, args, device):
+        super().__init__()
+        self.device = torch.device(device)
+        stores = {st._cdata: st for st in (
+            t.untyped_storage() for a in args for t in tree_leaves(a)
+            if t.device == self.device)}
+        self.args = {k: StorageWeakRef(st) for k, st in stores.items()}
+        # the arguments' bytes (unrounded, as `mem_argument_b` counts)
+        self.argument_b = sum(st.nbytes() for st in stores.values())
+        self.held: Dict[int, Tuple[StorageWeakRef, int]] = {}
+        self.live_b = 0
+        self.peak_b = 0
+
+    def _sweep(self) -> None:
+        for key in [k for k, (ref, _) in self.held.items() if ref.expired()]:
+            self.live_b -= self.held.pop(key)[1]
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        out = func(*args, **(kwargs or {}))
+        for t in _tensors((out,)):
+            if t.device != self.device:
+                continue
+            st = t.untyped_storage()
+            key = st._cdata
+            if key in self.args:
+                continue
+            n = -(-st.nbytes() // ALLOC_ROUND_B) * ALLOC_ROUND_B
+            # a storage seen before counts again only where it was resized
+            ref, had = self.held.get(key, (None, 0))
+            self.held[key] = (ref or StorageWeakRef(st), n)
+            self.live_b += n - had
+        if self.live_b > self.peak_b:
+            self._sweep()
+            self.peak_b = max(self.peak_b, self.live_b)
+        return out
+
+    def fields(self) -> Dict[str, Any]:
+        """"mem_temp_b", the most the step held on top of its arguments
+        (`peak_b`), and "rank_argument_b", the bytes of the arguments
+        the traced process held (unrounded)."""
+        return {"mem_temp_b": self.peak_b,
+                "rank_argument_b": self.argument_b}
+
+
+def own_storages(args):
+    """`args` with each tensor leaf in a contiguous storage of its own, as
+    the card holds a rank's blocks (`steps.cut` gives views of the whole
+    leaves)."""
+    def own(t):
+        c = t.detach().clone(memory_format=torch.contiguous_format)
+        return c.requires_grad_(t.requires_grad)
+    return tuple(tree_map(own, a) for a in args)
+
+
 def run_meta(cell: Cell, args):
     """The cell's step run once on its meta arguments: (outputs, FLOPs
     counted by FlopCounterMode, the ids of the argument leaves the
@@ -439,17 +542,44 @@ def _in_mesh(fn, mesh):
     return run
 
 
+def step_memory(fn, args, *, train: bool, device=META) -> Dict[str, Any]:
+    """`LiveBytes.fields` of one run of `fn(*args)` on `device` (meta, or a
+    real device's tensors for a check of the meta trace), each argument
+    in a storage of its own (`own_storages`), with autograd on where
+    `train`."""
+    args = own_storages(args)
+    live = LiveBytes(args, device)
+    with live, (torch.enable_grad() if train else torch.no_grad()):
+        fn(*args)
+    return live.fields()
+
+
+def host_trace(cfg, batch, *, optimizer: str = "adamw",
+               donate: bool = False) -> Dict[str, Any]:
+    """`step_memory` of one training step as one process runs it (`train
+    --mesh host`: `make_train_step` over the 1 x 1 host mesh, inside it),
+    on meta tensors: the whole state of `cfg` and `batch` (meta tensors
+    of the trainer's batch)."""
+    mesh = make_host_mesh(devices=[META])
+    step_fn, _, opt = make_train_step(cfg, mesh, optimizer_name=optimizer,
+                                      donate=donate)
+    return step_memory(_in_mesh(step_fn, mesh),
+                       (abstract_train_state(cfg, opt), batch), train=True)
+
+
 def rank_trace(cfg, kind: str, shape, axis_names, batch, *,
                ctx_len: int = 0, optimizer: str = "adamw",
                compress: bool = False, rank: int = 0,
                flops: bool = True) -> Dict[str, Any]:
     """One step of `kind` as rank `rank` of a mesh of `shape` x
     `axis_names` runs it, on meta tensors under a fake process group of
-    that many ranks (`fake_ranks`): `rank_steps`' step and arguments.
-    Returns `collective_fields` of every collective the step ran,
-    "flops_per_device" (with `flops`: the counter costs about as much as
-    the step) and "rank_trace_s".  Any mesh: the production cells' and
-    the legs a card runs over 2 or 4 ranks alike."""
+    that many ranks (`fake_ranks`): `rank_steps`' step and arguments,
+    each argument in a storage of its own (`own_storages`).  Returns
+    `collective_fields` of every collective the step ran,
+    `LiveBytes.fields`, "flops_per_device" (with
+    `flops`: the counter costs about as much as the step) and
+    "rank_trace_s".  Any mesh: the production cells' and the legs a card
+    runs over 2 or 4 ranks alike."""
     t0 = time.time()
     world = math.prod(shape)
     with fake_ranks(world, rank):
@@ -461,12 +591,14 @@ def rank_trace(cfg, kind: str, shape, axis_names, batch, *,
         fn, args, train = rank_steps(cfg, kind, mesh, batch,
                                      ctx_len=ctx_len, optimizer=optimizer,
                                      compress=compress)
+        args = own_storages(args)
         counter = FlopCounterMode(display=False) if flops else None
+        live = LiveBytes(args, META)
         with core_mesh.record_collectives() as calls, \
-                (counter or contextlib.nullcontext()), \
+                (counter or contextlib.nullcontext()), live, \
                 (torch.enable_grad() if train else torch.no_grad()):
             fn(*args)
-    out = {**collective_fields(calls),
+    out = {**collective_fields(calls), **live.fields(),
            "rank_trace_s": round(time.time() - t0, 2)}
     if flops:
         out["flops_per_device"] = float(counter.get_total_flops())
@@ -519,13 +651,20 @@ def run_cell(arch: str, shape_name: str, mesh_kind: str, *,
         if not zero1:
             # the rank path cuts the moments over the data axes always
             rec["rank_trace"] = "not run: the ranks' moments are ZeRO-1's"
+            # the reference's key for memory it could not read
+            rec["mem_note"] = ("mem_temp_b and mem_peak_b not traced: "
+                               "they come from the rank trace")
         else:
             rec.update(cell_rank_trace(cfg, shape_name, mesh_kind,
                                        optimizer=optimizer,
                                        compress=compress))
+            # the reference's identity (XLA's peak is its arguments and
+            # its temporaries)
+            rec["mem_peak_b"] = rec["mem_argument_b"] + rec["mem_temp_b"]
             print(f"rank 0: {rec['collective_calls_by_axis']} calls, "
                   f"{rec['collective_bytes_per_device']:.3e} wire B, "
-                  f"flops {rec['flops_per_device']:.3e}")
+                  f"flops {rec['flops_per_device']:.3e}, temp "
+                  f"{rec['mem_temp_b']:,} B, peak {rec['mem_peak_b']:,} B")
     except Exception as e:  # noqa: BLE001 -- record the failure, don't die
         rec["status"] = "error"
         rec["error"] = f"{type(e).__name__}: {e}"[:2000]

@@ -116,15 +116,12 @@ def _ranked() -> bool:
 
 def _rank_devices(kind: Optional[str] = None) -> list:
     """Each rank's device under the process group, by `rank_device`'s
-    rule: on the CPU for `kind` "cpu", else on the cards (default: the
-    CPU where no card is visible; pass `Ranks` to `cli_mesh` for the
-    ranks' own choice)."""
+    rule: on the CPU for `kind` "cpu", else (None, "cuda") on the cards,
+    raising RuntimeError where none is visible, as `rank_device` does
+    (pass `Ranks` to `cli_mesh` for the ranks' own choice)."""
     world = dist.get_world_size()
     local_world = int(os.environ.get("LOCAL_WORLD_SIZE", world))
-    if kind is None:
-        kind = "cuda" if torch.cuda.is_available() \
-            and torch.cuda.device_count() else "cpu"
-    return [rank_device(kind, r % local_world, local_world)[1]
+    return [rank_device(kind or "cuda", r % local_world, local_world)[1]
             for r in range(world)]
 
 
@@ -135,11 +132,12 @@ PRODUCTION_MESHES = {"single": ((16, 16), ("data", "model")),
 
 
 def make_production_mesh(*, multi_pod: bool = False,
-                         devices: Optional[Sequence] = None) -> Mesh:
+                         devices: Optional[Sequence] = None,
+                         kind: Optional[str] = None) -> Mesh:
     """The reference's production shapes (PRODUCTION_MESHES): data x
     model 16 x 16, or pod x data x model 2 x 16 x 16.  Raises ValueError
-    unless the devices (under a process group: the ranks) fill it, naming
-    the count."""
+    unless the devices (under a process group: the ranks, on the cards
+    unless `kind` is "cpu") fill it, naming the count."""
     shape, axes = PRODUCTION_MESHES["multi" if multi_pod else "single"]
     if devices is None and _ranked():
         world = dist.get_world_size()
@@ -147,7 +145,7 @@ def make_production_mesh(*, multi_pod: bool = False,
             raise ValueError(f"the production mesh {shape} needs "
                              f"{math.prod(shape)} devices, {world} ranks "
                              "exist")
-        return make_rank_mesh(shape, axes, _rank_devices())
+        return make_rank_mesh(shape, axes, _rank_devices(kind))
     devices = visible_devices() if devices is None else list(devices)
     if len(devices) < math.prod(shape):
         raise ValueError(f"the production mesh {shape} needs "
@@ -156,13 +154,15 @@ def make_production_mesh(*, multi_pod: bool = False,
 
 
 def make_host_mesh(model_axis: int = 1,
-                   devices: Optional[Sequence] = None) -> Mesh:
+                   devices: Optional[Sequence] = None,
+                   kind: Optional[str] = None) -> Mesh:
     """Mesh over whatever devices exist (default: the visible CUDA
-    devices; under a process group, the ranks, one position each): data x
-    model with `model_axis` devices on the model axis.  ValueError where
-    `model_axis` does not divide the devices or ranks."""
+    devices; under a process group, the ranks, one position each, on the
+    cards unless `kind` is "cpu": RuntimeError where no card is visible):
+    data x model with `model_axis` devices on the model axis.  ValueError
+    where `model_axis` does not divide the devices or ranks."""
     if devices is None and _ranked():
-        return _rank_host_mesh(_rank_devices(), model_axis)
+        return _rank_host_mesh(_rank_devices(kind), model_axis)
     devices = visible_devices() if devices is None else list(devices)
     n = len(devices)
     if model_axis < 1 or n % model_axis:
@@ -205,7 +205,8 @@ def cli_mesh(kind: str, device: torch.device,
         return _rank_host_mesh(devs, model_axis)
     if kind in ("single", "multi"):
         if ranked:
-            return make_production_mesh(multi_pod=kind == "multi")
+            return make_production_mesh(multi_pod=kind == "multi",
+                                        kind=device.type)
         devices = visible_devices() if device.type == "cuda" else [device]
         return make_production_mesh(multi_pod=kind == "multi",
                                     devices=devices)

@@ -228,9 +228,11 @@ def causal_mask(sq: int, window: int = 0, device=None) -> torch.Tensor:
 def _use_flash(cfg, s: int, window: int, device) -> bool:
     """The flash kernel applies on the card, unwindowed, block-aligned:
     the reference's rule with the card in place of the TPU.  On the CPU
-    the dense-scores `_sdpa` runs, as the reference runs it off the TPU."""
+    the dense-scores `_sdpa` runs, as the reference runs it off the TPU.
+    The meta device models the card (the dry-run's traces): there the
+    flash wrappers give the kernels' outputs without storage."""
     return (getattr(cfg, "attention_impl", "flash") == "flash"
-            and torch.device(device).type == "cuda"
+            and torch.device(device).type in ("cuda", "meta")
             and window == 0 and s % 128 == 0)
 
 

@@ -8,7 +8,10 @@ pytest worker; so the tests run this script in a subprocess:
     python tests/_dryrun_reference.py < request.json > answer.json
 
 The request is {"tables": bool, "cells": [[arch, shape, mesh, compress,
-zero1], ...], "hlo": [[line, total devices], ...]}.  With "hlo" the
+zero1], ...], "hlo": [[line, total devices], ...], "run_cell": [[arch,
+shape, mesh, cfg_overrides], ...]}.  With "run_cell" the answer carries
+the keys of the record the reference's `run_cell` writes for each (its
+probe left out).  With "hlo" the
 answer carries the reference's `collective_bytes_per_device` of each
 HLO line (total, by kind, counts) and its COLLECTIVES.  With "tables"
 the answer carries ARCH_OPTIMIZER, all_cells() and, for every arch and
@@ -19,6 +22,7 @@ compiled as `run_cell` compiles it; its answer is XLA's
 memory_analysis() argument and output bytes and the number of output
 leaves.
 """
+import contextlib
 import json
 import pathlib
 import sys
@@ -69,6 +73,12 @@ def main() -> None:
     out = tables() if req.get("tables") else {}
     out["cells"] = {"|".join(map(str, c)): cell(*c)
                     for c in req.get("cells", [])}
+    if req.get("run_cell"):
+        # run_cell prints; the answer alone goes to stdout
+        with contextlib.redirect_stdout(sys.stderr):
+            out["run_cell"] = [sorted(dryrun.run_cell(
+                arch, shape, mesh, cfg_overrides=ov, probe=False))
+                for arch, shape, mesh, ov in req["run_cell"]]
     if req.get("hlo"):
         out["collectives"] = list(dryrun.COLLECTIVES)
         out["hlo"] = [dryrun.collective_bytes_per_device(line, devices)

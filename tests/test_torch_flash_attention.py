@@ -140,8 +140,15 @@ def test_wrapper_contract():
         fa.flash_fwd(q, k, v, n_rep=3)
     with pytest.raises(ValueError, match="contiguous"):
         fa.flash_fwd(q.transpose(2, 3), k, v, n_rep=2)
-    with pytest.raises(ValueError):
-        fa.flash_fwd(q.to("meta"), k.to("meta"), v.to("meta"), n_rep=2)
+    # meta tensors model the card (the dry-run): the kernel's outputs
+    # with no storage, and the kernel's refusal of a head width
+    out, lse = fa.flash_fwd(q.to("meta"), k.to("meta"), v.to("meta"),
+                            n_rep=2)
+    assert (out.shape, out.dtype, lse.shape, lse.dtype) == \
+        (q.shape, q.dtype, q.shape[:3], torch.float32)
+    with pytest.raises(ValueError, match="head widths"):
+        fa.flash_fwd(*(t[..., :24].contiguous().to("meta")
+                       for t in (q, k, v)), n_rep=2)
 
 
 def test_cpu_tensor_takes_the_plain_version(monkeypatch):

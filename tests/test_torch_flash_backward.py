@@ -339,9 +339,18 @@ def test_backward_contract():
                         .transpose(2, 3), lse, delta, n_rep=2)
     with pytest.raises(ValueError, match="kv heads"):
         fa.flash_bwd_dkv(q, k, v, do, lse, delta, n_rep=4)
-    with pytest.raises(ValueError):
-        fa.flash_bwd_dq(*(t.to("meta") for t in (q, k, v, do, lse, delta)),
-                        n_rep=2)
+    # meta tensors model the card (the dry-run): the kernels' outputs with
+    # no storage, and the kernels' refusal of a head width
+    dq = fa.flash_bwd_dq(*(t.to("meta") for t in (q, k, v, do, lse, delta)),
+                         n_rep=2)
+    dk, dv = fa.flash_bwd_dkv(*(t.to("meta") for t in (q, k, v, do, lse,
+                                                        delta)), n_rep=2)
+    assert [(t.shape, t.dtype) for t in (dq, dk, dv)] == \
+        [(q.shape, q.dtype), (k.shape, k.dtype), (v.shape, v.dtype)]
+    with pytest.raises(ValueError, match="head widths"):
+        fa.flash_bwd_dq(*(t[..., :8].contiguous().to("meta")
+                          for t in (q, k, v, do)), lse.to("meta"),
+                        delta.to("meta"), n_rep=2)
 
 
 # ---------------------------------------------------------------------------

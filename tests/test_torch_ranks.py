@@ -321,14 +321,22 @@ def scenario_refusals(out):
             ("moe_serve", lambda: serve.main([
                 "--arch", "deepseek-v3-671b", "--smoke-config", "--device",
                 "cpu", "--model-axis", "2"])),
-            ("model_axis", lambda: lmesh.make_host_mesh(model_axis=2)),
+            ("model_axis", lambda: lmesh.make_host_mesh(model_axis=2,
+                                                        kind="cpu")),
+            ("model_axis_3", lambda: lmesh.make_host_mesh(model_axis=3,
+                                                          kind="cpu")),
             ("single", lambda: train.cli_mesh("single",
-                                              torch.device("cpu")))):
+                                              torch.device("cpu"))),
+            ("no_card", lambda: lmesh.make_host_mesh())):
         try:
             got = call()
-            said[name] = ("ran", tuple(getattr(got, "shape", ())))
-        except ValueError as err:
-            said[name] = str(err)
+            if hasattr(got, "devices"):       # a mesh: its devices
+                said[name] = ("ran", got.devices.shape,
+                              str(got.devices.flat[0]))
+            else:
+                said[name] = ("ran", tuple(getattr(got, "shape", ())))
+        except (ValueError, RuntimeError) as err:
+            said[name] = f"{type(err).__name__}: {err}"
     return said
 
 
@@ -735,9 +743,20 @@ def test_serve_and_model_axes_refuse_ranks(world2):
     production mesh raises, naming the device count."""
     said = result(world2[1], "refusals")
     assert said["serve"] == ("ran", (4, 2))
-    assert said["model_axis"][0] == "ran"
+    assert said["model_axis"] == ("ran", (1, 2), "cpu")
+    assert said["model_axis_3"] == ("ValueError: model_axis=3 does not "
+                                    "divide 2 ranks")
     assert said["moe_serve"] == ("ran", (4, 16))
     assert "needs 256 devices" in said["single"]
+
+
+def test_host_mesh_under_ranks_without_a_card_raises(world2):
+    """Under a gloo group on the CPU, with no card visible, the host mesh
+    of the ranks raises, naming the missing card: the CPU is used only
+    where the caller asks for it (`kind="cpu"`, or explicit devices)."""
+    said = result(world2[1], "refusals")["no_card"]
+    assert said.startswith("RuntimeError: no CUDA device is available"), \
+        said
 
 
 def test_place_without_a_group_refuses_distinct_devices():
