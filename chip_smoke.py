@@ -267,9 +267,10 @@ Phases, each fatal on failure:
   12b. train families -- one arch of each remaining family trained at
                 its published width through `launch.train.main` under
                 `--mesh host` and deterministic algorithms
-                (TRAIN_FAMILIES, 6 steps each): mamba2-130m (4 x 1024),
-                zamba2-1.2b (4 x 512) and whisper-medium (4 x 256, 1500
-                frames) at full depth with AdamW, llava-next-34b at 2 of
+                (TRAIN_FAMILIES, 6 steps each): mamba2-130m (4 x 1024)
+                at 12 of its 24 layers, zamba2-1.2b (4 x 512) at 6 of its
+                38 and whisper-medium (4 x 256, 1500 frames) at 6 + 6 of
+                its 24 + 24, with AdamW, llava-next-34b at 2 of
                 its 60 layers (1 x 3072: 2880 patches, 192 text
                 positions) with AdamW, deepseek-v3-671b at 1 of its 61
                 layers with 32 of its 256 experts and adafactor (2 x
@@ -317,11 +318,13 @@ Phases, each fatal on failure:
                 fault (rank 1's expert-parallel partial left out of the
                 sum) failing that bound; deepseek-v3 trained at the
                 train-families cut (1 layer, 32 experts, 2 x 256, 6
-                steps) with AdamW 2e-5 on a donated state, step 1 within
-                TP_STEP1_TOL of the train-families leg's, the losses
-                finite and falling, each rank's param and moment bytes
-                its specs'.  Then, in the same worker, the ssm, hybrid
-                and vlm families (TP_FAMILY_SERVE, TP_FAMILY_TRAIN):
+                steps) with that leg's adafactor 2e-5 on each rank's
+                blocks, step 1 within TP_STEP1_TOL of the train-families
+                leg's and every later step within TP_LOSS_BOUND of its,
+                the losses finite and falling, each rank's param and
+                state bytes its specs'.  Then, in the same worker, the
+                ssm, hybrid and vlm families (TP_FAMILY_SERVE,
+                TP_FAMILY_TRAIN):
                 mamba2-130m served over (1, 2) (its params replicated,
                 its 1024-token prompt cut over the sequence, 512 tokens
                 a rank) and over the (2, 1) data mesh (one process's
@@ -338,8 +341,8 @@ Phases, each fatal on failure:
                 pspecs`: the SSM states over heads, the conv windows
                 whole), its prefill and decode collectives by axis; the
                 three trained over (1, 2) at their train-families legs
-                (6 steps; zamba2 at 6 layers, held to a one-process leg
-                at that depth run here first; llava at 2, donated),
+                (6 steps; mamba2 at 12 layers, zamba2 at 6, llava at 2,
+                donated),
                 step 1 within
                 TP_STEP1_TOL of one process's and later steps within
                 TP_LOSS_BOUND, each rank's param and moment bytes its
@@ -465,6 +468,7 @@ Phases, each fatal on failure:
                 rank for rank, to every step the ranks and tp phases
                 measured ("dryrun ranks" lines): drim-bnn's TRAIN step
                 over (1, 2) and (2, 1), whisper-medium's decode step over
+                (1, 2), the tp phase's deepseek-v3 adafactor step over
                 (1, 2).
 
 Prints the kernels' JSON line (the packer's entry also under "served" at
@@ -554,8 +558,11 @@ TRAIN = ["--arch", "drim-bnn", "--steps", str(TRAIN_STEPS), "--batch", "8",
 # sign flip of an activation within float32 noise of 0.
 TRAIN_LOSS_RTOL, TRAIN_GRAD_RTOL = 1e-5, 1e-3
 # The train-families phase: one arch of each family trained through the
-# trainer's CLI at its published width:
-# mamba2-130m, zamba2-1.2b and whisper-medium (1500 frames) at full depth;
+# trainer's CLI at its published width: mamba2-130m, zamba2-1.2b and
+# whisper-medium (1500 frames) **reduced**, for the script's time, to
+# the depths the tp phase trains them at over ranks (12 of 24 layers,
+# 6 of 38: one group and one shared-block site, 6 + 6 of 24 + 24:
+# `depth_cut`), so that one leg serves as the one-process side of both;
 # llava-next-34b cut from 60 layers to 2 (3072 tokens: its 2880 patches
 # and 192 text positions, as the serve leg); deepseek-v3-671b cut from 61
 # layers to 1 and from 256 experts to 32, with the dry-run's adafactor
@@ -570,9 +577,9 @@ TRAIN_LOSS_RTOL, TRAIN_GRAD_RTOL = 1e-5, 1e-3
 # from the final state run twice (bitwise the same loss and parameters)
 # and FAMILY_PROFILE_STEPS steps under `torch.profiler`.  (arch, depth
 # cut or 0, experts cut or 0, batch, sequence, optimizer, learning rate)
-TRAIN_FAMILIES = (("mamba2-130m", 0, 0, 4, 1024, "adamw", 3e-4),
-                  ("zamba2-1.2b", 0, 0, 4, 512, "adamw", 3e-4),
-                  ("whisper-medium", 0, 0, 4, 256, "adamw", 3e-4),
+TRAIN_FAMILIES = (("mamba2-130m", 12, 0, 4, 1024, "adamw", 3e-4),
+                  ("zamba2-1.2b", 6, 0, 4, 512, "adamw", 3e-4),
+                  ("whisper-medium", 6, 0, 4, 256, "adamw", 3e-4),
                   ("llava-next-34b", 2, 0, 1, 3072, "adamw", 2e-5),
                   ("deepseek-v3-671b", 1, 32, 2, 256, "adafactor", 2e-5))
 FAMILY_TRAIN_STEPS, FAMILY_PROFILE_STEPS = 6, 2
@@ -4109,17 +4116,19 @@ def ranks_worker(out: str, kind: str, model_axis: int = 1) -> int:
     return 0
 
 
-def state_bytes(seen, mesh) -> dict:
-    """A rank's AdamW state after a leg (`trainer_spy`'s dict): its param
-    and moment bytes, their specs' local bytes, one process's bytes, and
-    the bytes of the leaves the specs leave whole."""
+def state_bytes(seen, mesh, optimizer: str = "adamw") -> dict:
+    """A rank's state after a leg (`trainer_spy`'s dict) of `optimizer`:
+    its param and moment bytes (AdamW's "m" and "v", Adafactor's factored
+    "f"), their specs' local bytes, one process's bytes, and the bytes of
+    the leaves the specs leave whole."""
     from repro_torch.core.mesh import local_shape
     from repro_torch.optim import get_optimizer
     from repro_torch.runtime import steps
     from repro_torch.tree import tree_leaves
     state = seen["state"]
-    specs, shapes = steps.state_pspecs(seen["cfg"], get_optimizer("adamw"),
+    specs, shapes = steps.state_pspecs(seen["cfg"], get_optimizer(optimizer),
                                        mesh)
+    keys = [k for k in shapes["opt"] if k != "step"]
 
     def local_bytes(part, keys):
         return int(sum(
@@ -4130,13 +4139,12 @@ def state_bytes(seen, mesh) -> dict:
 
     def nbytes(tree):
         return sum(t.numel() * t.element_size() for t in tree_leaves(tree))
-    moments = {k: state["opt"][k] for k in ("m", "v")}
+    moments = {k: state["opt"][k] for k in keys}
     return dict(
         moment_bytes=nbytes(moments),
         moment_bytes_one_process=4 * sum(
-            t.numel() for k in ("m", "v")
-            for t in tree_leaves(shapes["opt"][k])),
-        moment_bytes_of_specs=local_bytes("opt", ("m", "v")),
+            t.numel() for k in keys for t in tree_leaves(shapes["opt"][k])),
+        moment_bytes_of_specs=local_bytes("opt", keys),
         param_bytes=nbytes(state["params"]),
         param_bytes_one_process=nbytes(shapes["params"]),
         param_bytes_of_specs=local_bytes("params", (None,)),
@@ -4228,20 +4236,26 @@ def tp_moe_serve_legs(ranks, wrappers, mesh) -> dict:
     return res
 
 
+def tp_moe_train_argv() -> list:
+    """`launch.train`'s arguments of the tp phase's MoE training leg
+    (TP_MOE_TRAIN over (1, TP); the config's cut is `trainer_spy`'s)."""
+    arch, _, _, batch, seq, opt, lr = TP_MOE_TRAIN
+    return ["--arch", arch, "--steps", str(FAMILY_TRAIN_STEPS), "--batch",
+            str(batch), "--seq", str(seq), "--mesh", "host", "--optimizer",
+            opt, "--lr", str(lr), "--log-every", "1", "--seed", str(SEED),
+            "--model-axis", str(TP)]
+
+
 def tp_moe_train_leg(ranks, wrappers, mesh) -> dict:
     """The tp phase's MoE training leg on this rank (TP_MOE_TRAIN through
     `launch.train.main --model-axis TP`, the config cut by `trainer_spy`):
     `train_leg`'s record with the state's bytes (`state_bytes`)."""
-    arch, layers, experts, batch, seq, opt, lr = TP_MOE_TRAIN
-    argv = ["--arch", arch, "--steps", str(FAMILY_TRAIN_STEPS), "--batch",
-            str(batch), "--seq", str(seq), "--mesh", "host", "--optimizer",
-            opt, "--lr", str(lr), "--log-every", "1", "--seed", str(SEED),
-            "--model-axis", str(TP), "--donate"]
+    _, layers, experts, _, _, opt, _ = TP_MOE_TRAIN
     torch.cuda.empty_cache()
-    record, seen = train_leg(ranks, wrappers, argv,
+    record, seen = train_leg(ranks, wrappers, tp_moe_train_argv(),
                              contextlib.nullcontext(), n_layers=layers,
                              n_experts=experts)
-    record.update(state_bytes(seen, mesh))
+    record.update(state_bytes(seen, mesh, opt))
     del seen
     torch.cuda.empty_cache()
     return record
@@ -4558,7 +4572,7 @@ def family_train_argv(arch: str):
     argv = ["--arch", arch, "--steps", str(FAMILY_TRAIN_STEPS), "--batch",
             str(batch), "--seq", str(seq), "--mesh", "host", "--optimizer",
             opt, "--lr", str(lr), "--log-every", "1", "--seed", str(SEED)]
-    cut = {"n_layers": layers} if layers else {}
+    cut = depth_cut(arch, layers)
     if experts:
         cut["n_experts"] = experts
     return argv, cut
@@ -4922,20 +4936,21 @@ TP_ROUTE_LAYERS = 6
 # planted fault (rank 1's expert-parallel partial left out of the sum)
 # must move the prefill's last logits past TP_LOGIT_TOL.  Then
 # deepseek-v3 trained at the train-families leg's cut (TP_MOE_TRAIN: 1
-# layer, 32 experts, 2 x 256, FAMILY_TRAIN_STEPS steps) with AdamW on cut
-# moments at that leg's 2e-5, not its adafactor: adafactor over ranks
-# gathers every whole leaf on both ranks, and the one-process leg already
-# peaks at 50.74 GB, so two such ranks would not fit the card.  The leg
-# donates its state (`--donate`, the reference trainer's
-# `donate_argnums`): a rank holds 1.75 B float32 params (7.0 GB) and
-# 14.0 GB of moments, and an undonated update holds the old and the new
-# state at once (~56 GB a rank), past the card for two ranks.  Step 1
-# (before any update) within TP_STEP1_TOL of the train-families leg's
-# step 1, later losses finite and falling; each rank's param and moment
-# bytes its specs' local bytes.  The worker's time limit grows by
-# TP_MOE_TIMEOUT_S for these legs.
+# layer, 32 experts, 2 x 256, FAMILY_TRAIN_STEPS steps) with that leg's
+# Adafactor at its 2e-5, on each rank's blocks (`runtime.steps.
+# rank_adafactor_update`: no leaf is gathered whole, so a rank holds its
+# 1.75 B float32 params (7.0 GB), their gradients and its factored
+# vectors; Adafactor has no in-place update, as the reference's has none,
+# so the leg does not donate).  Step 1 (before any update) within
+# TP_STEP1_TOL of the train-families leg's step 1, every later step within
+# TP_LOSS_BOUND of the same step there (the same optimizer on the same
+# data); each rank's param and state bytes its specs' local bytes, its
+# peak printed.  Its steps are a RANK_LEGS leg: the dry-run's rank trace
+# predicts each rank's collectives and temp.  The worker's time limit
+# grows by TP_MOE_TIMEOUT_S for these legs.
 TP_MOE_ARCHS = ("deepseek-v3-671b", "kimi-k2-1t-a32b")
-TP_MOE_TRAIN = ("deepseek-v3-671b", 1, 32, 2, 256, "adamw", 2e-5)
+TP_MOE_TRAIN = ("deepseek-v3-671b", 1, 32, 2, 256, "adafactor", 2e-5)
+TP_MOE_LEG = "deepseek-v3-671b train (1, 2)"
 TP_MOE_TIMEOUT_S = 420
 # The tp phase's ssm, hybrid and vlm legs, in the same worker after the
 # MoE legs.  Served as the families phase serves them (4 rows, FAMILY_GEN
@@ -4976,8 +4991,12 @@ TP_MOE_TIMEOUT_S = 420
 # every later step within TP_LOSS_BOUND (on the CPU, the smoke configs'
 # 3 CLI steps over (1, 2) and (2, 2) stayed within 1e-3 relative of the
 # reference trainer's: tests/test_torch_ssm_ranks.py,
-# test_torch_hybrid_ranks.py).  llava trains at its train-families
-# leg's 2 layers (two ranks reckoned at ~24 GB each, donated), zamba2 at
+# test_torch_hybrid_ranks.py).  mamba2 trains at 12 of its 24 layers
+# (**reduced** for the script's time: 4.0 s a step over (1, 2) at 24
+# layers on an H100, mostly gloo), its train-families leg's depth, as
+# zamba2's and whisper's are.  llava trains at its
+# train-families leg's 2 layers (two ranks reckoned at ~24 GB each,
+# donated), zamba2 at
 # 6 of its 38 layers (one group, one shared-block site): at full depth
 # over (1, 2) it took 9.7 s a step (4.0 GB of gloo
 # collectives), and after its first update its trajectory at 3e-4 turns
@@ -5011,8 +5030,8 @@ TP_MOE_TIMEOUT_S = 420
 # AdamW 3e-4, FAMILY_TRAIN_STEPS steps), cut to 6 encoder and 6 decoder
 # layers: at full depth the Megatron sums of the [4, 1500, 1024]
 # encoder activations come to about 4-5 GB of gloo traffic a step a
-# rank; held to a one-process leg at that depth run here first, as
-# zamba2's 6-layer leg is.  Flash once per decoder self-attention site
+# rank; held to the train-families leg at that depth, as zamba2's
+# 6-layer leg is.  Flash once per decoder self-attention site
 # of a prefill (24; none in the encoder or the cross-attention), twice a
 # site a training step and each backward kernel once (6 sites).
 TP_AUDIO = "whisper-medium"
@@ -5028,7 +5047,7 @@ TP_FAMILY_SERVE = (("mamba2-130m", 0, 1024, TP, False),
                    (TP_AUDIO, 0, 256, 1, False))
 TP_F32_LOGIT_TOL = 5e-3
 TP_F32_PLANTED = "rank 1's out_proj partial of the last mixer left out"
-TP_FAMILY_TRAIN = (("mamba2-130m", 0), ("zamba2-1.2b", 6),
+TP_FAMILY_TRAIN = (("mamba2-130m", 12), ("zamba2-1.2b", 6),
                    ("llava-next-34b", 2), (TP_AUDIO, 6))
 TP_FAMILY_TIMEOUT_S = 480
 # The serving modes over ranks, last in the tp worker, on drim-bnn cut
@@ -5710,9 +5729,12 @@ def check_tp_moe(tmp: str, n: int, label: str = "tp") -> dict:
     process's top two logits are no near tie).
     Training, where the worker ran it (`tp_moe_train_leg`): no launches
     (MLA), both ranks' losses equal, step 1 within TP_STEP1_TOL of the
-    train-families leg's step 1, the losses finite and falling; each
-    rank's param and moment bytes its specs' local bytes.  Prints the
-    "tp" lines; returns the launches summed over the legs and ranks."""
+    train-families leg's step 1 and every later step within
+    TP_LOSS_BOUND of its, the losses finite and falling; each rank's
+    param and moment bytes its specs' local bytes; each rank's steps'
+    collectives and temps kept as the TP_MOE_LEG leg's measurements
+    (MEASURED_RANK_LEGS, MEASURED_RANK_MEMORY).  Prints the "tp" lines;
+    returns the launches summed over the legs and ranks."""
     from repro_torch.launch import serve
     from repro_torch.models import abstract_caches, abstract_params
     from repro_torch.tree import tree_leaves
@@ -5810,11 +5832,15 @@ def check_tp_moe(tmp: str, n: int, label: str = "tp") -> dict:
         raise AssertionError(f"{label} train {arch}: the ranks' losses "
                              "differ")
     one = TRAINED[arch]
-    gap = abs(losses[0] - one[0])
+    gaps = loss_gaps(losses, one)
     if len(losses) != FAMILY_TRAIN_STEPS or not np.all(np.isfinite(losses)) \
-            or not losses[-1] < losses[0] or gap > TP_STEP1_TOL:
+            or not losses[-1] < losses[0] or gaps[0] > TP_STEP1_TOL \
+            or max(gaps[1:]) > TP_LOSS_BOUND:
         raise AssertionError(f"{label} train {arch}: losses {losses}, the "
-                             f"train-families leg's step 1 {one[0]}")
+                             f"train-families leg's {one}")
+    MEASURED_RANK_LEGS[TP_MOE_LEG] = [r["step_collectives"]
+                                      for r in train_recs]
+    MEASURED_RANK_MEMORY[TP_MOE_LEG] = [r["step_temp_b"] for r in train_recs]
     lines = [line for line in train_recs[0]["lines"] if "step" in line]
     s_step = (lines[-1]["wall_s"] - lines[0]["wall_s"]) / (len(lines) - 1)
     _, _, _, batch, seq, opt, lr = TP_MOE_TRAIN
@@ -5822,8 +5848,9 @@ def check_tp_moe(tmp: str, n: int, label: str = "tp") -> dict:
         "train": arch, "mesh": {"data": 1, "model": n}, "layers": 1,
         "experts": TP_MOE_TRAIN[2], "optimizer": opt, "lr": lr,
         "batch": batch, "seq": seq, "losses": losses,
-        "train_families_losses": one, "step1_gap": gap,
-        "step1_tol": TP_STEP1_TOL, "s_per_step": s_step,
+        "train_families_losses": one, "loss_gaps": gaps,
+        "step1_tol": TP_STEP1_TOL, "loss_bound": TP_LOSS_BOUND,
+        "s_per_step": s_step,
         "tokens_per_s": batch * seq / s_step,
         "first_step_s": lines[0]["wall_s"]}))
     for r in train_recs:
@@ -6401,16 +6428,8 @@ def phase_train_families(wrappers):
     counts = {}
     t_phase = time.perf_counter()
     with deterministic():
-        for arch, layers, experts, batch, seq, opt, lr in TRAIN_FAMILIES:
-            argv = ["--arch", arch, "--steps", str(FAMILY_TRAIN_STEPS),
-                    "--batch", str(batch), "--seq", str(seq), "--mesh",
-                    "host", "--optimizer", opt, "--lr", str(lr),
-                    "--log-every", "1", "--seed", str(SEED)]
-            cut = {}
-            if layers:
-                cut["n_layers"] = layers
-            if experts:
-                cut["n_experts"] = experts
+        for arch, _, _, batch, seq, opt, lr in TRAIN_FAMILIES:
+            argv, cut = family_train_argv(arch)
             cfg = get_config(arch).replace(**cut)
             sites = attention_sites(cfg)
             per_step = ({"flash_attn_fwd": (2 if cfg.remat else 1) * sites,
@@ -6597,10 +6616,13 @@ def check_train_reference():
 # (`predict_rank_legs`) and held equal, calls and payload bytes by axis,
 # to every step each rank measured (MEASURED_RANK_LEGS, filled by those
 # phases: the train steps from `trainer_spy`, whisper's decode steps
-# from `tp_family_serve_legs`, the warm-up step among them).
+# from `tp_family_serve_legs`, the warm-up step among them).  TP_MOE_LEG
+# is the tp phase's deepseek-v3 training leg (Adafactor on each rank's
+# blocks).
 RANK_LEGS = {"drim-bnn train (1, 2)": ("train", (1, 2)),
              "drim-bnn train (2, 1)": ("train", (2, 1)),
-             "whisper-medium decode (1, 2)": ("decode", (1, 2))}
+             "whisper-medium decode (1, 2)": ("decode", (1, 2)),
+             TP_MOE_LEG: ("train", (1, TP))}
 MEASURED_RANK_LEGS: dict = {}
 # The same legs' bytes a step on top of what the step was handed, each
 # rank's steps (`measured_temp` in `trainer_spy` and in the tp phase's
@@ -6635,14 +6657,16 @@ def memory_holds(predicted: int, measured: int) -> bool:
 
 def predict_rank_legs(out: str) -> None:
     """`launch.dryrun.rank_trace` of each RANK_LEGS leg as each of its
-    ranks, on meta tensors: drim-bnn's TRAIN run (its config, global
-    batch and optimizer as `launch.train` builds them) and one decode
-    step of the tp phase's whisper-medium leg (`family_argv`, its caches
-    of prompt + gen positions); then `launch.dryrun.host_trace` of each
-    HOST_MEMORY_LEGS leg (its TRAIN_FAMILIES row: the config cut, the
-    trainer's batch of step 0 as meta tensors, the optimizer) and of the
-    planted MEMORY_PLANT -> OUT, {leg: [each rank's fields], "host":
-    {arch: fields}, "planted": fields}."""
+    ranks, on meta tensors: drim-bnn's TRAIN run and the tp phase's MoE
+    training leg (`tp_moe_train_argv`, the config cut as TP_MOE_TRAIN
+    cuts it: its config, global batch and optimizer as `launch.train`
+    builds them) and one decode step of the tp phase's whisper-medium
+    leg (`family_argv`, its caches of prompt + gen positions); then
+    `launch.dryrun.host_trace` of each HOST_MEMORY_LEGS leg (its
+    TRAIN_FAMILIES row: the config cut, the trainer's batch of step 0 as
+    meta tensors, the optimizer) and of the planted MEMORY_PLANT -> OUT,
+    {leg: [each rank's fields], "host": {arch: fields}, "planted":
+    fields}."""
     import math
     from repro_torch.configs import get_config
     from repro_torch.data.pipeline import SyntheticLM
@@ -6651,8 +6675,13 @@ def predict_rank_legs(out: str) -> None:
     for leg, (kind, shape) in RANK_LEGS.items():
         axis = ["--model-axis", str(shape[1])]
         if kind == "train":
-            args = train.parse_args(TRAIN + axis)
+            moe = leg == TP_MOE_LEG
+            args = train.parse_args(tp_moe_train_argv() if moe
+                                    else TRAIN + axis)
             cfg, opt = train.build_cfg(args), args.optimizer
+            if moe:
+                cfg = cfg.replace(n_layers=TP_MOE_TRAIN[1],
+                                  n_experts=TP_MOE_TRAIN[2])
             rows, width, ctx = args.batch, args.seq, 0
         else:
             args = serve.parse_args(family_argv(TP_AUDIO, 0, 256) + axis)

@@ -5,9 +5,8 @@ belong in the memory fleet, priced against the card.
     PYTHONPATH=src python examples/pim_offload_report_torch.py   # on the card
     PYTHONPATH=src python examples/pim_offload_report_torch.py --device cpu
 
-For every architecture the port registers (drim-bnn, the dense, MoE, SSM,
-hybrid and audio archs; the reference's vlm arch waits for ROADMAP
-Queue 1 item 12), prices the framework's own
+For every architecture the port registers (drim-bnn, the dense, vlm,
+MoE, SSM, hybrid and audio archs), prices the framework's own
 bulk-bitwise payloads (BitLinear weight sign-planes, 1-bit EF gradient
 reduction, sign-plane copies) through the staged pipeline -- one
 `drim.compile(op).lower().verdict(n_bits)` per payload, every contender
@@ -57,7 +56,6 @@ def main(argv=None):
                   f"{gpu.latency_s * 1e3:>9.2f}ms"
                   f"{gpu.latency_s / max(dr.latency_s, 1e-30):>9.2f}"
                   f"  {v.winner}")
-    print("(the reference's vlm arch waits for ROADMAP Queue 1 item 12)")
 
     print("\n-- locality sensitivity (1 Gbit xnor2) --")
     v = drim.compile("xnor2").lower().verdict(2 ** 30)

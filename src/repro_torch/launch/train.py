@@ -45,8 +45,8 @@ vlm's and the hybrid's shared block likewise; the MoE's experts, E / K a
 rank, expert-parallel over the model group, and MLA on the rank's heads;
 the hybrid's Mamba2 mixer on its cut params; the ssm family's params
 replicated and its sequence cut over the model group, the gradients
-summed over it; the audio family raises ValueError naming its ROADMAP
-item).  On the CPU, two data ranks of
+summed over it; the audio family's encoder and cross-attention on the
+rank's heads).  On the CPU, two data ranks of
 two model ranks each:
 
   python -m torch.distributed.run --nproc-per-node 4 \\

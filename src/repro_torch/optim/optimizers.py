@@ -8,7 +8,9 @@ tests line up:
 
   * adamw      : float32 moments {"m", "v", "step"}.
   * adafactor  : factored second moment {"f": {"vr", "vc"} per >=2-D
-                 param (row and column statistics), else {"v"}, "step"}.
+                 param (row and column statistics), else {"v"}, "step"};
+                 `update_blocks` is the same update on a rank's blocks
+                 of the leaves, its sums over the ranks the caller's.
   * adam8bit   : block-wise int8 moments with float32 per-block scales
                  {"q": {"mq", "ms", "vq", "vs"}, "step"}.
 
@@ -23,7 +25,8 @@ state's ZeRO-1 specs are `runtime.steps.train_state_pspecs`'s.
 """
 from __future__ import annotations
 
-from typing import Callable, NamedTuple
+import math
+from typing import Callable, NamedTuple, Optional
 
 import torch
 
@@ -33,6 +36,8 @@ from repro_torch.tree import tree_leaves, tree_map
 class Optimizer(NamedTuple):
     init: Callable
     update: Callable  # (grads, state, params, lr) -> (new_params, state)
+    # Adafactor's update on blocks of the whole leaves (a rank's)
+    update_blocks: Optional[Callable] = None
 
 
 def _zeros_f32(params):
@@ -138,7 +143,82 @@ def adafactor(eps=1e-30, clip_threshold=1.0, decay=0.8,
         out = _map_with_state(one, params, grads, state["f"])
         return out[0], {"f": out[1], "step": step}
 
-    return Optimizer(init, update)
+    @torch.no_grad()
+    def update_blocks(grads, state, params, lr, *, shapes, groups, psum):
+        """`update` on blocks of the whole leaves (a rank's: `runtime.
+        steps.rank_adafactor_update`): one process's values, in another
+        float order.  `grads` and `params` hold each leaf's block, the
+        state each block's entries ("vr" its rows, "vc" its columns, "v"
+        the block), `shapes` the whole leaves (whose shapes decide
+        `_factored` and the means' counts), `groups` each leaf's {"rows",
+        "cols", "leaf"}: the keys of the groups of blocks that together
+        hold its axis -2, its axis -1 and the whole leaf.  `psum(tensors,
+        keys)` gives each tensor summed over its key's group, so the row
+        and column means, the rows' mean in the denominator and the
+        clip's RMS are the whole leaf's.  A leaf's `u` is made twice
+        (for the RMS, then for the update), so that one block's is held
+        at a time."""
+        step = state["step"] + 1
+        beta = 1.0 - _f32(step) ** -decay
+        leaves = _leaf_rows(params, grads, state["f"], shapes, groups)
+        fac = [_factored(w) for _, _, _, w, _ in leaves]
+        parts, keys = [], []
+        for (_, g, _, _, grp), f in zip(leaves, fac):
+            if f:
+                g2 = torch.square(_f32(g)) + eps
+                parts += [g2.sum(-1), g2.sum(-2)]
+                keys += [grp["cols"], grp["rows"]]
+        sums = iter(psum(parts, keys))
+        new = []
+        for (_, g, s, w, _), f in zip(leaves, fac):
+            if f:
+                vr = beta * s["vr"] + (1 - beta) * (next(sums) / w.shape[-1])
+                vc = beta * s["vc"] + (1 - beta) * (next(sums) / w.shape[-2])
+                new.append({"vr": vr, "vc": vc})
+            else:
+                g2 = torch.square(_f32(g)) + eps
+                new.append({"v": beta * s["v"] + (1 - beta) * g2})
+        rows = iter(psum([ns["vr"].sum(-1, keepdim=True)
+                          for ns, f in zip(new, fac) if f],
+                         [leaf[4]["rows"]
+                          for leaf, f in zip(leaves, fac) if f]))
+        rmean = [(next(rows) / w.shape[-2]).clamp_min(eps)[..., None]
+                 if f else None for (_, _, _, w, _), f in zip(leaves, fac)]
+
+        def direction(g, ns, rm):
+            g = _f32(g)
+            if rm is None:
+                return g * torch.rsqrt(ns["v"] + eps)
+            denom = ns["vr"][..., None] * ns["vc"][..., None, :] / rm
+            return g * torch.rsqrt(denom + eps)
+        squares = psum([torch.sum(torch.square(direction(g, ns, rm)))
+                        for (_, g, _, _, _), ns, rm in
+                        zip(leaves, new, rmean)],
+                       [leaf[4]["leaf"] for leaf in leaves])
+        out = []
+        for (p, g, _, w, _), ns, rm, sq in zip(leaves, new, rmean, squares):
+            u = direction(g, ns, rm)
+            rms = torch.sqrt(sq / math.prod(w.shape) + eps)
+            u = u / torch.clamp_min(rms / clip_threshold, 1.0)
+            if weight_decay:
+                u = u + weight_decay * _f32(p)
+            out.append(((_f32(p) - lr * u).to(p.dtype), ns))
+        it = iter(out)
+        new_p, new_f = _map_with_state(lambda *_: next(it), params, grads,
+                                       state["f"])
+        return new_p, {"f": new_f, "step": step}
+
+    return Optimizer(init, update, update_blocks)
+
+
+def _leaf_rows(params, *trees):
+    """[(param, the matching entry of each tree)] over the param tree's
+    leaves, in `_map_with_state`'s order; an entry may be a subtree (a
+    leaf's state dict)."""
+    if isinstance(params, dict):
+        return [row for k in params
+                for row in _leaf_rows(params[k], *(t[k] for t in trees))]
+    return [(params, *trees)]
 
 
 def _map_with_state(fn, params, grads, states):

@@ -33,14 +33,22 @@ differs:
   the global gradient norm sums the squares of the model-cut leaves over
     the model group and counts each replicated leaf once
   ZeRO-1: each rank holds its (model, data) block of every moment;
-    AdamW updates the rank's block of each param and the blocks are put
-    back together over the data group alone (`core.mesh.mesh_gather`),
-    so each rank keeps its model block; Adafactor and adam8bit, whose
-    updates need the whole leaf, gather the params, gradients and state
-    over both axes, update whole leaves and keep the rank's blocks
+    AdamW and Adafactor update the rank's block of each param and the
+    blocks are put back together over the data group alone (`core.mesh.
+    mesh_gather`), so each rank keeps its model block.  Adafactor's
+    factored statistics keep the reference's specs (its param's spec
+    truncated to the vector's rank, plus ZeRO-1), which need not cut the
+    block's rows and columns alike: the rank's entries are moved to the
+    block and back (vectors, never a param), and its row and column
+    sums, the rows' mean and the clip's RMS are summed over the ranks
+    that cut the summed axes (`rank_adafactor_update`).  adam8bit, whose
+    int8 blocks of 256 run over the flattened leaf, gathers the params,
+    gradients and state over both axes, updates whole leaves and keeps
+    the rank's blocks
   --compress: the gradients and the cut residuals are gathered whole,
     the whole summed gradient is encoded and decoded, and each rank
-    keeps its residuals' block
+    keeps its residuals' block; the update then runs on the rank's
+    blocks as above
 
 A mesh of distinct devices with no process group would need a process
 per device and raises.
@@ -54,8 +62,9 @@ import numpy as np
 import torch
 
 from repro_torch.core.mesh import (NamedSharding, PartitionSpec as P,
-                                   axis_size, dp_axes, local_block,
-                                   mesh_gather, mesh_sum, sub_block)
+                                   axis_size, dp_axes, drop_axes,
+                                   local_block, mesh_gather, mesh_sum,
+                                   sub_block)
 from repro_torch.device import resolve_device
 from repro_torch.models import (abstract_params, decode_step as model_decode,
                                 init_params, lm_from_jax,
@@ -243,6 +252,122 @@ def _sum_tree(tree, mesh, axes=None):
     return tree_map(lambda t: of[id(t)], tree)
 
 
+def _cut_axes(entries, mesh) -> Tuple[str, ...]:
+    """The axes named by spec `entries` that hold more than one rank, in
+    the mesh's order: the group over which a sum of the blocks those
+    entries cut runs."""
+    named = set()
+    for e in entries:
+        if e is not None:
+            named.update((e,) if isinstance(e, str) else e)
+    return tuple(a for a in mesh.axis_names
+                 if a in named and mesh.shape[a] > 1)
+
+
+def _sum_by_group(tensors, keys, mesh):
+    """Each tensor summed over the ranks along its key (a `_cut_axes`
+    tuple): one `mesh_sum` a distinct key; a key of no axis leaves its
+    tensor as it is."""
+    out = list(tensors)
+    at: Dict[tuple, list] = {}
+    for i, key in enumerate(keys):
+        if key:
+            at.setdefault(key, []).append(i)
+    for axes, idx in at.items():
+        for i, t in zip(idx, mesh_sum([tensors[i] for i in idx], mesh,
+                                      axes)):
+            out[i] = t
+    return out
+
+
+def _padded(spec, ndim: int) -> tuple:
+    return tuple(spec) + (None,) * (ndim - len(spec))
+
+
+def _moved(blocks, shapes, have, want, mesh):
+    """This rank's `blocks` of whole leaves of `shapes`, each under its
+    spec in `have`, as its blocks under `want`: where the two cut a dim
+    by different axes, the block is first gathered over `have`'s axes
+    there (`mesh_gather`, one call an axis set), then sliced and copied
+    out (`sub_block`).  A leaf whose two specs cut alike comes back as it
+    is."""
+    out = list(blocks)
+    at: Dict[tuple, list] = {}
+    for i, (shape, h, w) in enumerate(zip(shapes, have, want)):
+        h, w = _padded(h, len(shape)), _padded(w, len(shape))
+        differ = [d for d in range(len(shape))
+                  if _cut_axes(h[d:d + 1], mesh) != _cut_axes(w[d:d + 1],
+                                                             mesh)]
+        if differ:
+            at.setdefault(_cut_axes([h[d] for d in differ], mesh),
+                          []).append(i)
+    for axes, idx in at.items():
+        got = [blocks[i] for i in idx]
+        if axes:
+            got = mesh_gather(got, [shapes[i] for i in idx],
+                              [have[i] for i in idx], mesh, axes)
+        for i, t in zip(idx, got):
+            within = drop_axes(have[i], axes)
+            out[i] = t[sub_block(shapes[i], want[i], within, mesh)].clone()
+    return out
+
+
+def rank_adafactor_update(optimizer, grads, params, opt, lr, specs, shapes,
+                          mesh):
+    """Adafactor's update over a mesh of ranks on this rank's blocks
+    (`optimizer.update_blocks`): one process's values in another float
+    order.  `grads` and `params` are the rank's model blocks (under
+    `specs["params"]`), `opt` its state under `specs["opt"]`, `shapes`
+    the whole trees ({"params", "opt"}).  Each leaf is updated on the
+    rank's block under its ZeRO-1 spec (`sharding.zero1_spec` of the
+    param's, AdamW's moments' cut).  The state keeps the reference's
+    specs (each `vr` / `vc` cut by its param's spec truncated to its rank,
+    plus ZeRO-1), so its entries for the block's rows and columns are
+    moved there and back (`_moved`: vectors, never a param).  The row and
+    column sums of g^2 and the rows' mean are summed over the ranks that
+    cut the summed axis, the clip's sum of squares over the ranks that
+    cut the leaf (`_sum_by_group`).  The new blocks are put back together
+    over the data group, so the rank keeps its model block.  Returns (the
+    new params, the new state)."""
+    pspec, pshape = specs["params"], shapes["params"]
+    fspec, fshape = specs["opt"]["f"], shapes["opt"]["f"]
+    zspec = tree_map(lambda s, t: shd.zero1_spec(s, tuple(t.shape), mesh),
+                     pspec, pshape)
+    have, want, whole, stored = [], [], [], []
+
+    def entries(z, p, st, sp, sh):
+        z = _padded(z, p.dim())
+        need = {"v": P(*z)}
+        if p.dim() >= 2:
+            need.update(vr=P(*z[:-1]), vc=P(*z[:-2], z[-1]))
+        for k in st:
+            have.append(sp[k])
+            want.append(need[k])
+            whole.append(tuple(sh[k].shape))
+            stored.append(st[k])
+        return {"rows": _cut_axes(z[-2:-1], mesh),
+                "cols": _cut_axes(z[-1:], mesh), "leaf": _cut_axes(z, mesh)}
+    groups = tree_map(entries, zspec, pshape, opt["f"], fspec, fshape)
+
+    def rebuild(flat):
+        it = iter(flat)
+        return tree_map(lambda _, st: {k: next(it) for k in st}, zspec,
+                        opt["f"])
+    f_blocks = rebuild(_moved(stored, whole, have, want, mesh))
+    blocks, new = optimizer.update_blocks(
+        cut(grads, zspec, mesh, pspec, pshape), {"f": f_blocks,
+                                                 "step": opt["step"]},
+        cut(params, zspec, mesh, pspec, pshape), lr, shapes=pshape,
+        groups=groups, psum=lambda ts, ks: _sum_by_group(ts, ks, mesh))
+    del f_blocks
+    flat = []
+    tree_map(lambda _, st, ns: flat.extend(ns[k] for k in st), zspec,
+             opt["f"], new["f"])
+    new_f = rebuild(_moved(flat, whole, want, have, mesh))
+    return (gather(blocks, zspec, pshape, mesh, dp_axes(mesh)),
+            {"f": new_f, "step": new["step"]})
+
+
 def rank_rows(batch, mesh, accum: int = 1):
     """This rank's microbatches of the global `batch`: microbatch i is
     the global rows [i*B/accum, (i+1)*B/accum) (the reference's
@@ -351,8 +476,10 @@ def make_train_step(cfg, mesh=None, *, optimizer_name: str = "adamw",
         of the data-summed gradients."""
         params = state["params"]
         pspec, model = specs["params"], ("model",)
-        whole = compress or optimizer_name != "adamw"
-        if whole:       # every update below but AdamW's needs whole leaves
+        # --compress's error feedback and adam8bit's int8 blocks over the
+        # flattened leaf need whole leaves
+        whole = compress or optimizer_name == "adam8bit"
+        if whole:
             grads = gather(grads, pspec, shapes["params"], ranks, model)
         new_err = None
         if compress:
@@ -377,9 +504,13 @@ def make_train_step(cfg, mesh=None, *, optimizer_name: str = "adamw",
                 norm=grad_norm, **in_place)
             new_params = gather(blocks, mspec, shapes["params"], ranks,
                                 dp_axes(ranks))
-        else:
-            # the update needs whole leaves (factored rows and columns,
-            # a leaf's RMS, blocks over the flattened leaf)
+        elif optimizer_name == "adafactor":
+            if whole:
+                grads = cut(grads, pspec, ranks)
+            new_params, new_opt = rank_adafactor_update(
+                optimizer, grads, params, state["opt"], lr, specs, shapes,
+                ranks)
+        else:       # adam8bit, on whole leaves
             full = gather(params, pspec, shapes["params"], ranks, model)
             opt = gather(state["opt"], specs["opt"], shapes["opt"], ranks)
             full, opt = optimizer.update(grads, opt, full, lr)
@@ -413,8 +544,9 @@ def make_train_step(cfg, mesh=None, *, optimizer_name: str = "adamw",
         drawn as blocks: the params inside the mesh (`init_params`: the
         rank's model blocks, the weights one process's), AdamW's zero
         moments and the --compress residuals as their blocks within the
-        params'; the whole-leaf optimizers' state from whole-shaped
-        stand-ins (a zero expanded, no storage) of the params, cut."""
+        params'; Adafactor's and adam8bit's state, whose leaves are not
+        the params' shapes, from whole-shaped stand-ins (a zero
+        expanded, no storage) of the params, cut."""
         with ranks:
             params = init_params(seed, cfg, device=device)
         pspec, pshape = specs["params"], shapes["params"]

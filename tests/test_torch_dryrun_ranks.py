@@ -170,3 +170,25 @@ def test_a_cell_without_zero1_has_no_rank_trace():
     assert rec["status"] == "ok" and rec["mem_argument_b"] > 0
     assert "ZeRO-1" in rec["rank_trace"]
     assert not [k for k in rec if k.startswith("collective")]
+
+
+def test_adafactor_traces_no_whole_leaf():
+    """Rank 0's trace of a MoE train step under Adafactor over (2, 2)
+    (deepseek-v3's smoke config with moe_d_ff 128, so that its expert
+    banks [2, 8, 128, 128] are factored): its temp at most the same
+    step's under AdamW plus 10 %, and its payload over the model axis
+    AdamW's plus less than one rank's block of a bank.  The whole-leaf
+    update, which gathered the gradients, params and state whole, read
+    19.0 MB of temp against AdamW's 9.7 MB and 8.8 MB over the model
+    axis against 0.49 MB."""
+    cfg = get_smoke_config("deepseek-v3-671b").replace(moe_d_ff=128)
+    batch = {k: torch.empty((4, 32), dtype=torch.long, device="meta")
+             for k in ("tokens", "labels")}
+    got = {opt: dryrun.rank_trace(cfg, "train", (2, 2), ("data", "model"),
+                                  batch, optimizer=opt, flops=False)
+           for opt in ("adafactor", "adamw")}
+    assert got["adafactor"]["mem_temp_b"] <= 1.1 * got["adamw"]["mem_temp_b"]
+    block = 2 * (cfg.n_experts // 2) * 128 * cfg.d_model * 4
+    model = {opt: g["collective_payload_b_by_axis"]["model"]
+             for opt, g in got.items()}
+    assert 0 <= model["adafactor"] - model["adamw"] < block, model

@@ -38,8 +38,8 @@ Bounds, each measured on this CPU first:
     (2, 1).  (In bfloat16 activations the reference's and the port's
     one-process kimi-k2 tokens part already: a bfloat16 near tie.)
   * the train CLI at (1, 2) from the reference trainer's state (deepseek
-    with AdamW on cut moments, kimi with adafactor through the whole-leaf
-    path): each step's loss within `test_torch_ranks.REF_LOSS_RTOL`
+    with AdamW on cut moments, kimi with adafactor on each rank's
+    blocks): each step's loss within `test_torch_ranks.REF_LOSS_RTOL`
     (1e-3) of the reference's; its 2-rank checkpoint restored in one
     process equals each rank's blocks.
 """
@@ -578,8 +578,8 @@ def test_serve_cli_over_ranks_gives_the_reference_tokens(arch, world2,
 def test_train_cli_over_a_model_axis_equals_the_reference(arch, world2,
                                                           train_ref, tmp):
     """The bfloat16 train CLI at (1, 2) from the reference trainer's
-    state (deepseek-v3 AdamW on cut moments, kimi-k2 adafactor through
-    whole leaves): each step's loss within REF_LOSS_RTOL of the
+    state (deepseek-v3 AdamW on cut moments, kimi-k2 adafactor on each
+    rank's blocks): each step's loss within REF_LOSS_RTOL of the
     reference's, on both ranks; the 2-rank checkpoint restored in one
     process equals each rank's own blocks."""
     want = train_ref[arch]

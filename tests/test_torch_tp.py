@@ -695,9 +695,10 @@ def test_model_axis_equals_the_reference_trainer(world2, reference):
 
 @pytest.mark.parametrize("name", ["adafactor", "compress"])
 def test_whole_leaf_optimizers_at_two_by_two(name, world4):
-    """adafactor (the params, gradients and state gathered whole) and
-    --compress (the gradients and residuals gathered whole) at (2, 2):
-    two steps' metrics and params within the float32 bounds."""
+    """adafactor (each rank's blocks updated, its factored statistics
+    summed over the ranks that cut their axes) and --compress (the
+    gradients and residuals gathered whole for the error feedback) at
+    (2, 2): two steps' metrics and params within the float32 bounds."""
     opt = {"compress": "adamw"}.get(name, name)
     want_m, want, _ = step_run("drim-bnn", opt, 2, None,
                                compress=name == "compress")
