@@ -289,7 +289,12 @@ Phases, each fatal on failure:
                 of every param, moment and KV cache by the reference's
                 specs (Megatron's column- and row-parallel products, the
                 vocab-parallel embedding, head and cross-entropy,
-                flash-decoding over the sequence-cut cache).  Training:
+                flash-decoding over the sequence-cut cache) and its
+                block of the residual cut over the sequence
+                (`seq_parallel`: the dense, vlm and MoE trunks and the
+                audio encoder; each row-parallel output a float32
+                reduce-scatter, each column-parallel input an
+                all-gather).  Training:
                 step 1's loss within TP_STEP1_TOL of the train phase's
                 step 1, every later loss within TP_LOSS_BOUND, a planted
                 fault (rank 1 drops layer 0's wo reduce for 8 steps) past
@@ -299,8 +304,8 @@ Phases, each fatal on failure:
                 bitwise the straight run; the 2-rank checkpoint restored
                 here in one process equal to each rank's blocks; s/step,
                 global tokens/s, peak GB and collective calls, GB and s a
-                step by axis per rank.  Serving (4 x 256, 8 greedy
-                tokens): drim-bnn cut to 6 layers (TP_ROUTE_LAYERS) on
+                step by axis and by kind per rank.  Serving (4 x 256, 8
+                greedy tokens): drim-bnn cut to 6 layers (TP_ROUTE_LAYERS) on
                 "gpu", "gpu --packed" and "cuda --packed", the same
                 tokens on every route and rank; drim-bnn cut to 2 layers
                 ("gpu") and qwen3-14b at 2 of its 40 layers, tokens equal
@@ -4673,8 +4678,9 @@ def train_leg(ranks, wrappers, argv, plant, **cut):
 def planted_fault(model_axis: int):
     """This rank's planted fault: over data ranks its gradients zeroed
     before the sum; over a model axis its layer-0 `wo` product left as
-    its own partial (the reduce still runs, so the ranks' collectives
-    stay matched, and its result is dropped).  Layer 0's leaves are the
+    its own partial (the sum still runs and carries the gradient, so the
+    ranks' collectives, the backward's too, stay matched; its value is
+    dropped).  Layer 0's leaves are the
     stacked leaves' first views, at storage offset 0."""
     from repro_torch.models import attention, layers
     from repro_torch.runtime import steps
@@ -4688,20 +4694,29 @@ def planted_fault(model_axis: int):
         finally:
             steps._sum_tree = sum_tree
         return
-    out_fn, reduce = attention._out, layers.reduce_from_model
+    from repro_torch.core import mesh as core_mesh
+    out_fn, row_sum = attention._out, layers.row_sum
 
-    def skipped(x, mesh):
-        reduce(x, mesh)
-        return x
+    def skipped(part, mesh, dtype=None):
+        # the rank's own partial (its block of the sequence inside a
+        # sequence cut) is handed on; the sum still runs and carries the
+        # gradient, so its backward's collective runs too and the ranks'
+        # collectives stay matched
+        whole = row_sum(part, mesh, dtype)
+        if core_mesh.sequence_ranks() is not None:
+            index, m = core_mesh.model_coord(mesh)
+            width = part.shape[layers.SEQ_DIM] // m
+            part = part.narrow(layers.SEQ_DIM, index * width, width)
+        return part.to(whole.dtype).detach() + (whole - whole.detach())
 
     def faulty_out(p, cfg, out):
         if p["wo"]["kernel"].storage_offset():       # not layer 0
             return out_fn(p, cfg, out)
-        layers.reduce_from_model = skipped
+        layers.row_sum = skipped
         try:
             return out_fn(p, cfg, out)
         finally:
-            layers.reduce_from_model = reduce
+            layers.row_sum = row_sum
     attention._out = faulty_out
     try:
         yield
@@ -5243,6 +5258,17 @@ def by_axis(coll, steps: int):
             if coll.get(f"calls:{axis}", 0)}
 
 
+def by_kind(coll, steps: int):
+    """A leg's collective calls, GB and seconds a step by kind
+    (`COLLECTIVE_STATS`' "calls/<kind>": all-reduce, all-gather,
+    reduce-scatter, broadcast)."""
+    return {key[len("calls/"):]: {
+        "calls": n / steps,
+        "gb": coll.get("bytes" + key[len("calls"):], 0) / 1e9 / steps,
+        "s": coll.get("seconds" + key[len("calls"):], 0.0) / steps}
+        for key, n in coll.items() if key.startswith("calls/") and n}
+
+
 def first_difference_ok(leg: str, got, want, gaps,
                         tol: float = TP_LOGIT_TOL) -> list:
     """Tokens [B, gen] equal to one process's, but that a row may differ
@@ -5374,6 +5400,7 @@ def phase_tp(wrappers):
                                           - r["checkpoint_gather_s"])
                 / TRAIN_STEPS,
                 "by_axis_per_step": by_axis(coll, TRAIN_STEPS),
+                "by_kind_per_step": by_kind(coll, TRAIN_STEPS),
                 "checkpoint_gather_s": r["checkpoint_gather_s"],
                 **tp_bytes_check(r)}))
         if gaps[0] > TP_STEP1_TOL or max(gaps[1:]) > TP_LOSS_BOUND:
@@ -5867,7 +5894,8 @@ def check_tp_moe(tmp: str, n: int, label: str = "tp") -> dict:
             "collective_calls_per_step": coll["calls"] / steps,
             "collective_gb_per_step": coll["bytes"] / 1e9 / steps,
             "collective_s_per_step": coll["seconds"] / steps,
-            "by_axis_per_step": by_axis(coll, steps), **got}))
+            "by_axis_per_step": by_axis(coll, steps),
+            "by_kind_per_step": by_kind(coll, steps), **got}))
         if r["param_bytes"] != r["param_bytes_of_specs"] \
                 or r["moment_bytes"] != r["moment_bytes_of_specs"]:
             raise AssertionError(f"{label} train {arch} rank {r['rank']}: "
@@ -6004,7 +6032,8 @@ def check_tp_families(tmp: str, n: int) -> dict:
                 "prefill_collective": {
                     "calls": pre.get("calls", 0),
                     "gb": pre.get("bytes", 0) / 1e9,
-                    "s": pre.get("seconds", 0.0)},
+                    "s": pre.get("seconds", 0.0),
+                    "by_kind": by_kind(pre, 1)},
                 "decode_collective_per_step": by_axis(dec, decode_calls),
                 "leg_wall_s": got["wall_s"]})
         print("tp " + json.dumps({
@@ -6088,6 +6117,7 @@ def check_tp_families(tmp: str, n: int) -> dict:
                 "collective_gb_per_step": coll["bytes"] / 1e9 / steps,
                 "collective_s_per_step": coll["seconds"] / steps,
                 "by_axis_per_step": by_axis(coll, steps),
+                "by_kind_per_step": by_kind(coll, steps),
                 **{key: r[key] for key in (
                     "param_bytes", "param_bytes_of_specs",
                     "param_bytes_one_process", "moment_bytes",

@@ -2,11 +2,13 @@
 `repro.configs.base`: the fields the dense, vlm, MoE, SSM, hybrid and
 audio families read, and `ShapeConfig`, `SHAPES`, `shapes_for`).
 
-The reference's config also carries two sharding fields that nothing in
-the port would act on, so they are not carried: `seq_parallel` (its
-sequence-parallel constraints and the expert-parallel block's S-sharded
-entry, identities in one process) and `scan_unroll` (the port loops over
-layers in Python and has no scan).
+`seq_parallel` is the reference's switch, and acts over a `model` axis of
+ranks: the residual of the dense, vlm and MoE trunks and of the audio
+encoder is cut over the sequence, a block a rank (`models.blocks`); with
+False the residual stays whole on every rank, and the ssm family's is
+not cut either.  In one process it changes nothing.  The reference's
+`scan_unroll` is not carried: the port loops over layers in Python and
+has no scan.
 """
 from __future__ import annotations
 
@@ -46,6 +48,11 @@ class ModelConfig:
     # CPU, as the reference runs it off the TPU).  "xla": dense scores
     # everywhere (the reference's name for it).
     attention_impl: str = "flash"
+    # Megatron-style sequence parallelism: the residual stream / norm
+    # segments are sharded S-over-`model`; TP blocks all-gather on entry
+    # and REDUCE-SCATTER on exit (half the wire bytes of the all-reduce
+    # they replace, and the f32 norm segments stop being replicated).
+    seq_parallel: bool = True
     # "ep": expert parallelism over the ambient mesh's `model` axis
     # (`moe._ep_shard_map`), which falls back to "grouped" off a mesh or
     # where the mesh does not divide the experts or the batch.

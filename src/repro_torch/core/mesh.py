@@ -27,16 +27,18 @@ GSPMD's contiguous blocks).  Its collectives run over the ranks that
 share this rank's coordinates off some axes (`_axis_group`: one
 `dist.new_group` per distinct group of each axis set, all made once per
 mesh by every rank in one order): `mesh_sum` and `mesh_max` (all-reduces),
-`mesh_all_gather` (blocks concatenated along a dim in mesh order) and
-`mesh_gather` (cut blocks put back together by a broadcast from each
-block's owner).  They are written over `dist.all_reduce`,
-`dist.all_gather` and `dist.broadcast`, which gloo takes for CUDA tensors
-too, so one code path serves gloo on the CPU, gloo with several ranks on
-one card, and NCCL with a card a rank.  `COLLECTIVE_STATS` counts their
-calls, bytes and seconds, in all and by axis ("calls:data",
-"bytes:model", ...); inside a `record_collectives()` block each call is
-also listed with its kind, group size, payload and axes (the dry-run's
-per-rank trace, `launch.dryrun.rank_trace`).
+`mesh_all_gather` (blocks concatenated along a dim in mesh order),
+`mesh_reduce_scatter` (a sum of which each rank keeps its block along a
+dim) and `mesh_gather` (cut blocks put back together by a broadcast from
+each block's owner).  They are written over `dist.all_reduce`,
+`dist.all_gather`, `dist.reduce_scatter_tensor` and `dist.broadcast`,
+which gloo takes for CUDA tensors too, so one code path serves gloo on
+the CPU, gloo with several ranks on one card, and NCCL with a card a
+rank.  `COLLECTIVE_STATS` counts their calls, bytes and seconds, in all,
+by axis ("calls:data", "bytes:model", ...) and by kind
+("calls/reduce-scatter", ...); inside a `record_collectives()` block each
+call is also listed with its kind, group size, payload and axes (the
+dry-run's per-rank trace, `launch.dryrun.rank_trace`).
 
 Megatron's four operators for a `model` axis over ranks (the ambient
 mesh's, `model_ranks`) are autograd functions: `copy_to_model` (forward
@@ -52,6 +54,16 @@ whole) and, for a sequence cut over the model group, `gather_sequence`
 the group and the rank's block kept, since each rank uses the others'
 blocks differently) and `sequence_halo` (the previous rank's last
 frames of a causal convolution, zeros on the first rank).
+
+Megatron's sequence-parallel pair serves a residual cut over the
+sequence (the reference's `seq_parallel`): `gather_from_sequence`
+(forward an all-gather of the rank's block, backward the gradient
+reduce-scattered in float32: the input of column-parallel products, each
+rank's gradient a partial) and `reduce_scatter_to_sequence` (forward
+float32 partials reduce-scattered and rounded once, backward the
+all-gather: the exit of a row-parallel product).  `sequence_cut(mesh)`
+marks the code that holds such a block (`sequence_ranks`), so the
+row-parallel products inside it end in the reduce-scatter.
 
 This module sits below `core.device` and imports nothing of the port;
 `launch.mesh` adds the LM meshes and `pim.mesh` the fleet mesh.  Defined
@@ -328,10 +340,10 @@ def map_blocks(mesh: Mesh, fn: Callable, tensors: Sequence[torch.Tensor],
 # --- meshes of ranks ----------------------------------------------------------
 
 # calls, payload bytes and wall seconds of the rank collectives below, in
-# all and by the axes they ran over ("calls:data", "bytes:model", ...;
-# "data+model" where a call spans both); each call timed from its
-# inputs' readiness to its result's: the card is synchronised on either
-# side
+# all, by the axes they ran over ("calls:data", "bytes:model", ...;
+# "data+model" where a call spans both) and by kind ("calls/all-reduce",
+# "bytes/reduce-scatter", ...); each call timed from its inputs'
+# readiness to its result's: the card is synchronised on either side
 COLLECTIVE_STATS = {f"{k}{axes}": 0.0 if k == "seconds" else 0
                     for k in ("calls", "bytes", "seconds")
                     for axes in ("", ":data", ":model", ":data+model")}
@@ -348,11 +360,12 @@ _RECORDS: List[list] = []
 @contextlib.contextmanager
 def record_collectives():
     """Yields a list that gets one dict per rank collective run inside
-    the block, in order: {"kind": "all-reduce", "all-gather" or
-    "broadcast", "n": the group's ranks, "payload_b": the bytes
-    `COLLECTIVE_STATS` counts (an all-reduce's buffer, an all-gather's
-    input, a broadcast's buffer), "axes": the axes' label ("model",
-    "pod+data", ...)}."""
+    the block, in order: {"kind": "all-reduce", "all-gather",
+    "reduce-scatter" or "broadcast", "n": the group's ranks,
+    "payload_b": the bytes `COLLECTIVE_STATS` counts (an
+    all-reduce's buffer, an all-gather's input, a reduce-scatter's input,
+    a broadcast's buffer), "axes": the axes' label ("model", "pod+data",
+    ...)}."""
     calls: list = []
     _RECORDS.append(calls)
     try:
@@ -514,7 +527,7 @@ def _timed(fn, t: torch.Tensor, label: str, kind: str, n: int) -> None:
     if t.is_cuda:
         torch.cuda.synchronize(t.device)
     dt = time.perf_counter() - t0
-    for suffix in ("", f":{label}") if label else ("",):
+    for suffix in ("", f"/{kind}") + ((f":{label}",) if label else ()):
         COLLECTIVE_STATS[f"calls{suffix}"] = \
             COLLECTIVE_STATS.get(f"calls{suffix}", 0) + 1
         COLLECTIVE_STATS[f"bytes{suffix}"] = \
@@ -578,6 +591,31 @@ def mesh_all_gather(t: torch.Tensor, mesh: Mesh, axes: Tuple[str, ...],
     _timed(lambda: dist.all_gather(parts, t, group=group), t,
            _label(mesh, tuple(axes)), "all-gather", n)
     return torch.cat(parts, dim)
+
+
+def mesh_reduce_scatter(t: torch.Tensor, mesh: Mesh, axes: Tuple[str, ...],
+                        dim: int) -> torch.Tensor:
+    """`t` summed over the ranks along `axes`, of which this rank keeps
+    its block along `dim` (the group's equal blocks in mesh order): one
+    `reduce_scatter_tensor` of `t` with `dim` moved to the front; `t`
+    itself where the axes hold one rank.  The ranks' tensors must have one
+    shape, and the group must divide `dim`."""
+    group, n = _axis_group(mesh, tuple(axes))
+    if n == 1:
+        return t
+    dim %= t.dim()
+    if t.shape[dim] % n:
+        raise ValueError(f"a reduce-scatter over {n} ranks cannot cut a dim "
+                         f"of {t.shape[dim]}")
+    front = t.movedim(dim, 0).contiguous()
+    out = torch.empty((front.shape[0] // n, *front.shape[1:]),
+                      dtype=t.dtype, device=t.device)
+    # torch 2.13 renames `reduce_scatter_tensor` (the same call) and
+    # warns on the old name, the card's 2.11 has only the old one
+    call = getattr(dist, "reduce_scatter_single", dist.reduce_scatter_tensor)
+    _timed(lambda: call(out, front, group=group), front,
+           _label(mesh, tuple(axes)), "reduce-scatter", n)
+    return out.movedim(0, dim)
 
 
 def mesh_gather(blocks: Sequence[torch.Tensor], shapes, specs, mesh: Mesh,
@@ -729,15 +767,18 @@ def gather_from_model(x: torch.Tensor, mesh: Mesh, dim: int) -> torch.Tensor:
 
 
 def vocab_lookup(table: torch.Tensor, tokens: torch.Tensor, lo: int,
-                 mesh: Mesh) -> torch.Tensor:
+                 mesh: Mesh, seq_dim: Optional[int] = None) -> torch.Tensor:
     """Rows `tokens` of a table cut over its vocabulary: this rank holds
     rows [lo, lo + len(table)); a token outside them gives zeros, and the
     ranks' rows are summed over the model group (one rank holds each
-    token's row, so the sum is that row)."""
+    token's row, so the sum is that row).  With `seq_dim` the sum is
+    reduce-scattered along it: the rank's block of the sequence."""
     local = tokens.long() - lo
     inside = (local >= 0) & (local < table.shape[0])
     rows = table[local.clamp(0, table.shape[0] - 1)]
     rows = rows.to(torch.float32) * inside[..., None].to(torch.float32)
+    if seq_dim is not None:
+        return reduce_scatter_to_sequence(rows, mesh, seq_dim, table.dtype)
     return reduce_from_model(rows, mesh).to(table.dtype)
 
 
@@ -816,3 +857,78 @@ def sequence_halo(tail: torch.Tensor, mesh: Mesh
     its last frames.  The halo's gradient goes back to the rank it came
     from."""
     return _SequenceHalo.apply(tail, mesh)
+
+
+# --- the sequence-parallel residual: Megatron's pair -------------------------
+
+# the mesh of ranks whose model group cuts the residual over the sequence
+# in the code running now (`sequence_cut`), or None
+_SEQUENCE: contextvars.ContextVar[Optional[Mesh]] = contextvars.ContextVar(
+    "repro_torch_sequence_cut", default=None)
+
+
+@contextlib.contextmanager
+def sequence_cut(mesh: Optional[Mesh]):
+    """Inside the block, the residual is this rank's block of a sequence
+    cut over `mesh`'s model group (None: whole), which `sequence_ranks`
+    tells the row-parallel products.  A block function enters it itself,
+    so remat's recompute, which runs the function again on the autograd
+    engine's thread, is inside it too."""
+    token = _SEQUENCE.set(mesh)
+    try:
+        yield
+    finally:
+        _SEQUENCE.reset(token)
+
+
+def sequence_ranks() -> Optional[Mesh]:
+    """The mesh of the innermost `sequence_cut`, or None."""
+    return _SEQUENCE.get()
+
+
+class _GatherFromSequence(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, dim):
+        ctx.mesh, ctx.dim = mesh, dim
+        return mesh_all_gather(x, mesh, ("model",), dim)
+
+    @staticmethod
+    def backward(ctx, grad):
+        part = grad.to(torch.float32)
+        return mesh_reduce_scatter(part, ctx.mesh, ("model",), ctx.dim) \
+            .to(grad.dtype), None, None
+
+
+class _ReduceScatterToSequence(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, part, mesh, dim, dtype):
+        ctx.mesh, ctx.dim, ctx.dtype = mesh, dim, part.dtype
+        return mesh_reduce_scatter(part.to(torch.float32), mesh,
+                                   ("model",), dim).to(dtype)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return mesh_all_gather(grad, ctx.mesh, ("model",), ctx.dim) \
+            .to(ctx.dtype), None, None, None
+
+
+def gather_from_sequence(x: torch.Tensor, mesh: Mesh, dim: int
+                         ) -> torch.Tensor:
+    """The model group's blocks of a sequence-cut `x` concatenated along
+    `dim` in mesh order (one all-gather, in x's dtype); the gradient, a
+    partial on each rank (the whole sequence's input of column-parallel
+    products), is reduce-scattered over the group in float32, of which
+    the rank keeps its block, rounded once to the gradient's dtype."""
+    return _GatherFromSequence.apply(x, mesh, dim % x.dim())
+
+
+def reduce_scatter_to_sequence(part: torch.Tensor, mesh: Mesh, dim: int,
+                               dtype: Optional[torch.dtype] = None
+                               ) -> torch.Tensor:
+    """The ranks' partials `part` (a row-parallel product's, over the
+    whole sequence) summed over the model group in float32, of which the
+    rank keeps its block along `dim`, rounded once to `dtype` (default:
+    part's); the gradient, the block's, is all-gathered over the group.
+    At two ranks the block is the all-reduce's, bit for bit."""
+    return _ReduceScatterToSequence.apply(
+        part, mesh, dim % part.dim(), part.dtype if dtype is None else dtype)

@@ -49,8 +49,8 @@ inputs: a train step (`make_train_step(cfg, mesh)`) on the state's
 decode step inside the mesh on `serve.place_params`' blocks, the decode
 caches cut by `rank_cache_pspecs`, as `launch.serve` feeds them.  Every
 collective of the port's own code (`core.mesh`'s all-reduces,
-all-gathers and broadcasts, `record_collectives`) is recorded with its
-kind, group size n, payload and axes, which gives:
+all-gathers, reduce-scatters and broadcasts, `record_collectives`) is
+recorded with its kind, group size n, payload and axes, which gives:
 
   * collective_counts, collective_by_kind, collective_bytes_per_device
                         under the reference's names and its five kinds
@@ -59,11 +59,12 @@ kind, group size n, payload and axes, which gives:
                         reference's ring rule (`ring_wire_bytes`): an
                         all-reduce of S bytes 2*S*(n-1)/n, an all-gather
                         S*(n-1)/n of its gathered result S (n times its
-                        input), a broadcast S*(n-1)/n (each of its n-1
-                        receivers takes S once, averaged over the n
-                        devices).  These are the port's collectives, not
-                        XLA's: the same model's step over the same mesh,
-                        but another program;
+                        input), a reduce-scatter S*(n-1) of its result
+                        S (1/n of its input), a broadcast S*(n-1)/n
+                        (each of its n-1 receivers takes S once,
+                        averaged over the n devices).  These are the
+                        port's collectives, not XLA's: the same model's
+                        step over the same mesh, but another program;
   * collective_calls_by_axis, collective_payload_b_by_axis
                         the calls and payload bytes by axis label
                         ("model", "data", "pod+data", ...), in the units
@@ -446,13 +447,17 @@ def ring_wire_bytes(kind: str, payload_b: int, n: int) -> float:
     ranks (the reference's `collective_bytes_per_device` rule, on its
     result bytes S): an all-reduce's payload is S, 2*S*(n-1)/n; an
     all-gather's payload is its input, S = n times it, S*(n-1)/n; a
-    broadcast's payload is S, S*(n-1)/n (each of the n-1 receivers takes
-    S once, averaged over the n devices)."""
+    reduce-scatter's payload is its input, n times its result S,
+    S*(n-1); a broadcast's payload is S, S*(n-1)/n (each of the n-1
+    receivers takes S once, averaged over the n devices)."""
     if kind == "all-reduce":
         return 2.0 * payload_b * (n - 1) / n
     if kind == "all-gather":
         size = payload_b * n
         return size * (n - 1) / n
+    if kind == "reduce-scatter":
+        size = payload_b // n
+        return float(size) * (n - 1)
     if kind == "broadcast":
         return payload_b * (n - 1) / n
     raise ValueError(f"no ring rule for {kind!r}")

@@ -6,14 +6,17 @@ on the device's tensors, their times, and NCCL's answer.
 
 Spawns two processes over a `FileStore` in a temporary directory.  With
 gloo, both on `--device` (default: cuda:0): one `all_reduce` (float32,
-int64) and one `broadcast` (uint8, float32) each, whether they ran and
-summed right, then each payload size of `--mb` MB of float32 all-reduced
-3 times and broadcast 2 times, each call timed between device
-synchronisations.  On the card, then NCCL with both ranks on cuda:0:
-the error it raises, or the sum it gave.  Prints one JSON line per
-rank and backend: {"backend", "rank", "ops": {name: "ok" or the error},
-"sum", "all_reduce_s": {mb: [s, ...]}, "broadcast_s": {...}} or
-{"backend": "nccl", "rank", "error" or "sum"}.  A process that does not
+int64), one `broadcast` (uint8, float32) and one `reduce_scatter_tensor`
+(float32) each, whether they ran and summed right, then each payload
+size of `--mb` MB of float32 all-reduced 3 times, broadcast 2 times and
+reduce-scattered 3 times (the payload the input), each call timed
+between device synchronisations.  On the card, then NCCL with both
+ranks on cuda:0: the error it raises, or the sum it gave.  Prints one
+JSON line per rank and backend: {"backend", "rank", "ops": {name: "ok"
+or the error}, "sum", "reduce_scatter": the rank's block of a
+reduce-scatter of [1, 2, 3, 4] + rank, "all_reduce_s": {mb: [s, ...]},
+"broadcast_s", "reduce_scatter_s": {...}} or {"backend": "nccl",
+"rank", "error" or "sum"}.  A process that does not
 finish within `--timeout` s is killed and its line says so.
 """
 from __future__ import annotations
@@ -29,6 +32,10 @@ import torch.distributed as dist
 import torch.multiprocessing as mp
 
 WORLD = 2
+# torch 2.13 renames `reduce_scatter_tensor` (the same call) and warns on
+# the old name; 2.11 has only the old one
+REDUCE_SCATTER = getattr(dist, "reduce_scatter_single",
+                         dist.reduce_scatter_tensor)
 
 
 def _sync(dev: torch.device) -> None:
@@ -50,7 +57,10 @@ def probe_gloo(rank: int, store: str, out: str, device: str, mbs) -> None:
                 ("broadcast_uint8", torch.uint8,
                  lambda t: dist.broadcast(t, src=1)),
                 ("broadcast_float32", torch.float32,
-                 lambda t: dist.broadcast(t, src=0))):
+                 lambda t: dist.broadcast(t, src=0)),
+                ("reduce_scatter_float32", torch.float32,
+                 lambda t: REDUCE_SCATTER(
+                     torch.empty(500, device=dev), t[:1000]))):
             t = torch.full((1001,), rank + 1, dtype=dtype, device=dev)
             try:
                 call(t)
@@ -61,12 +71,20 @@ def probe_gloo(rank: int, store: str, out: str, device: str, mbs) -> None:
         t = torch.full((3,), rank + 1.0, device=dev)
         dist.all_reduce(t)
         said["sum"] = t.tolist()
+        t = torch.arange(1.0, 5.0, device=dev) + rank
+        block = torch.empty(2, device=dev)
+        REDUCE_SCATTER(block, t)
+        said["reduce_scatter"] = block.tolist()
         said["all_reduce_s"], said["broadcast_s"] = {}, {}
+        said["reduce_scatter_s"] = {}
         for mb in mbs:
             x = torch.ones(mb * (1 << 20) // 4, device=dev)
+            half = torch.empty(x.numel() // WORLD, device=dev)
             for key, call, n in (("all_reduce_s", dist.all_reduce, 3),
                                  ("broadcast_s",
-                                  lambda t: dist.broadcast(t, src=0), 2)):
+                                  lambda t: dist.broadcast(t, src=0), 2),
+                                 ("reduce_scatter_s",
+                                  lambda t: REDUCE_SCATTER(half, t), 3)):
                 times = []
                 for _ in range(n):
                     _sync(dev)

@@ -17,22 +17,32 @@ assembled in `transformer.py`.  Under a `model` axis over ranks
 (`core.mesh.model_ranks`) the dense block is Megatron's: each sublayer's
 normed input passes `copy_to_model` before its column-parallel products,
 and its row-parallel product (`wo`, `down`) ends in the sum over the
-model group, so the residual stream stays whole on every rank (the vlm
-and the hybrid's shared block run it too).  The moe block runs its
-attention on the rank's heads (GQA as the dense block's, MLA with its
-latent whole on every rank) and its FFN expert-parallel over the group
-(`moe.moe_ffn`).  The ssm block of the ssm family takes the rank's block
-of a residual cut over the sequence (`seq_cut`, the reference's `_sp`:
-its params replicated); the hybrid's keeps the residual whole and runs
-its mixer on cut params (`ssm.ssm_mix`).  The audio blocks are the dense
-block's pieces on the same cut: the encoder's bidirectional attention on
-the rank's heads, and in the decoder block (xdec) the self-attention,
-the cross-attention over the rank's heads of every frame and the MLP,
-each behind `_normed`.
+model group.  The moe block runs its attention on the rank's heads (GQA
+as the dense block's, MLA with its latent whole on every rank) and its
+FFN expert-parallel over the group (`moe.moe_ffn`).
+
+`seq_cut` is the reference's `_sp` (Megatron's sequence parallelism,
+`cfg.seq_parallel`): x is this rank's block of a residual cut over the
+sequence, and so is the block's result.  The dense and moe blocks run
+inside `core.mesh.sequence_cut`: each sublayer's rmsnorm and residual add
+run on the block, the normed block is gathered in place of
+`copy_to_model` (`gather_from_sequence`, whose backward reduce-scatters
+the ranks' partial gradients; MLA's and the MoE FFN's with
+`gather_from_model`, since their whole-on-every-rank down-projections
+and router already complete the gradient), and each row-parallel
+product ends in a reduce-scatter to the block (`layers.row_sum`).  The
+trunk cuts the dense, vlm and moe residuals and the audio encoder's
+(`transformer._seq_block`); the hybrid's shared block and the audio
+decoder block (xdec) keep the residual whole, as in the reference.  The
+ssm block of the ssm family takes the rank's block too, its params
+replicated; the hybrid's keeps the residual whole and runs its mixer on
+cut params (`ssm.ssm_mix`).  The audio blocks are the dense block's
+pieces on the same cut: the encoder's bidirectional attention on the
+rank's heads, and in the decoder block (xdec) the self-attention, the
+cross-attention over the rank's heads of every frame and the MLP, each
+behind `_normed`.
 `aux` holds the auxiliary losses a block adds to the training loss;
-only the MoE block sets them (routing), the others return `ZERO_AUX`.  The reference's `_sp` (a sequence-parallel
-sharding constraint on the residual stream) is the identity on one card
-and has no counterpart.
+only the MoE block sets them (routing), the others return `ZERO_AUX`.
 """
 from __future__ import annotations
 
@@ -40,12 +50,16 @@ from typing import Dict, Tuple
 
 import torch
 
-from repro_torch.core.mesh import copy_to_model, model_ranks
+import contextlib
+
+from repro_torch.core.mesh import (copy_to_model, gather_from_model,
+                                   gather_from_sequence, model_ranks,
+                                   sequence_cut, sequence_ranks)
 from repro_torch.models import attention as attn
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import ssm as ssm_mod
-from repro_torch.models.layers import Params, mlp, mlp_init, rmsnorm, \
-    rmsnorm_init
+from repro_torch.models.layers import SEQ_DIM, Params, mlp, mlp_init, \
+    rmsnorm, rmsnorm_init
 
 # the auxiliary losses a block may add to the training loss (MoE routing)
 ZERO_AUX = {"load_balance": 0.0, "router_z": 0.0}
@@ -65,23 +79,39 @@ def dense_block_init(gen: torch.Generator, cfg, *, dtype=torch.float32
 
 def _normed(norm: Params, x):
     """rmsnorm(x), through `copy_to_model` under a model axis over ranks
-    (the input of the sublayer's column-parallel products)."""
+    (the input of the sublayer's column-parallel products); inside a
+    `sequence_cut`, the normed block gathered whole
+    (`gather_from_sequence`)."""
     h = rmsnorm(norm, x)
     mesh = model_ranks()
-    return h if mesh is None else copy_to_model(h, mesh)
+    if mesh is None:
+        return h
+    if sequence_ranks() is not None:
+        return gather_from_sequence(h, mesh, SEQ_DIM)
+    return copy_to_model(h, mesh)
+
+
+def _cut(seq_cut: bool):
+    """`sequence_cut` over the model axis of ranks where `seq_cut`."""
+    return sequence_cut(model_ranks()) if seq_cut \
+        else contextlib.nullcontext()
 
 
 def dense_block(p: Params, cfg, x, positions, *, window: int = 0,
-                causal: bool = True) -> Tuple[torch.Tensor, Dict, Dict]:
-    if causal:
-        a, cache = attn.gqa_attend(p["attn"], cfg,
-                                   _normed(p["attn_norm"], x), positions,
-                                   window)
-    else:                   # the encoder: full bidirectional attention
-        a, cache = _bidir_attend(p["attn"], cfg,
-                                 _normed(p["attn_norm"], x), positions)
-    x = x + a
-    x = x + mlp(p["mlp"], _normed(p["mlp_norm"], x), cfg.d_ff)
+                causal: bool = True, seq_cut: bool = False
+                ) -> Tuple[torch.Tensor, Dict, Dict]:
+    """`seq_cut`: x is this rank's block of a residual cut over the
+    sequence (`positions` stay the whole sequence's)."""
+    with _cut(seq_cut):
+        if causal:
+            a, cache = attn.gqa_attend(p["attn"], cfg,
+                                       _normed(p["attn_norm"], x),
+                                       positions, window)
+        else:               # the encoder: full bidirectional attention
+            a, cache = _bidir_attend(p["attn"], cfg,
+                                     _normed(p["attn_norm"], x), positions)
+        x = x + a
+        x = x + mlp(p["mlp"], _normed(p["mlp_norm"], x), cfg.d_ff)
     return x, cache, ZERO_AUX
 
 
@@ -124,17 +154,26 @@ def _moe_attn_in(p: Params, cfg, x):
     """The attention's normed input: GQA's through `copy_to_model` under
     a model axis over ranks (`_normed`); MLA's as it is, since its
     down-projections are whole on every rank and the copy comes after
-    them (`attention._mla_q`, `_mla_scores`)."""
-    return rmsnorm(p["attn_norm"], x) if cfg.mla \
-        else _normed(p["attn_norm"], x)
+    them (`attention._mla_q`, `_mla_scores`), and so inside a
+    `sequence_cut` gathered by `gather_from_model`: the gradient of the
+    whole is complete on every rank, and the rank keeps its block's."""
+    if not cfg.mla:
+        return _normed(p["attn_norm"], x)
+    h = rmsnorm(p["attn_norm"], x)
+    mesh = sequence_ranks()
+    return h if mesh is None else gather_from_model(h, mesh, SEQ_DIM)
 
 
-def moe_block(p: Params, cfg, x, positions, *, window: int = 0
-              ) -> Tuple[torch.Tensor, Dict, Dict]:
+def moe_block(p: Params, cfg, x, positions, *, window: int = 0,
+              seq_cut: bool = False) -> Tuple[torch.Tensor, Dict, Dict]:
+    """`seq_cut`: as `dense_block`'s; the MoE FFN gathers its normed
+    block itself (`moe.moe_ffn`)."""
     at = attn.mla_attend if cfg.mla else attn.gqa_attend
-    a, cache = at(p["attn"], cfg, _moe_attn_in(p, cfg, x), positions, window)
-    x = x + a
-    y, aux = moe_mod.moe_ffn(p["moe"], cfg, rmsnorm(p["mlp_norm"], x))
+    with _cut(seq_cut):
+        a, cache = at(p["attn"], cfg, _moe_attn_in(p, cfg, x), positions,
+                      window)
+        x = x + a
+        y, aux = moe_mod.moe_ffn(p["moe"], cfg, rmsnorm(p["mlp_norm"], x))
     return x + y, cache, aux
 
 

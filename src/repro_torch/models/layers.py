@@ -34,7 +34,10 @@ fallback spec, replication, or a column range off the block boundaries)
 is gathered whole and the rank takes the part it needs; its gradient is
 then summed over the group.  The packed `down` layer is cut over its
 output, so its input is gathered over the group first.  With no model
-axis over ranks both are `linear`.
+axis over ranks both are `linear`.  Inside a `core.mesh.sequence_cut`
+(a residual cut over the sequence) `linear_row`'s result is the rank's
+block of the sequence: the float32 partials reduce-scattered in place
+of the all-reduce, the packed layer's gathered whole cut to the block.
 """
 from __future__ import annotations
 
@@ -49,7 +52,9 @@ from torch import nn
 
 from repro_torch.core.mesh import (copy_to_model, gather_from_model,
                                    model_coord, model_ranks,
-                                   reduce_from_model)
+                                   reduce_from_model,
+                                   reduce_scatter_to_sequence,
+                                   scatter_to_model, sequence_ranks)
 from repro_torch.core.subarray import as_words
 from repro_torch.device import resolve_device
 from repro_torch.kernels import ops as kops
@@ -349,15 +354,35 @@ def linear_col(params: Params, x: torch.Tensor, d_out: int,
     return bitlinear(cols, x) if key == "bkernel" else dense(cols, x)
 
 
+# the sequence dim of the [B, S, ...] activations a sequence cut holds
+SEQ_DIM = 1
+
+
+def row_sum(part: torch.Tensor, mesh, dtype=None) -> torch.Tensor:
+    """A row-parallel product's partials summed over the model group in
+    float32 and rounded once to `dtype` (default: part's): the whole sum
+    on every rank, or inside a `sequence_cut` the rank's block of the
+    sequence (a reduce-scatter)."""
+    dtype = part.dtype if dtype is None else dtype
+    if sequence_ranks() is not None:
+        return reduce_scatter_to_sequence(part.to(torch.float32), mesh,
+                                          SEQ_DIM, dtype)
+    return reduce_from_model(part.to(torch.float32), mesh).to(dtype)
+
+
 def linear_row(params: Params, x: torch.Tensor, d_in: int, d_out: int
                ) -> torch.Tensor:
     """Row-parallel `linear` of a [d_in, d_out] layer: x [..., d_in /
     |model|] is this rank's block of the input features, the result
-    [..., d_out] the whole output on every rank.  Shadow and dense
-    weights: the rank's rows, the partial products summed over the model
-    group in float32 and rounded once to x's dtype.  Packed weights (cut
-    over d_out): x gathered over the group, the rank's output columns,
-    gathered.  `linear` with no model axis over ranks."""
+    [..., d_out] the whole output on every rank (inside a `sequence_cut`
+    the rank's block of the sequence).  Shadow and dense weights: the
+    rank's rows, the partial products summed over the model group in
+    float32 and rounded once to x's dtype (`row_sum`).  Packed weights
+    (cut over d_out): x gathered over the group, the rank's output
+    columns, gathered (and cut to the block: every rank holds the whole).
+    alpha and a bias act on the result, through `copy_to_model` inside a
+    sequence cut, where each rank's gradient of them is its block's.
+    `linear` with no model axis over ranks."""
     mesh = model_ranks()
     if mesh is None:
         return linear(params, x)
@@ -365,32 +390,38 @@ def linear_row(params: Params, x: torch.Tensor, d_in: int, d_out: int
     if x.shape[-1] * m != d_in:
         raise ValueError(f"a row-parallel input of {x.shape[-1]} features "
                          f"is not a block of {d_in} over {m} ranks")
+    cut = sequence_ranks() is not None
     if "w_packed" in params:
         x_all = gather_from_model(x, mesh, -1)
         if params["w_packed"].shape[0] == d_out:     # replicated
-            return bitlinear_packed(params, x_all, d_in)
-        return gather_from_model(linear_col(params, x_all, d_out), mesh, -1)
+            y = bitlinear_packed(params, x_all, d_in)
+        else:
+            y = gather_from_model(linear_col(params, x_all, d_out), mesh, -1)
+        return scatter_to_model(y, mesh, SEQ_DIM) if cut else y
     lo, hi = index * x.shape[-1], (index + 1) * x.shape[-1]
     key = "bkernel" if "bkernel" in params else "kernel"
     rows = part_of(params[key], (d_in, d_out), 0, lo, hi, mesh)
     if key == "kernel":
         part = x.to(torch.float32) @ rows.to(x.dtype).to(torch.float32)
-        y = reduce_from_model(part, mesh).to(x.dtype)
+        y = row_sum(part, mesh, x.dtype)
     else:
         dot, alpha = row_bitlinear_parts(rows, x, d_in, mesh)
+        if cut:         # the block's share of alpha's gradient
+            alpha = copy_to_model(alpha, mesh)
         y = dot.to(x.dtype) * alpha.to(x.dtype)
     if "bias" in params:
         b = params["bias"]
-        y = y + (b if b.shape[0] == d_out
-                 else gather_from_model(b, mesh, 0)).to(x.dtype)
+        b = b if b.shape[0] == d_out else gather_from_model(b, mesh, 0)
+        y = y + (copy_to_model(b, mesh) if cut else b).to(x.dtype)
     return y
 
 
 def row_bitlinear_parts(rows: torch.Tensor, x: torch.Tensor, d_in: int,
                         mesh) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(the ±1 dot [..., d_out] float32, alpha [d_out] in the weights'
-    dtype) of a row-parallel BitLinear from this rank's rows [d_in /
-    |model|, d_out] and input block x: each rank's partial dot is an
+    """(the ±1 dot [..., d_out] float32 (`row_sum`: inside a
+    `sequence_cut` the rank's block of the sequence), alpha [d_out] in the
+    weights' dtype) of a row-parallel BitLinear from this rank's rows
+    [d_in / |model|, d_out] and input block x: each rank's partial dot is an
     integer below 2**24 in float32 (from the DRIM fleet inside a
     `serving_engine` scope), so their sum over the model group is the
     one-process dot exactly; alpha = mean|w| over the whole d_in from the
@@ -404,7 +435,7 @@ def row_bitlinear_parts(rows: torch.Tensor, x: torch.Tensor, d_in: int,
     else:
         part = _ste_sign(x.to(torch.float32)) \
             @ _ste_sign(rows).to(torch.float32)
-    return reduce_from_model(part, mesh), alpha
+    return row_sum(part, mesh), alpha
 
 
 # --- rotary embeddings -------------------------------------------------------

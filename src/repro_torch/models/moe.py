@@ -57,10 +57,10 @@ import numpy as np
 import torch
 
 from repro_torch.core.mesh import ambient_mesh, ambient_ranks, axis_size, \
-    copy_to_model, dp_axes, mesh_sum, model_coord, model_ranks, \
-    reduce_from_model
-from repro_torch.models.layers import Params, dense, dense_init, \
-    linear_init, mlp, silu
+    copy_to_model, dp_axes, gather_from_model, mesh_sum, model_coord, \
+    model_ranks, scatter_to_model, sequence_ranks
+from repro_torch.models.layers import SEQ_DIM, Params, dense, dense_init, \
+    linear_init, mlp, row_sum, silu
 
 
 @dataclasses.dataclass(frozen=True)
@@ -333,16 +333,18 @@ def _ep_shard_map(p: Params, cfg, x: torch.Tensor, top_e: torch.Tensor,
 
 
 def _rank_ep(p: Params, cfg, xg: torch.Tensor, top_e: torch.Tensor,
-             top_w: torch.Tensor, cap: int, mesh) -> torch.Tensor:
+             top_w: torch.Tensor, cap: int, mesh, shape) -> torch.Tensor:
     """Expert parallelism over the model group of ranks (the reference's
     `_ep_shard_map` body on this rank alone).  `p`'s banks are this
     rank's block, experts [i*E_loc, (i+1)*E_loc) of model index i; xg
     [G, T, D] and top_w come through `copy_to_model`.  The rank builds
     only its own [G, E_loc, cap, D] slab (`_sort_dispatch` with its
     range), runs its expert SwiGLUs and combines a partial [G, T, D] in
-    which tokens routed elsewhere add zero; the partials are summed over
-    the model group in float32 and rounded once to x's dtype (at two
-    ranks the one-process sum of two float32 partials, bit for bit)."""
+    which tokens routed elsewhere add zero; the partials, as [B, S, D]
+    (`shape`), are summed over the model group in float32 and rounded
+    once to x's dtype (`layers.row_sum`: at two ranks the one-process sum
+    of two float32 partials, bit for bit; inside a sequence cut the
+    rank's block of S)."""
     index, m = model_coord(mesh)
     e_loc = p["gate"].shape[0]
     if e_loc * m != cfg.n_experts:
@@ -352,7 +354,7 @@ def _rank_ep(p: Params, cfg, xg: torch.Tensor, top_e: torch.Tensor,
                                     lo=index * e_loc, e_loc=e_loc)
     part = _combine(cfg, _expert_mlps(p, xg.dtype, expert_in), ctx,
                     xg.shape[1])
-    return reduce_from_model(part.to(torch.float32), mesh).to(part.dtype)
+    return row_sum(part.reshape(shape), mesh, part.dtype)
 
 
 def dispatch_mode(cfg, s: int, b: int = 1) -> str:
@@ -386,19 +388,30 @@ def moe_ffn(p: Params, cfg, x: torch.Tensor
     expert-parallel over the model group (`_rank_ep`): "ep" and
     "grouped" a group per row, "global" (every decode step) one group of
     the rank's B*S tokens, each rank keeping its experts' assignments.
-    The residual stream is whole on every model rank, so the reference's
-    sequence-parallel entry (an all-gather of x along S) is the identity
-    here and its exit (a psum_scatter) one all-reduce of the partials.
     The router, `_route` and the aux losses run whole on every rank, on
     x as it comes: their gradients are whole there already.  x (the
     dispatch's input) and top_w (the combine's weights) pass
     `copy_to_model`, so the ranks' parts of their gradients are summed.
     A bank the specs leave whole runs the plain dispatch on every rank,
     with no sum.  The shared experts are column- (gate, up) and
-    row-parallel (down)."""
+    row-parallel (down).  The partials are summed over the group in
+    float32 (`layers.row_sum`), the experts' and the shared experts' in
+    two calls.
+
+    Inside a `core.mesh.sequence_cut` (the reference's sequence-parallel
+    entry) x is this rank's block of the sequence [B, S / |model|, D]:
+    it is gathered whole first (`gather_from_model`: the gradient of the
+    whole is complete on every rank, as above, and the rank keeps its
+    block), routed and dispatched on the whole, and y is the rank's
+    block: each sum a reduce-scatter (the reference's psum_scatter), a
+    whole y that every rank computes alike cut to the block.  The
+    reference routes each rank's block; the values are the same."""
+    tp = model_ranks()
+    cut = tp is not None and sequence_ranks() is not None
+    if cut:
+        x = gather_from_model(x, tp, SEQ_DIM)
     b, s, d = x.shape
     mode = dispatch_mode(cfg, s, b)
-    tp = model_ranks()
     split = tp is not None and p["gate"].shape[0] != cfg.n_experts
     xc = x if tp is None else copy_to_model(x, tp)
     xd = xc if split else x                     # the dispatch's input
@@ -412,7 +425,7 @@ def moe_ffn(p: Params, cfg, x: torch.Tensor
     t = xg.shape[1]
     if split:
         y = _rank_ep(p, cfg, xg, top_e, copy_to_model(top_w, tp),
-                     _capacity(t, cfg), tp).reshape(b, s, d)
+                     _capacity(t, cfg), tp, (b, s, d))
     elif mode == "ep":
         y = _ep_shard_map(p, cfg, x, top_e, top_w, ambient_mesh())
     else:
@@ -420,6 +433,8 @@ def moe_ffn(p: Params, cfg, x: torch.Tensor
                                         _capacity(t, cfg))
         expert_out = _expert_mlps(p, x.dtype, expert_in)
         y = _combine(cfg, expert_out, ctx, t).reshape(b, s, d)
+    if cut and not split:
+        y = scatter_to_model(y, tp, SEQ_DIM)
     if "shared" in p:
         y = y + mlp(p["shared"], xc, cfg.moe_d_ff * cfg.n_shared_experts)
     return y, aux

@@ -46,20 +46,31 @@ the embedding is a vocab-parallel lookup, the head's logits are the rank's
 vocabulary block (the pad mask at the global column), and `train_loss` is
 the vocab-parallel cross-entropy: the row max by a MAX all-reduce, the
 sum of exps and the target logit (from the rank that holds it) by sums
-over the model group, never a [B, S, V] gather.  The ssm family's params
-are replicated (`runtime.sharding.param_pspecs`): its residual is cut
-over the sequence after the embedding (where the axis divides S), each
-rank takes the whole vocabulary's logits and cross-entropy on its own
-positions, and the cross-entropy's sum and token count are summed over
-the model group as well as the data group.  The audio family's encoder
-and decoder run on the rank's heads (the dense cut; the cross-attention's
-`wq`, `wk`, `wv` column-parallel and `wo` row-parallel).  Over ranks
+over the model group, never a [B, S, V] gather.  Under `cfg.seq_parallel`
+(the reference's `_sp`, its default) the residual is cut over the
+sequence where the axis divides an S > 1 (`_seq_block`): the dense, vlm
+and moe trunks' (the vocab-parallel embedding's sum reduce-scattered to
+the rank's block, the vlm's patches of its positions, the blocks'
+`seq_cut`, training's final norm on the block and the normed block
+gathered into the vocab-parallel head; the replicated norm scales' and
+the final norm's gradients are then the rank's partials, summed in the
+step: `cuts_sequence`, `runtime.sharding.sequence_partial`), the audio
+encoder's over its frames (its output gathered before `enc_norm`), and
+the ssm family's.  The hybrid's and the audio decoder's stay whole.  The
+ssm family's params are replicated (`runtime.sharding.param_pspecs`):
+its ranks embed their own tokens, each takes the whole vocabulary's
+logits and cross-entropy on its own positions, and the cross-entropy's
+sum and token count are summed over the model group as well as the data
+group.  The audio family's encoder and decoder run on the rank's heads
+(the dense cut; the cross-attention's `wq`, `wk`, `wv` column-parallel
+and `wo` row-parallel).  Over ranks
 `prefill` and `decode_step` take the global batch (its every tensor, the
 audio frames too), run the rank's rows (cut over the data axes, or every
 row where the data axes do not divide the batch, as `sanitize_spec`
 leaves it: a batch-1 prefill) and return the whole [B, 1, V] logits on
 every rank (the last position gathered), so every rank samples the same
-token; their caches are the rank's blocks of
+token (a sequence-cut prefill gathers only its last position); their
+caches are the rank's blocks of
 `runtime.sharding.rank_cache_pspecs` (K/V and latents cut over the
 sequence: prefill re-lays its head-cut K/V, and cuts the MLA latent that
 every rank holds whole, into them; SSM states cut over heads, conv
@@ -79,17 +90,19 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.core.mesh import (PartitionSpec, ambient_mesh,
                                    ambient_ranks, copy_to_model, dp_axes,
-                                   gather_from_model,
+                                   gather_from_model, gather_from_sequence,
                                    local_block, local_shape, mesh_all_gather,
                                    mesh_max, mesh_sum, model_coord,
                                    model_ranks, reduce_from_model,
-                                   sanitize_spec, vocab_lookup)
+                                   sanitize_spec, scatter_to_model,
+                                   vocab_lookup)
 from repro_torch.device import resolve_device
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import blocks as B
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.moe import ExpertBank
-from repro_torch.models.layers import Params, part_of, rmsnorm, rmsnorm_init
+from repro_torch.models.layers import (SEQ_DIM, Params, part_of, rmsnorm,
+                                       rmsnorm_init)
 from repro_torch.runtime.sharding import (_path_str, is_cross_cache,
                                          param_ranks, sequence_parallel)
 from repro_torch.tree import (tree_leaves, tree_map, tree_map_with_path,
@@ -321,36 +334,45 @@ def lm_from_jax(params, cfg, *, device=None) -> Params:
 
 # --- embedding / head --------------------------------------------------------
 
-def _embed(p, cfg, tokens: torch.Tensor, batch: Dict[str, Any]
-           ) -> torch.Tensor:
+def _embed(p, cfg, tokens: torch.Tensor, batch: Dict[str, Any],
+           block=None) -> torch.Tensor:
     """Token embeddings; for vlm with `patch_embeds` in the batch, the
     patches then the token embeddings past them, as the reference
     concatenates them (a prompt shorter than the patches gives a
     patch-long sequence there too).  Under a model axis over ranks: the
     vocab-parallel lookup (a table cut over d_model by the specs'
-    fallback: the rank's columns, gathered)."""
+    fallback: the rank's columns, gathered).  `block` (lo, hi): the
+    rank's positions of a sequence-cut residual, the vocab-parallel sum
+    reduce-scattered to them (a whole table's or a gathered lookup cut to
+    them, its gradient gathered) and the patches of those positions."""
     table = p["embed"]
     mesh = model_ranks()
+    cut = block is not None
     if mesh is None or table.shape == (padded_vocab(cfg), cfg.d_model):
         x = table[tokens.long()]
     elif table.shape[1] == cfg.d_model:
         x = vocab_lookup(table, tokens, model_coord(mesh)[0]
-                         * table.shape[0], mesh)
+                         * table.shape[0], mesh, SEQ_DIM if cut else None)
+        cut = False                     # the block already
     else:
         x = gather_from_model(table[tokens.long()], mesh, -1)
     x = x.to(cfg.activation_dtype)
+    if cut:
+        x = scatter_to_model(x, mesh, SEQ_DIM)
     if cfg.family == "vlm" and "patch_embeds" in batch:
         pe = batch["patch_embeds"].to(x.dtype)
-        x = torch.cat([pe, x[:, pe.shape[1]:, :]], dim=1)
+        lo, hi = (0, pe.shape[1]) if block is None else block
+        n = min(max(pe.shape[1] - lo, 0), hi - lo)  # patches in the block
+        x = torch.cat([pe[:, lo:lo + n], x[:, n:, :]], dim=1)
     return x
 
 
-def _seq_block(cfg, s: int):
-    """(lo, hi) of the sequence positions this rank's residual holds, or
-    None where it is whole: the ssm family under a model axis over ranks
-    cuts an S > 1 the axis divides (the reference's `_sp`)."""
+def _span(s: int):
+    """(lo, hi) of this rank's block of S positions cut over the model
+    axis of ranks, or None: no such axis, S == 1, or S the axis does not
+    divide."""
     mesh = model_ranks()
-    if not sequence_parallel(cfg.family) or mesh is None or s < 2:
+    if mesh is None or s < 2:
         return None
     index, m = model_coord(mesh)
     if s % m:
@@ -358,13 +380,54 @@ def _seq_block(cfg, s: int):
     return index * s // m, (index + 1) * s // m
 
 
+def _seq_block(cfg, s: int):
+    """(lo, hi) of the sequence positions this rank's trunk residual
+    holds, or None where it is whole: under `cfg.seq_parallel` the dense,
+    vlm, moe and ssm families cut an S > 1 the model axis of ranks
+    divides (the reference's `_sp`).  The hybrid's residual stays whole,
+    and so does the audio decoder's (its encoder's: `_enc_block`)."""
+    if not cfg.seq_parallel or cfg.family not in ("dense", "vlm", "moe",
+                                                  "ssm"):
+        return None
+    return _span(s)
+
+
+def _enc_block(cfg, n_frames: int):
+    """`_seq_block` of the audio encoder's residual of `n_frames`."""
+    if not cfg.seq_parallel or cfg.family != "audio":
+        return None
+    return _span(n_frames)
+
+
+def _residual_block(cfg, batch: Dict[str, Any]):
+    """`_seq_block` of a full-sequence batch's trunk residual: whole for
+    a vlm prompt shorter than its patches (the residual is the patches'
+    length)."""
+    s = batch["tokens"].shape[1]
+    pe = batch.get("patch_embeds")
+    if cfg.family == "vlm" and pe is not None and pe.shape[1] > s:
+        return None
+    return _seq_block(cfg, s)
+
+
+def cuts_sequence(cfg, batch: Dict[str, Any]) -> bool:
+    """Whether a full-sequence step on `batch` (the rank's rows) inside
+    the ambient mesh holds a sequence-cut residual whose replicated norm
+    scales take each rank's partial gradient (`runtime.sharding.
+    sequence_partial`): the dense, vlm and moe trunks', the audio
+    encoder's."""
+    if cfg.family == "audio":
+        return _enc_block(cfg, batch["frames"].shape[1]) is not None
+    return cfg.family != "ssm" and _residual_block(cfg, batch) is not None
+
+
 def grad_axes(cfg, mesh) -> Tuple[str, ...]:
     """The axes of a mesh of ranks over which the ranks' shares of the
     loss and of its gradients are summed: the data axes, and "model" for
-    the ssm family, whose ranks of a model group each hold a block of the
-    sequence and the whole params."""
+    the ssm family under `cfg.seq_parallel`, whose ranks of a model group
+    each hold a block of the sequence and the whole params."""
     return dp_axes(mesh) + (("model",) if sequence_parallel(cfg.family)
-                            else ())
+                            and cfg.seq_parallel else ())
 
 
 def _logits(p, cfg, x: torch.Tensor) -> torch.Tensor:
@@ -382,17 +445,22 @@ def _logits(p, cfg, x: torch.Tensor) -> torch.Tensor:
     return logits
 
 
-def _vocab_logits(p, cfg, x: torch.Tensor, mesh) -> Tuple[torch.Tensor, int]:
+def _vocab_logits(p, cfg, x: torch.Tensor, mesh, seq_cut: bool = False
+                  ) -> Tuple[torch.Tensor, int]:
     """(this rank's block of the logits [..., V / |model|] float32, the
     block's first column): the column-parallel head, its pad columns
-    masked at their global index."""
+    masked at their global index.  `seq_cut`: x is the rank's block of a
+    sequence-cut residual [B, S / |model|, D], normed there and gathered
+    (`gather_from_sequence`), so the logits cover every position."""
     index, m = model_coord(mesh)
     v = padded_vocab(cfg)
     if v % m:
         raise ValueError(f"a vocabulary of {v} does not divide a model "
                          f"axis of {m}")
     lo, hi = index * v // m, (index + 1) * v // m
-    x = copy_to_model(rmsnorm(p["final_norm"], x), mesh)
+    x = rmsnorm(p["final_norm"], x)
+    x = gather_from_sequence(x, mesh, SEQ_DIM) if seq_cut \
+        else copy_to_model(x, mesh)
     head = part_of(p["head"], (cfg.d_model, v), 1, lo, hi, mesh)
     logits = (x @ head.to(x.dtype)).to(torch.float32)
     if v != cfg.vocab_size:
@@ -481,10 +549,12 @@ def _forward_full(p, cfg, batch: Dict[str, Any], *, with_cache: bool):
     positions = torch.arange(s, device=tokens.device)[None, :] \
         .expand(bsz, s)
     window = _window_for(cfg, s)
-    block = _seq_block(cfg, s)
-    if block is not None:       # the ssm family's sequence-cut residual
-        tokens = tokens[:, block[0]:block[1]]
-    x = _embed(p, cfg, tokens, batch)
+    block = _residual_block(cfg, batch)
+    if block is not None and cfg.family == "ssm":
+        # the ssm family's replicated table: each rank its own tokens
+        x = _embed(p, cfg, tokens[:, block[0]:block[1]], batch)
+    else:
+        x = _embed(p, cfg, tokens, batch, block)
     remat = cfg.remat and not with_cache and torch.is_grad_enabled()
     if cfg.family == "hybrid":
         x, caches = _hybrid_full(p, cfg, x, positions, window, remat=remat,
@@ -494,10 +564,18 @@ def _forward_full(p, cfg, batch: Dict[str, Any], *, with_cache: bool):
         enc = batch["frames"].to(cfg.activation_dtype)
         enc_pos = torch.arange(enc.shape[1], device=enc.device)[None, :] \
             .expand(bsz, enc.shape[1])
+        frames = _enc_block(cfg, enc.shape[1])
+        if frames is not None:      # the encoder's sequence-cut residual
+            enc = enc[:, frames[0]:frames[1]]
         enc, _, _ = _run_layers(
             p["enc_layers"], cfg.encoder_layers, cfg,
-            functools.partial(B.dense_block, causal=False), enc, enc_pos, 0,
-            remat=remat, with_cache=False)
+            functools.partial(B.dense_block, causal=False,
+                              seq_cut=frames is not None),
+            enc, enc_pos, 0, remat=remat, with_cache=False)
+        if frames is not None:
+            # every decoder layer's cross_kv completes the gradient of
+            # the whole: the rank keeps its block's
+            enc = gather_from_model(enc, model_ranks(), SEQ_DIM)
         enc = rmsnorm(p["enc_norm"], enc)
         return _run_layers(p["layers"], cfg.n_layers, cfg, B.xdec_block, x,
                            positions, window, remat=remat,
@@ -562,8 +640,9 @@ def train_loss(params, cfg, batch: Dict[str, Any]
     axis the CE is the vocab-parallel one."""
     x, aux, _ = _forward_full(params, cfg, batch, with_cache=False)
     labels = batch["labels"].long()
-    block = _seq_block(cfg, labels.shape[1])
-    if block is not None:
+    block = _residual_block(cfg, batch)
+    if block is not None and cfg.family == "ssm":
+        # the ssm family's loss on the rank's own positions
         labels = labels[:, block[0]:block[1]]
     mask = (labels >= 0).to(torch.float32)
     safe = labels.clamp_min(0)
@@ -573,7 +652,8 @@ def train_loss(params, cfg, batch: Dict[str, Any]
         lse = torch.logsumexp(logits, dim=-1)
         nll = lse - logits.gather(-1, safe[..., None])[..., 0]
     else:
-        logits, lo = _vocab_logits(params, cfg, x, tp)     # [B,S,V/M]
+        logits, lo = _vocab_logits(params, cfg, x, tp,     # [B,S,V/M]
+                                   seq_cut=block is not None)
         nll = _vocab_parallel_ce(logits, safe, lo, tp)
     ntokens = mask.sum()
     ranks = ambient_ranks()
@@ -616,7 +696,7 @@ def prefill(params, cfg, batch: Dict[str, Any]) -> Tuple[torch.Tensor, Any]:
     x, _, caches = _forward_full(params, cfg, batch, with_cache=True)
     last = x[:, -1:, :]
     tp = model_ranks()
-    if _seq_block(cfg, batch["tokens"].shape[1]) is not None:
+    if _residual_block(cfg, batch) is not None:
         # the last position is the last model rank's
         last = mesh_all_gather(last, tp, ("model",), 1)[:, -1:, :]
     logits = _logits(params, cfg, last)

@@ -114,11 +114,33 @@ def param_spec(path, leaf, mesh: Mesh) -> P:
 
 
 def sequence_parallel(family: str | None) -> bool:
-    """Whether `family` runs sequence-parallel over the model axis: the
-    ssm family (pure Mamba2), whose params are all replicated (its mixer
-    dims do not divide a 16-way TP axis) and whose residual is cut over
-    the sequence instead (the reference's `_sp`)."""
+    """Whether `family`'s params are all replicated over the model axis:
+    the ssm family (pure Mamba2), whose mixer dims do not divide a 16-way
+    TP axis, and which only cuts its residual over the sequence (under
+    `cfg.seq_parallel`, as the dense, vlm and moe families also do: that
+    switch is the config's, `models.transformer._seq_block`)."""
     return family == "ssm"
+
+
+# The replicated leaves that a residual cut over the sequence applies to
+# the rank's block (`models.transformer.cuts_sequence`), so that each
+# rank's gradient of them is a partial over the sequence, summed over
+# the model group in the step: each block's norm scales and the final
+# norm's (the dense, vlm and moe trunks), the encoder blocks' (audio).
+# The ssm family sums every gradient over "model" (`grad_axes`); the
+# hybrid's shared block and the audio decoder keep the residual whole.
+_SEQUENCE_PARTIAL = {
+    "dense": ("layers/attn_norm/", "layers/mlp_norm/", "final_norm/"),
+    "vlm": ("layers/attn_norm/", "layers/mlp_norm/", "final_norm/"),
+    "moe": ("layers/attn_norm/", "layers/mlp_norm/", "final_norm/"),
+    "audio": ("enc_layers/attn_norm/", "enc_layers/mlp_norm/"),
+}
+
+
+def sequence_partial(path, family: str | None) -> bool:
+    """Whether the leaf at `path` takes each rank's partial gradient over
+    the sequence under a sequence-cut residual (`_SEQUENCE_PARTIAL`)."""
+    return _path_str(path).startswith(_SEQUENCE_PARTIAL.get(family, ()))
 
 
 def param_ranks(cfg):

@@ -29,7 +29,10 @@ differs:
     share of the global loss (`models.train_loss`)
   the gradients are summed over the data group (`core.mesh.mesh_sum`);
     the ssm family's over the model group too: its params are replicated
-    and each rank's gradient comes from its block of the sequence
+    and each rank's gradient comes from its block of the sequence; under
+    a sequence-cut residual (`cfg.seq_parallel`) the other families'
+    replicated norm scales too (`sharding.sequence_partial`: each rank
+    applied them to its block), in one more all-reduce
   the global gradient norm sums the squares of the model-cut leaves over
     the model group and counts each replicated leaf once
   ZeRO-1: each rank holds its (model, data) block of every moment;
@@ -56,6 +59,7 @@ per device and raises.
 from __future__ import annotations
 
 import contextlib
+import functools
 from typing import Any, Dict, Tuple
 
 import numpy as np
@@ -69,7 +73,8 @@ from repro_torch.device import resolve_device
 from repro_torch.models import (abstract_params, decode_step as model_decode,
                                 init_params, lm_from_jax,
                                 prefill as model_prefill, train_loss)
-from repro_torch.models.transformer import _to_torch, grad_axes
+from repro_torch.models.transformer import (_to_torch, cuts_sequence,
+                                           grad_axes)
 from repro_torch.optim import (compress_tree, decompress_tree, get_optimizer,
                                init_errors, warmup_cosine)
 from repro_torch.optim.optimizers import global_norm as _global_norm
@@ -244,12 +249,34 @@ def tp_global_norm(grads, specs, mesh):
     return torch.sqrt(sum(sums))
 
 
-def _sum_tree(tree, mesh, axes=None):
+def _sum_tree(tree, mesh, axes=None, also_model=None):
     """Every leaf summed over the ranks along `axes` (default: the data
-    axes)."""
+    axes); the leaves whose path `also_model(path)` marks (the
+    sequence-partial norm scales, `sharding.sequence_partial`) over
+    "model" too, in one more all-reduce (`_sum_by_group`)."""
+    axes = dp_axes(mesh) if axes is None else tuple(axes)
     leaves = tree_leaves(tree)
-    of = {id(t): s for t, s in zip(leaves, mesh_sum(leaves, mesh, axes))}
+    if also_model is None:
+        sums = mesh_sum(leaves, mesh, axes)
+    else:
+        marks = tree_leaves(tree_map_with_path(lambda p, t: also_model(p),
+                                               tree))
+        sums = _sum_by_group(leaves, [
+            _cut_axes(axes + (("model",) if m else ()), mesh)
+            for m in marks], mesh)
+    of = {id(t): s for t, s in zip(leaves, sums)}
     return tree_map(lambda t: of[id(t)], tree)
+
+
+def sum_rank_grads(cfg, grads, batch, mesh):
+    """A rank's gradients of its share of the loss on `batch` (its rows)
+    summed as the step sums them: over `transformer.grad_axes`, and where
+    the step holds a sequence-cut residual (`transformer.cuts_sequence`)
+    the sequence-partial norm scales (`sharding.sequence_partial`) over
+    "model" too."""
+    return _sum_tree(grads, mesh, grad_axes(cfg, mesh), functools.partial(
+        shd.sequence_partial, family=cfg.family)
+        if cuts_sequence(cfg, batch) else None)
 
 
 def _cut_axes(entries, mesh) -> Tuple[str, ...]:
@@ -428,7 +455,6 @@ def make_train_step(cfg, mesh=None, *, optimizer_name: str = "adamw",
     ranks = mesh if mesh is not None and mesh.ranks is not None else None
     if ranks is not None:
         specs, shapes = state_pspecs(cfg, optimizer, ranks, compress)
-        over = grad_axes(cfg, ranks)
 
     def step_fn(state, batch) -> Tuple[Dict[str, Any], Dict[str, Any]]:
         with (mesh if mesh is not None else contextlib.nullcontext()):
@@ -457,7 +483,7 @@ def make_train_step(cfg, mesh=None, *, optimizer_name: str = "adamw",
         else:
             loss, metrics, grads = _loss_and_grads(cfg, params, mbs[0])
         if ranks is not None:
-            grads = _sum_tree(grads, ranks, over)
+            grads = sum_rank_grads(cfg, grads, mbs[0], ranks)
             return _rank_update(state, grads, loss, metrics)
 
         if compress:

@@ -111,8 +111,8 @@ def model_batch(cfg, seed=7):
 def model_run(params, cfg, mesh=None):
     """Prefill, then three decode steps over each cache length of CTXS,
     and the train loss's gradients (over ranks: the rank's rows, summed
-    over the data axes), in one process or under `mesh` (a mesh of
-    ranks: the rank's blocks)."""
+    as a step sums them, `steps.sum_rank_grads`), in one process or under
+    `mesh` (a mesh of ranks: the rank's blocks)."""
     batch = model_batch(cfg)
     pre_batch = {k: v for k, v in batch.items() if k != "labels"}
     res = {}
@@ -138,7 +138,7 @@ def model_run(params, cfg, mesh=None):
         mine = batch if mesh is None else steps.rank_rows(batch, mesh)[0]
         _, _, grads = steps._loss_and_grads(cfg, params, mine)
         if mesh is not None:
-            grads = steps._sum_tree(grads, mesh)
+            grads = steps.sum_rank_grads(cfg, grads, mine, mesh)
     res["grads"] = grads
     return res
 

@@ -30,6 +30,10 @@ HLO_CASES = [
     ("all-gather", "s8", (512, 33), 256, "iota"),
     ("all-gather", "u8", (6, 6), 3, "list"),
     ("all-gather", "f64", (64,), 32, "iota"),
+    ("reduce-scatter", "f32", (8, 512), 16, "iota"),
+    ("reduce-scatter", "f32", (4, 7, 96), 2, "list"),
+    ("reduce-scatter", "bf16", (2, 1024), 4, "iota"),
+    ("reduce-scatter", "f32", (3,), 256, "iota"),
 ]
 DEVICES = 512
 # the port's broadcast rule, which the reference has no kind for:
@@ -40,13 +44,16 @@ BROADCAST = [(1000, 2, 500.0), (1024, 16, 960.0), (7, 4, 5.25),
 
 
 def hlo_line(kind, dtype, dims, n, form):
-    """One collective as XLA's optimized HLO prints it."""
+    """One collective as XLA's optimized HLO prints it (a reduce-scatter's
+    operand n times its result along the first dim)."""
     shape = f"{dtype}[{','.join(map(str, dims))}]"
+    operand = shape if kind != "reduce-scatter" else \
+        f"{dtype}[{','.join(map(str, (dims[0] * n,) + tuple(dims[1:])))}]"
     if form == "iota":
         groups = f"replica_groups=[{DEVICES // n},{n}]<=[{DEVICES}]"
     else:
         groups = "replica_groups={{" + ",".join(map(str, range(n))) + "}}"
-    return (f"  %{kind}.7 = {shape}{{0}} {kind}({shape}{{0}} %p.1), "
+    return (f"  %{kind}.7 = {shape}{{0}} {kind}({operand}{{0}} %p.1), "
             f"{groups}, to_apply=%add")
 
 
@@ -67,12 +74,14 @@ def result_bytes(dtype, dims):
     [c[0], c[1], "x".join(map(str, c[2])), str(c[3]), c[4]]))
 def test_ring_rule_equals_the_reference(ref, case):
     """The port's wire bytes of a recorded call (an all-reduce's payload
-    is its result; an all-gather's its input, 1/n of the result) equal
-    the reference's parse of the same collective's HLO line."""
+    is its result; an all-gather's its input, 1/n of the result; a
+    reduce-scatter's its input, n times the result) equal the reference's
+    parse of the same collective's HLO line."""
     kind, dtype, dims, n, _ = case
     total, by_kind, counts = ref["hlo"][HLO_CASES.index(case)]
     size = result_bytes(dtype, dims)
-    payload = size if kind == "all-reduce" else size // n
+    payload = {"all-reduce": size, "all-gather": size // n,
+               "reduce-scatter": size * n}[kind]
     port = dryrun.collective_fields([{"kind": kind, "n": n,
                                       "payload_b": payload, "axes": "x"}])
     assert counts[kind] == 1 and sum(counts.values()) == 1

@@ -162,6 +162,7 @@ def mla_run(params, cfg, mesh=None):
     else:
         with mesh:
             _, _, grads = steps._loss_and_grads(cfg, params, mla_batch())
+            grads = steps.sum_rank_grads(cfg, grads, mla_batch(), mesh)
     res["grads"] = grads
     return res
 

@@ -782,5 +782,7 @@ def test_rank_probe_on_the_cpu():
     for ln in lines:
         assert set(ln["ops"].values()) == {"ok"}
         assert ln["sum"] == [3.0, 3.0, 3.0]
+        assert ln["reduce_scatter"] == [[3.0, 5.0], [7.0, 9.0]][ln["rank"]]
         assert len(ln["all_reduce_s"]["1"]) == 3
         assert len(ln["broadcast_s"]["1"]) == 2
+        assert len(ln["reduce_scatter_s"]["1"]) == 3

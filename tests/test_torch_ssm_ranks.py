@@ -134,7 +134,7 @@ def model_run(params, cfg, mesh=None, ctxs=CTXS, s=S):
     """Prefill of `s` tokens, then three decode steps over each cache
     length of `ctxs`,
     and the train loss's gradients (over ranks: the rank's rows, summed
-    over the axes a step sums them over, `transformer.grad_axes`), in one
+    as a step sums them, `steps.sum_rank_grads`), in one
     process or under `mesh` (a mesh of ranks: the rank's blocks)."""
     batch = model_batch(cfg, s=s)
     pre_batch = {k: v for k, v in batch.items() if k != "labels"}
@@ -161,8 +161,7 @@ def model_run(params, cfg, mesh=None, ctxs=CTXS, s=S):
         mine = batch if mesh is None else steps.rank_rows(batch, mesh)[0]
         _, _, grads = steps._loss_and_grads(cfg, params, mine)
         if mesh is not None:
-            grads = steps._sum_tree(grads, mesh,
-                                     transformer.grad_axes(cfg, mesh))
+            grads = steps.sum_rank_grads(cfg, grads, mine, mesh)
     res["grads"] = grads
     return res
 

@@ -174,7 +174,8 @@ def scenario_ops(out):
         specs = steps.state_pspecs(cfg, get_optimizer("adamw"), mesh)[0]
         placed = steps.cut(whole, specs["params"], mesh)
         b = steps.rank_rows(batches(cfg, 1)[0], mesh)[0]
-        _, metrics, grads = steps._loss_and_grads(cfg, placed, b)
+        _, metrics, raw = steps._loss_and_grads(cfg, placed, b)
+        grads = steps.sum_rank_grads(cfg, raw, b, mesh)
         res["norm"] = {"loss": metrics["ce"],
                        "norm": steps.tp_global_norm(grads, specs["params"],
                                                     mesh),
@@ -192,7 +193,7 @@ def scenario_ops(out):
     worker.start()
     worker.join()
     res["thread"] = all(torch.equal(a, c) for a, c in
-                        zip(got["grads"], tree_leaves(grads)))
+                        zip(got["grads"], tree_leaves(raw)))
     return res
 
 
@@ -365,8 +366,9 @@ def scenario_uneven_heads(out):
             specs = steps.state_pspecs(cfg, get_optimizer("adamw"),
                                        mesh)[0]
             b = steps.rank_rows(batches(cfg, 1)[0], mesh)[0]
-            got["grads"] = steps._loss_and_grads(
-                cfg, steps.cut(params, specs["params"], mesh), b)[2]
+            got["grads"] = steps.sum_rank_grads(cfg, steps._loss_and_grads(
+                cfg, steps.cut(params, specs["params"], mesh), b)[2], b,
+                mesh)
         res[name] = got
     return res
 
