@@ -263,7 +263,14 @@ Phases, each fatal on failure:
                 ("ranks" lines).  Then NCCL: with 2 or more cards the
                 straight run at min(4, cards) ranks, a card each; with one
                 card, the NCCL error of two ranks on it
-                (`launch.rank_probe`; a line, not a failure);
+                (`launch.rank_probe`; a line, not a failure).  Then, in
+                the same torchrun, the optimizer legs (RANKS_OPT_LEGS:
+                TRAIN cut to 2 layers and 4 steps, with adam8bit and with
+                AdamW and --compress, each rank on its blocks of the
+                state and residuals): step 1 within RANKS_STEP1_TOL of the
+                same argv's one-process leg run here, later steps within
+                RANKS_LOSS_BOUND; each rank's param, state and residual
+                bytes its specs'; flash launches 4 / 2 / 2 a step;
   12b. train families -- one arch of each remaining family trained at
                 its published width through `launch.train.main` under
                 `--mesh host` and deterministic algorithms
@@ -472,9 +479,9 @@ Phases, each fatal on failure:
                 predicted calls and payload bytes a step by axis equal,
                 rank for rank, to every step the ranks and tp phases
                 measured ("dryrun ranks" lines): drim-bnn's TRAIN step
-                over (1, 2) and (2, 1), whisper-medium's decode step over
-                (1, 2), the tp phase's deepseek-v3 adafactor step over
-                (1, 2).
+                over (1, 2) and (2, 1), its adam8bit and --compress legs
+                over (2, 1), whisper-medium's decode step over (1, 2),
+                the tp phase's deepseek-v3 adafactor step over (1, 2).
 
 Prints the kernels' JSON line (the packer's entry also under "served" at
 its decode [4, 768] bfloat16 and [3072, 768] float32 weight shapes), the
@@ -3897,6 +3904,37 @@ RANKS_TIMEOUT_S = 420
 # layer (remat), each backward kernel once
 RANKS_FLASH_PER_STEP = {"flash_attn_fwd": 24, "flash_bwd_dkv": 12,
                         "flash_bwd_dq": 12}
+# The ranks phase's optimizer legs (ROADMAP item 16.3): TRAIN's batch and
+# sequence at full width (d_model 768, vocab 32768) cut to
+# RANKS_OPT_LAYERS layers and RANKS_OPT_STEPS steps over (2, 1), each
+# rank on its blocks: adam8bit (embed's codes are cut over "data" by
+# their columns, so the block maxima cross the ranks) and AdamW with
+# --compress (the residuals cut over "data").  Each is held to the same
+# argv and cut run in one process on the card: step 1 within
+# RANKS_STEP1_TOL, the later steps RANKS_OPT_HELD names within
+# RANKS_LOSS_BOUND; the flash launches 4 / 2 / 2 a step.  adam8bit's
+# losses are held to step 2 (its first update): its int8 codes round a
+# small second moment to 0, and where the next gradient is 0 (an
+# embedding row the batch does not use) the update divides the first
+# moment by eps, so from the second update on the trajectory turns on
+# which way single codes round, which the float order of the gradient's
+# sum over the ranks decides (the reference's optimizer, unchanged).  In
+# their place one more update from the leg's final state is made by the
+# rank path and by one process's `update` on the whole leaves gathered
+# for the check, from the same summed gradients and clip norm, and must
+# agree bit for bit (`rank_update_check`): the codes, scales and params.
+RANKS_OPT_LAYERS, RANKS_OPT_STEPS = 2, 4
+RANKS_OPT_LEGS = {"drim-bnn adam8bit (2, 1)": ["--optimizer", "adam8bit"],
+                  "drim-bnn compress (2, 1)": ["--compress"]}
+RANKS_OPT_HELD = {"drim-bnn adam8bit (2, 1)": 2,
+                  "drim-bnn compress (2, 1)": RANKS_OPT_STEPS}
+
+
+def ranks_opt_argv(leg: str) -> list:
+    """The train CLI's flags of an optimizer leg (RANKS_OPT_LEGS)."""
+    argv = list(TRAIN) + RANKS_OPT_LEGS[leg]
+    argv[argv.index("--steps") + 1] = str(RANKS_OPT_STEPS)
+    return argv
 
 
 # Trees drawn once on the host for every process of the script that
@@ -4045,7 +4083,9 @@ def ranks_worker(out: str, kind: str, model_axis: int = 1) -> int:
     "restart" (the step-RESTART_AT checkpoint, --resume, to the end in
     OUT/resumed) and the "planted" fault (RANKS_PLANTED_STEPS steps: over
     data ranks rank 1's gradients zeroed before the sum, over a model
-    axis rank 1 skipping layer 0's wo reduce); over a model axis and
+    axis rank 1 skipping layer 0's wo reduce); over data ranks and gloo,
+    then the optimizer legs (RANKS_OPT_LEGS, with `state_bytes`) ->
+    OUT/rank<r>_<`opt_leg_file`>.json; over a model axis and
     gloo, then the tp serve legs (`tp_serve_legs`); over a model axis,
     then the MoE serving legs (`tp_moe_serve_legs`) and, for gloo, the
     MoE training leg (`tp_moe_train_leg`), -> OUT/rank<r>_moe.pt; over a
@@ -4098,6 +4138,23 @@ def ranks_worker(out: str, kind: str, model_axis: int = 1) -> int:
             with open(os.path.join(out, f"rank{ranks.rank}_{leg}.json"),
                       "w") as f:
                 json.dump(record, f, default=float)
+        if model_axis == 1 and kind == "gloo":
+            for leg in RANKS_OPT_LEGS:
+                args = train.parse_args(ranks_opt_argv(leg))
+                torch.cuda.empty_cache()
+                record, seen = train_leg(ranks, wrappers, ranks_opt_argv(leg),
+                                         contextlib.nullcontext(),
+                                         n_layers=RANKS_OPT_LAYERS)
+                record.update(state_bytes(seen, mesh, args.optimizer,
+                                          args.compress))
+                if RANKS_OPT_HELD[leg] < RANKS_OPT_STEPS:
+                    record["update_check"] = rank_update_check(
+                        seen, mesh, args.optimizer, args.lr)
+                del seen
+                with open(os.path.join(out, f"rank{ranks.rank}_"
+                                       f"{opt_leg_file(leg)}.json"),
+                          "w") as f:
+                    json.dump(record, f, default=float)
         if model_axis > 1 and kind == "gloo":
             tp_serve_legs(out, ranks, wrappers)
         if model_axis > 1:
@@ -4121,18 +4178,20 @@ def ranks_worker(out: str, kind: str, model_axis: int = 1) -> int:
     return 0
 
 
-def state_bytes(seen, mesh, optimizer: str = "adamw") -> dict:
+def state_bytes(seen, mesh, optimizer: str = "adamw",
+                compress: bool = False) -> dict:
     """A rank's state after a leg (`trainer_spy`'s dict) of `optimizer`:
     its param and moment bytes (AdamW's "m" and "v", Adafactor's factored
-    "f"), their specs' local bytes, one process's bytes, and the bytes of
-    the leaves the specs leave whole."""
+    "f", adam8bit's codes and scales "q"), their specs' local bytes, one
+    process's bytes, and the bytes of the leaves the specs leave whole;
+    with `compress`, the same of the error-feedback residuals."""
     from repro_torch.core.mesh import local_shape
     from repro_torch.optim import get_optimizer
     from repro_torch.runtime import steps
     from repro_torch.tree import tree_leaves
     state = seen["state"]
     specs, shapes = steps.state_pspecs(seen["cfg"], get_optimizer(optimizer),
-                                       mesh)
+                                       mesh, compress)
     keys = [k for k in shapes["opt"] if k != "step"]
 
     def local_bytes(part, keys):
@@ -4145,10 +4204,9 @@ def state_bytes(seen, mesh, optimizer: str = "adamw") -> dict:
     def nbytes(tree):
         return sum(t.numel() * t.element_size() for t in tree_leaves(tree))
     moments = {k: state["opt"][k] for k in keys}
-    return dict(
+    out = dict(
         moment_bytes=nbytes(moments),
-        moment_bytes_one_process=4 * sum(
-            t.numel() for k in keys for t in tree_leaves(shapes["opt"][k])),
+        moment_bytes_one_process=nbytes({k: shapes["opt"][k] for k in keys}),
         moment_bytes_of_specs=local_bytes("opt", keys),
         param_bytes=nbytes(state["params"]),
         param_bytes_one_process=nbytes(shapes["params"]),
@@ -4157,6 +4215,47 @@ def state_bytes(seen, mesh, optimizer: str = "adamw") -> dict:
             t.numel() * t.element_size() for t, sp in
             zip(tree_leaves(shapes["params"]), tree_leaves(specs["params"]))
             if all(e is None for e in sp)))
+    if compress:
+        out.update(residual_bytes=nbytes(state["errors"]),
+                   residual_bytes_one_process=nbytes(shapes["errors"]),
+                   residual_bytes_of_specs=local_bytes("errors", (None,)))
+    return out
+
+
+def rank_update_check(seen, mesh, optimizer: str, lr: float) -> dict:
+    """One more update from a leg's final state (`trainer_spy`'s dict) on
+    its last batch, made twice from the same gradients (this rank's rows,
+    summed over the ranks: `steps.sum_rank_grads`): by the rank path
+    (`steps.rank_update`, each rank on its blocks) and by one process's
+    `optimizer.update` on the whole leaves, gathered for the check (the
+    same clip norm: at a data mesh of whole params `steps.tp_global_norm`
+    and `global_norm` add the same sums in the same order).  Returns
+    {"equal": whether the rank's new params and state are the whole
+    update's cut bit for bit, "differ": the first leaves that are not,
+    "leaves": how many were compared}."""
+    from repro_torch.optim import get_optimizer
+    from repro_torch.runtime import steps
+    cfg, state, opt = seen["cfg"], seen["state"], get_optimizer(optimizer)
+    specs, shapes = steps.state_pspecs(cfg, opt, mesh)
+    with mesh:
+        rows = steps.rank_rows(seen["batch"], mesh)[0]
+        _, _, grads = steps._loss_and_grads(cfg, state["params"], rows)
+        grads = steps.sum_rank_grads(cfg, grads, rows, mesh)
+    lr = torch.tensor(lr, dtype=torch.float32, device=mesh.device)
+    new_p, new_opt, _, _ = steps.rank_update(optimizer, opt, state, grads,
+                                             lr, specs, shapes, mesh)
+    want_p, want_opt = opt.update(
+        steps.gather(grads, specs["params"], shapes["params"], mesh),
+        steps.gather(state["opt"], specs["opt"], shapes["opt"], mesh),
+        steps.gather(state["params"], specs["params"], shapes["params"],
+                     mesh), lr)
+    got = dict(flat_leaves({"params": new_p, "opt": new_opt}))
+    want = flat_leaves(steps.cut({"params": want_p, "opt": want_opt},
+                                 {k: specs[k] for k in ("params", "opt")},
+                                 mesh))
+    differ = [p for p, t in want if not torch.equal(got[p], t)]
+    return {"equal": not differ and len(got) == len(want),
+            "differ": differ[:5], "leaves": len(want)}
 
 
 @contextlib.contextmanager
@@ -4724,13 +4823,13 @@ def planted_fault(model_axis: int):
         attention._out = out_fn
 
 
-def check_rank_leg(records, leg: str, n_steps: int):
-    """Each rank's flash launches (TRAIN's per-step counts times the
-    leg's steps) and nothing else; rank 0's losses; every rank's first
-    line its own."""
+def check_rank_leg(records, leg: str, n_steps: int,
+                   per_step=RANKS_FLASH_PER_STEP):
+    """Each rank's flash launches (`per_step`, TRAIN's by default, times
+    the leg's steps) and nothing else; rank 0's losses; every rank's
+    first line its own."""
     for r in records:
-        want = {n: RANKS_FLASH_PER_STEP.get(n, 0) * n_steps
-                for n in r["launches"]}
+        want = {n: per_step.get(n, 0) * n_steps for n in r["launches"]}
         if r["launches"] != want:
             raise AssertionError(f"ranks {leg} rank {r['rank']}: launches "
                                  f"{r['launches']}, expected {want}")
@@ -4749,6 +4848,103 @@ def loss_gaps(losses, one):
     return [abs(a - b) for a, b in zip(losses, one)]
 
 
+def opt_leg_file(leg: str) -> str:
+    """The record files' stem of an optimizer leg (RANKS_OPT_LEGS)."""
+    return "opt_" + leg.split()[1]
+
+
+def one_process_opt_legs() -> dict:
+    """Each optimizer leg's argv and cut (RANKS_OPT_LEGS) trained in one
+    process on the card (`launch.train.main`, deterministic): {leg: its
+    losses}."""
+    from repro_torch.launch import train
+    out = {}
+    for leg in RANKS_OPT_LEGS:
+        torch.cuda.empty_cache()
+        with deterministic(), \
+                trainer_spy(train, n_layers=RANKS_OPT_LAYERS) as seen, \
+                contextlib.redirect_stdout(io.StringIO()):
+            train.main(ranks_opt_argv(leg))
+        out[leg] = list(seen["losses"])
+        del seen
+    torch.cuda.empty_cache()
+    return out
+
+
+def check_rank_opt_legs(tmp: str, one: dict) -> dict:
+    """The optimizer legs over (2, 1) (RANKS_OPT_LEGS, the ranks' records
+    in `tmp`) held to their one-process losses `one`: step 1 within
+    RANKS_STEP1_TOL, the later steps RANKS_OPT_HELD names within
+    RANKS_LOSS_BOUND and, where it names fewer than the leg's, each
+    rank's `rank_update_check` bit for bit; each rank's flash launches 2
+    forwards, a dkv and a dq a layer a step (remat); each rank's param,
+    state and residual bytes its specs' local bytes, its state and
+    residuals under one process's.  Fills
+    MEASURED_RANK_LEGS and MEASURED_RANK_MEMORY; a "ranks" line a leg.
+    Returns {leg: the ranks' launches, summed}."""
+    per_step = {"flash_attn_fwd": 2 * RANKS_OPT_LAYERS,
+                "flash_bwd_dkv": RANKS_OPT_LAYERS,
+                "flash_bwd_dq": RANKS_OPT_LAYERS}
+    counts = {}
+    for leg in RANKS_OPT_LEGS:
+        recs = [json.load(open(f"{tmp}/rank{r}_{opt_leg_file(leg)}.json"))
+                for r in range(RANKS)]
+        losses = check_rank_leg(recs, leg, RANKS_OPT_STEPS, per_step)
+        gaps = loss_gaps(losses, one[leg])
+        held = RANKS_OPT_HELD[leg]
+        MEASURED_RANK_LEGS[leg] = [r["step_collectives"] for r in recs]
+        MEASURED_RANK_MEMORY[leg] = [r["step_temp_b"] for r in recs]
+        lines = [line for line in recs[0]["lines"] if "step" in line]
+        per = recs[0]["step_collectives"]
+        axes = sorted({k[len("calls:"):] for c in per for k in c
+                       if k.startswith("calls:") and c[k]})
+        parts = ("param", "moment") + (("residual",) if "residual_bytes"
+                                       in recs[0] else ())
+        print("ranks " + json.dumps({
+            "leg": leg, "layers": RANKS_OPT_LAYERS, "steps": RANKS_OPT_STEPS,
+            "s_per_step": (lines[-1]["wall_s"] - lines[0]["wall_s"])
+            / (RANKS_OPT_STEPS - 1),
+            "first_step_s": lines[0]["wall_s"],
+            "peak_gb_per_rank": [r["peak_gb"] for r in recs],
+            "rank0_calls_per_step_by_axis": {
+                a: [c.get(f"calls:{a}", 0) for c in per] for a in axes},
+            "rank0_gb_per_step_by_axis": {
+                a: [c.get(f"bytes:{a}", 0) / 1e9 for c in per]
+                for a in axes},
+            "rank0_collective_s_per_step": [c.get("seconds", 0.0)
+                                            for c in per],
+            "bytes_per_rank": [{f"{k}_{w}": r[f"{k}_bytes{x}"]
+                                for k in parts for w, x in (
+                                    ("held", ""), ("specs", "_of_specs"),
+                                    ("one_process", "_one_process"))}
+                               for r in recs],
+            "losses": losses, "one_process_losses": one[leg],
+            "loss_gaps": gaps, "step1_tol": RANKS_STEP1_TOL,
+            "loss_bound": RANKS_LOSS_BOUND, "steps_held": held,
+            "update_check": [r.get("update_check") for r in recs]}))
+        for r in recs:
+            for k in parts:
+                have, spec = r[f"{k}_bytes"], r[f"{k}_bytes_of_specs"]
+                if have != spec or (k != "param" and not have
+                                    < r[f"{k}_bytes_one_process"]):
+                    raise AssertionError(
+                        f"ranks {leg} rank {r['rank']}: {k} bytes {have}, "
+                        f"the specs' {spec}, one process's "
+                        f"{r[f'{k}_bytes_one_process']}")
+        if gaps[0] > RANKS_STEP1_TOL \
+                or max(gaps[1:held]) > RANKS_LOSS_BOUND:
+            raise AssertionError(f"ranks {leg}: losses {losses} against "
+                                 f"one process's {one[leg]}")
+        if held < RANKS_OPT_STEPS and not all(
+                r["update_check"]["equal"] for r in recs):
+            raise AssertionError(f"ranks {leg}: the rank path's update is "
+                                 f"not one process's: "
+                                 f"{[r['update_check'] for r in recs]}")
+        counts[leg] = {n: sum(r["launches"][n] for r in recs)
+                       for n in recs[0]["launches"]}
+    return counts
+
+
 def phase_ranks(wrappers):
     """The train phase's run cut to TRAIN_STEPS steps over RANKS gloo
     ranks on the one card (each rank a process: `ranks_worker` under
@@ -4760,8 +4956,11 @@ def phase_ranks(wrappers):
     checkpoint restored here (one process) equal, leaf for leaf, to each
     rank's own blocks; the planted fault past the loss bound.  Then NCCL:
     with 2 or more cards the straight run at min(4, cards) ranks; with
-    one, two ranks' NCCL error.  Returns the ranks' launches (straight
-    and restart legs, summed over the ranks)."""
+    one, two ranks' NCCL error.  The optimizer legs (RANKS_OPT_LEGS) run
+    in the same torchrun, their one-process legs here first
+    (`check_rank_opt_legs`).  Returns {"ranks": the ranks' launches
+    (straight and restart legs, summed over the ranks), and each
+    optimizer leg's}."""
     from repro_torch.checkpoint.checkpoint import Checkpointer
     from repro_torch.core.mesh import local_block
     from repro_torch.launch import train
@@ -4769,7 +4968,7 @@ def phase_ranks(wrappers):
     from repro_torch.runtime import steps
     one = TRAINED["losses"]
     args = train.parse_args(TRAIN)
-    torch.cuda.empty_cache()
+    one_opt = one_process_opt_legs()
     with tempfile.TemporaryDirectory(prefix="drim_ranks_") as tmp:
         rc, out, err, wall = torchrun(RANKS, ["--ranks-worker", tmp, "gloo"],
                                       RANKS_TIMEOUT_S)
@@ -4863,11 +5062,14 @@ def phase_ranks(wrappers):
                        "ranks", "bit_identical_to_straight_run": True,
             "checkpoint_leaves": len(cut),
             "restored_in_one_process_equals_each_rank": True}))
+        opt_counts = check_rank_opt_legs(tmp, one_opt)
         phase_ranks_nccl(tmp, one)
     counts = {n: sum(r["launches"][n] for leg in ("straight", "restart")
                      for r in legs[leg]) for n in wrappers}
     print("counts " + json.dumps({"phase": "ranks", **counts}))
-    return counts
+    for leg, c in opt_counts.items():
+        print("counts " + json.dumps({"phase": "ranks", "leg": leg, **c}))
+    return {"ranks": counts, **opt_counts}
 
 
 def phase_ranks_nccl(tmp: str, one) -> None:
@@ -6651,6 +6853,7 @@ def check_train_reference():
 # blocks).
 RANK_LEGS = {"drim-bnn train (1, 2)": ("train", (1, 2)),
              "drim-bnn train (2, 1)": ("train", (2, 1)),
+             **{leg: ("train", (2, 1)) for leg in RANKS_OPT_LEGS},
              "whisper-medium decode (1, 2)": ("decode", (1, 2)),
              TP_MOE_LEG: ("train", (1, TP))}
 MEASURED_RANK_LEGS: dict = {}
@@ -6687,7 +6890,9 @@ def memory_holds(predicted: int, measured: int) -> bool:
 
 def predict_rank_legs(out: str) -> None:
     """`launch.dryrun.rank_trace` of each RANK_LEGS leg as each of its
-    ranks, on meta tensors: drim-bnn's TRAIN run and the tp phase's MoE
+    ranks, on meta tensors: drim-bnn's TRAIN run, the ranks phase's
+    optimizer legs (`ranks_opt_argv`, cut to RANKS_OPT_LAYERS, with their
+    optimizer and --compress) and the tp phase's MoE
     training leg (`tp_moe_train_argv`, the config cut as TP_MOE_TRAIN
     cuts it: its config, global batch and optimizer as `launch.train`
     builds them) and one decode step of the tp phase's whisper-medium
@@ -6704,14 +6909,19 @@ def predict_rank_legs(out: str) -> None:
     res = {}
     for leg, (kind, shape) in RANK_LEGS.items():
         axis = ["--model-axis", str(shape[1])]
+        compress = False
         if kind == "train":
             moe = leg == TP_MOE_LEG
-            args = train.parse_args(tp_moe_train_argv() if moe
-                                    else TRAIN + axis)
+            args = train.parse_args(
+                tp_moe_train_argv() if moe else ranks_opt_argv(leg) + axis
+                if leg in RANKS_OPT_LEGS else TRAIN + axis)
             cfg, opt = train.build_cfg(args), args.optimizer
+            compress = args.compress
             if moe:
                 cfg = cfg.replace(n_layers=TP_MOE_TRAIN[1],
                                   n_experts=TP_MOE_TRAIN[2])
+            if leg in RANKS_OPT_LEGS:
+                cfg = cfg.replace(n_layers=RANKS_OPT_LAYERS)
             rows, width, ctx = args.batch, args.seq, 0
         else:
             args = serve.parse_args(family_argv(TP_AUDIO, 0, 256) + axis)
@@ -6723,7 +6933,8 @@ def predict_rank_legs(out: str) -> None:
                                 device="meta") for k in names}
         res[leg] = [dryrun.rank_trace(cfg, kind, shape, ("data", "model"),
                                       batch, ctx_len=ctx, optimizer=opt,
-                                      rank=r, flops=False)
+                                      compress=compress, rank=r,
+                                      flops=False)
                     for r in range(math.prod(shape))]
     res["host"] = {}
     for arch, layers, experts, rows, seq, opt, _ in TRAIN_FAMILIES:
@@ -6990,7 +7201,7 @@ def run(dry) -> int:
     lap("telemetry to collective")
     by_leg.update(verified_phase("train", lambda: phase_train(wrappers)))
     lap("train")
-    by_leg["ranks"] = phase_ranks(wrappers)
+    by_leg.update(phase_ranks(wrappers))
     lap("ranks")
     # before the tp phase, whose MoE training leg is held to its
     # deepseek-v3 leg's step 1

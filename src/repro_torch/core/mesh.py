@@ -29,8 +29,9 @@ share this rank's coordinates off some axes (`_axis_group`: one
 mesh by every rank in one order): `mesh_sum` and `mesh_max` (all-reduces),
 `mesh_all_gather` (blocks concatenated along a dim in mesh order),
 `mesh_reduce_scatter` (a sum of which each rank keeps its block along a
-dim) and `mesh_gather` (cut blocks put back together by a broadcast from
-each block's owner).  They are written over `dist.all_reduce`,
+dim), `mesh_gather` (cut blocks put back together by a broadcast from
+each block's owner) and `mesh_exchange` (the same between a rank's block
+and a run of the flattened leaf).  They are written over `dist.all_reduce`,
 `dist.all_gather`, `dist.reduce_scatter_tensor` and `dist.broadcast`,
 which gloo takes for CUDA tensors too, so one code path serves gloo on
 the CPU, gloo with several ranks on one card, and NCCL with a card a
@@ -74,6 +75,7 @@ from __future__ import annotations
 import contextlib
 import contextvars
 import dataclasses
+import functools
 import itertools
 import math
 import time
@@ -629,57 +631,180 @@ def mesh_gather(blocks: Sequence[torch.Tensor], shapes, specs, mesh: Mesh,
     over `axes` from its owner, the lowest rank that holds it, bit for
     bit (no sum: a zero filled all-reduce would turn -0.0 into +0.0); an
     owner's blocks of every leaf travel as one byte buffer, so a gather is
-    one `broadcast` per owning rank.  A leaf whose block is already the
-    rebuilt one comes back as it is."""
+    one `broadcast` per owning rank (`mesh_exchange` between the blocks).
+    A leaf whose block is already the rebuilt one comes back as it is."""
     axes = tuple(mesh.axis_names) if axes is None else tuple(axes)
-    group, _ = _axis_group(mesh, axes)
+    out = list(blocks)
+    idx = [i for i, (shape, spec) in enumerate(zip(shapes, specs))
+           if local_block(tuple(shape), spec, mesh)
+           != local_block(tuple(shape), drop_axes(spec, axes), mesh)]
+
+    def box(shape, spec):
+        return functools.partial(block_region, tuple(shape), spec, mesh)
+    got = mesh_exchange(
+        [blocks[i] for i in idx], [shapes[i] for i in idx],
+        [box(shapes[i], specs[i]) for i in idx],
+        [box(shapes[i], drop_axes(specs[i], axes)) for i in idx],
+        [axes] * len(idx), mesh)
+    for i, t in zip(idx, got):
+        out[i] = t
+    return out
+
+
+# A region of a leaf: ("box", ((start, stop), ...)), a block whose tensor
+# is the block, or ("run", (start, stop)), a run of the row-major
+# flattened leaf whose tensor is 1-D.
+Region = Tuple[str, tuple]
+
+
+def run_boxes(shape, start: int, stop: int) -> List[tuple]:
+    """The boxes ((start, stop) a dim) whose elements are the run [start,
+    stop) of the row-major flattened leaf of `shape`, in order: at most
+    2 len(shape) - 1, each a contiguous part of the run."""
+    shape = tuple(shape)
+    if start >= stop:
+        return []
+    if len(shape) == 1:
+        return [((start, stop),)]
+    inner = math.prod(shape[1:])
+    a, ra = divmod(start, inner)
+    b, rb = divmod(stop, inner)
+    if a == b:
+        return [((a, a + 1),) + box for box in run_boxes(shape[1:], ra, rb)]
+    out = []
+    if ra:
+        out += [((a, a + 1),) + box
+                for box in run_boxes(shape[1:], ra, inner)]
+        a += 1
+    if b > a:
+        out.append(((a, b),) + tuple((0, d) for d in shape[1:]))
+    if rb:
+        out += [((b, b + 1),) + box for box in run_boxes(shape[1:], 0, rb)]
+    return out
+
+
+def _parts(region: Region, shape) -> List[Tuple[tuple, Optional[int]]]:
+    """[(box, offset)]: the boxes that make up `region`, each with its
+    offset in the run's tensor (None for a box, whose tensor is itself)."""
+    kind, at = region
+    if kind == "box":
+        return [(at, None)]
+    out, offset = [], 0
+    for box in run_boxes(shape, *at):
+        out.append((box, offset))
+        offset += math.prod(e - s for s, e in box)
+    return out
+
+
+def block_region(shape, spec: PartitionSpec, mesh: Mesh,
+                 rank: Optional[int] = None) -> Region:
+    """`rank`'s block under `spec` (`local_block`) as a region."""
+    return "box", tuple((s.start, s.stop)
+                        for s in local_block(shape, spec, mesh, rank))
+
+
+def _region_shape(region: Region) -> Tuple[int, ...]:
+    kind, at = region
+    if kind == "box":
+        return tuple(e - s for s, e in at)
+    return (max(at[1] - at[0], 0),)
+
+
+def _in_part(t: torch.Tensor, box: tuple, offset: Optional[int]
+             ) -> torch.Tensor:
+    """The view of a region's tensor `t` that holds its part `box`."""
+    if offset is None:
+        return t
+    n = math.prod(e - s for s, e in box)
+    return t[offset:offset + n].view(tuple(e - s for s, e in box))
+
+
+def mesh_exchange(tensors: Sequence[torch.Tensor], shapes,
+                  have: Sequence[Callable[[int], Region]],
+                  want: Sequence[Callable[[int], Region]],
+                  axes: Sequence[Tuple[str, ...]], mesh: Mesh
+                  ) -> List[torch.Tensor]:
+    """Leaf i's region `want[i](this rank)` of a whole leaf of `shapes[i]`,
+    put together from the regions `have[i](r)` that the ranks r of this
+    rank's group along `axes[i]` hold, this rank's in `tensors[i]`: the
+    general `mesh_gather`, between a rank's block and a run of the
+    flattened leaf either way.  Each owner (the lowest rank of the group
+    that holds a region) broadcasts its region's overlaps with each
+    distinct region the group wants, bit for bit: one `broadcast` an
+    owner and axis set, its leaves in one byte buffer.  ValueError where
+    the group does not hold every element this rank wants."""
     me = mesh.rank
-    members = _members(mesh, axes, mesh.coords())
-    device = blocks[0].device if blocks else mesh.device
-    out: List[Optional[torch.Tensor]] = [None] * len(blocks)
-    sends: Dict[int, List[Tuple[int, Tuple[slice, ...],
-                                Tuple[slice, ...]]]] = {}
-    for i, (blk, shape, spec) in enumerate(zip(blocks, shapes, specs)):
-        shape = tuple(shape)
-        target = drop_axes(spec, axes)
-        mine = local_block(shape, target, mesh)
-        if local_block(shape, spec, mesh) == mine:
-            out[i] = blk            # the block holds what a gather gives
-            continue
-        out[i] = torch.empty(tuple(s.stop - s.start for s in mine),
-                             dtype=blk.dtype, device=device)
-        owned = set()
-        for r in members:
-            sl = local_block(shape, spec, mesh, r)
-            key = tuple((s.start, s.stop) for s in sl)
-            if key in owned:
+    out = [torch.empty(_region_shape(w(me)), dtype=t.dtype, device=t.device)
+           for t, w in zip(tensors, want)]
+
+    def read(it):
+        # a piece (leaf, kept, box, its have part, offset, want part,
+        # offset) out of this rank's tensor
+        i, _, box, hb, ho, _, _ = it
+        return _in_part(tensors[i], hb, ho)[tuple(
+            slice(s - o, e - o) for (s, e), (o, _) in zip(box, hb))]
+
+    def write(it, value):
+        i, _, box, _, _, wb, wo = it
+        _in_part(out[i], wb, wo)[tuple(
+            slice(s - o, e - o) for (s, e), (o, _) in zip(box, wb))] = value
+    at: Dict[tuple, List[int]] = {}
+    for i, a in enumerate(axes):
+        at.setdefault(tuple(a), []).append(i)
+    for group_axes, idx in at.items():
+        group, n = _axis_group(mesh, group_axes)
+        members = _members(mesh, group_axes, mesh.coords())
+        sends: Dict[int, list] = {}
+        for i in idx:
+            shape, mine = tuple(shapes[i]), want[i](me)
+            wanted = list(dict.fromkeys(want[i](q) for q in members))
+            held, covered = set(), 0
+            for r in members:
+                h = have[i](r)
+                if h in held:
+                    continue
+                held.add(h)
+                for w in wanted:
+                    for hb, ho in _parts(h, shape):
+                        for wb, wo in _parts(w, shape):
+                            box = tuple((max(a0, b0), min(a1, b1)) for
+                                        (a0, a1), (b0, b1) in zip(hb, wb))
+                            if all(s < e for s, e in box):
+                                sends.setdefault(r, []).append(
+                                    (i, w == mine, box, hb, ho, wb, wo))
+                                if w == mine:
+                                    covered += math.prod(e - s
+                                                         for s, e in box)
+            if covered != math.prod(_region_shape(mine)):
+                raise ValueError(f"the ranks along {group_axes} hold "
+                                 f"{covered} of the {mine} elements this "
+                                 "rank wants")
+        for r in sorted(sends):
+            # the widest dtypes first, so that each piece's view of the
+            # byte buffer is aligned to its element
+            items = sorted(sends[r],
+                           key=lambda it: -tensors[it[0]].element_size())
+            if n == 1:
+                for it in items:
+                    write(it, read(it))
                 continue
-            owned.add(key)
-            if any(s.start < m.start or s.stop > m.stop
-                   for s, m in zip(sl, mine)):
-                raise ValueError(f"a gather over {axes} of {spec} leaves "
-                                 "its blocks apart")
-            rel = tuple(slice(s.start - m.start, s.stop - m.start)
-                        for s, m in zip(sl, mine))
-            sends.setdefault(r, []).append((i, sl, rel))
-    for r in sorted(sends):
-        items = sends[r]
-        sizes = [math.prod(s.stop - s.start for s in sl)
-                 * blocks[i].element_size() for i, sl, _ in items]
-        if r == me:
-            buf = torch.cat([blocks[i].contiguous().reshape(-1)
-                             .view(torch.uint8) for i, _, _ in items])
-        else:
-            buf = torch.empty(sum(sizes), dtype=torch.uint8, device=device)
-        if len(members) > 1:
+            sizes = [math.prod(e - s for s, e in it[2])
+                     * tensors[it[0]].element_size() for it in items]
+            if r == me:
+                buf = torch.cat([read(it).contiguous().reshape(-1)
+                                 .view(torch.uint8) for it in items])
+            else:
+                buf = torch.empty(sum(sizes), dtype=torch.uint8,
+                                  device=out[items[0][0]].device)
             _timed(lambda: dist.broadcast(buf, src=int(r), group=group),
-                   buf, _label(mesh, axes), "broadcast", len(members))
-        offset = 0
-        for (i, sl, rel), size in zip(items, sizes):
-            block_shape = tuple(s.stop - s.start for s in sl)
-            out[i][rel] = buf[offset:offset + size].view(out[i].dtype) \
-                .view(block_shape)
-            offset += size
+                   buf, _label(mesh, group_axes), "broadcast", n)
+            offset = 0
+            for it, size in zip(items, sizes):
+                if it[1]:
+                    write(it, buf[offset:offset + size]
+                          .view(tensors[it[0]].dtype)
+                          .view(tuple(e - s for s, e in it[2])))
+                offset += size
     return out
 
 

@@ -7,7 +7,9 @@ Each worker sends only the sign of its error-corrected gradient (an int8
 residual for the next step.  `compressed_allreduce` is that exchange over
 a `torch.distributed` process group: NCCL on the card (one rank on one
 card), gloo on the CPU.  The trainer, like the reference's, encodes and
-decodes in its step (`runtime.steps`) and calls no collective.
+decodes in its step (`runtime.steps`) and calls no collective but, over
+a mesh of ranks, the sum of each leaf's |g + err| over its blocks
+(`compress_blocks`).
 """
 from __future__ import annotations
 
@@ -31,6 +33,24 @@ def compress_grad(g: torch.Tensor, err: torch.Tensor
 
 def decompress_grad(sign: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
     return sign.to(torch.float32) * scale
+
+
+def compress_blocks(grads, errors, numels, keys, psum):
+    """`compress_grad` and `decompress_grad` on blocks of the leaves (a
+    rank's: `runtime.steps.rank_ef_compress`), lists in one order.  Each
+    leaf's scale is the whole leaf's mean |g + err|: its block's sum of
+    |g + err|, summed over the ranks that hold its other blocks
+    (`psum(tensors, keys)`, `keys[i]` leaf i's group), over the leaf's
+    `numels[i]`.  Returns (the decoded blocks, the new residual blocks)."""
+    gcs = [g.to(torch.float32) + e for g, e in zip(grads, errors)]
+    sums = psum([gc.abs().sum() for gc in gcs], keys)
+    decoded, new_err = [], []
+    for gc, total, n in zip(gcs, sums, numels):
+        sign = torch.where(gc >= 0, 1, -1).to(torch.int8)
+        d = decompress_grad(sign, total / n)
+        decoded.append(d)
+        new_err.append(gc - d)
+    return decoded, new_err
 
 
 def compress_tree(grads, errors):

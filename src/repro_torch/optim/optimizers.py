@@ -12,7 +12,11 @@ tests line up:
                  `update_blocks` is the same update on a rank's blocks
                  of the leaves, its sums over the ranks the caller's.
   * adam8bit   : block-wise int8 moments with float32 per-block scales
-                 {"q": {"mq", "ms", "vq", "vs"}, "step"}.
+                 {"q": {"mq", "ms", "vq", "vs"}, "step"}, over the
+                 [n_blocks, 256] view of the zero-padded flattened leaf;
+                 `update_blocks` is the same update on a rank's blocks of
+                 that view, its maxima over the ranks the caller's, and
+                 `init_blocks` its state at their shapes.
 
 `update` runs under `torch.no_grad()` and returns new tensors; it
 changes none of its arguments.  AdamW's `update(..., donate=True)` is
@@ -36,8 +40,11 @@ from repro_torch.tree import tree_leaves, tree_map
 class Optimizer(NamedTuple):
     init: Callable
     update: Callable  # (grads, state, params, lr) -> (new_params, state)
-    # Adafactor's update on blocks of the whole leaves (a rank's)
+    # Adafactor's and adam8bit's update on blocks of the whole leaves (a
+    # rank's)
     update_blocks: Optional[Callable] = None
+    # adam8bit's init at a rank's block shapes
+    init_blocks: Optional[Callable] = None
 
 
 def _zeros_f32(params):
@@ -242,9 +249,27 @@ def _quantize_i8(x: torch.Tensor):
     flat = x.reshape(-1)
     pad = (-flat.shape[0]) % _BLOCK
     blocks = torch.nn.functional.pad(flat, (0, pad)).reshape(-1, _BLOCK)
-    scale = blocks.abs().amax(dim=1, keepdim=True) / 127.0 + 1e-12
+    return _code_i8(blocks, blocks.abs().amax(dim=1, keepdim=True))
+
+
+def _code_i8(blocks: torch.Tensor, amax: torch.Tensor):
+    """(int8 codes, float32 scales) of `blocks` [rows, cols] whose rows'
+    largest |x| over the whole 256-wide block is `amax` [rows, 1]."""
+    scale = amax / 127.0 + 1e-12
     q = torch.clamp(torch.round(blocks / scale), -127, 127).to(torch.int8)
     return q, scale.to(torch.float32)
+
+
+def _blank_i8(shapes, device=None):
+    """adam8bit's state of zero moments at `shapes` (each leaf's {"mq":
+    shape, "ms": shape, ...}): the codes 0 and the scale 1e-12 that
+    `_quantize_i8` gives a zero block, made at once."""
+    if "mq" in shapes:
+        return {k: (torch.zeros(s, dtype=torch.int8, device=device)
+                    if k.endswith("q") else
+                    torch.full(s, 1e-12, dtype=torch.float32, device=device))
+                for k, s in shapes.items()}
+    return {k: _blank_i8(v, device) for k, v in shapes.items()}
 
 
 def _dequantize_i8(q, scale, shape):
@@ -259,11 +284,31 @@ def adam8bit(b1=0.9, b2=0.95, eps=1e-8, weight_decay=0.1,
              grad_clip=1.0) -> Optimizer:
     def init(params):
         def one(p):
-            q, s = _quantize_i8(torch.zeros(p.shape, dtype=torch.float32,
-                                            device=p.device))
-            return {"mq": q, "ms": s, "vq": q.clone(), "vs": s.clone()}
-        step = tree_leaves(params)[0].new_zeros((), dtype=torch.int32)
-        return {"q": tree_map(one, params), "step": step}
+            rows = -(-math.prod(p.shape) // _BLOCK)
+            return {"mq": (rows, _BLOCK), "ms": (rows, 1),
+                    "vq": (rows, _BLOCK), "vs": (rows, 1)}
+        return init_blocks(tree_map(one, params),
+                           device=tree_leaves(params)[0].device)
+
+    def init_blocks(shapes, device=None):
+        """`init`'s state at the blocks' shapes (`shapes`: each leaf's
+        {"mq": shape, "ms": shape, "vq": shape, "vs": shape}, a rank's
+        blocks under the state's specs: `runtime.steps`), bit for bit the
+        cut of `init`'s: no whole leaf is made."""
+        return {"q": _blank_i8(shapes, device),
+                "step": torch.zeros((), dtype=torch.int32, device=device)}
+
+    def moments(p, g, s, lr, bc1, bc2):
+        """(the new m, v and param) of one leaf, the moments not yet
+        coded: `g` clipped, `s` the codes and scales of the blocks that
+        the flattened `p` fills."""
+        g = _f32(g)
+        m = b1 * _dequantize_i8(s["mq"], s["ms"], p.shape) + (1 - b1) * g
+        v = b2 * _dequantize_i8(s["vq"], s["vs"], p.shape) \
+            + (1 - b2) * torch.square(g)
+        u = (m / bc1) / (torch.sqrt(v / bc2) + eps) \
+            + weight_decay * _f32(p)
+        return m, v, (_f32(p) - lr * u).to(p.dtype)
 
     @torch.no_grad()
     def update(grads, state, params, lr):
@@ -273,21 +318,54 @@ def adam8bit(b1=0.9, b2=0.95, eps=1e-8, weight_decay=0.1,
         bc2 = 1 - b2 ** _f32(step)
 
         def one(p, g, s):
-            g = _f32(g)
-            m = b1 * _dequantize_i8(s["mq"], s["ms"], p.shape) + (1 - b1) * g
-            v = b2 * _dequantize_i8(s["vq"], s["vs"], p.shape) \
-                + (1 - b2) * torch.square(g)
-            u = (m / bc1) / (torch.sqrt(v / bc2) + eps) \
-                + weight_decay * _f32(p)
+            m, v, new_p = moments(p, g, s, lr, bc1, bc2)
             mq, ms = _quantize_i8(m)
             vq, vs = _quantize_i8(v)
-            return ((_f32(p) - lr * u).to(p.dtype),
-                    {"mq": mq, "ms": ms, "vq": vq, "vs": vs})
+            return new_p, {"mq": mq, "ms": ms, "vq": vq, "vs": vs}
 
         out = _map_with_state(one, params, grads, state["q"])
         return out[0], {"q": out[1], "step": step}
 
-    return Optimizer(init, update)
+    @torch.no_grad()
+    def update_blocks(grads, state, params, lr, *, norm, groups, pmax):
+        """`update` on blocks of the [n_blocks, 256] views of the
+        zero-padded flattened leaves (a rank's under the state's specs:
+        `runtime.steps.rank_adam8bit_update`).  `grads` and `params` hold
+        each leaf's [rows, cols] block, zero in the padding; `state["q"]`
+        the block's codes [rows, cols] and scales [rows, 1]; `norm` the
+        whole gradient's global norm (the clip's, as `adamw.update`'s);
+        `groups` each leaf's key of the group of ranks that hold the
+        other columns of its rows; `pmax(tensors, keys)` gives each
+        tensor's maximum over its key's group, so each scale is its whole
+        block's.  A maximum is exact in any order, so given the same
+        gradients and clip scale the codes, scales and params are
+        `update`'s to the bit; the padding's codes stay 0."""
+        step = state["step"] + 1
+        scale = _clip_scale(grads, grad_clip, norm)
+        bc1 = 1 - b1 ** _f32(step)
+        bc2 = 1 - b2 ** _f32(step)
+        leaves = _leaf_rows(params, grads, state["q"], groups)
+        new, peaks, keys = [], [], []
+        for p, g, s, key in leaves:
+            if scale is not None:
+                g = _clipped(g, scale)
+            m, v, new_p = moments(p, g, s, lr, bc1, bc2)
+            new.append((m, v, new_p))
+            peaks += [m.abs().amax(dim=1, keepdim=True),
+                      v.abs().amax(dim=1, keepdim=True)]
+            keys += [key, key]
+        peaks = iter(pmax(peaks, keys))
+        out = []
+        for m, v, new_p in new:
+            mq, ms = _code_i8(m, next(peaks))
+            vq, vs = _code_i8(v, next(peaks))
+            out.append((new_p, {"mq": mq, "ms": ms, "vq": vq, "vs": vs}))
+        it = iter(out)
+        new_p, new_q = _map_with_state(lambda *_: next(it), params, grads,
+                                       state["q"])
+        return new_p, {"q": new_q, "step": step}
+
+    return Optimizer(init, update, update_blocks, init_blocks)
 
 
 # --- shared utils ------------------------------------------------------------

@@ -44,14 +44,22 @@ differs:
     block's rows and columns alike: the rank's entries are moved to the
     block and back (vectors, never a param), and its row and column
     sums, the rows' mean and the clip's RMS are summed over the ranks
-    that cut the summed axes (`rank_adafactor_update`).  adam8bit, whose
-    int8 blocks of 256 run over the flattened leaf, gathers the params,
-    gradients and state over both axes, updates whole leaves and keeps
-    the rank's blocks
-  --compress: the gradients and the cut residuals are gathered whole,
-    the whole summed gradient is encoded and decoded, and each rank
-    keeps its residuals' block; the update then runs on the rank's
-    blocks as above
+    that cut the summed axes (`rank_adafactor_update`).  adam8bit's int8
+    blocks of 256 run over the flattened leaf, and its state keeps the
+    reference's specs too (the [n_blocks, 256] codes cut by the param's
+    spec truncated, plus ZeRO-1): each rank fetches p and g over the run
+    of its state's rows from the model blocks (`core.mesh.
+    mesh_exchange`: a slab of the leaf, over the axes that cut the param
+    and not the rows), updates its block, takes each block's scale as
+    the maximum over the ranks that cut its 256 columns, and hands the
+    new runs back to the model blocks (`rank_adam8bit_update`)
+  --compress: each rank's residual block under the moments' ZeRO-1 spec
+    takes its gradient block, gc = g + err; each leaf's scale mean |gc|
+    sums its blocks' |gc| over the ranks that cut the leaf, one scalar a
+    leaf (`rank_ef_compress`); the decoded ZeRO-1 blocks go to AdamW and
+    Adafactor as they are, to adam8bit gathered over the data group into
+    model blocks; the global norm (the metric, and the clip's) sums the
+    decoded blocks' squares over the ranks that cut each leaf
 
 A mesh of distinct devices with no process group would need a process
 per device and raises.
@@ -60,15 +68,17 @@ from __future__ import annotations
 
 import contextlib
 import functools
+import math
 from typing import Any, Dict, Tuple
 
 import numpy as np
 import torch
 
 from repro_torch.core.mesh import (NamedSharding, PartitionSpec as P,
-                                   axis_size, dp_axes, drop_axes,
-                                   local_block, mesh_gather, mesh_sum,
-                                   sub_block)
+                                   block_region, dp_axes, drop_axes,
+                                   local_block, local_shape, mesh_exchange,
+                                   mesh_gather, mesh_max, mesh_sum,
+                                   run_boxes, sub_block)
 from repro_torch.device import resolve_device
 from repro_torch.models import (abstract_params, decode_step as model_decode,
                                 init_params, lm_from_jax,
@@ -77,7 +87,8 @@ from repro_torch.models.transformer import (_to_torch, cuts_sequence,
                                            grad_axes)
 from repro_torch.optim import (compress_tree, decompress_tree, get_optimizer,
                                init_errors, warmup_cosine)
-from repro_torch.optim.optimizers import global_norm as _global_norm
+from repro_torch.optim.compress import compress_blocks
+from repro_torch.optim.optimizers import _BLOCK, global_norm as _global_norm
 from repro_torch.runtime import sharding as shd
 from repro_torch.tree import tree_leaves, tree_map, tree_map_with_path
 
@@ -226,26 +237,17 @@ def gather(tree, specs, shapes, mesh, axes=None):
     return tree_map(lambda t: of[id(t)], tree)
 
 
-def _model_cut(spec, mesh) -> bool:
-    return any(e is not None and "model" in ((e,) if isinstance(e, str)
-                                             else e)
-               for e in spec) and axis_size(mesh, "model") > 1
-
-
 def tp_global_norm(grads, specs, mesh):
     """The global norm of a gradient tree whose leaves are this rank's
-    model blocks under `specs`: each leaf's sum of squares in float32 (in
-    `optim.global_norm`'s leaf order), the model-cut leaves' summed over
-    the model group in one all-reduce, each replicated leaf's counted
-    once."""
+    blocks under `specs` (the params' model blocks, or --compress's
+    decoded ZeRO-1 blocks): each leaf's sum of squares in float32 (in
+    `optim.global_norm`'s leaf order), summed over the ranks that cut the
+    leaf (`_sum_by_group`: one all-reduce a distinct group), each
+    replicated leaf's counted once."""
     leaves, leaf_specs = tree_leaves(grads), tree_leaves(specs)
-    sums = [torch.sum(torch.square(g.to(torch.float32))) for g in leaves]
-    cut_at = [i for i, sp in enumerate(leaf_specs) if _model_cut(sp, mesh)]
-    if cut_at:
-        total = mesh_sum([torch.stack([sums[i] for i in cut_at])], mesh,
-                         ("model",))[0]
-        for j, i in enumerate(cut_at):
-            sums[i] = total[j]
+    sums = _sum_by_group(
+        [torch.sum(torch.square(g.to(torch.float32))) for g in leaves],
+        [_cut_axes(sp, mesh) for sp in leaf_specs], mesh)
     return torch.sqrt(sum(sums))
 
 
@@ -291,20 +293,27 @@ def _cut_axes(entries, mesh) -> Tuple[str, ...]:
                  if a in named and mesh.shape[a] > 1)
 
 
-def _sum_by_group(tensors, keys, mesh):
-    """Each tensor summed over the ranks along its key (a `_cut_axes`
-    tuple): one `mesh_sum` a distinct key; a key of no axis leaves its
-    tensor as it is."""
+def _by_group(reduce, tensors, keys, mesh):
+    """Each tensor reduced (`mesh_sum`, `mesh_max`) over the ranks along
+    its key (a `_cut_axes` tuple): one call a distinct key; a key of no
+    axis leaves its tensor as it is."""
     out = list(tensors)
     at: Dict[tuple, list] = {}
     for i, key in enumerate(keys):
         if key:
             at.setdefault(key, []).append(i)
     for axes, idx in at.items():
-        for i, t in zip(idx, mesh_sum([tensors[i] for i in idx], mesh,
-                                      axes)):
+        for i, t in zip(idx, reduce([tensors[i] for i in idx], mesh, axes)):
             out[i] = t
     return out
+
+
+def _sum_by_group(tensors, keys, mesh):
+    return _by_group(mesh_sum, tensors, keys, mesh)
+
+
+def _max_by_group(tensors, keys, mesh):
+    return _by_group(mesh_max, tensors, keys, mesh)
 
 
 def _padded(spec, ndim: int) -> tuple:
@@ -340,12 +349,14 @@ def _moved(blocks, shapes, have, want, mesh):
 
 
 def rank_adafactor_update(optimizer, grads, params, opt, lr, specs, shapes,
-                          mesh):
+                          mesh, grad_specs=None):
     """Adafactor's update over a mesh of ranks on this rank's blocks
     (`optimizer.update_blocks`): one process's values in another float
     order.  `grads` and `params` are the rank's model blocks (under
-    `specs["params"]`), `opt` its state under `specs["opt"]`, `shapes`
-    the whole trees ({"params", "opt"}).  Each leaf is updated on the
+    `specs["params"]`; `grad_specs`, where given, are the gradients': the
+    ZeRO-1 blocks --compress decodes are taken as they are), `opt` its
+    state under `specs["opt"]`, `shapes` the whole trees ({"params",
+    "opt"}).  Each leaf is updated on the
     rank's block under its ZeRO-1 spec (`sharding.zero1_spec` of the
     param's, AdamW's moments' cut).  The state keeps the reference's
     specs (each `vr` / `vc` cut by its param's spec truncated to its rank,
@@ -382,8 +393,8 @@ def rank_adafactor_update(optimizer, grads, params, opt, lr, specs, shapes,
                         opt["f"])
     f_blocks = rebuild(_moved(stored, whole, have, want, mesh))
     blocks, new = optimizer.update_blocks(
-        cut(grads, zspec, mesh, pspec, pshape), {"f": f_blocks,
-                                                 "step": opt["step"]},
+        cut(grads, zspec, mesh, grad_specs or pspec, pshape),
+        {"f": f_blocks, "step": opt["step"]},
         cut(params, zspec, mesh, pspec, pshape), lr, shapes=pshape,
         groups=groups, psum=lambda ts, ks: _sum_by_group(ts, ks, mesh))
     del f_blocks
@@ -393,6 +404,206 @@ def rank_adafactor_update(optimizer, grads, params, opt, lr, specs, shapes,
     new_f = rebuild(_moved(flat, whole, want, have, mesh))
     return (gather(blocks, zspec, pshape, mesh, dp_axes(mesh)),
             {"f": new_f, "step": new["step"]})
+
+
+def _state_rows(n: int, spec, mesh, rank=None) -> Tuple[slice, ...]:
+    """The rows and columns of the [n_blocks, 256] view of a flattened
+    leaf of `n` elements (adam8bit's codes) that `rank` holds under
+    `spec`."""
+    return local_block((-(-n // _BLOCK), _BLOCK), spec, mesh, rank)
+
+
+def _run(n: int, spec, mesh, rank=None):
+    """The run of the flattened leaf (a `core.mesh.mesh_exchange` region)
+    that `rank`'s rows under `spec` cover, the padding left out."""
+    rows = _state_rows(n, spec, mesh, rank)[0]
+    return "run", (min(rows.start * _BLOCK, n), min(rows.stop * _BLOCK, n))
+
+
+def _run_axes(shape, pspec, qspec, mesh, fetch: bool) -> Tuple[str, ...]:
+    """The axes over which each rank fetches the run of its state rows
+    (`_run` under `qspec`) from the blocks under `pspec` (`fetch`), or
+    hands the runs back to those blocks: the axes that cut the leaf and
+    not the rows (fetch), or the rows and not the leaf.  An axis that
+    cuts both is left out where, on every rank, the run and the block it
+    covers nest (the embedding's rows: nothing crosses), else kept."""
+    shape = tuple(shape)
+    n = math.prod(shape)
+    cut, rows = _cut_axes(pspec, mesh), _cut_axes(tuple(qspec)[:1], mesh)
+    axes = tuple(a for a in (cut if fetch else rows)
+                 if a not in (rows if fetch else cut))
+    if not any(a in rows for a in cut):
+        return axes
+
+    def nested(r):
+        _, (s, e) = _run(n, drop_axes(qspec, () if fetch else axes), mesh, r)
+        _, box = block_region(shape, drop_axes(pspec, axes) if fetch
+                              else pspec, mesh, r)
+        if fetch:
+            return all(b0 <= p0 and p1 <= b1
+                       for part in run_boxes(shape, s, e)
+                       for (p0, p1), (b0, b1) in zip(part, box))
+        first = np.ravel_multi_index([b0 for b0, _ in box], shape)
+        last = np.ravel_multi_index([b1 - 1 for _, b1 in box], shape)
+        return s <= first and last < e
+    if all(nested(r) for r in range(mesh.ranks.size)):
+        return axes
+    return cut if fetch else rows
+
+
+def rank_adam8bit_update(optimizer, grads, params, opt, lr, norm, specs,
+                         shapes, mesh):
+    """adam8bit's update over a mesh of ranks on this rank's blocks of its
+    state (`optimizer.update_blocks`): given the same gradients and clip
+    norm (`norm`, the global gradient norm, which the ranks add in
+    another float order) the codes, scales and params are one process's
+    to the bit.  The state keeps the
+    reference's specs: each code leaf [n_blocks, 256] of the zero-padded
+    flattened leaf cut by its param's spec truncated, plus ZeRO-1, so the
+    rank's block is a run of rows (and, where the spec cuts them, a cut of
+    the columns), not its param block.  `grads` and `params` are the
+    rank's model blocks, `opt` its state, `shapes` the whole trees.
+
+      the rank fetches p and g over the run of its rows from the model
+        blocks (`core.mesh.mesh_exchange`, one broadcast an owner and
+        axis set: `_run_axes`, the axes that cut the param and not the
+        rows; for the embedding's rows, which both cut alike, nothing)
+      it updates its [rows, cols] block; a block's scale is the maximum
+        over its 256 columns, over the ranks that cut them
+        (`_max_by_group`: one all-reduce a distinct group)
+      the new rows' columns are gathered over those ranks
+        (`mesh_gather`), and the runs handed back to the model blocks
+        over the axes that cut the rows and not the param
+
+    Ranks that hold the same state block compute the same values, as
+    XLA's replicated state does.  Returns (the new params, the new
+    state)."""
+    pspec, pshape = specs["params"], shapes["params"]
+    items = []
+    tree_map(lambda sp, t, q, p, g: items.append(
+        (sp, tuple(t.shape), q, p, g)), pspec, pshape, specs["opt"]["q"],
+        params, grads)
+    tensors, have, want, axes, whole = [], [], [], [], []
+    for sp, shape, q, p, g in items:
+        n = math.prod(shape)
+        if _state_rows(n, q["ms"], mesh)[0] != _state_rows(n, q["mq"],
+                                                           mesh)[0]:
+            raise ValueError(f"adam8bit's scales {q['ms']} and codes "
+                             f"{q['mq']} cut their rows apart")
+        for t in (p, g):
+            tensors.append(t)
+            have.append(functools.partial(block_region, shape, sp, mesh))
+            want.append(functools.partial(_run, n, q["mq"], mesh))
+            axes.append(_run_axes(shape, sp, q["mq"], mesh, fetch=True))
+            whole.append(shape)
+    runs = iter(mesh_exchange(tensors, whole, have, want, axes, mesh))
+    blocks = []
+    for sp, shape, q, p, g in items:
+        rows, cols = _state_rows(math.prod(shape), q["mq"], mesh)
+        size = (rows.stop - rows.start) * _BLOCK
+        for run in (next(runs), next(runs)):
+            if run.numel() != size:
+                run = torch.nn.functional.pad(run, (0, size - run.numel()))
+            blocks.append(run.view(-1, _BLOCK)[:, cols])
+    del runs, tensors
+    p_blocks, g_blocks = iter(blocks[0::2]), iter(blocks[1::2])
+    del blocks
+    new_p, new_opt = optimizer.update_blocks(
+        tree_map(lambda _: next(g_blocks), pspec),
+        {"q": opt["q"], "step": opt["step"]},
+        tree_map(lambda _: next(p_blocks), pspec), lr, norm=norm,
+        groups=tree_map(lambda _, q: _cut_axes(tuple(q["mq"])[1:], mesh),
+                        pspec, specs["opt"]["q"]),
+        pmax=lambda ts, ks: _max_by_group(ts, ks, mesh))
+    rows_of = []
+    tree_map(lambda _, b: rows_of.append(b), pspec, new_p)
+    del new_p
+    at: Dict[tuple, list] = {}
+    for i, (_, shape, q, _, _) in enumerate(items):
+        cols = _cut_axes(tuple(q["mq"])[1:], mesh)
+        if cols:
+            at.setdefault(cols, []).append(i)
+    for cols, idx in at.items():
+        got = mesh_gather(
+            [rows_of[i] for i in idx],
+            [(-(-math.prod(items[i][1]) // _BLOCK), _BLOCK) for i in idx],
+            [items[i][2]["mq"] for i in idx], mesh, cols)
+        for i, t in zip(idx, got):
+            rows_of[i] = t
+    runs, have, want, axes = [], [], [], []
+    for (sp, shape, q, _, _), block in zip(items, rows_of):
+        n = math.prod(shape)
+        _, (s, e) = _run(n, q["mq"], mesh)
+        runs.append(block.reshape(-1)[:e - s])
+        have.append(functools.partial(_run, n, q["mq"], mesh))
+        want.append(functools.partial(block_region, shape, sp, mesh))
+        axes.append(_run_axes(shape, sp, q["mq"], mesh, fetch=False))
+    del rows_of
+    new = iter(mesh_exchange(runs, [it[1] for it in items], have, want, axes,
+                             mesh))
+    return tree_map(lambda _: next(new), pspec), new_opt
+
+
+def rank_ef_compress(grads, errors, specs, shapes, mesh):
+    """--compress's error feedback over a mesh of ranks on this rank's
+    blocks (`optim.compress.compress_blocks`): each leaf's residual block
+    under `specs["errors"]` (the moments' ZeRO-1 spec) and the rank's
+    gradient block inside it, gc = g + err; the leaf's scale mean |gc| the
+    blocks' sums of |gc| summed over the ranks that cut the leaf
+    (`_sum_by_group`: one all-reduce a distinct group) over its numel.
+    `grads` are the rank's model blocks; no gradient or residual is
+    gathered.  Returns (the decoded ZeRO-1 blocks, the new residual
+    blocks)."""
+    espec, pshape = specs["errors"], shapes["params"]
+    g = tree_leaves(cut(grads, espec, mesh, specs["params"], pshape))
+    leaves = tree_leaves(errors)
+    decoded, new_err = compress_blocks(
+        g, leaves, [t.numel() for t in tree_leaves(pshape)],
+        [_cut_axes(sp, mesh) for sp in tree_leaves(espec)],
+        lambda ts, ks: _sum_by_group(ts, ks, mesh))
+    of = {id(t): (d, e) for t, d, e in zip(leaves, decoded, new_err)}
+    return (tree_map(lambda t: of[id(t)][0], errors),
+            tree_map(lambda t: of[id(t)][1], errors))
+
+
+def rank_update(optimizer_name, optimizer, state, grads, lr, specs, shapes,
+                mesh, *, compress=False, donate=False):
+    """The update over a mesh of ranks from this rank's model blocks of
+    the data-summed gradients (`make_train_step`'s over ranks): no rank
+    gathers a whole leaf.  `state` is the rank's (its blocks under
+    `specs`, of whole trees `shapes`); `donate`: AdamW in place.  Returns
+    (the new params, the new optimizer state, the new residuals or None,
+    the global gradient norm)."""
+    params = state["params"]
+    pspec, pshape = specs["params"], shapes["params"]
+    gspec, new_err = pspec, None
+    if compress:
+        # the decoded gradients are ZeRO-1 blocks
+        gspec = specs["errors"]
+        grads, new_err = rank_ef_compress(grads, state["errors"], specs,
+                                          shapes, mesh)
+    grad_norm = tp_global_norm(grads, gspec, mesh)
+    if optimizer_name == "adamw":
+        # elementwise given the clip's scale: the rank's (model, data)
+        # blocks, put back together over the data group
+        mspec = specs["opt"]["m"]
+        blocks, new_opt = optimizer.update(
+            cut(grads, mspec, mesh, gspec, pshape), state["opt"],
+            cut(params, mspec, mesh, pspec, pshape), lr, norm=grad_norm,
+            **({"donate": True} if donate else {}))
+        new_params = gather(blocks, mspec, pshape, mesh, dp_axes(mesh))
+    elif optimizer_name == "adafactor":
+        new_params, new_opt = rank_adafactor_update(
+            optimizer, grads, params, state["opt"], lr, specs, shapes, mesh,
+            grad_specs=gspec)
+    else:
+        if compress:
+            # back to model blocks, which the state's runs are fetched from
+            grads = gather(grads, gspec, pshape, mesh, dp_axes(mesh))
+        new_params, new_opt = rank_adam8bit_update(
+            optimizer, grads, params, state["opt"], lr, grad_norm, specs,
+            shapes, mesh)
+    return new_params, new_opt, new_err, grad_norm
 
 
 def rank_rows(batch, mesh, accum: int = 1):
@@ -498,52 +709,11 @@ def make_train_step(cfg, mesh=None, *, optimizer_name: str = "adamw",
                        grad_norm)
 
     def _rank_update(state, grads, loss, metrics):
-        """The update over a mesh of ranks from this rank's model blocks
-        of the data-summed gradients."""
-        params = state["params"]
-        pspec, model = specs["params"], ("model",)
-        # --compress's error feedback and adam8bit's int8 blocks over the
-        # flattened leaf need whole leaves
-        whole = compress or optimizer_name == "adam8bit"
-        if whole:
-            grads = gather(grads, pspec, shapes["params"], ranks, model)
-        new_err = None
-        if compress:
-            errors = gather(state["errors"], specs["errors"],
-                            shapes["errors"], ranks)
-            grads, new_err = _ef_compress(grads, errors)
-            new_err = tree_map(torch.Tensor.clone,
-                               cut(new_err, specs["errors"], ranks))
         lr = warmup_cosine(state["step"], peak_lr=peak_lr, warmup=warmup,
                            total=total_steps)
-        grad_norm = (_global_norm(grads) if whole
-                     else tp_global_norm(grads, pspec, ranks))
-        if optimizer_name == "adamw":
-            # elementwise given the clip's scale: the rank's (model, data)
-            # blocks, put back together over the data group
-            mspec = specs["opt"]["m"]
-            g_blocks = (cut(grads, mspec, ranks) if whole else
-                        cut(grads, mspec, ranks, pspec, shapes["params"]))
-            blocks, new_opt = optimizer.update(
-                g_blocks, state["opt"],
-                cut(params, mspec, ranks, pspec, shapes["params"]), lr,
-                norm=grad_norm, **in_place)
-            new_params = gather(blocks, mspec, shapes["params"], ranks,
-                                dp_axes(ranks))
-        elif optimizer_name == "adafactor":
-            if whole:
-                grads = cut(grads, pspec, ranks)
-            new_params, new_opt = rank_adafactor_update(
-                optimizer, grads, params, state["opt"], lr, specs, shapes,
-                ranks)
-        else:       # adam8bit, on whole leaves
-            full = gather(params, pspec, shapes["params"], ranks, model)
-            opt = gather(state["opt"], specs["opt"], shapes["opt"], ranks)
-            full, opt = optimizer.update(grads, opt, full, lr)
-            new_params = tree_map(torch.Tensor.clone,
-                                  cut(full, pspec, ranks))
-            new_opt = tree_map(torch.Tensor.clone,
-                               cut(opt, specs["opt"], ranks))
+        new_params, new_opt, new_err, grad_norm = rank_update(
+            optimizer_name, optimizer, state, grads, lr, specs, shapes,
+            ranks, compress=compress, donate=bool(in_place))
         return _finish(state, new_params, new_opt, new_err, loss, metrics,
                        lr, grad_norm)
 
@@ -570,12 +740,14 @@ def make_train_step(cfg, mesh=None, *, optimizer_name: str = "adamw",
         drawn as blocks: the params inside the mesh (`init_params`: the
         rank's model blocks, the weights one process's), AdamW's zero
         moments and the --compress residuals as their blocks within the
-        params'; Adafactor's and adam8bit's state, whose leaves are not
-        the params' shapes, from whole-shaped stand-ins (a zero
-        expanded, no storage) of the params, cut."""
+        params'; adam8bit's codes and scales at its blocks' shapes
+        (`init_blocks`); Adafactor's factored state, whose leaves are not
+        the params' shapes, from whole-shaped stand-ins (a zero expanded,
+        no storage) of the params, cut."""
         with ranks:
             params = init_params(seed, cfg, device=device)
         pspec, pshape = specs["params"], shapes["params"]
+        dev = resolve_device(device)
 
         def within(tree, spec):
             # a block smaller than the param's is copied out of it
@@ -586,15 +758,17 @@ def make_train_step(cfg, mesh=None, *, optimizer_name: str = "adamw",
             opt = optimizer.init(params)
             opt.update(m=within(opt["m"], specs["opt"]["m"]),
                        v=within(opt["v"], specs["opt"]["v"]))
+        elif optimizer_name == "adam8bit":
+            opt = optimizer.init_blocks(tree_map(
+                lambda t, sp: local_shape(tuple(t.shape), sp, ranks),
+                shapes["opt"]["q"], specs["opt"]["q"]), device=dev)
         else:
-            dev = resolve_device(device)
             stand = tree_map(lambda t: torch.zeros(
                 (), dtype=t.dtype, device=dev).expand(t.shape), pshape)
             opt = tree_map(torch.Tensor.clone,
                            cut(optimizer.init(stand), specs["opt"], ranks))
         st = {"params": params, "opt": opt,
-              "step": torch.zeros((), dtype=torch.int32,
-                                  device=resolve_device(device))}
+              "step": torch.zeros((), dtype=torch.int32, device=dev)}
         if compress:
             st["errors"] = within(init_errors(params), specs["errors"])
         return st

@@ -69,10 +69,11 @@ from repro_torch.runtime import sharding, steps
 from repro_torch.tree import tree_leaves, tree_map
 
 from test_torch_ranks import (F32_PARAM_ATOL, F32_PARAM_RTOL, F32_RTOL,
-                              REF_LOSS_RTOL, SMALL, assert_trees_close,
-                              assert_trees_equal, batches,
-                              float32_configs, main_lines, restore, result,
-                              run_world, step_losses, step_run)
+                              REF_LOSS_RTOL, SMALL, assert_mostly_close,
+                              assert_trees_close, assert_trees_equal,
+                              batches, flat, float32_configs, main_lines,
+                              restore, result, run_world, step_losses,
+                              step_run)
 
 OPS_TOL = {"atol": 1e-6, "rtol": 1e-6}
 ALPHA_ULPS = 3
@@ -233,10 +234,11 @@ def scenario_reference(out):
 
 
 def scenario_optimizers(out):
-    """adafactor and --compress at (2, 2), 2 steps."""
+    """adafactor, adam8bit and --compress at (2, 2), 2 steps."""
     mesh = host_mesh(2)
     res = {}
     for name, opt, compress in (("adafactor", "adafactor", False),
+                                ("adam8bit", "adam8bit", False),
                                 ("compress", "adamw", True)):
         m, state, specs = step_run("drim-bnn", opt, 2, mesh,
                                    compress=compress)
@@ -695,12 +697,17 @@ def test_model_axis_equals_the_reference_trainer(world2, reference):
         np.testing.assert_allclose(g, w["loss"], rtol=REF_LOSS_RTOL)
 
 
-@pytest.mark.parametrize("name", ["adafactor", "compress"])
+@pytest.mark.parametrize("name", ["adafactor", "adam8bit", "compress"])
 def test_whole_leaf_optimizers_at_two_by_two(name, world4):
     """adafactor (each rank's blocks updated, its factored statistics
-    summed over the ranks that cut their axes) and --compress (the
-    gradients and residuals gathered whole for the error feedback) at
-    (2, 2): two steps' metrics and params within the float32 bounds."""
+    summed over the ranks that cut their axes), adam8bit (the runs of
+    each rank's state rows updated, its block maxima taken over the ranks
+    that cut the blocks' columns) and --compress (each rank's residual
+    block fed back, a leaf's mean |g + err| summed over its blocks) at
+    (2, 2), none of them on whole leaves: two steps' metrics within the
+    float32 bounds and params within them (adam8bit: but for
+    INT8_FLIP_SHARE of each leaf's elements, an int8 code that rounds
+    the other way)."""
     opt = {"compress": "adamw"}.get(name, name)
     want_m, want, _ = step_run("drim-bnn", opt, 2, None,
                                compress=name == "compress")
@@ -710,6 +717,9 @@ def test_whole_leaf_optimizers_at_two_by_two(name, world4):
             for key in ("loss", "grad_norm"):
                 np.testing.assert_allclose(g[key], w[key], rtol=F32_RTOL,
                                            err_msg=key)
+        if name == "adam8bit":
+            assert_mostly_close(flat(got["params"]), flat(want["params"]))
+            continue
         assert_trees_close(got["params"], want["params"], F32_PARAM_ATOL,
                            F32_PARAM_RTOL)
 
